@@ -1,0 +1,126 @@
+"""Batch verification interface + host implementation.
+
+Each method takes a list of proof instances (one per (sender, receiver)
+pair or per sender) and returns one verdict per instance, in order.
+Verdicts are never short-circuited: the caller maps failing rows back to
+party indices for identifiable abort (reference error semantics,
+`src/error.rs`).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+from ..config import ProtocolConfig
+from ..core.paillier import EncryptionKey
+from ..core.secp256k1 import Point
+from ..core.vss import VerifiableSS
+from ..errors import PDLwSlackProofError
+from ..proofs.alice_range import AliceProof
+from ..proofs.composite_dlog import CompositeDLogProof, DLogStatement
+from ..proofs.correct_key import NiCorrectKeyProof
+from ..proofs.pdl_slack import PDLwSlackProof, PDLwSlackStatement
+from ..proofs.ring_pedersen import RingPedersenProof, RingPedersenStatement
+
+
+class BatchVerifier:
+    """Interface; see HostBatchVerifier for reference semantics."""
+
+    def verify_pdl(
+        self, items: Sequence[Tuple[PDLwSlackProof, PDLwSlackStatement]]
+    ) -> List[Optional[Tuple[bool, bool, bool]]]:
+        """Per item: None if valid, else the (u1, u2, u3) equation booleans."""
+        raise NotImplementedError
+
+    def verify_range(
+        self, items: Sequence[Tuple[AliceProof, int, EncryptionKey, DLogStatement]]
+    ) -> List[bool]:
+        raise NotImplementedError
+
+    def verify_pairs(self, pdl_items, range_items):
+        """Both families of the O(n^2) pair loop
+        (`src/refresh_message.rs:330-350`). Default: two family calls;
+        the device backend overrides to share one fused launch set."""
+        return self.verify_pdl(pdl_items), self.verify_range(range_items)
+
+    def verify_ring_pedersen(
+        self, items: Sequence[Tuple[RingPedersenProof, RingPedersenStatement]], m_security: int
+    ) -> List[bool]:
+        raise NotImplementedError
+
+    def verify_correct_key(
+        self, items: Sequence[Tuple[NiCorrectKeyProof, EncryptionKey]], rounds: int
+    ) -> List[bool]:
+        raise NotImplementedError
+
+    def verify_composite_dlog(
+        self, items: Sequence[Tuple[CompositeDLogProof, DLogStatement]]
+    ) -> List[bool]:
+        raise NotImplementedError
+
+    def validate_feldman(
+        self, items: Sequence[Tuple[VerifiableSS, Point, int]]
+    ) -> List[bool]:
+        """Per item: scheme, public share point, 1-based evaluation index."""
+        raise NotImplementedError
+
+
+class HostBatchVerifier(BatchVerifier):
+    def __init__(self, hash_alg: Optional[str] = None):
+        # None -> the process-default digest (core.transcript); get_backend
+        # binds the session's config.hash_alg here
+        self._hash_alg = hash_alg
+
+    def verify_pdl(self, items):
+        out = []
+        for proof, st in items:
+            try:
+                proof.verify(st, hash_alg=self._hash_alg)
+                out.append(None)
+            except PDLwSlackProofError as e:
+                out.append((e.is_u1_eq, e.is_u2_eq, e.is_u3_eq))
+        return out
+
+    def verify_range(self, items):
+        return [
+            proof.verify(c, ek, dlog, hash_alg=self._hash_alg)
+            for proof, c, ek, dlog in items
+        ]
+
+    def verify_ring_pedersen(self, items, m_security):
+        out = []
+        for proof, st in items:
+            try:
+                proof.verify(st, m_security, hash_alg=self._hash_alg)
+                out.append(True)
+            except Exception:
+                out.append(False)
+        return out
+
+    def verify_correct_key(self, items, rounds):
+        return [
+            proof.verify(ek, rounds=rounds, hash_alg=self._hash_alg)
+            for proof, ek in items
+        ]
+
+    def verify_composite_dlog(self, items):
+        return [proof.verify(st, hash_alg=self._hash_alg) for proof, st in items]
+
+    def validate_feldman(self, items):
+        """Feldman share validation by per-row Horner evaluation."""
+        return [
+            scheme.validate_share_public(point, idx)
+            for scheme, point, idx in items
+        ]
+
+
+def get_backend(config: ProtocolConfig) -> BatchVerifier:
+    """The configured verifier, with the session's hash_alg bound into it
+    (never installed process-wide)."""
+    if config.backend == "host":
+        return HostBatchVerifier(config.hash_alg)
+    if config.backend == "cuda":
+        from .cuda_verifier import CudaBatchVerifier
+
+        return CudaBatchVerifier(config)
+    raise ValueError(f"unknown backend {config.backend!r}")

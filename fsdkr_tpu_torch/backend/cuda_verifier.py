@@ -1,0 +1,379 @@
+"""Device batch verifier: every proof family of collect() as batched
+multi-modulus modexp / modmul columns through the RNS kernels (the column
+path of the JAX package's TpuBatchVerifier).
+
+Equation strategy per family (rewritten to avoid modular inverses
+wherever the proof carries the commitment being checked):
+
+- PDL-with-slack (`src/zk_pdl_with_slack.rs:113-168`):
+    u2 * c^e  == (1+n)^s1 * s2^n   (mod n^2)
+    u3 * z^e  == h1^s1 * h2^s3     (mod N~)
+    u1        == s1*G - e*Q        (EC, on the host)
+  — no inverses; (1+n)^s1 mod n^2 has the closed form 1 + (s1 mod n)*n.
+- Alice range (`src/range_proofs.rs:112-164`): the challenge is recomputed
+  from reconstructed u, w, so the actual values are needed:
+    w = h1^s1 h2^s2 (z^e)^{-1},  u = (1+s1*n) s^n (c^e)^{-1}
+  — z^e, c^e, h1^s1, h2^s2, s^n on the device; the inversions on the
+  host (Montgomery's trick per modulus group).
+- Ring-Pedersen (`src/ring_pedersen_proof.rs:138-155`): rows (item, i):
+    T^{Z_i} == A_i * S^{e_i}  (mod N), e_i in {0,1} — one n*M-row batch.
+- Correct-key: sigma_i^N == rho_i (mod N); rho derivation + small-factor
+  gates on the host.
+- Composite dlog: g^y * ni^e == C (mod N).
+- Feldman: host Horner per row.
+
+Hash transcripts are recomputed on the host.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List
+
+from ..config import ProtocolConfig, DEFAULT_CONFIG
+from ..core.secp256k1 import N as CURVE_ORDER
+from ..core.secp256k1 import Scalar
+from ..core.transcript import challenge_bits
+from ..proofs import alice_range, correct_key
+from ..proofs.pdl_slack import PDLwSlackProof
+from ..proofs.ring_pedersen import RingPedersenProof
+from .batch_verifier import BatchVerifier, HostBatchVerifier
+from .powm import device_modmul, device_powm, powm_columns
+
+
+def batch_inv(values, moduli) -> List:
+    """Row-wise modular inverses on the host by Montgomery's trick per
+    modulus group: one pow(., -1, m) per group. A group whose product is
+    not invertible is inverted row by row, so the result is None exactly
+    where pow(x, -1, m) fails."""
+    groups: Dict[int, List[int]] = {}
+    for i, m in enumerate(moduli):
+        groups.setdefault(m, []).append(i)
+    out: List = [None] * len(values)
+    for m, idxs in groups.items():
+        vals = [values[i] % m for i in idxs]
+        prefix = [1] * (len(vals) + 1)
+        for j, v in enumerate(vals):
+            prefix[j + 1] = prefix[j] * v % m
+        try:
+            acc = pow(prefix[-1], -1, m)
+        except ValueError:
+            for i, v in zip(idxs, vals):
+                try:
+                    out[i] = pow(v, -1, m)
+                except ValueError:
+                    out[i] = None
+            continue
+        for j in range(len(vals) - 1, -1, -1):
+            out[idxs[j]] = prefix[j] * acc % m
+            acc = acc * vals[j] % m
+    return out
+
+
+class CudaBatchVerifier(BatchVerifier):
+    """Batched verification on the configured torch device, host oracle
+    semantics, per-row exact verdicts."""
+
+    def __init__(self, config: ProtocolConfig = DEFAULT_CONFIG):
+        self.config = config
+        self.device = config.torch_device()
+        self._host = HostBatchVerifier(config.hash_alg)
+
+    def _modexp(self, bases, exps, moduli):
+        return device_powm(bases, exps, moduli, self.device)
+
+    def _modmul(self, a, b, moduli):
+        return device_modmul(a, b, moduli, self.device)
+
+    # ------------------------------------------------------------------
+    def _pdl_prepare(self, items):
+        """Recompute challenges; return (the family's modexp columns,
+        carry state for _pdl_finish). Out-of-domain rows
+        (PDLwSlackProof.domain_gate) are staged with zeros and
+        force-failed in _pdl_finish."""
+        row_ok = [PDLwSlackProof.domain_gate(p, st) for p, st in items]
+        e_vec = [
+            PDLwSlackProof._challenge(
+                st, p.z, p.u1, p.u2, p.u3, self.config.hash_alg
+            )
+            if ok
+            else 0
+            for (p, st), ok in zip(items, row_ok)
+        ]
+        s1_col = [p.s1 if ok else 0 for (p, _), ok in zip(items, row_ok)]
+        s3_col = [p.s3 if ok else 0 for (p, _), ok in zip(items, row_ok)]
+        nn_mod = [st.ek.nn for _, st in items]
+        nt_mod = [st.N_tilde for _, st in items]
+        cols = (
+            ([st.ciphertext for _, st in items], e_vec, nn_mod),
+            ([p.s2 for p, _ in items], [st.ek.n for _, st in items], nn_mod),
+            ([p.z for p, _ in items], e_vec, nt_mod),
+            ([st.h1 for _, st in items], s1_col, nt_mod),
+            ([st.h2 for _, st in items], s3_col, nt_mod),
+        )
+        return cols, (e_vec, nn_mod, nt_mod, row_ok)
+
+    def _pdl_finish(self, items, state, results):
+        """Combine the modexp column results into per-row verdicts."""
+        e_vec, nn_mod, nt_mod, row_ok = state
+        c_e, s2_n, z_e, h1_s1, h2_s3 = results
+        gs1 = [(1 + (p.s1 % st.ek.n) * st.ek.n) % st.ek.nn for p, st in items]
+        lhs2 = self._modmul([p.u2 for p, _ in items], c_e, nn_mod)
+        rhs2 = self._modmul(gs1, s2_n, nn_mod)
+        lhs3 = self._modmul([p.u3 for p, _ in items], z_e, nt_mod)
+        rhs3 = self._modmul(h1_s1, h2_s3, nt_mod)
+        ok1_vec = self._pdl_u1_host(items, e_vec)
+        out = []
+        for idx in range(len(items)):
+            ok1 = ok1_vec[idx] and row_ok[idx]
+            ok2 = lhs2[idx] == rhs2[idx] and row_ok[idx]
+            ok3 = lhs3[idx] == rhs3[idx] and row_ok[idx]
+            out.append(None if (ok1 and ok2 and ok3) else (ok1, ok2, ok3))
+        return out
+
+    @staticmethod
+    def _pdl_u1_host(items, e_vec) -> List[bool]:
+        """u1 == s1*G - e*Q per row (`src/zk_pdl_with_slack.rs:124-127`)."""
+        out = []
+        for idx, (proof, st) in enumerate(items):
+            g_s1 = st.G * Scalar.from_int(proof.s1)
+            e_neg = Scalar.from_int(CURVE_ORDER - e_vec[idx] % CURVE_ORDER)
+            out.append(proof.u1 == g_s1 + st.Q * e_neg)
+        return out
+
+    def verify_pdl(self, items):
+        if not items:
+            return []
+        cols, state = self._pdl_prepare(items)
+        return self._pdl_finish(items, state, powm_columns(self._modexp, *cols))
+
+    # ------------------------------------------------------------------
+    def _range_gate(self, items):
+        """Domain-gate every row (AliceProof.domain_gate, including the
+        q^3 slack bound on s1) and zero the challenge of gated rows."""
+        nn_mod = [ek.nn for _, _, ek, _ in items]
+        nt_mod = [dlog.N for _, _, _, dlog in items]
+        row_ok = [
+            alice_range.AliceProof.domain_gate(p, c, dlog)
+            for p, c, _, dlog in items
+        ]
+        e_vec = [
+            p.e if ok else 0 for (p, _, _, _), ok in zip(items, row_ok)
+        ]
+        return nn_mod, nt_mod, row_ok, e_vec
+
+    def _range_prepare(self, items):
+        """Return (the family's modexp columns, carry state for
+        _range_finish). Column order matches _range_finish."""
+        nn_mod, nt_mod, row_ok, e_vec = self._range_gate(items)
+        s1_col = [
+            p.s1 if ok else 0 for (p, _, _, _), ok in zip(items, row_ok)
+        ]
+        s2_col = [
+            p.s2 if ok else 0 for (p, _, _, _), ok in zip(items, row_ok)
+        ]
+        cols = (
+            ([p.z for p, _, _, _ in items], e_vec, nt_mod),
+            ([dlog.g for _, _, _, dlog in items], s1_col, nt_mod),
+            ([dlog.ni for _, _, _, dlog in items], s2_col, nt_mod),
+            ([c for _, c, _, _ in items], e_vec, nn_mod),
+            (
+                [p.s for p, _, _, _ in items],
+                [ek.n for _, _, ek, _ in items],
+                nn_mod,
+            ),
+        )
+        return cols, (nn_mod, nt_mod, row_ok)
+
+    def _range_finish(self, items, mods, results):
+        nn_mod, nt_mod, row_ok = mods
+        z_e, h1_s1, h2_s2, c_e, s_n = results
+        w_part = self._modmul(h1_s1, h2_s2, nt_mod)
+        # domain-gated rows are force-failed below and skipped here: an
+        # adversarial s1 on a gated row can be arbitrarily wide
+        gs1 = [
+            (1 + p.s1 * ek.n) % ek.nn if ok else 1
+            for (p, _, ek, _), ok in zip(items, row_ok)
+        ]
+        u_part = self._modmul(gs1, s_n, nn_mod)
+        z_e_inv_vec = batch_inv(z_e, nt_mod)
+        c_e_inv_vec = batch_inv(c_e, nn_mod)
+        out = []
+        for idx, (proof, cipher, ek, dlog) in enumerate(items):
+            if not row_ok[idx]:
+                out.append(False)
+                continue
+            z_e_inv = z_e_inv_vec[idx]
+            c_e_inv = c_e_inv_vec[idx]
+            if z_e_inv is None or c_e_inv is None:
+                out.append(False)
+                continue
+            w = w_part[idx] * z_e_inv % dlog.N
+            u = u_part[idx] * c_e_inv % ek.nn
+            out.append(
+                alice_range._challenge(
+                    ek.n, cipher, proof.z, u, w, self.config.hash_alg
+                )
+                == proof.e
+            )
+        return out
+
+    def verify_range(self, items):
+        if not items:
+            return []
+        cols, mods = self._range_prepare(items)
+        return self._range_finish(items, mods, powm_columns(self._modexp, *cols))
+
+    # ------------------------------------------------------------------
+    def verify_pairs(self, pdl_items, range_items):
+        """Both pair-loop families through ONE fused launch set: every
+        modexp column submitted together, so same-width columns across
+        families share launches."""
+        pcols, state = self._pdl_prepare(pdl_items)
+        rcols, rmods = self._range_prepare(range_items)
+        results = powm_columns(self._modexp, *pcols, *rcols)
+        return (
+            self._pdl_finish(pdl_items, state, results[: len(pcols)]),
+            self._range_finish(range_items, rmods, results[len(pcols) :]),
+        )
+
+    # ------------------------------------------------------------------
+    def _ring_pedersen_gate(self, proof, st, m_security) -> bool:
+        """The statement modulus and the proof vectors are wire data: gate
+        the row before staging (honest: A_i < N, Z_i < phi < N)."""
+        n_cap = self.config.paillier_bits + 64
+        return (
+            len(proof.A) == m_security
+            and len(proof.Z) == m_security
+            and st.N > 2
+            and st.N % 2 == 1
+            and st.N.bit_length() <= n_cap
+            and 0 <= st.S < st.N
+            and 0 <= st.T < st.N
+            and all(0 <= z < st.N for z in proof.Z)
+            and all(0 <= a < st.N for a in proof.A)
+        )
+
+    def verify_ring_pedersen(self, items, m_security):
+        if not items:
+            return []
+        bases, exps, moduli, rhs_a, rhs_s = [], [], [], [], []
+        shapes_ok = []
+        for proof, st in items:
+            ok = self._ring_pedersen_gate(proof, st, m_security)
+            shapes_ok.append(ok)
+            if not ok:
+                continue
+            e = RingPedersenProof._challenge(proof.A, self.config.hash_alg)
+            bits = challenge_bits(e, m_security, self.config.hash_alg)
+            for a_i, z_i, b in zip(proof.A, proof.Z, bits):
+                bases.append(st.T)
+                exps.append(z_i)
+                moduli.append(st.N)
+                rhs_a.append(a_i)
+                rhs_s.append(st.S if b else 1)
+
+        lhs = self._modexp(bases, exps, moduli)
+        rhs = self._modmul(rhs_a, rhs_s, moduli)
+
+        out = []
+        row = 0
+        for ok in shapes_ok:
+            if not ok:
+                out.append(False)
+                continue
+            good = all(
+                lhs[row + i] == rhs[row + i] for i in range(m_security)
+            )
+            row += m_security
+            out.append(good)
+        return out
+
+    # ------------------------------------------------------------------
+    def _correct_key_gate(self, proof, ek, rounds) -> bool:
+        """Wire-ek gate (parity / small-factor / width cap)."""
+        n = ek.n
+        n_cap = self.config.paillier_bits + 64
+        return (
+            len(proof.sigma_vec) == rounds
+            and n > 0
+            and n % 2 == 1
+            and n.bit_length() <= n_cap
+            and math.gcd(n, correct_key._PRIMORIAL) == 1
+            and all(0 < s < n for s in proof.sigma_vec)
+        )
+
+    def verify_correct_key(self, items, rounds):
+        if not items:
+            return []
+        bases, exps, moduli, want = [], [], [], []
+        gates = []
+        for proof, ek in items:
+            gate = self._correct_key_gate(proof, ek, rounds)
+            gates.append(gate)
+            if not gate:
+                continue
+            n = ek.n
+            for i, sigma in enumerate(proof.sigma_vec):
+                bases.append(sigma)
+                exps.append(n)
+                moduli.append(n)
+                want.append(
+                    correct_key._derive_rho(
+                        n, correct_key.SALT_STRING, i, self.config.hash_alg
+                    )
+                )
+
+        got = self._modexp(bases, exps, moduli)
+        out = []
+        row = 0
+        for gate in gates:
+            if not gate:
+                out.append(False)
+                continue
+            good = all(got[row + i] == want[row + i] for i in range(rounds))
+            row += rounds
+            out.append(good)
+        return out
+
+    # ------------------------------------------------------------------
+    def verify_composite_dlog(self, items):
+        if not items:
+            return []
+        from ..proofs.composite_dlog import STAT_BITS, CompositeDLogProof
+
+        # the statement (N, g, ni) and proof (x_commit, y) are all wire
+        # data: gate the row's domain before transcripts/staging
+        n_cap = self.config.paillier_bits + 64
+        row_ok = [
+            st.N > 2
+            and st.N % 2 == 1
+            and st.N.bit_length() <= n_cap
+            and 0 <= st.g < st.N
+            and 0 <= st.ni < st.N
+            and 0 < p.x_commit < st.N
+            and 0 <= p.y
+            and p.y.bit_length() <= st.N.bit_length() + STAT_BITS + 320
+            for p, st in items
+        ]
+        e_vec = [
+            CompositeDLogProof._challenge(p.x_commit, st, self.config.hash_alg)
+            if ok
+            else 0
+            for (p, st), ok in zip(items, row_ok)
+        ]
+        moduli = [st.N if ok else 3 for (_, st), ok in zip(items, row_ok)]
+        y_col = [p.y if ok else 0 for (p, _), ok in zip(items, row_ok)]
+        g_y = self._modexp([st.g for _, st in items], y_col, moduli)
+        ni_e = self._modexp([st.ni for _, st in items], e_vec, moduli)
+        lhs = self._modmul(g_y, ni_e, moduli)
+        return [
+            row_ok[idx] and lhs[idx] == p.x_commit
+            for idx, (p, st) in enumerate(items)
+        ]
+
+    # ------------------------------------------------------------------
+    def validate_feldman(self, items):
+        """sum_k A_k * u^k == S_u per row (`src/refresh_message.rs:177-188`),
+        on the host (device EC is a later slice)."""
+        return self._host.validate_feldman(items)

@@ -1,0 +1,323 @@
+"""The two hand-written Hopper kernels of the RNS route, their plain
+PyTorch versions, the build/loader, and launch counters.
+
+`mont_mul` (kernel 1) — one RNS Montgomery product x*y*A^{-1} mod N per
+    row. Replaces `fsdkr_tpu/ops/pallas_rns.py:184` `rns_mont_mul_pallas`.
+`modexp` (kernel 2) — base^exp per row, the whole 4-bit fixed-window loop
+    in one launch. Replaces `fsdkr_tpu/ops/pallas_rns.py:317`
+    `rns_modexp_pallas`.
+
+Both kernels live in `csrc/rns_kernels.cu` (CUDA C++ for sm_90a; its
+header comment gives the design). What bounds them on the H100: the two
+base extensions are 2*k*(k+1) multiply-adds per product per row (k = 131
+at the 2048-bit class, 260 at 4096), run here as 32x32->64-bit integer
+multiply-adds on the CUDA cores with the T1/T2 constants re-read from L2
+by every row; a product at k=260 moves 2*260*261*4 B = 543 KB of
+constants through L2. The design keeps everything else on chip: kernel 2
+holds the window table and accumulator in shared memory for the whole
+loop, so device memory sees each row's inputs once and its result once.
+
+Tensors crossing the kernel boundary are int32 holding values < 2^16.
+The wrapper dispatches on the tensor's device: a CPU tensor runs the
+plain version (the CPU tests' path); a CUDA tensor launches the kernel
+or raises — there is no fallback from the kernel to the plain version.
+The plain versions compute in int64 with float64 matmuls (exact: every
+product < 2^32, every sum over <= 511 terms < 2^41 < 2^53); on the card
+they are the reference the kernels are held against, bit for bit.
+
+The library is built at first use with nvcc into `build/` beside the
+package (route (b): a plain C interface loaded with ctypes), and rebuilt
+when the source changes. Nothing is built or imported at module import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+__all__ = [
+    "RNSConsts",
+    "mont_mul",
+    "modexp",
+    "mont_mul_plain",
+    "modexp_plain",
+    "launch_counts",
+    "reset_launch_counts",
+    "load_library",
+]
+
+_PKG = Path(__file__).resolve().parent.parent
+_SRC = _PKG / "csrc" / "rns_kernels.cu"
+_BUILD = _PKG / "build"
+_NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+_MAX_K = 511  # 2k+1 threads per block must stay <= 1024
+
+WINDOW_BITS = 4
+
+
+@dataclass
+class RNSConsts:
+    """Shared per-width-class constants on one device (int32, < 2^16):
+    m_all (2k+1,), T1 and T2 (k, k+1), Ainv_B (k+1,), c2_B (k,),
+    B_mod_A (k,), and the scalar Binv_r."""
+
+    k: int
+    m_all: torch.Tensor
+    T1: torch.Tensor
+    T2: torch.Tensor
+    Ainv_B: torch.Tensor
+    c2_B: torch.Tensor
+    B_mod_A: torch.Tensor
+    Binv_r: int
+    _i64: Dict[str, torch.Tensor] = field(default_factory=dict, repr=False)
+
+    def i64(self, name: str) -> torch.Tensor:
+        """int64 copy of a constant, cached (the plain versions' type)."""
+        if name not in self._i64:
+            self._i64[name] = getattr(self, name).to(torch.int64)
+        return self._i64[name]
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+
+
+def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact integer product of non-negative int64 matrices whose every
+    dot product stays below 2^53 — float64 carries it exactly (CUDA's
+    matmul takes no integer types)."""
+    return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int64)
+
+
+def _mont_mul_i64(x, y, c1, nbmr, K: RNSConsts):
+    k = K.k
+    m = K.i64("m_all")
+    mA, mBr, mB = m[:k], m[k:], m[k : 2 * k]
+    mAr = torch.cat([m[:k], m[2 * k :]])
+    d = x * y % m
+    xi = d[:, :k] * c1 % mA
+    q = exact_matmul(xi, K.i64("T1")) % mBr  # (R, k+1) in B | m_r
+    t = (q * nbmr + d[:, k:]) % mBr
+    r_Bmr = t * K.i64("Ainv_B") % mBr
+    zeta = r_Bmr[:, :k] * K.i64("c2_B") % mB
+    s = exact_matmul(zeta, K.i64("T2")) % mAr  # (R, k+1) in A | m_r
+    # exact Shenoy correction from the redundant channel
+    m_r = m[2 * k]
+    beta = (s[:, k] - r_Bmr[:, k]) % m_r * K.Binv_r % m_r  # (R,), < k
+    corr = beta[:, None] * K.i64("B_mod_A") % mA
+    r_A = (s[:, :k] - corr) % mA
+    return torch.cat([r_A, r_Bmr], dim=1)
+
+
+def mont_mul_plain(x, y, c1, nbmr, K: RNSConsts) -> torch.Tensor:
+    """Plain version of kernel 1: (R, 2k+1) int32 residues in, out."""
+    return _mont_mul_i64(
+        x.to(torch.int64), y.to(torch.int64), c1.to(torch.int64),
+        nbmr.to(torch.int64), K,
+    ).to(torch.int32)
+
+
+def modexp_plain(base_res, exp, a2n_res, c1, nbmr, K: RNSConsts,
+                 exp_bits: int) -> torch.Tensor:
+    """Plain version of kernel 2: the same window loop, the same
+    one-hot masked select over all 16 table entries."""
+    c1 = c1.to(torch.int64)
+    nbmr = nbmr.to(torch.int64)
+    exp = exp.to(torch.int64)
+
+    def mul(a, b):
+        return _mont_mul_i64(a, b, c1, nbmr, K)
+
+    a2n = a2n_res.to(torch.int64)
+    one = torch.ones_like(a2n)
+    base_m = mul(base_res.to(torch.int64), a2n)
+    one_m = mul(one, a2n)
+    table = [one_m, base_m]
+    for _ in range(2, 1 << WINDOW_BITS):
+        table.append(mul(table[-1], base_m))
+    table = torch.stack(table)  # (16, R, C)
+    idx = torch.arange(1 << WINDOW_BITS, device=exp.device)[:, None, None]
+    acc = one_m
+    for wi in range(exp_bits // WINDOW_BITS):
+        shift = exp_bits - WINDOW_BITS * (wi + 1)
+        w = (exp[:, shift // 16] >> (shift % 16)) & ((1 << WINDOW_BITS) - 1)
+        for _ in range(WINDOW_BITS):
+            acc = mul(acc, acc)
+        sel = (table * (w[None, :, None] == idx)).sum(dim=0)
+        acc = mul(acc, sel)
+    return mul(acc, one).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# build / load
+
+_LIB: Optional[ctypes.CDLL] = None
+build_info: dict = {}  # so path, build seconds, nvcc's -Xptxas -v report
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    return str(path) if path.exists() else "nvcc"
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if the source hash has no library yet) and load the kernels."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    src = _SRC.read_bytes()
+    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = _BUILD / f"librns_kernels-{tag}.so"
+    t0 = time.perf_counter()
+    if not so.exists():
+        _BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, so)
+        build_info["ptxas"] = proc.stderr
+    build_info["seconds"] = time.perf_counter() - t0
+    build_info["so"] = str(so)
+    lib = ctypes.CDLL(str(so))
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    lib.fsdkr_rns_mont_mul.argtypes = [p, p, p, p, p, p, p, p, p, p, u, i, i, p, p]
+    lib.fsdkr_rns_mont_mul.restype = i
+    lib.fsdkr_rns_modexp.argtypes = [
+        p, p, i, i, p, p, p, p, p, p, p, p, p, u, i, i, p, p,
+    ]
+    lib.fsdkr_rns_modexp.restype = i
+    _LIB = lib
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+
+
+def _check(name, t, rows, width, device):
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if t.dim() != 2 or t.shape[0] != rows or t.shape[1] != width:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected ({rows}, {width})")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_consts(K: RNSConsts, device):
+    k = K.k
+    if not 0 < k <= _MAX_K:
+        raise ValueError(f"k={k} outside the kernels' 1..{_MAX_K}")
+    for name, shape in (
+        ("m_all", (2 * k + 1,)), ("T1", (k, k + 1)), ("T2", (k, k + 1)),
+        ("Ainv_B", (k + 1,)), ("c2_B", (k,)), ("B_mod_A", (k,)),
+    ):
+        t = getattr(K, name)
+        if t.device != device or t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(f"constant {name} must be int32 {shape} on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"constant {name} must be contiguous")
+
+
+def _const_ptrs(K: RNSConsts):
+    return (
+        K.m_all.data_ptr(), K.T1.data_ptr(), K.T2.data_ptr(),
+        K.Ainv_B.data_ptr(), K.c2_B.data_ptr(), K.B_mod_A.data_ptr(),
+        K.Binv_r, K.k,
+    )
+
+
+def mont_mul(x, y, c1, nbmr, K: RNSConsts) -> torch.Tensor:
+    """Kernel 1: x*y*A^{-1} mod N per row over (R, 2k+1) residues."""
+    rows, k = x.shape[0], K.k
+    device = x.device
+    for name, t, w in (("x", x, 2 * k + 1), ("y", y, 2 * k + 1),
+                       ("c1", c1, k), ("nbmr", nbmr, k + 1)):
+        _check(name, t, rows, w, device)
+    _check_consts(K, device)
+    if device.type == "cpu":
+        return mont_mul_plain(x, y, c1, nbmr, K)
+    if device.type != "cuda":
+        raise ValueError(f"no RNS kernel for device {device}")
+    lib = load_library()
+    out = torch.empty_like(x)
+    err = lib.fsdkr_rns_mont_mul(
+        x.data_ptr(), y.data_ptr(), c1.data_ptr(), nbmr.data_ptr(),
+        *_const_ptrs(K), rows, out.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"fsdkr_rns_mont_mul launch failed: CUDA error {err}")
+    mont_mul.launches += 1
+    mont_mul.shapes[(k, rows)] = mont_mul.shapes.get((k, rows), 0) + 1
+    return out
+
+
+def modexp(base_res, exp, a2n_res, c1, nbmr, K: RNSConsts,
+           exp_bits: int) -> torch.Tensor:
+    """Kernel 2: base^exp mod N per row (residues in and out); exp holds
+    16-bit limbs, exp_bits is the bucketed loop width (multiple of 4)."""
+    rows, k = base_res.shape[0], K.k
+    device = base_res.device
+    if exp_bits <= 0 or exp_bits % WINDOW_BITS or exp.shape[-1] * 16 < exp_bits:
+        raise ValueError(f"exp_bits={exp_bits} does not fit the exponent limbs")
+    for name, t, w in (("base_res", base_res, 2 * k + 1),
+                       ("exp", exp, exp.shape[-1]),
+                       ("a2n_res", a2n_res, 2 * k + 1),
+                       ("c1", c1, k), ("nbmr", nbmr, k + 1)):
+        _check(name, t, rows, w, device)
+    _check_consts(K, device)
+    if device.type == "cpu":
+        return modexp_plain(base_res, exp, a2n_res, c1, nbmr, K, exp_bits)
+    if device.type != "cuda":
+        raise ValueError(f"no RNS kernel for device {device}")
+    lib = load_library()
+    out = torch.empty_like(base_res)
+    err = lib.fsdkr_rns_modexp(
+        base_res.data_ptr(), exp.data_ptr(), exp.shape[1], exp_bits,
+        a2n_res.data_ptr(), c1.data_ptr(), nbmr.data_ptr(), *_const_ptrs(K),
+        rows, out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"fsdkr_rns_modexp launch failed: CUDA error {err}")
+    modexp.launches += 1
+    modexp.shapes[(k, rows, exp_bits)] = modexp.shapes.get((k, rows, exp_bits), 0) + 1
+    return out
+
+
+# launch counters: bumped where a kernel launches and nowhere else; the
+# shapes maps let a measurement time each kernel at the shapes a run used
+mont_mul.launches = 0
+mont_mul.shapes = {}  # (k, rows) -> launches
+modexp.launches = 0
+modexp.shapes = {}  # (k, rows, exp_bits) -> launches
+
+
+def launch_counts() -> dict:
+    return {"rns_mont_mul": mont_mul.launches, "rns_modexp": modexp.launches}
+
+
+def reset_launch_counts() -> None:
+    mont_mul.launches = 0
+    mont_mul.shapes = {}
+    modexp.launches = 0
+    modexp.shapes = {}

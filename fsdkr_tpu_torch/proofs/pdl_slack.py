@@ -1,0 +1,282 @@
+"""PDL-with-slack proof: a Paillier ciphertext c = Enc_ek(x, r) and an EC
+point Q = x*G hide the same x, with range slack x in [-q^3, q^3].
+
+Re-derivation of the reference's `PDLwSlackProof`
+(`src/zk_pdl_with_slack.rs`, following eprint 2016/013 PIi):
+
+  prover (witness x < q, r):
+    alpha < q^3, beta <- [1, n), rho < q*Ntilde, gamma < q^3*Ntilde
+    z  = h1^x h2^rho mod Ntilde
+    u1 = alpha * G
+    u2 = (1+n)^alpha beta^n mod n^2
+    u3 = h1^alpha h2^gamma mod Ntilde
+    e  = H(G, Q, c, z, u1, u2, u3)
+    s1 = e*x + alpha;  s2 = r^e beta mod n;  s3 = e*rho + gamma
+
+  verifier: recompute e; accept iff
+    u1 == s1*G - e*Q
+    u2 == (1+n)^s1 s2^n c^{-e} mod n^2
+    u3 == h1^s1 h2^s3 z^{-e} mod Ntilde
+"""
+
+from __future__ import annotations
+
+import secrets
+from dataclasses import dataclass
+
+from ..core import intops
+from ..core.paillier import EncryptionKey
+from ..core.secp256k1 import N as CURVE_ORDER
+from ..core.secp256k1 import Point, Scalar
+from ..core.transcript import Transcript
+from ..errors import PDLwSlackProofError
+
+__all__ = ["PDLwSlackStatement", "PDLwSlackWitness", "PDLwSlackProof", "commitment_unknown_order"]
+
+_DOMAIN = b"fsdkr/pdl-slack/v1"
+
+
+def commitment_unknown_order(h1: int, h2: int, modulus: int, x: int, r: int) -> int:
+    """h1^x * h2^r mod modulus over a group of unknown order; negative
+    exponents via modular inverse (reference
+    `src/zk_pdl_with_slack.rs:170-188`)."""
+    return (
+        intops.mod_pow_signed(h1, x, modulus)
+        * intops.mod_pow_signed(h2, r, modulus)
+        % modulus
+    )
+
+
+@dataclass(frozen=True)
+class PDLwSlackStatement:
+    # field set mirrors src/zk_pdl_with_slack.rs:24-32
+    ciphertext: int
+    ek: EncryptionKey
+    Q: Point
+    G: Point
+    h1: int
+    h2: int
+    N_tilde: int
+
+
+@dataclass(frozen=True)
+class PDLwSlackWitness:
+    x: Scalar
+    r: int
+
+
+@dataclass(frozen=True)
+class PDLwSlackProof:
+    z: int
+    u1: Point
+    u2: int
+    u3: int
+    s1: int
+    s2: int
+    s3: int
+
+    @staticmethod
+    def _challenge(
+        st: PDLwSlackStatement, z: int, u1: Point, u2: int, u3: int,
+        hash_alg: str | None = None,
+    ) -> int:
+        # transcript fields mirror src/zk_pdl_with_slack.rs:87-95
+        return (
+            Transcript(_DOMAIN, algorithm=hash_alg)
+            .chain_point(st.G)
+            .chain_point(st.Q)
+            .chain_int(st.ciphertext)
+            .chain_int(z)
+            .chain_point(u1)
+            .chain_int(u2)
+            .chain_int(u3)
+            .result_challenge()
+        )
+
+    @staticmethod
+    def prove(
+        witness: PDLwSlackWitness,
+        st: PDLwSlackStatement,
+        hash_alg: str | None = None,
+    ) -> "PDLwSlackProof":
+        return PDLwSlackProof.prove_batch([witness], [st], hash_alg=hash_alg)[0]
+
+    # Two-phase batched prover: stage1 emits the modexp columns of the
+    # round-1 commitments, stage2 (after the fused launch) emits the
+    # response column. distribute_batch drives the PDL and Alice-range
+    # provers (and the encryption column) in lockstep so same-width
+    # columns of BOTH families share one launch — sequential modexp
+    # depth, not row count, prices a launch (backend.powm.powm_columns).
+
+    @staticmethod
+    def sample_stage1(ntv, nv):
+        """Stage-1 nonce sampling for len(ntv) rows. Returns (alpha,
+        beta, rho, gamma) columns."""
+        q = CURVE_ORDER
+        q3 = q**3
+        alpha = [secrets.randbelow(q3) for _ in ntv]
+        beta = [1 + secrets.randbelow(n - 1) for n in nv]
+        rho = [secrets.randbelow(q * nt) for nt in ntv]
+        gamma = [secrets.randbelow(q3 * nt) for nt in ntv]
+        return alpha, beta, rho, gamma
+
+    @staticmethod
+    def prove_stage1(witnesses, h1v, h2v, ntv, nv, nnv, hash_alg=None):
+        """Sample nonces, return (state, columns) in the per-term column
+        layout. CONTRACT: the beta^n mod n^2 column is LAST —
+        distribute_batch splits it into the fused Paillier launch by
+        position."""
+        alpha, beta, rho, gamma = PDLwSlackProof.sample_stage1(ntv, nv)
+        state = dict(
+            witnesses=witnesses, alpha=alpha, beta=beta, rho=rho,
+            gamma=gamma, ntv=ntv, nv=nv, nnv=nnv, hash_alg=hash_alg,
+        )
+        cols = [
+            (h1v, [w.x.to_int() for w in witnesses], ntv),
+            (h2v, rho, ntv),
+            (h1v, alpha, ntv),
+            (h2v, gamma, ntv),
+            (beta, nv, nnv),
+        ]
+        return state, cols
+
+    @staticmethod
+    def prove_stage2(state, results, statements):
+        """Combine stage-1 results, recompute challenges, return
+        (state, columns): the r^e response column. u1 = alpha*G on the
+        host."""
+        ntv, nv, nnv = state["ntv"], state["nv"], state["nnv"]
+        alpha = state["alpha"]
+        from ..core import paillier
+
+        c1, c2, c3, c4, bn = results
+        z = intops.mod_mul_col(c1, c2, ntv)
+        u3 = intops.mod_mul_col(c3, c4, ntv)
+        u2 = paillier.combine_with_rn(alpha, bn, nv, nnv)  # Enc(alpha; beta)
+        u1 = [st.G * Scalar.from_int(al) for st, al in zip(statements, alpha)]
+        e = [
+            PDLwSlackProof._challenge(st, zi, u1i, u2i, u3i, state["hash_alg"])
+            for st, zi, u1i, u2i, u3i in zip(statements, z, u1, u2, u3)
+        ]
+        state.update(z=z, u1=u1, u2=u2, u3=u3, e=e)
+        return state, [([w.r for w in state["witnesses"]], e, nv)]
+
+    @staticmethod
+    def prove_finish(state, results):
+        (re_,) = results
+        alpha, beta, rho, gamma = (
+            state["alpha"], state["beta"], state["rho"], state["gamma"],
+        )
+        proofs = [
+            PDLwSlackProof(
+                z=zi,
+                u1=u1i,
+                u2=u2i,
+                u3=u3i,
+                s1=ei * w.x.to_int() + al,
+                s2=x * b % n,
+                s3=ei * ro + ga,
+            )
+            for w, n, zi, u1i, u2i, u3i, ei, x, b, al, ro, ga in zip(
+                state["witnesses"], state["nv"], state["z"], state["u1"],
+                state["u2"], state["u3"], state["e"], re_, beta, alpha, rho,
+                gamma,
+            )
+        ]
+        intops.zeroize_ints(alpha, beta, rho, gamma)
+        return proofs
+
+    @staticmethod
+    def prove_batch(
+        witnesses: list[PDLwSlackWitness],
+        statements: list[PDLwSlackStatement],
+        powm=None,
+        hash_alg: str | None = None,
+    ) -> list["PDLwSlackProof"]:
+        """Batched prover: the n-receiver fan-out of distribute (reference
+        `src/refresh_message.rs:87-104`) as modexp columns
+        through `powm` (host pow or one device launch per column).
+
+        (1+n)^alpha mod n^2 uses the closed form 1 + (alpha mod n)*n, so
+        the u2 column needs only the beta^n exponentiation.
+        """
+        if powm is None:
+            from ..backend.powm import host_powm as powm
+        if len(witnesses) != len(statements):
+            raise ValueError(
+                f"batch length mismatch: {len(witnesses)} witnesses, "
+                f"{len(statements)} statements"
+            )
+        from ..backend.powm import powm_columns
+
+        state, cols = PDLwSlackProof.prove_stage1(
+            witnesses,
+            [st.h1 for st in statements],
+            [st.h2 for st in statements],
+            [st.N_tilde for st in statements],
+            [st.ek.n for st in statements],
+            [st.ek.nn for st in statements],
+            hash_alg,
+        )
+        state, cols2 = PDLwSlackProof.prove_stage2(
+            state, powm_columns(powm, *cols), statements
+        )
+        return PDLwSlackProof.prove_finish(state, powm_columns(powm, *cols2))
+
+    @staticmethod
+    def domain_gate(proof: "PDLwSlackProof", st: PDLwSlackStatement,
+                    q: int = CURVE_ORDER) -> bool:
+        """Wire-domain gate for one row of the batched verifier, applied
+        BEFORE any staging, hashing, or aggregation. Exponent-position
+        fields (s1, s3) are attacker-chosen integers: a negative value
+        would crash the limb encoder mid-batch and an oversized one would
+        inflate a whole fused launch's exponent width — a one-row DoS.
+        Width caps
+        are the honest-value bounds: s1 = e*x + alpha < 2q^3 (832 bits of
+        slack used), s3 = e*rho + gamma < 2q^3 * N_tilde.
+        Transcript-position fields (z, u2, u3, ciphertext) must be
+        non-negative for chain_int."""
+        q3 = q**3
+        return (
+            proof.z >= 0
+            and proof.u2 >= 0
+            and proof.u3 >= 0
+            and st.ciphertext >= 0
+            and 0 <= proof.s1 <= 2 * q3
+            and 0 <= proof.s3
+            and proof.s3.bit_length() <= st.N_tilde.bit_length() + 832
+        )
+
+    def verify(self, st: PDLwSlackStatement, hash_alg: str | None = None) -> None:
+        """Raises PDLwSlackProofError with per-equation booleans on failure
+        (reference `src/zk_pdl_with_slack.rs:158-166`).
+
+        Out-of-domain integers (negative proof fields or ciphertext —
+        possible for in-process objects; the wire decode is strict) fail
+        closed with the proof error instead of crashing the transcript."""
+        if (
+            min(self.z, self.u2, self.u3, self.s1, self.s2, self.s3) < 0
+            or st.ciphertext < 0
+        ):
+            raise PDLwSlackProofError(False, False, False)
+        e = PDLwSlackProof._challenge(
+            st, self.z, self.u1, self.u2, self.u3, hash_alg
+        )
+
+        g_s1 = st.G * Scalar.from_int(self.s1)
+        e_neg = Scalar.from_int(CURVE_ORDER - e % CURVE_ORDER)
+        u1_test = g_s1 + st.Q * e_neg
+
+        u2_test_tmp = commitment_unknown_order(
+            st.ek.n + 1, self.s2, st.ek.nn, self.s1, st.ek.n
+        )
+        u2_test = commitment_unknown_order(u2_test_tmp, st.ciphertext, st.ek.nn, 1, -e)
+
+        u3_test_tmp = commitment_unknown_order(
+            st.h1, st.h2, st.N_tilde, self.s1, self.s3
+        )
+        u3_test = commitment_unknown_order(u3_test_tmp, self.z, st.N_tilde, 1, -e)
+
+        ok1, ok2, ok3 = self.u1 == u1_test, self.u2 == u2_test, self.u3 == u3_test
+        if not (ok1 and ok2 and ok3):
+            raise PDLwSlackProofError(ok1, ok2, ok3)

@@ -1,0 +1,535 @@
+"""The refresh protocol: one broadcast message per party + local batch
+verification.
+
+Equivalent of the reference's `RefreshMessage`
+(`src/refresh_message.rs`): `distribute` (:51-145), `validate_collect`
+(:147-191), `get_ciphertext_sum` (:193-237), `collect` (:321-467).
+
+Deliberate deviations from the reference (each a conscious fix):
+1. `collect` rebuilds pk_vec by assignment, not `Vec::insert` (quirk 1).
+2. `distribute` raises an error on t > new_n/2 instead of panicking
+   (quirk 2).
+3. The ring-Pedersen statement broadcast omits the secret phi (see
+   proofs.ring_pedersen).
+4. Verification is *batched*: all proof instances are gathered first, one
+   batched verify per proof family runs (host or device backend), and
+   failures are then attributed to parties in the reference's original
+   loop order — same first-error semantics, batch execution.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Sequence, Tuple
+
+from ..backend import get_backend
+from ..config import ProtocolConfig, DEFAULT_CONFIG
+from ..core import paillier, vss
+from ..core.paillier import DecryptionKey, EncryptionKey
+from ..core.secp256k1 import GENERATOR, Point, Scalar
+from ..errors import (
+    BroadcastedPublicKeyError,
+    ModuliTooSmall,
+    NewPartyUnassignedIndexError,
+    PaillierVerificationError,
+    PartiesThresholdViolation,
+    PDLwSlackProofError,
+    PublicShareValidationError,
+    RangeProofError,
+    RingPedersenProofError,
+    SizeMismatchError,
+)
+from ..proofs.alice_range import AliceProof
+from ..proofs.composite_dlog import DLogStatement
+from ..proofs.correct_key import NiCorrectKeyProof
+from ..proofs.pdl_slack import PDLwSlackProof, PDLwSlackStatement, PDLwSlackWitness
+from ..proofs.ring_pedersen import RingPedersenProof, RingPedersenStatement
+from .local_key import LocalKey
+
+
+@dataclass
+class RefreshMessage:
+    """The broadcast message; field set mirrors
+    `src/refresh_message.rs:31-48` ("everything here can be broadcasted")."""
+
+    old_party_index: int
+    party_index: int
+    pdl_proof_vec: List[PDLwSlackProof]
+    range_proofs: List[AliceProof]
+    coefficients_committed_vec: vss.VerifiableSS
+    points_committed_vec: List[Point]
+    points_encrypted_vec: List[int]
+    dk_correctness_proof: NiCorrectKeyProof
+    dlog_statement: DLogStatement
+    ek: EncryptionKey
+    remove_party_indices: List[int]
+    public_key: Point
+    ring_pedersen_statement: RingPedersenStatement
+    ring_pedersen_proof: RingPedersenProof
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def distribute(
+        old_party_index: int,
+        local_key: LocalKey,
+        new_n: int,
+        config: ProtocolConfig = DEFAULT_CONFIG,
+    ) -> Tuple["RefreshMessage", DecryptionKey]:
+        """Sender path (reference :51-145). Mutates local_key.vss_scheme.
+
+        Returns the broadcast message and the *new* Paillier decryption key,
+        which the caller feeds back into `collect`.
+        """
+        return RefreshMessage.distribute_batch(
+            [(old_party_index, local_key)], new_n, config
+        )[0]
+
+    @staticmethod
+    def distribute_batch(
+        senders: Sequence[Tuple[int, LocalKey]],
+        new_n: int,
+        config: ProtocolConfig = DEFAULT_CONFIG,
+    ) -> List[Tuple["RefreshMessage", DecryptionKey]]:
+        """All senders' paths as fused cross-party batches: the
+        per-receiver columns of every sender concatenate into ONE launch
+        per proof family and width. Mutates each local_key.vss_scheme."""
+        from ..backend.powm import get_batch_powm, powm_columns
+
+        powm = get_batch_powm(config)
+
+        # validate every sender BEFORE the first mutation: a late failure
+        # must not leave earlier senders' vss_scheme replaced by schemes
+        # whose shares were never broadcast
+        for _, local_key in senders:
+            t = local_key.t
+            if t > new_n // 2:
+                raise PartiesThresholdViolation(threshold=t, refreshed_keys=new_n)
+            if new_n <= t:
+                raise NewPartyUnassignedIndexError()
+
+        per = []  # per-sender working state, in input order
+        for old_party_index, local_key in senders:
+            coeffs, secret_shares = vss.sample_poly(
+                local_key.t, new_n, local_key.keys_linear.x_i
+            )
+            receiver_eks = [local_key.paillier_key_vec[i] for i in range(new_n)]
+            per.append(
+                dict(
+                    old_i=old_party_index,
+                    key=local_key,
+                    coeffs=coeffs,
+                    shares=secret_shares,
+                    eks=receiver_eks,
+                    rand=[paillier.sample_randomness(ek) for ek in receiver_eks],
+                )
+            )
+
+        # Feldman coefficient commitments A_k = a_k * G (host EC)
+        for p in per:
+            p["scheme"] = vss.VerifiableSS(
+                vss.ShamirSecretSharing(p["key"].t, new_n),
+                [GENERATOR * c for c in p["coeffs"]],
+            )
+            del p["coeffs"]  # polynomial coefficients are secret round state
+            p["key"].vss_scheme = p["scheme"]
+
+        # flattened share ints, reused by the commit points and the
+        # encryption column below (holds secret material)
+        flat_share_ints = [s.to_int() for p in per for s in p["shares"]]
+
+        # commit points S_i = sigma_i * G (reference :67-69)
+        for p in per:
+            p["points"] = [GENERATOR * s for s in p["shares"]]
+
+        # ---- fused prover columns over all (sender, receiver) pairs: the
+        # encryption column and BOTH proof families' stage-1 commitment
+        # columns share launches by width, then both families' r^e
+        # response columns share the stage-2 launch
+        flat_rand = [r for p in per for r in p["rand"]]
+        flat_nv = [ek.n for p in per for ek in p["eks"]]
+        flat_nnv = [ek.nn for p in per for ek in p["eks"]]
+        flat_h1 = [p["key"].h1_h2_n_tilde_vec[i].g for p in per for i in range(new_n)]
+        flat_h2 = [p["key"].h1_h2_n_tilde_vec[i].ni for p in per for i in range(new_n)]
+        flat_nt = [p["key"].h1_h2_n_tilde_vec[i].N for p in per for i in range(new_n)]
+        flat_witnesses = [
+            PDLwSlackWitness(x=s, r=r)
+            for p in per
+            for s, r in zip(p["shares"], p["rand"])
+        ]
+
+        # both provers return their Paillier beta^n column LAST, so the
+        # full-width public-exponent columns (enc r^n + both beta^n) stay
+        # in one launch set and the mod-N~ columns in the other
+        pdl_state, pdl_cols = PDLwSlackProof.prove_stage1(
+            flat_witnesses, flat_h1, flat_h2, flat_nt, flat_nv, flat_nnv,
+            hash_alg=config.hash_alg,
+        )
+        alice_state, alice_cols = AliceProof.generate_stage1(
+            flat_share_ints, flat_rand, flat_h1, flat_h2, flat_nt,
+            flat_nv, flat_nnv, hash_alg=config.hash_alg,
+        )
+        res_pail = powm_columns(
+            powm, (flat_rand, flat_nv, flat_nnv), pdl_cols[-1], alice_cols[-1]
+        )
+        res_commit = powm_columns(powm, *pdl_cols[:-1], *alice_cols[:-1])
+        n_pdl = len(pdl_cols)
+        pdl_res1 = res_commit[: n_pdl - 1] + [res_pail[1]]
+        alice_res1 = res_commit[n_pdl - 1 :] + [res_pail[2]]
+
+        # ciphertexts from the fused encryption column (randomness is
+        # unit-sampled above)
+        flat_enc = paillier.combine_with_rn(
+            flat_share_ints, res_pail[0], flat_nv, flat_nnv
+        )
+        # (the share ints also live on as alice_state["avals"] until the
+        # proofs are assembled — same round-state lifetime as the nonces)
+        del flat_share_ints
+        for k, p in enumerate(per):
+            p["enc"] = flat_enc[k * new_n : (k + 1) * new_n]
+
+        flat_statements = [
+            PDLwSlackStatement(
+                ciphertext=p["enc"][i],
+                ek=p["eks"][i],
+                Q=p["points"][i],
+                G=GENERATOR,
+                h1=p["key"].h1_h2_n_tilde_vec[i].g,
+                h2=p["key"].h1_h2_n_tilde_vec[i].ni,
+                N_tilde=p["key"].h1_h2_n_tilde_vec[i].N,
+            )
+            for p in per
+            for i in range(new_n)
+        ]
+
+        pdl_state, pdl_cols2 = PDLwSlackProof.prove_stage2(
+            pdl_state, pdl_res1, flat_statements
+        )
+        alice_state, alice_cols2 = AliceProof.generate_stage2(
+            alice_state, alice_res1, flat_enc
+        )
+        res2 = powm_columns(powm, *pdl_cols2, *alice_cols2)
+        flat_pdl = PDLwSlackProof.prove_finish(pdl_state, res2[: len(pdl_cols2)])
+        flat_range = AliceProof.generate_finish(
+            alice_state, res2[len(pdl_cols2) :]
+        )
+
+        # ---- per-sender key material: fresh Paillier pairs, ring-Pedersen
+        # statements, and the fused correct-key / ring-Pedersen prover
+        # columns
+        count = len(per)
+        ek_dk = paillier.keygen_batch(config.paillier_bits, count)
+        rp = RingPedersenStatement.generate_batch(count, config)
+        ck_proofs = NiCorrectKeyProof.proof_batch(
+            [dk for _, dk in ek_dk],
+            rounds=config.correct_key_rounds,
+            powm=powm, hash_alg=config.hash_alg,
+        )
+        rp_proofs = RingPedersenProof.prove_batch(
+            [w for _, w in rp], [st for st, _ in rp],
+            config.m_security, powm, config.hash_alg,
+        )
+
+        out = []
+        for k, p in enumerate(per):
+            local_key = p["key"]
+            msg = RefreshMessage(
+                old_party_index=p["old_i"],
+                party_index=local_key.i,
+                pdl_proof_vec=flat_pdl[k * new_n : (k + 1) * new_n],
+                range_proofs=flat_range[k * new_n : (k + 1) * new_n],
+                coefficients_committed_vec=p["scheme"],
+                points_committed_vec=p["points"],
+                points_encrypted_vec=p["enc"],
+                dk_correctness_proof=ck_proofs[k],
+                dlog_statement=local_key.h1_h2_n_tilde_vec[local_key.i - 1],
+                ek=ek_dk[k][0],
+                remove_party_indices=[],
+                public_key=local_key.y_sum_s,
+                ring_pedersen_statement=rp[k][0],
+                ring_pedersen_proof=rp_proofs[k],
+            )
+            out.append((msg, ek_dk[k][1]))
+        return out
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def validate_collect(
+        refresh_messages: Sequence["RefreshMessage"],
+        t: int,
+        n: int,
+        config: ProtocolConfig = DEFAULT_CONFIG,
+    ) -> None:
+        """Structure checks + batched Feldman validation (reference :147-191)."""
+        if len(refresh_messages) <= t:
+            raise PartiesThresholdViolation(
+                threshold=t, refreshed_keys=len(refresh_messages)
+            )
+
+        # every per-receiver vector must cover the full new committee; the
+        # reference only compares against messages[0]'s length
+        # (src/refresh_message.rs:157-175), which can crash the Feldman loop
+        # below or misattribute blame — we check against n directly
+        for k, msg in enumerate(refresh_messages):
+            lens = (
+                len(msg.pdl_proof_vec),
+                len(msg.points_committed_vec),
+                len(msg.points_encrypted_vec),
+            )
+            if any(l != n for l in lens) or len(msg.range_proofs) != n:
+                raise SizeMismatchError(k, *lens)
+
+        backend = get_backend(config)
+        items = [
+            (msg.coefficients_committed_vec, msg.points_committed_vec[i], i + 1)
+            for msg in refresh_messages
+            for i in range(n)
+        ]
+        if not all(backend.validate_feldman(items)):
+            raise PublicShareValidationError()
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def get_ciphertext_sum(
+        refresh_messages: Sequence["RefreshMessage"],
+        party_index: int,
+        parameters: vss.ShamirSecretSharing,
+        ek: EncryptionKey,
+    ) -> Tuple[int, List[Scalar]]:
+        """Homomorphic Lagrange combination of the first t+1 senders'
+        ciphertext columns addressed to `party_index` — the "one
+        decryption" optimization (reference :193-237)."""
+        t = parameters.threshold
+        ciphertexts = [
+            msg.points_encrypted_vec[party_index - 1] for msg in refresh_messages
+        ]
+        indices = [msg.old_party_index - 1 for msg in refresh_messages[: t + 1]]
+        li_vec = [
+            vss.map_share_to_new_params(parameters, indices[i], indices)
+            for i in range(t + 1)
+        ]
+        acc = paillier.encrypt(ek, 0)
+        for i in range(t + 1):
+            acc = paillier.add(ek, acc, paillier.mul(ek, ciphertexts[i], li_vec[i].to_int()))
+        return acc, li_vec
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def interpolate_constant_term(
+        refresh_messages: Sequence["RefreshMessage"],
+        li_vec: Sequence[Scalar],
+        t: int,
+    ) -> Point:
+        """sum_j lambda_j * A_0^{(j)} over the first t+1 senders' Feldman
+        constant-term commitments. Each A_0^{(j)} commits to sender j's
+        OLD share x_j, so with honest Lagrange weights this re-derives
+        the (unchanged) group public key — the hardening gate collect
+        compares against y (reference quirk 4 / TODO at
+        src/refresh_message.rs:199 leaves the broadcast old_party_index
+        untrusted-but-unchecked)."""
+        acc = refresh_messages[0].coefficients_committed_vec.commitments[0] * li_vec[0]
+        for j in range(1, t + 1):
+            acc = acc + (
+                refresh_messages[j].coefficients_committed_vec.commitments[0]
+                * li_vec[j]
+            )
+        return acc
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def collect(
+        refresh_messages: Sequence["RefreshMessage"],
+        local_key: LocalKey,
+        new_dk: DecryptionKey,
+        config: ProtocolConfig = DEFAULT_CONFIG,
+    ) -> None:
+        """Receiver path — the O(n^2) verification loop, executed as
+        per-family batches (reference :321-467). Raises the first error
+        in the reference's check order; on success rotates local_key."""
+        backend = get_backend(config)
+        msgs = refresh_messages
+        new_n = len(msgs)
+
+        # ---- structure checks + Feldman validation (reference :147-191)
+        check_structure(msgs, local_key, new_n)
+        feld_items = [
+            (msg.coefficients_committed_vec, msg.points_committed_vec[i], i + 1)
+            for msg in msgs
+            for i in range(new_n)
+        ]
+        if not all(backend.validate_feldman(feld_items)):
+            raise PublicShareValidationError()
+
+        # ---- the O(n^2) PDL + range instances, one fused launch set ----
+        pdl_items: list = []
+        range_items: list = []
+        for msg in msgs:
+            for i in range(new_n):
+                st = PDLwSlackStatement(
+                    ciphertext=msg.points_encrypted_vec[i],
+                    ek=local_key.paillier_key_vec[i],
+                    Q=msg.points_committed_vec[i],
+                    G=GENERATOR,
+                    h1=local_key.h1_h2_n_tilde_vec[i].g,
+                    h2=local_key.h1_h2_n_tilde_vec[i].ni,
+                    N_tilde=local_key.h1_h2_n_tilde_vec[i].N,
+                )
+                pdl_items.append((msg.pdl_proof_vec[i], st))
+                range_items.append(
+                    (
+                        msg.range_proofs[i],
+                        msg.points_encrypted_vec[i],
+                        local_key.paillier_key_vec[i],
+                        local_key.h1_h2_n_tilde_vec[i],
+                    )
+                )
+        pdl_verdicts, range_verdicts = backend.verify_pairs(pdl_items, range_items)
+        pair_blame(msgs, new_n, pdl_verdicts, range_verdicts)
+
+        # ---- ring-Pedersen batch (reference :352-365) -----------------
+        rp_items = [(m.ring_pedersen_proof, m.ring_pedersen_statement) for m in msgs]
+        if not all(backend.verify_ring_pedersen(rp_items, config.m_security)):
+            raise RingPedersenProofError()
+
+        # ---- share recovery inputs (reference :367-373) ---------------
+        recovered = share_recovery_check(msgs, local_key)
+
+        # ---- Paillier correct-key batch, then adoption ----------------
+        ck_verdicts = backend.verify_correct_key(
+            [(m.dk_correctness_proof, m.ek) for m in msgs],
+            config.correct_key_rounds,
+        )
+        adopt_session(
+            msgs, local_key, new_dk, ck_verdicts, recovered, new_n, config
+        )
+
+
+# ---------------------------------------------------------------------------
+# collect stages
+
+
+def check_structure(msgs: Sequence["RefreshMessage"], key: LocalKey, new_n: int) -> None:
+    """Threshold + per-message wire-shape + broadcast-public-key gates
+    (reference :147-191 plus the quirk-5 generalization), first error in
+    message order."""
+    if len(msgs) <= key.t:
+        raise PartiesThresholdViolation(
+            threshold=key.t, refreshed_keys=len(msgs)
+        )
+    for k, msg in enumerate(msgs):
+        lens = (
+            len(msg.pdl_proof_vec),
+            len(msg.points_committed_vec),
+            len(msg.points_encrypted_vec),
+        )
+        if any(l != new_n for l in lens) or len(msg.range_proofs) != new_n:
+            raise SizeMismatchError(k, *lens)
+        # the reference gates broadcast public_key only on the join path
+        # (add_party_message.rs:268-274, quirk 5); here an existing party
+        # knows the true group key, so gate every broadcast against it
+        if msg.public_key != key.y_sum_s:
+            raise BroadcastedPublicKeyError(msg.party_index)
+
+
+def pair_blame(
+    msgs: Sequence["RefreshMessage"],
+    new_n: int,
+    pdl_verdicts: Sequence,
+    range_verdicts: Sequence,
+    start: int = 0,
+) -> None:
+    """Attribute pair-loop failures in the reference's loop order (msg
+    outer, i inner; PDL before range — src/refresh_message.rs:330-350).
+    The PDL error names the sender whose proof failed."""
+    row = start
+    for msg in msgs:
+        for i in range(new_n):
+            if pdl_verdicts[row] is not None:
+                raise PDLwSlackProofError(
+                    *pdl_verdicts[row], party_index=msg.party_index
+                )
+            if not range_verdicts[row]:
+                raise RangeProofError(party_index=i)
+            row += 1
+
+
+def share_recovery_check(
+    msgs: Sequence["RefreshMessage"], key: LocalKey
+) -> Tuple[EncryptionKey, int, List[Scalar]]:
+    """Homomorphic share-recovery inputs + the constant-term Lagrange
+    gate (reference :367-373 plus the quirk-4 hardening): the Lagrange
+    weights must re-derive the unchanged group key, or a lying/
+    duplicated old_party_index silently rotates the committee onto a
+    DIFFERENT secret (see interpolate_constant_term)."""
+    old_ek = key.paillier_key_vec[key.i - 1]
+    cipher_sum, li_vec = RefreshMessage.get_ciphertext_sum(
+        msgs, key.i, key.vss_scheme.parameters, old_ek
+    )
+    y_check = RefreshMessage.interpolate_constant_term(msgs, li_vec, key.t)
+    if y_check != key.y_sum_s:
+        raise PublicShareValidationError()
+    return old_ek, cipher_sum, li_vec
+
+
+def adopt_session(
+    msgs: Sequence["RefreshMessage"],
+    local_key: LocalKey,
+    new_dk: DecryptionKey,
+    ck_verdicts: Sequence[bool],
+    recovered: Tuple[EncryptionKey, int, List[Scalar]],
+    new_n: int,
+    config: ProtocolConfig,
+) -> None:
+    """The mutating adoption phase (reference :375-467): correct-key
+    verdict gates, moduli-size gates, paillier_key_vec installs, own-share
+    decrypt + Feldman consistency gate, key rotation. A failure mid-way
+    leaves the same partial paillier_key_vec updates the reference would."""
+    for k, msg in enumerate(msgs):
+        if not ck_verdicts[k]:
+            raise PaillierVerificationError(party_index=msg.party_index)
+        n_len = msg.ek.n.bit_length()
+        if n_len > config.paillier_bits or n_len < config.paillier_bits - 1:
+            raise ModuliTooSmall(
+                party_index=msg.party_index, moduli_size=n_len
+            )
+        local_key.paillier_key_vec[msg.party_index - 1] = msg.ek
+
+    # ---- decrypt own new share; rotate key material -------------------
+    old_ek, cipher_sum, li_vec = recovered
+    new_share = paillier.decrypt(local_key.paillier_dk, old_ek, cipher_sum)
+    new_share_fe = Scalar.from_int(new_share)
+
+    # pk_vec rebuild by assignment — conscious fix of quirk 1
+    # (reference :455-464 uses Vec::insert)
+    pk_vec = combine_committed_points(msgs, li_vec, local_key.t, new_n)
+
+    # consistency gate absent from the reference: the decrypted share
+    # must match the Feldman-committed public share, or the key would be
+    # silently corrupted (e.g. by a plaintext wrap mod a too-small
+    # Paillier modulus)
+    if GENERATOR * new_share_fe != pk_vec[local_key.i - 1]:
+        raise PublicShareValidationError()
+
+    # zeroize the old dk, install the new one (reference :445-448)
+    local_key.paillier_dk.zeroize()
+    local_key.paillier_dk = new_dk
+
+    local_key.keys_linear.x_i = new_share_fe
+    local_key.keys_linear.y = GENERATOR * new_share_fe
+    local_key.pk_vec = pk_vec
+
+
+def combine_committed_points(
+    refresh_messages: Sequence["RefreshMessage"],
+    li_vec: Sequence[Scalar],
+    t: int,
+    n: int,
+) -> List[Point]:
+    """X_i = sum_{j=0..t} lambda_j * S_i^{(j)} over the first t+1 senders'
+    committed points (reference :455-464), on the host."""
+    pk_vec = []
+    for i in range(n):
+        acc = refresh_messages[0].points_committed_vec[i] * li_vec[0]
+        for j in range(1, t + 1):
+            acc = acc + refresh_messages[j].points_committed_vec[i] * li_vec[j]
+        pk_vec.append(acc)
+    return pk_vec
