@@ -10,9 +10,11 @@ Phases:
   env      nvidia-smi name and power limit, torch/CUDA versions, the
            kernels' build from csrc/ (with nvcc's register report).
   kernels  each hand-written kernel against its plain PyTorch version on
-           the card, at k=131 (2048-bit class), k=260 (4096-bit class) and
-           the 6144-bit class, random and worst-case rows: residues must be
-           bit-identical.
+           the card, at k=131 (2048-bit class), k=260 (4096-bit class), the
+           6144-bit class (k=389) and the 7168-bit class (k=454, where
+           kernel 2 holds 4 rows per block), with row counts that do and do
+           not fill kernel 2's row tiles, random and worst-case rows:
+           residues must be bit-identical.
   rns      rns_modexp / rns_modmul (through device_powm / device_modmul)
            against CPython pow at 2048- and 4096-bit moduli.
   main     the refresh round at paillier_bits=2048, M=256, 11 correct-key
@@ -23,8 +25,9 @@ Phases:
            counters must be > 0 over distribute + collect.
   time     each kernel against its plain version at every shape the main
            path launched it with (random and worst-case rows, bit-identical
-           residues), then timed (CUDA events) at the main path's costliest
-           shape beside its plain version, and its bound on the H100.
+           residues); each kernel timed (CUDA events) beside its bound on
+           the H100 at every one of those shapes, and at the main path's
+           costliest shape beside its plain version too.
 
 Prints the kernels line `{"kernels": [...]}` and, last, `{"ok": true,
 "device": {...}}`. Any failure exits non-zero with no result line.
@@ -133,7 +136,8 @@ def phase_env(dev):
     log(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
         f"({rns_kernels.build_info.get('so')})")
     for line in rns_kernels.build_info.get("ptxas", "").splitlines():
-        if "registers" in line or "Compiling entry" in line or "smem" in line:
+        if any(w in line for w in ("registers", "Compiling entry", "smem", "spill",
+                                   "stack frame")):
             log(f"  ptxas: {line.strip()}")
 
 
@@ -142,8 +146,10 @@ def phase_kernels(dev, rng):
 
     from fsdkr_tpu_torch.ops import rns, rns_kernels
 
-    # 6144 bits: the modexp kernel's shared memory passes 48 KB there
-    for bits, rows in ((2048, 64), (4096, 64), (6144, 8)):
+    # 6144 bits: kernel 2's tightest shared-memory budget at 8 rows per
+    # block; 7168 bits: 4 rows per block; 13 rows: a partial last tile
+    for bits, rows in ((2048, 64), (2048, 13), (4096, 64), (6144, 8),
+                       (7168, 13)):
         rb = rns.rns_bases_for_bits(bits, bits // 16)
         K = rns._device_consts(rb, dev).kernel
         for worst in (False, True):
@@ -436,6 +442,60 @@ def check_main_shapes(dev, rng, mm_shapes, me_shapes):
     return errs
 
 
+def bound_ms(name, k, rows, exp_bits):
+    """The least time the H100 could take for one launch: (ms, "bytes" or
+    "operations"). Bytes: each input read once, each output written once,
+    the shared constants once. Operations: the base extensions' 2k(k+1)
+    multiply-adds per product per row, each four 8-bit ones."""
+    C = 2 * k + 1
+    macs_per_product = 2 * k * (k + 1)
+    const_bytes = 4 * (2 * k * (k + 1) + C + (k + 1) + 2 * k)
+    if name == "rns_mont_mul":
+        products = rows
+        in_out_bytes = 4 * rows * (3 * C + 2 * k + 1)
+    else:
+        products = rows * (17 + 5 * exp_bits // 4)
+        in_out_bytes = 4 * rows * (3 * C + exp_bits // 16 + 2 * k + 1)
+    ops_ms = products * macs_per_product * 4 * 2 / INT8_OPS_PER_S * 1e3
+    bytes_ms = (in_out_bytes + const_bytes) / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def _time_launch(name, K, args, exp_bits, reps):
+    from fsdkr_tpu_torch.ops import rns_kernels
+
+    x, y, c1, nb, exp = args
+    if name == "rns_mont_mul":
+        return _events_ms(lambda: rns_kernels.mont_mul(x, y, c1, nb, K), reps)
+    return _events_ms(
+        lambda: rns_kernels.modexp(x, exp, y, c1, nb, K, exp_bits), reps)
+
+
+def time_main_shapes(dev, rng, mm_shapes, me_shapes):
+    """Each kernel's time (CUDA events) and bound at every shape the main
+    path launched it with; returns rows of the per-shape table."""
+    from fsdkr_tpu_torch.ops import rns
+
+    table = []
+    shapes = [("rns_mont_mul", k, rows, 256, n) for (k, rows), n in sorted(mm_shapes.items())]
+    shapes += [("rns_modexp", *s, n) for s, n in sorted(me_shapes.items())]
+    for name, k, rows, exp_bits, launches in shapes:
+        bits = _bits_of_k(k)
+        rb = rns.rns_bases_for_bits(bits, bits // 16)
+        K = rns._device_consts(rb, dev).kernel
+        args = kernel_inputs(rng, rb, dev, rows, exp_bits, False)
+        reps = 50 if name == "rns_mont_mul" else 3
+        ms = _time_launch(name, K, args, exp_bits, reps)
+        bound, by = bound_ms(name, k, rows, exp_bits)
+        log(f"time: per shape {name} k={k} rows={rows}"
+            + (f" exp_bits={exp_bits}" if name == "rns_modexp" else "")
+            + f": {ms:.4f} ms, bound {bound:.6f} ms ({by}), "
+            f"{ms / bound:.1f}x, {launches} launches")
+        table.append({"name": name, "k": k, "rows": rows, "exp_bits": exp_bits,
+                      "launches": launches, "ms": ms, "bound_ms": bound})
+    return table
+
+
 def phase_time(dev, rng, counts):
     from fsdkr_tpu_torch.ops import rns, rns_kernels
 
@@ -444,7 +504,8 @@ def phase_time(dev, rng, counts):
     if not mm_shapes or not me_shapes:
         fail("no main-path launch shapes recorded (run the main phase)")
     errs = check_main_shapes(dev, rng, mm_shapes, me_shapes)
-    # timed at the costliest shape of each kernel on the main path
+    per_shape = time_main_shapes(dev, rng, mm_shapes, me_shapes)
+    # the kernels line: each kernel at its costliest shape on the main path
     k1, r1 = max(mm_shapes, key=lambda s: s[0] * s[0] * s[1] * mm_shapes[s])
     k2, r2, e2 = max(
         me_shapes, key=lambda s: s[0] * s[0] * s[1] * s[2] * me_shapes[s]
@@ -456,31 +517,20 @@ def phase_time(dev, rng, counts):
         bits = _bits_of_k(k)
         rb = rns.rns_bases_for_bits(bits, bits // 16)
         K = rns._device_consts(rb, dev).kernel
-        x, y, c1, nb, exp = kernel_inputs(rng, rb, dev, rows, exp_bits, False)
-        C = 2 * k + 1
-        macs_per_product = 2 * k * (k + 1)
-        const_bytes = 4 * (2 * k * (k + 1) + C + (k + 1) + 2 * k)
+        x, y, c1, nb, exp = args = kernel_inputs(rng, rb, dev, rows, exp_bits, False)
         if name == "rns_mont_mul":
-            products = rows
-            in_out_bytes = 4 * rows * (3 * C + 2 * k + 1)
-            ms = _events_ms(lambda: rns_kernels.mont_mul(x, y, c1, nb, K), 50)
+            ms = _time_launch(name, K, args, exp_bits, 50)
             plain_ms = _events_ms(
                 lambda: rns_kernels.mont_mul_plain(x, y, c1, nb, K), 20)
             shape = f"k={k} rows={rows}"
         else:
-            products = rows * (17 + 5 * exp_bits // 4)
-            in_out_bytes = 4 * rows * (3 * C + exp_bits // 16 + 2 * k + 1)
-            ms = _events_ms(
-                lambda: rns_kernels.modexp(x, exp, y, c1, nb, K, exp_bits), 3)
+            ms = _time_launch(name, K, args, exp_bits, 3)
             plain_ms = _events_ms(
                 lambda: rns_kernels.modexp_plain(x, exp, y, c1, nb, K, exp_bits), 1)
             shape = f"k={k} rows={rows} exp_bits={exp_bits}"
-        ops = products * macs_per_product * 4 * 2
-        ops_ms = ops / INT8_OPS_PER_S * 1e3
-        bytes_ms = (in_out_bytes + const_bytes) / HBM_BYTES_PER_S * 1e3
+        bound, by = bound_ms(name, k, rows, exp_bits)
         log(f"time: {name} at {shape}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {max(ops_ms, bytes_ms):.6f} ms "
-            f"(ops {ops_ms:.6f} ms, bytes {bytes_ms:.6f} ms)")
+            f"bound {bound:.6f} ms ({by})")
         out.append({
             "name": name,
             "route": "cuda",
@@ -491,10 +541,13 @@ def phase_time(dev, rng, counts):
             "max_abs_err": errs[name],
             "ms": ms,
             "plain_ms": plain_ms,
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_ms": bound,
+            "bound_by": by,
             "library_ms": None,
             "shape": shape,
+            "per_shape": [{key: row[key] for key in ("k", "rows", "exp_bits",
+                                                     "launches", "ms", "bound_ms")}
+                          for row in per_shape if row["name"] == name],
         })
     return out
 

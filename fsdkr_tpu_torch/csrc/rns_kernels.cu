@@ -20,30 +20,52 @@
 // function of the inputs: these kernels, the plain PyTorch versions and
 // the Pallas kernels give bit-identical residues.
 //
-// Design (simple and exact first): one block per row, one thread per
+// Both kernels' base extensions do 2*k*(k+1) multiply-adds per product
+// per row (k = 131 at the 2048-bit class, 260 at 4096): that work bounds
+// them on the H100.
+//
+// Kernel 1 (simple and exact first): one block per row, one thread per
 // channel (blockDim = 2k+1 rounded up to a warp). xi and zeta go to shared
 // memory; each target-channel thread sums k products over its column of
 // T1/T2, read row-major from global memory (L2-resident, coalesced across
 // threads), accumulating exactly in 64 bits (each product < 2^32, each sum
-// < 2^41) and reducing once per channel. beta is computed by the m_r
-// thread and broadcast through shared memory.
+// < 2^41) and reducing once per channel with %. beta is computed by the
+// m_r thread and broadcast through shared memory.
 //
-// Bound on the H100: the base extensions do 2*k*(k+1) multiply-adds per
-// product per row (k = 131 at the 2048-bit class, 260 at 4096). Here they
-// run as 32x32->64-bit integer multiply-adds on the CUDA cores, with every
-// T1/T2 entry re-read from L2 by every row (2*k*(k+1)*4 bytes per product
-// per row); an int8 tensor-core design (8-bit splits, s32 accumulation,
-// row tiles of 64) is the later step.
-//
-// The modexp kernel is the product inside the 4-bit fixed-window loop:
+// Kernel 2 (the modexp) is the product inside the 4-bit fixed-window loop:
 // Montgomery entry through A^2 mod N, a 16-entry window table per row in
 // shared memory, exp_bits/4 windows of 4 squarings + one multiply, exit by
-// multiplying with 1. Exponents may be secret (shares, nonces, d): the
-// window entry is a masked sum over all 16 table entries (never
-// table[w]), there is no early exit, and the loop length is the bucketed
-// width the caller passes, never a row's own bit length. Bases may be
-// secret too (Paillier randomness), so each block zeroes its shared memory
-// before it exits.
+// multiplying with 1. Its design:
+// - Row tiles: a block holds R_T rows (8, or 4 where the window table
+//   would not fit in shared memory: k=454) for the whole loop; rows past
+//   `rows` compute on zeros and are never stored.
+// - 16 warps (512 threads) per block, not 8: every step is a latency
+//   chain, and on the H100 16 warps took about half the time per product
+//   of 8 at the 256-row launches (one block per SM either way), and as
+//   long as two 8-warp blocks per SM at the 4096-row launch.
+// - Base extensions on the tensor cores: out^T (k+1 x R_T) = T^T (k+1 x k)
+//   * xi^T (k x R_T) with channels on M (m16) and rows on N (n8), as four
+//   exact u8 products mma.sync.m16n8k32.u8.u8.s32 of the byte planes
+//   (T_lo/T_hi x xi_lo/xi_hi). T1/T2's planes come from the host in the
+//   A-operand fragment order (ops/rns_kernels.py::fragment_planes): lane
+//   L of M tile mt, K tile kt loads its 16 bytes with one 16-byte load at
+//   ((mt*KT + kt)*32 + L)*16. xi and zeta sit in shared memory as byte
+//   planes [8 rows][Kp + 16] (the 16-byte pad spreads the B-fragment loads
+//   over all 32 banks). Each warp owns M tiles (mt = warp, warp+16, ...)
+//   with its four plane products as independent accumulator chains, and
+//   finishes its tile's channels itself (the epilogue) from registers.
+// - Elementwise steps: a thread owns a channel across all R_T rows, so the
+//   channel's constants load once and the rows are R_T independent chains.
+// - No %: every channel prime is 2^16 - u with u = 2^16 mod m small, so a
+//   reduction folds v -> (v >> 16) * u + (v & 0xFFFF) and ends with one
+//   conditional subtraction. The number of folds of each reduction site is
+//   computed per width class on the host from the real bounds
+//   (ops/rns_kernels.py::fold_counts) and passed in.
+// Exponents may be secret (shares, nonces, d): the window entry is a
+// masked sum over all 16 table entries (never table[w]), there is no early
+// exit, and the loop length is the bucketed width the caller passes, never
+// a row's own bit length. Bases may be secret too (Paillier randomness),
+// so each block zeroes all its shared memory before it exits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -154,70 +176,6 @@ __global__ void rns_mont_mul_kernel(const int32_t* __restrict__ x,
   const uint32_t r = mont_mul(xv, yv, c, L, K, xi_s, zeta_s, beta_s);
   if (c < C) out[base] = (int32_t)r;
 }
-
-__global__ void rns_modexp_kernel(const int32_t* __restrict__ base_res,
-                                  const int32_t* __restrict__ exp,
-                                  int exp_limbs, int exp_bits,
-                                  const int32_t* __restrict__ a2n_res,
-                                  const int32_t* __restrict__ c1,
-                                  const int32_t* __restrict__ nbmr,
-                                  RnsConsts K, int32_t* __restrict__ out) {
-  extern __shared__ uint32_t smem[];
-  const int k = K.k, C = 2 * k + 1;
-  uint32_t* xi_s = smem;
-  uint32_t* zeta_s = smem + k;
-  uint32_t* beta_s = smem + 2 * k;
-  uint32_t* table = smem + 2 * k + 2;  // (16, C): this thread owns column c
-  const int row = blockIdx.x, c = threadIdx.x;
-  const size_t at = (size_t)row * C + c;
-  const Lane L = load_lane(K, c1, nbmr, row, c);
-  const uint32_t b = c < C ? (uint32_t)base_res[at] : 0u;
-  const uint32_t a2n = c < C ? (uint32_t)a2n_res[at] : 0u;
-
-  // into the A-Montgomery domain: x*A = MontMul(x, A^2 mod N)
-  const uint32_t base_m = mont_mul(b, a2n, c, L, K, xi_s, zeta_s, beta_s);
-  const uint32_t one_m = mont_mul(1u, a2n, c, L, K, xi_s, zeta_s, beta_s);
-  if (c < C) {
-    table[c] = one_m;
-    table[C + c] = base_m;
-  }
-  uint32_t prev = base_m;
-  for (int j = 2; j < 16; ++j) {
-    prev = mont_mul(prev, base_m, c, L, K, xi_s, zeta_s, beta_s);
-    if (c < C) table[j * C + c] = prev;
-  }
-
-  const int32_t* e = exp + (size_t)row * exp_limbs;
-  uint32_t acc = one_m;
-  for (int wi = 0; wi < exp_bits / 4; ++wi) {
-    const int shift = exp_bits - 4 * (wi + 1);
-    const uint32_t w = ((uint32_t)e[shift >> 4] >> (shift & 15)) & 15u;
-    for (int s = 0; s < 4; ++s) acc = mont_mul(acc, acc, c, L, K, xi_s, zeta_s, beta_s);
-    // constant-time select: a masked sum over all 16 entries
-    uint32_t sel = 0;
-    if (c < C) {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const uint32_t mask = 0u - (uint32_t)(w == (uint32_t)j);
-        sel += table[j * C + c] & mask;
-      }
-    }
-    acc = mont_mul(acc, sel, c, L, K, xi_s, zeta_s, beta_s);
-  }
-  // leave the Montgomery domain
-  const uint32_t r = mont_mul(acc, 1u, c, L, K, xi_s, zeta_s, beta_s);
-  if (c < C) out[at] = (int32_t)r;
-  // the table holds powers of a possibly secret base: zero all shared
-  // memory before the block exits (beta_s is read after mont_mul's last
-  // barrier, hence one more)
-  __syncthreads();
-  if (c < 2 * k + 2) smem[c] = 0u;
-  if (c < C) {
-#pragma unroll
-    for (int j = 0; j < 16; ++j) table[j * C + c] = 0u;
-  }
-}
-
 RnsConsts make_consts(const void* m_all, const void* T1, const void* T2,
                       const void* ainv_b, const void* c2_b, const void* b_mod_a,
                       unsigned binv_r, int k) {
@@ -234,6 +192,416 @@ RnsConsts make_consts(const void* m_all, const void* T1, const void* T2,
 }
 
 int block_threads(int k) { return ((2 * k + 1) + 31) / 32 * 32; }
+
+// ---------------------------------------------------------------------------
+// kernel 2
+
+constexpr int kThreads = 512;        // 16 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kN = 8;                // the MMA's n: plane rows (>= R_T)
+constexpr size_t kSmemLimit = 232448;
+
+struct ModexpConsts {
+  const int32_t* m_all;    // (2k+1) channel primes A | B | m_r
+  const int32_t* u_all;    // (2k+1) 2^16 mod m (the fold constant)
+  const uint4* T1lo;       // T1^T low / high bytes in A-fragment order:
+  const uint4* T1hi;       //   (Mp/16, Kp/32, 32 lanes) x 16 bytes
+  const uint4* T2lo;
+  const uint4* T2hi;
+  const int32_t* ainv_b;   // (k+1) A^{-1} mod (B, m_r)
+  const int32_t* c2_b;     // (k) |(B/b_j)^{-1}| mod b_j
+  const int32_t* b_mod_a;  // (k) B mod a_i
+  uint32_t binv_r;         // B^{-1} mod m_r
+  int k;
+  int f_mul, f_mid, f_hh, f_ext;  // folds per reduction site (fold_counts)
+};
+
+// the shared-memory layout of one block; the host mirror is
+// ops/rns_kernels.py::modexp_smem_bytes
+struct Layout {
+  int k, C, rt, KT, MT, SP;
+  __host__ __device__ Layout(int k_, int rt_)
+      : k(k_), C(2 * k_ + 1), rt(rt_), KT((k_ + 31) / 32),
+        MT((k_ + 1 + 15) / 16), SP(KT * 32 + 16) {}
+  // four byte planes (xi lo/hi, zeta lo/hi) of kN x SP, beta and the
+  // rows' windows (kN u32 each), then u16 arrays: the window table
+  // (16, rt, C), the accumulator (rt, C) and d in B | m_r (rt, k+1)
+  __host__ __device__ size_t plane_bytes() const { return (size_t)kN * SP; }
+  __host__ __device__ size_t u16_offset() const { return 4 * plane_bytes() + 2 * kN * 4; }
+  __host__ __device__ size_t bytes() const {
+    return u16_offset() + 2 * ((size_t)17 * rt * C + (size_t)rt * (k + 1));
+  }
+};
+
+// (v >> 16) * u + (v & 0xFFFF) == v (mod m), as 2^16 == u; written as
+// v - (v >> 16) * m, one shift and one multiply-add (u - 2^16 wraps to -m;
+// the result is the same non-negative value)
+__device__ __forceinline__ uint32_t fold(uint32_t v, uint32_t u) {
+  return v + (v >> 16) * (u - 0x10000u);
+}
+
+__device__ __forceinline__ uint32_t csub(uint32_t v, uint32_t m) {
+  return v >= m ? v - m : v;
+}
+
+// The elementwise steps work on N independent values at once (the rows of
+// one channel, or a lane's four extension sums), so every fold step is N
+// independent chains and the count n is a loop bound paid once.
+template <int N>
+__device__ __forceinline__ void fold_all(uint32_t (&v)[N], const uint32_t (&u)[N],
+                                         int n) {
+  for (int f = 0; f < n; ++f) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = fold(v[i], u[i]);
+  }
+}
+
+// v = v * b mod m elementwise, for residues v, b < m: v*b <= (m-1)^2 <
+// 2^32; f_mul folds bring every channel's bound below 2m, so one
+// conditional subtraction finishes
+template <int N>
+__device__ __forceinline__ void mul_mod(uint32_t (&v)[N], const uint32_t (&b)[N],
+                                        const uint32_t (&m)[N],
+                                        const uint32_t (&u)[N], int f_mul) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] *= b[i];
+  fold_all(v, u, f_mul);
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = csub(v[i], m[i]);
+}
+
+__device__ __forceinline__ void mma_u8(int (&c)[4], const uint4& a, uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+enum YMode { Y_TILE, Y_ONE, Y_SELECT };
+
+// a block's view of its tile: shared-memory arrays and the rows' inputs
+struct Tile {
+  Layout L;
+  const int32_t* c1;    // (rows, k)
+  const int32_t* nbmr;  // (rows, k+1)
+  int row0, rows;
+  uint8_t *xi_lo, *xi_hi, *ze_lo, *ze_hi;
+  uint32_t *beta, *win;
+  uint16_t *table, *dB;
+
+  __device__ Tile(int k, int rt) : L(k, rt) {}
+  __device__ uint16_t* entry(int j) const { return table + (size_t)j * L.rt * L.C; }
+};
+
+// The s32 sums of M tile mt over all K tiles: p[product][c_i], products
+// T_lo x_lo, T_lo x_hi, T_hi x_lo, T_hi x_hi (four independent chains).
+//
+// Fragments (PTX ISA, mma.m16n8k32 with 8-bit operands), with g = lane >> 2,
+// t = lane & 3: A (16 x 32, here T^T) register a_i holds row g + 8*(i&1),
+// columns 16*(i>>1) + 4t .. +3; B (32 x 8, here src^T) b_0 holds src row
+// g, columns 4t .. +3, b_1 columns 16 + 4t .. +3; the s32 sums c_i sit at
+// (row g + 8*(i>>1), column 2t + (i&1)).
+__device__ __forceinline__ void mma_tile(const Layout& L, const uint4* __restrict__ Tlo,
+                                         const uint4* __restrict__ Thi,
+                                         const uint8_t* bl, const uint8_t* bh, int mt,
+                                         int (&p)[4][4]) {
+  const int lane = threadIdx.x & 31;
+  const uint4* al = Tlo + (size_t)mt * L.KT * 32 + lane;
+  const uint4* ah = Thi + (size_t)mt * L.KT * 32 + lane;
+#pragma unroll 4
+  for (int kt = 0; kt < L.KT; ++kt) {
+    const uint4 a_lo = __ldg(al + kt * 32);
+    const uint4 a_hi = __ldg(ah + kt * 32);
+    const uint32_t l0 = *(const uint32_t*)(bl + kt * 32);
+    const uint32_t l1 = *(const uint32_t*)(bl + kt * 32 + 16);
+    const uint32_t h0 = *(const uint32_t*)(bh + kt * 32);
+    const uint32_t h1 = *(const uint32_t*)(bh + kt * 32 + 16);
+    mma_u8(p[0], a_lo, l0, l1);
+    mma_u8(p[1], a_lo, h0, h1);
+    mma_u8(p[2], a_hi, l0, l1);
+    mma_u8(p[3], a_hi, h0, h1);
+  }
+}
+
+// Finish M tile mt of an extension from its sums. FIRST: q = xi @ T1 in
+// B | m_r, then r = (q * N + d) * A^{-1} into o and zeta = r_B * c2 as
+// byte planes. Second: s = zeta @ T2 in A | m_r, s_A into o and, from s_r,
+// the exact Shenoy beta = (s_r - r_r) * B^{-1} mod m_r per row. Target
+// j < k+1 is channel chan0 + j (chan0 = k, then 0); the last, m_r, is
+// channel 2k.
+template <int RT, bool FIRST>
+__device__ __forceinline__ void finish_tile(const Tile& T, const ModexpConsts& K,
+                                            uint16_t* o, int mt, const int (&p)[4][4]) {
+  const int k = T.L.k, C = T.L.C, SP = T.L.SP, chan0 = FIRST ? k : 0;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  // this lane's four sums: target j[i], row n[i]
+  int j[4], n[4];
+  bool ok[4];
+  uint32_t m[4], u[4], a[4], h[4], b[4], nb[4], ainv[4], c2[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    j[i] = mt * 16 + g + 8 * (i >> 1);
+    n[i] = 2 * t + (i & 1);
+    ok[i] = j[i] <= k && n[i] < RT;
+    const int ch = j[i] < k ? chan0 + j[i] : 2 * k;  // padding reads m_r
+    m[i] = (uint32_t)__ldg(K.m_all + ch);
+    u[i] = (uint32_t)__ldg(K.u_all + ch);
+    if constexpr (FIRST) {
+      const int row = T.row0 + n[i];
+      nb[i] = ok[i] && row < T.rows
+                  ? (uint32_t)__ldg(T.nbmr + (size_t)row * (k + 1) + j[i]) : 0u;
+      ainv[i] = ok[i] ? (uint32_t)__ldg(K.ainv_b + j[i]) : 0u;
+      c2[i] = ok[i] && j[i] < k ? (uint32_t)__ldg(K.c2_b + j[i]) : 0u;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    // each plane sum is at most P = k*255^2 < 2^25 (k <= 739); the sum
+    // is P_ll + 2^8 (P_lh + P_hl) + 2^16 P_hh, with 2^16 == u (mod m)
+    a[i] = (uint32_t)p[1][i] + (uint32_t)p[2][i];  // <= 2P
+    h[i] = (uint32_t)p[3][i];
+  }
+  fold_all(a, u, K.f_mid);  // now 2^8 * a + P < 2^32
+  fold_all(h, u, K.f_hh);   // now fold(P_ll + 2^8 a) + u * h < 2^32
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a[i] = fold((uint32_t)p[0][i] + (a[i] << 8), u[i]) + u[i] * h[i];
+  fold_all(a, u, K.f_ext);  // now below 2m
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a[i] = csub(a[i], m[i]);
+
+  if constexpr (FIRST) {  // a = q
+#pragma unroll
+    for (int i = 0; i < 4; ++i) b[i] = ok[i] ? T.dB[n[i] * (k + 1) + j[i]] : 0u;
+    mul_mod(a, nb, m, u, K.f_mul);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = csub(a[i] + b[i], m[i]);
+    mul_mod(a, ainv, m, u, K.f_mul);  // a = r
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (ok[i]) o[n[i] * C + k + j[i]] = (uint16_t)a[i];
+    mul_mod(a, c2, m, u, K.f_mul);  // a = zeta
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (ok[i] && j[i] < k) {
+        T.ze_lo[n[i] * SP + j[i]] = (uint8_t)a[i];
+        T.ze_hi[n[i] * SP + j[i]] = (uint8_t)(a[i] >> 8);
+      }
+    }
+  } else {  // a = s
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (ok[i] && j[i] < k) o[n[i] * C + j[i]] = (uint16_t)a[i];
+      if (ok[i] && j[i] == k) {  // m_r: r_r came from the first extension
+        const uint32_t rr = o[n[i] * C + 2 * k];
+        uint32_t d[1] = {a[i] >= rr ? a[i] - rr : a[i] + m[i] - rr};
+        const uint32_t bi[1] = {K.binv_r}, mi[1] = {m[i]}, ui[1] = {u[i]};
+        mul_mod(d, bi, mi, ui, K.f_mul);
+        T.beta[n[i]] = d[0];
+      }
+    }
+  }
+}
+
+// One base extension of the tile (see finish_tile). Warp w owns M tiles
+// w, w + kWarps, ... and finishes their channels itself.
+template <int RT, bool FIRST>
+__device__ __forceinline__ void extend(const Tile& T, const ModexpConsts& K,
+                                       uint16_t* o) {
+  const Layout& L = T.L;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const uint4* __restrict__ Tlo = FIRST ? K.T1lo : K.T2lo;
+  const uint4* __restrict__ Thi = FIRST ? K.T1hi : K.T2hi;
+  const uint8_t* bl = (FIRST ? T.xi_lo : T.ze_lo) + g * L.SP + 4 * t;
+  const uint8_t* bh = (FIRST ? T.xi_hi : T.ze_hi) + g * L.SP + 4 * t;
+  for (int mt = warp; mt < L.MT; mt += kWarps) {
+    int p[4][4] = {};
+    mma_tile(L, Tlo, Thi, bl, bh, mt, p);
+    finish_tile<RT, FIRST>(T, K, o, mt, p);
+  }
+}
+
+// o = x * y * A^{-1} mod N for every row of the tile, over (RT, C) u16
+// tiles; o may be x or y. In the elementwise steps a thread owns channels
+// (c = thread, thread + 256, ...) across all RT rows: the channel's
+// constants load once, and the rows are independent chains. Four
+// barriers; every thread calls it alike.
+template <int RT>
+__device__ __forceinline__ void mont_mul(const Tile& T, const ModexpConsts& K,
+                                         const uint16_t* x, const uint16_t* y,
+                                         YMode mode, uint16_t* o) {
+  const int k = T.L.k, C = T.L.C, SP = T.L.SP;
+  // d = x * y; xi = d_A * c1 as byte planes; d_B|m_r kept for the epilogue
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    uint32_t m[RT], u[RT], v[RT], w[RT], cv[RT];
+    const uint32_t mc = (uint32_t)__ldg(K.m_all + c);
+    const uint32_t uc = (uint32_t)__ldg(K.u_all + c);
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      const int row = T.row0 + r;
+      cv[r] = c < k && row < T.rows ? (uint32_t)__ldg(T.c1 + (size_t)row * k + c) : 0u;
+    }
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      m[r] = mc;
+      u[r] = uc;
+      v[r] = x[r * C + c];
+      if (mode == Y_TILE) {
+        w[r] = y[r * C + c];
+      } else if (mode == Y_ONE) {
+        w[r] = 1u;
+      } else {  // constant-time select: a masked sum over all 16 entries
+        const uint32_t win = T.win[r];
+        w[r] = 0u;
+#pragma unroll
+        for (int e = 0; e < 16; ++e)
+          w[r] += (uint32_t)T.entry(e)[r * C + c] & (0u - (uint32_t)(win == (uint32_t)e));
+      }
+    }
+    mul_mod(v, w, m, u, K.f_mul);  // v = d
+    if (c < k) {
+      mul_mod(v, cv, m, u, K.f_mul);  // v = xi
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        T.xi_lo[r * SP + c] = (uint8_t)v[r];
+        T.xi_hi[r * SP + c] = (uint8_t)(v[r] >> 8);
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < RT; ++r) T.dB[r * (k + 1) + c - k] = (uint16_t)v[r];
+    }
+  }
+  __syncthreads();
+  extend<RT, true>(T, K, o);
+  __syncthreads();
+  extend<RT, false>(T, K, o);
+  __syncthreads();
+  // r_A = s_A - beta * (B mod a_i); beta < m_r, the smallest prime
+  for (int c = threadIdx.x; c < k; c += kThreads) {
+    uint32_t m[RT], u[RT], v[RT], w[RT];
+    const uint32_t mc = (uint32_t)__ldg(K.m_all + c);
+    const uint32_t uc = (uint32_t)__ldg(K.u_all + c);
+    const uint32_t bma = (uint32_t)__ldg(K.b_mod_a + c);
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      m[r] = mc;
+      u[r] = uc;
+      v[r] = T.beta[r];
+      w[r] = bma;
+    }
+    mul_mod(v, w, m, u, K.f_mul);
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      const uint32_t s = o[r * C + c];
+      o[r * C + c] = (uint16_t)(s >= v[r] ? s - v[r] : s + mc - v[r]);
+    }
+  }
+  __syncthreads();
+}
+
+template <int RT>
+__global__ void __launch_bounds__(kThreads)
+rns_modexp_kernel(const int32_t* __restrict__ base_res,
+                  const int32_t* __restrict__ exp, int exp_limbs, int exp_bits,
+                  const int32_t* __restrict__ a2n_res,
+                  const int32_t* __restrict__ c1,
+                  const int32_t* __restrict__ nbmr,
+                  const __grid_constant__ ModexpConsts K, int rows,
+                  int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t smem_tile[];
+  uint8_t* smem = smem_tile;
+  Tile T(K.k, RT);
+  T.c1 = c1;
+  T.nbmr = nbmr;
+  T.row0 = blockIdx.x * RT;
+  T.rows = rows;
+  const size_t pb = T.L.plane_bytes();
+  T.xi_lo = smem;
+  T.xi_hi = smem + pb;
+  T.ze_lo = smem + 2 * pb;
+  T.ze_hi = smem + 3 * pb;
+  T.beta = (uint32_t*)(smem + 4 * pb);
+  T.win = T.beta + kN;
+  T.table = (uint16_t*)(smem + T.L.u16_offset());
+  T.dB = T.table + (size_t)17 * RT * T.L.C;
+  const int C = T.L.C, row0 = T.row0;
+  uint32_t* words = (uint32_t*)smem;
+  const int nwords = (int)(T.L.bytes() / 4);
+
+  // padding (plane columns k..SP, plane rows RT..8, rows past `rows`)
+  // must read as zero
+  for (int i = threadIdx.x; i < nwords; i += kThreads) words[i] = 0u;
+  __syncthreads();
+  uint16_t* acc = T.entry(16);
+  uint16_t* t0 = T.entry(0);
+  uint16_t* t1 = T.entry(1);
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      if (row0 + r < rows) {
+        t1[r * C + c] = (uint16_t)base_res[(size_t)(row0 + r) * C + c];
+        acc[r * C + c] = (uint16_t)a2n_res[(size_t)(row0 + r) * C + c];
+      }
+    }
+  }
+  __syncthreads();
+
+  // into the A-Montgomery domain: x*A = MontMul(x, A^2 mod N)
+  mont_mul<RT>(T, K, t1, acc, Y_TILE, t1);
+  mont_mul<RT>(T, K, acc, nullptr, Y_ONE, t0);
+  for (int j = 2; j < 16; ++j) mont_mul<RT>(T, K, T.entry(j - 1), t1, Y_TILE, T.entry(j));
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+#pragma unroll
+    for (int r = 0; r < RT; ++r) acc[r * C + c] = t0[r * C + c];
+  }
+  __syncthreads();
+
+  for (int wi = 0; wi < exp_bits / 4; ++wi) {
+    const int shift = exp_bits - 4 * (wi + 1);
+    if ((int)threadIdx.x < RT) {
+      const int row = row0 + threadIdx.x;
+      T.win[threadIdx.x] =
+          row < rows ? ((uint32_t)exp[(size_t)row * exp_limbs + (shift >> 4)] >> (shift & 15)) & 15u
+                     : 0u;
+    }
+    // four squarings, then the window's multiply (the squarings' barriers
+    // order win[] before the select reads it)
+    for (int s = 0; s < 5; ++s)
+      mont_mul<RT>(T, K, acc, acc, s < 4 ? Y_TILE : Y_SELECT, acc);
+  }
+  // leave the Montgomery domain
+  mont_mul<RT>(T, K, acc, nullptr, Y_ONE, acc);
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+#pragma unroll
+    for (int r = 0; r < RT; ++r)
+      if (row0 + r < rows) out[(size_t)(row0 + r) * C + c] = (int32_t)acc[r * C + c];
+  }
+  // the table, planes and accumulator hold powers of a possibly secret
+  // base: zero all shared memory before the block exits
+  __syncthreads();
+  for (int i = threadIdx.x; i < nwords; i += kThreads) words[i] = 0u;
+}
+
+// R_T: 8 rows per block where the tile fits in shared memory, else 4
+int tile_rows(int k) { return Layout(k, 8).bytes() <= kSmemLimit ? 8 : 4; }
+
+template <int RT>
+int launch_modexp(const void* base_res, const void* exp, int exp_limbs,
+                  int exp_bits, const void* a2n_res, const void* c1,
+                  const void* nbmr, const ModexpConsts& K, int rows, void* out,
+                  cudaStream_t stream) {
+  const size_t smem = Layout(K.k, RT).bytes();
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      rns_modexp_kernel<RT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  rns_modexp_kernel<RT><<<(rows + RT - 1) / RT, kThreads, smem, stream>>>(
+      (const int32_t*)base_res, (const int32_t*)exp, exp_limbs, exp_bits,
+      (const int32_t*)a2n_res, (const int32_t*)c1, (const int32_t*)nbmr, K, rows,
+      (int32_t*)out);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -252,25 +620,38 @@ extern "C" int fsdkr_rns_mont_mul(const void* x, const void* y, const void* c1,
   return (int)cudaGetLastError();
 }
 
+// folds: f_mul, f_mid, f_hh, f_ext (ops/rns_kernels.py::fold_counts)
 extern "C" int fsdkr_rns_modexp(const void* base_res, const void* exp,
                                 int exp_limbs, int exp_bits,
                                 const void* a2n_res, const void* c1,
                                 const void* nbmr, const void* m_all,
-                                const void* T1, const void* T2,
-                                const void* ainv_b, const void* c2_b,
-                                const void* b_mod_a, unsigned binv_r, int k,
+                                const void* u_all, const void* T1lo,
+                                const void* T1hi, const void* T2lo,
+                                const void* T2hi, const void* ainv_b,
+                                const void* c2_b, const void* b_mod_a,
+                                unsigned binv_r, int k, const int* folds,
                                 int rows, void* out, void* stream) {
   if (rows <= 0) return 0;
-  const RnsConsts K = make_consts(m_all, T1, T2, ainv_b, c2_b, b_mod_a, binv_r, k);
-  const size_t smem = (size_t)(2 * k + 2 + 16 * (2 * k + 1)) * sizeof(uint32_t);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        rns_modexp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  rns_modexp_kernel<<<rows, block_threads(k), smem, (cudaStream_t)stream>>>(
-      (const int32_t*)base_res, (const int32_t*)exp, exp_limbs, exp_bits,
-      (const int32_t*)a2n_res, (const int32_t*)c1, (const int32_t*)nbmr, K,
-      (int32_t*)out);
-  return (int)cudaGetLastError();
+  ModexpConsts K;
+  K.m_all = (const int32_t*)m_all;
+  K.u_all = (const int32_t*)u_all;
+  K.T1lo = (const uint4*)T1lo;
+  K.T1hi = (const uint4*)T1hi;
+  K.T2lo = (const uint4*)T2lo;
+  K.T2hi = (const uint4*)T2hi;
+  K.ainv_b = (const int32_t*)ainv_b;
+  K.c2_b = (const int32_t*)c2_b;
+  K.b_mod_a = (const int32_t*)b_mod_a;
+  K.binv_r = binv_r;
+  K.k = k;
+  K.f_mul = folds[0];
+  K.f_mid = folds[1];
+  K.f_hh = folds[2];
+  K.f_ext = folds[3];
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (tile_rows(k) == 8)
+    return launch_modexp<8>(base_res, exp, exp_limbs, exp_bits, a2n_res, c1,
+                            nbmr, K, rows, out, s);
+  return launch_modexp<4>(base_res, exp, exp_limbs, exp_bits, a2n_res, c1, nbmr,
+                          K, rows, out, s);
 }

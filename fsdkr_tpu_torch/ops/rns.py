@@ -182,13 +182,22 @@ _DEVICE_CACHE: Dict[Tuple[int, int, str], _DeviceConsts] = {}
 
 
 def _prep_consts(bases: RNSBases, device) -> RNSConsts:
-    """Device-ready shared constants for the kernels (int32, < 2^16). The
-    JAX package splits T1/T2/W into bf16 8-bit halves for the MXU; here
-    the kernels take the full 16-bit values and accumulate exactly."""
+    """Device-ready shared constants for the kernels. Kernel 1 takes the
+    full 16-bit values (int32) and accumulates exactly in 64 bits. Kernel
+    2, like the JAX package's MXU kernels (T1l/T1h/T2l/T2h), takes T1/T2
+    split into u8 low and high planes, here laid out in the tensor-core
+    fragment order (`rns_kernels.fragment_planes`), with the per-channel
+    fold constant u = 2^16 mod m and the class's fold counts."""
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.int32)).to(device).contiguous()
 
+    def planes(T):
+        return [torch.from_numpy(p).to(device) for p in rns_kernels.fragment_planes(T)]
+
+    t1_lo, t1_hi = planes(bases.T1)
+    t2_lo, t2_hi = planes(bases.T2)
+    m_all = np.asarray(bases.m_all, np.int64)
     return RNSConsts(
         k=bases.k,
         m_all=t(bases.m_all),
@@ -198,6 +207,12 @@ def _prep_consts(bases: RNSBases, device) -> RNSConsts:
         c2_B=t(bases.c2_B),
         B_mod_A=t(bases.B_mod_A),
         Binv_r=int(bases.Binv_r),
+        u_all=t((1 << 16) % m_all),
+        T1_lo=t1_lo,
+        T1_hi=t1_hi,
+        T2_lo=t2_lo,
+        T2_hi=t2_hi,
+        folds=rns_kernels.fold_counts(m_all, bases.k),
     )
 
 

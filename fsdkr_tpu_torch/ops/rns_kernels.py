@@ -8,22 +8,31 @@ PyTorch versions, the build/loader, and launch counters.
     `rns_modexp_pallas`.
 
 Both kernels live in `csrc/rns_kernels.cu` (CUDA C++ for sm_90a; its
-header comment gives the design). What bounds them on the H100: the two
+header comment gives the designs). What bounds them on the H100: the two
 base extensions are 2*k*(k+1) multiply-adds per product per row (k = 131
-at the 2048-bit class, 260 at 4096), run here as 32x32->64-bit integer
-multiply-adds on the CUDA cores with the T1/T2 constants re-read from L2
-by every row; a product at k=260 moves 2*260*261*4 B = 543 KB of
-constants through L2. The design keeps everything else on chip: kernel 2
-holds the window table and accumulator in shared memory for the whole
-loop, so device memory sees each row's inputs once and its result once.
+at the 2048-bit class, 260 at 4096).
 
-Tensors crossing the kernel boundary are int32 holding values < 2^16.
-The wrapper dispatches on the tensor's device: a CPU tensor runs the
-plain version (the CPU tests' path); a CUDA tensor launches the kernel
-or raises — there is no fallback from the kernel to the plain version.
-The plain versions compute in int64 with float64 matmuls (exact: every
-product < 2^32, every sum over <= 511 terms < 2^41 < 2^53); on the card
-they are the reference the kernels are held against, bit for bit.
+- Kernel 1 takes the full 16-bit constants (m_all, T1, T2, ...) and runs
+  the extensions as 32x32->64-bit multiply-adds on the CUDA cores, one
+  block per row, with T1/T2 re-read from L2 by every row.
+- Kernel 2 holds a tile of 8 rows (4 at the 7168-bit class) per block
+  and runs the extensions on the tensor cores as four exact u8 x u8 -> s32
+  `mma.sync.m16n8k32` plane products. It takes T1/T2 as u8 low/high
+  planes in the MMA's A-fragment order (`fragment_planes`), the fold
+  constant u = 2^16 mod m of every channel (`u_all`), and the number of
+  folds each reduction site needs in this width class (`fold_counts`):
+  it reduces by folding, never with %. Its window table and accumulator
+  stay in shared memory for the whole loop, so device memory sees each
+  row's inputs once and its result once.
+
+Tensors crossing the kernel boundary are int32 holding values < 2^16
+(the planes: uint8). The wrapper dispatches on the tensor's device: a CPU
+tensor runs the plain version (the CPU tests' path); a CUDA tensor
+launches the kernel or raises — there is no fallback from the kernel to
+the plain version. The plain versions compute in int64 with float64
+matmuls (exact: every product < 2^32, every sum over <= 511 terms <
+2^41 < 2^53); on the card they are the reference the kernels are held
+against, bit for bit.
 
 The library is built at first use with nvcc into `build/` beside the
 package (route (b): a plain C interface loaded with ctypes), and rebuilt
@@ -39,8 +48,9 @@ import subprocess
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -52,6 +62,9 @@ __all__ = [
     "launch_counts",
     "reset_launch_counts",
     "load_library",
+    "fold_counts",
+    "fragment_planes",
+    "modexp_smem_bytes",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -61,16 +74,110 @@ _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-_MAX_K = 511  # 2k+1 threads per block must stay <= 1024
+_MAX_K_MONT = 511  # kernel 1: 2k+1 threads per block must stay <= 1024
+_SMEM_LIMIT = 232448  # shared memory one block may use on the H100
 
 WINDOW_BITS = 4
+
+
+def modexp_smem_bytes(k: int, rt: int) -> int:
+    """Kernel 2's shared memory for a tile of rt rows (the mirror of
+    `Layout::bytes` in csrc/rns_kernels.cu): four u8 planes (xi and zeta,
+    low and high) of 8 rows x (k rounded up to 32, + 16), 16 u32 (beta and
+    the windows), and u16 arrays: the window table (16, rt, 2k+1), the
+    accumulator (rt, 2k+1) and d in B | m_r (rt, k+1)."""
+    sp = -(-k // 32) * 32 + 16
+    return 4 * 8 * sp + 64 + 2 * (17 * rt * (2 * k + 1) + rt * (k + 1))
+
+
+# kernel 2: its table budget at 4 rows per block (739; the 7168-bit class
+# has k=454)
+_MAX_K = max(k for k in range(1, 1024) if modexp_smem_bytes(k, 4) <= _SMEM_LIMIT)
+
+
+def _fold_max(v: int, u: int) -> int:
+    """The largest fold (x >> 16) * u + (x & 0xFFFF) over 0 <= x <= v."""
+    hi, lo = v >> 16, v & 0xFFFF
+    best = hi * u + lo
+    return max(best, (hi - 1) * u + 0xFFFF) if hi else best
+
+
+def _folds_until(v: int, u: int, done) -> Tuple[int, int]:
+    """Folds that bring any value <= v to a bound for which done(bound)
+    holds: (count, bound)."""
+    n = 0
+    while not done(v):
+        nv = _fold_max(v, u)
+        if nv >= v:
+            raise ValueError(f"folding by u={u} makes no progress at {v}")
+        v, n = nv, n + 1
+    return n, v
+
+
+def fold_counts(m_all, k: int) -> Tuple[int, int, int, int]:
+    """Folds per reduction site of kernel 2 for one width class, from the
+    real bounds of every channel prime m (u = 2^16 mod m), the largest
+    over the channels: (f_mul, f_mid, f_hh, f_ext).
+
+    - f_mul: a product a*b of residues, <= (m-1)^2, to below 2m.
+    - The extension combine, from four u8-plane sums over k terms, each
+      <= P = k*255^2: f_mid folds P_lh + P_hl (<= 2P) to mid with
+      2^8*mid + P < 2^32; v = P_ll + 2^8*mid; f_hh folds P_hh to hh with
+      fold(v) + u*hh < 2^32 (2^16 == u mod m); f_ext folds that sum w to
+      below 2m.
+    Each site then ends with one conditional subtraction."""
+    p = k * 255 * 255
+    if 2 * p >= 1 << 32:
+        raise ValueError(f"k={k}: the plane sums overflow 32 bits")
+    out = [0, 0, 0, 0]
+    for m in (int(x) for x in m_all):
+        u = (1 << 16) % m
+        f_mul, _ = _folds_until((m - 1) ** 2, u, lambda b: b < 2 * m)
+        f_mid, mid = _folds_until(2 * p, u, lambda b: (b << 8) + p < 1 << 32)
+        fv = _fold_max(p + (mid << 8), u)
+        f_hh, hh = _folds_until(p, u, lambda b: fv + u * b < 1 << 32)
+        f_ext, _ = _folds_until(fv + u * hh, u, lambda b: b < 2 * m)
+        out = [max(a, b) for a, b in zip(out, (f_mul, f_mid, f_hh, f_ext))]
+    return tuple(out)
+
+
+def fragment_planes(T: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """A (k, k+1) extension matrix of 16-bit values -> its (lo, hi) u8
+    planes, flat, as kernel 2 loads them: the MMA's A operand is T^T
+    (k+1 target channels on M, k source channels on K), zero-padded to
+    Mp = k+1 rounded up to 16 and Kp = k rounded up to 32, in the
+    fragment order of mma.m16n8k32 with 8-bit A (PTX ISA). With
+    KT = Kp/32, byte
+
+        ((mt * KT + kt) * 32 + lane) * 16 + i      (mt < Mp/16, kt < KT)
+
+    holds T^T[16 mt + lane//4 + 8 ((i//4) % 2),
+              32 kt + 4 (lane % 4) + (i % 4) + 16 (i // 8)],
+
+    so lane `lane` loads its 16 bytes of tile (mt, kt) with one 16-byte
+    load."""
+    T = np.asarray(T, np.int64)
+    k = T.shape[0]
+    mp, kp = -(-(k + 1) // 16) * 16, -(-k // 32) * 32
+    a = np.zeros((mp, kp), np.int64)
+    a[: k + 1, :k] = T.T
+    mt, kt, lane, i = np.meshgrid(
+        np.arange(mp // 16), np.arange(kp // 32), np.arange(32), np.arange(16),
+        indexing="ij",
+    )
+    rows = 16 * mt + lane // 4 + 8 * ((i // 4) % 2)
+    cols = 32 * kt + 4 * (lane % 4) + i % 4 + 16 * (i // 8)
+    flat = a[rows, cols].reshape(-1)
+    return (flat & 0xFF).astype(np.uint8), (flat >> 8).astype(np.uint8)
 
 
 @dataclass
 class RNSConsts:
     """Shared per-width-class constants on one device (int32, < 2^16):
     m_all (2k+1,), T1 and T2 (k, k+1), Ainv_B (k+1,), c2_B (k,),
-    B_mod_A (k,), and the scalar Binv_r."""
+    B_mod_A (k,), and the scalar Binv_r. Kernel 2 also reads u_all (2k+1,)
+    = 2^16 mod m, T1/T2 as uint8 planes T1_lo, T1_hi, T2_lo, T2_hi
+    (`fragment_planes`) and the fold counts `folds` (`fold_counts`)."""
 
     k: int
     m_all: torch.Tensor
@@ -80,6 +187,12 @@ class RNSConsts:
     c2_B: torch.Tensor
     B_mod_A: torch.Tensor
     Binv_r: int
+    u_all: torch.Tensor
+    T1_lo: torch.Tensor
+    T1_hi: torch.Tensor
+    T2_lo: torch.Tensor
+    T2_hi: torch.Tensor
+    folds: Tuple[int, int, int, int]
     _i64: Dict[str, torch.Tensor] = field(default_factory=dict, repr=False)
 
     def i64(self, name: str) -> torch.Tensor:
@@ -201,7 +314,8 @@ def load_library() -> ctypes.CDLL:
     lib.fsdkr_rns_mont_mul.argtypes = [p, p, p, p, p, p, p, p, p, p, u, i, i, p, p]
     lib.fsdkr_rns_mont_mul.restype = i
     lib.fsdkr_rns_modexp.argtypes = [
-        p, p, i, i, p, p, p, p, p, p, p, p, p, u, i, i, p, p,
+        p, p, i, i, p, p, p, p, p, p, p, p, p, p, p, p, u, i,
+        ctypes.POINTER(i), i, p, p,
     ]
     lib.fsdkr_rns_modexp.restype = i
     _LIB = lib
@@ -223,10 +337,10 @@ def _check(name, t, rows, width, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_consts(K: RNSConsts, device):
+def _check_consts(K: RNSConsts, device, max_k: int):
     k = K.k
-    if not 0 < k <= _MAX_K:
-        raise ValueError(f"k={k} outside the kernels' 1..{_MAX_K}")
+    if not 0 < k <= max_k:
+        raise ValueError(f"k={k} outside the kernel's 1..{max_k}")
     for name, shape in (
         ("m_all", (2 * k + 1,)), ("T1", (k, k + 1)), ("T2", (k, k + 1)),
         ("Ainv_B", (k + 1,)), ("c2_B", (k,)), ("B_mod_A", (k,)),
@@ -253,7 +367,7 @@ def mont_mul(x, y, c1, nbmr, K: RNSConsts) -> torch.Tensor:
     for name, t, w in (("x", x, 2 * k + 1), ("y", y, 2 * k + 1),
                        ("c1", c1, k), ("nbmr", nbmr, k + 1)):
         _check(name, t, rows, w, device)
-    _check_consts(K, device)
+    _check_consts(K, device, _MAX_K_MONT)
     if device.type == "cpu":
         return mont_mul_plain(x, y, c1, nbmr, K)
     if device.type != "cuda":
@@ -285,7 +399,15 @@ def modexp(base_res, exp, a2n_res, c1, nbmr, K: RNSConsts,
                        ("a2n_res", a2n_res, 2 * k + 1),
                        ("c1", c1, k), ("nbmr", nbmr, k + 1)):
         _check(name, t, rows, w, device)
-    _check_consts(K, device)
+    _check_consts(K, device, _MAX_K)
+    plane = (-(-(k + 1) // 16) * 16) * (-(-k // 32) * 32)
+    for name in ("T1_lo", "T1_hi", "T2_lo", "T2_hi"):
+        t = getattr(K, name)
+        if t.device != device or t.dtype != torch.uint8 or tuple(t.shape) != (plane,):
+            raise ValueError(f"constant {name} must be uint8 ({plane},) on {device}")
+    u = K.u_all
+    if u.device != device or u.dtype != torch.int32 or tuple(u.shape) != (2 * k + 1,):
+        raise ValueError(f"constant u_all must be int32 ({2 * k + 1},) on {device}")
     if device.type == "cpu":
         return modexp_plain(base_res, exp, a2n_res, c1, nbmr, K, exp_bits)
     if device.type != "cuda":
@@ -294,7 +416,11 @@ def modexp(base_res, exp, a2n_res, c1, nbmr, K: RNSConsts,
     out = torch.empty_like(base_res)
     err = lib.fsdkr_rns_modexp(
         base_res.data_ptr(), exp.data_ptr(), exp.shape[1], exp_bits,
-        a2n_res.data_ptr(), c1.data_ptr(), nbmr.data_ptr(), *_const_ptrs(K),
+        a2n_res.data_ptr(), c1.data_ptr(), nbmr.data_ptr(),
+        K.m_all.data_ptr(), K.u_all.data_ptr(), K.T1_lo.data_ptr(),
+        K.T1_hi.data_ptr(), K.T2_lo.data_ptr(), K.T2_hi.data_ptr(),
+        K.Ainv_B.data_ptr(), K.c2_B.data_ptr(), K.B_mod_A.data_ptr(),
+        K.Binv_r, K.k, (ctypes.c_int * 4)(*K.folds),
         rows, out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
     )
     if err:
