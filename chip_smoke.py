@@ -13,8 +13,9 @@ Phases:
            the card, at k=131 (2048-bit class), k=260 (4096-bit class), the
            6144-bit class (k=389) and the 7168-bit class (k=454, where
            kernel 2 holds 4 rows per block), with row counts that do and do
-           not fill kernel 2's row tiles, random and worst-case rows:
-           residues must be bit-identical.
+           not fill the row tiles (kernel 1 also at 1 and 13 rows at every
+           class and at the main path's 4096 rows), random and worst-case
+           rows: residues must be bit-identical.
   rns      rns_modexp / rns_modmul (through device_powm / device_modmul)
            against CPython pow at 2048- and 4096-bit moduli.
   main     the refresh round at paillier_bits=2048, M=256, 11 correct-key
@@ -25,9 +26,12 @@ Phases:
            counters must be > 0 over distribute + collect.
   time     each kernel against its plain version at every shape the main
            path launched it with (random and worst-case rows, bit-identical
-           residues); each kernel timed (CUDA events) beside its bound on
-           the H100 at every one of those shapes, and at the main path's
-           costliest shape beside its plain version too.
+           residues); each kernel timed beside its bound on the H100 at
+           every one of those shapes, and at the main path's costliest
+           shape beside its plain version too. Two times per launch: `ms`,
+           CUDA events around back-to-back wrapper calls (the wrapper's
+           host work included where it is the slower side), and
+           `device_ms`, the kernel's own device time (torch.profiler).
 
 Prints the kernels line `{"kernels": [...]}` and, last, `{"ok": true,
 "device": {...}}`. Any failure exits non-zero with no result line.
@@ -146,10 +150,16 @@ def phase_kernels(dev, rng):
 
     from fsdkr_tpu_torch.ops import rns, rns_kernels
 
-    # 6144 bits: kernel 2's tightest shared-memory budget at 8 rows per
-    # block; 7168 bits: 4 rows per block; 13 rows: a partial last tile
-    for bits, rows in ((2048, 64), (2048, 13), (4096, 64), (6144, 8),
-                       (7168, 13)):
+    # (bits, rows, kernels): 6144 bits is kernel 2's tightest shared-memory
+    # budget at 8 rows per block, 7168 bits holds 4; 13 rows leave a
+    # partial last tile, 1 row a tile of one; kernel 1 also at the main
+    # path's 4096-row launch
+    both, mont = ("mont_mul", "modexp"), ("mont_mul",)
+    cases = [(2048, 64, both), (2048, 13, both), (4096, 64, both),
+             (6144, 8, both), (7168, 13, both), (2048, 4096, mont),
+             (2048, 1, mont), (4096, 1, mont), (4096, 13, mont),
+             (6144, 1, mont), (6144, 13, mont), (7168, 1, mont)]
+    for bits, rows, names in cases:
         rb = rns.rns_bases_for_bits(bits, bits // 16)
         K = rns._device_consts(rb, dev).kernel
         for worst in (False, True):
@@ -160,15 +170,16 @@ def phase_kernels(dev, rng):
             torch.cuda.synchronize()
             if not torch.equal(got, want):
                 bad = int((got != want).sum())
-                fail(f"mont_mul k={rb.k} worst={worst}: {bad} residues differ")
-            got = rns_kernels.modexp(x, exp, y, c1, nb, K, exp_bits)
-            want = rns_kernels.modexp_plain(x, exp, y, c1, nb, K, exp_bits)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                bad = int((got != want).sum())
-                fail(f"modexp k={rb.k} worst={worst}: {bad} residues differ")
-            log(f"kernels == plain, bit-identical: k={rb.k} rows={rows} "
-                f"exp_bits={exp_bits} worst_case={worst}")
+                fail(f"mont_mul k={rb.k} rows={rows} worst={worst}: {bad} residues differ")
+            if "modexp" in names:
+                got = rns_kernels.modexp(x, exp, y, c1, nb, K, exp_bits)
+                want = rns_kernels.modexp_plain(x, exp, y, c1, nb, K, exp_bits)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    bad = int((got != want).sum())
+                    fail(f"modexp k={rb.k} rows={rows} worst={worst}: {bad} residues differ")
+            log(f"kernels == plain, bit-identical: {'+'.join(names)} k={rb.k} "
+                f"rows={rows} exp_bits={exp_bits} worst_case={worst}")
 
 
 def phase_rns(dev, rng):
@@ -228,6 +239,9 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
         per_collect.append(time.perf_counter() - c0)
     times["collect_total"] = time.perf_counter() - t0
     counts = rns_kernels.launch_counts()
+    # the shapes of this window's launches, before the checks below add
+    # their own
+    shapes = (dict(rns_kernels.mont_mul.shapes), dict(rns_kernels.modexp.shapes))
     log(f"main: {n} collects: {times['collect_total']:.3f} s "
         f"(each {min(per_collect):.3f}..{max(per_collect):.3f} s)")
     log(f"main: launches over distribute + collect: {counts}")
@@ -268,7 +282,7 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     if dev.type == "cuda":
         profile_collect(msgs, spare, config, sorted(per_collect)[n // 2])
     span_collect(msgs, spare2, config)
-    return counts, times, per_collect
+    return counts, shapes, times, per_collect
 
 
 # the layers of one collect, timed from here by wrapping the callables the
@@ -286,25 +300,46 @@ _SPANS = (
     ("fsdkr_tpu_torch.backend.cuda_verifier", "device_powm", None),
     ("fsdkr_tpu_torch.backend.cuda_verifier", "device_modmul", None),
 )
+# the steps inside device_powm / device_modmul (ops/rns.py's globals); each
+# of these spans ends in torch.cuda.synchronize(), so it holds its own
+# device work. The kernel wrappers are wrapped in the `rns_kernels` name
+# that ops/rns.py looks up, never in rns_kernels itself: the raw wrapper
+# bumps its counter through its own global name.
+_RNS_SPANS = ("_row_consts", "ints_to_limbs", "_to_device", "_limbs_to_residues",
+              "_crt_exit_kernel", "limbs_to_ints")
 
 
 def span_collect(msgs, spare, config):
     """Wall time of each layer inside one collect (inclusive and self
     seconds, by parent span). device_powm / device_modmul end in a host
-    copy of their result, so their spans include the device time."""
+    copy of their result, so their spans include the device time. Inside
+    them, every step's span ends in a synchronize, so the device work
+    falls in the step that queued it; what the columns keep as self time
+    is the download of the result limbs (between `_crt_exit_kernel` and
+    `limbs_to_ints`) and the Python between the steps. Which steps wait
+    on the device without that synchronize: `_to_device` (a copy from
+    pageable host memory synchronises its stream) and `_crt_exit_kernel`
+    (its carry loop reads `bool(hi.any())`)."""
     import importlib
+    import types
 
+    import torch
+
+    from fsdkr_tpu_torch.ops import rns, rns_kernels
     from fsdkr_tpu_torch.protocol import RefreshMessage
 
     stack, totals, patched = [], {}, []
 
-    def wrap(name, fn):
+    def wrap(name, fn, sync=False):
         def timed(*args, **kwargs):
             parent = stack[-1][0] if stack else "collect"
             stack.append([name, 0.0])
             t0 = time.perf_counter()
             try:
-                return fn(*args, **kwargs)
+                out = fn(*args, **kwargs)
+                if sync:
+                    torch.cuda.synchronize()
+                return out
             finally:
                 dt = time.perf_counter() - t0
                 _, child = stack.pop()
@@ -325,6 +360,14 @@ def span_collect(msgs, spare, config):
         new = wrap(attr, fn)
         patched.append((owner, attr, raw))
         setattr(owner, attr, staticmethod(new) if isinstance(raw, staticmethod) else new)
+    for attr in _RNS_SPANS:
+        patched.append((rns, attr, getattr(rns, attr)))
+        setattr(rns, attr, wrap(attr, getattr(rns, attr), sync=True))
+    proxy = types.SimpleNamespace(**vars(rns_kernels))
+    proxy.mont_mul = wrap("kernel 1 mont_mul", rns_kernels.mont_mul, sync=True)
+    proxy.modexp = wrap("kernel 2 modexp", rns_kernels.modexp, sync=True)
+    patched.append((rns, "rns_kernels", rns_kernels))
+    rns.rns_kernels = proxy
     try:
         t0 = time.perf_counter()
         RefreshMessage.collect(msgs, spare[0], spare[1], config)
@@ -375,6 +418,9 @@ def profile_collect(msgs, spare, config, median_s):
         f"collect, {median_s * 1e3:.1f} ms)")
     for name, ms in top:
         log(f"profile:   {ms:10.3f} ms  {name[:90]}")
+    for name, symbol in _SYMBOL.items():
+        ms = sum(v for key, v in by_name.items() if symbol in key)
+        log(f"profile: {name} device time in this collect: {ms:.3f} ms")
 
 
 def _events_ms(fn, reps):
@@ -390,6 +436,45 @@ def _events_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# each kernel's symbol: a substring of its device events' (mangled) names
+_SYMBOL = {"rns_mont_mul": "rns_mont_mul_kernel", "rns_modexp": "rns_modexp_kernel"}
+
+
+def _device_ms(fn, reps, name):
+    """The kernel's own time per launch: the same `reps` calls as
+    `_events_ms`, under torch.profiler, summing the self device time of
+    the device events whose name holds the kernel's symbol, over the
+    launches the profiler recorded (it may miss the first few of a
+    window). The events time above also holds the wrapper's host work
+    wherever that is slower than the kernel; this does not."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    # one warm-up step with the profiler armed, then the recorded step
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1)
+    recorded = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule,
+                 on_trace_ready=lambda p: recorded.append(p.key_averages())) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    us, launches = 0.0, 0
+    for ev in (recorded[0] if recorded else ()):
+        if ev.device_type == DeviceType.CUDA and _SYMBOL[name] in ev.key:
+            us += getattr(ev, "self_device_time_total", 0) or 0
+            launches += ev.count
+    if not 0 < launches <= reps or us <= 0:
+        fail(f"the profiler saw {launches} launches of {_SYMBOL[name]} "
+             f"({us} us) over {reps} calls")
+    return us / 1e3 / launches
 
 
 def _bits_of_k(k):
@@ -461,19 +546,29 @@ def bound_ms(name, k, rows, exp_bits):
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
 
 
-def _time_launch(name, K, args, exp_bits, reps):
+# launches per timing: kernel 2's take milliseconds each, kernel 1's
+# microseconds
+_REPS = {"rns_mont_mul": 200, "rns_modexp": 10}
+
+
+def _time_launch(name, K, args, exp_bits):
+    """(events ms, device ms) per launch of the kernel's wrapper."""
     from fsdkr_tpu_torch.ops import rns_kernels
 
     x, y, c1, nb, exp = args
     if name == "rns_mont_mul":
-        return _events_ms(lambda: rns_kernels.mont_mul(x, y, c1, nb, K), reps)
-    return _events_ms(
-        lambda: rns_kernels.modexp(x, exp, y, c1, nb, K, exp_bits), reps)
+        def fn():
+            return rns_kernels.mont_mul(x, y, c1, nb, K)
+    else:
+        def fn():
+            return rns_kernels.modexp(x, exp, y, c1, nb, K, exp_bits)
+    return _events_ms(fn, _REPS[name]), _device_ms(fn, _REPS[name], name)
 
 
 def time_main_shapes(dev, rng, mm_shapes, me_shapes):
-    """Each kernel's time (CUDA events) and bound at every shape the main
-    path launched it with; returns rows of the per-shape table."""
+    """Each kernel's time (CUDA events and device time) and bound at
+    every shape the main path launched it with; returns rows of the
+    per-shape table."""
     from fsdkr_tpu_torch.ops import rns
 
     table = []
@@ -484,25 +579,26 @@ def time_main_shapes(dev, rng, mm_shapes, me_shapes):
         rb = rns.rns_bases_for_bits(bits, bits // 16)
         K = rns._device_consts(rb, dev).kernel
         args = kernel_inputs(rng, rb, dev, rows, exp_bits, False)
-        reps = 50 if name == "rns_mont_mul" else 3
-        ms = _time_launch(name, K, args, exp_bits, reps)
+        ms, dms = _time_launch(name, K, args, exp_bits)
         bound, by = bound_ms(name, k, rows, exp_bits)
         log(f"time: per shape {name} k={k} rows={rows}"
             + (f" exp_bits={exp_bits}" if name == "rns_modexp" else "")
-            + f": {ms:.4f} ms, bound {bound:.6f} ms ({by}), "
-            f"{ms / bound:.1f}x, {launches} launches")
+            + f": events {ms:.4f} ms, device {dms:.4f} ms, bound {bound:.6f} ms "
+            f"({by}), device {dms / bound:.1f}x bound, {launches} launches")
         table.append({"name": name, "k": k, "rows": rows, "exp_bits": exp_bits,
-                      "launches": launches, "ms": ms, "bound_ms": bound})
+                      "launches": launches, "ms": ms, "device_ms": dms,
+                      "bound_ms": bound})
     return table
 
 
-def phase_time(dev, rng, counts):
+def phase_time(dev, rng, counts, shapes):
+    """`counts` and `shapes` are the main path's launch counts, in total
+    and by shape ((k, rows) and (k, rows, exp_bits) -> launches)."""
     from fsdkr_tpu_torch.ops import rns, rns_kernels
 
-    mm_shapes = dict(rns_kernels.mont_mul.shapes)
-    me_shapes = dict(rns_kernels.modexp.shapes)
+    mm_shapes, me_shapes = shapes
     if not mm_shapes or not me_shapes:
-        fail("no main-path launch shapes recorded (run the main phase)")
+        fail("no main-path launch shapes recorded")
     errs = check_main_shapes(dev, rng, mm_shapes, me_shapes)
     per_shape = time_main_shapes(dev, rng, mm_shapes, me_shapes)
     # the kernels line: each kernel at its costliest shape on the main path
@@ -519,18 +615,18 @@ def phase_time(dev, rng, counts):
         K = rns._device_consts(rb, dev).kernel
         x, y, c1, nb, exp = args = kernel_inputs(rng, rb, dev, rows, exp_bits, False)
         if name == "rns_mont_mul":
-            ms = _time_launch(name, K, args, exp_bits, 50)
+            ms, dms = _time_launch(name, K, args, exp_bits)
             plain_ms = _events_ms(
                 lambda: rns_kernels.mont_mul_plain(x, y, c1, nb, K), 20)
             shape = f"k={k} rows={rows}"
         else:
-            ms = _time_launch(name, K, args, exp_bits, 3)
+            ms, dms = _time_launch(name, K, args, exp_bits)
             plain_ms = _events_ms(
                 lambda: rns_kernels.modexp_plain(x, exp, y, c1, nb, K, exp_bits), 1)
             shape = f"k={k} rows={rows} exp_bits={exp_bits}"
         bound, by = bound_ms(name, k, rows, exp_bits)
-        log(f"time: {name} at {shape}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound:.6f} ms ({by})")
+        log(f"time: {name} at {shape}: events {ms:.4f} ms, device {dms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({by})")
         out.append({
             "name": name,
             "route": "cuda",
@@ -540,13 +636,14 @@ def phase_time(dev, rng, counts):
             "launches": counts[name],
             "max_abs_err": errs[name],
             "ms": ms,
+            "device_ms": dms,
             "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": by,
             "library_ms": None,
             "shape": shape,
-            "per_shape": [{key: row[key] for key in ("k", "rows", "exp_bits",
-                                                     "launches", "ms", "bound_ms")}
+            "per_shape": [{key: row[key] for key in ("k", "rows", "exp_bits", "launches",
+                                                     "ms", "device_ms", "bound_ms")}
                           for row in per_shape if row["name"] == name],
         })
     return out
@@ -578,7 +675,7 @@ def main() -> None:
     rng = random.Random(args.seed)
     t_start = time.perf_counter()
 
-    counts, kernels = None, []
+    counts, shapes, kernels = None, None, []
     if "env" in phases:
         phase_env(dev)
     if "kernels" in phases:
@@ -586,13 +683,13 @@ def main() -> None:
     if "rns" in phases:
         phase_rns(dev, rng)
     if "main" in phases:
-        counts, times, per_collect = phase_main(dev)
+        counts, shapes, times, per_collect = phase_main(dev)
         log("main: phase seconds " + json.dumps(
             {**times, "collect_each": per_collect}))
     if "time" in phases:
         if counts is None:
             fail("the time phase needs the main phase's launch counts")
-        kernels = phase_time(dev, rng, counts)
+        kernels = phase_time(dev, rng, counts, shapes)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi_line())

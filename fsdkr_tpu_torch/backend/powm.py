@@ -29,7 +29,8 @@ _MAX_ROWS = 16384
 
 # modulus width classes with prepared RNS bases (caps distinct launch
 # shapes; moduli bucket up to the nearest class). Wider moduli take a
-# multiple of 1024 bits, up to what one block's 2k+1 threads can carry.
+# multiple of 1024 bits, up to the widest class the kernels are held at
+# on the card (7168 bits: kernel 2 holds 4 rows per block there).
 _RNS_WIDTH_CLASSES = (256, 512, 1024, 1536, 2048, 3072, 4096)
 _MAX_CLASS_BITS = 7168
 

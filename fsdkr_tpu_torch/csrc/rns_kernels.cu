@@ -20,29 +20,9 @@
 // function of the inputs: these kernels, the plain PyTorch versions and
 // the Pallas kernels give bit-identical residues.
 //
-// Both kernels' base extensions do 2*k*(k+1) multiply-adds per product
-// per row (k = 131 at the 2048-bit class, 260 at 4096): that work bounds
-// them on the H100.
-//
-// Kernel 1 (simple and exact first): one block per row, one thread per
-// channel (blockDim = 2k+1 rounded up to a warp). xi and zeta go to shared
-// memory; each target-channel thread sums k products over its column of
-// T1/T2, read row-major from global memory (L2-resident, coalesced across
-// threads), accumulating exactly in 64 bits (each product < 2^32, each sum
-// < 2^41) and reducing once per channel with %. beta is computed by the
-// m_r thread and broadcast through shared memory.
-//
-// Kernel 2 (the modexp) is the product inside the 4-bit fixed-window loop:
-// Montgomery entry through A^2 mod N, a 16-entry window table per row in
-// shared memory, exp_bits/4 windows of 4 squarings + one multiply, exit by
-// multiplying with 1. Its design:
-// - Row tiles: a block holds R_T rows (8, or 4 where the window table
-//   would not fit in shared memory: k=454) for the whole loop; rows past
-//   `rows` compute on zeros and are never stored.
-// - 16 warps (512 threads) per block, not 8: every step is a latency
-//   chain, and on the H100 16 warps took about half the time per product
-//   of 8 at the 256-row launches (one block per SM either way), and as
-//   long as two 8-warp blocks per SM at the 4096-row launch.
+// One implementation of the product, `mont_mul<RT, W>`, serves both
+// kernels. A block holds a tile of RT rows (8; 4 where kernel 2's window
+// table would not fit in shared memory: k=454) and W warps:
 // - Base extensions on the tensor cores: out^T (k+1 x R_T) = T^T (k+1 x k)
 //   * xi^T (k x R_T) with channels on M (m16) and rows on N (n8), as four
 //   exact u8 products mma.sync.m16n8k32.u8.u8.s32 of the byte planes
@@ -51,7 +31,7 @@
 //   L of M tile mt, K tile kt loads its 16 bytes with one 16-byte load at
 //   ((mt*KT + kt)*32 + L)*16. xi and zeta sit in shared memory as byte
 //   planes [8 rows][Kp + 16] (the 16-byte pad spreads the B-fragment loads
-//   over all 32 banks). Each warp owns M tiles (mt = warp, warp+16, ...)
+//   over all 32 banks). Each warp owns M tiles (mt = warp, warp+W, ...)
 //   with its four plane products as independent accumulator chains, and
 //   finishes its tile's channels itself (the epilogue) from registers.
 // - Elementwise steps: a thread owns a channel across all R_T rows, so the
@@ -61,147 +41,48 @@
 //   conditional subtraction. The number of folds of each reduction site is
 //   computed per width class on the host from the real bounds
 //   (ops/rns_kernels.py::fold_counts) and passed in.
+// Every step of a product is a dependent latency chain (load, multiply,
+// folds) over a tile of 8 rows: a product takes microseconds per tile
+// whatever the number of tiles, so what sets a launch's time is how many
+// tiles wait behind one another, not the card's rates.
+//
+// Kernel 1 (the product) is one product per tile: load the rows' x and y
+// into u16 tiles, multiply, store. Its bound on the H100 is bytes (each
+// row's x, y, c1, N mod B and result once): 5.2 us at k=131 and 4096
+// rows, 0.36 us at 256 rows, where a launch's own latency is the floor.
+// So the work is spread to finish in one wave of blocks: the launcher
+// picks W from the number of tiles (mont_mul_warps) - 16 warps while one
+// block per SM holds every tile (the most warps per product), else 4
+// (4096 rows: 512 tiles, four 4-warp blocks per SM on 132 SMs).
+//
+// Kernel 2 (the modexp) is the product inside the 4-bit fixed-window loop,
+// 16 warps per block (the loop's chain is long and one block per SM holds
+// it): Montgomery entry through A^2 mod N, a 16-entry window table per row
+// in shared memory, exp_bits/4 windows of 4 squarings + one multiply, exit
+// by multiplying with 1. Its table and accumulator stay in shared memory
+// for the whole loop, so device memory sees each row's inputs and result
+// once; the products' latency chains bound it, far above its bound in
+// operations.
+//
 // Exponents may be secret (shares, nonces, d): the window entry is a
 // masked sum over all 16 table entries (never table[w]), there is no early
 // exit, and the loop length is the bucketed width the caller passes, never
-// a row's own bit length. Bases may be secret too (Paillier randomness),
-// so each block zeroes all its shared memory before it exits.
+// a row's own bit length. Bases and factors may be secret too (Paillier
+// randomness), so each block of either kernel zeroes all its shared memory
+// before it exits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-struct RnsConsts {
-  const int32_t* m_all;    // (2k+1) channel primes A | B | m_r
-  const int32_t* T1;       // (k, k+1) |A/a_i| mod (B, m_r)
-  const int32_t* T2;       // (k, k+1) |B/b_j| mod (A, m_r)
-  const int32_t* ainv_b;   // (k+1) A^{-1} mod (B, m_r)
-  const int32_t* c2_b;     // (k) |(B/b_j)^{-1}| mod b_j
-  const int32_t* b_mod_a;  // (k) B mod a_i
-  uint32_t binv_r;         // B^{-1} mod m_r
-  int k;
-};
-
-// per-thread channel constants, loaded once per row
-struct Lane {
-  uint32_t m;     // this channel's prime
-  uint32_t c1;    // c < k: c1[row, c] (folds -N^{-1} and (A/a_i)^{-1})
-  uint32_t nb;    // c >= k: N mod (B, m_r)
-  uint32_t ainv;  // c >= k: A^{-1} mod (B, m_r)
-  uint32_t c2;    // k <= c < 2k: c2_B
-  uint32_t bma;   // c < k: B mod a_c
-  int t2col;      // target column of the second extension, -1 if none
-};
-
-__device__ __forceinline__ uint32_t mulmod(uint32_t a, uint32_t b, uint32_t m) {
-  return (a * b) % m;  // a, b < 2^16: the product fits 32 bits
-}
-
-__device__ __forceinline__ Lane load_lane(const RnsConsts& K, const int32_t* c1,
-                                          const int32_t* nbmr, int row, int c) {
-  const int k = K.k, C = 2 * k + 1;
-  Lane L;
-  L.m = c < C ? (uint32_t)K.m_all[c] : 1u;
-  L.c1 = c < k ? (uint32_t)c1[(size_t)row * k + c] : 0u;
-  const bool bmr = c >= k && c < C;
-  L.nb = bmr ? (uint32_t)nbmr[(size_t)row * (k + 1) + (c - k)] : 0u;
-  L.ainv = bmr ? (uint32_t)K.ainv_b[c - k] : 0u;
-  L.c2 = (c >= k && c < 2 * k) ? (uint32_t)K.c2_b[c - k] : 0u;
-  L.bma = c < k ? (uint32_t)K.b_mod_a[c] : 0u;
-  L.t2col = c < k ? c : (c == 2 * k ? k : -1);
-  return L;
-}
-
-// One RNS Montgomery product for this thread's channel c. Every thread of
-// the block calls it the same number of times (three barriers inside).
-__device__ uint32_t mont_mul(uint32_t x, uint32_t y, int c, const Lane& L,
-                             const RnsConsts& K, uint32_t* xi_s,
-                             uint32_t* zeta_s, uint32_t* beta_s) {
-  const int k = K.k, C = 2 * k + 1, kp = k + 1;
-  const uint32_t d = c < C ? mulmod(x, y, L.m) : 0u;
-  if (c < k) xi_s[c] = mulmod(d, L.c1, L.m);
-  __syncthreads();
-
-  uint32_t r = 0;  // r in B | m_r (the m_r thread keeps r_r in a register)
-  if (c >= k && c < C) {
-    const int32_t* col = K.T1 + (c - k);
-    uint64_t acc = 0;
-#pragma unroll 4
-    for (int i = 0; i < k; ++i) acc += (uint64_t)xi_s[i] * (uint32_t)col[i * kp];
-    const uint32_t q = (uint32_t)(acc % L.m);
-    uint32_t t = mulmod(q, L.nb, L.m) + d;
-    if (t >= L.m) t -= L.m;
-    r = mulmod(t, L.ainv, L.m);
-    if (c < 2 * k) zeta_s[c - k] = mulmod(r, L.c2, L.m);
-  }
-  __syncthreads();
-
-  uint32_t s = 0;  // s in A | m_r
-  if (L.t2col >= 0) {
-    const int32_t* col = K.T2 + L.t2col;
-    uint64_t acc = 0;
-#pragma unroll 4
-    for (int j = 0; j < k; ++j) acc += (uint64_t)zeta_s[j] * (uint32_t)col[j * kp];
-    s = (uint32_t)(acc % L.m);
-    if (c == 2 * k) {
-      const uint32_t diff = s >= r ? s - r : s + L.m - r;
-      beta_s[0] = mulmod(diff, K.binv_r, L.m);  // exact: beta < k < m_r
-    }
-  }
-  __syncthreads();
-
-  if (c < k) {
-    const uint32_t corr = mulmod(beta_s[0], L.bma, L.m);
-    r = s >= corr ? s - corr : s + L.m - corr;
-  }
-  return r;
-}
-
-__global__ void rns_mont_mul_kernel(const int32_t* __restrict__ x,
-                                    const int32_t* __restrict__ y,
-                                    const int32_t* __restrict__ c1,
-                                    const int32_t* __restrict__ nbmr,
-                                    RnsConsts K, int32_t* __restrict__ out) {
-  extern __shared__ uint32_t smem[];
-  const int k = K.k, C = 2 * k + 1;
-  uint32_t* xi_s = smem;
-  uint32_t* zeta_s = smem + k;
-  uint32_t* beta_s = smem + 2 * k;
-  const int row = blockIdx.x, c = threadIdx.x;
-  const size_t base = (size_t)row * C + c;
-  const Lane L = load_lane(K, c1, nbmr, row, c);
-  const uint32_t xv = c < C ? (uint32_t)x[base] : 0u;
-  const uint32_t yv = c < C ? (uint32_t)y[base] : 0u;
-  const uint32_t r = mont_mul(xv, yv, c, L, K, xi_s, zeta_s, beta_s);
-  if (c < C) out[base] = (int32_t)r;
-}
-RnsConsts make_consts(const void* m_all, const void* T1, const void* T2,
-                      const void* ainv_b, const void* c2_b, const void* b_mod_a,
-                      unsigned binv_r, int k) {
-  RnsConsts K;
-  K.m_all = (const int32_t*)m_all;
-  K.T1 = (const int32_t*)T1;
-  K.T2 = (const int32_t*)T2;
-  K.ainv_b = (const int32_t*)ainv_b;
-  K.c2_b = (const int32_t*)c2_b;
-  K.b_mod_a = (const int32_t*)b_mod_a;
-  K.binv_r = binv_r;
-  K.k = k;
-  return K;
-}
-
-int block_threads(int k) { return ((2 * k + 1) + 31) / 32 * 32; }
-
-// ---------------------------------------------------------------------------
-// kernel 2
-
-constexpr int kThreads = 512;        // 16 warps
-constexpr int kWarps = kThreads / 32;
 constexpr int kN = 8;                // the MMA's n: plane rows (>= R_T)
 constexpr size_t kSmemLimit = 232448;
+constexpr int kModexpWarps = 16;
+constexpr int kModexpArrays = 17;    // the window table and the accumulator
+constexpr int kMontMulArrays = 2;    // x (then the result) and y
 
-struct ModexpConsts {
+struct ProductConsts {
   const int32_t* m_all;    // (2k+1) channel primes A | B | m_r
   const int32_t* u_all;    // (2k+1) 2^16 mod m (the fold constant)
   const uint4* T1lo;       // T1^T low / high bytes in A-fragment order:
@@ -217,19 +98,19 @@ struct ModexpConsts {
 };
 
 // the shared-memory layout of one block; the host mirror is
-// ops/rns_kernels.py::modexp_smem_bytes
+// ops/rns_kernels.py::tile_smem_bytes
 struct Layout {
-  int k, C, rt, KT, MT, SP;
-  __host__ __device__ Layout(int k_, int rt_)
-      : k(k_), C(2 * k_ + 1), rt(rt_), KT((k_ + 31) / 32),
+  int k, C, rt, arrays, KT, MT, SP;
+  __host__ __device__ Layout(int k_, int rt_, int arrays_)
+      : k(k_), C(2 * k_ + 1), rt(rt_), arrays(arrays_), KT((k_ + 31) / 32),
         MT((k_ + 1 + 15) / 16), SP(KT * 32 + 16) {}
   // four byte planes (xi lo/hi, zeta lo/hi) of kN x SP, beta and the
-  // rows' windows (kN u32 each), then u16 arrays: the window table
-  // (16, rt, C), the accumulator (rt, C) and d in B | m_r (rt, k+1)
+  // rows' windows (kN u32 each), then u16 arrays: `arrays` tiles (rt, C)
+  // and d in B | m_r (rt, k+1)
   __host__ __device__ size_t plane_bytes() const { return (size_t)kN * SP; }
   __host__ __device__ size_t u16_offset() const { return 4 * plane_bytes() + 2 * kN * 4; }
   __host__ __device__ size_t bytes() const {
-    return u16_offset() + 2 * ((size_t)17 * rt * C + (size_t)rt * (k + 1));
+    return u16_offset() + 2 * ((size_t)arrays * rt * C + (size_t)rt * (k + 1));
   }
 };
 
@@ -288,11 +169,33 @@ struct Tile {
   int row0, rows;
   uint8_t *xi_lo, *xi_hi, *ze_lo, *ze_hi;
   uint32_t *beta, *win;
-  uint16_t *table, *dB;
+  uint16_t *arr, *dB;
 
-  __device__ Tile(int k, int rt) : L(k, rt) {}
-  __device__ uint16_t* entry(int j) const { return table + (size_t)j * L.rt * L.C; }
+  __device__ Tile(uint8_t* smem, int k, int rt, int arrays, const int32_t* c1_,
+                  const int32_t* nbmr_, int rows_)
+      : L(k, rt, arrays), c1(c1_), nbmr(nbmr_), row0(blockIdx.x * rt), rows(rows_) {
+    const size_t pb = L.plane_bytes();
+    xi_lo = smem;
+    xi_hi = smem + pb;
+    ze_lo = smem + 2 * pb;
+    ze_hi = smem + 3 * pb;
+    beta = (uint32_t*)(smem + 4 * pb);
+    win = beta + kN;
+    arr = (uint16_t*)(smem + L.u16_offset());
+    dB = arr + (size_t)arrays * rt * L.C;
+  }
+  // u16 tile j (rt, C)
+  __device__ uint16_t* entry(int j) const { return arr + (size_t)j * L.rt * L.C; }
 };
+
+// padding (plane columns k..SP, plane rows RT..8, rows past `rows`) must
+// read as zero, and nothing may stay behind when the block exits
+template <int W>
+__device__ __forceinline__ void zero_smem(uint8_t* smem, const Layout& L) {
+  uint32_t* words = (uint32_t*)smem;
+  const int nwords = (int)(L.bytes() / 4);
+  for (int i = threadIdx.x; i < nwords; i += W * 32) words[i] = 0u;
+}
 
 // The s32 sums of M tile mt over all K tiles: p[product][c_i], products
 // T_lo x_lo, T_lo x_hi, T_hi x_lo, T_hi x_hi (four independent chains).
@@ -331,7 +234,7 @@ __device__ __forceinline__ void mma_tile(const Layout& L, const uint4* __restric
 // j < k+1 is channel chan0 + j (chan0 = k, then 0); the last, m_r, is
 // channel 2k.
 template <int RT, bool FIRST>
-__device__ __forceinline__ void finish_tile(const Tile& T, const ModexpConsts& K,
+__device__ __forceinline__ void finish_tile(const Tile& T, const ProductConsts& K,
                                             uint16_t* o, int mt, const int (&p)[4][4]) {
   const int k = T.L.k, C = T.L.C, SP = T.L.SP, chan0 = FIRST ? k : 0;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -357,7 +260,7 @@ __device__ __forceinline__ void finish_tile(const Tile& T, const ModexpConsts& K
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    // each plane sum is at most P = k*255^2 < 2^25 (k <= 739); the sum
+    // each plane sum is at most P = k*255^2 < 2^28 (k <= 2065); the sum
     // is P_ll + 2^8 (P_lh + P_hl) + 2^16 P_hh, with 2^16 == u (mod m)
     a[i] = (uint32_t)p[1][i] + (uint32_t)p[2][i];  // <= 2P
     h[i] = (uint32_t)p[3][i];
@@ -404,9 +307,9 @@ __device__ __forceinline__ void finish_tile(const Tile& T, const ModexpConsts& K
 }
 
 // One base extension of the tile (see finish_tile). Warp w owns M tiles
-// w, w + kWarps, ... and finishes their channels itself.
-template <int RT, bool FIRST>
-__device__ __forceinline__ void extend(const Tile& T, const ModexpConsts& K,
+// w, w + W, ... and finishes their channels itself.
+template <int RT, bool FIRST, int W>
+__device__ __forceinline__ void extend(const Tile& T, const ProductConsts& K,
                                        uint16_t* o) {
   const Layout& L = T.L;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -415,7 +318,7 @@ __device__ __forceinline__ void extend(const Tile& T, const ModexpConsts& K,
   const uint4* __restrict__ Thi = FIRST ? K.T1hi : K.T2hi;
   const uint8_t* bl = (FIRST ? T.xi_lo : T.ze_lo) + g * L.SP + 4 * t;
   const uint8_t* bh = (FIRST ? T.xi_hi : T.ze_hi) + g * L.SP + 4 * t;
-  for (int mt = warp; mt < L.MT; mt += kWarps) {
+  for (int mt = warp; mt < L.MT; mt += W) {
     int p[4][4] = {};
     mma_tile(L, Tlo, Thi, bl, bh, mt, p);
     finish_tile<RT, FIRST>(T, K, o, mt, p);
@@ -423,17 +326,17 @@ __device__ __forceinline__ void extend(const Tile& T, const ModexpConsts& K,
 }
 
 // o = x * y * A^{-1} mod N for every row of the tile, over (RT, C) u16
-// tiles; o may be x or y. In the elementwise steps a thread owns channels
-// (c = thread, thread + 256, ...) across all RT rows: the channel's
-// constants load once, and the rows are independent chains. Four
-// barriers; every thread calls it alike.
-template <int RT>
-__device__ __forceinline__ void mont_mul(const Tile& T, const ModexpConsts& K,
+// tiles, by a block of W warps; o may be x or y. In the elementwise steps
+// a thread owns channels (c = thread, thread + 32 W, ...) across all RT
+// rows: the channel's constants load once, and the rows are independent
+// chains. Four barriers; every thread calls it alike.
+template <int RT, int W>
+__device__ __forceinline__ void mont_mul(const Tile& T, const ProductConsts& K,
                                          const uint16_t* x, const uint16_t* y,
                                          YMode mode, uint16_t* o) {
   const int k = T.L.k, C = T.L.C, SP = T.L.SP;
   // d = x * y; xi = d_A * c1 as byte planes; d_B|m_r kept for the epilogue
-  for (int c = threadIdx.x; c < C; c += kThreads) {
+  for (int c = threadIdx.x; c < C; c += W * 32) {
     uint32_t m[RT], u[RT], v[RT], w[RT], cv[RT];
     const uint32_t mc = (uint32_t)__ldg(K.m_all + c);
     const uint32_t uc = (uint32_t)__ldg(K.u_all + c);
@@ -473,12 +376,12 @@ __device__ __forceinline__ void mont_mul(const Tile& T, const ModexpConsts& K,
     }
   }
   __syncthreads();
-  extend<RT, true>(T, K, o);
+  extend<RT, true, W>(T, K, o);
   __syncthreads();
-  extend<RT, false>(T, K, o);
+  extend<RT, false, W>(T, K, o);
   __syncthreads();
   // r_A = s_A - beta * (B mod a_i); beta < m_r, the smallest prime
-  for (int c = threadIdx.x; c < k; c += kThreads) {
+  for (int c = threadIdx.x; c < k; c += W * 32) {
     uint32_t m[RT], u[RT], v[RT], w[RT];
     const uint32_t mc = (uint32_t)__ldg(K.m_all + c);
     const uint32_t uc = (uint32_t)__ldg(K.u_all + c);
@@ -500,38 +403,89 @@ __device__ __forceinline__ void mont_mul(const Tile& T, const ModexpConsts& K,
   __syncthreads();
 }
 
+// ---------------------------------------------------------------------------
+// kernel 1: one product per row
+
+// W warps, at most 128 registers a thread (16 / W blocks per SM)
+template <int W>
+__global__ void __launch_bounds__(W * 32, 16 / W)
+rns_mont_mul_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
+                    const int32_t* __restrict__ c1, const int32_t* __restrict__ nbmr,
+                    const __grid_constant__ ProductConsts K, int rows,
+                    int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t smem_tile[];
+  const Tile T(smem_tile, K.k, kN, kMontMulArrays, c1, nbmr, rows);
+  zero_smem<W>(smem_tile, T.L);
+  __syncthreads();
+  // the tile's rows lie one after another in x, y and out as in the
+  // (kN, C) tiles; rows past `rows` stay zero and are never stored
+  const int C = T.L.C;
+  const int n = min(kN, rows - T.row0) * C;
+  const size_t base = (size_t)T.row0 * C;
+  uint16_t* xt = T.entry(0);
+  uint16_t* yt = T.entry(1);
+  for (int i = threadIdx.x; i < n; i += W * 32) {
+    xt[i] = (uint16_t)__ldg(x + base + i);
+    yt[i] = (uint16_t)__ldg(y + base + i);
+  }
+  __syncthreads();
+  mont_mul<kN, W>(T, K, xt, yt, Y_TILE, xt);
+  for (int i = threadIdx.x; i < n; i += W * 32) out[base + i] = (int32_t)xt[i];
+  // x and y may be secret: zero all shared memory before the block exits
+  __syncthreads();
+  zero_smem<W>(smem_tile, T.L);
+}
+
+// Warps per block of kernel 1, a rule on the launch's tiles: 16 (the
+// shortest chain per product) while one block per SM holds every tile,
+// else 4, four blocks per SM (each at 128 registers a thread). Shared
+// memory never limits it (16 KB a block at k=131).
+int mont_mul_warps(int rows) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 132;
+  }
+  const int tiles = (rows + kN - 1) / kN;
+  return tiles <= sms ? 16 : 4;
+}
+
+template <int W>
+int launch_mont_mul(const void* x, const void* y, const void* c1, const void* nbmr,
+                    const ProductConsts& K, int rows, void* out, cudaStream_t stream) {
+  const size_t smem = Layout(K.k, kN, kMontMulArrays).bytes();
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rns_mont_mul_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  rns_mont_mul_kernel<W><<<(rows + kN - 1) / kN, W * 32, smem, stream>>>(
+      (const int32_t*)x, (const int32_t*)y, (const int32_t*)c1, (const int32_t*)nbmr,
+      K, rows, (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// kernel 2: base^exp per row
+
 template <int RT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kModexpWarps * 32)
 rns_modexp_kernel(const int32_t* __restrict__ base_res,
                   const int32_t* __restrict__ exp, int exp_limbs, int exp_bits,
                   const int32_t* __restrict__ a2n_res,
                   const int32_t* __restrict__ c1,
                   const int32_t* __restrict__ nbmr,
-                  const __grid_constant__ ModexpConsts K, int rows,
+                  const __grid_constant__ ProductConsts K, int rows,
                   int32_t* __restrict__ out) {
+  constexpr int W = kModexpWarps, kThreads = W * 32;
   extern __shared__ __align__(16) uint8_t smem_tile[];
-  uint8_t* smem = smem_tile;
-  Tile T(K.k, RT);
-  T.c1 = c1;
-  T.nbmr = nbmr;
-  T.row0 = blockIdx.x * RT;
-  T.rows = rows;
-  const size_t pb = T.L.plane_bytes();
-  T.xi_lo = smem;
-  T.xi_hi = smem + pb;
-  T.ze_lo = smem + 2 * pb;
-  T.ze_hi = smem + 3 * pb;
-  T.beta = (uint32_t*)(smem + 4 * pb);
-  T.win = T.beta + kN;
-  T.table = (uint16_t*)(smem + T.L.u16_offset());
-  T.dB = T.table + (size_t)17 * RT * T.L.C;
+  const Tile T(smem_tile, K.k, RT, kModexpArrays, c1, nbmr, rows);
   const int C = T.L.C, row0 = T.row0;
-  uint32_t* words = (uint32_t*)smem;
-  const int nwords = (int)(T.L.bytes() / 4);
 
-  // padding (plane columns k..SP, plane rows RT..8, rows past `rows`)
-  // must read as zero
-  for (int i = threadIdx.x; i < nwords; i += kThreads) words[i] = 0u;
+  zero_smem<W>(smem_tile, T.L);
   __syncthreads();
   uint16_t* acc = T.entry(16);
   uint16_t* t0 = T.entry(0);
@@ -548,9 +502,9 @@ rns_modexp_kernel(const int32_t* __restrict__ base_res,
   __syncthreads();
 
   // into the A-Montgomery domain: x*A = MontMul(x, A^2 mod N)
-  mont_mul<RT>(T, K, t1, acc, Y_TILE, t1);
-  mont_mul<RT>(T, K, acc, nullptr, Y_ONE, t0);
-  for (int j = 2; j < 16; ++j) mont_mul<RT>(T, K, T.entry(j - 1), t1, Y_TILE, T.entry(j));
+  mont_mul<RT, W>(T, K, t1, acc, Y_TILE, t1);
+  mont_mul<RT, W>(T, K, acc, nullptr, Y_ONE, t0);
+  for (int j = 2; j < 16; ++j) mont_mul<RT, W>(T, K, T.entry(j - 1), t1, Y_TILE, T.entry(j));
   for (int c = threadIdx.x; c < C; c += kThreads) {
 #pragma unroll
     for (int r = 0; r < RT; ++r) acc[r * C + c] = t0[r * C + c];
@@ -568,10 +522,10 @@ rns_modexp_kernel(const int32_t* __restrict__ base_res,
     // four squarings, then the window's multiply (the squarings' barriers
     // order win[] before the select reads it)
     for (int s = 0; s < 5; ++s)
-      mont_mul<RT>(T, K, acc, acc, s < 4 ? Y_TILE : Y_SELECT, acc);
+      mont_mul<RT, W>(T, K, acc, acc, s < 4 ? Y_TILE : Y_SELECT, acc);
   }
   // leave the Montgomery domain
-  mont_mul<RT>(T, K, acc, nullptr, Y_ONE, acc);
+  mont_mul<RT, W>(T, K, acc, nullptr, Y_ONE, acc);
   for (int c = threadIdx.x; c < C; c += kThreads) {
 #pragma unroll
     for (int r = 0; r < RT; ++r)
@@ -580,59 +534,35 @@ rns_modexp_kernel(const int32_t* __restrict__ base_res,
   // the table, planes and accumulator hold powers of a possibly secret
   // base: zero all shared memory before the block exits
   __syncthreads();
-  for (int i = threadIdx.x; i < nwords; i += kThreads) words[i] = 0u;
+  zero_smem<W>(smem_tile, T.L);
 }
 
 // R_T: 8 rows per block where the tile fits in shared memory, else 4
-int tile_rows(int k) { return Layout(k, 8).bytes() <= kSmemLimit ? 8 : 4; }
+int tile_rows(int k) { return Layout(k, 8, kModexpArrays).bytes() <= kSmemLimit ? 8 : 4; }
 
 template <int RT>
 int launch_modexp(const void* base_res, const void* exp, int exp_limbs,
                   int exp_bits, const void* a2n_res, const void* c1,
-                  const void* nbmr, const ModexpConsts& K, int rows, void* out,
+                  const void* nbmr, const ProductConsts& K, int rows, void* out,
                   cudaStream_t stream) {
-  const size_t smem = Layout(K.k, RT).bytes();
+  const size_t smem = Layout(K.k, RT, kModexpArrays).bytes();
   if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
       rns_modexp_kernel<RT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  rns_modexp_kernel<RT><<<(rows + RT - 1) / RT, kThreads, smem, stream>>>(
+  rns_modexp_kernel<RT><<<(rows + RT - 1) / RT, kModexpWarps * 32, smem, stream>>>(
       (const int32_t*)base_res, (const int32_t*)exp, exp_limbs, exp_bits,
       (const int32_t*)a2n_res, (const int32_t*)c1, (const int32_t*)nbmr, K, rows,
       (int32_t*)out);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int fsdkr_rns_mont_mul(const void* x, const void* y, const void* c1,
-                                  const void* nbmr, const void* m_all,
-                                  const void* T1, const void* T2,
-                                  const void* ainv_b, const void* c2_b,
-                                  const void* b_mod_a, unsigned binv_r, int k,
-                                  int rows, void* out, void* stream) {
-  if (rows <= 0) return 0;
-  const RnsConsts K = make_consts(m_all, T1, T2, ainv_b, c2_b, b_mod_a, binv_r, k);
-  const size_t smem = (size_t)(2 * k + 1) * sizeof(uint32_t);
-  rns_mont_mul_kernel<<<rows, block_threads(k), smem, (cudaStream_t)stream>>>(
-      (const int32_t*)x, (const int32_t*)y, (const int32_t*)c1,
-      (const int32_t*)nbmr, K, (int32_t*)out);
-  return (int)cudaGetLastError();
-}
-
 // folds: f_mul, f_mid, f_hh, f_ext (ops/rns_kernels.py::fold_counts)
-extern "C" int fsdkr_rns_modexp(const void* base_res, const void* exp,
-                                int exp_limbs, int exp_bits,
-                                const void* a2n_res, const void* c1,
-                                const void* nbmr, const void* m_all,
-                                const void* u_all, const void* T1lo,
-                                const void* T1hi, const void* T2lo,
-                                const void* T2hi, const void* ainv_b,
-                                const void* c2_b, const void* b_mod_a,
-                                unsigned binv_r, int k, const int* folds,
-                                int rows, void* out, void* stream) {
-  if (rows <= 0) return 0;
-  ModexpConsts K;
+ProductConsts product_consts(const void* m_all, const void* u_all, const void* T1lo,
+                             const void* T1hi, const void* T2lo, const void* T2hi,
+                             const void* ainv_b, const void* c2_b, const void* b_mod_a,
+                             unsigned binv_r, int k, const int* folds) {
+  ProductConsts K;
   K.m_all = (const int32_t*)m_all;
   K.u_all = (const int32_t*)u_all;
   K.T1lo = (const uint4*)T1lo;
@@ -648,6 +578,41 @@ extern "C" int fsdkr_rns_modexp(const void* base_res, const void* exp,
   K.f_mid = folds[1];
   K.f_hh = folds[2];
   K.f_ext = folds[3];
+  return K;
+}
+
+}  // namespace
+
+extern "C" int fsdkr_rns_mont_mul(const void* x, const void* y, const void* c1,
+                                  const void* nbmr, const void* m_all,
+                                  const void* u_all, const void* T1lo,
+                                  const void* T1hi, const void* T2lo,
+                                  const void* T2hi, const void* ainv_b,
+                                  const void* c2_b, const void* b_mod_a,
+                                  unsigned binv_r, int k, const int* folds,
+                                  int rows, void* out, void* stream) {
+  if (rows <= 0) return 0;
+  const ProductConsts K = product_consts(m_all, u_all, T1lo, T1hi, T2lo, T2hi, ainv_b,
+                                         c2_b, b_mod_a, binv_r, k, folds);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (mont_mul_warps(rows) == 16)
+    return launch_mont_mul<16>(x, y, c1, nbmr, K, rows, out, s);
+  return launch_mont_mul<4>(x, y, c1, nbmr, K, rows, out, s);
+}
+
+extern "C" int fsdkr_rns_modexp(const void* base_res, const void* exp,
+                                int exp_limbs, int exp_bits,
+                                const void* a2n_res, const void* c1,
+                                const void* nbmr, const void* m_all,
+                                const void* u_all, const void* T1lo,
+                                const void* T1hi, const void* T2lo,
+                                const void* T2hi, const void* ainv_b,
+                                const void* c2_b, const void* b_mod_a,
+                                unsigned binv_r, int k, const int* folds,
+                                int rows, void* out, void* stream) {
+  if (rows <= 0) return 0;
+  const ProductConsts K = product_consts(m_all, u_all, T1lo, T1hi, T2lo, T2hi, ainv_b,
+                                         c2_b, b_mod_a, binv_r, k, folds);
   const cudaStream_t s = (cudaStream_t)stream;
   if (tile_rows(k) == 8)
     return launch_modexp<8>(base_res, exp, exp_limbs, exp_bits, a2n_res, c1,

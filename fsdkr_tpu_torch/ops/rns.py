@@ -182,12 +182,13 @@ _DEVICE_CACHE: Dict[Tuple[int, int, str], _DeviceConsts] = {}
 
 
 def _prep_consts(bases: RNSBases, device) -> RNSConsts:
-    """Device-ready shared constants for the kernels. Kernel 1 takes the
-    full 16-bit values (int32) and accumulates exactly in 64 bits. Kernel
-    2, like the JAX package's MXU kernels (T1l/T1h/T2l/T2h), takes T1/T2
-    split into u8 low and high planes, here laid out in the tensor-core
-    fragment order (`rns_kernels.fragment_planes`), with the per-channel
-    fold constant u = 2^16 mod m and the class's fold counts."""
+    """Device-ready shared constants for the kernels and their plain
+    versions. The kernels, like the JAX package's MXU kernels
+    (T1l/T1h/T2l/T2h), take T1/T2 split into u8 low and high planes, here
+    laid out in the tensor-core fragment order
+    (`rns_kernels.fragment_planes`), with the per-channel fold constant
+    u = 2^16 mod m and the class's fold counts; the plain versions take
+    the full 16-bit values (int32)."""
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.int32)).to(device).contiguous()

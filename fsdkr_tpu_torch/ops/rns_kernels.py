@@ -8,31 +8,33 @@ PyTorch versions, the build/loader, and launch counters.
     `rns_modexp_pallas`.
 
 Both kernels live in `csrc/rns_kernels.cu` (CUDA C++ for sm_90a; its
-header comment gives the designs). What bounds them on the H100: the two
-base extensions are 2*k*(k+1) multiply-adds per product per row (k = 131
-at the 2048-bit class, 260 at 4096).
+header comment gives the design) and share one implementation of the
+product: a block holds a tile of 8 rows (4 in kernel 2 at the 7168-bit
+class) and runs the two base extensions (2*k*(k+1) multiply-adds per
+product per row; k = 131 at the 2048-bit class, 260 at 4096) on the
+tensor cores as four exact u8 x u8 -> s32 `mma.sync.m16n8k32` plane
+products. Both take T1/T2 as u8 low/high planes in the MMA's A-fragment
+order (`fragment_planes`), the fold constant u = 2^16 mod m of every
+channel (`u_all`), and the number of folds each reduction site needs in
+this width class (`fold_counts`): they reduce by folding, never with %.
 
-- Kernel 1 takes the full 16-bit constants (m_all, T1, T2, ...) and runs
-  the extensions as 32x32->64-bit multiply-adds on the CUDA cores, one
-  block per row, with T1/T2 re-read from L2 by every row.
-- Kernel 2 holds a tile of 8 rows (4 at the 7168-bit class) per block
-  and runs the extensions on the tensor cores as four exact u8 x u8 -> s32
-  `mma.sync.m16n8k32` plane products. It takes T1/T2 as u8 low/high
-  planes in the MMA's A-fragment order (`fragment_planes`), the fold
-  constant u = 2^16 mod m of every channel (`u_all`), and the number of
-  folds each reduction site needs in this width class (`fold_counts`):
-  it reduces by folding, never with %. Its window table and accumulator
-  stay in shared memory for the whole loop, so device memory sees each
-  row's inputs once and its result once.
+- Kernel 1 is one product per tile. Its bound on the H100 is bytes (5.2
+  us at k=131 and 4096 rows); at 256 rows the bound (0.36 us) is far
+  below a launch's own latency, which is the floor there. Its launcher
+  picks the warps per block from the number of tiles, so that a launch
+  runs in one wave of blocks.
+- Kernel 2 keeps its window table and accumulator in shared memory for
+  the whole loop, so device memory sees each row's inputs once and its
+  result once.
 
 Tensors crossing the kernel boundary are int32 holding values < 2^16
 (the planes: uint8). The wrapper dispatches on the tensor's device: a CPU
 tensor runs the plain version (the CPU tests' path); a CUDA tensor
 launches the kernel or raises — there is no fallback from the kernel to
 the plain version. The plain versions compute in int64 with float64
-matmuls (exact: every product < 2^32, every sum over <= 511 terms <
-2^41 < 2^53); on the card they are the reference the kernels are held
-against, bit for bit.
+matmuls (exact: every product < 2^32, every sum over at most the
+kernels' largest k, 2,065 terms, < 2^44 < 2^53); on the card they are
+the reference the kernels are held against, bit for bit.
 
 The library is built at first use with nvcc into `build/` beside the
 package (route (b): a plain C interface loaded with ctypes), and rebuilt
@@ -64,7 +66,7 @@ __all__ = [
     "load_library",
     "fold_counts",
     "fragment_planes",
-    "modexp_smem_bytes",
+    "tile_smem_bytes",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -74,25 +76,33 @@ _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-_MAX_K_MONT = 511  # kernel 1: 2k+1 threads per block must stay <= 1024
 _SMEM_LIMIT = 232448  # shared memory one block may use on the H100
 
 WINDOW_BITS = 4
+# u16 (rows, 2k+1) tiles a block holds: kernel 2 its window table and
+# accumulator, kernel 1 its x (then the result) and y
+MODEXP_ARRAYS = 17
+MONT_MUL_ARRAYS = 2
 
 
-def modexp_smem_bytes(k: int, rt: int) -> int:
-    """Kernel 2's shared memory for a tile of rt rows (the mirror of
-    `Layout::bytes` in csrc/rns_kernels.cu): four u8 planes (xi and zeta,
-    low and high) of 8 rows x (k rounded up to 32, + 16), 16 u32 (beta and
-    the windows), and u16 arrays: the window table (16, rt, 2k+1), the
-    accumulator (rt, 2k+1) and d in B | m_r (rt, k+1)."""
+def tile_smem_bytes(k: int, rt: int, arrays: int) -> int:
+    """A block's shared memory for a tile of rt rows holding `arrays` u16
+    tiles (the mirror of `Layout::bytes` in csrc/rns_kernels.cu): four u8
+    planes (xi and zeta, low and high) of 8 rows x (k rounded up to 32, +
+    16), 16 u32 (beta and the windows), and u16 arrays: `arrays` tiles
+    (rt, 2k+1) and d in B | m_r (rt, k+1)."""
     sp = -(-k // 32) * 32 + 16
-    return 4 * 8 * sp + 64 + 2 * (17 * rt * (2 * k + 1) + rt * (k + 1))
+    return 4 * 8 * sp + 64 + 2 * (arrays * rt * (2 * k + 1) + rt * (k + 1))
 
 
-# kernel 2: its table budget at 4 rows per block (739; the 7168-bit class
-# has k=454)
-_MAX_K = max(k for k in range(1, 1024) if modexp_smem_bytes(k, 4) <= _SMEM_LIMIT)
+def _max_k(rt: int, arrays: int) -> int:
+    return max(k for k in range(1, 4096) if tile_smem_bytes(k, rt, arrays) <= _SMEM_LIMIT)
+
+
+# the widest class each kernel's tile admits: kernel 2 at 4 rows per block
+# (739; the 7168-bit class has k=454), kernel 1 at 8 (2,065)
+_MAX_K_MODEXP = _max_k(4, MODEXP_ARRAYS)
+_MAX_K_MONT_MUL = _max_k(8, MONT_MUL_ARRAYS)
 
 
 def _fold_max(v: int, u: int) -> int:
@@ -115,7 +125,7 @@ def _folds_until(v: int, u: int, done) -> Tuple[int, int]:
 
 
 def fold_counts(m_all, k: int) -> Tuple[int, int, int, int]:
-    """Folds per reduction site of kernel 2 for one width class, from the
+    """Folds per reduction site of the kernels for one width class, from the
     real bounds of every channel prime m (u = 2^16 mod m), the largest
     over the channels: (f_mul, f_mid, f_hh, f_ext).
 
@@ -143,7 +153,7 @@ def fold_counts(m_all, k: int) -> Tuple[int, int, int, int]:
 
 def fragment_planes(T: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """A (k, k+1) extension matrix of 16-bit values -> its (lo, hi) u8
-    planes, flat, as kernel 2 loads them: the MMA's A operand is T^T
+    planes, flat, as the kernels load them: the MMA's A operand is T^T
     (k+1 target channels on M, k source channels on K), zero-padded to
     Mp = k+1 rounded up to 16 and Kp = k rounded up to 32, in the
     fragment order of mma.m16n8k32 with 8-bit A (PTX ISA). With
@@ -175,9 +185,10 @@ def fragment_planes(T: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 class RNSConsts:
     """Shared per-width-class constants on one device (int32, < 2^16):
     m_all (2k+1,), T1 and T2 (k, k+1), Ainv_B (k+1,), c2_B (k,),
-    B_mod_A (k,), and the scalar Binv_r. Kernel 2 also reads u_all (2k+1,)
-    = 2^16 mod m, T1/T2 as uint8 planes T1_lo, T1_hi, T2_lo, T2_hi
-    (`fragment_planes`) and the fold counts `folds` (`fold_counts`)."""
+    B_mod_A (k,), and the scalar Binv_r. The kernels read T1/T2 as uint8
+    planes T1_lo, T1_hi, T2_lo, T2_hi (`fragment_planes`) and also u_all
+    (2k+1,) = 2^16 mod m and the fold counts `folds` (`fold_counts`); the
+    plain versions read T1 and T2."""
 
     k: int
     m_all: torch.Tensor
@@ -311,7 +322,9 @@ def load_library() -> ctypes.CDLL:
     build_info["so"] = str(so)
     lib = ctypes.CDLL(str(so))
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    lib.fsdkr_rns_mont_mul.argtypes = [p, p, p, p, p, p, p, p, p, p, u, i, i, p, p]
+    lib.fsdkr_rns_mont_mul.argtypes = [
+        p, p, p, p, p, p, p, p, p, p, p, p, p, u, i, ctypes.POINTER(i), i, p, p,
+    ]
     lib.fsdkr_rns_mont_mul.restype = i
     lib.fsdkr_rns_modexp.argtypes = [
         p, p, i, i, p, p, p, p, p, p, p, p, p, p, p, p, u, i,
@@ -344,19 +357,27 @@ def _check_consts(K: RNSConsts, device, max_k: int):
     for name, shape in (
         ("m_all", (2 * k + 1,)), ("T1", (k, k + 1)), ("T2", (k, k + 1)),
         ("Ainv_B", (k + 1,)), ("c2_B", (k,)), ("B_mod_A", (k,)),
+        ("u_all", (2 * k + 1,)),
     ):
         t = getattr(K, name)
         if t.device != device or t.dtype != torch.int32 or tuple(t.shape) != shape:
             raise ValueError(f"constant {name} must be int32 {shape} on {device}")
         if not t.is_contiguous():
             raise ValueError(f"constant {name} must be contiguous")
+    plane = (-(-(k + 1) // 16) * 16) * (-(-k // 32) * 32)
+    for name in ("T1_lo", "T1_hi", "T2_lo", "T2_hi"):
+        t = getattr(K, name)
+        if t.device != device or t.dtype != torch.uint8 or tuple(t.shape) != (plane,):
+            raise ValueError(f"constant {name} must be uint8 ({plane},) on {device}")
 
 
-def _const_ptrs(K: RNSConsts):
+def _const_args(K: RNSConsts):
+    """The product's constants as the C entry points take them."""
     return (
-        K.m_all.data_ptr(), K.T1.data_ptr(), K.T2.data_ptr(),
+        K.m_all.data_ptr(), K.u_all.data_ptr(), K.T1_lo.data_ptr(),
+        K.T1_hi.data_ptr(), K.T2_lo.data_ptr(), K.T2_hi.data_ptr(),
         K.Ainv_B.data_ptr(), K.c2_B.data_ptr(), K.B_mod_A.data_ptr(),
-        K.Binv_r, K.k,
+        K.Binv_r, K.k, (ctypes.c_int * 4)(*K.folds),
     )
 
 
@@ -367,16 +388,15 @@ def mont_mul(x, y, c1, nbmr, K: RNSConsts) -> torch.Tensor:
     for name, t, w in (("x", x, 2 * k + 1), ("y", y, 2 * k + 1),
                        ("c1", c1, k), ("nbmr", nbmr, k + 1)):
         _check(name, t, rows, w, device)
-    _check_consts(K, device, _MAX_K_MONT)
+    _check_consts(K, device, _MAX_K_MONT_MUL)
     if device.type == "cpu":
         return mont_mul_plain(x, y, c1, nbmr, K)
     if device.type != "cuda":
         raise ValueError(f"no RNS kernel for device {device}")
-    lib = load_library()
     out = torch.empty_like(x)
-    err = lib.fsdkr_rns_mont_mul(
+    err = load_library().fsdkr_rns_mont_mul(
         x.data_ptr(), y.data_ptr(), c1.data_ptr(), nbmr.data_ptr(),
-        *_const_ptrs(K), rows, out.data_ptr(),
+        *_const_args(K), rows, out.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err:
@@ -399,15 +419,7 @@ def modexp(base_res, exp, a2n_res, c1, nbmr, K: RNSConsts,
                        ("a2n_res", a2n_res, 2 * k + 1),
                        ("c1", c1, k), ("nbmr", nbmr, k + 1)):
         _check(name, t, rows, w, device)
-    _check_consts(K, device, _MAX_K)
-    plane = (-(-(k + 1) // 16) * 16) * (-(-k // 32) * 32)
-    for name in ("T1_lo", "T1_hi", "T2_lo", "T2_hi"):
-        t = getattr(K, name)
-        if t.device != device or t.dtype != torch.uint8 or tuple(t.shape) != (plane,):
-            raise ValueError(f"constant {name} must be uint8 ({plane},) on {device}")
-    u = K.u_all
-    if u.device != device or u.dtype != torch.int32 or tuple(u.shape) != (2 * k + 1,):
-        raise ValueError(f"constant u_all must be int32 ({2 * k + 1},) on {device}")
+    _check_consts(K, device, _MAX_K_MODEXP)
     if device.type == "cpu":
         return modexp_plain(base_res, exp, a2n_res, c1, nbmr, K, exp_bits)
     if device.type != "cuda":
@@ -416,11 +428,7 @@ def modexp(base_res, exp, a2n_res, c1, nbmr, K: RNSConsts,
     out = torch.empty_like(base_res)
     err = lib.fsdkr_rns_modexp(
         base_res.data_ptr(), exp.data_ptr(), exp.shape[1], exp_bits,
-        a2n_res.data_ptr(), c1.data_ptr(), nbmr.data_ptr(),
-        K.m_all.data_ptr(), K.u_all.data_ptr(), K.T1_lo.data_ptr(),
-        K.T1_hi.data_ptr(), K.T2_lo.data_ptr(), K.T2_hi.data_ptr(),
-        K.Ainv_B.data_ptr(), K.c2_B.data_ptr(), K.B_mod_A.data_ptr(),
-        K.Binv_r, K.k, (ctypes.c_int * 4)(*K.folds),
+        a2n_res.data_ptr(), c1.data_ptr(), nbmr.data_ptr(), *_const_args(K),
         rows, out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
     )
     if err:

@@ -1,5 +1,6 @@
-"""A CPU model of kernel 2's arithmetic (csrc/rns_kernels.cu,
-`rns_modexp_kernel`), held against the plain version.
+"""A CPU model of the kernels' shared RNS Montgomery product
+(csrc/rns_kernels.cu, `mont_mul<RT, W>`, which both `rns_mont_mul_kernel`
+and `rns_modexp_kernel` run), held against the plain versions.
 
 The CUDA kernel runs only on the card, so what it relies on is modelled
 here in Python, step by step as the kernel does it:
@@ -16,6 +17,11 @@ here in Python, step by step as the kernel does it:
   class's fold counts, every intermediate checked to fit its 32-bit
   register. Its residues must equal `rns_kernels._mont_mul_i64`, bit for
   bit, on random and worst-case rows at k = 18, 131 and 260.
+- Kernel 1's tile: int32 rows loaded into zero-padded 8-row u16 tiles,
+  one product per tile, and only rows < `rows` stored. Its output must
+  equal `rns_kernels.mont_mul_plain` bit for bit at k = 18, 131, 260 and
+  454, for 1, 8 and 13 rows (a tile of one, a full tile, a partial last
+  tile), random and worst-case rows.
 - The fold counts (`rns_kernels.fold_counts`): for every width class and
   every channel prime, the bound of each reduction site's largest input
   falls below 2m after its folds (so one conditional subtraction leaves a
@@ -222,6 +228,42 @@ def test_model_product_matches_plain(k, worst):
     assert torch.equal(got, want)
 
 
+def _model_mont_mul_kernel(x, y, c1, nbmr, K):
+    """Kernel 1 over (rows, 2k+1) int32 residues, tile by tile as its
+    blocks run: each block loads its rows into zero-padded (8, 2k+1) u16
+    tiles (c1 and N mod B read as 0 past `rows`, as the kernel reads
+    them), runs one product and stores only its rows < `rows`."""
+    rows, C = x.shape
+    k = K.k
+    out = torch.full((rows, C), -1, dtype=torch.int32)
+    for row0 in range(0, rows, 8):
+        n = min(8, rows - row0)
+        tiles = []
+        for src, width in ((x, C), (y, C), (c1, k), (nbmr, k + 1)):
+            tile = np.zeros((8, width), np.uint16)
+            tile[:n] = src[row0 : row0 + n].numpy()
+            assert (tile[:n].astype(np.int64) == src[row0 : row0 + n].numpy()).all()
+            tiles.append(torch.as_tensor(tile.astype(np.int64)))
+        prod = _model_mont_mul(*tiles, K)
+        out[row0 : row0 + n] = prod[:n].to(torch.int32)
+    assert bool((out >= 0).all())  # every row stored exactly once
+    return out
+
+
+@pytest.mark.parametrize("rows", [1, 8, 13])
+@pytest.mark.parametrize("worst", [False, True], ids=["random", "worst"])
+@pytest.mark.parametrize("k", [18, 131, 260, 454])
+def test_model_mont_mul_kernel_matches_plain(k, worst, rows):
+    rb = _bases(k)
+    K = _consts(rb)
+    x, y, c1, nb = (torch.as_tensor(a.astype(np.int32))
+                    for a in _inputs(rb, worst, rows=rows, seed=7 + rows))
+    want = rns_kernels.mont_mul_plain(x, y, c1, nb, K)
+    got = _model_mont_mul_kernel(x, y, c1, nb, K)
+    assert got.dtype == want.dtype == torch.int32
+    assert torch.equal(got, want)
+
+
 # ---------------------------------------------------------------------------
 # the fold counts against the bounds
 
@@ -277,14 +319,33 @@ def test_fold_counts_bound_every_site(bits):
 def test_kernel_limits_admit_every_width_class():
     """Kernel 2's tile fits the H100's shared memory at every width class:
     8 rows per block up to 6144 bits, 4 at 7168 bits (the kernel takes 8
-    wherever they fit), and its k limit admits them all."""
+    wherever they fit), and its k limit admits them all. Kernel 1's tile
+    (8 rows, two u16 arrays) fits at every class, its k limit comes from
+    that layout, and at the 2048- and 4096-bit classes four of its blocks
+    fit one SM's shared memory (the 4-warp blocks of a 4096-row launch)."""
     limit = 232448
+    modexp, mont = rns_kernels.MODEXP_ARRAYS, rns_kernels.MONT_MUL_ARRAYS
     for bits in (2048, 4096, 6144):
         k = rns.rns_bases_for_bits(bits, bits // 16).k
-        assert rns_kernels.modexp_smem_bytes(k, 8) <= limit
-        assert k <= rns_kernels._MAX_K
+        assert rns_kernels.tile_smem_bytes(k, 8, modexp) <= limit
+        assert k <= rns_kernels._MAX_K_MODEXP
     k = rns.rns_bases_for_bits(7168, 7168 // 16).k
-    assert rns_kernels.modexp_smem_bytes(k, 8) > limit
-    assert rns_kernels.modexp_smem_bytes(k, 4) <= limit
-    assert k <= rns_kernels._MAX_K
-    assert rns_kernels.modexp_smem_bytes(rns_kernels._MAX_K + 1, 4) > limit
+    assert rns_kernels.tile_smem_bytes(k, 8, modexp) > limit
+    assert rns_kernels.tile_smem_bytes(k, 4, modexp) <= limit
+    assert k <= rns_kernels._MAX_K_MODEXP
+    assert rns_kernels.tile_smem_bytes(rns_kernels._MAX_K_MODEXP + 1, 4, modexp) > limit
+
+    for bits in CLASS_BITS:
+        k = rns.rns_bases_for_bits(bits, bits // 16).k
+        assert rns_kernels.tile_smem_bytes(k, 8, mont) <= limit
+        assert k <= rns_kernels._MAX_K_MONT_MUL
+    top = rns_kernels._MAX_K_MONT_MUL
+    assert rns_kernels.tile_smem_bytes(top, 8, mont) <= limit
+    assert rns_kernels.tile_smem_bytes(top + 1, 8, mont) > limit
+    # the plane sums of the widest admitted class stay in the s32
+    # accumulators
+    assert 2 * top * 255 * 255 < 1 << 31
+    for bits in (2048, 4096):
+        k = rns.rns_bases_for_bits(bits, bits // 16).k
+        # 228 KB of shared memory per SM, 1 KB of it reserved per block
+        assert 4 * (rns_kernels.tile_smem_bytes(k, 8, mont) + 1024) <= 233472
