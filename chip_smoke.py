@@ -8,26 +8,38 @@ Run from the root of a checkout:
 
 Phases:
   env      nvidia-smi name and power limit, torch/CUDA versions, the
-           kernels' build from csrc/ (with nvcc's register report).
+           kernels' builds from csrc/ (both sources compiled at once, with
+           nvcc's register report).
   kernels  each hand-written kernel against its plain PyTorch version on
-           the card, at k=131 (2048-bit class), k=260 (4096-bit class), the
-           6144-bit class (k=389) and the 7168-bit class (k=454, where
-           kernel 2 holds 4 rows per block), with row counts that do and do
-           not fill the row tiles (kernel 1 also at 1 and 13 rows at every
-           class and at the main path's 4096 rows), random and worst-case
-           rows: residues must be bit-identical.
-  rns      rns_modexp / rns_modmul (through device_powm / device_modmul)
-           against CPython pow at 2048- and 4096-bit moduli.
+           the card. The RNS kernels at k=131 (2048-bit class), k=260
+           (4096-bit class), the 6144-bit class (k=389) and the 7168-bit
+           class (k=454, where kernel 2 holds 4 rows per block), with row
+           counts that do and do not fill the row tiles (kernel 1 also at
+           1 and 13 rows at every class and at the main path's 4096 rows);
+           the three CIOS kernels at K=16, 128, 256 and 512 limbs on 1, 13
+           and 256 rows. Random rows (with a modulus-3 row and a zero
+           exponent) and worst-case rows (every limb of x and y at n-1,
+           every exponent bit set): results must be bit-identical.
+  routes   device_powm / device_modmul (each launch through the RNS route
+           or the CIOS engine, as the routing picks) and the RNS route
+           itself against CPython pow at 2048- and 4096-bit moduli; both
+           entry points at 8192-bit moduli (past the RNS classes).
   main     the refresh round at paillier_bits=2048, M=256, 11 correct-key
            rounds, n=16, t=8: simulate_keygen -> distribute_batch (all 16
            senders) -> collect by all 16; t+1 new shares must interpolate
            to the group key; a collect with one tampered PDL proof must
-           raise the PDL error naming the sender; both kernels' launch
-           counters must be > 0 over distribute + collect.
-  time     each kernel against its plain version at every shape the main
-           path launched it with (random and worst-case rows, bit-identical
-           residues); each kernel timed beside its bound on the H100 at
-           every one of those shapes, and at the main path's costliest
+           raise the PDL error naming the sender; the routing's kernels
+           (every launch takes the CIOS engine) must each launch over
+           distribute + collect; after the first collect, the precompute
+           cache must see no miss (every modulus's constants computed
+           once). Then the RNS route's path, the earlier slices' main
+           path cut to one collect: the RNS route forced, both RNS
+           kernels' counters zeroed before it and read after it, and the
+           key it adopts equal to the routed collect's.
+  time     each kernel against its plain version at every shape its path
+           launched it with (one call, rows half random, half worst-case;
+           bit-identical results); each kernel timed beside its bound on
+           the H100 at every one of those shapes, and at its costliest
            shape beside its plain version too. Two times per launch: `ms`,
            CUDA events around back-to-back wrapper calls (the wrapper's
            host work included where it is the slower side), and
@@ -48,7 +60,7 @@ import subprocess
 import sys
 import time
 
-PHASES = ("env", "kernels", "rns", "main", "time")
+PHASES = ("env", "kernels", "routes", "main", "time")
 
 # H100 SXM published peaks (dense): device memory rate and int8 tensor-core
 # rate. A 16x16-bit multiply-add counts as four 8-bit multiply-adds of two
@@ -93,9 +105,16 @@ def rand_moduli(rng, rb, rows, bits):
     return out
 
 
+def _worst_rows(rows, worst):
+    """How many of `rows` rows are worst-case: all (True), none (False),
+    or the given count, taken from the end."""
+    return rows if worst is True else int(worst)
+
+
 def kernel_inputs(rng, rb, dev, rows, exp_bits, worst):
-    """Residue tensors for both kernels: random rows, or worst-case rows
-    (every residue m-1, every exponent bit set)."""
+    """Residue tensors for both RNS kernels: random rows, or worst-case
+    rows (every residue m-1, every exponent bit set), or the last `worst`
+    rows worst-case."""
     import numpy as np
     import torch
 
@@ -103,24 +122,73 @@ def kernel_inputs(rng, rb, dev, rows, exp_bits, worst):
 
     k = rb.k
     m = np.asarray(rb.m_all, np.int64)
-    if worst:
-        x = np.tile(m - 1, (rows, 1))
-        y = x.copy()
-        c1 = np.tile(m[:k] - 1, (rows, 1))
-        nb = np.tile(m[k:] - 1, (rows, 1))
-        exp = np.full((rows, exp_bits // 16), 0xFFFF, np.int64)
-    else:
-        nrng = np.random.default_rng(rng.getrandbits(32))
-        x = nrng.integers(0, m, size=(rows, 2 * k + 1))
-        y = nrng.integers(0, m, size=(rows, 2 * k + 1))
-        moduli = rand_moduli(rng, rb, rows, rb.value_bits)
-        c1, nb, _a2n, _bad = rns._row_consts(rb, moduli)
-        exp = nrng.integers(0, 1 << 16, size=(rows, exp_bits // 16))
+    nrng = np.random.default_rng(rng.getrandbits(32))
+    x = nrng.integers(0, m, size=(rows, 2 * k + 1))
+    y = nrng.integers(0, m, size=(rows, 2 * k + 1))
+    moduli = rand_moduli(rng, rb, rows, rb.value_bits)
+    c1, nb, _a2n, _bad = rns._row_consts(rb, moduli)
+    exp = nrng.integers(0, 1 << 16, size=(rows, exp_bits // 16))
+    w = _worst_rows(rows, worst)
+    if w:
+        x[-w:] = m - 1
+        y[-w:] = m - 1
+        c1[-w:] = m[:k] - 1
+        nb[-w:] = m[k:] - 1
+        exp[-w:] = 0xFFFF
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.int32)).to(dev).contiguous()
 
     return t(x), t(y), t(c1), t(nb), t(exp)
+
+
+def cios_inputs(rng, dev, k, rows, exp_bits, worst):
+    """(x, y, n, n_inv, r2, one_mont, exp) int32 tensors for the CIOS
+    kernels at K=k limbs: random rows (row 0 modulo 3, row 1 with
+    exponent 0), or worst-case rows (n = 2^(16k) - 1, every limb of x and
+    y at n - 1, every exponent bit set), or the last `worst` rows
+    worst-case."""
+    import numpy as np
+    import torch
+
+    from fsdkr_tpu_torch.ops.limbs import MontgomeryContext, ints_to_limbs
+
+    moduli = [rng.getrandbits(16 * k) | 1 | (1 << (16 * k - 1)) for _ in range(rows)]
+    moduli[0] = 3
+    xs = [rng.randrange(m) for m in moduli]
+    ys = [rng.randrange(m) for m in moduli]
+    exps = [rng.getrandbits(exp_bits) for _ in range(rows)]
+    exps[min(1, rows - 1)] = 0
+    w = _worst_rows(rows, worst)
+    for r in range(rows - w, rows):
+        moduli[r] = (1 << (16 * k)) - 1
+        xs[r] = ys[r] = moduli[r] - 1
+        exps[r] = (1 << exp_bits) - 1
+    ctx = MontgomeryContext(moduli, k)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.int32)).to(dev).contiguous()
+
+    return (t(ints_to_limbs(xs, k)), t(ints_to_limbs(ys, k)), t(ctx.n), t(ctx.n_inv),
+            t(ctx.r2), t(ctx.one_mont), t(ints_to_limbs(exps, exp_bits // 16)))
+
+
+def cios_calls(name, args, exp_bits):
+    """(kernel call, plain call) of one CIOS entry point on `args`."""
+    from fsdkr_tpu_torch.ops import montgomery, montgomery_kernels as mk
+
+    x, y, n, ni, r2, one, exp = args
+    if name == "cios_mont_mul":
+        return (lambda: mk.mont_mul(x, y, n, ni),
+                lambda: montgomery.mont_mul_limbs(x, y, n, ni))
+    if name == "cios_modmul":
+        return (lambda: mk.modmul(x, y, n, ni, r2),
+                lambda: montgomery._modmul_kernel(x, y, n, ni, r2))
+    return (lambda: mk.modexp(x, exp, n, ni, r2, one, exp_bits),
+            lambda: montgomery._modexp_kernel(x, exp, n, ni, r2, one, exp_bits=exp_bits))
+
+
+CIOS = ("cios_mont_mul", "cios_modmul", "cios_modexp")
 
 
 # ---------------------------------------------------------------------------
@@ -129,20 +197,26 @@ def kernel_inputs(rng, rb, dev, rows, exp_bits, worst):
 
 def phase_env(dev):
     import torch
+    from concurrent.futures import ThreadPoolExecutor
 
-    from fsdkr_tpu_torch.ops import rns_kernels
+    from fsdkr_tpu_torch.ops import montgomery_kernels, rns_kernels
 
     log(smi_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    rns_kernels.load_library()
-    log(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
-        f"({rns_kernels.build_info.get('so')})")
-    for line in rns_kernels.build_info.get("ptxas", "").splitlines():
-        if any(w in line for w in ("registers", "Compiling entry", "smem", "spill",
-                                   "stack frame")):
-            log(f"  ptxas: {line.strip()}")
+    mods = (rns_kernels, montgomery_kernels)
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(len(mods)) as pool:
+        for fut in [pool.submit(m.load_library) for m in mods]:
+            fut.result()
+    log(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    for m in mods:
+        log(f"  {m.build_info.get('so')}: {m.build_info.get('seconds', 0):.2f} s")
+        for line in m.build_info.get("ptxas", "").splitlines():
+            if any(w in line for w in ("registers", "Compiling entry", "smem", "spill",
+                                       "stack frame")):
+                log(f"  ptxas: {line.strip()}")
 
 
 def phase_kernels(dev, rng):
@@ -180,10 +254,24 @@ def phase_kernels(dev, rng):
                     fail(f"modexp k={rb.k} rows={rows} worst={worst}: {bad} residues differ")
             log(f"kernels == plain, bit-identical: {'+'.join(names)} k={rb.k} "
                 f"rows={rows} exp_bits={exp_bits} worst_case={worst}")
+    # the CIOS kernels: K=16 leaves lanes idle, 128 / 256 / 512 fill 2 / 4 /
+    # 8 words a lane (512: the 8192-bit route)
+    exp_bits = 64
+    for k in (16, 128, 256, 512):
+        for rows in (1, 13, 256):
+            for worst in (False, True):
+                args = cios_inputs(rng, dev, k, rows, exp_bits, worst)
+                for name in CIOS:
+                    kernel, plain = cios_calls(name, args, exp_bits)
+                    if _max_err(kernel(), plain()):
+                        fail(f"{name} K={k} rows={rows} worst={worst}: differs from plain")
+            log(f"kernels == plain, bit-identical: {'+'.join(CIOS)} K={k} rows={rows} "
+                f"exp_bits={exp_bits}, random and worst-case rows")
 
 
-def phase_rns(dev, rng):
+def phase_routes(dev, rng):
     from fsdkr_tpu_torch.backend.powm import device_modmul, device_powm
+    from fsdkr_tpu_torch.ops import montgomery_kernels, rns
 
     for bits, rows in ((2048, 256), (4096, 128)):
         moduli = [rng.getrandbits(bits) | (1 << (bits - 1)) | 1 for _ in range(rows)]
@@ -191,17 +279,41 @@ def phase_rns(dev, rng):
         exps = [rng.getrandbits(2048) for _ in range(rows)]
         exps[0] = 0
         exps[1] = (1 << 2048) - 1
+        want = [pow(b, e, n) for b, e, n in zip(bases, exps, moduli)]
         t0 = time.perf_counter()
         got = device_powm(bases, exps, moduli, dev)
         t1 = time.perf_counter()
-        want = [pow(b, e, n) for b, e, n in zip(bases, exps, moduli)]
         if got != want:
             fail(f"device_powm at {bits} bits disagrees with pow")
-        got = device_modmul(bases, exps, moduli, dev)
-        if got != [b * e % n for b, e, n in zip(bases, exps, moduli)]:
+        if rns.rns_modexp(bases, exps, moduli, bits, dev) != want:
+            fail(f"rns_modexp at {bits} bits disagrees with pow")
+        want = [b * e % n for b, e, n in zip(bases, exps, moduli)]
+        if device_modmul(bases, exps, moduli, dev) != want:
             fail(f"device_modmul at {bits} bits disagrees with a*b % n")
-        log(f"rns_modexp == pow, rns_modmul == a*b % n: {rows} rows of "
-            f"{bits}-bit moduli, 2048-bit exponents ({t1 - t0:.3f} s on the card)")
+        if rns.rns_modmul(bases, exps, moduli, bits, dev) != want:
+            fail(f"rns_modmul at {bits} bits disagrees with a*b % n")
+        log(f"device_powm, rns_modexp == pow; device_modmul, rns_modmul == a*b % n: "
+            f"{rows} rows of {bits}-bit moduli, 2048-bit exponents "
+            f"(device_powm {t1 - t0:.3f} s)")
+    # past the RNS classes: the CIOS engine at K=512
+    bits, rows = 8192, 16
+    moduli = [rng.getrandbits(bits) | (1 << (bits - 1)) | 1 for _ in range(rows)]
+    moduli[3] = 3
+    bases = [rng.randrange(n) for n in moduli]
+    exps = [rng.getrandbits(256) for _ in range(rows)]
+    exps[0] = 0
+    before = montgomery_kernels.launch_counts()
+    if device_powm(bases, exps, moduli, dev) != [
+            pow(b, e, n) for b, e, n in zip(bases, exps, moduli)]:
+        fail("device_powm at 8192 bits disagrees with pow")
+    if device_modmul(bases, exps, moduli, dev) != [
+            b * e % n for b, e, n in zip(bases, exps, moduli)]:
+        fail("device_modmul at 8192 bits disagrees with a*b % n")
+    after = montgomery_kernels.launch_counts()
+    if after["cios_modexp"] <= before["cios_modexp"]:
+        fail("device_powm at 8192 bits did not launch the CIOS modexp kernel")
+    log(f"device_powm == pow, device_modmul == a*b % n: {rows} rows of 8192-bit "
+        f"moduli, 256-bit exponents, through the CIOS kernels")
 
 
 def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
@@ -209,7 +321,8 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     from fsdkr_tpu_torch.core import vss
     from fsdkr_tpu_torch.core.secp256k1 import GENERATOR
     from fsdkr_tpu_torch.errors import PDLwSlackProofError
-    from fsdkr_tpu_torch.ops import rns_kernels
+    from fsdkr_tpu_torch.backend.powm import powm_cache_stats
+    from fsdkr_tpu_torch.ops import montgomery_kernels, rns_kernels
     from fsdkr_tpu_torch.protocol import RefreshMessage, simulate_keygen
 
     config = ProtocolConfig(
@@ -222,7 +335,8 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     times["keygen"] = time.perf_counter() - t0
     log(f"main: simulate_keygen t={t} n={n}: {times['keygen']:.3f} s")
 
-    rns_kernels.reset_launch_counts()
+    for mod in (rns_kernels, montgomery_kernels):
+        mod.reset_launch_counts()
     t0 = time.perf_counter()
     out = RefreshMessage.distribute_batch([(k.i, k) for k in keys], n, config)
     times["distribute"] = time.perf_counter() - t0
@@ -230,23 +344,47 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     msgs = [m for m, _ in out]
     spare = (copy.deepcopy(keys[0]), copy.deepcopy(out[0][1]))
     spare2 = (copy.deepcopy(keys[1]), copy.deepcopy(out[1][1]))
+    spare3 = (copy.deepcopy(keys[1]), copy.deepcopy(out[1][1]))
+    spare_rns = (copy.deepcopy(keys[2]), copy.deepcopy(out[2][1]))
 
-    per_collect = []
+    per_collect, cache = [], []
     t0 = time.perf_counter()
     for key, (_, dk) in zip(keys, out):
+        s0 = powm_cache_stats()
         c0 = time.perf_counter()
         RefreshMessage.collect(msgs, key, dk, config)
         per_collect.append(time.perf_counter() - c0)
+        s1 = powm_cache_stats()
+        cache.append((s1["hits"] - s0["hits"], s1["misses"] - s0["misses"]))
     times["collect_total"] = time.perf_counter() - t0
-    counts = rns_kernels.launch_counts()
+    counts = montgomery_kernels.launch_counts()
     # the shapes of this window's launches, before the checks below add
     # their own
-    shapes = (dict(rns_kernels.mont_mul.shapes), dict(rns_kernels.modexp.shapes))
+    shapes = {
+        "cios_mont_mul": dict(montgomery_kernels.mont_mul.shapes),
+        "cios_modmul": dict(montgomery_kernels.modmul.shapes),
+        "cios_modexp": dict(montgomery_kernels.modexp.shapes),
+    }
     log(f"main: {n} collects: {times['collect_total']:.3f} s "
         f"(each {min(per_collect):.3f}..{max(per_collect):.3f} s)")
-    log(f"main: launches over distribute + collect: {counts}")
+    log(f"main: launches over distribute + collect: "
+        f"{counts} (RNS kernels: {rns_kernels.launch_counts()})")
+    for name, by_shape in shapes.items():
+        log(f"main: {name} launches by shape: "
+            + ", ".join(f"{shape}: {c}" for shape, c in sorted(by_shape.items())))
     if not all(v > 0 for v in counts.values()):
         fail(f"a kernel of the main path never launched: {counts}")
+    log(f"main: precompute cache (hits, misses) per collect: {cache}; "
+        f"{powm_cache_stats()}")
+    if any(miss for _, miss in cache[1:]):
+        fail("a warm collect missed the precompute cache")
+
+    # the RNS route's path (the earlier slices' main path, where every
+    # column took the RNS kernels), cut to one collect: the same party's
+    # collect with the RNS route forced must adopt the same key
+    rns_counts, rns_shapes = rns_path(msgs, spare_rns, config, keys[2])
+    counts.update(rns_counts)
+    shapes.update(rns_shapes)
 
     # t+1 new shares interpolate to the unchanged group key
     idx = list(range(t + 1))
@@ -281,8 +419,55 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     # still pre-collect: profile one honest collect on it
     if dev.type == "cuda":
         profile_collect(msgs, spare, config, sorted(per_collect)[n // 2])
-    span_collect(msgs, spare2, config)
+    span_collect(msgs, spare2, config, "routed")
+    with rns_forced():
+        span_collect(msgs, spare3, config, "rns")
     return counts, shapes, times, per_collect
+
+
+class rns_forced:
+    """Every launch of device_powm / device_modmul through the RNS route
+    (row thresholds of backend.powm at 0) inside the block."""
+
+    def __enter__(self):
+        from fsdkr_tpu_torch.backend import powm
+
+        self.saved = powm._RNS_MIN_ROWS, powm._RNS_MODMUL_MIN_ROWS
+        powm._RNS_MIN_ROWS = powm._RNS_MODMUL_MIN_ROWS = 0
+
+    def __exit__(self, *exc):
+        from fsdkr_tpu_torch.backend import powm
+
+        powm._RNS_MIN_ROWS, powm._RNS_MODMUL_MIN_ROWS = self.saved
+
+
+def rns_path(msgs, spare, config, routed_key):
+    """One collect with the RNS route forced, counters zeroed just before
+    and read just after; its adopted key must equal `routed_key`, the
+    same party's key after its collect through the chosen routing."""
+    from fsdkr_tpu_torch.carry import to_fields
+    from fsdkr_tpu_torch.ops import rns_kernels
+    from fsdkr_tpu_torch.protocol import RefreshMessage
+
+    with rns_forced():
+        rns_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        RefreshMessage.collect(msgs, spare[0], spare[1], config)
+        wall = time.perf_counter() - t0
+        counts = rns_kernels.launch_counts()
+        shapes = {"rns_mont_mul": dict(rns_kernels.mont_mul.shapes),
+                  "rns_modexp": dict(rns_kernels.modexp.shapes)}
+    log(f"rns path: one collect with the RNS route forced: {wall:.3f} s; "
+        f"launches {counts}")
+    for name, by_shape in shapes.items():
+        log(f"rns path: {name} launches by shape: "
+            + ", ".join(f"{shape}: {c}" for shape, c in sorted(by_shape.items())))
+    if not all(v > 0 for v in counts.values()):
+        fail(f"a kernel of the RNS path never launched: {counts}")
+    if to_fields(spare[0]) != to_fields(routed_key):
+        fail("the RNS route's collect adopted another key than the routed one")
+    log("rns path: adopted key == the routed collect's")
+    return counts, shapes
 
 
 # the layers of one collect, timed from here by wrapping the callables the
@@ -299,17 +484,24 @@ _SPANS = (
     ("fsdkr_tpu_torch.protocol.refresh", "adopt_session", None),
     ("fsdkr_tpu_torch.backend.cuda_verifier", "device_powm", None),
     ("fsdkr_tpu_torch.backend.cuda_verifier", "device_modmul", None),
+    # the CIOS route inside them (its results end in a host copy) and the
+    # batch inverse's product tree
+    ("fsdkr_tpu_torch.ops.montgomery", "modexp", "BatchModExp"),
+    ("fsdkr_tpu_torch.ops.montgomery", "modmul", "BatchModExp"),
+    ("fsdkr_tpu_torch.ops.montgomery", "batch_mod_inv_grouped", None),
 )
 # the steps inside device_powm / device_modmul (ops/rns.py's globals); each
 # of these spans ends in torch.cuda.synchronize(), so it holds its own
 # device work. The kernel wrappers are wrapped in the `rns_kernels` name
 # that ops/rns.py looks up, never in rns_kernels itself: the raw wrapper
 # bumps its counter through its own global name.
-_RNS_SPANS = ("_row_consts", "ints_to_limbs", "_to_device", "_limbs_to_residues",
+_RNS_SPANS = ("_row_consts", "ints_to_limbs", "to_device", "_limbs_to_residues",
               "_crt_exit_kernel", "limbs_to_ints")
+# the same for the CIOS engine's steps (ops/montgomery.py's globals)
+_CIOS_SPANS = ("ints_to_limbs", "to_device", "_download")
 
 
-def span_collect(msgs, spare, config):
+def span_collect(msgs, spare, config, label):
     """Wall time of each layer inside one collect (inclusive and self
     seconds, by parent span). device_powm / device_modmul end in a host
     copy of their result, so their spans include the device time. Inside
@@ -317,7 +509,7 @@ def span_collect(msgs, spare, config):
     falls in the step that queued it; what the columns keep as self time
     is the download of the result limbs (between `_crt_exit_kernel` and
     `limbs_to_ints`) and the Python between the steps. Which steps wait
-    on the device without that synchronize: `_to_device` (a copy from
+    on the device without that synchronize: `to_device` (a copy from
     pageable host memory synchronises its stream) and `_crt_exit_kernel`
     (its carry loop reads `bool(hi.any())`)."""
     import importlib
@@ -325,7 +517,7 @@ def span_collect(msgs, spare, config):
 
     import torch
 
-    from fsdkr_tpu_torch.ops import rns, rns_kernels
+    from fsdkr_tpu_torch.ops import montgomery, montgomery_kernels, rns, rns_kernels
     from fsdkr_tpu_torch.protocol import RefreshMessage
 
     stack, totals, patched = [], {}, []
@@ -360,14 +552,21 @@ def span_collect(msgs, spare, config):
         new = wrap(attr, fn)
         patched.append((owner, attr, raw))
         setattr(owner, attr, staticmethod(new) if isinstance(raw, staticmethod) else new)
-    for attr in _RNS_SPANS:
-        patched.append((rns, attr, getattr(rns, attr)))
-        setattr(rns, attr, wrap(attr, getattr(rns, attr), sync=True))
+    for owner, attrs in ((rns, _RNS_SPANS), (montgomery, _CIOS_SPANS)):
+        for attr in attrs:
+            patched.append((owner, attr, getattr(owner, attr)))
+            setattr(owner, attr, wrap(attr, getattr(owner, attr), sync=True))
     proxy = types.SimpleNamespace(**vars(rns_kernels))
     proxy.mont_mul = wrap("kernel 1 mont_mul", rns_kernels.mont_mul, sync=True)
     proxy.modexp = wrap("kernel 2 modexp", rns_kernels.modexp, sync=True)
     patched.append((rns, "rns_kernels", rns_kernels))
     rns.rns_kernels = proxy
+    proxy = types.SimpleNamespace(**vars(montgomery_kernels))
+    for attr in ("mont_mul", "modmul", "modexp"):
+        setattr(proxy, attr, wrap(f"cios_{attr}", getattr(montgomery_kernels, attr),
+                                  sync=True))
+    patched.append((montgomery, "montgomery_kernels", montgomery_kernels))
+    montgomery.montgomery_kernels = proxy
     try:
         t0 = time.perf_counter()
         RefreshMessage.collect(msgs, spare[0], spare[1], config)
@@ -376,9 +575,10 @@ def span_collect(msgs, spare, config):
         for owner, attr, raw in patched:
             setattr(owner, attr, raw)
     top = sum(tot[1] for (parent, _), tot in totals.items() if parent == "collect")
-    log(f"spans: one collect {wall:.3f} s; outside the spans {wall - top:.3f} s")
+    log(f"spans ({label}): one collect {wall:.3f} s; outside the spans "
+        f"{wall - top:.3f} s")
     for (parent, name), (calls, incl, own) in totals.items():
-        log(f"spans:   {parent:>22} > {name:<22} calls {calls:3d}  "
+        log(f"spans ({label}):   {parent:>22} > {name:<22} calls {calls:3d}  "
             f"incl {incl:8.3f} s  self {own:8.3f} s")
 
 
@@ -438,8 +638,22 @@ def _events_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-# each kernel's symbol: a substring of its device events' (mangled) names
-_SYMBOL = {"rns_mont_mul": "rns_mont_mul_kernel", "rns_modexp": "rns_modexp_kernel"}
+# each kernel: a substring of its device events' (mangled) names, its
+# source, the function of the JAX package it replaces, and the launches
+# per timing (modexp launches take milliseconds, products microseconds)
+KERNELS = {
+    "rns_mont_mul": ("rns_mont_mul_kernel", "fsdkr_tpu_torch/csrc/rns_kernels.cu",
+                     "fsdkr_tpu/ops/pallas_rns.py:184", 200),
+    "rns_modexp": ("rns_modexp_kernel", "fsdkr_tpu_torch/csrc/rns_kernels.cu",
+                   "fsdkr_tpu/ops/pallas_rns.py:317", 10),
+    "cios_mont_mul": ("cios_mont_mul_kernel", "fsdkr_tpu_torch/csrc/cios_kernels.cu",
+                      "fsdkr_tpu/ops/montgomery.py:102", 200),
+    "cios_modmul": ("cios_modmul_kernel", "fsdkr_tpu_torch/csrc/cios_kernels.cu",
+                    "fsdkr_tpu/ops/montgomery.py:606", 200),
+    "cios_modexp": ("cios_modexp_kernel", "fsdkr_tpu_torch/csrc/cios_kernels.cu",
+                    "fsdkr_tpu/ops/montgomery.py:137", 10),
+}
+_SYMBOL = {name: spec[0] for name, spec in KERNELS.items()}
 
 
 def _device_ms(fn, reps, name):
@@ -453,24 +667,31 @@ def _device_ms(fn, reps, name):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    # one warm-up step with the profiler armed, then the recorded step
-    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1)
-    recorded = []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule,
-                 on_trace_ready=lambda p: recorded.append(p.key_averages())) as prof:
-        fn()
-        torch.cuda.synchronize()
-        prof.step()
-        for _ in range(reps):
+    # one warm-up step with the profiler armed, then the recorded step; a
+    # window in which the profiler recorded no launch of the kernel is
+    # taken again (twice at most)
+    for attempt in range(3):
+        schedule = torch.profiler.schedule(wait=0, warmup=1, active=1)
+        recorded = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule,
+                     on_trace_ready=lambda p: recorded.append(p.key_averages())) as prof:
             fn()
-        torch.cuda.synchronize()
-        prof.step()
-    us, launches = 0.0, 0
-    for ev in (recorded[0] if recorded else ()):
-        if ev.device_type == DeviceType.CUDA and _SYMBOL[name] in ev.key:
-            us += getattr(ev, "self_device_time_total", 0) or 0
-            launches += ev.count
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        us, launches = 0.0, 0
+        for ev in (recorded[0] if recorded else ()):
+            if ev.device_type == DeviceType.CUDA and _SYMBOL[name] in ev.key:
+                us += getattr(ev, "self_device_time_total", 0) or 0
+                launches += ev.count
+        if launches:
+            break
+        log(f"time: the profiler recorded no launch of {_SYMBOL[name]} "
+            f"(attempt {attempt + 1}); recording again")
     if not 0 < launches <= reps or us <= 0:
         fail(f"the profiler saw {launches} launches of {_SYMBOL[name]} "
              f"({us} us) over {reps} calls")
@@ -492,147 +713,166 @@ def _max_err(got, want):
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
-def check_main_shapes(dev, rng, mm_shapes, me_shapes):
-    """Each kernel against its plain version at every shape the main path
-    launched it with, random and worst-case rows; returns the largest
-    absolute residue difference of each kernel (0 when bit-identical)."""
+def _shape(name, shape):
+    """A shapes-map key as (k, rows, exp_bits); exp_bits None for the
+    products."""
+    return (*shape, None) if len(shape) == 2 else shape
+
+
+def _shape_str(name, k, rows, exp_bits):
+    kk = "k" if name.startswith("rns") else "K"
+    return f"{kk}={k} rows={rows}" + (f" exp_bits={exp_bits}" if exp_bits else "")
+
+
+def kernel_calls(name, dev, rng, k, rows, exp_bits, worst):
+    """(kernel call, plain call) on fresh inputs at one shape."""
+    if name.startswith("cios"):
+        args = cios_inputs(rng, dev, k, rows, exp_bits or 64, worst)
+        return cios_calls(name, args, exp_bits)
     from fsdkr_tpu_torch.ops import rns, rns_kernels
 
-    errs = {"rns_mont_mul": 0, "rns_modexp": 0}
+    bits = _bits_of_k(k)
+    rb = rns.rns_bases_for_bits(bits, bits // 16)
+    K = rns._device_consts(rb, dev).kernel
+    x, y, c1, nb, exp = kernel_inputs(rng, rb, dev, rows, exp_bits or 256, worst)
+    if name == "rns_mont_mul":
+        return (lambda: rns_kernels.mont_mul(x, y, c1, nb, K),
+                lambda: rns_kernels.mont_mul_plain(x, y, c1, nb, K))
+    return (lambda: rns_kernels.modexp(x, exp, y, c1, nb, K, exp_bits),
+            lambda: rns_kernels.modexp_plain(x, exp, y, c1, nb, K, exp_bits))
+
+
+def _timed_ms(fn):
+    """(result, CUDA-events ms) of one call."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def check_main_shapes(dev, rng, shapes):
+    """Each kernel against its plain version at every shape the main path
+    launched it with, in one call whose first half of rows is random and
+    second half worst-case; returns the largest absolute difference of
+    each kernel (0 when bit-identical) and the plain version's time, by
+    (name, shape)."""
+    errs = {name: 0 for name in KERNELS}
+    plain_ms = {}
     t0 = time.perf_counter()
-    shapes = [("rns_mont_mul", k, rows, 256) for k, rows in sorted(mm_shapes)]
-    shapes += [("rns_modexp", *s) for s in sorted(me_shapes)]
-    for name, k, rows, exp_bits in shapes:
-        bits = _bits_of_k(k)
-        rb = rns.rns_bases_for_bits(bits, bits // 16)
-        K = rns._device_consts(rb, dev).kernel
-        for worst in (False, True):
-            x, y, c1, nb, exp = kernel_inputs(rng, rb, dev, rows, exp_bits, worst)
-            if name == "rns_mont_mul":
-                err = _max_err(rns_kernels.mont_mul(x, y, c1, nb, K),
-                               rns_kernels.mont_mul_plain(x, y, c1, nb, K))
-            else:
-                err = _max_err(
-                    rns_kernels.modexp(x, exp, y, c1, nb, K, exp_bits),
-                    rns_kernels.modexp_plain(x, exp, y, c1, nb, K, exp_bits))
+    done = []
+    for name, by_shape in shapes.items():
+        for shape in sorted(by_shape):
+            k, rows, exp_bits = _shape(name, shape)
+            kernel, plain = kernel_calls(name, dev, rng, k, rows, exp_bits, rows // 2)
+            want, plain_ms[name, shape] = _timed_ms(plain)
+            err = _max_err(kernel(), want)
             if err:
-                fail(f"{name} disagrees with its plain version at k={k} "
-                     f"rows={rows} exp_bits={exp_bits} worst_case={worst}")
+                fail(f"{name} disagrees with its plain version at "
+                     f"{_shape_str(name, k, rows, exp_bits)}")
             errs[name] = max(errs[name], err)
-    log(f"time: both kernels == plain, bit-identical, at all {len(shapes)} "
-        f"main-path shapes, random and worst-case rows "
-        f"({time.perf_counter() - t0:.1f} s): "
-        + ", ".join(f"{n} k={k} rows={r}" + (f" exp_bits={e}" if n == "rns_modexp" else "")
-                    for n, k, r, e in shapes))
-    return errs
+            done.append(f"{name} {_shape_str(name, k, rows, exp_bits)}")
+    log(f"time: every kernel == plain, bit-identical, at all {len(done)} main-path "
+        f"shapes, rows half random, half worst-case ({time.perf_counter() - t0:.1f} s): "
+        + ", ".join(done))
+    return errs, plain_ms
 
 
 def bound_ms(name, k, rows, exp_bits):
     """The least time the H100 could take for one launch: (ms, "bytes" or
-    "operations"). Bytes: each input read once, each output written once,
-    the shared constants once. Operations: the base extensions' 2k(k+1)
-    multiply-adds per product per row, each four 8-bit ones."""
-    C = 2 * k + 1
-    macs_per_product = 2 * k * (k + 1)
-    const_bytes = 4 * (2 * k * (k + 1) + C + (k + 1) + 2 * k)
-    if name == "rns_mont_mul":
-        products = rows
-        in_out_bytes = 4 * rows * (3 * C + 2 * k + 1)
+    "operations"). Bytes: each input read once, each output written once
+    (int32 tensors), the shared constants once. Operations: the
+    multiply-adds of 16x16 bits, each four 8-bit ones: the RNS base
+    extensions' 2k(k+1) per product per row, the CIOS product's 2K^2."""
+    if name.startswith("rns"):
+        C = 2 * k + 1
+        macs_per_product = 2 * k * (k + 1)
+        const_bytes = 4 * (2 * k * (k + 1) + C + (k + 1) + 2 * k)
+        if name == "rns_mont_mul":
+            products = rows
+            in_out_bytes = 4 * rows * (3 * C + 2 * k + 1)
+        else:
+            products = rows * (17 + 5 * exp_bits // 4)
+            in_out_bytes = 4 * rows * (3 * C + exp_bits // 16 + 2 * k + 1)
     else:
-        products = rows * (17 + 5 * exp_bits // 4)
-        in_out_bytes = 4 * rows * (3 * C + exp_bits // 16 + 2 * k + 1)
+        # x, y (or base, r2, one), n, the result, and n_inv's low two limbs
+        macs_per_product = 2 * k * k
+        const_bytes = 0
+        if name == "cios_mont_mul":
+            products, limbs = rows, 4 * k + 2
+        elif name == "cios_modmul":
+            products, limbs = 2 * rows, 5 * k + 2
+        else:
+            products = rows * (16 + 5 * exp_bits // 4)
+            limbs = 5 * k + 2 + exp_bits // 16
+        in_out_bytes = 4 * rows * limbs
     ops_ms = products * macs_per_product * 4 * 2 / INT8_OPS_PER_S * 1e3
     bytes_ms = (in_out_bytes + const_bytes) / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
 
 
-# launches per timing: kernel 2's take milliseconds each, kernel 1's
-# microseconds
-_REPS = {"rns_mont_mul": 200, "rns_modexp": 10}
-
-
-def _time_launch(name, K, args, exp_bits):
+def _time_launch(name, fn):
     """(events ms, device ms) per launch of the kernel's wrapper."""
-    from fsdkr_tpu_torch.ops import rns_kernels
-
-    x, y, c1, nb, exp = args
-    if name == "rns_mont_mul":
-        def fn():
-            return rns_kernels.mont_mul(x, y, c1, nb, K)
-    else:
-        def fn():
-            return rns_kernels.modexp(x, exp, y, c1, nb, K, exp_bits)
-    return _events_ms(fn, _REPS[name]), _device_ms(fn, _REPS[name], name)
+    reps = KERNELS[name][3]
+    return _events_ms(fn, reps), _device_ms(fn, reps, name)
 
 
-def time_main_shapes(dev, rng, mm_shapes, me_shapes):
+def time_main_shapes(dev, rng, shapes):
     """Each kernel's time (CUDA events and device time) and bound at
     every shape the main path launched it with; returns rows of the
     per-shape table."""
-    from fsdkr_tpu_torch.ops import rns
-
     table = []
-    shapes = [("rns_mont_mul", k, rows, 256, n) for (k, rows), n in sorted(mm_shapes.items())]
-    shapes += [("rns_modexp", *s, n) for s, n in sorted(me_shapes.items())]
-    for name, k, rows, exp_bits, launches in shapes:
-        bits = _bits_of_k(k)
-        rb = rns.rns_bases_for_bits(bits, bits // 16)
-        K = rns._device_consts(rb, dev).kernel
-        args = kernel_inputs(rng, rb, dev, rows, exp_bits, False)
-        ms, dms = _time_launch(name, K, args, exp_bits)
-        bound, by = bound_ms(name, k, rows, exp_bits)
-        log(f"time: per shape {name} k={k} rows={rows}"
-            + (f" exp_bits={exp_bits}" if name == "rns_modexp" else "")
-            + f": events {ms:.4f} ms, device {dms:.4f} ms, bound {bound:.6f} ms "
-            f"({by}), device {dms / bound:.1f}x bound, {launches} launches")
-        table.append({"name": name, "k": k, "rows": rows, "exp_bits": exp_bits,
-                      "launches": launches, "ms": ms, "device_ms": dms,
-                      "bound_ms": bound})
+    for name, by_shape in shapes.items():
+        for shape, launches in sorted(by_shape.items()):
+            k, rows, exp_bits = _shape(name, shape)
+            kernel, _ = kernel_calls(name, dev, rng, k, rows, exp_bits, False)
+            ms, dms = _time_launch(name, kernel)
+            bound, by = bound_ms(name, k, rows, exp_bits)
+            log(f"time: per shape {name} {_shape_str(name, k, rows, exp_bits)}: "
+                f"events {ms:.4f} ms, device {dms:.4f} ms, bound {bound:.6f} ms "
+                f"({by}), device {dms / bound:.1f}x bound, {launches} launches")
+            table.append({"name": name, "k": k, "rows": rows, "exp_bits": exp_bits,
+                          "launches": launches, "ms": ms, "device_ms": dms,
+                          "bound_ms": bound})
     return table
+
+
+def _cost(name, shape, launches):
+    k, rows, exp_bits = _shape(name, shape)
+    return k * k * rows * (exp_bits or 1) * launches
 
 
 def phase_time(dev, rng, counts, shapes):
     """`counts` and `shapes` are the main path's launch counts, in total
-    and by shape ((k, rows) and (k, rows, exp_bits) -> launches)."""
-    from fsdkr_tpu_torch.ops import rns, rns_kernels
-
-    mm_shapes, me_shapes = shapes
-    if not mm_shapes or not me_shapes:
-        fail("no main-path launch shapes recorded")
-    errs = check_main_shapes(dev, rng, mm_shapes, me_shapes)
-    per_shape = time_main_shapes(dev, rng, mm_shapes, me_shapes)
+    and by kernel and shape ((k, rows) or (k, rows, exp_bits) ->
+    launches)."""
+    if not all(shapes.values()):
+        fail("no main-path launch shapes recorded for a kernel")
+    errs, plain_times = check_main_shapes(dev, rng, shapes)
+    per_shape = time_main_shapes(dev, rng, shapes)
     # the kernels line: each kernel at its costliest shape on the main path
-    k1, r1 = max(mm_shapes, key=lambda s: s[0] * s[0] * s[1] * mm_shapes[s])
-    k2, r2, e2 = max(
-        me_shapes, key=lambda s: s[0] * s[0] * s[1] * s[2] * me_shapes[s]
-    )
     out = []
-    for name, (k, rows, exp_bits) in (
-        ("rns_mont_mul", (k1, r1, 256)), ("rns_modexp", (k2, r2, e2)),
-    ):
-        bits = _bits_of_k(k)
-        rb = rns.rns_bases_for_bits(bits, bits // 16)
-        K = rns._device_consts(rb, dev).kernel
-        x, y, c1, nb, exp = args = kernel_inputs(rng, rb, dev, rows, exp_bits, False)
-        if name == "rns_mont_mul":
-            ms, dms = _time_launch(name, K, args, exp_bits)
-            plain_ms = _events_ms(
-                lambda: rns_kernels.mont_mul_plain(x, y, c1, nb, K), 20)
-            shape = f"k={k} rows={rows}"
-        else:
-            ms, dms = _time_launch(name, K, args, exp_bits)
-            plain_ms = _events_ms(
-                lambda: rns_kernels.modexp_plain(x, exp, y, c1, nb, K, exp_bits), 1)
-            shape = f"k={k} rows={rows} exp_bits={exp_bits}"
-        bound, by = bound_ms(name, k, rows, exp_bits)
-        log(f"time: {name} at {shape}: events {ms:.4f} ms, device {dms:.4f} ms, "
+    for name, by_shape in shapes.items():
+        shape = max(by_shape, key=lambda s: _cost(name, s, by_shape[s]))
+        k, rows, exp_bits = _shape(name, shape)
+        row = next(r for r in per_shape if r["name"] == name and
+                   (r["k"], r["rows"], r["exp_bits"]) == (k, rows, exp_bits))
+        ms, dms, bound = row["ms"], row["device_ms"], row["bound_ms"]
+        plain_ms = plain_times[name, shape]
+        _, by = bound_ms(name, k, rows, exp_bits)
+        shape_s = _shape_str(name, k, rows, exp_bits)
+        log(f"time: {name} at {shape_s}: events {ms:.4f} ms, device {dms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({by})")
+        _, source, replaces, _ = KERNELS[name]
         out.append({
             "name": name,
             "route": "cuda",
-            "source": "fsdkr_tpu_torch/csrc/rns_kernels.cu",
-            "replaces": ("fsdkr_tpu/ops/pallas_rns.py:184" if name == "rns_mont_mul"
-                         else "fsdkr_tpu/ops/pallas_rns.py:317"),
+            "source": source,
+            "replaces": replaces,
             "launches": counts[name],
             "max_abs_err": errs[name],
             "ms": ms,
@@ -641,7 +881,7 @@ def phase_time(dev, rng, counts, shapes):
             "bound_ms": bound,
             "bound_by": by,
             "library_ms": None,
-            "shape": shape,
+            "shape": shape_s,
             "per_shape": [{key: row[key] for key in ("k", "rows", "exp_bits", "launches",
                                                      "ms", "device_ms", "bound_ms")}
                           for row in per_shape if row["name"] == name],
@@ -676,16 +916,24 @@ def main() -> None:
     t_start = time.perf_counter()
 
     counts, shapes, kernels = None, None, []
+
+    def done(phase):
+        log(f"chip_smoke: {phase} phase done at {time.perf_counter() - t_start:.1f} s")
+
     if "env" in phases:
         phase_env(dev)
+        done("env")
     if "kernels" in phases:
         phase_kernels(dev, rng)
-    if "rns" in phases:
-        phase_rns(dev, rng)
+        done("kernels")
+    if "routes" in phases:
+        phase_routes(dev, rng)
+        done("routes")
     if "main" in phases:
         counts, shapes, times, per_collect = phase_main(dev)
         log("main: phase seconds " + json.dumps(
             {**times, "collect_each": per_collect}))
+        done("main")
     if "time" in phases:
         if counts is None:
             fail("the time phase needs the main phase's launch counts")

@@ -1,6 +1,7 @@
 """Device batch verifier: every proof family of collect() as batched
-multi-modulus modexp / modmul columns through the RNS kernels (the column
-path of the JAX package's TpuBatchVerifier).
+multi-modulus modexp / modmul columns through the device's arithmetic
+families, RNS or CIOS by launch size (the column path of the JAX
+package's TpuBatchVerifier).
 
 Equation strategy per family (rewritten to avoid modular inverses
 wherever the proof carries the commitment being checked):
@@ -13,8 +14,9 @@ wherever the proof carries the commitment being checked):
 - Alice range (`src/range_proofs.rs:112-164`): the challenge is recomputed
   from reconstructed u, w, so the actual values are needed:
     w = h1^s1 h2^s2 (z^e)^{-1},  u = (1+s1*n) s^n (c^e)^{-1}
-  — z^e, c^e, h1^s1, h2^s2, s^n on the device; the inversions on the
-  host (Montgomery's trick per modulus group).
+  — z^e, c^e, h1^s1, h2^s2, s^n on the device; the inversions by a
+  product tree per modulus group on the device (one host inversion per
+  group).
 - Ring-Pedersen (`src/ring_pedersen_proof.rs:138-155`): rows (item, i):
     T^{Z_i} == A_i * S^{e_i}  (mod N), e_i in {0,1} — one n*M-row batch.
 - Correct-key: sigma_i^N == rho_i (mod N); rho derivation + small-factor
@@ -37,36 +39,34 @@ from ..core.transcript import challenge_bits
 from ..proofs import alice_range, correct_key
 from ..proofs.pdl_slack import PDLwSlackProof
 from ..proofs.ring_pedersen import RingPedersenProof
+from ..ops.limbs import limbs_for_bits
 from .batch_verifier import BatchVerifier, HostBatchVerifier
-from .powm import device_modmul, device_powm, powm_columns
+from .powm import _cached_ctx, device_modmul, device_powm, powm_columns
 
 
-def batch_inv(values, moduli) -> List:
-    """Row-wise modular inverses on the host by Montgomery's trick per
-    modulus group: one pow(., -1, m) per group. A group whose product is
-    not invertible is inverted row by row, so the result is None exactly
-    where pow(x, -1, m) fails."""
+def batch_inv(values, moduli, device="cuda") -> List:
+    """Row-wise modular inverses through the CIOS engine's product tree on
+    `device` (ops.montgomery.batch_mod_inv_grouped, the counterpart of
+    the JAX package's TpuBatchVerifier._batch_inv): rows group by modulus
+    (the collect batch has n rows per receiver modulus), one host
+    inversion per group. A group that is not invertible is inverted row
+    by row on the host, so the result is None exactly where
+    pow(x, -1, m) fails."""
+    from ..ops.montgomery import batch_mod_inv_grouped
+
+    if not values:
+        return []
     groups: Dict[int, List[int]] = {}
     for i, m in enumerate(moduli):
         groups.setdefault(m, []).append(i)
+    glist = [(m, [values[i] for i in idxs]) for m, idxs in groups.items()]
+    k = limbs_for_bits(max(m.bit_length() for m in moduli))
+    ctx = _cached_ctx([m for m, _ in glist], k, device)
+    res = batch_mod_inv_grouped(glist, k, device, ctx)
     out: List = [None] * len(values)
-    for m, idxs in groups.items():
-        vals = [values[i] % m for i in idxs]
-        prefix = [1] * (len(vals) + 1)
-        for j, v in enumerate(vals):
-            prefix[j + 1] = prefix[j] * v % m
-        try:
-            acc = pow(prefix[-1], -1, m)
-        except ValueError:
-            for i, v in zip(idxs, vals):
-                try:
-                    out[i] = pow(v, -1, m)
-                except ValueError:
-                    out[i] = None
-            continue
-        for j in range(len(vals) - 1, -1, -1):
-            out[idxs[j]] = prefix[j] * acc % m
-            acc = acc * vals[j] % m
+    for idxs, invs in zip(groups.values(), res):
+        for i, vi in zip(idxs, invs):
+            out[i] = vi
     return out
 
 
@@ -196,8 +196,8 @@ class CudaBatchVerifier(BatchVerifier):
             for (p, _, ek, _), ok in zip(items, row_ok)
         ]
         u_part = self._modmul(gs1, s_n, nn_mod)
-        z_e_inv_vec = batch_inv(z_e, nt_mod)
-        c_e_inv_vec = batch_inv(c_e, nn_mod)
+        z_e_inv_vec = batch_inv(z_e, nt_mod, self.device)
+        c_e_inv_vec = batch_inv(c_e, nn_mod, self.device)
         out = []
         for idx, (proof, cipher, ek, dlog) in enumerate(items):
             if not row_ok[idx]:

@@ -5,19 +5,26 @@ expressed against a `batch_powm(bases, exps, moduli) -> list[int]`
 callable:
 
 - host_powm: CPython pow loop (oracle).
-- device_powm: every row through the RNS route (ops.rns, kernel 2), one
-  launch per width class and tile of at most _MAX_ROWS rows.
-- device_modmul: a*b mod N per row through ops.rns (kernel 1, two
-  launches).
+- device_powm: each launch takes one of the two arithmetic families on
+  the device, as the JAX package's tpu_powm does: the RNS route (ops.rns,
+  kernel 2) at or above _RNS_MIN_ROWS rows and within the RNS width
+  classes, the CIOS engine (ops.montgomery, `fsdkr_cios_modexp`)
+  otherwise, wider moduli included. The thresholds come from an H100
+  sweep, which put every launch on the CIOS engine.
+- device_modmul: a*b mod N per row, through the CIOS engine
+  (`fsdkr_cios_modmul`) or the RNS route (kernel 1, two launches) by its
+  own row threshold.
 
 Batches are padded to powers of two (>= 8 rows; padding rows use
-modulus 3) so launch shapes repeat across calls.
+modulus 3) so launch shapes repeat across calls. The CIOS engine's
+Montgomery contexts persist in the precompute cache (utils.lru), keyed
+by the modulus vector.
 """
 
 from __future__ import annotations
 
 from functools import partial
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 from ..config import ProtocolConfig
 from ..ops.limbs import bucket_exp_bits, limbs_for_bits
@@ -29,26 +36,67 @@ _MAX_ROWS = 16384
 
 # modulus width classes with prepared RNS bases (caps distinct launch
 # shapes; moduli bucket up to the nearest class). Wider moduli take a
-# multiple of 1024 bits, up to the widest class the kernels are held at
-# on the card (7168 bits: kernel 2 holds 4 rows per block there).
+# multiple of 1024 bits, up to the widest class the RNS kernels are held
+# at on the card (7168 bits: kernel 2 holds 4 rows per block there);
+# anything wider takes the CIOS engine.
 _RNS_WIDTH_CLASSES = (256, 512, 1024, 1536, 2048, 3072, 4096)
 _MAX_CLASS_BITS = 7168
 
+# RNS/CIOS routing: a modexp launch of at least _RNS_MIN_ROWS rows takes
+# the RNS route, a modmul launch of at least _RNS_MODMUL_MIN_ROWS rows;
+# smaller launches take the CIOS engine. On the H100 the CIOS engine was
+# ahead of the RNS route in every cell of the sweep (PERF.md section 6,
+# scripts/cuda_route_sweep.py: whole calls at 8-16384 rows, 2048- and
+# 4096-bit moduli, 256- and 2048-bit exponents, and modmul), so both
+# thresholds sit above the largest launch and no launch takes the RNS
+# route.
+_RNS_MIN_ROWS = _MAX_ROWS + 1
+_RNS_MODMUL_MIN_ROWS = _MAX_ROWS + 1
 
-def _width_class(width: int) -> int:
+
+def _width_class(width: int) -> Optional[int]:
+    """The RNS width class of a `width`-bit modulus, or None past the
+    widest class (those widths take the CIOS engine)."""
     for cls in _RNS_WIDTH_CLASSES:
         if width <= cls:
             return cls
     cls = -(-width // 1024) * 1024
-    if cls > _MAX_CLASS_BITS:
-        raise ValueError(
-            f"{width}-bit modulus exceeds the RNS kernels' {_MAX_CLASS_BITS} bits"
-        )
-    return cls
+    return cls if cls <= _MAX_CLASS_BITS else None
 
 
 def _pad_pow2(rows: int) -> int:
     return max(8, 1 << (rows - 1).bit_length())
+
+
+def _cached_ctx(moduli, num_limbs, device):
+    """The CIOS engine's context for a modulus vector on `device`, from
+    the precompute cache. A refresh reuses the same modulus vectors across
+    many launches and across collect() / distribute_batch() calls of a
+    stable committee, so the per-row host precompute (n^{-1} mod R, R^2
+    mod N, R mod N) and its upload are paid once per vector. Keyed by a
+    hash of the vector with a full equality check on a hit, so a
+    collision can only cost a rebuild. The moduli are public, and so is
+    everything the context holds."""
+    from ..ops.montgomery import BatchModExp
+    from ..utils.lru import global_cache
+
+    cache = global_cache()
+    key = ("mont-ctx", hash(tuple(moduli)), num_limbs, str(device))
+    ctx = cache.get(key) if cache.budget > 0 else None
+    if ctx is None or ctx.ctx.moduli != list(moduli):
+        ctx = BatchModExp(moduli, num_limbs, device)
+        if cache.budget > 0:
+            cache.put(key, ctx, ctx.nbytes())
+    return ctx
+
+
+def powm_cache_stats():
+    """Counters of the persistent precompute cache (CIOS contexts and the
+    RNS route's per-modulus constants): {entries, bytes, budget, hits,
+    misses, evictions}."""
+    from ..utils.lru import cache_stats
+
+    return cache_stats()
 
 
 def host_powm(bases, exps, moduli) -> List[int]:
@@ -56,48 +104,53 @@ def host_powm(bases, exps, moduli) -> List[int]:
     return [pow(b, e, m) for b, e, m in zip(bases, exps, moduli)]
 
 
+def _tiled(fn, cols, device) -> List[int]:
+    out: List[int] = []
+    for lo in range(0, len(cols[0]), _MAX_ROWS):
+        out += fn(*(c[lo : lo + _MAX_ROWS] for c in cols), device)
+    return out
+
+
 def device_powm(bases, exps, moduli, device="cuda") -> List[int]:
     """bases^exps mod moduli row-wise on `device` (counterpart of the JAX
-    package's tpu_powm, every row through the RNS route)."""
+    package's tpu_powm)."""
     if not bases:
         return []
     if len(bases) > _MAX_ROWS:
-        out: List[int] = []
-        for lo in range(0, len(bases), _MAX_ROWS):
-            hi = lo + _MAX_ROWS
-            out += device_powm(bases[lo:hi], exps[lo:hi], moduli[lo:hi], device)
-        return out
-    from ..ops.rns import rns_modexp
-
+        return _tiled(device_powm, (bases, exps, moduli), device)
     b = len(bases)
     pad = _pad_pow2(b) - b
     bases = list(bases) + [1] * pad
     exps = list(exps) + [0] * pad
     moduli = list(moduli) + [3] * pad
-    cls = _width_class(max(m.bit_length() for m in moduli))
-    return rns_modexp(bases, exps, moduli, cls, device)[:b]
+    width = max(m.bit_length() for m in moduli)
+    cls = _width_class(width)
+    if b >= _RNS_MIN_ROWS and cls is not None:
+        from ..ops.rns import rns_modexp
+
+        return rns_modexp(bases, exps, moduli, cls, device)[:b]
+    return _cached_ctx(moduli, limbs_for_bits(width), device).modexp(bases, exps)[:b]
 
 
 def device_modmul(a, b, moduli, device="cuda") -> List[int]:
     """Row-wise a*b mod moduli on `device` (counterpart of the JAX
-    package's tpu_modmul; the same integers, through kernel 1)."""
+    package's tpu_modmul)."""
     if not a:
         return []
     if len(a) > _MAX_ROWS:
-        out: List[int] = []
-        for lo in range(0, len(a), _MAX_ROWS):
-            hi = lo + _MAX_ROWS
-            out += device_modmul(a[lo:hi], b[lo:hi], moduli[lo:hi], device)
-        return out
-    from ..ops.rns import rns_modmul
-
+        return _tiled(device_modmul, (a, b, moduli), device)
     rows = len(a)
     pad = _pad_pow2(rows) - rows
     a = list(a) + [1] * pad
     b = list(b) + [1] * pad
     moduli = list(moduli) + [3] * pad
-    cls = _width_class(max(m.bit_length() for m in moduli))
-    return rns_modmul(a, b, moduli, cls, device)[:rows]
+    width = max(m.bit_length() for m in moduli)
+    cls = _width_class(width)
+    if rows >= _RNS_MODMUL_MIN_ROWS and cls is not None:
+        from ..ops.rns import rns_modmul
+
+        return rns_modmul(a, b, moduli, cls, device)[:rows]
+    return _cached_ctx(moduli, limbs_for_bits(width), device).modmul(a, b)[:rows]
 
 
 def get_batch_powm(config: ProtocolConfig) -> BatchPowm:

@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import List, Sequence
 
 import numpy as np
+import torch
 
 LIMB_BITS = 16
 LIMB_MASK = (1 << LIMB_BITS) - 1
@@ -24,6 +25,8 @@ __all__ = [
     "ints_to_limbs",
     "limbs_to_ints",
     "wipe_array",
+    "to_device",
+    "MontgomeryContext",
 ]
 
 WINDOW_BITS = 4  # fixed-window width of the modexp kernel
@@ -94,6 +97,16 @@ def wipe_array(*arrays) -> None:
             a.zero_()
 
 
+def to_device(arr: np.ndarray, device) -> torch.Tensor:
+    """A limb array as an int32 tensor on `device`; the int32 host staging
+    copy is zeroed once uploaded (it may hold secret limbs)."""
+    host = torch.from_numpy(arr.astype(np.int32))
+    out = host.to(device)
+    if out.data_ptr() != host.data_ptr():
+        host.zero_()
+    return out
+
+
 def limbs_to_ints(arr) -> List[int]:
     """(B, K) canonical limb array -> list of Python ints."""
     a = np.asarray(arr)
@@ -107,3 +120,40 @@ def limbs_to_ints(arr) -> List[int]:
         int.from_bytes(raw[i * nbytes : (i + 1) * nbytes], "little")
         for i in range(a.shape[0])
     ]
+
+
+class MontgomeryContext:
+    """Per-batch-row Montgomery constants for a multi-modulus batch.
+
+    For each (odd) modulus N_i with R = 2^(16*K):
+      n_prime_i = -N_i^{-1} mod 2^16   (digit-level CIOS constant)
+      r2_i      = R^2 mod N_i          (to-Montgomery conversion factor)
+      one_i     = R mod N_i            (Montgomery representation of 1)
+    and, for the port's CIOS engine (`ops.montgomery`):
+      n_inv_i   = -N_i^{-1} mod R      (K limbs; its low two limbs are
+                                        the 32-bit n' of the kernels,
+                                        which work in 32-bit words)
+    """
+
+    def __init__(self, moduli: Sequence[int], num_limbs: int):
+        for n in moduli:
+            if n % 2 == 0 or n <= 1:
+                raise ValueError("Montgomery arithmetic requires odd moduli > 1")
+            if n.bit_length() > num_limbs * LIMB_BITS:
+                raise ValueError("modulus wider than limb layout")
+        self.num_limbs = num_limbs
+        self.moduli = list(moduli)
+        r = 1 << (LIMB_BITS * num_limbs)
+        self.n = ints_to_limbs(moduli, num_limbs)
+        self.n_prime = np.array(
+            [(-pow(n, -1, 1 << LIMB_BITS)) % (1 << LIMB_BITS) for n in moduli],
+            dtype=np.uint32,
+        )
+        self.r2 = ints_to_limbs([r * r % n for n in moduli], num_limbs)
+        self.one_mont = ints_to_limbs([r % n for n in moduli], num_limbs)
+        self.n_inv = ints_to_limbs([(-pow(n, -1, r)) % r for n in moduli], num_limbs)
+
+    @property
+    def n_prime32(self) -> np.ndarray:
+        """-N^{-1} mod 2^32 per row (uint32)."""
+        return self.n_inv[:, 0] | (self.n_inv[:, 1] << LIMB_BITS)

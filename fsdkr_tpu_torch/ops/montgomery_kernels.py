@@ -1,0 +1,185 @@
+"""The hand-written Hopper kernels of the CIOS engine, their wrappers,
+loader and launch counters.
+
+The JAX package's CIOS engine (`fsdkr_tpu/ops/montgomery.py`) is XLA
+code: a K-step loop per Montgomery product that XLA fuses into one
+program. In eager PyTorch that loop would be K launches per product, so
+each engine entry point is one kernel here (`csrc/cios_kernels.cu`, CUDA
+C++ for sm_90a; its header comment gives the design):
+
+`mont_mul` — x*y*R^{-1} mod n per row (replaces `mont_mul_limbs`,
+    `fsdkr_tpu/ops/montgomery.py:102`; it also serves the inverse tree's
+    levels and its exit, :792-917).
+`modmul` — a*b mod n per row, the two products of `_modmul_kernel`
+    (:606) in one launch.
+`modexp` — base^exp mod n per row, the whole 4-bit fixed-window loop of
+    `_modexp_kernel` (:137) in one launch.
+
+Tensors crossing the kernel boundary are int32 (rows, K) of canonical
+16-bit limbs, K even (R = 2^(16K) on a 32-bit word), 2 <= K <= 1024;
+exponents are (rows, EL) limbs with exp_bits from `bucket_exp_bits`;
+n_inv = -n^{-1} mod R (`MontgomeryContext.n_inv`), of which the kernels
+read the low 32 bits. The wrapper dispatches on the tensor's device: a
+CPU tensor runs the plain version (`ops.montgomery`); a CUDA tensor
+launches the kernel or raises. The library is built at first use with
+nvcc (`ops.nvcc_build`) and rebuilt when the source changes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from .nvcc_build import CSRC, build_library
+
+__all__ = [
+    "mont_mul",
+    "modmul",
+    "modexp",
+    "launch_counts",
+    "reset_launch_counts",
+    "load_library",
+    "MAX_LIMBS",
+]
+
+_SRC = CSRC / "cios_kernels.cu"
+MAX_LIMBS = 1024  # 16 words a lane: 16384-bit moduli
+WINDOW_BITS = 4
+
+_LIB: Optional[ctypes.CDLL] = None
+build_info: dict = {}  # so path, build seconds, nvcc's -Xptxas -v report
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if the source hash has no library yet) and load the kernels."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    build_info.update(build_library(_SRC))
+    lib = ctypes.CDLL(build_info["so"])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fsdkr_cios_mont_mul.argtypes = [p, p, p, p, i, i, p, p]
+    lib.fsdkr_cios_mont_mul.restype = i
+    lib.fsdkr_cios_modmul.argtypes = [p, p, p, p, p, i, i, p, p]
+    lib.fsdkr_cios_modmul.restype = i
+    lib.fsdkr_cios_modexp.argtypes = [p, p, i, i, p, p, p, p, i, i, p, p]
+    lib.fsdkr_cios_modexp.restype = i
+    _LIB = lib
+    return lib
+
+
+def _check(tensors, rows, width):
+    """Every (name, tensor) is an int32 (rows, width) contiguous tensor on
+    the first one's device; returns that device."""
+    device = tensors[0][1].device
+    for name, t in tensors:
+        if t.device != device:
+            raise ValueError(f"{name} on {t.device}, expected {device}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        w = width if name != "exp" else t.shape[-1]
+        if t.dim() != 2 or t.shape[0] != rows or t.shape[1] != w:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected ({rows}, {w})")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if width < 2 or width % 2 or width > MAX_LIMBS:
+        raise ValueError(f"K={width} limbs: the kernels take even K in 2..{MAX_LIMBS}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no CIOS kernel for device {device}")
+    return device
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _count(fn, shape):
+    fn.launches += 1
+    fn.shapes[shape] = fn.shapes.get(shape, 0) + 1
+
+
+def mont_mul(x, y, n, n_inv) -> torch.Tensor:
+    """x*y*R^{-1} mod n per row over (rows, K) limbs; x, y < n."""
+    rows, k = x.shape
+    device = _check((("x", x), ("y", y), ("n", n), ("n_inv", n_inv)), rows, k)
+    if device.type == "cpu":
+        from .montgomery import mont_mul_limbs
+
+        return mont_mul_limbs(x, y, n, n_inv).to(torch.int32)
+    out = torch.empty_like(x)
+    err = load_library().fsdkr_cios_mont_mul(
+        x.data_ptr(), y.data_ptr(), n.data_ptr(), n_inv.data_ptr(), rows, k,
+        out.data_ptr(), _stream(device),
+    )
+    if err:
+        raise RuntimeError(f"fsdkr_cios_mont_mul launch failed: CUDA error {err}")
+    _count(mont_mul, (k, rows))
+    return out
+
+
+def modmul(a, b, n, n_inv, r2) -> torch.Tensor:
+    """a*b mod n per row (a, b < n): MontMul(MontMul(a, R^2 mod n), b)."""
+    rows, k = a.shape
+    device = _check((("a", a), ("b", b), ("n", n), ("n_inv", n_inv), ("r2", r2)),
+                    rows, k)
+    if device.type == "cpu":
+        from .montgomery import _modmul_kernel
+
+        return _modmul_kernel(a, b, n, n_inv, r2).to(torch.int32)
+    out = torch.empty_like(a)
+    err = load_library().fsdkr_cios_modmul(
+        a.data_ptr(), b.data_ptr(), n.data_ptr(), n_inv.data_ptr(), r2.data_ptr(),
+        rows, k, out.data_ptr(), _stream(device),
+    )
+    if err:
+        raise RuntimeError(f"fsdkr_cios_modmul launch failed: CUDA error {err}")
+    _count(modmul, (k, rows))
+    return out
+
+
+def modexp(base, exp, n, n_inv, r2, one_mont, exp_bits: int) -> torch.Tensor:
+    """base^exp mod n per row (base < n); exp holds 16-bit limbs, exp_bits
+    is the bucketed loop width (a multiple of 4)."""
+    rows, k = base.shape
+    device = _check((("base", base), ("exp", exp), ("n", n), ("n_inv", n_inv),
+                     ("r2", r2), ("one_mont", one_mont)), rows, k)
+    if exp_bits <= 0 or exp_bits % WINDOW_BITS or exp.shape[1] * 16 < exp_bits:
+        raise ValueError(f"exp_bits={exp_bits} does not fit the exponent limbs")
+    if device.type == "cpu":
+        from .montgomery import _modexp_kernel
+
+        return _modexp_kernel(base, exp, n, n_inv, r2, one_mont,
+                              exp_bits=exp_bits).to(torch.int32)
+    out = torch.empty_like(base)
+    err = load_library().fsdkr_cios_modexp(
+        base.data_ptr(), exp.data_ptr(), exp.shape[1], exp_bits, n.data_ptr(),
+        n_inv.data_ptr(), r2.data_ptr(), one_mont.data_ptr(), rows, k,
+        out.data_ptr(), _stream(device),
+    )
+    if err:
+        raise RuntimeError(f"fsdkr_cios_modexp launch failed: CUDA error {err}")
+    _count(modexp, (k, rows, exp_bits))
+    return out
+
+
+# launch counters: bumped where a kernel launches and nowhere else; the
+# shapes maps let a measurement time each kernel at the shapes a run used
+mont_mul.launches = 0
+mont_mul.shapes = {}  # (K, rows) -> launches
+modmul.launches = 0
+modmul.shapes = {}  # (K, rows) -> launches
+modexp.launches = 0
+modexp.shapes = {}  # (K, rows, exp_bits) -> launches
+
+
+def launch_counts() -> dict:
+    return {"cios_mont_mul": mont_mul.launches, "cios_modmul": modmul.launches,
+            "cios_modexp": modexp.launches}
+
+
+def reset_launch_counts() -> None:
+    for fn in (mont_mul, modmul, modexp):
+        fn.launches = 0
+        fn.shapes = {}

@@ -29,12 +29,14 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.lru import global_cache
 from . import rns_kernels
 from .limbs import (
     LIMB_BITS,
     bucket_exp_bits,
     ints_to_limbs,
     limbs_to_ints,
+    to_device,
     wipe_array,
 )
 from .rns_kernels import RNSConsts
@@ -291,54 +293,62 @@ def _crt_exit_kernel(res: torch.Tensor, dc: _DeviceConsts) -> torch.Tensor:
     return v
 
 
+def _modulus_consts(rb: RNSBases, n: int):
+    """One modulus's RNS constants: (c1 (k,), N mod (B, m_r) (k+1,),
+    A^2 mod N), or None when n shares a factor with an A channel prime."""
+    try:
+        return (
+            np.array(
+                [(-pow(n, -1, a)) % a * int(rb.Ai_inv[i]) % a
+                 for i, a in enumerate(rb.A_primes)],
+                np.uint32,
+            ),
+            np.array([n % b for b in rb.B_primes] + [n % rb.m_r], np.uint32),
+            pow(rb.A, 2, n),
+        )
+    except ValueError:  # gcd(n, a_i) > 1
+        return None
+
+
 def _row_consts(rb: RNSBases, moduli: List[int]):
     """Per-row host precomputes: c1 (R, k), N mod (B, m_r) (R, k+1) and
-    A^2 mod N, computed once per distinct modulus. A modulus sharing a
-    factor with an A channel prime (only a crafted one can) cannot ride
-    the RNS route: its rows are returned in `bad` for the caller to
-    evaluate on the host — the reference's semantics, not a device
-    fallback — and run through the launch neutralized as modulus 3."""
-    k = rb.k
-    rows = len(moduli)
-    c1 = np.zeros((rows, k), np.uint32)
-    n_bmr = np.zeros((rows, k + 1), np.uint32)
-    a2n = [0] * rows
-    bad = []
-    cache: Dict[int, tuple] = {}
+    A^2 mod N. Each distinct modulus is looked up in the process-wide
+    precompute cache (`utils.lru`, keyed by the width class and the
+    modulus itself, which is public) and computed only on a miss, so a
+    stable committee pays the host `pow`s once, not on every collect. A
+    modulus sharing a factor with an A channel prime (only a crafted one
+    can) cannot ride the RNS route: its rows are returned in `bad` for
+    the caller to evaluate on the host — the reference's semantics, not
+    a device fallback — and run through the launch neutralized as
+    modulus 3."""
+    if not moduli:
+        return (np.zeros((0, rb.k), np.uint32), np.zeros((0, rb.k + 1), np.uint32),
+                [], [])
+    cache = global_cache()
+    use_cache = cache.budget > 0
+    slot: Dict[int, int] = {}
+    rows_at = np.empty(len(moduli), np.int64)
     for r, n in enumerate(moduli):
-        ent = cache.get(n)
+        rows_at[r] = slot.setdefault(n, len(slot))
+    ents = []
+    for n in slot:
+        key = ("rns-row", rb.value_bits, rb.num_limbs, n)
+        ent = cache.get(key) if use_cache else None
         if ent is None:
-            try:
-                ent = (
-                    [
-                        (-pow(n, -1, a)) % a * int(rb.Ai_inv[i]) % a
-                        for i, a in enumerate(rb.A_primes)
-                    ],
-                    [n % b for b in rb.B_primes] + [n % rb.m_r],
-                    pow(rb.A, 2, n),
-                )
-            except ValueError:  # gcd(n, a_i) > 1
-                ent = None
-            cache[n] = ent
-        if ent is None:
-            bad.append(r)
-            continue
-        c1[r], n_bmr[r], a2n[r] = ent
-    if bad:
-        safe = _row_consts(rb, [3])
-        for r in bad:
-            c1[r], n_bmr[r], a2n[r] = safe[0][0], safe[1][0], safe[2][0]
+            # a bad modulus is cached as False: get() returns None on a miss
+            ent = _modulus_consts(rb, n) or False
+            if use_cache:
+                cache.put(key, ent, 4 * (2 * rb.k + 1) + 2 * rb.value_bits // 8 + 256)
+        ents.append(ent)
+    bad_slots = {j for j, ent in enumerate(ents) if ent is False}
+    if bad_slots:
+        safe = _modulus_consts(rb, 3)
+        ents = [safe if ent is False else ent for ent in ents]
+    c1 = np.stack([ent[0] for ent in ents])[rows_at]
+    n_bmr = np.stack([ent[1] for ent in ents])[rows_at]
+    a2n = [ents[j][2] for j in rows_at]
+    bad = [r for r, j in enumerate(rows_at) if j in bad_slots]
     return c1, n_bmr, a2n, bad
-
-
-def _to_device(arr: np.ndarray, device) -> torch.Tensor:
-    """int32 tensor on `device`; the int32 host staging copy is zeroed
-    once uploaded (it may hold secret limbs)."""
-    host = torch.from_numpy(arr.astype(np.int32))
-    out = host.to(device)
-    if out.data_ptr() != host.data_ptr():
-        host.zero_()
-    return out
 
 
 def rns_modexp(
@@ -373,16 +383,16 @@ def rns_modexp(
         [b % n for b, n in zip(bases_int, moduli)], num_limbs
     )
     exp_limbs = ints_to_limbs(exps, el)
-    base_t = _to_device(base_limbs, device)
-    exp_t = _to_device(exp_limbs, device)
+    base_t = to_device(base_limbs, device)
+    exp_t = to_device(exp_limbs, device)
     wipe_array(base_limbs, exp_limbs)  # secret bases/exponents
     base_res = _limbs_to_residues(base_t, dc)
     a2n_res = _limbs_to_residues(
-        _to_device(ints_to_limbs(a2n, num_limbs), device), dc
+        to_device(ints_to_limbs(a2n, num_limbs), device), dc
     )
     out_res = rns_kernels.modexp(
-        base_res, exp_t, a2n_res, _to_device(c1, device),
-        _to_device(n_bmr, device), dc.kernel, exp_bits,
+        base_res, exp_t, a2n_res, to_device(c1, device),
+        to_device(n_bmr, device), dc.kernel, exp_bits,
     )
     v_limbs = _crt_exit_kernel(out_res, dc)
     v_host = v_limbs.cpu().numpy()
@@ -419,10 +429,10 @@ def rns_modmul(
 
     def res(xs):
         limbs = ints_to_limbs([x % n for x, n in zip(xs, moduli)], num_limbs)
-        return _limbs_to_residues(_to_device(limbs, device), dc)
+        return _limbs_to_residues(to_device(limbs, device), dc)
 
-    c1_t = _to_device(c1, device)
-    nb_t = _to_device(n_bmr, device)
+    c1_t = to_device(c1, device)
+    nb_t = to_device(n_bmr, device)
     t = rns_kernels.mont_mul(res(a), res(b), c1_t, nb_t, dc.kernel)
     u = rns_kernels.mont_mul(t, res(a2n), c1_t, nb_t, dc.kernel)
     vs = limbs_to_ints(_crt_exit_kernel(u, dc).cpu().numpy())

@@ -44,16 +44,13 @@ when the source changes. Nothing is built or imported at module import.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import time
 from dataclasses import dataclass, field
-from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .nvcc_build import CSRC, build_library
 
 __all__ = [
     "RNSConsts",
@@ -69,13 +66,7 @@ __all__ = [
     "tile_smem_bytes",
 ]
 
-_PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "rns_kernels.cu"
-_BUILD = _PKG / "build"
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+_SRC = CSRC / "rns_kernels.cu"
 _SMEM_LIMIT = 232448  # shared memory one block may use on the H100
 
 WINDOW_BITS = 4
@@ -290,37 +281,13 @@ _LIB: Optional[ctypes.CDLL] = None
 build_info: dict = {}  # so path, build seconds, nvcc's -Xptxas -v report
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = Path(home) / "bin" / "nvcc"
-    return str(path) if path.exists() else "nvcc"
-
-
 def load_library() -> ctypes.CDLL:
     """Build (if the source hash has no library yet) and load the kernels."""
     global _LIB
     if _LIB is not None:
         return _LIB
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = _BUILD / f"librns_kernels-{tag}.so"
-    t0 = time.perf_counter()
-    if not so.exists():
-        _BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, so)
-        build_info["ptxas"] = proc.stderr
-    build_info["seconds"] = time.perf_counter() - t0
-    build_info["so"] = str(so)
-    lib = ctypes.CDLL(str(so))
+    build_info.update(build_library(_SRC))
+    lib = ctypes.CDLL(build_info["so"])
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     lib.fsdkr_rns_mont_mul.argtypes = [
         p, p, p, p, p, p, p, p, p, p, p, p, p, u, i, ctypes.POINTER(i), i, p, p,

@@ -132,6 +132,41 @@ def test_port_collect_matches_reference_collect(reference_round):
     _collect_like_reference(reference_round, PORT_CONFIG)
 
 
+@pytest.mark.parametrize("route", ["cios", "rns"])
+def test_port_collect_through_each_route_matches_reference(
+    reference_round, route, monkeypatch
+):
+    """One collect with every launch forced onto one device arithmetic
+    family (the row thresholds of backend.powm; the batch inverse always
+    takes the CIOS engine's tree) adopts the key the JAX collect adopts."""
+    from fsdkr_tpu_torch.backend import powm
+    from fsdkr_tpu_torch.ops import montgomery, rns
+
+    threshold = 0 if route == "rns" else 1 << 30
+    monkeypatch.setattr(powm, "_RNS_MIN_ROWS", threshold)
+    monkeypatch.setattr(powm, "_RNS_MODMUL_MIN_ROWS", threshold)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a launch left the forced route")
+
+    if route == "rns":
+        monkeypatch.setattr(montgomery.BatchModExp, "modexp", refuse)
+        monkeypatch.setattr(montgomery.BatchModExp, "modmul", refuse)
+    else:
+        monkeypatch.setattr(rns, "rns_modexp", refuse)
+        monkeypatch.setattr(rns, "rns_modmul", refuse)
+    keys, msgs, dks = reference_round
+    jax_key = copy.deepcopy(keys[0])
+    JaxRefresh.collect(
+        copy.deepcopy(msgs), jax_key, copy.deepcopy(dks[0]), config=JAX_CONFIG
+    )
+    port_key = from_reference(keys[0])
+    RefreshMessage.collect(
+        from_reference(msgs), port_key, from_reference(dks[0]), PORT_CONFIG
+    )
+    assert key_fields(port_key) == key_fields(jax_key)
+
+
 def test_host_backend_collect_matches_reference_collect(reference_round):
     """The port's pure-Python verifier (backend="host": HostBatchVerifier
     and CPython pow columns) adopts the same keys as the JAX collect."""
@@ -288,5 +323,5 @@ def test_batch_inverse_fails_exactly_where_pow_does():
             want.append(pow(v, -1, m))
         except ValueError:
             want.append(None)
-    assert batch_inv(values, moduli) == want
+    assert batch_inv(values, moduli, device="cpu") == want
     assert None in want and want.count(None) < len(want)
