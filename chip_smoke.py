@@ -16,14 +16,16 @@ Phases:
            class (k=454, where kernel 2 holds 4 rows per block), with row
            counts that do and do not fill the row tiles (kernel 1 also at
            1 and 13 rows at every class and at the main path's 4096 rows);
-           the three CIOS kernels at K=16, 128, 256 and 512 limbs on 1, 13
-           and 256 rows. Random rows (with a modulus-3 row and a zero
-           exponent) and worst-case rows (every limb of x and y at n-1,
-           every exponent bit set): results must be bit-identical.
-  routes   device_powm / device_modmul (each launch through the RNS route
-           or the CIOS engine, as the routing picks) and the RNS route
-           itself against CPython pow at 2048- and 4096-bit moduli; both
-           entry points at 8192-bit moduli (past the RNS classes).
+           the three CIOS kernels at K=16, 128, 256 and 512 limbs on 1 and
+           13 rows, and at K=16 and 512 on 256 rows (the main path's
+           shapes cover K=128 and 256 at 256 rows and more, in the `time`
+           phase). Random rows (with a modulus-3 row and a zero exponent)
+           and worst-case rows (every limb of x and y at n-1, every
+           exponent bit set): results must be bit-identical.
+  routes   device_powm / device_modmul (every launch through the CIOS
+           engine, as routed) and the RNS route itself against CPython pow
+           at 2048- and 4096-bit moduli; both entry points at 8192-bit
+           moduli (past the RNS classes).
   main     the refresh round at paillier_bits=2048, M=256, 11 correct-key
            rounds, n=16, t=8: simulate_keygen -> distribute_batch (all 16
            senders) -> collect by all 16; t+1 new shares must interpolate
@@ -33,11 +35,15 @@ Phases:
            distribute + collect; after the first collect, the precompute
            cache must see no miss (every modulus's constants computed
            once). Then the RNS route's path, the earlier slices' main
-           path cut to one collect: the RNS route forced, both RNS
-           kernels' counters zeroed before it and read after it, and the
-           key it adopts equal to the routed collect's.
+           path cut to one collect: inside forced_rns_route(), both RNS
+           kernels' counters zeroed just before it and read just after,
+           distribute_batch by the same 16 senders (from their keys as
+           they stood before the routed distribute) and one collect of
+           its messages, timed layer by layer; that party's collect of the
+           same messages through the CIOS engine must adopt the same key.
   time     each kernel against its plain version at every shape its path
-           launched it with (one call, rows half random, half worst-case;
+           (the routed path for the CIOS kernels, the RNS path for the
+           RNS kernels) launched it with (one call, rows half random, half worst-case;
            bit-identical results); each kernel timed beside its bound on
            the H100 at every one of those shapes, and at its costliest
            shape beside its plain version too. Two times per launch: `ms`,
@@ -255,10 +261,11 @@ def phase_kernels(dev, rng):
             log(f"kernels == plain, bit-identical: {'+'.join(names)} k={rb.k} "
                 f"rows={rows} exp_bits={exp_bits} worst_case={worst}")
     # the CIOS kernels: K=16 leaves lanes idle, 128 / 256 / 512 fill 2 / 4 /
-    # 8 words a lane (512: the 8192-bit route)
+    # 8 words a lane (512: the 8192-bit route); the main path's shapes
+    # hold K=128 and 256 at 256 rows and more (`time` phase)
     exp_bits = 64
     for k in (16, 128, 256, 512):
-        for rows in (1, 13, 256):
+        for rows in (1, 13) if k in (128, 256) else (1, 13, 256):
             for worst in (False, True):
                 args = cios_inputs(rng, dev, k, rows, exp_bits, worst)
                 for name in CIOS:
@@ -273,28 +280,33 @@ def phase_routes(dev, rng):
     from fsdkr_tpu_torch.backend.powm import device_modmul, device_powm
     from fsdkr_tpu_torch.ops import montgomery_kernels, rns
 
-    for bits, rows in ((2048, 256), (4096, 128)):
+    # CPython's pow takes most of this phase (tens of ms a row at 4096
+    # bits): the row counts stay small
+    for bits, rows in ((2048, 64), (4096, 32)):
         moduli = [rng.getrandbits(bits) | (1 << (bits - 1)) | 1 for _ in range(rows)]
         bases = [rng.randrange(n) for n in moduli]
         exps = [rng.getrandbits(2048) for _ in range(rows)]
         exps[0] = 0
         exps[1] = (1 << 2048) - 1
+        t = [time.perf_counter()]
         want = [pow(b, e, n) for b, e, n in zip(bases, exps, moduli)]
-        t0 = time.perf_counter()
-        got = device_powm(bases, exps, moduli, dev)
-        t1 = time.perf_counter()
-        if got != want:
+        t.append(time.perf_counter())
+        if device_powm(bases, exps, moduli, dev) != want:
             fail(f"device_powm at {bits} bits disagrees with pow")
+        t.append(time.perf_counter())
         if rns.rns_modexp(bases, exps, moduli, bits, dev) != want:
             fail(f"rns_modexp at {bits} bits disagrees with pow")
+        t.append(time.perf_counter())
         want = [b * e % n for b, e, n in zip(bases, exps, moduli)]
         if device_modmul(bases, exps, moduli, dev) != want:
             fail(f"device_modmul at {bits} bits disagrees with a*b % n")
         if rns.rns_modmul(bases, exps, moduli, bits, dev) != want:
             fail(f"rns_modmul at {bits} bits disagrees with a*b % n")
+        t.append(time.perf_counter())
         log(f"device_powm, rns_modexp == pow; device_modmul, rns_modmul == a*b % n: "
-            f"{rows} rows of {bits}-bit moduli, 2048-bit exponents "
-            f"(device_powm {t1 - t0:.3f} s)")
+            f"{rows} rows of {bits}-bit moduli, 2048-bit exponents (seconds: pow "
+            f"{t[1] - t[0]:.3f}, device_powm {t[2] - t[1]:.3f}, rns_modexp (cold "
+            f"constants) {t[3] - t[2]:.3f}, both modmuls {t[4] - t[3]:.3f})")
     # past the RNS classes: the CIOS engine at K=512
     bits, rows = 8192, 16
     moduli = [rng.getrandbits(bits) | (1 << (bits - 1)) | 1 for _ in range(rows)]
@@ -335,6 +347,8 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     times["keygen"] = time.perf_counter() - t0
     log(f"main: simulate_keygen t={t} n={n}: {times['keygen']:.3f} s")
 
+    # the keys as they stand before distribute, for the RNS path
+    pre = copy.deepcopy(keys)
     for mod in (rns_kernels, montgomery_kernels):
         mod.reset_launch_counts()
     t0 = time.perf_counter()
@@ -344,8 +358,6 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     msgs = [m for m, _ in out]
     spare = (copy.deepcopy(keys[0]), copy.deepcopy(out[0][1]))
     spare2 = (copy.deepcopy(keys[1]), copy.deepcopy(out[1][1]))
-    spare3 = (copy.deepcopy(keys[1]), copy.deepcopy(out[1][1]))
-    spare_rns = (copy.deepcopy(keys[2]), copy.deepcopy(out[2][1]))
 
     per_collect, cache = [], []
     t0 = time.perf_counter()
@@ -378,13 +390,6 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
         f"{powm_cache_stats()}")
     if any(miss for _, miss in cache[1:]):
         fail("a warm collect missed the precompute cache")
-
-    # the RNS route's path (the earlier slices' main path, where every
-    # column took the RNS kernels), cut to one collect: the same party's
-    # collect with the RNS route forced must adopt the same key
-    rns_counts, rns_shapes = rns_path(msgs, spare_rns, config, keys[2])
-    counts.update(rns_counts)
-    shapes.update(rns_shapes)
 
     # t+1 new shares interpolate to the unchanged group key
     idx = list(range(t + 1))
@@ -420,54 +425,54 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     if dev.type == "cuda":
         profile_collect(msgs, spare, config, sorted(per_collect)[n // 2])
     span_collect(msgs, spare2, config, "routed")
-    with rns_forced():
-        span_collect(msgs, spare3, config, "rns")
+
+    # the RNS route's path (the earlier slices' main path, where every
+    # column took the RNS kernels), cut to one collect
+    rns_counts, rns_shapes, times["rns_distribute"] = rns_path(pre, config, n)
+    counts.update(rns_counts)
+    shapes.update(rns_shapes)
     return counts, shapes, times, per_collect
 
 
-class rns_forced:
-    """Every launch of device_powm / device_modmul through the RNS route
-    (row thresholds of backend.powm at 0) inside the block."""
-
-    def __enter__(self):
-        from fsdkr_tpu_torch.backend import powm
-
-        self.saved = powm._RNS_MIN_ROWS, powm._RNS_MODMUL_MIN_ROWS
-        powm._RNS_MIN_ROWS = powm._RNS_MODMUL_MIN_ROWS = 0
-
-    def __exit__(self, *exc):
-        from fsdkr_tpu_torch.backend import powm
-
-        powm._RNS_MIN_ROWS, powm._RNS_MODMUL_MIN_ROWS = self.saved
-
-
-def rns_path(msgs, spare, config, routed_key):
-    """One collect with the RNS route forced, counters zeroed just before
-    and read just after; its adopted key must equal `routed_key`, the
-    same party's key after its collect through the chosen routing."""
+def rns_path(pre, config, n, party=2):
+    """Inside forced_rns_route(), with the RNS kernels' counters zeroed
+    just before and read just after: distribute_batch by all n senders
+    from `pre` (their keys before the routed distribute), then `party`'s
+    collect of those messages, timed layer by layer. The same party's
+    collect of the same messages through the CIOS engine must adopt the
+    same key. Returns the counts, the launches by shape and the
+    distribute's wall time."""
+    from fsdkr_tpu_torch.backend.powm import forced_rns_route, powm_cache_stats
     from fsdkr_tpu_torch.carry import to_fields
     from fsdkr_tpu_torch.ops import rns_kernels
     from fsdkr_tpu_torch.protocol import RefreshMessage
 
-    with rns_forced():
+    with forced_rns_route():
         rns_kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        RefreshMessage.collect(msgs, spare[0], spare[1], config)
+        out = RefreshMessage.distribute_batch([(k.i, k) for k in pre], n, config)
         wall = time.perf_counter() - t0
+        msgs = [m for m, _ in out]
+        routed = (copy.deepcopy(pre[party]), copy.deepcopy(out[party][1]))
+        s0 = powm_cache_stats()
+        span_collect(msgs, (pre[party], out[party][1]), config, "rns")
+        s1 = powm_cache_stats()
         counts = rns_kernels.launch_counts()
         shapes = {"rns_mont_mul": dict(rns_kernels.mont_mul.shapes),
                   "rns_modexp": dict(rns_kernels.modexp.shapes)}
-    log(f"rns path: one collect with the RNS route forced: {wall:.3f} s; "
-        f"launches {counts}")
+    log(f"rns path: distribute_batch, {n} senders: {wall:.3f} s; then one collect; "
+        f"launches {counts}; precompute cache over the collect: "
+        f"{s1['hits'] - s0['hits']} hits, {s1['misses'] - s0['misses']} misses")
     for name, by_shape in shapes.items():
         log(f"rns path: {name} launches by shape: "
             + ", ".join(f"{shape}: {c}" for shape, c in sorted(by_shape.items())))
     if not all(v > 0 for v in counts.values()):
         fail(f"a kernel of the RNS path never launched: {counts}")
-    if to_fields(spare[0]) != to_fields(routed_key):
-        fail("the RNS route's collect adopted another key than the routed one")
-    log("rns path: adopted key == the routed collect's")
-    return counts, shapes
+    RefreshMessage.collect(msgs, routed[0], routed[1], config)
+    if to_fields(pre[party]) != to_fields(routed[0]):
+        fail("the RNS route's collect adopted another key than the CIOS engine's")
+    log("rns path: adopted key == the same collect's through the CIOS engine")
+    return counts, shapes, wall
 
 
 # the layers of one collect, timed from here by wrapping the callables the
@@ -594,7 +599,9 @@ def profile_collect(msgs, spare, config, median_s):
     from fsdkr_tpu_torch.protocol import RefreshMessage
 
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity only: recording every host-side op as well slowed
+    # the profiled collect to 8.6-15.1 s
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         RefreshMessage.collect(msgs, spare[0], spare[1], config)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3

@@ -5,15 +5,13 @@ expressed against a `batch_powm(bases, exps, moduli) -> list[int]`
 callable:
 
 - host_powm: CPython pow loop (oracle).
-- device_powm: each launch takes one of the two arithmetic families on
-  the device, as the JAX package's tpu_powm does: the RNS route (ops.rns,
-  kernel 2) at or above _RNS_MIN_ROWS rows and within the RNS width
-  classes, the CIOS engine (ops.montgomery, `fsdkr_cios_modexp`)
-  otherwise, wider moduli included. The thresholds come from an H100
-  sweep, which put every launch on the CIOS engine.
-- device_modmul: a*b mod N per row, through the CIOS engine
-  (`fsdkr_cios_modmul`) or the RNS route (kernel 1, two launches) by its
-  own row threshold.
+- device_powm: bases^exps mod N per row on the device, through the CIOS
+  engine (ops.montgomery, `fsdkr_cios_modexp`) at every width. An H100
+  sweep put the CIOS engine ahead of the RNS route at every launch size,
+  so the RNS route (ops.rns, kernel 2) takes a launch only inside
+  `forced_rns_route()`, within the RNS width classes.
+- device_modmul: a*b mod N per row, the same way (`fsdkr_cios_modmul`,
+  or kernel 1 in two launches when forced).
 
 Batches are padded to powers of two (>= 8 rows; padding rows use
 modulus 3) so launch shapes repeat across calls. The CIOS engine's
@@ -23,6 +21,7 @@ by the modulus vector.
 
 from __future__ import annotations
 
+import contextlib
 from functools import partial
 from typing import Callable, List, Optional, Sequence
 
@@ -42,16 +41,29 @@ _MAX_ROWS = 16384
 _RNS_WIDTH_CLASSES = (256, 512, 1024, 1536, 2048, 3072, 4096)
 _MAX_CLASS_BITS = 7168
 
-# RNS/CIOS routing: a modexp launch of at least _RNS_MIN_ROWS rows takes
-# the RNS route, a modmul launch of at least _RNS_MODMUL_MIN_ROWS rows;
-# smaller launches take the CIOS engine. On the H100 the CIOS engine was
-# ahead of the RNS route in every cell of the sweep (PERF.md section 6,
-# scripts/cuda_route_sweep.py: whole calls at 8-16384 rows, 2048- and
-# 4096-bit moduli, 256- and 2048-bit exponents, and modmul), so both
-# thresholds sit above the largest launch and no launch takes the RNS
-# route.
+# RNS/CIOS routing: a launch of at least _RNS_MIN_ROWS rows within the
+# RNS width classes takes the RNS route, a smaller one the CIOS engine.
+# On the H100 the CIOS engine was ahead of the RNS route in every cell of
+# the sweep (PERF.md section 6, scripts/cuda_route_sweep.py: whole modexp
+# and modmul calls at 8-16384 rows, 2048- and 4096-bit moduli, 256- and
+# 2048-bit exponents), so the threshold sits above the largest launch and
+# only `forced_rns_route()` sends a launch to the RNS route.
 _RNS_MIN_ROWS = _MAX_ROWS + 1
-_RNS_MODMUL_MIN_ROWS = _MAX_ROWS + 1
+
+
+@contextlib.contextmanager
+def forced_rns_route():
+    """Within the block, every device_powm / device_modmul launch within
+    the RNS width classes takes the RNS route: for the checks and
+    measurements that drive the RNS kernels (chip_smoke.py's RNS path,
+    the route sweep, the tests of both routes)."""
+    global _RNS_MIN_ROWS
+    saved = _RNS_MIN_ROWS
+    _RNS_MIN_ROWS = 0
+    try:
+        yield
+    finally:
+        _RNS_MIN_ROWS = saved
 
 
 def _width_class(width: int) -> Optional[int]:
@@ -146,7 +158,7 @@ def device_modmul(a, b, moduli, device="cuda") -> List[int]:
     moduli = list(moduli) + [3] * pad
     width = max(m.bit_length() for m in moduli)
     cls = _width_class(width)
-    if rows >= _RNS_MODMUL_MIN_ROWS and cls is not None:
+    if rows >= _RNS_MIN_ROWS and cls is not None:
         from ..ops.rns import rns_modmul
 
         return rns_modmul(a, b, moduli, cls, device)[:rows]

@@ -16,7 +16,8 @@ device; on the CPU those wrappers run the plain versions of this module:
   digits of M = -x*y*n^{-1} mod R, so here M comes from one truncated
   product with n_inv = -n^{-1} mod R, then (x*y + M*n)/R and the same
   conditional subtraction: bit-identical to the K-step loop for any x, y
-  < R (held against it in tests/test_torch_montgomery.py).
+  < R (held against it in tests/test_torch_montgomery.py). Each of the
+  three products is one batched float64 product of 8-limb blocks.
 - `_modexp_kernel`, `_modmul_kernel`, `_modmul_exit_kernel` and the
   inverse tree follow the JAX package step for step.
 
@@ -29,6 +30,7 @@ intermediates, never a value that leaves the engine.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -60,14 +62,13 @@ __all__ = [
 # plain versions
 
 
-def _carry_pass(t: torch.Tensor) -> torch.Tensor:
+def _carry_pass(t: torch.Tensor) -> None:
     """One pass of delayed carries (non-negative int64 limbs), in place:
     each limb keeps its low 16 bits and takes the high bits of the limb
-    below; the top limb's carry out is dropped. Returns the carries."""
-    hi = t >> LIMB_BITS
+    below; the top limb's carry out is dropped."""
+    hi = t[:, :-1] >> LIMB_BITS
     t &= LIMB_MASK
-    t[:, 1:] += hi[:, :-1]
-    return hi
+    t[:, 1:].add_(hi)
 
 
 def _normalize_carries(t: torch.Tensor) -> torch.Tensor:
@@ -77,94 +78,118 @@ def _normalize_carries(t: torch.Tensor) -> torch.Tensor:
     (every sum of the engine stays below 2^44), so three passes leave
     every limb at most 2^16, with no data-dependent loop (nothing waits
     on the device). The 1-bit carries left may ripple through a run of
-    0xFFFF limbs (as in x*y + M*n, whose low half is a multiple of R);
-    one carry-lookahead step resolves them: a limb takes a carry when the
+    0xFFFF limbs (as in t plus the complement of n, where t >= n); one
+    carry-lookahead step resolves them: a limb takes a carry when the
     nearest limb below it that is not 0xFFFF is 2^16."""
     for _ in range(3):
         _carry_pass(t)
     gen = t > LIMB_MASK
     if not t.is_cuda and not bool(gen.any()):
         return t  # no carry left (a check that would wait on the card)
-    idx = torch.arange(t.shape[1], device=t.device).expand_as(t)
-    last_gen = torch.where(gen, idx, -1).cummax(dim=1).values
-    last_stop = torch.where(t < LIMB_MASK, idx, -1).cummax(dim=1).values
-    t[:, 1:] += (last_gen[:, :-1] > last_stop[:, :-1]).to(t.dtype)
+    idx = torch.arange(t.shape[1] - 1, device=t.device)
+    last_gen = torch.where(gen[:, :-1], idx, -1).cummax(dim=1).values
+    last_stop = torch.where(t[:, :-1] < LIMB_MASK, idx, -1).cummax(dim=1).values
+    t[:, 1:].add_(last_gen > last_stop)
     t &= LIMB_MASK
     return t
 
 
-def _cond_subtract(t: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
-    """t - n if t >= n else t, limbwise; t: (B, K+1) canonical limbs
-    (value < 2n), n: (B, K). t - n is t plus the complement of n in K+1
-    limbs; its carry out, in one extra limb, is 1 exactly where t >= n.
+def _cond_subtract(t: torch.Tensor, n_comp: torch.Tensor) -> torch.Tensor:
+    """t - n if t >= n else t, as canonical (B, K) limbs; t: (B, K+2)
+    delayed-carry limbs below 2^44 (value < 2n), n_comp: the complement
+    of n (`_Reducer.n_comp`). t and t + n_comp are normalized together;
+    the carry out of the latter, in limb K+1, is 1 exactly where t >= n.
     The choice is a masked select."""
-    b, k = n.shape
-    d = torch.zeros((b, k + 2), dtype=torch.int64, device=t.device)
-    d[:, : k + 1] = t + LIMB_MASK
-    d[:, :k] -= n
-    d[:, 0] += 1
-    _normalize_carries(d)
-    keep = (d[:, k + 1] == 0)[:, None]  # no carry out: t < n
-    return torch.where(keep, t[:, :k], d[:, :k])
+    rows, k = t.shape[0], t.shape[1] - 2
+    both = _normalize_carries(torch.cat([t, t + n_comp]))
+    keep = (both[rows:, k + 1] == 0)[:, None]  # no carry out: t < n
+    return torch.where(keep, both[:rows, :k], both[rows:, :k])
 
 
-def _limb_products(x: torch.Tensor, y: torch.Tensor, width: int) -> torch.Tensor:
-    """sum over i + j = p of x_i * y_j for p < width: (B, width) int64
-    delayed-carry limbs (each < K * 2^32)."""
-    b, kx = x.shape
-    ky = y.shape[1]
-    pos = (
-        torch.arange(kx, device=x.device)[:, None]
-        + torch.arange(ky, device=x.device)[None, :]
-    ).reshape(-1)
-    out = torch.zeros((b, kx + ky), dtype=torch.int64, device=x.device)
-    out.index_add_(1, pos, (x[:, :, None] * y[:, None, :]).reshape(b, -1))
-    return out[:, :width]
+# limbs per block of the plain products' operands
+_BLOCK = 8
+
+
+@functools.lru_cache(maxsize=None)
+def _block_layout(k: int, device: str):
+    """For a K-limb operand split into nb blocks of b = _BLOCK limbs:
+    (nb, the gather index of its block Toeplitz matrices, the output limb
+    of each block product's entries). Toeplitz entry [I, q, j] is limb
+    I*b + q - j of the operand when 0 <= q - j < b (a zero pad limb, at
+    nb*b, otherwise); block product entry [I, q, J] lands on output limb
+    b*(I + J) + q."""
+    b = _BLOCK
+    nb = -(-k // b)
+    i = torch.arange(nb)[:, None, None]
+    q = torch.arange(2 * b - 1)[None, :, None]
+    d = q - torch.arange(b)[None, None, :]
+    gather = torch.where((d >= 0) & (d < b), i * b + d, nb * b).reshape(-1)
+    pos = (b * (i + torch.arange(nb)[None, None, :]) + q).reshape(-1)
+    return nb, gather.to(device), pos.to(device)
+
+
+def _toeplitz_blocks(v: torch.Tensor) -> torch.Tensor:
+    """(B, K) limbs as (B, nb * (2b - 1), b) float64 matrices, one
+    (2b - 1, b) Toeplitz matrix per block of b limbs (`_block_layout`)."""
+    rows, k = v.shape
+    nb, gather, _ = _block_layout(k, str(v.device))
+    padded = torch.nn.functional.pad(v.to(torch.float64), (0, nb * _BLOCK + 1 - k))
+    return padded.index_select(1, gather).view(rows, nb * (2 * _BLOCK - 1), _BLOCK)
+
+
+def _block_product(toe: torch.Tensor, w: torch.Tensor, width: int) -> torch.Tensor:
+    """sum over i + j = p of v_i * w_j for p < width (width <= 2K + 2),
+    with v given as `_toeplitz_blocks(v)`: (B, width) int64 delayed-carry
+    limbs. Every block of v times every block of w is one batched float64
+    product, and the block products add into their output limbs, exactly:
+    every sum stays below K * 2^33 < 2^53. O(K^2 / b) values per row,
+    where a Toeplitz matrix of all of v would take O(K^2)."""
+    rows, k = w.shape
+    nb, _, pos = _block_layout(k, str(w.device))
+    blocks = torch.nn.functional.pad(w.to(torch.float64), (0, nb * _BLOCK - k))
+    prod = torch.bmm(toe, blocks.view(rows, nb, _BLOCK).transpose(1, 2))
+    out = torch.zeros((rows, 2 * nb * _BLOCK + 2), dtype=torch.float64, device=w.device)
+    out.index_add_(1, pos, prod.view(rows, -1))
+    return out[:, :width].to(torch.int64)
 
 
 class _Reducer:
-    """A modulus row's constants for the plain product: n (B, K) int64,
-    and n and n_inv as Toeplitz matrices, so that M*n and T*n_inv are
-    one batched float64 product each (exact: every sum < K * 2^33 <
-    2^53). Built once per modulus vector and reused by every product of
-    a modexp."""
+    """A modulus row's constants for the plain product: n (B, K) int64;
+    n and n_inv as block Toeplitz matrices (`_toeplitz_blocks`); and the
+    complement of n in K+2 limbs, 2^(16(K+1)) - n, with delayed borrows
+    (limb i is 0xFFFF - n_i, plus 1 at limb 0), for `_cond_subtract`.
+    Built once per modulus vector and reused by every product of a
+    modexp."""
 
     def __init__(self, n, n_inv):
         self.n = n.to(torch.int64)
-        k = self.n.shape[1]
-        self.n_toe = self._toeplitz(self.n, 2 * k)
-        self.n_inv_toe = self._toeplitz(n_inv.to(torch.int64), k)
-
-    @staticmethod
-    def _toeplitz(v, width):
-        """(B, width, K) float64 with v[p - j] at [., p, j] (0 outside)."""
-        b, k = v.shape
-        r = (torch.arange(width, device=v.device)[:, None]
-             - torch.arange(k, device=v.device)[None, :])
-        padded = torch.cat(
-            [v.to(torch.float64), torch.zeros((b, 1), dtype=torch.float64, device=v.device)],
-            dim=1,
-        )
-        return padded[:, torch.where((r >= 0) & (r < k), r, k)]
-
-    @staticmethod
-    def times(toe, v):
-        return torch.bmm(toe, v.to(torch.float64)[:, :, None])[:, :, 0].to(torch.int64)
+        rows, k = self.n.shape
+        self.n_toe = _toeplitz_blocks(self.n)
+        self.n_inv_toe = _toeplitz_blocks(n_inv.to(torch.int64))
+        self.n_comp = torch.zeros((rows, k + 2), dtype=torch.int64, device=self.n.device)
+        self.n_comp[:, : k + 1] = LIMB_MASK
+        self.n_comp[:, :k] -= self.n
+        self.n_comp[:, 0] += 1
 
     def mont_mul(self, x, y):
-        x, y = x.to(torch.int64), y.to(torch.int64)
-        b, k = x.shape
-        t = torch.zeros((b, 2 * k + 1), dtype=torch.int64, device=x.device)
-        t[:, : 2 * k] = _limb_products(x, y, 2 * k)  # T = x*y, delayed carries
+        k = x.shape[1]
+        # T = x*y in 2K+2 limbs (the top two 0), delayed carries
+        t = _block_product(_toeplitz_blocks(x), y, 2 * k + 2)
         # T mod R with limbs below 2^17 (two passes, carries out of limb
         # K-1 dropped), then M = T * n_inv mod R, canonical
         low = t[:, :k].clone()
         _carry_pass(low)
         _carry_pass(low)
-        m = _normalize_carries(self.times(self.n_inv_toe, low))
-        t[:, : 2 * k] += self.times(self.n_toe, m)
-        _normalize_carries(t)  # T + M*n, a multiple of R below 2nR
-        return _cond_subtract(t[:, k:], self.n)
+        m = _normalize_carries(_block_product(self.n_inv_toe, low, k))
+        t += _block_product(self.n_toe, m, 2 * k + 2)
+        # T + M*n < 2nR is a multiple of R: its low half is c*R, and c,
+        # the carry into limb K, is read off the low half's top two limbs
+        # (each limb is below K * 2^33 <= 2^42, so the limbs under them
+        # add less than 2^-5 to (top * 2^16 + next) / 2^32, whose ceiling
+        # is c)
+        hi = t[:, k:]
+        hi[:, 0] += ((t[:, k - 1] << LIMB_BITS) + t[:, k - 2] + (1 << 32) - 1) >> 32
+        return _cond_subtract(hi, self.n_comp)
 
 
 def mont_mul_limbs(x, y, n, n_inv) -> torch.Tensor:
@@ -175,6 +200,35 @@ def mont_mul_limbs(x, y, n, n_inv) -> torch.Tensor:
     canonical (B, K) int64 limbs < n.
     """
     return _Reducer(n, n_inv).mont_mul(x, y)
+
+
+def _replayed(mont_mul, rows: int, k: int, device):
+    """`mont_mul` on (rows, K) limbs, captured once as a CUDA graph and
+    replayed for each product. A plain product is about a hundred small
+    launches, and on the card their host-side dispatch, not the device,
+    bounds the plain modexp's time; the replay runs the same kernels on
+    the same values (nothing in the product branches on them)."""
+    x = torch.zeros((rows, k), dtype=torch.int64, device=device)
+    y = torch.zeros_like(x)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        mont_mul(x, y)  # warm-up outside the capture
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = mont_mul(x, y)
+
+    def replay(a, b):
+        x.copy_(a)
+        y.copy_(b)
+        graph.replay()
+        return out.clone()
+
+    # the graph reads the constants that `mont_mul` holds: they must live
+    # as long as it does
+    replay.mont_mul = mont_mul
+    return replay
 
 
 def _modexp_kernel(base, exp, n, n_inv, r2, one_mont, *, exp_bits) -> torch.Tensor:
@@ -189,6 +243,8 @@ def _modexp_kernel(base, exp, n, n_inv, r2, one_mont, *, exp_bits) -> torch.Tens
     exp = exp.to(torch.int64)
     one_mont = one_mont.to(torch.int64)
     mul = _Reducer(n, n_inv).mont_mul
+    if base.is_cuda:
+        mul = _replayed(mul, *n.shape, base.device)
 
     base_m = mul(base, r2)  # to Montgomery domain
     # table[j] = base_m^j (Montgomery domain), j = 0..15

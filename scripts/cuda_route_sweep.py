@@ -2,7 +2,7 @@
 """Time the two device arithmetic families of the PyTorch/CUDA port
 against each other on one NVIDIA GPU: the RNS route (kernel 2 / kernel 1)
 and the CIOS engine, over the row counts and widths of the refresh's
-columns. The routing thresholds of fsdkr_tpu_torch/backend/powm.py are
+columns. The routing threshold of fsdkr_tpu_torch/backend/powm.py is
 read off this table.
 
 Run from the root of a checkout, on a machine with the card:
@@ -10,10 +10,11 @@ Run from the root of a checkout, on a machine with the card:
     python3 scripts/cuda_route_sweep.py [--rows 8,16,...] [--out FILE.json]
 
 For every (entry point, modulus width, exponent width, rows): the whole
-`device_powm` / `device_modmul` call, with each route forced by setting
-the module's row thresholds (the cache warm: one call first), timed on
-the host clock (median of 3 calls, each ending in its host copy), and
-its device time per call under torch.profiler: the route's kernel
+`device_powm` / `device_modmul` call, through the CIOS engine as routed
+and through the RNS route inside `forced_rns_route()` (the cache warm:
+one call first), timed on the host clock (median of 3 calls, each
+ending in its host copy), and its device time per call under
+torch.profiler: the route's kernel
 (`kernel_ms`) and every device event (`busy_ms`). Rows share 16 distinct
 moduli, as a refresh's columns do (one modulus per party).
 """
@@ -21,6 +22,7 @@ moduli, as a refresh's columns do (one modulus per party).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import random
@@ -91,11 +93,11 @@ def main():
             for entry, exp_bits, other in cases:
                 fn = powm.device_powm if entry == "powm" else powm.device_modmul
                 for route in ("rns", "cios"):
-                    threshold = 0 if route == "rns" else 1 << 30
-                    powm._RNS_MIN_ROWS = powm._RNS_MODMUL_MIN_ROWS = threshold
+                    forced = route == "rns"
 
                     def call():
-                        return fn(bases, other, moduli, dev)
+                        with powm.forced_rns_route() if forced else contextlib.nullcontext():
+                            return fn(bases, other, moduli, dev)
 
                     call()  # warm: builds, caches, contexts
                     walls = []

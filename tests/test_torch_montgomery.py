@@ -21,6 +21,7 @@ every comparison is exact (integers, limbs). The CUDA kernels run only on
 the card (chip_smoke.py holds them against these plain versions there).
 """
 
+import contextlib
 import math
 import random
 
@@ -144,10 +145,8 @@ def _powm_rows(seed, bits, rows, exp_bits):
 @pytest.mark.parametrize("route", ["cios", "rns"])
 def test_device_routes_match_reference_and_pow(route, monkeypatch):
     """6 rows of 1024-bit moduli (padded to 8): the launch takes the
-    forced route; both routes give the reference's integers."""
-    threshold = 1 if route == "rns" else 1 << 30
-    monkeypatch.setattr(powm, "_RNS_MIN_ROWS", threshold)
-    monkeypatch.setattr(powm, "_RNS_MODMUL_MIN_ROWS", threshold)
+    CIOS engine, or the RNS route inside `forced_rns_route()`; both
+    routes give the reference's integers."""
     bases, exps, moduli = _powm_rows(11, 1024, 6, 128)
     seen = []
     for name in ("rns_modexp", "rns_modmul", "modexp", "modmul"):
@@ -160,11 +159,12 @@ def test_device_routes_match_reference_and_pow(route, monkeypatch):
 
         monkeypatch.setattr(owner, name, spy)
     want = [pow(b, e, m) for b, e, m in zip(bases, exps, moduli)]
-    assert powm.device_powm(bases, exps, moduli, "cpu") == want
+    want_mul = [b * e % m for b, e, m in zip(bases, exps, moduli)]
+    with powm.forced_rns_route() if route == "rns" else contextlib.nullcontext():
+        assert powm.device_powm(bases, exps, moduli, "cpu") == want
+        assert powm.device_modmul(bases, exps, moduli, "cpu") == want_mul
     assert jpowm.tpu_powm(bases, exps, moduli) == want
-    want = [b * e % m for b, e, m in zip(bases, exps, moduli)]
-    assert powm.device_modmul(bases, exps, moduli, "cpu") == want
-    assert jpowm.tpu_modmul(bases, exps, moduli) == want
+    assert jpowm.tpu_modmul(bases, exps, moduli) == want_mul
     assert seen == (["rns_modexp", "rns_modmul"] if route == "rns" else ["modexp", "modmul"])
 
 

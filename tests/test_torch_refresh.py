@@ -18,6 +18,7 @@ kernels' plain versions).
 Every comparison is exact (integers, points, verdict tuples).
 """
 
+import contextlib
 import copy
 import dataclasses
 
@@ -136,15 +137,13 @@ def test_port_collect_matches_reference_collect(reference_round):
 def test_port_collect_through_each_route_matches_reference(
     reference_round, route, monkeypatch
 ):
-    """One collect with every launch forced onto one device arithmetic
-    family (the row thresholds of backend.powm; the batch inverse always
-    takes the CIOS engine's tree) adopts the key the JAX collect adopts."""
+    """One collect with every launch on one device arithmetic family (the
+    CIOS engine, as routed, or the RNS route inside
+    `powm.forced_rns_route()`; the batch inverse always takes the CIOS
+    engine's tree) adopts the key the JAX collect adopts."""
     from fsdkr_tpu_torch.backend import powm
     from fsdkr_tpu_torch.ops import montgomery, rns
 
-    threshold = 0 if route == "rns" else 1 << 30
-    monkeypatch.setattr(powm, "_RNS_MIN_ROWS", threshold)
-    monkeypatch.setattr(powm, "_RNS_MODMUL_MIN_ROWS", threshold)
 
     def refuse(*args, **kwargs):
         raise AssertionError("a launch left the forced route")
@@ -161,9 +160,10 @@ def test_port_collect_through_each_route_matches_reference(
         copy.deepcopy(msgs), jax_key, copy.deepcopy(dks[0]), config=JAX_CONFIG
     )
     port_key = from_reference(keys[0])
-    RefreshMessage.collect(
-        from_reference(msgs), port_key, from_reference(dks[0]), PORT_CONFIG
-    )
+    with powm.forced_rns_route() if route == "rns" else contextlib.nullcontext():
+        RefreshMessage.collect(
+            from_reference(msgs), port_key, from_reference(dks[0]), PORT_CONFIG
+        )
     assert key_fields(port_key) == key_fields(jax_key)
 
 
