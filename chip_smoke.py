@@ -21,26 +21,37 @@ Phases:
            shapes cover K=128 and 256 at 256 rows and more, in the `time`
            phase). Random rows (with a modulus-3 row and a zero exponent)
            and worst-case rows (every limb of x and y at n-1, every
-           exponent bit set): results must be bit-identical.
+           exponent bit set): results must be bit-identical. The comb's
+           two kernels (`cios_comb`, `cios_comb_ladder`) at K=16, 128, 256
+           and 512 on 1 group x 8 rows, 3 groups x 13 rows and 16 x 256,
+           random and worst-case groups (every limb of the table and the
+           base at n-1, every exponent bit set).
   routes   device_powm / device_modmul (every launch through the CIOS
            engine, as routed) and the RNS route itself against CPython pow
            at 2048- and 4096-bit moduli; both entry points at 8192-bit
-           moduli (past the RNS classes).
+           moduli (past the RNS classes); device_powm_grouped (comb
+           groups and loners) at 2048, 4096 and 8192 bits with the comb's
+           ladder on the host and on the card.
   main     the refresh round at paillier_bits=2048, M=256, 11 correct-key
            rounds, n=16, t=8: simulate_keygen -> distribute_batch (all 16
            senders) -> collect by all 16; t+1 new shares must interpolate
            to the group key; a collect with one tampered PDL proof must
            raise the PDL error naming the sender; the routing's kernels
-           (every launch takes the CIOS engine) must each launch over
-           distribute + collect; after the first collect, the precompute
+           (every launch takes the CIOS engine; the ring-Pedersen
+           column's 16 groups of 256 rows sharing (T, N) take the comb)
+           must each launch over
+           distribute + collect (the comb's ladder where a launch has more
+           groups than the host ladder takes); launches per collect are
+           printed for every kernel; after the first collect, the precompute
            cache must see no miss (every modulus's constants computed
            once). Then the RNS route's path, the earlier slices' main
            path cut to one collect: inside forced_rns_route(), both RNS
            kernels' counters zeroed just before it and read just after,
            distribute_batch by the same 16 senders (from their keys as
            they stood before the routed distribute) and one collect of
-           its messages, timed layer by layer; that party's collect of the
-           same messages through the CIOS engine must adopt the same key.
+           its messages, timed layer by layer (kernel 2 must launch 15
+           times, kernel 1 14); that party's collect of the same messages
+           through the CIOS engine must adopt the same key.
   time     each kernel against its plain version at every shape its path
            (the routed path for the CIOS kernels, the RNS path for the
            RNS kernels) launched it with (one call, rows half random, half worst-case;
@@ -50,6 +61,8 @@ Phases:
            CUDA events around back-to-back wrapper calls (the wrapper's
            host work included where it is the slower side), and
            `device_ms`, the kernel's own device time (torch.profiler).
+           `cios_comb_ladder` is also timed at 16 groups (K=128, 2048-bit
+           exponents) where the main path ran no ladder on the card.
 
 Prints the kernels line `{"kernels": [...]}` and, last, `{"ok": true,
 "device": {...}}`. Any failure exits non-zero with no result line.
@@ -151,32 +164,41 @@ def kernel_inputs(rng, rb, dev, rows, exp_bits, worst):
 def cios_inputs(rng, dev, k, rows, exp_bits, worst):
     """(x, y, n, n_inv, r2, one_mont, exp) int32 tensors for the CIOS
     kernels at K=k limbs: random rows (row 0 modulo 3, row 1 with
-    exponent 0), or worst-case rows (n = 2^(16k) - 1, every limb of x and
-    y at n - 1, every exponent bit set), or the last `worst` rows
-    worst-case."""
+    exponent 0; rows take their moduli in turn from 64 random ones, as a
+    column's rows repeat a party's modulus, so the host precompute stays
+    small at tens of thousands of rows), or worst-case
+    rows (n = 2^(16k) - 1, every limb of x and y at n - 1, every exponent
+    bit set), or the last `worst` rows worst-case."""
     import numpy as np
     import torch
 
-    from fsdkr_tpu_torch.ops.limbs import MontgomeryContext, ints_to_limbs
+    from fsdkr_tpu_torch.ops.limbs import MontgomeryContext
 
-    moduli = [rng.getrandbits(16 * k) | 1 | (1 << (16 * k - 1)) for _ in range(rows)]
-    moduli[0] = 3
-    xs = [rng.randrange(m) for m in moduli]
-    ys = [rng.randrange(m) for m in moduli]
-    exps = [rng.getrandbits(exp_bits) for _ in range(rows)]
-    exps[min(1, rows - 1)] = 0
     w = _worst_rows(rows, worst)
-    for r in range(rows - w, rows):
-        moduli[r] = (1 << (16 * k)) - 1
-        xs[r] = ys[r] = moduli[r] - 1
-        exps[r] = (1 << exp_bits) - 1
-    ctx = MontgomeryContext(moduli, k)
+    pool = [3] + [rng.getrandbits(16 * k) | 1 | (1 << (16 * k - 1))
+                  for _ in range(min(64, rows) - 1)] + [(1 << (16 * k)) - 1]
+    pick = np.arange(rows) % (len(pool) - 1)
+    pick[rows - w:] = len(pool) - 1
+    ctx = MontgomeryContext(pool, k)
+    n = ctx.n.astype(np.int64)[pick]
+    nrng = np.random.default_rng(rng.getrandbits(32))
+    # x, y below n: random limbs under a top limb below n's (and below 3
+    # in the modulus-3 rows)
+    xy = nrng.integers(0, 1 << 16, size=(2, rows, k))
+    xy[:, :, k - 1] %= np.maximum(n[:, k - 1], 1)
+    small = pick == 0
+    xy[:, small] = 0
+    xy[:, small, 0] = nrng.integers(0, 3, size=(2, int(small.sum())))
+    xy[:, rows - w:] = n[rows - w:] - (np.arange(k) == 0)
+    exp = nrng.integers(0, 1 << 16, size=(rows, exp_bits // 16))
+    exp[min(1, rows - 1)] = 0
+    exp[rows - w:] = 0xFFFF
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.int32)).to(dev).contiguous()
 
-    return (t(ints_to_limbs(xs, k)), t(ints_to_limbs(ys, k)), t(ctx.n), t(ctx.n_inv),
-            t(ctx.r2), t(ctx.one_mont), t(ints_to_limbs(exps, exp_bits // 16)))
+    return (t(xy[0]), t(xy[1]), t(n), t(ctx.n_inv[pick]), t(ctx.r2[pick]),
+            t(ctx.one_mont[pick]), t(exp))
 
 
 def cios_calls(name, args, exp_bits):
@@ -195,6 +217,66 @@ def cios_calls(name, args, exp_bits):
 
 
 CIOS = ("cios_mont_mul", "cios_modmul", "cios_modexp")
+
+
+def comb_inputs(rng, dev, k, groups, per_group, exp_bits, worst):
+    """(table, exp, base, n, n_inv, r2, one_mont) int32 tensors for the
+    comb's kernels at K=k limbs: random groups (group 0 modulo 3, its
+    second row with exponent 0; table entries and bases below their
+    modulus), or worst-case groups (n = 2^(16k) - 1, every table entry
+    and the base n - 1, every exponent bit set), or the last `worst`
+    groups worst-case."""
+    import numpy as np
+    import torch
+
+    from fsdkr_tpu_torch.ops.limbs import MontgomeryContext, ints_to_limbs
+
+    w_cnt, el = exp_bits // 4, exp_bits // 16
+    nrng = np.random.default_rng(rng.getrandbits(32))
+    moduli = [rng.getrandbits(16 * k) | 1 | (1 << (16 * k - 1)) for _ in range(groups)]
+    moduli[0] = 3
+    w = _worst_rows(groups, worst)
+    for g in range(groups - w, groups):
+        moduli[g] = (1 << (16 * k)) - 1
+    n_top = ints_to_limbs(moduli, k)[:, k - 1].astype(np.int64)
+    # entries below n: random limbs under a top limb below n's
+    table = nrng.integers(0, 1 << 16, size=(16, w_cnt, groups, k))
+    table[..., k - 1] = nrng.integers(0, 1 << 16, size=(16, w_cnt, groups)) % np.maximum(n_top, 1)
+    if groups - w > 0:  # group 0, modulo 3
+        table[:, :, 0, :] = 0
+        table[:, :, 0, 0] = nrng.integers(0, 3, size=(16, w_cnt))
+    base = [rng.randrange(m) for m in moduli]
+    exp = nrng.integers(0, 1 << 16, size=(groups, per_group, el))
+    exp[0, min(1, per_group - 1)] = 0
+    for g in range(groups - w, groups):
+        table[:, :, g, :] = 0xFFFF
+        table[:, :, g, 0] = 0xFFFE
+        base[g] = moduli[g] - 1
+        exp[g] = 0xFFFF
+    ctx = MontgomeryContext(moduli, k)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.int32)).to(dev).contiguous()
+
+    return (t(table), t(exp), t(ints_to_limbs(base, k)), t(ctx.n), t(ctx.n_inv), t(ctx.r2),
+            t(ctx.one_mont))
+
+
+def comb_calls(name, args, exp_bits):
+    """(kernel call, plain call) of one comb kernel on `args`."""
+    from fsdkr_tpu_torch.ops import montgomery, montgomery_kernels as mk
+
+    table, exp, base, n, ni, r2, one = args
+    if name == "cios_comb":
+        return (lambda: mk.comb(table, exp, n, ni, one, exp_bits),
+                lambda: montgomery._comb_accumulate(table, exp, n, ni, one,
+                                                    exp_bits=exp_bits))
+    w_cnt = exp_bits // 4
+    return (lambda: mk.comb_ladder(base, n, ni, r2, w_cnt),
+            lambda: montgomery._comb_ladder(base, n, ni, r2, w_cnt))
+
+
+COMB = ("cios_comb", "cios_comb_ladder")
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +356,21 @@ def phase_kernels(dev, rng):
                         fail(f"{name} K={k} rows={rows} worst={worst}: differs from plain")
             log(f"kernels == plain, bit-identical: {'+'.join(CIOS)} K={k} rows={rows} "
                 f"exp_bits={exp_bits}, random and worst-case rows")
+    # the comb's kernels: one group (the 4 warps of a block share it), 13
+    # rows a group (blocks straddle groups), and the ring-Pedersen column's
+    # 16 groups x 256 rows
+    for k in (16, 128, 256, 512):
+        for groups, per_group in ((1, 8), (3, 13), (16, 256)):
+            for worst in (False, True):
+                args = comb_inputs(rng, dev, k, groups, per_group, exp_bits, worst)
+                for name in COMB:
+                    kernel, plain = comb_calls(name, args, exp_bits)
+                    if _max_err(kernel(), plain()):
+                        fail(f"{name} K={k} groups={groups} rows={per_group} "
+                             f"worst={worst}: differs from plain")
+            log(f"kernels == plain, bit-identical: {'+'.join(COMB)} K={k} groups={groups} "
+                f"rows per group={per_group} exp_bits={exp_bits}, random and worst-case "
+                f"groups")
 
 
 def phase_routes(dev, rng):
@@ -326,6 +423,57 @@ def phase_routes(dev, rng):
         fail("device_powm at 8192 bits did not launch the CIOS modexp kernel")
     log(f"device_powm == pow, device_modmul == a*b % n: {rows} rows of 8192-bit "
         f"moduli, 256-bit exponents, through the CIOS kernels")
+    grouped_routes(dev, rng)
+
+
+def grouped_routes(dev, rng):
+    """device_powm_grouped against pow on columns of comb groups (rows
+    sharing a base and modulus) and loners, with the comb's ladder on the
+    host and on the card: each way must launch the comb, the second the
+    ladder kernel too. The groups are small (pow checks every row), so
+    the JAX package's rule routes them: groups of 4 rows, any count."""
+    from fsdkr_tpu_torch.backend import powm
+    from fsdkr_tpu_torch.ops import montgomery, montgomery_kernels
+
+    min_rows = 4
+
+    # (modulus bits, groups, rows per group, exponent bits)
+    for bits, groups, per_group, exp_bits in ((2048, 4, 16, 2048), (4096, 2, 12, 2048),
+                                              (8192, 2, 8, 256)):
+        bases, exps, moduli = [], [], []
+        for g in range(groups + 2):  # two loners at the end
+            n = rng.getrandbits(bits) | (1 << (bits - 1)) | 1
+            b = rng.randrange(n)
+            size = per_group if g < groups else min_rows - 1
+            bases += [b] * size
+            moduli += [n] * size
+            exps += [rng.getrandbits(exp_bits) for _ in range(size)]
+        exps[0] = 0
+        exps[1] = (1 << exp_bits) - 1
+        want = [pow(b, e, n) for b, e, n in zip(bases, exps, moduli)]
+        saved = (montgomery._HOST_LADDER_MAX_GROUPS, powm._SHARED_MIN_ROWS,
+                 powm._SHARED_MIN_GROUPS)
+        for ladder, limit in (("host", 1 << 30), ("card", -1)):
+            montgomery._HOST_LADDER_MAX_GROUPS = limit
+            powm._SHARED_MIN_ROWS, powm._SHARED_MIN_GROUPS = min_rows, 1
+            before = montgomery_kernels.launch_counts()
+            try:
+                got = powm.device_powm_grouped(bases, exps, moduli, dev)
+            finally:
+                (montgomery._HOST_LADDER_MAX_GROUPS, powm._SHARED_MIN_ROWS,
+                 powm._SHARED_MIN_GROUPS) = saved
+            after = montgomery_kernels.launch_counts()
+            if got != want:
+                fail(f"device_powm_grouped at {bits} bits ({ladder} ladder) disagrees "
+                     f"with pow")
+            launched = {k: after[k] - before[k] for k in after}
+            if not launched["cios_comb"] or not launched["cios_modexp"] or (
+                    launched["cios_comb_ladder"] != (ladder == "card")):
+                fail(f"device_powm_grouped at {bits} bits ({ladder} ladder) launched "
+                     f"{launched}")
+        log(f"device_powm_grouped == pow: {groups} groups x {per_group} rows and "
+            f"{2 * (min_rows - 1)} loners of {bits}-bit moduli, {exp_bits}-bit "
+            f"exponents, the comb's ladder on the host and on the card")
 
 
 def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
@@ -334,7 +482,7 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     from fsdkr_tpu_torch.core.secp256k1 import GENERATOR
     from fsdkr_tpu_torch.errors import PDLwSlackProofError
     from fsdkr_tpu_torch.backend.powm import powm_cache_stats
-    from fsdkr_tpu_torch.ops import montgomery_kernels, rns_kernels
+    from fsdkr_tpu_torch.ops import montgomery, montgomery_kernels, rns_kernels
     from fsdkr_tpu_torch.protocol import RefreshMessage, simulate_keygen
 
     config = ProtocolConfig(
@@ -358,6 +506,7 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     msgs = [m for m, _ in out]
     spare = (copy.deepcopy(keys[0]), copy.deepcopy(out[0][1]))
     spare2 = (copy.deepcopy(keys[1]), copy.deepcopy(out[1][1]))
+    after_distribute = montgomery_kernels.launch_counts()
 
     per_collect, cache = [], []
     t0 = time.perf_counter()
@@ -376,15 +525,27 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
         "cios_mont_mul": dict(montgomery_kernels.mont_mul.shapes),
         "cios_modmul": dict(montgomery_kernels.modmul.shapes),
         "cios_modexp": dict(montgomery_kernels.modexp.shapes),
+        "cios_comb": dict(montgomery_kernels.comb.shapes),
+        "cios_comb_ladder": dict(montgomery_kernels.comb_ladder.shapes),
     }
     log(f"main: {n} collects: {times['collect_total']:.3f} s "
         f"(each {min(per_collect):.3f}..{max(per_collect):.3f} s)")
     log(f"main: launches over distribute + collect: "
         f"{counts} (RNS kernels: {rns_kernels.launch_counts()})")
+    per_collect_launches = {k: (counts[k] - after_distribute[k]) / n for k in counts}
+    per_collect_launches.update(
+        {k: v / n for k, v in rns_kernels.launch_counts().items()})  # 0 when routed
+    log("main: launches in distribute: " + json.dumps(after_distribute)
+        + "; per collect: " + json.dumps(per_collect_launches))
     for name, by_shape in shapes.items():
         log(f"main: {name} launches by shape: "
             + ", ".join(f"{shape}: {c}" for shape, c in sorted(by_shape.items())))
-    if not all(v > 0 for v in counts.values()):
+    # the ladder runs on the card only for launches of more groups than
+    # the host ladder takes
+    ladder_due = any(g > montgomery._HOST_LADDER_MAX_GROUPS
+                     for _, g, _, _ in shapes["cios_comb"])
+    need = [name for name in counts if name != "cios_comb_ladder" or ladder_due]
+    if not all(counts[name] > 0 for name in need):
         fail(f"a kernel of the main path never launched: {counts}")
     log(f"main: precompute cache (hits, misses) per collect: {cache}; "
         f"{powm_cache_stats()}")
@@ -466,8 +627,9 @@ def rns_path(pre, config, n, party=2):
     for name, by_shape in shapes.items():
         log(f"rns path: {name} launches by shape: "
             + ", ".join(f"{shape}: {c}" for shape, c in sorted(by_shape.items())))
-    if not all(v > 0 for v in counts.values()):
-        fail(f"a kernel of the RNS path never launched: {counts}")
+    if counts != {"rns_mont_mul": 14, "rns_modexp": 15}:
+        fail(f"the RNS path launched {counts}, expected kernel 1 14 times and "
+             f"kernel 2 15 times")
     RefreshMessage.collect(msgs, routed[0], routed[1], config)
     if to_fields(pre[party]) != to_fields(routed[0]):
         fail("the RNS route's collect adopted another key than the CIOS engine's")
@@ -487,12 +649,16 @@ _SPANS = (
     ("fsdkr_tpu_torch.protocol.refresh", "share_recovery_check", None),
     ("fsdkr_tpu_torch.backend.cuda_verifier", "verify_correct_key", "CudaBatchVerifier"),
     ("fsdkr_tpu_torch.protocol.refresh", "adopt_session", None),
-    ("fsdkr_tpu_torch.backend.cuda_verifier", "device_powm", None),
+    ("fsdkr_tpu_torch.backend.cuda_verifier", "device_powm_grouped", None),
     ("fsdkr_tpu_torch.backend.cuda_verifier", "device_modmul", None),
+    # the grouped column's two routes: the comb and the generic engine
+    ("fsdkr_tpu_torch.backend.powm", "device_powm_shared", None),
+    ("fsdkr_tpu_torch.backend.powm", "device_powm", None),
     # the CIOS route inside them (its results end in a host copy) and the
     # batch inverse's product tree
     ("fsdkr_tpu_torch.ops.montgomery", "modexp", "BatchModExp"),
     ("fsdkr_tpu_torch.ops.montgomery", "modmul", "BatchModExp"),
+    ("fsdkr_tpu_torch.ops.montgomery", "shared_base_modexp", None),
     ("fsdkr_tpu_torch.ops.montgomery", "batch_mod_inv_grouped", None),
 )
 # the steps inside device_powm / device_modmul (ops/rns.py's globals); each
@@ -503,7 +669,7 @@ _SPANS = (
 _RNS_SPANS = ("_row_consts", "ints_to_limbs", "to_device", "_limbs_to_residues",
               "_crt_exit_kernel", "limbs_to_ints")
 # the same for the CIOS engine's steps (ops/montgomery.py's globals)
-_CIOS_SPANS = ("ints_to_limbs", "to_device", "_download")
+_CIOS_SPANS = ("ints_to_limbs", "to_device", "_download", "_comb_table")
 
 
 def span_collect(msgs, spare, config, label):
@@ -567,7 +733,7 @@ def span_collect(msgs, spare, config, label):
     patched.append((rns, "rns_kernels", rns_kernels))
     rns.rns_kernels = proxy
     proxy = types.SimpleNamespace(**vars(montgomery_kernels))
-    for attr in ("mont_mul", "modmul", "modexp"):
+    for attr in ("mont_mul", "modmul", "modexp", "comb", "comb_ladder"):
         setattr(proxy, attr, wrap(f"cios_{attr}", getattr(montgomery_kernels, attr),
                                   sync=True))
     patched.append((montgomery, "montgomery_kernels", montgomery_kernels))
@@ -659,6 +825,10 @@ KERNELS = {
                     "fsdkr_tpu/ops/montgomery.py:606", 200),
     "cios_modexp": ("cios_modexp_kernel", "fsdkr_tpu_torch/csrc/cios_kernels.cu",
                     "fsdkr_tpu/ops/montgomery.py:137", 10),
+    "cios_comb": ("cios_comb_kernel", "fsdkr_tpu_torch/csrc/cios_kernels.cu",
+                  "fsdkr_tpu/ops/montgomery.py:372", 10),
+    "cios_comb_ladder": ("cios_comb_ladder_kernel", "fsdkr_tpu_torch/csrc/cios_kernels.cu",
+                         "fsdkr_tpu/ops/montgomery.py:323", 10),
 }
 _SYMBOL = {name: spec[0] for name, spec in KERNELS.items()}
 
@@ -680,8 +850,7 @@ def _device_ms(fn, reps, name):
     for attempt in range(3):
         schedule = torch.profiler.schedule(wait=0, warmup=1, active=1)
         recorded = []
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule,
+        with profile(activities=[ProfilerActivity.CUDA], schedule=schedule,
                      on_trace_ready=lambda p: recorded.append(p.key_averages())) as prof:
             fn()
             torch.cuda.synchronize()
@@ -721,18 +890,32 @@ def _max_err(got, want):
 
 
 def _shape(name, shape):
-    """A shapes-map key as (k, rows, exp_bits); exp_bits None for the
-    products."""
-    return (*shape, None) if len(shape) == 2 else shape
+    """A shapes-map key as (k, rows, exp_bits, groups): exp_bits None for
+    the products, groups None but for the comb (whose rows are groups x
+    rows per group); the ladder's rows are its groups."""
+    if name == "cios_comb":
+        k, g, m, exp_bits = shape
+        return k, g * m, exp_bits, g
+    return ((*shape, None) if len(shape) == 2 else shape) + (None,)
 
 
-def _shape_str(name, k, rows, exp_bits):
+def _shape_str(name, k, rows, exp_bits, groups=None):
     kk = "k" if name.startswith("rns") else "K"
-    return f"{kk}={k} rows={rows}" + (f" exp_bits={exp_bits}" if exp_bits else "")
+    if name == "cios_comb":
+        rows_s = f"groups={groups} rows={rows // groups}"
+    else:
+        rows_s = f"groups={rows}" if name == "cios_comb_ladder" else f"rows={rows}"
+    return f"{kk}={k} {rows_s}" + (f" exp_bits={exp_bits}" if exp_bits else "")
 
 
-def kernel_calls(name, dev, rng, k, rows, exp_bits, worst):
-    """(kernel call, plain call) on fresh inputs at one shape."""
+def kernel_calls(name, dev, rng, k, rows, exp_bits, worst, groups=None):
+    """(kernel call, plain call) on fresh inputs at one shape; `worst`
+    rows (the comb's kernels: `worst` groups) worst-case."""
+    if name in COMB:
+        if name == "cios_comb_ladder":
+            groups = rows
+        args = comb_inputs(rng, dev, k, groups, rows // groups, exp_bits, worst)
+        return comb_calls(name, args, exp_bits)
     if name.startswith("cios"):
         args = cios_inputs(rng, dev, k, rows, exp_bits or 64, worst)
         return cios_calls(name, args, exp_bits)
@@ -762,39 +945,15 @@ def _timed_ms(fn):
     return out, start.elapsed_time(end)
 
 
-def check_main_shapes(dev, rng, shapes):
-    """Each kernel against its plain version at every shape the main path
-    launched it with, in one call whose first half of rows is random and
-    second half worst-case; returns the largest absolute difference of
-    each kernel (0 when bit-identical) and the plain version's time, by
-    (name, shape)."""
-    errs = {name: 0 for name in KERNELS}
-    plain_ms = {}
-    t0 = time.perf_counter()
-    done = []
-    for name, by_shape in shapes.items():
-        for shape in sorted(by_shape):
-            k, rows, exp_bits = _shape(name, shape)
-            kernel, plain = kernel_calls(name, dev, rng, k, rows, exp_bits, rows // 2)
-            want, plain_ms[name, shape] = _timed_ms(plain)
-            err = _max_err(kernel(), want)
-            if err:
-                fail(f"{name} disagrees with its plain version at "
-                     f"{_shape_str(name, k, rows, exp_bits)}")
-            errs[name] = max(errs[name], err)
-            done.append(f"{name} {_shape_str(name, k, rows, exp_bits)}")
-    log(f"time: every kernel == plain, bit-identical, at all {len(done)} main-path "
-        f"shapes, rows half random, half worst-case ({time.perf_counter() - t0:.1f} s): "
-        + ", ".join(done))
-    return errs, plain_ms
-
-
-def bound_ms(name, k, rows, exp_bits):
+def bound_ms(name, k, rows, exp_bits, groups=None):
     """The least time the H100 could take for one launch: (ms, "bytes" or
     "operations"). Bytes: each input read once, each output written once
     (int32 tensors), the shared constants once. Operations: the
     multiply-adds of 16x16 bits, each four 8-bit ones: the RNS base
-    extensions' 2k(k+1) per product per row, the CIOS product's 2K^2."""
+    extensions' 2k(k+1) per product per row, the CIOS product's 2K^2.
+    The comb: W + 1 products a row (W = exp_bits / 4 windows) and the
+    16-entry table of every window and group read once; its ladder: 1 +
+    4(W - 1) products a group, the W powers written."""
     if name.startswith("rns"):
         C = 2 * k + 1
         macs_per_product = 2 * k * (k + 1)
@@ -813,6 +972,17 @@ def bound_ms(name, k, rows, exp_bits):
             products, limbs = rows, 4 * k + 2
         elif name == "cios_modmul":
             products, limbs = 2 * rows, 5 * k + 2
+        elif name == "cios_comb":
+            w_cnt = exp_bits // 4
+            products = rows * (w_cnt + 1)
+            # exponents and results per row; the table, n, one and n_inv's
+            # low limbs per group
+            limbs = exp_bits // 16 + k
+            const_bytes = 4 * groups * (16 * w_cnt * k + 2 * k + 2)
+        elif name == "cios_comb_ladder":
+            w_cnt = exp_bits // 4
+            products = rows * (1 + 4 * (w_cnt - 1))
+            limbs = 3 * k + 2 + w_cnt * k  # base, r2, n, n_inv; the powers
         else:
             products = rows * (16 + 5 * exp_bits // 4)
             limbs = 5 * k + 2 + exp_bits // 16
@@ -828,50 +998,72 @@ def _time_launch(name, fn):
     return _events_ms(fn, reps), _device_ms(fn, reps, name)
 
 
-def time_main_shapes(dev, rng, shapes):
-    """Each kernel's time (CUDA events and device time) and bound at
-    every shape the main path launched it with; returns rows of the
-    per-shape table."""
-    table = []
+def check_and_time_shapes(dev, rng, shapes):
+    """Each kernel at every shape the main path launched it with, on one
+    set of inputs whose first half of rows (the comb's: groups) is random
+    and second half worst-case: the kernel against its plain version
+    (bit-identical), the plain version's time (CUDA events, one call),
+    the kernel's times (CUDA events and device time; no kernel's work
+    depends on its data) and its bound. Returns the largest absolute
+    difference of each kernel (0 when bit-identical), the plain times by
+    (name, shape) and the rows of the per-shape table."""
+    errs = {name: 0 for name in KERNELS}
+    plain_ms, table = {}, []
+    t0 = time.perf_counter()
     for name, by_shape in shapes.items():
         for shape, launches in sorted(by_shape.items()):
-            k, rows, exp_bits = _shape(name, shape)
-            kernel, _ = kernel_calls(name, dev, rng, k, rows, exp_bits, False)
+            t1 = time.perf_counter()
+            k, rows, exp_bits, groups = _shape(name, shape)
+            half = (groups or rows) // 2 if name in COMB else rows // 2
+            kernel, plain = kernel_calls(name, dev, rng, k, rows, exp_bits, half, groups)
+            shape_s = _shape_str(name, k, rows, exp_bits, groups)
+            want, plain_ms[name, shape] = _timed_ms(plain)
+            err = _max_err(kernel(), want)
+            if err:
+                fail(f"{name} disagrees with its plain version at {shape_s}")
+            del want
             ms, dms = _time_launch(name, kernel)
-            bound, by = bound_ms(name, k, rows, exp_bits)
-            log(f"time: per shape {name} {_shape_str(name, k, rows, exp_bits)}: "
-                f"events {ms:.4f} ms, device {dms:.4f} ms, bound {bound:.6f} ms "
-                f"({by}), device {dms / bound:.1f}x bound, {launches} launches")
+            bound, by = bound_ms(name, k, rows, exp_bits, groups)
+            log(f"time: per shape {name} {shape_s}: == plain; events {ms:.4f} ms, "
+                f"device {dms:.4f} ms, bound {bound:.6f} ms ({by}), device "
+                f"{dms / bound:.1f}x bound, plain {plain_ms[name, shape]:.4f} ms, "
+                f"{launches} launches ({time.perf_counter() - t1:.1f} s)")
             table.append({"name": name, "k": k, "rows": rows, "exp_bits": exp_bits,
-                          "launches": launches, "ms": ms, "device_ms": dms,
-                          "bound_ms": bound})
-    return table
+                          "groups": groups, "launches": launches, "ms": ms,
+                          "device_ms": dms, "bound_ms": bound})
+    log(f"time: every kernel == plain, bit-identical, at all {len(table)} main-path "
+        f"shapes, rows (the comb's: groups) half random, half worst-case; checked and "
+        f"timed in {time.perf_counter() - t0:.1f} s")
+    return errs, plain_ms, table
 
 
 def _cost(name, shape, launches):
-    k, rows, exp_bits = _shape(name, shape)
-    return k * k * rows * (exp_bits or 1) * launches
+    k, rows, exp_bits, _ = _shape(name, shape)
+    return k * k * rows * (exp_bits or 1) * max(launches, 1)
 
 
 def phase_time(dev, rng, counts, shapes):
     """`counts` and `shapes` are the main path's launch counts, in total
     and by kernel and shape ((k, rows) or (k, rows, exp_bits) ->
     launches)."""
+    # the ladder at the ring-Pedersen column's 16 groups, launched on the
+    # main path or not
+    shapes["cios_comb_ladder"].setdefault((128, 16, 2048), 0)
     if not all(shapes.values()):
         fail("no main-path launch shapes recorded for a kernel")
-    errs, plain_times = check_main_shapes(dev, rng, shapes)
-    per_shape = time_main_shapes(dev, rng, shapes)
+    errs, plain_times, per_shape = check_and_time_shapes(dev, rng, shapes)
     # the kernels line: each kernel at its costliest shape on the main path
     out = []
     for name, by_shape in shapes.items():
         shape = max(by_shape, key=lambda s: _cost(name, s, by_shape[s]))
-        k, rows, exp_bits = _shape(name, shape)
+        k, rows, exp_bits, groups = _shape(name, shape)
         row = next(r for r in per_shape if r["name"] == name and
-                   (r["k"], r["rows"], r["exp_bits"]) == (k, rows, exp_bits))
+                   (r["k"], r["rows"], r["exp_bits"], r["groups"])
+                   == (k, rows, exp_bits, groups))
         ms, dms, bound = row["ms"], row["device_ms"], row["bound_ms"]
         plain_ms = plain_times[name, shape]
-        _, by = bound_ms(name, k, rows, exp_bits)
-        shape_s = _shape_str(name, k, rows, exp_bits)
+        _, by = bound_ms(name, k, rows, exp_bits, groups)
+        shape_s = _shape_str(name, k, rows, exp_bits, groups)
         log(f"time: {name} at {shape_s}: events {ms:.4f} ms, device {dms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({by})")
         _, source, replaces, _ = KERNELS[name]
@@ -889,8 +1081,9 @@ def phase_time(dev, rng, counts, shapes):
             "bound_by": by,
             "library_ms": None,
             "shape": shape_s,
-            "per_shape": [{key: row[key] for key in ("k", "rows", "exp_bits", "launches",
-                                                     "ms", "device_ms", "bound_ms")}
+            "per_shape": [{key: row[key] for key in ("k", "rows", "exp_bits", "groups",
+                                                     "launches", "ms", "device_ms",
+                                                     "bound_ms")}
                           for row in per_shape if row["name"] == name],
         })
     return out

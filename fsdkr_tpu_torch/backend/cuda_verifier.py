@@ -41,7 +41,7 @@ from ..proofs.pdl_slack import PDLwSlackProof
 from ..proofs.ring_pedersen import RingPedersenProof
 from ..ops.limbs import limbs_for_bits
 from .batch_verifier import BatchVerifier, HostBatchVerifier
-from .powm import _cached_ctx, device_modmul, device_powm, powm_columns
+from .powm import _cached_ctx, device_modmul, device_powm_grouped, powm_columns
 
 
 def batch_inv(values, moduli, device="cuda") -> List:
@@ -80,7 +80,10 @@ class CudaBatchVerifier(BatchVerifier):
         self._host = HostBatchVerifier(config.hash_alg)
 
     def _modexp(self, bases, exps, moduli):
-        return device_powm(bases, exps, moduli, self.device)
+        """One batched multi-modulus modexp: rows sharing a (base,
+        modulus) pair ride the fixed-base comb, the rest the generic
+        engine (backend.powm.device_powm_grouped)."""
+        return device_powm_grouped(bases, exps, moduli, self.device)
 
     def _modmul(self, a, b, moduli):
         return device_modmul(a, b, moduli, self.device)

@@ -5,6 +5,12 @@ expressed against a `batch_powm(bases, exps, moduli) -> list[int]`
 callable:
 
 - host_powm: CPython pow loop (oracle).
+- device_powm_grouped: the device's batch powm (`get_batch_powm`, the
+  verifier's `_modexp`): rows that share a (base, modulus) pair in
+  groups of at least `_SHARED_MIN_ROWS`, where a launch has at least
+  `_SHARED_MIN_GROUPS` of them, take the fixed-base comb
+  (device_powm_shared, ops.montgomery.shared_base_modexp), the rest
+  device_powm.
 - device_powm: bases^exps mod N per row on the device, through the CIOS
   engine (ops.montgomery, `fsdkr_cios_modexp`) at every width. An H100
   sweep put the CIOS engine ahead of the RNS route at every launch size,
@@ -13,8 +19,9 @@ callable:
 - device_modmul: a*b mod N per row, the same way (`fsdkr_cios_modmul`,
   or kernel 1 in two launches when forced).
 
-Batches are padded to powers of two (>= 8 rows; padding rows use
-modulus 3) so launch shapes repeat across calls. The CIOS engine's
+Batches are padded to powers of two (>= 8 rows, >= 2 comb groups;
+padding rows and groups use modulus 3) so launch shapes repeat across
+calls. The CIOS engine's
 Montgomery contexts persist in the precompute cache (utils.lru), keyed
 by the modulus vector.
 """
@@ -26,7 +33,7 @@ from functools import partial
 from typing import Callable, List, Optional, Sequence
 
 from ..config import ProtocolConfig
-from ..ops.limbs import bucket_exp_bits, limbs_for_bits
+from ..ops.limbs import WINDOW_BITS, bucket_exp_bits, limbs_for_bits
 
 BatchPowm = Callable[[Sequence[int], Sequence[int], Sequence[int]], List[int]]
 
@@ -64,6 +71,25 @@ def forced_rns_route():
         yield
     finally:
         _RNS_MIN_ROWS = saved
+
+
+def _rns_forced() -> bool:
+    """Inside `forced_rns_route()`."""
+    return _RNS_MIN_ROWS == 0
+
+
+# A launch's (base, modulus) groups of at least _SHARED_MIN_ROWS rows take
+# the fixed-base comb when there are at least _SHARED_MIN_GROUPS of them;
+# every other row takes the generic engine. The JAX package's 4 rows (and
+# no group count) were picked for the TPU. In the H100 comb sweep
+# (PERF.md section 6, "The comb sweep"; scripts/cuda_route_sweep.py
+# --cells comb, the cache cold in every call) the comb had the shorter
+# wall in every cell of 256 rows a group and 16 groups or more, and was
+# behind at 1 group of 256 rows and at 16 groups of up to 64 rows: its
+# ladder is a chain of 4W dependent products on G warps, about as long
+# as a generic row's, so it pays only over many rows.
+_SHARED_MIN_ROWS = 256
+_SHARED_MIN_GROUPS = 16
 
 
 def _width_class(width: int) -> Optional[int]:
@@ -144,6 +170,90 @@ def device_powm(bases, exps, moduli, device="cuda") -> List[int]:
     return _cached_ctx(moduli, limbs_for_bits(width), device).modexp(bases, exps)[:b]
 
 
+def device_powm_shared(bases, exps_per_group, moduli, device="cuda") -> List[List[int]]:
+    """bases[g]^exps_per_group[g][m] mod moduli[g] through the CIOS comb on
+    `device` (counterpart of the JAX package's tpu_powm_shared; the RNS
+    comb is not ported). Group count and rows per group are padded to
+    powers of two (at least 2 groups and 8 rows: the 4 warps of a comb
+    block then share one group; dummy groups use modulus 3, dummy rows
+    exponent 0). Launches tile so that the 16 * W * G-row window table
+    stays within _MAX_ROWS table rows, run one after another."""
+    if not bases:
+        return []
+    w_cnt = max(1, bucket_exp_bits(e for grp in exps_per_group for e in grp) // WINDOW_BITS)
+    m_max = max((len(e) for e in exps_per_group), default=1) or 1
+    m_pad = _pad_pow2(m_max)
+    budget = _MAX_ROWS
+    # power-of-two chunks: a full chunk's padded size is the chunk itself
+    row_chunk = max(8, 1 << (budget.bit_length() - 1))
+    if m_pad > row_chunk:  # huge groups: tile the row axis
+        parts = [
+            device_powm_shared(bases, [e[lo : lo + row_chunk] for e in exps_per_group],
+                               moduli, device)
+            for lo in range(0, m_max, row_chunk)
+        ]
+        return [[v for part in parts for v in part[i]] for i in range(len(bases))]
+    g_cap = max(1, 1 << max(0, min(budget // w_cnt, budget // m_pad).bit_length() - 1))
+    if len(bases) > g_cap:  # tile the group axis
+        return [
+            grp
+            for lo in range(0, len(bases), g_cap)
+            for grp in device_powm_shared(bases[lo : lo + g_cap],
+                                          exps_per_group[lo : lo + g_cap],
+                                          moduli[lo : lo + g_cap], device)
+        ]
+    from ..ops.montgomery import shared_base_modexp
+
+    g = len(bases)
+    g_pad = max(2, 1 << (g - 1).bit_length())
+    bases = list(bases) + [1] * (g_pad - g)
+    moduli = list(moduli) + [3] * (g_pad - g)
+    exps = [list(e) + [0] * (m_pad - len(e)) for e in exps_per_group]
+    exps += [[0] * m_pad] * (g_pad - g)
+    k = limbs_for_bits(max(m.bit_length() for m in moduli))
+    out = shared_base_modexp(bases, exps, moduli, k, ctx=_cached_ctx(moduli, k, device))
+    return [out[i][: len(exps_per_group[i])] for i in range(g)]
+
+
+def device_powm_grouped(bases, exps, moduli, device="cuda") -> List[int]:
+    """Like device_powm, but rows sharing a (base, modulus) pair in groups
+    of at least _SHARED_MIN_ROWS take the fixed-base comb where there are
+    at least _SHARED_MIN_GROUPS such groups, and the rest device_powm
+    (counterpart of the JAX package's tpu_powm_grouped).
+    That is the shape of the collect columns: ring-Pedersen rows share
+    (T, N) per message, PDL and range rows (h1 | h2, N~) per receiver.
+    Inside `forced_rns_route()` every row takes device_powm (the RNS
+    comb is not ported)."""
+    if _rns_forced():
+        return device_powm(bases, exps, moduli, device)
+    groups: dict = {}
+    for i, (b, m) in enumerate(zip(bases, moduli)):
+        groups.setdefault((b, m), []).append(i)
+    shared = [(key, rows) for key, rows in groups.items() if len(rows) >= _SHARED_MIN_ROWS]
+    if len(shared) < _SHARED_MIN_GROUPS:
+        shared = []
+    in_comb = {i for _, rows in shared for i in rows}
+    loners = [i for i in range(len(bases)) if i not in in_comb]
+
+    out: List = [None] * len(bases)
+    if shared:
+        res = device_powm_shared(
+            [key[0] for key, _ in shared],
+            [[exps[i] for i in rows] for _, rows in shared],
+            [key[1] for key, _ in shared],
+            device,
+        )
+        for (_, rows), vals in zip(shared, res):
+            for i, v in zip(rows, vals):
+                out[i] = v
+    if loners:
+        vals = device_powm([bases[i] for i in loners], [exps[i] for i in loners],
+                           [moduli[i] for i in loners], device)
+        for i, v in zip(loners, vals):
+            out[i] = v
+    return out
+
+
 def device_modmul(a, b, moduli, device="cuda") -> List[int]:
     """Row-wise a*b mod moduli on `device` (counterpart of the JAX
     package's tpu_modmul)."""
@@ -168,7 +278,7 @@ def device_modmul(a, b, moduli, device="cuda") -> List[int]:
 def get_batch_powm(config: ProtocolConfig) -> BatchPowm:
     if config.backend == "host":
         return host_powm
-    return partial(device_powm, device=config.torch_device())
+    return partial(device_powm_grouped, device=config.torch_device())
 
 
 def powm_columns(powm: BatchPowm, *columns):

@@ -9,6 +9,10 @@
 //                          the inverse tree, _inv_tree_up/_down_kernel :792)
 //   fsdkr_cios_modmul   -> fsdkr_tpu/ops/montgomery.py:606 _modmul_kernel
 //   fsdkr_cios_modexp   -> fsdkr_tpu/ops/montgomery.py:137 _modexp_kernel
+//   fsdkr_cios_comb     -> fsdkr_tpu/ops/montgomery.py:372-446, the fixed-base
+//                          comb's accumulation and exit (_shared_modexp_kernel)
+//   fsdkr_cios_comb_ladder -> fsdkr_tpu/ops/montgomery.py:323-336, the comb's
+//                          power ladder
 //
 // Numbers cross the boundary as int32 tensors of canonical 16-bit limbs,
 // (rows, K), little-endian; K is even, so R = 2^(16K) = 2^(32W) falls on a
@@ -62,6 +66,24 @@
 // 16 table entries; the conditional subtraction is a masked select, with
 // no branch or address on limb values; every warp zeroes its shared
 // memory before it exits.
+//
+// The fixed-base comb (rows of a group share a public base and modulus:
+// ring-Pedersen's (T, N) per message, PDL's and range's (h1 | h2, N~) per
+// receiver) splits the modexp in three. fsdkr_cios_comb_ladder computes
+// each group's powers base_m^(16^w), one warp per group: the entry by r2,
+// then W times (store the power, four squarings): a chain of 4W dependent
+// products on G warps, so latency-bound. The 16-entry table of every
+// window is built between the two by four fsdkr_cios_mont_mul launches
+// (ops/montgomery.py _comb_table). fsdkr_cios_comb then does per row, one
+// warp per row as above, W window steps of a masked sum over the group's
+// 16 entries of that window (read from global memory: 16 * K * 4 bytes a
+// window, shared by the rows of a group through L1/L2) and one product,
+// then the exit by a product with 1: W + 1 products a row where
+// fsdkr_cios_modexp does 5W + 17. Rows of a group are contiguous, so the
+// warps of a block read the same entries. The exponents may be secret
+// (the provers' h1^x mod N~ columns): the loop length is the bucketed
+// exp_bits, the digit only sets the select's masks, and no branch or
+// address depends on it. Bound: operations, as for the other kernels.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -333,6 +355,81 @@ cios_modexp_kernel(const int32_t* __restrict__ base, const int32_t* __restrict__
   for (int i = lane; i < 16 * P * 32; i += 32) table[i] = 0u;
 }
 
+// ---------------------------------------------------------------------------
+// fsdkr_cios_comb: the comb's accumulation and exit, one warp per row
+
+template <int P>
+__global__ void __launch_bounds__(kWarps * 32)
+cios_comb_kernel(const int32_t* __restrict__ table, const int32_t* __restrict__ exp,
+                 int exp_limbs, int windows, const int32_t* __restrict__ n,
+                 const int32_t* __restrict__ n_inv, const int32_t* __restrict__ one_mont,
+                 int groups, int per_group, int K, int32_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= groups * per_group) return;  // the whole warp
+  const int g = row / per_group;
+  const int W = K / 2;
+  const size_t goff = (size_t)g * K;
+  // table layout (16, windows, groups, K): entry e of window w for group g
+  const size_t entry_stride = (size_t)windows * groups * K;
+
+  uint32_t nv[P], acc[P], sel[P], v[P];
+  load_words<P>(nv, n + goff, W, lane);
+  const uint32_t np = nprime_of(n_inv, K, g);
+  load_words<P>(acc, one_mont + goff, W, lane);
+  const int32_t* erow = exp + (size_t)row * exp_limbs;
+#pragma unroll 1
+  for (int w = 0; w < windows; ++w) {
+    const int shift = 4 * w;  // least significant window first
+    const uint32_t d = ((uint32_t)erow[shift >> 4] >> (shift & 15)) & 15u;
+    const int32_t* ent = table + ((size_t)w * groups + g) * K;
+#pragma unroll
+    for (int s = 0; s < P; ++s) sel[s] = 0u;
+    // the window's entry: a masked sum over all 16 entries
+#pragma unroll 4
+    for (int e = 0; e < 16; ++e) {
+      const uint32_t mask = 0u - (uint32_t)(d == (uint32_t)e);
+      load_words<P>(v, ent + e * entry_stride, W, lane);
+#pragma unroll
+      for (int s = 0; s < P; ++s) sel[s] |= v[s] & mask;
+    }
+    mont_mul<P>(acc, acc, sel, nv, np, W, lane);
+  }
+  // leave the Montgomery domain: a product with 1
+#pragma unroll
+  for (int s = 0; s < P; ++s) v[s] = (lane == 0 && s == 0) ? 1u : 0u;
+  mont_mul<P>(acc, acc, v, nv, np, W, lane);
+  store_words<P>(acc, out + (size_t)row * K, W, lane);
+}
+
+// ---------------------------------------------------------------------------
+// fsdkr_cios_comb_ladder: powers[w, g] = base_m^(16^w), one warp per group
+
+template <int P>
+__global__ void __launch_bounds__(kWarps * 32)
+cios_comb_ladder_kernel(const int32_t* __restrict__ base, const int32_t* __restrict__ n,
+                        const int32_t* __restrict__ n_inv, const int32_t* __restrict__ r2,
+                        int groups, int K, int windows, int32_t* __restrict__ powers) {
+  const int lane = threadIdx.x & 31;
+  const int g = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (g >= groups) return;
+  const int W = K / 2;
+  const size_t off = (size_t)g * K;
+  uint32_t nv[P], p[P], tmp[P];
+  load_words<P>(nv, n + off, W, lane);
+  const uint32_t np = nprime_of(n_inv, K, g);
+  load_words<P>(p, base + off, W, lane);
+  load_words<P>(tmp, r2 + off, W, lane);
+  mont_mul<P>(p, p, tmp, nv, np, W, lane);  // into the Montgomery domain
+#pragma unroll 1
+  for (int w = 0; w < windows; ++w) {
+    store_words<P>(p, powers + ((size_t)w * groups + g) * K, W, lane);
+    if (w + 1 == windows) break;  // no square after the last power
+#pragma unroll 1
+    for (int sq = 0; sq < 4; ++sq) mont_mul<P>(p, p, p, nv, np, W, lane);
+  }
+}
+
 // P: the words per lane, a power of two with 32P >= K/2
 int words_per_lane(int K) {
   const int W = K / 2;
@@ -375,6 +472,27 @@ int launch_modexp(const void* base, const void* exp, int exp_limbs, int exp_bits
       (const int32_t*)base, (const int32_t*)exp, exp_limbs, exp_bits, (const int32_t*)n,
       (const int32_t*)n_inv, (const int32_t*)r2, (const int32_t*)one_mont, rows, K,
       (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+template <int P>
+int launch_comb(const void* table, const void* exp, int exp_limbs, int windows,
+                const void* n, const void* n_inv, const void* one_mont, int groups,
+                int per_group, int K, void* out, cudaStream_t stream) {
+  const int rows = groups * per_group;
+  cios_comb_kernel<P><<<(rows + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(
+      (const int32_t*)table, (const int32_t*)exp, exp_limbs, windows, (const int32_t*)n,
+      (const int32_t*)n_inv, (const int32_t*)one_mont, groups, per_group, K,
+      (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+template <int P>
+int launch_comb_ladder(const void* base, const void* n, const void* n_inv, const void* r2,
+                       int groups, int K, int windows, void* powers, cudaStream_t stream) {
+  cios_comb_ladder_kernel<P><<<(groups + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(
+      (const int32_t*)base, (const int32_t*)n, (const int32_t*)n_inv, (const int32_t*)r2,
+      groups, K, windows, (int32_t*)powers);
   return (int)cudaGetLastError();
 }
 
@@ -423,6 +541,33 @@ extern "C" int fsdkr_cios_modexp(const void* base, const void* exp, int exp_limb
   const cudaStream_t s = (cudaStream_t)stream;
 #define CALL(P) launch_modexp<P>(base, exp, exp_limbs, exp_bits, n, n_inv, r2, one_mont, \
                                  rows, K, out, s)
+  FSDKR_CIOS_DISPATCH(K, CALL)
+#undef CALL
+}
+
+extern "C" int fsdkr_cios_comb(const void* table, const void* exp, int exp_limbs,
+                               int exp_bits, const void* n, const void* n_inv,
+                               const void* one_mont, int groups, int per_group, int K,
+                               void* out, void* stream) {
+  if (groups < 0 || per_group < 0 || (long long)groups * per_group > 0x7FFFFFFF ||
+      bad_shape(groups * per_group, K) || exp_bits <= 0 || exp_bits % 4 ||
+      exp_limbs * 16 < exp_bits)
+    return (int)cudaErrorInvalidValue;
+  if (groups * per_group == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define CALL(P) launch_comb<P>(table, exp, exp_limbs, exp_bits / 4, n, n_inv, one_mont, \
+                               groups, per_group, K, out, s)
+  FSDKR_CIOS_DISPATCH(K, CALL)
+#undef CALL
+}
+
+extern "C" int fsdkr_cios_comb_ladder(const void* base, const void* n, const void* n_inv,
+                                      const void* r2, int groups, int K, int windows,
+                                      void* powers, void* stream) {
+  if (bad_shape(groups, K) || windows <= 0) return (int)cudaErrorInvalidValue;
+  if (groups == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define CALL(P) launch_comb_ladder<P>(base, n, n_inv, r2, groups, K, windows, powers, s)
   FSDKR_CIOS_DISPATCH(K, CALL)
 #undef CALL
 }

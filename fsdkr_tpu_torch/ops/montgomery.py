@@ -1,10 +1,11 @@
 """Batched multi-modulus CIOS Montgomery arithmetic (the port of the JAX
-package's `ops/montgomery.py`, cut to the generic engine, the modmul and
-the batched inverse).
+package's `ops/montgomery.py`, cut to the generic engine, the fixed-base
+comb, the modmul and the batched inverse).
 
 Each batch row carries its own modulus. Numbers are base-2^16 limbs,
 little-endian along the last axis, R = 2^(16 K). The engine's entry
-points (`BatchModExp.modexp` / `.modmul`, `batch_mod_inv_grouped`) run
+points (`BatchModExp.modexp` / `.modmul`, `shared_base_modexp`,
+`batch_mod_inv_grouped`) run
 the hand-written Hopper kernels of `ops.montgomery_kernels` on a CUDA
 device; on the CPU those wrappers run the plain versions of this module:
 
@@ -18,8 +19,10 @@ device; on the CPU those wrappers run the plain versions of this module:
   conditional subtraction: bit-identical to the K-step loop for any x, y
   < R (held against it in tests/test_torch_montgomery.py). Each of the
   three products is one batched float64 product of 8-limb blocks.
-- `_modexp_kernel`, `_modmul_kernel`, `_modmul_exit_kernel` and the
-  inverse tree follow the JAX package step for step.
+- `_modexp_kernel`, `_shared_modexp_kernel` (the comb: `_comb_ladder`,
+  `_comb_table`, `_comb_accumulate`), `_modmul_kernel`,
+  `_modmul_exit_kernel` and the inverse tree follow the JAX package step
+  for step.
 
 Limbs are int64 in the plain versions (torch's CPU kernels have no
 uint32 add or shift); int32 tensors of canonical 16-bit limbs cross the
@@ -53,6 +56,7 @@ __all__ = [
     "mont_mul_limbs",
     "batch_modexp",
     "batch_modmul",
+    "shared_base_modexp",
     "batch_mod_inv_grouped",
     "BatchModExp",
 ]
@@ -242,9 +246,7 @@ def _modexp_kernel(base, exp, n, n_inv, r2, one_mont, *, exp_bits) -> torch.Tens
     assert exp_bits % WINDOW_BITS == 0
     exp = exp.to(torch.int64)
     one_mont = one_mont.to(torch.int64)
-    mul = _Reducer(n, n_inv).mont_mul
-    if base.is_cuda:
-        mul = _replayed(mul, *n.shape, base.device)
+    mul = _plain_mul(n, n_inv, base.device)
 
     base_m = mul(base, r2)  # to Montgomery domain
     # table[j] = base_m^j (Montgomery domain), j = 0..15
@@ -272,6 +274,109 @@ def _modmul_kernel(a, b, n, n_inv, r2) -> torch.Tensor:
     """a*b mod n per row (via a*R * b * R^{-1})."""
     red = _Reducer(n, n_inv)
     return red.mont_mul(red.mont_mul(a, r2), b)
+
+
+def _plain_mul(n, n_inv, device):
+    """The plain product over fixed (rows, K) moduli; on the card replayed
+    from a CUDA graph (`_replayed`)."""
+    mul = _Reducer(n, n_inv).mont_mul
+    return _replayed(mul, *n.shape, device) if n.is_cuda else mul
+
+
+def _comb_ladder(base, n, n_inv, r2, w_cnt) -> torch.Tensor:
+    """The comb's power ladder: powers[w] = base_m^(16^w), (W, G, K), in
+    the Montgomery domain. base, n, n_inv, r2: (G, K). The entry by r2,
+    then per window the power stored and four squarings (the JAX package
+    squares once more after the last store; nothing reads that value)."""
+    mul = _plain_mul(n, n_inv, base.device)
+    p = mul(base, r2)
+    powers = []
+    for w in range(w_cnt):
+        powers.append(p)
+        if w + 1 < w_cnt:
+            for _ in range(WINDOW_BITS):
+                p = mul(p, p)
+    return torch.stack(powers)
+
+
+def _comb_table(powers, n, n_inv, one_mont, mul) -> torch.Tensor:
+    """The comb's window tables: entry c of window w is powers[w]^c, (16,
+    W, G, K), entry 0 the Montgomery one. Built over the flattened (W*G)
+    rows in the JAX package's four levels {2}, {3,4}, {5..8}, {9..15},
+    one batched product `mul(a, b, n, n_inv)` per level (the kernel
+    wrapper on the engine's path, `mont_mul_limbs` in the plain
+    version)."""
+    w_cnt, g, k = powers.shape
+    nf = n.repeat(w_cnt, 1)  # row w*G + g holds n[g]
+    nif = n_inv.repeat(w_cnt, 1)
+    p1 = powers.reshape(w_cnt * g, k)
+
+    def mul_many(pairs):
+        a = torch.cat([x for x, _ in pairs])
+        b = torch.cat([y for _, y in pairs])
+        out = mul(a, b, nf.repeat(len(pairs), 1), nif.repeat(len(pairs), 1))
+        return list(out.split(w_cnt * g))
+
+    (p2,) = mul_many([(p1, p1)])
+    p3, p4 = mul_many([(p2, p1), (p2, p2)])
+    p5, p6, p7, p8 = mul_many([(p4, p1), (p4, p2), (p4, p3), (p4, p4)])
+    upper = mul_many([(p8, p) for p in (p1, p2, p3, p4, p5, p6, p7)])
+    one_f = one_mont.repeat(w_cnt, 1).to(p2.dtype)
+    entries = [one_f, p1.to(p2.dtype), p2, p3, p4, p5, p6, p7, p8, *upper]
+    return torch.stack(entries).reshape(1 << WINDOW_BITS, w_cnt, g, k)
+
+
+def _comb_accumulate(table, exp, n, n_inv, one_mont, *, exp_bits) -> torch.Tensor:
+    """The comb's accumulation and exit: result[g, m] = prod over windows
+    w of table[d_w, w, g] (d_w the row's 4-bit digit w, least significant
+    first, as in the JAX package), leaving the Montgomery domain by a
+    product with 1. table: (16, W, G, K); exp: (G, M, EL) 16-bit limbs;
+    n, n_inv, one_mont: (G, K). Returns (G, M, K).
+
+    The JAX package may tree-reduce chunks of windows (`_comb_tree_chunk`,
+    its knobs FSDKR_COMB_TREE / FSDKR_COMB_TREE_BUDGET). That sets the
+    depth of an XLA program, not the result: every Montgomery product is
+    exact, so this sequential form (its C == 1 branch) gives the same
+    canonical integers, and so does the kernel."""
+    g, m, _ = exp.shape
+    k = n.shape[1]
+    exp = exp.to(torch.int64)
+    mul = _plain_mul(n.repeat_interleave(m, dim=0), n_inv.repeat_interleave(m, dim=0),
+                     exp.device)
+    acc = one_mont.to(torch.int64).repeat_interleave(m, dim=0)
+    idx = torch.arange(1 << WINDOW_BITS, device=exp.device)[:, None, None, None]
+    for w in range(exp_bits // WINDOW_BITS):
+        shift = WINDOW_BITS * w
+        d = (exp[:, :, shift // LIMB_BITS] >> (shift % LIMB_BITS)) & ((1 << WINDOW_BITS) - 1)
+        entries = table[:, w].to(torch.int64)  # (16, G, K)
+        # branchless pick of entries[d[g, m], g] -> (G, M, K)
+        sel = (entries[:, :, None, :] * (d[None, :, :, None] == idx)).sum(dim=0)
+        acc = mul(acc, sel.reshape(g * m, k))
+    one = torch.zeros_like(acc)
+    one[:, 0] = 1
+    return mul(acc, one).reshape(g, m, k)
+
+
+def _shared_modexp_kernel(base, exp, n, n_inv, r2, one_mont, powers=None, *,
+                          exp_bits) -> torch.Tensor:
+    """result[g, m] = base[g]^exp[g, m] mod n[g], the fixed-base comb.
+
+    Rows of a group share (base, modulus): ring-Pedersen's (T, N) per
+    message, PDL's and range's (h1 | h2, N~) per receiver. The base's
+    window powers are computed once per group (the ladder, unless
+    `powers` is given), its 16-entry window tables once per window
+    (`_comb_table`), and each row then costs one table multiply per
+    window (`_comb_accumulate`) where the generic engine pays four
+    squarings and a multiply.
+
+    base, n, n_inv, r2, one_mont: (G, K); exp: (G, M, EL) limbs; powers:
+    (W, G, K) in the Montgomery domain, W = exp_bits / 4. Returns (G, M,
+    K)."""
+    assert exp_bits % WINDOW_BITS == 0
+    if powers is None:
+        powers = _comb_ladder(base, n, n_inv, r2, exp_bits // WINDOW_BITS)
+    table = _comb_table(powers, n, n_inv, one_mont, mont_mul_limbs)
+    return _comb_accumulate(table, exp, n, n_inv, one_mont, exp_bits=exp_bits)
 
 
 # ---------------------------------------------------------------------------
@@ -333,6 +438,98 @@ class BatchModExp:
         res = _download(out)
         wipe_array(a_t, b_t)
         return res
+
+
+# Up to this many groups the comb's power ladder runs on the host
+# (CPython pow, cached per (base, modulus)); above it, on the card
+# (`fsdkr_cios_comb_ladder`). The JAX package's 64 was picked for the
+# TPU. In the H100 comb sweep (PERF.md section 6, "The comb sweep";
+# scripts/cuda_route_sweep.py --cells comb, the cache cold in every call
+# as in a refresh) the card's ladder had the shorter wall in every cell,
+# from 1 group up: the ladder always runs on the card.
+_HOST_LADDER_MAX_GROUPS = 0
+
+
+def _host_powers(bases, moduli, w_cnt, k) -> List[int]:
+    """The power ladders of `bases` on the host, flat (G * W), in the
+    Montgomery domain of R = 2^(16k): base^(16^w) * R mod n. Each
+    group's ladder is a pure function of the PUBLIC (base, modulus) pair
+    and the launch geometry, so it persists in the precompute cache under
+    the JAX package's key (with the engine's even limb count k)."""
+    from ..utils.lru import global_cache
+
+    r = 1 << (LIMB_BITS * k)
+    cache = global_cache()
+    flat: List[int] = []
+    for b, n in zip(bases, moduli):
+        key = ("comb-powers", b % n, n, w_cnt, k)
+        pws = cache.get(key) if cache.budget > 0 else None
+        if pws is None:
+            p = b % n
+            pws = []
+            for _ in range(w_cnt):
+                pws.append(p * r % n)
+                p = intops.mod_pow(p, 1 << WINDOW_BITS, n)
+            pws = tuple(pws)
+            if cache.budget > 0:
+                cache.put(key, pws, w_cnt * (k * 2 + 48))
+        flat.extend(pws)
+    return flat
+
+
+def shared_base_modexp(
+    bases: Sequence[int],
+    exps_per_group: Sequence[Sequence[int]],
+    moduli: Sequence[int],
+    num_limbs: int,
+    host_ladder: Optional[bool] = None,
+    ctx: Optional[BatchModExp] = None,
+    device="cuda",
+) -> List[List[int]]:
+    """bases[g]^exps_per_group[g][m] mod moduli[g] via the fixed-base comb
+    on `device` (or `ctx.device`): the ladder (on the host up to
+    `_HOST_LADDER_MAX_GROUPS` groups unless `host_ladder` says), the
+    table in four product launches, then one comb launch.
+
+    Groups may have unequal row counts; rows are padded to the widest
+    group with exponent 0 (base^0 = 1, dropped on the way out). Callers
+    with a stable modulus vector pass a cached context
+    (backend.powm._cached_ctx)."""
+    g_cnt = len(bases)
+    if g_cnt == 0:
+        return []
+    m_max = max(len(e) for e in exps_per_group)
+    exp_bits = bucket_exp_bits([e for grp in exps_per_group for e in grp])
+    el = -(-exp_bits // LIMB_BITS)
+    w_cnt = exp_bits // WINDOW_BITS
+
+    if ctx is None:
+        ctx = BatchModExp(moduli, num_limbs, device)
+    device, k = ctx.device, ctx.ctx.num_limbs
+    flat_exps: List[int] = []
+    for grp in exps_per_group:
+        flat_exps.extend(list(grp) + [0] * (m_max - len(grp)))
+    exp_limbs = ints_to_limbs(flat_exps, el)
+    exp_t = to_device(exp_limbs, device).reshape(g_cnt, m_max, el)
+    wipe_array(exp_limbs)  # exponents may be prover secrets
+
+    if host_ladder is None:
+        host_ladder = g_cnt <= _HOST_LADDER_MAX_GROUPS
+    if host_ladder:
+        flat = _host_powers(bases, ctx.ctx.moduli, w_cnt, k)
+        powers = to_device(ints_to_limbs(flat, k), device)
+        powers = powers.reshape(g_cnt, w_cnt, k).transpose(0, 1).contiguous()
+    else:
+        base_t = to_device(
+            ints_to_limbs([b % n for b, n in zip(bases, ctx.ctx.moduli)], k), device)
+        powers = montgomery_kernels.comb_ladder(
+            base_t, ctx._n, ctx._n_inv, ctx._r2, w_cnt)
+    table = _comb_table(powers, ctx._n, ctx._n_inv, ctx._one_mont,
+                        montgomery_kernels.mont_mul)
+    out = montgomery_kernels.comb(table, exp_t, ctx._n, ctx._n_inv, ctx._one_mont, exp_bits)
+    wipe_array(exp_t)
+    flat = _download(out.reshape(g_cnt * m_max, k))
+    return [flat[g * m_max : g * m_max + len(exps_per_group[g])] for g in range(g_cnt)]
 
 
 def _per_row(n, n_inv, rows_per_group):

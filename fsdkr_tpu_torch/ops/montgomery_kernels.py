@@ -14,6 +14,12 @@ C++ for sm_90a; its header comment gives the design):
     (:606) in one launch.
 `modexp` — base^exp mod n per row, the whole 4-bit fixed-window loop of
     `_modexp_kernel` (:137) in one launch.
+`comb` — the fixed-base comb's accumulation and exit, one launch: per
+    row, one masked 16-entry table select and product per window, then
+    the product by 1 (`_shared_modexp_kernel` :372-446).
+`comb_ladder` — the comb's power ladder base_m^(16^w), one warp per
+    group (:323-336). The table between the two is four `mont_mul`
+    launches (`ops.montgomery._comb_table`).
 
 Tensors crossing the kernel boundary are int32 (rows, K) of canonical
 16-bit limbs, K even (R = 2^(16K) on a 32-bit word), 2 <= K <= 1024;
@@ -38,6 +44,8 @@ __all__ = [
     "mont_mul",
     "modmul",
     "modexp",
+    "comb",
+    "comb_ladder",
     "launch_counts",
     "reset_launch_counts",
     "load_library",
@@ -66,6 +74,10 @@ def load_library() -> ctypes.CDLL:
     lib.fsdkr_cios_modmul.restype = i
     lib.fsdkr_cios_modexp.argtypes = [p, p, i, i, p, p, p, p, i, i, p, p]
     lib.fsdkr_cios_modexp.restype = i
+    lib.fsdkr_cios_comb.argtypes = [p, p, i, i, p, p, p, i, i, i, p, p]
+    lib.fsdkr_cios_comb.restype = i
+    lib.fsdkr_cios_comb_ladder.argtypes = [p, p, p, p, i, i, i, p, p]
+    lib.fsdkr_cios_comb_ladder.restype = i
     _LIB = lib
     return lib
 
@@ -89,6 +101,23 @@ def _check(tensors, rows, width):
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"no CIOS kernel for device {device}")
     return device
+
+
+def _check_shape(name, t, shape, device):
+    """One int32 tensor of the given shape, contiguous, on `device`."""
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_exp_bits(exp_bits, exp_limbs):
+    if exp_bits <= 0 or exp_bits % WINDOW_BITS or exp_limbs * 16 < exp_bits:
+        raise ValueError(f"exp_bits={exp_bits} does not fit the exponent limbs")
 
 
 def _stream(device):
@@ -145,8 +174,7 @@ def modexp(base, exp, n, n_inv, r2, one_mont, exp_bits: int) -> torch.Tensor:
     rows, k = base.shape
     device = _check((("base", base), ("exp", exp), ("n", n), ("n_inv", n_inv),
                      ("r2", r2), ("one_mont", one_mont)), rows, k)
-    if exp_bits <= 0 or exp_bits % WINDOW_BITS or exp.shape[1] * 16 < exp_bits:
-        raise ValueError(f"exp_bits={exp_bits} does not fit the exponent limbs")
+    _check_exp_bits(exp_bits, exp.shape[1])
     if device.type == "cpu":
         from .montgomery import _modexp_kernel
 
@@ -164,6 +192,60 @@ def modexp(base, exp, n, n_inv, r2, one_mont, exp_bits: int) -> torch.Tensor:
     return out
 
 
+def comb(table, exp, n, n_inv, one_mont, exp_bits: int) -> torch.Tensor:
+    """result[g, m] = prod over windows w of table[d_w, w, g], out of the
+    Montgomery domain: base[g]^exp[g, m] mod n[g] for the table of
+    `ops.montgomery._comb_table`. table: (16, W, G, K) with W =
+    exp_bits / 4; exp: (G, M, EL) 16-bit limbs; n, n_inv, one_mont: (G,
+    K). Returns (G, M, K)."""
+    g, k = n.shape
+    device = _check((("n", n), ("n_inv", n_inv), ("one_mont", one_mont)), g, k)
+    if exp.dim() != 3 or exp.shape[0] != g:
+        raise ValueError(f"exp has shape {tuple(exp.shape)}, expected ({g}, M, EL)")
+    m, el = exp.shape[1], exp.shape[2]
+    _check_exp_bits(exp_bits, el)
+    w_cnt = exp_bits // WINDOW_BITS
+    _check_shape("exp", exp, (g, m, el), device)
+    _check_shape("table", table, (1 << WINDOW_BITS, w_cnt, g, k), device)
+    if device.type == "cpu":
+        from .montgomery import _comb_accumulate
+
+        return _comb_accumulate(table, exp, n, n_inv, one_mont,
+                                exp_bits=exp_bits).to(torch.int32)
+    out = torch.empty((g, m, k), dtype=torch.int32, device=device)
+    err = load_library().fsdkr_cios_comb(
+        table.data_ptr(), exp.data_ptr(), el, exp_bits, n.data_ptr(), n_inv.data_ptr(),
+        one_mont.data_ptr(), g, m, k, out.data_ptr(), _stream(device),
+    )
+    if err:
+        raise RuntimeError(f"fsdkr_cios_comb launch failed: CUDA error {err}")
+    _count(comb, (k, g, m, exp_bits))
+    return out
+
+
+def comb_ladder(base, n, n_inv, r2, w_cnt: int) -> torch.Tensor:
+    """powers[w, g] = base[g]^(16^w) * R mod n[g] for w < w_cnt, the
+    comb's ladder in the Montgomery domain; base < n, all (G, K).
+    Returns (W, G, K)."""
+    g, k = base.shape
+    device = _check((("base", base), ("n", n), ("n_inv", n_inv), ("r2", r2)), g, k)
+    if w_cnt <= 0:
+        raise ValueError(f"w_cnt={w_cnt}: the ladder takes at least one window")
+    if device.type == "cpu":
+        from .montgomery import _comb_ladder
+
+        return _comb_ladder(base, n, n_inv, r2, w_cnt).to(torch.int32)
+    out = torch.empty((w_cnt, g, k), dtype=torch.int32, device=device)
+    err = load_library().fsdkr_cios_comb_ladder(
+        base.data_ptr(), n.data_ptr(), n_inv.data_ptr(), r2.data_ptr(), g, k, w_cnt,
+        out.data_ptr(), _stream(device),
+    )
+    if err:
+        raise RuntimeError(f"fsdkr_cios_comb_ladder launch failed: CUDA error {err}")
+    _count(comb_ladder, (k, g, w_cnt * WINDOW_BITS))
+    return out
+
+
 # launch counters: bumped where a kernel launches and nowhere else; the
 # shapes maps let a measurement time each kernel at the shapes a run used
 mont_mul.launches = 0
@@ -172,14 +254,19 @@ modmul.launches = 0
 modmul.shapes = {}  # (K, rows) -> launches
 modexp.launches = 0
 modexp.shapes = {}  # (K, rows, exp_bits) -> launches
+comb.launches = 0
+comb.shapes = {}  # (K, groups, rows per group, exp_bits) -> launches
+comb_ladder.launches = 0
+comb_ladder.shapes = {}  # (K, groups, exp_bits) -> launches
 
 
 def launch_counts() -> dict:
     return {"cios_mont_mul": mont_mul.launches, "cios_modmul": modmul.launches,
-            "cios_modexp": modexp.launches}
+            "cios_modexp": modexp.launches, "cios_comb": comb.launches,
+            "cios_comb_ladder": comb_ladder.launches}
 
 
 def reset_launch_counts() -> None:
-    for fn in (mont_mul, modmul, modexp):
+    for fn in (mont_mul, modmul, modexp, comb, comb_ladder):
         fn.launches = 0
         fn.shapes = {}

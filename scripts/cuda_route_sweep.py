@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Time the two device arithmetic families of the PyTorch/CUDA port
-against each other on one NVIDIA GPU: the RNS route (kernel 2 / kernel 1)
-and the CIOS engine, over the row counts and widths of the refresh's
-columns. The routing threshold of fsdkr_tpu_torch/backend/powm.py is
-read off this table.
+"""Time the device routes of the PyTorch/CUDA port against each other on
+one NVIDIA GPU, over the row counts and widths of the refresh's columns.
+The routing constants of fsdkr_tpu_torch/backend/powm.py and
+fsdkr_tpu_torch/ops/montgomery.py are read off these tables.
 
 Run from the root of a checkout, on a machine with the card:
 
-    python3 scripts/cuda_route_sweep.py [--rows 8,16,...] [--out FILE.json]
+    python3 scripts/cuda_route_sweep.py [--cells rns,comb] [--rows 8,16,...]
+                                        [--reps 3] [--out FILE.json]
 
-For every (entry point, modulus width, exponent width, rows): the whole
+`rns` cells: the two arithmetic families, the RNS route (kernel 2 /
+kernel 1) against the CIOS engine. For every (entry point, modulus
+width, exponent width, rows): the whole
 `device_powm` / `device_modmul` call, through the CIOS engine as routed
 and through the RNS route inside `forced_rns_route()` (the cache warm:
 one call first), timed on the host clock (median of 3 calls, each
@@ -17,6 +19,19 @@ ending in its host copy), and its device time per call under
 torch.profiler: the route's kernel
 (`kernel_ms`) and every device event (`busy_ms`). Rows share 16 distinct
 moduli, as a refresh's columns do (one modulus per party).
+
+`comb` cells: the fixed-base comb against the generic engine, for
+columns of G groups of M rows that share a (base, modulus) pair (G = 1,
+16, 64, 256; M = 4, 8, 16, 32, 64, 256; 2048- and 4096-bit moduli;
+256- and 2048-bit exponents). Each cell times the whole call three ways:
+`device_powm` (generic), and `device_powm_grouped` with every group on
+the comb, its ladder on the host (`comb_host`) or on the card
+(`comb_card`). The precompute cache is cleared before every call: in a
+refresh every party brings new statements, so the ladders and contexts
+are cold in each round. Wall time on the host clock (median of --reps
+calls, each ending in its host copy; one untimed call of each way
+first, at the smallest cell). --ways times some of the three ways. _SHARED_MIN_ROWS and _HOST_LADDER_MAX_GROUPS are read
+off this table; the script prints what the cells imply for both.
 """
 
 from __future__ import annotations
@@ -34,6 +49,8 @@ import time
 ROWS = [8 << i for i in range(12)]  # 8 .. 16384, the largest launch
 WIDTHS = (2048, 4096)
 EXP_BITS = (256, 2048)
+COMB_GROUPS = (1, 16, 64, 256)
+COMB_ROWS = (4, 8, 16, 32, 64, 256)
 SYMBOLS = {("powm", "rns"): "rns_modexp_kernel", ("powm", "cios"): "cios_modexp_kernel",
            ("modmul", "rns"): "rns_mont_mul_kernel", ("modmul", "cios"): "cios_modmul_kernel"}
 
@@ -59,14 +76,125 @@ def device_times(fn, reps, symbol):
     return kern / 1e3 / reps, busy / 1e3 / reps
 
 
+COMB_WAYS = ("generic", "comb_host", "comb_card")
+
+
+def comb_cells(dev, rng, reps, way_names=COMB_WAYS):
+    """The comb cells (module docstring); returns their rows."""
+    import torch
+
+    from fsdkr_tpu_torch.backend import powm
+    from fsdkr_tpu_torch.ops import montgomery
+    from fsdkr_tpu_torch.utils.lru import clear_caches
+
+    ways = {  # (entry point, host-ladder group limit)
+        "generic": (powm.device_powm, None),
+        "comb_host": (powm.device_powm_grouped, 1 << 30),
+        "comb_card": (powm.device_powm_grouped, -1),
+    }
+    ways = {name: ways[name] for name in way_names}
+    saved = powm._SHARED_MIN_ROWS, montgomery._HOST_LADDER_MAX_GROUPS
+    table = []
+    try:
+        powm._SHARED_MIN_ROWS = 1  # every group on the comb
+        n = rng.getrandbits(2048) | 1 | (1 << 2047)
+        for fn, ladder_max in ways.values():  # builds, first launches
+            if ladder_max is not None:
+                montgomery._HOST_LADDER_MAX_GROUPS = ladder_max
+            fn([5] * 4, [rng.getrandbits(256) for _ in range(4)], [n] * 4, dev)
+        for width in WIDTHS:
+            for exp_bits in EXP_BITS:
+                for groups in COMB_GROUPS:
+                    for per_group in COMB_ROWS:
+                        moduli, bases = [], []
+                        for _ in range(groups):
+                            n = rng.getrandbits(width) | 1 | (1 << (width - 1))
+                            moduli += [n] * per_group
+                            bases += [rng.randrange(n)] * per_group
+                        exps = [rng.getrandbits(exp_bits) for _ in bases]
+                        want = None
+                        row = {"width": width, "exp_bits": exp_bits, "groups": groups,
+                               "rows_per_group": per_group}
+                        for way, (fn, ladder_max) in ways.items():
+                            if ladder_max is not None:
+                                montgomery._HOST_LADDER_MAX_GROUPS = ladder_max
+
+                            def call():
+                                clear_caches()
+                                return fn(bases, exps, moduli, dev)
+
+                            walls = []
+                            for _ in range(reps):
+                                t0 = time.perf_counter()
+                                got = call()
+                                walls.append(time.perf_counter() - t0)
+                            if want is None:
+                                want = got
+                            elif got != want:
+                                sys.exit(f"cuda_route_sweep: {way} disagrees with generic "
+                                         f"in {row}")
+                            row[f"{way}_ms"] = statistics.median(walls) * 1e3
+                        table.append(row)
+                        print(json.dumps(row), flush=True)
+                        torch.cuda.empty_cache()
+    finally:
+        powm._SHARED_MIN_ROWS, montgomery._HOST_LADDER_MAX_GROUPS = saved
+    return table
+
+
+def comb_verdict(table):
+    """What the comb cells imply: for each floor on the rows per group,
+    the least group count from which the comb (either ladder) is ahead of
+    the generic engine in every cell at or above both floors; and the
+    most groups up to which the host ladder is ahead of the card's in
+    every cell."""
+    inf = float("inf")
+
+    def comb_wins(r):
+        return min(r.get("comb_host_ms", inf), r.get("comb_card_ms", inf)) < r.get(
+            "generic_ms", inf)
+
+    lines = [f"comb: ahead of generic in {sum(map(comb_wins, table))} of {len(table)} cells"]
+    group_counts = sorted({r["groups"] for r in table})
+    for m in sorted({r["rows_per_group"] for r in table}):
+        g = next((g for g in group_counts
+                  if all(comb_wins(r) for r in table
+                         if r["rows_per_group"] >= m and r["groups"] >= g)), None)
+        lines.append(f"comb: from {m} rows a group, ahead in every cell from {g} groups up"
+                     if g is not None else
+                     f"comb: from {m} rows a group, behind in some cell at every group count")
+    if all("comb_host_ms" in r and "comb_card_ms" in r for r in table):
+        max_groups = 0
+        for g in group_counts:
+            if not all(r["comb_host_ms"] < r["comb_card_ms"] for r in table if r["groups"] <= g):
+                break
+            max_groups = g
+        lines.append(f"comb: host ladder ahead of the card's in every cell up to {max_groups} "
+                     f"groups")
+    for r in table:
+        lines.append("comb: {width} bits, e={exp_bits}, {groups} x {rows_per_group}: ".format(**r)
+                     + ", ".join(f"{way} {r[way + '_ms']:.2f}" for way in COMB_WAYS
+                                 if way + "_ms" in r) + " ms")
+    return lines
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the table to this JSON file")
     ap.add_argument("--seed", type=int, default=6)
+    ap.add_argument("--cells", default="rns,comb",
+                    help="comma-separated subset of rns,comb (default: both)")
     ap.add_argument("--rows", default=",".join(map(str, ROWS)),
-                    help="comma-separated row counts (default: 8 .. 16384)")
+                    help="comma-separated row counts of the rns cells (default: 8 .. 16384)")
+    ap.add_argument("--reps", type=int, default=3,
+                    help="timed calls per comb cell and way (default 3)")
+    ap.add_argument("--ways", default=",".join(COMB_WAYS),
+                    help="ways to time in the comb cells (default: all three)")
     args = ap.parse_args()
     row_counts = [int(r) for r in args.rows.split(",") if r]
+    cells = [c for c in args.cells.split(",") if c]
+    if any(c not in ("rns", "comb") for c in cells):
+        sys.exit(f"cuda_route_sweep: unknown cells in {cells}")
 
     import torch
 
@@ -83,7 +211,7 @@ def main():
     dev = torch.device("cuda", 0)
     rng = random.Random(args.seed)
     table = []
-    for width in WIDTHS:
+    for width in WIDTHS if "rns" in cells else ():
         distinct = [rng.getrandbits(width) | 1 | (1 << (width - 1)) for _ in range(16)]
         for rows in row_counts:
             moduli = [distinct[i % 16] for i in range(rows)]
@@ -112,10 +240,17 @@ def main():
                            "kernel_ms": kern, "busy_ms": busy}
                     table.append(row)
                     print(json.dumps(row), flush=True)
+    ways = [w for w in args.ways.split(",") if w]
+    if any(w not in COMB_WAYS for w in ways):
+        sys.exit(f"cuda_route_sweep: unknown ways in {ways}")
+    comb = comb_cells(dev, rng, args.reps, ways) if "comb" in cells else []
+    if comb:
+        for line in comb_verdict(comb):
+            print(line, flush=True)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as fh:
-            json.dump({"device": smi, "rows": table}, fh, indent=1)
+            json.dump({"device": smi, "rows": table, "comb": comb}, fh, indent=1)
     print(smi, flush=True)
 
 

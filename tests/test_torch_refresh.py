@@ -133,27 +133,37 @@ def test_port_collect_matches_reference_collect(reference_round):
     _collect_like_reference(reference_round, PORT_CONFIG)
 
 
-@pytest.mark.parametrize("route", ["cios", "rns"])
+@pytest.mark.parametrize("route", ["cios", "rns", "comb"])
 def test_port_collect_through_each_route_matches_reference(
     reference_round, route, monkeypatch
 ):
     """One collect with every launch on one device arithmetic family (the
     CIOS engine, as routed, or the RNS route inside
     `powm.forced_rns_route()`; the batch inverse always takes the CIOS
-    engine's tree) adopts the key the JAX collect adopts."""
+    engine's tree) adopts the key the JAX collect adopts. `comb`: the
+    CIOS engine with the JAX package's grouping rule (groups of 4 rows,
+    any count), so the ring-Pedersen column's groups take the fixed-base
+    comb at this size."""
     from fsdkr_tpu_torch.backend import powm
-    from fsdkr_tpu_torch.ops import montgomery, rns
+    from fsdkr_tpu_torch.ops import montgomery, montgomery_kernels, rns
 
 
     def refuse(*args, **kwargs):
         raise AssertionError("a launch left the forced route")
 
+    combs = []
     if route == "rns":
         monkeypatch.setattr(montgomery.BatchModExp, "modexp", refuse)
         monkeypatch.setattr(montgomery.BatchModExp, "modmul", refuse)
     else:
         monkeypatch.setattr(rns, "rns_modexp", refuse)
         monkeypatch.setattr(rns, "rns_modmul", refuse)
+    if route == "comb":
+        monkeypatch.setattr(powm, "_SHARED_MIN_ROWS", 4)
+        monkeypatch.setattr(powm, "_SHARED_MIN_GROUPS", 1)
+        raw = montgomery_kernels.comb
+        monkeypatch.setattr(montgomery_kernels, "comb",
+                            lambda *a, **kw: combs.append(1) or raw(*a, **kw))
     keys, msgs, dks = reference_round
     jax_key = copy.deepcopy(keys[0])
     JaxRefresh.collect(
@@ -165,6 +175,7 @@ def test_port_collect_through_each_route_matches_reference(
             from_reference(msgs), port_key, from_reference(dks[0]), PORT_CONFIG
         )
     assert key_fields(port_key) == key_fields(jax_key)
+    assert bool(combs) == (route == "comb")
 
 
 def test_host_backend_collect_matches_reference_collect(reference_round):
