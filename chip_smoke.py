@@ -30,8 +30,7 @@ Phases:
            engine, as routed) and the RNS route itself against CPython pow
            at 2048- and 4096-bit moduli; both entry points at 8192-bit
            moduli (past the RNS classes); device_powm_grouped (comb
-           groups and loners) at 2048, 4096 and 8192 bits with the comb's
-           ladder on the host and on the card.
+           groups and loners) at 2048, 4096 and 8192 bits.
   main     the refresh round at paillier_bits=2048, M=256, 11 correct-key
            rounds, n=16, t=8: simulate_keygen -> distribute_batch (all 16
            senders) -> collect by all 16; t+1 new shares must interpolate
@@ -40,8 +39,7 @@ Phases:
            (every launch takes the CIOS engine; the ring-Pedersen
            column's 16 groups of 256 rows sharing (T, N) take the comb)
            must each launch over
-           distribute + collect (the comb's ladder where a launch has more
-           groups than the host ladder takes); launches per collect are
+           distribute + collect; launches per collect are
            printed for every kernel; after the first collect, the precompute
            cache must see no miss (every modulus's constants computed
            once). Then the RNS route's path, the earlier slices' main
@@ -61,8 +59,6 @@ Phases:
            CUDA events around back-to-back wrapper calls (the wrapper's
            host work included where it is the slower side), and
            `device_ms`, the kernel's own device time (torch.profiler).
-           `cios_comb_ladder` is also timed at 16 groups (K=128, 2048-bit
-           exponents) where the main path ran no ladder on the card.
 
 Prints the kernels line `{"kernels": [...]}` and, last, `{"ok": true,
 "device": {...}}`. Any failure exits non-zero with no result line.
@@ -428,12 +424,12 @@ def phase_routes(dev, rng):
 
 def grouped_routes(dev, rng):
     """device_powm_grouped against pow on columns of comb groups (rows
-    sharing a base and modulus) and loners, with the comb's ladder on the
-    host and on the card: each way must launch the comb, the second the
-    ladder kernel too. The groups are small (pow checks every row), so
-    the JAX package's rule routes them: groups of 4 rows, any count."""
+    sharing a base and modulus) and loners: each column must launch the
+    comb, its ladder kernel and the generic engine. The groups are small
+    (pow checks every row), so the JAX package's rule routes them: groups
+    of 4 rows, any count."""
     from fsdkr_tpu_torch.backend import powm
-    from fsdkr_tpu_torch.ops import montgomery, montgomery_kernels
+    from fsdkr_tpu_torch.ops import montgomery_kernels
 
     min_rows = 4
 
@@ -451,29 +447,22 @@ def grouped_routes(dev, rng):
         exps[0] = 0
         exps[1] = (1 << exp_bits) - 1
         want = [pow(b, e, n) for b, e, n in zip(bases, exps, moduli)]
-        saved = (montgomery._HOST_LADDER_MAX_GROUPS, powm._SHARED_MIN_ROWS,
-                 powm._SHARED_MIN_GROUPS)
-        for ladder, limit in (("host", 1 << 30), ("card", -1)):
-            montgomery._HOST_LADDER_MAX_GROUPS = limit
-            powm._SHARED_MIN_ROWS, powm._SHARED_MIN_GROUPS = min_rows, 1
-            before = montgomery_kernels.launch_counts()
-            try:
-                got = powm.device_powm_grouped(bases, exps, moduli, dev)
-            finally:
-                (montgomery._HOST_LADDER_MAX_GROUPS, powm._SHARED_MIN_ROWS,
-                 powm._SHARED_MIN_GROUPS) = saved
-            after = montgomery_kernels.launch_counts()
-            if got != want:
-                fail(f"device_powm_grouped at {bits} bits ({ladder} ladder) disagrees "
-                     f"with pow")
-            launched = {k: after[k] - before[k] for k in after}
-            if not launched["cios_comb"] or not launched["cios_modexp"] or (
-                    launched["cios_comb_ladder"] != (ladder == "card")):
-                fail(f"device_powm_grouped at {bits} bits ({ladder} ladder) launched "
-                     f"{launched}")
+        saved = powm._SHARED_MIN_ROWS, powm._SHARED_MIN_GROUPS
+        powm._SHARED_MIN_ROWS, powm._SHARED_MIN_GROUPS = min_rows, 1
+        before = montgomery_kernels.launch_counts()
+        try:
+            got = powm.device_powm_grouped(bases, exps, moduli, dev)
+        finally:
+            powm._SHARED_MIN_ROWS, powm._SHARED_MIN_GROUPS = saved
+        after = montgomery_kernels.launch_counts()
+        if got != want:
+            fail(f"device_powm_grouped at {bits} bits disagrees with pow")
+        launched = {k: after[k] - before[k] for k in after}
+        if not all(launched[k] for k in ("cios_comb", "cios_comb_ladder", "cios_modexp")):
+            fail(f"device_powm_grouped at {bits} bits launched {launched}")
         log(f"device_powm_grouped == pow: {groups} groups x {per_group} rows and "
             f"{2 * (min_rows - 1)} loners of {bits}-bit moduli, {exp_bits}-bit "
-            f"exponents, the comb's ladder on the host and on the card")
+            f"exponents")
 
 
 def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
@@ -482,7 +471,7 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     from fsdkr_tpu_torch.core.secp256k1 import GENERATOR
     from fsdkr_tpu_torch.errors import PDLwSlackProofError
     from fsdkr_tpu_torch.backend.powm import powm_cache_stats
-    from fsdkr_tpu_torch.ops import montgomery, montgomery_kernels, rns_kernels
+    from fsdkr_tpu_torch.ops import montgomery_kernels, rns_kernels
     from fsdkr_tpu_torch.protocol import RefreshMessage, simulate_keygen
 
     config = ProtocolConfig(
@@ -540,12 +529,7 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     for name, by_shape in shapes.items():
         log(f"main: {name} launches by shape: "
             + ", ".join(f"{shape}: {c}" for shape, c in sorted(by_shape.items())))
-    # the ladder runs on the card only for launches of more groups than
-    # the host ladder takes
-    ladder_due = any(g > montgomery._HOST_LADDER_MAX_GROUPS
-                     for _, g, _, _ in shapes["cios_comb"])
-    need = [name for name in counts if name != "cios_comb_ladder" or ladder_due]
-    if not all(counts[name] > 0 for name in need):
+    if not all(counts[name] > 0 for name in counts):
         fail(f"a kernel of the main path never launched: {counts}")
     log(f"main: precompute cache (hits, misses) per collect: {cache}; "
         f"{powm_cache_stats()}")
@@ -1019,6 +1003,7 @@ def check_and_time_shapes(dev, rng, shapes):
             shape_s = _shape_str(name, k, rows, exp_bits, groups)
             want, plain_ms[name, shape] = _timed_ms(plain)
             err = _max_err(kernel(), want)
+            errs[name] = max(errs[name], err)
             if err:
                 fail(f"{name} disagrees with its plain version at {shape_s}")
             del want
@@ -1046,9 +1031,6 @@ def phase_time(dev, rng, counts, shapes):
     """`counts` and `shapes` are the main path's launch counts, in total
     and by kernel and shape ((k, rows) or (k, rows, exp_bits) ->
     launches)."""
-    # the ladder at the ring-Pedersen column's 16 groups, launched on the
-    # main path or not
-    shapes["cios_comb_ladder"].setdefault((128, 16, 2048), 0)
     if not all(shapes.values()):
         fail("no main-path launch shapes recorded for a kernel")
     errs, plain_times, per_shape = check_and_time_shapes(dev, rng, shapes)

@@ -84,12 +84,13 @@ def _rns_forced() -> bool:
 # no group count) were picked for the TPU. In the H100 comb sweep
 # (PERF.md section 6, "The comb sweep"; scripts/cuda_route_sweep.py
 # --cells comb, the cache cold in every call) the comb had the shorter
-# wall in every cell of 256 rows a group and 16 groups or more, and was
-# behind at 1 group of 256 rows and at 16 groups of up to 64 rows: its
-# ladder is a chain of 4W dependent products on G warps, about as long
-# as a generic row's, so it pays only over many rows.
+# wall in every cell of 256 rows a group from 2 groups up, and was behind
+# in most cells of fewer rows under 16 groups, and in 3 of the 4 cells of
+# 1 group of 256 rows: a launch pads to 2 groups, and the ladder is a
+# chain of 4W dependent products, about as long as a generic row's, so
+# the comb pays only over many rows.
 _SHARED_MIN_ROWS = 256
-_SHARED_MIN_GROUPS = 16
+_SHARED_MIN_GROUPS = 2
 
 
 def _width_class(width: int) -> Optional[int]:

@@ -440,56 +440,24 @@ class BatchModExp:
         return res
 
 
-# Up to this many groups the comb's power ladder runs on the host
-# (CPython pow, cached per (base, modulus)); above it, on the card
-# (`fsdkr_cios_comb_ladder`). The JAX package's 64 was picked for the
-# TPU. In the H100 comb sweep (PERF.md section 6, "The comb sweep";
-# scripts/cuda_route_sweep.py --cells comb, the cache cold in every call
-# as in a refresh) the card's ladder had the shorter wall in every cell,
-# from 1 group up: the ladder always runs on the card.
-_HOST_LADDER_MAX_GROUPS = 0
-
-
-def _host_powers(bases, moduli, w_cnt, k) -> List[int]:
-    """The power ladders of `bases` on the host, flat (G * W), in the
-    Montgomery domain of R = 2^(16k): base^(16^w) * R mod n. Each
-    group's ladder is a pure function of the PUBLIC (base, modulus) pair
-    and the launch geometry, so it persists in the precompute cache under
-    the JAX package's key (with the engine's even limb count k)."""
-    from ..utils.lru import global_cache
-
-    r = 1 << (LIMB_BITS * k)
-    cache = global_cache()
-    flat: List[int] = []
-    for b, n in zip(bases, moduli):
-        key = ("comb-powers", b % n, n, w_cnt, k)
-        pws = cache.get(key) if cache.budget > 0 else None
-        if pws is None:
-            p = b % n
-            pws = []
-            for _ in range(w_cnt):
-                pws.append(p * r % n)
-                p = intops.mod_pow(p, 1 << WINDOW_BITS, n)
-            pws = tuple(pws)
-            if cache.budget > 0:
-                cache.put(key, pws, w_cnt * (k * 2 + 48))
-        flat.extend(pws)
-    return flat
-
-
 def shared_base_modexp(
     bases: Sequence[int],
     exps_per_group: Sequence[Sequence[int]],
     moduli: Sequence[int],
     num_limbs: int,
-    host_ladder: Optional[bool] = None,
     ctx: Optional[BatchModExp] = None,
     device="cuda",
 ) -> List[List[int]]:
     """bases[g]^exps_per_group[g][m] mod moduli[g] via the fixed-base comb
-    on `device` (or `ctx.device`): the ladder (on the host up to
-    `_HOST_LADDER_MAX_GROUPS` groups unless `host_ladder` says), the
+    on `device` (or `ctx.device`): the power ladder in one launch, the
     table in four product launches, then one comb launch.
+
+    The JAX package can also run the ladder on the host (CPython pow,
+    cached per (base, modulus), up to its _HOST_LADDER_MAX_GROUPS
+    groups). The port has no such path: in the H100 comb sweep (PERF.md
+    section 6, "The comb sweep") the card's ladder had the shorter wall
+    than the host's in every cell, from 1 group up, with the cache cold
+    as it is in each round of a refresh.
 
     Groups may have unequal row counts; rows are padded to the widest
     group with exponent 0 (base^0 = 1, dropped on the way out). Callers
@@ -513,17 +481,9 @@ def shared_base_modexp(
     exp_t = to_device(exp_limbs, device).reshape(g_cnt, m_max, el)
     wipe_array(exp_limbs)  # exponents may be prover secrets
 
-    if host_ladder is None:
-        host_ladder = g_cnt <= _HOST_LADDER_MAX_GROUPS
-    if host_ladder:
-        flat = _host_powers(bases, ctx.ctx.moduli, w_cnt, k)
-        powers = to_device(ints_to_limbs(flat, k), device)
-        powers = powers.reshape(g_cnt, w_cnt, k).transpose(0, 1).contiguous()
-    else:
-        base_t = to_device(
-            ints_to_limbs([b % n for b, n in zip(bases, ctx.ctx.moduli)], k), device)
-        powers = montgomery_kernels.comb_ladder(
-            base_t, ctx._n, ctx._n_inv, ctx._r2, w_cnt)
+    base_t = to_device(
+        ints_to_limbs([b % n for b, n in zip(bases, ctx.ctx.moduli)], k), device)
+    powers = montgomery_kernels.comb_ladder(base_t, ctx._n, ctx._n_inv, ctx._r2, w_cnt)
     table = _comb_table(powers, ctx._n, ctx._n_inv, ctx._one_mont,
                         montgomery_kernels.mont_mul)
     out = montgomery_kernels.comb(table, exp_t, ctx._n, ctx._n_inv, ctx._one_mont, exp_bits)

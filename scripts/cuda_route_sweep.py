@@ -7,7 +7,8 @@ fsdkr_tpu_torch/ops/montgomery.py are read off these tables.
 Run from the root of a checkout, on a machine with the card:
 
     python3 scripts/cuda_route_sweep.py [--cells rns,comb] [--rows 8,16,...]
-                                        [--reps 3] [--out FILE.json]
+                                        [--groups 1,2,...] [--reps 3]
+                                        [--out FILE.json]
 
 `rns` cells: the two arithmetic families, the RNS route (kernel 2 /
 kernel 1) against the CIOS engine. For every (entry point, modulus
@@ -22,16 +23,17 @@ moduli, as a refresh's columns do (one modulus per party).
 
 `comb` cells: the fixed-base comb against the generic engine, for
 columns of G groups of M rows that share a (base, modulus) pair (G = 1,
-16, 64, 256; M = 4, 8, 16, 32, 64, 256; 2048- and 4096-bit moduli;
-256- and 2048-bit exponents). Each cell times the whole call three ways:
-`device_powm` (generic), and `device_powm_grouped` with every group on
-the comb, its ladder on the host (`comb_host`) or on the card
-(`comb_card`). The precompute cache is cleared before every call: in a
-refresh every party brings new statements, so the ladders and contexts
-are cold in each round. Wall time on the host clock (median of --reps
-calls, each ending in its host copy; one untimed call of each way
-first, at the smallest cell). --ways times some of the three ways. _SHARED_MIN_ROWS and _HOST_LADDER_MAX_GROUPS are read
-off this table; the script prints what the cells imply for both.
+2, 4, 8, 16, 64, 256, or those of --groups; M = 4, 8, 16, 32, 64, 256;
+2048- and 4096-bit moduli; 256- and 2048-bit exponents). Each cell
+times the whole call two ways: `device_powm` (`generic`), and
+`device_powm_grouped` with every group on the comb (`comb`; each call
+must launch the comb and its ladder kernel). The precompute cache is
+cleared before every call: in a refresh every party brings new
+statements, so the contexts are cold in each round. Wall time on the
+host clock (median of --reps calls, each ending in its host copy; one
+untimed call of each way first, at the smallest cell).
+_SHARED_MIN_ROWS and _SHARED_MIN_GROUPS are read off this table; the
+script prints what the cells imply for both.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ import time
 ROWS = [8 << i for i in range(12)]  # 8 .. 16384, the largest launch
 WIDTHS = (2048, 4096)
 EXP_BITS = (256, 2048)
-COMB_GROUPS = (1, 16, 64, 256)
+COMB_GROUPS = (1, 2, 4, 8, 16, 64, 256)
 COMB_ROWS = (4, 8, 16, 32, 64, 256)
 SYMBOLS = {("powm", "rns"): "rns_modexp_kernel", ("powm", "cios"): "cios_modexp_kernel",
            ("modmul", "rns"): "rns_mont_mul_kernel", ("modmul", "cios"): "cios_modmul_kernel"}
@@ -76,35 +78,45 @@ def device_times(fn, reps, symbol):
     return kern / 1e3 / reps, busy / 1e3 / reps
 
 
-COMB_WAYS = ("generic", "comb_host", "comb_card")
+COMB_WAYS = ("generic", "comb")
+# the kernels each way must launch in every call, and those it must not
+COMB_LAUNCHES = {
+    "generic": ({"cios_modexp"}, {"cios_comb", "cios_comb_ladder"}),
+    "comb": ({"cios_comb", "cios_comb_ladder"}, {"cios_modexp"}),
+}
 
 
-def comb_cells(dev, rng, reps, way_names=COMB_WAYS):
+def comb_cells(dev, rng, reps, group_counts=COMB_GROUPS):
     """The comb cells (module docstring); returns their rows."""
     import torch
 
     from fsdkr_tpu_torch.backend import powm
-    from fsdkr_tpu_torch.ops import montgomery
+    from fsdkr_tpu_torch.ops import montgomery_kernels
     from fsdkr_tpu_torch.utils.lru import clear_caches
 
-    ways = {  # (entry point, host-ladder group limit)
-        "generic": (powm.device_powm, None),
-        "comb_host": (powm.device_powm_grouped, 1 << 30),
-        "comb_card": (powm.device_powm_grouped, -1),
-    }
-    ways = {name: ways[name] for name in way_names}
-    saved = powm._SHARED_MIN_ROWS, montgomery._HOST_LADDER_MAX_GROUPS
+    ways = {"generic": powm.device_powm, "comb": powm.device_powm_grouped}
+
+    def run(way, *args):
+        before = montgomery_kernels.launch_counts()
+        got = ways[way](*args)
+        after = montgomery_kernels.launch_counts()
+        launched = {name for name in after if after[name] > before[name]}
+        must, must_not = COMB_LAUNCHES[way]
+        if not must <= launched or launched & must_not:
+            sys.exit(f"cuda_route_sweep: the {way} way launched {sorted(launched)}")
+        return got
+
+    saved = powm._SHARED_MIN_ROWS, powm._SHARED_MIN_GROUPS
     table = []
     try:
-        powm._SHARED_MIN_ROWS = 1  # every group on the comb
+        # every group on the comb
+        powm._SHARED_MIN_ROWS, powm._SHARED_MIN_GROUPS = 1, 1
         n = rng.getrandbits(2048) | 1 | (1 << 2047)
-        for fn, ladder_max in ways.values():  # builds, first launches
-            if ladder_max is not None:
-                montgomery._HOST_LADDER_MAX_GROUPS = ladder_max
-            fn([5] * 4, [rng.getrandbits(256) for _ in range(4)], [n] * 4, dev)
+        for way in ways:  # builds, first launches
+            run(way, [5] * 4, [rng.getrandbits(256) for _ in range(4)], [n] * 4, dev)
         for width in WIDTHS:
             for exp_bits in EXP_BITS:
-                for groups in COMB_GROUPS:
+                for groups in group_counts:
                     for per_group in COMB_ROWS:
                         moduli, bases = [], []
                         for _ in range(groups):
@@ -115,18 +127,12 @@ def comb_cells(dev, rng, reps, way_names=COMB_WAYS):
                         want = None
                         row = {"width": width, "exp_bits": exp_bits, "groups": groups,
                                "rows_per_group": per_group}
-                        for way, (fn, ladder_max) in ways.items():
-                            if ladder_max is not None:
-                                montgomery._HOST_LADDER_MAX_GROUPS = ladder_max
-
-                            def call():
-                                clear_caches()
-                                return fn(bases, exps, moduli, dev)
-
+                        for way in ways:
                             walls = []
                             for _ in range(reps):
+                                clear_caches()
                                 t0 = time.perf_counter()
-                                got = call()
+                                got = run(way, bases, exps, moduli, dev)
                                 walls.append(time.perf_counter() - t0)
                             if want is None:
                                 want = got
@@ -138,21 +144,17 @@ def comb_cells(dev, rng, reps, way_names=COMB_WAYS):
                         print(json.dumps(row), flush=True)
                         torch.cuda.empty_cache()
     finally:
-        powm._SHARED_MIN_ROWS, montgomery._HOST_LADDER_MAX_GROUPS = saved
+        powm._SHARED_MIN_ROWS, powm._SHARED_MIN_GROUPS = saved
     return table
 
 
 def comb_verdict(table):
     """What the comb cells imply: for each floor on the rows per group,
-    the least group count from which the comb (either ladder) is ahead of
-    the generic engine in every cell at or above both floors; and the
-    most groups up to which the host ladder is ahead of the card's in
-    every cell."""
-    inf = float("inf")
+    the least group count from which the comb is ahead of the generic
+    engine in every cell at or above both floors."""
 
     def comb_wins(r):
-        return min(r.get("comb_host_ms", inf), r.get("comb_card_ms", inf)) < r.get(
-            "generic_ms", inf)
+        return r["comb_ms"] < r["generic_ms"]
 
     lines = [f"comb: ahead of generic in {sum(map(comb_wins, table))} of {len(table)} cells"]
     group_counts = sorted({r["groups"] for r in table})
@@ -163,18 +165,9 @@ def comb_verdict(table):
         lines.append(f"comb: from {m} rows a group, ahead in every cell from {g} groups up"
                      if g is not None else
                      f"comb: from {m} rows a group, behind in some cell at every group count")
-    if all("comb_host_ms" in r and "comb_card_ms" in r for r in table):
-        max_groups = 0
-        for g in group_counts:
-            if not all(r["comb_host_ms"] < r["comb_card_ms"] for r in table if r["groups"] <= g):
-                break
-            max_groups = g
-        lines.append(f"comb: host ladder ahead of the card's in every cell up to {max_groups} "
-                     f"groups")
     for r in table:
         lines.append("comb: {width} bits, e={exp_bits}, {groups} x {rows_per_group}: ".format(**r)
-                     + ", ".join(f"{way} {r[way + '_ms']:.2f}" for way in COMB_WAYS
-                                 if way + "_ms" in r) + " ms")
+                     + ", ".join(f"{way} {r[way + '_ms']:.2f}" for way in COMB_WAYS) + " ms")
     return lines
 
 
@@ -188,8 +181,9 @@ def main():
                     help="comma-separated row counts of the rns cells (default: 8 .. 16384)")
     ap.add_argument("--reps", type=int, default=3,
                     help="timed calls per comb cell and way (default 3)")
-    ap.add_argument("--ways", default=",".join(COMB_WAYS),
-                    help="ways to time in the comb cells (default: all three)")
+    ap.add_argument("--groups", default=",".join(map(str, COMB_GROUPS)),
+                    help="comma-separated group counts of the comb cells "
+                         "(default: 1, 2, 4, 8, 16, 64, 256)")
     args = ap.parse_args()
     row_counts = [int(r) for r in args.rows.split(",") if r]
     cells = [c for c in args.cells.split(",") if c]
@@ -240,10 +234,8 @@ def main():
                            "kernel_ms": kern, "busy_ms": busy}
                     table.append(row)
                     print(json.dumps(row), flush=True)
-    ways = [w for w in args.ways.split(",") if w]
-    if any(w not in COMB_WAYS for w in ways):
-        sys.exit(f"cuda_route_sweep: unknown ways in {ways}")
-    comb = comb_cells(dev, rng, args.reps, ways) if "comb" in cells else []
+    group_counts = [int(g) for g in args.groups.split(",") if g]
+    comb = comb_cells(dev, rng, args.reps, group_counts) if "comb" in cells else []
     if comb:
         for line in comb_verdict(comb):
             print(line, flush=True)

@@ -2,24 +2,26 @@
 .shared_base_modexp) and its grouped routing (backend.powm
 .device_powm_shared / device_powm_grouped) against the JAX package.
 
-- `shared_base_modexp` against the JAX package's on XLA:CPU, with the
-  ladder on the host and on the device, unequal group sizes, an odd limb
-  count (K=9: the port's engine rounds it up to 10), a zero exponent and
-  a worst-case group (every limb of n at 0xFFFF, the base n - 1, every
-  exponent bit set).
+- `shared_base_modexp` against the JAX package's on XLA:CPU (its ladder
+  on the device, the port's only ladder), with unequal group sizes, an
+  odd limb count (K=9: the port's engine rounds it up to 10), a zero
+  exponent and a worst-case group (every limb of n at 0xFFFF, the base
+  n - 1, every exponent bit set).
+- The ladder's plain version against CPython pow: powers[w] =
+  base^(16^w) * R mod n.
 - `device_powm_shared` / `device_powm_grouped` against `tpu_powm_shared`
   / `tpu_powm_grouped` on a column of comb groups and loners, with the
   row-axis and group-axis tiling forced by a small `_MAX_ROWS`.
-- The comb powers cache: cold and warm calls agree, hits rise, and no
-  entry is shared by two moduli.
+- The comb's Montgomery contexts in the precompute cache: cold and warm
+  calls agree, hits rise, and no entry is shared by two modulus vectors.
 - Inside `forced_rns_route()`, `device_powm_grouped` launches no comb
   (counted by stand-ins for the kernel wrappers).
 - The comb wrappers' input checks.
 
 The port runs on device="cpu" (its kernels' plain versions). Inputs come
 from seeded generators and go to both packages; every comparison is
-exact. The JAX package's comb compiles at two shapes here: (8 groups, 16
-rows) with the powers given and without.
+exact. The JAX package's comb compiles at one shape here: (8 groups, 16
+rows), the powers computed on the device.
 """
 
 import contextlib
@@ -31,7 +33,7 @@ import torch
 from fsdkr_tpu.backend import powm as jpowm
 from fsdkr_tpu.ops import montgomery as jmont
 from fsdkr_tpu_torch.backend import powm
-from fsdkr_tpu_torch.ops import montgomery, montgomery_kernels
+from fsdkr_tpu_torch.ops import limbs, montgomery, montgomery_kernels
 from fsdkr_tpu_torch.utils import lru
 
 BITS = 144  # K = 9 limbs, odd
@@ -82,13 +84,25 @@ def _want(bases, exps, moduli):
     return [[pow(b, e, m) for e in es] for b, es, m in zip(bases, exps, moduli)]
 
 
-@pytest.mark.parametrize("host_ladder", [True, False], ids=["host-ladder", "device-ladder"])
-def test_shared_base_modexp_matches_reference(host_ladder):
+def test_shared_base_modexp_matches_reference():
     bases, exps, moduli = _groups()
-    got = montgomery.shared_base_modexp(bases, exps, moduli, 9, host_ladder=host_ladder,
-                                        device="cpu")
+    got = montgomery.shared_base_modexp(bases, exps, moduli, 9, device="cpu")
     assert got == _want(bases, exps, moduli)
-    assert got == jmont.shared_base_modexp(bases, exps, moduli, 9, host_ladder=host_ladder)
+    assert got == jmont.shared_base_modexp(bases, exps, moduli, 9, host_ladder=False)
+
+
+def test_comb_ladder_matches_pow():
+    """The ladder's wrapper on the CPU (its plain version): powers[w] = base^(16^w) * R mod n, R = 2^(16 K) with the engine's
+    even K."""
+    bases, _, moduli = _groups()
+    ctx = montgomery.BatchModExp(moduli, 9, "cpu")
+    k = ctx.ctx.num_limbs
+    base = limbs.to_device(limbs.ints_to_limbs(bases, k), "cpu")
+    powers = montgomery_kernels.comb_ladder(base, ctx._n, ctx._n_inv, ctx._r2, 16)
+    got = [limbs.limbs_to_ints(powers[w].numpy()) for w in range(16)]
+    r = 1 << (16 * k)
+    assert got == [[pow(b, 16 ** w, m) * r % m for b, m in zip(bases, moduli)]
+                   for w in range(16)]
 
 
 def _column():
@@ -161,36 +175,34 @@ def test_device_powm_grouped_matches_reference(reference_column, monkeypatch, ma
     assert seen == launches
 
 
-def test_comb_powers_cache_isolation():
-    """Cold and warm calls agree, the warm ones hit, and every cached
-    ladder is keyed by its own (base, modulus)."""
+def test_comb_context_cache_isolation():
+    """device_powm_shared's Montgomery contexts in the precompute cache:
+    cold and warm calls agree, the warm ones hit, and each modulus vector
+    has an entry of its own."""
     rng = random.Random(RNG_SEED + 2)
-    m_a, m_b = _modulus(rng), _modulus(rng)
-    bases_a = [rng.randrange(2, m_a) for _ in range(2)]
-    bases_b = [rng.randrange(2, m_b) for _ in range(2)]
-    exps = [[rng.getrandbits(256) for _ in range(4)] for _ in range(2)]
+    moduli_a = [_modulus(rng) for _ in range(2)]
+    moduli_b = [_modulus(rng) for _ in range(2)]
+    bases_a = [rng.randrange(2, m) for m in moduli_a]
+    bases_b = [rng.randrange(2, m) for m in moduli_b]
+    exps = [[rng.getrandbits(64) for _ in range(4)] for _ in range(2)]
 
-    def run(bases, m):
-        return montgomery.shared_base_modexp(bases, exps, [m] * 2, 9, host_ladder=True,
-                                             device="cpu")
+    def run(bases, moduli):
+        return powm.device_powm_shared(bases, exps, moduli, "cpu")
 
+    cold_a = run(bases_a, moduli_a)
     lru.clear_caches()
-    cold_a = run(bases_a, m_a)
+    cold_b = run(bases_b, moduli_b)
     lru.clear_caches()
-    cold_b = run(bases_b, m_b)
-    lru.clear_caches()
-    assert run(bases_a, m_a) == cold_a
-    assert run(bases_b, m_b) == cold_b
+    assert run(bases_a, moduli_a) == cold_a
+    assert run(bases_b, moduli_b) == cold_b
     hits = lru.cache_stats()["hits"]
-    assert run(bases_a, m_a) == cold_a
-    assert run(bases_b, m_b) == cold_b
-    assert lru.cache_stats()["hits"] == hits + 4
-    assert cold_a == _want(bases_a, exps, [m_a] * 2)
-    assert cold_b == _want(bases_b, exps, [m_b] * 2)
-    keys = [key for key in lru._GLOBAL._d if key[0] == "comb-powers"]
-    assert sorted((b, m) for _, b, m, _, _ in keys) == sorted(
-        [(b, m_a) for b in bases_a] + [(b, m_b) for b in bases_b])
-    assert all(key[3:] == (64, 10) for key in keys)  # 64 windows, K rounded to 10
+    assert run(bases_a, moduli_a) == cold_a
+    assert run(bases_b, moduli_b) == cold_b
+    assert lru.cache_stats()["hits"] == hits + 2
+    assert cold_a == _want(bases_a, exps, moduli_a)
+    assert cold_b == _want(bases_b, exps, moduli_b)
+    ctxs = [ctx for key, ctx in lru._GLOBAL._d.items() if key[0] == "mont-ctx"]
+    assert sorted(ctx.ctx.moduli for ctx in ctxs) == sorted([moduli_a, moduli_b])
 
 
 @pytest.mark.parametrize("forced", [False, True], ids=["routed", "rns-forced"])
@@ -208,7 +220,6 @@ def test_forced_rns_route_launches_no_comb(monkeypatch, forced):
             return _raw(*args, **kwargs)
 
         monkeypatch.setattr(montgomery_kernels, name, counted)
-    monkeypatch.setattr(montgomery, "_HOST_LADDER_MAX_GROUPS", 0)  # the device ladder
     rng = random.Random(RNG_SEED + 3)
     m1, m2 = (rng.getrandbits(256) | 1 | (1 << 255) for _ in range(2))
     bases = [3] * 6 + [5] * 6 + [7, 11]
