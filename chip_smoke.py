@@ -16,16 +16,21 @@ Phases:
            class (k=454, where kernel 2 holds 4 rows per block), with row
            counts that do and do not fill the row tiles (kernel 1 also at
            1 and 13 rows at every class and at the main path's 4096 rows);
-           the three CIOS kernels at K=16, 128, 256 and 512 limbs on 1 and
-           13 rows, and at K=16 and 512 on 256 rows (the main path's
-           shapes cover K=128 and 256 at 256 rows and more, in the `time`
-           phase). Random rows (with a modulus-3 row and a zero exponent)
-           and worst-case rows (every limb of x and y at n-1, every
-           exponent bit set): results must be bit-identical. The comb's
-           two kernels (`cios_comb`, `cios_comb_ladder`) at K=16, 128, 256
-           and 512 on 1 group x 8 rows, 3 groups x 13 rows and 16 x 256,
-           random and worst-case groups (every limb of the table and the
-           base at n-1, every exponent bit set).
+           the three CIOS kernels at K=16, 128, 130, 256, 512, 1022 and
+           1024 limbs on 1 and 13 rows, and at K=16 and 512 on 256 rows
+           (130 and 1022: an odd word count; the main path's shapes cover
+           K=128 and 256 at 256 rows and more, in the `time` phase). Random
+           rows (with a modulus-3 row and a zero exponent) and worst-case
+           rows (every limb of x and y at n-1, every exponent bit set):
+           results must be bit-identical. The segmented `cios_modexp`
+           launch over mixed segments (K=128 and 256, 256- to 3072-bit
+           exponents, 8-512 rows, each half random and half worst-case)
+           against the plain version per segment. The comb's two kernels
+           (`cios_comb`, `cios_comb_ladder`) at K=16, 128, 256 and 512 on
+           1 group x 8 rows, 3 groups x 13 rows and 16 x 256, and the
+           ladder at K=130, 1022 and 1024 on the first two, random and
+           worst-case groups (every limb of the table and the base at n-1,
+           every exponent bit set).
   routes   device_powm / device_modmul (every launch through the CIOS
            engine, as routed) and the RNS route itself against CPython pow
            at 2048- and 4096-bit moduli; both entry points at 8192-bit
@@ -40,7 +45,9 @@ Phases:
            column's 16 groups of 256 rows sharing (T, N) take the comb)
            must each launch over
            distribute + collect; launches per collect are
-           printed for every kernel; after the first collect, the precompute
+           printed for every kernel, and `cios_modexp` must launch twice a
+           collect (once per `powm_columns` call or column: the pair
+           families' columns, then correct-key's); after the first collect, the precompute
            cache must see no miss (every modulus's constants computed
            once). Then the RNS route's path, the earlier slices' main
            path cut to one collect: inside forced_rns_route(), both RNS
@@ -59,6 +66,11 @@ Phases:
            CUDA events around back-to-back wrapper calls (the wrapper's
            host work included where it is the slower side), and
            `device_ms`, the kernel's own device time (torch.profiler).
+           A `cios_modexp` shape is its launch's segments; the launch of
+           the most segments (the pair families' columns) is timed beside
+           each of its segments alone, and every `cios_modexp` and ladder
+           time is also given in ns per CIOS step of the launch's longest
+           chain.
 
 Prints the kernels line `{"kernels": [...]}` and, last, `{"ok": true,
 "device": {...}}`. Any failure exits non-zero with no result line.
@@ -215,6 +227,28 @@ def cios_calls(name, args, exp_bits):
 CIOS = ("cios_mont_mul", "cios_modmul", "cios_modexp")
 
 
+def modexp_segment_inputs(dev, rng, segments):
+    """One `cios_modexp` segment tuple per (K, rows, exp_bits) of
+    `segments`, on fresh inputs whose rows are half random, half
+    worst-case."""
+    segs = []
+    for k, rows, exp_bits in segments:
+        x, _, n, ni, r2, one, exp = cios_inputs(rng, dev, k, rows, exp_bits, rows // 2)
+        segs.append((x, exp, n, ni, r2, one, exp_bits))
+    return segs
+
+
+def modexp_segment_calls(dev, rng, segments):
+    """(kernel call, plain call) of one segmented `cios_modexp` launch over
+    `segments` (`modexp_segment_inputs`): the kernel's results as a list,
+    and the plain version's per segment."""
+    from fsdkr_tpu_torch.ops import montgomery, montgomery_kernels as mk
+
+    segs = modexp_segment_inputs(dev, rng, segments)
+    return (lambda: mk.modexp_segments(segs),
+            lambda: [montgomery._modexp_kernel(*seg[:6], exp_bits=seg[6]) for seg in segs])
+
+
 def comb_inputs(rng, dev, k, groups, per_group, exp_bits, worst):
     """(table, exp, base, n, n_inv, r2, one_mont) int32 tensors for the
     comb's kernels at K=k limbs: random groups (group 0 modulo 3, its
@@ -338,12 +372,13 @@ def phase_kernels(dev, rng):
                     fail(f"modexp k={rb.k} rows={rows} worst={worst}: {bad} residues differ")
             log(f"kernels == plain, bit-identical: {'+'.join(names)} k={rb.k} "
                 f"rows={rows} exp_bits={exp_bits} worst_case={worst}")
-    # the CIOS kernels: K=16 leaves lanes idle, 128 / 256 / 512 fill 2 / 4 /
-    # 8 words a lane (512: the 8192-bit route); the main path's shapes
-    # hold K=128 and 256 at 256 rows and more (`time` phase)
+    # the CIOS kernels: K=16 leaves lanes idle, 128 / 256 / 512 / 1024 fill
+    # 2 / 4 / 8 / 16 words a lane (512: the 8192-bit route); 130 and 1022
+    # leave an odd word count; the main path's shapes hold K=128 and 256
+    # at 256 rows and more (`time` phase)
     exp_bits = 64
-    for k in (16, 128, 256, 512):
-        for rows in (1, 13) if k in (128, 256) else (1, 13, 256):
+    for k in (16, 128, 130, 256, 512, 1022, 1024):
+        for rows in (1, 13, 256) if k in (16, 512) else (1, 13):
             for worst in (False, True):
                 args = cios_inputs(rng, dev, k, rows, exp_bits, worst)
                 for name in CIOS:
@@ -352,21 +387,32 @@ def phase_kernels(dev, rng):
                         fail(f"{name} K={k} rows={rows} worst={worst}: differs from plain")
             log(f"kernels == plain, bit-identical: {'+'.join(CIOS)} K={k} rows={rows} "
                 f"exp_bits={exp_bits}, random and worst-case rows")
+    # the segmented modexp: mixed K, exponent widths and row counts in one
+    # launch (blocks of the longest chain first, narrow and wide bodies
+    # side by side), each segment half random and half worst-case
+    segments = ((128, 8, 256), (256, 13, 768), (128, 512, 3072), (256, 64, 2048),
+                (128, 100, 768), (256, 512, 256))
+    kernel, plain = modexp_segment_calls(dev, rng, segments)
+    if _max_err(kernel(), plain()):
+        fail(f"cios_modexp over segments {segments}: differs from plain")
+    log(f"kernels == plain, bit-identical: cios_modexp, one launch of segments (K, rows, "
+        f"exp_bits) {segments}, each half random and half worst-case")
     # the comb's kernels: one group (the 4 warps of a block share it), 13
     # rows a group (blocks straddle groups), and the ring-Pedersen column's
     # 16 groups x 256 rows
-    for k in (16, 128, 256, 512):
-        for groups, per_group in ((1, 8), (3, 13), (16, 256)):
+    for k in (16, 128, 130, 256, 512, 1022, 1024):
+        big = k in (16, 128, 256, 512)
+        for groups, per_group in ((1, 8), (3, 13), (16, 256)) if big else ((1, 8), (3, 13)):
             for worst in (False, True):
                 args = comb_inputs(rng, dev, k, groups, per_group, exp_bits, worst)
-                for name in COMB:
+                for name in COMB if big else ("cios_comb_ladder",):
                     kernel, plain = comb_calls(name, args, exp_bits)
                     if _max_err(kernel(), plain()):
                         fail(f"{name} K={k} groups={groups} rows={per_group} "
                              f"worst={worst}: differs from plain")
-            log(f"kernels == plain, bit-identical: {'+'.join(COMB)} K={k} groups={groups} "
-                f"rows per group={per_group} exp_bits={exp_bits}, random and worst-case "
-                f"groups")
+            log(f"kernels == plain, bit-identical: {'+'.join(COMB) if big else COMB[1]} K={k} "
+                f"groups={groups} rows per group={per_group} exp_bits={exp_bits}, random "
+                f"and worst-case groups")
 
 
 def phase_routes(dev, rng):
@@ -513,7 +559,7 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     shapes = {
         "cios_mont_mul": dict(montgomery_kernels.mont_mul.shapes),
         "cios_modmul": dict(montgomery_kernels.modmul.shapes),
-        "cios_modexp": dict(montgomery_kernels.modexp.shapes),
+        "cios_modexp": dict(montgomery_kernels.modexp_segments.shapes),
         "cios_comb": dict(montgomery_kernels.comb.shapes),
         "cios_comb_ladder": dict(montgomery_kernels.comb_ladder.shapes),
     }
@@ -531,6 +577,11 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
             + ", ".join(f"{shape}: {c}" for shape, c in sorted(by_shape.items())))
     if not all(counts[name] > 0 for name in counts):
         fail(f"a kernel of the main path never launched: {counts}")
+    # one segmented launch per powm_columns call: the pair families'
+    # columns, then correct-key's column
+    if per_collect_launches["cios_modexp"] != 2:
+        fail(f"cios_modexp launched {per_collect_launches['cios_modexp']} times a collect, "
+             f"expected 2")
     log(f"main: precompute cache (hits, misses) per collect: {cache}; "
         f"{powm_cache_stats()}")
     if any(miss for _, miss in cache[1:]):
@@ -633,14 +684,16 @@ _SPANS = (
     ("fsdkr_tpu_torch.protocol.refresh", "share_recovery_check", None),
     ("fsdkr_tpu_torch.backend.cuda_verifier", "verify_correct_key", "CudaBatchVerifier"),
     ("fsdkr_tpu_torch.protocol.refresh", "adopt_session", None),
-    ("fsdkr_tpu_torch.backend.cuda_verifier", "device_powm_grouped", None),
+    ("fsdkr_tpu_torch.backend.powm", "device_powm_batches", None),
     ("fsdkr_tpu_torch.backend.cuda_verifier", "device_modmul", None),
-    # the grouped column's two routes: the comb and the generic engine
+    # the grouped columns' two routes: the comb and the generic engine
+    # (every width batch of a powm_columns call in one launch)
     ("fsdkr_tpu_torch.backend.powm", "device_powm_shared", None),
+    ("fsdkr_tpu_torch.ops.montgomery", "modexp_batches", None),
+    # the RNS route's (inside forced_rns_route()); the CIOS modmul, the
+    # comb (their results end in a host copy) and the batch inverse's
+    # product tree
     ("fsdkr_tpu_torch.backend.powm", "device_powm", None),
-    # the CIOS route inside them (its results end in a host copy) and the
-    # batch inverse's product tree
-    ("fsdkr_tpu_torch.ops.montgomery", "modexp", "BatchModExp"),
     ("fsdkr_tpu_torch.ops.montgomery", "modmul", "BatchModExp"),
     ("fsdkr_tpu_torch.ops.montgomery", "shared_base_modexp", None),
     ("fsdkr_tpu_torch.ops.montgomery", "batch_mod_inv_grouped", None),
@@ -653,7 +706,7 @@ _SPANS = (
 _RNS_SPANS = ("_row_consts", "ints_to_limbs", "to_device", "_limbs_to_residues",
               "_crt_exit_kernel", "limbs_to_ints")
 # the same for the CIOS engine's steps (ops/montgomery.py's globals)
-_CIOS_SPANS = ("ints_to_limbs", "to_device", "_download", "_comb_table")
+_CIOS_SPANS = ("ints_to_limbs", "to_device", "_download_all", "_comb_table")
 
 
 def span_collect(msgs, spare, config, label):
@@ -717,7 +770,7 @@ def span_collect(msgs, spare, config, label):
     patched.append((rns, "rns_kernels", rns_kernels))
     rns.rns_kernels = proxy
     proxy = types.SimpleNamespace(**vars(montgomery_kernels))
-    for attr in ("mont_mul", "modmul", "modexp", "comb", "comb_ladder"):
+    for attr in ("mont_mul", "modmul", "modexp_segments", "comb", "comb_ladder"):
         setattr(proxy, attr, wrap(f"cios_{attr}", getattr(montgomery_kernels, attr),
                                   sync=True))
     patched.append((montgomery, "montgomery_kernels", montgomery_kernels))
@@ -867,9 +920,13 @@ def _bits_of_k(k):
 
 
 def _max_err(got, want):
+    """The largest absolute difference of two tensors, or of two lists of
+    tensors (a segmented launch's results)."""
     import torch
 
     torch.cuda.synchronize()
+    if isinstance(got, list):
+        return max(_max_err(g, w) for g, w in zip(got, want))
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
@@ -982,25 +1039,62 @@ def _time_launch(name, fn):
     return _events_ms(fn, reps), _device_ms(fn, reps, name)
 
 
+def modexp_bound(segments):
+    """A segmented `cios_modexp` launch's bound: the sum of its segments'
+    bounds, each as `bound_ms` gives it; bound by what bounds the largest."""
+    parts = [bound_ms("cios_modexp", k, rows, exp_bits) for k, rows, exp_bits in segments]
+    return sum(ms for ms, _ in parts), max(parts)[1]
+
+
+def chain_steps(name, shape):
+    """CIOS steps (one per 32-bit word of a product) along the longest
+    chain of a `cios_modexp` launch (its segments') or a ladder launch."""
+    if name == "cios_modexp":
+        return max((16 + 5 * exp_bits // 4) * (k // 2) for k, _, exp_bits in shape)
+    k, _, exp_bits = shape
+    return (1 + 4 * (exp_bits // 4 - 1)) * (k // 2)
+
+
+def _case(name, shape, dev, rng):
+    """One main-path launch shape on fresh inputs, rows (the comb's:
+    groups) half random and half worst-case: (kernel call, plain call,
+    bound ms, what bounds it, the shape as text, its JSON fields)."""
+    if name == "cios_modexp":
+        kernel, plain = modexp_segment_calls(dev, rng, shape)
+        bound, by = modexp_bound(shape)
+        text = "segments (K, rows, exp_bits) " + ", ".join(map(str, shape))
+        return kernel, plain, bound, by, text, {"segments": [list(seg) for seg in shape]}
+    k, rows, exp_bits, groups = _shape(name, shape)
+    half = (groups or rows) // 2 if name in COMB else rows // 2
+    kernel, plain = kernel_calls(name, dev, rng, k, rows, exp_bits, half, groups)
+    bound, by = bound_ms(name, k, rows, exp_bits, groups)
+    return (kernel, plain, bound, by, _shape_str(name, k, rows, exp_bits, groups),
+            {"k": k, "rows": rows, "exp_bits": exp_bits, "groups": groups})
+
+
+def _per_step(name, shape, dms):
+    if name not in ("cios_modexp", "cios_comb_ladder"):
+        return ""
+    return f", {dms * 1e6 / chain_steps(name, shape):.2f} ns per CIOS step of the longest chain"
+
+
 def check_and_time_shapes(dev, rng, shapes):
     """Each kernel at every shape the main path launched it with, on one
-    set of inputs whose first half of rows (the comb's: groups) is random
-    and second half worst-case: the kernel against its plain version
-    (bit-identical), the plain version's time (CUDA events, one call),
-    the kernel's times (CUDA events and device time; no kernel's work
-    depends on its data) and its bound. Returns the largest absolute
-    difference of each kernel (0 when bit-identical), the plain times by
-    (name, shape) and the rows of the per-shape table."""
+    set of inputs whose first half of rows (the comb's: groups; a
+    segmented launch's: each segment's) is random and second half
+    worst-case: the kernel against its plain version (bit-identical), the
+    plain version's time (CUDA events, one call), the kernel's times
+    (CUDA events and device time; no kernel's work depends on its data)
+    and its bound. Returns the largest absolute difference of each kernel
+    (0 when bit-identical), the plain times by (name, shape) and the rows
+    of the per-shape table."""
     errs = {name: 0 for name in KERNELS}
     plain_ms, table = {}, []
     t0 = time.perf_counter()
     for name, by_shape in shapes.items():
         for shape, launches in sorted(by_shape.items()):
             t1 = time.perf_counter()
-            k, rows, exp_bits, groups = _shape(name, shape)
-            half = (groups or rows) // 2 if name in COMB else rows // 2
-            kernel, plain = kernel_calls(name, dev, rng, k, rows, exp_bits, half, groups)
-            shape_s = _shape_str(name, k, rows, exp_bits, groups)
+            kernel, plain, bound, by, shape_s, fields = _case(name, shape, dev, rng)
             want, plain_ms[name, shape] = _timed_ms(plain)
             err = _max_err(kernel(), want)
             errs[name] = max(errs[name], err)
@@ -1008,47 +1102,73 @@ def check_and_time_shapes(dev, rng, shapes):
                 fail(f"{name} disagrees with its plain version at {shape_s}")
             del want
             ms, dms = _time_launch(name, kernel)
-            bound, by = bound_ms(name, k, rows, exp_bits, groups)
             log(f"time: per shape {name} {shape_s}: == plain; events {ms:.4f} ms, "
                 f"device {dms:.4f} ms, bound {bound:.6f} ms ({by}), device "
                 f"{dms / bound:.1f}x bound, plain {plain_ms[name, shape]:.4f} ms, "
-                f"{launches} launches ({time.perf_counter() - t1:.1f} s)")
-            table.append({"name": name, "k": k, "rows": rows, "exp_bits": exp_bits,
-                          "groups": groups, "launches": launches, "ms": ms,
-                          "device_ms": dms, "bound_ms": bound})
+                f"{launches} launches{_per_step(name, shape, dms)} "
+                f"({time.perf_counter() - t1:.1f} s)")
+            table.append({"name": name, "shape": shape, "text": shape_s, "by": by,
+                          **fields, "launches": launches, "ms": ms, "device_ms": dms,
+                          "bound_ms": bound})
     log(f"time: every kernel == plain, bit-identical, at all {len(table)} main-path "
         f"shapes, rows (the comb's: groups) half random, half worst-case; checked and "
         f"timed in {time.perf_counter() - t0:.1f} s")
     return errs, plain_ms, table
 
 
+def time_segments_alone(dev, rng, segments):
+    """The segmented `cios_modexp` launch over `segments` beside each of
+    its segments launched alone, on the same inputs, by device time;
+    returns {"joint_ms", "alone": [[K, rows, exp_bits, device ms], ...]}."""
+    from fsdkr_tpu_torch.ops import montgomery_kernels as mk
+
+    segs = modexp_segment_inputs(dev, rng, segments)
+    reps = KERNELS["cios_modexp"][3]
+    joint = _device_ms(lambda: mk.modexp_segments(segs), reps, "cios_modexp")
+    alone = []
+    for shape, seg in zip(segments, segs):
+        alone.append([*shape, _device_ms(lambda: mk.modexp_segments([seg]), reps,
+                                         "cios_modexp")])
+        log(f"time: cios_modexp segment {shape} alone: device {alone[-1][-1]:.4f} ms"
+            f"{_per_step('cios_modexp', (shape,), alone[-1][-1])}")
+    longest = max(ms for *_, ms in alone)
+    log(f"time: cios_modexp over the {len(segments)} segments {segments} in one launch: "
+        f"device {joint:.4f} ms{_per_step('cios_modexp', segments, joint)}; the longest "
+        f"segment alone {longest:.4f} ms, the segments alone one after another "
+        f"{sum(ms for *_, ms in alone):.4f} ms; joint / longest alone "
+        f"{joint / longest:.3f}")
+    return {"joint_ms": joint, "alone": alone}
+
+
 def _cost(name, shape, launches):
+    if name == "cios_modexp":
+        return sum(k * k * rows * exp_bits for k, rows, exp_bits in shape) * max(launches, 1)
     k, rows, exp_bits, _ = _shape(name, shape)
     return k * k * rows * (exp_bits or 1) * max(launches, 1)
 
 
 def phase_time(dev, rng, counts, shapes):
     """`counts` and `shapes` are the main path's launch counts, in total
-    and by kernel and shape ((k, rows) or (k, rows, exp_bits) ->
-    launches)."""
+    and by kernel and shape ((k, rows), (k, rows, exp_bits), the comb's
+    (k, groups, rows per group, exp_bits), or a `cios_modexp` launch's
+    segments -> launches)."""
     if not all(shapes.values()):
         fail("no main-path launch shapes recorded for a kernel")
     errs, plain_times, per_shape = check_and_time_shapes(dev, rng, shapes)
+    # the launch of the most segments: the pair families' columns
+    pairs = max(shapes["cios_modexp"], key=lambda s: (len(s), _cost("cios_modexp", s, 1)))
+    alone = time_segments_alone(dev, rng, pairs)
     # the kernels line: each kernel at its costliest shape on the main path
     out = []
     for name, by_shape in shapes.items():
         shape = max(by_shape, key=lambda s: _cost(name, s, by_shape[s]))
-        k, rows, exp_bits, groups = _shape(name, shape)
-        row = next(r for r in per_shape if r["name"] == name and
-                   (r["k"], r["rows"], r["exp_bits"], r["groups"])
-                   == (k, rows, exp_bits, groups))
+        row = next(r for r in per_shape if r["name"] == name and r["shape"] == shape)
         ms, dms, bound = row["ms"], row["device_ms"], row["bound_ms"]
         plain_ms = plain_times[name, shape]
-        _, by = bound_ms(name, k, rows, exp_bits, groups)
-        shape_s = _shape_str(name, k, rows, exp_bits, groups)
-        log(f"time: {name} at {shape_s}: events {ms:.4f} ms, device {dms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({by})")
+        log(f"time: {name} at {row['text']}: events {ms:.4f} ms, device {dms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({row['by']})")
         _, source, replaces, _ = KERNELS[name]
+        fields = ("segments",) if name == "cios_modexp" else ("k", "rows", "exp_bits", "groups")
         out.append({
             "name": name,
             "route": "cuda",
@@ -1060,13 +1180,13 @@ def phase_time(dev, rng, counts, shapes):
             "device_ms": dms,
             "plain_ms": plain_ms,
             "bound_ms": bound,
-            "bound_by": by,
+            "bound_by": row["by"],
             "library_ms": None,
-            "shape": shape_s,
-            "per_shape": [{key: row[key] for key in ("k", "rows", "exp_bits", "groups",
-                                                     "launches", "ms", "device_ms",
-                                                     "bound_ms")}
-                          for row in per_shape if row["name"] == name],
+            "shape": row["text"],
+            "per_shape": [{key: r[key] for key in (*fields, "launches", "ms", "device_ms",
+                                                   "bound_ms")}
+                          for r in per_shape if r["name"] == name],
+            **({"segments_alone": alone} if name == "cios_modexp" else {}),
         })
     return out
 

@@ -30,6 +30,7 @@ Hash transcripts are recomputed on the host.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Dict, List
 
 from ..config import ProtocolConfig, DEFAULT_CONFIG
@@ -78,12 +79,11 @@ class CudaBatchVerifier(BatchVerifier):
         self.config = config
         self.device = config.torch_device()
         self._host = HostBatchVerifier(config.hash_alg)
-
-    def _modexp(self, bases, exps, moduli):
-        """One batched multi-modulus modexp: rows sharing a (base,
-        modulus) pair ride the fixed-base comb, the rest the generic
-        engine (backend.powm.device_powm_grouped)."""
-        return device_powm_grouped(bases, exps, moduli, self.device)
+        # one batched multi-modulus modexp: rows sharing a (base, modulus)
+        # pair ride the fixed-base comb, the rest the generic engine
+        # (backend.powm.device_powm_grouped); powm_columns launches the
+        # generic rows of all its width batches together
+        self._modexp = partial(device_powm_grouped, device=self.device)
 
     def _modmul(self, a, b, moduli):
         return device_modmul(a, b, moduli, self.device)

@@ -224,19 +224,19 @@ def device_powm_grouped(bases, exps, moduli, device="cuda") -> List[int]:
     That is the shape of the collect columns: ring-Pedersen rows share
     (T, N) per message, PDL and range rows (h1 | h2, N~) per receiver.
     Inside `forced_rns_route()` every row takes device_powm (the RNS
-    comb is not ported)."""
-    if _rns_forced():
-        return device_powm(bases, exps, moduli, device)
+    comb is not ported). One batch of `device_powm_batches`."""
+    return device_powm_batches([(bases, exps, moduli)], device)[0]
+
+
+def _comb_rows(bases, exps, moduli, out, device) -> List[int]:
+    """The batch's comb groups through device_powm_shared, their results
+    into `out`; returns the indices of the other rows."""
     groups: dict = {}
     for i, (b, m) in enumerate(zip(bases, moduli)):
         groups.setdefault((b, m), []).append(i)
     shared = [(key, rows) for key, rows in groups.items() if len(rows) >= _SHARED_MIN_ROWS]
     if len(shared) < _SHARED_MIN_GROUPS:
         shared = []
-    in_comb = {i for _, rows in shared for i in rows}
-    loners = [i for i in range(len(bases)) if i not in in_comb]
-
-    out: List = [None] * len(bases)
     if shared:
         res = device_powm_shared(
             [key[0] for key, _ in shared],
@@ -247,12 +247,53 @@ def device_powm_grouped(bases, exps, moduli, device="cuda") -> List[int]:
         for (_, rows), vals in zip(shared, res):
             for i, v in zip(rows, vals):
                 out[i] = v
-    if loners:
-        vals = device_powm([bases[i] for i in loners], [exps[i] for i in loners],
-                           [moduli[i] for i in loners], device)
-        for i, v in zip(loners, vals):
-            out[i] = v
-    return out
+    in_comb = {i for _, rows in shared for i in rows}
+    return [i for i in range(len(bases)) if i not in in_comb]
+
+
+def device_powm_batches(batches, device="cuda") -> List[List[int]]:
+    """device_powm_grouped over several (bases, exps, moduli) batches at
+    once. Each batch's comb groups launch as device_powm_grouped launches
+    them; the other rows of every batch share one segmented `cios_modexp`
+    launch (`ops.montgomery.modexp_batches`), downloaded once: a segment
+    per batch, tiled and padded as device_powm tiles and pads it, on the
+    same cached context, so results and cache keys are device_powm's. A
+    launch holds at most _MAX_ROWS rows and MAX_SEGMENTS segments; more
+    take more launches. Inside `forced_rns_route()` every batch takes
+    device_powm."""
+    if _rns_forced():
+        return [device_powm(*batch, device) for batch in batches]
+    from ..ops.montgomery import modexp_batches
+    from ..ops.montgomery_kernels import MAX_SEGMENTS
+
+    outs, jobs = [], []  # jobs: (ctx, bases, exps, out, row indices)
+    for bases, exps, moduli in batches:
+        out: List = [None] * len(bases)
+        outs.append(out)
+        rest = _comb_rows(bases, exps, moduli, out, device)
+        for lo in range(0, len(rest), _MAX_ROWS):
+            idx = rest[lo : lo + _MAX_ROWS]
+            pad = _pad_pow2(len(idx)) - len(idx)
+            mods = [moduli[i] for i in idx] + [3] * pad
+            ctx = _cached_ctx(mods, limbs_for_bits(max(m.bit_length() for m in mods)), device)
+            jobs.append((ctx, [bases[i] for i in idx] + [1] * pad,
+                         [exps[i] for i in idx] + [0] * pad, out, idx))
+
+    def launch(group):
+        for (*_, out, idx), res in zip(group, modexp_batches([j[:3] for j in group])):
+            for i, v in zip(idx, res):
+                out[i] = v
+
+    group, rows = [], 0
+    for job in jobs:
+        if group and (rows + len(job[1]) > _MAX_ROWS or len(group) == MAX_SEGMENTS):
+            launch(group)
+            group, rows = [], 0
+        group.append(job)
+        rows += len(job[1])
+    if group:
+        launch(group)
+    return outs
 
 
 def device_modmul(a, b, moduli, device="cuda") -> List[int]:
@@ -287,11 +328,16 @@ def powm_columns(powm: BatchPowm, *columns):
     launches and split the results back.
 
     Columns are fused ONLY within the same bucketed exponent width AND
-    the same modulus limb width: a launch costs sequential depth
+    the same modulus limb width: a batch costs sequential depth
     proportional to its widest exponent and is sized by its widest
-    modulus, so a narrow column riding a wide launch would pay for the
+    modulus, so a narrow column riding a wide batch would pay for the
     width. Identical columns (the PDL and Alice provers both commit
     h1^x mod N~ over the same share column) share one computation.
+
+    Where `powm` is device_powm_grouped bound to a device by `partial`
+    (`get_batch_powm`, the verifier's `_modexp`), the batches go to
+    device_powm_batches together: each batch is a segment of one
+    `cios_modexp` launch, so the batches' chains run side by side.
     """
     by_prefix: dict = {}  # cheap prefix -> [column indices]
     alias: dict = {}  # later column index -> first column index
@@ -323,9 +369,15 @@ def powm_columns(powm: BatchPowm, *columns):
         e += list(exps)
         m += list(moduli)
 
+    batches = list(flat.values())
+    if isinstance(powm, partial) and powm.func is device_powm_grouped:
+        # the device route: every width batch's generic rows in one launch
+        results = device_powm_batches([(b, e, m) for b, e, m, _ in batches],
+                                      *powm.args, **powm.keywords)
+    else:
+        results = [powm(b, e, m) for b, e, m, _ in batches]
     out: list = [None] * len(columns)
-    for b, e, m, spans in flat.values():
-        res = powm(b, e, m)
+    for (_, _, _, spans), res in zip(batches, results):
         for col, lo, hi in spans:
             out[col] = res[lo:hi]
     for col, dup in alias.items():

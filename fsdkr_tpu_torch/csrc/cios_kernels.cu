@@ -58,7 +58,16 @@
 // _modexp_kernel in one launch: entry by r2 = R^2 mod n, the 16-entry
 // window table (entry 0 the Montgomery one R mod n) in the warp's shared
 // memory (16 * 32P words, 16 KB at K=512), exp_bits/4 windows of four
-// squarings and one table multiply, exit by a product with 1.
+// squarings and one table multiply, exit by a product with 1. A launch
+// takes a table of up to 32 segments, each with its own K, rows,
+// exponent width and tensors (a column call's width batches), as a
+// grouped GEMM takes its problems: a block never spans two segments, the
+// blocks of the longest chain come first, and a block runs the body of
+// its segment's P inside a kernel built for the launch's largest P. One
+// row is a chain of 5W + 17 dependent products at 256-512 rows a batch,
+// one warp per row, at most one warp per scheduler; the segments of one
+// launch run side by side, where separate launches ran one after
+// another.
 //
 // Exponents may be secret (shares, nonces) and bases too (Paillier
 // randomness): the loop length is the bucketed exp_bits the caller passes,
@@ -92,6 +101,14 @@ namespace {
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kWarps = 4;  // rows per block: one warp per row
+
+// P: the words per lane, a power of two with 32P >= K/2
+__host__ __device__ __forceinline__ int words_per_lane(int K) {
+  const int W = K / 2;
+  int P = 1;
+  while (32 * P < W) P *= 2;
+  return P;
+}
 
 // A lane's P words of one row, from (or to) 16-bit limbs.
 template <int P>
@@ -288,33 +305,51 @@ cios_modmul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
 }
 
 // ---------------------------------------------------------------------------
-// fsdkr_cios_modexp: base^exp mod n per row, 4-bit fixed windows
+// fsdkr_cios_modexp: base^exp mod n per row, 4-bit fixed windows, over a
+// table of segments in one launch
 
+// One segment: its own K, rows, exponent width and tensors. A block never
+// spans two segments; first_block is the segment's first block.
+struct ModexpSegment {
+  const int32_t* base;
+  const int32_t* exp;
+  const int32_t* n;
+  const int32_t* n_inv;
+  const int32_t* r2;
+  const int32_t* one_mont;
+  int32_t* out;
+  int rows, K, exp_limbs, exp_bits;
+  int first_block;
+};
+
+constexpr int kMaxSegments = 32;
+constexpr int kSegmentWords = 11;  // int64 words a segment in the caller's table
+
+// The launch's segment table travels as the kernel's parameter (in the
+// constant bank; a launch's parameters take at most 4 KB): no allocation,
+// no copy ahead of the launch
+struct ModexpTable {
+  ModexpSegment seg[kMaxSegments];
+  int count;
+};
+static_assert(sizeof(ModexpTable) <= 4096, "the segment table must fit a launch's parameters");
+
+// One warp's row of a segment: the whole exponentiation of _modexp_kernel
 template <int P>
-__global__ void __launch_bounds__(kWarps * 32)
-cios_modexp_kernel(const int32_t* __restrict__ base, const int32_t* __restrict__ exp,
-                   int exp_limbs, int exp_bits, const int32_t* __restrict__ n,
-                   const int32_t* __restrict__ n_inv, const int32_t* __restrict__ r2,
-                   const int32_t* __restrict__ one_mont, int rows, int K,
-                   int32_t* __restrict__ out) {
-  extern __shared__ __align__(16) uint32_t smem_words[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row = blockIdx.x * kWarps + warp;
-  if (row >= rows) return;
+__device__ __forceinline__ void modexp_row(const ModexpSegment& sg, int row, int lane,
+                                           uint32_t* __restrict__ table) {
+  const int K = sg.K;
   const int W = K / 2;
   const size_t off = (size_t)row * K;
   // the warp's window table: entry e, word slot s of lane l at
   // (e * P + s) * 32 + l (consecutive lanes, consecutive banks)
-  uint32_t* table = smem_words + (size_t)warp * 16 * P * 32;
-
   uint32_t nv[P], acc[P], bm[P], tmp[P];
-  load_words<P>(nv, n + off, W, lane);
-  const uint32_t np = nprime_of(n_inv, K, row);
-  load_words<P>(bm, base + off, W, lane);
-  load_words<P>(tmp, r2 + off, W, lane);
+  load_words<P>(nv, sg.n + off, W, lane);
+  const uint32_t np = nprime_of(sg.n_inv, K, row);
+  load_words<P>(bm, sg.base + off, W, lane);
+  load_words<P>(tmp, sg.r2 + off, W, lane);
   mont_mul<P>(bm, bm, tmp, nv, np, W, lane);  // into the Montgomery domain
-  load_words<P>(acc, one_mont + off, W, lane);
+  load_words<P>(acc, sg.one_mont + off, W, lane);
 #pragma unroll
   for (int s = 0; s < P; ++s) {
     table[(0 * P + s) * 32 + lane] = acc[s];
@@ -328,7 +363,8 @@ cios_modexp_kernel(const int32_t* __restrict__ base, const int32_t* __restrict__
   }
   __syncwarp();
 
-  const int32_t* erow = exp + (size_t)row * exp_limbs;
+  const int32_t* erow = sg.exp + (size_t)row * sg.exp_limbs;
+  const int exp_bits = sg.exp_bits;
   for (int wi = 0; wi < exp_bits / 4; ++wi) {
     const int shift = exp_bits - 4 * (wi + 1);
     const uint32_t w = ((uint32_t)erow[shift >> 4] >> (shift & 15)) & 15u;
@@ -349,10 +385,40 @@ cios_modexp_kernel(const int32_t* __restrict__ base, const int32_t* __restrict__
 #pragma unroll
   for (int s = 0; s < P; ++s) tmp[s] = (lane == 0 && s == 0) ? 1u : 0u;
   mont_mul<P>(acc, acc, tmp, nv, np, W, lane);
-  store_words<P>(acc, out + off, W, lane);
+  store_words<P>(acc, sg.out + off, W, lane);
   // the table holds powers of a possibly secret base
   __syncwarp();
   for (int i = lane; i < 16 * P * 32; i += 32) table[i] = 0u;
+}
+
+// PMAX: the largest P of the launch's segments; a block runs the body of
+// its own segment's P (uniform over the block), so a launch of narrow
+// segments does not carry a wide body's registers
+template <int PMAX>
+__global__ void __launch_bounds__(kWarps * 32)
+cios_modexp_kernel(const __grid_constant__ ModexpTable tab) {
+  extern __shared__ __align__(16) uint32_t smem_words[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int i = 0;
+  while (i + 1 < tab.count && tab.seg[i + 1].first_block <= (int)blockIdx.x) ++i;
+  const ModexpSegment& sg = tab.seg[i];
+  const int row = ((int)blockIdx.x - sg.first_block) * kWarps + warp;
+  if (row >= sg.rows) return;  // the whole warp
+  const int p = words_per_lane(sg.K);
+#define FSDKR_MODEXP_BODY(PP)                                                  \
+  if constexpr (PP <= PMAX) {                                                  \
+    if (p == PP) {                                                             \
+      modexp_row<PP>(sg, row, lane, smem_words + (size_t)warp * 16 * PP * 32); \
+      return;                                                                  \
+    }                                                                          \
+  }
+  FSDKR_MODEXP_BODY(1)
+  FSDKR_MODEXP_BODY(2)
+  FSDKR_MODEXP_BODY(4)
+  FSDKR_MODEXP_BODY(8)
+  FSDKR_MODEXP_BODY(16)
+#undef FSDKR_MODEXP_BODY
 }
 
 // ---------------------------------------------------------------------------
@@ -430,14 +496,6 @@ cios_comb_ladder_kernel(const int32_t* __restrict__ base, const int32_t* __restr
   }
 }
 
-// P: the words per lane, a power of two with 32P >= K/2
-int words_per_lane(int K) {
-  const int W = K / 2;
-  int P = 1;
-  while (32 * P < W) P *= 2;
-  return P;
-}
-
 size_t modexp_smem(int P) { return (size_t)kWarps * 16 * P * 32 * sizeof(uint32_t); }
 
 template <int P>
@@ -458,20 +516,15 @@ int launch_modmul(const void* a, const void* b, const void* n, const void* n_inv
   return (int)cudaGetLastError();
 }
 
-template <int P>
-int launch_modexp(const void* base, const void* exp, int exp_limbs, int exp_bits,
-                  const void* n, const void* n_inv, const void* r2, const void* one_mont,
-                  int rows, int K, void* out, cudaStream_t stream) {
-  const size_t smem = modexp_smem(P);
+template <int PMAX>
+int launch_modexp(const ModexpTable& tab, int blocks, cudaStream_t stream) {
+  const size_t smem = modexp_smem(PMAX);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        cios_modexp_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        cios_modexp_kernel<PMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  cios_modexp_kernel<P><<<(rows + kWarps - 1) / kWarps, kWarps * 32, smem, stream>>>(
-      (const int32_t*)base, (const int32_t*)exp, exp_limbs, exp_bits, (const int32_t*)n,
-      (const int32_t*)n_inv, (const int32_t*)r2, (const int32_t*)one_mont, rows, K,
-      (int32_t*)out);
+  cios_modexp_kernel<PMAX><<<blocks, kWarps * 32, smem, stream>>>(tab);
   return (int)cudaGetLastError();
 }
 
@@ -531,18 +584,54 @@ extern "C" int fsdkr_cios_modmul(const void* a, const void* b, const void* n,
 #undef CALL
 }
 
-extern "C" int fsdkr_cios_modexp(const void* base, const void* exp, int exp_limbs,
-                                 int exp_bits, const void* n, const void* n_inv,
-                                 const void* r2, const void* one_mont, int rows, int K,
-                                 void* out, void* stream) {
-  if (bad_shape(rows, K) || exp_bits <= 0 || exp_bits % 4 || exp_limbs * 16 < exp_bits)
-    return (int)cudaErrorInvalidValue;
-  if (rows == 0) return 0;
+// segments: `count` rows of kSegmentWords int64 words, (base, exp, n,
+// n_inv, r2, one_mont, out, rows, K, exp_limbs, exp_bits), in any order.
+// Blocks of the longest chain (products x words) come first, so the
+// segment that sets the launch's length starts at once.
+extern "C" int fsdkr_cios_modexp(const int64_t* segments, int count, void* stream) {
+  if (count < 1 || count > kMaxSegments) return (int)cudaErrorInvalidValue;
+  ModexpTable tab = {};
+  long long chain[kMaxSegments];
+  int pmax = 1;
+  for (int i = 0; i < count; ++i) {
+    const int64_t* w = segments + (size_t)i * kSegmentWords;
+    ModexpSegment sg = {(const int32_t*)w[0], (const int32_t*)w[1], (const int32_t*)w[2],
+                        (const int32_t*)w[3], (const int32_t*)w[4], (const int32_t*)w[5],
+                        (int32_t*)w[6], (int)w[7], (int)w[8], (int)w[9], (int)w[10], 0};
+    if (w[7] > 0x7FFFFFFF || w[9] > 0x7FFFFFFF || bad_shape(sg.rows, sg.K) ||
+        sg.exp_bits <= 0 || sg.exp_bits % 4 || (long long)sg.exp_limbs * 16 < sg.exp_bits)
+      return (int)cudaErrorInvalidValue;
+    const long long c = (16 + 5LL * (sg.exp_bits / 4)) * (sg.K / 2);
+    int j = i;  // insertion by chain, longest first (stable)
+    while (j > 0 && chain[j - 1] < c) {
+      tab.seg[j] = tab.seg[j - 1];
+      chain[j] = chain[j - 1];
+      --j;
+    }
+    tab.seg[j] = sg;
+    chain[j] = c;
+    if (sg.rows > 0 && words_per_lane(sg.K) > pmax) pmax = words_per_lane(sg.K);
+  }
+  long long blocks = 0;
+  int kept = 0;
+  for (int i = 0; i < count; ++i) {
+    if (tab.seg[i].rows == 0) continue;  // no block
+    tab.seg[kept] = tab.seg[i];
+    tab.seg[kept].first_block = (int)blocks;
+    blocks += (tab.seg[i].rows + kWarps - 1) / kWarps;
+    ++kept;
+  }
+  tab.count = kept;
+  if (blocks == 0) return 0;
+  if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-#define CALL(P) launch_modexp<P>(base, exp, exp_limbs, exp_bits, n, n_inv, r2, one_mont, \
-                                 rows, K, out, s)
-  FSDKR_CIOS_DISPATCH(K, CALL)
-#undef CALL
+  switch (pmax) {
+    case 1: return launch_modexp<1>(tab, (int)blocks, s);
+    case 2: return launch_modexp<2>(tab, (int)blocks, s);
+    case 4: return launch_modexp<4>(tab, (int)blocks, s);
+    case 8: return launch_modexp<8>(tab, (int)blocks, s);
+    default: return launch_modexp<16>(tab, (int)blocks, s);
+  }
 }
 
 extern "C" int fsdkr_cios_comb(const void* table, const void* exp, int exp_limbs,

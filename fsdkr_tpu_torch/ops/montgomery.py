@@ -4,8 +4,8 @@ comb, the modmul and the batched inverse).
 
 Each batch row carries its own modulus. Numbers are base-2^16 limbs,
 little-endian along the last axis, R = 2^(16 K). The engine's entry
-points (`BatchModExp.modexp` / `.modmul`, `shared_base_modexp`,
-`batch_mod_inv_grouped`) run
+points (`BatchModExp.modexp` / `.modmul`, `modexp_batches`,
+`shared_base_modexp`, `batch_mod_inv_grouped`) run
 the hand-written Hopper kernels of `ops.montgomery_kernels` on a CUDA
 device; on the CPU those wrappers run the plain versions of this module:
 
@@ -59,6 +59,7 @@ __all__ = [
     "shared_base_modexp",
     "batch_mod_inv_grouped",
     "BatchModExp",
+    "modexp_batches",
 ]
 
 
@@ -386,9 +387,19 @@ def _shared_modexp_kernel(base, exp, n, n_inv, r2, one_mont, powers=None, *,
 def _download(t: torch.Tensor) -> List[int]:
     """Python ints of a (B, K) limb tensor; the host copy and the tensor
     are zeroed afterwards (results may be secret)."""
-    host = t.cpu().numpy()
-    out = limbs_to_ints(host)
-    wipe_array(host, t)
+    return _download_all([t])[0]
+
+
+def _download_all(tensors: Sequence[torch.Tensor]) -> List[List[int]]:
+    """`_download` of several (B, K) limb tensors in one copy to the host."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    host = flat.cpu().numpy()
+    out, lo = [], 0
+    for t in tensors:
+        rows, k = t.shape
+        out.append(limbs_to_ints(host[lo : lo + rows * k].reshape(rows, k)))
+        lo += rows * k
+    wipe_array(host, flat, *tensors)
     return out
 
 
@@ -411,7 +422,10 @@ class BatchModExp:
         """Host and device bytes of the constants (the cache's estimate)."""
         return len(self.ctx.moduli) * self.ctx.num_limbs * 4 * 10
 
-    def modexp(self, bases: Sequence[int], exps: Sequence[int]) -> List[int]:
+    def submit_modexp(self, bases: Sequence[int], exps: Sequence[int]) -> tuple:
+        """Upload one modexp batch over this context's moduli: its segment
+        (base, exp, n, n_inv, r2, one_mont, exp_bits) of
+        `montgomery_kernels.modexp_segments`."""
         k = self.ctx.num_limbs
         bases = [b % n for b, n in zip(bases, self.ctx.moduli)]
         exp_bits = bucket_exp_bits(exps)
@@ -421,12 +435,10 @@ class BatchModExp:
         base_t = to_device(base_limbs, self.device)
         # exponents (and sometimes bases) are prover secrets
         wipe_array(exp_limbs, base_limbs)
-        out = montgomery_kernels.modexp(
-            base_t, exp_t, self._n, self._n_inv, self._r2, self._one_mont, exp_bits
-        )
-        res = _download(out)
-        wipe_array(exp_t, base_t)
-        return res
+        return base_t, exp_t, self._n, self._n_inv, self._r2, self._one_mont, exp_bits
+
+    def modexp(self, bases: Sequence[int], exps: Sequence[int]) -> List[int]:
+        return modexp_batches([(self, bases, exps)])[0]
 
     def modmul(self, a: Sequence[int], b: Sequence[int]) -> List[int]:
         k = self.ctx.num_limbs
@@ -438,6 +450,20 @@ class BatchModExp:
         res = _download(out)
         wipe_array(a_t, b_t)
         return res
+
+
+def modexp_batches(jobs) -> List[List[int]]:
+    """`BatchModExp.modexp` over several batches at once: jobs is a list of
+    (ctx, bases, exps), each on its own context, all on one device, at
+    most `montgomery_kernels.MAX_SEGMENTS`. Each batch is uploaded
+    (`submit_modexp`) as one segment of a single `cios_modexp` launch;
+    the results come back in one copy to the host, and every input and
+    result tensor is wiped."""
+    segments = [ctx.submit_modexp(bases, exps) for ctx, bases, exps in jobs]
+    outs = montgomery_kernels.modexp_segments(segments)
+    for seg in segments:
+        wipe_array(seg[0], seg[1])  # queued behind the launch on its stream
+    return _download_all(outs)
 
 
 def shared_base_modexp(

@@ -12,8 +12,10 @@ C++ for sm_90a; its header comment gives the design):
     levels and its exit, :792-917).
 `modmul` — a*b mod n per row, the two products of `_modmul_kernel`
     (:606) in one launch.
-`modexp` — base^exp mod n per row, the whole 4-bit fixed-window loop of
-    `_modexp_kernel` (:137) in one launch.
+`modexp_segments` — base^exp mod n per row, the whole 4-bit fixed-window
+    loop of `_modexp_kernel` (:137), over several segments (each with its
+    own K, rows, exponent width and tensors) in one launch; `modexp` is
+    its one-segment call.
 `comb` — the fixed-base comb's accumulation and exit, one launch: per
     row, one masked 16-entry table select and product per window, then
     the product by 1 (`_shared_modexp_kernel` :372-446).
@@ -34,7 +36,7 @@ nvcc (`ops.nvcc_build`) and rebuilt when the source changes.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -44,16 +46,20 @@ __all__ = [
     "mont_mul",
     "modmul",
     "modexp",
+    "modexp_segments",
     "comb",
     "comb_ladder",
     "launch_counts",
     "reset_launch_counts",
     "load_library",
     "MAX_LIMBS",
+    "MAX_SEGMENTS",
 ]
 
 _SRC = CSRC / "cios_kernels.cu"
 MAX_LIMBS = 1024  # 16 words a lane: 16384-bit moduli
+MAX_SEGMENTS = 32  # segments a modexp launch (its table is the launch's parameter)
+_SEGMENT_WORDS = 11  # int64 words a segment in that table (csrc: kSegmentWords)
 WINDOW_BITS = 4
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -72,7 +78,7 @@ def load_library() -> ctypes.CDLL:
     lib.fsdkr_cios_mont_mul.restype = i
     lib.fsdkr_cios_modmul.argtypes = [p, p, p, p, p, i, i, p, p]
     lib.fsdkr_cios_modmul.restype = i
-    lib.fsdkr_cios_modexp.argtypes = [p, p, i, i, p, p, p, p, i, i, p, p]
+    lib.fsdkr_cios_modexp.argtypes = [ctypes.POINTER(ctypes.c_int64), i, p]
     lib.fsdkr_cios_modexp.restype = i
     lib.fsdkr_cios_comb.argtypes = [p, p, i, i, p, p, p, i, i, i, p, p]
     lib.fsdkr_cios_comb.restype = i
@@ -170,26 +176,54 @@ def modmul(a, b, n, n_inv, r2) -> torch.Tensor:
 
 def modexp(base, exp, n, n_inv, r2, one_mont, exp_bits: int) -> torch.Tensor:
     """base^exp mod n per row (base < n); exp holds 16-bit limbs, exp_bits
-    is the bucketed loop width (a multiple of 4)."""
-    rows, k = base.shape
-    device = _check((("base", base), ("exp", exp), ("n", n), ("n_inv", n_inv),
-                     ("r2", r2), ("one_mont", one_mont)), rows, k)
-    _check_exp_bits(exp_bits, exp.shape[1])
+    is the bucketed loop width (a multiple of 4). One segment of
+    `modexp_segments`."""
+    return modexp_segments([(base, exp, n, n_inv, r2, one_mont, exp_bits)])[0]
+
+
+def modexp_segments(segments) -> List[torch.Tensor]:
+    """`modexp` over several segments in one launch: each segment is a
+    tuple (base, exp, n, n_inv, r2, one_mont, exp_bits) as `modexp` takes
+    it, with its own K, rows and exponent width; all on one device, at
+    most MAX_SEGMENTS. Returns each segment's (rows, K) result. On the
+    CPU, the plain version per segment."""
+    if not segments or len(segments) > MAX_SEGMENTS:
+        raise ValueError(f"{len(segments)} segments: a launch takes 1..{MAX_SEGMENTS}")
+    device = None
+    for seg in segments:
+        if len(seg) != 7:
+            raise ValueError("a segment is (base, exp, n, n_inv, r2, one_mont, exp_bits)")
+        base, exp, n, n_inv, r2, one_mont, exp_bits = seg
+        if base.dim() != 2:
+            raise ValueError(f"base has shape {tuple(base.shape)}, expected (rows, K)")
+        rows, k = base.shape
+        d = _check((("base", base), ("exp", exp), ("n", n), ("n_inv", n_inv),
+                    ("r2", r2), ("one_mont", one_mont)), rows, k)
+        if device is not None and d != device:
+            raise ValueError(f"segments on {device} and {d}")
+        device = d
+        _check_exp_bits(exp_bits, exp.shape[1])
     if device.type == "cpu":
         from .montgomery import _modexp_kernel
 
-        return _modexp_kernel(base, exp, n, n_inv, r2, one_mont,
-                              exp_bits=exp_bits).to(torch.int32)
-    out = torch.empty_like(base)
-    err = load_library().fsdkr_cios_modexp(
-        base.data_ptr(), exp.data_ptr(), exp.shape[1], exp_bits, n.data_ptr(),
-        n_inv.data_ptr(), r2.data_ptr(), one_mont.data_ptr(), rows, k,
-        out.data_ptr(), _stream(device),
-    )
+        return [_modexp_kernel(base, exp, n, n_inv, r2, one_mont,
+                               exp_bits=exp_bits).to(torch.int32)
+                for base, exp, n, n_inv, r2, one_mont, exp_bits in segments]
+    outs = [torch.empty_like(seg[0]) for seg in segments]
+    table = (ctypes.c_int64 * (_SEGMENT_WORDS * len(segments)))()
+    for i, ((base, exp, n, n_inv, r2, one_mont, exp_bits), out) in enumerate(
+            zip(segments, outs)):
+        table[_SEGMENT_WORDS * i : _SEGMENT_WORDS * (i + 1)] = [
+            base.data_ptr(), exp.data_ptr(), n.data_ptr(), n_inv.data_ptr(),
+            r2.data_ptr(), one_mont.data_ptr(), out.data_ptr(), base.shape[0],
+            base.shape[1], exp.shape[1], exp_bits,
+        ]
+    err = load_library().fsdkr_cios_modexp(table, len(segments), _stream(device))
     if err:
         raise RuntimeError(f"fsdkr_cios_modexp launch failed: CUDA error {err}")
-    _count(modexp, (k, rows, exp_bits))
-    return out
+    _count(modexp_segments, tuple((seg[0].shape[1], seg[0].shape[0], seg[6])
+                                  for seg in segments))
+    return outs
 
 
 def comb(table, exp, n, n_inv, one_mont, exp_bits: int) -> torch.Tensor:
@@ -252,8 +286,9 @@ mont_mul.launches = 0
 mont_mul.shapes = {}  # (K, rows) -> launches
 modmul.launches = 0
 modmul.shapes = {}  # (K, rows) -> launches
-modexp.launches = 0
-modexp.shapes = {}  # (K, rows, exp_bits) -> launches
+modexp_segments.launches = 0
+# ((K, rows, exp_bits) of each segment, in the caller's order) -> launches
+modexp_segments.shapes = {}
 comb.launches = 0
 comb.shapes = {}  # (K, groups, rows per group, exp_bits) -> launches
 comb_ladder.launches = 0
@@ -262,11 +297,11 @@ comb_ladder.shapes = {}  # (K, groups, exp_bits) -> launches
 
 def launch_counts() -> dict:
     return {"cios_mont_mul": mont_mul.launches, "cios_modmul": modmul.launches,
-            "cios_modexp": modexp.launches, "cios_comb": comb.launches,
+            "cios_modexp": modexp_segments.launches, "cios_comb": comb.launches,
             "cios_comb_ladder": comb_ladder.launches}
 
 
 def reset_launch_counts() -> None:
-    for fn in (mont_mul, modmul, modexp, comb, comb_ladder):
+    for fn in (mont_mul, modmul, modexp_segments, comb, comb_ladder):
         fn.launches = 0
         fn.shapes = {}
