@@ -27,8 +27,7 @@ Phases:
            exponents, 8-512 rows, each half random and half worst-case)
            against the plain version per segment. The comb's two kernels
            (`cios_comb`, `cios_comb_ladder`) at K=16, 128, 256 and 512 on
-           1 group x 8 rows, 3 groups x 13 rows and 16 x 256, and the
-           ladder at K=130, 1022 and 1024 on the first two, random and
+           1 group x 8 rows, 3 groups x 13 rows and 16 x 256, random and
            worst-case groups (every limb of the table and the base at n-1,
            every exponent bit set).
   routes   device_powm / device_modmul (every launch through the CIOS
@@ -400,19 +399,18 @@ def phase_kernels(dev, rng):
     # the comb's kernels: one group (the 4 warps of a block share it), 13
     # rows a group (blocks straddle groups), and the ring-Pedersen column's
     # 16 groups x 256 rows
-    for k in (16, 128, 130, 256, 512, 1022, 1024):
-        big = k in (16, 128, 256, 512)
-        for groups, per_group in ((1, 8), (3, 13), (16, 256)) if big else ((1, 8), (3, 13)):
+    for k in (16, 128, 256, 512):
+        for groups, per_group in ((1, 8), (3, 13), (16, 256)):
             for worst in (False, True):
                 args = comb_inputs(rng, dev, k, groups, per_group, exp_bits, worst)
-                for name in COMB if big else ("cios_comb_ladder",):
+                for name in COMB:
                     kernel, plain = comb_calls(name, args, exp_bits)
                     if _max_err(kernel(), plain()):
                         fail(f"{name} K={k} groups={groups} rows={per_group} "
                              f"worst={worst}: differs from plain")
-            log(f"kernels == plain, bit-identical: {'+'.join(COMB) if big else COMB[1]} K={k} "
-                f"groups={groups} rows per group={per_group} exp_bits={exp_bits}, random "
-                f"and worst-case groups")
+            log(f"kernels == plain, bit-identical: {'+'.join(COMB)} K={k} groups={groups} "
+                f"rows per group={per_group} exp_bits={exp_bits}, random and worst-case "
+                f"groups")
 
 
 def phase_routes(dev, rng):

@@ -9,8 +9,10 @@ callable:
   verifier's `_modexp`): rows that share a (base, modulus) pair in
   groups of at least `_SHARED_MIN_ROWS`, where a launch has at least
   `_SHARED_MIN_GROUPS` of them, take the fixed-base comb
-  (device_powm_shared, ops.montgomery.shared_base_modexp), the rest
-  device_powm.
+  (device_powm_shared, ops.montgomery.shared_base_modexp), the rest the
+  generic engine. device_powm_batches runs it over several batches at
+  once, the generic rows of all of them in one segmented launch: what
+  powm_columns does with its width batches on the device.
 - device_powm: bases^exps mod N per row on the device, through the CIOS
   engine (ops.montgomery, `fsdkr_cios_modexp`) at every width. An H100
   sweep put the CIOS engine ahead of the RNS route at every launch size,
@@ -107,6 +109,13 @@ def _pad_pow2(rows: int) -> int:
     return max(8, 1 << (rows - 1).bit_length())
 
 
+def _padded(bases, exps, moduli):
+    """A launch's rows padded to `_pad_pow2` rows with base 1, exponent 0,
+    modulus 3."""
+    pad = _pad_pow2(len(bases)) - len(bases)
+    return list(bases) + [1] * pad, list(exps) + [0] * pad, list(moduli) + [3] * pad
+
+
 def _cached_ctx(moduli, num_limbs, device):
     """The CIOS engine's context for a modulus vector on `device`, from
     the precompute cache. A refresh reuses the same modulus vectors across
@@ -158,10 +167,7 @@ def device_powm(bases, exps, moduli, device="cuda") -> List[int]:
     if len(bases) > _MAX_ROWS:
         return _tiled(device_powm, (bases, exps, moduli), device)
     b = len(bases)
-    pad = _pad_pow2(b) - b
-    bases = list(bases) + [1] * pad
-    exps = list(exps) + [0] * pad
-    moduli = list(moduli) + [3] * pad
+    bases, exps, moduli = _padded(bases, exps, moduli)
     width = max(m.bit_length() for m in moduli)
     cls = _width_class(width)
     if b >= _RNS_MIN_ROWS and cls is not None:
@@ -219,8 +225,9 @@ def device_powm_shared(bases, exps_per_group, moduli, device="cuda") -> List[Lis
 def device_powm_grouped(bases, exps, moduli, device="cuda") -> List[int]:
     """Like device_powm, but rows sharing a (base, modulus) pair in groups
     of at least _SHARED_MIN_ROWS take the fixed-base comb where there are
-    at least _SHARED_MIN_GROUPS such groups, and the rest device_powm
-    (counterpart of the JAX package's tpu_powm_grouped).
+    at least _SHARED_MIN_GROUPS such groups, and the rest the generic
+    engine as device_powm runs them (counterpart of the JAX package's
+    tpu_powm_grouped).
     That is the shape of the collect columns: ring-Pedersen rows share
     (T, N) per message, PDL and range rows (h1 | h2, N~) per receiver.
     Inside `forced_rns_route()` every row takes device_powm (the RNS
@@ -273,11 +280,9 @@ def device_powm_batches(batches, device="cuda") -> List[List[int]]:
         rest = _comb_rows(bases, exps, moduli, out, device)
         for lo in range(0, len(rest), _MAX_ROWS):
             idx = rest[lo : lo + _MAX_ROWS]
-            pad = _pad_pow2(len(idx)) - len(idx)
-            mods = [moduli[i] for i in idx] + [3] * pad
-            ctx = _cached_ctx(mods, limbs_for_bits(max(m.bit_length() for m in mods)), device)
-            jobs.append((ctx, [bases[i] for i in idx] + [1] * pad,
-                         [exps[i] for i in idx] + [0] * pad, out, idx))
+            b, e, m = _padded(*([col[i] for i in idx] for col in (bases, exps, moduli)))
+            ctx = _cached_ctx(m, limbs_for_bits(max(x.bit_length() for x in m)), device)
+            jobs.append((ctx, b, e, out, idx))
 
     def launch(group):
         for (*_, out, idx), res in zip(group, modexp_batches([j[:3] for j in group])):

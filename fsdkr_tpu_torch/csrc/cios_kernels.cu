@@ -63,11 +63,11 @@
 // exponent width and tensors (a column call's width batches), as a
 // grouped GEMM takes its problems: a block never spans two segments, the
 // blocks of the longest chain come first, and a block runs the body of
-// its segment's P inside a kernel built for the launch's largest P. One
-// row is a chain of 5W + 17 dependent products at 256-512 rows a batch,
-// one warp per row, at most one warp per scheduler; the segments of one
-// launch run side by side, where separate launches ran one after
-// another.
+// its segment's P inside a kernel built for the launch's largest P. A
+// row is a chain of 5 * exp_bits / 4 + 16 dependent products, one warp a
+// row; a column call's batches hold 256-512 rows each, so one batch a
+// launch left at most one warp per scheduler and the launches ran one
+// after another, where the segments of one launch now run side by side.
 //
 // Exponents may be secret (shares, nonces) and bases too (Paillier
 // randomness): the loop length is the bucketed exp_bits the caller passes,

@@ -13,7 +13,18 @@ by the same lookahead over borrows. It checks:
 - the model's product against the plain version (ops.montgomery.
   mont_mul_limbs) and against Python integers, bit for bit, at widths
   whose words fill the lanes, leave padding slots, or leave idle lanes;
-- the lookahead formula against a ripple over random lanes.
+- the lookahead formula against a ripple over random lanes;
+- a two-word Montgomery digit, the design of a product that reduces two
+  words a step: x taken two words at a time, m = (t mod 2^64) * n'64 mod
+  2^64 with n'64 the low four limbs of n_inv, one 64-bit broadcast of m,
+  a two-word shift, each lane's slots 0 and 1 completed from the previous
+  lane's last two y and n words, and a last one-word step where W is odd:
+  its accumulators' bound at K = 128, 256 and 512, and its product bit
+  for bit against the plain version and Python integers at K = 128, 130
+  (odd W), 256, 512 and 1024. No kernel uses it: built into `cios_modexp`
+  and `cios_comb_ladder` and timed on the H100, it was 0.98-1.07x the
+  one-word product's speed (PERF.md), below the 1.25x that would
+  have kept it. These cases stay as the record of the design.
 """
 
 import random
@@ -59,6 +70,12 @@ def lookahead(g, q):
     return [(c >> l) & 1 for l in range(LANES)], s >> 32
 
 
+def _lanes_below(words, s):
+    """Each lane's copy of the previous lane's word slot s (0 in lane 0):
+    the kernel's shuffle up by one lane."""
+    return np.concatenate([[0], words[:-1, s]]).astype(np.uint64)
+
+
 def warp_mont_mul(x, y, n, k):
     """One warp's product x * y * 2^(-16K) mod n, step for step as
     `mont_mul<P>`; returns (result, largest accumulator seen)."""
@@ -66,35 +83,49 @@ def warp_mont_mul(x, y, n, k):
     nprime = int(MontgomeryContext([n], k).n_prime32[0])  # the kernels' n'
     assert nprime == (-pow(n, -1, 1 << 32)) % (1 << 32)
     xw, yw, nw = (to_lanes(v, p) for v in (x, y, n))
-    y_below = np.concatenate([[0], yw[:-1, p - 1]]).astype(np.uint64)
-    n_below = np.concatenate([[0], nw[:-1, p - 1]]).astype(np.uint64)
+    y_below = _lanes_below(yw, p - 1)
+    n_below = _lanes_below(nw, p - 1)
     acc = np.zeros((LANES, p), np.uint64)
     top = np.zeros(LANES, np.uint64)
     peak = 0
-
-    def mul_add(a, b, b_below):
-        nonlocal top
-        prod = np.uint64(a) * b  # exact: < 2^64
-        lo, hi = prod & np.uint64(M32), prod >> np.uint64(32)
-        below_hi = (np.uint64(a) * b_below) >> np.uint64(32)
-        acc[:, 0] += lo[:, 0] + below_hi
-        acc[:, 1:] += lo[:, 1:] + hi[:, :-1]
-        top += hi[:, p - 1]
-
     for i in range(w_cnt):
-        mul_add(int(xw[i // p, i % p]), yw, y_below)
-        m = (int(acc[0, 0]) & M32) * nprime & M32  # lane 0, broadcast
-        mul_add(m, nw, n_below)
-        assert int(acc[0, 0]) & M32 == 0
-        c0 = acc[0, 0] >> np.uint64(32)
-        nxt = np.roll(acc[:, 0], -1)
-        acc[:, :-1] = acc[:, 1:].copy()
-        acc[:, p - 1] = nxt
-        acc[LANES - 1, p - 1] = top[LANES - 1]
-        top[:] = 0
-        acc[0, 0] += c0
+        _one_word_step(acc, top, int(xw[i // p, i % p]), yw, y_below, nw, n_below, nprime)
         peak = max(peak, int(acc.max()))
+    return _resolve(acc, nw, x, y, n, k), peak
 
+
+def _mul_add(acc, top, a, b, b_below):
+    """acc += a * b over the lanes' words (`mul_add<P>`); top collects the
+    high half of each lane's last word."""
+    p = acc.shape[1]
+    prod = np.uint64(a) * b  # exact: < 2^64
+    lo, hi = prod & np.uint64(M32), prod >> np.uint64(32)
+    below_hi = (np.uint64(a) * b_below) >> np.uint64(32)
+    acc[:, 0] += lo[:, 0] + below_hi
+    acc[:, 1:] += lo[:, 1:] + hi[:, :-1]
+    top += hi[:, p - 1]
+
+
+def _one_word_step(acc, top, xi, yw, y_below, nw, n_below, nprime):
+    """t += x_i * y; m = t_0 * n' mod 2^32; t += m * n; t >>= 32."""
+    p = acc.shape[1]
+    _mul_add(acc, top, xi, yw, y_below)
+    m = (int(acc[0, 0]) & M32) * (nprime & M32) & M32  # lane 0, broadcast
+    _mul_add(acc, top, m, nw, n_below)
+    assert int(acc[0, 0]) & M32 == 0
+    c0 = acc[0, 0] >> np.uint64(32)
+    nxt = np.roll(acc[:, 0], -1)
+    acc[:, :-1] = acc[:, 1:].copy()
+    acc[:, p - 1] = nxt
+    acc[LANES - 1, p - 1] = top[LANES - 1]
+    top[:] = 0
+    acc[0, 0] += c0
+
+
+def _resolve(acc, nw, x, y, n, k):
+    """The carry resolution and conditional subtraction after the steps:
+    the canonical product."""
+    p = acc.shape[1]
     # carry resolution: ripple in each lane, hand the multi-bit carry to
     # the next lane, ripple again, then the 1-bit lookahead
     t = np.zeros((LANES, p), np.uint64)
@@ -142,7 +173,65 @@ def warp_mont_mul(x, y, n, k):
             v = int(d[lane, s]) - b
             d[lane, s], b = v & M32, int(v < 0)
     keep = t_top < borrow_out
-    return from_lanes(t if keep else d), peak
+    return from_lanes(t if keep else d)
+
+
+def _mul_add2(acc, top0, top1, a0, a1, b, b1, b2):
+    """acc += (a0 + a1 * 2^32) * b over the lanes' words:
+    word j gains lo(a0 b_j) + hi(a0 b_(j-1)) + lo(a1 b_(j-1)) + hi(a1
+    b_(j-2)), with b_(j-1), b_(j-2) below a lane's first word the previous
+    lane's last two (b1, b2); top0 and top1 collect the two words above
+    each lane's last (only lane 31's are words of the number)."""
+    p = acc.shape[1]
+    m32 = np.uint64(M32)
+    sh = np.uint64(32)
+    b_m1 = np.concatenate([b1[:, None], b[:, :-1]], axis=1)  # b_(j-1)
+    b_m2 = np.concatenate([b2[:, None], b1[:, None], b[:, :-2]], axis=1)[:, :p]  # b_(j-2)
+    a0, a1 = np.uint64(a0), np.uint64(a1)
+    acc += ((a0 * b) & m32) + ((a0 * b_m1) >> sh) + ((a1 * b_m1) & m32) + ((a1 * b_m2) >> sh)
+    top0 += ((a0 * b[:, p - 1]) >> sh) + ((a1 * b[:, p - 1]) & m32) + ((a1 * b[:, p - 2]) >> sh)
+    top1 += (a1 * b[:, p - 1]) >> sh
+
+
+def warp_mont_mul2(x, y, n, k):
+    """One warp's product x * y * 2^(-16K) mod n with a two-word digit (P
+    >= 2; not used by a kernel, see the module docstring): W // 2 two-word
+    steps, then one one-word step where W is odd. Returns (result, largest
+    accumulator seen)."""
+    w_cnt, p = k // 2, words_per_lane(k)
+    assert p >= 2, "at P=1 words 2i and 2i+1 sit in different lanes"
+    # n'64: the low four limbs of n_inv = -n^(-1) mod R, as the kernels read it
+    nprime = limbs_to_ints(MontgomeryContext([n], k).n_inv[:, :4])[0]
+    assert nprime == (-pow(n, -1, 1 << 64)) % (1 << 64)
+    xw, yw, nw = (to_lanes(v, p) for v in (x, y, n))
+    y_b1, y_b2 = _lanes_below(yw, p - 1), _lanes_below(yw, p - 2)
+    n_b1, n_b2 = _lanes_below(nw, p - 1), _lanes_below(nw, p - 2)
+    acc = np.zeros((LANES, p), np.uint64)
+    top0 = np.zeros(LANES, np.uint64)
+    top1 = np.zeros(LANES, np.uint64)
+    peak = 0
+    for i in range(0, w_cnt - 1, 2):
+        # words 2i and 2i+1 of x sit in one lane (P even): two shuffles
+        x0, x1 = int(xw[i // p, i % p]), int(xw[i // p, i % p + 1])
+        _mul_add2(acc, top0, top1, x0, x1, yw, y_b1, y_b2)
+        t = (int(acc[0, 0]) + (int(acc[0, 1]) << 32)) % (1 << 64)  # lane 0
+        m = t * nprime % (1 << 64)  # one 64-bit broadcast
+        _mul_add2(acc, top0, top1, m & M32, m >> 32, nw, n_b1, n_b2)
+        assert (int(acc[0, 0]) + (int(acc[0, 1]) << 32)) % (1 << 64) == 0
+        c = ((int(acc[0, 0]) >> 32) + int(acc[0, 1])) >> 32
+        nxt0, nxt1 = np.roll(acc[:, 0], -1), np.roll(acc[:, 1], -1)
+        acc[:, :-2] = acc[:, 2:].copy()
+        acc[:, p - 2], acc[:, p - 1] = nxt0, nxt1
+        acc[LANES - 1, p - 2], acc[LANES - 1, p - 1] = top0[LANES - 1], top1[LANES - 1]
+        top0[:] = 0
+        top1[:] = 0
+        acc[0, 0] += np.uint64(c)
+        peak = max(peak, int(acc.max()))
+    if w_cnt % 2:
+        i = w_cnt - 1
+        _one_word_step(acc, top0, int(xw[i // p, i % p]), yw, y_b1, nw, n_b1, nprime)
+        peak = max(peak, int(acc.max()))
+    return _resolve(acc, nw, x, y, n, k), peak
 
 
 def _plain(x, y, n, k):
@@ -191,3 +280,35 @@ def test_lookahead_matches_ripple():
             assert cin[lane] == c
             c = int(g[lane] or (q[lane] and c))
         assert out == c
+
+
+@pytest.mark.parametrize("k", [128, 256, 512])
+def test_two_word_accumulators_stay_below_their_bound(k):
+    """The two-word step's worst case: a word gains at most eight terms
+    below 2^32 a step and lives at most (W + 1) / 2 + 1 steps, word 0 also
+    the carry c < 2^32, so every accumulator stays below (W + 3) * 2^34 +
+    2^32 < 2^44 at W <= 512."""
+    n = (1 << (16 * k)) - 1
+    got, peak = warp_mont_mul2(n - 1, n - 1, n, k)
+    w_cnt = k // 2
+    assert peak < (w_cnt + 3) * (1 << 34) + (1 << 32) < 1 << 44
+    assert got == (n - 1) * (n - 1) * pow(1 << (16 * k), -1, n) % n
+    assert got == _plain(n - 1, n - 1, n, k)
+
+
+@pytest.mark.parametrize("k", [128, 130, 256, 512, 1024])
+def test_two_word_model_matches_plain_product(k):
+    """128, 256, 512 and 1024 fill every lane (P = 2, 4, 8, 16); 130 (W =
+    65, P = 4) leaves padding slots and ends in a one-word step; rows at
+    n-1, random, a modulus of 3 and an all-ones modulus."""
+    rng = random.Random(k + 1)
+    n = rng.getrandbits(16 * k) | 1 | (1 << (16 * k - 1))
+    top = (1 << (16 * k)) - 1
+    rows = [(n - 1, n - 1, n), (rng.randrange(n), rng.randrange(n), n),
+            (2, 2, 3), (1, 0, n), (top - 1, rng.randrange(top), top)]
+    for x, y, m in rows:
+        r_inv = pow(1 << (16 * k), -1, m)
+        got, _ = warp_mont_mul2(x, y, m, k)
+        assert got == x * y * r_inv % m
+        assert got == _plain(x, y, m, k)
+        assert got == warp_mont_mul(x, y, m, k)[0]
