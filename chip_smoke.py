@@ -25,11 +25,16 @@ Phases:
            results must be bit-identical. The segmented `cios_modexp`
            launch over mixed segments (K=128 and 256, 256- to 3072-bit
            exponents, 8-512 rows, each half random and half worst-case)
-           against the plain version per segment. The comb's two kernels
-           (`cios_comb`, `cios_comb_ladder`) at K=16, 128, 256 and 512 on
-           1 group x 8 rows, 3 groups x 13 rows and 16 x 256, random and
-           worst-case groups (every limb of the table and the base at n-1,
-           every exponent bit set).
+           against the plain version per segment. `cios_mont_mul` on both
+           sides of the rows from which its launch rule takes the sub-warp
+           kernel (R*, `rows_rule`), at K=128 and 256. `cios_comb` (the
+           sub-warp kernel at the rule's lanes a row: 8, 16 and 32 all
+           occur) at K=16, 128, 130, 256, 512 and 1024 on groups x rows
+           per group 1 x 8, 3 x 13, 2 x 257 (ragged row tiles) and 16 x
+           256 (the main path's), and `cios_comb_ladder` at K=16, 128,
+           256 and 512 on 1, 3 and 16 groups; random and worst-case
+           groups (every limb of the table and the base at n-1, every
+           exponent bit set).
   routes   device_powm / device_modmul (every launch through the CIOS
            engine, as routed) and the RNS route itself against CPython pow
            at 2048- and 4096-bit moduli; both entry points at 8192-bit
@@ -69,7 +74,8 @@ Phases:
            the most segments (the pair families' columns) is timed beside
            each of its segments alone, and every `cios_modexp` and ladder
            time is also given in ns per CIOS step of the launch's longest
-           chain.
+           chain; every `cios_comb` time also in ns per row-step (a CIOS
+           step of one row).
 
 Prints the kernels line `{"kernels": [...]}` and, last, `{"ok": true,
 "device": {...}}`. Any failure exits non-zero with no result line.
@@ -339,7 +345,7 @@ def phase_env(dev):
 def phase_kernels(dev, rng):
     import torch
 
-    from fsdkr_tpu_torch.ops import rns, rns_kernels
+    from fsdkr_tpu_torch.ops import montgomery_kernels as mk, rns, rns_kernels
 
     # (bits, rows, kernels): 6144 bits is kernel 2's tightest shared-memory
     # budget at 8 rows per block, 7168 bits holds 4; 13 rows leave a
@@ -396,21 +402,38 @@ def phase_kernels(dev, rng):
         fail(f"cios_modexp over segments {segments}: differs from plain")
     log(f"kernels == plain, bit-identical: cios_modexp, one launch of segments (K, rows, "
         f"exp_bits) {segments}, each half random and half worst-case")
-    # the comb's kernels: one group (the 4 warps of a block share it), 13
-    # rows a group (blocks straddle groups), and the ring-Pedersen column's
-    # 16 groups x 256 rows
-    for k in (16, 128, 256, 512):
-        for groups, per_group in ((1, 8), (3, 13), (16, 256)):
+    # cios_mont_mul on both sides of R*: one warp a row below, the
+    # sub-warp kernel from R* (a ragged last warp just above it)
+    for k in (128, 256):
+        lanes, r_star = mk.rows_rule(k)
+        for rows in (r_star - 1, r_star, r_star + 13):
+            for worst in (False, 13):
+                kernel, plain = cios_calls("cios_mont_mul",
+                                           cios_inputs(rng, dev, k, rows, exp_bits, worst),
+                                           exp_bits)
+                if _max_err(kernel(), plain()):
+                    fail(f"cios_mont_mul K={k} rows={rows} worst={worst}: differs from plain")
+        log(f"kernels == plain, bit-identical: cios_mont_mul K={k} at {r_star - 1}, {r_star} "
+            f"and {r_star + 13} rows (R*={r_star}: one warp a row below, {lanes} lanes a row "
+            f"from it), random rows and 13 worst-case")
+    # the comb's kernels. cios_comb: one group (the block's rows share it),
+    # 13 and 257 rows a group (ragged row tiles), and the ring-Pedersen
+    # column's 16 groups x 256 rows; K=130 and 256 take 16 lanes a row, 512
+    # and 1024 32. The ladder (one warp per group) at its earlier shapes.
+    for k in (16, 128, 130, 256, 512, 1024):
+        for groups, per_group in ((1, 8), (3, 13), (2, 257), (16, 256)):
+            names = [n for n in COMB if n == "cios_comb" or (
+                k in (16, 128, 256, 512) and per_group != 257)]
             for worst in (False, True):
                 args = comb_inputs(rng, dev, k, groups, per_group, exp_bits, worst)
-                for name in COMB:
+                for name in names:
                     kernel, plain = comb_calls(name, args, exp_bits)
                     if _max_err(kernel(), plain()):
                         fail(f"{name} K={k} groups={groups} rows={per_group} "
                              f"worst={worst}: differs from plain")
-            log(f"kernels == plain, bit-identical: {'+'.join(COMB)} K={k} groups={groups} "
-                f"rows per group={per_group} exp_bits={exp_bits}, random and worst-case "
-                f"groups")
+            log(f"kernels == plain, bit-identical: {'+'.join(names)} K={k} groups={groups} "
+                f"rows per group={per_group} exp_bits={exp_bits} (cios_comb at "
+                f"{mk.rows_rule(k)[0]} lanes a row), random and worst-case groups")
 
 
 def phase_routes(dev, rng):
@@ -1070,7 +1093,16 @@ def _case(name, shape, dev, rng):
             {"k": k, "rows": rows, "exp_bits": exp_bits, "groups": groups})
 
 
+def comb_row_steps(shape):
+    """CIOS steps of all rows of a `cios_comb` launch: W + 1 products a
+    row (W = exp_bits / 4 windows) of K/2 steps."""
+    k, groups, per_group, exp_bits = shape
+    return groups * per_group * (exp_bits // 4 + 1) * (k // 2)
+
+
 def _per_step(name, shape, dms):
+    if name == "cios_comb":
+        return f", {dms * 1e6 / comb_row_steps(shape):.4f} ns per row-step"
     if name not in ("cios_modexp", "cios_comb_ladder"):
         return ""
     return f", {dms * 1e6 / chain_steps(name, shape):.2f} ns per CIOS step of the longest chain"

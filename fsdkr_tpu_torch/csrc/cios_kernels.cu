@@ -21,7 +21,9 @@
 // x, y < n). The engine rounds an odd K up (BatchModExp); that changes R,
 // so in-domain intermediates, never a value that leaves the engine.
 //
-// Layout: one warp per row. Lane l owns the P words l*P .. l*P+P-1 (P a
+// Layout of mont_mul<P> (cios_modexp, cios_modmul, the ladder and the
+// smaller cios_mont_mul launches; the comb's sub-warp product is below):
+// one warp per row. Lane l owns the P words l*P .. l*P+P-1 (P a
 // power of two with 32P >= W: 1 at K <= 64, 2 at K=128, 4 at K=256, 8 at
 // K=512, 16 up to K=1024); words at or above W are zero.
 //
@@ -83,16 +85,55 @@
 // then W times (store the power, four squarings): a chain of 4W dependent
 // products on G warps, so latency-bound. The 16-entry table of every
 // window is built between the two by four fsdkr_cios_mont_mul launches
-// (ops/montgomery.py _comb_table). fsdkr_cios_comb then does per row, one
-// warp per row as above, W window steps of a masked sum over the group's
-// 16 entries of that window (read from global memory: 16 * K * 4 bytes a
-// window, shared by the rows of a group through L1/L2) and one product,
-// then the exit by a product with 1: W + 1 products a row where
-// fsdkr_cios_modexp does 5W + 17. Rows of a group are contiguous, so the
-// warps of a block read the same entries. The exponents may be secret
-// (the provers' h1^x mod N~ columns): the loop length is the bucketed
-// exp_bits, the digit only sets the select's masks, and no branch or
-// address depends on it. Bound: operations, as for the other kernels.
+// (ops/montgomery.py _comb_table). fsdkr_cios_comb then does per row W
+// window steps of a masked sum over the group's 16 entries of that window
+// and one product, then the exit by a product with 1: W + 1 products a
+// row where fsdkr_cios_modexp does 5W + 17.
+//
+// The comb's rows are many and independent (16 groups x 256 rows on the
+// main path), so its pace is the schedulers' issue, not a product's
+// latency: one warp per row paid the step's fixed work (three shuffles,
+// the 64-bit shift, the padding test) in all 32 lanes for P = 2 words of
+// real work. It runs instead on the sub-warp product mont_mul_rows<L, P>:
+// L lanes a row, P words a lane, 32/L rows a warp, so each shuffle (width
+// L) serves 32/L rows, and each lane's x_i * y and m * n are exact chains
+// (v = a * b_s + h, one IMAD.WIDE a word: lo(v) is word s, hi(v) joins
+// word s + 1), whose low words join the 64-bit lazy accumulators in one
+// 3-input add a word and whose top words form the lane's overflow E. The
+// shift keeps each accumulator's high part in its lane (it belongs to
+// the word above, slot 0 after the shift) and moves only its low 32 bits
+// down one lane. Accumulators stay below (W + 1) * 2^33 + 2^32 < 2^43;
+// the carry resolution and conditional subtraction are the ballot
+// lookahead on the row's L bits of the warp's ballot.
+// tests/test_torch_cios_model.py replays it (rows_mont_mul).
+//
+// A block (4 warps, 128/L rows) never spans groups: the grid is the row
+// tiles of each group in turn, and a ragged last tile masks its rows. A
+// group's n, n' and one_mont are loaded once per row. The 16 entries of
+// window w (16 * K int32 limbs) go to shared memory once per block by
+// cp.async, double-buffered (window w+1 is in flight while window w's
+// products run), are packed there to 32-bit words laid out so that lane
+// l of every row reads slot s of entry e at (e * P + s) * L + l
+// (consecutive lanes, consecutive banks; the block's rows read the same
+// words), and every row selects from there. L is a launch rule per K
+// (comb_lanes), set by the comb's lanes sweep (scripts/
+// cuda_route_sweep.py --cells lanes): the fewest lanes a row that keep P
+// <= kRowsMaxWords, else 32.
+//
+// The exponents may be secret (the provers' h1^x mod N~ columns): the
+// loop length is the bucketed exp_bits, the select reads all 16 entries
+// at addresses that do not depend on the digit, the digit only sets the
+// select's masks, no branch depends on it, and every block zeroes its
+// shared memory before it exits. Bound: operations (2K^2 16x16-bit
+// multiply-adds a product), as for the other kernels; the design cuts
+// the instructions a row-step issues, since with thousands of rows those,
+// not the chain, set the time.
+//
+// fsdkr_cios_mont_mul takes the same sub-warp product at launches of at
+// least kRowsMinRows rows (the comb table's levels, 8192-57344 rows), one
+// product a row, no shared memory; smaller launches, one product's
+// latency plus the launch, keep one warp a row. kRowsMinRows is the
+// crossover of the mont_mul cells of the same sweep.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -242,6 +283,138 @@ __device__ __forceinline__ void mont_mul(uint32_t (&r)[P], const uint32_t (&x)[P
   }
   uint32_t borrow_out;
   uint32_t b1 = lookahead(b != 0, all_zero, lane, borrow_out);
+#pragma unroll
+  for (int s = 0; s < P; ++s) {
+    const uint64_t v = (uint64_t)d[s] - b1;
+    d[s] = (uint32_t)v;
+    b1 = (uint32_t)(v >> 63);
+  }
+  const uint32_t keep = 0u - (uint32_t)(t_top < borrow_out);  // t < n: all ones
+#pragma unroll
+  for (int s = 0; s < P; ++s) r[s] = (t[s] & keep) | (d[s] & ~keep);
+}
+
+// ---------------------------------------------------------------------------
+// The sub-warp product: L lanes a row (lane l = lane % L of the row whose
+// first lane is `first`), P words a lane (word j at lane j / P, slot j %
+// P; words at or above W zero), 32/L rows a warp
+
+// P for L lanes a row: a power of two with L * P >= K/2
+__host__ __device__ __forceinline__ int rows_words_per_lane(int K, int L) {
+  const int W = K / 2;
+  int P = 1;
+  while (L * P < W) P *= 2;
+  return P;
+}
+
+// The ballot carry-lookahead of `lookahead` over each row's L bits of the
+// warp's ballot
+template <int L>
+__device__ __forceinline__ uint32_t row_lookahead(bool g, bool q, int l, int first,
+                                                  uint32_t& out) {
+  constexpr uint64_t kMask = (1ull << L) - 1;
+  const uint64_t G = ((uint64_t)__ballot_sync(kFull, g) >> first) & kMask;
+  const uint64_t Q = ((uint64_t)__ballot_sync(kFull, q) >> first) & kMask;
+  const uint64_t s = (G | Q) + G;
+  out = (uint32_t)(s >> L) & 1u;
+  return (uint32_t)((s ^ Q) >> l) & 1u;
+}
+
+// r = x * y * R^{-1} mod n for each of the warp's 32/L rows, R = 2^(32W);
+// x, y < R, n odd < R, nprime = -n^{-1} mod 2^32. r may alias x or y.
+template <int L, int P>
+__device__ __forceinline__ void mont_mul_rows(uint32_t (&r)[P], const uint32_t (&x)[P],
+                                              const uint32_t (&y)[P], const uint32_t (&n)[P],
+                                              uint32_t nprime, int W, int l, int first) {
+  uint64_t acc[P];
+#pragma unroll
+  for (int s = 0; s < P; ++s) acc[s] = 0;
+  const bool last = l == L - 1;
+
+  const int src_lanes = (W + P - 1) / P;
+#pragma unroll 1
+  for (int src = 0; src < src_lanes; ++src) {
+#pragma unroll
+    for (int s = 0; s < P; ++s) {
+      if (src * P + s >= W) break;  // warp-uniform: the last lane's padding
+      const uint32_t xi = __shfl_sync(kFull, x[s], src, L);
+      // the lane's exact x_i * y and m * n: word t is lo(v), hi(v) joins
+      // word t + 1; the top one is the lane's overflow into the word above
+      uint32_t plo[P], qlo[P];
+      uint32_t hp = 0, hq = 0;
+#pragma unroll
+      for (int t = 0; t < P; ++t) {
+        const uint64_t v = (uint64_t)xi * y[t] + hp;
+        plo[t] = (uint32_t)v;
+        hp = (uint32_t)(v >> 32);
+      }
+      const uint32_t m = __shfl_sync(kFull, ((uint32_t)acc[0] + plo[0]) * nprime, 0, L);
+#pragma unroll
+      for (int t = 0; t < P; ++t) {
+        const uint64_t v = (uint64_t)m * n[t] + hq;
+        qlo[t] = (uint32_t)v;
+        hq = (uint32_t)(v >> 32);
+      }
+#pragma unroll
+      for (int t = 0; t < P; ++t) acc[t] += (uint64_t)plo[t] + qlo[t];
+      // word 0 of the row is now 0 mod 2^32. Shift down one word: each
+      // slot-0 accumulator's high part stays in its lane (the word above
+      // is slot 0 after the shift), its low 32 bits go down one lane
+      const uint64_t c0 = acc[0] >> 32;
+      uint32_t below = __shfl_down_sync(kFull, (uint32_t)acc[0], 1, L);
+      if (last) below = 0u;
+#pragma unroll
+      for (int t = 0; t + 1 < P; ++t) acc[t] = acc[t + 1];
+      acc[P - 1] = (uint64_t)hp + hq + below;
+      acc[0] += c0;
+    }
+  }
+
+  // carry resolution: t = sum acc_j 2^(32j) < 2R over the row's words
+  uint32_t t[P];
+  uint32_t c = 0;
+#pragma unroll
+  for (int s = 0; s < P; ++s) {
+    const uint64_t v = acc[s] + c;
+    t[s] = (uint32_t)v;
+    c = (uint32_t)(v >> 32);
+  }
+  // the multi-bit carry of the row's last lane is its top word (nonzero
+  // only when W == L * P)
+  uint32_t t_top = __shfl_sync(kFull, c, L - 1, L);
+  uint32_t cin = __shfl_up_sync(kFull, c, 1, L);
+  if (l == 0) cin = 0;
+  bool all_ones = true;
+#pragma unroll
+  for (int s = 0; s < P; ++s) {
+    const uint64_t v = (uint64_t)t[s] + cin;
+    t[s] = (uint32_t)v;
+    cin = (uint32_t)(v >> 32);
+    all_ones = all_ones && t[s] == kFull;
+  }
+  uint32_t carry_out;
+  uint32_t c1 = row_lookahead<L>(cin != 0, all_ones, l, first, carry_out);
+  t_top += carry_out;
+#pragma unroll
+  for (int s = 0; s < P; ++s) {
+    const uint64_t v = (uint64_t)t[s] + c1;
+    t[s] = (uint32_t)v;
+    c1 = (uint32_t)(v >> 32);
+  }
+
+  // d = t - n with the same lookahead over borrows; keep t where t < n
+  uint32_t d[P];
+  uint32_t b = 0;
+  bool all_zero = true;
+#pragma unroll
+  for (int s = 0; s < P; ++s) {
+    const uint64_t v = (uint64_t)t[s] - n[s] - b;
+    d[s] = (uint32_t)v;
+    b = (uint32_t)(v >> 63);
+    all_zero = all_zero && d[s] == 0u;
+  }
+  uint32_t borrow_out;
+  uint32_t b1 = row_lookahead<L>(b != 0, all_zero, l, first, borrow_out);
 #pragma unroll
   for (int s = 0; s < P; ++s) {
     const uint64_t v = (uint64_t)d[s] - b1;
@@ -422,50 +595,142 @@ cios_modexp_kernel(const __grid_constant__ ModexpTable tab) {
 }
 
 // ---------------------------------------------------------------------------
-// fsdkr_cios_comb: the comb's accumulation and exit, one warp per row
+// The sub-warp kernels: fsdkr_cios_comb and fsdkr_cios_mont_mul's large
+// launches
 
-template <int P>
-__global__ void __launch_bounds__(kWarps * 32)
+constexpr int kRowsWarps = 4;       // warps a block
+constexpr int kRowsMaxWords = 8;    // launch rule: the fewest lanes a row with P <= this
+constexpr int kRowsMinRows = 4096;  // fsdkr_cios_mont_mul: rows from which it is sub-warp
+
+// L of the sub-warp kernels at K limbs: 8, 16 or 32 lanes a row
+__host__ __device__ __forceinline__ int rows_lanes(int K) {
+  if (rows_words_per_lane(K, 8) <= kRowsMaxWords) return 8;
+  if (rows_words_per_lane(K, 16) <= kRowsMaxWords) return 16;
+  return 32;
+}
+
+__device__ __forceinline__ void cp_async8(uint32_t* dst, const int32_t* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// shared memory of a comb block, in 32-bit words: two buffers of a
+// window's 16 raw entries (16 * K limbs each), then the packed entries
+// (16 * P * L words)
+__host__ __device__ __forceinline__ int comb_smem_words(int K, int L, int P) {
+  return 2 * 16 * K + 16 * P * L;
+}
+
+// fsdkr_cios_comb: the comb's accumulation and exit, L lanes a row
+template <int L, int P>
+__global__ void __launch_bounds__(kRowsWarps * 32)
 cios_comb_kernel(const int32_t* __restrict__ table, const int32_t* __restrict__ exp,
                  int exp_limbs, int windows, const int32_t* __restrict__ n,
                  const int32_t* __restrict__ n_inv, const int32_t* __restrict__ one_mont,
                  int groups, int per_group, int K, int32_t* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= groups * per_group) return;  // the whole warp
-  const int g = row / per_group;
+  extern __shared__ __align__(16) uint32_t smem[];
+  constexpr int kRows = kRowsWarps * 32 / L;  // rows a block
   const int W = K / 2;
+  const int tiles = (per_group + kRows - 1) / kRows;
+  const int g = (int)blockIdx.x / tiles;
+  const int first_row = ((int)blockIdx.x - g * tiles) * kRows;
+  const int lane = threadIdx.x & 31;
+  const int l = lane & (L - 1);
+  const int first = lane - l;
+  const int row = first_row + (int)threadIdx.x / L;  // of the group
+  const bool active = row < per_group;                 // a ragged last tile masks the rest
+  // a warp with no row of the group skips the products (warp-uniform)
+  const bool warp_active = first_row + (int)(threadIdx.x >> 5) * (32 / L) < per_group;
   const size_t goff = (size_t)g * K;
   // table layout (16, windows, groups, K): entry e of window w for group g
   const size_t entry_stride = (size_t)windows * groups * K;
+  uint32_t* raw = smem;                 // [2][16][K] limbs
+  uint32_t* packed = smem + 2 * 16 * K;  // [16][P][L] words
 
-  uint32_t nv[P], acc[P], sel[P], v[P];
-  load_words<P>(nv, n + goff, W, lane);
+  // window w's 16 entries into raw buffer w & 1, 8 bytes (one word) a copy
+  auto fetch = [&](int w) {
+    uint32_t* dst = raw + (w & 1) * 16 * K;
+    const int32_t* src = table + ((size_t)w * groups + g) * K;
+    for (int c = threadIdx.x; c < 16 * W; c += kRowsWarps * 32) {
+      const int e = c / W, j = c - e * W;
+      cp_async8(dst + e * K + 2 * j, src + e * entry_stride + 2 * j);
+    }
+    cp_async_commit();
+  };
+
+  uint32_t nv[P], acc[P], sel[P];
+  load_words<P>(nv, n + goff, W, l);
   const uint32_t np = nprime_of(n_inv, K, g);
-  load_words<P>(acc, one_mont + goff, W, lane);
-  const int32_t* erow = exp + (size_t)row * exp_limbs;
+  load_words<P>(acc, one_mont + goff, W, l);
+  const int32_t* erow = exp + ((size_t)g * per_group + (active ? row : 0)) * exp_limbs;
+
+  fetch(0);
 #pragma unroll 1
   for (int w = 0; w < windows; ++w) {
+    if (w + 1 < windows) {
+      fetch(w + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // window w landed; every row is done with the last packed window
+    const uint32_t* rw = raw + (w & 1) * 16 * K;
+    for (int i = threadIdx.x; i < 16 * P * L; i += kRowsWarps * 32) {
+      const int e = i / (P * L), s = (i / L) % P, j = (i % L) * P + s;
+      packed[i] = j < W ? (rw[e * K + 2 * j] & 0xFFFFu) | (rw[e * K + 2 * j + 1] << 16) : 0u;
+    }
+    __syncthreads();
     const int shift = 4 * w;  // least significant window first
-    const uint32_t d = ((uint32_t)erow[shift >> 4] >> (shift & 15)) & 15u;
-    const int32_t* ent = table + ((size_t)w * groups + g) * K;
+    const uint32_t d = active ? ((uint32_t)erow[shift >> 4] >> (shift & 15)) & 15u : 0u;
+    // the window's entry: a masked sum over all 16 entries
 #pragma unroll
     for (int s = 0; s < P; ++s) sel[s] = 0u;
-    // the window's entry: a masked sum over all 16 entries
 #pragma unroll 4
     for (int e = 0; e < 16; ++e) {
       const uint32_t mask = 0u - (uint32_t)(d == (uint32_t)e);
-      load_words<P>(v, ent + e * entry_stride, W, lane);
 #pragma unroll
-      for (int s = 0; s < P; ++s) sel[s] |= v[s] & mask;
+      for (int s = 0; s < P; ++s) sel[s] |= packed[(e * P + s) * L + l] & mask;
     }
-    mont_mul<P>(acc, acc, sel, nv, np, W, lane);
+    if (warp_active) mont_mul_rows<L, P>(acc, acc, sel, nv, np, W, l, first);
   }
   // leave the Montgomery domain: a product with 1
 #pragma unroll
-  for (int s = 0; s < P; ++s) v[s] = (lane == 0 && s == 0) ? 1u : 0u;
-  mont_mul<P>(acc, acc, v, nv, np, W, lane);
-  store_words<P>(acc, out + (size_t)row * K, W, lane);
+  for (int s = 0; s < P; ++s) sel[s] = (l == 0 && s == 0) ? 1u : 0u;
+  if (warp_active) mont_mul_rows<L, P>(acc, acc, sel, nv, np, W, l, first);
+  if (active) store_words<P>(acc, out + ((size_t)g * per_group + row) * K, W, l);
+  // the buffers held the table's entries: zero them before the block exits
+  __syncthreads();
+  for (int i = threadIdx.x; i < comb_smem_words(K, L, P); i += kRowsWarps * 32) smem[i] = 0u;
+}
+
+// fsdkr_cios_mont_mul at kRowsMinRows rows and more: L lanes a row
+template <int L, int P>
+__global__ void __launch_bounds__(kRowsWarps * 32)
+cios_mont_mul_rows_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
+                          const int32_t* __restrict__ n, const int32_t* __restrict__ n_inv,
+                          int rows, int K, int32_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int l = lane & (L - 1);
+  const int first = lane - l;
+  const int warp_row = ((int)blockIdx.x * kRowsWarps + (int)(threadIdx.x >> 5)) * (32 / L);
+  if (warp_row >= rows) return;  // the whole warp
+  const int row = warp_row + first / L;
+  const int src = row < rows ? row : warp_row;  // a masked row computes its warp's first
+  const int W = K / 2;
+  const size_t off = (size_t)src * K;
+  uint32_t xv[P], yv[P], nv[P];
+  load_words<P>(xv, x + off, W, l);
+  load_words<P>(yv, y + off, W, l);
+  load_words<P>(nv, n + off, W, l);
+  mont_mul_rows<L, P>(xv, xv, yv, nv, nprime_of(n_inv, K, src), W, l, first);
+  if (row < rows) store_words<P>(xv, out + off, W, l);
 }
 
 // ---------------------------------------------------------------------------
@@ -528,14 +793,32 @@ int launch_modexp(const ModexpTable& tab, int blocks, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int P>
+template <int L, int P>
 int launch_comb(const void* table, const void* exp, int exp_limbs, int windows,
                 const void* n, const void* n_inv, const void* one_mont, int groups,
                 int per_group, int K, void* out, cudaStream_t stream) {
-  const int rows = groups * per_group;
-  cios_comb_kernel<P><<<(rows + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(
+  constexpr int kRows = kRowsWarps * 32 / L;
+  const long long blocks = (long long)groups * ((per_group + kRows - 1) / kRows);
+  if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)comb_smem_words(K, L, P) * sizeof(uint32_t);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        cios_comb_kernel<L, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cios_comb_kernel<L, P><<<(int)blocks, kRowsWarps * 32, smem, stream>>>(
       (const int32_t*)table, (const int32_t*)exp, exp_limbs, windows, (const int32_t*)n,
       (const int32_t*)n_inv, (const int32_t*)one_mont, groups, per_group, K,
+      (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+template <int L, int P>
+int launch_mont_mul_rows(const void* x, const void* y, const void* n, const void* n_inv,
+                         int rows, int K, void* out, cudaStream_t stream) {
+  constexpr int kRows = kRowsWarps * 32 / L;
+  cios_mont_mul_rows_kernel<L, P><<<(rows + kRows - 1) / kRows, kRowsWarps * 32, 0, stream>>>(
+      (const int32_t*)x, (const int32_t*)y, (const int32_t*)n, (const int32_t*)n_inv, rows, K,
       (int32_t*)out);
   return (int)cudaGetLastError();
 }
@@ -562,15 +845,51 @@ bool bad_shape(int rows, int K) { return rows < 0 || K < 2 || K % 2 || K > 1024;
     default: return CALL(16);                            \
   }
 
+// the sub-warp kernels' (L, P): P <= kRowsMaxWords at every L, and L = 32
+// with P = 16 (K up to 1024)
+#define FSDKR_ROWS_DISPATCH(L, P, CALL)               \
+  switch ((L) * 100 + (P)) {                          \
+    case 801: return CALL(8, 1);                      \
+    case 802: return CALL(8, 2);                      \
+    case 804: return CALL(8, 4);                      \
+    case 808: return CALL(8, 8);                      \
+    case 1601: return CALL(16, 1);                    \
+    case 1602: return CALL(16, 2);                    \
+    case 1604: return CALL(16, 4);                    \
+    case 1608: return CALL(16, 8);                    \
+    case 3201: return CALL(32, 1);                    \
+    case 3202: return CALL(32, 2);                    \
+    case 3204: return CALL(32, 4);                    \
+    case 3208: return CALL(32, 8);                    \
+    case 3216: return CALL(32, 16);                   \
+    default: return (int)cudaErrorInvalidValue;       \
+  }
+
+// x*y*R^{-1} mod n per row. lanes: 0 for one warp a row, 8, 16 or 32 for
+// the sub-warp kernel at that many lanes a row; the launch rule
+// (fsdkr_cios_mont_mul) takes the sub-warp kernel from kRowsMinRows rows
+extern "C" int fsdkr_cios_mont_mul_lanes(int lanes, const void* x, const void* y,
+                                         const void* n, const void* n_inv, int rows, int K,
+                                         void* out, void* stream) {
+  if (bad_shape(rows, K) || (lanes != 0 && lanes != 8 && lanes != 16 && lanes != 32))
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (lanes == 0) {
+#define CALL(P) launch_mont_mul<P>(x, y, n, n_inv, rows, K, out, s)
+    FSDKR_CIOS_DISPATCH(K, CALL)
+#undef CALL
+  }
+#define CALL(L, P) launch_mont_mul_rows<L, P>(x, y, n, n_inv, rows, K, out, s)
+  FSDKR_ROWS_DISPATCH(lanes, rows_words_per_lane(K, lanes), CALL)
+#undef CALL
+}
+
 extern "C" int fsdkr_cios_mont_mul(const void* x, const void* y, const void* n,
                                    const void* n_inv, int rows, int K, void* out,
                                    void* stream) {
-  if (bad_shape(rows, K)) return (int)cudaErrorInvalidValue;
-  if (rows == 0) return 0;
-  const cudaStream_t s = (cudaStream_t)stream;
-#define CALL(P) launch_mont_mul<P>(x, y, n, n_inv, rows, K, out, s)
-  FSDKR_CIOS_DISPATCH(K, CALL)
-#undef CALL
+  return fsdkr_cios_mont_mul_lanes(rows >= kRowsMinRows ? rows_lanes(K) : 0, x, y, n, n_inv,
+                                   rows, K, out, stream);
 }
 
 extern "C" int fsdkr_cios_modmul(const void* a, const void* b, const void* n,
@@ -634,20 +953,41 @@ extern "C" int fsdkr_cios_modexp(const int64_t* segments, int count, void* strea
   }
 }
 
+// the comb at `lanes` lanes a row (8, 16 or 32); fsdkr_cios_comb takes
+// rows_lanes(K). The table must be 8-byte aligned (its words are copied
+// 8 bytes at a time).
+extern "C" int fsdkr_cios_comb_lanes(int lanes, const void* table, const void* exp,
+                                     int exp_limbs, int exp_bits, const void* n,
+                                     const void* n_inv, const void* one_mont, int groups,
+                                     int per_group, int K, void* out, void* stream) {
+  if (groups < 0 || per_group < 0 || (long long)groups * per_group > 0x7FFFFFFF ||
+      bad_shape(groups * per_group, K) || exp_bits <= 0 || exp_bits % 4 ||
+      exp_limbs * 16 < exp_bits || (uintptr_t)table % 8 ||
+      (lanes != 8 && lanes != 16 && lanes != 32))
+    return (int)cudaErrorInvalidValue;
+  if (groups * per_group == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define CALL(L, P) launch_comb<L, P>(table, exp, exp_limbs, exp_bits / 4, n, n_inv, \
+                                     one_mont, groups, per_group, K, out, s)
+  FSDKR_ROWS_DISPATCH(lanes, rows_words_per_lane(K, lanes), CALL)
+#undef CALL
+}
+
 extern "C" int fsdkr_cios_comb(const void* table, const void* exp, int exp_limbs,
                                int exp_bits, const void* n, const void* n_inv,
                                const void* one_mont, int groups, int per_group, int K,
                                void* out, void* stream) {
-  if (groups < 0 || per_group < 0 || (long long)groups * per_group > 0x7FFFFFFF ||
-      bad_shape(groups * per_group, K) || exp_bits <= 0 || exp_bits % 4 ||
-      exp_limbs * 16 < exp_bits)
-    return (int)cudaErrorInvalidValue;
-  if (groups * per_group == 0) return 0;
-  const cudaStream_t s = (cudaStream_t)stream;
-#define CALL(P) launch_comb<P>(table, exp, exp_limbs, exp_bits / 4, n, n_inv, one_mont, \
-                               groups, per_group, K, out, s)
-  FSDKR_CIOS_DISPATCH(K, CALL)
-#undef CALL
+  return fsdkr_cios_comb_lanes(rows_lanes(K), table, exp, exp_limbs, exp_bits, n, n_inv,
+                               one_mont, groups, per_group, K, out, stream);
+}
+
+// the sub-warp kernels' launch rule at K limbs: lanes a row, and the
+// rows from which fsdkr_cios_mont_mul takes the sub-warp kernel
+extern "C" int fsdkr_cios_rows_rule(int K, int* lanes, int* min_rows) {
+  if (bad_shape(0, K)) return (int)cudaErrorInvalidValue;
+  *lanes = rows_lanes(K);
+  *min_rows = kRowsMinRows;
+  return 0;
 }
 
 extern "C" int fsdkr_cios_comb_ladder(const void* base, const void* n, const void* n_inv,

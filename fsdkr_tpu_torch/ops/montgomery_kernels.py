@@ -18,7 +18,10 @@ C++ for sm_90a; its header comment gives the design):
     its one-segment call.
 `comb` — the fixed-base comb's accumulation and exit, one launch: per
     row, one masked 16-entry table select and product per window, then
-    the product by 1 (`_shared_modexp_kernel` :372-446).
+    the product by 1 (`_shared_modexp_kernel` :372-446). Several rows a
+    warp on the sub-warp product (L lanes a row), the group's window
+    entries staged in shared memory; `mont_mul` takes the same product
+    at launches of at least the rule's rows (`rows_rule`).
 `comb_ladder` — the comb's power ladder base_m^(16^w), one warp per
     group (:323-336). The table between the two is four `mont_mul`
     launches (`ops.montgomery._comb_table`).
@@ -49,6 +52,9 @@ __all__ = [
     "modexp_segments",
     "comb",
     "comb_ladder",
+    "comb_at_lanes",
+    "mont_mul_at_lanes",
+    "rows_rule",
     "launch_counts",
     "reset_launch_counts",
     "load_library",
@@ -84,6 +90,12 @@ def load_library() -> ctypes.CDLL:
     lib.fsdkr_cios_comb.restype = i
     lib.fsdkr_cios_comb_ladder.argtypes = [p, p, p, p, i, i, i, p, p]
     lib.fsdkr_cios_comb_ladder.restype = i
+    lib.fsdkr_cios_mont_mul_lanes.argtypes = [i, p, p, p, p, i, i, p, p]
+    lib.fsdkr_cios_mont_mul_lanes.restype = i
+    lib.fsdkr_cios_comb_lanes.argtypes = [i, p, p, i, i, p, p, p, i, i, i, p, p]
+    lib.fsdkr_cios_comb_lanes.restype = i
+    lib.fsdkr_cios_rows_rule.argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i)]
+    lib.fsdkr_cios_rows_rule.restype = i
     _LIB = lib
     return lib
 
@@ -135,8 +147,31 @@ def _count(fn, shape):
     fn.shapes[shape] = fn.shapes.get(shape, 0) + 1
 
 
+def rows_rule(k: int):
+    """The sub-warp kernels' launch rule at K limbs, as the library holds
+    it: (lanes a row, the rows from which `mont_mul` takes the sub-warp
+    kernel)."""
+    lanes, min_rows = ctypes.c_int(), ctypes.c_int()
+    if load_library().fsdkr_cios_rows_rule(k, ctypes.byref(lanes), ctypes.byref(min_rows)):
+        raise ValueError(f"no sub-warp launch rule at K={k}")
+    return lanes.value, min_rows.value
+
+
 def mont_mul(x, y, n, n_inv) -> torch.Tensor:
-    """x*y*R^{-1} mod n per row over (rows, K) limbs; x, y < n."""
+    """x*y*R^{-1} mod n per row over (rows, K) limbs; x, y < n. On the card
+    one warp a row, or from the rule's rows on the sub-warp kernel."""
+    return _mont_mul(None, x, y, n, n_inv)
+
+
+def mont_mul_at_lanes(lanes: int, x, y, n, n_inv) -> torch.Tensor:
+    """`mont_mul` on a layout named here, not by the launch rule: lanes 0
+    for one warp a row, 8, 16 or 32 for the sub-warp kernel at that many
+    lanes a row. For the lanes sweep and the checks of both layouts; the
+    engine calls `mont_mul`."""
+    return _mont_mul(lanes, x, y, n, n_inv)
+
+
+def _mont_mul(lanes, x, y, n, n_inv):
     rows, k = x.shape
     device = _check((("x", x), ("y", y), ("n", n), ("n_inv", n_inv)), rows, k)
     if device.type == "cpu":
@@ -144,10 +179,11 @@ def mont_mul(x, y, n, n_inv) -> torch.Tensor:
 
         return mont_mul_limbs(x, y, n, n_inv).to(torch.int32)
     out = torch.empty_like(x)
-    err = load_library().fsdkr_cios_mont_mul(
-        x.data_ptr(), y.data_ptr(), n.data_ptr(), n_inv.data_ptr(), rows, k,
-        out.data_ptr(), _stream(device),
-    )
+    lib = load_library()
+    args = (x.data_ptr(), y.data_ptr(), n.data_ptr(), n_inv.data_ptr(), rows, k,
+            out.data_ptr(), _stream(device))
+    err = lib.fsdkr_cios_mont_mul(*args) if lanes is None else \
+        lib.fsdkr_cios_mont_mul_lanes(lanes, *args)
     if err:
         raise RuntimeError(f"fsdkr_cios_mont_mul launch failed: CUDA error {err}")
     _count(mont_mul, (k, rows))
@@ -232,6 +268,16 @@ def comb(table, exp, n, n_inv, one_mont, exp_bits: int) -> torch.Tensor:
     `ops.montgomery._comb_table`. table: (16, W, G, K) with W =
     exp_bits / 4; exp: (G, M, EL) 16-bit limbs; n, n_inv, one_mont: (G,
     K). Returns (G, M, K)."""
+    return _comb(None, table, exp, n, n_inv, one_mont, exp_bits)
+
+
+def comb_at_lanes(lanes: int, table, exp, n, n_inv, one_mont, exp_bits: int) -> torch.Tensor:
+    """`comb` at 8, 16 or 32 lanes a row, named here, not by the launch
+    rule: for the lanes sweep; the engine calls `comb`."""
+    return _comb(lanes, table, exp, n, n_inv, one_mont, exp_bits)
+
+
+def _comb(lanes, table, exp, n, n_inv, one_mont, exp_bits):
     g, k = n.shape
     device = _check((("n", n), ("n_inv", n_inv), ("one_mont", one_mont)), g, k)
     if exp.dim() != 3 or exp.shape[0] != g:
@@ -246,11 +292,14 @@ def comb(table, exp, n, n_inv, one_mont, exp_bits: int) -> torch.Tensor:
 
         return _comb_accumulate(table, exp, n, n_inv, one_mont,
                                 exp_bits=exp_bits).to(torch.int32)
+    if table.data_ptr() % 8:
+        raise ValueError("table must be 8-byte aligned (the kernel copies it a word at a time)")
     out = torch.empty((g, m, k), dtype=torch.int32, device=device)
-    err = load_library().fsdkr_cios_comb(
-        table.data_ptr(), exp.data_ptr(), el, exp_bits, n.data_ptr(), n_inv.data_ptr(),
-        one_mont.data_ptr(), g, m, k, out.data_ptr(), _stream(device),
-    )
+    lib = load_library()
+    args = (table.data_ptr(), exp.data_ptr(), el, exp_bits, n.data_ptr(), n_inv.data_ptr(),
+            one_mont.data_ptr(), g, m, k, out.data_ptr(), _stream(device))
+    err = lib.fsdkr_cios_comb(*args) if lanes is None else \
+        lib.fsdkr_cios_comb_lanes(lanes, *args)
     if err:
         raise RuntimeError(f"fsdkr_cios_comb launch failed: CUDA error {err}")
     _count(comb, (k, g, m, exp_bits))

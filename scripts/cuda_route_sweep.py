@@ -34,6 +34,20 @@ host clock (median of --reps calls, each ending in its host copy; one
 untimed call of each way first, at the smallest cell).
 _SHARED_MIN_ROWS and _SHARED_MIN_GROUPS are read off this table; the
 script prints what the cells imply for both.
+
+`lanes` cells: `cios_comb` at the main path's shape (K=128, 16 groups x
+256 rows, 2048-bit exponents) at 8, 16 and 32 lanes a row
+(`comb_at_lanes`), each launch's results equal to the others' and to
+the launch rule's (`comb`): device time per launch (torch.profiler, the
+kernel's own events, median of --reps windows of 3 launches) and ns per
+row-step. The launch rule of csrc/cios_kernels.cu (kRowsMaxWords) is read
+off this table.
+
+`mont_mul` cells: `cios_mont_mul` at 256, 1024, 4096, 8192 and 57344
+rows, K=128 and 256, one warp a row against the sub-warp kernel at 8,
+16 and 32 lanes a row (`mont_mul_at_lanes`), results equal: device time
+per launch as above. kRowsMinRows (R*, the rows from which the launch
+rule takes the sub-warp kernel) is the crossover; the script prints it.
 """
 
 from __future__ import annotations
@@ -171,23 +185,164 @@ def comb_verdict(table):
     return lines
 
 
+def kernel_ms(fn, reps, symbol):
+    """Median over `reps` profiler windows of the device time per launch
+    of the kernels whose name holds `symbol` (3 calls a window)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        us, count = 0.0, 0
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA and symbol in ev.key:
+                us += getattr(ev, "self_device_time_total", 0) or 0
+                count += ev.count
+        if count:
+            per.append(us / count / 1e3)
+    if not per:
+        sys.exit(f"cuda_route_sweep: the profiler saw no launch of {symbol}")
+    return statistics.median(per)
+
+
+def _limbs(dev, values, k):
+    import numpy as np
+    import torch
+
+    from fsdkr_tpu_torch.ops.limbs import ints_to_limbs
+
+    return torch.as_tensor(np.asarray(ints_to_limbs(values, k), np.int32)).to(dev).contiguous()
+
+
+LANES = (8, 16, 32)
+
+
+def built(k, lanes):
+    """Whether the library has a sub-warp kernel at K limbs and `lanes`
+    lanes a row: P (a power of two with lanes * P >= K/2) at most 8, or
+    16 at 32 lanes (csrc/cios_kernels.cu FSDKR_ROWS_DISPATCH)."""
+    p = 1
+    while lanes * p < k // 2:
+        p *= 2
+    return p <= 8 or (lanes, p) == (32, 16)
+
+
+def lanes_cells(dev, rng, reps, k=128, groups=16, per_group=256, exp_bits=2048):
+    """The comb at each lanes a row, at the main path's shape."""
+    import numpy as np
+    import torch
+
+    from fsdkr_tpu_torch.ops import montgomery_kernels as mk
+    from fsdkr_tpu_torch.ops.limbs import MontgomeryContext
+
+    moduli = [rng.getrandbits(16 * k) | 1 | (1 << (16 * k - 1)) for _ in range(groups)]
+    ctx = MontgomeryContext(moduli, k)
+    w_cnt = exp_bits // 4
+    entries = [rng.randrange(n) for _ in range(16 * w_cnt) for n in moduli]
+    table = _limbs(dev, entries, k).reshape(16, w_cnt, groups, k)
+    nrng = np.random.default_rng(rng.getrandbits(32))
+    exp = torch.as_tensor(nrng.integers(0, 1 << 16, size=(groups, per_group, exp_bits // 16),
+                                        dtype=np.int32)).to(dev)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.int32)).to(dev).contiguous()
+
+    n, ni, one = t(ctx.n), t(ctx.n_inv), t(ctx.one_mont)
+    want = mk.comb(table, exp, n, ni, one, exp_bits)
+    rule = mk.rows_rule(k)[0]
+    row_steps = groups * per_group * (w_cnt + 1) * (k // 2)
+    table_rows = []
+    for lanes in LANES:
+        def call():
+            return mk.comb_at_lanes(lanes, table, exp, n, ni, one, exp_bits)
+
+        if not torch.equal(call(), want):
+            sys.exit(f"cuda_route_sweep: comb at {lanes} lanes a row differs from the rule's")
+        ms = kernel_ms(call, reps, "cios_comb_kernel")
+        row = {"cell": "lanes", "k": k, "groups": groups, "rows_per_group": per_group,
+               "exp_bits": exp_bits, "lanes": lanes, "rule": lanes == rule,
+               "device_ms": ms, "ns_per_row_step": ms * 1e6 / row_steps}
+        table_rows.append(row)
+        print(json.dumps(row), flush=True)
+    best = min(table_rows, key=lambda r: r["device_ms"])
+    print(f"lanes: fastest at {best['lanes']} lanes a row ({best['device_ms']:.4f} ms); "
+          f"the launch rule takes {rule} at K={k}", flush=True)
+    return table_rows
+
+
+def mont_mul_cells(dev, rng, reps, widths=(128, 256), row_counts=(256, 1024, 4096, 8192, 57344)):
+    """`cios_mont_mul` one warp a row against the sub-warp kernel."""
+    import numpy as np
+    import torch
+
+    from fsdkr_tpu_torch.ops import montgomery_kernels as mk
+    from fsdkr_tpu_torch.ops.limbs import MontgomeryContext
+
+    table_rows = []
+    for k in widths:
+        pool = [rng.getrandbits(16 * k) | 1 | (1 << (16 * k - 1)) for _ in range(64)]
+        rule_lanes, min_rows = mk.rows_rule(k)
+        for rows in row_counts:
+            moduli = [pool[i % 64] for i in range(rows)]
+            ctx = MontgomeryContext(moduli, k)
+            n, ni = (torch.as_tensor(np.asarray(a, np.int32)).to(dev).contiguous()
+                     for a in (ctx.n, ctx.n_inv))
+            x = _limbs(dev, [rng.randrange(m) for m in moduli], k)
+            y = _limbs(dev, [rng.randrange(m) for m in moduli], k)
+            want = mk.mont_mul_at_lanes(0, x, y, n, ni)
+            if not torch.equal(mk.mont_mul(x, y, n, ni), want):
+                sys.exit(f"cuda_route_sweep: mont_mul by the rule differs at K={k} rows={rows}")
+            row = {"cell": "mont_mul", "k": k, "rows": rows, "rule_lanes": rule_lanes,
+                   "rule_min_rows": min_rows}
+            for lanes in (0,) + tuple(L for L in LANES if built(k, L)):
+                def call():
+                    return mk.mont_mul_at_lanes(lanes, x, y, n, ni)
+
+                if not torch.equal(call(), want):
+                    sys.exit(f"cuda_route_sweep: mont_mul at {lanes} lanes differs at K={k} "
+                             f"rows={rows}")
+                symbol = "cios_mont_mul_kernel" if lanes == 0 else "cios_mont_mul_rows_kernel"
+                row[f"lanes_{lanes}_ms"] = kernel_ms(call, reps, symbol)
+            table_rows.append(row)
+            print(json.dumps(row), flush=True)
+    for k in widths:
+        cells = [r for r in table_rows if r["k"] == k]
+        lanes = cells[0]["rule_lanes"]
+        ahead = [r["rows"] for r in cells if r[f"lanes_{lanes}_ms"] < r["lanes_0_ms"]]
+        star = next((r["rows"] for r in cells
+                     if all(c["rows"] in ahead for c in cells if c["rows"] >= r["rows"])), None)
+        print(f"mont_mul: K={k}, the sub-warp kernel at {lanes} lanes a row "
+              + (f"ahead of one warp a row from {star} rows up" if star else
+                 "behind one warp a row at the largest launch")
+              + f"; the launch rule's R* is {cells[0]['rule_min_rows']}", flush=True)
+    return table_rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the table to this JSON file")
     ap.add_argument("--seed", type=int, default=6)
-    ap.add_argument("--cells", default="rns,comb",
-                    help="comma-separated subset of rns,comb (default: both)")
+    ap.add_argument("--cells", default="rns,comb,lanes,mont_mul",
+                    help="comma-separated subset of rns,comb,lanes,mont_mul (default: all)")
     ap.add_argument("--rows", default=",".join(map(str, ROWS)),
                     help="comma-separated row counts of the rns cells (default: 8 .. 16384)")
     ap.add_argument("--reps", type=int, default=3,
-                    help="timed calls per comb cell and way (default 3)")
+                    help="timed calls per comb cell and way, profiler windows per lanes "
+                         "and mont_mul cell (default 3)")
     ap.add_argument("--groups", default=",".join(map(str, COMB_GROUPS)),
                     help="comma-separated group counts of the comb cells "
                          "(default: 1, 2, 4, 8, 16, 64, 256)")
     args = ap.parse_args()
     row_counts = [int(r) for r in args.rows.split(",") if r]
     cells = [c for c in args.cells.split(",") if c]
-    if any(c not in ("rns", "comb") for c in cells):
+    if any(c not in ("rns", "comb", "lanes", "mont_mul") for c in cells):
         sys.exit(f"cuda_route_sweep: unknown cells in {cells}")
 
     import torch
@@ -239,10 +394,13 @@ def main():
     if comb:
         for line in comb_verdict(comb):
             print(line, flush=True)
+    lanes = lanes_cells(dev, rng, args.reps) if "lanes" in cells else []
+    mont = mont_mul_cells(dev, rng, args.reps) if "mont_mul" in cells else []
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as fh:
-            json.dump({"device": smi, "rows": table, "comb": comb}, fh, indent=1)
+            json.dump({"device": smi, "rows": table, "comb": comb, "lanes": lanes,
+                       "mont_mul": mont}, fh, indent=1)
     print(smi, flush=True)
 
 

@@ -25,6 +25,21 @@ by the same lookahead over borrows. It checks:
   and `cios_comb_ladder` and timed on the H100, it was 0.98-1.07x the
   one-word product's speed (PERF.md), below the 1.25x that would
   have kept it. These cases stay as the record of the design.
+- the sub-warp product `mont_mul_rows<L, P>` (`cios_comb`, and
+  `cios_mont_mul` at large launches): L lanes a row, P words a lane,
+  32/L rows a warp, replayed for all the warp's rows at once. x_i and m
+  by shuffles of width L; each lane's x_i * y and m * n as exact chains
+  (lo(v) of v = a * b_s + h is word s, h = hi(v) carries to word s + 1,
+  no 64-bit add), the chains' low words summed into the 64-bit lazy
+  accumulators, their top words into the lane's one-word overflow E;
+  the shift keeps each word's high part in its lane (it joins the
+  word above, now slot 0) and moves only its low 32 bits down one lane;
+  the carry resolution and the conditional subtraction by the ballot
+  lookahead on the row's L bits of the warp's ballot. Its accumulators'
+  bound at K = 128, 256 and 512, its product bit for bit against the
+  plain version and Python integers at K = 16, 128, 130, 256, 512 and
+  1024 for L = 8, 16 and 32, and the comb's row tiles (a block never
+  spans two groups; every row is covered once).
 """
 
 import random
@@ -312,3 +327,209 @@ def test_two_word_model_matches_plain_product(k):
         assert got == x * y * r_inv % m
         assert got == _plain(x, y, m, k)
         assert got == warp_mont_mul(x, y, m, k)[0]
+
+
+# ---------------------------------------------------------------------------
+# the sub-warp product: L lanes a row, 32/L rows a warp
+
+
+def rows_words_per_lane(k, lanes):
+    """`mont_mul_rows`'s P: a power of two with L * P >= K/2."""
+    p = 1
+    while lanes * p < k // 2:
+        p *= 2
+    return p
+
+
+def _chain(a, b):
+    """Each lane's exact product a * b over its P words (`mont_mul_rows`'
+    chain): word s is lo(v) of v = a * b_s + h, h = hi(v) the word above;
+    a: (R,) one word per row, b: (R, L, P). Returns (low words (R, L, P),
+    the lane's top word h (R, L)). v < 2^64: (2^32-1)^2 + 2^32-1 < 2^64."""
+    p = b.shape[2]
+    lo = np.zeros(b.shape, np.uint64)
+    h = np.zeros(b.shape[:2], np.uint64)
+    for s in range(p):
+        v = a[:, None] * b[:, :, s] + h
+        lo[:, :, s] = v & np.uint64(M32)
+        h = v >> np.uint64(32)
+    return lo, h
+
+
+def _row_lookahead(g, q, lanes):
+    """The sub-warp `lookahead`: one 32-bit ballot of g and q over the
+    warp, each row taking its L bits (shifted down by its first lane).
+    g, q: (R, L) bools. Returns (carry in (R, L), carry out of each
+    row's last lane (R,))."""
+    rows = LANES // lanes
+    G = sum(1 << l for l in range(LANES) if g[l // lanes, l % lanes])
+    Q = sum(1 << l for l in range(LANES) if q[l // lanes, l % lanes])
+    assert not G & Q
+    mask = (1 << lanes) - 1
+    cin = np.zeros((rows, lanes), np.uint64)
+    out = np.zeros(rows, np.uint64)
+    for r in range(rows):
+        gr, qr = (G >> (r * lanes)) & mask, (Q >> (r * lanes)) & mask
+        s = (gr | qr) + gr
+        out[r] = (s >> lanes) & 1
+        for l in range(lanes):
+            cin[r, l] = ((s ^ qr) >> l) & 1
+    return cin, out
+
+
+def _resolve_rows(acc, nw, lanes):
+    """`mont_mul_rows`' carry resolution and conditional subtraction on
+    every row of the warp: ripple each lane's words, hand each lane's
+    multi-bit carry to the next lane of its row (the last lane's is the
+    row's top word), ripple again, the 1-bit carries by the row
+    lookahead; then t - n by the same lookahead over borrows, keeping t
+    where t < n. Returns each row's canonical value."""
+    rows, _, p = acc.shape
+    m32, sh = np.uint64(M32), np.uint64(32)
+    t = np.zeros(acc.shape, np.uint64)
+    c = np.zeros((rows, lanes), np.uint64)
+    for s in range(p):
+        v = acc[:, :, s] + c  # < 2^45: no wrap
+        t[:, :, s], c = v & m32, v >> sh
+    t_top = c[:, lanes - 1].copy()
+    cin = np.concatenate([np.zeros((rows, 1), np.uint64), c[:, :-1]], axis=1)
+    all_ones = np.ones((rows, lanes), bool)
+    for s in range(p):
+        v = t[:, :, s] + cin
+        t[:, :, s], cin = v & m32, v >> sh
+        all_ones &= t[:, :, s] == m32
+    assert (cin <= 1).all() and not (cin.astype(bool) & all_ones).any()
+    c1, out = _row_lookahead(cin.astype(bool), all_ones, lanes)
+    t_top += out
+    for s in range(p):
+        v = t[:, :, s] + c1
+        t[:, :, s], c1 = v & m32, v >> sh
+    d = np.zeros(acc.shape, np.int64)
+    b = np.zeros((rows, lanes), np.int64)
+    all_zero = np.ones((rows, lanes), bool)
+    for s in range(p):
+        v = t[:, :, s].astype(np.int64) - nw[:, :, s].astype(np.int64) - b
+        d[:, :, s], b = v & M32, (v < 0).astype(np.int64)
+        all_zero &= d[:, :, s] == 0
+    b1, borrow_out = _row_lookahead(b.astype(bool), all_zero, lanes)
+    b1 = b1.astype(np.int64)
+    for s in range(p):
+        v = d[:, :, s] - b1
+        d[:, :, s], b1 = v & M32, (v < 0).astype(np.int64)
+    keep = t_top < borrow_out  # t < n
+    return [from_lanes(t[r] if keep[r] else d[r].astype(np.uint64)) for r in range(rows)]
+
+
+def rows_mont_mul(x, y, n, k, lanes):
+    """32/L rows' products x_r * y_r * 2^(-16K) mod n_r at once, step for
+    step as `mont_mul_rows<L, P>`: L lanes a row, P words a lane (word j
+    of a row at lane j // P, slot j % P; words at or above W zero).
+    Returns (results, largest accumulator seen)."""
+    rows = LANES // lanes
+    assert len(x) == len(y) == len(n) == rows
+    w_cnt, p = k // 2, rows_words_per_lane(k, lanes)
+
+    def words(v):
+        return np.array([(v >> (32 * j)) & M32 for j in range(lanes * p)],
+                        dtype=np.uint64).reshape(lanes, p)
+
+    xw, yw, nw = (np.stack([words(v) for v in vals]) for vals in (x, y, n))
+    nprime = np.array([(-pow(m, -1, 1 << 32)) % (1 << 32) for m in n], np.uint64)
+    assert (nprime == MontgomeryContext(list(n), k).n_prime32.astype(np.uint64)).all()
+    m32, sh = np.uint64(M32), np.uint64(32)
+    acc = np.zeros((rows, lanes, p), np.uint64)
+    peak = 0
+    for i in range(w_cnt):
+        xi = xw[:, i // p, i % p]  # shuffle of width L from lane i // P
+        plo, hp = _chain(xi, yw)
+        # m from each row's lane 0, shuffled to its row
+        m = ((acc[:, 0, 0] & m32) + plo[:, 0, 0]) * nprime & m32
+        qlo, hq = _chain(m, nw)
+        acc += plo + qlo
+        e = hp + hq  # the lane's overflow word E, < 2^33
+        peak = max(peak, int(acc.max()), int(e.max()))
+        assert not (acc[:, 0, 0] & m32).any()  # word 0 of every row is 0 mod 2^32
+        c0 = acc[:, :, 0] >> sh  # stays in its lane: the word above, slot 0 next
+        below = np.zeros((rows, lanes), np.uint64)  # shuffle down of width L
+        below[:, :-1] = acc[:, 1:, 0] & m32  # the row's last lane takes 0
+        acc[:, :, :-1] = acc[:, :, 1:].copy()
+        acc[:, :, p - 1] = e + below
+        acc[:, :, 0] += c0
+    out = _resolve_rows(acc, nw, lanes)
+    R = 1 << (16 * k)
+    for r in range(rows):
+        assert out[r] == x[r] * y[r] * pow(R, -1, n[r]) % n[r]
+    return out, peak
+
+
+@pytest.mark.parametrize("lanes", [8, 16, 32])
+@pytest.mark.parametrize("k", [128, 256, 512])
+def test_rows_accumulators_stay_below_their_bound(k, lanes):
+    """Worst case (n = R - 1, x = y = n - 1 in every row): a word gains
+    the low words of two chains a step, < 2^33, plus the high part of
+    the word below at the shift, and lives at most W + 1 steps, so every
+    accumulator stays below (W + 1) * 2^33 + 2^32 < 2^43 at W <= 512; E
+    < 2^33."""
+    n = (1 << (16 * k)) - 1
+    rows = LANES // lanes
+    got, peak = rows_mont_mul([n - 1] * rows, [n - 1] * rows, [n] * rows, k, lanes)
+    w_cnt = k // 2
+    assert peak < (w_cnt + 1) * (1 << 33) + (1 << 32) < 1 << 43
+    assert got == [(n - 1) * (n - 1) * pow(1 << (16 * k), -1, n) % n] * rows
+    assert got[0] == _plain(n - 1, n - 1, n, k)
+
+
+@pytest.mark.parametrize("lanes", [8, 16, 32])
+@pytest.mark.parametrize("k", [16, 128, 130, 256, 512, 1024])
+def test_rows_model_matches_plain_product(k, lanes):
+    """The warp's 32/L rows hold different moduli: n-1 rows, random rows,
+    a modulus of 3, a zero operand and an all-ones modulus. K=16 leaves
+    lanes idle at L=32, K=130 (W=65) padding words; every row against
+    the plain version and Python integers."""
+    rng = random.Random(1000 * k + lanes)
+    rows = LANES // lanes
+    top = (1 << (16 * k)) - 1
+    pool = []
+    while len(pool) < max(rows, 5):
+        n = rng.getrandbits(16 * k) | 1 | (1 << (16 * k - 1))
+        pool += [(n - 1, n - 1, n), (rng.randrange(n), rng.randrange(n), n)]
+    cases = [(2, 2, 3), (1, 0, pool[1][2]), (top - 1, rng.randrange(top), top)] + pool
+    for at in range(0, len(cases), rows):
+        chunk = cases[at:at + rows]
+        chunk += pool[:rows - len(chunk)]
+        x, y, n = (list(v) for v in zip(*chunk))
+        got, _ = rows_mont_mul(x, y, n, k, lanes)
+        for r in range(rows):
+            assert got[r] == x[r] * y[r] * pow(1 << (16 * k), -1, n[r]) % n[r]
+        assert got[0] == _plain(x[0], y[0], n[0], k)
+        if k <= 512:
+            assert got[0] == warp_mont_mul(x[0], y[0], n[0], k)[0]
+
+
+def comb_block_rows(block, per_group, rows_per_block):
+    """`cios_comb`'s row tile of one block: (group, rows of that group it
+    holds, how many of its row slots are masked). Blocks are numbered
+    group by group, ceil(per_group / rows_per_block) tiles a group; a
+    ragged last tile masks its slots past per_group."""
+    tiles = -(-per_group // rows_per_block)
+    g, tile = divmod(block, tiles)
+    first = tile * rows_per_block
+    rows = [first + r for r in range(rows_per_block) if first + r < per_group]
+    return g, rows, rows_per_block - len(rows)
+
+
+@pytest.mark.parametrize("per_group", [1, 13, 256, 257])
+def test_comb_row_tiles_cover_each_row_once(per_group):
+    """At every launch rule's rows a block (4 warps of 32/L rows), over 3
+    groups: each block's rows lie in one group, and the blocks cover
+    every (group, row) exactly once."""
+    groups = 3
+    for lanes in (8, 16, 32):
+        rows_per_block = 4 * (LANES // lanes)
+        blocks = groups * -(-per_group // rows_per_block)
+        seen = []
+        for b in range(blocks):
+            g, rows, masked = comb_block_rows(b, per_group, rows_per_block)
+            assert 0 <= g < groups and rows and masked < rows_per_block
+            seen += [(g, m) for m in rows]
+        assert sorted(seen) == [(g, m) for g in range(groups) for m in range(per_group)]
