@@ -405,7 +405,7 @@ def phase_kernels(dev, rng):
     # cios_mont_mul on both sides of R*: one warp a row below, the
     # sub-warp kernel from R* (a ragged last warp just above it)
     for k in (128, 256):
-        lanes, r_star = mk.rows_rule(k)
+        _, lanes, r_star = mk.rows_rule(k)
         for rows in (r_star - 1, r_star, r_star + 13):
             for worst in (False, 13):
                 kernel, plain = cios_calls("cios_mont_mul",

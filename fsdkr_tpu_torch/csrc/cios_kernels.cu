@@ -96,16 +96,20 @@
 // the 64-bit shift, the padding test) in all 32 lanes for P = 2 words of
 // real work. It runs instead on the sub-warp product mont_mul_rows<L, P>:
 // L lanes a row, P words a lane, 32/L rows a warp, so each shuffle (width
-// L) serves 32/L rows, and each lane's x_i * y and m * n are exact chains
-// (v = a * b_s + h, one IMAD.WIDE a word: lo(v) is word s, hi(v) joins
-// word s + 1), whose low words join the 64-bit lazy accumulators in one
-// 3-input add a word and whose top words form the lane's overflow E. The
-// shift keeps each accumulator's high part in its lane (it belongs to
-// the word above, slot 0 after the shift) and moves only its low 32 bits
-// down one lane. Accumulators stay below (W + 1) * 2^33 + 2^32 < 2^43;
-// the carry resolution and conditional subtraction are the ballot
-// lookahead on the row's L bits of the warp's ballot.
-// tests/test_torch_cios_model.py replays it (rows_mont_mul).
+// L) serves 32/L rows. Each lane forms x_i * y_t and m * n_t as IMAD.WIDE
+// products with no addend and sums a word's four halves (the low ones of
+// word t, the high ones of word t - 1) into its 64-bit lazy accumulator;
+// the lane's top high halves go to the word above it, which after the
+// shift is the lane's own last slot. The shift keeps each slot-0
+// accumulator's high part in its lane (it belongs to the word above, slot
+// 0 after the shift) and moves only its low 32 bits down one lane.
+// Accumulators stay below (W + 1) * 2^34 + 2^32 < 2^44; the carry
+// resolution and conditional subtraction are the ballot lookahead on the
+// row's L bits of the warp's ballot. tests/test_torch_cios_model.py
+// replays it (rows_mont_mul). Exact per-lane chains (v = a * b_t + h)
+// issued more instructions a step (each IMAD.WIDE's {h, 0} addend pair
+// is a move), and PTX carry chains (mad.lo.cc / madc.hi.cc) compile to
+// two instructions a half-product (PERF.md).
 //
 // A block (4 warps, 128/L rows) never spans groups: the grid is the row
 // tiles of each group in turn, and a ragged last tile masks its rows. A
@@ -116,9 +120,9 @@
 // l of every row reads slot s of entry e at (e * P + s) * L + l
 // (consecutive lanes, consecutive banks; the block's rows read the same
 // words), and every row selects from there. L is a launch rule per K
-// (comb_lanes), set by the comb's lanes sweep (scripts/
+// (rows_lanes), set by the comb's lanes sweep (scripts/
 // cuda_route_sweep.py --cells lanes): the fewest lanes a row that keep P
-// <= kRowsMaxWords, else 32.
+// <= kCombMaxWords, else 32.
 //
 // The exponents may be secret (the provers' h1^x mod N~ columns): the
 // loop length is the bucketed exp_bits, the select reads all 16 entries
@@ -130,10 +134,12 @@
 // not the chain, set the time.
 //
 // fsdkr_cios_mont_mul takes the same sub-warp product at launches of at
-// least kRowsMinRows rows (the comb table's levels, 8192-57344 rows), one
-// product a row, no shared memory; smaller launches, one product's
-// latency plus the launch, keep one warp a row. kRowsMinRows is the
-// crossover of the mont_mul cells of the same sweep.
+// least kRowsMinRows rows (the comb table's levels, 8192-57344 rows, and
+// the 256-row launches), one product a row, no shared memory, at P <=
+// kMontMulMaxWords (one product a row wants more warps than the comb's
+// 513); smaller launches, one product's latency plus the launch, keep
+// one warp a row. Both are read off the mont_mul cells of the same
+// sweep: the sub-warp kernel led at every size measured, 256 rows up.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -320,6 +326,54 @@ __device__ __forceinline__ uint32_t row_lookahead(bool g, bool q, int l, int fir
   return (uint32_t)((s ^ Q) >> l) & 1u;
 }
 
+// a * b as one IMAD.WIDE. Opaque to the compiler's front end, which would
+// otherwise fold a product's high half and the next product's low half
+// into extra 32-bit multiplies.
+__device__ __forceinline__ uint64_t mul_wide(uint32_t a, uint32_t b) {
+  uint64_t r;
+  asm("mul.wide.u32 %0, %1, %2;" : "=l"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// One CIOS step of mont_mul_rows on word x_i of x (shuffled to the row):
+// t = (t + x_i * y + m * n) / 2^32 over the row's lazy accumulators;
+// `last`: the row's last lane
+template <int L, int P>
+__device__ __forceinline__ void rows_step(uint64_t (&acc)[P], uint32_t xi, const uint32_t (&y)[P],
+                                          const uint32_t (&n)[P], uint32_t nprime, bool last) {
+  // the lane's products x_i * y_t and m * n_t (IMAD.WIDE, no addend: an
+  // addend pair would cost a move a word)
+  uint32_t pl[P], ph[P], ql[P], qh[P];
+#pragma unroll
+  for (int t = 0; t < P; ++t) {
+    const uint64_t v = mul_wide(xi, y[t]);
+    pl[t] = (uint32_t)v;
+    ph[t] = (uint32_t)(v >> 32);
+  }
+  const uint32_t m = __shfl_sync(kFull, ((uint32_t)acc[0] + pl[0]) * nprime, 0, L);
+#pragma unroll
+  for (int t = 0; t < P; ++t) {
+    const uint64_t v = mul_wide(m, n[t]);
+    ql[t] = (uint32_t)v;
+    qh[t] = (uint32_t)(v >> 32);
+  }
+  // low halves join word t, high halves word t + 1 (the lane's top ones
+  // the word above it, below)
+  acc[0] += (uint64_t)pl[0] + ql[0];
+#pragma unroll
+  for (int t = 1; t < P; ++t) acc[t] += (uint64_t)pl[t] + ph[t - 1] + ql[t] + qh[t - 1];
+  // word 0 of the row is now 0 mod 2^32. Shift down one word: each slot-0
+  // accumulator's high part stays in its lane (the word above is slot 0
+  // after the shift), its low 32 bits go down one lane
+  const uint64_t c0 = acc[0] >> 32;
+  uint32_t below = __shfl_down_sync(kFull, (uint32_t)acc[0], 1, L);
+  if (last) below = 0u;
+#pragma unroll
+  for (int t = 0; t + 1 < P; ++t) acc[t] = acc[t + 1];
+  acc[P - 1] = (uint64_t)ph[P - 1] + qh[P - 1] + below;
+  acc[0] += c0;
+}
+
 // r = x * y * R^{-1} mod n for each of the warp's 32/L rows, R = 2^(32W);
 // x, y < R, n odd < R, nprime = -n^{-1} mod 2^32. r may alias x or y.
 template <int L, int P>
@@ -331,43 +385,21 @@ __device__ __forceinline__ void mont_mul_rows(uint32_t (&r)[P], const uint32_t (
   for (int s = 0; s < P; ++s) acc[s] = 0;
   const bool last = l == L - 1;
 
-  const int src_lanes = (W + P - 1) / P;
+  // the source lanes whose P words are all words of x: P steps an
+  // iteration, so the accumulators' registers come round unmoved; then
+  // the last source lane's W mod P words (warp-uniform)
+  const int full = W / P;
 #pragma unroll 1
-  for (int src = 0; src < src_lanes; ++src) {
+  for (int src = 0; src < full; ++src) {
 #pragma unroll
-    for (int s = 0; s < P; ++s) {
-      if (src * P + s >= W) break;  // warp-uniform: the last lane's padding
-      const uint32_t xi = __shfl_sync(kFull, x[s], src, L);
-      // the lane's exact x_i * y and m * n: word t is lo(v), hi(v) joins
-      // word t + 1; the top one is the lane's overflow into the word above
-      uint32_t plo[P], qlo[P];
-      uint32_t hp = 0, hq = 0;
+    for (int s = 0; s < P; ++s)
+      rows_step<L, P>(acc, __shfl_sync(kFull, x[s], src, L), y, n, nprime, last);
+  }
+  const int rest = W - full * P;
 #pragma unroll
-      for (int t = 0; t < P; ++t) {
-        const uint64_t v = (uint64_t)xi * y[t] + hp;
-        plo[t] = (uint32_t)v;
-        hp = (uint32_t)(v >> 32);
-      }
-      const uint32_t m = __shfl_sync(kFull, ((uint32_t)acc[0] + plo[0]) * nprime, 0, L);
-#pragma unroll
-      for (int t = 0; t < P; ++t) {
-        const uint64_t v = (uint64_t)m * n[t] + hq;
-        qlo[t] = (uint32_t)v;
-        hq = (uint32_t)(v >> 32);
-      }
-#pragma unroll
-      for (int t = 0; t < P; ++t) acc[t] += (uint64_t)plo[t] + qlo[t];
-      // word 0 of the row is now 0 mod 2^32. Shift down one word: each
-      // slot-0 accumulator's high part stays in its lane (the word above
-      // is slot 0 after the shift), its low 32 bits go down one lane
-      const uint64_t c0 = acc[0] >> 32;
-      uint32_t below = __shfl_down_sync(kFull, (uint32_t)acc[0], 1, L);
-      if (last) below = 0u;
-#pragma unroll
-      for (int t = 0; t + 1 < P; ++t) acc[t] = acc[t + 1];
-      acc[P - 1] = (uint64_t)hp + hq + below;
-      acc[0] += c0;
-    }
+  for (int s = 0; s + 1 < P; ++s) {
+    if (s >= rest) break;
+    rows_step<L, P>(acc, __shfl_sync(kFull, x[s], full, L), y, n, nprime, last);
   }
 
   // carry resolution: t = sum acc_j 2^(32j) < 2R over the row's words
@@ -598,14 +630,19 @@ cios_modexp_kernel(const __grid_constant__ ModexpTable tab) {
 // The sub-warp kernels: fsdkr_cios_comb and fsdkr_cios_mont_mul's large
 // launches
 
-constexpr int kRowsWarps = 4;       // warps a block
-constexpr int kRowsMaxWords = 8;    // launch rule: the fewest lanes a row with P <= this
-constexpr int kRowsMinRows = 4096;  // fsdkr_cios_mont_mul: rows from which it is sub-warp
+// The launch rules, from the lanes and mont_mul cells of
+// scripts/cuda_route_sweep.py (PERF.md): each kernel takes the fewest
+// lanes a row (8, 16, 32) that keep P at most its words a lane, else 32;
+// fsdkr_cios_mont_mul is sub-warp from kRowsMinRows rows
+constexpr int kRowsWarps = 4;          // warps a block
+constexpr int kCombMaxWords = 8;       // cios_comb: 8 lanes a row at K=128
+constexpr int kMontMulMaxWords = 4;    // cios_mont_mul: 16 at K=128, 32 at K=256
+constexpr int kRowsMinRows = 256;
 
-// L of the sub-warp kernels at K limbs: 8, 16 or 32 lanes a row
-__host__ __device__ __forceinline__ int rows_lanes(int K) {
-  if (rows_words_per_lane(K, 8) <= kRowsMaxWords) return 8;
-  if (rows_words_per_lane(K, 16) <= kRowsMaxWords) return 16;
+// L of a sub-warp kernel at K limbs: 8, 16 or 32 lanes a row
+__host__ __device__ __forceinline__ int rows_lanes(int K, int max_words) {
+  if (rows_words_per_lane(K, 8) <= max_words) return 8;
+  if (rows_words_per_lane(K, 16) <= max_words) return 16;
   return 32;
 }
 
@@ -888,8 +925,8 @@ extern "C" int fsdkr_cios_mont_mul_lanes(int lanes, const void* x, const void* y
 extern "C" int fsdkr_cios_mont_mul(const void* x, const void* y, const void* n,
                                    const void* n_inv, int rows, int K, void* out,
                                    void* stream) {
-  return fsdkr_cios_mont_mul_lanes(rows >= kRowsMinRows ? rows_lanes(K) : 0, x, y, n, n_inv,
-                                   rows, K, out, stream);
+  return fsdkr_cios_mont_mul_lanes(rows >= kRowsMinRows ? rows_lanes(K, kMontMulMaxWords) : 0,
+                                   x, y, n, n_inv, rows, K, out, stream);
 }
 
 extern "C" int fsdkr_cios_modmul(const void* a, const void* b, const void* n,
@@ -954,7 +991,7 @@ extern "C" int fsdkr_cios_modexp(const int64_t* segments, int count, void* strea
 }
 
 // the comb at `lanes` lanes a row (8, 16 or 32); fsdkr_cios_comb takes
-// rows_lanes(K). The table must be 8-byte aligned (its words are copied
+// rows_lanes(K, kCombMaxWords). The table must be 8-byte aligned (its words are copied
 // 8 bytes at a time).
 extern "C" int fsdkr_cios_comb_lanes(int lanes, const void* table, const void* exp,
                                      int exp_limbs, int exp_bits, const void* n,
@@ -977,15 +1014,17 @@ extern "C" int fsdkr_cios_comb(const void* table, const void* exp, int exp_limbs
                                int exp_bits, const void* n, const void* n_inv,
                                const void* one_mont, int groups, int per_group, int K,
                                void* out, void* stream) {
-  return fsdkr_cios_comb_lanes(rows_lanes(K), table, exp, exp_limbs, exp_bits, n, n_inv,
-                               one_mont, groups, per_group, K, out, stream);
+  return fsdkr_cios_comb_lanes(rows_lanes(K, kCombMaxWords), table, exp, exp_limbs, exp_bits,
+                               n, n_inv, one_mont, groups, per_group, K, out, stream);
 }
 
-// the sub-warp kernels' launch rule at K limbs: lanes a row, and the
-// rows from which fsdkr_cios_mont_mul takes the sub-warp kernel
-extern "C" int fsdkr_cios_rows_rule(int K, int* lanes, int* min_rows) {
+// the sub-warp kernels' launch rules at K limbs: the comb's lanes a row,
+// fsdkr_cios_mont_mul's, and the rows from which it is sub-warp
+extern "C" int fsdkr_cios_rows_rule(int K, int* comb_lanes, int* mont_mul_lanes,
+                                    int* min_rows) {
   if (bad_shape(0, K)) return (int)cudaErrorInvalidValue;
-  *lanes = rows_lanes(K);
+  *comb_lanes = rows_lanes(K, kCombMaxWords);
+  *mont_mul_lanes = rows_lanes(K, kMontMulMaxWords);
   *min_rows = kRowsMinRows;
   return 0;
 }

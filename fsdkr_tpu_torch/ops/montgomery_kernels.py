@@ -94,7 +94,8 @@ def load_library() -> ctypes.CDLL:
     lib.fsdkr_cios_mont_mul_lanes.restype = i
     lib.fsdkr_cios_comb_lanes.argtypes = [i, p, p, i, i, p, p, p, i, i, i, p, p]
     lib.fsdkr_cios_comb_lanes.restype = i
-    lib.fsdkr_cios_rows_rule.argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i)]
+    lib.fsdkr_cios_rows_rule.argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i),
+                                         ctypes.POINTER(i)]
     lib.fsdkr_cios_rows_rule.restype = i
     _LIB = lib
     return lib
@@ -148,13 +149,13 @@ def _count(fn, shape):
 
 
 def rows_rule(k: int):
-    """The sub-warp kernels' launch rule at K limbs, as the library holds
-    it: (lanes a row, the rows from which `mont_mul` takes the sub-warp
-    kernel)."""
-    lanes, min_rows = ctypes.c_int(), ctypes.c_int()
-    if load_library().fsdkr_cios_rows_rule(k, ctypes.byref(lanes), ctypes.byref(min_rows)):
+    """The sub-warp kernels' launch rules at K limbs, as the library holds
+    them: (the comb's lanes a row, `mont_mul`'s lanes a row, the rows from
+    which `mont_mul` takes the sub-warp kernel)."""
+    out = [ctypes.c_int() for _ in range(3)]
+    if load_library().fsdkr_cios_rows_rule(k, *map(ctypes.byref, out)):
         raise ValueError(f"no sub-warp launch rule at K={k}")
-    return lanes.value, min_rows.value
+    return tuple(v.value for v in out)
 
 
 def mont_mul(x, y, n, n_inv) -> torch.Tensor:

@@ -139,6 +139,8 @@ def main():
                     help="substring of a kernel's mangled name (default: cios_comb_kernel, "
                          "cios_mont_mul)")
     ap.add_argument("--out", help="also write the counts to this JSON file")
+    ap.add_argument("--dump", action="store_true",
+                    help="also write each step loop's SASS text to the JSON file")
     args = ap.parse_args()
     kernels = args.kernel or ["cios_comb_kernel", "cios_mont_mul"]
     sys.path.insert(0, str(here))
@@ -172,6 +174,8 @@ def main():
             row = {"kernel": name, "lanes": lanes, "words_per_lane": p,
                    "body": len(body), "per_step": per_step, "per_step_total": total,
                    "per_row_step": row_step, "opcodes": ops}
+            if args.dump:
+                row["sass"] = [f"{op}{rest}" for op, rest in body]
             if clock:
                 row["comb_main_issue_ms"] = {
                     cycles: MAIN_ROW_STEPS * row_step * cycles / (SCHEDULERS * clock) * 1e3

@@ -288,7 +288,7 @@ def mont_mul_cells(dev, rng, reps, widths=(128, 256), row_counts=(256, 1024, 409
     table_rows = []
     for k in widths:
         pool = [rng.getrandbits(16 * k) | 1 | (1 << (16 * k - 1)) for _ in range(64)]
-        rule_lanes, min_rows = mk.rows_rule(k)
+        _, rule_lanes, min_rows = mk.rows_rule(k)
         for rows in row_counts:
             moduli = [pool[i % 64] for i in range(rows)]
             ctx = MontgomeryContext(moduli, k)

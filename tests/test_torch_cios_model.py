@@ -28,12 +28,12 @@ by the same lookahead over borrows. It checks:
 - the sub-warp product `mont_mul_rows<L, P>` (`cios_comb`, and
   `cios_mont_mul` at large launches): L lanes a row, P words a lane,
   32/L rows a warp, replayed for all the warp's rows at once. x_i and m
-  by shuffles of width L; each lane's x_i * y and m * n as exact chains
-  (lo(v) of v = a * b_s + h is word s, h = hi(v) carries to word s + 1,
-  no 64-bit add), the chains' low words summed into the 64-bit lazy
-  accumulators, their top words into the lane's one-word overflow E;
-  the shift keeps each word's high part in its lane (it joins the
-  word above, now slot 0) and moves only its low 32 bits down one lane;
+  by shuffles of width L; each lane's products x_i * y_t and m * n_t,
+  a word's four halves (the low ones of word t, the high ones of word
+  t - 1) summed into its 64-bit lazy accumulator, the lane's top high
+  halves into the word above it; the shift keeps each slot-0
+  accumulator's high part in its lane (it joins the word above, now
+  slot 0) and moves only its low 32 bits down one lane;
   the carry resolution and the conditional subtraction by the ballot
   lookahead on the row's L bits of the warp's ballot. Its accumulators'
   bound at K = 128, 256 and 512, its product bit for bit against the
@@ -341,19 +341,11 @@ def rows_words_per_lane(k, lanes):
     return p
 
 
-def _chain(a, b):
-    """Each lane's exact product a * b over its P words (`mont_mul_rows`'
-    chain): word s is lo(v) of v = a * b_s + h, h = hi(v) the word above;
-    a: (R,) one word per row, b: (R, L, P). Returns (low words (R, L, P),
-    the lane's top word h (R, L)). v < 2^64: (2^32-1)^2 + 2^32-1 < 2^64."""
-    p = b.shape[2]
-    lo = np.zeros(b.shape, np.uint64)
-    h = np.zeros(b.shape[:2], np.uint64)
-    for s in range(p):
-        v = a[:, None] * b[:, :, s] + h
-        lo[:, :, s] = v & np.uint64(M32)
-        h = v >> np.uint64(32)
-    return lo, h
+def _products(a, b):
+    """Each lane's products a * b_s (`mont_mul_rows`' IMAD.WIDE): a (R,)
+    one word per row, b (R, L, P). Returns their (low, high) halves."""
+    v = a[:, None, None] * b  # < 2^64: no wrap
+    return v & np.uint64(M32), v >> np.uint64(32)
 
 
 def _row_lookahead(g, q, lanes):
@@ -441,13 +433,15 @@ def rows_mont_mul(x, y, n, k, lanes):
     peak = 0
     for i in range(w_cnt):
         xi = xw[:, i // p, i % p]  # shuffle of width L from lane i // P
-        plo, hp = _chain(xi, yw)
+        pl, ph = _products(xi, yw)
         # m from each row's lane 0, shuffled to its row
-        m = ((acc[:, 0, 0] & m32) + plo[:, 0, 0]) * nprime & m32
-        qlo, hq = _chain(m, nw)
-        acc += plo + qlo
-        e = hp + hq  # the lane's overflow word E, < 2^33
-        peak = max(peak, int(acc.max()), int(e.max()))
+        m = ((acc[:, 0, 0] & m32) + pl[:, 0, 0]) * nprime & m32
+        ql, qh = _products(m, nw)
+        # low halves join word s, high halves word s + 1
+        acc += pl + ql
+        acc[:, :, 1:] += ph[:, :, :-1] + qh[:, :, :-1]
+        e = ph[:, :, p - 1] + qh[:, :, p - 1]  # into the word above the lane
+        peak = max(peak, int(acc.max()))
         assert not (acc[:, 0, 0] & m32).any()  # word 0 of every row is 0 mod 2^32
         c0 = acc[:, :, 0] >> sh  # stays in its lane: the word above, slot 0 next
         below = np.zeros((rows, lanes), np.uint64)  # shuffle down of width L
@@ -466,15 +460,14 @@ def rows_mont_mul(x, y, n, k, lanes):
 @pytest.mark.parametrize("k", [128, 256, 512])
 def test_rows_accumulators_stay_below_their_bound(k, lanes):
     """Worst case (n = R - 1, x = y = n - 1 in every row): a word gains
-    the low words of two chains a step, < 2^33, plus the high part of
-    the word below at the shift, and lives at most W + 1 steps, so every
-    accumulator stays below (W + 1) * 2^33 + 2^32 < 2^43 at W <= 512; E
-    < 2^33."""
+    four halves below 2^32 a step, plus the high part of the word below
+    at the shift, and lives at most W + 1 steps, so every accumulator
+    stays below (W + 1) * 2^34 + 2^32 < 2^44 at W <= 512."""
     n = (1 << (16 * k)) - 1
     rows = LANES // lanes
     got, peak = rows_mont_mul([n - 1] * rows, [n - 1] * rows, [n] * rows, k, lanes)
     w_cnt = k // 2
-    assert peak < (w_cnt + 1) * (1 << 33) + (1 << 32) < 1 << 43
+    assert peak < (w_cnt + 1) * (1 << 34) + (1 << 32) < 1 << 44
     assert got == [(n - 1) * (n - 1) * pow(1 << (16 * k), -1, n) % n] * rows
     assert got[0] == _plain(n - 1, n - 1, n, k)
 
