@@ -51,7 +51,8 @@ Phases:
            distribute + collect; launches per collect are
            printed for every kernel, and `cios_modexp` must launch twice a
            collect (once per `powm_columns` call or column: the pair
-           families' columns, then correct-key's); after the first collect, the precompute
+           families' columns, then correct-key's), `cios_comb` once (the
+           ring-Pedersen column); after the first collect, the precompute
            cache must see no miss (every modulus's constants computed
            once). Then the RNS route's path, the earlier slices' main
            path cut to one collect: inside forced_rns_route(), both RNS
@@ -603,6 +604,10 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     if per_collect_launches["cios_modexp"] != 2:
         fail(f"cios_modexp launched {per_collect_launches['cios_modexp']} times a collect, "
              f"expected 2")
+    # the ring-Pedersen column's 16 groups in one comb launch
+    if per_collect_launches["cios_comb"] != 1:
+        fail(f"cios_comb launched {per_collect_launches['cios_comb']} times a collect, "
+             f"expected 1")
     log(f"main: precompute cache (hits, misses) per collect: {cache}; "
         f"{powm_cache_stats()}")
     if any(miss for _, miss in cache[1:]):
@@ -877,7 +882,9 @@ KERNELS = {
                      "fsdkr_tpu/ops/pallas_rns.py:184", 200),
     "rns_modexp": ("rns_modexp_kernel", "fsdkr_tpu_torch/csrc/rns_kernels.cu",
                    "fsdkr_tpu/ops/pallas_rns.py:317", 10),
-    "cios_mont_mul": ("cios_mont_mul_kernel", "fsdkr_tpu_torch/csrc/cios_kernels.cu",
+    # both layouts: cios_mont_mul_kernel (one warp a row) and
+    # cios_mont_mul_rows_kernel (from R* rows)
+    "cios_mont_mul": ("cios_mont_mul_", "fsdkr_tpu_torch/csrc/cios_kernels.cu",
                       "fsdkr_tpu/ops/montgomery.py:102", 200),
     "cios_modmul": ("cios_modmul_kernel", "fsdkr_tpu_torch/csrc/cios_kernels.cu",
                     "fsdkr_tpu/ops/montgomery.py:606", 200),

@@ -167,8 +167,8 @@ def mont_mul(x, y, n, n_inv) -> torch.Tensor:
 def mont_mul_at_lanes(lanes: int, x, y, n, n_inv) -> torch.Tensor:
     """`mont_mul` on a layout named here, not by the launch rule: lanes 0
     for one warp a row, 8, 16 or 32 for the sub-warp kernel at that many
-    lanes a row. For the lanes sweep and the checks of both layouts; the
-    engine calls `mont_mul`."""
+    lanes a row. For the sweep's mont_mul cells; the engine calls
+    `mont_mul`."""
     return _mont_mul(lanes, x, y, n, n_inv)
 
 

@@ -39,8 +39,8 @@ script prints what the cells imply for both.
 256 rows, 2048-bit exponents) at 8, 16 and 32 lanes a row
 (`comb_at_lanes`), each launch's results equal to the others' and to
 the launch rule's (`comb`): device time per launch (torch.profiler, the
-kernel's own events, median of --reps windows of 3 launches) and ns per
-row-step. The launch rule of csrc/cios_kernels.cu (kRowsMaxWords) is read
+kernel's own events, median of --reps windows of 3 launches; each cell's
+first launch, its check, warms it) and ns per row-step. The launch rule of csrc/cios_kernels.cu (kRowsMaxWords) is read
 off this table.
 
 `mont_mul` cells: `cios_mont_mul` at 256, 1024, 4096, 8192 and 57344
@@ -186,30 +186,9 @@ def comb_verdict(table):
 
 
 def kernel_ms(fn, reps, symbol):
-    """Median over `reps` profiler windows of the device time per launch
-    of the kernels whose name holds `symbol` (3 calls a window)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    per = []
-    for _ in range(reps):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                fn()
-            torch.cuda.synchronize()
-        us, count = 0.0, 0
-        for ev in prof.key_averages():
-            if ev.device_type == DeviceType.CUDA and symbol in ev.key:
-                us += getattr(ev, "self_device_time_total", 0) or 0
-                count += ev.count
-        if count:
-            per.append(us / count / 1e3)
-    if not per:
-        sys.exit(f"cuda_route_sweep: the profiler saw no launch of {symbol}")
-    return statistics.median(per)
+    """Median over `reps` profiler windows of 3 calls of `device_times`'
+    kernel time per call (one launch a call)."""
+    return statistics.median(device_times(fn, 3, symbol)[0] for _ in range(reps))
 
 
 def _limbs(dev, values, k):
