@@ -31,10 +31,12 @@ Phases:
            sub-warp kernel at the rule's lanes a row: 8, 16 and 32 all
            occur) at K=16, 128, 130, 256, 512 and 1024 on groups x rows
            per group 1 x 8, 3 x 13, 2 x 257 (ragged row tiles) and 16 x
-           256 (the main path's), and `cios_comb_ladder` at K=16, 128,
-           256 and 512 on 1, 3 and 16 groups; random and worst-case
-           groups (every limb of the table and the base at n-1, every
-           exponent bit set).
+           256 (the main path's), and `cios_comb_ladder` (one block a
+           group) at K=16, 128, 130, 256, 512, 1022 and 1024 on 1, 3 and
+           16 groups, at the launch rule's threads a block and at each of
+           128, 256 and 512; random and worst-case groups (every limb of
+           the table and the base at n-1, every exponent bit set).
+           `cios_modmul` as `cios_mont_mul`, on both sides of R*.
   routes   device_powm / device_modmul (every launch through the CIOS
            engine, as routed) and the RNS route itself against CPython pow
            at 2048- and 4096-bit moduli; both entry points at 8192-bit
@@ -51,8 +53,9 @@ Phases:
            distribute + collect; launches per collect are
            printed for every kernel, and `cios_modexp` must launch twice a
            collect (once per `powm_columns` call or column: the pair
-           families' columns, then correct-key's), `cios_comb` once (the
-           ring-Pedersen column); after the first collect, the precompute
+           families' columns, then correct-key's), `cios_comb` and
+           `cios_comb_ladder` once each (the ring-Pedersen column); after
+           the first collect, the precompute
            cache must see no miss (every modulus's constants computed
            once). Then the RNS route's path, the earlier slices' main
            path cut to one collect: inside forced_rns_route(), both RNS
@@ -73,10 +76,11 @@ Phases:
            `device_ms`, the kernel's own device time (torch.profiler).
            A `cios_modexp` shape is its launch's segments; the launch of
            the most segments (the pair families' columns) is timed beside
-           each of its segments alone, and every `cios_modexp` and ladder
-           time is also given in ns per CIOS step of the launch's longest
-           chain; every `cios_comb` time also in ns per row-step (a CIOS
-           step of one row).
+           each of its segments alone, and every `cios_modexp` time is
+           also given in ns per CIOS step of the launch's longest chain;
+           every `cios_comb` time also in ns per row-step (a CIOS step of
+           one row); every ladder time also in us per product of its
+           chain, beside the chain at one SM's integer multiply rate.
 
 Prints the kernels line `{"kernels": [...]}` and, last, `{"ok": true,
 "device": {...}}`. Any failure exits non-zero with no result line.
@@ -343,10 +347,13 @@ def phase_env(dev):
                 log(f"  ptxas: {line.strip()}")
 
 
+LADDER_THREADS = (128, 256, 512)  # the ladder's layouts (csrc: launch_comb_ladder)
+
+
 def phase_kernels(dev, rng):
     import torch
 
-    from fsdkr_tpu_torch.ops import montgomery_kernels as mk, rns, rns_kernels
+    from fsdkr_tpu_torch.ops import montgomery, montgomery_kernels as mk, rns, rns_kernels
 
     # (bits, rows, kernels): 6144 bits is kernel 2's tightest shared-memory
     # budget at 8 rows per block, 7168 bits holds 4; 13 rows leave a
@@ -403,38 +410,53 @@ def phase_kernels(dev, rng):
         fail(f"cios_modexp over segments {segments}: differs from plain")
     log(f"kernels == plain, bit-identical: cios_modexp, one launch of segments (K, rows, "
         f"exp_bits) {segments}, each half random and half worst-case")
-    # cios_mont_mul on both sides of R*: one warp a row below, the
-    # sub-warp kernel from R* (a ragged last warp just above it)
+    # cios_mont_mul and cios_modmul on both sides of R*: one warp a row
+    # below, the sub-warp kernel from R* (a ragged last warp just above it)
     for k in (128, 256):
         _, lanes, r_star = mk.rows_rule(k)
         for rows in (r_star - 1, r_star, r_star + 13):
             for worst in (False, 13):
-                kernel, plain = cios_calls("cios_mont_mul",
-                                           cios_inputs(rng, dev, k, rows, exp_bits, worst),
-                                           exp_bits)
-                if _max_err(kernel(), plain()):
-                    fail(f"cios_mont_mul K={k} rows={rows} worst={worst}: differs from plain")
-        log(f"kernels == plain, bit-identical: cios_mont_mul K={k} at {r_star - 1}, {r_star} "
-            f"and {r_star + 13} rows (R*={r_star}: one warp a row below, {lanes} lanes a row "
-            f"from it), random rows and 13 worst-case")
-    # the comb's kernels. cios_comb: one group (the block's rows share it),
-    # 13 and 257 rows a group (ragged row tiles), and the ring-Pedersen
-    # column's 16 groups x 256 rows; K=130 and 256 take 16 lanes a row, 512
-    # and 1024 32. The ladder (one warp per group) at its earlier shapes.
+                args = cios_inputs(rng, dev, k, rows, exp_bits, worst)
+                for name in ("cios_mont_mul", "cios_modmul"):
+                    kernel, plain = cios_calls(name, args, exp_bits)
+                    if _max_err(kernel(), plain()):
+                        fail(f"{name} K={k} rows={rows} worst={worst}: differs from plain")
+        log(f"kernels == plain, bit-identical: cios_mont_mul+cios_modmul K={k} at "
+            f"{r_star - 1}, {r_star} and {r_star + 13} rows (R*={r_star}: one warp a row "
+            f"below, {lanes} lanes a row from it), random rows and 13 worst-case")
+    # cios_comb: one group (the block's rows share it), 13 and 257 rows a
+    # group (ragged row tiles), and the ring-Pedersen column's 16 groups x
+    # 256 rows; K=130 and 256 take 16 lanes a row, 512 and 1024 32
     for k in (16, 128, 130, 256, 512, 1024):
         for groups, per_group in ((1, 8), (3, 13), (2, 257), (16, 256)):
-            names = [n for n in COMB if n == "cios_comb" or (
-                k in (16, 128, 256, 512) and per_group != 257)]
             for worst in (False, True):
                 args = comb_inputs(rng, dev, k, groups, per_group, exp_bits, worst)
-                for name in names:
-                    kernel, plain = comb_calls(name, args, exp_bits)
-                    if _max_err(kernel(), plain()):
-                        fail(f"{name} K={k} groups={groups} rows={per_group} "
-                             f"worst={worst}: differs from plain")
-            log(f"kernels == plain, bit-identical: {'+'.join(names)} K={k} groups={groups} "
-                f"rows per group={per_group} exp_bits={exp_bits} (cios_comb at "
+                kernel, plain = comb_calls("cios_comb", args, exp_bits)
+                if _max_err(kernel(), plain()):
+                    fail(f"cios_comb K={k} groups={groups} rows={per_group} "
+                         f"worst={worst}: differs from plain")
+            log(f"kernels == plain, bit-identical: cios_comb K={k} groups={groups} "
+                f"rows per group={per_group} exp_bits={exp_bits} (at "
                 f"{mk.rows_rule(k)[0]} lanes a row), random and worst-case groups")
+    # the ladder, one block a group: K=16 leaves most threads idle, 130 and
+    # 1022 an odd word count, 1024 several words a thread; at the rule's
+    # threads a block and at every one the library builds
+    for k in (16, 128, 130, 256, 512, 1022, 1024):
+        for groups in (1, 3, 16):
+            for worst in (False, True):
+                _, _, base, n, ni, r2, _ = comb_inputs(rng, dev, k, groups, 1, exp_bits, worst)
+                w_cnt = exp_bits // 4
+                want = montgomery._comb_ladder(base, n, ni, r2, w_cnt)
+                calls = [lambda: mk.comb_ladder(base, n, ni, r2, w_cnt)] + [
+                    (lambda t: lambda: mk.comb_ladder_at_threads(t, base, n, ni, r2, w_cnt))(t)
+                    for t in LADDER_THREADS]
+                for call in calls:
+                    if _max_err(call(), want):
+                        fail(f"cios_comb_ladder K={k} groups={groups} worst={worst}: "
+                             f"differs from plain")
+        log(f"kernels == plain, bit-identical: cios_comb_ladder K={k} on 1, 3 and 16 groups, "
+            f"exp_bits={exp_bits} (the rule's {mk.ladder_rule(k)} threads a block, and "
+            f"{', '.join(map(str, LADDER_THREADS))}), random and worst-case groups")
 
 
 def phase_routes(dev, rng):
@@ -604,10 +626,11 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     if per_collect_launches["cios_modexp"] != 2:
         fail(f"cios_modexp launched {per_collect_launches['cios_modexp']} times a collect, "
              f"expected 2")
-    # the ring-Pedersen column's 16 groups in one comb launch
-    if per_collect_launches["cios_comb"] != 1:
-        fail(f"cios_comb launched {per_collect_launches['cios_comb']} times a collect, "
-             f"expected 1")
+    # the ring-Pedersen column's 16 groups in one comb launch, after one
+    # ladder launch
+    for name in ("cios_comb", "cios_comb_ladder"):
+        if per_collect_launches[name] != 1:
+            fail(f"{name} launched {per_collect_launches[name]} times a collect, expected 1")
     log(f"main: precompute cache (hits, misses) per collect: {cache}; "
         f"{powm_cache_stats()}")
     if any(miss for _, miss in cache[1:]):
@@ -886,7 +909,8 @@ KERNELS = {
     # cios_mont_mul_rows_kernel (from R* rows)
     "cios_mont_mul": ("cios_mont_mul_", "fsdkr_tpu_torch/csrc/cios_kernels.cu",
                       "fsdkr_tpu/ops/montgomery.py:102", 200),
-    "cios_modmul": ("cios_modmul_kernel", "fsdkr_tpu_torch/csrc/cios_kernels.cu",
+    # both layouts: cios_modmul_kernel and cios_modmul_rows_kernel
+    "cios_modmul": ("cios_modmul_", "fsdkr_tpu_torch/csrc/cios_kernels.cu",
                     "fsdkr_tpu/ops/montgomery.py:606", 200),
     "cios_modexp": ("cios_modexp_kernel", "fsdkr_tpu_torch/csrc/cios_kernels.cu",
                     "fsdkr_tpu/ops/montgomery.py:137", 10),
@@ -1074,13 +1098,40 @@ def modexp_bound(segments):
     return sum(ms for ms, _ in parts), max(parts)[1]
 
 
-def chain_steps(name, shape):
+def chain_steps(shape):
     """CIOS steps (one per 32-bit word of a product) along the longest
-    chain of a `cios_modexp` launch (its segments') or a ladder launch."""
-    if name == "cios_modexp":
-        return max((16 + 5 * exp_bits // 4) * (k // 2) for k, _, exp_bits in shape)
-    k, _, exp_bits = shape
-    return (1 + 4 * (exp_bits // 4 - 1)) * (k // 2)
+    chain of a `cios_modexp` launch (its segments')."""
+    return max((16 + 5 * exp_bits // 4) * (k // 2) for k, _, exp_bits in shape)
+
+
+def ladder_products(shape):
+    """Dependent products along a ladder launch's chain: the entry, then
+    four squarings a window after the first."""
+    _, _, exp_bits = shape
+    return 1 + 4 * (exp_bits // 4 - 1)
+
+
+# one SM's 32-bit integer multiply-adds a cycle (4 schedulers x 16 lanes)
+SM_INT_MACS_PER_CYCLE = 64
+
+
+def max_sm_clock_hz():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def ladder_chain_ms(shape, clock_hz):
+    """The ladder's chain at one SM: its products, each a Montgomery
+    product's 2W^2 32-bit multiply-adds at one SM's integer rate at the
+    card's maximum SM clock. A yardstick for a latency-bound chain beside
+    the throughput bound of `bound_ms`."""
+    k = shape[0]
+    macs = 2 * (k // 2) ** 2
+    return ladder_products(shape) * macs / (SM_INT_MACS_PER_CYCLE * clock_hz) * 1e3
 
 
 def _case(name, shape, dev, rng):
@@ -1110,9 +1161,15 @@ def comb_row_steps(shape):
 def _per_step(name, shape, dms):
     if name == "cios_comb":
         return f", {dms * 1e6 / comb_row_steps(shape):.4f} ns per row-step"
-    if name not in ("cios_modexp", "cios_comb_ladder"):
+    if name == "cios_comb_ladder":
+        return (f", {dms * 1e3 / ladder_products(shape):.3f} us per product of the chain "
+                f"(one SM's chain: {ladder_chain_ms(shape, _CLOCK['hz']):.4f} ms)")
+    if name != "cios_modexp":
         return ""
-    return f", {dms * 1e6 / chain_steps(name, shape):.2f} ns per CIOS step of the longest chain"
+    return f", {dms * 1e6 / chain_steps(shape):.2f} ns per CIOS step of the longest chain"
+
+
+_CLOCK = {}  # the card's maximum SM clock, read once by phase_time
 
 
 def check_and_time_shapes(dev, rng, shapes):
@@ -1191,6 +1248,8 @@ def phase_time(dev, rng, counts, shapes):
     segments -> launches)."""
     if not all(shapes.values()):
         fail("no main-path launch shapes recorded for a kernel")
+    _CLOCK["hz"] = max_sm_clock_hz()
+    log(f"time: maximum SM clock {_CLOCK['hz'] / 1e6:.0f} MHz")
     errs, plain_times, per_shape = check_and_time_shapes(dev, rng, shapes)
     # the launch of the most segments: the pair families' columns
     pairs = max(shapes["cios_modexp"], key=lambda s: (len(s), _cost("cios_modexp", s, 1)))
@@ -1224,6 +1283,8 @@ def phase_time(dev, rng, counts, shapes):
                                                    "bound_ms")}
                           for r in per_shape if r["name"] == name],
             **({"segments_alone": alone} if name == "cios_modexp" else {}),
+            **({"chain_ms": ladder_chain_ms(shape, _CLOCK["hz"])}
+               if name == "cios_comb_ladder" else {}),
         })
     return out
 

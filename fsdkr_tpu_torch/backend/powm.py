@@ -85,14 +85,14 @@ def _rns_forced() -> bool:
 # every other row takes the generic engine. The JAX package's 4 rows (and
 # no group count) were picked for the TPU. In the H100 comb sweep
 # (PERF.md section 6, "The comb sweep"; scripts/cuda_route_sweep.py
-# --cells comb, the cache cold in every call) the comb had the shorter
-# wall in every cell of 256 rows a group from 2 groups up, and was behind
-# in most cells of fewer rows under 16 groups, and in 3 of the 4 cells of
-# 1 group of 256 rows: a launch pads to 2 groups, and the ladder is a
-# chain of 4W dependent products, about as long as a generic row's, so
-# the comb pays only over many rows.
+# --cells comb, the cache cold in every call) the comb has the shorter
+# wall in every cell of 256 rows a group from 1 group up, since the
+# ladder runs one block a group on a full-width-digit product (with one
+# warp a group it lost 3 of the 4 cells of 1 group of 256 rows). Under 256
+# rows a group it pays in most cells too, but that floor also decides the
+# pair columns' per-receiver groups (16 rows at n=16): PERF.md section 7.
 _SHARED_MIN_ROWS = 256
-_SHARED_MIN_GROUPS = 2
+_SHARED_MIN_GROUPS = 1
 
 
 def _width_class(width: int) -> Optional[int]:

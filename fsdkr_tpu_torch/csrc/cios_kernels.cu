@@ -21,8 +21,9 @@
 // x, y < n). The engine rounds an odd K up (BatchModExp); that changes R,
 // so in-domain intermediates, never a value that leaves the engine.
 //
-// Layout of mont_mul<P> (cios_modexp, cios_modmul, the ladder and the
-// smaller cios_mont_mul launches; the comb's sub-warp product is below):
+// Layout of mont_mul<P> (cios_modexp and the smaller cios_mont_mul and
+// cios_modmul launches; the sub-warp product and the ladder's block
+// product are below):
 // one warp per row. Lane l owns the P words l*P .. l*P+P-1 (P a
 // power of two with 32P >= W: 1 at K <= 64, 2 at K=128, 4 at K=256, 8 at
 // K=512, 16 up to K=1024); words at or above W are zero.
@@ -81,14 +82,43 @@
 // The fixed-base comb (rows of a group share a public base and modulus:
 // ring-Pedersen's (T, N) per message, PDL's and range's (h1 | h2, N~) per
 // receiver) splits the modexp in three. fsdkr_cios_comb_ladder computes
-// each group's powers base_m^(16^w), one warp per group: the entry by r2,
-// then W times (store the power, four squarings): a chain of 4W dependent
-// products on G warps, so latency-bound. The 16-entry table of every
-// window is built between the two by four fsdkr_cios_mont_mul launches
-// (ops/montgomery.py _comb_table). fsdkr_cios_comb then does per row W
-// window steps of a masked sum over the group's 16 entries of that window
-// and one product, then the exit by a product with 1: W + 1 products a
-// row where fsdkr_cios_modexp does 5W + 17.
+// each group's powers base_m^(16^w): the entry by r2, then W times (store
+// the power, four squarings). The 16-entry table of every window is built
+// between the two by four fsdkr_cios_mont_mul launches (ops/montgomery.py
+// _comb_table). fsdkr_cios_comb then does per row W window steps of a
+// masked sum over the group's 16 entries of that window and one product,
+// then the exit by a product with 1: W + 1 products a row where
+// fsdkr_cios_modexp does 5W + 17.
+//
+// The ladder is a chain of 1 + 4(W - 1) dependent products a group (2045
+// at 2048-bit exponents) and has nothing else to run: 16 groups on the
+// main path. What bounds it is that chain: products x the least time one
+// block can take for one product. A CIOS product cannot go under W serial
+// steps (each step's digit m needs the previous step's word 0); one warp a
+// group ran them at about 150 cycles a step, one warp a scheduler on 4
+// SMs. So the ladder runs one block a group (up to 132 groups side by
+// side) on mont_mul_block, a separated-operand Montgomery product with a
+// full-width digit (n_inv = -n^{-1} mod R, all K limbs):
+//   T = x * y;  m = (T mod R) * n_inv mod R;  U = T + m * n;
+//   r = U / R, minus n once if r >= n.
+// Each of the three products is column sums (product scanning) spread
+// over the block: column pair c (columns c and c + W) in S parts of I
+// source words, each 32x32 -> 64 product's low half summed into its
+// column and its high half into the next, in 64-bit lazy sums (below W *
+// 2^33 + 2^33 < 2^44 at W <= 512); m takes only the low W columns. Their
+// only serial parts are the normalisations between the products: a local
+// carry of at most 12 bits into the next column, then 1-bit carries by a
+// two-level ballot lookahead (each warp's bits, then the warps' bits
+// through shared memory); the conditional subtraction rides on U's
+// normalisation (U - n R normalised beside U, selected by its carry out).
+// About 2.5 W^2 word products a product (2 W^2 for CIOS), about W / S of
+// them a thread a phase, and nine block barriers. The operands, n, n_inv's
+// low W words and the power stay in shared memory from one product to the
+// next; each window's power goes to `powers` as 16-bit limbs. The threads a block are a launch rule per K
+// (ladder_threads), set by the ladder cells of scripts/cuda_route_sweep.py.
+// No branch or address depends on a limb value, the loop lengths depend
+// only on K and the window count, and the block zeroes its shared memory
+// before it exits. tests/test_torch_ladder_model.py replays the product.
 //
 // The comb's rows are many and independent (16 groups x 256 rows on the
 // main path), so its pace is the schedulers' issue, not a product's
@@ -140,6 +170,8 @@
 // 513); smaller launches, one product's latency plus the launch, keep
 // one warp a row. Both are read off the mont_mul cells of the same
 // sweep: the sub-warp kernel led at every size measured, 256 rows up.
+// fsdkr_cios_modmul (two products a row) takes the same rule, read off
+// the same cells.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -770,32 +802,430 @@ cios_mont_mul_rows_kernel(const int32_t* __restrict__ x, const int32_t* __restri
   if (row < rows) store_words<P>(xv, out + off, W, l);
 }
 
-// ---------------------------------------------------------------------------
-// fsdkr_cios_comb_ladder: powers[w, g] = base_m^(16^w), one warp per group
+// fsdkr_cios_modmul at kRowsMinRows rows and more: L lanes a row, the two
+// products of cios_modmul_kernel
+template <int L, int P>
+__global__ void __launch_bounds__(kRowsWarps * 32)
+cios_modmul_rows_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+                        const int32_t* __restrict__ n, const int32_t* __restrict__ n_inv,
+                        const int32_t* __restrict__ r2, int rows, int K,
+                        int32_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int l = lane & (L - 1);
+  const int first = lane - l;
+  const int warp_row = ((int)blockIdx.x * kRowsWarps + (int)(threadIdx.x >> 5)) * (32 / L);
+  if (warp_row >= rows) return;  // the whole warp
+  const int row = warp_row + first / L;
+  const int src = row < rows ? row : warp_row;  // a masked row computes its warp's first
+  const int W = K / 2;
+  const size_t off = (size_t)src * K;
+  uint32_t av[P], bv[P], nv[P], rv[P];
+  load_words<P>(av, a + off, W, l);
+  load_words<P>(bv, b + off, W, l);
+  load_words<P>(nv, n + off, W, l);
+  load_words<P>(rv, r2 + off, W, l);
+  const uint32_t np = nprime_of(n_inv, K, src);
+  mont_mul_rows<L, P>(av, av, rv, nv, np, W, l, first);
+  mont_mul_rows<L, P>(av, av, bv, nv, np, W, l, first);
+  if (row < rows) store_words<P>(av, out + off, W, l);
+}
 
-template <int P>
-__global__ void __launch_bounds__(kWarps * 32)
+// ---------------------------------------------------------------------------
+// fsdkr_cios_comb_ladder: powers[w, g] = base_m^(16^w), one block a group
+// on the full-width-digit product mont_mul_block (see the note at the top)
+
+constexpr int kChunk = 8;   // source words a thread takes at a time
+constexpr int kPad = 256;   // zero words below each split operand (see LadderSmem)
+
+// The launch rule: threads a block at K limbs, from the ladder cells of
+// scripts/cuda_route_sweep.py (PERF.md): 256 led at K=128, 512 at K=256
+__host__ __device__ __forceinline__ int ladder_threads(int K) { return K <= 128 ? 256 : 512; }
+
+// S, the parts a column pair is split into: the largest power of two at
+// most NT / W, W and 32
+__host__ __device__ __forceinline__ int ladder_parts(int W, int NT) {
+  int s = 1;
+  while (2 * s <= 32 && 2 * s <= W && 2 * s * W <= NT) s *= 2;
+  return s;
+}
+
+// I, the source words of a part: ceil(W / S) rounded up to whole chunks
+__host__ __device__ __forceinline__ int ladder_part_words(int W, int S) {
+  return ((W + S - 1) / S + kChunk - 1) / kChunk * kChunk;
+}
+
+// The block's shared memory, in 32-bit words from a 16-byte aligned base
+// (lo, hi and the permuted buffers start 16-byte aligned):
+//   lo, hi   2W + 1 uint64 each (2W + 2 kept): column c's sum of its
+//            products' low halves (lo) and of the high halves landing in
+//            it, from column c - 1 (hi); lo[2W] and hi[0] stay 0
+//   xp, tp, mp   S * IP each: x, T's low W words and the digit m, permuted
+//   yl, yh   kPad + 2W each: the right operand split by the column its
+//            words reach, yl[kPad + k] = y_(k - W) for k >= W (column c:
+//            the word for source word i <= c sits at k = W + c - i), and
+//            yh[kPad + k] = y_k for k < W (column c + W); zeros elsewhere
+//   nl       kPad + 2W: n_inv's low W words laid out as yl
+//   nnl, nnh kPad + 2W each: n laid out as yl and as yh
+//   t        2W + 4: T = x * y (word 2W is 0)
+//   bits     128: each warp's generate and propagate bit of up to two
+//            lookaheads at once
+struct LadderSmem {
+  int W, S, log2S, I, IP;
+  uint64_t *lo, *hi;
+  uint32_t *xp, *tp, *mp, *yl, *yh, *nl, *nnl, *nnh, *t, *bits;
+
+  __device__ __forceinline__ LadderSmem(uint32_t* base, int W_, int NT) : W(W_) {
+    S = ladder_parts(W, NT);
+    log2S = __ffs(S) - 1;
+    I = ladder_part_words(W, S);
+    IP = I + 4;
+    lo = (uint64_t*)base;
+    hi = lo + 2 * W + 2;
+    xp = (uint32_t*)(hi + 2 * W + 2);
+    tp = xp + S * IP;
+    mp = tp + S * IP;
+    yl = mp + S * IP;
+    yh = yl + kPad + 2 * W;
+    nl = yh + kPad + 2 * W;
+    nnl = nl + kPad + 2 * W;
+    nnh = nnl + kPad + 2 * W;
+    t = nnh + kPad + 2 * W;
+    bits = t + 2 * W + 4;
+  }
+  // The left operand of a product is read a part at a time (part s takes
+  // words s, s + S, s + 2S, ...): it is kept permuted, word j at (j mod
+  // S) * IP + j / S with IP = I + 4 (a part's words contiguous and 16-byte
+  // aligned, the parts' rows on different banks), so a lane loads four of
+  // its words at once. Slots of words at or above W stay 0.
+  __device__ __forceinline__ int perm(int j) const { return (j & (S - 1)) * IP + (j >> log2S); }
+};
+
+// the words of LadderSmem, zeroed at entry and at exit
+__host__ __device__ __forceinline__ int ladder_smem_words(int W, int NT) {
+  const int S = ladder_parts(W, NT);
+  return 8 * (W + 1) + 3 * S * (ladder_part_words(W, S) + 4) + 5 * (kPad + 2 * W) +
+         (2 * W + 4) + 128;
+}
+
+// Two-level ballot carry-lookahead over the block, for NL independent
+// sums at once: thread t's 1-bit carry in of sum k, from each thread's
+// generate bit g[k] and propagate bit q[k] (never both set); out[k] gets
+// the carry out of the last thread. Each warp's (G, Q) pairs go through
+// shared memory (bits: 64 words a sum), and one more lookahead over the
+// warps' bits gives each warp its carry in. Every thread of the block
+// calls it; a __syncthreads separates its reads of `bits` from the next
+// call's writes.
+template <int NT, int NL>
+__device__ __forceinline__ void block_lookahead(const bool (&g)[NL], const bool (&q)[NL],
+                                                uint32_t* bits, uint32_t (&cin)[NL],
+                                                uint32_t (&out)[NL]) {
+  constexpr int kWarpsNT = NT / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t G[NL], Q[NL];
+#pragma unroll
+  for (int k = 0; k < NL; ++k) {
+    G[k] = __ballot_sync(kFull, g[k]);
+    Q[k] = __ballot_sync(kFull, q[k]);
+    if (lane == 0) {
+      bits[64 * k + warp] = (uint32_t)((((uint64_t)(G[k] | Q[k]) + G[k]) >> 32) & 1u);
+      bits[64 * k + 32 + warp] = Q[k] == kFull;  // the warp generates; propagates
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < NL; ++k) {
+    const uint32_t Gw = __ballot_sync(kFull, lane < kWarpsNT && bits[64 * k + lane]);
+    const uint32_t Qw = __ballot_sync(kFull, lane < kWarpsNT && bits[64 * k + 32 + lane]);
+    const uint64_t sw = (uint64_t)(Gw | Qw) + Gw;
+    out[k] = (uint32_t)(sw >> kWarpsNT) & 1u;
+    const uint32_t cw = (uint32_t)((sw ^ Qw) >> warp) & 1u;  // into this warp
+    const uint64_t s = (uint64_t)(G[k] | Q[k]) + G[k] + cw;
+    cin[k] = (uint32_t)((s ^ Q[k]) >> lane) & 1u;
+  }
+}
+
+// The column sums of x * y (kLow: only the low W columns), as the block's
+// threads split them. Column pair c holds columns c and c + W; its S
+// parts sit on lanes PW = 32 / S apart (lane = s * PW + c % PW), part s
+// taking the source words i = s + S*u, u < I, kChunk at a time. For each
+// i, the word of y is y_((c - i) mod W): into column c where i <= c
+// (found in yl), else column c + W (found in yh). x is permuted (xp: a
+// part's words contiguous), so a lane loads four words of x at once; the
+// warp's lanes read at most PW + S - 1 consecutive words of yl or yh at a
+// time (no bank conflict). Four sums of each kind shorten the add chains
+// (loading the next chunk ahead of this one's products was slower on the
+// H100: the copies between them take the multiply pipe). A chunk whose
+// source words all lie below (above) the warp's pairs reads yl (yh)
+// alone; one across the warp's diagonal reads both, each product against
+// the other half's zeros, so no product is selected (kLow reads nl alone
+// and stops at the chunks above: all zeros); the warp decides, from
+// indices only. Source words at or above W read xp's zero slots. The
+// parts are summed by shuffles (a reduce-scatter, so each lane sends at
+// most two of its four sums), then written to lo and hi.
+template <bool kLow, int NT>
+__device__ __forceinline__ void column_sums(const LadderSmem& sm, const uint32_t* xp,
+                                            const uint32_t* yl, const uint32_t* yh) {
+  constexpr int kWarpsNT = NT / 32;
+  const int W = sm.W, S = sm.S, I = sm.I;
+  const int pw_log2 = 5 - sm.log2S;
+  const int pw = 1 << pw_log2;  // column pairs a warp (all shifts: no division)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int s = lane >> pw_log2;
+  const int rounds = (W * S + NT - 1) / NT;
+  const uint32_t* xs = xp + s * sm.IP;
+  for (int r = 0; r < rounds; ++r) {
+    const int c0 = (r * kWarpsNT + warp) << pw_log2;  // the warp's first pair
+    const int c_row = c0 + (lane & (pw - 1));
+    const int c = c_row < W ? c_row : W - 1;  // a lane past W repeats the last (discarded)
+    const int c_min = c0 < W ? c0 : W - 1;
+    const int c_max = c0 + pw - 1 < W ? c0 + pw - 1 : W - 1;
+    const int k0 = kPad + W + c - s;  // + -S*u: the y word for i = s + S*u
+    uint64_t aL[4] = {0, 0, 0, 0}, aH[4] = {0, 0, 0, 0};
+    uint64_t bL[4] = {0, 0, 0, 0}, bH[4] = {0, 0, 0, 0};
+    // the chunk's products x_i * y[k] into sums a (low) or b (high)
+    auto add = [&](const uint32_t (&xv)[kChunk], const uint32_t* yb, int u0, uint64_t (&sL)[4],
+                   uint64_t (&sH)[4]) {
+      uint32_t yv[kChunk];
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) yv[u] = yb[k0 - S * (u0 + u)];
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        const uint64_t p = mul_wide(xv[u], yv[u]);
+        sL[u & 3] += (uint32_t)p;
+        sH[u & 3] += (uint32_t)(p >> 32);
+      }
+    };
+#pragma unroll 1
+    for (int u0 = 0; u0 < I; u0 += kChunk) {
+      const bool below = S * (u0 + kChunk) - 1 <= c_min;  // every i <= every c
+      const bool above = S * u0 > c_max;                  // every i > every c
+      if (kLow && above) break;  // nl's zeros from here on
+      uint32_t xv[kChunk];
+#pragma unroll
+      for (int q = 0; q < kChunk / 4; ++q) {
+        const uint4 v4 = *reinterpret_cast<const uint4*>(xs + u0 + 4 * q);
+        xv[4 * q] = v4.x;
+        xv[4 * q + 1] = v4.y;
+        xv[4 * q + 2] = v4.z;
+        xv[4 * q + 3] = v4.w;
+      }
+      // a chunk across the warp's diagonal takes both halves, each
+      // against its split operand's zeros
+      if (kLow || !above) add(xv, yl, u0, aL, aH);
+      if (!kLow && !below) add(xv, yh, u0, bL, bH);
+    }
+    // the parts' sums: 0 -> column c, 1 -> c + 1, 2 -> c + W, 3 -> c + W + 1
+    // (kLow: 0 and 1). The top bits of s reduce-scatter them (the lanes
+    // of each half keep half the values and receive the other half's), the
+    // lower bits of s add whole.
+    uint64_t v0 = aL[0] + aL[1] + aL[2] + aL[3], v1 = aH[0] + aH[1] + aH[2] + aH[3];
+    uint64_t v2 = bL[0] + bL[1] + bL[2] + bL[3], v3 = bH[0] + bH[1] + bH[2] + bH[3];
+    int q = 0, held = kLow ? 2 : 4, scatter = 0;  // held: values from q on
+    if (S >= 2) {
+      const bool h1 = lane & 16;  // s's top bit
+      if (kLow) {
+        v0 = (h1 ? v1 : v0) + __shfl_xor_sync(kFull, h1 ? v0 : v1, 16);
+        q = h1;
+        held = 1;
+        scatter = 1;
+      } else {
+        const uint64_t send0 = h1 ? v0 : v2, send1 = h1 ? v1 : v3;
+        v0 = (h1 ? v2 : v0) + __shfl_xor_sync(kFull, send0, 16);
+        v1 = (h1 ? v3 : v1) + __shfl_xor_sync(kFull, send1, 16);
+        q = h1 ? 2 : 0;
+        held = 2;
+        scatter = 1;
+        if (S >= 4) {
+          const bool h2 = lane & 8;  // s's next bit
+          v0 = (h2 ? v1 : v0) + __shfl_xor_sync(kFull, h2 ? v0 : v1, 8);
+          q += h2;
+          held = 1;
+          scatter = 2;
+        }
+      }
+    }
+    for (int off = 16 >> scatter; off >= pw; off /= 2) v0 += __shfl_xor_sync(kFull, v0, off);
+    if (c_row < W && (s & ((S >> scatter) - 1)) == 0) {
+      const uint64_t held_v[4] = {v0, v1, v2, v3};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (i < held) {
+          const int qi = q + i;
+          ((qi & 1) ? sm.hi : sm.lo)[c + (qi & 1) + (qi >> 1) * W] = held_v[i];
+        }
+      }
+    }
+  }
+}
+
+// positions a thread owns at most (2W + 3 <= 1027)
+__host__ __device__ constexpr int ladder_qmax(int NT) { return (2 * 512 + 3 + NT - 1) / NT; }
+
+// Normalise column values v_0 .. v_(N-1) (col(c, v) sets v[k] for sum k <
+// NL, each below 2^44) into the N + 1 words of their sum (word N the carry
+// out), NL sums at once, over NT threads: thread t owns positions t*Q ..
+// t*Q + Q - 1 and hands each one's words to put(j, words, out), out[k]
+// being the carry out of position N - 1 (from the 1-bit carries; the
+// local carry into position N is not in it). Position j takes v_j's low
+// 32 bits and v_(j-1)'s high bits (the local carry, below 2^12); the
+// thread ripples its positions (1-bit carries now, and a thread that
+// carries out cannot be all ones), and one lookahead resolves the 1-bit
+// carries between threads. The loops stop at Q, the same for all.
+template <int NT, int QMAX, int NL, class Col, class Put>
+__device__ __forceinline__ void normalize(int N, const Col& col, uint32_t* bits, const Put& put) {
+  const int positions = N + 1;
+  const int Q = (positions + NT - 1) / NT;
+  const int j0 = (int)threadIdx.x * Q;
+  uint32_t w[NL][QMAX];
+  bool g[NL], ones[NL];
+  uint32_t c[NL], cin[NL], out[NL];
+  uint64_t below[NL], v[NL];
+#pragma unroll
+  for (int k = 0; k < NL; ++k) below[k] = 0;
+  if (j0 >= 1 && j0 <= N) col(j0 - 1, below);
+#pragma unroll
+  for (int k = 0; k < NL; ++k) {
+    c[k] = 0;
+    ones[k] = true;
+  }
+#pragma unroll
+  for (int s = 0; s < QMAX; ++s) {
+    if (s == Q) break;
+    const int j = j0 + s;
+#pragma unroll
+    for (int k = 0; k < NL; ++k) v[k] = 0;
+    if (j < N) col(j, v);
+#pragma unroll
+    for (int k = 0; k < NL; ++k) {
+      const uint64_t sum = (v[k] & 0xFFFFFFFFull) + (below[k] >> 32) + c[k];
+      below[k] = v[k];
+      w[k][s] = (uint32_t)sum;
+      if (j < N) {  // position N: its carries stay out of out[k]
+        c[k] = (uint32_t)(sum >> 32);
+        ones[k] = ones[k] && w[k][s] == kFull;
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < NL; ++k) g[k] = c[k] != 0;
+  block_lookahead<NT, NL>(g, ones, bits, cin, out);
+#pragma unroll
+  for (int s = 0; s < QMAX; ++s) {
+    if (s == Q) break;
+    uint32_t words[NL];
+#pragma unroll
+    for (int k = 0; k < NL; ++k) {
+      const uint64_t sum = (uint64_t)w[k][s] + cin[k];
+      words[k] = (uint32_t)sum;
+      cin[k] = (uint32_t)(sum >> 32);
+    }
+    if (j0 + s < positions) put(j0 + s, words, out);
+  }
+}
+
+// x * y * R^{-1} mod n for the block's group, R = 2^(32W), x, y < n: x
+// permuted in sm.xp, y split in sm.yl and sm.yh; the result goes to both
+// (for the next square). T = x * y; m = (T mod R) * n_inv mod R; U = T +
+// m * n; U / R, minus n once if it is at least n. The subtraction rides on U's normalisation:
+// V = U + (2^(32(2W+2)) - n R), normalised beside U by the same
+// lookahead, carries out of its word 2W + 1 exactly when U >= n R, and
+// then holds U - n R; each thread that owns a word of the result reads
+// that carry from the lookahead and selects by mask.
+template <int NT>
+__device__ __forceinline__ void mont_mul_block(const LadderSmem& sm) {
+  const int W = sm.W;
+  // T = x * y: 2W + 1 columns (word 2W of T is 0)
+  column_sums<false, NT>(sm, sm.xp, sm.yl, sm.yh);
+  __syncthreads();
+  normalize<NT, ladder_qmax(NT), 1>(
+      2 * W + 1, [&](int c, uint64_t (&v)[1]) { v[0] = sm.lo[c] + sm.hi[c]; }, sm.bits,
+      [&](int j, const uint32_t (&v)[1], const uint32_t (&)[1]) {
+        if (j <= 2 * W) sm.t[j] = v[0];
+        if (j < W) sm.tp[sm.perm(j)] = v[0];
+      });
+  __syncthreads();
+  // m = T_lo * n_inv mod R: the low W columns, the carry out dropped
+  column_sums<true, NT>(sm, sm.tp, sm.nl, nullptr);
+  __syncthreads();
+  normalize<NT, ladder_qmax(NT), 1>(
+      W, [&](int c, uint64_t (&v)[1]) { v[0] = sm.lo[c] + sm.hi[c]; }, sm.bits,
+      [&](int j, const uint32_t (&v)[1], const uint32_t (&)[1]) {
+        if (j < W) sm.mp[sm.perm(j)] = v[0];
+      });
+  __syncthreads();
+  // U = T + m * n over 2W + 2 columns (U < 2nR: words below W are 0, word
+  // 2W is 0 or 1, word 2W + 1 is 0), and V = U + the two's complement of
+  // n R: 0 below word W, ~n + 1 on words W .. 2W - 1, all ones above.
+  // out[1]: V carried out of word 2W + 1, so U >= n R and V holds U - n R
+  column_sums<false, NT>(sm, sm.mp, sm.nnl, sm.nnh);
+  __syncthreads();
+  normalize<NT, ladder_qmax(NT), 2>(
+      2 * W + 2,
+      [&](int c, uint64_t (&v)[2]) {
+        const uint64_t u = c <= 2 * W ? sm.lo[c] + sm.hi[c] + sm.t[c] : 0;
+        const uint32_t comp = c < W ? 0u
+                              : c < 2 * W ? ~sm.nnh[kPad + c - W] + (c == W ? 1u : 0u)
+                                          : kFull;
+        v[0] = u;
+        v[1] = u + comp;
+      },
+      sm.bits,
+      [&](int j, const uint32_t (&v)[2], const uint32_t (&out)[2]) {
+        if (j >= W && j < 2 * W) {
+          const uint32_t take = 0u - out[1];
+          const uint32_t r = (v[0] & ~take) | (v[1] & take);
+          sm.xp[sm.perm(j - W)] = r;
+          sm.yh[kPad + j - W] = r;
+          sm.yl[kPad + j] = r;
+        }
+      });
+  __syncthreads();
+}
+
+__device__ __forceinline__ uint32_t word_at(const int32_t* __restrict__ row, int j) {
+  return ((uint32_t)row[2 * j] & 0xFFFFu) | ((uint32_t)row[2 * j + 1] << 16);
+}
+
+// One block a group: the entry by r2, then per window the power stored
+// and four squarings, every product a mont_mul_block (one call site)
+template <int NT>
+__global__ void __launch_bounds__(NT)
 cios_comb_ladder_kernel(const int32_t* __restrict__ base, const int32_t* __restrict__ n,
                         const int32_t* __restrict__ n_inv, const int32_t* __restrict__ r2,
                         int groups, int K, int windows, int32_t* __restrict__ powers) {
-  const int lane = threadIdx.x & 31;
-  const int g = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (g >= groups) return;
+  extern __shared__ __align__(16) uint32_t ladder_smem[];
+  const int g = blockIdx.x;
   const int W = K / 2;
+  const LadderSmem sm(ladder_smem, W, NT);
+  const int words = ladder_smem_words(W, NT);
+  for (int i = threadIdx.x; i < words; i += NT) ladder_smem[i] = 0u;
+  __syncthreads();
   const size_t off = (size_t)g * K;
-  uint32_t nv[P], p[P], tmp[P];
-  load_words<P>(nv, n + off, W, lane);
-  const uint32_t np = nprime_of(n_inv, K, g);
-  load_words<P>(p, base + off, W, lane);
-  load_words<P>(tmp, r2 + off, W, lane);
-  mont_mul<P>(p, p, tmp, nv, np, W, lane);  // into the Montgomery domain
-#pragma unroll 1
-  for (int w = 0; w < windows; ++w) {
-    store_words<P>(p, powers + ((size_t)w * groups + g) * K, W, lane);
-    if (w + 1 == windows) break;  // no square after the last power
-#pragma unroll 1
-    for (int sq = 0; sq < 4; ++sq) mont_mul<P>(p, p, p, nv, np, W, lane);
+  for (int j = threadIdx.x; j < W; j += NT) {
+    sm.xp[sm.perm(j)] = word_at(base + off, j);
+    sm.yh[kPad + j] = sm.yl[kPad + W + j] = word_at(r2 + off, j);
+    sm.nnh[kPad + j] = sm.nnl[kPad + W + j] = word_at(n + off, j);
+    sm.nl[kPad + W + j] = word_at(n_inv + off, j);
   }
+  __syncthreads();
+  // product 0 takes the base into the Montgomery domain; product 4w is
+  // power w
+  const int products = 1 + 4 * (windows - 1);
+#pragma unroll 1
+  for (int step = 0; step < products; ++step) {
+    mont_mul_block<NT>(sm);
+    if (step % 4 == 0) {
+      int32_t* out = powers + ((size_t)(step / 4) * groups + g) * K;
+      for (int j = threadIdx.x; j < W; j += NT) {
+        const uint32_t v = sm.xp[sm.perm(j)];
+        out[2 * j] = (int32_t)(v & 0xFFFFu);
+        out[2 * j + 1] = (int32_t)(v >> 16);
+      }
+    }
+  }
+  // the buffers held powers of the base: zero them before the block exits
+  __syncthreads();
+  for (int i = threadIdx.x; i < words; i += NT) ladder_smem[i] = 0u;
 }
 
 size_t modexp_smem(int P) { return (size_t)kWarps * 16 * P * 32 * sizeof(uint32_t); }
@@ -860,10 +1290,26 @@ int launch_mont_mul_rows(const void* x, const void* y, const void* n, const void
   return (int)cudaGetLastError();
 }
 
-template <int P>
+template <int L, int P>
+int launch_modmul_rows(const void* a, const void* b, const void* n, const void* n_inv,
+                       const void* r2, int rows, int K, void* out, cudaStream_t stream) {
+  constexpr int kRows = kRowsWarps * 32 / L;
+  cios_modmul_rows_kernel<L, P><<<(rows + kRows - 1) / kRows, kRowsWarps * 32, 0, stream>>>(
+      (const int32_t*)a, (const int32_t*)b, (const int32_t*)n, (const int32_t*)n_inv,
+      (const int32_t*)r2, rows, K, (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+template <int NT>
 int launch_comb_ladder(const void* base, const void* n, const void* n_inv, const void* r2,
                        int groups, int K, int windows, void* powers, cudaStream_t stream) {
-  cios_comb_ladder_kernel<P><<<(groups + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(
+  const size_t smem = (size_t)ladder_smem_words(K / 2, NT) * sizeof(uint32_t);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        cios_comb_ladder_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cios_comb_ladder_kernel<NT><<<groups, NT, smem, stream>>>(
       (const int32_t*)base, (const int32_t*)n, (const int32_t*)n_inv, (const int32_t*)r2,
       groups, K, windows, (int32_t*)powers);
   return (int)cudaGetLastError();
@@ -929,15 +1375,31 @@ extern "C" int fsdkr_cios_mont_mul(const void* x, const void* y, const void* n,
                                    x, y, n, n_inv, rows, K, out, stream);
 }
 
+// a*b mod n per row. lanes: 0 for one warp a row, 8, 16 or 32 for the
+// sub-warp kernel at that many lanes a row; the launch rule
+// (fsdkr_cios_modmul) takes the sub-warp kernel from kRowsMinRows rows
+extern "C" int fsdkr_cios_modmul_lanes(int lanes, const void* a, const void* b, const void* n,
+                                       const void* n_inv, const void* r2, int rows, int K,
+                                       void* out, void* stream) {
+  if (bad_shape(rows, K) || (lanes != 0 && lanes != 8 && lanes != 16 && lanes != 32))
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (lanes == 0) {
+#define CALL(P) launch_modmul<P>(a, b, n, n_inv, r2, rows, K, out, s)
+    FSDKR_CIOS_DISPATCH(K, CALL)
+#undef CALL
+  }
+#define CALL(L, P) launch_modmul_rows<L, P>(a, b, n, n_inv, r2, rows, K, out, s)
+  FSDKR_ROWS_DISPATCH(lanes, rows_words_per_lane(K, lanes), CALL)
+#undef CALL
+}
+
 extern "C" int fsdkr_cios_modmul(const void* a, const void* b, const void* n,
                                  const void* n_inv, const void* r2, int rows, int K,
                                  void* out, void* stream) {
-  if (bad_shape(rows, K)) return (int)cudaErrorInvalidValue;
-  if (rows == 0) return 0;
-  const cudaStream_t s = (cudaStream_t)stream;
-#define CALL(P) launch_modmul<P>(a, b, n, n_inv, r2, rows, K, out, s)
-  FSDKR_CIOS_DISPATCH(K, CALL)
-#undef CALL
+  return fsdkr_cios_modmul_lanes(rows >= kRowsMinRows ? rows_lanes(K, kMontMulMaxWords) : 0,
+                                 a, b, n, n_inv, r2, rows, K, out, stream);
 }
 
 // segments: `count` rows of kSegmentWords int64 words, (base, exp, n,
@@ -1029,13 +1491,32 @@ extern "C" int fsdkr_cios_rows_rule(int K, int* comb_lanes, int* mont_mul_lanes,
   return 0;
 }
 
-extern "C" int fsdkr_cios_comb_ladder(const void* base, const void* n, const void* n_inv,
-                                      const void* r2, int groups, int K, int windows,
-                                      void* powers, void* stream) {
+// the ladder at `threads` threads a block (128, 256 or 512);
+// fsdkr_cios_comb_ladder takes ladder_threads(K)
+extern "C" int fsdkr_cios_comb_ladder_threads(int threads, const void* base, const void* n,
+                                              const void* n_inv, const void* r2, int groups,
+                                              int K, int windows, void* powers, void* stream) {
   if (bad_shape(groups, K) || windows <= 0) return (int)cudaErrorInvalidValue;
   if (groups == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-#define CALL(P) launch_comb_ladder<P>(base, n, n_inv, r2, groups, K, windows, powers, s)
-  FSDKR_CIOS_DISPATCH(K, CALL)
-#undef CALL
+  switch (threads) {
+    case 128: return launch_comb_ladder<128>(base, n, n_inv, r2, groups, K, windows, powers, s);
+    case 256: return launch_comb_ladder<256>(base, n, n_inv, r2, groups, K, windows, powers, s);
+    case 512: return launch_comb_ladder<512>(base, n, n_inv, r2, groups, K, windows, powers, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int fsdkr_cios_comb_ladder(const void* base, const void* n, const void* n_inv,
+                                      const void* r2, int groups, int K, int windows,
+                                      void* powers, void* stream) {
+  return fsdkr_cios_comb_ladder_threads(ladder_threads(K), base, n, n_inv, r2, groups, K,
+                                        windows, powers, stream);
+}
+
+// the ladder's launch rule at K limbs: its threads a block
+extern "C" int fsdkr_cios_ladder_rule(int K, int* threads) {
+  if (bad_shape(0, K)) return (int)cudaErrorInvalidValue;
+  *threads = ladder_threads(K);
+  return 0;
 }

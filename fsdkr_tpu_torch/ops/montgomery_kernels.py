@@ -11,7 +11,8 @@ C++ for sm_90a; its header comment gives the design):
     `fsdkr_tpu/ops/montgomery.py:102`; it also serves the inverse tree's
     levels and its exit, :792-917).
 `modmul` — a*b mod n per row, the two products of `_modmul_kernel`
-    (:606) in one launch.
+    (:606) in one launch; from the rule's rows (`rows_rule`) on the
+    sub-warp product, as `mont_mul`.
 `modexp_segments` — base^exp mod n per row, the whole 4-bit fixed-window
     loop of `_modexp_kernel` (:137), over several segments (each with its
     own K, rows, exponent width and tensors) in one launch; `modexp` is
@@ -22,8 +23,10 @@ C++ for sm_90a; its header comment gives the design):
     warp on the sub-warp product (L lanes a row), the group's window
     entries staged in shared memory; `mont_mul` takes the same product
     at launches of at least the rule's rows (`rows_rule`).
-`comb_ladder` — the comb's power ladder base_m^(16^w), one warp per
-    group (:323-336). The table between the two is four `mont_mul`
+`comb_ladder` — the comb's power ladder base_m^(16^w) (:323-336), one
+    block a group on a full-width-digit Montgomery product (three
+    block-wide multi-precision products a step, at the rule's threads a
+    block, `ladder_rule`). The table between the two is four `mont_mul`
     launches (`ops.montgomery._comb_table`).
 
 Tensors crossing the kernel boundary are int32 (rows, K) of canonical
@@ -54,7 +57,10 @@ __all__ = [
     "comb_ladder",
     "comb_at_lanes",
     "mont_mul_at_lanes",
+    "modmul_at_lanes",
+    "comb_ladder_at_threads",
     "rows_rule",
+    "ladder_rule",
     "launch_counts",
     "reset_launch_counts",
     "load_library",
@@ -97,6 +103,12 @@ def load_library() -> ctypes.CDLL:
     lib.fsdkr_cios_rows_rule.argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i),
                                          ctypes.POINTER(i)]
     lib.fsdkr_cios_rows_rule.restype = i
+    lib.fsdkr_cios_modmul_lanes.argtypes = [i, p, p, p, p, p, i, i, p, p]
+    lib.fsdkr_cios_modmul_lanes.restype = i
+    lib.fsdkr_cios_comb_ladder_threads.argtypes = [i, p, p, p, p, i, i, i, p, p]
+    lib.fsdkr_cios_comb_ladder_threads.restype = i
+    lib.fsdkr_cios_ladder_rule.argtypes = [i, ctypes.POINTER(i)]
+    lib.fsdkr_cios_ladder_rule.restype = i
     _LIB = lib
     return lib
 
@@ -150,8 +162,8 @@ def _count(fn, shape):
 
 def rows_rule(k: int):
     """The sub-warp kernels' launch rules at K limbs, as the library holds
-    them: (the comb's lanes a row, `mont_mul`'s lanes a row, the rows from
-    which `mont_mul` takes the sub-warp kernel)."""
+    them: (the comb's lanes a row, `mont_mul`'s and `modmul`'s lanes a
+    row, the rows from which both take the sub-warp kernel)."""
     out = [ctypes.c_int() for _ in range(3)]
     if load_library().fsdkr_cios_rows_rule(k, *map(ctypes.byref, out)):
         raise ValueError(f"no sub-warp launch rule at K={k}")
@@ -191,8 +203,30 @@ def _mont_mul(lanes, x, y, n, n_inv):
     return out
 
 
+def ladder_rule(k: int) -> int:
+    """The ladder's launch rule at K limbs, as the library holds it: its
+    threads a block."""
+    out = ctypes.c_int()
+    if load_library().fsdkr_cios_ladder_rule(k, ctypes.byref(out)):
+        raise ValueError(f"no ladder launch rule at K={k}")
+    return out.value
+
+
 def modmul(a, b, n, n_inv, r2) -> torch.Tensor:
-    """a*b mod n per row (a, b < n): MontMul(MontMul(a, R^2 mod n), b)."""
+    """a*b mod n per row (a, b < n): MontMul(MontMul(a, R^2 mod n), b). On
+    the card one warp a row, or from the rule's rows on the sub-warp
+    kernel."""
+    return _modmul(None, a, b, n, n_inv, r2)
+
+
+def modmul_at_lanes(lanes: int, a, b, n, n_inv, r2) -> torch.Tensor:
+    """`modmul` on a layout named here, not by the launch rule (lanes as
+    `mont_mul_at_lanes` takes them). For the sweep's mont_mul cells; the
+    engine calls `modmul`."""
+    return _modmul(lanes, a, b, n, n_inv, r2)
+
+
+def _modmul(lanes, a, b, n, n_inv, r2):
     rows, k = a.shape
     device = _check((("a", a), ("b", b), ("n", n), ("n_inv", n_inv), ("r2", r2)),
                     rows, k)
@@ -201,10 +235,11 @@ def modmul(a, b, n, n_inv, r2) -> torch.Tensor:
 
         return _modmul_kernel(a, b, n, n_inv, r2).to(torch.int32)
     out = torch.empty_like(a)
-    err = load_library().fsdkr_cios_modmul(
-        a.data_ptr(), b.data_ptr(), n.data_ptr(), n_inv.data_ptr(), r2.data_ptr(),
-        rows, k, out.data_ptr(), _stream(device),
-    )
+    lib = load_library()
+    args = (a.data_ptr(), b.data_ptr(), n.data_ptr(), n_inv.data_ptr(), r2.data_ptr(),
+            rows, k, out.data_ptr(), _stream(device))
+    err = lib.fsdkr_cios_modmul(*args) if lanes is None else \
+        lib.fsdkr_cios_modmul_lanes(lanes, *args)
     if err:
         raise RuntimeError(f"fsdkr_cios_modmul launch failed: CUDA error {err}")
     _count(modmul, (k, rows))
@@ -309,8 +344,20 @@ def _comb(lanes, table, exp, n, n_inv, one_mont, exp_bits):
 
 def comb_ladder(base, n, n_inv, r2, w_cnt: int) -> torch.Tensor:
     """powers[w, g] = base[g]^(16^w) * R mod n[g] for w < w_cnt, the
-    comb's ladder in the Montgomery domain; base < n, all (G, K).
-    Returns (W, G, K)."""
+    comb's ladder in the Montgomery domain; base < n, all (G, K); n_inv
+    at full width (the kernel's digit reads all of it). Returns (W, G,
+    K)."""
+    return _ladder(None, base, n, n_inv, r2, w_cnt)
+
+
+def comb_ladder_at_threads(threads: int, base, n, n_inv, r2, w_cnt: int) -> torch.Tensor:
+    """`comb_ladder` at 128, 256 or 512 threads a block, named here, not
+    by the launch rule: for the sweep's ladder cells; the engine calls
+    `comb_ladder`."""
+    return _ladder(threads, base, n, n_inv, r2, w_cnt)
+
+
+def _ladder(threads, base, n, n_inv, r2, w_cnt):
     g, k = base.shape
     device = _check((("base", base), ("n", n), ("n_inv", n_inv), ("r2", r2)), g, k)
     if w_cnt <= 0:
@@ -320,10 +367,11 @@ def comb_ladder(base, n, n_inv, r2, w_cnt: int) -> torch.Tensor:
 
         return _comb_ladder(base, n, n_inv, r2, w_cnt).to(torch.int32)
     out = torch.empty((w_cnt, g, k), dtype=torch.int32, device=device)
-    err = load_library().fsdkr_cios_comb_ladder(
-        base.data_ptr(), n.data_ptr(), n_inv.data_ptr(), r2.data_ptr(), g, k, w_cnt,
-        out.data_ptr(), _stream(device),
-    )
+    lib = load_library()
+    args = (base.data_ptr(), n.data_ptr(), n_inv.data_ptr(), r2.data_ptr(), g, k, w_cnt,
+            out.data_ptr(), _stream(device))
+    err = lib.fsdkr_cios_comb_ladder(*args) if threads is None else \
+        lib.fsdkr_cios_comb_ladder_threads(threads, *args)
     if err:
         raise RuntimeError(f"fsdkr_cios_comb_ladder launch failed: CUDA error {err}")
     _count(comb_ladder, (k, g, w_cnt * WINDOW_BITS))

@@ -4,7 +4,8 @@
 Run from the root of a checkout, on a machine with the CUDA toolkit:
 
     python3 scripts/cios_sass_count.py [--src PATH/cios_kernels.cu]
-                                       [--kernel cios_comb_kernel] [--out FILE.json]
+                                       [--kernel cios_comb_kernel] [--all-loops]
+                                       [--out FILE.json]
 
 Builds the source (default: this checkout's
 fsdkr_tpu_torch/csrc/cios_kernels.cu; another tree's source builds the
@@ -29,7 +30,16 @@ per-row-step count it prints the issue-bound time of `cios_comb` at the
 main path's shape (16 groups x 256 rows, K=128, 2048-bit exponents: 513
 products of 64 steps a row) on the card's 528 schedulers at its maximum
 SM clock (nvidia-smi), at one instruction a cycle and at two (the
-integer and multiply pipes take 16 lanes a cycle).
+integer and multiply pipes take 16 lanes a cycle). For a one-warp-a-group
+ladder kernel (`cios_comb_ladder_kernel` with one template argument, P)
+it prints instead the issue time of the ladder's chain at the main
+path's shape (2045 products of 64 steps, one warp a scheduler) at one
+instruction a cycle.
+
+`--all-loops` also prints every innermost loop (a backward branch with
+no loop inside) of the named kernels, shuffles or not, with its
+instructions by class and per `IMAD.WIDE` (for the block ladder's
+column-sum loops: one `IMAD.WIDE` a word product).
 """
 
 from __future__ import annotations
@@ -45,6 +55,8 @@ from pathlib import Path
 SCHEDULERS = 132 * 4  # H100 SXM: 132 SMs, 4 schedulers each
 # cios_comb on the main path: groups x rows, products a row, steps a product
 MAIN_ROW_STEPS = 16 * 256 * (2048 // 4 + 1) * (128 // 2)
+# the ladder on the main path: products along a group's chain, steps a product
+LADDER_STEPS = (1 + 4 * (2048 // 4 - 1)) * (128 // 2)
 
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
@@ -89,9 +101,9 @@ def functions(sass: str):
     return out
 
 
-def step_loops(items):
-    """The innermost loops holding a shuffle: lists of (opcode,
-    operands)."""
+def step_loops(items, any_loop=False):
+    """The innermost loops holding a shuffle (any_loop: every innermost
+    loop): lists of (opcode, operands)."""
     insns, label_at, addr_at = [], {}, {}
     for kind, v in items:
         if kind == "label":
@@ -111,7 +123,7 @@ def step_loops(items):
         if t is not None and t <= i:
             loops.append((t, i))
     with_shfl = [(t, i) for t, i in loops
-                 if any(op.startswith("SHFL") for _, op, _ in insns[t:i + 1])]
+                 if any_loop or any(op.startswith("SHFL") for _, op, _ in insns[t:i + 1])]
     inner = [(t, i) for t, i in with_shfl
              if not any((a, b) != (t, i) and t <= a and b <= i for a, b in with_shfl)]
     return [[(op, rest) for _, op, rest in insns[t:i + 1]] for t, i in inner]
@@ -137,12 +149,14 @@ def main():
     ap.add_argument("--src", default=str(here / "fsdkr_tpu_torch" / "csrc" / "cios_kernels.cu"))
     ap.add_argument("--kernel", action="append",
                     help="substring of a kernel's mangled name (default: cios_comb_kernel, "
-                         "cios_mont_mul)")
+                         "cios_mont_mul, cios_comb_ladder_kernel)")
+    ap.add_argument("--all-loops", action="store_true",
+                    help="also count every innermost loop of the named kernels")
     ap.add_argument("--out", help="also write the counts to this JSON file")
     ap.add_argument("--dump", action="store_true",
                     help="also write each step loop's SASS text to the JSON file")
     args = ap.parse_args()
-    kernels = args.kernel or ["cios_comb_kernel", "cios_mont_mul"]
+    kernels = args.kernel or ["cios_comb_kernel", "cios_mont_mul", "cios_comb_ladder_kernel"]
     sys.path.insert(0, str(here))
     from fsdkr_tpu_torch.ops.nvcc_build import build_library
 
@@ -176,21 +190,43 @@ def main():
                    "per_row_step": row_step, "opcodes": ops}
             if args.dump:
                 row["sass"] = [f"{op}{rest}" for op, rest in body]
-            if clock:
+            ladder = "cios_comb_ladder_kernel" in name
+            if clock and ladder:
+                row["ladder_main_issue_ms"] = LADDER_STEPS * total / clock * 1e3
+                bound = (f"; ladder main-path chain at one warp a scheduler "
+                         f"{row['ladder_main_issue_ms']:.3f} ms at 1 instruction a cycle")
+            elif clock:
                 row["comb_main_issue_ms"] = {
                     cycles: MAIN_ROW_STEPS * row_step * cycles / (SCHEDULERS * clock) * 1e3
                     for cycles in (1, 2)}
+                bound = (f"; cios_comb main-path issue bound "
+                         f"{row['comb_main_issue_ms'][1]:.3f} ms at 1 instruction a cycle, "
+                         f"{row['comb_main_issue_ms'][2]:.3f} ms at 2")
+            else:
+                bound = ""
             rows.append(row)
             print(f"{name} (L={lanes}, P={p}): loop body {len(body)} instructions; per step "
                   f"{total:.2f} ("
                   + ", ".join(f"{c} {v:.2f}" for c, v in sorted(per_step.items()))
-                  + f"); per row-step {row_step:.2f}"
-                  + (f"; cios_comb main-path issue bound {row['comb_main_issue_ms'][1]:.3f} ms "
-                     f"at 1 instruction a cycle, {row['comb_main_issue_ms'][2]:.3f} ms at 2"
-                     if clock else ""), flush=True)
+                  + f"); per row-step {row_step:.2f}" + bound, flush=True)
             print("  opcodes: " + ", ".join(f"{op} {c}" for op, c in
                                             sorted(ops.items(), key=lambda kv: -kv[1])),
                   flush=True)
+        for body in step_loops(items, any_loop=True) if args.all_loops else ():
+            counts, ops = {}, {}
+            for op, _ in body:
+                counts[classify(op)] = counts.get(classify(op), 0) + 1
+                ops[op] = ops.get(op, 0) + 1
+            wide = sum(c for op, c in ops.items() if op.startswith("IMAD.WIDE"))
+            row = {"kernel": name, "loop": "innermost", "body": len(body), "counts": counts,
+                   "imad_wide": wide, "opcodes": ops}
+            if args.dump:
+                row["sass"] = [f"{op}{rest}" for op, rest in body]
+            rows.append(row)
+            print(f"{name}: innermost loop of {len(body)} instructions ("
+                  + ", ".join(f"{c} {v}" for c, v in sorted(counts.items())) + ")"
+                  + (f", {len(body) / wide:.2f} a product over its {wide} IMAD.WIDE"
+                     if wide else ""), flush=True)
     if not rows:
         sys.exit("cios_sass_count: no step loop found in the named kernels")
     if args.out:

@@ -43,11 +43,19 @@ kernel's own events, median of --reps windows of 3 launches; each cell's
 first launch, its check, warms it) and ns per row-step. The launch rule of csrc/cios_kernels.cu (kRowsMaxWords) is read
 off this table.
 
-`mont_mul` cells: `cios_mont_mul` at 256, 1024, 4096, 8192 and 57344
-rows, K=128 and 256, one warp a row against the sub-warp kernel at 8,
-16 and 32 lanes a row (`mont_mul_at_lanes`), results equal: device time
-per launch as above. kRowsMinRows (R*, the rows from which the launch
-rule takes the sub-warp kernel) is the crossover; the script prints it.
+`mont_mul` cells: `cios_mont_mul` and `cios_modmul` at 256, 1024,
+4096, 8192 and 57344 rows, K=128 and 256, one warp a row against the
+sub-warp kernel at 8, 16 and 32 lanes a row (`mont_mul_at_lanes`,
+`modmul_at_lanes`), results equal: device time per launch as above.
+kRowsMinRows (R*, the rows from which the launch rule takes the sub-warp
+kernel) is the crossover; the script prints each kernel's.
+
+`ladder` cells: `cios_comb_ladder` at K=128 and 256, 16 groups, 2048-bit
+exponents, at 128, 256 and 512 threads a block
+(`comb_ladder_at_threads`), results equal to each other and to the
+launch rule's: device time per launch as above, and us per product of
+the chain (1 + 4(W - 1) products). The ladder's launch rule
+(ladder_threads) is read off this table.
 """
 
 from __future__ import annotations
@@ -256,8 +264,15 @@ def lanes_cells(dev, rng, reps, k=128, groups=16, per_group=256, exp_bits=2048):
     return table_rows
 
 
+MONT_MUL_KERNELS = {  # wrapper name -> (profiler symbol one warp a row, sub-warp)
+    "mont_mul": ("cios_mont_mul_kernel", "cios_mont_mul_rows_kernel"),
+    "modmul": ("cios_modmul_kernel", "cios_modmul_rows_kernel"),
+}
+
+
 def mont_mul_cells(dev, rng, reps, widths=(128, 256), row_counts=(256, 1024, 4096, 8192, 57344)):
-    """`cios_mont_mul` one warp a row against the sub-warp kernel."""
+    """`cios_mont_mul` and `cios_modmul` one warp a row against the
+    sub-warp kernel."""
     import numpy as np
     import torch
 
@@ -271,36 +286,88 @@ def mont_mul_cells(dev, rng, reps, widths=(128, 256), row_counts=(256, 1024, 409
         for rows in row_counts:
             moduli = [pool[i % 64] for i in range(rows)]
             ctx = MontgomeryContext(moduli, k)
-            n, ni = (torch.as_tensor(np.asarray(a, np.int32)).to(dev).contiguous()
-                     for a in (ctx.n, ctx.n_inv))
+            n, ni, r2 = (torch.as_tensor(np.asarray(a, np.int32)).to(dev).contiguous()
+                         for a in (ctx.n, ctx.n_inv, ctx.r2))
             x = _limbs(dev, [rng.randrange(m) for m in moduli], k)
             y = _limbs(dev, [rng.randrange(m) for m in moduli], k)
-            want = mk.mont_mul_at_lanes(0, x, y, n, ni)
-            if not torch.equal(mk.mont_mul(x, y, n, ni), want):
-                sys.exit(f"cuda_route_sweep: mont_mul by the rule differs at K={k} rows={rows}")
-            row = {"cell": "mont_mul", "k": k, "rows": rows, "rule_lanes": rule_lanes,
-                   "rule_min_rows": min_rows}
-            for lanes in (0,) + tuple(L for L in LANES if built(k, L)):
-                def call():
-                    return mk.mont_mul_at_lanes(lanes, x, y, n, ni)
-
-                if not torch.equal(call(), want):
-                    sys.exit(f"cuda_route_sweep: mont_mul at {lanes} lanes differs at K={k} "
+            calls = {
+                "mont_mul": (lambda: mk.mont_mul(x, y, n, ni),
+                             lambda lanes: mk.mont_mul_at_lanes(lanes, x, y, n, ni)),
+                "modmul": (lambda: mk.modmul(x, y, n, ni, r2),
+                           lambda lanes: mk.modmul_at_lanes(lanes, x, y, n, ni, r2)),
+            }
+            for kernel, (by_rule, at_lanes) in calls.items():
+                want = at_lanes(0)
+                if not torch.equal(by_rule(), want):
+                    sys.exit(f"cuda_route_sweep: {kernel} by the rule differs at K={k} "
                              f"rows={rows}")
-                symbol = "cios_mont_mul_kernel" if lanes == 0 else "cios_mont_mul_rows_kernel"
-                row[f"lanes_{lanes}_ms"] = kernel_ms(call, reps, symbol)
+                row = {"cell": "mont_mul", "kernel": kernel, "k": k, "rows": rows,
+                       "rule_lanes": rule_lanes, "rule_min_rows": min_rows}
+                for lanes in (0,) + tuple(L for L in LANES if built(k, L)):
+                    def call():
+                        return at_lanes(lanes)
+
+                    if not torch.equal(call(), want):
+                        sys.exit(f"cuda_route_sweep: {kernel} at {lanes} lanes differs at "
+                                 f"K={k} rows={rows}")
+                    row[f"lanes_{lanes}_ms"] = kernel_ms(call, reps,
+                                                         MONT_MUL_KERNELS[kernel][lanes > 0])
+                table_rows.append(row)
+                print(json.dumps(row), flush=True)
+    for kernel in MONT_MUL_KERNELS:
+        for k in widths:
+            cells = [r for r in table_rows if r["k"] == k and r["kernel"] == kernel]
+            lanes = cells[0]["rule_lanes"]
+            ahead = [r["rows"] for r in cells if r[f"lanes_{lanes}_ms"] < r["lanes_0_ms"]]
+            star = next((r["rows"] for r in cells
+                         if all(c["rows"] in ahead for c in cells if c["rows"] >= r["rows"])),
+                        None)
+            print(f"{kernel}: K={k}, the sub-warp kernel at {lanes} lanes a row "
+                  + (f"ahead of one warp a row from {star} rows up" if star else
+                     "behind one warp a row at the largest launch")
+                  + f"; the launch rule's R* is {cells[0]['rule_min_rows']}", flush=True)
+    return table_rows
+
+
+LADDER_THREADS = (128, 256, 512)
+
+
+def ladder_cells(dev, rng, reps, widths=(128, 256), groups=16, exp_bits=2048):
+    """The ladder at each threads a block, at the main path's group count
+    and exponent width."""
+    import numpy as np
+    import torch
+
+    from fsdkr_tpu_torch.ops import montgomery_kernels as mk
+    from fsdkr_tpu_torch.ops.limbs import MontgomeryContext
+
+    w_cnt = exp_bits // 4
+    products = 1 + 4 * (w_cnt - 1)
+    table_rows = []
+    for k in widths:
+        moduli = [rng.getrandbits(16 * k) | 1 | (1 << (16 * k - 1)) for _ in range(groups)]
+        ctx = MontgomeryContext(moduli, k)
+        n, ni, r2 = (torch.as_tensor(np.asarray(a, np.int32)).to(dev).contiguous()
+                     for a in (ctx.n, ctx.n_inv, ctx.r2))
+        base = _limbs(dev, [rng.randrange(m) for m in moduli], k)
+        want = mk.comb_ladder(base, n, ni, r2, w_cnt)
+        rule = mk.ladder_rule(k)
+        for threads in LADDER_THREADS:
+            def call():
+                return mk.comb_ladder_at_threads(threads, base, n, ni, r2, w_cnt)
+
+            if not torch.equal(call(), want):
+                sys.exit(f"cuda_route_sweep: the ladder at {threads} threads differs from the "
+                         f"rule's at K={k}")
+            ms = kernel_ms(call, reps, "cios_comb_ladder_kernel")
+            row = {"cell": "ladder", "k": k, "groups": groups, "exp_bits": exp_bits,
+                   "threads": threads, "rule": threads == rule, "device_ms": ms,
+                   "us_per_product": ms * 1e3 / products}
             table_rows.append(row)
             print(json.dumps(row), flush=True)
-    for k in widths:
-        cells = [r for r in table_rows if r["k"] == k]
-        lanes = cells[0]["rule_lanes"]
-        ahead = [r["rows"] for r in cells if r[f"lanes_{lanes}_ms"] < r["lanes_0_ms"]]
-        star = next((r["rows"] for r in cells
-                     if all(c["rows"] in ahead for c in cells if c["rows"] >= r["rows"])), None)
-        print(f"mont_mul: K={k}, the sub-warp kernel at {lanes} lanes a row "
-              + (f"ahead of one warp a row from {star} rows up" if star else
-                 "behind one warp a row at the largest launch")
-              + f"; the launch rule's R* is {cells[0]['rule_min_rows']}", flush=True)
+        best = min((r for r in table_rows if r["k"] == k), key=lambda r: r["device_ms"])
+        print(f"ladder: K={k}, fastest at {best['threads']} threads a block "
+              f"({best['device_ms']:.4f} ms); the launch rule takes {rule}", flush=True)
     return table_rows
 
 
@@ -308,20 +375,21 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the table to this JSON file")
     ap.add_argument("--seed", type=int, default=6)
-    ap.add_argument("--cells", default="rns,comb,lanes,mont_mul",
-                    help="comma-separated subset of rns,comb,lanes,mont_mul (default: all)")
+    ap.add_argument("--cells", default="rns,comb,lanes,mont_mul,ladder",
+                    help="comma-separated subset of rns,comb,lanes,mont_mul,ladder "
+                         "(default: all)")
     ap.add_argument("--rows", default=",".join(map(str, ROWS)),
                     help="comma-separated row counts of the rns cells (default: 8 .. 16384)")
     ap.add_argument("--reps", type=int, default=3,
                     help="timed calls per comb cell and way, profiler windows per lanes "
-                         "and mont_mul cell (default 3)")
+                         "mont_mul and ladder cell (default 3)")
     ap.add_argument("--groups", default=",".join(map(str, COMB_GROUPS)),
                     help="comma-separated group counts of the comb cells "
                          "(default: 1, 2, 4, 8, 16, 64, 256)")
     args = ap.parse_args()
     row_counts = [int(r) for r in args.rows.split(",") if r]
     cells = [c for c in args.cells.split(",") if c]
-    if any(c not in ("rns", "comb", "lanes", "mont_mul") for c in cells):
+    if any(c not in ("rns", "comb", "lanes", "mont_mul", "ladder") for c in cells):
         sys.exit(f"cuda_route_sweep: unknown cells in {cells}")
 
     import torch
@@ -375,11 +443,12 @@ def main():
             print(line, flush=True)
     lanes = lanes_cells(dev, rng, args.reps) if "lanes" in cells else []
     mont = mont_mul_cells(dev, rng, args.reps) if "mont_mul" in cells else []
+    ladder = ladder_cells(dev, rng, args.reps) if "ladder" in cells else []
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump({"device": smi, "rows": table, "comb": comb, "lanes": lanes,
-                       "mont_mul": mont}, fh, indent=1)
+                       "mont_mul": mont, "ladder": ladder}, fh, indent=1)
     print(smi, flush=True)
 
 
