@@ -347,7 +347,7 @@ def phase_env(dev):
                 log(f"  ptxas: {line.strip()}")
 
 
-LADDER_THREADS = (128, 256, 512)  # the ladder's layouts (csrc: launch_comb_ladder)
+LADDER_THREADS = (256, 512)  # the ladder's layouts (csrc: launch_comb_ladder)
 
 
 def phase_kernels(dev, rng):
@@ -411,7 +411,8 @@ def phase_kernels(dev, rng):
     log(f"kernels == plain, bit-identical: cios_modexp, one launch of segments (K, rows, "
         f"exp_bits) {segments}, each half random and half worst-case")
     # cios_mont_mul and cios_modmul on both sides of R*: one warp a row
-    # below, the sub-warp kernel from R* (a ragged last warp just above it)
+    # below (cios_modmul: 32 lanes a row), the rule's lanes a row from R*
+    # (a ragged last warp just above it)
     for k in (128, 256):
         _, lanes, r_star = mk.rows_rule(k)
         for rows in (r_star - 1, r_star, r_star + 13):
@@ -423,7 +424,8 @@ def phase_kernels(dev, rng):
                         fail(f"{name} K={k} rows={rows} worst={worst}: differs from plain")
         log(f"kernels == plain, bit-identical: cios_mont_mul+cios_modmul K={k} at "
             f"{r_star - 1}, {r_star} and {r_star + 13} rows (R*={r_star}: one warp a row "
-            f"below, {lanes} lanes a row from it), random rows and 13 worst-case")
+            f"below, cios_modmul 32 lanes a row, both {lanes} lanes a row from it), random "
+            f"rows and 13 worst-case")
     # cios_comb: one group (the block's rows share it), 13 and 257 rows a
     # group (ragged row tiles), and the ring-Pedersen column's 16 groups x
     # 256 rows; K=130 and 256 take 16 lanes a row, 512 and 1024 32
@@ -537,13 +539,13 @@ def grouped_routes(dev, rng):
         exps[0] = 0
         exps[1] = (1 << exp_bits) - 1
         want = [pow(b, e, n) for b, e, n in zip(bases, exps, moduli)]
-        saved = powm._SHARED_MIN_ROWS, powm._SHARED_MIN_GROUPS
-        powm._SHARED_MIN_ROWS, powm._SHARED_MIN_GROUPS = min_rows, 1
+        saved = powm._SHARED_MIN_ROWS
+        powm._SHARED_MIN_ROWS = min_rows
         before = montgomery_kernels.launch_counts()
         try:
             got = powm.device_powm_grouped(bases, exps, moduli, dev)
         finally:
-            powm._SHARED_MIN_ROWS, powm._SHARED_MIN_GROUPS = saved
+            powm._SHARED_MIN_ROWS = saved
         after = montgomery_kernels.launch_counts()
         if got != want:
             fail(f"device_powm_grouped at {bits} bits disagrees with pow")
@@ -909,8 +911,7 @@ KERNELS = {
     # cios_mont_mul_rows_kernel (from R* rows)
     "cios_mont_mul": ("cios_mont_mul_", "fsdkr_tpu_torch/csrc/cios_kernels.cu",
                       "fsdkr_tpu/ops/montgomery.py:102", 200),
-    # both layouts: cios_modmul_kernel and cios_modmul_rows_kernel
-    "cios_modmul": ("cios_modmul_", "fsdkr_tpu_torch/csrc/cios_kernels.cu",
+    "cios_modmul": ("cios_modmul_rows_kernel", "fsdkr_tpu_torch/csrc/cios_kernels.cu",
                     "fsdkr_tpu/ops/montgomery.py:606", 200),
     "cios_modexp": ("cios_modexp_kernel", "fsdkr_tpu_torch/csrc/cios_kernels.cu",
                     "fsdkr_tpu/ops/montgomery.py:137", 10),
@@ -1283,8 +1284,6 @@ def phase_time(dev, rng, counts, shapes):
                                                    "bound_ms")}
                           for r in per_shape if r["name"] == name],
             **({"segments_alone": alone} if name == "cios_modexp" else {}),
-            **({"chain_ms": ladder_chain_ms(shape, _CLOCK["hz"])}
-               if name == "cios_comb_ladder" else {}),
         })
     return out
 

@@ -7,8 +7,7 @@ callable:
 - host_powm: CPython pow loop (oracle).
 - device_powm_grouped: the device's batch powm (`get_batch_powm`, the
   verifier's `_modexp`): rows that share a (base, modulus) pair in
-  groups of at least `_SHARED_MIN_ROWS`, where a launch has at least
-  `_SHARED_MIN_GROUPS` of them, take the fixed-base comb
+  groups of at least `_SHARED_MIN_ROWS` take the fixed-base comb
   (device_powm_shared, ops.montgomery.shared_base_modexp), the rest the
   generic engine. device_powm_batches runs it over several batches at
   once, the generic rows of all of them in one segmented launch: what
@@ -81,18 +80,17 @@ def _rns_forced() -> bool:
 
 
 # A launch's (base, modulus) groups of at least _SHARED_MIN_ROWS rows take
-# the fixed-base comb when there are at least _SHARED_MIN_GROUPS of them;
-# every other row takes the generic engine. The JAX package's 4 rows (and
-# no group count) were picked for the TPU. In the H100 comb sweep
-# (PERF.md section 6, "The comb sweep"; scripts/cuda_route_sweep.py
-# --cells comb, the cache cold in every call) the comb has the shorter
-# wall in every cell of 256 rows a group from 1 group up, since the
-# ladder runs one block a group on a full-width-digit product (with one
-# warp a group it lost 3 of the 4 cells of 1 group of 256 rows). Under 256
+# the fixed-base comb, however few they are; every other row takes the
+# generic engine. The JAX package's 4 rows were picked for the TPU. In the
+# H100 comb sweep (PERF.md section 6, "The comb sweep";
+# scripts/cuda_route_sweep.py --cells comb, the cache cold in every call)
+# the comb has the shorter wall in every cell of 256 rows a group from 1
+# group up, since the ladder runs one block a group on a full-width-digit
+# product (with one warp a group it lost 3 of the 4 cells of 1 group of
+# 256 rows), so there is no floor on the group count. Under 256
 # rows a group it pays in most cells too, but that floor also decides the
 # pair columns' per-receiver groups (16 rows at n=16): PERF.md section 7.
 _SHARED_MIN_ROWS = 256
-_SHARED_MIN_GROUPS = 1
 
 
 def _width_class(width: int) -> Optional[int]:
@@ -224,9 +222,8 @@ def device_powm_shared(bases, exps_per_group, moduli, device="cuda") -> List[Lis
 
 def device_powm_grouped(bases, exps, moduli, device="cuda") -> List[int]:
     """Like device_powm, but rows sharing a (base, modulus) pair in groups
-    of at least _SHARED_MIN_ROWS take the fixed-base comb where there are
-    at least _SHARED_MIN_GROUPS such groups, and the rest the generic
-    engine as device_powm runs them (counterpart of the JAX package's
+    of at least _SHARED_MIN_ROWS take the fixed-base comb, and the rest the
+    generic engine as device_powm runs them (counterpart of the JAX package's
     tpu_powm_grouped).
     That is the shape of the collect columns: ring-Pedersen rows share
     (T, N) per message, PDL and range rows (h1 | h2, N~) per receiver.
@@ -242,8 +239,6 @@ def _comb_rows(bases, exps, moduli, out, device) -> List[int]:
     for i, (b, m) in enumerate(zip(bases, moduli)):
         groups.setdefault((b, m), []).append(i)
     shared = [(key, rows) for key, rows in groups.items() if len(rows) >= _SHARED_MIN_ROWS]
-    if len(shared) < _SHARED_MIN_GROUPS:
-        shared = []
     if shared:
         res = device_powm_shared(
             [key[0] for key, _ in shared],

@@ -170,8 +170,10 @@
 // 513); smaller launches, one product's latency plus the launch, keep
 // one warp a row. Both are read off the mont_mul cells of the same
 // sweep: the sub-warp kernel led at every size measured, 256 rows up.
-// fsdkr_cios_modmul (two products a row) takes the same rule, read off
-// the same cells.
+// fsdkr_cios_modmul (two products a row) runs on the sub-warp product at
+// every size: from kRowsMinRows rows at the same lanes, below it at 32
+// lanes a row (one row a warp), which led one warp a row at every size
+// measured, 16-255 rows, at K=128 and 256.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -517,31 +519,6 @@ cios_mont_mul_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
-// fsdkr_cios_modmul: a*b mod n per row, as MontMul(MontMul(a, r2), b)
-
-template <int P>
-__global__ void __launch_bounds__(kWarps * 32)
-cios_modmul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-                   const int32_t* __restrict__ n, const int32_t* __restrict__ n_inv,
-                   const int32_t* __restrict__ r2, int rows, int K,
-                   int32_t* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const int W = K / 2;
-  const size_t off = (size_t)row * K;
-  uint32_t av[P], bv[P], nv[P], rv[P];
-  load_words<P>(av, a + off, W, lane);
-  load_words<P>(bv, b + off, W, lane);
-  load_words<P>(nv, n + off, W, lane);
-  load_words<P>(rv, r2 + off, W, lane);
-  const uint32_t np = nprime_of(n_inv, K, row);
-  mont_mul<P>(av, av, rv, nv, np, W, lane);
-  mont_mul<P>(av, av, bv, nv, np, W, lane);
-  store_words<P>(av, out + off, W, lane);
-}
-
-// ---------------------------------------------------------------------------
 // fsdkr_cios_modexp: base^exp mod n per row, 4-bit fixed windows, over a
 // table of segments in one launch
 
@@ -802,8 +779,8 @@ cios_mont_mul_rows_kernel(const int32_t* __restrict__ x, const int32_t* __restri
   if (row < rows) store_words<P>(xv, out + off, W, l);
 }
 
-// fsdkr_cios_modmul at kRowsMinRows rows and more: L lanes a row, the two
-// products of cios_modmul_kernel
+// fsdkr_cios_modmul: a*b mod n per row, as MontMul(MontMul(a, r2), b), L
+// lanes a row
 template <int L, int P>
 __global__ void __launch_bounds__(kRowsWarps * 32)
 cios_modmul_rows_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
@@ -838,8 +815,9 @@ constexpr int kChunk = 8;   // source words a thread takes at a time
 constexpr int kPad = 256;   // zero words below each split operand (see LadderSmem)
 
 // The launch rule: threads a block at K limbs, from the ladder cells of
-// scripts/cuda_route_sweep.py (PERF.md): 256 led at K=128, 512 at K=256
-__host__ __device__ __forceinline__ int ladder_threads(int K) { return K <= 128 ? 256 : 512; }
+// scripts/cuda_route_sweep.py (PERF.md): 256 led at K=128 and 256 (512
+// within 0.3% there), 512 at K=512 and 1024; 128 trailed at every K
+__host__ __device__ __forceinline__ int ladder_threads(int K) { return K <= 256 ? 256 : 512; }
 
 // S, the parts a column pair is split into: the largest power of two at
 // most NT / W, W and 32
@@ -1239,15 +1217,6 @@ int launch_mont_mul(const void* x, const void* y, const void* n, const void* n_i
   return (int)cudaGetLastError();
 }
 
-template <int P>
-int launch_modmul(const void* a, const void* b, const void* n, const void* n_inv,
-                  const void* r2, int rows, int K, void* out, cudaStream_t stream) {
-  cios_modmul_kernel<P><<<(rows + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(
-      (const int32_t*)a, (const int32_t*)b, (const int32_t*)n, (const int32_t*)n_inv,
-      (const int32_t*)r2, rows, K, (int32_t*)out);
-  return (int)cudaGetLastError();
-}
-
 template <int PMAX>
 int launch_modexp(const ModexpTable& tab, int blocks, cudaStream_t stream) {
   const size_t smem = modexp_smem(PMAX);
@@ -1375,21 +1344,16 @@ extern "C" int fsdkr_cios_mont_mul(const void* x, const void* y, const void* n,
                                    x, y, n, n_inv, rows, K, out, stream);
 }
 
-// a*b mod n per row. lanes: 0 for one warp a row, 8, 16 or 32 for the
-// sub-warp kernel at that many lanes a row; the launch rule
-// (fsdkr_cios_modmul) takes the sub-warp kernel from kRowsMinRows rows
+// a*b mod n per row at `lanes` lanes a row (8, 16 or 32); the launch rule
+// (fsdkr_cios_modmul) takes fsdkr_cios_mont_mul's lanes from kRowsMinRows
+// rows, 32 below
 extern "C" int fsdkr_cios_modmul_lanes(int lanes, const void* a, const void* b, const void* n,
                                        const void* n_inv, const void* r2, int rows, int K,
                                        void* out, void* stream) {
-  if (bad_shape(rows, K) || (lanes != 0 && lanes != 8 && lanes != 16 && lanes != 32))
+  if (bad_shape(rows, K) || (lanes != 8 && lanes != 16 && lanes != 32))
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (lanes == 0) {
-#define CALL(P) launch_modmul<P>(a, b, n, n_inv, r2, rows, K, out, s)
-    FSDKR_CIOS_DISPATCH(K, CALL)
-#undef CALL
-  }
 #define CALL(L, P) launch_modmul_rows<L, P>(a, b, n, n_inv, r2, rows, K, out, s)
   FSDKR_ROWS_DISPATCH(lanes, rows_words_per_lane(K, lanes), CALL)
 #undef CALL
@@ -1398,7 +1362,7 @@ extern "C" int fsdkr_cios_modmul_lanes(int lanes, const void* a, const void* b, 
 extern "C" int fsdkr_cios_modmul(const void* a, const void* b, const void* n,
                                  const void* n_inv, const void* r2, int rows, int K,
                                  void* out, void* stream) {
-  return fsdkr_cios_modmul_lanes(rows >= kRowsMinRows ? rows_lanes(K, kMontMulMaxWords) : 0,
+  return fsdkr_cios_modmul_lanes(rows >= kRowsMinRows ? rows_lanes(K, kMontMulMaxWords) : 32,
                                  a, b, n, n_inv, r2, rows, K, out, stream);
 }
 
@@ -1491,7 +1455,7 @@ extern "C" int fsdkr_cios_rows_rule(int K, int* comb_lanes, int* mont_mul_lanes,
   return 0;
 }
 
-// the ladder at `threads` threads a block (128, 256 or 512);
+// the ladder at `threads` threads a block (256 or 512);
 // fsdkr_cios_comb_ladder takes ladder_threads(K)
 extern "C" int fsdkr_cios_comb_ladder_threads(int threads, const void* base, const void* n,
                                               const void* n_inv, const void* r2, int groups,
@@ -1500,7 +1464,6 @@ extern "C" int fsdkr_cios_comb_ladder_threads(int threads, const void* base, con
   if (groups == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (threads) {
-    case 128: return launch_comb_ladder<128>(base, n, n_inv, r2, groups, K, windows, powers, s);
     case 256: return launch_comb_ladder<256>(base, n, n_inv, r2, groups, K, windows, powers, s);
     case 512: return launch_comb_ladder<512>(base, n, n_inv, r2, groups, K, windows, powers, s);
     default: return (int)cudaErrorInvalidValue;

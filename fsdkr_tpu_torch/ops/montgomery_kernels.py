@@ -11,8 +11,8 @@ C++ for sm_90a; its header comment gives the design):
     `fsdkr_tpu/ops/montgomery.py:102`; it also serves the inverse tree's
     levels and its exit, :792-917).
 `modmul` — a*b mod n per row, the two products of `_modmul_kernel`
-    (:606) in one launch; from the rule's rows (`rows_rule`) on the
-    sub-warp product, as `mont_mul`.
+    (:606) in one launch, on the sub-warp product at every size (from
+    the rule's rows, `rows_rule`, at `mont_mul`'s lanes a row).
 `modexp_segments` — base^exp mod n per row, the whole 4-bit fixed-window
     loop of `_modexp_kernel` (:137), over several segments (each with its
     own K, rows, exponent width and tensors) in one launch; `modexp` is
@@ -214,15 +214,14 @@ def ladder_rule(k: int) -> int:
 
 def modmul(a, b, n, n_inv, r2) -> torch.Tensor:
     """a*b mod n per row (a, b < n): MontMul(MontMul(a, R^2 mod n), b). On
-    the card one warp a row, or from the rule's rows on the sub-warp
-    kernel."""
+    the card on the sub-warp kernel: 32 lanes a row, or from the rule's
+    rows at `mont_mul`'s lanes."""
     return _modmul(None, a, b, n, n_inv, r2)
 
 
 def modmul_at_lanes(lanes: int, a, b, n, n_inv, r2) -> torch.Tensor:
-    """`modmul` on a layout named here, not by the launch rule (lanes as
-    `mont_mul_at_lanes` takes them). For the sweep's mont_mul cells; the
-    engine calls `modmul`."""
+    """`modmul` at 8, 16 or 32 lanes a row, named here, not by the launch
+    rule. For the sweep's mont_mul cells; the engine calls `modmul`."""
     return _modmul(lanes, a, b, n, n_inv, r2)
 
 
@@ -351,7 +350,7 @@ def comb_ladder(base, n, n_inv, r2, w_cnt: int) -> torch.Tensor:
 
 
 def comb_ladder_at_threads(threads: int, base, n, n_inv, r2, w_cnt: int) -> torch.Tensor:
-    """`comb_ladder` at 128, 256 or 512 threads a block, named here, not
+    """`comb_ladder` at 256 or 512 threads a block, named here, not
     by the launch rule: for the sweep's ladder cells; the engine calls
     `comb_ladder`."""
     return _ladder(threads, base, n, n_inv, r2, w_cnt)

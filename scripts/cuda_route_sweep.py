@@ -32,8 +32,8 @@ cleared before every call: in a refresh every party brings new
 statements, so the contexts are cold in each round. Wall time on the
 host clock (median of --reps calls, each ending in its host copy; one
 untimed call of each way first, at the smallest cell).
-_SHARED_MIN_ROWS and _SHARED_MIN_GROUPS are read off this table; the
-script prints what the cells imply for both.
+_SHARED_MIN_ROWS is read off this table; the script prints, for each
+floor on the rows a group, the group count from which the comb leads.
 
 `lanes` cells: `cios_comb` at the main path's shape (K=128, 16 groups x
 256 rows, 2048-bit exponents) at 8, 16 and 32 lanes a row
@@ -44,14 +44,17 @@ first launch, its check, warms it) and ns per row-step. The launch rule of csrc/
 off this table.
 
 `mont_mul` cells: `cios_mont_mul` and `cios_modmul` at 256, 1024,
-4096, 8192 and 57344 rows, K=128 and 256, one warp a row against the
-sub-warp kernel at 8, 16 and 32 lanes a row (`mont_mul_at_lanes`,
-`modmul_at_lanes`), results equal: device time per launch as above.
-kRowsMinRows (R*, the rows from which the launch rule takes the sub-warp
-kernel) is the crossover; the script prints each kernel's.
+4096, 8192 and 57344 rows (or those of --mont-mul-rows), K=128 and 256,
+on the sub-warp kernel at 8, 16 and 32 lanes a row (`mont_mul_at_lanes`,
+`modmul_at_lanes`), `cios_mont_mul` also one warp a row, results equal:
+device time per launch as above. kRowsMinRows (R*, the rows from which
+the launch rule takes the rule's lanes a row; below it `cios_mont_mul`
+runs one warp a row and `cios_modmul` 32 lanes) is the crossover; the
+script prints each kernel's.
 
-`ladder` cells: `cios_comb_ladder` at K=128 and 256, 16 groups, 2048-bit
-exponents, at 128, 256 and 512 threads a block
+`ladder` cells: `cios_comb_ladder` at K=128 and 256 (or those of
+--ladder-widths), 16 groups, 2048-bit exponents, at 256 and 512 threads
+a block
 (`comb_ladder_at_threads`), results equal to each other and to the
 launch rule's: device time per launch as above, and us per product of
 the chain (1 + 4(W - 1) products). The ladder's launch rule
@@ -76,7 +79,7 @@ EXP_BITS = (256, 2048)
 COMB_GROUPS = (1, 2, 4, 8, 16, 64, 256)
 COMB_ROWS = (4, 8, 16, 32, 64, 256)
 SYMBOLS = {("powm", "rns"): "rns_modexp_kernel", ("powm", "cios"): "cios_modexp_kernel",
-           ("modmul", "rns"): "rns_mont_mul_kernel", ("modmul", "cios"): "cios_modmul_kernel"}
+           ("modmul", "rns"): "rns_mont_mul_kernel", ("modmul", "cios"): "cios_modmul_rows_kernel"}
 
 
 def device_times(fn, reps, symbol):
@@ -128,11 +131,11 @@ def comb_cells(dev, rng, reps, group_counts=COMB_GROUPS):
             sys.exit(f"cuda_route_sweep: the {way} way launched {sorted(launched)}")
         return got
 
-    saved = powm._SHARED_MIN_ROWS, powm._SHARED_MIN_GROUPS
+    saved = powm._SHARED_MIN_ROWS
     table = []
     try:
         # every group on the comb
-        powm._SHARED_MIN_ROWS, powm._SHARED_MIN_GROUPS = 1, 1
+        powm._SHARED_MIN_ROWS = 1
         n = rng.getrandbits(2048) | 1 | (1 << 2047)
         for way in ways:  # builds, first launches
             run(way, [5] * 4, [rng.getrandbits(256) for _ in range(4)], [n] * 4, dev)
@@ -166,7 +169,7 @@ def comb_cells(dev, rng, reps, group_counts=COMB_GROUPS):
                         print(json.dumps(row), flush=True)
                         torch.cuda.empty_cache()
     finally:
-        powm._SHARED_MIN_ROWS, powm._SHARED_MIN_GROUPS = saved
+        powm._SHARED_MIN_ROWS = saved
     return table
 
 
@@ -264,15 +267,19 @@ def lanes_cells(dev, rng, reps, k=128, groups=16, per_group=256, exp_bits=2048):
     return table_rows
 
 
-MONT_MUL_KERNELS = {  # wrapper name -> (profiler symbol one warp a row, sub-warp)
-    "mont_mul": ("cios_mont_mul_kernel", "cios_mont_mul_rows_kernel"),
-    "modmul": ("cios_modmul_kernel", "cios_modmul_rows_kernel"),
+# wrapper name -> (its layout below R*: 0 for one warp a row, else lanes
+# a row; profiler symbol one warp a row, sub-warp)
+MONT_MUL_KERNELS = {
+    "mont_mul": (0, "cios_mont_mul_kernel", "cios_mont_mul_rows_kernel"),
+    "modmul": (32, None, "cios_modmul_rows_kernel"),
 }
 
 
-def mont_mul_cells(dev, rng, reps, widths=(128, 256), row_counts=(256, 1024, 4096, 8192, 57344)):
-    """`cios_mont_mul` and `cios_modmul` one warp a row against the
-    sub-warp kernel."""
+MONT_MUL_ROWS = (256, 1024, 4096, 8192, 57344)
+
+
+def mont_mul_cells(dev, rng, reps, widths=(128, 256), row_counts=MONT_MUL_ROWS):
+    """`cios_mont_mul` and `cios_modmul` at each layout."""
     import numpy as np
     import torch
 
@@ -297,13 +304,16 @@ def mont_mul_cells(dev, rng, reps, widths=(128, 256), row_counts=(256, 1024, 409
                            lambda lanes: mk.modmul_at_lanes(lanes, x, y, n, ni, r2)),
             }
             for kernel, (by_rule, at_lanes) in calls.items():
-                want = at_lanes(0)
+                below, one_warp, sub_warp = MONT_MUL_KERNELS[kernel]
+                want = at_lanes(32)
                 if not torch.equal(by_rule(), want):
                     sys.exit(f"cuda_route_sweep: {kernel} by the rule differs at K={k} "
                              f"rows={rows}")
                 row = {"cell": "mont_mul", "kernel": kernel, "k": k, "rows": rows,
-                       "rule_lanes": rule_lanes, "rule_min_rows": min_rows}
-                for lanes in (0,) + tuple(L for L in LANES if built(k, L)):
+                       "rule_lanes": rule_lanes, "rule_min_rows": min_rows,
+                       "below_min_rows": below}
+                layouts = (0,) if one_warp else ()
+                for lanes in layouts + tuple(L for L in LANES if built(k, L)):
                     def call():
                         return at_lanes(lanes)
 
@@ -311,28 +321,31 @@ def mont_mul_cells(dev, rng, reps, widths=(128, 256), row_counts=(256, 1024, 409
                         sys.exit(f"cuda_route_sweep: {kernel} at {lanes} lanes differs at "
                                  f"K={k} rows={rows}")
                     row[f"lanes_{lanes}_ms"] = kernel_ms(call, reps,
-                                                         MONT_MUL_KERNELS[kernel][lanes > 0])
+                                                         sub_warp if lanes else one_warp)
                 table_rows.append(row)
                 print(json.dumps(row), flush=True)
     for kernel in MONT_MUL_KERNELS:
         for k in widths:
             cells = [r for r in table_rows if r["k"] == k and r["kernel"] == kernel]
-            lanes = cells[0]["rule_lanes"]
-            ahead = [r["rows"] for r in cells if r[f"lanes_{lanes}_ms"] < r["lanes_0_ms"]]
+            lanes, below = cells[0]["rule_lanes"], cells[0]["below_min_rows"]
+            under = f"{below} lanes a row" if below else "one warp a row"
+            ahead = [r["rows"] for r in cells
+                     if r[f"lanes_{lanes}_ms"] <= r[f"lanes_{below}_ms"]]
             star = next((r["rows"] for r in cells
                          if all(c["rows"] in ahead for c in cells if c["rows"] >= r["rows"])),
                         None)
             print(f"{kernel}: K={k}, the sub-warp kernel at {lanes} lanes a row "
-                  + (f"ahead of one warp a row from {star} rows up" if star else
-                     "behind one warp a row at the largest launch")
+                  + (f"at or ahead of {under} from {star} rows up" if star else
+                     f"behind {under} at the largest launch")
                   + f"; the launch rule's R* is {cells[0]['rule_min_rows']}", flush=True)
     return table_rows
 
 
-LADDER_THREADS = (128, 256, 512)
+LADDER_THREADS = (256, 512)
+LADDER_WIDTHS = (128, 256)
 
 
-def ladder_cells(dev, rng, reps, widths=(128, 256), groups=16, exp_bits=2048):
+def ladder_cells(dev, rng, reps, widths=LADDER_WIDTHS, groups=16, exp_bits=2048):
     """The ladder at each threads a block, at the main path's group count
     and exponent width."""
     import numpy as np
@@ -383,6 +396,11 @@ def main():
     ap.add_argument("--reps", type=int, default=3,
                     help="timed calls per comb cell and way, profiler windows per lanes "
                          "mont_mul and ladder cell (default 3)")
+    ap.add_argument("--mont-mul-rows", default=",".join(map(str, MONT_MUL_ROWS)),
+                    help="comma-separated row counts of the mont_mul cells "
+                         "(default: 256, 1024, 4096, 8192, 57344)")
+    ap.add_argument("--ladder-widths", default=",".join(map(str, LADDER_WIDTHS)),
+                    help="comma-separated limb counts K of the ladder cells (default: 128, 256)")
     ap.add_argument("--groups", default=",".join(map(str, COMB_GROUPS)),
                     help="comma-separated group counts of the comb cells "
                          "(default: 1, 2, 4, 8, 16, 64, 256)")
@@ -442,8 +460,11 @@ def main():
         for line in comb_verdict(comb):
             print(line, flush=True)
     lanes = lanes_cells(dev, rng, args.reps) if "lanes" in cells else []
-    mont = mont_mul_cells(dev, rng, args.reps) if "mont_mul" in cells else []
-    ladder = ladder_cells(dev, rng, args.reps) if "ladder" in cells else []
+    mont_rows = [int(r) for r in args.mont_mul_rows.split(",") if r]
+    mont = mont_mul_cells(dev, rng, args.reps, row_counts=mont_rows) if "mont_mul" in cells else []
+    ladder_widths = [int(k) for k in args.ladder_widths.split(",") if k]
+    ladder = (ladder_cells(dev, rng, args.reps, widths=ladder_widths) if "ladder" in cells
+              else [])
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as fh:

@@ -49,11 +49,10 @@ def _one_torch_thread():
 @pytest.fixture(autouse=True)
 def _own_cache(monkeypatch):
     """A fresh precompute cache per test, and the JAX package's grouping
-    rule (groups of 4 rows, any count), so that a small group takes the
-    comb as it does in the reference."""
+    rule (groups of 4 rows), so that a small group takes the comb as it
+    does in the reference."""
     monkeypatch.setattr(lru, "_GLOBAL", lru.BudgetLRU(1 << 24))
     monkeypatch.setattr(powm, "_SHARED_MIN_ROWS", jpowm._SHARED_MIN_ROWS)
-    monkeypatch.setattr(powm, "_SHARED_MIN_GROUPS", 1)
 
 
 def _modulus(rng, bits):

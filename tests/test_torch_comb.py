@@ -54,11 +54,10 @@ def _one_torch_thread():
 @pytest.fixture(autouse=True)
 def _own_cache(monkeypatch):
     """A fresh precompute cache per test (the powers and contexts), and
-    the JAX package's grouping rule (groups of 4 rows, any count), so
-    that these small columns take the comb."""
+    the JAX package's grouping rule (groups of 4 rows), so that these
+    small columns take the comb."""
     monkeypatch.setattr(lru, "_GLOBAL", lru.BudgetLRU(1 << 24))
     monkeypatch.setattr(powm, "_SHARED_MIN_ROWS", jpowm._SHARED_MIN_ROWS)
-    monkeypatch.setattr(powm, "_SHARED_MIN_GROUPS", 1)
 
 
 def _modulus(rng):
@@ -232,25 +231,24 @@ def test_forced_rns_route_launches_no_comb(monkeypatch, forced):
                      {"comb": 1, "comb_ladder": 1})
 
 
-@pytest.mark.parametrize("groups, comb_launches", [(2, 0), (3, 1)])
-def test_comb_takes_a_launch_from_its_group_count_up(monkeypatch, groups, comb_launches):
-    """Groups of at least _SHARED_MIN_ROWS rows take the comb only where
-    a launch has at least _SHARED_MIN_GROUPS of them; else every row
+@pytest.mark.parametrize("per_group, comb_launches", [(2, 0), (3, 1)])
+def test_comb_takes_a_launch_from_its_group_count_up(monkeypatch, per_group, comb_launches):
+    """A launch's one group takes the comb from _SHARED_MIN_ROWS rows up
+    (there is no floor on the group count); a row short of it, every row
     takes the generic engine."""
-    monkeypatch.setattr(powm, "_SHARED_MIN_GROUPS", 3)
+    monkeypatch.setattr(powm, "_SHARED_MIN_ROWS", 3)
     calls = []
     raw = montgomery_kernels.comb
     monkeypatch.setattr(montgomery_kernels, "comb",
                         lambda *a, **kw: calls.append(1) or raw(*a, **kw))
     rng = random.Random(RNG_SEED + 4)
     bases, exps, moduli = [], [], []
-    for _ in range(groups):
-        m = _modulus(rng)
-        b = rng.randrange(2, m)
-        for _ in range(5):
-            bases.append(b)
-            exps.append(rng.getrandbits(64))
-            moduli.append(m)
+    m = _modulus(rng)
+    b = rng.randrange(2, m)
+    for _ in range(per_group):
+        bases.append(b)
+        exps.append(rng.getrandbits(64))
+        moduli.append(m)
     bases.append(7)  # a loner
     exps.append(rng.getrandbits(64))
     moduli.append(moduli[0])

@@ -44,7 +44,7 @@ from fsdkr_tpu_torch.ops.montgomery import _comb_ladder, mont_mul_limbs
 M32 = (1 << 32) - 1
 PAD = 256  # the kernel's kPad
 CHUNK = 8  # the kernel's kChunk
-THREADS = (128, 256, 512)
+THREADS = (256, 512)  # the kernel's layouts (launch_comb_ladder)
 
 
 def ladder_parts(w, threads):
@@ -226,7 +226,7 @@ def _plain(x, y, n, k):
 
 
 @pytest.mark.parametrize("threads", THREADS)
-@pytest.mark.parametrize("k", [128, 256, 512, 1024])
+@pytest.mark.parametrize("k", [128, 130, 256, 512, 1022, 1024])
 def test_block_column_sums_stay_below_their_bound(k, threads):
     """Worst case (n = R - 1, x = y = n - 1): a column value gathers at
     most W low halves and W high halves below 2^32 (and, in U, a word of
@@ -243,11 +243,11 @@ def test_block_column_sums_stay_below_their_bound(k, threads):
 
 
 @pytest.mark.parametrize("threads", THREADS)
-@pytest.mark.parametrize("k", [16, 128, 130, 256, 512, 1024])
+@pytest.mark.parametrize("k", [2, 16, 64, 128, 130, 256, 512, 1022, 1024])
 def test_block_model_matches_plain_product(k, threads):
-    """K=16 leaves most threads idle, 130 (W=65) and odd W split the
-    column pairs into unequal parts, 1024 gives each thread several
-    positions; random, worst-case (x = y = n - 1, and an all-ones
+    """K=2 (one word) and 16 leave most threads idle, 130 (W=65), 1022
+    (W=511) and odd W split the column pairs into unequal parts, 1024
+    gives each thread several positions; random, worst-case (x = y = n - 1, and an all-ones
     modulus), a modulus of 3 and a zero operand, each as a general
     product and a square."""
     rng = random.Random(10 * k + threads)
@@ -263,7 +263,7 @@ def test_block_model_matches_plain_product(k, threads):
 
 
 def test_block_lookahead_matches_ripple():
-    """The two-level lookahead against a ripple carry over 4, 8 and 16
+    """The two-level lookahead against a ripple carry over 8 and 16
     warps: random generate / propagate bits, all propagating, and all
     propagating but a generate at the bottom."""
     rng = random.Random(12)
@@ -305,7 +305,7 @@ def test_normalize_matches_integer_sum(threads):
             assert carry_out == (total >> (32 * count)) - (v[-1] >> 32)
 
 
-@pytest.mark.parametrize("threads", [256])
+@pytest.mark.parametrize("threads", THREADS)
 @pytest.mark.parametrize("k", [16, 128])
 def test_ladder_on_the_block_model_matches_comb_ladder(k, threads):
     """A 16-window ladder (the entry by r2, then per window the power and

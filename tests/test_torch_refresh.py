@@ -160,7 +160,6 @@ def test_port_collect_through_each_route_matches_reference(
         monkeypatch.setattr(rns, "rns_modmul", refuse)
     if route == "comb":
         monkeypatch.setattr(powm, "_SHARED_MIN_ROWS", 4)
-        monkeypatch.setattr(powm, "_SHARED_MIN_GROUPS", 1)
         raw = montgomery_kernels.comb
         monkeypatch.setattr(montgomery_kernels, "comb",
                             lambda *a, **kw: combs.append(1) or raw(*a, **kw))
