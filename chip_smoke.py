@@ -37,6 +37,13 @@ Phases:
            128, 256 and 512; random and worst-case groups (every limb of
            the table and the base at n-1, every exponent bit set).
            `cios_modmul` as `cios_mont_mul`, on both sides of R*.
+           Device EC: `ec_scalar_mul` at 1, 13, 256 and 1024 rows, 128-
+           and 256-bit scalars (the edge scalars 0, 1, 7, N - 1 and
+           2^128 - 1, G and the identity among the points, a quarter of
+           the rows worst-case: every digit of N - 1 or 2^128 - 1), at
+           each of its layouts; `ec_tree_sum` at (groups, rows) (1, 1),
+           (1, 2), (3, 8), (16, 32) and (1, 1024) on points of random Z,
+           with cancelling pairs, doublings and identity pads.
   routes   device_powm / device_modmul (every launch through the CIOS
            engine, as routed) and the RNS route itself against CPython pow
            at 2048- and 4096-bit moduli; both entry points at 8192-bit
@@ -57,8 +64,13 @@ Phases:
            `cios_comb_ladder` once each (the ring-Pedersen column); after
            the first collect, the precompute
            cache must see no miss (every modulus's constants computed
-           once). Then the RNS route's path, the earlier slices' main
-           path cut to one collect: inside forced_rns_route(), both RNS
+           once). Device EC: `ec_scalar_mul` launches 3 times in
+           distribute (the Feldman commitments, the commit points, the
+           PDL prover's u1) and 3 times a collect, `ec_tree_sum` 0 and
+           3 (the Feldman, PDL u1 and pk_vec MSMs); an honest collect
+           calls the per-row host u1 check no time. Then the RNS
+           route's path, the earlier slices' main path cut to one
+           collect (it takes device EC too): inside forced_rns_route(), both RNS
            kernels' counters zeroed just before it and read just after,
            distribute_batch by the same 16 senders (from their keys as
            they stood before the routed distribute) and one collect of
@@ -80,7 +92,9 @@ Phases:
            also given in ns per CIOS step of the launch's longest chain;
            every `cios_comb` time also in ns per row-step (a CIOS step of
            one row); every ladder time also in us per product of its
-           chain, beside the chain at one SM's integer multiply rate.
+           chain, beside the chain at one SM's integer multiply rate;
+           every EC time also in us per complete addition of its chain,
+           and `ec_scalar_mul` at its costliest shape at each layout.
 
 Prints the kernels line `{"kernels": [...]}` and, last, `{"ok": true,
 "device": {...}}`. Any failure exits non-zero with no result line.
@@ -318,6 +332,86 @@ def comb_calls(name, args, exp_bits):
 
 COMB = ("cios_comb", "cios_comb_ladder")
 
+EC = ("ec_scalar_mul", "ec_tree_sum")
+_EC_POOL = []  # host points the EC inputs take in turn (built once)
+
+
+def ec_pool(rng):
+    """62 random points, G and the identity."""
+    from fsdkr_tpu_torch.core.secp256k1 import GENERATOR, N, Point, Scalar
+
+    if not _EC_POOL:
+        _EC_POOL.extend([GENERATOR * Scalar(1 + rng.randrange(N - 1)) for _ in range(62)]
+                        + [GENERATOR, Point.identity()])
+    return _EC_POOL
+
+
+def ec_inputs(rng, dev, rows, scalar_bits, worst):
+    """(points, scalars) int32 tensors for `ec_scalar_mul`: points taken in
+    turn from `ec_pool` (row 1 G, row 2 the identity), scalars random
+    below the group order (below 2^128 at 128 bits), rows 3-7 the edge
+    scalars 0, 1, 7, the largest and 2^128 - 1; the last `worst` rows
+    worst-case (the largest scalar: N - 1, or 2^128 - 1, every digit but
+    the top ones 15)."""
+    import numpy as np
+    import torch
+
+    from fsdkr_tpu_torch.core.secp256k1 import N
+    from fsdkr_tpu_torch.ops import ec_batch
+
+    pool = ec_pool(rng)
+    pts = [pool[rng.randrange(len(pool) - 2)] for _ in range(rows)]
+    pts[1:3] = pool[-2:][: max(rows - 1, 0)]
+    top = N if scalar_bits == 256 else 1 << 128
+    scs = [rng.randrange(top) for _ in range(rows)]
+    scs[3:8] = [0, 1, 7, top - 1, (1 << 128) - 1][: max(rows - 3, 0)]
+    for i in range(rows - _worst_rows(rows, worst), rows):
+        scs[i] = top - 1
+    limbs = ec_batch._scalars_to_limbs(scs, scalar_bits)
+    return (ec_batch.points_to_device(pts, dev),
+            torch.as_tensor(limbs.astype(np.int32)).to(dev).contiguous())
+
+
+def tree_inputs(rng, dev, groups, m):
+    """(G, M, 3, 16) int32 projective limbs for `ec_tree_sum`: `ec_pool`
+    points, each scaled by a random Z (the same projective point), with
+    in every group a cancelling pair (P and -P, rows 0 and M/2), a
+    doubling (rows 1 and 1 + M/2) and the last eighth identity pads."""
+    import torch
+
+    from fsdkr_tpu_torch.core.secp256k1 import P, Point
+    from fsdkr_tpu_torch.ops import ec_batch
+
+    pool = ec_pool(rng)
+    pts = []
+    for _ in range(groups):
+        grp = [pool[rng.randrange(len(pool))] for _ in range(m)]
+        h = m // 2
+        if m >= 2:
+            grp[h] = -grp[0]
+        if m >= 4:
+            grp[1 + h] = grp[1]
+        if m >= 8:
+            grp[m - m // 8:] = [Point.identity()] * (m // 8)
+        pts += grp
+    proj = ec_batch.points_to_device(pts, dev).to(torch.int64)
+    lam = torch.as_tensor(ec_batch.ints_to_limbs(
+        [1 + rng.randrange(P - 1) for _ in pts], 16).astype("int64")).to(dev)
+    scaled = torch.stack([ec_batch._fmul(proj[:, c], lam) for c in range(3)], dim=1)
+    return scaled.to(torch.int32).view(groups, m, 3, 16).contiguous()
+
+
+def ec_calls(name, args, scalar_bits=None):
+    """(kernel call, plain call) of one EC kernel on `args`."""
+    from fsdkr_tpu_torch.ops import ec_batch, ec_kernels
+
+    if name == "ec_scalar_mul":
+        points, scalars = args
+        return (lambda: ec_kernels.scalar_mul(points, scalars, scalar_bits),
+                lambda: ec_batch._scalar_mul_kernel(points, scalars, scalar_bits=scalar_bits))
+    (points,) = args
+    return (lambda: ec_kernels.tree_sum(points), lambda: ec_batch._tree_sum_kernel(points))
+
 
 # ---------------------------------------------------------------------------
 # phases
@@ -327,13 +421,13 @@ def phase_env(dev):
     import torch
     from concurrent.futures import ThreadPoolExecutor
 
-    from fsdkr_tpu_torch.ops import montgomery_kernels, rns_kernels
+    from fsdkr_tpu_torch.ops import ec_kernels, montgomery_kernels, rns_kernels
 
     log(smi_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    mods = (rns_kernels, montgomery_kernels)
+    mods = (rns_kernels, montgomery_kernels, ec_kernels)
     # one nvcc per source, all started together
     with ThreadPoolExecutor(len(mods)) as pool:
         for fut in [pool.submit(m.load_library) for m in mods]:
@@ -459,6 +553,37 @@ def phase_kernels(dev, rng):
         log(f"kernels == plain, bit-identical: cios_comb_ladder K={k} on 1, 3 and 16 groups, "
             f"exp_bits={exp_bits} (the rule's {mk.ladder_rule(k)} threads a block, and "
             f"{', '.join(map(str, LADDER_THREADS))}), random and worst-case groups")
+    ec_kernels_check(dev, rng)
+
+
+def ec_kernels_check(dev, rng):
+    """Both EC kernels against their plain versions, bit for bit:
+    `ec_scalar_mul` at 1, 13, 256 and 1024 rows (the main path's launches
+    have 256-1024), 128- and 256-bit scalars, at the launch's layout and
+    each named one; `ec_tree_sum` from one row to the PDL u1 group's
+    1024."""
+    from fsdkr_tpu_torch.ops import ec_kernels
+
+    for bits in (128, 256):
+        for rows in (1, 13, 256, 1024):
+            args = ec_inputs(rng, dev, rows, bits, rows // 4)
+            kernel, plain = ec_calls("ec_scalar_mul", args, bits)
+            want = plain()
+            calls = [kernel] + [
+                (lambda lay: lambda: ec_kernels.scalar_mul_at_layout(lay, *args, bits))(lay)
+                for lay in ec_kernels.SCALAR_MUL_LAYOUTS]
+            for call in calls:
+                if _max_err(call(), want):
+                    fail(f"ec_scalar_mul rows={rows} scalar_bits={bits}: differs from plain")
+            log(f"kernels == plain, bit-identical: ec_scalar_mul rows={rows} scalar_bits={bits} "
+                f"(layouts {', '.join(ec_kernels.SCALAR_MUL_LAYOUTS)}), edge scalars, G, the "
+                f"identity, {rows // 4} worst-case rows")
+    for groups, m in ((1, 1), (1, 2), (3, 8), (16, 32), (1, 1024)):
+        kernel, plain = ec_calls("ec_tree_sum", (tree_inputs(rng, dev, groups, m),))
+        if _max_err(kernel(), plain()):
+            fail(f"ec_tree_sum groups={groups} rows={m}: differs from plain")
+        log(f"kernels == plain, bit-identical: ec_tree_sum groups={groups} rows={m}, random Z, "
+            f"a cancelling pair, a doubling and identity pads a group")
 
 
 def phase_routes(dev, rng):
@@ -563,8 +688,11 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     from fsdkr_tpu_torch.core.secp256k1 import GENERATOR
     from fsdkr_tpu_torch.errors import PDLwSlackProofError
     from fsdkr_tpu_torch.backend.powm import powm_cache_stats
-    from fsdkr_tpu_torch.ops import montgomery_kernels, rns_kernels
+    from fsdkr_tpu_torch.ops import ec_kernels, montgomery_kernels, rns_kernels
     from fsdkr_tpu_torch.protocol import RefreshMessage, simulate_keygen
+
+    def launch_counts():
+        return {**montgomery_kernels.launch_counts(), **ec_kernels.launch_counts()}
 
     config = ProtocolConfig(
         paillier_bits=bits, m_security=m_security, correct_key_rounds=rounds,
@@ -578,7 +706,7 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
 
     # the keys as they stand before distribute, for the RNS path
     pre = copy.deepcopy(keys)
-    for mod in (rns_kernels, montgomery_kernels):
+    for mod in (rns_kernels, montgomery_kernels, ec_kernels):
         mod.reset_launch_counts()
     t0 = time.perf_counter()
     out = RefreshMessage.distribute_batch([(k.i, k) for k in keys], n, config)
@@ -587,7 +715,12 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     msgs = [m for m, _ in out]
     spare = (copy.deepcopy(keys[0]), copy.deepcopy(out[0][1]))
     spare2 = (copy.deepcopy(keys[1]), copy.deepcopy(out[1][1]))
-    after_distribute = montgomery_kernels.launch_counts()
+    after_distribute = launch_counts()
+    # the Feldman commitments, the commit points and the PDL prover's u1:
+    # one scalar-mul launch each, no MSM
+    ec_distribute = {k: after_distribute[k] for k in EC}
+    if ec_distribute != {"ec_scalar_mul": 3, "ec_tree_sum": 0}:
+        fail(f"distribute launched the EC kernels {ec_distribute}, expected 3 and 0")
 
     per_collect, cache = [], []
     t0 = time.perf_counter()
@@ -599,7 +732,7 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
         s1 = powm_cache_stats()
         cache.append((s1["hits"] - s0["hits"], s1["misses"] - s0["misses"]))
     times["collect_total"] = time.perf_counter() - t0
-    counts = montgomery_kernels.launch_counts()
+    counts = launch_counts()
     # the shapes of this window's launches, before the checks below add
     # their own
     shapes = {
@@ -608,6 +741,8 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
         "cios_modexp": dict(montgomery_kernels.modexp_segments.shapes),
         "cios_comb": dict(montgomery_kernels.comb.shapes),
         "cios_comb_ladder": dict(montgomery_kernels.comb_ladder.shapes),
+        "ec_scalar_mul": dict(ec_kernels.scalar_mul.shapes),
+        "ec_tree_sum": dict(ec_kernels.tree_sum.shapes),
     }
     log(f"main: {n} collects: {times['collect_total']:.3f} s "
         f"(each {min(per_collect):.3f}..{max(per_collect):.3f} s)")
@@ -633,6 +768,11 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     for name in ("cios_comb", "cios_comb_ladder"):
         if per_collect_launches[name] != 1:
             fail(f"{name} launched {per_collect_launches[name]} times a collect, expected 1")
+    # the Feldman, PDL u1 and pk_vec MSMs: one scalar-mul and one tree-sum
+    # launch each
+    for name in EC:
+        if per_collect_launches[name] != 3:
+            fail(f"{name} launched {per_collect_launches[name]} times a collect, expected 3")
     log(f"main: precompute cache (hits, misses) per collect: {cache}; "
         f"{powm_cache_stats()}")
     if any(miss for _, miss in cache[1:]):
@@ -671,7 +811,7 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     # still pre-collect: profile one honest collect on it
     if dev.type == "cuda":
         profile_collect(msgs, spare, config, sorted(per_collect)[n // 2])
-    span_collect(msgs, spare2, config, "routed")
+    honest_u1_check(span_collect(msgs, spare2, config, "routed"), "routed")
 
     # the RNS route's path (the earlier slices' main path, where every
     # column took the RNS kernels), cut to one collect
@@ -702,7 +842,7 @@ def rns_path(pre, config, n, party=2):
         msgs = [m for m, _ in out]
         routed = (copy.deepcopy(pre[party]), copy.deepcopy(out[party][1]))
         s0 = powm_cache_stats()
-        span_collect(msgs, (pre[party], out[party][1]), config, "rns")
+        totals = span_collect(msgs, (pre[party], out[party][1]), config, "rns")
         s1 = powm_cache_stats()
         counts = rns_kernels.launch_counts()
         shapes = {"rns_mont_mul": dict(rns_kernels.mont_mul.shapes),
@@ -716,6 +856,7 @@ def rns_path(pre, config, n, party=2):
     if counts != {"rns_mont_mul": 14, "rns_modexp": 15}:
         fail(f"the RNS path launched {counts}, expected kernel 1 14 times and "
              f"kernel 2 15 times")
+    honest_u1_check(totals, "rns")
     RefreshMessage.collect(msgs, routed[0], routed[1], config)
     if to_fields(pre[party]) != to_fields(routed[0]):
         fail("the RNS route's collect adopted another key than the CIOS engine's")
@@ -729,12 +870,20 @@ _SPANS = (
     ("fsdkr_tpu_torch.protocol.refresh", "check_structure", None),
     ("fsdkr_tpu_torch.backend.cuda_verifier", "validate_feldman", "CudaBatchVerifier"),
     ("fsdkr_tpu_torch.backend.cuda_verifier", "verify_pairs", "CudaBatchVerifier"),
+    ("fsdkr_tpu_torch.backend.cuda_verifier", "_pdl_u1_batch", "CudaBatchVerifier"),
     ("fsdkr_tpu_torch.backend.cuda_verifier", "_pdl_u1_host", "CudaBatchVerifier"),
     ("fsdkr_tpu_torch.backend.cuda_verifier", "batch_inv", None),
     ("fsdkr_tpu_torch.backend.cuda_verifier", "verify_ring_pedersen", "CudaBatchVerifier"),
     ("fsdkr_tpu_torch.protocol.refresh", "share_recovery_check", None),
     ("fsdkr_tpu_torch.backend.cuda_verifier", "verify_correct_key", "CudaBatchVerifier"),
     ("fsdkr_tpu_torch.protocol.refresh", "adopt_session", None),
+    ("fsdkr_tpu_torch.protocol.refresh", "combine_committed_points", None),
+    # device EC (its callers look the entry points up in ops.ec_batch);
+    # the conversions host <-> device, the second of which waits for the
+    # kernels
+    ("fsdkr_tpu_torch.ops.ec_batch", "batch_msm", None),
+    ("fsdkr_tpu_torch.ops.ec_batch", "points_to_device", None),
+    ("fsdkr_tpu_torch.ops.ec_batch", "device_to_points", None),
     ("fsdkr_tpu_torch.backend.powm", "device_powm_batches", None),
     ("fsdkr_tpu_torch.backend.cuda_verifier", "device_modmul", None),
     # the grouped columns' two routes: the comb and the generic engine
@@ -762,7 +911,8 @@ _CIOS_SPANS = ("ints_to_limbs", "to_device", "_download_all", "_comb_table")
 
 def span_collect(msgs, spare, config, label):
     """Wall time of each layer inside one collect (inclusive and self
-    seconds, by parent span). device_powm / device_modmul end in a host
+    seconds, by parent span); returns the spans' totals, {(parent,
+    name): [calls, inclusive s, self s]}. device_powm / device_modmul end in a host
     copy of their result, so their spans include the device time. Inside
     them, every step's span ends in a synchronize, so the device work
     falls in the step that queued it; what the columns keep as self time
@@ -776,7 +926,8 @@ def span_collect(msgs, spare, config, label):
 
     import torch
 
-    from fsdkr_tpu_torch.ops import montgomery, montgomery_kernels, rns, rns_kernels
+    from fsdkr_tpu_torch.ops import (ec_batch, ec_kernels, montgomery, montgomery_kernels, rns,
+                                     rns_kernels)
     from fsdkr_tpu_torch.protocol import RefreshMessage
 
     stack, totals, patched = [], {}, []
@@ -826,6 +977,11 @@ def span_collect(msgs, spare, config, label):
                                   sync=True))
     patched.append((montgomery, "montgomery_kernels", montgomery_kernels))
     montgomery.montgomery_kernels = proxy
+    proxy = types.SimpleNamespace(**vars(ec_kernels))
+    for attr in ("scalar_mul", "tree_sum"):
+        setattr(proxy, attr, wrap(f"ec_{attr}", getattr(ec_kernels, attr), sync=True))
+    patched.append((ec_batch, "ec_kernels", ec_kernels))
+    ec_batch.ec_kernels = proxy
     try:
         t0 = time.perf_counter()
         RefreshMessage.collect(msgs, spare[0], spare[1], config)
@@ -839,6 +995,17 @@ def span_collect(msgs, spare, config, label):
     for (parent, name), (calls, incl, own) in totals.items():
         log(f"spans ({label}):   {parent:>22} > {name:<22} calls {calls:3d}  "
             f"incl {incl:8.3f} s  self {own:8.3f} s")
+    return totals
+
+
+def honest_u1_check(totals, label):
+    """An honest collect's PDL u1 column is one combined MSM on the card:
+    `_pdl_u1_batch` once, the per-row host check never."""
+    calls = {name: sum(tot[0] for (_, n), tot in totals.items() if n == name)
+             for name in ("_pdl_u1_batch", "_pdl_u1_host")}
+    if calls != {"_pdl_u1_batch": 1, "_pdl_u1_host": 0}:
+        fail(f"an honest collect ({label}) made the u1 calls {calls}")
+    log(f"spans ({label}): PDL u1 by one device MSM, no per-row host check")
 
 
 def profile_collect(msgs, spare, config, median_s):
@@ -919,6 +1086,10 @@ KERNELS = {
                   "fsdkr_tpu/ops/montgomery.py:372", 10),
     "cios_comb_ladder": ("cios_comb_ladder_kernel", "fsdkr_tpu_torch/csrc/cios_kernels.cu",
                          "fsdkr_tpu/ops/montgomery.py:323", 10),
+    "ec_scalar_mul": ("ec_scalar_mul_kernel", "fsdkr_tpu_torch/csrc/ec_kernels.cu",
+                      "fsdkr_tpu/ops/ec_batch.py:136", 10),
+    "ec_tree_sum": ("ec_tree_sum_kernel", "fsdkr_tpu_torch/csrc/ec_kernels.cu",
+                    "fsdkr_tpu/ops/ec_batch.py:175", 50),
 }
 _SYMBOL = {name: spec[0] for name, spec in KERNELS.items()}
 
@@ -990,10 +1161,20 @@ def _shape(name, shape):
     if name == "cios_comb":
         k, g, m, exp_bits = shape
         return k, g * m, exp_bits, g
+    if name == "ec_scalar_mul":
+        rows, bits = shape
+        return 16, rows, bits, None
+    if name == "ec_tree_sum":
+        g, m = shape
+        return 16, g * m, None, g
     return ((*shape, None) if len(shape) == 2 else shape) + (None,)
 
 
 def _shape_str(name, k, rows, exp_bits, groups=None):
+    if name == "ec_scalar_mul":
+        return f"rows={rows} scalar_bits={exp_bits}"
+    if name == "ec_tree_sum":
+        return f"groups={groups} rows={rows // groups}"
     kk = "k" if name.startswith("rns") else "K"
     if name == "cios_comb":
         rows_s = f"groups={groups} rows={rows // groups}"
@@ -1005,6 +1186,10 @@ def _shape_str(name, k, rows, exp_bits, groups=None):
 def kernel_calls(name, dev, rng, k, rows, exp_bits, worst, groups=None):
     """(kernel call, plain call) on fresh inputs at one shape; `worst`
     rows (the comb's kernels: `worst` groups) worst-case."""
+    if name == "ec_scalar_mul":
+        return ec_calls(name, ec_inputs(rng, dev, rows, exp_bits, worst), exp_bits)
+    if name == "ec_tree_sum":
+        return ec_calls(name, (tree_inputs(rng, dev, groups, rows // groups),))
     if name in COMB:
         if name == "cios_comb_ladder":
             groups = rows
@@ -1039,6 +1224,15 @@ def _timed_ms(fn):
     return out, start.elapsed_time(end)
 
 
+def ec_adds(name, rows, scalar_bits, groups=None):
+    """Complete additions of one EC launch: 14 + 5 * scalar_bits / 4 a
+    scalar-mul row (the table's 14, then 4 doublings and one add a
+    window); M - 1 a tree group of M rows."""
+    if name == "ec_scalar_mul":
+        return rows * (14 + 5 * scalar_bits // 4)
+    return rows - groups
+
+
 def bound_ms(name, k, rows, exp_bits, groups=None):
     """The least time the H100 could take for one launch: (ms, "bytes" or
     "operations"). Bytes: each input read once, each output written once
@@ -1047,8 +1241,18 @@ def bound_ms(name, k, rows, exp_bits, groups=None):
     extensions' 2k(k+1) per product per row, the CIOS product's 2K^2.
     The comb: W + 1 products a row (W = exp_bits / 4 windows) and the
     16-entry table of every window and group read once; its ladder: 1 +
-    4(W - 1) products a group, the W powers written."""
-    if name.startswith("rns"):
+    4(W - 1) products a group, the W powers written. Device EC: 14 field
+    products (K = 16) a complete addition (`ec_adds`); the points and
+    scalars read once, the points written."""
+    if name in EC:
+        macs_per_product = 2 * k * k
+        products = 14 * ec_adds(name, rows, exp_bits, groups)
+        if name == "ec_scalar_mul":
+            in_out_bytes = 4 * rows * (2 * 3 * k + exp_bits // 16)
+        else:
+            in_out_bytes = 4 * 3 * k * (rows + groups)
+        const_bytes = 0
+    elif name.startswith("rns"):
         C = 2 * k + 1
         macs_per_product = 2 * k * (k + 1)
         const_bytes = 4 * (2 * k * (k + 1) + C + (k + 1) + 2 * k)
@@ -1148,8 +1352,13 @@ def _case(name, shape, dev, rng):
     half = (groups or rows) // 2 if name in COMB else rows // 2
     kernel, plain = kernel_calls(name, dev, rng, k, rows, exp_bits, half, groups)
     bound, by = bound_ms(name, k, rows, exp_bits, groups)
-    return (kernel, plain, bound, by, _shape_str(name, k, rows, exp_bits, groups),
-            {"k": k, "rows": rows, "exp_bits": exp_bits, "groups": groups})
+    if name == "ec_scalar_mul":
+        fields = {"rows": rows, "scalar_bits": exp_bits}
+    elif name == "ec_tree_sum":
+        fields = {"groups": groups, "rows": rows // groups}
+    else:
+        fields = {"k": k, "rows": rows, "exp_bits": exp_bits, "groups": groups}
+    return (kernel, plain, bound, by, _shape_str(name, k, rows, exp_bits, groups), fields)
 
 
 def comb_row_steps(shape):
@@ -1160,6 +1369,10 @@ def comb_row_steps(shape):
 
 
 def _per_step(name, shape, dms):
+    if name in EC:
+        k, rows, bits, groups = _shape(name, shape)
+        chain = ec_adds(name, 1, bits) if name == "ec_scalar_mul" else (rows // groups).bit_length() - 1
+        return f", {dms * 1e3 / max(chain, 1):.3f} us per complete addition of a row's chain ({chain})"
     if name == "cios_comb":
         return f", {dms * 1e6 / comb_row_steps(shape):.4f} ns per row-step"
     if name == "cios_comb_ladder":
@@ -1203,7 +1416,7 @@ def check_and_time_shapes(dev, rng, shapes):
                 f"{launches} launches{_per_step(name, shape, dms)} "
                 f"({time.perf_counter() - t1:.1f} s)")
             table.append({"name": name, "shape": shape, "text": shape_s, "by": by,
-                          **fields, "launches": launches, "ms": ms, "device_ms": dms,
+                          "fields": fields, "launches": launches, "ms": ms, "device_ms": dms,
                           "bound_ms": bound})
     log(f"time: every kernel == plain, bit-identical, at all {len(table)} main-path "
         f"shapes, rows (the comb's: groups) half random, half worst-case; checked and "
@@ -1242,6 +1455,23 @@ def _cost(name, shape, launches):
     return k * k * rows * (exp_bits or 1) * max(launches, 1)
 
 
+def time_scalar_mul_layouts(dev, rng, shape):
+    """`ec_scalar_mul` at `shape` (rows, scalar_bits) at each layout, by
+    device time: {layout: ms}."""
+    from fsdkr_tpu_torch.ops import ec_kernels
+
+    rows, bits = shape
+    args = ec_inputs(rng, dev, rows, bits, rows // 2)
+    reps = KERNELS["ec_scalar_mul"][3]
+    out = {}
+    for lay in ec_kernels.SCALAR_MUL_LAYOUTS:
+        out[lay] = _device_ms(lambda: ec_kernels.scalar_mul_at_layout(lay, *args, bits), reps,
+                              "ec_scalar_mul")
+        log(f"time: ec_scalar_mul rows={rows} scalar_bits={bits} at layout {lay}: device "
+            f"{out[lay]:.4f} ms{_per_step('ec_scalar_mul', shape, out[lay])}")
+    return out
+
+
 def phase_time(dev, rng, counts, shapes):
     """`counts` and `shapes` are the main path's launch counts, in total
     and by kernel and shape ((k, rows), (k, rows, exp_bits), the comb's
@@ -1255,6 +1485,8 @@ def phase_time(dev, rng, counts, shapes):
     # the launch of the most segments: the pair families' columns
     pairs = max(shapes["cios_modexp"], key=lambda s: (len(s), _cost("cios_modexp", s, 1)))
     alone = time_segments_alone(dev, rng, pairs)
+    layouts = time_scalar_mul_layouts(
+        dev, rng, max(shapes["ec_scalar_mul"], key=lambda s: _cost("ec_scalar_mul", s, 1)))
     # the kernels line: each kernel at its costliest shape on the main path
     out = []
     for name, by_shape in shapes.items():
@@ -1265,7 +1497,6 @@ def phase_time(dev, rng, counts, shapes):
         log(f"time: {name} at {row['text']}: events {ms:.4f} ms, device {dms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({row['by']})")
         _, source, replaces, _ = KERNELS[name]
-        fields = ("segments",) if name == "cios_modexp" else ("k", "rows", "exp_bits", "groups")
         out.append({
             "name": name,
             "route": "cuda",
@@ -1280,10 +1511,11 @@ def phase_time(dev, rng, counts, shapes):
             "bound_by": row["by"],
             "library_ms": None,
             "shape": row["text"],
-            "per_shape": [{key: r[key] for key in (*fields, "launches", "ms", "device_ms",
-                                                   "bound_ms")}
+            "per_shape": [{**r["fields"], **{key: r[key] for key in ("launches", "ms", "device_ms",
+                                                                    "bound_ms")}}
                           for r in per_shape if r["name"] == name],
             **({"segments_alone": alone} if name == "cios_modexp" else {}),
+            **({"layouts_device_ms": layouts} if name == "ec_scalar_mul" else {}),
         })
     return out
 

@@ -6,8 +6,9 @@ are gathered into per-family batches and dispatched to a backend:
 
 - "host": the pure-Python oracle — verifies each instance with the proofs
   module.
-- "cuda": batched multi-modulus modexp / modmul columns through the RNS
-  kernels on `ProtocolConfig.device` (backend.cuda_verifier).
+- "cuda": batched multi-modulus modexp / modmul columns and the EC
+  checks as MSMs through the device kernels on `ProtocolConfig.device`
+  (backend.cuda_verifier).
 
 Both return *per-instance verdicts* (never early-exit), so identifiable
 abort attribution is preserved exactly (`src/error.rs` semantics).

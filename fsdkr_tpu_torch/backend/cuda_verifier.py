@@ -9,7 +9,7 @@ wherever the proof carries the commitment being checked):
 - PDL-with-slack (`src/zk_pdl_with_slack.rs:113-168`):
     u2 * c^e  == (1+n)^s1 * s2^n   (mod n^2)
     u3 * z^e  == h1^s1 * h2^s3     (mod N~)
-    u1        == s1*G - e*Q        (EC, on the host)
+    u1        == s1*G - e*Q        (EC: one combined MSM on the device)
   — no inverses; (1+n)^s1 mod n^2 has the closed form 1 + (s1 mod n)*n.
 - Alice range (`src/range_proofs.rs:112-164`): the challenge is recomputed
   from reconstructed u, w, so the actual values are needed:
@@ -22,14 +22,18 @@ wherever the proof carries the commitment being checked):
 - Correct-key: sigma_i^N == rho_i (mod N); rho derivation + small-factor
   gates on the host.
 - Composite dlog: g^y * ni^e == C (mod N).
-- Feldman: host Horner per row.
+- Feldman: one MSM on the device over every scheme's group; host Horner
+  per row only for a scheme whose combined check fails.
 
-Hash transcripts are recomputed on the host.
+The EC checks run on the device EC kernels (ops.ec_batch: one
+`ec_scalar_mul` and one `ec_tree_sum` launch per MSM). Hash transcripts
+are recomputed on the host.
 """
 
 from __future__ import annotations
 
 import math
+import secrets
 from functools import partial
 from typing import Dict, List
 
@@ -37,6 +41,7 @@ from ..config import ProtocolConfig, DEFAULT_CONFIG
 from ..core.secp256k1 import N as CURVE_ORDER
 from ..core.secp256k1 import Scalar
 from ..core.transcript import challenge_bits
+from ..ops import ec_batch
 from ..proofs import alice_range, correct_key
 from ..proofs.pdl_slack import PDLwSlackProof
 from ..proofs.ring_pedersen import RingPedersenProof
@@ -125,7 +130,7 @@ class CudaBatchVerifier(BatchVerifier):
         rhs2 = self._modmul(gs1, s2_n, nn_mod)
         lhs3 = self._modmul([p.u3 for p, _ in items], z_e, nt_mod)
         rhs3 = self._modmul(h1_s1, h2_s3, nt_mod)
-        ok1_vec = self._pdl_u1_host(items, e_vec)
+        ok1_vec = self._pdl_u1_batch(items, e_vec)
         out = []
         for idx in range(len(items)):
             ok1 = ok1_vec[idx] and row_ok[idx]
@@ -133,6 +138,35 @@ class CudaBatchVerifier(BatchVerifier):
             ok3 = lhs3[idx] == rhs3[idx] and row_ok[idx]
             out.append(None if (ok1 and ok2 and ok3) else (ok1, ok2, ok3))
         return out
+
+    def _pdl_u1_batch(self, items, e_vec) -> List[bool]:
+        """u1 == s1*G - e*Q per row (`src/zk_pdl_with_slack.rs:124-127`),
+        as ONE combined check on the device:
+            sum_j rho_j*u1_j + sum_j (rho_j e_j)*Q_j + (-sum_j rho_j s1_j)*G
+            == identity
+        with secret 128-bit rho_j: one `batch_msm` of 2 * rows + 1 points.
+        The rows are checked one by one on the host only where the
+        combined check fails or the rows' G differ (the JAX package's
+        TpuBatchVerifier._pdl_u1_batch, its blame semantics)."""
+        if not items:
+            return []
+        g = items[0][1].G
+        if any(st.G != g for _, st in items):
+            return self._pdl_u1_host(items, e_vec)
+        rho = [secrets.randbits(128) for _ in items]
+        points = [p.u1 for p, _ in items] + [st.Q for _, st in items] + [g]
+        s_combined = sum(
+            r * (p.s1 % CURVE_ORDER) for r, (p, _) in zip(rho, items)
+        ) % CURVE_ORDER
+        scalars = (
+            rho
+            + [r * e % CURVE_ORDER for r, e in zip(rho, e_vec)]
+            + [CURVE_ORDER - s_combined]
+        )
+        (combined,) = ec_batch.batch_msm([points], [scalars], device=self.device)
+        if combined.infinity:
+            return [True] * len(items)
+        return self._pdl_u1_host(items, e_vec)
 
     @staticmethod
     def _pdl_u1_host(items, e_vec) -> List[bool]:
@@ -378,5 +412,49 @@ class CudaBatchVerifier(BatchVerifier):
     # ------------------------------------------------------------------
     def validate_feldman(self, items):
         """sum_k A_k * u^k == S_u per row (`src/refresh_message.rs:177-188`),
-        on the host (device EC is a later slice)."""
-        return self._host.validate_feldman(items)
+        as one MSM on the device over every scheme's group
+        (`_validate_feldman_device`)."""
+        if not items:
+            return []
+        return self._validate_feldman_device(items)
+
+    def _validate_feldman_device(self, items):
+        """Per scheme, with secret 128-bit rho_u over its rows:
+            sum_u rho_u*S_u + sum_k (-sum_u rho_u*u^k)*A_k == identity,
+        all schemes' groups in one `batch_msm`; the rows of a scheme whose
+        sum is not the identity are checked one by one by host Horner
+        (the JAX package's TpuBatchVerifier._validate_feldman_device)."""
+        groups: Dict[int, List[int]] = {}
+        for row, (scheme, _, _) in enumerate(items):
+            groups.setdefault(id(scheme), []).append(row)
+
+        group_rows = list(groups.values())
+        g_points, g_scalars = [], []
+        for rows in group_rows:
+            scheme = items[rows[0]][0]
+            rho = [secrets.randbits(128) for _ in rows]
+            # c_k = sum_u rho_u * u^k with incremental powers (u <= n is
+            # small), one reduction at the end
+            t1 = len(scheme.commitments)
+            c_acc = [0] * t1
+            for r, row in zip(rho, rows):
+                u = items[row][2]
+                pw = r
+                for k in range(t1):
+                    c_acc[k] += pw
+                    pw *= u
+            c_vec = [(CURVE_ORDER - c % CURVE_ORDER) % CURVE_ORDER for c in c_acc]
+            g_points.append([items[row][1] for row in rows] + list(scheme.commitments))
+            g_scalars.append(rho + c_vec)
+
+        combined = ec_batch.batch_msm(g_points, g_scalars, device=self.device)
+
+        out: List[bool] = [False] * len(items)
+        for rows, comb in zip(group_rows, combined):
+            if comb.infinity:
+                verdicts = [True] * len(rows)
+            else:
+                verdicts = self._host.validate_feldman([items[row] for row in rows])
+            for row, v in zip(rows, verdicts):
+                out[row] = v
+        return out

@@ -28,8 +28,9 @@ class ProtocolConfig:
         parameter proof (reference: M_SECURITY=256, `src/lib.rs:27`).
     correct_key_rounds: number of Fiat-Shamir challenges of the Paillier
         correct-key proof (zk-paillier uses 11).
-    backend: "cuda" (batched verification through the RNS kernels, the
-        default) or "host" (the pure-Python oracle).
+    backend: "cuda" (batched verification and the protocol's batched EC
+        through the device kernels, the default) or "host" (the
+        pure-Python oracle).
     device: torch device of the batched columns: "cuda" (default) or "cpu"
         (the kernels' plain PyTorch versions; what the CPU tests use).
     hash_alg: Fiat-Shamir digest, any name in core.transcript._HASHES.

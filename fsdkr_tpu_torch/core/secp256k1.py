@@ -7,8 +7,10 @@ encoding, coordinate access, `Scalar::from(BigInt)` reduction (usage sites
 `src/refresh_message.rs:67-69,443,455-463`,
 `src/zk_pdl_with_slack.rs:124-127`, `src/range_proofs.rs:428-431`).
 
-Implementation: Jacobian coordinates over CPython ints. The port keeps
-all EC work on the host (device EC is a later slice of the port).
+Implementation: Jacobian coordinates over CPython ints. This is the host
+oracle; the protocol's batched EC (the generator fan-outs of distribute,
+the PDL u1, Feldman and pk_vec checks of collect) runs on the device
+through `ops.ec_batch`, and its tests hold that against this module.
 """
 
 from __future__ import annotations

@@ -27,7 +27,7 @@ from dataclasses import dataclass
 from ..core import intops
 from ..core.paillier import EncryptionKey
 from ..core.secp256k1 import N as CURVE_ORDER
-from ..core.secp256k1 import Point, Scalar
+from ..core.secp256k1 import GENERATOR, Point, Scalar
 from ..core.transcript import Transcript
 from ..errors import PDLwSlackProofError
 
@@ -141,10 +141,12 @@ class PDLwSlackProof:
         return state, cols
 
     @staticmethod
-    def prove_stage2(state, results, statements):
+    def prove_stage2(state, results, statements, device=None):
         """Combine stage-1 results, recompute challenges, return
-        (state, columns): the r^e response column. u1 = alpha*G on the
-        host."""
+        (state, columns): the r^e response column. u1 = alpha*G: one
+        `batch_generator_mul` launch on `device` (the caller's torch
+        device, or None for the host) when every statement's G is the
+        generator, else per row on the host."""
         ntv, nv, nnv = state["ntv"], state["nv"], state["nnv"]
         alpha = state["alpha"]
         from ..core import paillier
@@ -153,7 +155,12 @@ class PDLwSlackProof:
         z = intops.mod_mul_col(c1, c2, ntv)
         u3 = intops.mod_mul_col(c3, c4, ntv)
         u2 = paillier.combine_with_rn(alpha, bn, nv, nnv)  # Enc(alpha; beta)
-        u1 = [st.G * Scalar.from_int(al) for st, al in zip(statements, alpha)]
+        if device is not None and all(st.G == GENERATOR for st in statements):
+            from ..ops.ec_batch import batch_generator_mul
+
+            u1 = batch_generator_mul(alpha, device=device)
+        else:
+            u1 = [st.G * Scalar.from_int(al) for st, al in zip(statements, alpha)]
         e = [
             PDLwSlackProof._challenge(st, zi, u1i, u2i, u3i, state["hash_alg"])
             for st, zi, u1i, u2i, u3i in zip(statements, z, u1, u2, u3)
@@ -192,13 +199,15 @@ class PDLwSlackProof:
         statements: list[PDLwSlackStatement],
         powm=None,
         hash_alg: str | None = None,
+        device=None,
     ) -> list["PDLwSlackProof"]:
         """Batched prover: the n-receiver fan-out of distribute (reference
         `src/refresh_message.rs:87-104`) as modexp columns
         through `powm` (host pow or one device launch per column).
 
         (1+n)^alpha mod n^2 uses the closed form 1 + (alpha mod n)*n, so
-        the u2 column needs only the beta^n exponentiation.
+        the u2 column needs only the beta^n exponentiation. The u1 column
+        runs on `device` when one is given (`prove_stage2`).
         """
         if powm is None:
             from ..backend.powm import host_powm as powm
@@ -219,7 +228,7 @@ class PDLwSlackProof:
             hash_alg,
         )
         state, cols2 = PDLwSlackProof.prove_stage2(
-            state, powm_columns(powm, *cols), statements
+            state, powm_columns(powm, *cols), statements, device
         )
         return PDLwSlackProof.prove_finish(state, powm_columns(powm, *cols2))
 

@@ -27,6 +27,7 @@ from ..config import ProtocolConfig, DEFAULT_CONFIG
 from ..core import paillier, vss
 from ..core.paillier import DecryptionKey, EncryptionKey
 from ..core.secp256k1 import GENERATOR, Point, Scalar
+from ..ops import ec_batch
 from ..errors import (
     BroadcastedPublicKeyError,
     ModuliTooSmall,
@@ -96,6 +97,7 @@ class RefreshMessage:
         from ..backend.powm import get_batch_powm, powm_columns
 
         powm = get_batch_powm(config)
+        ec_device = _ec_device(config)
 
         # validate every sender BEFORE the first mutation: a late failure
         # must not leave earlier senders' vss_scheme replaced by schemes
@@ -124,12 +126,22 @@ class RefreshMessage:
                 )
             )
 
-        # Feldman coefficient commitments A_k = a_k * G (host EC)
+        # Feldman coefficient commitments A_k = a_k * G: all senders' in
+        # one device launch on the cuda backend
+        if ec_device is not None:
+            flat_coeff_points = ec_batch.batch_generator_mul(
+                [c.to_int() for p in per for c in p["coeffs"]], device=ec_device
+            )
+        else:
+            flat_coeff_points = [GENERATOR * c for p in per for c in p["coeffs"]]
+        pos = 0
         for p in per:
+            cnt = len(p["coeffs"])
             p["scheme"] = vss.VerifiableSS(
                 vss.ShamirSecretSharing(p["key"].t, new_n),
-                [GENERATOR * c for c in p["coeffs"]],
+                flat_coeff_points[pos : pos + cnt],
             )
+            pos += cnt
             del p["coeffs"]  # polynomial coefficients are secret round state
             p["key"].vss_scheme = p["scheme"]
 
@@ -137,9 +149,14 @@ class RefreshMessage:
         # encryption column below (holds secret material)
         flat_share_ints = [s.to_int() for p in per for s in p["shares"]]
 
-        # commit points S_i = sigma_i * G (reference :67-69)
-        for p in per:
-            p["points"] = [GENERATOR * s for s in p["shares"]]
+        # commit points S_i = sigma_i * G (reference :67-69): one device
+        # launch across all (sender, receiver) pairs on the cuda backend
+        if ec_device is not None:
+            flat_points = ec_batch.batch_generator_mul(flat_share_ints, device=ec_device)
+        else:
+            flat_points = [GENERATOR * s for p in per for s in p["shares"]]
+        for k, p in enumerate(per):
+            p["points"] = flat_points[k * new_n : (k + 1) * new_n]
 
         # ---- fused prover columns over all (sender, receiver) pairs: the
         # encryption column and BOTH proof families' stage-1 commitment
@@ -202,7 +219,7 @@ class RefreshMessage:
         ]
 
         pdl_state, pdl_cols2 = PDLwSlackProof.prove_stage2(
-            pdl_state, pdl_res1, flat_statements
+            pdl_state, pdl_res1, flat_statements, ec_device
         )
         alice_state, alice_cols2 = AliceProof.generate_stage2(
             alice_state, alice_res1, flat_enc
@@ -500,7 +517,9 @@ def adopt_session(
 
     # pk_vec rebuild by assignment — conscious fix of quirk 1
     # (reference :455-464 uses Vec::insert)
-    pk_vec = combine_committed_points(msgs, li_vec, local_key.t, new_n)
+    pk_vec = combine_committed_points(
+        msgs, li_vec, local_key.t, new_n, _ec_device(config)
+    )
 
     # consistency gate absent from the reference: the decrypted share
     # must match the Feldman-committed public share, or the key would be
@@ -518,14 +537,33 @@ def adopt_session(
     local_key.pk_vec = pk_vec
 
 
+def _ec_device(config: ProtocolConfig):
+    """The torch device of the protocol's EC batches: the configured one
+    on the cuda backend, None (the host) on the host backend."""
+    return config.torch_device() if config.backend == "cuda" else None
+
+
 def combine_committed_points(
     refresh_messages: Sequence["RefreshMessage"],
     li_vec: Sequence[Scalar],
     t: int,
     n: int,
+    device=None,
 ) -> List[Point]:
     """X_i = sum_{j=0..t} lambda_j * S_i^{(j)} over the first t+1 senders'
-    committed points (reference :455-464), on the host."""
+    committed points (reference :455-464). On `device`, one `batch_msm`
+    (n groups of t+1 rows: one scalar-mul and one tree-sum launch); with
+    device None, on the host."""
+    if device is not None:
+        scalars = [li.to_int() for li in li_vec[: t + 1]]
+        return ec_batch.batch_msm(
+            [
+                [refresh_messages[j].points_committed_vec[i] for j in range(t + 1)]
+                for i in range(n)
+            ],
+            [scalars] * n,
+            device=device,
+        )
     pk_vec = []
     for i in range(n):
         acc = refresh_messages[0].points_committed_vec[i] * li_vec[0]
