@@ -40,8 +40,8 @@ Phases:
            Device EC: `ec_scalar_mul` at 1, 13, 256 and 1024 rows, 128-
            and 256-bit scalars (the edge scalars 0, 1, 7, N - 1 and
            2^128 - 1, G and the identity among the points, a quarter of
-           the rows worst-case: every digit of N - 1 or 2^128 - 1), at
-           each of its layouts; `ec_tree_sum` at (groups, rows) (1, 1),
+           the rows worst-case: every digit of N - 1 or 2^128 - 1);
+           `ec_tree_sum` at (groups, rows) (1, 1),
            (1, 2), (3, 8), (16, 32) and (1, 1024) on points of random Z,
            with cancelling pairs, doublings and identity pads.
   routes   device_powm / device_modmul (every launch through the CIOS
@@ -93,8 +93,7 @@ Phases:
            every `cios_comb` time also in ns per row-step (a CIOS step of
            one row); every ladder time also in us per product of its
            chain, beside the chain at one SM's integer multiply rate;
-           every EC time also in us per complete addition of its chain,
-           and `ec_scalar_mul` at its costliest shape at each layout.
+           every EC time also in us per complete addition of its chain.
 
 Prints the kernels line `{"kernels": [...]}` and, last, `{"ok": true,
 "device": {...}}`. Any failure exits non-zero with no result line.
@@ -559,25 +558,16 @@ def phase_kernels(dev, rng):
 def ec_kernels_check(dev, rng):
     """Both EC kernels against their plain versions, bit for bit:
     `ec_scalar_mul` at 1, 13, 256 and 1024 rows (the main path's launches
-    have 256-1024), 128- and 256-bit scalars, at the launch's layout and
-    each named one; `ec_tree_sum` from one row to the PDL u1 group's
-    1024."""
-    from fsdkr_tpu_torch.ops import ec_kernels
-
+    have 256-1024), 128- and 256-bit scalars; `ec_tree_sum` from one row
+    to the PDL u1 group's 1024."""
     for bits in (128, 256):
         for rows in (1, 13, 256, 1024):
-            args = ec_inputs(rng, dev, rows, bits, rows // 4)
-            kernel, plain = ec_calls("ec_scalar_mul", args, bits)
-            want = plain()
-            calls = [kernel] + [
-                (lambda lay: lambda: ec_kernels.scalar_mul_at_layout(lay, *args, bits))(lay)
-                for lay in ec_kernels.SCALAR_MUL_LAYOUTS]
-            for call in calls:
-                if _max_err(call(), want):
-                    fail(f"ec_scalar_mul rows={rows} scalar_bits={bits}: differs from plain")
-            log(f"kernels == plain, bit-identical: ec_scalar_mul rows={rows} scalar_bits={bits} "
-                f"(layouts {', '.join(ec_kernels.SCALAR_MUL_LAYOUTS)}), edge scalars, G, the "
-                f"identity, {rows // 4} worst-case rows")
+            kernel, plain = ec_calls("ec_scalar_mul", ec_inputs(rng, dev, rows, bits, rows // 4),
+                                     bits)
+            if _max_err(kernel(), plain()):
+                fail(f"ec_scalar_mul rows={rows} scalar_bits={bits}: differs from plain")
+            log(f"kernels == plain, bit-identical: ec_scalar_mul rows={rows} scalar_bits={bits}, "
+                f"edge scalars, G, the identity, {rows // 4} worst-case rows")
     for groups, m in ((1, 1), (1, 2), (3, 8), (16, 32), (1, 1024)):
         kernel, plain = ec_calls("ec_tree_sum", (tree_inputs(rng, dev, groups, m),))
         if _max_err(kernel(), plain()):
@@ -1455,23 +1445,6 @@ def _cost(name, shape, launches):
     return k * k * rows * (exp_bits or 1) * max(launches, 1)
 
 
-def time_scalar_mul_layouts(dev, rng, shape):
-    """`ec_scalar_mul` at `shape` (rows, scalar_bits) at each layout, by
-    device time: {layout: ms}."""
-    from fsdkr_tpu_torch.ops import ec_kernels
-
-    rows, bits = shape
-    args = ec_inputs(rng, dev, rows, bits, rows // 2)
-    reps = KERNELS["ec_scalar_mul"][3]
-    out = {}
-    for lay in ec_kernels.SCALAR_MUL_LAYOUTS:
-        out[lay] = _device_ms(lambda: ec_kernels.scalar_mul_at_layout(lay, *args, bits), reps,
-                              "ec_scalar_mul")
-        log(f"time: ec_scalar_mul rows={rows} scalar_bits={bits} at layout {lay}: device "
-            f"{out[lay]:.4f} ms{_per_step('ec_scalar_mul', shape, out[lay])}")
-    return out
-
-
 def phase_time(dev, rng, counts, shapes):
     """`counts` and `shapes` are the main path's launch counts, in total
     and by kernel and shape ((k, rows), (k, rows, exp_bits), the comb's
@@ -1485,8 +1458,6 @@ def phase_time(dev, rng, counts, shapes):
     # the launch of the most segments: the pair families' columns
     pairs = max(shapes["cios_modexp"], key=lambda s: (len(s), _cost("cios_modexp", s, 1)))
     alone = time_segments_alone(dev, rng, pairs)
-    layouts = time_scalar_mul_layouts(
-        dev, rng, max(shapes["ec_scalar_mul"], key=lambda s: _cost("ec_scalar_mul", s, 1)))
     # the kernels line: each kernel at its costliest shape on the main path
     out = []
     for name, by_shape in shapes.items():
@@ -1515,7 +1486,6 @@ def phase_time(dev, rng, counts, shapes):
                                                                     "bound_ms")}}
                           for r in per_shape if r["name"] == name],
             **({"segments_alone": alone} if name == "cios_modexp" else {}),
-            **({"layouts_device_ms": layouts} if name == "ec_scalar_mul" else {}),
         })
     return out
 

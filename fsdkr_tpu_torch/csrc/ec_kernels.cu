@@ -26,9 +26,13 @@
 // the window's entry. The entry is read as a masked OR over all 16
 // entries, never indexed by the digit (the scalars are key shares,
 // coefficients and nonces). The table (16 x 24 words, 1.5 KB a row)
-// lies in shared memory at 32 or 64 threads a block, word-major across
-// the block's threads (no bank conflict), or in local memory; the table
-// is zeroed before the thread exits.
+// lies in shared memory, 48 KB for a block of 32 threads, word-major
+// across the block's threads (no bank conflict), and is zeroed before
+// the thread exits. (A table in local memory measured 1-16% slower on
+// the H100 as the only layout, by how ptxas allocated it: PERF.md.)
+// ptxas spills about 870 bytes of the loop's state (window digits, the
+// accumulator, the selected entry) to local memory; those spilled
+// copies are not wiped and stay in device memory until it is reused.
 //
 // ec_tree_sum_kernel: one block a group. Level by level, row i of the
 // first half plus row i of the second (the JAX package's lhs = flat[:,
@@ -44,9 +48,9 @@
 // reduction); a 256-bit scalar-mul row is 14 + 5 * 64 = 334 additions.
 // One thread a row makes each row's chain of about 4,700 dependent
 // products the kernel's time: latency, not the card's multiply rate, sets
-// it at the main path's 256-1024 rows. Small blocks spread those rows over
-// as many SMs as they fill. Several threads a row, a fixed-base comb for
-// G and the special form of p are a later design's.
+// it at the main path's 256-1024 rows. Blocks of one warp spread those
+// rows over as many SMs as they fill. Several threads a row, a fixed-base
+// comb for G and the special form of p are a later design's.
 
 #include <cstddef>
 #include <cstdint>
@@ -60,6 +64,7 @@ constexpr int kLimbs = 16;                  // 16-bit limbs of a coordinate
 constexpr int kPointLimbs = 3 * kLimbs;
 constexpr int kWindowBits = 4;
 constexpr int kEntries = 1 << kWindowBits;
+constexpr int kMulThreads = 32;            // the scalar mul's block
 constexpr int kTreeThreads = 256;           // the tree's largest block
 constexpr uint32_t kNPrime = 0xD2253531u;   // -p^{-1} mod 2^32
 
@@ -238,19 +243,13 @@ __device__ __forceinline__ void store_limbs(int32_t* limbs, Pt& p) {
   }
 }
 
-// the window table of one thread: entry e's word k in shared memory at
-// (e * 24 + k) * threads + thread, or in the thread's local array
-template <int kThreads, bool kShared>
+// the window table of one thread: entry e's word k at (e * 24 + k) *
+// kMulThreads + thread of the block's shared array
 struct Table {
-  uint32_t* shared;
-  uint32_t local[kShared ? 1 : kEntries * kPointWords];
+  uint32_t* w;
 
   __device__ __forceinline__ uint32_t& at(int e, int k) {
-    if constexpr (kShared) {
-      return shared[(e * kPointWords + k) * kThreads + threadIdx.x];
-    } else {
-      return local[e * kPointWords + k];
-    }
+    return w[(e * kPointWords + k) * kMulThreads + threadIdx.x];
   }
 
   __device__ __forceinline__ void put(int e, Pt& p) {
@@ -269,16 +268,14 @@ struct Table {
   }
 };
 
-template <int kThreads, bool kShared>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMulThreads)
 ec_scalar_mul_kernel(const int32_t* __restrict__ points, const int32_t* __restrict__ scalars,
                      int rows, int scalar_limbs, int scalar_bits, int32_t* __restrict__ out) {
-  extern __shared__ uint32_t smem[];
-  const int row = blockIdx.x * kThreads + threadIdx.x;
+  const int row = blockIdx.x * kMulThreads + threadIdx.x;
   if (row >= rows) return;  // no barrier below
 
-  Table<kThreads, kShared> table;
-  table.shared = smem;
+  __shared__ uint32_t tables[kEntries * kPointWords * kMulThreads];
+  Table table{tables};
   Pt base, cur;
   load_limbs(base, points + (size_t)row * kPointLimbs);
   set_identity(cur);
@@ -355,39 +352,19 @@ ec_tree_sum_kernel(const int32_t* __restrict__ points, int m, uint32_t* __restri
   }
 }
 
-template <int kThreads, bool kShared>
-int launch_scalar_mul(const int32_t* points, const int32_t* scalars, int rows, int scalar_limbs,
-                      int scalar_bits, int32_t* out, cudaStream_t stream) {
-  const size_t smem = kShared ? (size_t)kThreads * kEntries * kPointWords * sizeof(uint32_t) : 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(ec_scalar_mul_kernel<kThreads, kShared>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int blocks = (rows + kThreads - 1) / kThreads;
-  ec_scalar_mul_kernel<kThreads, kShared><<<blocks, kThreads, smem, stream>>>(
-      points, scalars, rows, scalar_limbs, scalar_bits, out);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// layout: 0 the table in shared memory at 32 threads a block (the launch
-// rule), 1 shared at 64, 2 local memory at 32. Returns a CUDA error code.
-extern "C" int fsdkr_ec_scalar_mul(int layout, const int32_t* points, const int32_t* scalars,
-                                   int rows, int scalar_limbs, int scalar_bits, int32_t* out,
+// rows x (P, k) -> k*P, one thread a row. Returns a CUDA error code.
+extern "C" int fsdkr_ec_scalar_mul(const int32_t* points, const int32_t* scalars, int rows,
+                                   int scalar_limbs, int scalar_bits, int32_t* out,
                                    void* stream) {
   if (rows <= 0 || scalar_bits <= 0 || scalar_bits % kWindowBits ||
       scalar_limbs * 16 < scalar_bits)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (layout) {
-    case 0: return launch_scalar_mul<32, true>(points, scalars, rows, scalar_limbs, scalar_bits, out, s);
-    case 1: return launch_scalar_mul<64, true>(points, scalars, rows, scalar_limbs, scalar_bits, out, s);
-    case 2: return launch_scalar_mul<32, false>(points, scalars, rows, scalar_limbs, scalar_bits, out, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const int blocks = (rows + kMulThreads - 1) / kMulThreads;
+  ec_scalar_mul_kernel<<<blocks, kMulThreads, 0, (cudaStream_t)stream>>>(
+      points, scalars, rows, scalar_limbs, scalar_bits, out);
+  return (int)cudaGetLastError();
 }
 
 // groups x m points (m a power of two) -> groups sums; scratch: groups *

@@ -53,6 +53,7 @@ from .montgomery import _Reducer, _cond_subtract, _normalize_carries
 __all__ = [
     "batch_scalar_mul",
     "batch_generator_mul",
+    "generator_muls",
     "batch_msm",
     "points_to_device",
     "device_to_points",
@@ -310,6 +311,14 @@ def batch_generator_mul(scalars: Sequence[int], *, device) -> List[Point]:
     coefficient commitments, S_i = sigma_i * G, reference
     refresh_message.rs:67-69, and the PDL prover's u1 column)."""
     return batch_scalar_mul([GENERATOR] * len(scalars), scalars, device=device)
+
+
+def generator_muls(scalars: Sequence[int], device) -> List[Point]:
+    """s_i * G row-wise: one `batch_generator_mul` launch on `device`, or
+    on the host (`core.secp256k1`) when device is None."""
+    if device is None:
+        return [GENERATOR * s for s in scalars]
+    return batch_generator_mul(scalars, device=device)
 
 
 def batch_msm(

@@ -36,9 +36,7 @@ from .nvcc_build import CSRC, build_library
 
 __all__ = [
     "scalar_mul",
-    "scalar_mul_at_layout",
     "tree_sum",
-    "SCALAR_MUL_LAYOUTS",
     "launch_counts",
     "reset_launch_counts",
     "load_library",
@@ -47,10 +45,6 @@ __all__ = [
 _SRC = CSRC / "ec_kernels.cu"
 _K = 16  # 16-bit limbs of a field element
 WINDOW_BITS = 4
-# the scalar multiplication's layouts (csrc: launch_scalar_mul): the
-# window table in shared memory at 32 or 64 threads a block, or in local
-# memory at 32; the launch takes the first
-SCALAR_MUL_LAYOUTS = ("shared32", "shared64", "local32")
 
 _LIB: Optional[ctypes.CDLL] = None
 build_info: dict = {}  # so path, build seconds, nvcc's -Xptxas -v report
@@ -64,7 +58,7 @@ def load_library() -> ctypes.CDLL:
     build_info.update(build_library(_SRC))
     lib = ctypes.CDLL(build_info["so"])
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fsdkr_ec_scalar_mul.argtypes = [i, p, p, i, i, i, p, p]
+    lib.fsdkr_ec_scalar_mul.argtypes = [p, p, i, i, i, p, p]
     lib.fsdkr_ec_scalar_mul.restype = i
     lib.fsdkr_ec_tree_sum.argtypes = [p, i, i, p, p, p]
     lib.fsdkr_ec_tree_sum.restype = i
@@ -99,17 +93,6 @@ def scalar_mul(points, scalars, scalar_bits: int) -> torch.Tensor:
     (rows, 3, 16) projective limbs. The MSB-first 4-bit fixed-window loop
     over scalar_bits bits, every window's table entry chosen by a masked
     sum over all 16."""
-    return _scalar_mul(0, points, scalars, scalar_bits)
-
-
-def scalar_mul_at_layout(layout: str, points, scalars, scalar_bits: int) -> torch.Tensor:
-    """`scalar_mul` on a layout of SCALAR_MUL_LAYOUTS named here, not by
-    the launch: for timing the table's placement; the entry points call
-    `scalar_mul`."""
-    return _scalar_mul(SCALAR_MUL_LAYOUTS.index(layout), points, scalars, scalar_bits)
-
-
-def _scalar_mul(layout, points, scalars, scalar_bits):
     if points.dim() != 3 or scalars.dim() != 2:
         raise ValueError(f"points {tuple(points.shape)} and scalars {tuple(scalars.shape)}: "
                          f"expected (rows, 3, {_K}) and (rows, SL)")
@@ -128,7 +111,7 @@ def _scalar_mul(layout, points, scalars, scalar_bits):
         return _scalar_mul_kernel(points, scalars, scalar_bits=scalar_bits).to(torch.int32)
     out = torch.empty_like(points)
     err = load_library().fsdkr_ec_scalar_mul(
-        layout, points.data_ptr(), scalars.data_ptr(), rows, sl, scalar_bits,
+        points.data_ptr(), scalars.data_ptr(), rows, sl, scalar_bits,
         out.data_ptr(), _stream(points.device))
     if err:
         raise RuntimeError(f"fsdkr_ec_scalar_mul launch failed: CUDA error {err}")

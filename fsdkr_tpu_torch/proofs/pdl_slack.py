@@ -144,9 +144,9 @@ class PDLwSlackProof:
     def prove_stage2(state, results, statements, device=None):
         """Combine stage-1 results, recompute challenges, return
         (state, columns): the r^e response column. u1 = alpha*G: one
-        `batch_generator_mul` launch on `device` (the caller's torch
-        device, or None for the host) when every statement's G is the
-        generator, else per row on the host."""
+        `generator_muls` call on `device` (the caller's torch device, or
+        None for the host) when every statement's G is the generator,
+        else per row on the host."""
         ntv, nv, nnv = state["ntv"], state["nv"], state["nnv"]
         alpha = state["alpha"]
         from ..core import paillier
@@ -155,10 +155,10 @@ class PDLwSlackProof:
         z = intops.mod_mul_col(c1, c2, ntv)
         u3 = intops.mod_mul_col(c3, c4, ntv)
         u2 = paillier.combine_with_rn(alpha, bn, nv, nnv)  # Enc(alpha; beta)
-        if device is not None and all(st.G == GENERATOR for st in statements):
-            from ..ops.ec_batch import batch_generator_mul
+        if all(st.G == GENERATOR for st in statements):
+            from ..ops.ec_batch import generator_muls
 
-            u1 = batch_generator_mul(alpha, device=device)
+            u1 = generator_muls(alpha, device)
         else:
             u1 = [st.G * Scalar.from_int(al) for st, al in zip(statements, alpha)]
         e = [
@@ -199,15 +199,13 @@ class PDLwSlackProof:
         statements: list[PDLwSlackStatement],
         powm=None,
         hash_alg: str | None = None,
-        device=None,
     ) -> list["PDLwSlackProof"]:
         """Batched prover: the n-receiver fan-out of distribute (reference
         `src/refresh_message.rs:87-104`) as modexp columns
         through `powm` (host pow or one device launch per column).
 
         (1+n)^alpha mod n^2 uses the closed form 1 + (alpha mod n)*n, so
-        the u2 column needs only the beta^n exponentiation. The u1 column
-        runs on `device` when one is given (`prove_stage2`).
+        the u2 column needs only the beta^n exponentiation.
         """
         if powm is None:
             from ..backend.powm import host_powm as powm
@@ -228,7 +226,7 @@ class PDLwSlackProof:
             hash_alg,
         )
         state, cols2 = PDLwSlackProof.prove_stage2(
-            state, powm_columns(powm, *cols), statements, device
+            state, powm_columns(powm, *cols), statements
         )
         return PDLwSlackProof.prove_finish(state, powm_columns(powm, *cols2))
 

@@ -128,12 +128,9 @@ class RefreshMessage:
 
         # Feldman coefficient commitments A_k = a_k * G: all senders' in
         # one device launch on the cuda backend
-        if ec_device is not None:
-            flat_coeff_points = ec_batch.batch_generator_mul(
-                [c.to_int() for p in per for c in p["coeffs"]], device=ec_device
-            )
-        else:
-            flat_coeff_points = [GENERATOR * c for p in per for c in p["coeffs"]]
+        flat_coeff_points = ec_batch.generator_muls(
+            [c.to_int() for p in per for c in p["coeffs"]], ec_device
+        )
         pos = 0
         for p in per:
             cnt = len(p["coeffs"])
@@ -151,10 +148,7 @@ class RefreshMessage:
 
         # commit points S_i = sigma_i * G (reference :67-69): one device
         # launch across all (sender, receiver) pairs on the cuda backend
-        if ec_device is not None:
-            flat_points = ec_batch.batch_generator_mul(flat_share_ints, device=ec_device)
-        else:
-            flat_points = [GENERATOR * s for p in per for s in p["shares"]]
+        flat_points = ec_batch.generator_muls(flat_share_ints, ec_device)
         for k, p in enumerate(per):
             p["points"] = flat_points[k * new_n : (k + 1) * new_n]
 

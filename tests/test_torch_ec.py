@@ -304,7 +304,6 @@ def test_wrappers_check_their_inputs():
     ec_kernels.reset_launch_counts()
     ec_kernels.tree_sum(pts.view(1, 1, 3, 16))
     assert ec_kernels.launch_counts() == {"ec_scalar_mul": 0, "ec_tree_sum": 0}
-    assert ec_kernels.SCALAR_MUL_LAYOUTS[0] == "shared32"
 
 
 # ---------------------------------------------------------------------------
