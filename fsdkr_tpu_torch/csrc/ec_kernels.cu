@@ -9,16 +9,23 @@
 // Arithmetic. A field element of F_p, p = 2^256 - 2^32 - 977, is 8 32-bit
 // words in registers, little-endian, in the Montgomery domain (R = 2^256,
 // the JAX package's R on its 16 16-bit limbs) and canonical (< p) after
-// every operation: the product is word-level CIOS with n' = -p^{-1} mod
-// 2^32 and one conditional subtraction; the sum and the difference end in
-// one conditional subtraction or addition of p. A canonical result is
-// unique, so every value equals the plain version's and the JAX
-// package's bit for bit. Points are homogeneous projective (X : Y : Z),
-// the identity (0 : R mod p : 0), added by the complete formula of
-// Renes-Costello-Batina 2016, Alg. 7 (a = 0, b3 = 21), in the statement
-// order of the JAX package's `_padd` (:100-125): one formula for
-// additions, doublings, the identity and inverses, with no branch on the
-// data. Every select is a mask.
+// every operation. A product is the 512-bit x * y (a squaring: the 28
+// words above the diagonal once, doubled, and the 8 squares) and a
+// Montgomery reduction on p's special form: word i's m = T_i n' (n' =
+// -p^{-1} mod 2^32) takes m * 977 from word i and m from word i + 1 in a
+// signed running carry, where the generic reduction adds m * p word by
+// word; then T_hi + M + carry and one conditional subtraction. The
+// products by b3 R mod p (b3 = 21) and t0 + t0 + t0 are products by the
+// small constants 21 and 3, 2^256 folded back as 2^32 + 977. The sum and
+// the difference end in one conditional subtraction or addition of p. A
+// canonical result is unique, so every value equals the plain version's
+// and the JAX package's bit for bit. Points are homogeneous projective
+// (X : Y : Z), the identity (0 : R mod p : 0), added by the complete
+// formula of Renes-Costello-Batina 2016, Alg. 7 (a = 0, b3 = 21), in the
+// statement order of the JAX package's `_padd` (:100-125): one formula
+// for additions, doublings, the identity and inverses, with no branch on
+// the data; a doubling runs the same statements with its six round-1
+// products as squarings. Every select is a mask.
 //
 // ec_scalar_mul_kernel: k*P per row, one thread a row. The 16-entry
 // table of multiples (table[0] the identity, table[j] = table[j-1] + P),
@@ -30,9 +37,8 @@
 // across the block's threads (no bank conflict), and is zeroed before
 // the thread exits. (A table in local memory measured 1-16% slower on
 // the H100 as the only layout, by how ptxas allocated it: PERF.md.)
-// ptxas spills about 870 bytes of the loop's state (window digits, the
-// accumulator, the selected entry) to local memory; those spilled
-// copies are not wiped and stay in device memory until it is reused.
+// Whatever of the loop's state ptxas spills (its -Xptxas -v report) lies
+// in local memory, is not wiped and stays in device memory until reused.
 //
 // ec_tree_sum_kernel: one block a group. Level by level, row i of the
 // first half plus row i of the second (the JAX package's lhs = flat[:,
@@ -44,13 +50,13 @@
 // row i, and no row of the second half is written.
 //
 // What bounds it: integer multiply-adds. A complete addition is 14 field
-// products of 8 x 8 32-bit multiply-adds twice (the product and the
-// reduction); a 256-bit scalar-mul row is 14 + 5 * 64 = 334 additions.
+// products of 8 x 8 32-bit multiply-adds (36 in a squaring) and a
+// reduction of 8 small steps; a 256-bit scalar-mul row is 14 + 5 * 64 =
+// 334 additions.
 // One thread a row makes each row's chain of about 4,700 dependent
 // products the kernel's time: latency, not the card's multiply rate, sets
 // it at the main path's 256-1024 rows. Blocks of one warp spread those
-// rows over as many SMs as they fill. Several threads a row, a fixed-base
-// comb for G and the special form of p are a later design's.
+// rows over as many SMs as they fill.
 
 #include <cstddef>
 #include <cstdint>
@@ -66,17 +72,16 @@ constexpr int kWindowBits = 4;
 constexpr int kEntries = 1 << kWindowBits;
 constexpr int kMulThreads = 32;            // the scalar mul's block
 constexpr int kTreeThreads = 256;           // the tree's largest block
-constexpr uint32_t kNPrime = 0xD2253531u;   // -p^{-1} mod 2^32
+constexpr uint32_t kNPrime = 0xD2253531u;   // -p^{-1} mod 2^32 (977^{-1})
+constexpr uint32_t kC0 = 977u;              // p = 2^256 - 2^32 - kC0
+constexpr uint32_t kB3 = 21u;               // b3 = 3b
 
-// p, R mod p (1 in the Montgomery domain) and 21 R mod p (b3 = 3b)
+// p and R mod p (1 in the Montgomery domain)
 __device__ __forceinline__ constexpr uint32_t p_word(int j) {
   return j == 0 ? 0xFFFFFC2Fu : (j == 1 ? 0xFFFFFFFEu : 0xFFFFFFFFu);
 }
 __device__ __forceinline__ constexpr uint32_t one_m_word(int j) {
   return j == 0 ? 0x000003D1u : (j == 1 ? 0x00000001u : 0u);
-}
-__device__ __forceinline__ constexpr uint32_t b3_m_word(int j) {
-  return j == 0 ? 0x00005025u : (j == 1 ? 0x00000015u : 0u);
 }
 
 struct Pt {
@@ -103,39 +108,124 @@ __device__ __forceinline__ void reduce_once(uint32_t r[kWords], const uint32_t t
   for (int j = 0; j < kWords; ++j) r[j] = (t[j] & keep) | (d[j] & ~keep);
 }
 
-// r = x * y * R^{-1} mod p (CIOS, one 32-bit word a step); x, y < p. r may
-// alias x or y: it is written after the last read of both.
-__device__ __forceinline__ void fmul(uint32_t r[kWords], const uint32_t x[kWords],
-                                     const uint32_t y[kWords]) {
-  uint32_t t[kWords + 2];
+// T = x * y, 16 words
+__device__ __forceinline__ void mul_wide(uint32_t T[2 * kWords], const uint32_t x[kWords],
+                                         const uint32_t y[kWords]) {
 #pragma unroll
-  for (int j = 0; j < kWords + 2; ++j) t[j] = 0;
+  for (int j = 0; j < kWords; ++j) T[j] = 0;
 #pragma unroll
   for (int i = 0; i < kWords; ++i) {
     uint64_t c = 0;
 #pragma unroll
     for (int j = 0; j < kWords; ++j) {
-      const uint64_t s = (uint64_t)x[j] * y[i] + t[j] + c;
-      t[j] = (uint32_t)s;
+      const uint64_t s = (uint64_t)x[j] * y[i] + T[i + j] + c;
+      T[i + j] = (uint32_t)s;
       c = s >> 32;
     }
-    uint64_t s = (uint64_t)t[kWords] + c;
-    t[kWords] = (uint32_t)s;
-    t[kWords + 1] = (uint32_t)(s >> 32);
-    const uint32_t m = t[0] * kNPrime;
-    s = (uint64_t)m * p_word(0) + t[0];
-    c = s >> 32;
-#pragma unroll
-    for (int j = 1; j < kWords; ++j) {
-      s = (uint64_t)m * p_word(j) + t[j] + c;
-      t[j - 1] = (uint32_t)s;
-      c = s >> 32;
-    }
-    s = (uint64_t)t[kWords] + c;
-    t[kWords - 1] = (uint32_t)s;
-    t[kWords] = t[kWords + 1] + (uint32_t)(s >> 32);
+    T[i + kWords] = (uint32_t)c;
   }
-  reduce_once(r, t);  // t < 2p
+}
+
+// T = x * x, 16 words: the 28 products above the diagonal once, doubled,
+// then the 8 squares on the diagonal (36 word products where x * y has 64)
+__device__ __forceinline__ void sqr_wide(uint32_t T[2 * kWords], const uint32_t x[kWords]) {
+#pragma unroll
+  for (int j = 0; j < 2 * kWords; ++j) T[j] = 0;
+#pragma unroll
+  for (int i = 0; i < kWords - 1; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = i + 1; j < kWords; ++j) {
+      const uint64_t s = (uint64_t)x[i] * x[j] + T[i + j] + c;
+      T[i + j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    T[i + kWords] = (uint32_t)c;
+  }
+#pragma unroll
+  for (int j = 2 * kWords - 1; j > 0; --j) T[j] = __funnelshift_l(T[j - 1], T[j], 1);
+  T[0] = 0;
+  uint32_t c = 0;
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    uint64_t s = (uint64_t)x[i] * x[i] + T[2 * i] + c;
+    T[2 * i] = (uint32_t)s;
+    s = (uint64_t)T[2 * i + 1] + (s >> 32);
+    T[2 * i + 1] = (uint32_t)s;
+    c = (uint32_t)(s >> 32);
+  }
+}
+
+// r = T * R^{-1} mod p for T < p^2, on p's special form. Word i's
+// m = T_i * n' makes T + m p 2^{32i} vanish in word i; since m p = m 2^256
+// - m 2^32 - m kC0, the low half only ever loses m kC0 in word i (whose
+// low 32 bits are T_i's) and m in word i + 1: a signed running carry
+// replaces the 8 multiply-adds of m * p_word(j). The low half of T - M c
+// (M = sum m_i 2^{32i}, c = 2^32 + kC0) is then 0 and the carry is its
+// value over 2^256, so (T + M p) / R = T_hi + M + carry < 2p, the value
+// the generic CIOS reduction leaves, and one conditional subtraction
+// makes it canonical.
+__device__ __forceinline__ void mont_reduce(uint32_t r[kWords], const uint32_t T[2 * kWords]) {
+  uint32_t m[kWords];
+  int64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    const int64_t w = (int64_t)T[i] + c;
+    m[i] = (uint32_t)w * kNPrime;
+    c = ((w - (int64_t)((uint64_t)m[i] * kC0)) >> 32) - (int64_t)m[i];
+  }
+  uint32_t u[kWords + 1];
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    c += (int64_t)T[kWords + i] + m[i];
+    u[i] = (uint32_t)c;
+    c >>= 32;
+  }
+  u[kWords] = (uint32_t)c;
+  reduce_once(r, u);
+}
+
+// r = x * y * R^{-1} mod p; x, y < p. r may alias x or y.
+__device__ __forceinline__ void fmul(uint32_t r[kWords], const uint32_t x[kWords],
+                                     const uint32_t y[kWords]) {
+  uint32_t T[2 * kWords];
+  mul_wide(T, x, y);
+  mont_reduce(r, T);
+}
+
+// r = x * x * R^{-1} mod p; x < p. r may alias x.
+__device__ __forceinline__ void fsqr(uint32_t r[kWords], const uint32_t x[kWords]) {
+  uint32_t T[2 * kWords];
+  sqr_wide(T, x);
+  mont_reduce(r, T);
+}
+
+// r = k * x mod p for a small constant k (3 or kB3 = 21: the products by
+// b3 R mod p, and t0 + t0 + t0); x < p. k x is 9 words, its ninth h < k;
+// 2^256 = c (mod p) folds h back in as h c, and lo + h c < 2^256 + 2^37 <
+// 2p takes one conditional subtraction. r may alias x.
+__device__ __forceinline__ void fmul_small(uint32_t r[kWords], uint32_t k,
+                                           const uint32_t x[kWords]) {
+  uint32_t t[kWords + 1];
+  uint64_t c = 0;
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) {
+    c += (uint64_t)x[j] * k;
+    t[j] = (uint32_t)c;
+    c >>= 32;
+  }
+  // + h kC0 in word 0, + h in word 1
+  c = (uint64_t)t[0] + c * kC0 + ((uint64_t)(uint32_t)c << 32);
+  t[0] = (uint32_t)c;
+  c >>= 32;
+#pragma unroll
+  for (int j = 1; j < kWords; ++j) {
+    c += t[j];
+    t[j] = (uint32_t)c;
+    c >>= 32;
+  }
+  t[kWords] = (uint32_t)c;
+  reduce_once(r, t);
 }
 
 // r = x + y mod p; x, y < p.
@@ -175,37 +265,54 @@ __device__ __forceinline__ void fsub(uint32_t r[kWords], const uint32_t x[kWords
   }
 }
 
-// out = p + q, the complete formula in the JAX package's statement order.
-// out may alias p or q.
+// out = p + q, the complete formula in the JAX package's statement order;
+// kSame: q is p (the doubling instance: the same statements, the six
+// round-1 products as squarings). out may alias p or q.
+template <bool kSame>
 __device__ __forceinline__ void padd(Pt& out, const Pt& p, const Pt& q) {
   uint32_t t0[kWords], t1[kWords], t2[kWords], t3[kWords], t4[kWords];
-  uint32_t x3[kWords], y3[kWords], z3[kWords], a[kWords], b[kWords], b3[kWords];
-#pragma unroll
-  for (int j = 0; j < kWords; ++j) b3[j] = b3_m_word(j);
-  fmul(t0, p.x, q.x);
-  fmul(t1, p.y, q.y);
-  fmul(t2, p.z, q.z);
+  uint32_t x3[kWords], y3[kWords], z3[kWords], a[kWords], b[kWords];
+  if (kSame) {
+    fsqr(t0, p.x);
+    fsqr(t1, p.y);
+    fsqr(t2, p.z);
+  } else {
+    fmul(t0, p.x, q.x);
+    fmul(t1, p.y, q.y);
+    fmul(t2, p.z, q.z);
+  }
   fadd(a, p.x, p.y);
-  fadd(b, q.x, q.y);
-  fmul(t3, a, b);
+  if (kSame) {
+    fsqr(t3, a);
+  } else {
+    fadd(b, q.x, q.y);
+    fmul(t3, a, b);
+  }
   fadd(a, t0, t1);
   fsub(t3, t3, a);
   fadd(a, p.y, p.z);
-  fadd(b, q.y, q.z);
-  fmul(t4, a, b);
+  if (kSame) {
+    fsqr(t4, a);
+  } else {
+    fadd(b, q.y, q.z);
+    fmul(t4, a, b);
+  }
   fadd(a, t1, t2);
   fsub(t4, t4, a);
   fadd(a, p.x, p.z);
-  fadd(b, q.x, q.z);
-  fmul(x3, a, b);
+  if (kSame) {
+    fsqr(x3, a);
+  } else {
+    fadd(b, q.x, q.z);
+    fmul(x3, a, b);
+  }
   fadd(a, t0, t2);
   fsub(y3, x3, a);
-  fadd(a, t0, t0);
-  fadd(x3, a, t0);
-  fmul(t2, b3, t2);
+  fmul_small(x3, 3, t0);
+  fmul_small(t2, kB3, t2);
   fadd(z3, t1, t2);
   fsub(t1, t1, t2);
-  fmul(y3, b3, y3);
+  fmul_small(y3, kB3, y3);
   // p and q are not read below: out may alias either
   fmul(a, t3, t1);
   fmul(b, t4, y3);
@@ -285,7 +392,7 @@ ec_scalar_mul_kernel(const int32_t* __restrict__ points, const int32_t* __restri
   for (int k = 0; k < kPointWords; ++k) coord(cur, k) = coord(base, k);
 #pragma unroll 1
   for (int e = 2; e < kEntries; ++e) {
-    padd(cur, cur, base);
+    padd<false>(cur, cur, base);
     table.put(e, cur);
   }
 
@@ -296,7 +403,7 @@ ec_scalar_mul_kernel(const int32_t* __restrict__ points, const int32_t* __restri
   for (int shift = scalar_bits - kWindowBits; shift >= 0; shift -= kWindowBits) {
     const uint32_t digit = ((uint32_t)sc[shift >> 4] >> (shift & 15)) & (kEntries - 1);
 #pragma unroll 1
-    for (int d = 0; d < kWindowBits; ++d) padd(acc, acc, acc);
+    for (int d = 0; d < kWindowBits; ++d) padd<true>(acc, acc, acc);
 #pragma unroll
     for (int k = 0; k < kPointWords; ++k) coord(sel, k) = 0u;
 #pragma unroll
@@ -305,7 +412,7 @@ ec_scalar_mul_kernel(const int32_t* __restrict__ points, const int32_t* __restri
 #pragma unroll
       for (int k = 0; k < kPointWords; ++k) coord(sel, k) |= table.at(e, k) & mask;
     }
-    padd(acc, acc, sel);
+    padd<false>(acc, acc, sel);
   }
   store_limbs(out + (size_t)row * kPointLimbs, acc);
   table.wipe();
@@ -327,7 +434,7 @@ ec_tree_sum_kernel(const int32_t* __restrict__ points, int m, uint32_t* __restri
   for (int i = threadIdx.x; i < half; i += blockDim.x) {
     load_limbs(a, in + (size_t)i * kPointLimbs);
     load_limbs(b, in + (size_t)(i + half) * kPointLimbs);
-    padd(a, a, b);
+    padd<false>(a, a, b);
 #pragma unroll
     for (int k = 0; k < kPointWords; ++k) buf[(size_t)k * half + i] = coord(a, k);
   }
@@ -339,7 +446,7 @@ ec_tree_sum_kernel(const int32_t* __restrict__ points, int m, uint32_t* __restri
         coord(a, k) = buf[(size_t)k * half + i];
         coord(b, k) = buf[(size_t)k * half + i + h];
       }
-      padd(a, a, b);
+      padd<false>(a, a, b);
 #pragma unroll
       for (int k = 0; k < kPointWords; ++k) buf[(size_t)k * half + i] = coord(a, k);
     }

@@ -507,10 +507,12 @@ def test_host_backend_takes_no_device_ec():
 
 
 def _cu_constants():
-    """The kernel's constants, read from its source: n', and the words of
-    p, R mod p and 21 R mod p."""
+    """The kernel's constants, read from its source: n', p's kC0 (p = 2^256
+    - 2^32 - kC0), b3, and the words of p and R mod p."""
     src = CU.read_text()
-    n_prime = int(re.search(r"kNPrime = (0x[0-9A-Fa-f]+)u", src).group(1), 16)
+
+    def const(name):
+        return int(re.search(name + r" = (0x[0-9A-Fa-f]+|\d+)u;", src).group(1), 0)
 
     def words(fn):
         m = re.search(fn + r"\(int j\) \{\s*return j == 0 \? (0x[0-9A-Fa-f]+)u : "
@@ -518,10 +520,11 @@ def _cu_constants():
         w0, w1, rest = (int(g, 16) if g != "0" else 0 for g in m.groups())
         return [w0, w1] + [rest] * 6
 
-    return n_prime, words("p_word"), words("one_m_word"), words("b3_m_word")
+    return (const("kNPrime"), const("kC0"), const("kB3"), words("p_word"),
+            words("one_m_word"))
 
 
-N_PRIME32, P_WORDS, ONE_WORDS, B3_WORDS = _cu_constants()
+N_PRIME32, C0, B3, P_WORDS, ONE_WORDS = _cu_constants()
 
 
 def _u64(v):
@@ -529,7 +532,17 @@ def _u64(v):
     return v
 
 
+def _i64(v):
+    assert -(1 << 63) <= v < 1 << 63  # a signed 64-bit intermediate
+    return v
+
+
+def w_value(words):
+    return sum(w << (32 * j) for j, w in enumerate(words))
+
+
 def w_reduce_once(t):
+    assert w_value(t) < 2 * P and t[8] <= 1
     d, borrow = [], 0
     for j in range(8):
         s = (t[j] - P_WORDS[j] - borrow) % (1 << 64)
@@ -539,26 +552,85 @@ def w_reduce_once(t):
     return [(t[j] & keep) | (d[j] & ~keep & M32) for j in range(8)]
 
 
-def w_fmul(x, y):
-    t = [0] * 10
+def w_mul_wide(x, y):
+    t = [0] * 16
     for i in range(8):
         c = 0
         for j in range(8):
-            s = _u64(x[j] * y[i] + t[j] + c)
-            t[j], c = s & M32, s >> 32
-        s = _u64(t[8] + c)
-        t[8], t[9] = s & M32, s >> 32
-        m = (t[0] * N_PRIME32) & M32
-        s = _u64(m * P_WORDS[0] + t[0])
-        assert s & M32 == 0
-        c = s >> 32
-        for j in range(1, 8):
-            s = _u64(m * P_WORDS[j] + t[j] + c)
-            t[j - 1], c = s & M32, s >> 32
-        s = _u64(t[8] + c)
-        t[7], t[8] = s & M32, t[9] + (s >> 32)
-        assert t[8] <= 1
-    return w_reduce_once(t)
+            s = _u64(x[j] * y[i] + t[i + j] + c)
+            t[i + j], c = s & M32, s >> 32
+        t[i + 8] = c
+    return t
+
+
+def w_sqr_wide(x):
+    """The products above the diagonal once, doubled by a funnel shift,
+    then the squares on the diagonal."""
+    t = [0] * 16
+    for i in range(7):
+        c = 0
+        for j in range(i + 1, 8):
+            s = _u64(x[i] * x[j] + t[i + j] + c)
+            t[i + j], c = s & M32, s >> 32
+        t[i + 8] = c
+    assert t[15] >> 31 == 0  # the doubling loses no bit
+    t = [((t[j] << 1) | (t[j - 1] >> 31)) & M32 if j else 0 for j in range(16)]
+    c = 0
+    for i in range(8):
+        s = _u64(x[i] * x[i] + t[2 * i] + c)
+        t[2 * i] = s & M32
+        s = _u64(t[2 * i + 1] + (s >> 32))
+        t[2 * i + 1], c = s & M32, s >> 32
+    assert c == 0
+    return t
+
+
+def w_mont_reduce(t, carries=None):
+    """The kernel's reduction on p's special form: word i's m = T_i n'
+    takes m kC0 from word i and m from word i + 1 (a signed running
+    carry); then T_hi + M + carry, one conditional subtraction."""
+    m, c = [], 0
+    for i in range(8):
+        w = _i64(t[i] + c)
+        mi = ((w & M32) * N_PRIME32) & M32
+        d = _i64(w - mi * C0)
+        assert d % (1 << 32) == 0  # word i vanishes
+        c = _i64((d >> 32) - mi)
+        m.append(mi)
+        if carries is not None:
+            carries.append(c)
+    u = []
+    for i in range(8):
+        c = _i64(c + t[8 + i] + m[i])
+        u.append(c & M32)
+        c >>= 32
+    return w_reduce_once(u + [c])
+
+
+def w_fmul(x, y):
+    return w_mont_reduce(w_mul_wide(x, y))
+
+
+def w_fsqr(x):
+    return w_mont_reduce(w_sqr_wide(x))
+
+
+def w_fmul_small(k, x):
+    """k x mod p: 9 words, the ninth h folded back as h c (2^256 = 2^32 +
+    kC0 mod p), one conditional subtraction."""
+    t, c = [], 0
+    for j in range(8):
+        c = _u64(c + x[j] * k)
+        t.append(c & M32)
+        c >>= 32
+    c = _u64(t[0] + c * C0 + ((c & M32) << 32))
+    t[0] = c & M32
+    c >>= 32
+    for j in range(1, 8):
+        c += t[j]
+        t[j] = c & M32
+        c >>= 32
+    return w_reduce_once(t + [c])
 
 
 def w_fadd(x, y):
@@ -585,18 +657,28 @@ def w_fsub(x, y):
     return r
 
 
-def w_padd(p, q):
+def w_padd(p, q, same=False):
+    """The kernel's one-thread `padd<kSame>`: `_padd`'s statements, the
+    round-1 products as squarings where q is p, the products by 3 and b3
+    by small constants."""
     (x1, y1, z1), (x2, y2, z2) = p, q
-    t0, t1, t2 = w_fmul(x1, x2), w_fmul(y1, y2), w_fmul(z1, z2)
-    t3 = w_fsub(w_fmul(w_fadd(x1, y1), w_fadd(x2, y2)), w_fadd(t0, t1))
-    t4 = w_fsub(w_fmul(w_fadd(y1, z1), w_fadd(y2, z2)), w_fadd(t1, t2))
-    x3 = w_fmul(w_fadd(x1, z1), w_fadd(x2, z2))
+    if same:
+        assert p == q
+        t0, t1, t2 = w_fsqr(x1), w_fsqr(y1), w_fsqr(z1)
+        t3 = w_fsub(w_fsqr(w_fadd(x1, y1)), w_fadd(t0, t1))
+        t4 = w_fsub(w_fsqr(w_fadd(y1, z1)), w_fadd(t1, t2))
+        x3 = w_fsqr(w_fadd(x1, z1))
+    else:
+        t0, t1, t2 = w_fmul(x1, x2), w_fmul(y1, y2), w_fmul(z1, z2)
+        t3 = w_fsub(w_fmul(w_fadd(x1, y1), w_fadd(x2, y2)), w_fadd(t0, t1))
+        t4 = w_fsub(w_fmul(w_fadd(y1, z1), w_fadd(y2, z2)), w_fadd(t1, t2))
+        x3 = w_fmul(w_fadd(x1, z1), w_fadd(x2, z2))
     y3 = w_fsub(x3, w_fadd(t0, t2))
-    x3 = w_fadd(w_fadd(t0, t0), t0)
-    t2 = w_fmul(B3_WORDS, t2)
+    x3 = w_fmul_small(3, t0)
+    t2 = w_fmul_small(B3, t2)
     z3 = w_fadd(t1, t2)
     t1 = w_fsub(t1, t2)
-    y3 = w_fmul(B3_WORDS, y3)
+    y3 = w_fmul_small(B3, y3)
     return (w_fsub(w_fmul(t3, t1), w_fmul(t4, y3)),
             w_fadd(w_fmul(y3, x3), w_fmul(t1, z3)),
             w_fadd(w_fmul(z3, t4), w_fmul(x3, t3)))
@@ -617,8 +699,10 @@ def limbs_of_point(pw):
 
 def test_kernel_constants_are_the_fields():
     assert N_PRIME32 == (-pow(P, -1, 1 << 32)) % (1 << 32)
-    for words, value in ((P_WORDS, P), (ONE_WORDS, R % P), (B3_WORDS, 21 * R % P)):
-        assert sum(w << (32 * j) for j, w in enumerate(words)) == value
+    assert P == R - (1 << 32) - C0 and C0 < 1 << 10
+    assert B3 == 21  # 3b, b = 7: the product by b3 R mod p is the product by 21
+    for words, value in ((P_WORDS, P), (ONE_WORDS, R % P)):
+        assert w_value(words) == value
     assert ec_batch._N_PRIME == N_PRIME32 & 0xFFFF  # the JAX digit's n'
 
 
@@ -632,12 +716,72 @@ def test_word_model_field_ops_match_plain(op):
         assert model(words_of(x16[i]), words_of(y16[i])) == words_of(plain[i])
 
 
+@pytest.mark.parametrize("op", ["fsqr", "times3", "times_b3"])
+def test_word_model_squaring_and_small_products_match_plain(op):
+    """The squaring against the plain x * x, the product by 3 against t0 +
+    t0 + t0, the product by b3 = 21 against the plain product by b3 R mod
+    p: the same canonical words."""
+    xs, _ = _field_rows()
+    xs = sorted(set(xs))
+    x = limbs(xs)
+    if op == "fsqr":
+        plain, model = ec_batch._fmul(x, x), w_fsqr
+    elif op == "times3":
+        plain = ec_batch._fadd(ec_batch._fadd(x, x), x)
+        model = lambda w: w_fmul_small(3, w)  # noqa: E731
+    else:
+        plain = ec_batch._fmul(limbs([21 * R % P] * len(xs)), x)
+        model = lambda w: w_fmul_small(B3, w)  # noqa: E731
+    x16 = x.numpy()
+    for i in range(len(xs)):
+        assert model(words_of(x16[i])) == words_of(plain.numpy()[i])
+
+
+def _words(v, n):
+    return [(v >> (32 * j)) & M32 for j in range(n)]
+
+
+def test_word_model_reduction_on_the_special_form_at_edges():
+    """The special-form reduction at the edge operands (0, 1, p - 1, (p -
+    1)^2, the largest 512-bit input below p^2) and on inputs whose running
+    carry is negative after every word step (the m kC0 and m subtractions
+    borrow through all eight words): the canonical T R^{-1} mod p, the
+    value of the generic CIOS reduction."""
+    r_inv = pow(R, -1, P)
+    edges = [0, 1, 3, P - 1, P, (P - 1) ** 2, P * P - 1, (1 << 256) - 1, R % P * (P - 1),
+             (1 << 32) + C0]
+    rng = np.random.default_rng(23)
+    edges += [rand_below(rng, P * P) for _ in range(6)]
+    borrowing = 0
+    for t in edges:
+        carries = []
+        got = w_mont_reduce(_words(t, 16), carries)
+        assert w_value(got) == t * r_inv % P
+        borrowing += all(c < 0 for c in carries)
+    assert borrowing >= 3  # 1, 3 and (p - 1)^2 borrow through every word
+    # and through the products: x * y with x or y at 0, 1 and p - 1
+    for x, y in [(0, P - 1), (1, 1), (1, P - 1), (P - 1, P - 1), (R % P, P - 1)]:
+        assert w_value(w_fmul(_words(x, 8), _words(y, 8))) == x * y * r_inv % P
+        assert w_value(w_fsqr(_words(x, 8))) == x * x * r_inv % P
+        assert w_value(w_fmul_small(B3, _words(x, 8))) == 21 * x % P
+
+
 def test_word_model_padd_matches_plain():
     p1, p2, _, _ = _padd_rows()
     plain = ec_batch._padd(p1, p2).numpy()
     for i in range(p1.shape[0]):
         got = w_padd(point_words(p1[i].numpy()), point_words(p2[i].numpy()))
         assert limbs_of_point(got) == plain[i].tolist()
+
+
+def test_word_model_doubling_instance_matches_plain():
+    """padd<true> (the round-1 products as squarings) on P + P against the
+    plain complete addition of a row with itself."""
+    p1, _, _, _ = _padd_rows()
+    plain = ec_batch._padd(p1, p1).numpy()
+    for i in range(p1.shape[0]):
+        pw = point_words(p1[i].numpy())
+        assert limbs_of_point(w_padd(pw, pw, same=True)) == plain[i].tolist()
 
 
 def w_scalar_mul(base, digit_of, windows):
@@ -652,7 +796,7 @@ def w_scalar_mul(base, digit_of, windows):
     for wi in range(windows):
         d = digit_of(wi)
         for _ in range(4):
-            acc = w_padd(acc, acc)
+            acc = w_padd(acc, acc, same=True)
         sel = [[0] * 8 for _ in range(3)]
         for e in range(16):
             mask = (-(d == e)) & M32
