@@ -70,8 +70,11 @@ constexpr int kLimbs = 16;                  // 16-bit limbs of a coordinate
 constexpr int kPointLimbs = 3 * kLimbs;
 constexpr int kWindowBits = 4;
 constexpr int kEntries = 1 << kWindowBits;
-constexpr int kMulThreads = 32;            // the scalar mul's block
+constexpr int kRowLanes = 4;                // lanes a row: X, Y, Z and a shadow of X
+constexpr int kMulThreads = 32;             // the scalar mul's block: one warp
+constexpr int kMulRows = kMulThreads / kRowLanes;
 constexpr int kTreeThreads = 256;           // the tree's largest block
+constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr uint32_t kNPrime = 0xD2253531u;   // -p^{-1} mod 2^32 (977^{-1})
 constexpr uint32_t kC0 = 977u;              // p = 2^256 - 2^32 - kC0
 constexpr uint32_t kB3 = 21u;               // b3 = 3b
@@ -82,14 +85,6 @@ __device__ __forceinline__ constexpr uint32_t p_word(int j) {
 }
 __device__ __forceinline__ constexpr uint32_t one_m_word(int j) {
   return j == 0 ? 0x000003D1u : (j == 1 ? 0x00000001u : 0u);
-}
-
-struct Pt {
-  uint32_t x[kWords], y[kWords], z[kWords];
-};
-
-__device__ __forceinline__ uint32_t& coord(Pt& p, int k) {
-  return k < kWords ? p.x[k] : (k < 2 * kWords ? p.y[k - kWords] : p.z[k - 2 * kWords]);
 }
 
 // r = t - p where t >= p, else t; t: 9 words, t < 2p (its ninth word 0 or 1).
@@ -265,157 +260,167 @@ __device__ __forceinline__ void fsub(uint32_t r[kWords], const uint32_t x[kWords
   }
 }
 
-// out = p + q, the complete formula in the JAX package's statement order;
-// kSame: q is p (the doubling instance: the same statements, the six
-// round-1 products as squarings). out may alias p or q.
+// A row's point addition runs on the row's 4 lanes (a lane group of the
+// warp): lane c = 0, 1, 2 holds coordinate c (X, Y, Z) of every point of
+// the row, lane 3 shadows lane 0 (it computes what lane 0 does and
+// stores nothing), so every lane takes part in every shuffle.
+
+// r = v of lane `src` of this lane's group
+__device__ __forceinline__ void shfl_words(uint32_t r[kWords], const uint32_t v[kWords], int src) {
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) r[k] = __shfl_sync(kFull, v[k], src, kRowLanes);
+}
+
+// r = c ? a : b, by mask. r may alias a or b.
+__device__ __forceinline__ void select(uint32_t r[kWords], bool c, const uint32_t a[kWords],
+                                       const uint32_t b[kWords]) {
+  const uint32_t mask = 0u - (uint32_t)c;
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) r[k] = (a[k] & mask) | (b[k] & ~mask);
+}
+
+// out = coordinate c of P + Q, from coordinate c of P (p) and of Q (q):
+// the complete formula, `_padd`'s values, over the row's lanes in three
+// rounds of products. kSame: q is p (the doubling instance: the round-1
+// products as squarings). out may alias p or q.
+//
+//   round 1, lane c (c+1 taken mod 3, its coordinates shuffled in):
+//     D_c = P_c Q_c                  t0, t1, t2
+//     S_c = (P_c + P_c+1)(Q_c + Q_c+1)  (X+Y)(X'+Y'), (Y+Z)(Y'+Z'), (Z+X)(Z'+X')
+//     T_c = S_c - (D_c + D_c+1)      t3, t4, y3
+//   exchange: D_0..2 and T_0..2 to every lane of the row;
+//   round 2, every lane: t2 = b3 D_2, z3 = D_1 + t2, t1 = D_1 - t2,
+//     x3 = 3 D_0, y3 = b3 T_2 (products by small constants);
+//   round 3, lane c: out = A B -/+ C E
+//     lane 0: X3 = t3 t1 - t4 y3
+//     lane 1: Y3 = y3 x3 + t1 z3
+//     lane 2: Z3 = z3 t4 + x3 t3
 template <bool kSame>
-__device__ __forceinline__ void padd(Pt& out, const Pt& p, const Pt& q) {
-  uint32_t t0[kWords], t1[kWords], t2[kWords], t3[kWords], t4[kWords];
-  uint32_t x3[kWords], y3[kWords], z3[kWords], a[kWords], b[kWords];
+__device__ __forceinline__ void padd_lanes(uint32_t out[kWords], const uint32_t p[kWords],
+                                           const uint32_t q[kWords], int c) {
+  const int next = c == 2 ? 0 : c + 1;
+  uint32_t d[kWords], s[kWords], a[kWords];
+  shfl_words(a, p, next);
+  fadd(a, p, a);
   if (kSame) {
-    fsqr(t0, p.x);
-    fsqr(t1, p.y);
-    fsqr(t2, p.z);
+    fsqr(d, p);
+    fsqr(s, a);
   } else {
-    fmul(t0, p.x, q.x);
-    fmul(t1, p.y, q.y);
-    fmul(t2, p.z, q.z);
+    uint32_t b[kWords];
+    shfl_words(b, q, next);
+    fadd(b, q, b);
+    fmul(d, p, q);
+    fmul(s, a, b);
   }
-  fadd(a, p.x, p.y);
-  if (kSame) {
-    fsqr(t3, a);
-  } else {
-    fadd(b, q.x, q.y);
-    fmul(t3, a, b);
-  }
-  fadd(a, t0, t1);
-  fsub(t3, t3, a);
-  fadd(a, p.y, p.z);
-  if (kSame) {
-    fsqr(t4, a);
-  } else {
-    fadd(b, q.y, q.z);
-    fmul(t4, a, b);
-  }
-  fadd(a, t1, t2);
-  fsub(t4, t4, a);
-  fadd(a, p.x, p.z);
-  if (kSame) {
-    fsqr(x3, a);
-  } else {
-    fadd(b, q.x, q.z);
-    fmul(x3, a, b);
-  }
-  fadd(a, t0, t2);
-  fsub(y3, x3, a);
-  fmul_small(x3, 3, t0);
-  fmul_small(t2, kB3, t2);
-  fadd(z3, t1, t2);
-  fsub(t1, t1, t2);
+  shfl_words(a, d, next);
+  fadd(a, d, a);
+  fsub(s, s, a);
+  uint32_t d0[kWords], d1[kWords], d2[kWords], t3[kWords], t4[kWords], y3[kWords];
+  shfl_words(d0, d, 0);
+  shfl_words(d1, d, 1);
+  shfl_words(d2, d, 2);
+  shfl_words(t3, s, 0);
+  shfl_words(t4, s, 1);
+  shfl_words(y3, s, 2);
+  // round 2: d2 becomes b3 t2, d0 x3, d1 t1; z3 in s
+  fmul_small(d2, kB3, d2);
+  fadd(s, d1, d2);
+  fsub(d1, d1, d2);
+  fmul_small(d0, 3, d0);
   fmul_small(y3, kB3, y3);
-  // p and q are not read below: out may alias either
-  fmul(a, t3, t1);
-  fmul(b, t4, y3);
-  fsub(out.x, a, b);
-  fmul(a, y3, x3);
-  fmul(b, t1, z3);
-  fadd(out.y, a, b);
-  fmul(a, z3, t4);
-  fmul(b, x3, t3);
-  fadd(out.z, a, b);
+  // round 3: lane 0 (t3, t1, t4, y3), lane 1 (y3, x3, t1, z3), lane 2 (z3,
+  // t4, x3, t3)
+  const bool c0 = c == 0, c1 = c == 1;
+  uint32_t ab[kWords], ce[kWords];
+  select(a, c0, t3, c1 ? y3 : s);
+  select(ab, c0, d1, c1 ? d0 : t4);
+  fmul(ab, a, ab);
+  select(a, c0, t4, c1 ? d1 : d0);
+  select(ce, c0, y3, c1 ? s : t3);
+  fmul(ce, a, ce);
+  fsub(a, ab, ce);
+  fadd(ce, ab, ce);
+  select(out, c0, a, ce);
 }
 
-__device__ __forceinline__ void set_identity(Pt& p) {
+// coordinate c of the identity (0 : R mod p : 0)
+__device__ __forceinline__ void identity_coord(uint32_t r[kWords], int c) {
 #pragma unroll
-  for (int j = 0; j < kWords; ++j) {
-    p.x[j] = 0;
-    p.y[j] = one_m_word(j);
-    p.z[j] = 0;
-  }
+  for (int k = 0; k < kWords; ++k) r[k] = c == 1 ? one_m_word(k) : 0u;
 }
 
-// a point from its 48 16-bit limbs (X, Y, Z), and back
-__device__ __forceinline__ void load_limbs(Pt& p, const int32_t* limbs) {
+// coordinate c of a point from its 16-bit limbs (the point's 48 at
+// `limbs`), and back
+__device__ __forceinline__ void load_coord(uint32_t r[kWords], const int32_t* limbs, int c) {
+  const int32_t* l = limbs + c * kLimbs;
 #pragma unroll
-  for (int k = 0; k < kPointWords; ++k)
-    coord(p, k) = (uint32_t)limbs[2 * k] | ((uint32_t)limbs[2 * k + 1] << 16);
+  for (int k = 0; k < kWords; ++k)
+    r[k] = (uint32_t)l[2 * k] | ((uint32_t)l[2 * k + 1] << 16);
 }
 
-__device__ __forceinline__ void store_limbs(int32_t* limbs, Pt& p) {
+__device__ __forceinline__ void store_coord(int32_t* limbs, const uint32_t v[kWords], int c) {
+  int32_t* l = limbs + c * kLimbs;
 #pragma unroll
-  for (int k = 0; k < kPointWords; ++k) {
-    const uint32_t w = coord(p, k);
-    limbs[2 * k] = (int32_t)(w & 0xFFFFu);
-    limbs[2 * k + 1] = (int32_t)(w >> 16);
+  for (int k = 0; k < kWords; ++k) {
+    l[2 * k] = (int32_t)(v[k] & 0xFFFFu);
+    l[2 * k + 1] = (int32_t)(v[k] >> 16);
   }
 }
-
-// the window table of one thread: entry e's word k at (e * 24 + k) *
-// kMulThreads + thread of the block's shared array
-struct Table {
-  uint32_t* w;
-
-  __device__ __forceinline__ uint32_t& at(int e, int k) {
-    return w[(e * kPointWords + k) * kMulThreads + threadIdx.x];
-  }
-
-  __device__ __forceinline__ void put(int e, Pt& p) {
-#pragma unroll
-    for (int k = 0; k < kPointWords; ++k) at(e, k) = coord(p, k);
-  }
-
-  // every entry zeroed (volatile: the stores outlive no read, and must
-  // not be dropped)
-  __device__ __forceinline__ void wipe() {
-#pragma unroll 1
-    for (int e = 0; e < kEntries; ++e) {
-#pragma unroll
-      for (int k = 0; k < kPointWords; ++k) *(volatile uint32_t*)&at(e, k) = 0u;
-    }
-  }
-};
 
 __global__ void __launch_bounds__(kMulThreads)
 ec_scalar_mul_kernel(const int32_t* __restrict__ points, const int32_t* __restrict__ scalars,
                      int rows, int scalar_limbs, int scalar_bits, int32_t* __restrict__ out) {
-  const int row = blockIdx.x * kMulThreads + threadIdx.x;
-  if (row >= rows) return;  // no barrier below
+  const int lane = threadIdx.x;
+  const int c = lane % kRowLanes == 3 ? 0 : lane % kRowLanes;
+  int row = blockIdx.x * kMulRows + lane / kRowLanes;
+  const bool live = row < rows;
+  // the spare rows of a partly filled block redo the last row, unstored
+  if (!live) row = rows - 1;
 
-  __shared__ uint32_t tables[kEntries * kPointWords * kMulThreads];
-  Table table{tables};
-  Pt base, cur;
-  load_limbs(base, points + (size_t)row * kPointLimbs);
-  set_identity(cur);
-  table.put(0, cur);
-  table.put(1, base);
+  // each lane's coordinate of the 16 entries: word k of entry e at (e * 8
+  // + k) * 32 + lane (consecutive lanes, consecutive banks)
+  __shared__ uint32_t table[kEntries * kWords * kMulThreads];
+  uint32_t base[kWords], acc[kWords];
+  load_coord(base, points + (size_t)row * kPointLimbs, c);
+  identity_coord(acc, c);
 #pragma unroll
-  for (int k = 0; k < kPointWords; ++k) coord(cur, k) = coord(base, k);
+  for (int k = 0; k < kWords; ++k) {
+    table[k * kMulThreads + lane] = acc[k];
+    table[(kWords + k) * kMulThreads + lane] = base[k];
+    acc[k] = base[k];
+  }
 #pragma unroll 1
   for (int e = 2; e < kEntries; ++e) {
-    padd<false>(cur, cur, base);
-    table.put(e, cur);
+    padd_lanes<false>(acc, acc, base, c);
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) table[(e * kWords + k) * kMulThreads + lane] = acc[k];
   }
 
   const int32_t* sc = scalars + (size_t)row * scalar_limbs;
-  Pt acc, sel;
-  set_identity(acc);
+  identity_coord(acc, c);
 #pragma unroll 1
   for (int shift = scalar_bits - kWindowBits; shift >= 0; shift -= kWindowBits) {
     const uint32_t digit = ((uint32_t)sc[shift >> 4] >> (shift & 15)) & (kEntries - 1);
 #pragma unroll 1
-    for (int d = 0; d < kWindowBits; ++d) padd<true>(acc, acc, acc);
+    for (int d = 0; d < kWindowBits; ++d) padd_lanes<true>(acc, acc, acc, c);
+    // the window's entry: a masked OR over all 16, never indexed by the
+    // digit; `base` holds it
 #pragma unroll
-    for (int k = 0; k < kPointWords; ++k) coord(sel, k) = 0u;
+    for (int k = 0; k < kWords; ++k) base[k] = 0u;
 #pragma unroll
     for (int e = 0; e < kEntries; ++e) {
       const uint32_t mask = 0u - (uint32_t)(digit == (uint32_t)e);
 #pragma unroll
-      for (int k = 0; k < kPointWords; ++k) coord(sel, k) |= table.at(e, k) & mask;
+      for (int k = 0; k < kWords; ++k) base[k] |= table[(e * kWords + k) * kMulThreads + lane] & mask;
     }
-    padd<false>(acc, acc, sel);
+    padd_lanes<false>(acc, acc, base, c);
   }
-  store_limbs(out + (size_t)row * kPointLimbs, acc);
-  table.wipe();
+  if (live && lane % kRowLanes != 3) store_coord(out + (size_t)row * kPointLimbs, acc, c);
+  // every entry zeroed (volatile: the stores outlive no read, and must
+  // not be dropped)
+#pragma unroll 1
+  for (int i = 0; i < kEntries * kWords; ++i)
+    *(volatile uint32_t*)&table[i * kMulThreads + lane] = 0u;
 }
 
 __global__ void __launch_bounds__(kTreeThreads)
@@ -430,57 +435,79 @@ ec_tree_sum_kernel(const int32_t* __restrict__ points, int m, uint32_t* __restri
   }
   const int half = m >> 1;
   uint32_t* buf = scratch + (size_t)g * half * kPointWords;
-  Pt a, b;
-  for (int i = threadIdx.x; i < half; i += blockDim.x) {
-    load_limbs(a, in + (size_t)i * kPointLimbs);
-    load_limbs(b, in + (size_t)(i + half) * kPointLimbs);
-    padd<false>(a, a, b);
+  const int lane = threadIdx.x % kRowLanes;
+  const int c = lane == 3 ? 0 : lane;
+  const int slot = threadIdx.x / kRowLanes, slots = blockDim.x / kRowLanes;
+  uint32_t a[kWords], b[kWords];
+  // a pair a lane group; a spare group adds identities and stores nothing
+  // (every lane of a warp runs every shuffle)
+  for (int i0 = 0; i0 < half; i0 += slots) {
+    const int i = i0 + slot;
+    if (i < half) {
+      load_coord(a, in + (size_t)i * kPointLimbs, c);
+      load_coord(b, in + (size_t)(i + half) * kPointLimbs, c);
+    } else {
+      identity_coord(a, c);
+      identity_coord(b, c);
+    }
+    padd_lanes<false>(a, a, b, c);
+    if (i < half && lane != 3) {
 #pragma unroll
-    for (int k = 0; k < kPointWords; ++k) buf[(size_t)k * half + i] = coord(a, k);
+      for (int k = 0; k < kWords; ++k) buf[(size_t)(c * kWords + k) * half + i] = a[k];
+    }
   }
   for (int h = half >> 1; h >= 1; h >>= 1) {
     __syncthreads();
-    for (int i = threadIdx.x; i < h; i += blockDim.x) {
+    for (int i0 = 0; i0 < h; i0 += slots) {
+      const int i = i0 + slot;
+      if (i < h) {
 #pragma unroll
-      for (int k = 0; k < kPointWords; ++k) {
-        coord(a, k) = buf[(size_t)k * half + i];
-        coord(b, k) = buf[(size_t)k * half + i + h];
+        for (int k = 0; k < kWords; ++k) {
+          a[k] = buf[(size_t)(c * kWords + k) * half + i];
+          b[k] = buf[(size_t)(c * kWords + k) * half + i + h];
+        }
+      } else {
+        identity_coord(a, c);
+        identity_coord(b, c);
       }
-      padd<false>(a, a, b);
+      padd_lanes<false>(a, a, b, c);
+      if (i < h && lane != 3) {
 #pragma unroll
-      for (int k = 0; k < kPointWords; ++k) buf[(size_t)k * half + i] = coord(a, k);
+        for (int k = 0; k < kWords; ++k) buf[(size_t)(c * kWords + k) * half + i] = a[k];
+      }
     }
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
+  if (threadIdx.x < 3) {
 #pragma unroll
-    for (int k = 0; k < kPointWords; ++k) coord(a, k) = buf[(size_t)k * half];
-    store_limbs(dst, a);
+    for (int k = 0; k < kWords; ++k) a[k] = buf[(size_t)(threadIdx.x * kWords + k) * half];
+    store_coord(dst, a, threadIdx.x);
   }
 }
 
 }  // namespace
 
-// rows x (P, k) -> k*P, one thread a row. Returns a CUDA error code.
+// rows x (P, k) -> k*P, a row on 4 lanes, 8 rows a block. Returns a CUDA
+// error code.
 extern "C" int fsdkr_ec_scalar_mul(const int32_t* points, const int32_t* scalars, int rows,
                                    int scalar_limbs, int scalar_bits, int32_t* out,
                                    void* stream) {
   if (rows <= 0 || scalar_bits <= 0 || scalar_bits % kWindowBits ||
       scalar_limbs * 16 < scalar_bits)
     return (int)cudaErrorInvalidValue;
-  const int blocks = (rows + kMulThreads - 1) / kMulThreads;
+  const int blocks = (rows + kMulRows - 1) / kMulRows;
   ec_scalar_mul_kernel<<<blocks, kMulThreads, 0, (cudaStream_t)stream>>>(
       points, scalars, rows, scalar_limbs, scalar_bits, out);
   return (int)cudaGetLastError();
 }
 
 // groups x m points (m a power of two) -> groups sums; scratch: groups *
-// max(m / 2, 1) * 24 words. Threads a block: the first level's pairs,
+// max(m / 2, 1) * 24 words. Threads a block: 4 a pair of the first level,
 // rounded up to a warp, at most kTreeThreads.
 extern "C" int fsdkr_ec_tree_sum(const int32_t* points, int groups, int m, uint32_t* scratch,
                                  int32_t* out, void* stream) {
   if (groups <= 0 || m <= 0 || (m & (m - 1))) return (int)cudaErrorInvalidValue;
-  int threads = ((m >> 1) + 31) / 32 * 32;
+  int threads = ((m >> 1) * kRowLanes + 31) / 32 * 32;
   if (threads < 32) threads = 32;
   if (threads > kTreeThreads) threads = kTreeThreads;
   ec_tree_sum_kernel<<<groups, threads, 0, (cudaStream_t)stream>>>(points, m, scratch, out);

@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with the card:
     python3 scripts/ec_kernel_compare.py --src parent=old/ec_kernels.cu \\
         --src new=fsdkr_tpu_torch/csrc/ec_kernels.cu [--rows 256,512,1024]
         [--trees 1x1024,16x32,16x16] [--check-rows 1,13,256,1024,4096]
-        [--turns 2] [--out FILE.json]
+        [--turns 2] [--sass] [--out FILE.json]
 
 Every source must keep the C interface of `fsdkr_ec_scalar_mul` and
 `fsdkr_ec_tree_sum`. The sources are compiled at once (one nvcc each,
@@ -24,8 +24,10 @@ the kernel's own events, as chip_smoke's `time` phase) at `ec_scalar_mul`
 (rows, 256-bit) for --rows and `ec_tree_sum` at the --trees shapes, the
 sources in turns: forward, then backward, --turns times (A B B A ...),
 and us per complete addition of a row's chain (334 for a 256-bit row, a
-level a tree). Prints the card's name and power limit, a table a shape,
-and the JSON of all times (also written to --out).
+level a tree). --sass: each source's two kernels' static SASS, counted
+by opcode (cuobjdump -sass; every inlined copy of the addition counts).
+Prints the card's name and power limit, a line a shape, and the JSON
+of all times (also written to --out).
 """
 
 from __future__ import annotations
@@ -107,6 +109,29 @@ def ptxas_lines(report: str):
     return out
 
 
+def sass_counts(so: str) -> dict:
+    """{kernel: {opcode: static count}} of the EC kernels in a library."""
+    import re
+    import subprocess
+    from collections import Counter
+
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = Path(home) / "bin" / "cuobjdump"
+    out = subprocess.run([str(tool) if tool.exists() else "cuobjdump", "-sass", so],
+                         capture_output=True, text=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = next((k for k in ("ec_scalar_mul", "ec_tree_sum") if k in line), None)
+            if name:
+                counts[name] = Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if name and m:
+            counts[name][m.group(1).split(".")[0]] += 1
+    return counts
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", action="append", required=True, help="NAME=path to an ec_kernels.cu")
@@ -114,6 +139,7 @@ def main() -> None:
     ap.add_argument("--trees", default="1x1024,16x32,16x16")
     ap.add_argument("--check-rows", default="1,13,256,1024,4096")
     ap.add_argument("--turns", type=int, default=2)
+    ap.add_argument("--sass", action="store_true")
     ap.add_argument("--seed", type=int, default=20261017)
     ap.add_argument("--out", default="chiprun_out/ec_compare.json")
     args = ap.parse_args()
@@ -134,7 +160,7 @@ def main() -> None:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(srcs)) as pool:
         futs = {name: pool.submit(load, Path(path).resolve()) for name, path in srcs.items()}
-        libs = {}
+        libs, sass = {}, {}
         for name, fut in futs.items():
             try:
                 libs[name], report = fut.result()
@@ -143,6 +169,11 @@ def main() -> None:
                 continue
             for line in ptxas_lines(report):
                 cs.log(f"{name}: ptxas: {line}")
+            if args.sass:
+                sass[name] = sass_counts(libs[name]._name)
+                for kernel, cnt in sass[name].items():
+                    cs.log(f"{name}: sass {kernel}: {sum(cnt.values())} instructions; "
+                           + ", ".join(f"{op} {n}" for op, n in cnt.most_common(16)))
     if not libs:
         cs.fail("no source built")
     cs.log(f"built {len(libs)} of {len(srcs)} sources in {time.perf_counter() - t0:.1f} s")
@@ -201,7 +232,8 @@ def main() -> None:
         results.append({"kernel": kernel, "shape": shape, "chain_additions": chain,
                         "device_ms": times, "median_ms": med})
     summary = {"device": torch.cuda.get_device_name(0), "smi": cs.smi_line(), "order": order,
-               "sources": srcs, "results": results}
+               "sources": srcs, "results": results,
+               "sass": {n: {k: dict(c) for k, c in v.items()} for n, v in sass.items()}}
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(summary, f, indent=1)
