@@ -271,12 +271,15 @@ __device__ __forceinline__ void shfl_words(uint32_t r[kWords], const uint32_t v[
   for (int k = 0; k < kWords; ++k) r[k] = __shfl_sync(kFull, v[k], src, kRowLanes);
 }
 
-// r = c ? a : b, by mask. r may alias a or b.
-__device__ __forceinline__ void select(uint32_t r[kWords], bool c, const uint32_t a[kWords],
-                                       const uint32_t b[kWords]) {
-  const uint32_t mask = 0u - (uint32_t)c;
+// r = a where c is 0, b where c is 1, e where c is 2, by masks (a select
+// of arrays by a pointer would put them in local memory). r may alias
+// any of them.
+__device__ __forceinline__ void select3(uint32_t r[kWords], int c, const uint32_t a[kWords],
+                                        const uint32_t b[kWords], const uint32_t e[kWords]) {
+  const uint32_t m0 = 0u - (uint32_t)(c == 0), m1 = 0u - (uint32_t)(c == 1);
+  const uint32_t m2 = ~(m0 | m1);
 #pragma unroll
-  for (int k = 0; k < kWords; ++k) r[k] = (a[k] & mask) | (b[k] & ~mask);
+  for (int k = 0; k < kWords; ++k) r[k] = (a[k] & m0) | (b[k] & m1) | (e[k] & m2);
 }
 
 // out = coordinate c of P + Q, from coordinate c of P (p) and of Q (q):
@@ -330,17 +333,16 @@ __device__ __forceinline__ void padd_lanes(uint32_t out[kWords], const uint32_t 
   fmul_small(y3, kB3, y3);
   // round 3: lane 0 (t3, t1, t4, y3), lane 1 (y3, x3, t1, z3), lane 2 (z3,
   // t4, x3, t3)
-  const bool c0 = c == 0, c1 = c == 1;
   uint32_t ab[kWords], ce[kWords];
-  select(a, c0, t3, c1 ? y3 : s);
-  select(ab, c0, d1, c1 ? d0 : t4);
+  select3(a, c, t3, y3, s);
+  select3(ab, c, d1, d0, t4);
   fmul(ab, a, ab);
-  select(a, c0, t4, c1 ? d1 : d0);
-  select(ce, c0, y3, c1 ? s : t3);
+  select3(a, c, t4, d1, d0);
+  select3(ce, c, y3, s, t3);
   fmul(ce, a, ce);
   fsub(a, ab, ce);
   fadd(ce, ab, ce);
-  select(out, c0, a, ce);
+  select3(out, c, a, ce, ce);
 }
 
 // coordinate c of the identity (0 : R mod p : 0)
