@@ -70,10 +70,10 @@ constexpr int kLimbs = 16;                  // 16-bit limbs of a coordinate
 constexpr int kPointLimbs = 3 * kLimbs;
 constexpr int kWindowBits = 4;
 constexpr int kEntries = 1 << kWindowBits;
-constexpr int kRowLanes = 4;                // lanes a row: X, Y, Z and a shadow of X
+constexpr int kRowLanes = 8;                // lanes a row
 constexpr int kMulThreads = 32;             // the scalar mul's block: one warp
 constexpr int kMulRows = kMulThreads / kRowLanes;
-constexpr int kTreeThreads = 256;           // the tree's largest block
+constexpr int kTreeThreads = 512;           // the tree's largest block
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr uint32_t kNPrime = 0xD2253531u;   // -p^{-1} mod 2^32 (977^{-1})
 constexpr uint32_t kC0 = 977u;              // p = 2^256 - 2^32 - kC0
@@ -298,51 +298,76 @@ __device__ __forceinline__ void select3(uint32_t r[kWords], int c, const uint32_
 //     lane 0: X3 = t3 t1 - t4 y3
 //     lane 1: Y3 = y3 x3 + t1 z3
 //     lane 2: Z3 = z3 t4 + x3 t3
+__device__ __forceinline__ void select2(uint32_t r[kWords], bool c, const uint32_t a[kWords],
+                                        const uint32_t b[kWords]) {
+  const uint32_t m = 0u - (uint32_t)c;
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) r[k] = (a[k] & m) | (b[k] & ~m);
+}
+
+__device__ __forceinline__ void select6(uint32_t r[kWords], int j, const uint32_t a0[kWords],
+                                        const uint32_t a1[kWords], const uint32_t a2[kWords],
+                                        const uint32_t a3[kWords], const uint32_t a4[kWords],
+                                        const uint32_t a5[kWords]) {
+  const uint32_t m0 = 0u - (uint32_t)(j == 0), m1 = 0u - (uint32_t)(j == 1);
+  const uint32_t m2 = 0u - (uint32_t)(j == 2), m3 = 0u - (uint32_t)(j == 3);
+  const uint32_t m4 = 0u - (uint32_t)(j == 4), m5 = 0u - (uint32_t)(j == 5);
+#pragma unroll
+  for (int k = 0; k < kWords; ++k)
+    r[k] = (a0[k] & m0) | (a1[k] & m1) | (a2[k] & m2) | (a3[k] & m3) | (a4[k] & m4) |
+           (a5[k] & m5);
+}
+
+// lane g of the row's 8 (coordinate c = g mod 3): round 1 lane g < 3 D_g,
+// lanes 3-5 S_{g-3}; round 3 lane g < 6 product g, lanes 6, 7 shadow 0, 1
 template <bool kSame>
 __device__ __forceinline__ void padd_lanes(uint32_t out[kWords], const uint32_t p[kWords],
                                            const uint32_t q[kWords], int c) {
+  const int g = threadIdx.x % kRowLanes;
   const int next = c == 2 ? 0 : c + 1;
-  uint32_t d[kWords], s[kWords], a[kWords];
-  shfl_words(a, p, next);
-  fadd(a, p, a);
+  const bool s_lane = g >= 3 && g < 6;
+  uint32_t x[kWords], t[kWords];
+  shfl_words(t, p, next);
+  fadd(t, p, t);
+  select2(x, s_lane, t, p);
   if (kSame) {
-    fsqr(d, p);
-    fsqr(s, a);
+    fsqr(x, x);
   } else {
-    uint32_t b[kWords];
-    shfl_words(b, q, next);
-    fadd(b, q, b);
-    fmul(d, p, q);
-    fmul(s, a, b);
+    uint32_t y[kWords];
+    shfl_words(t, q, next);
+    fadd(t, q, t);
+    select2(y, s_lane, t, q);
+    fmul(x, x, y);
   }
-  shfl_words(a, d, next);
-  fadd(a, d, a);
-  fsub(s, s, a);
   uint32_t d0[kWords], d1[kWords], d2[kWords], t3[kWords], t4[kWords], y3[kWords];
-  shfl_words(d0, d, 0);
-  shfl_words(d1, d, 1);
-  shfl_words(d2, d, 2);
-  shfl_words(t3, s, 0);
-  shfl_words(t4, s, 1);
-  shfl_words(y3, s, 2);
-  // round 2: d2 becomes b3 t2, d0 x3, d1 t1; z3 in s
+  shfl_words(d0, x, 0);
+  shfl_words(d1, x, 1);
+  shfl_words(d2, x, 2);
+  shfl_words(t3, x, 3);
+  shfl_words(t4, x, 4);
+  shfl_words(y3, x, 5);
+  fadd(t, d0, d1);
+  fsub(t3, t3, t);
+  fadd(t, d1, d2);
+  fsub(t4, t4, t);
+  fadd(t, d0, d2);
+  fsub(y3, y3, t);
   fmul_small(d2, kB3, d2);
-  fadd(s, d1, d2);
+  uint32_t z3[kWords];
+  fadd(z3, d1, d2);
   fsub(d1, d1, d2);
   fmul_small(d0, 3, d0);
   fmul_small(y3, kB3, y3);
-  // round 3: lane 0 (t3, t1, t4, y3), lane 1 (y3, x3, t1, z3), lane 2 (z3,
-  // t4, x3, t3)
-  uint32_t ab[kWords], ce[kWords];
-  select3(a, c, t3, y3, s);
-  select3(ab, c, d1, d0, t4);
-  fmul(ab, a, ab);
-  select3(a, c, t4, d1, d0);
-  select3(ce, c, y3, s, t3);
-  fmul(ce, a, ce);
-  fsub(a, ab, ce);
-  fadd(ce, ab, ce);
-  select3(out, c, a, ce, ce);
+  // products: t3 t1, t4 y3, y3 x3, t1 z3, z3 t4, x3 t3
+  const int j = g < 6 ? g : g - 6;
+  select6(x, j, t3, t4, y3, d1, z3, d0);
+  select6(t, j, d1, y3, d0, z3, t4, t3);
+  fmul(x, x, t);
+  shfl_words(t, x, 2 * c);
+  shfl_words(x, x, 2 * c + 1);
+  fsub(d0, t, x);
+  fadd(d1, t, x);
+  select2(out, c == 0, d0, d1);
 }
 
 // coordinate c of the identity (0 : R mod p : 0)
@@ -373,7 +398,7 @@ __global__ void __launch_bounds__(kMulThreads)
 ec_scalar_mul_kernel(const int32_t* __restrict__ points, const int32_t* __restrict__ scalars,
                      int rows, int scalar_limbs, int scalar_bits, int32_t* __restrict__ out) {
   const int lane = threadIdx.x;
-  const int c = lane % kRowLanes == 3 ? 0 : lane % kRowLanes;
+  const int c = lane % kRowLanes % 3;
   int row = blockIdx.x * kMulRows + lane / kRowLanes;
   const bool live = row < rows;
   // the spare rows of a partly filled block redo the last row, unstored
@@ -417,7 +442,7 @@ ec_scalar_mul_kernel(const int32_t* __restrict__ points, const int32_t* __restri
     }
     padd_lanes<false>(acc, acc, base, c);
   }
-  if (live && lane % kRowLanes != 3) store_coord(out + (size_t)row * kPointLimbs, acc, c);
+  if (live && lane % kRowLanes < 3) store_coord(out + (size_t)row * kPointLimbs, acc, c);
   // every entry zeroed (volatile: the stores outlive no read, and must
   // not be dropped)
 #pragma unroll 1
@@ -438,7 +463,7 @@ ec_tree_sum_kernel(const int32_t* __restrict__ points, int m, uint32_t* __restri
   const int half = m >> 1;
   uint32_t* buf = scratch + (size_t)g * half * kPointWords;
   const int lane = threadIdx.x % kRowLanes;
-  const int c = lane == 3 ? 0 : lane;
+  const int c = lane % 3;
   const int slot = threadIdx.x / kRowLanes, slots = blockDim.x / kRowLanes;
   uint32_t a[kWords], b[kWords];
   // a pair a lane group; a spare group adds identities and stores nothing
@@ -453,7 +478,7 @@ ec_tree_sum_kernel(const int32_t* __restrict__ points, int m, uint32_t* __restri
       identity_coord(b, c);
     }
     padd_lanes<false>(a, a, b, c);
-    if (i < half && lane != 3) {
+    if (i < half && lane < 3) {
 #pragma unroll
       for (int k = 0; k < kWords; ++k) buf[(size_t)(c * kWords + k) * half + i] = a[k];
     }
@@ -473,7 +498,7 @@ ec_tree_sum_kernel(const int32_t* __restrict__ points, int m, uint32_t* __restri
         identity_coord(b, c);
       }
       padd_lanes<false>(a, a, b, c);
-      if (i < h && lane != 3) {
+      if (i < h && lane < 3) {
 #pragma unroll
         for (int k = 0; k < kWords; ++k) buf[(size_t)(c * kWords + k) * half + i] = a[k];
       }
