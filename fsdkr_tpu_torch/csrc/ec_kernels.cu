@@ -73,7 +73,7 @@ constexpr int kEntries = 1 << kWindowBits;
 constexpr int kRowLanes = 8;                // lanes a row
 constexpr int kMulThreads = 32;             // the scalar mul's block: one warp
 constexpr int kMulRows = kMulThreads / kRowLanes;
-constexpr int kTreeThreads = 512;           // the tree's largest block
+constexpr int kTreeThreads = 256;           // the tree's largest block
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr uint32_t kNPrime = 0xD2253531u;   // -p^{-1} mod 2^32 (977^{-1})
 constexpr uint32_t kC0 = 977u;              // p = 2^256 - 2^32 - kC0
@@ -260,10 +260,60 @@ __device__ __forceinline__ void fsub(uint32_t r[kWords], const uint32_t x[kWords
   }
 }
 
-// A row's point addition runs on the row's 4 lanes (a lane group of the
-// warp): lane c = 0, 1, 2 holds coordinate c (X, Y, Z) of every point of
-// the row, lane 3 shadows lane 0 (it computes what lane 0 does and
-// stores nothing), so every lane takes part in every shuffle.
+// One thread's complete addition (the tree's wide levels): a point's X, Y
+// and Z in registers.
+struct Pt {
+  uint32_t x[kWords], y[kWords], z[kWords];
+};
+
+__device__ __forceinline__ uint32_t& coord(Pt& p, int k) {
+  return k < kWords ? p.x[k] : (k < 2 * kWords ? p.y[k - kWords] : p.z[k - 2 * kWords]);
+}
+
+// out = p + q, the complete formula in the JAX package's statement order.
+// out may alias p or q.
+__device__ __forceinline__ void padd(Pt& out, const Pt& p, const Pt& q) {
+  uint32_t t0[kWords], t1[kWords], t2[kWords], t3[kWords], t4[kWords];
+  uint32_t x3[kWords], y3[kWords], z3[kWords], a[kWords], b[kWords];
+  fmul(t0, p.x, q.x);
+  fmul(t1, p.y, q.y);
+  fmul(t2, p.z, q.z);
+  fadd(a, p.x, p.y);
+  fadd(b, q.x, q.y);
+  fmul(t3, a, b);
+  fadd(a, t0, t1);
+  fsub(t3, t3, a);
+  fadd(a, p.y, p.z);
+  fadd(b, q.y, q.z);
+  fmul(t4, a, b);
+  fadd(a, t1, t2);
+  fsub(t4, t4, a);
+  fadd(a, p.x, p.z);
+  fadd(b, q.x, q.z);
+  fmul(x3, a, b);
+  fadd(a, t0, t2);
+  fsub(y3, x3, a);
+  fmul_small(x3, 3, t0);
+  fmul_small(t2, kB3, t2);
+  fadd(z3, t1, t2);
+  fsub(t1, t1, t2);
+  fmul_small(y3, kB3, y3);
+  // p and q are not read below: out may alias either
+  fmul(a, t3, t1);
+  fmul(b, t4, y3);
+  fsub(out.x, a, b);
+  fmul(a, y3, x3);
+  fmul(b, t1, z3);
+  fadd(out.y, a, b);
+  fmul(a, z3, t4);
+  fmul(b, x3, t3);
+  fadd(out.z, a, b);
+}
+
+// A row's complete addition on the row's 8 lanes (a lane group of the
+// warp). Lane g holds coordinate c = g mod 3 (X, Y, Z) of every point of
+// the row; lanes 3-5 repeat lanes 0-2 and lanes 6, 7 lanes 0, 1, so every
+// lane takes part in every shuffle.
 
 // r = v of lane `src` of this lane's group
 __device__ __forceinline__ void shfl_words(uint32_t r[kWords], const uint32_t v[kWords], int src) {
@@ -271,55 +321,29 @@ __device__ __forceinline__ void shfl_words(uint32_t r[kWords], const uint32_t v[
   for (int k = 0; k < kWords; ++k) r[k] = __shfl_sync(kFull, v[k], src, kRowLanes);
 }
 
-// r = a where c is 0, b where c is 1, e where c is 2, by masks (a select
-// of arrays by a pointer would put them in local memory). r may alias
-// any of them.
-__device__ __forceinline__ void select3(uint32_t r[kWords], int c, const uint32_t a[kWords],
-                                        const uint32_t b[kWords], const uint32_t e[kWords]) {
-  const uint32_t m0 = 0u - (uint32_t)(c == 0), m1 = 0u - (uint32_t)(c == 1);
-  const uint32_t m2 = ~(m0 | m1);
-#pragma unroll
-  for (int k = 0; k < kWords; ++k) r[k] = (a[k] & m0) | (b[k] & m1) | (e[k] & m2);
-}
-
-// out = coordinate c of P + Q, from coordinate c of P (p) and of Q (q):
-// the complete formula, `_padd`'s values, over the row's lanes in three
-// rounds of products. kSame: q is p (the doubling instance: the round-1
-// products as squarings). out may alias p or q.
-//
-//   round 1, lane c (c+1 taken mod 3, its coordinates shuffled in):
-//     D_c = P_c Q_c                  t0, t1, t2
-//     S_c = (P_c + P_c+1)(Q_c + Q_c+1)  (X+Y)(X'+Y'), (Y+Z)(Y'+Z'), (Z+X)(Z'+X')
-//     T_c = S_c - (D_c + D_c+1)      t3, t4, y3
-//   exchange: D_0..2 and T_0..2 to every lane of the row;
-//   round 2, every lane: t2 = b3 D_2, z3 = D_1 + t2, t1 = D_1 - t2,
-//     x3 = 3 D_0, y3 = b3 T_2 (products by small constants);
-//   round 3, lane c: out = A B -/+ C E
-//     lane 0: X3 = t3 t1 - t4 y3
-//     lane 1: Y3 = y3 x3 + t1 z3
-//     lane 2: Z3 = z3 t4 + x3 t3
-__device__ __forceinline__ void select2(uint32_t r[kWords], bool c, const uint32_t a[kWords],
-                                        const uint32_t b[kWords]) {
+// r = c ? a : b, by mask (a select of arrays by a pointer would put them in
+// local memory). r may alias a or b.
+__device__ __forceinline__ void select(uint32_t r[kWords], bool c, const uint32_t a[kWords],
+                                       const uint32_t b[kWords]) {
   const uint32_t m = 0u - (uint32_t)c;
 #pragma unroll
   for (int k = 0; k < kWords; ++k) r[k] = (a[k] & m) | (b[k] & ~m);
 }
 
-__device__ __forceinline__ void select6(uint32_t r[kWords], int j, const uint32_t a0[kWords],
-                                        const uint32_t a1[kWords], const uint32_t a2[kWords],
-                                        const uint32_t a3[kWords], const uint32_t a4[kWords],
-                                        const uint32_t a5[kWords]) {
-  const uint32_t m0 = 0u - (uint32_t)(j == 0), m1 = 0u - (uint32_t)(j == 1);
-  const uint32_t m2 = 0u - (uint32_t)(j == 2), m3 = 0u - (uint32_t)(j == 3);
-  const uint32_t m4 = 0u - (uint32_t)(j == 4), m5 = 0u - (uint32_t)(j == 5);
-#pragma unroll
-  for (int k = 0; k < kWords; ++k)
-    r[k] = (a0[k] & m0) | (a1[k] & m1) | (a2[k] & m2) | (a3[k] & m3) | (a4[k] & m4) |
-           (a5[k] & m5);
-}
-
-// lane g of the row's 8 (coordinate c = g mod 3): round 1 lane g < 3 D_g,
-// lanes 3-5 S_{g-3}; round 3 lane g < 6 product g, lanes 6, 7 shadow 0, 1
+// out = coordinate c of P + Q, from coordinate c of P (p) and of Q (q): the
+// complete formula, `_padd`'s values, over the row's lanes, each step one
+// uniform statement on lane-dependent operands. kSame: q is p (the
+// doubling instance: the round-1 products as squarings). out may alias p
+// or q. (j + 1 is taken mod 3.)
+//
+//   round 1, lane g < 3: D_g = P_g Q_g                       t0, t1, t2
+//            lane 3 + j: S_j = (P_j + P_j+1)(Q_j + Q_j+1)    (X+Y)(X'+Y'), ...
+//   every lane, for its c:  T_c = S_c - (D_c + D_c+1)        t3, t4, y3
+//                           W_c = 3 D_0, b3 T_2, b3 D_2      x3, y3, t2
+//                           z3 = D_1 + W_2, t1 = D_1 - W_2
+//   round 3, lane g < 6 (6, 7 repeat 0, 1): product g of
+//            t3 t1, t4 y3, y3 x3, t1 z3, z3 t4, x3 t3
+//   every lane: X3 = #0 - #1, Y3 = #2 + #3, Z3 = #4 + #5 for its c.
 template <bool kSame>
 __device__ __forceinline__ void padd_lanes(uint32_t out[kWords], const uint32_t p[kWords],
                                            const uint32_t q[kWords], int c) {
@@ -329,45 +353,52 @@ __device__ __forceinline__ void padd_lanes(uint32_t out[kWords], const uint32_t 
   uint32_t x[kWords], t[kWords];
   shfl_words(t, p, next);
   fadd(t, p, t);
-  select2(x, s_lane, t, p);
+  select(x, s_lane, t, p);
   if (kSame) {
     fsqr(x, x);
   } else {
     uint32_t y[kWords];
     shfl_words(t, q, next);
     fadd(t, q, t);
-    select2(y, s_lane, t, q);
+    select(y, s_lane, t, q);
     fmul(x, x, y);
   }
-  uint32_t d0[kWords], d1[kWords], d2[kWords], t3[kWords], t4[kWords], y3[kWords];
-  shfl_words(d0, x, 0);
+  // T_c (in tc) and W_c (in w)
+  uint32_t tc[kWords], w[kWords], d1[kWords];
+  shfl_words(tc, x, c + 3);
+  shfl_words(t, x, c);
+  shfl_words(w, x, next);
+  fadd(t, t, w);
+  fsub(tc, tc, t);
+  shfl_words(t, tc, 2);
+  shfl_words(w, x, c);
+  select(w, c == 1, t, w);
+  fmul_small(w, c == 0 ? 3u : kB3, w);
+  // z3 (in t) and t1 (in d1)
   shfl_words(d1, x, 1);
-  shfl_words(d2, x, 2);
-  shfl_words(t3, x, 3);
-  shfl_words(t4, x, 4);
-  shfl_words(y3, x, 5);
-  fadd(t, d0, d1);
-  fsub(t3, t3, t);
-  fadd(t, d1, d2);
-  fsub(t4, t4, t);
-  fadd(t, d0, d2);
-  fsub(y3, y3, t);
-  fmul_small(d2, kB3, d2);
-  uint32_t z3[kWords];
-  fadd(z3, d1, d2);
-  fsub(d1, d1, d2);
-  fmul_small(d0, 3, d0);
-  fmul_small(y3, kB3, y3);
-  // products: t3 t1, t4 y3, y3 x3, t1 z3, z3 t4, x3 t3
+  shfl_words(x, w, 2);
+  fadd(t, d1, x);
+  fsub(d1, d1, x);
+  // round 3: operand A of product j is T_0, T_1, W_1, t1, z3 or W_0;
+  // operand B t1, W_1, W_0, z3, T_1 or T_0
   const int j = g < 6 ? g : g - 6;
-  select6(x, j, t3, t4, y3, d1, z3, d0);
-  select6(t, j, d1, y3, d0, z3, t4, t3);
-  fmul(x, x, t);
-  shfl_words(t, x, 2 * c);
-  shfl_words(x, x, 2 * c + 1);
-  fsub(d0, t, x);
-  fadd(d1, t, x);
-  select2(out, c == 0, d0, d1);
+  uint32_t a[kWords], b[kWords];
+  shfl_words(a, tc, j == 1 ? 1 : 0);
+  shfl_words(b, w, j == 2 ? 1 : 0);
+  select(a, j < 2, a, b);
+  select(b, j == 3, d1, t);
+  select(a, j < 3 || j == 5, a, b);
+  shfl_words(b, tc, j == 4 ? 1 : 0);
+  shfl_words(x, w, j == 1 ? 1 : 0);
+  select(b, j >= 4, b, x);
+  select(x, j == 0, d1, t);
+  select(b, j == 0 || j == 3, x, b);
+  fmul(x, a, b);
+  shfl_words(a, x, 2 * c);
+  shfl_words(b, x, 2 * c + 1);
+  fsub(t, a, b);
+  fadd(a, a, b);
+  select(out, c == 0, t, a);
 }
 
 // coordinate c of the identity (0 : R mod p : 0)
@@ -450,6 +481,64 @@ ec_scalar_mul_kernel(const int32_t* __restrict__ points, const int32_t* __restri
     *(volatile uint32_t*)&table[i * kMulThreads + lane] = 0u;
 }
 
+// one level of the tree: row i (< h) += row i + h, from `in` (16-bit limbs,
+// the first level) or the scratch rows (word k of row i at k * half + i)
+// into the scratch rows. Wide levels (more than two rounds of the block's
+// lane groups) take one thread a pair, narrow ones a lane group a pair; a
+// spare group adds identities and stores nothing (every lane of a warp runs
+// every shuffle).
+__device__ __forceinline__ void tree_level(const int32_t* in, uint32_t* buf, int half, int h) {
+  const int slots = blockDim.x / kRowLanes;
+  if (h > 2 * slots) {
+    Pt a, b;
+    for (int i = threadIdx.x; i < h; i += blockDim.x) {
+      if (in) {
+#pragma unroll
+        for (int k = 0; k < kPointWords; ++k) {
+          const int32_t* la = in + (size_t)i * kPointLimbs + 2 * k;
+          const int32_t* lb = in + (size_t)(i + h) * kPointLimbs + 2 * k;
+          coord(a, k) = (uint32_t)la[0] | ((uint32_t)la[1] << 16);
+          coord(b, k) = (uint32_t)lb[0] | ((uint32_t)lb[1] << 16);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kPointWords; ++k) {
+          coord(a, k) = buf[(size_t)k * half + i];
+          coord(b, k) = buf[(size_t)k * half + i + h];
+        }
+      }
+      padd(a, a, b);
+#pragma unroll
+      for (int k = 0; k < kPointWords; ++k) buf[(size_t)k * half + i] = coord(a, k);
+    }
+    return;
+  }
+  const int g = threadIdx.x % kRowLanes;
+  const int c = g % 3;
+  uint32_t a[kWords], b[kWords];
+  for (int i0 = 0; i0 < h; i0 += slots) {
+    const int i = i0 + (int)threadIdx.x / kRowLanes;
+    if (i >= h) {
+      identity_coord(a, c);
+      identity_coord(b, c);
+    } else if (in) {
+      load_coord(a, in + (size_t)i * kPointLimbs, c);
+      load_coord(b, in + (size_t)(i + h) * kPointLimbs, c);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kWords; ++k) {
+        a[k] = buf[(size_t)(c * kWords + k) * half + i];
+        b[k] = buf[(size_t)(c * kWords + k) * half + i + h];
+      }
+    }
+    padd_lanes<false>(a, a, b, c);
+    if (i < h && g < 3) {
+#pragma unroll
+      for (int k = 0; k < kWords; ++k) buf[(size_t)(c * kWords + k) * half + i] = a[k];
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kTreeThreads)
 ec_tree_sum_kernel(const int32_t* __restrict__ points, int m, uint32_t* __restrict__ scratch,
                    int32_t* __restrict__ out) {
@@ -462,50 +551,14 @@ ec_tree_sum_kernel(const int32_t* __restrict__ points, int m, uint32_t* __restri
   }
   const int half = m >> 1;
   uint32_t* buf = scratch + (size_t)g * half * kPointWords;
-  const int lane = threadIdx.x % kRowLanes;
-  const int c = lane % 3;
-  const int slot = threadIdx.x / kRowLanes, slots = blockDim.x / kRowLanes;
-  uint32_t a[kWords], b[kWords];
-  // a pair a lane group; a spare group adds identities and stores nothing
-  // (every lane of a warp runs every shuffle)
-  for (int i0 = 0; i0 < half; i0 += slots) {
-    const int i = i0 + slot;
-    if (i < half) {
-      load_coord(a, in + (size_t)i * kPointLimbs, c);
-      load_coord(b, in + (size_t)(i + half) * kPointLimbs, c);
-    } else {
-      identity_coord(a, c);
-      identity_coord(b, c);
-    }
-    padd_lanes<false>(a, a, b, c);
-    if (i < half && lane < 3) {
-#pragma unroll
-      for (int k = 0; k < kWords; ++k) buf[(size_t)(c * kWords + k) * half + i] = a[k];
-    }
-  }
+  tree_level(in, buf, half, half);
   for (int h = half >> 1; h >= 1; h >>= 1) {
     __syncthreads();
-    for (int i0 = 0; i0 < h; i0 += slots) {
-      const int i = i0 + slot;
-      if (i < h) {
-#pragma unroll
-        for (int k = 0; k < kWords; ++k) {
-          a[k] = buf[(size_t)(c * kWords + k) * half + i];
-          b[k] = buf[(size_t)(c * kWords + k) * half + i + h];
-        }
-      } else {
-        identity_coord(a, c);
-        identity_coord(b, c);
-      }
-      padd_lanes<false>(a, a, b, c);
-      if (i < h && lane < 3) {
-#pragma unroll
-        for (int k = 0; k < kWords; ++k) buf[(size_t)(c * kWords + k) * half + i] = a[k];
-      }
-    }
+    tree_level(nullptr, buf, half, h);
   }
   __syncthreads();
   if (threadIdx.x < 3) {
+    uint32_t a[kWords];
 #pragma unroll
     for (int k = 0; k < kWords; ++k) a[k] = buf[(size_t)(threadIdx.x * kWords + k) * half];
     store_coord(dst, a, threadIdx.x);
@@ -514,7 +567,7 @@ ec_tree_sum_kernel(const int32_t* __restrict__ points, int m, uint32_t* __restri
 
 }  // namespace
 
-// rows x (P, k) -> k*P, a row on 4 lanes, 8 rows a block. Returns a CUDA
+// rows x (P, k) -> k*P, a row on 8 lanes, 4 rows a block. Returns a CUDA
 // error code.
 extern "C" int fsdkr_ec_scalar_mul(const int32_t* points, const int32_t* scalars, int rows,
                                    int scalar_limbs, int scalar_bits, int32_t* out,
@@ -529,8 +582,8 @@ extern "C" int fsdkr_ec_scalar_mul(const int32_t* points, const int32_t* scalars
 }
 
 // groups x m points (m a power of two) -> groups sums; scratch: groups *
-// max(m / 2, 1) * 24 words. Threads a block: 4 a pair of the first level,
-// rounded up to a warp, at most kTreeThreads.
+// max(m / 2, 1) * 24 words. Threads a block: a lane group a pair of the
+// first level, rounded up to a warp, at most kTreeThreads.
 extern "C" int fsdkr_ec_tree_sum(const int32_t* points, int groups, int m, uint32_t* scratch,
                                  int32_t* out, void* stream) {
   if (groups <= 0 || m <= 0 || (m & (m - 1))) return (int)cudaErrorInvalidValue;
