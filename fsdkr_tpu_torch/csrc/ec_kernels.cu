@@ -551,10 +551,10 @@ ec_tree_sum_kernel(const int32_t* __restrict__ points, int m, uint32_t* __restri
   }
   const int half = m >> 1;
   uint32_t* buf = scratch + (size_t)g * half * kPointWords;
-  tree_level(in, buf, half, half);
-  for (int h = half >> 1; h >= 1; h >>= 1) {
-    __syncthreads();
-    tree_level(nullptr, buf, half, h);
+#pragma unroll 1
+  for (int h = half; h >= 1; h >>= 1) {
+    if (h < half) __syncthreads();
+    tree_level(h == half ? in : nullptr, buf, half, h);
   }
   __syncthreads();
   if (threadIdx.x < 3) {
