@@ -485,8 +485,8 @@ ec_scalar_mul_kernel(const int32_t* __restrict__ points, const int32_t* __restri
 // the first level) or the scratch rows (word k of row i at k * half + i)
 // into the scratch rows. Wide levels (more than two rounds of the block's
 // lane groups) take one thread a pair, narrow ones a lane group a pair; a
-// spare group adds identities and stores nothing (every lane of a warp runs
-// every shuffle).
+// spare group of a warp that has a pair adds identities and stores nothing
+// (every lane of a warp runs every shuffle), a warp with none sits out.
 __device__ __forceinline__ void tree_level(const int32_t* in, uint32_t* buf, int half, int h) {
   const int slots = blockDim.x / kRowLanes;
   if (h > 2 * slots) {
@@ -515,8 +515,10 @@ __device__ __forceinline__ void tree_level(const int32_t* in, uint32_t* buf, int
   }
   const int g = threadIdx.x % kRowLanes;
   const int c = g % 3;
+  const int warp_slot = (int)threadIdx.x / 32 * (32 / kRowLanes);  // the warp's first group
   uint32_t a[kWords], b[kWords];
-  for (int i0 = 0; i0 < h; i0 += slots) {
+  // a warp with no pair left leaves the level (warp-uniform)
+  for (int i0 = 0; i0 + warp_slot < h; i0 += slots) {
     const int i = i0 + (int)threadIdx.x / kRowLanes;
     if (i >= h) {
       identity_coord(a, c);
