@@ -481,63 +481,32 @@ ec_scalar_mul_kernel(const int32_t* __restrict__ points, const int32_t* __restri
     *(volatile uint32_t*)&table[i * kMulThreads + lane] = 0u;
 }
 
-// one level of the tree: row i (< h) += row i + h, from `in` (16-bit limbs,
-// the first level) or the scratch rows (word k of row i at k * half + i)
-// into the scratch rows. Wide levels (more than two rounds of the block's
-// lane groups) take one thread a pair, narrow ones a lane group a pair; a
-// spare group of a warp that has a pair adds identities and stores nothing
-// (every lane of a warp runs every shuffle), a warp with none sits out.
+// one level of the tree, one thread a pair: row i (< h) += row i + h, from
+// `in` (16-bit limbs, the first level) or the scratch rows (word k of row i
+// at k * half + i) into the scratch rows. Each level writes row i in
+// place: only its own thread reads row i, and no row of the second half is
+// written.
 __device__ __forceinline__ void tree_level(const int32_t* in, uint32_t* buf, int half, int h) {
-  const int slots = blockDim.x / kRowLanes;
-  if (h > 2 * slots) {
-    Pt a, b;
-    for (int i = threadIdx.x; i < h; i += blockDim.x) {
-      if (in) {
+  Pt a, b;
+  for (int i = threadIdx.x; i < h; i += blockDim.x) {
+    if (in) {
 #pragma unroll
-        for (int k = 0; k < kPointWords; ++k) {
-          const int32_t* la = in + (size_t)i * kPointLimbs + 2 * k;
-          const int32_t* lb = in + (size_t)(i + h) * kPointLimbs + 2 * k;
-          coord(a, k) = (uint32_t)la[0] | ((uint32_t)la[1] << 16);
-          coord(b, k) = (uint32_t)lb[0] | ((uint32_t)lb[1] << 16);
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < kPointWords; ++k) {
-          coord(a, k) = buf[(size_t)k * half + i];
-          coord(b, k) = buf[(size_t)k * half + i + h];
-        }
+      for (int k = 0; k < kPointWords; ++k) {
+        const int32_t* la = in + (size_t)i * kPointLimbs + 2 * k;
+        const int32_t* lb = in + (size_t)(i + h) * kPointLimbs + 2 * k;
+        coord(a, k) = (uint32_t)la[0] | ((uint32_t)la[1] << 16);
+        coord(b, k) = (uint32_t)lb[0] | ((uint32_t)lb[1] << 16);
       }
-      padd(a, a, b);
-#pragma unroll
-      for (int k = 0; k < kPointWords; ++k) buf[(size_t)k * half + i] = coord(a, k);
-    }
-    return;
-  }
-  const int g = threadIdx.x % kRowLanes;
-  const int c = g % 3;
-  const int warp_slot = (int)threadIdx.x / 32 * (32 / kRowLanes);  // the warp's first group
-  uint32_t a[kWords], b[kWords];
-  // a warp with no pair left leaves the level (warp-uniform)
-  for (int i0 = 0; i0 + warp_slot < h; i0 += slots) {
-    const int i = i0 + (int)threadIdx.x / kRowLanes;
-    if (i >= h) {
-      identity_coord(a, c);
-      identity_coord(b, c);
-    } else if (in) {
-      load_coord(a, in + (size_t)i * kPointLimbs, c);
-      load_coord(b, in + (size_t)(i + h) * kPointLimbs, c);
     } else {
 #pragma unroll
-      for (int k = 0; k < kWords; ++k) {
-        a[k] = buf[(size_t)(c * kWords + k) * half + i];
-        b[k] = buf[(size_t)(c * kWords + k) * half + i + h];
+      for (int k = 0; k < kPointWords; ++k) {
+        coord(a, k) = buf[(size_t)k * half + i];
+        coord(b, k) = buf[(size_t)k * half + i + h];
       }
     }
-    padd_lanes<false>(a, a, b, c);
-    if (i < h && g < 3) {
+    padd(a, a, b);
 #pragma unroll
-      for (int k = 0; k < kWords; ++k) buf[(size_t)(c * kWords + k) * half + i] = a[k];
-    }
+    for (int k = 0; k < kPointWords; ++k) buf[(size_t)k * half + i] = coord(a, k);
   }
 }
 
@@ -553,6 +522,7 @@ ec_tree_sum_kernel(const int32_t* __restrict__ points, int m, uint32_t* __restri
   }
   const int half = m >> 1;
   uint32_t* buf = scratch + (size_t)g * half * kPointWords;
+  // one copy of the addition for every level (the first reads `in`)
 #pragma unroll 1
   for (int h = half; h >= 1; h >>= 1) {
     if (h < half) __syncthreads();
@@ -584,12 +554,12 @@ extern "C" int fsdkr_ec_scalar_mul(const int32_t* points, const int32_t* scalars
 }
 
 // groups x m points (m a power of two) -> groups sums; scratch: groups *
-// max(m / 2, 1) * 24 words. Threads a block: a lane group a pair of the
-// first level, rounded up to a warp, at most kTreeThreads.
+// max(m / 2, 1) * 24 words. Threads a block: the first level's pairs,
+// rounded up to a warp, at most kTreeThreads.
 extern "C" int fsdkr_ec_tree_sum(const int32_t* points, int groups, int m, uint32_t* scratch,
                                  int32_t* out, void* stream) {
   if (groups <= 0 || m <= 0 || (m & (m - 1))) return (int)cudaErrorInvalidValue;
-  int threads = ((m >> 1) * kRowLanes + 31) / 32 * 32;
+  int threads = ((m >> 1) + 31) / 32 * 32;
   if (threads < 32) threads = 32;
   if (threads > kTreeThreads) threads = kTreeThreads;
   ec_tree_sum_kernel<<<groups, threads, 0, (cudaStream_t)stream>>>(points, m, scratch, out);
