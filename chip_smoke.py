@@ -8,8 +8,9 @@ Run from the root of a checkout:
 
 Phases:
   env      nvidia-smi name and power limit, torch/CUDA versions, the
-           kernels' builds from csrc/ (both sources compiled at once, with
-           nvcc's register report).
+           kernels' builds from csrc/ (the sources compiled at once, with
+           nvcc's register report; `ec_scalar_mul_kernel`'s registers and
+           spill bytes on a line of their own).
   kernels  each hand-written kernel against its plain PyTorch version on
            the card. The RNS kernels at k=131 (2048-bit class), k=260
            (4096-bit class), the 6144-bit class (k=389) and the 7168-bit
@@ -37,7 +38,8 @@ Phases:
            128, 256 and 512; random and worst-case groups (every limb of
            the table and the base at n-1, every exponent bit set).
            `cios_modmul` as `cios_mont_mul`, on both sides of R*.
-           Device EC: `ec_scalar_mul` at 1, 13, 256 and 1024 rows, 128-
+           Device EC: `ec_scalar_mul` at 1, 13, 256, 1024 and 4096 rows
+           (13: a partly filled block of 4 rows on 8 lanes each), 128-
            and 256-bit scalars (the edge scalars 0, 1, 7, N - 1 and
            2^128 - 1, G and the identity among the points, a quarter of
            the rows worst-case: every digit of N - 1 or 2^128 - 1);
@@ -438,6 +440,30 @@ def phase_env(dev):
             if any(w in line for w in ("registers", "Compiling entry", "smem", "spill",
                                        "stack frame")):
                 log(f"  ptxas: {line.strip()}")
+    usage = ptxas_usage(ec_kernels.build_info.get("ptxas", ""), "ec_scalar_mul_kernel")
+    log("ptxas: ec_scalar_mul_kernel " + (", ".join(f"{k} {v}" for k, v in usage.items())
+                                           or "not reported (library already built)"))
+
+
+def ptxas_usage(report, symbol):
+    """{registers, spill_stores, spill_loads, stack_frame} of one kernel from
+    nvcc's -Xptxas -v report (empty when the library was not built here)."""
+    import re
+
+    usage, inside = {}, False
+    for line in report.splitlines():
+        if "Compiling entry" in line or "Function properties for" in line:
+            inside = symbol in line
+        if not inside:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage.update(stack_frame=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage["registers"] = int(m[1])
+    return usage
 
 
 LADDER_THREADS = (256, 512)  # the ladder's layouts (csrc: launch_comb_ladder)
@@ -557,11 +583,12 @@ def phase_kernels(dev, rng):
 
 def ec_kernels_check(dev, rng):
     """Both EC kernels against their plain versions, bit for bit:
-    `ec_scalar_mul` at 1, 13, 256 and 1024 rows (the main path's launches
-    have 256-1024), 128- and 256-bit scalars; `ec_tree_sum` from one row
-    to the PDL u1 group's 1024."""
+    `ec_scalar_mul` at 1, 13, 256, 1024 and 4096 rows (the main path's
+    launches have 256-1024; 13 leaves the last block's lane groups partly
+    filled, 4096 is several blocks an SM), 128- and 256-bit scalars;
+    `ec_tree_sum` from one row to the PDL u1 group's 1024."""
     for bits in (128, 256):
-        for rows in (1, 13, 256, 1024):
+        for rows in (1, 13, 256, 1024, 4096):
             kernel, plain = ec_calls("ec_scalar_mul", ec_inputs(rng, dev, rows, bits, rows // 4),
                                      bits)
             if _max_err(kernel(), plain()):

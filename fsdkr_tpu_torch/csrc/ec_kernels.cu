@@ -11,52 +11,58 @@
 // the JAX package's R on its 16 16-bit limbs) and canonical (< p) after
 // every operation. A product is the 512-bit x * y (a squaring: the 28
 // words above the diagonal once, doubled, and the 8 squares) and a
-// Montgomery reduction on p's special form: word i's m = T_i n' (n' =
-// -p^{-1} mod 2^32) takes m * 977 from word i and m from word i + 1 in a
-// signed running carry, where the generic reduction adds m * p word by
-// word; then T_hi + M + carry and one conditional subtraction. The
-// products by b3 R mod p (b3 = 21) and t0 + t0 + t0 are products by the
-// small constants 21 and 3, 2^256 folded back as 2^32 + 977. The sum and
-// the difference end in one conditional subtraction or addition of p. A
-// canonical result is unique, so every value equals the plain version's
-// and the JAX package's bit for bit. Points are homogeneous projective
-// (X : Y : Z), the identity (0 : R mod p : 0), added by the complete
-// formula of Renes-Costello-Batina 2016, Alg. 7 (a = 0, b3 = 21), in the
-// statement order of the JAX package's `_padd` (:100-125): one formula
-// for additions, doublings, the identity and inverses, with no branch on
-// the data; a doubling runs the same statements with its six round-1
-// products as squarings. Every select is a mask.
+// Montgomery reduction on p's special form: word i's m = T_i p^{-1} mod
+// 2^32 adds m * 977 to word i and m to word i + 1 of an unsigned running
+// carry, where the generic reduction adds m * p word by word; then T_hi +
+// carry - M, plus p where it is negative (mont_reduce). The products by
+// b3 R mod p (b3 = 21) and t0 + t0 + t0 are products by the small
+// constants 21 and 3, 2^256 folded back as 2^32 + 977. Differences are
+// sums of the complement, so every borrow is a carry. A canonical result
+// is unique, so every value equals the plain version's and the JAX
+// package's bit for bit. Points are homogeneous projective (X : Y : Z),
+// the identity (0 : R mod p : 0), added by the complete formula of
+// Renes-Costello-Batina 2016, Alg. 7 (a = 0, b3 = 21), with the values of
+// the JAX package's `_padd` (:100-125): one formula for additions,
+// doublings, the identity and inverses, with no branch on the data. Every
+// select is a mask.
 //
-// ec_scalar_mul_kernel: k*P per row, one thread a row. The 16-entry
-// table of multiples (table[0] the identity, table[j] = table[j-1] + P),
-// then per 4-bit window, MSB first, 4 doublings acc + acc and one add of
-// the window's entry. The entry is read as a masked OR over all 16
-// entries, never indexed by the digit (the scalars are key shares,
-// coefficients and nonces). The table (16 x 24 words, 1.5 KB a row)
-// lies in shared memory, 48 KB for a block of 32 threads, word-major
-// across the block's threads (no bank conflict), and is zeroed before
-// the thread exits. (A table in local memory measured 1-16% slower on
-// the H100 as the only layout, by how ptxas allocated it: PERF.md.)
-// Whatever of the loop's state ptxas spills (its -Xptxas -v report) lies
-// in local memory, is not wiped and stays in device memory until reused.
+// ec_scalar_mul_kernel: k*P per row, a row on 8 lanes of a warp (4 rows a
+// one-warp block). Lane g holds coordinate g mod 3 of the row's points and
+// the addition runs in `_padd`'s three rounds of independent products,
+// one product a lane a round (padd_lanes): round 1 the six products of
+// coordinates and of coordinate sums, round 2 the sums and the products by
+// 3 and b3, one a lane, round 3 the six products of the output; the values
+// cross between rounds by warp shuffles within the row's group. A doubling
+// runs the same statements with its round-1 products as squarings. The
+// 16-entry table of multiples (table[0] the identity, table[j] =
+// table[j-1] + P), then per 4-bit window, MSB first, 4 doublings acc + acc
+// and one add of the window's entry. The entry is read as a masked OR over
+// all 16 entries, never indexed by the digit (the scalars are key shares,
+// coefficients and nonces). Each lane keeps its coordinate of the table
+// in shared memory (16 KB a block, word-major across the lanes: no bank
+// conflict) and zeroes it before it exits. ptxas keeps the whole loop in
+// registers (108 of them, no spill, no stack frame on the H100 build:
+// PERF.md), so no secret state lands in local memory.
 //
-// ec_tree_sum_kernel: one block a group. Level by level, row i of the
-// first half plus row i of the second (the JAX package's lhs = flat[:,
-// :m], rhs = flat[:, m:]), the pairs spread over the block's threads, a
-// barrier between levels. The levels' sums lie in a global scratch
-// buffer the wrapper allocates (group g's word k of row i at k * M/2 + i,
-// so neighbouring threads read neighbouring words), so M is not capped by
-// the block. Each level writes row i in place: only its own thread reads
-// row i, and no row of the second half is written.
+// ec_tree_sum_kernel: one block a group, one thread a pair (the one-thread
+// complete addition, padd). Level by level, row i of the first half plus
+// row i of the second (the JAX package's lhs = flat[:, :m], rhs = flat[:,
+// m:]), the pairs spread over the block's threads, a barrier between
+// levels. The levels' sums lie in a global scratch buffer the wrapper
+// allocates (group g's word k of row i at k * M/2 + i, so neighbouring
+// threads read neighbouring words), so M is not capped by the block.
+// (Lane groups for the narrow levels measured at most 1.34x faster at the
+// PDL u1 group's (1, 1024), under the 1.5x that would keep them: PERF.md.)
 //
-// What bounds it: integer multiply-adds. A complete addition is 14 field
-// products of 8 x 8 32-bit multiply-adds (36 in a squaring) and a
-// reduction of 8 small steps; a 256-bit scalar-mul row is 14 + 5 * 64 =
-// 334 additions.
-// One thread a row makes each row's chain of about 4,700 dependent
-// products the kernel's time: latency, not the card's multiply rate, sets
-// it at the main path's 256-1024 rows. Blocks of one warp spread those
-// rows over as many SMs as they fill.
+// What bounds it: integer multiply-adds and their carries. A complete
+// addition is 12 field products of 8 x 8 32-bit multiply-adds (36 in a
+// squaring) with an 8-step reduction each, 3 products by small constants
+// and 11 sums; a 256-bit scalar-mul row is 14 + 5 * 64 = 334 additions.
+// At the main path's 256-1024 rows a launch is 64-256 one-warp blocks, at
+// most two an SM, so each row's chain of additions sets the time, by its
+// latency and not the card's multiply rate: the lanes cut an addition's
+// chain of dependent products from 14 to 2 and spread a launch over 8x as
+// many warps as one thread a row did.
 
 #include <cstddef>
 #include <cstdint>
@@ -75,7 +81,7 @@ constexpr int kMulThreads = 32;             // the scalar mul's block: one warp
 constexpr int kMulRows = kMulThreads / kRowLanes;
 constexpr int kTreeThreads = 256;           // the tree's largest block
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr uint32_t kNPrime = 0xD2253531u;   // -p^{-1} mod 2^32 (977^{-1})
+constexpr uint32_t kPInv = 0x2DDACACFu;     // p^{-1} mod 2^32 (-977^{-1})
 constexpr uint32_t kC0 = 977u;              // p = 2^256 - 2^32 - kC0
 constexpr uint32_t kB3 = 21u;               // b3 = 3b
 
@@ -87,18 +93,22 @@ __device__ __forceinline__ constexpr uint32_t one_m_word(int j) {
   return j == 0 ? 0x000003D1u : (j == 1 ? 0x00000001u : 0u);
 }
 
+// Differences are sums of the complement: a - b = a + ~b + 1, so every
+// borrow chain is a carry chain (an add and a carry a word).
+
 // r = t - p where t >= p, else t; t: 9 words, t < 2p (its ninth word 0 or 1).
 __device__ __forceinline__ void reduce_once(uint32_t r[kWords], const uint32_t t[kWords + 1]) {
   uint32_t d[kWords];
-  uint32_t borrow = 0;
+  uint64_t c = 1;
 #pragma unroll
   for (int j = 0; j < kWords; ++j) {
-    const uint64_t s = (uint64_t)t[j] - p_word(j) - borrow;
-    d[j] = (uint32_t)s;
-    borrow = (uint32_t)(s >> 63);
+    c += (uint64_t)t[j] + (uint32_t)~p_word(j);
+    d[j] = (uint32_t)c;
+    c >>= 32;
   }
-  // t < p exactly where the eight words borrowed and the ninth is 0
-  const uint32_t keep = 0u - (borrow & (t[kWords] ^ 1u));
+  // t < p exactly where the eight words borrowed (no carry out) and the
+  // ninth is 0
+  const uint32_t keep = (0u - ((uint32_t)c ^ 1u)) & (0u - (t[kWords] ^ 1u));
 #pragma unroll
   for (int j = 0; j < kWords; ++j) r[j] = (t[j] & keep) | (d[j] & ~keep);
 }
@@ -152,32 +162,39 @@ __device__ __forceinline__ void sqr_wide(uint32_t T[2 * kWords], const uint32_t 
 }
 
 // r = T * R^{-1} mod p for T < p^2, on p's special form. Word i's
-// m = T_i * n' makes T + m p 2^{32i} vanish in word i; since m p = m 2^256
-// - m 2^32 - m kC0, the low half only ever loses m kC0 in word i (whose
-// low 32 bits are T_i's) and m in word i + 1: a signed running carry
-// replaces the 8 multiply-adds of m * p_word(j). The low half of T - M c
-// (M = sum m_i 2^{32i}, c = 2^32 + kC0) is then 0 and the carry is its
-// value over 2^256, so (T + M p) / R = T_hi + M + carry < 2p, the value
-// the generic CIOS reduction leaves, and one conditional subtraction
-// makes it canonical.
+// m = T_i p^{-1} mod 2^32 makes T - m p 2^{32i} vanish in word i; since
+// -m p = m kC0 + m 2^32 - m 2^256, the low half only ever gains m kC0 in
+// word i and m in word i + 1, an unsigned running carry where the generic
+// reduction adds m * p_word(j) word by word. With M = sum m_i 2^{32i} the
+// low half of T - M p is then 0 and the carry c its high part's gain, so
+// (T - M p) / R = T_hi + c - M, in (-p, p): plus p where it is negative,
+// it is the canonical T R^{-1} mod p.
 __device__ __forceinline__ void mont_reduce(uint32_t r[kWords], const uint32_t T[2 * kWords]) {
   uint32_t m[kWords];
-  int64_t c = 0;
+  uint64_t c = 0;
 #pragma unroll
   for (int i = 0; i < kWords; ++i) {
-    const int64_t w = (int64_t)T[i] + c;
-    m[i] = (uint32_t)w * kNPrime;
-    c = ((w - (int64_t)((uint64_t)m[i] * kC0)) >> 32) - (int64_t)m[i];
+    const uint64_t w = T[i] + c;
+    m[i] = (uint32_t)w * kPInv;
+    c = ((w + (uint64_t)m[i] * kC0) >> 32) + m[i];
   }
-  uint32_t u[kWords + 1];
+  // T_hi + c + ~M + 1: its ninth word is 1 where T_hi + c - M >= 0, else 0
+  uint32_t u[kWords];
+  c += 1;
 #pragma unroll
   for (int i = 0; i < kWords; ++i) {
-    c += (int64_t)T[kWords + i] + m[i];
+    c += (uint64_t)T[kWords + i] + (uint32_t)~m[i];
     u[i] = (uint32_t)c;
     c >>= 32;
   }
-  u[kWords] = (uint32_t)c;
-  reduce_once(r, u);
+  const uint32_t mask = 0u - ((uint32_t)c ^ 1u);
+  c = 0;
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    c += (uint64_t)u[i] + (p_word(i) & mask);
+    r[i] = (uint32_t)c;
+    c >>= 32;
+  }
 }
 
 // r = x * y * R^{-1} mod p; x, y < p. r may alias x or y.
@@ -243,25 +260,25 @@ __device__ __forceinline__ void fadd(uint32_t r[kWords], const uint32_t x[kWords
 __device__ __forceinline__ void fsub(uint32_t r[kWords], const uint32_t x[kWords],
                                      const uint32_t y[kWords]) {
   uint32_t d[kWords];
-  uint32_t borrow = 0;
+  uint64_t c = 1;
 #pragma unroll
   for (int j = 0; j < kWords; ++j) {
-    const uint64_t s = (uint64_t)x[j] - y[j] - borrow;
-    d[j] = (uint32_t)s;
-    borrow = (uint32_t)(s >> 63);
+    c += (uint64_t)x[j] + (uint32_t)~y[j];
+    d[j] = (uint32_t)c;
+    c >>= 32;
   }
-  const uint32_t mask = 0u - borrow;
-  uint32_t c = 0;
+  const uint32_t mask = 0u - ((uint32_t)c ^ 1u);
+  c = 0;
 #pragma unroll
   for (int j = 0; j < kWords; ++j) {
-    const uint64_t s = (uint64_t)d[j] + (p_word(j) & mask) + c;
-    r[j] = (uint32_t)s;
-    c = (uint32_t)(s >> 32);
+    c += (uint64_t)d[j] + (p_word(j) & mask);
+    r[j] = (uint32_t)c;
+    c >>= 32;
   }
 }
 
-// One thread's complete addition (the tree's wide levels): a point's X, Y
-// and Z in registers.
+// One thread's complete addition (the tree's): a point's X, Y and Z in
+// registers.
 struct Pt {
   uint32_t x[kWords], y[kWords], z[kWords];
 };
@@ -490,13 +507,14 @@ __device__ __forceinline__ void tree_level(const int32_t* in, uint32_t* buf, int
   Pt a, b;
   for (int i = threadIdx.x; i < h; i += blockDim.x) {
     if (in) {
-#pragma unroll
-      for (int k = 0; k < kPointWords; ++k) {
-        const int32_t* la = in + (size_t)i * kPointLimbs + 2 * k;
-        const int32_t* lb = in + (size_t)(i + h) * kPointLimbs + 2 * k;
-        coord(a, k) = (uint32_t)la[0] | ((uint32_t)la[1] << 16);
-        coord(b, k) = (uint32_t)lb[0] | ((uint32_t)lb[1] << 16);
-      }
+      const int32_t* la = in + (size_t)i * kPointLimbs;
+      const int32_t* lb = in + (size_t)(i + h) * kPointLimbs;
+      load_coord(a.x, la, 0);
+      load_coord(a.y, la, 1);
+      load_coord(a.z, la, 2);
+      load_coord(b.x, lb, 0);
+      load_coord(b.y, lb, 1);
+      load_coord(b.z, lb, 2);
     } else {
 #pragma unroll
       for (int k = 0; k < kPointWords; ++k) {

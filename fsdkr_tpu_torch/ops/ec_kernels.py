@@ -9,11 +9,18 @@ here (`csrc/ec_kernels.cu`, CUDA C++ for sm_90a; its header comment
 gives the design):
 
 `scalar_mul` — k*P per row over secp256k1 (replaces `_scalar_mul_kernel`,
-    `fsdkr_tpu/ops/ec_batch.py:136`): one thread a row, the 16-entry
-    window table in shared memory.
+    `fsdkr_tpu/ops/ec_batch.py:136`): a row on 8 lanes of a warp, which
+    run each complete addition's independent products side by side (one
+    product a lane a round) and exchange the sums between rounds by
+    shuffles; 4 rows a one-warp block, the 16-entry window table in
+    shared memory.
 `tree_sum` — each group's rows summed by log2(M) levels of complete
     additions (replaces `_tree_sum_kernel`, :175): one block a group,
-    the levels in a global scratch buffer.
+    one thread a pair, the levels in a global scratch buffer.
+
+Both run the field arithmetic of p = 2^256 - 2^32 - 977 on 8 32-bit
+words: a Montgomery reduction on p's special form, squarings in the
+doublings, the products by b3 and 3 as products by small constants.
 
 Points are (rows, 3, 16) int32 tensors of canonical 16-bit limbs of the
 Montgomery-domain projective coordinates (R = 2^256, every value below

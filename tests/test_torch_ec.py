@@ -17,10 +17,14 @@ plain versions).
   `combine_committed_points` against the JAX one; which EC calls a
   distribute and a collect make on the cuda backend.
 - A CPU model of the kernels' word arithmetic (csrc/ec_kernels.cu): the
-  8-word CIOS product with the 32-bit n', the sum, the difference and
-  the complete addition on 32-bit words, the masked window select and
-  the tree's in-place levels, against the plain versions, with the
-  kernel's constants read from its source.
+  8-word product and squaring, the Montgomery reduction on p's special
+  form (edge operands, the branch that adds p back), the products by the
+  small constants 3 and b3, the sum and the difference as complement
+  carry chains, the complete addition one thread a pair (the tree) and
+  on a row's 8 lanes (the scalar mul: which lane computes which product
+  in which round and what it exchanges), the masked window select and
+  the tree's in-place levels, against `_padd`'s statement values and the
+  plain versions, with the kernel's constants read from its source.
 
 Inputs come from numpy seeds. Every comparison is exact.
 """
@@ -507,8 +511,8 @@ def test_host_backend_takes_no_device_ec():
 
 
 def _cu_constants():
-    """The kernel's constants, read from its source: n', p's kC0 (p = 2^256
-    - 2^32 - kC0), b3, and the words of p and R mod p."""
+    """The kernel's constants, read from its source: p^{-1} mod 2^32, p's
+    kC0 (p = 2^256 - 2^32 - kC0), b3, and the words of p and R mod p."""
     src = CU.read_text()
 
     def const(name):
@@ -520,11 +524,11 @@ def _cu_constants():
         w0, w1, rest = (int(g, 16) if g != "0" else 0 for g in m.groups())
         return [w0, w1] + [rest] * 6
 
-    return (const("kNPrime"), const("kC0"), const("kB3"), words("p_word"),
+    return (const("kPInv"), const("kC0"), const("kB3"), words("p_word"),
             words("one_m_word"))
 
 
-N_PRIME32, C0, B3, P_WORDS, ONE_WORDS = _cu_constants()
+P_INV32, C0, B3, P_WORDS, ONE_WORDS = _cu_constants()
 
 
 def _u64(v):
@@ -541,14 +545,32 @@ def w_value(words):
     return sum(w << (32 * j) for j, w in enumerate(words))
 
 
+def w_sub_chain(x, y, carries=None):
+    """x - y as x + ~y + 1 over 8 words: (difference words, carry out: 1
+    where x >= y); `carries` gets each word's carry out."""
+    d, c = [], 1
+    for j in range(8):
+        c += x[j] + (~y[j] & M32)
+        d.append(c & M32)
+        c >>= 32
+        if carries is not None:
+            carries.append(c)
+    return d, c
+
+
+def w_add_masked_p(d, mask):
+    r, c = [], 0
+    for j in range(8):
+        c += d[j] + (P_WORDS[j] & mask)
+        r.append(c & M32)
+        c >>= 32
+    return r
+
+
 def w_reduce_once(t):
     assert w_value(t) < 2 * P and t[8] <= 1
-    d, borrow = [], 0
-    for j in range(8):
-        s = (t[j] - P_WORDS[j] - borrow) % (1 << 64)
-        d.append(s & M32)
-        borrow = s >> 63
-    keep = (-(borrow & (t[8] ^ 1))) & M32
+    d, c = w_sub_chain(t[:8], P_WORDS)
+    keep = (-((c ^ 1) & (t[8] ^ 1))) & M32
     return [(t[j] & keep) | (d[j] & ~keep & M32) for j in range(8)]
 
 
@@ -585,26 +607,28 @@ def w_sqr_wide(x):
     return t
 
 
-def w_mont_reduce(t, carries=None):
-    """The kernel's reduction on p's special form: word i's m = T_i n'
-    takes m kC0 from word i and m from word i + 1 (a signed running
-    carry); then T_hi + M + carry, one conditional subtraction."""
+def w_mont_reduce(t, borrows=None):
+    """The kernel's reduction on p's special form: word i's m = T_i p^{-1}
+    adds m kC0 to word i and m to word i + 1 (an unsigned running carry c);
+    then T_hi + c - M in (-p, p) as T_hi + c + ~M + 1, plus p where it is
+    negative. `borrows` gets the carries out of the ~M chain's words."""
     m, c = [], 0
     for i in range(8):
-        w = _i64(t[i] + c)
-        mi = ((w & M32) * N_PRIME32) & M32
-        d = _i64(w - mi * C0)
-        assert d % (1 << 32) == 0  # word i vanishes
-        c = _i64((d >> 32) - mi)
+        w = _u64(t[i] + c)
+        mi = ((w & M32) * P_INV32) & M32
+        s = _u64(w + mi * C0)
+        assert s & M32 == 0  # word i vanishes
+        c = _u64((s >> 32) + mi)
         m.append(mi)
-        if carries is not None:
-            carries.append(c)
-    u = []
+    u, c = [], c + 1
     for i in range(8):
-        c = _i64(c + t[8 + i] + m[i])
+        c = _u64(c + t[8 + i] + (~m[i] & M32))
         u.append(c & M32)
         c >>= 32
-    return w_reduce_once(u + [c])
+        if borrows is not None:
+            borrows.append(c)
+    assert c <= 1
+    return w_add_masked_p(u, (-(c ^ 1)) & M32)
 
 
 def w_fmul(x, y):
@@ -643,45 +667,105 @@ def w_fadd(x, y):
 
 
 def w_fsub(x, y):
-    d, borrow = [], 0
-    for j in range(8):
-        s = (x[j] - y[j] - borrow) % (1 << 64)
-        d.append(s & M32)
-        borrow = s >> 63
-    mask = (-borrow) & M32
-    r, c = [], 0
-    for j in range(8):
-        s = d[j] + (P_WORDS[j] & mask) + c
-        r.append(s & M32)
-        c = s >> 32
-    return r
+    d, c = w_sub_chain(x, y)
+    return w_add_masked_p(d, (-(c ^ 1)) & M32)
 
 
-def w_padd(p, q, same=False):
-    """The kernel's one-thread `padd<kSame>`: `_padd`'s statements, the
-    round-1 products as squarings where q is p, the products by 3 and b3
-    by small constants."""
+def w_padd_values(p, q, same=False):
+    """`_padd`'s statement values on 32-bit words, by name: the round-1
+    products (squarings where q is p, as the kernel's doubling instance
+    computes them), the round-2 values (3 t0 and the products by b3 as
+    products by small constants) and the six round-3 products."""
     (x1, y1, z1), (x2, y2, z2) = p, q
+    mul = (lambda a, b: w_fsqr(a)) if same else w_fmul  # noqa: E731
     if same:
         assert p == q
-        t0, t1, t2 = w_fsqr(x1), w_fsqr(y1), w_fsqr(z1)
-        t3 = w_fsub(w_fsqr(w_fadd(x1, y1)), w_fadd(t0, t1))
-        t4 = w_fsub(w_fsqr(w_fadd(y1, z1)), w_fadd(t1, t2))
-        x3 = w_fsqr(w_fadd(x1, z1))
+    v = {"t0": mul(x1, x2), "t1": mul(y1, y2), "t2": mul(z1, z2),
+         "s0": mul(w_fadd(x1, y1), w_fadd(x2, y2)), "s1": mul(w_fadd(y1, z1), w_fadd(y2, z2)),
+         "s2": mul(w_fadd(x1, z1), w_fadd(x2, z2))}
+    v["t3"] = w_fsub(v["s0"], w_fadd(v["t0"], v["t1"]))
+    v["t4"] = w_fsub(v["s1"], w_fadd(v["t1"], v["t2"]))
+    v["y3"] = w_fsub(v["s2"], w_fadd(v["t0"], v["t2"]))
+    v["x3"] = w_fmul_small(3, v["t0"])
+    v["b3t2"] = w_fmul_small(B3, v["t2"])
+    v["z3"] = w_fadd(v["t1"], v["b3t2"])
+    v["t1'"] = w_fsub(v["t1"], v["b3t2"])
+    v["b3y3"] = w_fmul_small(B3, v["y3"])
+    pairs = [("t3", "t1'"), ("t4", "b3y3"), ("b3y3", "x3"), ("t1'", "z3"), ("z3", "t4"),
+             ("x3", "t3")]
+    v["round3"] = [w_fmul(v[a], v[b]) for a, b in pairs]
+    r3 = v["round3"]
+    v["out"] = (w_fsub(r3[0], r3[1]), w_fadd(r3[2], r3[3]), w_fadd(r3[4], r3[5]))
+    return v
+
+
+def w_padd(p, q):
+    """The kernel's one-thread `padd` (the tree's), in `_padd`'s statement
+    order."""
+    return w_padd_values(p, q)["out"]
+
+
+LANES = 8  # a row's lane group in the scalar mul
+
+
+def w_padd_lanes(p, q, same=False, trace=None):
+    """The kernel's `padd_lanes` on one row's 8 lanes, step by step: lane g
+    holds coordinate c = g mod 3 of P and Q; a shuffle reads a value of
+    another lane of the group. `trace` gets each lane's round-1 product,
+    T_c, W_c and round-3 product. Returns coordinate c of P + Q of every
+    lane."""
+    cs = [g % 3 for g in range(LANES)]
+    nxt = [(c + 1) % 3 for c in cs]
+    js = [g if g < 6 else g - 6 for g in range(LANES)]
+
+    def shfl(vals, src):
+        return [vals[src[g]] for g in range(LANES)]
+
+    def each(fn, *cols):
+        return [fn(*args) for args in zip(*cols)]
+
+    def sel(cond, a, b):
+        return [a[g] if cond[g] else b[g] for g in range(LANES)]
+
+    pc, qc = [p[c] for c in cs], [q[c] for c in cs]
+    s_lane = [3 <= g < 6 for g in range(LANES)]
+    # round 1: lanes 0-2 D_c = P_c Q_c, lanes 3-5 S_c, lanes 6, 7 repeat 0, 1
+    x = sel(s_lane, each(w_fadd, pc, shfl(pc, nxt)), pc)
+    if same:
+        x = each(w_fsqr, x)
     else:
-        t0, t1, t2 = w_fmul(x1, x2), w_fmul(y1, y2), w_fmul(z1, z2)
-        t3 = w_fsub(w_fmul(w_fadd(x1, y1), w_fadd(x2, y2)), w_fadd(t0, t1))
-        t4 = w_fsub(w_fmul(w_fadd(y1, z1), w_fadd(y2, z2)), w_fadd(t1, t2))
-        x3 = w_fmul(w_fadd(x1, z1), w_fadd(x2, z2))
-    y3 = w_fsub(x3, w_fadd(t0, t2))
-    x3 = w_fmul_small(3, t0)
-    t2 = w_fmul_small(B3, t2)
-    z3 = w_fadd(t1, t2)
-    t1 = w_fsub(t1, t2)
-    y3 = w_fmul_small(B3, y3)
-    return (w_fsub(w_fmul(t3, t1), w_fmul(t4, y3)),
-            w_fadd(w_fmul(y3, x3), w_fmul(t1, z3)),
-            w_fadd(w_fmul(z3, t4), w_fmul(x3, t3)))
+        x = each(w_fmul, x, sel(s_lane, each(w_fadd, qc, shfl(qc, nxt)), qc))
+    # T_c = S_c - (D_c + D_c+1); W_c = 3 D_0, b3 T_2, b3 D_2
+    tc = each(w_fsub, shfl(x, [c + 3 for c in cs]), each(w_fadd, shfl(x, cs), shfl(x, nxt)))
+    w = sel([c == 1 for c in cs], shfl(tc, [2] * LANES), shfl(x, cs))
+    w = [w_fmul_small(3 if c == 0 else B3, w[g]) for g, c in enumerate(cs)]
+    # z3 = D_1 + W_2, t1 = D_1 - W_2
+    d1, w2 = shfl(x, [1] * LANES), shfl(w, [2] * LANES)
+    z3, t1 = each(w_fadd, d1, w2), each(w_fsub, d1, w2)
+    # round 3, lane j: A of t3, t4, y3, t1, z3, x3 (T_0, T_1, W_1, t1, z3,
+    # W_0), B of t1, y3, x3, z3, t4, t3 (t1, W_1, W_0, z3, T_1, T_0)
+    a_t = shfl(tc, [1 if j == 1 else 0 for j in js])
+    a_w = shfl(w, [1 if j == 2 else 0 for j in js])
+    a = [a_t[g] if j < 2 else a_w[g] if j in (2, 5) else t1[g] if j == 3 else z3[g]
+         for g, j in enumerate(js)]
+    b_t = shfl(tc, [1 if j == 4 else 0 for j in js])
+    b_w = shfl(w, [1 if j == 1 else 0 for j in js])
+    b = [b_t[g] if j >= 4 else b_w[g] if j in (1, 2) else t1[g] if j == 0 else z3[g]
+         for g, j in enumerate(js)]
+    prod = each(w_fmul, a, b)
+    u, v = shfl(prod, [2 * c for c in cs]), shfl(prod, [2 * c + 1 for c in cs])
+    out = [w_fsub(u[g], v[g]) if c == 0 else w_fadd(u[g], v[g]) for g, c in enumerate(cs)]
+    if trace is not None:
+        trace.update(round1=x, t=tc, w=w, round3=prod)
+    return out
+
+
+def w_padd_rows(p, q, same=False):
+    """P + Q as the row's lanes leave it: lanes 0-2 hold X, Y, Z, and every
+    other lane the same coordinate as the lane it repeats."""
+    out = w_padd_lanes(p, q, same)
+    assert all(out[g] == out[g % 3] for g in range(LANES))
+    return tuple(out[:3])
 
 
 def words_of(row16):
@@ -698,12 +782,12 @@ def limbs_of_point(pw):
 
 
 def test_kernel_constants_are_the_fields():
-    assert N_PRIME32 == (-pow(P, -1, 1 << 32)) % (1 << 32)
+    assert P_INV32 * P % (1 << 32) == 1
     assert P == R - (1 << 32) - C0 and C0 < 1 << 10
     assert B3 == 21  # 3b, b = 7: the product by b3 R mod p is the product by 21
     for words, value in ((P_WORDS, P), (ONE_WORDS, R % P)):
         assert w_value(words) == value
-    assert ec_batch._N_PRIME == N_PRIME32 & 0xFFFF  # the JAX digit's n'
+    assert ec_batch._N_PRIME == -P_INV32 & 0xFFFF  # the JAX digit's n'
 
 
 @pytest.mark.parametrize("op", ["fmul", "fadd", "fsub"])
@@ -743,22 +827,24 @@ def _words(v, n):
 
 def test_word_model_reduction_on_the_special_form_at_edges():
     """The special-form reduction at the edge operands (0, 1, p - 1, (p -
-    1)^2, the largest 512-bit input below p^2) and on inputs whose running
-    carry is negative after every word step (the m kC0 and m subtractions
-    borrow through all eight words): the canonical T R^{-1} mod p, the
-    value of the generic CIOS reduction."""
+    1)^2, the largest input below p^2, and others) and on inputs where the
+    subtraction of M borrows through every word (T_hi + c - M < 0, the
+    branch that adds p back) or through none: the canonical T R^{-1} mod
+    p, the value of the generic CIOS reduction."""
     r_inv = pow(R, -1, P)
     edges = [0, 1, 3, P - 1, P, (P - 1) ** 2, P * P - 1, (1 << 256) - 1, R % P * (P - 1),
              (1 << 32) + C0]
     rng = np.random.default_rng(23)
     edges += [rand_below(rng, P * P) for _ in range(6)]
-    borrowing = 0
+    through_all = through_none = 0
     for t in edges:
-        carries = []
-        got = w_mont_reduce(_words(t, 16), carries)
+        borrows = []
+        got = w_mont_reduce(_words(t, 16), borrows)
         assert w_value(got) == t * r_inv % P
-        borrowing += all(c < 0 for c in carries)
-    assert borrowing >= 3  # 1, 3 and (p - 1)^2 borrow through every word
+        through_all += not any(borrows)
+        through_none += all(borrows)
+    # 1 and 3 (M near 2^256, T_hi 0) borrow through all eight words; 0 none
+    assert through_all >= 2 and through_none >= 1
     # and through the products: x * y with x or y at 0, 1 and p - 1
     for x, y in [(0, P - 1), (1, 1), (1, P - 1), (P - 1, P - 1), (R % P, P - 1)]:
         assert w_value(w_fmul(_words(x, 8), _words(y, 8))) == x * y * r_inv % P
@@ -775,42 +861,70 @@ def test_word_model_padd_matches_plain():
 
 
 def test_word_model_doubling_instance_matches_plain():
-    """padd<true> (the round-1 products as squarings) on P + P against the
-    plain complete addition of a row with itself."""
+    """padd_lanes<true> (the round-1 products as squarings) on P + P
+    against the plain complete addition of a row with itself."""
     p1, _, _, _ = _padd_rows()
     plain = ec_batch._padd(p1, p1).numpy()
     for i in range(p1.shape[0]):
         pw = point_words(p1[i].numpy())
-        assert limbs_of_point(w_padd(pw, pw, same=True)) == plain[i].tolist()
+        assert limbs_of_point(w_padd_rows(pw, pw, same=True)) == plain[i].tolist()
+
+
+@pytest.mark.parametrize("same", [False, True], ids=["add", "double"])
+def test_word_model_lane_schedule_matches_padd(same):
+    """The scalar mul's addition on a row's 8 lanes: which lane computes
+    which product in which round and what it exchanges, on distinct points,
+    a doubling, the identity on either side and P + (-P) (`_padd_rows`),
+    against `_padd`'s statement values and the plain addition, bit for
+    bit. Round 1: lane g < 3 D_g (t0, t1, t2), lanes 3-5 S_g-3 ((X+Y)(X'+Y'),
+    (Y+Z)(Y'+Z'), (X+Z)(X'+Z')), lanes 6, 7 repeat 0, 1; every lane's T_c
+    is t3, t4 or y3 and W_c 3 t0, b3 y3 or b3 t2; round 3 lane j the j-th
+    of t3 t1, t4 y3, y3 x3, t1 z3, z3 t4, x3 t3."""
+    p1, p2, _, _ = _padd_rows()
+    if same:
+        p2 = p1
+    plain = ec_batch._padd(p1, p2).numpy()
+    for i in range(p1.shape[0]):
+        pw, qw = point_words(p1[i].numpy()), point_words(p2[i].numpy())
+        v = w_padd_values(pw, qw, same)
+        trace = {}
+        out = w_padd_lanes(pw, qw, same, trace)
+        names = ["t0", "t1", "t2", "s0", "s1", "s2", "t0", "t1"]
+        assert trace["round1"] == [v[n] for n in names]
+        assert trace["t"] == [v[("t3", "t4", "y3")[g % 3]] for g in range(LANES)]
+        assert trace["w"] == [v[("x3", "b3y3", "b3t2")[g % 3]] for g in range(LANES)]
+        assert trace["round3"] == [v["round3"][g if g < 6 else g - 6] for g in range(LANES)]
+        assert out == [v["out"][g % 3] for g in range(LANES)]
+        assert limbs_of_point(tuple(out[:3])) == plain[i].tolist()
 
 
 def w_scalar_mul(base, digit_of, windows):
-    """The kernel's thread: the table (entry 0 the identity, entry e =
-    entry e-1 + P), then per window 4 doublings and the masked OR over all
-    16 entries."""
+    """The kernel's row on its lanes: the table (entry 0 the identity,
+    entry e = entry e-1 + P), then per window 4 doublings and the masked OR
+    over all 16 entries."""
     ident = ([0] * 8, ONE_WORDS, [0] * 8)
     table = [ident, base]
     for _ in range(2, 16):
-        table.append(w_padd(table[-1], base))
+        table.append(w_padd_rows(table[-1], base))
     acc = ident
     for wi in range(windows):
         d = digit_of(wi)
         for _ in range(4):
-            acc = w_padd(acc, acc, same=True)
+            acc = w_padd_rows(acc, acc, same=True)
         sel = [[0] * 8 for _ in range(3)]
         for e in range(16):
             mask = (-(d == e)) & M32
             for c in range(3):
                 for k in range(8):
                     sel[c][k] |= table[e][c][k] & mask
-        acc = w_padd(acc, tuple(sel))
+        acc = w_padd_rows(acc, tuple(sel))
     return acc
 
 
 def test_word_model_scalar_mul_and_tree_match_plain():
-    """Two 128-bit rows of the kernel's thread model against the plain
-    scalar mul, and the tree's in-place levels (row i += row i + h, the
-    buffer word-major) against the plain tree sum."""
+    """Two 128-bit rows of the kernel's lane model against the plain scalar
+    mul, and the tree's in-place levels (one thread a pair, row i += row
+    i + h, the buffer word-major) against the plain tree sum."""
     rng = np.random.default_rng(19)
     pts = [rand_point(rng), Point.identity()]
     scs = [rand_below(rng, 1 << 128), (1 << 128) - 1]
