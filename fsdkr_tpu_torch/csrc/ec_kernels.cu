@@ -41,7 +41,7 @@
 // coefficients and nonces). Each lane keeps its coordinate of the table
 // in shared memory (16 KB a block, word-major across the lanes: no bank
 // conflict) and zeroes it before it exits. ptxas keeps the whole loop in
-// registers (108 of them, no spill, no stack frame on the H100 build:
+// registers (108 of them, no spill, no stack frame in the sm_90a build:
 // PERF.md), so no secret state lands in local memory.
 //
 // ec_tree_sum_kernel: one block a group, one thread a pair (the one-thread
@@ -52,7 +52,8 @@
 // allocates (group g's word k of row i at k * M/2 + i, so neighbouring
 // threads read neighbouring words), so M is not capped by the block.
 // (Lane groups for the narrow levels measured at most 1.34x faster at the
-// PDL u1 group's (1, 1024), under the 1.5x that would keep them: PERF.md.)
+// PDL u1 group's (1, 1024) on an "NVIDIA H100 80GB HBM3, 700.00 W", under
+// the 1.5x that would keep them: PERF.md.)
 //
 // What bounds it: integer multiply-adds and their carries. A complete
 // addition is 12 field products of 8 x 8 32-bit multiply-adds (36 in a
