@@ -58,7 +58,8 @@
 // What bounds it: integer multiply-adds and their carries. A complete
 // addition is 12 field products of 8 x 8 32-bit multiply-adds (36 in a
 // squaring) with an 8-step reduction each, 3 products by small constants
-// and 11 sums; a 256-bit scalar-mul row is 14 + 5 * 64 = 334 additions.
+// and 17 sums and differences; a 256-bit scalar-mul row is 14 + 5 * 64 =
+// 334 additions.
 // At the main path's 256-1024 rows a launch is 64-256 one-warp blocks, at
 // most two an SM, so each row's chain of additions sets the time, by its
 // latency and not the card's multiply rate: the lanes cut an addition's
