@@ -1241,13 +1241,33 @@ def _timed_ms(fn):
     return out, start.elapsed_time(end)
 
 
-def ec_adds(name, rows, scalar_bits, groups=None):
-    """Complete additions of one EC launch: 14 + 5 * scalar_bits / 4 a
-    scalar-mul row (the table's 14, then 4 doublings and one add a
-    window); M - 1 a tree group of M rows."""
+# 16x16-bit multiply-adds that device EC's field arithmetic needs (a
+# 32x32-bit word product is four of them, its low half three, a product by
+# a constant under 2^16 two): x * y of 8 x 8 words 256; a squaring 144 (36
+# word products); the reduction on p's special form 40 (a word's m = T_i
+# p^{-1} mod 2^32, 3, and m * 977, 2); a product by 3 or b3 = 21 17 (a
+# word's 2, and 2^256 folded back as 2^32 + 977, 1).
+MUL_MACS, SQR_MACS, REDUCE_MACS, SMALL_MACS = 256, 144, 40, 17
+# a complete addition: 12 products, each reduced, and 3 by small
+# constants; its doubling instance takes six of the 12 as squarings
+EC_ADD_MACS = 12 * (MUL_MACS + REDUCE_MACS) + 3 * SMALL_MACS
+EC_DOUBLE_MACS = 6 * (SQR_MACS + MUL_MACS) + 12 * REDUCE_MACS + 3 * SMALL_MACS
+
+
+def ec_chain(scalar_bits):
+    """Complete additions along a scalar-mul row's chain: the table's 14,
+    then 4 doublings and one add a window."""
+    return 14 + 5 * scalar_bits // 4
+
+
+def ec_macs(name, rows, scalar_bits, groups=None):
+    """16x16-bit multiply-adds of one EC launch: per scalar-mul row the
+    table's 14 additions, then per window 4 doublings and one addition;
+    M - 1 additions a tree group of M rows."""
     if name == "ec_scalar_mul":
-        return rows * (14 + 5 * scalar_bits // 4)
-    return rows - groups
+        windows = scalar_bits // 4
+        return rows * ((14 + windows) * EC_ADD_MACS + 4 * windows * EC_DOUBLE_MACS)
+    return (rows - groups) * EC_ADD_MACS
 
 
 def bound_ms(name, k, rows, exp_bits, groups=None):
@@ -1258,12 +1278,11 @@ def bound_ms(name, k, rows, exp_bits, groups=None):
     extensions' 2k(k+1) per product per row, the CIOS product's 2K^2.
     The comb: W + 1 products a row (W = exp_bits / 4 windows) and the
     16-entry table of every window and group read once; its ladder: 1 +
-    4(W - 1) products a group, the W powers written. Device EC: 14 field
-    products (K = 16) a complete addition (`ec_adds`); the points and
-    scalars read once, the points written."""
+    4(W - 1) products a group, the W powers written. Device EC: the
+    multiply-adds its additions and doublings need (`ec_macs`); the points
+    and scalars read once, the points written."""
     if name in EC:
-        macs_per_product = 2 * k * k
-        products = 14 * ec_adds(name, rows, exp_bits, groups)
+        macs_per_product, products = 1, ec_macs(name, rows, exp_bits, groups)
         if name == "ec_scalar_mul":
             in_out_bytes = 4 * rows * (2 * 3 * k + exp_bits // 16)
         else:
@@ -1388,7 +1407,7 @@ def comb_row_steps(shape):
 def _per_step(name, shape, dms):
     if name in EC:
         k, rows, bits, groups = _shape(name, shape)
-        chain = ec_adds(name, 1, bits) if name == "ec_scalar_mul" else (rows // groups).bit_length() - 1
+        chain = ec_chain(bits) if name == "ec_scalar_mul" else (rows // groups).bit_length() - 1
         return f", {dms * 1e3 / max(chain, 1):.3f} us per complete addition of a row's chain ({chain})"
     if name == "cios_comb":
         return f", {dms * 1e6 / comb_row_steps(shape):.4f} ns per row-step"

@@ -51,9 +51,15 @@
 // levels. The levels' sums lie in a global scratch buffer the wrapper
 // allocates (group g's word k of row i at k * M/2 + i, so neighbouring
 // threads read neighbouring words), so M is not capped by the block.
-// (Lane groups for the narrow levels measured at most 1.34x faster at the
-// PDL u1 group's (1, 1024) on an "NVIDIA H100 80GB HBM3, 700.00 W", under
-// the 1.5x that would keep them: PERF.md.)
+// Why the source keeps a second, one-thread addition beside padd_lanes:
+// the PDL u1 group's (1, 1024) is 1023 additions on one SM, throughput-
+// bound on its wide levels, where a lane group repeats round 2's work and
+// pays for shuffles and selects. On an "NVIDIA H100 80GB HBM3, 700.00 W",
+// on one arithmetic, the tree on lane groups alone read 1.34x slower
+// there than one thread a pair (2.7x faster at (16, 32) and (16, 16), a
+// collect's three launches within 0.01 ms of each other), and lane groups
+// for the narrow levels only 1.34x faster than the one-thread tree they
+// were held against, under the 1.5x that would have kept them (PERF.md).
 //
 // What bounds it: integer multiply-adds and their carries. A complete
 // addition is 12 field products of 8 x 8 32-bit multiply-adds (36 in a

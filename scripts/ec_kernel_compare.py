@@ -8,15 +8,15 @@ Run from the root of a checkout, on a machine with the card:
     python3 scripts/ec_kernel_compare.py --src parent=old/ec_kernels.cu \\
         --src new=fsdkr_tpu_torch/csrc/ec_kernels.cu [--rows 256,512,1024]
         [--trees 1x1024,16x32,16x16] [--check-rows 1,13,256,1024,4096]
-        [--turns 2] [--sass] [--then-modexp] [--out FILE.json]
+        [--turns 2] [--sass] [--out FILE.json]
 
 Every source must keep the C interface of `fsdkr_ec_scalar_mul` and
 `fsdkr_ec_tree_sum`. The sources are compiled at once (one nvcc each,
 `ops.nvcc_build`, so the same flags as the port's build), and each
-one's ptxas lines for its two kernels (registers, spills, stack frame)
-are printed. Check: `ec_scalar_mul` at --check-rows rows with 128- and
-256-bit scalars, `ec_tree_sum` at (1, 2), (3, 8) and the --trees
-shapes, on chip_smoke's inputs (edge scalars, G, the identity, a
+one's ptxas usage of its two kernels (registers, spills, stack frame,
+as chip_smoke's `ptxas_usage` reads it) is printed. Check:
+`ec_scalar_mul` at --check-rows rows with 128- and 256-bit scalars,
+`ec_tree_sum` at (1, 2), (3, 8) and the --trees shapes, on chip_smoke's inputs (edge scalars, G, the identity, a
 quarter of the rows worst-case; trees of random Z with cancelling pairs,
 doublings and identity pads); every source must equal the plain version
 bit for bit. Time: each source's device time per launch (torch.profiler,
@@ -26,10 +26,6 @@ sources in turns: forward, then backward, --turns times (A B B A ...),
 and us per complete addition of a row's chain (334 for a 256-bit row, a
 level a tree). --sass: each source's two kernels' static SASS, counted
 by opcode (cuobjdump -sass; every inlined copy of the addition counts).
---then-modexp: the main path's `cios_modexp` pair launch (the pair
-families' five segments) timed right after each source's scalar mul at
-1024 rows, in the same turns, and alone, by its own device time: does
-the EC kernel before it change its time?
 Prints the card's name and power limit, a line a shape, and the JSON
 of all times (also written to --out).
 """
@@ -101,18 +97,6 @@ def tree_sum_call(lib, points):
     return call
 
 
-def ptxas_lines(report: str):
-    """The ptxas lines of the two EC kernels (the entry line names it)."""
-    keep, out = False, []
-    for line in report.splitlines():
-        if "Compiling entry" in line or "Function properties" in line:
-            keep = "ec_scalar_mul" in line or "ec_tree_sum" in line
-        if keep and any(w in line for w in ("Compiling entry", "registers", "spill",
-                                            "stack frame", "Function properties")):
-            out.append(line.strip())
-    return out
-
-
 def sass_counts(so: str) -> dict:
     """{kernel: {opcode: static count}} of the EC kernels in a library."""
     import re
@@ -136,32 +120,6 @@ def sass_counts(so: str) -> dict:
     return counts
 
 
-# the main path's pair-families launch of `cios_modexp` (K, rows, exp_bits)
-PAIR_SEGMENTS = ((256, 512, 256), (256, 512, 2048), (128, 512, 256), (128, 512, 768),
-                 (128, 512, 3072))
-
-
-def then_modexp(dev, rng, libs, order):
-    """`cios_modexp`'s pair launch after each source's scalar mul (1024 rows,
-    256-bit) and alone, in turns: its device time per launch."""
-    from fsdkr_tpu_torch.ops import montgomery_kernels as mk
-
-    segs = cs.modexp_segment_inputs(dev, rng, PAIR_SEGMENTS)
-    points, scalars = cs.ec_inputs(rng, dev, 1024, 256, 512)
-    ec = {n: scalar_mul_call(lib, points, scalars, 256) for n, lib in libs.items()}
-    reps = cs.KERNELS["cios_modexp"][3]
-    times = {**{f"after {n}": [] for n in libs}, "alone": []}
-    for name in order:
-        times[f"after {name}"].append(cs._device_ms(
-            lambda: (ec[name](), mk.modexp_segments(segs)), reps, "cios_modexp"))
-        times["alone"].append(cs._device_ms(lambda: mk.modexp_segments(segs), reps,
-                                            "cios_modexp"))
-    cs.log("time: cios_modexp pair launch " + "; ".join(
-        f"{k} {' / '.join(f'{t:.4f}' for t in v)} ms" for k, v in times.items()))
-    return {"kernel": "cios_modexp", "shape": f"segments {PAIR_SEGMENTS}", "device_ms": times,
-            "median_ms": {k: statistics.median(v) for k, v in times.items()}}
-
-
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", action="append", required=True, help="NAME=path to an ec_kernels.cu")
@@ -170,7 +128,6 @@ def main() -> None:
     ap.add_argument("--check-rows", default="1,13,256,1024,4096")
     ap.add_argument("--turns", type=int, default=2)
     ap.add_argument("--sass", action="store_true")
-    ap.add_argument("--then-modexp", action="store_true")
     ap.add_argument("--seed", type=int, default=20261017)
     ap.add_argument("--out", default="chiprun_out/ec_compare.json")
     args = ap.parse_args()
@@ -198,8 +155,10 @@ def main() -> None:
             except RuntimeError as exc:  # a source that does not build drops out
                 cs.log(f"{name}: build failed, left out: {exc}")
                 continue
-            for line in ptxas_lines(report):
-                cs.log(f"{name}: ptxas: {line}")
+            for kernel in ("ec_scalar_mul_kernel", "ec_tree_sum_kernel"):
+                usage = cs.ptxas_usage(report, kernel)
+                cs.log(f"{name}: ptxas: {kernel} "
+                       + (", ".join(f"{k} {v}" for k, v in usage.items()) or "not reported"))
             if args.sass:
                 sass[name] = sass_counts(libs[name]._name)
                 for kernel, cnt in sass[name].items():
@@ -262,8 +221,6 @@ def main() -> None:
             f"{med[first] / med[n]:.2f}x {first})" for n in names))
         results.append({"kernel": kernel, "shape": shape, "chain_additions": chain,
                         "device_ms": times, "median_ms": med})
-    if args.then_modexp:
-        results.append(then_modexp(dev, rng, libs, order))
     summary = {"device": torch.cuda.get_device_name(0), "smi": cs.smi_line(), "order": order,
                "sources": srcs, "results": results,
                "sass": {n: {k: dict(c) for k, c in v.items()} for n, v in sass.items()}}
