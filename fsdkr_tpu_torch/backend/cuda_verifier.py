@@ -17,6 +17,21 @@ wherever the proof carries the commitment being checked):
   — z^e, c^e, h1^s1, h2^s2, s^n on the device; the inversions by a
   product tree per modulus group on the device (one host inversion per
   group).
+
+Two knobs, read at call time and on by default (backend.powm), choose
+the layout, as FSDKR_MULTIEXP and FSDKR_RANGEOPT do in the JAX package
+(its FSDKR_RLC arms are not ported):
+
+- FSDKRC_MULTIEXP: the mod-n^2 equations as one joint row each,
+  u2 ?= gs1 * s2^n * c^{-e} (PDL) and u = gs1 * s^n * c^{-e} (range),
+  and the range's w = h1^s1 h2^s2 (z^{-1})^e: the bases inverted once on
+  the host (batch_base_inv), the rows on the Straus kernel (multi_powm).
+  A c or z with no inverse fails just its row, as in the column path.
+- FSDKRC_RANGEOPT: the range family on its own engines, as thunks beside
+  the PDL columns (utils.pipeline.run_jobs): the u-power of every
+  receiver group on the shared-exponent kernel (one segment a group,
+  c^{-e} beside it), h1^s1 * h2^s2 by joint_comb2 (the comb), z^{-e} one
+  generic column.
 - Ring-Pedersen (`src/ring_pedersen_proof.rs:138-155`): rows (item, i):
     T^{Z_i} == A_i * S^{e_i}  (mod N), e_i in {0,1} — one n*M-row batch.
 - Correct-key: sigma_i^N == rho_i (mod N); rho derivation + small-factor
@@ -47,7 +62,18 @@ from ..proofs.pdl_slack import PDLwSlackProof
 from ..proofs.ring_pedersen import RingPedersenProof
 from ..ops.limbs import limbs_for_bits
 from .batch_verifier import BatchVerifier, HostBatchVerifier
-from .powm import _cached_ctx, device_modmul, device_powm_grouped, powm_columns
+from ..utils.pipeline import run_jobs
+from .powm import (
+    _cached_ctx,
+    batch_base_inv,
+    device_modmul,
+    device_powm_grouped,
+    device_powm_shared_exp_groups,
+    joint_comb2_groups,
+    multiexp_enabled,
+    powm_columns,
+    rangeopt_enabled,
+)
 
 
 def batch_inv(values, moduli, device="cuda") -> List:
@@ -94,11 +120,17 @@ class CudaBatchVerifier(BatchVerifier):
         return device_modmul(a, b, moduli, self.device)
 
     # ------------------------------------------------------------------
-    def _pdl_prepare(self, items):
+    def _pdl_prepare(self, items, joint: bool = False):
         """Recompute challenges; return (the family's modexp columns,
         carry state for _pdl_finish). Out-of-domain rows
         (PDLwSlackProof.domain_gate) are staged with zeros and
-        force-failed in _pdl_finish."""
+        force-failed in _pdl_finish.
+
+        With joint=True the two mod-n^2 columns collapse into ONE joint
+        row per item, u2 ?= gs1 * s2^n * c^{-e}: c^{-1} from the host's
+        batched inversion; a row whose c has no inverse is staged dead
+        (bases (1, 1), exponents (0, 0)) and checked in _pdl_finish by
+        the column form's equality alone."""
         row_ok = [PDLwSlackProof.domain_gate(p, st) for p, st in items]
         e_vec = [
             PDLwSlackProof._challenge(
@@ -112,29 +144,65 @@ class CudaBatchVerifier(BatchVerifier):
         s3_col = [p.s3 if ok else 0 for (p, _), ok in zip(items, row_ok)]
         nn_mod = [st.ek.nn for _, st in items]
         nt_mod = [st.N_tilde for _, st in items]
-        cols = (
-            ([st.ciphertext for _, st in items], e_vec, nn_mod),
-            ([p.s2 for p, _ in items], [st.ek.n for _, st in items], nn_mod),
+        nt_cols = (
             ([p.z for p, _ in items], e_vec, nt_mod),
             ([st.h1 for _, st in items], s1_col, nt_mod),
             ([st.h2 for _, st in items], s3_col, nt_mod),
         )
-        return cols, (e_vec, nn_mod, nt_mod, row_ok)
+        if not joint:
+            cols = (
+                ([st.ciphertext for _, st in items], e_vec, nn_mod),
+                ([p.s2 for p, _ in items], [st.ek.n for _, st in items], nn_mod),
+            ) + nt_cols
+            return cols, (e_vec, nn_mod, nt_mod, row_ok, None)
+        need = [i for i in range(len(items)) if row_ok[i] and e_vec[i] != 0]
+        invs = batch_base_inv([items[i][1].ciphertext for i in need], [nn_mod[i] for i in need])
+        c_inv = [1] * len(items)
+        inv_fail = [False] * len(items)
+        for i, v in zip(need, invs):
+            if v is None:
+                inv_fail[i] = True  # the column form's check, in _pdl_finish
+            else:
+                c_inv[i] = v
+        live = [ok and not fail for ok, fail in zip(row_ok, inv_fail)]
+        multi = (
+            [(p.s2 % st.ek.nn if lv else 1, ci)
+             for (p, st), ci, lv in zip(items, c_inv, live)],
+            [(st.ek.n if lv else 0, e if lv else 0)
+             for (_, st), e, lv in zip(items, e_vec, live)],
+            nn_mod,
+        )
+        return nt_cols + (multi,), (e_vec, nn_mod, nt_mod, row_ok, inv_fail)
 
     def _pdl_finish(self, items, state, results):
         """Combine the modexp column results into per-row verdicts."""
-        e_vec, nn_mod, nt_mod, row_ok = state
-        c_e, s2_n, z_e, h1_s1, h2_s3 = results
+        e_vec, nn_mod, nt_mod, row_ok, inv_fail = state
         gs1 = [(1 + (p.s1 % st.ek.n) * st.ek.n) % st.ek.nn for p, st in items]
-        lhs2 = self._modmul([p.u2 for p, _ in items], c_e, nn_mod)
-        rhs2 = self._modmul(gs1, s2_n, nn_mod)
+        if inv_fail is None:  # column path
+            c_e, s2_n, z_e, h1_s1, h2_s3 = results
+            lhs2 = self._modmul([p.u2 for p, _ in items], c_e, nn_mod)
+            rhs2 = self._modmul(gs1, s2_n, nn_mod)
+            ok2_vec = [lhs2[i] == rhs2[i] and row_ok[i] for i in range(len(items))]
+        else:  # joint path: u2 ?= gs1 * s2^n * c^{-e}
+            z_e, h1_s1, h2_s3, v2 = results
+            rhs2 = self._modmul(gs1, v2, nn_mod)
+            ok2_vec = []
+            for i, (p, st) in enumerate(items):
+                nn = st.ek.nn
+                if inv_fail[i]:
+                    # gcd(c, n^2) > 1 (adversarial): this row's column form
+                    lhs = p.u2 * pow(st.ciphertext % nn, e_vec[i], nn) % nn
+                    rhs = gs1[i] * pow(p.s2 % nn, st.ek.n, nn) % nn
+                    ok2_vec.append(lhs == rhs and row_ok[i])
+                else:
+                    ok2_vec.append(p.u2 % nn == rhs2[i] and row_ok[i])
         lhs3 = self._modmul([p.u3 for p, _ in items], z_e, nt_mod)
         rhs3 = self._modmul(h1_s1, h2_s3, nt_mod)
         ok1_vec = self._pdl_u1_batch(items, e_vec)
         out = []
         for idx in range(len(items)):
             ok1 = ok1_vec[idx] and row_ok[idx]
-            ok2 = lhs2[idx] == rhs2[idx] and row_ok[idx]
+            ok2 = ok2_vec[idx]
             ok3 = lhs3[idx] == rhs3[idx] and row_ok[idx]
             out.append(None if (ok1 and ok2 and ok3) else (ok1, ok2, ok3))
         return out
@@ -181,13 +249,14 @@ class CudaBatchVerifier(BatchVerifier):
     def verify_pdl(self, items):
         if not items:
             return []
-        cols, state = self._pdl_prepare(items)
+        cols, state = self._pdl_prepare(items, joint=multiexp_enabled())
         return self._pdl_finish(items, state, powm_columns(self._modexp, *cols))
 
     # ------------------------------------------------------------------
     def _range_gate(self, items):
         """Domain-gate every row (AliceProof.domain_gate, including the
-        q^3 slack bound on s1) and zero the challenge of gated rows."""
+        q^3 slack bound on s1) and zero the challenge of gated rows. One
+        implementation for every layout, so all gate alike."""
         nn_mod = [ek.nn for _, _, ek, _ in items]
         nt_mod = [dlog.N for _, _, _, dlog in items]
         row_ok = [
@@ -199,9 +268,35 @@ class CudaBatchVerifier(BatchVerifier):
         ]
         return nn_mod, nt_mod, row_ok, e_vec
 
-    def _range_prepare(self, items):
+    def _range_base_inv(self, items, nn_mod, nt_mod, row_ok, e_vec):
+        """The range family's batched base inversions (z mod N~, c mod
+        n^2) of the live e != 0 rows; an e == 0 row never inverts (x^0 = 1,
+        as on the host). Returns (z_inv, c_inv, inv_fail): a z or c with no
+        inverse marks only its own row, which the caller fails as the host
+        verifier does. One implementation for the joint and RANGEOPT
+        layouts."""
+        rows = len(items)
+        need = [i for i in range(rows) if row_ok[i] and e_vec[i] != 0]
+        z_invs = batch_base_inv([items[i][0].z for i in need], [nt_mod[i] for i in need])
+        c_invs = batch_base_inv([items[i][1] for i in need], [nn_mod[i] for i in need])
+        z_inv = [1] * rows
+        c_inv = [1] * rows
+        inv_fail = [False] * rows
+        for i, zv, cv in zip(need, z_invs, c_invs):
+            if zv is None or cv is None:
+                inv_fail[i] = True
+            else:
+                z_inv[i], c_inv[i] = zv, cv
+        return z_inv, c_inv, inv_fail
+
+    def _range_prepare(self, items, joint: bool = False):
         """Return (the family's modexp columns, carry state for
-        _range_finish). Column order matches _range_finish."""
+        _range_finish). Column order matches _range_finish.
+
+        With joint=True the verifier computes the reference's own
+        equation shapes: w = h1^s1 h2^s2 (z^{-1})^e and u = gs1 * s^n *
+        c^{-e}, the bases inverted once a row on the host, the mod-n^2
+        pair one joint 2-term row; no result inversion on the device."""
         nn_mod, nt_mod, row_ok, e_vec = self._range_gate(items)
         s1_col = [
             p.s1 if ok else 0 for (p, _, _, _), ok in zip(items, row_ok)
@@ -209,44 +304,70 @@ class CudaBatchVerifier(BatchVerifier):
         s2_col = [
             p.s2 if ok else 0 for (p, _, _, _), ok in zip(items, row_ok)
         ]
-        cols = (
-            ([p.z for p, _, _, _ in items], e_vec, nt_mod),
+        comb_cols = (
             ([dlog.g for _, _, _, dlog in items], s1_col, nt_mod),
             ([dlog.ni for _, _, _, dlog in items], s2_col, nt_mod),
-            ([c for _, c, _, _ in items], e_vec, nn_mod),
-            (
-                [p.s for p, _, _, _ in items],
-                [ek.n for _, _, ek, _ in items],
-                nn_mod,
-            ),
         )
-        return cols, (nn_mod, nt_mod, row_ok)
+        if not joint:
+            cols = (
+                ([p.z for p, _, _, _ in items], e_vec, nt_mod),
+            ) + comb_cols + (
+                ([c for _, c, _, _ in items], e_vec, nn_mod),
+                (
+                    [p.s for p, _, _, _ in items],
+                    [ek.n for _, _, ek, _ in items],
+                    nn_mod,
+                ),
+            )
+            return cols, (nn_mod, nt_mod, row_ok, None)
+        z_inv, c_inv, inv_fail = self._range_base_inv(items, nn_mod, nt_mod, row_ok, e_vec)
+        live = [ok and not fail for ok, fail in zip(row_ok, inv_fail)]
+        e_live = [e if lv else 0 for e, lv in zip(e_vec, live)]
+        multi = (
+            [(p.s % ek.nn if lv else 1, ci)
+             for (p, _, ek, _), ci, lv in zip(items, c_inv, live)],
+            [(ek.n if lv else 0, e) for (_, _, ek, _), e, lv in zip(items, e_live, live)],
+            nn_mod,
+        )
+        return ((z_inv, e_live, nt_mod),) + comb_cols + (multi,), (
+            nn_mod, nt_mod, row_ok, inv_fail)
 
     def _range_finish(self, items, mods, results):
-        nn_mod, nt_mod, row_ok = mods
-        z_e, h1_s1, h2_s2, c_e, s_n = results
-        w_part = self._modmul(h1_s1, h2_s2, nt_mod)
+        nn_mod, nt_mod, row_ok, inv_fail = mods
+        w_part = self._modmul(results[1], results[2], nt_mod)  # h1^s1 * h2^s2
         # domain-gated rows are force-failed below and skipped here: an
         # adversarial s1 on a gated row can be arbitrarily wide
         gs1 = [
             (1 + p.s1 * ek.n) % ek.nn if ok else 1
             for (p, _, ek, _), ok in zip(items, row_ok)
         ]
-        u_part = self._modmul(gs1, s_n, nn_mod)
-        z_e_inv_vec = batch_inv(z_e, nt_mod, self.device)
-        c_e_inv_vec = batch_inv(c_e, nn_mod, self.device)
+        if inv_fail is None:  # column path
+            z_e, _, _, c_e, s_n = results
+            u_part = self._modmul(gs1, s_n, nn_mod)
+            z_e_inv_vec = batch_inv(z_e, nt_mod, self.device)
+            c_e_inv_vec = batch_inv(c_e, nn_mod, self.device)
+        else:
+            z_inv_e, _, _, v_u = results
+            w_vec = self._modmul(w_part, z_inv_e, nt_mod)
+            u_vec = self._modmul(gs1, v_u, nn_mod)
         out = []
         for idx, (proof, cipher, ek, dlog) in enumerate(items):
             if not row_ok[idx]:
                 out.append(False)
                 continue
-            z_e_inv = z_e_inv_vec[idx]
-            c_e_inv = c_e_inv_vec[idx]
-            if z_e_inv is None or c_e_inv is None:
-                out.append(False)
-                continue
-            w = w_part[idx] * z_e_inv % dlog.N
-            u = u_part[idx] * c_e_inv % ek.nn
+            if inv_fail is None:
+                z_e_inv = z_e_inv_vec[idx]
+                c_e_inv = c_e_inv_vec[idx]
+                if z_e_inv is None or c_e_inv is None:
+                    out.append(False)
+                    continue
+                w = w_part[idx] * z_e_inv % dlog.N
+                u = u_part[idx] * c_e_inv % ek.nn
+            else:
+                if inv_fail[idx]:
+                    out.append(False)
+                    continue
+                w, u = w_vec[idx], u_vec[idx]
             out.append(
                 alice_range._challenge(
                     ek.n, cipher, proof.z, u, w, self.config.hash_alg
@@ -255,19 +376,128 @@ class CudaBatchVerifier(BatchVerifier):
             )
         return out
 
+    # -- FSDKRC_RANGEOPT: the range family's own engines ---------------
+    def _range_opt_prepare(self, items):
+        """Gate rows, invert the bases, and group the live rows by
+        receiver: (n, n^2) for the u-power (every row of a receiver
+        raises its s to the receiver's public n), (h1, h2, N~) for the
+        w-part. A gated or non-invertible row enters no group."""
+        rows = len(items)
+        nn_mod, nt_mod, row_ok, e_vec = self._range_gate(items)
+        z_inv, c_inv, inv_fail = self._range_base_inv(items, nn_mod, nt_mod, row_ok, e_vec)
+        live = [ok and not fail for ok, fail in zip(row_ok, inv_fail)]
+        nn_groups: Dict[tuple, List[int]] = {}
+        nt_groups: Dict[tuple, List[int]] = {}
+        for i in range(rows):
+            if not live[i]:
+                continue
+            _, _, ek, dlog = items[i]
+            nn_groups.setdefault((ek.n, ek.nn), []).append(i)
+            nt_groups.setdefault((dlog.g, dlog.ni, dlog.N), []).append(i)
+        return dict(
+            nn_mod=nn_mod, nt_mod=nt_mod, row_ok=row_ok, e_vec=e_vec,
+            z_inv=z_inv, c_inv=c_inv, live=live,
+            nn_groups=nn_groups, nt_groups=nt_groups,
+            u_pow=[1] * rows, hs=[1] * rows, z_pow=[1] * rows,
+        )
+
+    def _range_opt_jobs(self, items, state):
+        """The range family's launch sets as thunks for run_jobs: every
+        receiver group's u-power s^n * c^{-e} mod n^2 in one
+        device_powm_shared_exp_groups call (one shared-exponent launch,
+        one generic launch for the c^{-e} terms, one modmul), every
+        receiver environment's h1^s1 * h2^s2 mod N~ in one
+        joint_comb2_groups call, and the z^{-e} column. Each thunk writes
+        only its own rows of the state."""
+        e_vec, c_inv, z_inv = state["e_vec"], state["c_inv"], state["z_inv"]
+        jobs = []
+        nn_groups = list(state["nn_groups"].items())
+        nt_groups = list(state["nt_groups"].items())
+        if nn_groups:
+            def u_job():
+                res = device_powm_shared_exp_groups(
+                    [([items[i][0].s for i in idxs], n, nn, [c_inv[i] for i in idxs],
+                      [e_vec[i] for i in idxs]) for (n, nn), idxs in nn_groups],
+                    self.device)
+                for (_, idxs), vals in zip(nn_groups, res):
+                    for i, v in zip(idxs, vals):
+                        state["u_pow"][i] = v
+
+            jobs.append(u_job)
+        if nt_groups:
+            def w_job():
+                res = joint_comb2_groups(
+                    [(h1, [items[i][0].s1 for i in idxs], h2, [items[i][0].s2 for i in idxs], nt)
+                     for (h1, h2, nt), idxs in nt_groups],
+                    self.device)
+                for (_, idxs), vals in zip(nt_groups, res):
+                    for i, v in zip(idxs, vals):
+                        state["hs"][i] = v
+
+            jobs.append(w_job)
+        z_rows = [i for i in range(len(items)) if state["live"][i] and e_vec[i]]
+        if z_rows:
+            def z_job():
+                res = self._modexp([z_inv[i] for i in z_rows], [e_vec[i] for i in z_rows],
+                                   [state["nt_mod"][i] for i in z_rows])
+                for i, v in zip(z_rows, res):
+                    state["z_pow"][i] = v
+
+            jobs.append(z_job)
+        return jobs
+
+    def _range_opt_finish(self, items, state):
+        """u = gs1 * u_pow mod n^2, w = hs * z_pow mod N~, then the
+        challenge of every live row."""
+        idxs = [i for i in range(len(items)) if state["live"][i]]
+        # gs1 only for live rows: s1 <= q^3 by the domain gate
+        gs1 = [(1 + items[i][0].s1 * items[i][2].n) % items[i][2].nn for i in idxs]
+        u_col = self._modmul(gs1, [state["u_pow"][i] for i in idxs],
+                             [state["nn_mod"][i] for i in idxs])
+        w_col = self._modmul([state["hs"][i] for i in idxs], [state["z_pow"][i] for i in idxs],
+                             [state["nt_mod"][i] for i in idxs])
+        out = [False] * len(items)
+        for i, u, w in zip(idxs, u_col, w_col):
+            proof, cipher, ek, _ = items[i]
+            out[i] = alice_range._challenge(
+                ek.n, cipher, proof.z, u, w, self.config.hash_alg
+            ) == proof.e
+        return out
+
     def verify_range(self, items):
         if not items:
             return []
-        cols, mods = self._range_prepare(items)
+        if rangeopt_enabled():
+            state = self._range_opt_prepare(items)
+            run_jobs(self._range_opt_jobs(items, state))
+            return self._range_opt_finish(items, state)
+        cols, mods = self._range_prepare(items, joint=multiexp_enabled())
         return self._range_finish(items, mods, powm_columns(self._modexp, *cols))
 
     # ------------------------------------------------------------------
     def verify_pairs(self, pdl_items, range_items):
         """Both pair-loop families through ONE fused launch set: every
         modexp column submitted together, so same-width columns across
-        families share launches."""
-        pcols, state = self._pdl_prepare(pdl_items)
-        rcols, rmods = self._range_prepare(range_items)
+        families share launches, and under FSDKRC_MULTIEXP both families'
+        joint mod-n^2 rows share one Straus launch. Under FSDKRC_RANGEOPT
+        the range family's engines run as thunks after the PDL columns."""
+        if not pdl_items or not range_items:
+            return self.verify_pdl(pdl_items), self.verify_range(range_items)
+        joint = multiexp_enabled()
+        pcols, state = self._pdl_prepare(pdl_items, joint=joint)
+        if rangeopt_enabled():
+            rstate = self._range_opt_prepare(range_items)
+            presults = [None]
+
+            def pdl_job():
+                presults[0] = powm_columns(self._modexp, *pcols)
+
+            run_jobs([pdl_job] + self._range_opt_jobs(range_items, rstate))
+            return (
+                self._pdl_finish(pdl_items, state, presults[0]),
+                self._range_opt_finish(range_items, rstate),
+            )
+        rcols, rmods = self._range_prepare(range_items, joint=joint)
         results = powm_columns(self._modexp, *pcols, *rcols)
         return (
             self._pdl_finish(pdl_items, state, results[: len(pcols)]),

@@ -30,6 +30,7 @@ by the modulus vector.
 from __future__ import annotations
 
 import contextlib
+import os as _os
 from functools import partial
 from typing import Callable, List, Optional, Sequence
 
@@ -253,16 +254,17 @@ def _comb_rows(bases, exps, moduli, out, device) -> List[int]:
     return [i for i in range(len(bases)) if i not in in_comb]
 
 
-def device_powm_batches(batches, device="cuda") -> List[List[int]]:
+def device_powm_batches(batches, device="cuda", comb=True) -> List[List[int]]:
     """device_powm_grouped over several (bases, exps, moduli) batches at
     once. Each batch's comb groups launch as device_powm_grouped launches
-    them; the other rows of every batch share one segmented `cios_modexp`
-    launch (`ops.montgomery.modexp_batches`), downloaded once: a segment
-    per batch, tiled and padded as device_powm tiles and pads it, on the
-    same cached context, so results and cache keys are device_powm's. A
-    launch holds at most _MAX_ROWS rows and MAX_SEGMENTS segments; more
-    take more launches. Inside `forced_rns_route()` every batch takes
-    device_powm."""
+    them (with comb=False every row takes the generic engine, as in the
+    JAX package's tpu_powm); the other rows of every batch share one
+    segmented `cios_modexp` launch (`ops.montgomery.modexp_batches`),
+    downloaded once: a segment per batch, tiled and padded as device_powm
+    tiles and pads it, on the same cached context, so results and cache
+    keys are device_powm's. A launch holds at most _MAX_ROWS rows and
+    MAX_SEGMENTS segments; more take more launches. Inside
+    `forced_rns_route()` every batch takes device_powm."""
     if _rns_forced():
         return [device_powm(*batch, device) for batch in batches]
     from ..ops.montgomery import modexp_batches
@@ -272,7 +274,8 @@ def device_powm_batches(batches, device="cuda") -> List[List[int]]:
     for bases, exps, moduli in batches:
         out: List = [None] * len(bases)
         outs.append(out)
-        rest = _comb_rows(bases, exps, moduli, out, device)
+        rest = (_comb_rows(bases, exps, moduli, out, device) if comb
+                else list(range(len(bases))))
         for lo in range(0, len(rest), _MAX_ROWS):
             idx = rest[lo : lo + _MAX_ROWS]
             b, e, m = _padded(*([col[i] for i in idx] for col in (bases, exps, moduli)))
@@ -317,6 +320,360 @@ def device_modmul(a, b, moduli, device="cuda") -> List[int]:
     return _cached_ctx(moduli, limbs_for_bits(width), device).modmul(a, b)[:rows]
 
 
+def _knob_on(name: str) -> bool:
+    return _os.environ.get(name, "1").lower() not in ("0", "off", "false", "no")
+
+
+def multiexp_enabled() -> bool:
+    """FSDKRC_MULTIEXP (default on; 0, off, false or no turn it off), read
+    at call time: the joint multi-exponentiation layout of the provers'
+    commitments and of the verifier's mod-n^2 equations (the JAX package's
+    FSDKR_MULTIEXP). Off, every caller takes the per-term column layout."""
+    return _knob_on("FSDKRC_MULTIEXP")
+
+
+def rangeopt_enabled() -> bool:
+    """FSDKRC_RANGEOPT (default on, parsed as FSDKRC_MULTIEXP), read at
+    call time: the range family's verifier engines (the JAX package's
+    FSDKR_RANGEOPT): the u-power s^n * c^{-e} mod n^2 on the
+    shared-exponent kernel, one segment a receiver; h1^s1 * h2^s2 mod N~
+    by `joint_comb2`; z^{-e} one generic column. Off, the range family
+    takes the joint or column layout. Verdicts are the same either way."""
+    return _knob_on("FSDKRC_RANGEOPT")
+
+
+def batch_base_inv(values, moduli) -> List[Optional[int]]:
+    """Montgomery-trick batched modular inversion on the host: rows group
+    by modulus, one `pow(prod, -1, m)` per group plus about three bigint
+    mulmods a row. Returns one entry per row; a non-invertible value
+    poisons only its own group, which falls back to per-row inversion and
+    reports None for the bad rows: the caller decides what that means (the
+    verifier fails the row as the host verifier does). The host sibling of
+    the device product tree (ops.montgomery.batch_mod_inv_grouped), with
+    the same group-by-modulus and poison-only-its-group policy."""
+    groups: dict = {}
+    for i, m in enumerate(moduli):
+        groups.setdefault(m, []).append(i)
+    out: List[Optional[int]] = [None] * len(values)
+    for m, idxs in groups.items():
+        if m <= 1:
+            continue
+        # prefix products: pref[j] = v_0 * ... * v_{j-1} mod m
+        pref = [1] * (len(idxs) + 1)
+        for j, i in enumerate(idxs):
+            pref[j + 1] = pref[j] * (values[i] % m) % m
+        try:
+            inv = pow(pref[-1], -1, m)
+        except ValueError:  # some row not invertible: per-row fallback
+            for i in idxs:
+                try:
+                    out[i] = pow(values[i] % m, -1, m)
+                except ValueError:
+                    out[i] = None
+            continue
+        for j in range(len(idxs) - 1, -1, -1):
+            out[idxs[j]] = pref[j] * inv % m
+            inv = inv * (values[idxs[j]] % m) % m
+    return out
+
+
+# Terms a device Straus row: a longer row (the RLC aggregated groups reach
+# 2n+1 terms) is split into sub-rows of at most this many terms, which
+# share their launches, and the parts are multiplied back on the host.
+# Wider moduli take fewer (`montgomery_kernels.multi_modexp_max_terms`:
+# one warp's tables must fit a block's shared memory).
+_DEVICE_MAX_TERMS = 16
+
+
+def _term_cap(modulus: int) -> int:
+    from ..ops.montgomery_kernels import multi_modexp_max_terms
+
+    k = limbs_for_bits(modulus.bit_length())
+    return min(_DEVICE_MAX_TERMS, multi_modexp_max_terms(k + (k & 1)))
+
+
+def _prod_mod(factors, m) -> int:
+    acc = factors[0] % m
+    for f in factors[1:]:
+        acc = acc * f % m
+    return acc
+
+
+def _host_joint(bases_rows, exps_rows, moduli) -> List[int]:
+    """The host's joint rows: CPython pow per term, multiplied back."""
+    return [_prod_mod([pow(b, e, m) for b, e in zip(bs, es)], m)
+            for bs, es, m in zip(bases_rows, exps_rows, moduli)]
+
+
+def _joint_rows(bases_rows, exps_rows, moduli, device) -> List[int]:
+    """Straus rows of at least 2 terms with non-negative exponents (the
+    JAX package's backend.powm._joint_rows), launched in buckets of (term
+    count, modulus limbs, each term's bucketed width); device None is the
+    host. On the device a row of more terms than its modulus' cap
+    (`_term_cap`) is split into sub-rows of at most that many, evaluated
+    in one recursion, and its parts multiplied back on the host."""
+    if device is None:
+        return _host_joint(bases_rows, exps_rows, moduli)
+    caps = [_term_cap(m) for m in moduli]
+    if any(len(bs) > cap for bs, cap in zip(bases_rows, caps)):
+        sub_b: List = []
+        sub_e: List = []
+        sub_m: List = []
+        owners: List[List[int]] = []
+        for bs, es, m, cap in zip(bases_rows, exps_rows, moduli, caps):
+            slots = []
+            for lo in range(0, len(bs), cap):
+                slots.append(len(sub_m))
+                sub_b.append(tuple(bs[lo : lo + cap]))
+                sub_e.append(tuple(es[lo : lo + cap]))
+                sub_m.append(m)
+            owners.append(slots)
+        res = _joint_rows(sub_b, sub_e, sub_m, device)
+        return [_prod_mod([res[s] for s in slots], m) for slots, m in zip(owners, moduli)]
+    out: List = [None] * len(moduli)
+    # a launch's chain is as deep as its widest term, and each term
+    # position's windows follow the launch's widest row there: rows of
+    # different width shapes take different launches
+    buckets: dict = {}
+    for i, (bs, es, m) in enumerate(zip(bases_rows, exps_rows, moduli)):
+        key = (len(bs), limbs_for_bits(m.bit_length()),
+               tuple(bucket_exp_bits([e_t]) for e_t in es))
+        buckets.setdefault(key, []).append(i)
+    for (t_cnt, _, _), idxs in buckets.items():
+        res = _device_joint_launch([tuple(bases_rows[i]) for i in idxs],
+                                   [tuple(exps_rows[i]) for i in idxs],
+                                   [moduli[i] for i in idxs], t_cnt, device)
+        for i, v in zip(idxs, res):
+            out[i] = v
+    return out
+
+
+def _device_joint_launch(bases_rows, exps_rows, moduli, t_cnt, device) -> List[int]:
+    """One `cios_multi_modexp` launch of t_cnt-term rows, padded as the JAX
+    package pads it (base 1, exponent 0, modulus 3 rows to a power of two,
+    at least 8); at most _MAX_ROWS rows a launch. No RNS form of the
+    Straus kernel is ported, so inside `forced_rns_route()` too these rows
+    take the CIOS engine."""
+    rows = len(moduli)
+    if rows > _MAX_ROWS:
+        return [v for lo in range(0, rows, _MAX_ROWS)
+                for v in _device_joint_launch(bases_rows[lo : lo + _MAX_ROWS],
+                                              exps_rows[lo : lo + _MAX_ROWS],
+                                              moduli[lo : lo + _MAX_ROWS], t_cnt, device)]
+    from ..ops.montgomery import multi_modexp
+
+    pad = _pad_pow2(rows) - rows
+    bases_rows = list(bases_rows) + [(1,) * t_cnt] * pad
+    exps_rows = list(exps_rows) + [(0,) * t_cnt] * pad
+    moduli = list(moduli) + [3] * pad
+    exp_bits = tuple(bucket_exp_bits([e[t] for e in exps_rows]) for t in range(t_cnt))
+    k = limbs_for_bits(max(m.bit_length() for m in moduli))
+    return multi_modexp(bases_rows, exps_rows, moduli, k, exp_bits,
+                        ctx=_cached_ctx(moduli, k, device))[:rows]
+
+
+def multi_powm(bases_rows, exps_rows, moduli, device="cuda") -> List[int]:
+    """Joint multi-exponentiation rows: prod_t bases_rows[r][t] ^
+    exps_rows[r][t] mod moduli[r] (the JAX package's multi_powm), each term
+    routed to the engine that prices it best:
+
+    - negative exponents fold in by inverting the base once
+      (batch_base_inv; a non-invertible base raises ValueError: callers
+      that need a per-row verdict fold and gate first);
+    - terms whose (base, modulus, width class) repeats in at least
+      _SHARED_MIN_ROWS instances take the fixed-base comb
+      (device_powm_shared);
+    - rows left with 2 or more terms take the Straus kernel (_joint_rows);
+    - rows left with one term take the generic engine, one segment per
+      (width, limbs) bucket of one launch;
+    - the parts of a row are multiplied here (one device_modmul a part),
+      so callers never submit recombination columns.
+
+    Exact: no random linear combination, no assumption on the
+    (adversarial) moduli. device None computes on the host (CPython)."""
+    rows = len(moduli)
+    if rows == 0:
+        return []
+    neg_idx = [(i, t) for i, es in enumerate(exps_rows) for t, e_t in enumerate(es) if e_t < 0]
+    if neg_idx:
+        bases_rows = [list(bs) for bs in bases_rows]
+        exps_rows = [list(es) for es in exps_rows]
+        invs = batch_base_inv([bases_rows[i][t] for i, t in neg_idx],
+                              [moduli[i] for i, _ in neg_idx])
+        for (i, t), inv in zip(neg_idx, invs):
+            if inv is None:
+                raise ValueError("multi_powm: negative exponent with non-invertible base")
+            bases_rows[i][t] = inv
+            exps_rows[i][t] = -exps_rows[i][t]
+
+    # shared bases across all (row, term) instances, split by width class:
+    # a comb group's lookups follow its widest exponent
+    counts: dict = {}
+    for i, (bs, es, m) in enumerate(zip(bases_rows, exps_rows, moduli)):
+        for t, (b, e_t) in enumerate(zip(bs, es)):
+            counts.setdefault((b, m, bucket_exp_bits([e_t])), []).append((i, t))
+    comb_groups = [(key, inst) for key, inst in counts.items()
+                   if len(inst) >= _SHARED_MIN_ROWS]
+    parts: List[List[int]] = [[] for _ in range(rows)]  # factors a row
+    comb_instances = set()
+    if comb_groups:
+        g_bases = [key[0] for key, _ in comb_groups]
+        g_exps = [[exps_rows[i][t] for i, t in inst] for _, inst in comb_groups]
+        g_mods = [key[1] for key, _ in comb_groups]
+        if device is None:
+            res = [[pow(b, e, m) for e in es] for b, es, m in zip(g_bases, g_exps, g_mods)]
+        else:
+            res = device_powm_shared(g_bases, g_exps, g_mods, device)
+        for (_, inst), vals in zip(comb_groups, res):
+            for (i, _), v in zip(inst, vals):
+                parts[i].append(v)
+        comb_instances = {it for _, inst in comb_groups for it in inst}
+
+    loners = [[t for t in range(len(bs)) if (i, t) not in comb_instances]
+              for i, bs in enumerate(bases_rows)]
+    joint_idx = [i for i in range(rows) if len(loners[i]) >= 2]
+    single_idx = [i for i in range(rows) if len(loners[i]) == 1]
+    if joint_idx:
+        res = _joint_rows([[bases_rows[i][t] for t in loners[i]] for i in joint_idx],
+                          [[exps_rows[i][t] for t in loners[i]] for i in joint_idx],
+                          [moduli[i] for i in joint_idx], device)
+        for i, v in zip(joint_idx, res):
+            parts[i].append(v)
+    if single_idx:
+        buckets: dict = {}
+        for i in single_idx:
+            (t,) = loners[i]
+            w = (bucket_exp_bits([exps_rows[i][t]]), limbs_for_bits(moduli[i].bit_length()))
+            buckets.setdefault(w, []).append((i, t))
+        batches = [([bases_rows[i][t] for i, t in pairs], [exps_rows[i][t] for i, t in pairs],
+                    [moduli[i] for i, _ in pairs]) for pairs in buckets.values()]
+        if device is None:
+            results = [host_powm(*batch) for batch in batches]
+        else:
+            results = device_powm_batches(batches, device, comb=False)
+        for pairs, res in zip(buckets.values(), results):
+            for (i, _), v in zip(pairs, res):
+                parts[i].append(v)
+
+    # a row of no terms is the empty product
+    max_parts = max(len(p) for p in parts)
+    if max_parts == 0:
+        return [1 % m for m in moduli]
+    if max_parts == 1:
+        return [p[0] if p else 1 % m for p, m in zip(parts, moduli)]
+    if device is None:
+        return [_prod_mod(p, m) if p else 1 % m for p, m in zip(parts, moduli)]
+    acc = [p[0] if p else 1 for p in parts]
+    for step in range(1, max_parts):
+        acc = device_modmul(acc, [p[step] if len(p) > step else 1 for p in parts], moduli,
+                            device)
+    return acc
+
+
+def device_powm_shared_exp(bases, exp, modulus, aux_bases=None, aux_exps=None,
+                           device="cuda") -> List[int]:
+    """bases[r]^exp (* aux_bases[r]^aux_exps[r]) mod modulus: ONE public
+    exponent and modulus for every row (the range u-power: each row of a
+    receiver's s^n column raises its own base to the receiver's Paillier
+    n), the counterpart of the JAX package's tpu_powm_shared_exp. One group
+    of `device_powm_shared_exp_groups`."""
+    return device_powm_shared_exp_groups([(bases, exp, modulus, aux_bases, aux_exps)],
+                                         device)[0]
+
+
+def device_powm_shared_exp_groups(groups, device="cuda") -> List[List[int]]:
+    """device_powm_shared_exp over several groups (bases, exp, modulus,
+    aux_bases, aux_exps) at once: every group's main term is a segment of
+    one `cios_shared_exp` launch (its modulus and window digits the
+    segment's own; rows padded with base 1 to a power of two, groups past
+    _MAX_ROWS split; more launches past _MAX_ROWS rows or MAX_SEGMENTS
+    segments); every group's aux term rides one generic launch
+    (device_powm_batches), and the two meet in one device_modmul. Inside
+    `forced_rns_route()` the main terms still take the CIOS kernel (no
+    RNS form is ported) and the aux term the RNS route."""
+    from ..ops.montgomery import shared_exp_batches
+    from ..ops.montgomery_kernels import MAX_SEGMENTS
+
+    outs: List[List] = [[None] * len(g[0]) for g in groups]
+    jobs = []  # (ctx, bases, exp, group, first row)
+    for gi, (bases, exp, modulus, *_rest) in enumerate(groups):
+        if exp < 0:
+            raise ValueError("device_powm_shared_exp: exponent must be non-negative")
+        ctx = _cached_ctx([modulus], limbs_for_bits(modulus.bit_length()), device)
+        for lo in range(0, len(bases), _MAX_ROWS):
+            chunk = list(bases[lo : lo + _MAX_ROWS])
+            jobs.append((ctx, chunk + [1] * (_pad_pow2(len(chunk)) - len(chunk)), exp, gi, lo))
+    group, rows = [], 0
+    for job in jobs + [None]:
+        if group and (job is None or rows + len(job[1]) > _MAX_ROWS
+                      or len(group) == MAX_SEGMENTS):
+            for (_, bases, _, gi, lo), res in zip(group, shared_exp_batches(
+                    [j[:3] for j in group])):
+                n_real = min(len(bases), len(outs[gi]) - lo)
+                outs[gi][lo : lo + n_real] = res[:n_real]
+            group, rows = [], 0
+        if job is not None:
+            group.append(job)
+            rows += len(job[1])
+
+    aux = [gi for gi, g in enumerate(groups) if len(g) > 3 and g[3] is not None and g[0]]
+    if aux:
+        ab = [b for gi in aux for b in groups[gi][3]]
+        ae = [e for gi in aux for e in groups[gi][4]]
+        am = [groups[gi][2] for gi in aux for _ in groups[gi][3]]
+        main = [v for gi in aux for v in outs[gi]]
+        (ap,) = device_powm_batches([(ab, ae, am)], device, comb=False)
+        prod = device_modmul(main, ap, am, device)
+        lo = 0
+        for gi in aux:
+            outs[gi] = prod[lo : lo + len(outs[gi])]
+            lo += len(outs[gi])
+    return outs
+
+
+def joint_comb2(base1, exps1, base2, exps2, modulus, device="cuda") -> List[int]:
+    """base1^exps1[r] * base2^exps2[r] mod modulus: the 2-term fixed-base
+    shape of the mod-N~ equations (h1^s1 * h2^s2 per receiver environment;
+    the JAX package's joint_comb2, its device branch). One group of
+    `joint_comb2_groups`."""
+    return joint_comb2_groups([(base1, exps1, base2, exps2, modulus)], device)[0]
+
+
+def joint_comb2_groups(groups, device="cuda") -> List[List[int]]:
+    """joint_comb2 over several (base1, exps1, base2, exps2, modulus)
+    groups: every group's first base in one device_powm_shared call (the
+    comb), every second base in another (each at its own exponent width:
+    s1 is a third of s2's), then one device_modmul over all rows."""
+    for _, e1, _, e2, _ in groups:
+        if len(e1) != len(e2):
+            raise ValueError("joint_comb2 column length mismatch")
+    live = [g for g in groups if g[1]]
+    if not live:
+        return [[] for _ in groups]
+    mods = [g[4] for g in live]
+    r1, r2 = (
+        [v for grp in device_powm_shared([g[j] for g in live], [list(g[j + 1]) for g in live],
+                                         mods, device) for v in grp]
+        for j in (0, 2)
+    )
+    prod = device_modmul(r1, r2, [m for _, e1, _, _, m in live for _ in e1], device)
+    outs, lo = [], 0
+    for g in groups:
+        outs.append(prod[lo : lo + len(g[1])])
+        lo += len(g[1])
+    return outs
+
+
+def fold_ladder2(rows, device="cuda") -> List[int]:
+    """Merged 2-term shared-base fold rows [((b1, b2), (e1, e2), mod), ...]
+    (the JAX package's fold_ladder2). Its device branch is plain
+    multi_powm, which this is; the host's persistent comb-table cache
+    belongs to the RLC path, not ported."""
+    if not rows:
+        return []
+    return multi_powm([r[0] for r in rows], [r[1] for r in rows], [r[2] for r in rows], device)
+
+
 def get_batch_powm(config: ProtocolConfig) -> BatchPowm:
     if config.backend == "host":
         return host_powm
@@ -338,10 +695,17 @@ def powm_columns(powm: BatchPowm, *columns):
     (`get_batch_powm`, the verifier's `_modexp`), the batches go to
     device_powm_batches together: each batch is a segment of one
     `cios_modexp` launch, so the batches' chains run side by side.
+
+    A column whose bases and exps entries are TUPLES is a joint column
+    (one product of powers a row): all such columns pool into one
+    multi_powm pass, on the device route's device, or on the host for any
+    other `powm`.
     """
     by_prefix: dict = {}  # cheap prefix -> [column indices]
     alias: dict = {}  # later column index -> first column index
     flat: dict = {}  # width class -> (bases, exps, moduli, [(col, lo, hi)])
+    multi: list = []  # (col, lo, hi) spans into the pooled joint rows
+    mb, me, mm = [], [], []  # pooled joint multi-exponentiation rows
     for col, (bases, exps, moduli) in enumerate(columns):
         prefix = (
             len(bases),
@@ -359,6 +723,12 @@ def powm_columns(powm: BatchPowm, *columns):
             alias[col] = dup
             continue
         by_prefix.setdefault(prefix, []).append(col)
+        if bases and isinstance(bases[0], (tuple, list)):
+            multi.append((col, len(mb), len(mb) + len(bases)))
+            mb += list(bases)
+            me += list(exps)
+            mm += list(moduli)
+            continue
         w = (
             bucket_exp_bits(exps),
             limbs_for_bits(max(m.bit_length() for m in moduli)) if moduli else 0,
@@ -370,7 +740,8 @@ def powm_columns(powm: BatchPowm, *columns):
         m += list(moduli)
 
     batches = list(flat.values())
-    if isinstance(powm, partial) and powm.func is device_powm_grouped:
+    device_route = isinstance(powm, partial) and powm.func is device_powm_grouped
+    if device_route:
         # the device route: every width batch's generic rows in one launch
         results = device_powm_batches([(b, e, m) for b, e, m, _ in batches],
                                       *powm.args, **powm.keywords)
@@ -379,6 +750,14 @@ def powm_columns(powm: BatchPowm, *columns):
     out: list = [None] * len(columns)
     for (_, _, _, spans), res in zip(batches, results):
         for col, lo, hi in spans:
+            out[col] = res[lo:hi]
+    if multi:
+        # the joint columns: one multi_powm pass on the device route's
+        # device, else on the host
+        device = (powm.keywords.get("device", powm.args[0] if powm.args else "cuda")
+                  if device_route else None)
+        res = multi_powm(mb, me, mm, device)
+        for col, lo, hi in multi:
             out[col] = res[lo:hi]
     for col, dup in alias.items():
         out[col] = list(out[dup])  # fresh list: no aliasing across columns

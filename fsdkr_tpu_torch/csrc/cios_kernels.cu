@@ -636,6 +636,203 @@ cios_modexp_kernel(const __grid_constant__ ModexpTable tab) {
 }
 
 // ---------------------------------------------------------------------------
+// fsdkr_cios_multi_modexp: prod_t base_t^exp_t mod n per row, the joint
+// (Straus) ladder of _multi_modexp_kernel
+
+constexpr int kMaxTerms = 16;                 // backend.powm._DEVICE_MAX_TERMS
+constexpr size_t kMaxSmemBytes = 227 * 1024;  // a block's opt-in shared memory
+
+// the window tables of one warp's row: T tables of 16 entries, 32P words each
+__host__ __device__ __forceinline__ size_t multi_warp_smem_bytes(int terms, int P) {
+  return (size_t)terms * 16 * P * 32 * sizeof(uint32_t);
+}
+
+struct MultiArgs {
+  const int32_t* bases;  // (T, rows, K)
+  const int32_t* exps;   // (T, rows, exp_limbs)
+  const int32_t* n;
+  const int32_t* n_inv;
+  const int32_t* r2;
+  const int32_t* one_mont;
+  int32_t* out;
+  int terms, rows, K, exp_limbs, warps;
+  int exp_bits[kMaxTerms];  // descending
+};
+
+// One warp's row: T tables, then one shared chain of exp_bits[0] / 4
+// windows, each four squarings and one product per active term
+template <int P>
+__device__ __forceinline__ void multi_modexp_row(const MultiArgs& a, int row, int lane,
+                                                 uint32_t* __restrict__ tables) {
+  const int K = a.K;
+  const int W = K / 2;
+  const size_t off = (size_t)row * K;
+  const size_t plane = (size_t)a.rows * K;
+  uint32_t nv[P], acc[P], bm[P], tmp[P];
+  load_words<P>(nv, a.n + off, W, lane);
+  const uint32_t np = nprime_of(a.n_inv, K, row);
+  load_words<P>(acc, a.one_mont + off, W, lane);  // entry 0 of every table, and acc's start
+  for (int t = 0; t < a.terms; ++t) {
+    // term t's table: entry e, slot s of lane l at (e * P + s) * 32 + l
+    uint32_t* table = tables + (size_t)t * 16 * P * 32;
+    load_words<P>(bm, a.bases + t * plane + off, W, lane);
+    load_words<P>(tmp, a.r2 + off, W, lane);
+    mont_mul<P>(bm, bm, tmp, nv, np, W, lane);  // into the Montgomery domain
+#pragma unroll
+    for (int s = 0; s < P; ++s) {
+      table[(0 * P + s) * 32 + lane] = acc[s];
+      table[(1 * P + s) * 32 + lane] = bm[s];
+      tmp[s] = bm[s];
+    }
+    for (int e = 2; e < 16; ++e) {
+      mont_mul<P>(tmp, tmp, bm, nv, np, W, lane);
+#pragma unroll
+      for (int s = 0; s < P; ++s) table[(e * P + s) * 32 + lane] = tmp[s];
+    }
+  }
+  __syncwarp();
+
+  const int w_total = a.exp_bits[0] / 4;
+  for (int wi = 0; wi < w_total; ++wi) {
+#pragma unroll 1
+    for (int sq = 0; sq < 4; ++sq) mont_mul<P>(acc, acc, acc, nv, np, W, lane);
+    for (int t = 0; t < a.terms; ++t) {
+      // term t's digits fill the chain's last exp_bits[t] / 4 windows; the
+      // widths are the launch's shape, so every row takes the same terms
+      const int start = w_total - a.exp_bits[t] / 4;
+      if (wi < start) continue;
+      const int shift = a.exp_bits[t] - 4 * (wi - start + 1);
+      const int32_t* erow = a.exps + ((size_t)t * a.rows + row) * a.exp_limbs;
+      const uint32_t w = ((uint32_t)erow[shift >> 4] >> (shift & 15)) & 15u;
+      const uint32_t* table = tables + (size_t)t * 16 * P * 32;
+      // the window's entry: a masked sum over all 16 entries
+#pragma unroll
+      for (int s = 0; s < P; ++s) tmp[s] = 0u;
+#pragma unroll 4
+      for (int e = 0; e < 16; ++e) {
+        const uint32_t mask = 0u - (uint32_t)(w == (uint32_t)e);
+#pragma unroll
+        for (int s = 0; s < P; ++s) tmp[s] |= table[(e * P + s) * 32 + lane] & mask;
+      }
+      mont_mul<P>(acc, acc, tmp, nv, np, W, lane);
+    }
+  }
+  // leave the Montgomery domain: a product with 1
+#pragma unroll
+  for (int s = 0; s < P; ++s) tmp[s] = (lane == 0 && s == 0) ? 1u : 0u;
+  mont_mul<P>(acc, acc, tmp, nv, np, W, lane);
+  store_words<P>(acc, a.out + off, W, lane);
+  // the tables hold powers of possibly secret bases
+  __syncwarp();
+  for (int i = lane; i < a.terms * 16 * P * 32; i += 32) tables[i] = 0u;
+}
+
+// a.warps warps a block (as many as the tables let a block hold, at most 4)
+template <int P>
+__global__ void __launch_bounds__(kWarps * 32)
+cios_multi_modexp_kernel(const __grid_constant__ MultiArgs a) {
+  extern __shared__ __align__(16) uint32_t smem_words[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int row = (int)blockIdx.x * a.warps + warp;
+  if (row >= a.rows) return;  // the whole warp
+  multi_modexp_row<P>(a, row, lane, smem_words + (size_t)warp * a.terms * 16 * P * 32);
+}
+
+// ---------------------------------------------------------------------------
+// fsdkr_cios_shared_exp: base^E mod n per row, one public exponent E (as
+// its 4-bit digits) and one modulus a segment, over a table of segments
+
+struct SharedExpSegment {
+  const int32_t* base;    // (rows, K)
+  const int32_t* digits;  // (windows,), most significant first
+  const int32_t* n;       // (1, K): the segment's modulus and its constants
+  const int32_t* n_inv;
+  const int32_t* r2;
+  const int32_t* one_mont;
+  int32_t* out;
+  int rows, K, windows;
+  int first_block;
+};
+
+constexpr int kSharedExpWords = 10;  // int64 words a segment in the caller's table
+
+struct SharedExpTable {
+  SharedExpSegment seg[kMaxSegments];
+  int count;
+};
+static_assert(sizeof(SharedExpTable) <= 4096, "the segment table must fit a launch's parameters");
+
+// One warp's row of a segment. The digits derive from the receiver's public
+// Paillier modulus, so the window's entry is read at the digit's address
+template <int P>
+__device__ __forceinline__ void shared_exp_row(const SharedExpSegment& sg, int row, int lane,
+                                               uint32_t* __restrict__ table) {
+  const int K = sg.K;
+  const int W = K / 2;
+  uint32_t nv[P], acc[P], bm[P], tmp[P];
+  load_words<P>(nv, sg.n, W, lane);
+  const uint32_t np = nprime_of(sg.n_inv, K, 0);
+  load_words<P>(bm, sg.base + (size_t)row * K, W, lane);
+  load_words<P>(tmp, sg.r2, W, lane);
+  mont_mul<P>(bm, bm, tmp, nv, np, W, lane);
+  load_words<P>(acc, sg.one_mont, W, lane);
+#pragma unroll
+  for (int s = 0; s < P; ++s) {
+    table[(0 * P + s) * 32 + lane] = acc[s];
+    table[(1 * P + s) * 32 + lane] = bm[s];
+    tmp[s] = bm[s];
+  }
+  for (int e = 2; e < 16; ++e) {
+    mont_mul<P>(tmp, tmp, bm, nv, np, W, lane);
+#pragma unroll
+    for (int s = 0; s < P; ++s) table[(e * P + s) * 32 + lane] = tmp[s];
+  }
+  __syncwarp();
+  for (int wi = 0; wi < sg.windows; ++wi) {
+    const uint32_t d = (uint32_t)sg.digits[wi] & 15u;
+#pragma unroll 1
+    for (int sq = 0; sq < 4; ++sq) mont_mul<P>(acc, acc, acc, nv, np, W, lane);
+#pragma unroll
+    for (int s = 0; s < P; ++s) tmp[s] = table[(d * P + s) * 32 + lane];
+    mont_mul<P>(acc, acc, tmp, nv, np, W, lane);
+  }
+#pragma unroll
+  for (int s = 0; s < P; ++s) tmp[s] = (lane == 0 && s == 0) ? 1u : 0u;
+  mont_mul<P>(acc, acc, tmp, nv, np, W, lane);
+  store_words<P>(acc, sg.out + (size_t)row * K, W, lane);
+  __syncwarp();
+  for (int i = lane; i < 16 * P * 32; i += 32) table[i] = 0u;
+}
+
+template <int PMAX>
+__global__ void __launch_bounds__(kWarps * 32)
+cios_shared_exp_kernel(const __grid_constant__ SharedExpTable tab) {
+  extern __shared__ __align__(16) uint32_t smem_words[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int i = 0;
+  while (i + 1 < tab.count && tab.seg[i + 1].first_block <= (int)blockIdx.x) ++i;
+  const SharedExpSegment& sg = tab.seg[i];
+  const int row = ((int)blockIdx.x - sg.first_block) * kWarps + warp;
+  if (row >= sg.rows) return;  // the whole warp
+  const int p = words_per_lane(sg.K);
+#define FSDKR_SHARED_EXP_BODY(PP)                                                 \
+  if constexpr (PP <= PMAX) {                                                     \
+    if (p == PP) {                                                                \
+      shared_exp_row<PP>(sg, row, lane, smem_words + (size_t)warp * 16 * PP * 32); \
+      return;                                                                     \
+    }                                                                             \
+  }
+  FSDKR_SHARED_EXP_BODY(1)
+  FSDKR_SHARED_EXP_BODY(2)
+  FSDKR_SHARED_EXP_BODY(4)
+  FSDKR_SHARED_EXP_BODY(8)
+  FSDKR_SHARED_EXP_BODY(16)
+#undef FSDKR_SHARED_EXP_BODY
+}
+
+// ---------------------------------------------------------------------------
 // The sub-warp kernels: fsdkr_cios_comb and fsdkr_cios_mont_mul's large
 // launches
 
@@ -1229,6 +1426,33 @@ int launch_modexp(const ModexpTable& tab, int blocks, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <int P>
+int launch_multi_modexp(MultiArgs a, cudaStream_t stream) {
+  const size_t per_warp = multi_warp_smem_bytes(a.terms, P);
+  if (per_warp > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  a.warps = (int)(kMaxSmemBytes / per_warp < (size_t)kWarps ? kMaxSmemBytes / per_warp : kWarps);
+  const size_t smem = per_warp * a.warps;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        cios_multi_modexp_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cios_multi_modexp_kernel<P><<<(a.rows + a.warps - 1) / a.warps, a.warps * 32, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int PMAX>
+int launch_shared_exp(const SharedExpTable& tab, int blocks, cudaStream_t stream) {
+  const size_t smem = modexp_smem(PMAX);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        cios_shared_exp_kernel<PMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cios_shared_exp_kernel<PMAX><<<blocks, kWarps * 32, smem, stream>>>(tab);
+  return (int)cudaGetLastError();
+}
+
 template <int L, int P>
 int launch_comb(const void* table, const void* exp, int exp_limbs, int windows,
                 const void* n, const void* n_inv, const void* one_mont, int groups,
@@ -1413,6 +1637,85 @@ extern "C" int fsdkr_cios_modexp(const int64_t* segments, int count, void* strea
     case 4: return launch_modexp<4>(tab, (int)blocks, s);
     case 8: return launch_modexp<8>(tab, (int)blocks, s);
     default: return launch_modexp<16>(tab, (int)blocks, s);
+  }
+}
+
+// bases (terms, rows, K), exps (terms, rows, exp_limbs), exp_bits[terms]
+// descending multiples of 4; n, n_inv, r2, one_mont, out (rows, K)
+extern "C" int fsdkr_cios_multi_modexp(const void* bases, const void* exps, int exp_limbs,
+                                       const int* exp_bits, int terms, const void* n,
+                                       const void* n_inv, const void* r2,
+                                       const void* one_mont, int rows, int K, void* out,
+                                       void* stream) {
+  if (bad_shape(rows, K) || terms < 1 || terms > kMaxTerms || exp_limbs < 1)
+    return (int)cudaErrorInvalidValue;
+  MultiArgs a = {(const int32_t*)bases, (const int32_t*)exps, (const int32_t*)n,
+                 (const int32_t*)n_inv, (const int32_t*)r2, (const int32_t*)one_mont,
+                 (int32_t*)out, terms, rows, K, exp_limbs, 1, {}};
+  for (int t = 0; t < terms; ++t) {
+    a.exp_bits[t] = exp_bits[t];
+    if (exp_bits[t] <= 0 || exp_bits[t] % 4 || (t > 0 && exp_bits[t] > exp_bits[t - 1]) ||
+        (long long)exp_limbs * 16 < exp_bits[t])
+      return (int)cudaErrorInvalidValue;
+  }
+  if (rows == 0) return 0;
+#define CALL(P) launch_multi_modexp<P>(a, (cudaStream_t)stream)
+  FSDKR_CIOS_DISPATCH(K, CALL)
+#undef CALL
+}
+
+// the most terms a launch at K limbs takes: one warp's tables must fit a block
+extern "C" int fsdkr_cios_multi_modexp_max_terms(int K) {
+  if (bad_shape(0, K)) return 0;
+  const size_t fit = kMaxSmemBytes / multi_warp_smem_bytes(1, words_per_lane(K));
+  return fit < (size_t)kMaxTerms ? (int)fit : kMaxTerms;
+}
+
+// segments: `count` rows of kSharedExpWords int64 words, (base, digits, n,
+// n_inv, r2, one_mont, out, rows, K, windows), in any order; the longest
+// chains' blocks come first
+extern "C" int fsdkr_cios_shared_exp(const int64_t* segments, int count, void* stream) {
+  if (count < 1 || count > kMaxSegments) return (int)cudaErrorInvalidValue;
+  SharedExpTable tab = {};
+  long long chain[kMaxSegments];
+  int pmax = 1;
+  for (int i = 0; i < count; ++i) {
+    const int64_t* w = segments + (size_t)i * kSharedExpWords;
+    SharedExpSegment sg = {(const int32_t*)w[0], (const int32_t*)w[1], (const int32_t*)w[2],
+                           (const int32_t*)w[3], (const int32_t*)w[4], (const int32_t*)w[5],
+                           (int32_t*)w[6], (int)w[7], (int)w[8], (int)w[9], 0};
+    if (w[7] > 0x7FFFFFFF || w[9] > 0x7FFFFFFF || bad_shape(sg.rows, sg.K) || sg.windows < 0)
+      return (int)cudaErrorInvalidValue;
+    const long long c = (17 + 5LL * sg.windows) * (sg.K / 2);
+    int j = i;
+    while (j > 0 && chain[j - 1] < c) {
+      tab.seg[j] = tab.seg[j - 1];
+      chain[j] = chain[j - 1];
+      --j;
+    }
+    tab.seg[j] = sg;
+    chain[j] = c;
+    if (sg.rows > 0 && words_per_lane(sg.K) > pmax) pmax = words_per_lane(sg.K);
+  }
+  long long blocks = 0;
+  int kept = 0;
+  for (int i = 0; i < count; ++i) {
+    if (tab.seg[i].rows == 0) continue;
+    tab.seg[kept] = tab.seg[i];
+    tab.seg[kept].first_block = (int)blocks;
+    blocks += (tab.seg[i].rows + kWarps - 1) / kWarps;
+    ++kept;
+  }
+  tab.count = kept;
+  if (blocks == 0) return 0;
+  if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (pmax) {
+    case 1: return launch_shared_exp<1>(tab, (int)blocks, s);
+    case 2: return launch_shared_exp<2>(tab, (int)blocks, s);
+    case 4: return launch_shared_exp<4>(tab, (int)blocks, s);
+    case 8: return launch_shared_exp<8>(tab, (int)blocks, s);
+    default: return launch_shared_exp<16>(tab, (int)blocks, s);
   }
 }
 

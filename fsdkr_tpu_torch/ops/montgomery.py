@@ -1,11 +1,13 @@
 """Batched multi-modulus CIOS Montgomery arithmetic (the port of the JAX
 package's `ops/montgomery.py`, cut to the generic engine, the fixed-base
-comb, the modmul and the batched inverse).
+comb, the joint (Straus) and shared-exponent modexp, the modmul and the
+batched inverse).
 
 Each batch row carries its own modulus. Numbers are base-2^16 limbs,
 little-endian along the last axis, R = 2^(16 K). The engine's entry
 points (`BatchModExp.modexp` / `.modmul`, `modexp_batches`,
-`shared_base_modexp`, `batch_mod_inv_grouped`) run
+`shared_base_modexp`, `multi_modexp`, `shared_exp_batches`,
+`batch_mod_inv_grouped`) run
 the hand-written Hopper kernels of `ops.montgomery_kernels` on a CUDA
 device; on the CPU those wrappers run the plain versions of this module:
 
@@ -20,9 +22,11 @@ device; on the CPU those wrappers run the plain versions of this module:
   < R (held against it in tests/test_torch_montgomery.py). Each of the
   three products is one batched float64 product of 8-limb blocks.
 - `_modexp_kernel`, `_shared_modexp_kernel` (the comb: `_comb_ladder`,
-  `_comb_table`, `_comb_accumulate`), `_modmul_kernel`,
-  `_modmul_exit_kernel` and the inverse tree follow the JAX package step
-  for step.
+  `_comb_table`, `_comb_accumulate`), `_multi_modexp_kernel` (the joint
+  Straus ladder), `_shared_exp_kernel` (one public exponent a batch),
+  `_modmul_kernel`, `_modmul_exit_kernel` and the inverse tree follow the
+  JAX package step for step (the Straus fold sequentially, where the JAX
+  package folds four or more terms in a tree: the same integers).
 
 Limbs are int64 in the plain versions (torch's CPU kernels have no
 uint32 add or shift); int32 tensors of canonical 16-bit limbs cross the
@@ -60,6 +64,9 @@ __all__ = [
     "batch_mod_inv_grouped",
     "BatchModExp",
     "modexp_batches",
+    "multi_modexp",
+    "shared_exp_batches",
+    "exp_digits",
 ]
 
 
@@ -271,6 +278,88 @@ def _modexp_kernel(base, exp, n, n_inv, r2, one_mont, *, exp_bits) -> torch.Tens
     return mul(acc, one)
 
 
+def _window_table(base_m, one_mont, mul) -> torch.Tensor:
+    """table[j] = base_m^j in the Montgomery domain, j = 0..15, (16, B, K):
+    entry 0 the Montgomery one, each next entry one product more."""
+    table = [one_mont, base_m]
+    for _ in range(2, 1 << WINDOW_BITS):
+        table.append(mul(table[-1], base_m))
+    return torch.stack(table)
+
+
+def _multi_modexp_kernel(bases, exps, n, n_inv, r2, one_mont, *,
+                         exp_bits_seq) -> torch.Tensor:
+    """Joint (Straus) multi-exponentiation: result[b] = prod_t
+    bases[t, b]^exps[t, b] mod n[b].
+
+    bases: (T, B, K); exps: (T, B, EL) 16-bit limbs; n, n_inv, r2,
+    one_mont: (B, K). exp_bits_seq: each term's bucketed width, descending,
+    each a multiple of 4. One 16-entry table per term; one shared chain of
+    exp_bits_seq[0] / 4 windows, each four squarings and then one masked
+    table product per active term: term t's digits fill the last
+    exp_bits_seq[t] / 4 windows. The widths are launch shape, so the
+    schedule does not depend on the data.
+
+    The JAX package folds the selected entries of four or more terms in a
+    log-depth tree (one XLA launch a level); each combine there adds one
+    R^{-1}, as a sequential product does, and its padding is the
+    Montgomery one, so this sequential fold gives the same canonical
+    integers, and so does the kernel."""
+    t_cnt = bases.shape[0]
+    assert len(exp_bits_seq) == t_cnt and t_cnt >= 1
+    assert all(eb % WINDOW_BITS == 0 and eb > 0 for eb in exp_bits_seq)
+    assert list(exp_bits_seq) == sorted(exp_bits_seq, reverse=True)
+    exps = exps.to(torch.int64)
+    one_mont = one_mont.to(torch.int64)
+    mul = _plain_mul(n, n_inv, bases.device)
+    tables = [_window_table(mul(bases[t], r2), one_mont, mul) for t in range(t_cnt)]
+    idx = torch.arange(1 << WINDOW_BITS, device=bases.device)[:, None, None]
+    w_total = exp_bits_seq[0] // WINDOW_BITS
+    starts = [w_total - eb // WINDOW_BITS for eb in exp_bits_seq]
+    acc = one_mont
+    for wi in range(w_total):
+        for _ in range(WINDOW_BITS):
+            acc = mul(acc, acc)
+        for t in range(t_cnt):
+            if wi < starts[t]:
+                continue
+            shift = exp_bits_seq[t] - WINDOW_BITS * (wi - starts[t] + 1)
+            d = (exps[t, :, shift // LIMB_BITS] >> (shift % LIMB_BITS)) & ((1 << WINDOW_BITS) - 1)
+            acc = mul(acc, (tables[t] * (d[None, :, None] == idx)).sum(dim=0))
+    one = torch.zeros_like(acc)
+    one[:, 0] = 1
+    return mul(acc, one)
+
+
+def exp_digits(exp: int, exp_bits: int) -> List[int]:
+    """The 4-bit window digits of `exp` over `exp_bits` bits, most
+    significant first."""
+    return [(exp >> (exp_bits - WINDOW_BITS * (w + 1))) & ((1 << WINDOW_BITS) - 1)
+            for w in range(exp_bits // WINDOW_BITS)]
+
+
+def _shared_exp_kernel(base, digits, n, n_inv, r2, one_mont) -> torch.Tensor:
+    """result[b] = base[b]^E mod n for ONE shared public exponent E, given
+    as its 4-bit window digits, most significant first (`exp_digits`).
+    base: (B, K); n, n_inv, r2, one_mont: (1, K), the segment's one
+    modulus. Each window is four squarings and one product by the table
+    entry the digit names: the digits derive from the receiver's public
+    Paillier n, so the table is indexed by them directly."""
+    rows = base.shape[0]
+    n, n_inv, r2, one_mont = (t.expand(rows, -1).to(torch.int64)
+                              for t in (n, n_inv, r2, one_mont))
+    mul = _plain_mul(n.contiguous(), n_inv.contiguous(), base.device)
+    table = _window_table(mul(base, r2), one_mont, mul)
+    acc = one_mont
+    for d in (digits.tolist() if isinstance(digits, torch.Tensor) else digits):
+        for _ in range(WINDOW_BITS):
+            acc = mul(acc, acc)
+        acc = mul(acc, table[int(d)])
+    one = torch.zeros_like(acc)
+    one[:, 0] = 1
+    return mul(acc, one)
+
+
 def _modmul_kernel(a, b, n, n_inv, r2) -> torch.Tensor:
     """a*b mod n per row (via a*R * b * R^{-1})."""
     red = _Reducer(n, n_inv)
@@ -464,6 +553,62 @@ def modexp_batches(jobs) -> List[List[int]]:
     for seg in segments:
         wipe_array(seg[0], seg[1])  # queued behind the launch on its stream
     return _download_all(outs)
+
+
+def multi_modexp(
+    bases_rows: Sequence[Sequence[int]],
+    exps_rows: Sequence[Sequence[int]],
+    moduli: Sequence[int],
+    num_limbs: int,
+    exp_bits_seq: Sequence[int],
+    ctx: Optional[BatchModExp] = None,
+    device="cuda",
+) -> List[int]:
+    """prod_t bases_rows[r][t] ^ exps_rows[r][t] mod moduli[r] through the
+    joint (Straus) kernel on `device` (or `ctx.device`), one launch.
+    exp_bits_seq gives each term position's bucketed width (the launch's
+    shape); the terms are sorted widest first here, so the shared chain is
+    as deep as the first. Every row has len(exp_bits_seq) terms."""
+    rows = len(moduli)
+    if rows == 0:
+        return []
+    t_cnt = len(exp_bits_seq)
+    order = sorted(range(t_cnt), key=lambda t: -exp_bits_seq[t])
+    eb = tuple(exp_bits_seq[t] for t in order)
+    el = -(-eb[0] // LIMB_BITS)
+    if ctx is None:
+        ctx = BatchModExp(moduli, num_limbs, device)
+    device, k = ctx.device, ctx.ctx.num_limbs
+    base_limbs = ints_to_limbs(
+        [bases_rows[r][t] % m for t in order for r, m in enumerate(ctx.ctx.moduli)], k)
+    exp_limbs = ints_to_limbs([exps_rows[r][t] for t in order for r in range(rows)], el)
+    base_t = to_device(base_limbs, device).reshape(t_cnt, rows, k)
+    exp_t = to_device(exp_limbs, device).reshape(t_cnt, rows, el)
+    wipe_array(base_limbs, exp_limbs)  # exponents and bases may be secret
+    out = montgomery_kernels.multi_modexp(base_t, exp_t, ctx._n, ctx._n_inv, ctx._r2,
+                                          ctx._one_mont, eb)
+    wipe_array(base_t, exp_t)
+    return _download(out)
+
+
+def shared_exp_batches(jobs) -> List[List[int]]:
+    """bases[r]^exp mod modulus for several (ctx, bases, exp) jobs in one
+    `cios_shared_exp` launch: ctx a context of the job's one modulus (a
+    one-row `BatchModExp`), exp a public non-negative exponent shared by
+    the job's rows. Each job is a segment with its own modulus and window
+    digits; at most `montgomery_kernels.MAX_SEGMENTS` jobs, on one
+    device."""
+    segments = []
+    for ctx, bases, exp in jobs:
+        if exp < 0:
+            raise ValueError("shared_exp_batches: exponent must be non-negative")
+        (modulus,) = ctx.ctx.moduli
+        digits = exp_digits(exp, bucket_exp_bits([exp]))
+        base_t = to_device(ints_to_limbs([b % modulus for b in bases], ctx.ctx.num_limbs),
+                           ctx.device)
+        digits_t = torch.tensor(digits, dtype=torch.int32).to(ctx.device)
+        segments.append((base_t, digits_t, ctx._n, ctx._n_inv, ctx._r2, ctx._one_mont))
+    return _download_all(montgomery_kernels.shared_exp_segments(segments))
 
 
 def shared_base_modexp(

@@ -28,6 +28,15 @@ C++ for sm_90a; its header comment gives the design):
     block-wide multi-precision products a step, at the rule's threads a
     block, `ladder_rule`). The table between the two is four `mont_mul`
     launches (`ops.montgomery._comb_table`).
+`multi_modexp` — the joint (Straus) product prod_t base_t^exp_t mod n
+    per row of `_multi_modexp_kernel` (:450): T window tables, one shared
+    chain of four squarings and one masked table product per active term
+    a window. One warp a row; as many warps a block as the tables let a
+    block hold (`multi_modexp_max_terms`).
+`shared_exp_segments` — base^E mod n per row for one shared public
+    exponent E a segment, given as its 4-bit digits (`_shared_exp_kernel`,
+    :183), each segment with its own modulus, over several segments in one
+    launch as `modexp_segments` takes them.
 
 Tensors crossing the kernel boundary are int32 (rows, K) of canonical
 16-bit limbs, K even (R = 2^(16K) on a 32-bit word), 2 <= K <= 1024;
@@ -61,6 +70,9 @@ __all__ = [
     "comb_ladder_at_threads",
     "rows_rule",
     "ladder_rule",
+    "multi_modexp",
+    "multi_modexp_max_terms",
+    "shared_exp_segments",
     "launch_counts",
     "reset_launch_counts",
     "load_library",
@@ -72,6 +84,9 @@ _SRC = CSRC / "cios_kernels.cu"
 MAX_LIMBS = 1024  # 16 words a lane: 16384-bit moduli
 MAX_SEGMENTS = 32  # segments a modexp launch (its table is the launch's parameter)
 _SEGMENT_WORDS = 11  # int64 words a segment in that table (csrc: kSegmentWords)
+_SHARED_EXP_WORDS = 10  # a shared-exponent segment's words (csrc: kSharedExpWords)
+MAX_TERMS = 16  # terms a Straus launch (csrc: kMaxTerms)
+MAX_SMEM_BYTES = 227 * 1024  # a block's opt-in shared memory on the H100 (csrc: kMaxSmemBytes)
 WINDOW_BITS = 4
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -109,6 +124,13 @@ def load_library() -> ctypes.CDLL:
     lib.fsdkr_cios_comb_ladder_threads.restype = i
     lib.fsdkr_cios_ladder_rule.argtypes = [i, ctypes.POINTER(i)]
     lib.fsdkr_cios_ladder_rule.restype = i
+    lib.fsdkr_cios_multi_modexp.argtypes = [p, p, i, ctypes.POINTER(i), i, p, p, p, p, i, i,
+                                            p, p]
+    lib.fsdkr_cios_multi_modexp.restype = i
+    lib.fsdkr_cios_multi_modexp_max_terms.argtypes = [i]
+    lib.fsdkr_cios_multi_modexp_max_terms.restype = i
+    lib.fsdkr_cios_shared_exp.argtypes = [ctypes.POINTER(ctypes.c_int64), i, p]
+    lib.fsdkr_cios_shared_exp.restype = i
     _LIB = lib
     return lib
 
@@ -377,6 +399,111 @@ def _ladder(threads, base, n, n_inv, r2, w_cnt):
     return out
 
 
+def _words_per_lane(k: int) -> int:
+    """P of the one-warp product at K limbs (csrc: words_per_lane)."""
+    p = 1
+    while 32 * p < k // 2:
+        p *= 2
+    return p
+
+
+def multi_modexp_max_terms(k: int) -> int:
+    """The most terms a `multi_modexp` launch at K limbs takes: one warp's
+    16-entry tables, 16 * 32P words a term, must fit a block's shared
+    memory (csrc: fsdkr_cios_multi_modexp_max_terms). 16 up to K=256, 14
+    at K=512, 7 at K=1024."""
+    return min(MAX_TERMS, MAX_SMEM_BYTES // (16 * 32 * 4 * _words_per_lane(k)))
+
+
+def multi_modexp(bases, exps, n, n_inv, r2, one_mont, exp_bits_seq) -> torch.Tensor:
+    """prod_t bases[t]^exps[t] mod n per row, the joint (Straus) ladder.
+    bases: (T, rows, K), each < n; exps: (T, rows, EL) 16-bit limbs;
+    n, n_inv, r2, one_mont: (rows, K); exp_bits_seq: each term's loop
+    width, a multiple of 4, descending (term t's digits fill the chain's
+    last exp_bits_seq[t] / 4 windows). Returns (rows, K). On the card one
+    warp a row; a shape whose tables do not fit a block raises."""
+    if bases.dim() != 3:
+        raise ValueError(f"bases has shape {tuple(bases.shape)}, expected (T, rows, K)")
+    t_cnt, rows, k = bases.shape
+    device = _check((("n", n), ("n_inv", n_inv), ("r2", r2), ("one_mont", one_mont)), rows, k)
+    eb = tuple(int(e) for e in exp_bits_seq)
+    if not 1 <= t_cnt <= MAX_TERMS or len(eb) != t_cnt:
+        raise ValueError(f"{t_cnt} terms with widths {eb}: a launch takes 1..{MAX_TERMS}")
+    if list(eb) != sorted(eb, reverse=True):
+        raise ValueError(f"exp_bits_seq {eb} is not descending")
+    if exps.dim() != 3:
+        raise ValueError(f"exps has shape {tuple(exps.shape)}, expected (T, rows, EL)")
+    el = exps.shape[2]
+    for e in eb:
+        _check_exp_bits(e, el)
+    _check_shape("bases", bases, (t_cnt, rows, k), device)
+    _check_shape("exps", exps, (t_cnt, rows, el), device)
+    if device.type == "cpu":
+        from .montgomery import _multi_modexp_kernel
+
+        return _multi_modexp_kernel(bases, exps, n, n_inv, r2, one_mont,
+                                    exp_bits_seq=eb).to(torch.int32)
+    if t_cnt > multi_modexp_max_terms(k):
+        raise ValueError(f"{t_cnt} terms at K={k}: one warp's tables would not fit a block "
+                         f"(at most {multi_modexp_max_terms(k)})")
+    out = torch.empty_like(n)
+    widths = (ctypes.c_int * t_cnt)(*eb)
+    err = load_library().fsdkr_cios_multi_modexp(
+        bases.data_ptr(), exps.data_ptr(), el, widths, t_cnt, n.data_ptr(), n_inv.data_ptr(),
+        r2.data_ptr(), one_mont.data_ptr(), rows, k, out.data_ptr(), _stream(device))
+    if err:
+        raise RuntimeError(f"fsdkr_cios_multi_modexp launch failed: CUDA error {err}")
+    _count(multi_modexp, (k, rows, eb))
+    return out
+
+
+def shared_exp_segments(segments) -> List[torch.Tensor]:
+    """base^E mod n per row, one public exponent E and one modulus a
+    segment, several segments in one launch. A segment is (base, digits,
+    n, n_inv, r2, one_mont): base (rows, K), each < n; digits (windows,),
+    E's 4-bit window digits most significant first
+    (`ops.montgomery.exp_digits`); n, n_inv, r2, one_mont (1, K), the
+    segment's modulus. At most MAX_SEGMENTS, all on one device. Returns
+    each segment's (rows, K) result. On the CPU, the plain version per
+    segment."""
+    if not segments or len(segments) > MAX_SEGMENTS:
+        raise ValueError(f"{len(segments)} segments: a launch takes 1..{MAX_SEGMENTS}")
+    device = None
+    for seg in segments:
+        if len(seg) != 6:
+            raise ValueError("a segment is (base, digits, n, n_inv, r2, one_mont)")
+        base, digits, n, n_inv, r2, one_mont = seg
+        if base.dim() != 2:
+            raise ValueError(f"base has shape {tuple(base.shape)}, expected (rows, K)")
+        k = base.shape[1]
+        d = _check((("n", n), ("n_inv", n_inv), ("r2", r2), ("one_mont", one_mont)), 1, k)
+        if device is not None and d != device:
+            raise ValueError(f"segments on {device} and {d}")
+        device = d
+        _check_shape("base", base, tuple(base.shape), device)
+        if digits.dim() != 1:
+            raise ValueError(f"digits has shape {tuple(digits.shape)}, expected (windows,)")
+        _check_shape("digits", digits, tuple(digits.shape), device)
+    if device.type == "cpu":
+        from .montgomery import _shared_exp_kernel
+
+        return [_shared_exp_kernel(*seg).to(torch.int32) for seg in segments]
+    outs = [torch.empty_like(seg[0]) for seg in segments]
+    table = (ctypes.c_int64 * (_SHARED_EXP_WORDS * len(segments)))()
+    for i, ((base, digits, n, n_inv, r2, one_mont), out) in enumerate(zip(segments, outs)):
+        table[_SHARED_EXP_WORDS * i : _SHARED_EXP_WORDS * (i + 1)] = [
+            base.data_ptr(), digits.data_ptr(), n.data_ptr(), n_inv.data_ptr(), r2.data_ptr(),
+            one_mont.data_ptr(), out.data_ptr(), base.shape[0], base.shape[1],
+            digits.shape[0],
+        ]
+    err = load_library().fsdkr_cios_shared_exp(table, len(segments), _stream(device))
+    if err:
+        raise RuntimeError(f"fsdkr_cios_shared_exp launch failed: CUDA error {err}")
+    _count(shared_exp_segments, tuple((seg[0].shape[1], seg[0].shape[0],
+                                       seg[1].shape[0] * WINDOW_BITS) for seg in segments))
+    return outs
+
+
 # launch counters: bumped where a kernel launches and nowhere else; the
 # shapes maps let a measurement time each kernel at the shapes a run used
 mont_mul.launches = 0
@@ -390,15 +517,23 @@ comb.launches = 0
 comb.shapes = {}  # (K, groups, rows per group, exp_bits) -> launches
 comb_ladder.launches = 0
 comb_ladder.shapes = {}  # (K, groups, exp_bits) -> launches
+multi_modexp.launches = 0
+multi_modexp.shapes = {}  # (K, rows, exp_bits_seq) -> launches
+shared_exp_segments.launches = 0
+# ((K, rows, exp_bits) of each segment, in the caller's order) -> launches
+shared_exp_segments.shapes = {}
 
 
 def launch_counts() -> dict:
     return {"cios_mont_mul": mont_mul.launches, "cios_modmul": modmul.launches,
             "cios_modexp": modexp_segments.launches, "cios_comb": comb.launches,
-            "cios_comb_ladder": comb_ladder.launches}
+            "cios_comb_ladder": comb_ladder.launches,
+            "cios_multi_modexp": multi_modexp.launches,
+            "cios_shared_exp": shared_exp_segments.launches}
 
 
 def reset_launch_counts() -> None:
-    for fn in (mont_mul, modmul, modexp_segments, comb, comb_ladder):
+    for fn in (mont_mul, modmul, modexp_segments, comb, comb_ladder, multi_modexp,
+               shared_exp_segments):
         fn.launches = 0
         fn.shapes = {}

@@ -93,27 +93,39 @@ class AliceProof:
         avals, rvals, h1v, h2v, ntv, nv, nnv, q: int = CURVE_ORDER,
         hash_alg: str | None = None,
     ):
-        """Sample nonces, return (state, columns) in the per-term column
-        layout. CONTRACT: the beta^n mod n^2 column is LAST —
+        """Sample nonces, return (state, columns). Under FSDKRC_MULTIEXP
+        z = h1^a h2^rho and w = h1^alpha h2^gamma are joint rows (see
+        PDLwSlackProof.prove_stage1); off, the per-term column layout.
+        CONTRACT: the beta^n mod n^2 column is LAST in either layout —
         distribute_batch splits it into the fused Paillier launch by
         position."""
         if q.bit_length() > 256:
             raise ValueError(
                 "SHA-256 transcripts support group orders up to 256 bits"
             )
+        from ..backend.powm import multiexp_enabled
+
+        joint = multiexp_enabled()
         alpha, beta, gamma, rho = AliceProof.sample_stage1(ntv, nv, q)
         state = dict(
             avals=avals, rvals=rvals, alpha=alpha, beta=beta,
             gamma=gamma, rho=rho, ntv=ntv, nv=nv, nnv=nnv,
-            hash_alg=hash_alg,
+            hash_alg=hash_alg, joint=joint,
         )
-        cols = [
-            (h1v, avals, ntv),
-            (h2v, rho, ntv),
-            (h1v, alpha, ntv),
-            (h2v, gamma, ntv),
-            (beta, nv, nnv),
-        ]
+        if joint:
+            cols = [
+                (list(zip(h1v, h2v)), list(zip(avals, rho)), ntv),
+                (list(zip(h1v, h2v)), list(zip(alpha, gamma)), ntv),
+                (beta, nv, nnv),
+            ]
+        else:
+            cols = [
+                (h1v, avals, ntv),
+                (h2v, rho, ntv),
+                (h1v, alpha, ntv),
+                (h2v, gamma, ntv),
+                (beta, nv, nnv),
+            ]
         return state, cols
 
     @staticmethod
@@ -122,9 +134,12 @@ class AliceProof:
         alpha = state["alpha"]
         from ..core import paillier
 
-        c1, c2, c3, c4, bn = results
-        z = intops.mod_mul_col(c1, c2, ntv)
-        w = intops.mod_mul_col(c3, c4, ntv)
+        if state["joint"]:
+            z, w, bn = results
+        else:
+            c1, c2, c3, c4, bn = results
+            z = intops.mod_mul_col(c1, c2, ntv)
+            w = intops.mod_mul_col(c3, c4, ntv)
         u = paillier.combine_with_rn(alpha, bn, nv, nnv)  # Enc(alpha; beta)
         e = [
             _challenge(n, cipher, zi, ui, wi, state["hash_alg"])

@@ -122,22 +122,37 @@ class PDLwSlackProof:
 
     @staticmethod
     def prove_stage1(witnesses, h1v, h2v, ntv, nv, nnv, hash_alg=None):
-        """Sample nonces, return (state, columns) in the per-term column
-        layout. CONTRACT: the beta^n mod n^2 column is LAST —
-        distribute_batch splits it into the fused Paillier launch by
-        position."""
+        """Sample nonces, return (state, columns). Under FSDKRC_MULTIEXP
+        (backend.powm.multiexp_enabled) the two mod-N~ commitments are
+        joint rows, z = h1^x h2^rho and u3 = h1^alpha h2^gamma, which the
+        planner (backend.powm.multi_powm) computes and multiplies back
+        itself; off, the per-term column layout. CONTRACT: the beta^n mod
+        n^2 column is LAST in either layout — distribute_batch splits it
+        into the fused Paillier launch by position."""
+        from ..backend.powm import multiexp_enabled
+
+        joint = multiexp_enabled()
         alpha, beta, rho, gamma = PDLwSlackProof.sample_stage1(ntv, nv)
         state = dict(
             witnesses=witnesses, alpha=alpha, beta=beta, rho=rho,
             gamma=gamma, ntv=ntv, nv=nv, nnv=nnv, hash_alg=hash_alg,
+            joint=joint,
         )
-        cols = [
-            (h1v, [w.x.to_int() for w in witnesses], ntv),
-            (h2v, rho, ntv),
-            (h1v, alpha, ntv),
-            (h2v, gamma, ntv),
-            (beta, nv, nnv),
-        ]
+        if joint:
+            cols = [
+                (list(zip(h1v, h2v)),
+                 [(w.x.to_int(), r) for w, r in zip(witnesses, rho)], ntv),
+                (list(zip(h1v, h2v)), list(zip(alpha, gamma)), ntv),
+                (beta, nv, nnv),
+            ]
+        else:
+            cols = [
+                (h1v, [w.x.to_int() for w in witnesses], ntv),
+                (h2v, rho, ntv),
+                (h1v, alpha, ntv),
+                (h2v, gamma, ntv),
+                (beta, nv, nnv),
+            ]
         return state, cols
 
     @staticmethod
@@ -151,9 +166,12 @@ class PDLwSlackProof:
         alpha = state["alpha"]
         from ..core import paillier
 
-        c1, c2, c3, c4, bn = results
-        z = intops.mod_mul_col(c1, c2, ntv)
-        u3 = intops.mod_mul_col(c3, c4, ntv)
+        if state["joint"]:
+            z, u3, bn = results
+        else:
+            c1, c2, c3, c4, bn = results
+            z = intops.mod_mul_col(c1, c2, ntv)
+            u3 = intops.mod_mul_col(c3, c4, ntv)
         u2 = paillier.combine_with_rn(alpha, bn, nv, nnv)  # Enc(alpha; beta)
         if all(st.G == GENERATOR for st in statements):
             from ..ops.ec_batch import generator_muls
