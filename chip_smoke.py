@@ -104,6 +104,7 @@ Prints the kernels line `{"kernels": [...]}` and, last, `{"ok": true,
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import os
@@ -112,7 +113,7 @@ import subprocess
 import sys
 import time
 
-PHASES = ("env", "kernels", "routes", "main", "time")
+PHASES = ("env", "kernels", "routes", "main", "joint", "time")
 
 # H100 SXM published peaks (dense): device memory rate and int8 tensor-core
 # rate. A 16x16-bit multiply-add counts as four 8-bit multiply-adds of two
@@ -332,6 +333,92 @@ def comb_calls(name, args, exp_bits):
 
 
 COMB = ("cios_comb", "cios_comb_ladder")
+
+# the kernels of the joint path only (FSDKRC_MULTIEXP / FSDKRC_RANGEOPT on)
+JOINT = ("cios_multi_modexp", "cios_shared_exp")
+
+
+def multi_inputs(rng, dev, k, rows, widths, worst):
+    """(bases (T, rows, K), exps (T, rows, EL), n, n_inv, r2, one_mont)
+    int32 tensors for `cios_multi_modexp` at K=k limbs, T = len(widths)
+    terms of those exponent widths (descending): random rows (row 0
+    modulo 3, row 1 with every exponent 0, moduli taken in turn from 64
+    random ones), the last `worst` rows worst-case (n = 2^(16k) - 1, every
+    base n - 1, every exponent bit of its width set)."""
+    import numpy as np
+    import torch
+
+    from fsdkr_tpu_torch.ops.limbs import MontgomeryContext, ints_to_limbs
+
+    w = _worst_rows(rows, worst)
+    pool = [3] + [rng.getrandbits(16 * k) | 1 | (1 << (16 * k - 1))
+                  for _ in range(min(64, rows) - 1)]
+    moduli = [pool[i % len(pool)] for i in range(rows - w)] + [(1 << (16 * k)) - 1] * w
+    bases = [[rng.randrange(m) if i < rows - w else m - 1 for i, m in enumerate(moduli)]
+             for _ in widths]
+    exps = [[rng.getrandbits(wb) if i < rows - w else (1 << wb) - 1 for i in range(rows)]
+            for wb in widths]
+    if rows - w > 1:
+        for e in exps:
+            e[1] = 0
+    ctx = MontgomeryContext(moduli, k)
+    el = widths[0] // 16
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.int32)).to(dev).contiguous()
+
+    return (t(np.stack([ints_to_limbs(b, k) for b in bases])),
+            t(np.stack([ints_to_limbs(e, el) for e in exps])),
+            t(ctx.n), t(ctx.n_inv), t(ctx.r2), t(ctx.one_mont))
+
+
+def multi_calls(dev, rng, k, rows, widths, worst):
+    """(kernel call, plain call) of one `cios_multi_modexp` launch."""
+    from fsdkr_tpu_torch.ops import montgomery, montgomery_kernels as mk
+
+    bases, exps, n, ni, r2, one = multi_inputs(rng, dev, k, rows, widths, worst)
+    return (lambda: mk.multi_modexp(bases, exps, n, ni, r2, one, widths),
+            lambda: montgomery._multi_modexp_kernel(bases, exps, n, ni, r2, one,
+                                                    exp_bits_seq=widths))
+
+
+def shared_exp_inputs(dev, rng, segments, worst_last=True):
+    """One `cios_shared_exp` segment tuple (base, digits, n, n_inv, r2,
+    one_mont) per (K, rows, exp_bits) of `segments`: a random modulus,
+    bases and exponent (the first segment modulo 3), the last segment
+    worst-case (n = 2^(16k) - 1, every base n - 1, every digit 15)."""
+    import numpy as np
+    import torch
+
+    from fsdkr_tpu_torch.ops.limbs import MontgomeryContext, ints_to_limbs
+    from fsdkr_tpu_torch.ops.montgomery import exp_digits
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.int32)).to(dev).contiguous()
+
+    segs = []
+    for i, (k, rows, exp_bits) in enumerate(segments):
+        worst = worst_last and i == len(segments) - 1
+        if worst:
+            m, e = (1 << (16 * k)) - 1, (1 << exp_bits) - 1
+        else:
+            m = 3 if i == 0 else rng.getrandbits(16 * k) | 1 | (1 << (16 * k - 1))
+            e = rng.getrandbits(exp_bits)
+        bases = [m - 1 if worst else rng.randrange(m) for _ in range(rows)]
+        ctx = MontgomeryContext([m], k)
+        segs.append((t(ints_to_limbs(bases, k)), t(exp_digits(e, exp_bits)), t(ctx.n),
+                     t(ctx.n_inv), t(ctx.r2), t(ctx.one_mont)))
+    return segs
+
+
+def shared_exp_calls(dev, rng, segments):
+    """(kernel call, plain call) of one `cios_shared_exp` launch over
+    `segments`."""
+    from fsdkr_tpu_torch.ops import montgomery, montgomery_kernels as mk
+
+    segs = shared_exp_inputs(dev, rng, segments)
+    return (lambda: mk.shared_exp_segments(segs),
+            lambda: [montgomery._shared_exp_kernel(*seg) for seg in segs])
 
 EC = ("ec_scalar_mul", "ec_tree_sum")
 _EC_POOL = []  # host points the EC inputs take in turn (built once)
@@ -579,6 +666,46 @@ def phase_kernels(dev, rng):
             f"exp_bits={exp_bits} (the rule's {mk.ladder_rule(k)} threads a block, and "
             f"{', '.join(map(str, LADDER_THREADS))}), random and worst-case groups")
     ec_kernels_check(dev, rng)
+    joint_kernels_check(dev, rng)
+
+
+def joint_kernels_check(dev, rng):
+    """Both kernels of the joint path against their plain versions, bit
+    for bit. `cios_multi_modexp`: the collect's joint launch under
+    FSDKRC_MULTIEXP alone (K=256, 512 rows, widths (2048, 256)), the
+    distribute's two (K=128, 512 rows, (2560, 256) and (3072, 768)), 16
+    terms at K=128 of 128-384 bits, and at K=16, 130, 512 and 1024 on 1
+    and 13 rows the most terms a block's shared memory holds there (one
+    warp a block at K=512 and 1024); half the rows worst-case.
+    `cios_shared_exp`: the RANGEOPT u-power's launch (K=256, 16 segments of
+    16 rows, 2048-bit exponents) and one segment of it, and K=16, 130 and
+    1024 on 1 and 13 rows; the first segment modulo 3, the last
+    worst-case."""
+    from fsdkr_tpu_torch.ops import montgomery_kernels as mk
+
+    cases = [(256, 512, (2048, 256)), (128, 512, (2560, 256)), (128, 512, (3072, 768)),
+             (128, 64, (384, 384, 320, 320, 256, 256, 256, 192, 192, 192, 128, 128, 128, 128,
+                        128, 128))]
+    for k in (16, 130, 512, 1024):
+        t_max = mk.multi_modexp_max_terms(k)
+        for rows in (1, 13):
+            cases.append((k, rows, tuple(256 - 64 * (t * 3 // t_max) for t in range(t_max))))
+    for k, rows, widths in cases:
+        kernel, plain = multi_calls(dev, rng, k, rows, widths, rows // 2)
+        if _max_err(kernel(), plain()):
+            fail(f"cios_multi_modexp K={k} rows={rows} widths={widths}: differs from plain")
+        log(f"kernels == plain, bit-identical: cios_multi_modexp K={k} rows={rows} "
+            f"T={len(widths)} exp_bits={widths}, {rows // 2} worst-case rows")
+    seg_cases = [((256, 16, 2048),) * 16, ((256, 16, 2048),)]
+    for k in (16, 130, 1024):
+        seg_cases.append(((k, 1, 256), (k, 13, 64), (k, 13, 256)))
+    for segments in seg_cases:
+        kernel, plain = shared_exp_calls(dev, rng, segments)
+        if _max_err(kernel(), plain()):
+            fail(f"cios_shared_exp over segments {segments}: differs from plain")
+        log(f"kernels == plain, bit-identical: cios_shared_exp, one launch of {len(segments)} "
+            f"segments (K, rows, exp_bits) {sorted(set(segments))}, the first modulo 3, "
+            f"the last worst-case")
 
 
 def ec_kernels_check(dev, rng):
@@ -709,7 +836,8 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     from fsdkr_tpu_torch.protocol import RefreshMessage, simulate_keygen
 
     def launch_counts():
-        return {**montgomery_kernels.launch_counts(), **ec_kernels.launch_counts()}
+        counts = {**montgomery_kernels.launch_counts(), **ec_kernels.launch_counts()}
+        return {k: v for k, v in counts.items() if k not in JOINT}
 
     config = ProtocolConfig(
         paillier_bits=bits, m_security=m_security, correct_key_rounds=rounds,
@@ -721,8 +849,10 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     times["keygen"] = time.perf_counter() - t0
     log(f"main: simulate_keygen t={t} n={n}: {times['keygen']:.3f} s")
 
-    # the keys as they stand before distribute, for the RNS path
+    # the keys as they stand before distribute, for the RNS path and the
+    # joint phase
     pre = copy.deepcopy(keys)
+    pre_joint = copy.deepcopy(keys)
     for mod in (rns_kernels, montgomery_kernels, ec_kernels):
         mod.reset_launch_counts()
     t0 = time.perf_counter()
@@ -835,7 +965,177 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     rns_counts, rns_shapes, times["rns_distribute"] = rns_path(pre, config, n)
     counts.update(rns_counts)
     shapes.update(rns_shapes)
-    return counts, shapes, times, per_collect
+    if any(montgomery_kernels.launch_counts()[name] for name in JOINT):
+        fail(f"the column path launched a joint kernel: {montgomery_kernels.launch_counts()}")
+    return counts, shapes, times, per_collect, pre_joint
+
+
+# Launches of the joint path (FSDKRC_MULTIEXP and FSDKRC_RANGEOPT on, as
+# by default) at n=16, 2048-bit, M=256 (PERF.md section 2). Distribute:
+# `cios_modexp` for the Paillier r^n and beta^n columns, the r^e
+# responses and correct-key's prover; the comb, its ladder and its table's
+# four products for ring-Pedersen's prover (16 groups of 256 rows); the
+# Straus kernel once a width shape of the joint commitment rows, (256,
+# 2560) and (768, 3072) bits. A collect: `cios_modexp` for the PDL
+# columns, the u-power's c^{-e} terms, the range z^{-e} column and
+# correct-key's column; the Straus kernel for the PDL joint rows; the
+# shared-exponent kernel for the 16 receiver groups' u-powers; the comb,
+# its ladder and table three times (ring-Pedersen, then h1^s1 and h2^s2 of
+# joint_comb2); `cios_modmul` for PDL's three products, the u-power's and
+# joint_comb2's recombinations, the range's u and w, and ring-Pedersen's.
+JOINT_DISTRIBUTE = {"cios_modexp": 3, "cios_multi_modexp": 2, "cios_shared_exp": 0,
+                    "cios_comb": 1, "cios_comb_ladder": 1, "cios_mont_mul": 4, "cios_modmul": 0,
+                    "ec_scalar_mul": 3, "ec_tree_sum": 0}
+JOINT_COLLECT = {"cios_modexp": 4, "cios_multi_modexp": 1, "cios_shared_exp": 1,
+                 "cios_comb": 3, "cios_comb_ladder": 3, "cios_mont_mul": 12, "cios_modmul": 8,
+                 "ec_scalar_mul": 3, "ec_tree_sum": 3}
+
+
+@contextlib.contextmanager
+def column_path():
+    """FSDKRC_MULTIEXP=0 and FSDKRC_RANGEOPT=0 inside the block: every
+    prover and verifier family on the per-term column layout."""
+    saved = {k: os.environ.get(k) for k in ("FSDKRC_MULTIEXP", "FSDKRC_RANGEOPT")}
+    os.environ.update({k: "0" for k in saved})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _tampered_collect(msgs, spare, config, field):
+    """A collect of `msgs` with one proof broken on the spare (key, dk),
+    which stays pre-collect: the PDL proof of sender n/3 to receiver n/5
+    (s1 + 1), or the range proof of sender n/2 to receiver n/4 (s + 1).
+    Returns (the error, the tampered sender) and fails if none is raised."""
+    bad = copy.deepcopy(msgs)
+    n = len(msgs)
+    if field == "pdl":
+        sender, row = n // 3, n // 5
+        p = bad[sender].pdl_proof_vec[row]
+        bad[sender].pdl_proof_vec[row] = type(p)(
+            z=p.z, u1=p.u1, u2=p.u2, u3=p.u3, s1=p.s1 + 1, s2=p.s2, s3=p.s3)
+    else:
+        sender, row = n // 2, n // 4
+        p = bad[sender].range_proofs[row]
+        bad[sender].range_proofs[row] = type(p)(z=p.z, e=p.e, s=p.s + 1, s1=p.s1, s2=p.s2)
+    from fsdkr_tpu_torch.protocol import RefreshMessage
+
+    try:
+        RefreshMessage.collect(bad, copy.deepcopy(spare[0]), copy.deepcopy(spare[1]), config)
+    except Exception as e:  # noqa: BLE001 - compared below, class and fields
+        return e, bad[sender].party_index, row
+    fail(f"a tampered {field} proof passed collect")
+
+
+def _verdict(err):
+    return (type(err).__name__, getattr(err, "party_index", None),
+            tuple(getattr(err, f, None) for f in ("is_u1_eq", "is_u2_eq", "is_u3_eq")))
+
+
+def phase_joint(dev, pre, n=16, t=8, bits=2048, m_security=256, rounds=11):
+    """The joint path under the defaults (FSDKRC_MULTIEXP, FSDKRC_RANGEOPT
+    on), from the main phase's keys before its distribute: every kernel's
+    counter zeroed just before distribute_batch by all n senders and read
+    after n collects. Gates: the launches per distribute and per collect
+    (JOINT_DISTRIBUTE, JOINT_COLLECT); t+1 new shares give the group key;
+    a party's collect of the same messages on the column path adopts the
+    same key; a tampered PDL row and a tampered range row raise what the
+    column path raises (class, party, the PDL verdict tuple). Profiles
+    one collect. Returns (counts, shapes of the joint kernels, times)."""
+    from fsdkr_tpu_torch import ProtocolConfig
+    from fsdkr_tpu_torch.carry import to_fields
+    from fsdkr_tpu_torch.core import vss
+    from fsdkr_tpu_torch.core.secp256k1 import GENERATOR
+    from fsdkr_tpu_torch.ops import ec_kernels, montgomery_kernels, rns_kernels
+    from fsdkr_tpu_torch.protocol import RefreshMessage
+
+    def launch_counts():
+        return {**montgomery_kernels.launch_counts(), **ec_kernels.launch_counts()}
+
+    config = ProtocolConfig(
+        paillier_bits=bits, m_security=m_security, correct_key_rounds=rounds,
+        backend="cuda", device=dev.type,
+    )
+    keys = copy.deepcopy(pre)
+    times = {}
+    for mod in (rns_kernels, montgomery_kernels, ec_kernels):
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = RefreshMessage.distribute_batch([(k.i, k) for k in keys], n, config)
+    times["distribute"] = time.perf_counter() - t0
+    msgs = [m for m, _ in out]
+    after_distribute = launch_counts()
+    column_key = (copy.deepcopy(keys[0]), copy.deepcopy(out[0][1]))
+    spare = (copy.deepcopy(keys[1]), copy.deepcopy(out[1][1]))
+    per_collect = []
+    for key, (_, dk) in zip(keys, out):
+        c0 = time.perf_counter()
+        RefreshMessage.collect(msgs, key, dk, config)
+        per_collect.append(time.perf_counter() - c0)
+    counts = launch_counts()
+    shapes = {"cios_multi_modexp": dict(montgomery_kernels.multi_modexp.shapes),
+              "cios_shared_exp": dict(montgomery_kernels.shared_exp_segments.shapes)}
+    per = {k: (counts[k] - after_distribute[k]) / n for k in counts}
+    times["collect_median"] = sorted(per_collect)[n // 2]
+    log(f"joint: distribute_batch, {n} senders: {times['distribute']:.3f} s; {n} collects "
+        f"{sum(per_collect):.3f} s, median {times['collect_median']:.4f} s "
+        f"(each {min(per_collect):.3f}..{max(per_collect):.3f} s)")
+    log("joint: launches in distribute: " + json.dumps(after_distribute)
+        + "; per collect: " + json.dumps(per))
+    for name, by_shape in {**shapes,
+                           "cios_modexp": montgomery_kernels.modexp_segments.shapes,
+                           "cios_comb": montgomery_kernels.comb.shapes,
+                           "cios_comb_ladder": montgomery_kernels.comb_ladder.shapes,
+                           "cios_mont_mul": montgomery_kernels.mont_mul.shapes,
+                           "cios_modmul": montgomery_kernels.modmul.shapes}.items():
+        log(f"joint: {name} launches by shape: "
+            + ", ".join(f"{shape}: {c}" for shape, c in sorted(by_shape.items(), key=str)))
+    if rns_kernels.launch_counts() != {"rns_mont_mul": 0, "rns_modexp": 0}:
+        fail(f"the joint path launched the RNS kernels {rns_kernels.launch_counts()}")
+    if not all(counts[name] > 0 for name in counts):
+        fail(f"a kernel of the joint path never launched: {counts}")
+    for want, got, where in ((JOINT_DISTRIBUTE, after_distribute, "distribute"),
+                             (JOINT_COLLECT, per, "a collect")):
+        diff = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+        if diff:
+            fail(f"joint: launches in {where} (got, expected) {diff}")
+    log(f"joint: launches match PERF.md section 2: distribute {JOINT_DISTRIBUTE}, "
+        f"a collect {JOINT_COLLECT}")
+
+    idx = list(range(t + 1))
+    secret = vss.VerifiableSS(vss.ShamirSecretSharing(t, n)).reconstruct(
+        idx, [keys[i].keys_linear.x_i for i in idx])
+    if GENERATOR * secret != keys[0].y_sum_s or any(k.pk_vec != keys[0].pk_vec for k in keys):
+        fail("joint: new shares do not reconstruct the group key, or pk_vec differs")
+    with column_path():
+        t0 = time.perf_counter()
+        RefreshMessage.collect(msgs, column_key[0], column_key[1], config)
+        times["column_collect"] = time.perf_counter() - t0
+    if to_fields(column_key[0]) != to_fields(keys[0]):
+        fail("joint: the column path's collect of the same messages adopted another key")
+    log("joint: t+1 new shares reconstruct the group key; the column path's collect of the "
+        f"same messages adopts the same LocalKey ({times['column_collect']:.3f} s)")
+    for field in ("pdl", "range"):
+        err, sender, row = _tampered_collect(msgs, spare, config, field)
+        with column_path():
+            col_err, _, _ = _tampered_collect(msgs, spare, config, field)
+        want_cls = "PDLwSlackProofError" if field == "pdl" else "RangeProofError"
+        # the PDL error names the sender; the range error, as in the
+        # reference, the receiver slot
+        want_party = sender if field == "pdl" else row
+        if _verdict(err) != _verdict(col_err) or type(err).__name__ != want_cls or \
+                err.party_index != want_party:
+            fail(f"joint: tampered {field} row raised {_verdict(err)}, the column path "
+                 f"{_verdict(col_err)}, expected {want_cls} naming {want_party}")
+        log(f"joint: tampered {field} row raised {err!r}, as the column path does")
+    if dev.type == "cuda":
+        profile_collect(msgs, spare, config, times["collect_median"])
+    return counts, shapes, times
 
 
 def rns_path(pre, config, n, party=2):
@@ -903,6 +1203,12 @@ _SPANS = (
     ("fsdkr_tpu_torch.ops.ec_batch", "device_to_points", None),
     ("fsdkr_tpu_torch.backend.powm", "device_powm_batches", None),
     ("fsdkr_tpu_torch.backend.cuda_verifier", "device_modmul", None),
+    # the joint path's: the planner, the RANGEOPT engines, the host's
+    # base inversions
+    ("fsdkr_tpu_torch.backend.powm", "multi_powm", None),
+    ("fsdkr_tpu_torch.backend.cuda_verifier", "device_powm_shared_exp_groups", None),
+    ("fsdkr_tpu_torch.backend.cuda_verifier", "joint_comb2_groups", None),
+    ("fsdkr_tpu_torch.backend.cuda_verifier", "batch_base_inv", None),
     # the grouped columns' two routes: the comb and the generic engine
     # (every width batch of a powm_columns call in one launch)
     ("fsdkr_tpu_torch.backend.powm", "device_powm_shared", None),
@@ -989,7 +1295,8 @@ def span_collect(msgs, spare, config, label):
     patched.append((rns, "rns_kernels", rns_kernels))
     rns.rns_kernels = proxy
     proxy = types.SimpleNamespace(**vars(montgomery_kernels))
-    for attr in ("mont_mul", "modmul", "modexp_segments", "comb", "comb_ladder"):
+    for attr in ("mont_mul", "modmul", "modexp_segments", "comb", "comb_ladder", "multi_modexp",
+                 "shared_exp_segments"):
         setattr(proxy, attr, wrap(f"cios_{attr}", getattr(montgomery_kernels, attr),
                                   sync=True))
     patched.append((montgomery, "montgomery_kernels", montgomery_kernels))
@@ -1107,6 +1414,10 @@ KERNELS = {
                       "fsdkr_tpu/ops/ec_batch.py:136", 10),
     "ec_tree_sum": ("ec_tree_sum_kernel", "fsdkr_tpu_torch/csrc/ec_kernels.cu",
                     "fsdkr_tpu/ops/ec_batch.py:175", 50),
+    "cios_multi_modexp": ("cios_multi_modexp_kernel", "fsdkr_tpu_torch/csrc/cios_kernels.cu",
+                          "fsdkr_tpu/ops/montgomery.py:450", 10),
+    "cios_shared_exp": ("cios_shared_exp_kernel", "fsdkr_tpu_torch/csrc/cios_kernels.cu",
+                        "fsdkr_tpu/ops/montgomery.py:183", 10),
 }
 _SYMBOL = {name: spec[0] for name, spec in KERNELS.items()}
 
@@ -1317,6 +1628,19 @@ def bound_ms(name, k, rows, exp_bits, groups=None):
             w_cnt = exp_bits // 4
             products = rows * (1 + 4 * (w_cnt - 1))
             limbs = 3 * k + 2 + w_cnt * k  # base, r2, n, n_inv; the powers
+        elif name == "cios_multi_modexp":
+            # exp_bits: the terms' widths; the widest's squarings, each
+            # term's window products and its 16-entry table
+            widths = exp_bits
+            products = rows * (widths[0] + sum(widths) // 4 + 16 * len(widths))
+            # each term's base and exponent, r2, one, n, n_inv; the result
+            limbs = len(widths) * (k + widths[0] // 16) + 4 * k + 2
+        elif name == "cios_shared_exp":
+            # one segment: each row's base and result; the modulus, its
+            # constants and the digits once
+            products = rows * (16 + 5 * exp_bits // 4)
+            limbs = 2 * k
+            const_bytes = 4 * (4 * k + 2 + exp_bits // 4)
         else:
             products = rows * (16 + 5 * exp_bits // 4)
             limbs = 5 * k + 2 + exp_bits // 16
@@ -1332,10 +1656,11 @@ def _time_launch(name, fn):
     return _events_ms(fn, reps), _device_ms(fn, reps, name)
 
 
-def modexp_bound(segments):
-    """A segmented `cios_modexp` launch's bound: the sum of its segments'
-    bounds, each as `bound_ms` gives it; bound by what bounds the largest."""
-    parts = [bound_ms("cios_modexp", k, rows, exp_bits) for k, rows, exp_bits in segments]
+def modexp_bound(segments, name="cios_modexp"):
+    """A segmented launch's bound (`cios_modexp`, `cios_shared_exp`): the
+    sum of its segments' bounds, each as `bound_ms` gives it; bound by
+    what bounds the largest."""
+    parts = [bound_ms(name, k, rows, exp_bits) for k, rows, exp_bits in segments]
     return sum(ms for ms, _ in parts), max(parts)[1]
 
 
@@ -1379,11 +1704,18 @@ def _case(name, shape, dev, rng):
     """One main-path launch shape on fresh inputs, rows (the comb's:
     groups) half random and half worst-case: (kernel call, plain call,
     bound ms, what bounds it, the shape as text, its JSON fields)."""
-    if name == "cios_modexp":
-        kernel, plain = modexp_segment_calls(dev, rng, shape)
-        bound, by = modexp_bound(shape)
+    if name in ("cios_modexp", "cios_shared_exp"):
+        calls = modexp_segment_calls if name == "cios_modexp" else shared_exp_calls
+        kernel, plain = calls(dev, rng, shape)
+        bound, by = modexp_bound(shape, name)
         text = "segments (K, rows, exp_bits) " + ", ".join(map(str, shape))
         return kernel, plain, bound, by, text, {"segments": [list(seg) for seg in shape]}
+    if name == "cios_multi_modexp":
+        k, rows, widths = shape
+        kernel, plain = multi_calls(dev, rng, k, rows, widths, rows // 2)
+        bound, by = bound_ms(name, k, rows, widths)
+        return (kernel, plain, bound, by, f"K={k} rows={rows} T={len(widths)} exp_bits={widths}",
+                {"k": k, "rows": rows, "exp_bits": list(widths)})
     k, rows, exp_bits, groups = _shape(name, shape)
     half = (groups or rows) // 2 if name in COMB else rows // 2
     kernel, plain = kernel_calls(name, dev, rng, k, rows, exp_bits, half, groups)
@@ -1414,6 +1746,12 @@ def _per_step(name, shape, dms):
     if name == "cios_comb_ladder":
         return (f", {dms * 1e3 / ladder_products(shape):.3f} us per product of the chain "
                 f"(one SM's chain: {ladder_chain_ms(shape, _CLOCK['hz']):.4f} ms)")
+    if name == "cios_multi_modexp":
+        k, _, widths = shape
+        steps = (widths[0] + sum(widths) // 4 + 16 * len(widths) + 1) * (k // 2)
+        return f", {dms * 1e6 / steps:.2f} ns per CIOS step of a row's chain"
+    if name == "cios_shared_exp":
+        return f", {dms * 1e6 / chain_steps(shape):.2f} ns per CIOS step of the longest chain"
     if name != "cios_modexp":
         return ""
     return f", {dms * 1e6 / chain_steps(shape):.2f} ns per CIOS step of the longest chain"
@@ -1485,8 +1823,11 @@ def time_segments_alone(dev, rng, segments):
 
 
 def _cost(name, shape, launches):
-    if name == "cios_modexp":
+    if name in ("cios_modexp", "cios_shared_exp"):
         return sum(k * k * rows * exp_bits for k, rows, exp_bits in shape) * max(launches, 1)
+    if name == "cios_multi_modexp":
+        k, rows, widths = shape
+        return k * k * rows * (widths[0] + sum(widths) // 4) * max(launches, 1)
     k, rows, exp_bits, _ = _shape(name, shape)
     return k * k * rows * (exp_bits or 1) * max(launches, 1)
 
@@ -1576,14 +1917,25 @@ def main() -> None:
     if "routes" in phases:
         phase_routes(dev, rng)
         done("routes")
+    pre = None
     if "main" in phases:
-        counts, shapes, times, per_collect = phase_main(dev)
+        with column_path():
+            counts, shapes, times, per_collect, pre = phase_main(dev)
         log("main: phase seconds " + json.dumps(
             {**times, "collect_each": per_collect}))
         done("main")
+    if "joint" in phases:
+        if pre is None:
+            fail("the joint phase takes the main phase's keys")
+        jcounts, jshapes, jtimes = phase_joint(dev, pre)
+        log("joint: phase seconds " + json.dumps(jtimes))
+        # the joint kernels' launches are those of the joint path's run
+        counts.update({name: jcounts[name] for name in JOINT})
+        shapes.update(jshapes)
+        done("joint")
     if "time" in phases:
-        if counts is None:
-            fail("the time phase needs the main phase's launch counts")
+        if counts is None or any(name not in shapes for name in JOINT):
+            fail("the time phase needs the main and joint phases' launch counts")
         kernels = phase_time(dev, rng, counts, shapes)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
