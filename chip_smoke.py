@@ -46,12 +46,24 @@ Phases:
            `ec_tree_sum` at (groups, rows) (1, 1),
            (1, 2), (3, 8), (16, 32) and (1, 1024) on points of random Z,
            with cancelling pairs, doublings and identity pads.
+           The joint path's kernels: `cios_multi_modexp` at the collect's
+           joint launch (K=256, 512 rows, widths (2048, 256)), the
+           distribute's two (K=128, 512 rows, (2560, 256) and (3072,
+           768)), 16 terms of 128-384 bits at K=128, and at K=16, 130, 512
+           and 1024 on 1 and 13 rows with the most terms a block's shared
+           memory holds (16, 16, 14, 7), half the rows worst-case;
+           `cios_shared_exp` over 16 segments of 16 rows at K=256 with
+           2048-bit exponents (the u-power's launch), one such segment,
+           and three mixed segments at K=16, 130 and 1024, the first
+           modulo 3, the last worst-case.
   routes   device_powm / device_modmul (every launch through the CIOS
            engine, as routed) and the RNS route itself against CPython pow
            at 2048- and 4096-bit moduli; both entry points at 8192-bit
            moduli (past the RNS classes); device_powm_grouped (comb
            groups and loners) at 2048, 4096 and 8192 bits.
-  main     the refresh round at paillier_bits=2048, M=256, 11 correct-key
+  main     on the column path (FSDKRC_MULTIEXP=0, FSDKRC_RANGEOPT=0, so
+           that its gates and PERF.md's history stay comparable):
+           the refresh round at paillier_bits=2048, M=256, 11 correct-key
            rounds, n=16, t=8: simulate_keygen -> distribute_batch (all 16
            senders) -> collect by all 16; t+1 new shares must interpolate
            to the group key; a collect with one tampered PDL proof must
@@ -79,9 +91,21 @@ Phases:
            its messages, timed layer by layer (kernel 2 must launch 15
            times, kernel 1 14); that party's collect of the same messages
            through the CIOS engine must adopt the same key.
+  joint    the joint path under the defaults (FSDKRC_MULTIEXP and
+           FSDKRC_RANGEOPT on), from main's keys before its distribute:
+           every counter zeroed, distribute_batch by all 16 senders and
+           16 collects, the counters read; the launches per distribute
+           and per collect of every kernel must be JOINT_DISTRIBUTE and
+           JOINT_COLLECT (PERF.md section 2), the Straus and
+           shared-exponent kernels among them; t+1 new shares give the
+           group key; a party's collect of the same messages on the
+           column path adopts the same LocalKey; a tampered PDL row and a
+           tampered range row raise what the column path raises (class,
+           party, the PDL verdict tuple). Profiles one collect.
   time     each kernel against its plain version at every shape its path
            (the routed path for the CIOS kernels, the RNS path for the
-           RNS kernels) launched it with (one call, rows half random, half worst-case;
+           RNS kernels, the joint path for the Straus and shared-exponent
+           kernels) launched it with (one call, rows half random, half worst-case;
            bit-identical results); each kernel timed beside its bound on
            the H100 at every one of those shapes, and at its costliest
            shape beside its plain version too. Two times per launch: `ms`,

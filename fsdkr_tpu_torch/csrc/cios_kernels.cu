@@ -13,6 +13,8 @@
 //                          comb's accumulation and exit (_shared_modexp_kernel)
 //   fsdkr_cios_comb_ladder -> fsdkr_tpu/ops/montgomery.py:323-336, the comb's
 //                          power ladder
+//   fsdkr_cios_multi_modexp -> fsdkr_tpu/ops/montgomery.py:450 _multi_modexp_kernel
+//   fsdkr_cios_shared_exp  -> fsdkr_tpu/ops/montgomery.py:183 _shared_exp_kernel
 //
 // Numbers cross the boundary as int32 tensors of canonical 16-bit limbs,
 // (rows, K), little-endian; K is even, so R = 2^(16K) = 2^(32W) falls on a
@@ -174,6 +176,35 @@
 // every size: from kRowsMinRows rows at the same lanes, below it at 32
 // lanes a row (one row a warp), which led one warp a row at every size
 // measured, 16-255 rows, at K=128 and 256.
+//
+// fsdkr_cios_multi_modexp is the joint (Straus) product prod_t b_t^e_t mod
+// n of _multi_modexp_kernel, one warp a row on mont_mul<P>: the T terms'
+// 16-entry tables (entry 0 the Montgomery one, entry 1 b_t R) in the
+// warp's shared memory, T * 16 * 32P words; then one shared chain of
+// exp_bits[0] / 4 windows, each four squarings and one masked table
+// product per active term (term t is active in the chain's last
+// exp_bits[t] / 4 windows); the exit by a product with 1. A row costs
+// E_max + sum_t E_t / 4 + 16 T products where T modexps cost about
+// 1.27 sum_t E_t. The widths are the launch's shape, descending, so every
+// row of a launch takes the same terms in the same windows: no warp
+// diverges on data. The prover's joint rows raise h1, h2 to secret x, rho,
+// alpha, gamma, so the select is the masked sum over all 16 entries, the
+// loop lengths come from the widths alone, and every warp zeroes its
+// tables before it exits. A block holds as many warps (at most 4) as
+// their tables fit the opt-in 227 KB: one warp's tables fit up to 16 terms
+// at K <= 256, 14 at K=512, 7 at K=1024 (fsdkr_cios_multi_modexp_max_terms;
+// backend.powm splits longer rows). Bound: operations, 2K^2 16x16-bit
+// multiply-adds a product; like fsdkr_cios_modexp, one warp a row is a
+// latency chain.
+//
+// fsdkr_cios_shared_exp is _shared_exp_kernel: base^E mod n per row for
+// one public exponent E and one modulus a segment (the range u-power s^n
+// mod n^2: every row of a receiver's group raises its own s to the
+// receiver's Paillier n). Its 4-bit digits arrive as a vector; they derive
+// from the public n, so the window's entry is read at the digit's address,
+// with no masked sum. A launch takes up to 32 segments (a receiver group
+// each), with their own moduli and digits, as fsdkr_cios_modexp takes its
+// segments: one warp a row, the longest chains' blocks first.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -129,8 +129,21 @@ def _collect_like_reference(reference_round, config):
         assert port_key.keys_linear.x_i != from_reference(keys[i]).keys_linear.x_i
 
 
-def test_port_collect_matches_reference_collect(reference_round):
+def test_port_collect_matches_reference_collect(reference_round, monkeypatch):
+    """Under the defaults (FSDKRC_MULTIEXP and FSDKRC_RANGEOPT on): the
+    PDL joint rows on the Straus kernel's plain version, the range
+    u-powers on the shared-exponent one."""
+    from fsdkr_tpu_torch.ops import montgomery_kernels
+
+    for knob in ("FSDKRC_MULTIEXP", "FSDKRC_RANGEOPT"):
+        monkeypatch.delenv(knob, raising=False)
+    calls = []
+    for name in ("multi_modexp", "shared_exp_segments"):
+        raw = getattr(montgomery_kernels, name)
+        monkeypatch.setattr(montgomery_kernels, name,
+                            lambda *a, _raw=raw, _n=name, **kw: calls.append(_n) or _raw(*a, **kw))
     _collect_like_reference(reference_round, PORT_CONFIG)
+    assert sorted(set(calls)) == ["multi_modexp", "shared_exp_segments"]
 
 
 @pytest.mark.parametrize("route", ["cios", "rns", "comb"])
@@ -143,10 +156,14 @@ def test_port_collect_through_each_route_matches_reference(
     engine's tree) adopts the key the JAX collect adopts. `comb`: the
     CIOS engine with the JAX package's grouping rule (groups of 4 rows,
     any count), so the ring-Pedersen column's groups take the fixed-base
-    comb at this size."""
+    comb at this size. On the column path (FSDKRC_MULTIEXP and
+    FSDKRC_RANGEOPT off): the joint path's Straus and shared-exponent
+    kernels have no RNS form."""
     from fsdkr_tpu_torch.backend import powm
     from fsdkr_tpu_torch.ops import montgomery, montgomery_kernels, rns
 
+    monkeypatch.setenv("FSDKRC_MULTIEXP", "0")
+    monkeypatch.setenv("FSDKRC_RANGEOPT", "0")
 
     def refuse(*args, **kwargs):
         raise AssertionError("a launch left the forced route")
