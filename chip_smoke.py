@@ -101,7 +101,8 @@ Phases:
            group key; a party's collect of the same messages on the
            column path adopts the same LocalKey; a tampered PDL row and a
            tampered range row raise what the column path raises (class,
-           party, the PDL verdict tuple). Profiles one collect.
+           party, the PDL verdict tuple). Profiles one collect and times
+           another layer by layer.
   time     each kernel against its plain version at every shape its path
            (the routed path for the CIOS kernels, the RNS path for the
            RNS kernels, the joint path for the Straus and shared-exponent
@@ -1070,7 +1071,8 @@ def phase_joint(dev, pre, n=16, t=8, bits=2048, m_security=256, rounds=11):
     a party's collect of the same messages on the column path adopts the
     same key; a tampered PDL row and a tampered range row raise what the
     column path raises (class, party, the PDL verdict tuple). Profiles
-    one collect. Returns (counts, shapes of the joint kernels, times)."""
+    one collect and times another layer by layer. Returns (counts, shapes
+    of the joint kernels, times)."""
     from fsdkr_tpu_torch import ProtocolConfig
     from fsdkr_tpu_torch.carry import to_fields
     from fsdkr_tpu_torch.core import vss
@@ -1095,7 +1097,10 @@ def phase_joint(dev, pre, n=16, t=8, bits=2048, m_security=256, rounds=11):
     msgs = [m for m, _ in out]
     after_distribute = launch_counts()
     column_key = (copy.deepcopy(keys[0]), copy.deepcopy(out[0][1]))
+    # the profiled collect adopts into `spare`; the spans' collect takes
+    # keys of its own
     spare = (copy.deepcopy(keys[1]), copy.deepcopy(out[1][1]))
+    spare2 = (copy.deepcopy(keys[2]), copy.deepcopy(out[2][1]))
     per_collect = []
     for key, (_, dk) in zip(keys, out):
         c0 = time.perf_counter()
@@ -1159,6 +1164,7 @@ def phase_joint(dev, pre, n=16, t=8, bits=2048, m_security=256, rounds=11):
         log(f"joint: tampered {field} row raised {err!r}, as the column path does")
     if dev.type == "cuda":
         profile_collect(msgs, spare, config, times["collect_median"])
+    span_collect(msgs, spare2, config, "joint")
     return counts, shapes, times
 
 
