@@ -17,21 +17,6 @@ wherever the proof carries the commitment being checked):
   — z^e, c^e, h1^s1, h2^s2, s^n on the device; the inversions by a
   product tree per modulus group on the device (one host inversion per
   group).
-
-Two knobs, read at call time and on by default (backend.powm), choose
-the layout, as FSDKR_MULTIEXP and FSDKR_RANGEOPT do in the JAX package
-(its FSDKR_RLC arms are not ported):
-
-- FSDKRC_MULTIEXP: the mod-n^2 equations as one joint row each,
-  u2 ?= gs1 * s2^n * c^{-e} (PDL) and u = gs1 * s^n * c^{-e} (range),
-  and the range's w = h1^s1 h2^s2 (z^{-1})^e: the bases inverted once on
-  the host (batch_base_inv), the rows on the Straus kernel (multi_powm).
-  A c or z with no inverse fails just its row, as in the column path.
-- FSDKRC_RANGEOPT: the range family on its own engines, as thunks beside
-  the PDL columns (utils.pipeline.run_jobs): the u-power of every
-  receiver group on the shared-exponent kernel (one segment a group,
-  c^{-e} beside it), h1^s1 * h2^s2 by joint_comb2 (the comb), z^{-e} one
-  generic column.
 - Ring-Pedersen (`src/ring_pedersen_proof.rs:138-155`): rows (item, i):
     T^{Z_i} == A_i * S^{e_i}  (mod N), e_i in {0,1} — one n*M-row batch.
 - Correct-key: sigma_i^N == rho_i (mod N); rho derivation + small-factor
@@ -39,6 +24,22 @@ the layout, as FSDKR_MULTIEXP and FSDKR_RANGEOPT do in the JAX package
 - Composite dlog: g^y * ni^e == C (mod N).
 - Feldman: one MSM on the device over every scheme's group; host Horner
   per row only for a scheme whose combined check fails.
+
+Two knobs, read at call time and on by default (backend.powm), choose
+the layout, as FSDKR_MULTIEXP and FSDKR_RANGEOPT do in the JAX package
+(its FSDKR_RLC arms are not ported):
+
+- FSDKRC_MULTIEXP: the mod-n^2 equations as one joint row each,
+  u2 ?= gs1 * s2^n * c^{-e} (PDL) and u = gs1 * s^n * c^{-e} (range), on
+  the Straus kernel (multi_powm), and the range's w = h1^s1 h2^s2
+  (z^{-1})^e: c and z inverted once a row on the host (batch_base_inv),
+  so no result is inverted on the device. A c or z with no inverse fails
+  just its row, as in the column path.
+- FSDKRC_RANGEOPT: the range family on its own engines, as thunks beside
+  the PDL columns (utils.pipeline.run_jobs): the u-power of every
+  receiver group on the shared-exponent kernel (one segment a group,
+  c^{-e} beside it), h1^s1 * h2^s2 by joint_comb2 (the comb), z^{-e} one
+  generic column.
 
 The EC checks run on the device EC kernels (ops.ec_batch: one
 `ec_scalar_mul` and one `ec_tree_sum` launch per MSM). Hash transcripts

@@ -254,17 +254,16 @@ def _comb_rows(bases, exps, moduli, out, device) -> List[int]:
     return [i for i in range(len(bases)) if i not in in_comb]
 
 
-def device_powm_batches(batches, device="cuda", comb=True) -> List[List[int]]:
+def device_powm_batches(batches, device="cuda") -> List[List[int]]:
     """device_powm_grouped over several (bases, exps, moduli) batches at
     once. Each batch's comb groups launch as device_powm_grouped launches
-    them (with comb=False every row takes the generic engine, as in the
-    JAX package's tpu_powm); the other rows of every batch share one
-    segmented `cios_modexp` launch (`ops.montgomery.modexp_batches`),
-    downloaded once: a segment per batch, tiled and padded as device_powm
-    tiles and pads it, on the same cached context, so results and cache
-    keys are device_powm's. A launch holds at most _MAX_ROWS rows and
-    MAX_SEGMENTS segments; more take more launches. Inside
-    `forced_rns_route()` every batch takes device_powm."""
+    them; the other rows of every batch share one segmented `cios_modexp`
+    launch (`ops.montgomery.modexp_batches`), downloaded once: a segment
+    per batch, tiled and padded as device_powm tiles and pads it, on the
+    same cached context, so results and cache keys are device_powm's. A
+    launch holds at most _MAX_ROWS rows and MAX_SEGMENTS segments; more
+    take more launches. Inside `forced_rns_route()` every batch takes
+    device_powm."""
     if _rns_forced():
         return [device_powm(*batch, device) for batch in batches]
     from ..ops.montgomery import modexp_batches
@@ -274,8 +273,7 @@ def device_powm_batches(batches, device="cuda", comb=True) -> List[List[int]]:
     for bases, exps, moduli in batches:
         out: List = [None] * len(bases)
         outs.append(out)
-        rest = (_comb_rows(bases, exps, moduli, out, device) if comb
-                else list(range(len(bases))))
+        rest = _comb_rows(bases, exps, moduli, out, device)
         for lo in range(0, len(rest), _MAX_ROWS):
             idx = rest[lo : lo + _MAX_ROWS]
             b, e, m = _padded(*([col[i] for i in idx] for col in (bases, exps, moduli)))
@@ -485,7 +483,7 @@ def multi_powm(bases_rows, exps_rows, moduli, device="cuda") -> List[int]:
       (device_powm_shared);
     - rows left with 2 or more terms take the Straus kernel (_joint_rows);
     - rows left with one term take the generic engine, one segment per
-      (width, limbs) bucket of one launch;
+      (width, limbs) bucket of one launch (device_powm_batches);
     - the parts of a row are multiplied here (one device_modmul a part),
       so callers never submit recombination columns.
 
@@ -550,20 +548,19 @@ def multi_powm(bases_rows, exps_rows, moduli, device="cuda") -> List[int]:
         if device is None:
             results = [host_powm(*batch) for batch in batches]
         else:
-            results = device_powm_batches(batches, device, comb=False)
+            # a batch has one width class, so multi_powm's comb groups
+            # already hold every (base, modulus) of _SHARED_MIN_ROWS rows
+            results = device_powm_batches(batches, device)
         for pairs, res in zip(buckets.values(), results):
             for (i, _), v in zip(pairs, res):
                 parts[i].append(v)
 
-    # a row of no terms is the empty product
     max_parts = max(len(p) for p in parts)
-    if max_parts == 0:
-        return [1 % m for m in moduli]
     if max_parts == 1:
-        return [p[0] if p else 1 % m for p, m in zip(parts, moduli)]
+        return [p[0] for p in parts]
     if device is None:
-        return [_prod_mod(p, m) if p else 1 % m for p, m in zip(parts, moduli)]
-    acc = [p[0] if p else 1 for p in parts]
+        return [_prod_mod(p, m) for p, m in zip(parts, moduli)]
+    acc = [p[0] for p in parts]
     for step in range(1, max_parts):
         acc = device_modmul(acc, [p[step] if len(p) > step else 1 for p in parts], moduli,
                             device)
@@ -616,13 +613,13 @@ def device_powm_shared_exp_groups(groups, device="cuda") -> List[List[int]]:
             group.append(job)
             rows += len(job[1])
 
-    aux = [gi for gi, g in enumerate(groups) if len(g) > 3 and g[3] is not None and g[0]]
+    aux = [gi for gi, g in enumerate(groups) if g[3] is not None and g[0]]
     if aux:
         ab = [b for gi in aux for b in groups[gi][3]]
         ae = [e for gi in aux for e in groups[gi][4]]
         am = [groups[gi][2] for gi in aux for _ in groups[gi][3]]
         main = [v for gi in aux for v in outs[gi]]
-        (ap,) = device_powm_batches([(ab, ae, am)], device, comb=False)
+        (ap,) = device_powm_batches([(ab, ae, am)], device)
         prod = device_modmul(main, ap, am, device)
         lo = 0
         for gi in aux:
@@ -754,8 +751,7 @@ def powm_columns(powm: BatchPowm, *columns):
     if multi:
         # the joint columns: one multi_powm pass on the device route's
         # device, else on the host
-        device = (powm.keywords.get("device", powm.args[0] if powm.args else "cuda")
-                  if device_route else None)
+        device = powm.keywords.get("device", "cuda") if device_route else None
         res = multi_powm(mb, me, mm, device)
         for col, lo, hi in multi:
             out[col] = res[lo:hi]

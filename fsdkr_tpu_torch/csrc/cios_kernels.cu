@@ -192,7 +192,7 @@
 // loop lengths come from the widths alone, and every warp zeroes its
 // tables before it exits. A block holds as many warps (at most 4) as
 // their tables fit the opt-in 227 KB: one warp's tables fit up to 16 terms
-// at K <= 256, 14 at K=512, 7 at K=1024 (fsdkr_cios_multi_modexp_max_terms;
+// at K <= 256, 14 at K=512, 7 at K=1024 (a launch of more is refused;
 // backend.powm splits longer rows). Bound: operations, 2K^2 16x16-bit
 // multiply-adds a product; like fsdkr_cios_modexp, one warp a row is a
 // latency chain.
@@ -1693,13 +1693,6 @@ extern "C" int fsdkr_cios_multi_modexp(const void* bases, const void* exps, int 
 #define CALL(P) launch_multi_modexp<P>(a, (cudaStream_t)stream)
   FSDKR_CIOS_DISPATCH(K, CALL)
 #undef CALL
-}
-
-// the most terms a launch at K limbs takes: one warp's tables must fit a block
-extern "C" int fsdkr_cios_multi_modexp_max_terms(int K) {
-  if (bad_shape(0, K)) return 0;
-  const size_t fit = kMaxSmemBytes / multi_warp_smem_bytes(1, words_per_lane(K));
-  return fit < (size_t)kMaxTerms ? (int)fit : kMaxTerms;
 }
 
 // segments: `count` rows of kSharedExpWords int64 words, (base, digits, n,

@@ -127,8 +127,6 @@ def load_library() -> ctypes.CDLL:
     lib.fsdkr_cios_multi_modexp.argtypes = [p, p, i, ctypes.POINTER(i), i, p, p, p, p, i, i,
                                             p, p]
     lib.fsdkr_cios_multi_modexp.restype = i
-    lib.fsdkr_cios_multi_modexp_max_terms.argtypes = [i]
-    lib.fsdkr_cios_multi_modexp_max_terms.restype = i
     lib.fsdkr_cios_shared_exp.argtypes = [ctypes.POINTER(ctypes.c_int64), i, p]
     lib.fsdkr_cios_shared_exp.restype = i
     _LIB = lib
@@ -410,7 +408,7 @@ def _words_per_lane(k: int) -> int:
 def multi_modexp_max_terms(k: int) -> int:
     """The most terms a `multi_modexp` launch at K limbs takes: one warp's
     16-entry tables, 16 * 32P words a term, must fit a block's shared
-    memory (csrc: fsdkr_cios_multi_modexp_max_terms). 16 up to K=256, 14
+    memory (csrc: launch_multi_modexp refuses more). 16 up to K=256, 14
     at K=512, 7 at K=1024."""
     return min(MAX_TERMS, MAX_SMEM_BYTES // (16 * 32 * 4 * _words_per_lane(k)))
 

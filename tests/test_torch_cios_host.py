@@ -69,8 +69,6 @@ def host_lib(tmp_path_factory):
     lib.fsdkr_cios_multi_modexp.argtypes = [p, p, i, ctypes.POINTER(i), i, p, p, p, p, i, i,
                                             p, p]
     lib.fsdkr_cios_multi_modexp.restype = i
-    lib.fsdkr_cios_multi_modexp_max_terms.argtypes = [i]
-    lib.fsdkr_cios_multi_modexp_max_terms.restype = i
     lib.fsdkr_cios_shared_exp.argtypes = [ctypes.POINTER(ctypes.c_int64), i, p]
     lib.fsdkr_cios_shared_exp.restype = i
     return lib
@@ -179,7 +177,11 @@ def test_host_launch_checks_and_term_cap(host_lib):
     many = torch.zeros((17, rows, k), dtype=torch.int32)
     assert _multi_call(host_lib, many, torch.zeros((17, rows, 4), dtype=torch.int32),
                        z, z, z, z, (64,) * 17)[0] != 0
-    # the library's cap is the wrapper's (one warp's tables in 227 KB)
-    for kk in (16, 128, 256, 512, 1024):
-        assert host_lib.fsdkr_cios_multi_modexp_max_terms(kk) == \
-            montgomery_kernels.multi_modexp_max_terms(kk)
+    # the library refuses one term past the wrapper's cap (one warp's
+    # tables in 227 KB) at K=512 and 1024, before it launches anything
+    for kk in (512, 1024):
+        t_cnt = montgomery_kernels.multi_modexp_max_terms(kk) + 1
+        zk = torch.zeros((1, kk), dtype=torch.int32)
+        assert _multi_call(host_lib, torch.zeros((t_cnt, 1, kk), dtype=torch.int32),
+                           torch.zeros((t_cnt, 1, 4), dtype=torch.int32), zk, zk, zk, zk,
+                           (64,) * t_cnt)[0] != 0
