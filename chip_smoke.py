@@ -10,7 +10,9 @@ Phases:
   env      nvidia-smi name and power limit, torch/CUDA versions, the
            kernels' builds from csrc/ (the sources compiled at once, with
            nvcc's register report; `ec_scalar_mul_kernel`'s registers and
-           spill bytes on a line of their own).
+           spill bytes on a line of their own, and each instantiation's of
+           the joint kernels, `cios_multi_modexp_kernel` and
+           `cios_shared_exp_kernel`).
   kernels  each hand-written kernel against its plain PyTorch version on
            the card. The RNS kernels at k=131 (2048-bit class), k=260
            (4096-bit class), the 6144-bit class (k=389) and the 7168-bit
@@ -46,16 +48,21 @@ Phases:
            `ec_tree_sum` at (groups, rows) (1, 1),
            (1, 2), (3, 8), (16, 32) and (1, 1024) on points of random Z,
            with cancelling pairs, doublings and identity pads.
-           The joint path's kernels: `cios_multi_modexp` at the collect's
-           joint launch (K=256, 512 rows, widths (2048, 256)), the
-           distribute's two (K=128, 512 rows, (2560, 256) and (3072,
-           768)), 16 terms of 128-384 bits at K=128, and at K=16, 130, 512
-           and 1024 on 1 and 13 rows with the most terms a block's shared
-           memory holds (16, 16, 14, 7), half the rows worst-case;
-           `cios_shared_exp` over 16 segments of 16 rows at K=256 with
-           2048-bit exponents (the u-power's launch), one such segment,
-           and three mixed segments at K=16, 130 and 1024, the first
-           modulo 3, the last worst-case.
+           The joint path's kernels, each case at the launch rule's
+           layout and one warp a row, one block a row at 256 and 512
+           threads: `cios_multi_modexp` at the
+           collect's joint launch (K=256, 512 rows, widths (2048, 256)),
+           the default collect's shape at 265 rows (a partial last
+           wave), the distribute's two (K=128, 512 rows, (2560, 256) and
+           (3072, 768)), 16 terms of 128-384 bits at K=128, and at K=16,
+           130, 512 and 1024 on 1 and 13 rows with the most terms a
+           block's shared memory holds (16, 16, 12, 5), half the rows
+           worst-case; `multi_powm` rows of 14 terms at 8192 bits and 7
+           at 16384 bits (past those caps: two launches each) against
+           pow; `cios_shared_exp` over 16 segments of 16 rows at K=256
+           with 2048-bit exponents (the u-power's launch), one such
+           segment, and three mixed segments at K=16, 130 and 1024, the
+           first modulo 3, the last worst-case.
   routes   device_powm / device_modmul (every launch through the CIOS
            engine, as routed) and the RNS route itself against CPython pow
            at 2048- and 4096-bit moduli; both entry points at 8192-bit
@@ -120,7 +127,9 @@ Phases:
            every `cios_comb` time also in ns per row-step (a CIOS step of
            one row); every ladder time also in us per product of its
            chain, beside the chain at one SM's integer multiply rate;
-           every EC time also in us per complete addition of its chain.
+           every EC time also in us per complete addition of its chain;
+           every joint kernel's time also in us per product of a row's
+           chain.
 
 Prints the kernels line `{"kernels": [...]}` and, last, `{"ok": true,
 "device": {...}}`. Any failure exits non-zero with no result line.
@@ -361,6 +370,7 @@ COMB = ("cios_comb", "cios_comb_ladder")
 
 # the kernels of the joint path only (FSDKRC_MULTIEXP / FSDKRC_RANGEOPT on)
 JOINT = ("cios_multi_modexp", "cios_shared_exp")
+JOINT_SYMBOLS = ("cios_multi_modexp_kernel", "cios_shared_exp_kernel")
 
 
 def multi_inputs(rng, dev, k, rows, widths, worst):
@@ -555,27 +565,51 @@ def phase_env(dev):
     usage = ptxas_usage(ec_kernels.build_info.get("ptxas", ""), "ec_scalar_mul_kernel")
     log("ptxas: ec_scalar_mul_kernel " + (", ".join(f"{k} {v}" for k, v in usage.items())
                                            or "not reported (library already built)"))
+    log_joint_ptxas(montgomery_kernels.build_info.get("ptxas", ""))
 
 
-def ptxas_usage(report, symbol):
-    """{registers, spill_stores, spill_loads, stack_frame} of one kernel from
-    nvcc's -Xptxas -v report (empty when the library was not built here)."""
+def log_joint_ptxas(report, label=""):
+    """The joint kernels' registers and spill bytes, one line an
+    instantiation (the template argument: threads a block)."""
+    for kernel in JOINT_SYMBOLS:
+        entries = ptxas_entries(report, kernel)
+        if not entries:
+            log(f"{label}ptxas: {kernel} not reported (library already built)")
+        for name, usage in entries.items():
+            log(f"{label}ptxas: {kernel} {name}: "
+                + ", ".join(f"{k} {v}" for k, v in usage.items()))
+
+
+def ptxas_entries(report, symbol):
+    """{mangled name: {registers, spill_stores, spill_loads, stack_frame}}
+    of every instantiation of one kernel in nvcc's -Xptxas -v report
+    (empty when the library was not built here)."""
     import re
 
-    usage, inside = {}, False
+    out, name = {}, None
     for line in report.splitlines():
-        if "Compiling entry" in line or "Function properties for" in line:
-            inside = symbol in line
-        if not inside:
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            name = m[1] if symbol in m[1] else None
+            if name:
+                out.setdefault(name, {})
+        if name is None:
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
-            usage.update(stack_frame=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+            out[name].update(stack_frame=int(m[1]), spill_stores=int(m[2]),
+                             spill_loads=int(m[3]))
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            usage["registers"] = int(m[1])
-    return usage
+            out[name]["registers"] = int(m[1])
+    return out
+
+
+def ptxas_usage(report, symbol):
+    """The usage of one kernel (its last instantiation) from `ptxas_entries`."""
+    entries = ptxas_entries(report, symbol)
+    return entries[list(entries)[-1]] if entries else {}
 
 
 LADDER_THREADS = (256, 512)  # the ladder's layouts (csrc: launch_comb_ladder)
@@ -694,21 +728,33 @@ def phase_kernels(dev, rng):
     joint_kernels_check(dev, rng)
 
 
+# the joint kernels' layouts: one warp a row (0), one block a row at 256
+# or 512 threads (csrc: fsdkr_cios_multi_modexp_threads)
+JOINT_THREADS = (0, 256, 512)
+
+
 def joint_kernels_check(dev, rng):
     """Both kernels of the joint path against their plain versions, bit
-    for bit. `cios_multi_modexp`: the collect's joint launch under
+    for bit, at the launch rule's layout and at each of JOINT_THREADS
+    (one warp a row, one block a row at 256 and 512 threads).
+    `cios_multi_modexp`: the collect's joint launch under
     FSDKRC_MULTIEXP alone (K=256, 512 rows, widths (2048, 256)), the
-    distribute's two (K=128, 512 rows, (2560, 256) and (3072, 768)), 16
-    terms at K=128 of 128-384 bits, and at K=16, 130, 512 and 1024 on 1
-    and 13 rows the most terms a block's shared memory holds there (one
-    warp a block at K=512 and 1024); half the rows worst-case.
-    `cios_shared_exp`: the RANGEOPT u-power's launch (K=256, 16 segments of
-    16 rows, 2048-bit exponents) and one segment of it, and K=16, 130 and
-    1024 on 1 and 13 rows; the first segment modulo 3, the last
+    default collect's shape at 265 rows (more than two blocks a SM, a
+    partial last wave), the distribute's two (K=128, 512 rows, (2560,
+    256) and (3072, 768)), 16 terms at K=128 of 128-384 bits, and at
+    K=16, 130, 512 and 1024 on 1 and 13 rows the most terms a block's
+    shared memory holds there (16, 16, 12, 5); half the rows worst-case.
+    Rows past those caps at 8192 and 16384 bits (14 and 7 terms) through
+    `multi_powm`, split into two launches each, against pow.
+    `cios_shared_exp`: the RANGEOPT u-power's launch (K=256, 16 segments
+    of 16 rows, 2048-bit exponents) and one segment of it, and K=16, 130
+    and 1024 on 1 and 13 rows; the first segment modulo 3, the last
     worst-case."""
-    from fsdkr_tpu_torch.ops import montgomery_kernels as mk
+    from fsdkr_tpu_torch.backend import powm
+    from fsdkr_tpu_torch.ops import montgomery, montgomery_kernels as mk
 
-    cases = [(256, 512, (2048, 256)), (128, 512, (2560, 256)), (128, 512, (3072, 768)),
+    cases = [(256, 512, (2048, 256)), (256, 265, (2048, 256)), (128, 512, (2560, 256)),
+             (128, 512, (3072, 768)),
              (128, 64, (384, 384, 320, 320, 256, 256, 256, 192, 192, 192, 128, 128, 128, 128,
                         128, 128))]
     for k in (16, 130, 512, 1024):
@@ -716,21 +762,57 @@ def joint_kernels_check(dev, rng):
         for rows in (1, 13):
             cases.append((k, rows, tuple(256 - 64 * (t * 3 // t_max) for t in range(t_max))))
     for k, rows, widths in cases:
-        kernel, plain = multi_calls(dev, rng, k, rows, widths, rows // 2)
-        if _max_err(kernel(), plain()):
-            fail(f"cios_multi_modexp K={k} rows={rows} widths={widths}: differs from plain")
+        bases, exps, n, ni, r2, one = multi_inputs(rng, dev, k, rows, widths, rows // 2)
+        want = montgomery._multi_modexp_kernel(bases, exps, n, ni, r2, one, exp_bits_seq=widths)
+        calls = [lambda: mk.multi_modexp(bases, exps, n, ni, r2, one, widths)] + [
+            (lambda t: lambda: mk.multi_modexp_at_threads(t, bases, exps, n, ni, r2, one,
+                                                          widths))(t) for t in JOINT_THREADS]
+        for call in calls:
+            if _max_err(call(), want):
+                fail(f"cios_multi_modexp K={k} rows={rows} widths={widths}: differs from plain")
         log(f"kernels == plain, bit-identical: cios_multi_modexp K={k} rows={rows} "
-            f"T={len(widths)} exp_bits={widths}, {rows // 2} worst-case rows")
+            f"T={len(widths)} exp_bits={widths}, {rows // 2} worst-case rows (the rule's "
+            f"{mk.joint_rule(k, rows)[0]} threads a block, and "
+            f"{', '.join(map(str, JOINT_THREADS))}; 0: one warp a row)")
+    rows_b, rows_e, mods = [], [], []
+    for bits, terms in ((8192, 14), (16384, 7)):
+        m = rng.getrandbits(bits) | 1 | (1 << (bits - 1))
+        for _ in range(2):
+            rows_b.append(tuple(rng.randrange(m) for _ in range(terms)))
+            rows_e.append(tuple(rng.getrandbits(256) for _ in range(terms)))
+            mods.append(m)
+    shapes_before = dict(mk.multi_modexp.shapes)
+    got = powm.multi_powm(rows_b, rows_e, mods, dev)
+    want = []
+    for bs, es, m in zip(rows_b, rows_e, mods):
+        acc = 1
+        for b, e in zip(bs, es):
+            acc = acc * pow(b, e, m) % m
+        want.append(acc)
+    if got != want:
+        fail("multi_powm past the wide caps differs from pow")
+    terms = sorted(len(shape[2]) for shape, count in mk.multi_modexp.shapes.items()
+                   for _ in range(count - shapes_before.get(shape, 0)))
+    caps = [mk.multi_modexp_max_terms(k) for k in (512, 1024)]
+    if terms != sorted([14 - caps[0], caps[0], 7 - caps[1], caps[1]]):
+        fail(f"multi_powm past the wide caps: Straus launches of {terms} terms, caps {caps}")
+    log(f"routes == pow: multi_powm rows of 14 terms at 8192 bits and 7 at 16384 bits "
+        f"(caps {caps[0]} and {caps[1]}), Straus launches of {terms} terms")
     seg_cases = [((256, 16, 2048),) * 16, ((256, 16, 2048),)]
     for k in (16, 130, 1024):
         seg_cases.append(((k, 1, 256), (k, 13, 64), (k, 13, 256)))
     for segments in seg_cases:
-        kernel, plain = shared_exp_calls(dev, rng, segments)
-        if _max_err(kernel(), plain()):
-            fail(f"cios_shared_exp over segments {segments}: differs from plain")
+        segs = shared_exp_inputs(dev, rng, segments)
+        want = [montgomery._shared_exp_kernel(*seg) for seg in segs]
+        calls = [lambda: mk.shared_exp_segments(segs)] + [
+            (lambda t: lambda: mk.shared_exp_at_threads(t, segs))(t) for t in JOINT_THREADS]
+        for call in calls:
+            if _max_err(call(), want):
+                fail(f"cios_shared_exp over segments {segments}: differs from plain")
         log(f"kernels == plain, bit-identical: cios_shared_exp, one launch of {len(segments)} "
             f"segments (K, rows, exp_bits) {sorted(set(segments))}, the first modulo 3, "
-            f"the last worst-case")
+            f"the last worst-case (the rule's threads a block, and "
+            f"{', '.join(map(str, JOINT_THREADS))}; 0: one warp a row)")
 
 
 def ec_kernels_check(dev, rng):
@@ -1776,15 +1858,23 @@ def _per_step(name, shape, dms):
     if name == "cios_comb_ladder":
         return (f", {dms * 1e3 / ladder_products(shape):.3f} us per product of the chain "
                 f"(one SM's chain: {ladder_chain_ms(shape, _CLOCK['hz']):.4f} ms)")
-    if name == "cios_multi_modexp":
-        k, _, widths = shape
-        steps = (widths[0] + sum(widths) // 4 + 16 * len(widths) + 1) * (k // 2)
-        return f", {dms * 1e6 / steps:.2f} ns per CIOS step of a row's chain"
-    if name == "cios_shared_exp":
-        return f", {dms * 1e6 / chain_steps(shape):.2f} ns per CIOS step of the longest chain"
+    if name in JOINT:
+        products = joint_products(name, shape)
+        return f", {dms * 1e3 / products:.3f} us per product of a row's chain ({products})"
     if name != "cios_modexp":
         return ""
     return f", {dms * 1e6 / chain_steps(shape):.2f} ns per CIOS step of the longest chain"
+
+
+def joint_products(name, shape):
+    """Dependent products along a joint kernel's row: each term's table
+    (the entry by r2 and 14 products), the widest term's squarings, one a
+    window of each term, the exit (the longest segment's, for
+    `cios_shared_exp`)."""
+    if name == "cios_multi_modexp":
+        _, _, widths = shape
+        return 15 * len(widths) + widths[0] + sum(widths) // 4 + 1
+    return max(16 + 5 * exp_bits // 4 for _, _, exp_bits in shape)
 
 
 _CLOCK = {}  # the card's maximum SM clock, read once by phase_time

@@ -178,24 +178,37 @@
 // measured, 16-255 rows, at K=128 and 256.
 //
 // fsdkr_cios_multi_modexp is the joint (Straus) product prod_t b_t^e_t mod
-// n of _multi_modexp_kernel, one warp a row on mont_mul<P>: the T terms'
-// 16-entry tables (entry 0 the Montgomery one, entry 1 b_t R) in the
-// warp's shared memory, T * 16 * 32P words; then one shared chain of
-// exp_bits[0] / 4 windows, each four squarings and one masked table
-// product per active term (term t is active in the chain's last
-// exp_bits[t] / 4 windows); the exit by a product with 1. A row costs
-// E_max + sum_t E_t / 4 + 16 T products where T modexps cost about
-// 1.27 sum_t E_t. The widths are the launch's shape, descending, so every
-// row of a launch takes the same terms in the same windows: no warp
-// diverges on data. The prover's joint rows raise h1, h2 to secret x, rho,
-// alpha, gamma, so the select is the masked sum over all 16 entries, the
-// loop lengths come from the widths alone, and every warp zeroes its
-// tables before it exits. A block holds as many warps (at most 4) as
-// their tables fit the opt-in 227 KB: one warp's tables fit up to 16 terms
-// at K <= 256, 14 at K=512, 7 at K=1024 (a launch of more is refused;
-// backend.powm splits longer rows). Bound: operations, 2K^2 16x16-bit
-// multiply-adds a product; like fsdkr_cios_modexp, one warp a row is a
-// latency chain.
+// n of _multi_modexp_kernel: the T terms' 16-entry tables (entry 0 the
+// Montgomery one, entry 1 b_t R); then one shared chain of exp_bits[0] / 4
+// windows, each four squarings and one masked table product per active
+// term (term t is active in the chain's last exp_bits[t] / 4 windows); the
+// exit by a product with 1. A row is a chain of E_max + sum_t E_t / 4 +
+// 15 T + 1 dependent products, and a collect launches 256 such rows (the
+// PDL rows at 2048 bits): one warp a row on mont_mul<P> paces each product
+// at W serial CIOS steps and fills 64 SMs. So a row is one block (joint_row
+// after the ladder), every product of its chain one mont_mul_block call:
+// 256 blocks, about two a SM on all 132. mont_mul_block leaves its result
+// in both operands, so a square needs no operand, and takes it on the
+// square's column sums (T from the source words on one side of each
+// column's diagonal, doubled, plus the diagonal: about half of x * y's
+// chunks); a general product first writes its other operand (the base by
+// r2, a table entry, the chain's window entry, 1 at the exit) into the
+// split yl / yh. The tables sit beside LadderSmem in the block's dynamic
+// shared memory, entry e of term t, word j at (16 t + e) W + j, so the
+// term cap is what fits 227 KB: 16 up to K=256, 12 at K=512, 5 at K=1024
+// (a launch of more is refused; backend.powm splits longer rows). The
+// widths are the launch's shape, descending, so every row takes the same
+// terms in the same windows. The prover's joint rows raise h1, h2 to
+// secret x, rho, alpha, gamma, so the window's entry is the masked sum
+// over all 16 entries (the digit sets no address and no branch), the loop
+// lengths come from the widths alone, and every block zeroes its shared
+// memory before it exits. A launch of more rows than two blocks a SM
+// (kJointBlockRows; 128 registers a thread at 256 threads) would run a
+// second wave of blocks, and there one warp a row (the first form, T
+// tables in the warp's shared memory, one warp's chain a scheduler)
+// leads on the joint cells of scripts/cuda_route_sweep.py, so the launch
+// rule (joint_threads) takes it there. Bound: operations, 2K^2 16x16-bit
+// multiply-adds a product.
 //
 // fsdkr_cios_shared_exp is _shared_exp_kernel: base^E mod n per row for
 // one public exponent E and one modulus a segment (the range u-power s^n
@@ -204,7 +217,10 @@
 // from the public n, so the window's entry is read at the digit's address,
 // with no masked sum. A launch takes up to 32 segments (a receiver group
 // each), with their own moduli and digits, as fsdkr_cios_modexp takes its
-// segments: one warp a row, the longest chains' blocks first.
+// segments, the longest chains' blocks first: one block a (segment, row)
+// on the same row body (joint_row<NT, true>) and the same launch rule
+// over all the launch's rows. The bases are secret-derived, so the block
+// zeroes its shared memory at exit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -667,8 +683,11 @@ cios_modexp_kernel(const __grid_constant__ ModexpTable tab) {
 }
 
 // ---------------------------------------------------------------------------
-// fsdkr_cios_multi_modexp: prod_t base_t^exp_t mod n per row, the joint
-// (Straus) ladder of _multi_modexp_kernel
+// fsdkr_cios_multi_modexp (prod_t base_t^exp_t mod n per row, the joint,
+// Straus, ladder of _multi_modexp_kernel) and fsdkr_cios_shared_exp
+// (base^E mod n per row, one public E a segment): their arguments, and
+// their one-warp-a-row form, which launches of more rows than
+// kJointBlockRows take (the block form is after the ladder)
 
 constexpr int kMaxTerms = 16;                 // backend.powm._DEVICE_MAX_TERMS
 constexpr size_t kMaxSmemBytes = 227 * 1024;  // a block's opt-in shared memory
@@ -686,7 +705,8 @@ struct MultiArgs {
   const int32_t* r2;
   const int32_t* one_mont;
   int32_t* out;
-  int terms, rows, K, exp_limbs, warps;
+  int terms, rows, K, exp_limbs;
+  int warps;                // the one-warp form's warps a block
   int exp_bits[kMaxTerms];  // descending
 };
 
@@ -761,7 +781,7 @@ __device__ __forceinline__ void multi_modexp_row(const MultiArgs& a, int row, in
 // a.warps warps a block (as many as the tables let a block hold, at most 4)
 template <int P>
 __global__ void __launch_bounds__(kWarps * 32)
-cios_multi_modexp_kernel(const __grid_constant__ MultiArgs a) {
+cios_multi_modexp_kernel_warp(const __grid_constant__ MultiArgs a) {
   extern __shared__ __align__(16) uint32_t smem_words[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -770,9 +790,8 @@ cios_multi_modexp_kernel(const __grid_constant__ MultiArgs a) {
   multi_modexp_row<P>(a, row, lane, smem_words + (size_t)warp * a.terms * 16 * P * 32);
 }
 
-// ---------------------------------------------------------------------------
-// fsdkr_cios_shared_exp: base^E mod n per row, one public exponent E (as
-// its 4-bit digits) and one modulus a segment, over a table of segments
+// fsdkr_cios_shared_exp's segments: one public exponent E (as its 4-bit
+// digits) and one modulus a segment
 
 struct SharedExpSegment {
   const int32_t* base;    // (rows, K)
@@ -838,7 +857,7 @@ __device__ __forceinline__ void shared_exp_row(const SharedExpSegment& sg, int r
 
 template <int PMAX>
 __global__ void __launch_bounds__(kWarps * 32)
-cios_shared_exp_kernel(const __grid_constant__ SharedExpTable tab) {
+cios_shared_exp_kernel_warp(const __grid_constant__ SharedExpTable tab) {
   extern __shared__ __align__(16) uint32_t smem_words[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -1040,6 +1059,7 @@ cios_modmul_rows_kernel(const int32_t* __restrict__ a, const int32_t* __restrict
 // on the full-width-digit product mont_mul_block (see the note at the top)
 
 constexpr int kChunk = 8;   // source words a thread takes at a time
+constexpr int kChunkLog2 = 3;
 constexpr int kPad = 256;   // zero words below each split operand (see LadderSmem)
 
 // The launch rule: threads a block at K limbs, from the ladder cells of
@@ -1106,6 +1126,12 @@ struct LadderSmem {
   __device__ __forceinline__ int perm(int j) const { return (j & (S - 1)) * IP + (j >> log2S); }
 };
 
+// a compile-time int passed as a value (the column sums' mask kinds)
+template <int V>
+struct IntTag {
+  static constexpr int value = V;
+};
+
 // the words of LadderSmem, zeroed at entry and at exit
 __host__ __device__ __forceinline__ int ladder_smem_words(int W, int NT) {
   const int S = ladder_parts(W, NT);
@@ -1158,17 +1184,33 @@ __device__ __forceinline__ void block_lookahead(const bool (&g)[NL], const bool 
 // (found in yl), else column c + W (found in yh). x is permuted (xp: a
 // part's words contiguous), so a lane loads four words of x at once; the
 // warp's lanes read at most PW + S - 1 consecutive words of yl or yh at a
-// time (no bank conflict). Four sums of each kind shorten the add chains
-// (loading the next chunk ahead of this one's products was slower on the
-// H100: the copies between them take the multiply pipe). A chunk whose
-// source words all lie below (above) the warp's pairs reads yl (yh)
-// alone; one across the warp's diagonal reads both, each product against
-// the other half's zeros, so no product is selected (kLow reads nl alone
-// and stops at the chunks above: all zeros); the warp decides, from
-// indices only. Source words at or above W read xp's zero slots. The
-// parts are summed by shuffles (a reduce-scatter, so each lane sends at
-// most two of its four sums), then written to lo and hi.
-template <bool kLow, int NT>
+// time (no bank conflict). Two sums of each kind, each taking two
+// products' halves at a time (one three-input add and its carries a
+// half): four sums of one product each held more registers and ran about
+// 5% slower at K=256 (H100 80GB HBM3 at 700 W; PERF.md); loading
+// the next chunk ahead of this one's products was slower on the H100
+// (the copies between them take the multiply pipe). The two halves run
+// as two loops over the chunks, the low one over the prefix of chunks
+// below or across the warp's pairs (reading yl), the high one over the
+// suffix across or above them (reading yh): a chunk across the warp's
+// diagonal is in both, each product against the other half's zeros, so
+// no product is selected (kLow reads nl alone and stops at the chunks
+// above: all zeros); the warp decides, from indices only. One loop with
+// both halves in its body ran x * y's column sums about 1.2x longer (the
+// same card; PERF.md). Source words at or above W read xp's zero
+// slots. The parts are summed by shuffles (a reduce-scatter, so each
+// lane sends at most two of its four sums), then written to lo and hi.
+//
+// kSquare (x = y, not kLow): the products x_i x_j and x_j x_i are equal,
+// so column c takes only the source words with 2i < c and column c + W
+// those with 2i > c + W, each sum doubled, plus the diagonal x_(c/2)^2
+// (x_((c+W)/2)^2) where c (c + W) is even: about half the chunks of x *
+// y. A chunk none of whose words the warp's low (high) columns take is
+// skipped, one all of whose words all of them take is added as x * y's,
+// and only one between masks y's words to 0 per lane; the warp decides,
+// from indices only. The doubled sums and the diagonal keep a column
+// value below the bound of x * y.
+template <bool kLow, int NT, bool kSquare = false>
 __device__ __forceinline__ void column_sums(const LadderSmem& sm, const uint32_t* xp,
                                             const uint32_t* yl, const uint32_t* yh) {
   constexpr int kWarpsNT = NT / 32;
@@ -1186,27 +1228,30 @@ __device__ __forceinline__ void column_sums(const LadderSmem& sm, const uint32_t
     const int c_min = c0 < W ? c0 : W - 1;
     const int c_max = c0 + pw - 1 < W ? c0 + pw - 1 : W - 1;
     const int k0 = kPad + W + c - s;  // + -S*u: the y word for i = s + S*u
-    uint64_t aL[4] = {0, 0, 0, 0}, aH[4] = {0, 0, 0, 0};
-    uint64_t bL[4] = {0, 0, 0, 0}, bH[4] = {0, 0, 0, 0};
-    // the chunk's products x_i * y[k] into sums a (low) or b (high)
-    auto add = [&](const uint32_t (&xv)[kChunk], const uint32_t* yb, int u0, uint64_t (&sL)[4],
-                   uint64_t (&sH)[4]) {
+    uint64_t aL[2] = {0, 0}, aH[2] = {0, 0}, bL[2] = {0, 0}, bH[2] = {0, 0};
+    // the chunk's products x_i * y[k] into sums a (low) or b (high); the
+    // square's masks keep only source words i that column c takes (1:
+    // 2i < c) or column c + W (2: 2i > c + W)
+    auto add = [&](const uint32_t (&xv)[kChunk], const uint32_t* yb, int u0, uint64_t (&sL)[2],
+                   uint64_t (&sH)[2], auto mask) {
+      constexpr int kMask = decltype(mask)::value;
       uint32_t yv[kChunk];
 #pragma unroll
-      for (int u = 0; u < kChunk; ++u) yv[u] = yb[k0 - S * (u0 + u)];
-#pragma unroll
       for (int u = 0; u < kChunk; ++u) {
-        const uint64_t p = mul_wide(xv[u], yv[u]);
-        sL[u & 3] += (uint32_t)p;
-        sH[u & 3] += (uint32_t)(p >> 32);
+        yv[u] = yb[k0 - S * (u0 + u)];
+        if (kMask == 1 && 2 * (s + S * (u0 + u)) >= c) yv[u] = 0;
+        if (kMask == 2 && 2 * (s + S * (u0 + u)) <= c + W) yv[u] = 0;
+      }
+      // two products' halves a sum at a time: one three-input add with
+      // its carries a half
+#pragma unroll
+      for (int u = 0; u < kChunk; u += 2) {
+        const uint64_t p0 = mul_wide(xv[u], yv[u]), p1 = mul_wide(xv[u + 1], yv[u + 1]);
+        sL[(u >> 1) & 1] += (uint64_t)(uint32_t)p0 + (uint32_t)p1;
+        sH[(u >> 1) & 1] += (uint64_t)(uint32_t)(p0 >> 32) + (uint32_t)(p1 >> 32);
       }
     };
-#pragma unroll 1
-    for (int u0 = 0; u0 < I; u0 += kChunk) {
-      const bool below = S * (u0 + kChunk) - 1 <= c_min;  // every i <= every c
-      const bool above = S * u0 > c_max;                  // every i > every c
-      if (kLow && above) break;  // nl's zeros from here on
-      uint32_t xv[kChunk];
+    auto load_x = [&](uint32_t (&xv)[kChunk], int u0) {
 #pragma unroll
       for (int q = 0; q < kChunk / 4; ++q) {
         const uint4 v4 = *reinterpret_cast<const uint4*>(xs + u0 + 4 * q);
@@ -1215,17 +1260,44 @@ __device__ __forceinline__ void column_sums(const LadderSmem& sm, const uint32_t
         xv[4 * q + 2] = v4.z;
         xv[4 * q + 3] = v4.w;
       }
-      // a chunk across the warp's diagonal takes both halves, each
-      // against its split operand's zeros
-      if (kLow || !above) add(xv, yl, u0, aL, aH);
-      if (!kLow && !below) add(xv, yh, u0, bL, bH);
+    };
+    // The two halves in two loops over the chunks (one product a source
+    // word and column in each), so no chunk holds both halves' products
+    // in one body. The low half: the chunks some lane's column c takes, a
+    // prefix (x * y, and kLow: i <= c; the square: 2i < c); a chunk
+    // across the warp's diagonal reads yl's zeros for the words i > c
+#pragma unroll 1
+    for (int u0 = 0; u0 < I; u0 += kChunk) {
+      const int i_lo = S * u0, i_hi = S * (u0 + kChunk) - 1;  // the chunk's source words
+      if (kSquare ? 2 * i_lo >= c_max : i_lo > c_max) break;
+      uint32_t xv[kChunk];
+      load_x(xv, u0);
+      if (kSquare && 2 * i_hi >= c_min)  // a mask only where some lane leaves a word out
+        add(xv, yl, u0, aL, aH, IntTag<1>{});
+      else
+        add(xv, yl, u0, aL, aH, IntTag<0>{});
+    }
+    // The high half (not kLow): the chunks some lane's column c + W takes,
+    // a suffix (x * y: i > c; the square: 2i > c + W), from the first
+    // chunk past c_min (2 i_hi > c_min + W); yh's zeros for i <= c
+    if (!kLow) {
+      const int first = kSquare ? (c_min + W + 2) >> (sm.log2S + kChunkLog2 + 1)
+                                : (c_min + 1) >> (sm.log2S + kChunkLog2);
+#pragma unroll 1
+      for (int u0 = first * kChunk; u0 < I; u0 += kChunk) {
+        uint32_t xv[kChunk];
+        load_x(xv, u0);
+        if (kSquare && 2 * S * u0 <= c_max + W)
+          add(xv, yh, u0, bL, bH, IntTag<2>{});
+        else
+          add(xv, yh, u0, bL, bH, IntTag<0>{});
+      }
     }
     // the parts' sums: 0 -> column c, 1 -> c + 1, 2 -> c + W, 3 -> c + W + 1
     // (kLow: 0 and 1). The top bits of s reduce-scatter them (the lanes
     // of each half keep half the values and receive the other half's), the
     // lower bits of s add whole.
-    uint64_t v0 = aL[0] + aL[1] + aL[2] + aL[3], v1 = aH[0] + aH[1] + aH[2] + aH[3];
-    uint64_t v2 = bL[0] + bL[1] + bL[2] + bL[3], v3 = bH[0] + bH[1] + bH[2] + bH[3];
+    uint64_t v0 = aL[0] + aL[1], v1 = aH[0] + aH[1], v2 = bL[0] + bL[1], v3 = bH[0] + bH[1];
     int q = 0, held = kLow ? 2 : 4, scatter = 0;  // held: values from q on
     if (S >= 2) {
       const bool h1 = lane & 16;  // s's top bit
@@ -1257,7 +1329,14 @@ __device__ __forceinline__ void column_sums(const LadderSmem& sm, const uint32_t
       for (int i = 0; i < 4; ++i) {
         if (i < held) {
           const int qi = q + i;
-          ((qi & 1) ? sm.hi : sm.lo)[c + (qi & 1) + (qi >> 1) * W] = held_v[i];
+          uint64_t v = held_v[i];
+          if (kSquare) {  // the doubled sum and the diagonal's half
+            const int col = c + (qi >> 1) * W;
+            const uint32_t xd = col & 1 ? 0u : xp[sm.perm(col >> 1)];
+            const uint64_t d = (uint64_t)xd * xd;
+            v = 2 * v + ((qi & 1) ? d >> 32 : (uint32_t)d);
+          }
+          ((qi & 1) ? sm.hi : sm.lo)[c + (qi & 1) + (qi >> 1) * W] = v;
         }
       }
     }
@@ -1338,10 +1417,13 @@ __device__ __forceinline__ void normalize(int N, const Col& col, uint32_t* bits,
 // then holds U - n R; each thread that owns a word of the result reads
 // that carry from the lookahead and selects by mask.
 template <int NT>
-__device__ __forceinline__ void mont_mul_block(const LadderSmem& sm) {
+__device__ __forceinline__ void mont_mul_block(const LadderSmem& sm, bool square = false) {
   const int W = sm.W;
-  // T = x * y: 2W + 1 columns (word 2W of T is 0)
-  column_sums<false, NT>(sm, sm.xp, sm.yl, sm.yh);
+  // T = x * y: 2W + 1 columns (word 2W of T is 0); square: y = x
+  if (square)
+    column_sums<false, NT, true>(sm, sm.xp, sm.yl, sm.yh);
+  else
+    column_sums<false, NT>(sm, sm.xp, sm.yl, sm.yh);
   __syncthreads();
   normalize<NT, ladder_qmax(NT), 1>(
       2 * W + 1, [&](int c, uint64_t (&v)[1]) { v[0] = sm.lo[c] + sm.hi[c]; }, sm.bits,
@@ -1434,6 +1516,191 @@ cios_comb_ladder_kernel(const int32_t* __restrict__ base, const int32_t* __restr
   for (int i = threadIdx.x; i < words; i += NT) ladder_smem[i] = 0u;
 }
 
+// ---------------------------------------------------------------------------
+// fsdkr_cios_multi_modexp and fsdkr_cios_shared_exp on one block a row,
+// on mont_mul_block (see the note at the top)
+
+// The launch rule, from the joint cells of scripts/cuda_route_sweep.py
+// (PERF.md): one block a row (256 threads at K <= 256, 512 above) for
+// launches of at most kJointBlockRows rows, two blocks a SM on the H100's
+// 132 SMs (ptxas gives the block form 128 registers a thread at 256
+// threads); more rows take one warp a row (0), whose chains, one warp a
+// scheduler, then beat a second wave of blocks
+constexpr int kJointBlockRows = 264;
+
+__host__ __device__ __forceinline__ int joint_block_threads(int K) { return K <= 256 ? 256 : 512; }
+
+__host__ __device__ __forceinline__ int joint_threads(int K, int rows) {
+  return rows > kJointBlockRows ? 0 : joint_block_threads(K);
+}
+
+// A joint block's shared memory in words: LadderSmem, then the T tables
+// of 16 entries of W words (entry e of term t, word j at (16 t + e) W + j:
+// consecutive threads, consecutive banks)
+__host__ __device__ __forceinline__ size_t joint_smem_words(int W, int NT, int terms) {
+  return (size_t)ladder_smem_words(W, NT) + (size_t)terms * 16 * W;
+}
+
+// The most terms a Straus launch at K limbs takes: a row's tables beside
+// LadderSmem within kMaxSmemBytes (16 up to K=256, 12 at K=512, 5 at
+// K=1024; one warp's tables, for the one-warp form, fit more);
+// backend.powm splits longer rows
+int joint_max_terms(int K) {
+  const int W = K / 2;
+  const long long room =
+      (long long)(kMaxSmemBytes / sizeof(uint32_t)) - ladder_smem_words(W, joint_block_threads(K));
+  const long long t = room / (16LL * W);
+  const long long warp = kMaxSmemBytes / multi_warp_smem_bytes(1, words_per_lane(K));
+  const long long cap = t < warp ? t : warp;
+  return cap < kMaxTerms ? (int)cap : kMaxTerms;
+}
+
+// One block's row: each term's 16-entry table (entry 0 the Montgomery one,
+// entry 1 the base by r2, each next one product by entry 1), then the
+// chain of `windows` windows, each four squarings and one product per
+// active term by the entry its digit names, then the exit by a product
+// with 1. Every product is the one mont_mul_block call: it leaves its
+// result in both operands (so a square needs nothing), and a general
+// product first writes its other operand into the split yl / yh. The
+// loop lengths come from the launch's shape alone. base(t): term t's
+// base row; active(wi): the terms 0 .. active - 1 take window wi;
+// digit(t, wi): its 4-bit digit. kPublic: the digits are public (the
+// shared exponent's), and the entry is read at the digit's address;
+// else the entry is the masked sum over all 16, so the digit sets no
+// address and no branch. The block zeroes its shared memory at exit
+// (the tables hold powers of possibly secret bases).
+template <int NT, bool kPublic, class Base, class Active, class Digit>
+__device__ __forceinline__ void joint_row(uint32_t* smem, int K, int terms, int windows,
+                                          const int32_t* __restrict__ n,
+                                          const int32_t* __restrict__ n_inv,
+                                          const int32_t* __restrict__ r2,
+                                          const int32_t* __restrict__ one_mont, const Base& base,
+                                          const Active& active, const Digit& digit,
+                                          int32_t* __restrict__ out) {
+  const int W = K / 2;
+  const LadderSmem sm(smem, W, NT);
+  const int lwords = ladder_smem_words(W, NT);
+  uint32_t* tables = smem + lwords;
+  const int words = lwords + terms * 16 * W;
+  for (int i = threadIdx.x; i < lwords; i += NT) smem[i] = 0u;
+  __syncthreads();
+  for (int j = threadIdx.x; j < W; j += NT) {
+    sm.nnh[kPad + j] = sm.nnl[kPad + W + j] = word_at(n, j);
+    sm.nl[kPad + W + j] = word_at(n_inv, j);
+  }
+  const int table_steps = 15 * terms;
+  int wi = 0, q = 0;  // the chain's window and its product (4 squarings, then the terms)
+  int act = windows > 0 ? active(0) : 0;
+#pragma unroll 1
+  for (int step = 0;; ++step) {
+    const bool last = step >= table_steps && wi == windows;
+    const int t = step / 15, e = step % 15 + 1;  // the tables: term t's entry e
+    const bool square = step >= table_steps && !last && q < 4;
+    const bool select = step >= table_steps && !last && q >= 4;
+    const uint32_t d = select ? digit(q - 4, wi) : 0u;
+    const uint32_t* entries = tables + (size_t)(select ? q - 4 : 0) * 16 * W;
+    // a square finds its operands in place (the last product's result),
+    // but for the chain's first, of the one
+    if (!square || step == table_steps) {
+      for (int j = threadIdx.x; j < W; j += NT) {
+        uint32_t y = 0;
+        if (step < table_steps) {
+          if (e == 1) {
+            sm.xp[sm.perm(j)] = word_at(base(t), j);
+            y = word_at(r2, j);
+          } else {
+            y = tables[(16 * t + 1) * W + j];
+          }
+        } else {
+          if (step == table_steps) {  // the chain's accumulator starts at the one
+            y = word_at(one_mont, j);
+            sm.xp[sm.perm(j)] = y;
+          }
+          if (last) {
+            y = j == 0 ? 1u : 0u;
+          } else if (select) {
+            if (kPublic) {
+              y = entries[d * W + j];
+            } else {
+#pragma unroll
+              for (int en = 0; en < 16; ++en)
+                y |= entries[en * W + j] & (0u - (uint32_t)(d == (uint32_t)en));
+            }
+          }
+        }
+        sm.yh[kPad + j] = sm.yl[kPad + W + j] = y;
+      }
+      __syncthreads();
+    }
+    mont_mul_block<NT>(sm, square);
+    if (step < table_steps) {
+      for (int j = threadIdx.x; j < W; j += NT) {
+        tables[(16 * t + e) * W + j] = sm.yh[kPad + j];
+        if (e == 1) tables[16 * t * W + j] = word_at(one_mont, j);
+      }
+    } else if (last) {
+      for (int j = threadIdx.x; j < W; j += NT) {
+        const uint32_t v = sm.yh[kPad + j];
+        out[2 * j] = (int32_t)(v & 0xFFFFu);
+        out[2 * j + 1] = (int32_t)(v >> 16);
+      }
+      break;
+    } else if (++q == 4 + act) {
+      q = 0;
+      if (++wi < windows) act = active(wi);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < words; i += NT) smem[i] = 0u;
+}
+
+// One block a row. Term t's digits fill the chain's last exp_bits[t] / 4
+// windows, so window wi's digit of every active term sits at bit 4 (w -
+// 1 - wi) of its exponent; the widths are the launch's shape, so every
+// row takes the same terms in the same windows. At most 128 registers a
+// thread, so two blocks a SM at 256 threads (a form that took 174 ran one
+// block a SM, 1.48x slower on the H100 80GB HBM3 at 700 W; PERF.md)
+template <int NT>
+__global__ void __launch_bounds__(NT, 512 / NT)
+cios_multi_modexp_kernel(const __grid_constant__ MultiArgs a) {
+  extern __shared__ __align__(16) uint32_t joint_smem[];
+  const int row = blockIdx.x;
+  const size_t off = (size_t)row * a.K, plane = (size_t)a.rows * a.K;
+  const int windows = a.exp_bits[0] / 4;
+  joint_row<NT, false>(
+      joint_smem, a.K, a.terms, windows, a.n + off, a.n_inv + off, a.r2 + off,
+      a.one_mont + off, [&](int t) { return a.bases + t * plane + off; },
+      [&](int wi) {
+        const int shift = 4 * (windows - 1 - wi);
+        int c = 0;
+        for (int t = 0; t < a.terms; ++t) c += a.exp_bits[t] > shift;
+        return c;
+      },
+      [&](int t, int wi) {
+        const int shift = 4 * (windows - 1 - wi);
+        const int32_t* erow = a.exps + ((size_t)t * a.rows + row) * a.exp_limbs;
+        return ((uint32_t)erow[shift >> 4] >> (shift & 15)) & 15u;
+      },
+      a.out + off);
+}
+
+// One block a (segment, row), the segments' blocks in the table's order.
+// The digits derive from the receiver's public Paillier modulus, so the
+// window's entry is read at the digit's address
+template <int NT>
+__global__ void __launch_bounds__(NT, 512 / NT)
+cios_shared_exp_kernel(const __grid_constant__ SharedExpTable tab) {
+  extern __shared__ __align__(16) uint32_t joint_smem[];
+  int i = 0;
+  while (i + 1 < tab.count && tab.seg[i + 1].first_block <= (int)blockIdx.x) ++i;
+  const SharedExpSegment& sg = tab.seg[i];
+  const size_t off = (size_t)((int)blockIdx.x - sg.first_block) * sg.K;
+  joint_row<NT, true>(
+      joint_smem, sg.K, 1, sg.windows, sg.n, sg.n_inv, sg.r2, sg.one_mont,
+      [&](int) { return sg.base + off; }, [](int) { return 1; },
+      [&](int, int wi) { return (uint32_t)sg.digits[wi] & 15u; }, sg.out + off);
+}
+
 size_t modexp_smem(int P) { return (size_t)kWarps * 16 * P * 32 * sizeof(uint32_t); }
 
 template <int P>
@@ -1458,29 +1725,55 @@ int launch_modexp(const ModexpTable& tab, int blocks, cudaStream_t stream) {
 }
 
 template <int P>
-int launch_multi_modexp(MultiArgs a, cudaStream_t stream) {
+int launch_multi_modexp_warp(MultiArgs a, cudaStream_t stream) {
   const size_t per_warp = multi_warp_smem_bytes(a.terms, P);
   if (per_warp > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
   a.warps = (int)(kMaxSmemBytes / per_warp < (size_t)kWarps ? kMaxSmemBytes / per_warp : kWarps);
   const size_t smem = per_warp * a.warps;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        cios_multi_modexp_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        cios_multi_modexp_kernel_warp<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  cios_multi_modexp_kernel<P><<<(a.rows + a.warps - 1) / a.warps, a.warps * 32, smem, stream>>>(a);
+  cios_multi_modexp_kernel_warp<P><<<(a.rows + a.warps - 1) / a.warps, a.warps * 32, smem,
+                                     stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int NT>
+int launch_multi_modexp(const MultiArgs& a, cudaStream_t stream) {
+  const size_t smem = joint_smem_words(a.K / 2, NT, a.terms) * sizeof(uint32_t);
+  if (smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        cios_multi_modexp_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cios_multi_modexp_kernel<NT><<<a.rows, NT, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <int PMAX>
-int launch_shared_exp(const SharedExpTable& tab, int blocks, cudaStream_t stream) {
+int launch_shared_exp_warp(const SharedExpTable& tab, int blocks, cudaStream_t stream) {
   const size_t smem = modexp_smem(PMAX);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        cios_shared_exp_kernel<PMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        cios_shared_exp_kernel_warp<PMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  cios_shared_exp_kernel<PMAX><<<blocks, kWarps * 32, smem, stream>>>(tab);
+  cios_shared_exp_kernel_warp<PMAX><<<blocks, kWarps * 32, smem, stream>>>(tab);
+  return (int)cudaGetLastError();
+}
+
+template <int NT>
+int launch_shared_exp(const SharedExpTable& tab, int blocks, int kmax, cudaStream_t stream) {
+  const size_t smem = joint_smem_words(kmax / 2, NT, 1) * sizeof(uint32_t);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        cios_shared_exp_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cios_shared_exp_kernel<NT><<<blocks, NT, smem, stream>>>(tab);
   return (int)cudaGetLastError();
 }
 
@@ -1672,13 +1965,17 @@ extern "C" int fsdkr_cios_modexp(const int64_t* segments, int count, void* strea
 }
 
 // bases (terms, rows, K), exps (terms, rows, exp_limbs), exp_bits[terms]
-// descending multiples of 4; n, n_inv, r2, one_mont, out (rows, K)
-extern "C" int fsdkr_cios_multi_modexp(const void* bases, const void* exps, int exp_limbs,
-                                       const int* exp_bits, int terms, const void* n,
-                                       const void* n_inv, const void* r2,
-                                       const void* one_mont, int rows, int K, void* out,
-                                       void* stream) {
-  if (bad_shape(rows, K) || terms < 1 || terms > kMaxTerms || exp_limbs < 1)
+// descending multiples of 4; n, n_inv, r2, one_mont, out (rows, K). At
+// `threads` threads a block (256 or 512: one block a row; 0: one warp a
+// row); fsdkr_cios_multi_modexp takes joint_threads(K, rows). More terms
+// than joint_max_terms(K) are refused.
+extern "C" int fsdkr_cios_multi_modexp_threads(int threads, const void* bases, const void* exps,
+                                               int exp_limbs, const int* exp_bits, int terms,
+                                               const void* n, const void* n_inv, const void* r2,
+                                               const void* one_mont, int rows, int K, void* out,
+                                               void* stream) {
+  if (bad_shape(rows, K) || terms < 1 || terms > joint_max_terms(K) || exp_limbs < 1 ||
+      (threads != 0 && threads != 256 && threads != 512))
     return (int)cudaErrorInvalidValue;
   MultiArgs a = {(const int32_t*)bases, (const int32_t*)exps, (const int32_t*)n,
                  (const int32_t*)n_inv, (const int32_t*)r2, (const int32_t*)one_mont,
@@ -1690,19 +1987,37 @@ extern "C" int fsdkr_cios_multi_modexp(const void* bases, const void* exps, int 
       return (int)cudaErrorInvalidValue;
   }
   if (rows == 0) return 0;
-#define CALL(P) launch_multi_modexp<P>(a, (cudaStream_t)stream)
-  FSDKR_CIOS_DISPATCH(K, CALL)
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (threads == 0) {
+#define CALL(P) launch_multi_modexp_warp<P>(a, s)
+    FSDKR_CIOS_DISPATCH(K, CALL)
 #undef CALL
+  }
+  return threads == 256 ? launch_multi_modexp<256>(a, s) : launch_multi_modexp<512>(a, s);
+}
+
+extern "C" int fsdkr_cios_multi_modexp(const void* bases, const void* exps, int exp_limbs,
+                                       const int* exp_bits, int terms, const void* n,
+                                       const void* n_inv, const void* r2,
+                                       const void* one_mont, int rows, int K, void* out,
+                                       void* stream) {
+  return fsdkr_cios_multi_modexp_threads(bad_shape(rows, K) ? -1 : joint_threads(K, rows), bases,
+                                         exps, exp_limbs, exp_bits, terms, n, n_inv, r2, one_mont,
+                                         rows, K, out, stream);
 }
 
 // segments: `count` rows of kSharedExpWords int64 words, (base, digits, n,
 // n_inv, r2, one_mont, out, rows, K, windows), in any order; the longest
-// chains' blocks come first
-extern "C" int fsdkr_cios_shared_exp(const int64_t* segments, int count, void* stream) {
-  if (count < 1 || count > kMaxSegments) return (int)cudaErrorInvalidValue;
+// chains' blocks first. At `threads` threads a block (256 or 512: one
+// block a row; 0: one warp a row); fsdkr_cios_shared_exp takes
+// joint_threads of the widest K and all the segments' rows.
+extern "C" int fsdkr_cios_shared_exp_threads(int threads, const int64_t* segments, int count,
+                                             void* stream) {
+  if (count < 1 || count > kMaxSegments || (threads != 0 && threads != 256 && threads != 512))
+    return (int)cudaErrorInvalidValue;
   SharedExpTable tab = {};
   long long chain[kMaxSegments];
-  int pmax = 1;
+  int kmax = 2;
   for (int i = 0; i < count; ++i) {
     const int64_t* w = segments + (size_t)i * kSharedExpWords;
     SharedExpSegment sg = {(const int32_t*)w[0], (const int32_t*)w[1], (const int32_t*)w[2],
@@ -1719,28 +2034,55 @@ extern "C" int fsdkr_cios_shared_exp(const int64_t* segments, int count, void* s
     }
     tab.seg[j] = sg;
     chain[j] = c;
-    if (sg.rows > 0 && words_per_lane(sg.K) > pmax) pmax = words_per_lane(sg.K);
+    if (sg.rows > 0 && sg.K > kmax) kmax = sg.K;
   }
+  const int per_block = threads == 0 ? kWarps : 1;  // rows a block
   long long blocks = 0;
   int kept = 0;
   for (int i = 0; i < count; ++i) {
     if (tab.seg[i].rows == 0) continue;
     tab.seg[kept] = tab.seg[i];
     tab.seg[kept].first_block = (int)blocks;
-    blocks += (tab.seg[i].rows + kWarps - 1) / kWarps;
+    blocks += (tab.seg[i].rows + per_block - 1) / per_block;
     ++kept;
   }
   tab.count = kept;
   if (blocks == 0) return 0;
   if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (pmax) {
-    case 1: return launch_shared_exp<1>(tab, (int)blocks, s);
-    case 2: return launch_shared_exp<2>(tab, (int)blocks, s);
-    case 4: return launch_shared_exp<4>(tab, (int)blocks, s);
-    case 8: return launch_shared_exp<8>(tab, (int)blocks, s);
-    default: return launch_shared_exp<16>(tab, (int)blocks, s);
+  if (threads == 0) {
+    switch (words_per_lane(kmax)) {
+      case 1: return launch_shared_exp_warp<1>(tab, (int)blocks, s);
+      case 2: return launch_shared_exp_warp<2>(tab, (int)blocks, s);
+      case 4: return launch_shared_exp_warp<4>(tab, (int)blocks, s);
+      case 8: return launch_shared_exp_warp<8>(tab, (int)blocks, s);
+      default: return launch_shared_exp_warp<16>(tab, (int)blocks, s);
+    }
   }
+  return threads == 256 ? launch_shared_exp<256>(tab, (int)blocks, kmax, s)
+                        : launch_shared_exp<512>(tab, (int)blocks, kmax, s);
+}
+
+extern "C" int fsdkr_cios_shared_exp(const int64_t* segments, int count, void* stream) {
+  int kmax = 2;
+  long long rows = 0;
+  for (int i = 0; i < count && i < kMaxSegments; ++i) {
+    const int64_t* w = segments + (size_t)i * kSharedExpWords;
+    if (w[7] > 0 && w[8] > kmax && w[8] <= 1024) kmax = (int)w[8];
+    if (w[7] > 0) rows += w[7];
+  }
+  return fsdkr_cios_shared_exp_threads(
+      joint_threads(kmax, rows > 0x7FFFFFFF ? 0x7FFFFFFF : (int)rows), segments, count, stream);
+}
+
+// the joint kernels' launch rule at K limbs and `rows` rows (a launch's,
+// all its segments'): threads a block (0: one warp a row), and the most
+// terms a Straus launch takes
+extern "C" int fsdkr_cios_joint_rule(int K, int rows, int* threads, int* max_terms) {
+  if (bad_shape(rows, K)) return (int)cudaErrorInvalidValue;
+  *threads = joint_threads(K, rows);
+  *max_terms = joint_max_terms(K);
+  return 0;
 }
 
 // the comb at `lanes` lanes a row (8, 16 or 32); fsdkr_cios_comb takes

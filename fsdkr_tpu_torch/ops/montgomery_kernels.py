@@ -31,12 +31,15 @@ C++ for sm_90a; its header comment gives the design):
 `multi_modexp` — the joint (Straus) product prod_t base_t^exp_t mod n
     per row of `_multi_modexp_kernel` (:450): T window tables, one shared
     chain of four squarings and one masked table product per active term
-    a window. One warp a row; as many warps a block as the tables let a
-    block hold (`multi_modexp_max_terms`).
+    a window. One block a row on the ladder's block product, the tables
+    in its shared memory (`multi_modexp_max_terms`), at the rule's
+    threads a block; launches of more rows than the rule's take one warp
+    a row on the CIOS product (`joint_rule`).
 `shared_exp_segments` — base^E mod n per row for one shared public
     exponent E a segment, given as its 4-bit digits (`_shared_exp_kernel`,
     :183), each segment with its own modulus, over several segments in one
-    launch as `modexp_segments` takes them.
+    launch as `modexp_segments` takes them; on the same row bodies and
+    rule as `multi_modexp`.
 
 Tensors crossing the kernel boundary are int32 (rows, K) of canonical
 16-bit limbs, K even (R = 2^(16K) on a 32-bit word), 2 <= K <= 1024;
@@ -71,8 +74,11 @@ __all__ = [
     "rows_rule",
     "ladder_rule",
     "multi_modexp",
+    "multi_modexp_at_threads",
     "multi_modexp_max_terms",
+    "joint_rule",
     "shared_exp_segments",
+    "shared_exp_at_threads",
     "launch_counts",
     "reset_launch_counts",
     "load_library",
@@ -129,6 +135,13 @@ def load_library() -> ctypes.CDLL:
     lib.fsdkr_cios_multi_modexp.restype = i
     lib.fsdkr_cios_shared_exp.argtypes = [ctypes.POINTER(ctypes.c_int64), i, p]
     lib.fsdkr_cios_shared_exp.restype = i
+    lib.fsdkr_cios_multi_modexp_threads.argtypes = [i, p, p, i, ctypes.POINTER(i), i, p, p, p,
+                                                    p, i, i, p, p]
+    lib.fsdkr_cios_multi_modexp_threads.restype = i
+    lib.fsdkr_cios_shared_exp_threads.argtypes = [i, ctypes.POINTER(ctypes.c_int64), i, p]
+    lib.fsdkr_cios_shared_exp_threads.restype = i
+    lib.fsdkr_cios_joint_rule.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+    lib.fsdkr_cios_joint_rule.restype = i
     _LIB = lib
     return lib
 
@@ -397,20 +410,57 @@ def _ladder(threads, base, n, n_inv, r2, w_cnt):
     return out
 
 
-def _words_per_lane(k: int) -> int:
-    """P of the one-warp product at K limbs (csrc: words_per_lane)."""
-    p = 1
-    while 32 * p < k // 2:
-        p *= 2
-    return p
+# the ladder's block product, as csrc lays out its shared memory
+# (ladder_parts, ladder_part_words, ladder_smem_words): the joint kernels'
+# term cap follows from it
+_CHUNK, _PAD = 8, 256
+
+
+def _ladder_smem_words(w: int, threads: int) -> int:
+    s = 1
+    while 2 * s <= 32 and 2 * s <= w and 2 * s * w <= threads:
+        s *= 2
+    i = (-(-w // s) + _CHUNK - 1) // _CHUNK * _CHUNK
+    return 8 * (w + 1) + 3 * s * (i + 4) + 5 * (_PAD + 2 * w) + (2 * w + 4) + 128
+
+
+JOINT_BLOCK_ROWS = 264  # csrc: kJointBlockRows, two blocks a SM on the H100's 132 SMs
+
+
+def _joint_block_threads(k: int) -> int:
+    """The block form's threads at K limbs (csrc: joint_block_threads)."""
+    return 256 if k <= 256 else 512
+
+
+def _joint_threads(k: int, rows: int) -> int:
+    """The joint kernels' threads a block at K limbs and `rows` rows, 0 for
+    one warp a row (csrc: joint_threads)."""
+    return 0 if rows > JOINT_BLOCK_ROWS else _joint_block_threads(k)
 
 
 def multi_modexp_max_terms(k: int) -> int:
-    """The most terms a `multi_modexp` launch at K limbs takes: one warp's
-    16-entry tables, 16 * 32P words a term, must fit a block's shared
-    memory (csrc: launch_multi_modexp refuses more). 16 up to K=256, 14
-    at K=512, 7 at K=1024."""
-    return min(MAX_TERMS, MAX_SMEM_BYTES // (16 * 32 * 4 * _words_per_lane(k)))
+    """The most terms a `multi_modexp` launch at K limbs takes: a row's
+    16-entry tables, 16 * K/2 words a term, beside the block product's own
+    shared memory, must fit a block's opt-in shared memory, and so must
+    one warp's tables in the one-warp form (csrc: joint_max_terms; the
+    library refuses more). 16 up to K=256, 12 at K=512, 5 at K=1024."""
+    w = k // 2
+    room = MAX_SMEM_BYTES // 4 - _ladder_smem_words(w, _joint_block_threads(k))
+    p = 1
+    while 32 * p < w:
+        p *= 2
+    return min(MAX_TERMS, room // (16 * w), MAX_SMEM_BYTES // (16 * 32 * 4 * p))
+
+
+def joint_rule(k: int, rows: int):
+    """The joint kernels' launch rule at K limbs and `rows` rows (a
+    launch's, all its segments'), as the library holds it: (threads a
+    block, 0 for one warp a row; the most terms a `multi_modexp` launch
+    takes)."""
+    out = [ctypes.c_int() for _ in range(2)]
+    if load_library().fsdkr_cios_joint_rule(k, rows, *map(ctypes.byref, out)):
+        raise ValueError(f"no joint launch rule at K={k}, {rows} rows")
+    return tuple(v.value for v in out)
 
 
 def multi_modexp(bases, exps, n, n_inv, r2, one_mont, exp_bits_seq) -> torch.Tensor:
@@ -419,7 +469,20 @@ def multi_modexp(bases, exps, n, n_inv, r2, one_mont, exp_bits_seq) -> torch.Ten
     n, n_inv, r2, one_mont: (rows, K); exp_bits_seq: each term's loop
     width, a multiple of 4, descending (term t's digits fill the chain's
     last exp_bits_seq[t] / 4 windows). Returns (rows, K). On the card one
-    warp a row; a shape whose tables do not fit a block raises."""
+    block a row, or one warp a row past the rule's rows (`joint_rule`);
+    more terms than `multi_modexp_max_terms` raises."""
+    return _multi_modexp(None, bases, exps, n, n_inv, r2, one_mont, exp_bits_seq)
+
+
+def multi_modexp_at_threads(threads: int, bases, exps, n, n_inv, r2, one_mont,
+                            exp_bits_seq) -> torch.Tensor:
+    """`multi_modexp` at 256 or 512 threads a block, or one warp a row (0),
+    named here, not by the launch rule: for the sweep's joint cells; the
+    engine calls `multi_modexp`."""
+    return _multi_modexp(threads, bases, exps, n, n_inv, r2, one_mont, exp_bits_seq)
+
+
+def _multi_modexp(threads, bases, exps, n, n_inv, r2, one_mont, exp_bits_seq):
     if bases.dim() != 3:
         raise ValueError(f"bases has shape {tuple(bases.shape)}, expected (T, rows, K)")
     t_cnt, rows, k = bases.shape
@@ -442,13 +505,15 @@ def multi_modexp(bases, exps, n, n_inv, r2, one_mont, exp_bits_seq) -> torch.Ten
         return _multi_modexp_kernel(bases, exps, n, n_inv, r2, one_mont,
                                     exp_bits_seq=eb).to(torch.int32)
     if t_cnt > multi_modexp_max_terms(k):
-        raise ValueError(f"{t_cnt} terms at K={k}: one warp's tables would not fit a block "
+        raise ValueError(f"{t_cnt} terms at K={k}: the tables would not fit a block "
                          f"(at most {multi_modexp_max_terms(k)})")
     out = torch.empty_like(n)
     widths = (ctypes.c_int * t_cnt)(*eb)
-    err = load_library().fsdkr_cios_multi_modexp(
-        bases.data_ptr(), exps.data_ptr(), el, widths, t_cnt, n.data_ptr(), n_inv.data_ptr(),
-        r2.data_ptr(), one_mont.data_ptr(), rows, k, out.data_ptr(), _stream(device))
+    lib = load_library()
+    args = (bases.data_ptr(), exps.data_ptr(), el, widths, t_cnt, n.data_ptr(), n_inv.data_ptr(),
+            r2.data_ptr(), one_mont.data_ptr(), rows, k, out.data_ptr(), _stream(device))
+    err = lib.fsdkr_cios_multi_modexp(*args) if threads is None else \
+        lib.fsdkr_cios_multi_modexp_threads(threads, *args)
     if err:
         raise RuntimeError(f"fsdkr_cios_multi_modexp launch failed: CUDA error {err}")
     _count(multi_modexp, (k, rows, eb))
@@ -462,8 +527,20 @@ def shared_exp_segments(segments) -> List[torch.Tensor]:
     E's 4-bit window digits most significant first
     (`ops.montgomery.exp_digits`); n, n_inv, r2, one_mont (1, K), the
     segment's modulus. At most MAX_SEGMENTS, all on one device. Returns
-    each segment's (rows, K) result. On the CPU, the plain version per
-    segment."""
+    each segment's (rows, K) result. On the card one block a row, or one
+    warp a row past the rule's rows (`joint_rule`); on the CPU, the plain
+    version per segment."""
+    return _shared_exp(None, segments)
+
+
+def shared_exp_at_threads(threads: int, segments) -> List[torch.Tensor]:
+    """`shared_exp_segments` at 256 or 512 threads a block, or one warp a
+    row (0), named here, not by the launch rule: for the sweep's joint
+    cells; the engine calls `shared_exp_segments`."""
+    return _shared_exp(threads, segments)
+
+
+def _shared_exp(threads, segments):
     if not segments or len(segments) > MAX_SEGMENTS:
         raise ValueError(f"{len(segments)} segments: a launch takes 1..{MAX_SEGMENTS}")
     device = None
@@ -494,7 +571,9 @@ def shared_exp_segments(segments) -> List[torch.Tensor]:
             one_mont.data_ptr(), out.data_ptr(), base.shape[0], base.shape[1],
             digits.shape[0],
         ]
-    err = load_library().fsdkr_cios_shared_exp(table, len(segments), _stream(device))
+    lib = load_library()
+    err = lib.fsdkr_cios_shared_exp(table, len(segments), _stream(device)) if threads is None \
+        else lib.fsdkr_cios_shared_exp_threads(threads, table, len(segments), _stream(device))
     if err:
         raise RuntimeError(f"fsdkr_cios_shared_exp launch failed: CUDA error {err}")
     _count(shared_exp_segments, tuple((seg[0].shape[1], seg[0].shape[0],

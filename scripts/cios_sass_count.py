@@ -40,6 +40,17 @@ instruction a cycle.
 no loop inside) of the named kernels, shuffles or not, with its
 instructions by class and per `IMAD.WIDE` (for the block ladder's
 column-sum loops: one `IMAD.WIDE` a word product).
+
+The joint kernels (`cios_multi_modexp_kernel`, `cios_shared_exp_kernel`)
+are named by default too. A one-warp form (template argument P, words a
+lane) gets its step count and its SASS per product at K = 64P (W = 32P
+steps a product). A block form (template argument NT, threads a block,
+on the ladder's block product) gets every innermost loop as
+`--all-loops` prints it, and its column sums' SASS per product at K=256:
+the column-sum loops' (8 or more `IMAD.WIDE`) instructions per
+`IMAD.WIDE` times the 2.5 W^2 word products a product does (W^2 for x y,
+W^2 / 2 for the digit, W^2 for m n), over 32 lanes: warp instructions,
+the normalisations and barriers not counted.
 """
 
 from __future__ import annotations
@@ -53,6 +64,8 @@ import sys
 from pathlib import Path
 
 SCHEDULERS = 132 * 4  # H100 SXM: 132 SMs, 4 schedulers each
+JOINT = ("cios_multi_modexp_kernel", "cios_shared_exp_kernel")
+BLOCK_K = 256  # the joint kernels' main-path width (the collect's 2048-bit rows)
 # cios_comb on the main path: groups x rows, products a row, steps a product
 MAIN_ROW_STEPS = 16 * 256 * (2048 // 4 + 1) * (128 // 2)
 # the ladder on the main path: products along a group's chain, steps a product
@@ -143,6 +156,35 @@ def max_sm_clock_hz():
         return None
 
 
+def block_product(name, items, dump):
+    """A block form's innermost loops, and its column sums' warp
+    instructions a product at K=BLOCK_K (module docstring)."""
+    loops, col, wides = [], 0, 0
+    for body in step_loops(items, any_loop=True):
+        counts, ops = {}, {}
+        for op, _ in body:
+            counts[classify(op)] = counts.get(classify(op), 0) + 1
+            ops[op] = ops.get(op, 0) + 1
+        wide = sum(c for op, c in ops.items() if op.startswith("IMAD.WIDE"))
+        loops.append({"body": len(body), "counts": counts, "imad_wide": wide,
+                      **({"sass": [f"{op}{rest}" for op, rest in body]} if dump else {})})
+        if wide >= 8:
+            col += len(body)
+            wides += wide
+        print(f"{name}: innermost loop of {len(body)} instructions ("
+              + ", ".join(f"{c} {v}" for c, v in sorted(counts.items())) + ")"
+              + (f", {len(body) / wide:.2f} a product over its {wide} IMAD.WIDE"
+                 if wide else ""), flush=True)
+    w = BLOCK_K // 2
+    per_wide = col / wides if wides else None
+    per_product = per_wide * 2.5 * w * w / 32 if per_wide else None
+    print(f"{name}: column-sum loops {col} instructions over {wides} IMAD.WIDE"
+          + (f" ({per_wide:.2f} each): about {per_product:.0f} warp instructions of column "
+             f"sums a product at K={BLOCK_K}" if per_wide else ""), flush=True)
+    return {"kernel": name, "block": True, "loops": loops, "column_sum_per_wide": per_wide,
+            "column_sum_warp_insns_per_product": per_product, "per_product_k": BLOCK_K}
+
+
 def main():
     here = Path(__file__).resolve().parent.parent
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -156,7 +198,8 @@ def main():
     ap.add_argument("--dump", action="store_true",
                     help="also write each step loop's SASS text to the JSON file")
     args = ap.parse_args()
-    kernels = args.kernel or ["cios_comb_kernel", "cios_mont_mul", "cios_comb_ladder_kernel"]
+    kernels = args.kernel or ["cios_comb_kernel", "cios_mont_mul", "cios_comb_ladder_kernel",
+                              *JOINT]
     sys.path.insert(0, str(here))
     from fsdkr_tpu_torch.ops.nvcc_build import build_library
 
@@ -175,7 +218,11 @@ def main():
         ints = template_ints(name)
         p = ints[-1] if ints else 1
         lanes = ints[0] if len(ints) == 2 else 32
-        for body in step_loops(items):
+        joint = any(k in name for k in JOINT)
+        block = joint and p >= 128  # a block form: the template argument is NT
+        if block:
+            rows.append(block_product(name, items, args.dump))
+        for body in () if block else step_loops(items):
             counts = {}
             for op, _ in body:
                 counts[classify(op)] = counts.get(classify(op), 0) + 1
@@ -191,7 +238,12 @@ def main():
             if args.dump:
                 row["sass"] = [f"{op}{rest}" for op, rest in body]
             ladder = "cios_comb_ladder_kernel" in name
-            if clock and ladder:
+            if joint:
+                row["per_product_k"] = 64 * p
+                row["per_product"] = total * 32 * p
+                bound = (f"; a product at K={64 * p} ({32 * p} steps): "
+                         f"{row['per_product']:.0f} warp instructions")
+            elif clock and ladder:
                 row["ladder_main_issue_ms"] = LADDER_STEPS * total / clock * 1e3
                 bound = (f"; ladder main-path chain at one warp a scheduler "
                          f"{row['ladder_main_issue_ms']:.3f} ms at 1 instruction a cycle")
@@ -212,7 +264,7 @@ def main():
             print("  opcodes: " + ", ".join(f"{op} {c}" for op, c in
                                             sorted(ops.items(), key=lambda kv: -kv[1])),
                   flush=True)
-        for body in step_loops(items, any_loop=True) if args.all_loops else ():
+        for body in step_loops(items, any_loop=True) if args.all_loops and not block else ():
             counts, ops = {}, {}
             for op, _ in body:
                 counts[classify(op)] = counts.get(classify(op), 0) + 1

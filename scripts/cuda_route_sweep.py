@@ -59,6 +59,19 @@ a block
 launch rule's: device time per launch as above, and us per product of
 the chain (1 + 4(W - 1) products). The ladder's launch rule
 (ladder_threads) is read off this table.
+
+`joint` cells: the joint path's kernels at its main-path shapes one
+warp a row and at 256 and 512 threads a block
+(`multi_modexp_at_threads`, `shared_exp_at_threads`):
+`cios_multi_modexp` at (K, rows, widths) (256, 256, (2048, 256)), (128,
+512, (2560, 256)) and (128, 512, (3072, 768)), `cios_shared_exp` over 16
+segments of (K=256, 16 rows, 2048-bit exponent); and `cios_multi_modexp`
+at widths (2048, 256), K=128 and 256, on 132, 264, 265 and 512 rows, one
+warp a row and 256 threads a block (the rows crossover); results equal
+to each other and to the launch rule's: device time per launch as
+above, and us per product of a row's chain. The joint kernels' launch
+rule (joint_threads: threads a block, and the rows past which one warp a
+row) is read off this table.
 """
 
 from __future__ import annotations
@@ -384,18 +397,80 @@ def ladder_cells(dev, rng, reps, widths=LADDER_WIDTHS, groups=16, exp_bits=2048)
     return table_rows
 
 
+JOINT_THREADS = (0, 256, 512)  # 0: one warp a row
+JOINT_MULTI = ((256, 256, (2048, 256)), (128, 512, (2560, 256)), (128, 512, (3072, 768)))
+JOINT_SHARED = ((256, 16, 2048),) * 16
+# the rows crossover: one warp a row against one block a row (256 threads)
+JOINT_ROWS = (132, 264, 265, 512)
+JOINT_ROWS_WIDTHS = (2048, 256)
+
+
+def joint_cells(dev, rng, reps):
+    """The joint kernels at each layout, at the main path's shapes, and
+    the Straus kernel on both sides of the rule's rows at K=128 and 256."""
+    import torch
+
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as cs
+    from fsdkr_tpu_torch.ops import montgomery_kernels as mk
+
+    def multi_at(args, widths):
+        return lambda t: (lambda: mk.multi_modexp(*args, widths)) if t is None else (
+            lambda: mk.multi_modexp_at_threads(t, *args, widths))
+
+    def multi_case(k, rows, widths, layouts):
+        args = cs.multi_inputs(rng, dev, k, rows, widths, rows // 2)
+        products = 15 * len(widths) + widths[0] + sum(widths) // 4 + 1
+        return ("cios_multi_modexp", k, rows, {"k": k, "rows": rows, "widths": list(widths)},
+                products, multi_at(args, widths), layouts)
+
+    cases = [multi_case(k, rows, widths, JOINT_THREADS) for k, rows, widths in JOINT_MULTI]
+    segs = cs.shared_exp_inputs(dev, rng, JOINT_SHARED)
+    cases.append(("cios_shared_exp", 256, sum(r for _, r, _ in JOINT_SHARED),
+                  {"segments": [list(s) for s in JOINT_SHARED]}, 16 + 5 * 2048 // 4,
+                  lambda t: (lambda: mk.shared_exp_segments(segs)) if t is None else (
+                      lambda: mk.shared_exp_at_threads(t, segs)), JOINT_THREADS))
+    cases += [multi_case(k, rows, JOINT_ROWS_WIDTHS, (0, 256)) for k in (128, 256)
+              for rows in JOINT_ROWS]
+    table_rows = []
+    for kernel, k, rows, fields, products, at, layouts in cases:
+        want = at(None)()
+        rule = mk.joint_rule(k, rows)[0]
+        cells = []
+        for threads in layouts:
+            call = at(threads)
+            got = call()
+            same = (all(torch.equal(g, w) for g, w in zip(got, want)) if isinstance(got, list)
+                    else torch.equal(got, want))
+            if not same:
+                sys.exit(f"cuda_route_sweep: {kernel} at {threads} threads differs from the "
+                         f"rule's at {fields}")
+            ms = kernel_ms(call, reps, kernel + "_kernel")
+            row = {"cell": "joint", "kernel": kernel, **fields, "threads": threads,
+                   "rule": threads == rule, "device_ms": ms,
+                   "us_per_product": ms * 1e3 / products}
+            cells.append(row)
+            print(json.dumps(row), flush=True)
+        table_rows += cells
+        best = min(cells, key=lambda r: r["device_ms"])
+        print(f"joint: {kernel} {fields}: fastest at {best['threads']} threads a block "
+              f"(0: one warp a row; {best['device_ms']:.4f} ms); the launch rule takes {rule}",
+              flush=True)
+    return table_rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the table to this JSON file")
     ap.add_argument("--seed", type=int, default=6)
-    ap.add_argument("--cells", default="rns,comb,lanes,mont_mul,ladder",
-                    help="comma-separated subset of rns,comb,lanes,mont_mul,ladder "
+    ap.add_argument("--cells", default="rns,comb,lanes,mont_mul,ladder,joint",
+                    help="comma-separated subset of rns,comb,lanes,mont_mul,ladder,joint "
                          "(default: all)")
     ap.add_argument("--rows", default=",".join(map(str, ROWS)),
                     help="comma-separated row counts of the rns cells (default: 8 .. 16384)")
     ap.add_argument("--reps", type=int, default=3,
                     help="timed calls per comb cell and way, profiler windows per lanes "
-                         "mont_mul and ladder cell (default 3)")
+                         "mont_mul, ladder and joint cell (default 3)")
     ap.add_argument("--mont-mul-rows", default=",".join(map(str, MONT_MUL_ROWS)),
                     help="comma-separated row counts of the mont_mul cells "
                          "(default: 256, 1024, 4096, 8192, 57344)")
@@ -407,7 +482,7 @@ def main():
     args = ap.parse_args()
     row_counts = [int(r) for r in args.rows.split(",") if r]
     cells = [c for c in args.cells.split(",") if c]
-    if any(c not in ("rns", "comb", "lanes", "mont_mul", "ladder") for c in cells):
+    if any(c not in ("rns", "comb", "lanes", "mont_mul", "ladder", "joint") for c in cells):
         sys.exit(f"cuda_route_sweep: unknown cells in {cells}")
 
     import torch
@@ -465,11 +540,12 @@ def main():
     ladder_widths = [int(k) for k in args.ladder_widths.split(",") if k]
     ladder = (ladder_cells(dev, rng, args.reps, widths=ladder_widths) if "ladder" in cells
               else [])
+    joint = joint_cells(dev, rng, args.reps) if "joint" in cells else []
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump({"device": smi, "rows": table, "comb": comb, "lanes": lanes,
-                       "mont_mul": mont, "ladder": ladder}, fh, indent=1)
+                       "mont_mul": mont, "ladder": ladder, "joint": joint}, fh, indent=1)
     print(smi, flush=True)
 
 

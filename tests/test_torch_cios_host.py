@@ -1,7 +1,8 @@
 """The joint path's CUDA kernels (`fsdkr_tpu_torch/csrc/cios_kernels.cu`:
-`fsdkr_cios_multi_modexp`, `fsdkr_cios_shared_exp`), compiled for the
-CPU and run against their plain versions (ops.montgomery
-`_multi_modexp_kernel`, `_shared_exp_kernel`), bit for bit.
+`fsdkr_cios_multi_modexp`, `fsdkr_cios_shared_exp`) and the ladder on
+the same block product, compiled for the CPU and run against their
+plain versions (ops.montgomery `_multi_modexp_kernel`,
+`_shared_exp_kernel`, `_comb_ladder`), bit for bit.
 
 `tests/host_cuda/cuda_host.h` and `cios_host.h` stand in for the CUDA
 runtime: a block's threads are fibers on one host thread, run in turns
@@ -10,12 +11,16 @@ launch runs its blocks one after another. The source is compiled as it
 is, apart from the include, the launch syntax, the dynamic shared
 memory (a function static), the sub-warp product's wide multiply (in C)
 and the comb kernels' cp.async copies (cut: those kernels do not run
-here). So the kernels' own code runs: the warp
-product `mont_mul<P>` with its shuffles and ballot lookahead, the T
-window tables in one warp's shared memory, the active-term schedule of
-the Straus chain, the digit-indexed table of the shared-exponent
-kernel, the segment table and its per-segment word counts, a partly
-filled last block, the launch's argument checks and the term cap. What
+here). So the kernels' own code runs at the launch rule's threads a
+block: one block a row on the ladder's block product `mont_mul_block`
+(its column sums, normalisations and two-level lookahead), the row
+body `joint_row` (the T window tables in the block's shared memory, the
+general product's operand written into the split yl / yh, the masked
+select of the Straus kernel, the digit-addressed entry of the
+shared-exponent kernel, the active-term schedule, the exit by 1), the
+one-warp form the rule takes past its rows, the ladder kernel on the
+same block product, the segment table and its per-segment row counts,
+the launch's argument checks, the term cap and the launch rule. What
 only the card shows (the compiler's code, timing, shared-memory limits)
 `chip_smoke.py` checks there.
 
@@ -55,10 +60,10 @@ def host_lib(tmp_path_factory):
     text = re.sub(r"asm volatile\(.*?\);", ";", text, flags=re.S)
     text, shared = re.subn(r"extern __shared__ __align__\(16\) uint32_t (\w+)\[\];",
                            r"static uint32_t \1[1 << 16];", text)
-    assert shared == 5
+    assert shared == 7
     text, launches = _LAUNCH.subn(
         lambda m: f"emu_launch({m[2]}, {m[3]}, [&] {{ {m[1]}({m[4]}); }});", text)
-    assert launches == 8
+    assert launches == 10
     out = tmp_path_factory.mktemp("cios_host")
     cpp, so = out / "cios_kernels_host.cpp", out / "libcios_kernels_host.so"
     cpp.write_text(text)
@@ -71,6 +76,14 @@ def host_lib(tmp_path_factory):
     lib.fsdkr_cios_multi_modexp.restype = i
     lib.fsdkr_cios_shared_exp.argtypes = [ctypes.POINTER(ctypes.c_int64), i, p]
     lib.fsdkr_cios_shared_exp.restype = i
+    lib.fsdkr_cios_joint_rule.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+    lib.fsdkr_cios_comb_ladder_threads.argtypes = [i, p, p, p, p, i, i, i, p, p]
+    lib.fsdkr_cios_comb_ladder_threads.restype = i
+    lib.fsdkr_cios_multi_modexp_threads.argtypes = [i] + lib.fsdkr_cios_multi_modexp.argtypes
+    lib.fsdkr_cios_multi_modexp_threads.restype = i
+    lib.fsdkr_cios_shared_exp_threads.argtypes = [i] + lib.fsdkr_cios_shared_exp.argtypes
+    lib.fsdkr_cios_shared_exp_threads.restype = i
+    lib.fsdkr_cios_joint_rule.restype = i
     return lib
 
 
@@ -93,22 +106,23 @@ def _moduli(rng, k, rows, worst):
     return mods[: rows - worst] + [(1 << (16 * k)) - 1] * worst
 
 
-def _multi_call(lib, bases, exps, n, ni, r2, one, widths):
+def _multi_call(lib, bases, exps, n, ni, r2, one, widths, threads=None):
+    """The launch rule's form, or `threads` (0: one warp a row)."""
     t_cnt, rows, k = bases.shape
     out = torch.zeros((rows, k), dtype=torch.int32)
-    err = lib.fsdkr_cios_multi_modexp(
-        bases.data_ptr(), exps.data_ptr(), exps.shape[2], (ctypes.c_int * t_cnt)(*widths),
-        t_cnt, n.data_ptr(), ni.data_ptr(), r2.data_ptr(), one.data_ptr(), rows, k,
-        out.data_ptr(), None)
+    args = (bases.data_ptr(), exps.data_ptr(), exps.shape[2], (ctypes.c_int * t_cnt)(*widths),
+            t_cnt, n.data_ptr(), ni.data_ptr(), r2.data_ptr(), one.data_ptr(), rows, k,
+            out.data_ptr(), None)
+    err = lib.fsdkr_cios_multi_modexp(*args) if threads is None else \
+        lib.fsdkr_cios_multi_modexp_threads(threads, *args)
     return err, out
 
 
-# (K, rows, widths): a partly filled block of 4 warps; 16 terms on one
-# block; K=130, an odd word count on the P=4 body. Each case's rows:
-# modulus 3, zero exponents, random, and (from 4 rows) the last one
-# worst-case
+# (K, rows, widths), one block a row: 13 rows; 16 terms on one block;
+# K=130, an odd word count; 1 row. Each case's rows: modulus 3, zero
+# exponents, random, and (from 4 rows) the last one worst-case
 MULTI_CASES = [(16, 13, (128, 64, 64)), (16, 4, tuple(64 + 16 * (t < 8) for t in range(16))),
-               (130, 4, (64, 32))]
+               (130, 4, (64, 32)), (16, 1, (64, 32))]
 
 
 @pytest.mark.parametrize("k, rows, widths", MULTI_CASES)
@@ -130,6 +144,9 @@ def test_host_multi_modexp_matches_plain(host_lib, k, rows, widths):
     assert err == 0
     want = montgomery._multi_modexp_kernel(*args, exp_bits_seq=widths)
     assert torch.equal(got.to(torch.int64), want)
+    # the one-warp form, which the rule takes past its rows
+    err, warp = _multi_call(host_lib, *args, widths, threads=0)
+    assert err == 0 and torch.equal(warp, got)
     oracle = []
     for i, m in enumerate(mods):
         acc = 1 % m
@@ -141,7 +158,8 @@ def test_host_multi_modexp_matches_plain(host_lib, k, rows, widths):
 
 def test_host_shared_exp_matches_plain(host_lib):
     """Three segments in one launch: K=16 modulo 3 (1 row), K=130 random
-    (5 rows; the launch's widest body), K=16 worst-case (6 rows)."""
+    (5 rows; the launch's widest), K=16 worst-case (6 rows); one block a
+    row (the rule's), and one warp a row."""
     rng = random.Random(7)
     specs = [(16, 1, 64, 3), (130, 5, 64, None), (16, 6, 32, (1 << 256) - 1)]
     segs, oracle = [], []
@@ -164,6 +182,12 @@ def test_host_shared_exp_matches_plain(host_lib):
     for got, w, o in zip(outs, want, oracle):
         assert torch.equal(got, w)
         assert limbs_to_ints(got.numpy()) == o
+    # the one-warp form, which the rule takes past its rows
+    for out in outs:
+        out.zero_()
+    assert host_lib.fsdkr_cios_shared_exp_threads(0, table, len(segs), None) == 0
+    for got, w in zip(outs, want):
+        assert torch.equal(got, w)
 
 
 def test_host_launch_checks_and_term_cap(host_lib):
@@ -177,11 +201,43 @@ def test_host_launch_checks_and_term_cap(host_lib):
     many = torch.zeros((17, rows, k), dtype=torch.int32)
     assert _multi_call(host_lib, many, torch.zeros((17, rows, 4), dtype=torch.int32),
                        z, z, z, z, (64,) * 17)[0] != 0
-    # the library refuses one term past the wrapper's cap (one warp's
-    # tables in 227 KB) at K=512 and 1024, before it launches anything
+    # the library's launch rule and term cap are the wrapper's; it refuses
+    # one term past the cap (a row's tables beside the block product's
+    # shared memory in 227 KB) and takes the cap, before it launches
+    # anything (0 rows)
+    for kk in (2, 16, 128, 130, 256, 258, 512, 1022, 1024):
+        block_rows = montgomery_kernels.JOINT_BLOCK_ROWS
+        for rows in (1, block_rows, block_rows + 1):
+            threads, cap = ctypes.c_int(), ctypes.c_int()
+            assert host_lib.fsdkr_cios_joint_rule(kk, rows, ctypes.byref(threads),
+                                                  ctypes.byref(cap)) == 0
+            assert (threads.value, cap.value) == (montgomery_kernels._joint_threads(kk, rows),
+                                                  montgomery_kernels.multi_modexp_max_terms(kk))
     for kk in (512, 1024):
-        t_cnt = montgomery_kernels.multi_modexp_max_terms(kk) + 1
-        zk = torch.zeros((1, kk), dtype=torch.int32)
-        assert _multi_call(host_lib, torch.zeros((t_cnt, 1, kk), dtype=torch.int32),
-                           torch.zeros((t_cnt, 1, 4), dtype=torch.int32), zk, zk, zk, zk,
-                           (64,) * t_cnt)[0] != 0
+        cap = montgomery_kernels.multi_modexp_max_terms(kk)
+        for t_cnt, rows in ((cap + 1, 1), (cap + 1, 0), (cap, 0)):
+            zk = torch.zeros((rows, kk), dtype=torch.int32)
+            err = _multi_call(host_lib, torch.zeros((t_cnt, rows, kk), dtype=torch.int32),
+                              torch.zeros((t_cnt, rows, 4), dtype=torch.int32), zk, zk, zk, zk,
+                              (64,) * t_cnt)[0]
+            assert (err != 0) == (t_cnt > cap)
+
+
+@pytest.mark.parametrize("threads", (256, 512))
+def test_host_comb_ladder_matches_plain(host_lib, threads):
+    """The ladder's kernel on the same block product (its general product
+    and its squares' x * y column sums, both loops over the chunks): the
+    16 powers base^(16^w) R mod n of 2 groups at K=16 (one modulo 3, one
+    worst-case) and of 1 at K=130, against `_comb_ladder`."""
+    rng = random.Random(threads)
+    for k, mods in ((16, [3, (1 << 256) - 1]), (130, [rng.getrandbits(2080) | 1 | 1 << 2079])):
+        bases = [m - 1 if m == (1 << 256) - 1 else rng.randrange(m) for m in mods]
+        ctx = MontgomeryContext(mods, k)
+        base, n, ni, r2 = (_t(a) for a in (ints_to_limbs(bases, k), ctx.n, ctx.n_inv, ctx.r2))
+        w_cnt = 16
+        powers = torch.zeros((w_cnt, len(mods), k), dtype=torch.int32)
+        assert host_lib.fsdkr_cios_comb_ladder_threads(
+            threads, base.data_ptr(), n.data_ptr(), ni.data_ptr(), r2.data_ptr(), len(mods), k,
+            w_cnt, powers.data_ptr(), None) == 0
+        want = montgomery._comb_ladder(base, n, ni, r2, w_cnt)
+        assert torch.equal(powers.to(torch.int64), want)

@@ -30,6 +30,17 @@ bit against Python integers and the port's plain product
 (`ops.montgomery.mont_mul_limbs`) at every threads-a-block the kernel
 is built for, the two-level lookahead against a ripple carry, and a
 16-window ladder on the model against `_comb_ladder` and CPython pow.
+
+It also replays the joint kernels' row body (`joint_row<NT, kPublic>`,
+under `cios_multi_modexp_kernel` and `cios_shared_exp_kernel`) on the
+model: the general product with the other operand written into the
+split yl / yh at the kernel's indices, the table build (entry 1 the base
+by r2, each next one a product by entry 1), the masked select over all
+16 entries (the Straus kernel's secret digits) and the addressed one
+(the shared exponent's public digits), the chain's start at the
+Montgomery one and the exit by a product with 1; a Straus chain and a
+shared-exponent chain against the plain versions (`_multi_modexp_kernel`,
+`_shared_exp_kernel`) and CPython pow.
 """
 
 import random
@@ -39,7 +50,8 @@ import pytest
 import torch
 
 from fsdkr_tpu_torch.ops.limbs import MontgomeryContext, ints_to_limbs, limbs_to_ints
-from fsdkr_tpu_torch.ops.montgomery import _comb_ladder, mont_mul_limbs
+from fsdkr_tpu_torch.ops.montgomery import (_comb_ladder, _multi_modexp_kernel,
+                                            _shared_exp_kernel, exp_digits, mont_mul_limbs)
 
 M32 = (1 << 32) - 1
 PAD = 256  # the kernel's kPad
@@ -65,27 +77,65 @@ def value(ws):
     return sum(int(v) << (32 * j) for j, v in enumerate(ws))
 
 
-def column_sums(x, yl, yh, w, threads):
+def column_sums(x, yl, yh, w, threads, square=False):
     """`column_sums<kLow, NT>`: x is the left operand's buffer (read at
     i < S*I), yl and yh the right one split (read at PAD + W + c - i; yh
     None for kLow). Every product is taken against both halves, the other
     half's zeros dropping it, as the kernel does in a chunk across the
     diagonal. Returns the parts' lazy sums lo, hi, each (S, 2W + 1)
     uint64 (the kernel adds the parts by shuffles before it writes one
-    row of each)."""
+    row of each).
+
+    The kernel runs the low half as a loop over a prefix of the chunks
+    and the high half as one over a suffix from a first chunk it finds by
+    a shift: checked here against the chunks each half's columns take.
+
+    square (y = x): as the kernel decides per warp (pw = 32 / S column
+    pairs, c_min .. c_max) and chunk (source words i_lo .. i_hi): the low
+    half is read where 2 i_lo < c_max, each word masked to 0 unless 2i <
+    c (no mask where 2 i_hi < c_min), the high half where 2 i_hi > c_min +
+    W, masked unless 2i > c + W (none where 2 i_lo > c_max + W); a chunk
+    read by neither half is skipped (checked: no lane's column takes a
+    word of it). The part-0 rows then hold each sum doubled plus the
+    diagonal's halves x_(j/2)^2 of each even column j."""
     s_cnt, i_cnt = ladder_parts(w, threads)
     assert s_cnt * i_cnt - 1 < len(x)  # the source words a part reads
     item = np.arange(w * s_cnt)
     s, c = item // w, item % w
+    pw = 32 // s_cnt
+    c_min = c // pw * pw
+    c_max = np.minimum(c_min + pw - 1, w - 1)
     xa = np.asarray(x, np.uint64)
     halves = [np.asarray(b, np.uint64) for b in (yl, yh) if b is not None]
     sums = [[np.zeros(w * s_cnt, np.uint64) for _ in range(2)] for _ in halves]
+    # the kernel's two loops: the low half over a prefix of chunks (while
+    # some lane's column c takes a word), the high half over a suffix from
+    # its first chunk, found by a shift from the warp's first pair
+    log2s, log2chunk = s_cnt.bit_length() - 1, CHUNK.bit_length() - 1
+    first = ((c_min + w + 2) >> (log2s + log2chunk + 1) if square
+             else (c_min + 1) >> (log2s + log2chunk))
+    for j in range(-(-i_cnt // CHUNK)):
+        i_lo, i_hi = s_cnt * CHUNK * j, s_cnt * CHUNK * (j + 1) - 1
+        low = 2 * i_lo < c_max if square else i_lo <= c_max
+        high = 2 * i_hi > c_min + w if square else i_hi > c_min
+        assert (high == (j >= first)).all()  # the high loop's start
+        if j:  # the low loop stops at its first chunk no lane takes
+            prev = 2 * (i_lo - s_cnt * CHUNK) < c_max if square else i_lo - s_cnt * CHUNK <= c_max
+            assert not (low & ~prev).any()
     for u in range(i_cnt):
         i = s + s_cnt * u
         k = PAD + w + c - i
-        for ya, (s_lo, s_hi) in zip(halves, sums):
+        if square:
+            i_lo, i_hi = s_cnt * (u // CHUNK * CHUNK), s_cnt * (u // CHUNK * CHUNK + CHUNK) - 1
+            sq_lo, sq_hi = 2 * i_lo < c_max, 2 * i_hi > c_min + w
+            keep = [sq_lo & ((2 * i_hi < c_min) | (2 * i < c)),
+                    sq_hi & ((2 * i_lo > c_max + w) | (2 * i > c + w))]
+            assert not ((2 * i < c) & ~sq_lo).any() and not ((2 * i > c + w) & ~sq_hi).any()
+        for h, (ya, (s_lo, s_hi)) in enumerate(zip(halves, sums)):
             assert (k >= 0).all() and (k < len(ya)).all()
             p = xa[i] * ya[k]  # below 2^64
+            if square:
+                p = np.where(keep[h], p, np.uint64(0))
             s_lo += p & np.uint64(M32)
             s_hi += p >> np.uint64(32)
     cols = 2 * w + 1
@@ -93,6 +143,12 @@ def column_sums(x, yl, yh, w, threads):
     lo[s, c], hi[s, c + 1] = sums[0]
     if len(sums) == 2:
         lo[s, c + w], hi[s, c + w + 1] = sums[1]
+    if square:
+        lo, hi = 2 * lo, 2 * hi
+        for j in range(0, 2 * w, 2):
+            d = int(xa[j // 2]) ** 2
+            lo[0, j] += np.uint64(d & M32)
+            hi[0, j + 1] += np.uint64(d >> 32)
     return lo, hi
 
 
@@ -173,19 +229,31 @@ def split(ws):
     return [0] * (PAD + w) + list(ws), [0] * PAD + list(ws) + [0] * w
 
 
-def block_mont_mul(x, y, n, k, threads, stats=None):
+def block_mont_mul(x, y, n, k, threads, stats=None, square=False):
     """x * y * 2^(-16K) mod n (x, y < n, n odd), step for step as
-    `mont_mul_block<NT>`; `stats` collects the largest column value."""
+    `mont_mul_block<NT>`; `stats` collects the largest column value;
+    square (y = x): T's square column sums."""
     w = k // 2
+    return block_product(words(x, w) + [0] * PAD, *split(words(y, w)), n, k, threads, stats,
+                         square)
+
+
+def block_product(xs, yl, yh, n, k, threads, stats=None, square=False):
+    """`mont_mul_block<NT>` on the operands as the block holds them: x's
+    words (then zero padding), y split in yl and yh (`split`); square:
+    the kernel's square column sums of T (y = x)."""
+    w = k // 2
+    x, y = value(xs[:w]), value(yh[PAD : PAD + w])
+    assert not square or x == y
+    assert (list(yl), list(yh)) == tuple(split(yh[PAD : PAD + w]))
     r = 1 << (32 * w)
     n_inv = (-pow(n, -1, r)) % r
     n_words = words(n, w)
-    xs = words(x, w) + [0] * PAD
     nl = [0] * (PAD + w) + words(n_inv, w)
     peak = 0
 
     # T = x * y: 2W + 1 columns
-    lo, hi = column_sums(xs, *split(words(y, w)), w, threads)
+    lo, hi = column_sums(xs, yl, yh, w, threads, square)
     v = column_values(lo, hi)
     peak = max(peak, max(v))
     t_words = normalize(v, threads)[0][: 2 * w + 1]
@@ -235,11 +303,12 @@ def test_block_column_sums_stay_below_their_bound(k, threads):
     local carry, below 2^12."""
     w = k // 2
     n = (1 << (16 * k)) - 1
-    stats = {}
-    got = block_mont_mul(n - 1, n - 1, n, k, threads, stats)
-    assert stats["peak"] < w * (1 << 33) + (1 << 33) < 1 << 44
-    assert stats["peak"] >> 32 < 1 << 12
-    assert got == (n - 1) * (n - 1) * pow(1 << (16 * k), -1, n) % n
+    for square in (False, True):  # the square's doubled sums and diagonal too
+        stats = {}
+        got = block_mont_mul(n - 1, n - 1, n, k, threads, stats, square)
+        assert stats["peak"] < w * (1 << 33) + (1 << 33) < 1 << 44
+        assert stats["peak"] >> 32 < 1 << 12
+        assert got == (n - 1) * (n - 1) * pow(1 << (16 * k), -1, n) % n
 
 
 @pytest.mark.parametrize("threads", THREADS)
@@ -256,8 +325,8 @@ def test_block_model_matches_plain_product(k, threads):
     cases = [(rng.randrange(n), rng.randrange(n), n), (n - 1, n - 1, n), (2, 2, 3),
              (1, 0, n), (top - 1, top - 1, top), (rng.randrange(top), top - 1, top)]
     for x, y, m in cases:
-        for a, b in ((x, y), (y, y)):
-            got = block_mont_mul(a, b, m, k, threads)
+        for a, b, square in ((x, y, False), (y, y, False), (y, y, True)):
+            got = block_mont_mul(a, b, m, k, threads, square=square)
             assert got == a * b * pow(1 << (16 * k), -1, m) % m
             assert got == _plain(a, b, m, k)
 
@@ -328,3 +397,209 @@ def test_ladder_on_the_block_model_matches_comb_ladder(k, threads):
             if wi + 1 < w_cnt:
                 for _ in range(4):
                     p = block_mont_mul(p, p, n, k, threads)
+
+
+class JointBlock:
+    """What a joint block holds in shared memory: x (the kernel keeps it
+    permuted in xp; word j at slot j here), y split in yl and yh at the
+    kernel's indices, and the tables (entry e of term t, word j at (16 t
+    + e) W + j). `product` is `mont_mul_block`: its result goes to both
+    operands."""
+
+    def __init__(self, n, k, threads, terms):
+        self.n, self.k, self.threads, self.w = n, k, threads, k // 2
+        self.x = [0] * (self.w + PAD)
+        self.yl, self.yh = [0] * (PAD + 2 * self.w), [0] * (PAD + 2 * self.w)
+        self.tables = [0] * (terms * 16 * self.w)
+
+    def put_x(self, j, v):
+        self.x[j] = v
+
+    def put_y(self, j, v):  # the kernel's sm.yh[kPad + j] = sm.yl[kPad + W + j]
+        self.yh[PAD + j] = self.yl[PAD + self.w + j] = v
+
+    def y_words(self):
+        return self.yh[PAD : PAD + self.w]
+
+    def product(self, square=False):
+        r = block_product(self.x, self.yl, self.yh, self.n, self.k, self.threads, square=square)
+        for j, v in enumerate(words(r, self.w)):
+            self.put_x(j, v)
+            self.put_y(j, v)
+        return r
+
+
+def joint_row(block, bases, r2, one, windows, active, digit, public, trace=None):
+    """`joint_row<NT, kPublic>` for one row, step for step: the tables
+    (term t's entry 1 = base_t by r2, entries 2..15 each a product by
+    entry 1, entry 0 the Montgomery one), then per window four squarings
+    (on the square's column sums, the operands left in place by the
+    product before) and one product per active term by its digit's entry
+    (kPublic: read at the digit's address; else the masked sum over all
+    16), then the exit by a product with 1. `trace` collects (kind, product) of every
+    step. Returns the row's result."""
+    w, terms = block.w, len(bases)
+    table_steps = 15 * terms
+    wi = q = 0
+    act = active(0) if windows else 0
+    step = 0
+    while True:
+        last = step >= table_steps and wi == windows
+        t, e = step // 15, step % 15 + 1
+        square = step >= table_steps and not last and q < 4
+        select = step >= table_steps and not last and q >= 4
+        d = digit(q - 4, wi) if select else 0
+        base = 16 * (q - 4) * w if select else 0
+        # a square finds its operands in place, but for the chain's first
+        for j in range(w) if not square or step == table_steps else ():
+            y = 0
+            if step < table_steps:
+                if e == 1:
+                    block.put_x(j, words(bases[t], w)[j])
+                    y = words(r2, w)[j]
+                else:
+                    y = block.tables[(16 * t + 1) * w + j]
+            else:
+                if step == table_steps:  # the accumulator starts at the one
+                    y = words(one, w)[j]
+                    block.put_x(j, y)
+                if last:
+                    y = 1 if j == 0 else 0
+                elif select:
+                    if public:
+                        y = block.tables[base + d * w + j]
+                    else:
+                        for en in range(16):
+                            y |= block.tables[base + en * w + j] & (M32 if d == en else 0)
+            block.put_y(j, y)
+        r = block.product(square)
+        if trace is not None:
+            kind = ("table" if step < table_steps else "exit" if last
+                    else "select" if select else "square")
+            trace.append((kind, r))
+        if step < table_steps:
+            for j in range(w):
+                block.tables[(16 * t + e) * w + j] = block.y_words()[j]
+                if e == 1:
+                    block.tables[16 * t * w + j] = words(one, w)[j]
+        elif last:
+            return r
+        else:
+            q += 1
+            if q == 4 + act:
+                q, wi = 0, wi + 1
+                if wi < windows:
+                    act = active(wi)
+        step += 1
+
+
+JOINT_K = [16, 130, 256]
+
+
+def _joint_modulus(rng, k):
+    return rng.getrandbits(16 * k) | 1 | (1 << (16 * k - 1))
+
+
+@pytest.mark.parametrize("threads", THREADS)
+@pytest.mark.parametrize("k", JOINT_K)
+def test_joint_general_product_on_split_operand(k, threads):
+    """A general product: x written word by word into the left operand,
+    y into the split yl / yh at the kernel's indices; the result lands in
+    both, so the next product is a square; then the selected entry of a
+    16-entry table (masked over all 16, and addressed) as the next y."""
+    rng = random.Random(k + threads)
+    n = _joint_modulus(rng, k)
+    r = 1 << (16 * k)
+    w = k // 2
+    block = JointBlock(n, k, threads, 1)
+    x, y = rng.randrange(n), rng.randrange(n)
+    for j in range(w):
+        block.put_x(j, words(x, w)[j])
+        block.put_y(j, words(y, w)[j])
+    got = block.product()
+    assert got == x * y * pow(r, -1, n) % n == _plain(x, y, n, k)
+    assert value(block.x[:w]) == value(block.y_words()) == got
+    assert block.product() == got * got * pow(r, -1, n) % n  # the square
+    entries = [rng.randrange(n) for _ in range(16)]
+    for e, v in enumerate(entries):
+        block.tables[e * w : (e + 1) * w] = words(v, w)
+    for d in range(16):
+        masked = [0] * w
+        for j in range(w):
+            for en in range(16):
+                masked[j] |= block.tables[en * w + j] & (M32 if d == en else 0)
+        assert value(masked) == value(block.tables[d * w : (d + 1) * w]) == entries[d]
+
+
+@pytest.mark.parametrize("threads", THREADS)
+@pytest.mark.parametrize("k", JOINT_K)
+def test_straus_row_on_the_block_model(k, threads):
+    """A short Straus chain (T=3, widths (32, 16, 8), term 1's exponent 0)
+    on the model against `_multi_modexp_kernel` and CPython pow; the
+    tables, the entry by r2, the chain's start at the one and the exit
+    checked on the way. The rows' bases: random, and n - 1."""
+    rng = random.Random(3 * k + threads)
+    r = 1 << (16 * k)
+    widths = (32, 16, 8)
+    windows = widths[0] // 4
+    for worst in (False, True):
+        n = r - 1 if worst else _joint_modulus(rng, k)
+        bases = [n - 1 if worst else rng.randrange(n) for _ in widths]
+        exps = [(1 << wb) - 1 if worst else rng.getrandbits(wb) for wb in widths]
+        exps[1] = 0
+        block = JointBlock(n, k, threads, len(widths))
+        trace = []
+        got = joint_row(
+            block, bases, r * r % n, r % n, windows,
+            lambda wi: sum(wb > 4 * (windows - 1 - wi) for wb in widths),
+            lambda t, wi: (exps[t] >> (4 * (windows - 1 - wi))) & 15, False, trace)
+        want = 1
+        for b, e in zip(bases, exps):
+            want = want * pow(b, e, n) % n
+        assert got == want
+        for t, b in enumerate(bases):
+            for e in range(16):
+                assert value(block.tables[(16 * t + e) * (k // 2) : (16 * t + e + 1) * (k // 2)]) \
+                    == pow(b, e, n) * r % n
+            assert trace[15 * t] == ("table", b * r % n)  # the entry by r2
+        chain = trace[15 * len(widths):]
+        assert chain[0] == ("square", 1 * r % n)  # the one's square is the one
+        assert chain[-1] == ("exit", want)
+        assert len(chain) == widths[0] + sum(widths) // 4 + 1
+        ctx = MontgomeryContext([n], k)
+        t = lambda a: torch.as_tensor(np.asarray(a, np.int64))  # noqa: E731
+        plain = _multi_modexp_kernel(
+            t(np.stack([ints_to_limbs([b], k) for b in bases])),
+            t(np.stack([ints_to_limbs([e], widths[0] // 16) for e in exps])),
+            t(ctx.n), t(ctx.n_inv), t(ctx.r2), t(ctx.one_mont), exp_bits_seq=widths)
+        assert limbs_to_ints(plain.numpy()) == [got]
+
+
+@pytest.mark.parametrize("threads", THREADS)
+@pytest.mark.parametrize("k", JOINT_K)
+def test_shared_exp_row_on_the_block_model(k, threads):
+    """A shared-exponent row (one table, 8 windows of a 32-bit public
+    exponent, each entry read at the digit's address) on the model
+    against `_shared_exp_kernel` and CPython pow, random and worst-case
+    (n = R - 1, base n - 1, every digit 15); and a zero-window exponent
+    (the exit straight after the table: 1 mod n)."""
+    rng = random.Random(5 * k + threads)
+    r = 1 << (16 * k)
+    for worst in (False, True):
+        n = r - 1 if worst else _joint_modulus(rng, k)
+        base = n - 1 if worst else rng.randrange(n)
+        e = (1 << 32) - 1 if worst else rng.getrandbits(32)
+        digits = exp_digits(e, 32)
+        block = JointBlock(n, k, threads, 1)
+        got = joint_row(block, [base], r * r % n, r % n, len(digits), lambda wi: 1,
+                        lambda t, wi: digits[wi], True)
+        assert got == pow(base, e, n)
+        ctx = MontgomeryContext([n], k)
+        t = lambda a: torch.as_tensor(np.asarray(a, np.int64))  # noqa: E731
+        plain = _shared_exp_kernel(t(ints_to_limbs([base], k)), digits, t(ctx.n), t(ctx.n_inv),
+                                   t(ctx.r2), t(ctx.one_mont))
+        assert limbs_to_ints(plain.numpy()) == [got]
+    n = _joint_modulus(rng, k)
+    block = JointBlock(n, k, threads, 1)
+    assert joint_row(block, [rng.randrange(n)], r * r % n, r % n, 0, lambda wi: 1,
+                     lambda t, wi: 0, True) == 1

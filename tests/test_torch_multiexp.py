@@ -171,6 +171,25 @@ def test_multi_powm_matches_jax_and_pow(monkeypatch):
         jpowm.multi_powm(bad_b, bad_e, bad_m, device=True)
 
 
+def test_joint_rows_split_at_the_wide_caps(monkeypatch):
+    """Rows past the caps of wide moduli: 14 terms at 8192 bits (cap 12)
+    and 7 at 16384 bits (cap 5) take two launches each, the parts
+    multiplied back, equal to pow."""
+    rng = random.Random(SEED + 2)
+    rows_b, rows_e, mods = [], [], []
+    for bits, terms in ((8192, 14), (16384, 7)):
+        m = _odd(rng, bits)
+        rows_b.append(tuple(rng.randrange(m) for _ in range(terms)))
+        rows_e.append(tuple(rng.getrandbits(16) for _ in range(terms)))
+        mods.append(m)
+    launches = []
+    raw = powm._device_joint_launch
+    monkeypatch.setattr(powm, "_device_joint_launch",
+                        lambda b, e, m, t, d: launches.append((t, len(m))) or raw(b, e, m, t, d))
+    assert powm.multi_powm(rows_b, rows_e, mods, "cpu") == _oracle(rows_b, rows_e, mods)
+    assert sorted(launches) == [(2, 1), (2, 1), (5, 1), (12, 1)]
+
+
 def test_batch_base_inv_matches_reference():
     p, q = 1009, 2**61 - 1
     values = [2, 15, 1009 * 7, 4, 11, 5, q - 2, 0, 3]
@@ -257,11 +276,12 @@ def test_wrappers_check_inputs_and_term_cap():
         montgomery_kernels.shared_exp_segments([])
     with pytest.raises(ValueError, match="windows"):
         montgomery_kernels.shared_exp_segments([(n, digits[None], one, one, one, one)])
-    # one warp's tables in a block's shared memory: 16 terms up to K=256,
-    # 14 at K=512, 7 at K=1024; the planner splits rows at that cap
+    # a row's tables beside the block product's own shared memory in a
+    # block: 16 terms up to K=256, 12 at K=512, 5 at K=1024; the planner
+    # splits rows at that cap
     assert [montgomery_kernels.multi_modexp_max_terms(k) for k in (16, 128, 256, 512, 1024)] == [
-        16, 16, 16, 14, 7]
-    assert [powm._term_cap(1 << (b - 1)) for b in (2048, 4096, 8192, 16384)] == [16, 16, 14, 7]
+        16, 16, 16, 12, 5]
+    assert [powm._term_cap(1 << (b - 1)) for b in (2048, 4096, 8192, 16384)] == [16, 16, 12, 5]
     # CPU calls run the plain versions and launch nothing
     before = montgomery_kernels.launch_counts()
     assert powm.multi_powm([(2, 3)], [(5, 7)], [1009], "cpu") == [pow(2, 5, 1009) * pow(3, 7, 1009) % 1009]
