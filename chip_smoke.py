@@ -68,8 +68,9 @@ Phases:
            at 2048- and 4096-bit moduli; both entry points at 8192-bit
            moduli (past the RNS classes); device_powm_grouped (comb
            groups and loners) at 2048, 4096 and 8192 bits.
-  main     on the column path (FSDKRC_MULTIEXP=0, FSDKRC_RANGEOPT=0, so
-           that its gates and PERF.md's history stay comparable):
+  main     on the column path (FSDKRC_RLC=0, FSDKRC_MULTIEXP=0,
+           FSDKRC_RANGEOPT=0, so that its gates and PERF.md's history stay
+           comparable; the RNS path below too):
            the refresh round at paillier_bits=2048, M=256, 11 correct-key
            rounds, n=16, t=8: simulate_keygen -> distribute_batch (all 16
            senders) -> collect by all 16; t+1 new shares must interpolate
@@ -98,8 +99,8 @@ Phases:
            its messages, timed layer by layer (kernel 2 must launch 15
            times, kernel 1 14); that party's collect of the same messages
            through the CIOS engine must adopt the same key.
-  joint    the joint path under the defaults (FSDKRC_MULTIEXP and
-           FSDKRC_RANGEOPT on), from main's keys before its distribute:
+  joint    the joint path (FSDKRC_MULTIEXP and FSDKRC_RANGEOPT on, at
+           FSDKRC_RLC=0), from main's keys before its distribute:
            every counter zeroed, distribute_batch by all 16 senders and
            16 collects, the counters read; the launches per distribute
            and per collect of every kernel must be JOINT_DISTRIBUTE and
@@ -110,10 +111,26 @@ Phases:
            tampered range row raise what the column path raises (class,
            party, the PDL verdict tuple). Profiles one collect and times
            another layer by layer.
+  rlc      the RLC path, the defaults (FSDKRC_RLC, FSDKRC_MULTIEXP and
+           FSDKRC_RANGEOPT on), verifier only, on the joint phase's
+           messages and its keys and dks before any collect: every
+           counter and the fold counters zeroed, 16 collects, the counters
+           read; launches a collect must be RLC_COLLECT, with no RNS
+           launch, and the fold counters RLC_STATS (64 groups, one
+           full-width ladder each, no bisection); t+1 new shares give the
+           group key; a party's collect of the same messages at
+           FSDKRC_RLC=0 adopts the same LocalKey; tampered PDL s1, PDL
+           s2, range s, ring-Pedersen Z[0] and correct-key sigma[0] raise
+           what FSDKRC_RLC=0 raises (class, party, PDL verdict tuple);
+           verify_pairs with one bad PDL s2 row (sender 7 to receiver 3)
+           gives FSDKRC_RLC=0's whole verdict vector, (True, False, True)
+           at that row, through a bisection on the host. Profiles one
+           collect and times another layer by layer.
   time     each kernel against its plain version at every shape its path
            (the routed path for the CIOS kernels, the RNS path for the
-           RNS kernels, the joint path for the Straus and shared-exponent
-           kernels) launched it with (one call, rows half random, half worst-case;
+           RNS kernels, the joint and RLC paths for the Straus and
+           shared-exponent kernels: the RLC folds' 1- to 16-term rows
+           among them) launched it with (one call, rows half random, half worst-case;
            bit-identical results); each kernel timed beside its bound on
            the H100 at every one of those shapes, and at its costliest
            shape beside its plain version too. Two times per launch: `ms`,
@@ -147,7 +164,7 @@ import subprocess
 import sys
 import time
 
-PHASES = ("env", "kernels", "routes", "main", "joint", "time")
+PHASES = ("env", "kernels", "routes", "main", "joint", "rlc", "time")
 
 # H100 SXM published peaks (dense): device memory rate and int8 tensor-core
 # rate. A 16x16-bit multiply-add counts as four 8-bit multiply-adds of two
@@ -1099,11 +1116,11 @@ JOINT_COLLECT = {"cios_modexp": 4, "cios_multi_modexp": 1, "cios_shared_exp": 1,
 
 
 @contextlib.contextmanager
-def column_path():
-    """FSDKRC_MULTIEXP=0 and FSDKRC_RANGEOPT=0 inside the block: every
-    prover and verifier family on the per-term column layout."""
-    saved = {k: os.environ.get(k) for k in ("FSDKRC_MULTIEXP", "FSDKRC_RANGEOPT")}
-    os.environ.update({k: "0" for k in saved})
+def knobs(**values):
+    """The FSDKRC_* variables set to `values` inside the block, restored
+    after it."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
     try:
         yield
     finally:
@@ -1114,22 +1131,40 @@ def column_path():
                 os.environ[k] = v
 
 
+def column_path():
+    """FSDKRC_RLC, FSDKRC_MULTIEXP and FSDKRC_RANGEOPT 0 inside the block:
+    every prover and verifier family on the per-term column layout."""
+    return knobs(FSDKRC_RLC="0", FSDKRC_MULTIEXP="0", FSDKRC_RANGEOPT="0")
+
+
 def _tampered_collect(msgs, spare, config, field):
     """A collect of `msgs` with one proof broken on the spare (key, dk),
     which stays pre-collect: the PDL proof of sender n/3 to receiver n/5
-    (s1 + 1), or the range proof of sender n/2 to receiver n/4 (s + 1).
-    Returns (the error, the tampered sender) and fails if none is raised."""
+    (`pdl`: s1 + 1; `pdl_s2`: s2 + 1), the range proof of sender n/2 to
+    receiver n/4 (`range`: s + 1), or sender n/3's ring-Pedersen proof
+    (`ring_pedersen`: Z[0] + 1) or correct-key proof (`correct_key`:
+    sigma[0] + 1). Returns (the error, the tampered sender, the row) and
+    fails if none is raised."""
+    import dataclasses
+
     bad = copy.deepcopy(msgs)
     n = len(msgs)
-    if field == "pdl":
-        sender, row = n // 3, n // 5
+    sender, row = n // 3, n // 5
+    if field in ("pdl", "pdl_s2"):
         p = bad[sender].pdl_proof_vec[row]
-        bad[sender].pdl_proof_vec[row] = type(p)(
-            z=p.z, u1=p.u1, u2=p.u2, u3=p.u3, s1=p.s1 + 1, s2=p.s2, s3=p.s3)
-    else:
+        bump = {"s1": p.s1 + 1} if field == "pdl" else {"s2": p.s2 + 1}
+        bad[sender].pdl_proof_vec[row] = dataclasses.replace(p, **bump)
+    elif field == "range":
         sender, row = n // 2, n // 4
         p = bad[sender].range_proofs[row]
-        bad[sender].range_proofs[row] = type(p)(z=p.z, e=p.e, s=p.s + 1, s1=p.s1, s2=p.s2)
+        bad[sender].range_proofs[row] = dataclasses.replace(p, s=p.s + 1)
+    elif field == "ring_pedersen":
+        p = bad[sender].ring_pedersen_proof
+        bad[sender].ring_pedersen_proof = dataclasses.replace(p, Z=[p.Z[0] + 1] + list(p.Z[1:]))
+    else:
+        p = bad[sender].dk_correctness_proof
+        bad[sender].dk_correctness_proof = dataclasses.replace(
+            p, sigma_vec=[p.sigma_vec[0] + 1] + list(p.sigma_vec[1:]))
     from fsdkr_tpu_torch.protocol import RefreshMessage
 
     try:
@@ -1153,8 +1188,9 @@ def phase_joint(dev, pre, n=16, t=8, bits=2048, m_security=256, rounds=11):
     a party's collect of the same messages on the column path adopts the
     same key; a tampered PDL row and a tampered range row raise what the
     column path raises (class, party, the PDL verdict tuple). Profiles
-    one collect and times another layer by layer. Returns (counts, shapes
-    of the joint kernels, times)."""
+    one collect and times another layer by layer. Runs at FSDKRC_RLC=0.
+    Returns (counts, shapes of the joint kernels, times, the messages with
+    the keys and dks before any collect)."""
     from fsdkr_tpu_torch import ProtocolConfig
     from fsdkr_tpu_torch.carry import to_fields
     from fsdkr_tpu_torch.core import vss
@@ -1178,6 +1214,8 @@ def phase_joint(dev, pre, n=16, t=8, bits=2048, m_security=256, rounds=11):
     times["distribute"] = time.perf_counter() - t0
     msgs = [m for m, _ in out]
     after_distribute = launch_counts()
+    # the messages, keys and dks before any collect, for the rlc phase
+    rlc_inputs = (msgs, copy.deepcopy(keys), copy.deepcopy([dk for _, dk in out]))
     column_key = (copy.deepcopy(keys[0]), copy.deepcopy(out[0][1]))
     # the profiled collect adopts into `spare`; the spans' collect takes
     # keys of its own
@@ -1247,6 +1285,195 @@ def phase_joint(dev, pre, n=16, t=8, bits=2048, m_security=256, rounds=11):
     if dev.type == "cuda":
         profile_collect(msgs, spare, config, times["collect_median"])
     span_collect(msgs, spare2, config, "joint")
+    return counts, shapes, times, rlc_inputs
+
+
+# Launches a collect of the RLC path (FSDKRC_RLC, FSDKRC_MULTIEXP and
+# FSDKRC_RANGEOPT on, the defaults) at n=16, 2048-bit, M=256, 11
+# correct-key rounds (PERF.md section 2), worked out from the code before
+# the first run on the card: `cios_modexp` for the range's c^{-e} and
+# z^{-e} terms, PDL phase 2 (each receiver's s2-aggregate to its n),
+# ring-Pedersen's T-ladders and correct-key phase 2; the Straus kernel for
+# PDL phase 1 (its aggregated rows of 32 terms cut at 16 into four width
+# shapes: mod N~ 128- and 512-bit, mod n^2 128-bit (the s2 and u2 halves)
+# and 512-bit), fold_ladder2's merged (h1, h2) rows, ring-Pedersen's
+# 257-term rows (16 sub-rows of 16 terms, and the 1-term S row) and
+# correct-key's 11-term aggregates; the shared-exponent kernel for the
+# range u-powers; the comb, its ladder and table for joint_comb2's two
+# bases; `cios_modmul` for the u-power's and joint_comb2's recombinations
+# and the range's u and w. The folds leave no PDL or ring-Pedersen product.
+RLC_COLLECT = {"cios_modexp": 5, "cios_multi_modexp": 8, "cios_shared_exp": 1,
+               "cios_comb": 2, "cios_comb_ladder": 2, "cios_mont_mul": 8, "cios_modmul": 4,
+               "ec_scalar_mul": 3, "ec_tree_sum": 3}
+# backend.rlc.stats() a collect: 16 mod-N~ and 16 mod-n^2 PDL groups, 16
+# ring-Pedersen and 16 correct-key proofs, one full-width ladder each;
+# rows folded 256 + 256 + 16 * 256 + 16 * 11
+RLC_STATS = {"rlc_groups": 64, "rows_folded": 4784, "fullwidth_ladders": 64,
+             "bisect_fallbacks": 0}
+
+
+def _pair_items(msgs, key):
+    """The PDL and range items of `key`'s collect of `msgs`, as collect
+    builds them."""
+    from fsdkr_tpu_torch.core.secp256k1 import GENERATOR
+    from fsdkr_tpu_torch.proofs.pdl_slack import PDLwSlackStatement
+
+    pdl, rng = [], []
+    for msg in msgs:
+        for i in range(len(msgs)):
+            st = PDLwSlackStatement(
+                ciphertext=msg.points_encrypted_vec[i], ek=key.paillier_key_vec[i],
+                Q=msg.points_committed_vec[i], G=GENERATOR, h1=key.h1_h2_n_tilde_vec[i].g,
+                h2=key.h1_h2_n_tilde_vec[i].ni, N_tilde=key.h1_h2_n_tilde_vec[i].N)
+            pdl.append((msg.pdl_proof_vec[i], st))
+            rng.append((msg.range_proofs[i], msg.points_encrypted_vec[i],
+                        key.paillier_key_vec[i], key.h1_h2_n_tilde_vec[i]))
+    return pdl, rng
+
+
+def phase_rlc(dev, inputs, n=16, t=8, bits=2048, m_security=256, rounds=11):
+    """The RLC path under the defaults (FSDKRC_RLC, FSDKRC_MULTIEXP and
+    FSDKRC_RANGEOPT on), verifier only, on the joint phase's messages and
+    its keys and dks before any collect: every counter and
+    backend.rlc.stats() zeroed just before 16 collects and read just
+    after. Gates: launches a collect RLC_COLLECT, no RNS launch, the fold
+    counters a collect RLC_STATS; t+1 new shares give the group key; a
+    party's collect of the same messages at FSDKRC_RLC=0 adopts the same
+    LocalKey; five tampered collects (PDL s1, PDL s2, range s,
+    ring-Pedersen Z[0], correct-key sigma[0]) raise what FSDKRC_RLC=0
+    raises (class, party, PDL verdict tuple); verify_pairs on a PDL s2
+    row of sender 7 to receiver 3 gives FSDKRC_RLC=0's whole verdict
+    vector, (True, False, True) at that row, through a bisection.
+    Profiles one collect and times another layer by layer. Returns
+    (counts, shapes of the joint kernels and `cios_modexp`, times)."""
+    from fsdkr_tpu_torch import ProtocolConfig
+    from fsdkr_tpu_torch.backend import get_backend, rlc
+    from fsdkr_tpu_torch.carry import to_fields
+    from fsdkr_tpu_torch.core import vss
+    from fsdkr_tpu_torch.core.secp256k1 import GENERATOR
+    from fsdkr_tpu_torch.ops import ec_kernels, montgomery_kernels, rns_kernels
+    from fsdkr_tpu_torch.protocol import RefreshMessage
+
+    msgs, pre_keys, dks = inputs
+    config = ProtocolConfig(
+        paillier_bits=bits, m_security=m_security, correct_key_rounds=rounds,
+        backend="cuda", device=dev.type,
+    )
+    if not rlc.rlc_enabled():
+        fail("rlc: FSDKRC_RLC is off")
+    times = {}
+    keys = copy.deepcopy(pre_keys)
+    for mod in (rns_kernels, montgomery_kernels, ec_kernels):
+        mod.reset_launch_counts()
+    rlc.stats_reset()
+    per_collect = []
+    for key, dk in zip(keys, copy.deepcopy(dks)):
+        c0 = time.perf_counter()
+        RefreshMessage.collect(msgs, key, dk, config)
+        per_collect.append(time.perf_counter() - c0)
+    counts = {**montgomery_kernels.launch_counts(), **ec_kernels.launch_counts()}
+    stats = rlc.stats()
+    shapes = {"cios_multi_modexp": dict(montgomery_kernels.multi_modexp.shapes),
+              "cios_shared_exp": dict(montgomery_kernels.shared_exp_segments.shapes),
+              "cios_modexp": dict(montgomery_kernels.modexp_segments.shapes)}
+    per = {k: v / n for k, v in counts.items()}
+    per_stats = {k: stats[k] / n for k in RLC_STATS}
+    times["collect_median"] = sorted(per_collect)[n // 2]
+    log(f"rlc: {n} collects {sum(per_collect):.3f} s, median {times['collect_median']:.4f} s "
+        f"(each {min(per_collect):.3f}..{max(per_collect):.3f} s)")
+    log("rlc: launches per collect: " + json.dumps(per) + "; fold counters per collect: "
+        + json.dumps(per_stats))
+    for name, by_shape in {**shapes,
+                           "cios_comb": montgomery_kernels.comb.shapes,
+                           "cios_comb_ladder": montgomery_kernels.comb_ladder.shapes,
+                           "cios_mont_mul": montgomery_kernels.mont_mul.shapes,
+                           "cios_modmul": montgomery_kernels.modmul.shapes}.items():
+        log(f"rlc: {name} launches by shape: "
+            + ", ".join(f"{shape}: {c}" for shape, c in sorted(by_shape.items(), key=str)))
+    if rns_kernels.launch_counts() != {"rns_mont_mul": 0, "rns_modexp": 0}:
+        fail(f"the RLC path launched the RNS kernels {rns_kernels.launch_counts()}")
+    diff = {k: (per[k], v) for k, v in RLC_COLLECT.items() if per[k] != v}
+    if diff:
+        fail(f"rlc: launches a collect (got, expected) {diff}")
+    if per_stats != RLC_STATS:
+        fail(f"rlc: fold counters a collect {per_stats}, expected {RLC_STATS}")
+    log(f"rlc: launches match PERF.md section 2: a collect {RLC_COLLECT}; fold counters "
+        f"{RLC_STATS}")
+
+    idx = list(range(t + 1))
+    secret = vss.VerifiableSS(vss.ShamirSecretSharing(t, n)).reconstruct(
+        idx, [keys[i].keys_linear.x_i for i in idx])
+    if GENERATOR * secret != keys[0].y_sum_s or any(k.pk_vec != keys[0].pk_vec for k in keys):
+        fail("rlc: new shares do not reconstruct the group key, or pk_vec differs")
+    off_key = (copy.deepcopy(pre_keys[0]), copy.deepcopy(dks[0]))
+    with knobs(FSDKRC_RLC="0"):
+        t0 = time.perf_counter()
+        RefreshMessage.collect(msgs, off_key[0], off_key[1], config)
+        times["rlc_off_collect"] = time.perf_counter() - t0
+    if to_fields(off_key[0]) != to_fields(keys[0]):
+        fail("rlc: the FSDKRC_RLC=0 collect of the same messages adopted another key")
+    log("rlc: t+1 new shares reconstruct the group key; the FSDKRC_RLC=0 collect of the "
+        f"same messages adopts the same LocalKey ({times['rlc_off_collect']:.3f} s)")
+
+    spare = (pre_keys[1], dks[1])
+    want_cls = {"pdl": "PDLwSlackProofError", "pdl_s2": "PDLwSlackProofError",
+                "range": "RangeProofError", "ring_pedersen": "RingPedersenProofError",
+                "correct_key": "PaillierVerificationError"}
+    for field, cls in want_cls.items():
+        rlc.stats_reset()
+        t0 = time.perf_counter()
+        err, sender, row = _tampered_collect(msgs, spare, config, field)
+        wall = time.perf_counter() - t0
+        bisects = rlc.stats()["bisect_fallbacks"]
+        with knobs(FSDKRC_RLC="0"):
+            off_err, _, _ = _tampered_collect(msgs, spare, config, field)
+        if _verdict(err) != _verdict(off_err) or type(err).__name__ != cls:
+            fail(f"rlc: tampered {field} raised {_verdict(err)}, FSDKRC_RLC=0 "
+                 f"{_verdict(off_err)}, expected {cls}")
+        # the PDL error names the sender, the range error the receiver slot
+        if field.startswith("pdl") and err.party_index != sender or \
+                field == "range" and err.party_index != row:
+            fail(f"rlc: tampered {field} blamed party {err.party_index}")
+        if field != "range" and bisects < 1:
+            fail(f"rlc: tampered {field} failed no combined check")
+        log(f"rlc: tampered {field} raised {err!r}, as FSDKRC_RLC=0 does "
+            f"({wall:.3f} s, {bisects} bisections)")
+
+    # one bad PDL s2 row: its mod-n^2 group's combined check fails and
+    # bisects down to it; every other verdict as at FSDKRC_RLC=0
+    bad = copy.deepcopy(msgs)
+    bad_sender, bad_receiver = 7, 3
+    p = bad[bad_sender].pdl_proof_vec[bad_receiver]
+    bad[bad_sender].pdl_proof_vec[bad_receiver] = type(p)(
+        z=p.z, u1=p.u1, u2=p.u2, u3=p.u3, s1=p.s1, s2=p.s2 + 1, s3=p.s3)
+    pdl_items, range_items = _pair_items(bad, pre_keys[0])
+    verdicts = {}
+    for leg in ("1", "0"):
+        with knobs(FSDKRC_RLC=leg):
+            rlc.stats_reset()
+            t0 = time.perf_counter()
+            verdicts[leg] = get_backend(config).verify_pairs(pdl_items, range_items)
+            times[f"bisect_verify_pairs_rlc{leg}"] = time.perf_counter() - t0
+            if leg == "1":
+                bisect_stats = rlc.stats()
+    pdl_v, range_v = verdicts["1"]
+    bad_row = bad_sender * n + bad_receiver
+    if verdicts["1"] != verdicts["0"] or not all(range_v) or pdl_v[bad_row] != \
+            (True, False, True) or any(v is not None for i, v in enumerate(pdl_v)
+                                       if i != bad_row):
+        fail(f"rlc: the bisection's verdicts differ from FSDKRC_RLC=0's or miss row "
+             f"{bad_row}: {pdl_v[bad_row]}")
+    if bisect_stats["bisect_fallbacks"] < 1:
+        fail(f"rlc: the bad s2 row ran no bisection: {bisect_stats}")
+    log(f"rlc: bisection: verify_pairs' verdicts == FSDKRC_RLC=0's, row {bad_row} "
+        f"{pdl_v[bad_row]}, {bisect_stats['bisect_fallbacks']} bisections "
+        f"({times['bisect_verify_pairs_rlc1']:.3f} s; FSDKRC_RLC=0 "
+        f"{times['bisect_verify_pairs_rlc0']:.3f} s)")
+
+    if dev.type == "cuda":
+        profile_collect(msgs, (copy.deepcopy(pre_keys[2]), copy.deepcopy(dks[2])), config,
+                        times["collect_median"])
+    span_collect(msgs, (copy.deepcopy(pre_keys[3]), copy.deepcopy(dks[3])), config, "rlc")
     return counts, shapes, times
 
 
@@ -1321,6 +1548,21 @@ _SPANS = (
     ("fsdkr_tpu_torch.backend.cuda_verifier", "device_powm_shared_exp_groups", None),
     ("fsdkr_tpu_torch.backend.cuda_verifier", "joint_comb2_groups", None),
     ("fsdkr_tpu_torch.backend.cuda_verifier", "batch_base_inv", None),
+    # the RLC path's: each family's arm, the host's rho draws and folds,
+    # the merged (h1, h2) rows, and the Straus rows' planner with its host
+    # products of the parts of a split row
+    ("fsdkr_tpu_torch.backend.cuda_verifier", "_pdl_rlc_prepare", "CudaBatchVerifier"),
+    ("fsdkr_tpu_torch.backend.cuda_verifier", "_pdl_rlc_finish", "CudaBatchVerifier"),
+    ("fsdkr_tpu_torch.backend.cuda_verifier", "_ring_pedersen_rlc", "CudaBatchVerifier"),
+    ("fsdkr_tpu_torch.backend.cuda_verifier", "_correct_key_rlc", "CudaBatchVerifier"),
+    ("fsdkr_tpu_torch.backend.cuda_verifier", "fold_ladder2", None),
+    ("fsdkr_tpu_torch.backend.rlc", "sample_rhos", None),
+    ("fsdkr_tpu_torch.proofs.pdl_slack", "rlc_fold_nt", "PDLwSlackProof"),
+    ("fsdkr_tpu_torch.proofs.pdl_slack", "rlc_fold_nn", "PDLwSlackProof"),
+    ("fsdkr_tpu_torch.proofs.ring_pedersen", "rlc_fold", "RingPedersenProof"),
+    ("fsdkr_tpu_torch.proofs.correct_key", "rlc_fold", "NiCorrectKeyProof"),
+    ("fsdkr_tpu_torch.backend.powm", "_joint_rows", None),
+    ("fsdkr_tpu_torch.backend.powm", "_prod_mod", None),
     # the grouped columns' two routes: the comb and the generic engine
     # (every width batch of a powm_columns call in one launch)
     ("fsdkr_tpu_torch.backend.powm", "device_powm_shared", None),
@@ -1540,36 +1782,59 @@ def _device_ms(fn, reps, name):
     the device events whose name holds the kernel's symbol, over the
     launches the profiler recorded (it may miss the first few of a
     window). The events time above also holds the wrapper's host work
-    wherever that is slower than the kernel; this does not."""
+    wherever that is slower than the kernel; this does not.
+
+    A window in which the profiler recorded no launch of the kernel is
+    taken again: twice with a warm-up step under the profiler's
+    schedule, then twice as one plain profiled window after an
+    unprofiled warm-up call (late in a long run the scheduled form has
+    come back empty three times in a row). Should all four come back
+    empty, the CUDA-events time per call stands in, and the log says
+    so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    # one warm-up step with the profiler armed, then the recorded step; a
-    # window in which the profiler recorded no launch of the kernel is
-    # taken again (twice at most)
-    for attempt in range(3):
-        schedule = torch.profiler.schedule(wait=0, warmup=1, active=1)
-        recorded = []
-        with profile(activities=[ProfilerActivity.CUDA], schedule=schedule,
-                     on_trace_ready=lambda p: recorded.append(p.key_averages())) as prof:
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
+    def kernel_time(averages):
         us, launches = 0.0, 0
-        for ev in (recorded[0] if recorded else ()):
+        for ev in averages:
             if ev.device_type == DeviceType.CUDA and _SYMBOL[name] in ev.key:
                 us += getattr(ev, "self_device_time_total", 0) or 0
                 launches += ev.count
+        return us, launches
+
+    for attempt in range(4):
+        if attempt < 2:
+            schedule = torch.profiler.schedule(wait=0, warmup=1, active=1)
+            recorded = []
+            with profile(activities=[ProfilerActivity.CUDA], schedule=schedule,
+                         on_trace_ready=lambda p: recorded.append(p.key_averages())) as prof:
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+            us, launches = kernel_time(recorded[0] if recorded else ())
+        else:
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            us, launches = kernel_time(prof.key_averages())
         if launches:
             break
         log(f"time: the profiler recorded no launch of {_SYMBOL[name]} "
             f"(attempt {attempt + 1}); recording again")
-    if not 0 < launches <= reps or us <= 0:
+    if not launches:
+        ms = _events_ms(fn, reps)
+        log(f"time: the profiler recorded no launch of {_SYMBOL[name]} in four windows: "
+            f"its device time stands as the CUDA-events time, {ms:.4f} ms a call")
+        return ms
+    if launches > reps or us <= 0:
         fail(f"the profiler saw {launches} launches of {_SYMBOL[name]} "
              f"({us} us) over {reps} calls")
     return us / 1e3 / launches
@@ -1912,7 +2177,7 @@ def check_and_time_shapes(dev, rng, shapes):
             table.append({"name": name, "shape": shape, "text": shape_s, "by": by,
                           "fields": fields, "launches": launches, "ms": ms, "device_ms": dms,
                           "bound_ms": bound})
-    log(f"time: every kernel == plain, bit-identical, at all {len(table)} main-path "
+    log(f"time: every kernel == plain, bit-identical, at all {len(table)} "
         f"shapes, rows (the comb's: groups) half random, half worst-case; checked and "
         f"timed in {time.perf_counter() - t0:.1f} s")
     return errs, plain_ms, table
@@ -1952,16 +2217,22 @@ def _cost(name, shape, launches):
     return k * k * rows * (exp_bits or 1) * max(launches, 1)
 
 
-def phase_time(dev, rng, counts, shapes):
+def phase_time(dev, rng, counts, shapes, rlc_modexp=None):
     """`counts` and `shapes` are the main path's launch counts, in total
     and by kernel and shape ((k, rows), (k, rows, exp_bits), the comb's
     (k, groups, rows per group, exp_bits), or a `cios_modexp` launch's
-    segments -> launches)."""
+    segments -> launches). `rlc_modexp`: the RLC path's own `cios_modexp`
+    launch shapes, checked and timed as well, and listed in the kernel's
+    entry as `rlc_per_shape`."""
     if not all(shapes.values()):
         fail("no main-path launch shapes recorded for a kernel")
     _CLOCK["hz"] = max_sm_clock_hz()
     log(f"time: maximum SM clock {_CLOCK['hz'] / 1e6:.0f} MHz")
     errs, plain_times, per_shape = check_and_time_shapes(dev, rng, shapes)
+    rlc_rows = []
+    if rlc_modexp:
+        rlc_errs, _, rlc_rows = check_and_time_shapes(dev, rng, {"cios_modexp": rlc_modexp})
+        errs["cios_modexp"] = max(errs["cios_modexp"], rlc_errs["cios_modexp"])
     # the launch of the most segments: the pair families' columns
     pairs = max(shapes["cios_modexp"], key=lambda s: (len(s), _cost("cios_modexp", s, 1)))
     alone = time_segments_alone(dev, rng, pairs)
@@ -1992,7 +2263,11 @@ def phase_time(dev, rng, counts, shapes):
             "per_shape": [{**r["fields"], **{key: r[key] for key in ("launches", "ms", "device_ms",
                                                                     "bound_ms")}}
                           for r in per_shape if r["name"] == name],
-            **({"segments_alone": alone} if name == "cios_modexp" else {}),
+            **({"segments_alone": alone,
+                "rlc_per_shape": [{**r["fields"], **{key: r[key] for key in
+                                                     ("launches", "ms", "device_ms", "bound_ms")}}
+                                  for r in rlc_rows]}
+               if name == "cios_modexp" else {}),
         })
     return out
 
@@ -2044,19 +2319,39 @@ def main() -> None:
         log("main: phase seconds " + json.dumps(
             {**times, "collect_each": per_collect}))
         done("main")
+    rlc_inputs, rlc_modexp = None, {}
     if "joint" in phases:
         if pre is None:
             fail("the joint phase takes the main phase's keys")
-        jcounts, jshapes, jtimes = phase_joint(dev, pre)
+        with knobs(FSDKRC_RLC="0"):
+            jcounts, jshapes, jtimes, rlc_inputs = phase_joint(dev, pre)
         log("joint: phase seconds " + json.dumps(jtimes))
         # the joint kernels' launches are those of the joint path's run
         counts.update({name: jcounts[name] for name in JOINT})
         shapes.update(jshapes)
         done("joint")
+    if "rlc" in phases:
+        if rlc_inputs is None:
+            fail("the rlc phase takes the joint phase's messages")
+        rcounts, rshapes, rtimes = phase_rlc(dev, rlc_inputs)
+        log("rlc: phase seconds " + json.dumps(rtimes))
+        # the joint kernels' launches: the joint path's run and the RLC
+        # path's, each counted from 0; their shapes, both runs'
+        for name in JOINT:
+            counts[name] += rcounts[name]
+            for shape, c in rshapes[name].items():
+                shapes[name][shape] = shapes[name].get(shape, 0) + c
+        # the RLC path's own `cios_modexp` launches (its 16-row full-width
+        # chains), checked and timed beside the main path's
+        rlc_modexp = {shape: c for shape, c in rshapes["cios_modexp"].items()
+                      if shape not in shapes.get("cios_modexp", {})}
+        done("rlc")
     if "time" in phases:
         if counts is None or any(name not in shapes for name in JOINT):
             fail("the time phase needs the main and joint phases' launch counts")
-        kernels = phase_time(dev, rng, counts, shapes)
+        if "rlc" not in phases:
+            log("time: no rlc phase: the Straus kernel at the joint path's shapes only")
+        kernels = phase_time(dev, rng, counts, shapes, rlc_modexp)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi_line())

@@ -25,9 +25,21 @@ wherever the proof carries the commitment being checked):
 - Feldman: one MSM on the device over every scheme's group; host Horner
   per row only for a scheme whose combined check fails.
 
-Two knobs, read at call time and on by default (backend.powm), choose
-the layout, as FSDKR_MULTIEXP and FSDKR_RANGEOPT do in the JAX package
-(its FSDKR_RLC arms are not ported):
+Three knobs, read at call time and on by default, choose the layout, as
+FSDKR_RLC, FSDKR_MULTIEXP and FSDKR_RANGEOPT do in the JAX package:
+
+- FSDKRC_RLC (backend.rlc): PDL, ring-Pedersen and correct-key fold
+  their rows into one random-linear-combination check a group (a
+  receiver's n PDL rows mod N~ and mod n^2, a proof's M ring-Pedersen
+  rows, a proof's correct-key rounds), with fresh 128-bit rho from
+  `secrets`: one full-width ladder a group plus short aggregated Straus
+  rows (multi_powm), instead of one full-width chain a row. Rows are
+  domain-gated before any fold; a failing group bisects on the host
+  (backend.rlc.bisect_rows) down to the exact per-row equations, so
+  verdicts and blame are the per-row path's. The range family never
+  folds: its challenge binds the reconstructed u and w of every row.
+  Off, those families check the per-row equations above, in the
+  layouts below.
 
 - FSDKRC_MULTIEXP: the mod-n^2 equations as one joint row each,
   u2 ?= gs1 * s2^n * c^{-e} (PDL) and u = gs1 * s^n * c^{-e} (range), on
@@ -54,6 +66,7 @@ from functools import partial
 from typing import Dict, List
 
 from ..config import ProtocolConfig, DEFAULT_CONFIG
+from ..core import intops
 from ..core.secp256k1 import N as CURVE_ORDER
 from ..core.secp256k1 import Scalar
 from ..core.transcript import challenge_bits
@@ -64,13 +77,16 @@ from ..proofs.ring_pedersen import RingPedersenProof
 from ..ops.limbs import limbs_for_bits
 from .batch_verifier import BatchVerifier, HostBatchVerifier
 from ..utils.pipeline import run_jobs
+from . import rlc
 from .powm import (
     _cached_ctx,
     batch_base_inv,
     device_modmul,
     device_powm_grouped,
     device_powm_shared_exp_groups,
+    fold_ladder2,
     joint_comb2_groups,
+    multi_powm,
     multiexp_enabled,
     powm_columns,
     rangeopt_enabled,
@@ -187,16 +203,12 @@ class CudaBatchVerifier(BatchVerifier):
         else:  # joint path: u2 ?= gs1 * s2^n * c^{-e}
             z_e, h1_s1, h2_s3, v2 = results
             rhs2 = self._modmul(gs1, v2, nn_mod)
-            ok2_vec = []
-            for i, (p, st) in enumerate(items):
-                nn = st.ek.nn
-                if inv_fail[i]:
-                    # gcd(c, n^2) > 1 (adversarial): this row's column form
-                    lhs = p.u2 * pow(st.ciphertext % nn, e_vec[i], nn) % nn
-                    rhs = gs1[i] * pow(p.s2 % nn, st.ek.n, nn) % nn
-                    ok2_vec.append(lhs == rhs and row_ok[i])
-                else:
-                    ok2_vec.append(p.u2 % nn == rhs2[i] and row_ok[i])
+            ok2_vec = [
+                # gcd(c, n^2) > 1 (adversarial): this row's column form
+                (self._pdl_eq2_exact(items, e_vec, i) if inv_fail[i]
+                 else p.u2 % st.ek.nn == rhs2[i]) and row_ok[i]
+                for i, (p, st) in enumerate(items)
+            ]
         lhs3 = self._modmul([p.u3 for p, _ in items], z_e, nt_mod)
         rhs3 = self._modmul(h1_s1, h2_s3, nt_mod)
         ok1_vec = self._pdl_u1_batch(items, e_vec)
@@ -247,11 +259,176 @@ class CudaBatchVerifier(BatchVerifier):
             out.append(proof.u1 == g_s1 + st.Q * e_neg)
         return out
 
+    # -- FSDKRC_RLC: the PDL rows folded a receiver at a time -----------
+    def _pdl_rlc_prepare(self, items):
+        """Gate rows, recompute challenges, and fold the live rows into
+        one mod-N~ and one mod-n^2 RLC group a receiver (the rows
+        addressed to one receiver share its (h1, h2, N~) and Paillier
+        key). Returns (cols, state): cols is ONE joint column holding
+        every group's phase-1 rows (eq3's aggregate prod u3^rho z^(rho e);
+        eq2's s2-aggregate and its u2/c aggregate), which powm_columns
+        pools with any co-launched joint column. Each mod-N~ group's
+        merged h1/h2 row goes to fold_ladder2 in _pdl_rlc_finish, and so
+        does phase 2, each s2-aggregate raised to n. An out-of-domain row
+        enters no fold and is force-failed in finish."""
+        row_ok = [PDLwSlackProof.domain_gate(p, st) for p, st in items]
+        e_vec = [
+            PDLwSlackProof._challenge(st, p.z, p.u1, p.u2, p.u3, self.config.hash_alg)
+            if ok
+            else 0
+            for (p, st), ok in zip(items, row_ok)
+        ]
+        nt_groups: Dict[tuple, List[int]] = {}
+        nn_groups: Dict[tuple, List[int]] = {}
+        for i, ((_, st), ok) in enumerate(zip(items, row_ok)):
+            if ok:
+                nt_groups.setdefault((st.h1, st.h2, st.N_tilde), []).append(i)
+                nn_groups.setdefault((st.ek.n, st.ek.nn), []).append(i)
+
+        mb, me, mm = [], [], []
+        nt_plan = []  # (row indices, slot in nt_lhs, position of the rhs row)
+        nt_lhs = []  # the merged 2-term (h1, h2) rows, for fold_ladder2
+        for (h1, h2, nt), idxs in nt_groups.items():
+            rho = rlc.sample_rhos(len(idxs))
+            lhs, rhs = PDLwSlackProof.rlc_fold_nt(
+                h1, h2, nt, self._pdl_nt_rows(items, e_vec, idxs), rho)
+            nt_plan.append((idxs, len(nt_lhs), len(mm)))
+            nt_lhs.append(lhs)
+            mb.append(rhs[0])
+            me.append(rhs[1])
+            mm.append(rhs[2])
+        nn_plan = []  # (row indices, n, nn, gs1, s2 position, commit position)
+        for (n, nn), idxs in nn_groups.items():
+            rho = rlc.sample_rhos(len(idxs))
+            s2_row, commit_row, gs1 = PDLwSlackProof.rlc_fold_nn(
+                n, nn, self._pdl_nn_rows(items, e_vec, idxs), rho)
+            nn_plan.append((idxs, n, nn, gs1, len(mm), len(mm) + 1))
+            for b, e, m in (s2_row, commit_row):
+                mb.append(b)
+                me.append(e)
+                mm.append(m)
+        groups = len(nt_plan) + len(nn_plan)
+        rlc.count("rlc_groups", groups)
+        rlc.count("rows_folded", sum(len(g[0]) for g in nt_plan)
+                  + sum(len(g[0]) for g in nn_plan))
+        # eq3's merged h1/h2 ladder and eq2's phase-2 power: one full-width
+        # chain a group
+        rlc.count("fullwidth_ladders", groups)
+        return ((mb, me, mm),), (e_vec, row_ok, nt_plan, nn_plan, nt_lhs)
+
+    @staticmethod
+    def _pdl_nt_rows(items, e_vec, idxs):
+        """rlc_fold_nt's row layout: (z, u3, e, s1, s3) a row."""
+        return [(items[i][0].z, items[i][0].u3, e_vec[i], items[i][0].s1, items[i][0].s3)
+                for i in idxs]
+
+    @staticmethod
+    def _pdl_nn_rows(items, e_vec, idxs):
+        """rlc_fold_nn's row layout: (u2, c, e, s1, s2) a row."""
+        return [(items[i][0].u2, items[i][1].ciphertext, e_vec[i], items[i][0].s1,
+                 items[i][0].s2)
+                for i in idxs]
+
+    @staticmethod
+    def _pdl_eq3_exact(items, e_vec, i) -> bool:
+        """The column form's mod-N~ equality for exactly row i (a
+        bisection leaf)."""
+        p, st = items[i]
+        nt = st.N_tilde
+        lhs = p.u3 % nt * intops.mod_pow(p.z % nt, e_vec[i], nt) % nt
+        rhs = intops.mod_pow(st.h1 % nt, p.s1, nt) * intops.mod_pow(st.h2 % nt, p.s3, nt) % nt
+        return lhs == rhs
+
+    @staticmethod
+    def _pdl_eq2_exact(items, e_vec, i) -> bool:
+        """The column form's mod-n^2 equality for exactly row i."""
+        p, st = items[i]
+        n, nn = st.ek.n, st.ek.nn
+        lhs = p.u2 % nn * intops.mod_pow(st.ciphertext % nn, e_vec[i], nn) % nn
+        gs1 = (1 + (p.s1 % n) * n) % nn
+        return lhs == gs1 * intops.mod_pow(p.s2 % nn, n, nn) % nn
+
+    def _pdl_nt_subset_check(self, items, e_vec, h1, h2, nt, sub) -> bool:
+        """A fresh-rho combined mod-N~ check over a row subset (a
+        bisection node), on the host: bisection is the rare adversarial
+        path, run only inside a group whose combined check failed."""
+        rho = rlc.sample_rhos(len(sub))
+        lhs, rhs = PDLwSlackProof.rlc_fold_nt(h1, h2, nt, self._pdl_nt_rows(items, e_vec, sub),
+                                              rho)
+        va, vb = multi_powm([lhs[0], rhs[0]], [lhs[1], rhs[1]], [nt, nt], device=None)
+        return va == vb
+
+    def _pdl_nn_subset_check(self, items, e_vec, n, nn, sub) -> bool:
+        """A fresh-rho combined mod-n^2 check over a row subset, on the
+        host."""
+        rho = rlc.sample_rhos(len(sub))
+        s2_row, commit_row, gs1 = PDLwSlackProof.rlc_fold_nn(
+            n, nn, self._pdl_nn_rows(items, e_vec, sub), rho)
+        av, cv = multi_powm([s2_row[0], commit_row[0]], [s2_row[1], commit_row[1]], [nn, nn],
+                            device=None)
+        return cv == gs1 * intops.mod_pow(av, n, nn) % nn
+
+    def _pdl_rlc_finish(self, items, state, results):
+        """Compare each group's folded equation, bisect the failing groups
+        down to exact per-row verdicts, and give the same (u1, u2, u3)
+        triples as _pdl_finish. On the device: every mod-N~ group's merged
+        h1/h2 row in one fold_ladder2 call, every s2-aggregate to the n in
+        one generic launch."""
+        e_vec, row_ok, nt_plan, nn_plan, nt_lhs = state
+        (multi_res,) = results
+        ok2_vec = [False] * len(items)
+        ok3_vec = [False] * len(items)
+        lhs_vals = fold_ladder2(nt_lhs, self.device)
+        for idxs, lhs_slot, rhs_pos in nt_plan:
+            if lhs_vals[lhs_slot] == multi_res[rhs_pos]:
+                verdicts = dict.fromkeys(idxs, True)
+            else:
+                rlc.count("bisect_fallbacks")
+                st0 = items[idxs[0]][1]
+                verdicts = rlc.bisect_rows(
+                    idxs,
+                    lambda sub, st0=st0: self._pdl_nt_subset_check(
+                        items, e_vec, st0.h1, st0.h2, st0.N_tilde, sub),
+                    lambda i: self._pdl_eq3_exact(items, e_vec, i))
+            for i, v in verdicts.items():
+                ok3_vec[i] = v
+        # phase 2: each group's s2-aggregate to the n-th power, the group's
+        # one remaining full-width chain
+        a_pow = self._modexp([multi_res[g[4]] for g in nn_plan], [g[1] for g in nn_plan],
+                             [g[2] for g in nn_plan])
+        for (idxs, n, nn, gs1, _, commit_pos), ap in zip(nn_plan, a_pow):
+            if multi_res[commit_pos] == gs1 * ap % nn:
+                verdicts = dict.fromkeys(idxs, True)
+            else:
+                rlc.count("bisect_fallbacks")
+                verdicts = rlc.bisect_rows(
+                    idxs,
+                    lambda sub, n=n, nn=nn: self._pdl_nn_subset_check(items, e_vec, n, nn, sub),
+                    lambda i: self._pdl_eq2_exact(items, e_vec, i))
+            for i, v in verdicts.items():
+                ok2_vec[i] = v
+        ok1_vec = self._pdl_u1_batch(items, e_vec)
+        out = []
+        for idx in range(len(items)):
+            ok1 = ok1_vec[idx] and row_ok[idx]
+            ok2, ok3 = ok2_vec[idx], ok3_vec[idx]
+            out.append(None if (ok1 and ok2 and ok3) else (ok1, ok2, ok3))
+        return out
+
+    def _pdl_layout(self, items):
+        """(cols, state, finish) of the PDL family under the knobs: the RLC
+        fold, else the joint or column layout."""
+        if rlc.rlc_enabled():
+            cols, state = self._pdl_rlc_prepare(items)
+            return cols, state, self._pdl_rlc_finish
+        cols, state = self._pdl_prepare(items, joint=multiexp_enabled())
+        return cols, state, self._pdl_finish
+
     def verify_pdl(self, items):
         if not items:
             return []
-        cols, state = self._pdl_prepare(items, joint=multiexp_enabled())
-        return self._pdl_finish(items, state, powm_columns(self._modexp, *cols))
+        cols, state, finish = self._pdl_layout(items)
+        return finish(items, state, powm_columns(self._modexp, *cols))
 
     # ------------------------------------------------------------------
     def _range_gate(self, items):
@@ -480,12 +657,14 @@ class CudaBatchVerifier(BatchVerifier):
         """Both pair-loop families through ONE fused launch set: every
         modexp column submitted together, so same-width columns across
         families share launches, and under FSDKRC_MULTIEXP both families'
-        joint mod-n^2 rows share one Straus launch. Under FSDKRC_RANGEOPT
-        the range family's engines run as thunks after the PDL columns."""
+        joint mod-n^2 rows share one Straus launch. Under FSDKRC_RLC the
+        PDL family's column is its RLC fold's joint column (the range
+        family never folds). Under FSDKRC_RANGEOPT the range family's
+        engines run as thunks after the PDL columns; without it, the PDL
+        columns pool with the range columns in one powm_columns call."""
         if not pdl_items or not range_items:
             return self.verify_pdl(pdl_items), self.verify_range(range_items)
-        joint = multiexp_enabled()
-        pcols, state = self._pdl_prepare(pdl_items, joint=joint)
+        pcols, state, pdl_finish = self._pdl_layout(pdl_items)
         if rangeopt_enabled():
             rstate = self._range_opt_prepare(range_items)
             presults = [None]
@@ -495,13 +674,13 @@ class CudaBatchVerifier(BatchVerifier):
 
             run_jobs([pdl_job] + self._range_opt_jobs(range_items, rstate))
             return (
-                self._pdl_finish(pdl_items, state, presults[0]),
+                pdl_finish(pdl_items, state, presults[0]),
                 self._range_opt_finish(range_items, rstate),
             )
-        rcols, rmods = self._range_prepare(range_items, joint=joint)
+        rcols, rmods = self._range_prepare(range_items, joint=multiexp_enabled())
         results = powm_columns(self._modexp, *pcols, *rcols)
         return (
-            self._pdl_finish(pdl_items, state, results[: len(pcols)]),
+            pdl_finish(pdl_items, state, results[: len(pcols)]),
             self._range_finish(range_items, rmods, results[len(pcols) :]),
         )
 
@@ -525,6 +704,8 @@ class CudaBatchVerifier(BatchVerifier):
     def verify_ring_pedersen(self, items, m_security):
         if not items:
             return []
+        if rlc.rlc_enabled():
+            return self._ring_pedersen_rlc(items, m_security)
         bases, exps, moduli, rhs_a, rhs_s = [], [], [], [], []
         shapes_ok = []
         for proof, st in items:
@@ -557,6 +738,67 @@ class CudaBatchVerifier(BatchVerifier):
             out.append(good)
         return out
 
+    def _ring_pedersen_rlc(self, items, m_security):
+        """FSDKRC_RLC: each proof's M rows, all sharing (T, S, N), fold into
+        one RLC group (RingPedersenProof.rlc_fold): one full-width T-ladder
+        (a flat column, T^(sum rho Z)) and one joint row of M + 1 short
+        terms (prod A^rho * S^(sum rho e)), both columns in one
+        powm_columns call, instead of M full-width comb rows. A failing
+        group bisects on the host down to the exact per-row equations."""
+        shapes_ok = []
+        plan = []  # (proof, st, bits)
+        lhs_b, lhs_e, lhs_m = [], [], []
+        mb, me, mm = [], [], []
+        for proof, st in items:
+            ok = self._ring_pedersen_gate(proof, st, m_security)
+            shapes_ok.append(ok)
+            if not ok:
+                continue
+            e = RingPedersenProof._challenge(proof.A, self.config.hash_alg)
+            bits = challenge_bits(e, m_security, self.config.hash_alg)
+            lhs, rhs = RingPedersenProof.rlc_fold(st, proof, bits, rlc.sample_rhos(m_security))
+            plan.append((proof, st, bits))
+            lhs_b.append(lhs[0][0])
+            lhs_e.append(lhs[1][0])
+            lhs_m.append(lhs[2])
+            mb.append(rhs[0])
+            me.append(rhs[1])
+            mm.append(rhs[2])
+        if not plan:
+            return [False] * len(items)
+        rlc.count("rlc_groups", len(plan))
+        rlc.count("rows_folded", len(plan) * m_security)
+        rlc.count("fullwidth_ladders", len(plan))
+        lhs_vals, rhs_vals = powm_columns(self._modexp, (lhs_b, lhs_e, lhs_m), (mb, me, mm))
+
+        verdicts = iter(zip(plan, lhs_vals, rhs_vals))
+        out = []
+        for ok in shapes_ok:
+            if not ok:
+                out.append(False)
+                continue
+            (proof, st, bits), lhs, rhs = next(verdicts)
+            if lhs == rhs:
+                out.append(True)
+                continue
+            rlc.count("bisect_fallbacks")
+
+            def check(sub, proof=proof, st=st, bits=bits):
+                rho = rlc.sample_rhos(len(sub))
+                e_merged = sum(r * proof.Z[i] for r, i in zip(rho, sub))
+                e_s = sum(r for r, i in zip(rho, sub) if bits[i])
+                (rhs,) = multi_powm([tuple(proof.A[i] for i in sub) + (st.S,)],
+                                    [tuple(rho) + (e_s,)], [st.N], device=None)
+                return intops.mod_pow(st.T % st.N, e_merged, st.N) == rhs
+
+            def row_check(i, proof=proof, st=st, bits=bits):
+                return (intops.mod_pow(st.T % st.N, proof.Z[i], st.N)
+                        == proof.A[i] * (st.S if bits[i] else 1) % st.N)
+
+            rows = rlc.bisect_rows(range(m_security), check, row_check)
+            out.append(all(rows[i] for i in range(m_security)))
+        return out
+
     # ------------------------------------------------------------------
     def _correct_key_gate(self, proof, ek, rounds) -> bool:
         """Wire-ek gate (parity / small-factor / width cap)."""
@@ -574,6 +816,8 @@ class CudaBatchVerifier(BatchVerifier):
     def verify_correct_key(self, items, rounds):
         if not items:
             return []
+        if rlc.rlc_enabled():
+            return self._correct_key_rlc(items, rounds)
         bases, exps, moduli, want = [], [], [], []
         gates = []
         for proof, ek in items:
@@ -602,6 +846,65 @@ class CudaBatchVerifier(BatchVerifier):
             good = all(got[row + i] == want[row + i] for i in range(rounds))
             row += rounds
             out.append(good)
+        return out
+
+    def _correct_key_rlc(self, items, rounds):
+        """FSDKRC_RLC: each proof's `rounds` checks sigma_i^N == rho_i
+        (mod N) fold into (prod sigma_i^r_i)^N == prod rho_i^r_i
+        (NiCorrectKeyProof.rlc_fold): phase 1, one joint column of every
+        proof's sigma and rho aggregates; phase 2, each sigma-aggregate to
+        the N in one generic launch, one full-width chain a proof instead
+        of `rounds`. A failing proof bisects on the host."""
+        gates = []
+        plan = []  # (sigma_vec, want, n, sigma position, target position)
+        mb, me, mm = [], [], []
+        for proof, ek in items:
+            gate = self._correct_key_gate(proof, ek, rounds)
+            gates.append(gate)
+            if not gate:
+                continue
+            n = ek.n
+            want = [correct_key._derive_rho(n, correct_key.SALT_STRING, i, self.config.hash_alg)
+                    for i in range(rounds)]
+            sig_row, tgt_row = correct_key.NiCorrectKeyProof.rlc_fold(
+                proof.sigma_vec, want, n, rlc.sample_rhos(rounds))
+            plan.append((proof.sigma_vec, want, n, len(mm), len(mm) + 1))
+            for b, e, m in (sig_row, tgt_row):
+                mb.append(b)
+                me.append(e)
+                mm.append(m)
+        if not plan:
+            return [False] * len(items)
+        rlc.count("rlc_groups", len(plan))
+        rlc.count("rows_folded", len(plan) * rounds)
+        rlc.count("fullwidth_ladders", len(plan))
+        (multi_res,) = powm_columns(self._modexp, (mb, me, mm))
+        a_pow = self._modexp([multi_res[g[3]] for g in plan], [g[2] for g in plan],
+                             [g[2] for g in plan])
+
+        verdicts = iter(zip(plan, a_pow))
+        out = []
+        for gate in gates:
+            if not gate:
+                out.append(False)
+                continue
+            (sigma_vec, want, n, _, tgt_pos), ap = next(verdicts)
+            if ap == multi_res[tgt_pos]:
+                out.append(True)
+                continue
+            rlc.count("bisect_fallbacks")
+
+            def check(sub, sigma_vec=sigma_vec, want=want, n=n):
+                rho = tuple(rlc.sample_rhos(len(sub)))
+                sv, wv = multi_powm([tuple(sigma_vec[i] for i in sub), tuple(want[i] for i in sub)],
+                                    [rho, rho], [n, n], device=None)
+                return intops.mod_pow(sv, n, n) == wv
+
+            def row_check(i, sigma_vec=sigma_vec, want=want, n=n):
+                return intops.mod_pow(sigma_vec[i], n, n) == want[i]
+
+            rows = rlc.bisect_rows(range(rounds), check, row_check)
+            out.append(all(rows[i] for i in range(rounds)))
         return out
 
     # ------------------------------------------------------------------

@@ -662,10 +662,11 @@ def joint_comb2_groups(groups, device="cuda") -> List[List[int]]:
 
 
 def fold_ladder2(rows, device="cuda") -> List[int]:
-    """Merged 2-term shared-base fold rows [((b1, b2), (e1, e2), mod), ...]
-    (the JAX package's fold_ladder2). Its device branch is plain
-    multi_powm, which this is; the host's persistent comb-table cache
-    belongs to the RLC path, not ported."""
+    """Merged 2-term shared-base fold rows [((b1, b2), (e1, e2), mod), ...]:
+    the h1^S1 * h2^S3 mod N~ row of each PDL RLC group (the JAX package's
+    fold_ladder2). Every device route of the JAX package takes plain
+    multi_powm here, as this does; its persistent comb-table cache is for
+    its host route only."""
     if not rows:
         return []
     return multi_powm([r[0] for r in rows], [r[1] for r in rows], [r[2] for r in rows], device)

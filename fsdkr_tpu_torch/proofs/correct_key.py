@@ -112,6 +112,26 @@ class NiCorrectKeyProof:
             for k in range(len(dks))
         ]
 
+    @staticmethod
+    def rlc_fold(sigma_vec, rho_targets, n: int, rhos):
+        """Fold the per-round checks sigma_i^N == rho_i (mod N) into one
+        Bellare-Garay-Rabin small-exponent RLC check
+
+            (prod_i sigma_i^{rho_i})^N == prod_i rho_i^{rho_i}  (mod N)
+
+        over the caller's secret fresh 128-bit coefficients (the shared
+        exponent N factors out of the combination, so the proof's
+        `rounds` full-width ladders collapse to ONE). Returns
+        (sigma_row, target_row) joint multi-exponentiation rows riding
+        short aggregated chains; the caller raises sigma_row's result to
+        N — the single remaining full-width ladder — and compares.
+        Domain gating (verify's parity/small-factor/range checks) must
+        run BEFORE aggregation."""
+        return (
+            (tuple(sigma_vec), tuple(rhos), n),
+            (tuple(rho_targets), tuple(rhos), n),
+        )
+
     def verify(
         self,
         ek: EncryptionKey,

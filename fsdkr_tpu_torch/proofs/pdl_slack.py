@@ -272,6 +272,65 @@ class PDLwSlackProof:
             and proof.s3.bit_length() <= st.N_tilde.bit_length() + 832
         )
 
+    @staticmethod
+    def rlc_fold_nt(h1: int, h2: int, n_tilde: int, rows, rhos):
+        """Fold the mod-N~ equations u3_j * z_j^{e_j} == h1^{s1_j} h2^{s3_j}
+        of the rows sharing one receiver statement (h1, h2, N~) into one
+        Bellare-Garay-Rabin small-exponent RLC check
+
+            h1^{sum rho_j s1_j} * h2^{sum rho_j s3_j}
+                == prod_j u3_j^{rho_j} * prod_j z_j^{rho_j e_j}  (mod N~)
+
+        rows: [(z, u3, e, s1, s3)] per proof, already domain-gated.
+        Returns (lhs_row, rhs_row) joint multi-exponentiation rows: the
+        shared bases h1/h2 merge their exponents into lhs's single
+        full-width 2-term ladder; the per-row bases keep only short
+        (128/384-bit) exponents on rhs's aggregated chain."""
+        s1_merged = sum(r * s1 for r, (_, _, _, s1, _) in zip(rhos, rows))
+        s3_merged = sum(r * s3 for r, (_, _, _, _, s3) in zip(rhos, rows))
+        lhs = ((h1, h2), (s1_merged, s3_merged), n_tilde)
+        rhs = (
+            tuple(u3 for _, u3, _, _, _ in rows)
+            + tuple(z for z, _, _, _, _ in rows),
+            tuple(rhos)
+            + tuple(r * e for r, (_, _, e, _, _) in zip(rhos, rows)),
+            n_tilde,
+        )
+        return lhs, rhs
+
+    @staticmethod
+    def rlc_fold_nn(n: int, nn: int, rows, rhos):
+        """Fold the mod-n^2 equations u2_j * c_j^{e_j} == (1+n)^{s1_j} s2_j^n
+        of the rows sharing one receiver Paillier key into
+
+            prod_j u2_j^{rho_j} * prod_j c_j^{rho_j e_j}
+                == (1 + (sum rho_j s1_j) n) * (prod_j s2_j^{rho_j})^n  (mod n^2)
+
+        rows: [(u2, c, e, s1, s2)] per proof, already domain-gated.
+        (1+n)^x has the closed form 1 + (x mod n) n, so the whole
+        combined g-term costs one host multiply. Returns (s2_row,
+        commit_row, gs1): s2_row aggregates prod s2_j^{rho_j} on a short
+        chain — the caller raises its result to n, the group's single
+        remaining full-width ladder — and commit_row aggregates the
+        u2/c side; gs1 is the closed-form combined (1+n)-power."""
+        s2_row = (
+            tuple(s2 for _, _, _, _, s2 in rows),
+            tuple(rhos),
+            nn,
+        )
+        commit_row = (
+            tuple(u2 for u2, _, _, _, _ in rows)
+            + tuple(c for _, c, _, _, _ in rows),
+            tuple(rhos)
+            + tuple(r * e for r, (_, _, e, _, _) in zip(rhos, rows)),
+            nn,
+        )
+        s1_merged = sum(
+            r * (s1 % n) for r, (_, _, _, s1, _) in zip(rhos, rows)
+        )
+        gs1 = (1 + (s1_merged % n) * n) % nn
+        return s2_row, commit_row, gs1
+
     def verify(self, st: PDLwSlackStatement, hash_alg: str | None = None) -> None:
         """Raises PDLwSlackProofError with per-equation booleans on failure
         (reference `src/zk_pdl_with_slack.rs:158-166`).

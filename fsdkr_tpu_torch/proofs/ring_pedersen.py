@@ -148,6 +148,30 @@ class RingPedersenProof:
         intops.zeroize_ints(*a_all)  # drop the commitment nonces
         return out
 
+    @staticmethod
+    def rlc_fold(st: "RingPedersenStatement", proof: "RingPedersenProof",
+                 bits, rhos):
+        """Fold the M binary-challenge rows T^{Z_i} == A_i * S^{e_i}
+        (mod N) into one Bellare-Garay-Rabin small-exponent RLC check
+
+            T^{sum_i rho_i Z_i} == prod_i A_i^{rho_i} * S^{sum_{e_i=1} rho_i}
+
+        over the caller's secret fresh rho_i (backend.rlc). Both sides
+        are products of non-negative powers (no inversions), so the fold
+        is evaluated as an equality of two computed elements. Returns
+        (lhs_row, rhs_row) as (bases, exps, modulus) joint
+        multi-exponentiation rows: lhs is the proof's ONE remaining
+        full-width ladder (T's per-row exponents merge into a single
+        ~|N|+136-bit exponent); rhs rides a short aggregated chain — M+1
+        terms whose exponents are only 128-136 bits wide. Domain gating
+        (verify's shape/range checks) must run BEFORE aggregation: the
+        caller folds only in-domain proofs."""
+        e_merged = sum(r * z for r, z in zip(rhos, proof.Z))
+        e_s = sum(r for r, b in zip(rhos, bits) if b)
+        lhs = ((st.T,), (e_merged,), st.N)
+        rhs = (tuple(proof.A) + (st.S,), tuple(rhos) + (e_s,), st.N)
+        return lhs, rhs
+
     def verify(
         self,
         st: RingPedersenStatement,

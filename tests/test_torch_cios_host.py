@@ -119,10 +119,15 @@ def _multi_call(lib, bases, exps, n, ni, r2, one, widths, threads=None):
 
 
 # (K, rows, widths), one block a row: 13 rows; 16 terms on one block;
-# K=130, an odd word count; 1 row. Each case's rows: modulus 3, zero
+# K=130, an odd word count; 1 row; the RLC folds' odd shapes: a 1-term row
+# (the ring-Pedersen S term left over from a 257-term row cut at 16
+# terms), at K=16 and at the 2048-bit K=128, and the shape of
+# fold_ladder2's merged (h1, h2) row, one term three times as wide as the
+# other (3072 and 1024 bits on the card). Each case's rows: modulus 3, zero
 # exponents, random, and (from 4 rows) the last one worst-case
 MULTI_CASES = [(16, 13, (128, 64, 64)), (16, 4, tuple(64 + 16 * (t < 8) for t in range(16))),
-               (130, 4, (64, 32)), (16, 1, (64, 32))]
+               (130, 4, (64, 32)), (16, 1, (64, 32)), (16, 4, (256,)), (128, 2, (256,)),
+               (16, 4, (1536, 512))]
 
 
 @pytest.mark.parametrize("k, rows, widths", MULTI_CASES)

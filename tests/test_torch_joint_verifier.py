@@ -1,6 +1,8 @@
 """The verifier's and provers' layouts under FSDKRC_MULTIEXP and
 FSDKRC_RANGEOPT (backend.cuda_verifier, proofs.pdl_slack,
-proofs.alice_range), on device="cpu", against the JAX package.
+proofs.alice_range), on device="cpu", against the JAX package, with
+FSDKRC_RLC=0: the per-row layouts these knobs choose (the RLC arms are
+held in tests/test_torch_rlc.py).
 
 - `CudaBatchVerifier.verify_pairs`, `verify_pdl` and `verify_range`
   under all four combinations of the two knobs give the per-row verdicts
@@ -171,6 +173,7 @@ def reference_verdicts(pair_items):
 def test_pair_verdicts_match_reference_under_each_layout(pair_items, reference_verdicts,
                                                          monkeypatch, multiexp, rangeopt):
     (pdl_items, range_items), _ = pair_items
+    monkeypatch.setenv("FSDKRC_RLC", "0")
     monkeypatch.setenv("FSDKRC_MULTIEXP", "1" if multiexp else "0")
     monkeypatch.setenv("FSDKRC_RANGEOPT", "off" if not rangeopt else "on")
     calls = {}

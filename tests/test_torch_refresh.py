@@ -130,20 +130,31 @@ def _collect_like_reference(reference_round, config):
 
 
 def test_port_collect_matches_reference_collect(reference_round, monkeypatch):
-    """Under the defaults (FSDKRC_MULTIEXP and FSDKRC_RANGEOPT on): the
-    PDL joint rows on the Straus kernel's plain version, the range
-    u-powers on the shared-exponent one."""
+    """Under the defaults (FSDKRC_RLC, FSDKRC_MULTIEXP and FSDKRC_RANGEOPT
+    on) against the JAX package's default collect (FSDKR_RLC on): the PDL,
+    ring-Pedersen and correct-key rows folded (their aggregated rows on
+    the Straus kernel's plain version, no bisection), the range u-powers
+    on the shared-exponent one."""
+    from fsdkr_tpu.backend import rlc as jrlc
+    from fsdkr_tpu_torch.backend import rlc
     from fsdkr_tpu_torch.ops import montgomery_kernels
 
-    for knob in ("FSDKRC_MULTIEXP", "FSDKRC_RANGEOPT"):
+    for knob in ("FSDKRC_RLC", "FSDKRC_MULTIEXP", "FSDKRC_RANGEOPT", "FSDKR_RLC"):
         monkeypatch.delenv(knob, raising=False)
+    assert rlc.rlc_enabled() and jrlc.rlc_enabled()
     calls = []
     for name in ("multi_modexp", "shared_exp_segments"):
         raw = getattr(montgomery_kernels, name)
         monkeypatch.setattr(montgomery_kernels, name,
                             lambda *a, _raw=raw, _n=name, **kw: calls.append(_n) or _raw(*a, **kw))
+    rlc.stats_reset()
     _collect_like_reference(reference_round, PORT_CONFIG)
     assert sorted(set(calls)) == ["multi_modexp", "shared_exp_segments"]
+    # a collect: n receivers x (mod N~, mod n^2) PDL groups, n ring-Pedersen
+    # and n correct-key proofs; one full-width ladder a group
+    stats = rlc.stats()
+    assert stats["rlc_groups"] == stats["fullwidth_ladders"] == N * 4 * N
+    assert stats["bisect_fallbacks"] == 0
 
 
 @pytest.mark.parametrize("route", ["cios", "rns", "comb"])
@@ -156,12 +167,14 @@ def test_port_collect_through_each_route_matches_reference(
     engine's tree) adopts the key the JAX collect adopts. `comb`: the
     CIOS engine with the JAX package's grouping rule (groups of 4 rows,
     any count), so the ring-Pedersen column's groups take the fixed-base
-    comb at this size. On the column path (FSDKRC_MULTIEXP and
-    FSDKRC_RANGEOPT off): the joint path's Straus and shared-exponent
-    kernels have no RNS form."""
+    comb at this size. On the column path (FSDKRC_RLC, FSDKRC_MULTIEXP
+    and FSDKRC_RANGEOPT off): the Straus and shared-exponent kernels,
+    which the RLC folds and the joint layouts launch, have no RNS form,
+    and the ring-Pedersen comb rows fold away under RLC."""
     from fsdkr_tpu_torch.backend import powm
     from fsdkr_tpu_torch.ops import montgomery, montgomery_kernels, rns
 
+    monkeypatch.setenv("FSDKRC_RLC", "0")
     monkeypatch.setenv("FSDKRC_MULTIEXP", "0")
     monkeypatch.setenv("FSDKRC_RANGEOPT", "0")
 
@@ -316,6 +329,72 @@ def test_tampered_family_raises_like_reference(reference_round, family):
     )
     assert getattr(e, "party_index", None) == getattr(j, "party_index", None)
     assert key_fields(port_key) == key_fields(jax_key)
+
+
+def _replace_item(vec, i, **fields):
+    vec[i] = dataclasses.replace(vec[i], **fields)
+
+
+# the JAX package's RLC tamper set (tests/test_tamper.py's RLC_CASES): every
+# folded family, the range family (never folded) and a domain-gated row
+RLC_TAMPERS = {
+    "pdl_proof_s1": lambda m: _replace_item(m[1].pdl_proof_vec, 0,
+                                            s1=m[1].pdl_proof_vec[0].s1 + 1),
+    "range_proof_s": lambda m: _replace_item(m[1].range_proofs, 0,
+                                             s=m[1].range_proofs[0].s + 1),
+    "ring_pedersen_Z": lambda m: m[1].ring_pedersen_proof.Z.__setitem__(
+        0, m[1].ring_pedersen_proof.Z[0] + 1),
+    "correct_key_sigma": lambda m: m[1].dk_correctness_proof.sigma_vec.__setitem__(
+        0, m[1].dk_correctness_proof.sigma_vec[0] + 1),
+    "negative_pdl_s3": lambda m: _replace_item(m[1].pdl_proof_vec, 0, s3=-5),
+}
+
+
+def _err_key(e):
+    return (type(e).__name__, getattr(e, "is_u1_eq", None), getattr(e, "is_u2_eq", None),
+            getattr(e, "is_u3_eq", None), getattr(e, "party_index", None))
+
+
+@pytest.mark.parametrize("case", sorted(RLC_TAMPERS))
+def test_rlc_tamper_cases_raise_like_reference(reference_round, case, monkeypatch):
+    """Each of the JAX package's RLC tamper cases raises the same error
+    (class and attribution fields) in the port's collect at FSDKRC_RLC=1
+    and at 0, and in the JAX package's collect at FSDKR_RLC=1 (its host
+    engines, as its own RLC tests run it); the PDL error names the
+    tampered sender."""
+    from fsdkr_tpu.backend import rlc as jrlc
+    from fsdkr_tpu_torch.backend import rlc
+
+    keys, msgs, dks = reference_round
+    bad = copy.deepcopy(msgs)
+    RLC_TAMPERS[case](bad)
+    with pytest.MonkeyPatch.context() as mp:
+        for knob, value in (("FSDKR_RLC", "1"), ("FSDKR_DEVICE_POWM", "0"),
+                            ("FSDKR_DEVICE_EC", "0")):
+            mp.setenv(knob, value)
+        with pytest.raises(Exception) as jax_err:
+            JaxRefresh.collect(copy.deepcopy(bad), copy.deepcopy(keys[0]),
+                               copy.deepcopy(dks[0]), config=JAX_CONFIG)
+        assert jrlc.rlc_enabled()
+    got = {}
+    for leg in ("1", "0"):
+        monkeypatch.setenv("FSDKRC_RLC", leg)
+        rlc.stats_reset()
+        with pytest.raises(Exception) as port_err:
+            RefreshMessage.collect(from_reference(bad), from_reference(keys[0]),
+                                   from_reference(dks[0]), PORT_CONFIG)
+        got[leg] = _err_key(port_err.value)
+        assert (rlc.stats()["rlc_groups"] > 0) == (leg == "1")
+    assert got["1"] == got["0"]
+    j = _err_key(jax_err.value)
+    assert got["1"][0] in ("PDLwSlackProofError", "RangeProofError",
+                           "RingPedersenProofError", "PaillierVerificationError")
+    if got["1"][0] == "PDLwSlackProofError":
+        # the port's PDL error also names the sender (the JAX package's
+        # carries the verdict tuple alone)
+        assert got["1"][:4] == j[:4] and got["1"][4] == bad[1].party_index
+    else:
+        assert got["1"] == j
 
 
 def test_composite_dlog_verdicts_match_host_verifier():
