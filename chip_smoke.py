@@ -126,11 +126,25 @@ Phases:
            gives FSDKRC_RLC=0's whole verdict vector, (True, False, True)
            at that row, through a bisection on the host. Profiles one
            collect and times another layer by layer.
+  join     join, replace and removal under the defaults, from main's keys
+           before its distribute, as the reference's add-party scenario:
+           parties 2 and 16 leave, the 14 survivors are remapped onto
+           their own indices reversed, two JoinMessage.distribute take
+           indices 2 and 16, then 14 replaces, 14 collects with both
+           joins and 2 JoinMessage.collect, each call's launches gated
+           (JOIN_DISTRIBUTE, JOIN_REPLACE, JOIN_COLLECT, JOIN_JOINER);
+           the keys' indices are 1..16, t+1 new shares holding both
+           joiners reconstruct the old secret and the group key, one
+           pk_vec with pk_vec[i-1] == G x_i, a quorum of t+1 holding both
+           joiners signs (simulate_offline_stage, simulate_signing), and a
+           joiner's tampered composite-dlog y and correct-key sigma raise
+           DLogProofValidation and PaillierVerificationError naming it.
   time     each kernel against its plain version at every shape its path
            (the routed path for the CIOS kernels, the RNS path for the
            RNS kernels, the joint and RLC paths for the Straus and
            shared-exponent kernels: the RLC folds' 1- to 16-term rows
-           among them) launched it with (one call, rows half random, half worst-case;
+           among them; the join round's own shapes for every kernel)
+           launched it with (one call, rows half random, half worst-case;
            bit-identical results); each kernel timed beside its bound on
            the H100 at every one of those shapes, and at its costliest
            shape beside its plain version too. Two times per launch: `ms`,
@@ -164,7 +178,7 @@ import subprocess
 import sys
 import time
 
-PHASES = ("env", "kernels", "routes", "main", "joint", "rlc", "time")
+PHASES = ("env", "kernels", "routes", "main", "joint", "rlc", "join", "time")
 
 # H100 SXM published peaks (dense): device memory rate and int8 tensor-core
 # rate. A 16x16-bit multiply-add counts as four 8-bit multiply-adds of two
@@ -998,7 +1012,7 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     for key, (_, dk) in zip(keys, out):
         s0 = powm_cache_stats()
         c0 = time.perf_counter()
-        RefreshMessage.collect(msgs, key, dk, config)
+        RefreshMessage.collect(msgs, key, dk, config=config)
         per_collect.append(time.perf_counter() - c0)
         s1 = powm_cache_stats()
         cache.append((s1["hits"] - s0["hits"], s1["misses"] - s0["misses"]))
@@ -1069,7 +1083,7 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     )
     t0 = time.perf_counter()
     try:
-        RefreshMessage.collect(bad, spare[0], spare[1], config)
+        RefreshMessage.collect(bad, spare[0], spare[1], config=config)
     except PDLwSlackProofError as e:
         if e.party_index != bad[sender].party_index:
             fail(f"PDL error blames party {e.party_index}, "
@@ -1168,7 +1182,8 @@ def _tampered_collect(msgs, spare, config, field):
     from fsdkr_tpu_torch.protocol import RefreshMessage
 
     try:
-        RefreshMessage.collect(bad, copy.deepcopy(spare[0]), copy.deepcopy(spare[1]), config)
+        RefreshMessage.collect(bad, copy.deepcopy(spare[0]), copy.deepcopy(spare[1]),
+                               config=config)
     except Exception as e:  # noqa: BLE001 - compared below, class and fields
         return e, bad[sender].party_index, row
     fail(f"a tampered {field} proof passed collect")
@@ -1224,7 +1239,7 @@ def phase_joint(dev, pre, n=16, t=8, bits=2048, m_security=256, rounds=11):
     per_collect = []
     for key, (_, dk) in zip(keys, out):
         c0 = time.perf_counter()
-        RefreshMessage.collect(msgs, key, dk, config)
+        RefreshMessage.collect(msgs, key, dk, config=config)
         per_collect.append(time.perf_counter() - c0)
     counts = launch_counts()
     shapes = {"cios_multi_modexp": dict(montgomery_kernels.multi_modexp.shapes),
@@ -1263,7 +1278,7 @@ def phase_joint(dev, pre, n=16, t=8, bits=2048, m_security=256, rounds=11):
         fail("joint: new shares do not reconstruct the group key, or pk_vec differs")
     with column_path():
         t0 = time.perf_counter()
-        RefreshMessage.collect(msgs, column_key[0], column_key[1], config)
+        RefreshMessage.collect(msgs, column_key[0], column_key[1], config=config)
         times["column_collect"] = time.perf_counter() - t0
     if to_fields(column_key[0]) != to_fields(keys[0]):
         fail("joint: the column path's collect of the same messages adopted another key")
@@ -1369,7 +1384,7 @@ def phase_rlc(dev, inputs, n=16, t=8, bits=2048, m_security=256, rounds=11):
     per_collect = []
     for key, dk in zip(keys, copy.deepcopy(dks)):
         c0 = time.perf_counter()
-        RefreshMessage.collect(msgs, key, dk, config)
+        RefreshMessage.collect(msgs, key, dk, config=config)
         per_collect.append(time.perf_counter() - c0)
     counts = {**montgomery_kernels.launch_counts(), **ec_kernels.launch_counts()}
     stats = rlc.stats()
@@ -1408,7 +1423,7 @@ def phase_rlc(dev, inputs, n=16, t=8, bits=2048, m_security=256, rounds=11):
     off_key = (copy.deepcopy(pre_keys[0]), copy.deepcopy(dks[0]))
     with knobs(FSDKRC_RLC="0"):
         t0 = time.perf_counter()
-        RefreshMessage.collect(msgs, off_key[0], off_key[1], config)
+        RefreshMessage.collect(msgs, off_key[0], off_key[1], config=config)
         times["rlc_off_collect"] = time.perf_counter() - t0
     if to_fields(off_key[0]) != to_fields(keys[0]):
         fail("rlc: the FSDKRC_RLC=0 collect of the same messages adopted another key")
@@ -1477,6 +1492,204 @@ def phase_rlc(dev, inputs, n=16, t=8, bits=2048, m_security=256, rounds=11):
     return counts, shapes, times
 
 
+# Launches of the join path (the defaults: FSDKRC_RLC, FSDKRC_MULTIEXP and
+# FSDKRC_RANGEOPT on) at n=16, t=8, 2048-bit, M=256, 11 correct-key rounds
+# (PERF.md section 2), worked out from the code and a CPU drive at n=16
+# (1024-bit, the wrappers counted on the CPU) before the first run on the
+# card. A JoinMessage.distribute: the ring-Pedersen prover's 256 rows share
+# (T, N), so the comb, its ladder and its table's four products;
+# correct-key's 11 rows one `cios_modexp`; the composite-dlog proofs on the
+# host. A replace: distribute_batch for one sender, as JOINT_DISTRIBUTE for
+# 16. A collect of 14 senders' messages with two joins: RLC_COLLECT's
+# launches, plus the joins' composite-dlog rows (g^y and ni^e, one
+# `cios_modexp` launch each, and their product, one `cios_modmul`), plus
+# one Straus launch (a receiver's 28-term PDL rows split at 16 into two
+# width shapes where 32 terms split into one). A JoinMessage.collect:
+# Feldman's and pk_vec's MSMs, ring-Pedersen's folds for 16 proofs (the
+# 257-term rows and the S row, then the T-ladders' `cios_modexp`).
+JOIN_DISTRIBUTE = {"cios_modexp": 1, "cios_comb": 1, "cios_comb_ladder": 1, "cios_mont_mul": 4}
+JOIN_REPLACE = {"cios_modexp": 3, "cios_multi_modexp": 2, "cios_comb": 1, "cios_comb_ladder": 1,
+                "cios_mont_mul": 4, "ec_scalar_mul": 3}
+JOIN_COLLECT = {"cios_modexp": 7, "cios_multi_modexp": 9, "cios_shared_exp": 1,
+                "cios_comb": 2, "cios_comb_ladder": 2, "cios_mont_mul": 8, "cios_modmul": 5,
+                "ec_scalar_mul": 3, "ec_tree_sum": 3}
+JOIN_JOINER = {"cios_modexp": 1, "cios_multi_modexp": 2, "ec_scalar_mul": 2, "ec_tree_sum": 2}
+
+
+def _launches():
+    from fsdkr_tpu_torch.ops import ec_kernels, montgomery_kernels, rns_kernels
+
+    return {**montgomery_kernels.launch_counts(), **ec_kernels.launch_counts(),
+            **rns_kernels.launch_counts()}
+
+
+def _sub(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
+def _gate_launches(label, got, want):
+    diff = {k: (got.get(k, 0), want.get(k, 0)) for k in set(got) | set(want)
+            if got.get(k, 0) != want.get(k, 0)}
+    if diff:
+        fail(f"join: launches in {label} (got, expected) {diff}")
+
+
+def phase_join(dev, pre, n=16, t=8, bits=2048, m_security=256, rounds=11):
+    """Join, replace and removal under the defaults, from the main phase's
+    keys before distribute, mirroring the reference's add-party scenario:
+    parties 2 and n leave, the n - 2 survivors are remapped by a fixed
+    permutation (the survivors' indices reversed) onto their own index
+    set, two JoinMessage.distribute take indices 2 and n, then n - 2
+    replaces, n - 2 collects with both joins and 2 JoinMessage.collect.
+    Every counter is zeroed just before the round and read just after;
+    each call's own launches are gated (JOIN_DISTRIBUTE, JOIN_REPLACE,
+    JOIN_COLLECT, JOIN_JOINER). Gates: the keys' indices are 1..n; t + 1
+    new shares, both joiners' among them, reconstruct the old secret,
+    whose multiple of G is the group key; every key holds one pk_vec with
+    pk_vec[i - 1] == G * x_i; a quorum of t + 1 holding both joiners
+    signs (simulate_offline_stage, simulate_signing); a joiner's tampered
+    composite-dlog y raises DLogProofValidation and its tampered
+    correct-key sigma PaillierVerificationError, both naming it. Returns
+    (the round's launches by kernel, its launch shapes, times)."""
+    import dataclasses
+
+    from fsdkr_tpu_torch import ProtocolConfig
+    from fsdkr_tpu_torch.backend import rlc
+    from fsdkr_tpu_torch.core import vss
+    from fsdkr_tpu_torch.core.secp256k1 import GENERATOR
+    from fsdkr_tpu_torch.errors import DLogProofValidation, PaillierVerificationError
+    from fsdkr_tpu_torch.ops import ec_kernels, montgomery_kernels, rns_kernels
+    from fsdkr_tpu_torch.protocol import (JoinMessage, RefreshMessage, simulate_offline_stage,
+                                          simulate_signing)
+
+    config = ProtocolConfig(
+        paillier_bits=bits, m_security=m_security, correct_key_rounds=rounds,
+        backend="cuda", device=dev.type,
+    )
+    if not rlc.rlc_enabled():
+        fail("join: FSDKRC_RLC is off")
+    removed = (2, n)
+    old = copy.deepcopy(pre)
+    params = vss.VerifiableSS(vss.ShamirSecretSharing(t, n))
+    old_secret = params.reconstruct(list(range(t + 1)),
+                                    [k.keys_linear.x_i for k in old[: t + 1]])
+    survivors = [k for k in old if k.i not in removed]
+    old_to_new = dict(zip([k.i for k in survivors], reversed([k.i for k in survivors])))
+    times = {"join_distribute": [], "replace": [], "collect": [], "joiner_collect": []}
+
+    def timed(key, fn, *args, **kwargs):
+        c0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        times[key].append(time.perf_counter() - c0)
+        return out
+
+    for mod in (rns_kernels, montgomery_kernels, ec_kernels):
+        mod.reset_launch_counts()
+    joins, pairs = [], []
+    for idx in removed:
+        before = _launches()
+        jm, pair = timed("join_distribute", JoinMessage.distribute, config)
+        _gate_launches("a JoinMessage.distribute", _sub(_launches(), before), JOIN_DISTRIBUTE)
+        jm.set_party_index(idx)
+        joins.append(jm)
+        pairs.append(pair)
+    msgs, dks = [], []
+    for key in survivors:
+        before = _launches()
+        msg, dk = timed("replace", RefreshMessage.replace, joins, key, old_to_new, n, config)
+        _gate_launches(f"party {msg.old_party_index}'s replace", _sub(_launches(), before),
+                       JOIN_REPLACE)
+        msgs.append(msg)
+        dks.append(dk)
+    if sorted(k.i for k in survivors) != [i for i in range(1, n + 1) if i not in removed]:
+        fail("join: replace did not remap the survivors onto their index set")
+    # the tampered collects run on copies of this pre-collect (key, dk), the
+    # profiled collect at the end on it
+    spare = (copy.deepcopy(survivors[0]), copy.deepcopy(dks[0]))
+    for key, dk in zip(survivors, dks):
+        before = _launches()
+        timed("collect", RefreshMessage.collect, msgs, key, dk, joins, config=config)
+        _gate_launches(f"party {key.i}'s collect", _sub(_launches(), before), JOIN_COLLECT)
+    new_keys = list(survivors)
+    for jm, pair in zip(joins, pairs):
+        before = _launches()
+        new_keys.append(timed("joiner_collect", jm.collect, msgs, pair, joins, t, n, config))
+        _gate_launches(f"joiner {jm.party_index}'s JoinMessage.collect",
+                       _sub(_launches(), before), JOIN_JOINER)
+    counts = _launches()
+    shapes = {
+        "cios_mont_mul": dict(montgomery_kernels.mont_mul.shapes),
+        "cios_modmul": dict(montgomery_kernels.modmul.shapes),
+        "cios_modexp": dict(montgomery_kernels.modexp_segments.shapes),
+        "cios_comb": dict(montgomery_kernels.comb.shapes),
+        "cios_comb_ladder": dict(montgomery_kernels.comb_ladder.shapes),
+        "cios_multi_modexp": dict(montgomery_kernels.multi_modexp.shapes),
+        "cios_shared_exp": dict(montgomery_kernels.shared_exp_segments.shapes),
+        "ec_scalar_mul": dict(ec_kernels.scalar_mul.shapes),
+        "ec_tree_sum": dict(ec_kernels.tree_sum.shapes),
+    }
+    log(f"join: the round's launches: {json.dumps(counts)}")
+    for name, by_shape in shapes.items():
+        log(f"join: {name} launches by shape: "
+            + ", ".join(f"{shape}: {c}" for shape, c in sorted(by_shape.items(), key=str)))
+    log(f"join: launches match PERF.md section 2: a JoinMessage.distribute {JOIN_DISTRIBUTE}, "
+        f"a replace {JOIN_REPLACE}, a collect {JOIN_COLLECT}, a JoinMessage.collect "
+        f"{JOIN_JOINER}")
+
+    keys = sorted(new_keys, key=lambda k: k.i)
+    if [k.i for k in keys] != list(range(1, n + 1)) or any(k.n != n for k in keys):
+        fail(f"join: the new committee's indices are {[k.i for k in keys]}")
+    # t + 1 parties holding both joiners
+    quorum = sorted([*removed, *[i for i in range(1, n + 1) if i not in removed][: t - 1]])
+    idx = [i - 1 for i in quorum]
+    secret = params.reconstruct(idx, [keys[i].keys_linear.x_i for i in idx])
+    if secret != old_secret or GENERATOR * secret != keys[0].y_sum_s:
+        fail("join: the new shares do not reconstruct the old secret and group key")
+    if any(k.pk_vec != keys[0].pk_vec for k in keys) or any(
+            k.pk_vec[k.i - 1] != GENERATOR * k.keys_linear.x_i for k in keys):
+        fail("join: the keys disagree on pk_vec, or pk_vec[i - 1] != G * x_i")
+    log(f"join: indices 1..{n}; shares {quorum} (joiners {list(removed)} among them) "
+        f"reconstruct the old secret and the group key; one pk_vec, pk_vec[i - 1] == G * x_i")
+    c0 = time.perf_counter()
+    simulate_signing(simulate_offline_stage(keys, quorum), b"fs-dkr join")
+    times["signing"] = time.perf_counter() - c0
+    log(f"join: quorum {quorum} signed; the signature verifies ({times['signing']:.3f} s)")
+
+    def bump_y(j):
+        p = j.composite_dlog_proof_base_h1
+        j.composite_dlog_proof_base_h1 = dataclasses.replace(p, y=p.y + 1)
+
+    def bump_sigma(j):
+        p = j.dk_correctness_proof
+        j.dk_correctness_proof = dataclasses.replace(
+            p, sigma_vec=[p.sigma_vec[0] + 1] + list(p.sigma_vec[1:]))
+
+    for field, mutate, cls in (("composite_dlog_y", bump_y, DLogProofValidation),
+                               ("correct_key_sigma", bump_sigma, PaillierVerificationError)):
+        bad = copy.deepcopy(joins)
+        mutate(bad[0])
+        c0 = time.perf_counter()
+        try:
+            RefreshMessage.collect(msgs, copy.deepcopy(spare[0]), copy.deepcopy(spare[1]), bad,
+                                   config=config)
+        except cls as e:
+            if e.party_index != removed[0]:
+                fail(f"join: tampered {field} blamed party {e.party_index}, "
+                     f"expected {removed[0]}")
+            times[f"tampered_{field}"] = time.perf_counter() - c0
+            log(f"join: tampered {field} raised {e!r}")
+        else:
+            fail(f"join: a tampered {field} passed collect")
+    for key in ("join_distribute", "replace", "collect", "joiner_collect"):
+        each = times[key]
+        log(f"join: {key}: {len(each)} calls, {sum(each):.3f} s, median "
+            f"{sorted(each)[len(each) // 2]:.4f} s (each {min(each):.3f}..{max(each):.3f} s)")
+    if dev.type == "cuda":
+        profile_collect(msgs, spare, config, sorted(times["collect"])[len(survivors) // 2],
+                        joins)
+    return counts, shapes, times
+
+
 def rns_path(pre, config, n, party=2):
     """Inside forced_rns_route(), with the RNS kernels' counters zeroed
     just before and read just after: distribute_batch by all n senders
@@ -1513,7 +1726,7 @@ def rns_path(pre, config, n, party=2):
         fail(f"the RNS path launched {counts}, expected kernel 1 14 times and "
              f"kernel 2 15 times")
     honest_u1_check(totals, "rns")
-    RefreshMessage.collect(msgs, routed[0], routed[1], config)
+    RefreshMessage.collect(msgs, routed[0], routed[1], config=config)
     if to_fields(pre[party]) != to_fields(routed[0]):
         fail("the RNS route's collect adopted another key than the CIOS engine's")
     log("rns path: adopted key == the same collect's through the CIOS engine")
@@ -1662,7 +1875,7 @@ def span_collect(msgs, spare, config, label):
     ec_batch.ec_kernels = proxy
     try:
         t0 = time.perf_counter()
-        RefreshMessage.collect(msgs, spare[0], spare[1], config)
+        RefreshMessage.collect(msgs, spare[0], spare[1], config=config)
         wall = time.perf_counter() - t0
     finally:
         for owner, attr, raw in patched:
@@ -1686,7 +1899,7 @@ def honest_u1_check(totals, label):
     log(f"spans ({label}): PDL u1 by one device MSM, no per-row host check")
 
 
-def profile_collect(msgs, spare, config, median_s):
+def profile_collect(msgs, spare, config, median_s, joins=()):
     """Device time by kernel over one collect (torch.profiler), beside
     the collect's wall time: the device's busy and idle share. The
     profiler slows the host side, so the share is given against the
@@ -1701,7 +1914,7 @@ def profile_collect(msgs, spare, config, median_s):
     # device activity only: recording every host-side op as well slowed
     # the profiled collect to 8.6-15.1 s
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        RefreshMessage.collect(msgs, spare[0], spare[1], config)
+        RefreshMessage.collect(msgs, spare[0], spare[1], joins, config=config)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     # device events only (kernels, memcpy, memset): a CPU op's row repeats
@@ -2217,22 +2430,29 @@ def _cost(name, shape, launches):
     return k * k * rows * (exp_bits or 1) * max(launches, 1)
 
 
-def phase_time(dev, rng, counts, shapes, rlc_modexp=None):
+def phase_time(dev, rng, counts, shapes, extra=(), join_counts=None):
     """`counts` and `shapes` are the main path's launch counts, in total
     and by kernel and shape ((k, rows), (k, rows, exp_bits), the comb's
     (k, groups, rows per group, exp_bits), or a `cios_modexp` launch's
-    segments -> launches). `rlc_modexp`: the RLC path's own `cios_modexp`
-    launch shapes, checked and timed as well, and listed in the kernel's
-    entry as `rlc_per_shape`."""
+    segments -> launches). `extra`: (label, {kernel: {shape: launches}})
+    pairs, another path's own launch shapes (the RLC path's `cios_modexp`
+    shapes, the join round's), checked and timed as well, and listed in
+    each kernel's entry as `<label>_per_shape`. `join_counts`: the join
+    round's launches by kernel, each entry's `join_launches`."""
     if not all(shapes.values()):
         fail("no main-path launch shapes recorded for a kernel")
     _CLOCK["hz"] = max_sm_clock_hz()
     log(f"time: maximum SM clock {_CLOCK['hz'] / 1e6:.0f} MHz")
     errs, plain_times, per_shape = check_and_time_shapes(dev, rng, shapes)
-    rlc_rows = []
-    if rlc_modexp:
-        rlc_errs, _, rlc_rows = check_and_time_shapes(dev, rng, {"cios_modexp": rlc_modexp})
-        errs["cios_modexp"] = max(errs["cios_modexp"], rlc_errs["cios_modexp"])
+    extra_rows = {}
+    for label, by_name in extra:
+        by_name = {name: by_shape for name, by_shape in by_name.items() if by_shape}
+        if not by_name:
+            continue
+        log(f"time: the {label} path's own shapes")
+        x_errs, _, extra_rows[label] = check_and_time_shapes(dev, rng, by_name)
+        for name in by_name:
+            errs[name] = max(errs[name], x_errs[name])
     # the launch of the most segments: the pair families' columns
     pairs = max(shapes["cios_modexp"], key=lambda s: (len(s), _cost("cios_modexp", s, 1)))
     alone = time_segments_alone(dev, rng, pairs)
@@ -2263,11 +2483,13 @@ def phase_time(dev, rng, counts, shapes, rlc_modexp=None):
             "per_shape": [{**r["fields"], **{key: r[key] for key in ("launches", "ms", "device_ms",
                                                                     "bound_ms")}}
                           for r in per_shape if r["name"] == name],
-            **({"segments_alone": alone,
-                "rlc_per_shape": [{**r["fields"], **{key: r[key] for key in
-                                                     ("launches", "ms", "device_ms", "bound_ms")}}
-                                  for r in rlc_rows]}
-               if name == "cios_modexp" else {}),
+            **({"segments_alone": alone} if name == "cios_modexp" else {}),
+            **({"join_launches": join_counts[name]} if join_counts else {}),
+            **{f"{label}_per_shape": [{**r["fields"], **{key: r[key] for key in
+                                                         ("launches", "ms", "device_ms",
+                                                          "bound_ms")}}
+                                      for r in rows if r["name"] == name]
+               for label, rows in extra_rows.items() if any(r["name"] == name for r in rows)},
         })
     return out
 
@@ -2346,12 +2568,27 @@ def main() -> None:
         rlc_modexp = {shape: c for shape, c in rshapes["cios_modexp"].items()
                       if shape not in shapes.get("cios_modexp", {})}
         done("rlc")
+    join_counts, join_shapes = None, {}
+    if "join" in phases:
+        if pre is None:
+            fail("the join phase takes the main phase's keys")
+        join_counts, jshapes, jtimes = phase_join(dev, pre)
+        log("join: phase seconds " + json.dumps(jtimes))
+        # the join round's own launch shapes, checked and timed beside the
+        # other paths'
+        seen = {**shapes, "cios_modexp": {**shapes["cios_modexp"], **rlc_modexp}}
+        join_shapes = {name: {shape: c for shape, c in by_shape.items()
+                              if shape not in seen.get(name, {})}
+                       for name, by_shape in jshapes.items()}
+        done("join")
     if "time" in phases:
         if counts is None or any(name not in shapes for name in JOINT):
             fail("the time phase needs the main and joint phases' launch counts")
         if "rlc" not in phases:
             log("time: no rlc phase: the Straus kernel at the joint path's shapes only")
-        kernels = phase_time(dev, rng, counts, shapes, rlc_modexp)
+        kernels = phase_time(dev, rng, counts, shapes,
+                             (("rlc", {"cios_modexp": rlc_modexp}), ("join", join_shapes)),
+                             join_counts)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi_line())

@@ -1,9 +1,10 @@
 """Carrying state across from the JAX package, and back.
 
 `from_reference(obj)` turns the JAX package's protocol objects —
-`LocalKey`, `RefreshMessage`, Paillier keys, proofs, statements, VSS
-schemes, `Point`, `Scalar` — into this package's. It works by class name
-and attribute names (duck typing) and never imports the JAX package.
+`LocalKey`, `RefreshMessage`, `JoinMessage`, Paillier keys, proofs,
+statements, VSS schemes, `Point`, `Scalar` — into this package's. It
+works by class name and attribute names (duck typing) and never imports
+the JAX package.
 
 `to_fields(obj)` is the converse direction's first half: plain nested
 dicts of ints (each tagged with its class name), from which
@@ -25,6 +26,7 @@ from .proofs.composite_dlog import CompositeDLogProof, DLogStatement
 from .proofs.correct_key import NiCorrectKeyProof
 from .proofs.pdl_slack import PDLwSlackProof
 from .proofs.ring_pedersen import RingPedersenProof, RingPedersenStatement
+from .protocol.join import JoinMessage
 from .protocol.local_key import LocalKey, PaillierKeyPair, SharedKeys
 from .protocol.refresh import RefreshMessage
 
@@ -38,7 +40,7 @@ PORT_CLASSES: Dict[str, type] = {
         Point, Scalar, EncryptionKey, DecryptionKey, ShamirSecretSharing,
         VerifiableSS, DLogStatement, CompositeDLogProof, NiCorrectKeyProof,
         PDLwSlackProof, AliceProof, RingPedersenStatement, RingPedersenProof,
-        SharedKeys, PaillierKeyPair, LocalKey, RefreshMessage,
+        SharedKeys, PaillierKeyPair, LocalKey, RefreshMessage, JoinMessage,
     )
 }
 

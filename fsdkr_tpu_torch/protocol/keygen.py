@@ -8,8 +8,8 @@ party Feldman-shares a random u_i, x_i = sum of received shares, the group
 key is y = (sum u_i) * G — exactly the algebra the GG20 keygen state
 machines settle on, without the message-routing scaffolding.
 
-Also provides `generate_h1_h2_n_tilde`, the h1/h2/N-tilde setup
-(`src/add_party_message.rs:50-66`).
+Also provides `generate_h1_h2_n_tilde` / `generate_dlog_statement_proofs`,
+the setup used by the join path (`src/add_party_message.rs:50-92`).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from typing import List
 from ..config import ProtocolConfig, DEFAULT_CONFIG
 from ..core import intops, paillier, primes, vss
 from ..core.secp256k1 import GENERATOR, Point, Scalar
-from ..proofs.composite_dlog import DLogStatement
+from ..proofs.composite_dlog import CompositeDLogProof, DLogStatement
 from .local_key import LocalKey, PaillierKeyPair, SharedKeys
 
 
@@ -40,6 +40,21 @@ def generate_h1_h2_n_tilde(
             break
     h2 = intops.mod_pow(h1, xhi, n_tilde)
     return n_tilde, h1, h2, phi - xhi, phi - xhi_inv
+
+
+def generate_dlog_statement_proofs(
+    config: ProtocolConfig = DEFAULT_CONFIG,
+) -> tuple[DLogStatement, CompositeDLogProof, CompositeDLogProof]:
+    """DLogStatement + composite-dlog proofs in both base directions
+    (reference `src/add_party_message.rs:69-92`)."""
+    n_tilde, h1, h2, xhi, xhi_inv = generate_h1_h2_n_tilde(config)
+    st_h1 = DLogStatement(N=n_tilde, g=h1, ni=h2)
+    st_h2 = DLogStatement(N=n_tilde, g=h2, ni=h1)
+    return (
+        st_h1,
+        CompositeDLogProof.prove(st_h1, xhi, config.hash_alg),
+        CompositeDLogProof.prove(st_h2, xhi_inv, config.hash_alg),
+    )
 
 
 def create_paillier_keypair(config: ProtocolConfig = DEFAULT_CONFIG) -> PaillierKeyPair:

@@ -3,7 +3,8 @@ verification.
 
 Equivalent of the reference's `RefreshMessage`
 (`src/refresh_message.rs`): `distribute` (:51-145), `validate_collect`
-(:147-191), `get_ciphertext_sum` (:193-237), `collect` (:321-467).
+(:147-191), `get_ciphertext_sum` (:193-237), `replace` (:239-319),
+`collect` (:321-467).
 
 Deliberate deviations from the reference (each a conscious fix):
 1. `collect` rebuilds pk_vec by assignment, not `Vec::insert` (quirk 1).
@@ -20,7 +21,7 @@ Deliberate deviations from the reference (each a conscious fix):
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple
 
 from ..backend import get_backend
 from ..config import ProtocolConfig, DEFAULT_CONFIG
@@ -30,6 +31,7 @@ from ..core.secp256k1 import GENERATOR, Point, Scalar
 from ..ops import ec_batch
 from ..errors import (
     BroadcastedPublicKeyError,
+    DLogProofValidation,
     ModuliTooSmall,
     NewPartyUnassignedIndexError,
     PaillierVerificationError,
@@ -46,6 +48,9 @@ from ..proofs.correct_key import NiCorrectKeyProof
 from ..proofs.pdl_slack import PDLwSlackProof, PDLwSlackStatement, PDLwSlackWitness
 from ..proofs.ring_pedersen import RingPedersenProof, RingPedersenStatement
 from .local_key import LocalKey
+
+if TYPE_CHECKING:
+    from .join import JoinMessage
 
 
 @dataclass
@@ -347,18 +352,67 @@ class RefreshMessage:
 
     # ------------------------------------------------------------------
     @staticmethod
+    def replace(
+        new_parties: Sequence["JoinMessage"],
+        key: LocalKey,
+        old_to_new_map: Dict[int, int],
+        new_n: int,
+        config: ProtocolConfig = DEFAULT_CONFIG,
+    ) -> Tuple["RefreshMessage", DecryptionKey]:
+        """State surgery for index remapping + joins, then an ordinary
+        distribute (reference :239-319). The port has no precompute pools,
+        so there are no pooled secrets of the old committee layout to
+        invalidate here; the precompute cache (utils/lru.py) holds public
+        contexts keyed by moduli, whose stale entries age out."""
+        size = max(new_n, len(key.paillier_key_vec))
+        new_ek_vec: List[Optional[EncryptionKey]] = [None] * size
+        new_dlog_vec: List[Optional[DLogStatement]] = [None] * size
+
+        for old_idx, new_idx in old_to_new_map.items():
+            new_ek_vec[new_idx - 1] = key.paillier_key_vec[old_idx - 1]
+            new_dlog_vec[new_idx - 1] = key.h1_h2_n_tilde_vec[old_idx - 1]
+
+        for join in new_parties:
+            idx = join.get_party_index()
+            new_ek_vec[idx - 1] = join.ek
+            new_dlog_vec[idx - 1] = join.dlog_statement
+
+        # slots not covered by the map or a join keep their old entry
+        # (mirrors the reference's in-place writes)
+        for slot in range(size):
+            if new_ek_vec[slot] is None and slot < len(key.paillier_key_vec):
+                new_ek_vec[slot] = key.paillier_key_vec[slot]
+                new_dlog_vec[slot] = key.h1_h2_n_tilde_vec[slot]
+        if any(v is None for v in new_ek_vec[:new_n]):
+            raise NewPartyUnassignedIndexError()
+
+        key.paillier_key_vec = list(new_ek_vec[:new_n])
+        key.h1_h2_n_tilde_vec = list(new_dlog_vec[:new_n])
+
+        old_party_index = key.i
+        key.i = old_to_new_map[key.i]
+        key.n = new_n
+
+        return RefreshMessage.distribute(old_party_index, key, new_n, config)
+
+    # ------------------------------------------------------------------
+    @staticmethod
     def collect(
         refresh_messages: Sequence["RefreshMessage"],
         local_key: LocalKey,
         new_dk: DecryptionKey,
+        join_messages: Sequence["JoinMessage"] = (),
         config: ProtocolConfig = DEFAULT_CONFIG,
     ) -> None:
         """Receiver path — the O(n^2) verification loop, executed as
-        per-family batches (reference :321-467). Raises the first error
-        in the reference's check order; on success rotates local_key."""
+        per-family batches (reference :321-467), for one session: the
+        new committee is the senders plus `join_messages`. Raises the
+        first error in the reference's check order; on success rotates
+        local_key."""
         backend = get_backend(config)
         msgs = refresh_messages
-        new_n = len(msgs)
+        joins = tuple(join_messages)
+        new_n = len(msgs) + len(joins)
 
         # ---- structure checks + Feldman validation (reference :147-191)
         check_structure(msgs, local_key, new_n)
@@ -397,20 +451,34 @@ class RefreshMessage:
         pair_blame(msgs, new_n, pdl_verdicts, range_verdicts)
 
         # ---- ring-Pedersen batch (reference :352-365) -----------------
-        rp_items = [(m.ring_pedersen_proof, m.ring_pedersen_statement) for m in msgs]
+        rp_items = [
+            (m.ring_pedersen_proof, m.ring_pedersen_statement) for m in msgs
+        ] + [(j.ring_pedersen_proof, j.ring_pedersen_statement) for j in joins]
         if not all(backend.verify_ring_pedersen(rp_items, config.m_security)):
             raise RingPedersenProofError()
 
         # ---- share recovery inputs (reference :367-373) ---------------
         recovered = share_recovery_check(msgs, local_key)
 
-        # ---- Paillier correct-key batch, then adoption ----------------
+        # ---- Paillier correct-key + composite dlog, then adoption -----
         ck_verdicts = backend.verify_correct_key(
-            [(m.dk_correctness_proof, m.ek) for m in msgs],
+            [(m.dk_correctness_proof, m.ek) for m in msgs]
+            + [(j.dk_correctness_proof, j.ek) for j in joins],
             config.correct_key_rounds,
         )
+        # each join's statement in both base directions (reference
+        # :415-425): (N, h1, h2) and its inverse (N, h2, h1)
+        dlog_items = []
+        for join in joins:
+            st = join.dlog_statement
+            dlog_items.append((join.composite_dlog_proof_base_h1, st))
+            dlog_items.append(
+                (join.composite_dlog_proof_base_h2, DLogStatement(N=st.N, g=st.ni, ni=st.g))
+            )
+        dlog_verdicts = backend.verify_composite_dlog(dlog_items)
         adopt_session(
-            msgs, local_key, new_dk, ck_verdicts, recovered, new_n, config
+            msgs, local_key, new_dk, joins, ck_verdicts, dlog_verdicts,
+            recovered, new_n, config,
         )
 
 
@@ -485,14 +553,17 @@ def adopt_session(
     msgs: Sequence["RefreshMessage"],
     local_key: LocalKey,
     new_dk: DecryptionKey,
+    joins: Sequence["JoinMessage"],
     ck_verdicts: Sequence[bool],
+    dlog_verdicts: Sequence[bool],
     recovered: Tuple[EncryptionKey, int, List[Scalar]],
     new_n: int,
     config: ProtocolConfig,
 ) -> None:
-    """The mutating adoption phase (reference :375-467): correct-key
+    """The mutating adoption phase (reference :375-467): correct-key/dlog
     verdict gates, moduli-size gates, paillier_key_vec installs, own-share
-    decrypt + Feldman consistency gate, key rotation. A failure mid-way
+    decrypt + Feldman consistency gate, key rotation. `ck_verdicts` covers
+    msgs then joins; `dlog_verdicts` two per join. A failure mid-way
     leaves the same partial paillier_key_vec updates the reference would."""
     for k, msg in enumerate(msgs):
         if not ck_verdicts[k]:
@@ -503,6 +574,19 @@ def adopt_session(
                 party_index=msg.party_index, moduli_size=n_len
             )
         local_key.paillier_key_vec[msg.party_index - 1] = msg.ek
+
+    for k, join in enumerate(joins):
+        party_index = join.get_party_index()
+        if not ck_verdicts[len(msgs) + k]:
+            raise PaillierVerificationError(party_index=party_index)
+        if not (dlog_verdicts[2 * k] and dlog_verdicts[2 * k + 1]):
+            raise DLogProofValidation(party_index=party_index)
+        n_len = join.ek.n.bit_length()
+        if n_len > config.paillier_bits or n_len < config.paillier_bits - 1:
+            raise ModuliTooSmall(
+                party_index=party_index, moduli_size=n_len
+            )
+        local_key.paillier_key_vec[party_index - 1] = join.ek
 
     # ---- decrypt own new share; rotate key material -------------------
     old_ek, cipher_sum, li_vec = recovered
@@ -545,7 +629,8 @@ def combine_committed_points(
     device=None,
 ) -> List[Point]:
     """X_i = sum_{j=0..t} lambda_j * S_i^{(j)} over the first t+1 senders'
-    committed points (reference :455-464). On `device`, one `batch_msm`
+    committed points, shared by refresh collect (reference :455-464) and
+    join collect (`src/add_party_message.rs:203-212`). On `device`, one `batch_msm`
     (n groups of t+1 rows: one scalar-mul and one tree-sum launch); with
     device None, on the host."""
     if device is not None:

@@ -487,7 +487,7 @@ def test_collect_gets_its_ec_from_the_device(port_round, monkeypatch):
     monkeypatch.setattr(PortHost, "validate_feldman", lambda *a: host_u1.append(2))
     counter = _Counter(monkeypatch)
     key, host_key = copy.deepcopy(keys[1]), copy.deepcopy(keys[1])
-    RefreshMessage.collect(msgs, key, copy.deepcopy(dks[1]), PORT_CONFIG)
+    RefreshMessage.collect(msgs, key, copy.deepcopy(dks[1]), config=PORT_CONFIG)
     assert host_u1 == []
     # Feldman: 3 groups of 3 + 2, padded to 8; PDL u1: 2 * 9 + 1 rows,
     # padded to 32; pk_vec: 3 groups of t + 1 = 2
@@ -496,7 +496,7 @@ def test_collect_gets_its_ec_from_the_device(port_round, monkeypatch):
     assert counter.counts()["batch_generator_mul"] == 0
     monkeypatch.undo()
     RefreshMessage.collect(msgs, host_key, copy.deepcopy(dks[1]),
-                           dataclasses.replace(PORT_CONFIG, backend="host"))
+                           config=dataclasses.replace(PORT_CONFIG, backend="host"))
     assert to_fields(key) == to_fields(host_key)
 
 

@@ -123,7 +123,7 @@ def _collect_like_reference(reference_round, config):
         )
         port_key = from_reference(keys[i])
         RefreshMessage.collect(
-            from_reference(msgs), port_key, from_reference(dks[i]), config
+            from_reference(msgs), port_key, from_reference(dks[i]), config=config
         )
         assert key_fields(port_key) == key_fields(jax_key)
         assert port_key.keys_linear.x_i != from_reference(keys[i]).keys_linear.x_i
@@ -201,7 +201,7 @@ def test_port_collect_through_each_route_matches_reference(
     port_key = from_reference(keys[0])
     with powm.forced_rns_route() if route == "rns" else contextlib.nullcontext():
         RefreshMessage.collect(
-            from_reference(msgs), port_key, from_reference(dks[0]), PORT_CONFIG
+            from_reference(msgs), port_key, from_reference(dks[0]), config=PORT_CONFIG
         )
     assert key_fields(port_key) == key_fields(jax_key)
     assert bool(combs) == (route == "comb")
@@ -253,7 +253,7 @@ def test_tampered_pdl_row_blames_like_reference(reference_round, field):
     with pytest.raises(PDLwSlackProofError) as port_err:
         RefreshMessage.collect(
             from_reference(bad), from_reference(key), from_reference(dks[0]),
-            PORT_CONFIG,
+            config=PORT_CONFIG,
         )
     e, j = port_err.value, jax_err.value
     assert type(e).__name__ == type(j).__name__
@@ -276,7 +276,7 @@ def test_port_distribute_passes_reference_collect():
         JaxRefresh.collect(
             jax_msgs, jax_key, to_reference(out[i][1]), config=JAX_CONFIG
         )
-        RefreshMessage.collect(port_msgs, port_keys[i], out[i][1], PORT_CONFIG)
+        RefreshMessage.collect(port_msgs, port_keys[i], out[i][1], config=PORT_CONFIG)
         assert key_fields(port_keys[i]) == key_fields(jax_key)
     # t+1 refreshed shares interpolate to the unchanged group key
     secret = vss.VerifiableSS(vss.ShamirSecretSharing(T, N)).reconstruct(
@@ -320,7 +320,7 @@ def test_tampered_family_raises_like_reference(reference_round, family):
     port_key = from_reference(keys[0])
     with pytest.raises(Exception) as port_err:
         RefreshMessage.collect(
-            from_reference(bad), port_key, from_reference(dks[0]), PORT_CONFIG
+            from_reference(bad), port_key, from_reference(dks[0]), config=PORT_CONFIG
         )
     e, j = port_err.value, jax_err.value
     assert type(e).__name__ == type(j).__name__
@@ -382,7 +382,7 @@ def test_rlc_tamper_cases_raise_like_reference(reference_round, case, monkeypatc
         rlc.stats_reset()
         with pytest.raises(Exception) as port_err:
             RefreshMessage.collect(from_reference(bad), from_reference(keys[0]),
-                                   from_reference(dks[0]), PORT_CONFIG)
+                                   from_reference(dks[0]), config=PORT_CONFIG)
         got[leg] = _err_key(port_err.value)
         assert (rlc.stats()["rlc_groups"] > 0) == (leg == "1")
     assert got["1"] == got["0"]

@@ -297,7 +297,8 @@ def test_rlc_collect_keeps_no_rho_in_the_cache(port_round, monkeypatch):
     monkeypatch.setattr(rlc, "sample_rhos", recorded)
     rlc.stats_reset()
     key = copy.deepcopy(keys[0])
-    RefreshMessage.collect(copy.deepcopy(msgs), key, copy.deepcopy(dks[0]), PORT_CONFIG)
+    RefreshMessage.collect(copy.deepcopy(msgs), key, copy.deepcopy(dks[0]),
+                           config=PORT_CONFIG)
     assert rlc.stats()["rlc_groups"] > 0 and rlc.stats()["bisect_fallbacks"] == 0
     assert len(drawn) == rlc.stats()["rows_folded"]
 
