@@ -139,6 +139,30 @@ Phases:
            joiners signs (simulate_offline_stage, simulate_signing), and a
            joiner's tampered composite-dlog y and correct-key sigma raise
            DLogProofValidation and PaillierVerificationError naming it.
+  sessions the barrier collect in full under the defaults (FSDKRC_RLC
+           on, the memory plan's budget from the card), on the rlc
+           phase's messages, keys and dks before any collect, beside the
+           keys its 16 collects adopted, and on the join phase's round:
+           (a) the 16 receivers in one `collect_sessions` call, each
+           adopting its own collect's key, 3,840 pair rows deduped, the
+           pair launches one collect's, the call's launches
+           SESSIONS_FUSED; (b) the round fused with the join round (its
+           RLC groups merge with the survivors'), both adopting their own
+           collects' keys (launches SESSIONS_TWO), then the join round's
+           PDL s2 row of its fifth sender to receiver 4 tampered: that
+           session gets the error its own collect raises, the other
+           adopts, and the merged group bisects session-first; (c) a
+           collect at FSDKRC_MEM_BUDGET_MB=2, its pair rows in 4 tiles
+           (81, 81, 81, 13), the monolithic key and full-width ladders,
+           launches SESSIONS_TILED, a tampered PDL s2 row raising what
+           the monolithic collect raises. Every counter
+           zeroed before the gated calls and read after them; each case's
+           wall time and device busy time beside the unfused or monolithic
+           call's; the device memory verify_pairs allocates
+           (torch.cuda.max_memory_allocated) at 256 rows and in 81-row
+           tiles, beside the plan's estimate, and a gate that the default
+           budget cuts none of 256, 16,384 and 65,536 rows and holds
+           their projected peaks.
   time     each kernel against its plain version at every shape its path
            (the routed path for the CIOS kernels, the RNS path for the
            RNS kernels, the joint and RLC paths for the Straus and
@@ -178,7 +202,7 @@ import subprocess
 import sys
 import time
 
-PHASES = ("env", "kernels", "routes", "main", "joint", "rlc", "join", "time")
+PHASES = ("env", "kernels", "routes", "main", "joint", "rlc", "join", "sessions", "time")
 
 # H100 SXM published peaks (dense): device memory rate and int8 tensor-core
 # rate. A 16x16-bit multiply-add counts as four 8-bit multiply-adds of two
@@ -1360,7 +1384,8 @@ def phase_rlc(dev, inputs, n=16, t=8, bits=2048, m_security=256, rounds=11):
     row of sender 7 to receiver 3 gives FSDKRC_RLC=0's whole verdict
     vector, (True, False, True) at that row, through a bisection.
     Profiles one collect and times another layer by layer. Returns
-    (counts, shapes of the joint kernels and `cios_modexp`, times)."""
+    (counts, shapes of the joint kernels and `cios_modexp`, times, the n
+    keys the collects adopted)."""
     from fsdkr_tpu_torch import ProtocolConfig
     from fsdkr_tpu_torch.backend import get_backend, rlc
     from fsdkr_tpu_torch.carry import to_fields
@@ -1394,6 +1419,7 @@ def phase_rlc(dev, inputs, n=16, t=8, bits=2048, m_security=256, rounds=11):
     per = {k: v / n for k, v in counts.items()}
     per_stats = {k: stats[k] / n for k in RLC_STATS}
     times["collect_median"] = sorted(per_collect)[n // 2]
+    times["collects_total"] = sum(per_collect)
     log(f"rlc: {n} collects {sum(per_collect):.3f} s, median {times['collect_median']:.4f} s "
         f"(each {min(per_collect):.3f}..{max(per_collect):.3f} s)")
     log("rlc: launches per collect: " + json.dumps(per) + "; fold counters per collect: "
@@ -1489,7 +1515,7 @@ def phase_rlc(dev, inputs, n=16, t=8, bits=2048, m_security=256, rounds=11):
         profile_collect(msgs, (copy.deepcopy(pre_keys[2]), copy.deepcopy(dks[2])), config,
                         times["collect_median"])
     span_collect(msgs, (copy.deepcopy(pre_keys[3]), copy.deepcopy(dks[3])), config, "rlc")
-    return counts, shapes, times
+    return counts, shapes, times, keys
 
 
 # Launches of the join path (the defaults: FSDKRC_RLC, FSDKRC_MULTIEXP and
@@ -1527,11 +1553,11 @@ def _sub(after, before):
     return {k: after[k] - before[k] for k in after}
 
 
-def _gate_launches(label, got, want):
+def _gate_launches(label, got, want, phase="join"):
     diff = {k: (got.get(k, 0), want.get(k, 0)) for k in set(got) | set(want)
             if got.get(k, 0) != want.get(k, 0)}
     if diff:
-        fail(f"join: launches in {label} (got, expected) {diff}")
+        fail(f"{phase}: launches in {label} (got, expected) {diff}")
 
 
 def phase_join(dev, pre, n=16, t=8, bits=2048, m_security=256, rounds=11):
@@ -1550,7 +1576,9 @@ def phase_join(dev, pre, n=16, t=8, bits=2048, m_security=256, rounds=11):
     signs (simulate_offline_stage, simulate_signing); a joiner's tampered
     composite-dlog y raises DLogProofValidation and its tampered
     correct-key sigma PaillierVerificationError, both naming it. Returns
-    (the round's launches by kernel, its launch shapes, times)."""
+    (the round's launches by kernel, its launch shapes, times, and for the
+    sessions phase the messages, the joins, the first survivor's key and
+    dk before its collect and the key that collect adopted)."""
     import dataclasses
 
     from fsdkr_tpu_torch import ProtocolConfig
@@ -1606,11 +1634,14 @@ def phase_join(dev, pre, n=16, t=8, bits=2048, m_security=256, rounds=11):
     # the tampered collects run on copies of this pre-collect (key, dk), the
     # profiled collect at the end on it
     spare = (copy.deepcopy(survivors[0]), copy.deepcopy(dks[0]))
+    # the same, for the sessions phase, with the key this collect adopts
+    session_pre = (copy.deepcopy(survivors[0]), copy.deepcopy(dks[0]))
     for key, dk in zip(survivors, dks):
         before = _launches()
         timed("collect", RefreshMessage.collect, msgs, key, dk, joins, config=config)
         _gate_launches(f"party {key.i}'s collect", _sub(_launches(), before), JOIN_COLLECT)
     new_keys = list(survivors)
+    adopted = copy.deepcopy(survivors[0])
     for jm, pair in zip(joins, pairs):
         before = _launches()
         new_keys.append(timed("joiner_collect", jm.collect, msgs, pair, joins, t, n, config))
@@ -1687,7 +1718,345 @@ def phase_join(dev, pre, n=16, t=8, bits=2048, m_security=256, rounds=11):
     if dev.type == "cuda":
         profile_collect(msgs, spare, config, sorted(times["collect"])[len(survivors) // 2],
                         joins)
+    return counts, shapes, times, (msgs, joins, session_pre, adopted)
+
+
+# Launches of the sessions phase (the defaults: FSDKRC_RLC,
+# FSDKRC_MULTIEXP and FSDKRC_RANGEOPT on) at n=16, t=8, 2048-bit, M=256,
+# 11 correct-key rounds (PERF.md section 2), worked out from the code and
+# a CPU drive at n=16 (1024-bit, the wrappers counted on the CPU) before
+# the first run on the card; all three met by
+# `scripts/sessions_launch_drive.py` at 1536 bits, where the comb's group
+# cap is the 2048-bit one. SESSIONS_FUSED: one collect_sessions call of the 16 receivers of
+# one round. Feldman's 4,096 rows are one MSM; the pair rows dedup to one
+# session's 256, one collect's pair launches; ring-Pedersen and correct-key
+# fold 256 proofs each in the launches of one collect's 16; each session's
+# pk_vec is its own MSM (16).
+SESSIONS_FUSED = {"cios_modexp": 5, "cios_multi_modexp": 8, "cios_shared_exp": 1,
+                  "cios_comb": 2, "cios_comb_ladder": 2, "cios_mont_mul": 8, "cios_modmul": 4,
+                  "ec_scalar_mul": 18, "ec_tree_sum": 18}
+# backend.rlc.stats() of that call: 32 PDL groups (one session's, after the
+# dedup), 256 ring-Pedersen and 256 correct-key proofs; rows folded
+# 512 + 256 * 256 + 256 * 11
+SESSIONS_FUSED_STATS = {"rlc_groups": 544, "rows_folded": 68864, "fullwidth_ladders": 544,
+                        "bisect_fallbacks": 0, "xsession_rows_deduped": 3840}
+# SESSIONS_TWO: the round's receiver 1 and the join round's first
+# survivor in one call (honest): Feldman's MSM, the 480 pair rows' launch
+# set (merged groups of 30 rows give the PDL Straus rows more width shapes
+# than a collect's 16), 32 ring-Pedersen and correct-key proofs, the
+# joins' composite-dlog rows (two `cios_modexp`, one `cios_modmul`), two
+# pk_vec MSMs. joint_comb2's h2 comb holds 18 receiver environments (16
+# parties' and the 2 joiners'), past the comb's 16-group cap at 2048-bit
+# s2 (`device_powm_shared`: 16384 // 768 windows, rounded down to a power
+# of two), so it takes two launches with their ladders and tables: the CPU
+# drive at 1024-bit (a cap of 32) gave one, the card two.
+SESSIONS_TWO = {"cios_modexp": 7, "cios_multi_modexp": 13, "cios_shared_exp": 1,
+                "cios_comb": 3, "cios_comb_ladder": 3, "cios_mont_mul": 12, "cios_modmul": 5,
+                "ec_scalar_mul": 4, "ec_tree_sum": 4}
+# SESSIONS_TILED: one collect at FSDKRC_MEM_BUDGET_MB=2, its 256 pair rows
+# in 4 tiles (81, 81, 81, 13). A tile repeats the range engines (`cios_shared_exp`, two
+# `cios_modexp`, joint_comb2's two combs, ladders and eight table
+# products, four `cios_modmul`), its PDL aggregated rows (Straus; the last
+# tile's 13 rows leave 1-term s2 rows, one `cios_modexp` more) and its u1
+# MSM; then fold_ladder2 and PDL phase 2 once, ring-Pedersen, correct-key,
+# Feldman and pk_vec as in a collect.
+SESSIONS_TILED = {"cios_modexp": 12, "cios_multi_modexp": 24, "cios_shared_exp": 4,
+                  "cios_comb": 8, "cios_comb_ladder": 8, "cios_mont_mul": 32, "cios_modmul": 16,
+                  "ec_scalar_mul": 6, "ec_tree_sum": 6}
+
+
+@contextlib.contextmanager
+def pair_launches(out):
+    """Adds into `out` the launches made inside CudaBatchVerifier.verify_pairs
+    (its outermost calls: the dedup's call on the distinct rows is inside
+    one) while the block runs."""
+    from fsdkr_tpu_torch.backend.cuda_verifier import CudaBatchVerifier
+
+    raw = CudaBatchVerifier.verify_pairs
+    depth = [0]
+
+    def counted(self, *args, **kwargs):
+        depth[0] += 1
+        before = _launches() if depth[0] == 1 else None
+        try:
+            return raw(self, *args, **kwargs)
+        finally:
+            if depth[0] == 1:
+                for k, v in _sub(_launches(), before).items():
+                    out[k] = out.get(k, 0) + v
+            depth[0] -= 1
+
+    CudaBatchVerifier.verify_pairs = counted
+    try:
+        yield out
+    finally:
+        CudaBatchVerifier.verify_pairs = raw
+
+
+def phase_sessions(dev, inputs, own_keys, join_inputs, n=16, t=8, bits=2048, m_security=256,
+                   rounds=11, tile_budget_mb="2"):
+    """The barrier collect in full under the defaults: fused multi-session
+    collect_sessions with cross-session dedup and session-first blame, and
+    the memory plan's tiled pair verify. `inputs` are the joint phase's
+    messages with every receiver's key and dk before any collect (the rlc
+    phase's inputs), `own_keys` the keys the rlc phase's own collects of
+    them adopted, `join_inputs` the join phase's messages, joins, first
+    survivor's key and dk before its collect and the key that collect
+    adopted. Every counter is zeroed just before the phase's gated calls
+    and read just after them.
+
+    (a) All n receivers in one collect_sessions call: every session adopts
+    its own collect's key; the fold counters SESSIONS_FUSED_STATS (n=16:
+    3,840 pair rows deduped); the pair families' launches are one
+    collect's; the call's launches SESSIONS_FUSED. (b) The round fused with the join round (a committee
+    sharing the survivors' moduli, so the RLC groups merge): both adopt
+    their own collects' keys, nothing dedups; with a PDL s2 row of the join
+    round tampered, that session gets the error its own collect raises,
+    the other adopts, and the merged group bisects session-first. (c) At
+    FSDKRC_MEM_BUDGET_MB=2 a collect cuts its pair rows into 4 tiles of
+    (81, 81, 81, 13) and adopts the monolithic key with RLC_STATS' ladders;
+    its launches SESSIONS_TILED; a tampered PDL s2 row raises what the
+    monolithic collect raises (`tile_budget_mb`: 81-row tiles at 2048
+    bits). Each case's wall time, and on the card its device busy time
+    beside the unfused or monolithic call's. Returns (the phase's launches
+    by kernel, its launch shapes, times)."""
+    import dataclasses
+
+    from fsdkr_tpu_torch import ProtocolConfig
+    from fsdkr_tpu_torch.backend import memplan, rlc
+    from fsdkr_tpu_torch.carry import to_fields
+    from fsdkr_tpu_torch.ops import ec_kernels, montgomery_kernels, rns_kernels
+    from fsdkr_tpu_torch.protocol import RefreshMessage
+
+    msgs, pre_keys, dks = inputs
+    jmsgs, joins, jpre, jown = join_inputs
+    config = ProtocolConfig(
+        paillier_bits=bits, m_security=m_security, correct_key_rounds=rounds,
+        backend="cuda", device=dev.type,
+    )
+    if not rlc.rlc_enabled():
+        fail("sessions: FSDKRC_RLC is off")
+    times = {}
+
+    def session(r):
+        return (msgs, copy.deepcopy(pre_keys[r]), copy.deepcopy(dks[r]), ())
+
+    def join_session(bmsgs):
+        return (bmsgs, copy.deepcopy(jpre[0]), copy.deepcopy(jpre[1]), joins)
+
+    def timed(key, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        times[key] = time.perf_counter() - t0
+        return out
+
+    def same_key(got, want, what):
+        if to_fields(got) != to_fields(want):
+            fail(f"sessions: {what} adopted another key than its own collect")
+
+    for mod in (rns_kernels, montgomery_kernels, ec_kernels):
+        mod.reset_launch_counts()
+
+    # ---- (a) the n receivers of one round in one call ------------------
+    one_pairs, fused_pairs = {}, {}
+    one = session(0)
+    with pair_launches(one_pairs):
+        before = _launches()
+        timed("collect", RefreshMessage.collect, *one[:3], config=config)
+        one_collect = _sub(_launches(), before)
+    same_key(one[1], own_keys[0], "a collect")
+    sessions = [session(r) for r in range(n)]
+    rlc.stats_reset()
+    with pair_launches(fused_pairs):
+        before = _launches()
+        errs = timed("fused", RefreshMessage.collect_sessions, sessions, config)
+        fused = _sub(_launches(), before)
+    stats = rlc.stats()
+    if errs != [None] * n:
+        fail(f"sessions: (a) the fused call returned errors {errs}")
+    for r, (_, key, _, _) in enumerate(sessions):
+        same_key(key, own_keys[r], f"(a) session {r}")
+    if {k: stats[k] for k in SESSIONS_FUSED_STATS} != SESSIONS_FUSED_STATS:
+        fail(f"sessions: (a) fold counters {stats}, expected {SESSIONS_FUSED_STATS}")
+    if fused_pairs != one_pairs:
+        fail(f"sessions: (a) the fused pair launches {fused_pairs} differ from one collect's "
+             f"{one_pairs}")
+    _gate_launches("(a) the fused call", fused, SESSIONS_FUSED, "sessions")
+    log(f"sessions: (a) {n} sessions in one call: {times['fused']:.3f} s (one collect "
+        f"{times['collect']:.3f} s); every session adopts its own collect's key; "
+        f"{stats['xsession_rows_deduped']} pair rows deduped; pair launches == one collect's "
+        f"{json.dumps(one_pairs)}; the call's launches {json.dumps(fused)} (one collect's "
+        f"{json.dumps(one_collect)}); fold counters {json.dumps(stats)}")
+
+    # ---- (b) two committees sharing the survivors' moduli --------------
+    rlc.stats_reset()
+    before = _launches()
+    two = [session(0), join_session(jmsgs)]
+    errs = timed("two_committees", RefreshMessage.collect_sessions, two, config)
+    two_launches = _sub(_launches(), before)
+    stats = rlc.stats()
+    if errs != [None, None]:
+        fail(f"sessions: (b) the honest fused call returned errors {errs}")
+    _gate_launches("(b) the two committees' call", two_launches, SESSIONS_TWO, "sessions")
+    same_key(two[0][1], own_keys[0], "(b) the round's session")
+    same_key(two[1][1], jown, "(b) the join round's session")
+    if stats["xsession_rows_deduped"] or stats["bisect_fallbacks"]:
+        fail(f"sessions: (b) honest fold counters {stats}")
+    bad = copy.deepcopy(jmsgs)
+    sender, row = len(bad) // 3, n // 5
+    p = bad[sender].pdl_proof_vec[row]
+    bad[sender].pdl_proof_vec[row] = dataclasses.replace(p, s2=p.s2 + 1)
+    try:
+        RefreshMessage.collect(*join_session(bad)[:3], joins, config=config)
+    except Exception as e:  # noqa: BLE001 - compared below, class and fields
+        own_err = e
+    else:
+        fail("sessions: (b) a tampered join-round collect passed")
+    rlc.stats_reset()
+    two = [session(0), join_session(bad)]
+    errs = timed("two_committees_tampered", RefreshMessage.collect_sessions, two, config)
+    bstats = rlc.stats()
+    if errs[0] is not None or errs[1] is None or _verdict(errs[1]) != _verdict(own_err) or \
+            errs[1].party_index != bad[sender].party_index:
+        fail(f"sessions: (b) tampered: {errs}, the session's own collect {own_err!r}")
+    same_key(two[0][1], own_keys[0], "(b) the honest session beside a tampered one")
+    if bstats["session_bisects"] < 1:
+        fail(f"sessions: (b) the tampered group bisected no session first: {bstats}")
+    log(f"sessions: (b) the round fused with the join round: {times['two_committees']:.3f} s, "
+        f"both adopt their own collects' keys, launches {json.dumps(two_launches)}; a tampered "
+        f"PDL s2 row of sender {bad[sender].party_index} in the join round: "
+        f"{times['two_committees_tampered']:.3f} s, {errs[1]!r} as its own collect raises, the "
+        f"other session adopts; fold counters {json.dumps(bstats)}")
+
+    # ---- (c) the memory plan: 4 tiles at 2 MiB -------------------------
+    tiled_one = session(2)
+    with knobs(FSDKRC_MEM_BUDGET_MB=tile_budget_mb):
+        memplan.stats_reset()
+        rlc.stats_reset()
+        before = _launches()
+        timed("tiled", RefreshMessage.collect, *tiled_one[:3], config=config)
+        tiled = _sub(_launches(), before)
+        stats, mem = rlc.stats(), memplan.mem_stats()
+    same_key(tiled_one[1], own_keys[2], "(c) the tiled collect")
+    if stats["stream_tiles"] != 4 or mem["tile_rows"].get("pairs") != 81 or \
+            stats["fullwidth_ladders"] != RLC_STATS["fullwidth_ladders"] or \
+            stats["rows_folded"] != RLC_STATS["rows_folded"]:
+        fail(f"sessions: (c) tiled fold counters {stats}, plan {mem}")
+    _gate_launches("(c) the tiled collect", tiled, SESSIONS_TILED, "sessions")
+    spare = (pre_keys[3], dks[3])
+    mono_err, sender, row = _tampered_collect(msgs, spare, config, "pdl_s2")
+    with knobs(FSDKRC_MEM_BUDGET_MB=tile_budget_mb):
+        t0 = time.perf_counter()
+        tiled_err, _, _ = _tampered_collect(msgs, spare, config, "pdl_s2")
+        times["tiled_tampered"] = time.perf_counter() - t0
+    if _verdict(tiled_err) != _verdict(mono_err) or tiled_err.party_index != sender:
+        fail(f"sessions: (c) tiled tamper {_verdict(tiled_err)}, monolithic {_verdict(mono_err)}")
+    log(f"sessions: (c) at {tile_budget_mb} MiB: {times['tiled']:.3f} s (one monolithic collect "
+        f"{times['collect']:.3f} s), 4 tiles of {mem['tile_rows']['pairs']} rows, peak "
+        f"{mem['peak_staged_bytes_est']} staged bytes (the plan's estimate), the monolithic "
+        f"key and "
+        f"{stats['fullwidth_ladders']} full-width ladders, launches {json.dumps(tiled)}; a "
+        f"tampered PDL s2 row raises {tiled_err!r} as the monolithic collect does")
+
+    counts = _launches()
+    shapes = {
+        "cios_mont_mul": dict(montgomery_kernels.mont_mul.shapes),
+        "cios_modmul": dict(montgomery_kernels.modmul.shapes),
+        "cios_modexp": dict(montgomery_kernels.modexp_segments.shapes),
+        "cios_comb": dict(montgomery_kernels.comb.shapes),
+        "cios_comb_ladder": dict(montgomery_kernels.comb_ladder.shapes),
+        "cios_multi_modexp": dict(montgomery_kernels.multi_modexp.shapes),
+        "cios_shared_exp": dict(montgomery_kernels.shared_exp_segments.shapes),
+        "ec_scalar_mul": dict(ec_kernels.scalar_mul.shapes),
+        "ec_tree_sum": dict(ec_kernels.tree_sum.shapes),
+    }
+    log(f"sessions: the phase's launches: {json.dumps(counts)}")
+    for name, by_shape in shapes.items():
+        log(f"sessions: {name} launches by shape: "
+            + ", ".join(f"{shape}: {c}" for shape, c in sorted(by_shape.items(), key=str)))
+    if any(counts[k] for k in ("rns_mont_mul", "rns_modexp")):
+        fail(f"sessions: the RNS kernels launched {counts}")
+    if not all(counts[name] > 0 for name in shapes):
+        fail(f"sessions: a kernel of the path never launched: {counts}")
+
+    if dev.type == "cuda":
+        # device busy time of each case beside the unfused or monolithic call
+        busy = {}
+        busy["collect"] = device_busy(lambda: RefreshMessage.collect(*session(0)[:3],
+                                                                     config=config))
+        busy["fused"] = device_busy(lambda: RefreshMessage.collect_sessions(
+            [session(r) for r in range(n)], config))
+        busy["two_committees"] = device_busy(lambda: RefreshMessage.collect_sessions(
+            [session(0), join_session(jmsgs)], config))
+        with knobs(FSDKRC_MEM_BUDGET_MB=tile_budget_mb):
+            busy["tiled"] = device_busy(lambda: RefreshMessage.collect(*session(2)[:3],
+                                                                       config=config))
+        for label, (wall_ms, busy_ms, by_name) in busy.items():
+            times[f"{label}_busy_ms"] = busy_ms
+            top = ", ".join(f"{name} {sum(v for key, v in by_name.items() if sym in key):.2f}"
+                            for name, sym in _SYMBOL.items()
+                            if any(sym in key for key in by_name))
+            log(f"sessions: profile {label}: wall {wall_ms:.1f} ms under the profiler, device "
+                f"busy {busy_ms:.1f} ms; by kernel (ms): {top}")
+        log(f"sessions: the fused call's busy {busy['fused'][1]:.1f} ms against {n} collects' "
+            f"{n * busy['collect'][1]:.1f} ms ({n} x {busy['collect'][1]:.1f}); the tiled "
+            f"collect's {busy['tiled'][1]:.1f} ms against the monolithic {busy['collect'][1]:.1f}")
+        # the device memory verify_pairs allocates, at two row counts: a
+        # fixed part and a part a row, beside the plan's estimate
+        mono = pair_staging(dev, lambda: RefreshMessage.collect(*session(0)[:3], config=config))
+        with knobs(FSDKRC_MEM_BUDGET_MB=tile_budget_mb):
+            tile = pair_staging(dev, lambda: RefreshMessage.collect(*session(2)[:3],
+                                                                    config=config))
+        per_row = max(0.0, (mono - tile) / (n * n - 81))
+        fixed = mono - n * n * per_row
+        budget = memplan.mem_budget_bytes(dev)
+        est = memplan.pair_row_bytes(2 * bits, bits)
+        shapes_rows = (n * n, 64 * n * n, 65536)  # a collect, config 5, n=256
+        plan_tiles = [-(-rows // max(1, budget // (est * 2))) for rows in shapes_rows]
+        projected = [fixed + rows * per_row for rows in shapes_rows]
+        log(f"sessions: device memory verify_pairs allocates above what was live at its call: "
+            f"{mono} B at {n * n} rows, {tile} B in 81-row tiles, so {fixed:.0f} B fixed and "
+            f"{per_row:.1f} B a row (the plan's estimate {est} B a row, nothing fixed); the "
+            f"default budget {budget} B (half the free device memory) gives "
+            + ", ".join(f"{rows} rows {tiles} tile(s) (projected peak {peak:.0f} B)"
+                        for rows, tiles, peak in zip(shapes_rows, plan_tiles, projected)))
+        if any(tiles != 1 for tiles in plan_tiles) or max(projected) > budget:
+            fail(f"sessions: the default budget {budget} B tiles a benchmark shape or is "
+                 f"below its projected peak: tiles {plan_tiles}, peaks {projected}")
     return counts, shapes, times
+
+
+def pair_staging(dev, fn):
+    """The most device memory that CudaBatchVerifier.verify_pairs
+    allocates above what was live at its call (torch.cuda.max_memory_allocated
+    over its outermost calls) while fn runs."""
+    import torch
+
+    from fsdkr_tpu_torch.backend.cuda_verifier import CudaBatchVerifier
+
+    raw = CudaBatchVerifier.verify_pairs
+    depth, peak = [0], [0]
+
+    def measured(self, *args, **kwargs):
+        depth[0] += 1
+        if depth[0] == 1:
+            torch.cuda.synchronize(dev)
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            return raw(self, *args, **kwargs)
+        finally:
+            if depth[0] == 1:
+                torch.cuda.synchronize(dev)
+                peak[0] = max(peak[0], torch.cuda.max_memory_allocated(dev) - base)
+            depth[0] -= 1
+
+    CudaBatchVerifier.verify_pairs = measured
+    try:
+        fn()
+    finally:
+        CudaBatchVerifier.verify_pairs = raw
+    return peak[0]
 
 
 def rns_path(pre, config, n, party=2):
@@ -1899,26 +2268,21 @@ def honest_u1_check(totals, label):
     log(f"spans ({label}): PDL u1 by one device MSM, no per-row host check")
 
 
-def profile_collect(msgs, spare, config, median_s, joins=()):
-    """Device time by kernel over one collect (torch.profiler), beside
-    the collect's wall time: the device's busy and idle share. The
-    profiler slows the host side, so the share is given against the
-    median collect without it as well."""
+def device_busy(fn):
+    """Runs fn under torch.profiler (device activity only: recording every
+    host-side op as well slowed a profiled collect to 8.6-15.1 s): its wall
+    ms, the device's busy ms and the device ms by event name. Device events
+    only (kernels, memcpy, memset): a CPU op's row repeats the device time
+    of the kernels it launched."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from fsdkr_tpu_torch.protocol import RefreshMessage
-
     t0 = time.perf_counter()
-    # device activity only: recording every host-side op as well slowed
-    # the profiled collect to 8.6-15.1 s
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        RefreshMessage.collect(msgs, spare[0], spare[1], joins, config=config)
+        fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    # device events only (kernels, memcpy, memset): a CPU op's row repeats
-    # the device time of the kernels it launched
     by_name = {}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
@@ -1926,7 +2290,18 @@ def profile_collect(msgs, spare, config, median_s, joins=()):
         us = getattr(ev, "self_device_time_total", 0) or 0
         if us > 0:
             by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
-    busy_ms = sum(by_name.values())
+    return wall_ms, sum(by_name.values()), by_name
+
+
+def profile_collect(msgs, spare, config, median_s, joins=()):
+    """Device time by kernel over one collect (torch.profiler), beside
+    the collect's wall time: the device's busy and idle share. The
+    profiler slows the host side, so the share is given against the
+    median collect without it as well."""
+    from fsdkr_tpu_torch.protocol import RefreshMessage
+
+    wall_ms, busy_ms, by_name = device_busy(
+        lambda: RefreshMessage.collect(msgs, spare[0], spare[1], joins, config=config))
     if busy_ms == 0:
         log("profile: torch.profiler saw no device time (not measured)")
         return
@@ -2430,15 +2805,16 @@ def _cost(name, shape, launches):
     return k * k * rows * (exp_bits or 1) * max(launches, 1)
 
 
-def phase_time(dev, rng, counts, shapes, extra=(), join_counts=None):
+def phase_time(dev, rng, counts, shapes, extra=(), path_counts=()):
     """`counts` and `shapes` are the main path's launch counts, in total
     and by kernel and shape ((k, rows), (k, rows, exp_bits), the comb's
     (k, groups, rows per group, exp_bits), or a `cios_modexp` launch's
     segments -> launches). `extra`: (label, {kernel: {shape: launches}})
     pairs, another path's own launch shapes (the RLC path's `cios_modexp`
     shapes, the join round's), checked and timed as well, and listed in
-    each kernel's entry as `<label>_per_shape`. `join_counts`: the join
-    round's launches by kernel, each entry's `join_launches`."""
+    each kernel's entry as `<label>_per_shape`. `path_counts`: (label,
+    launches by kernel) pairs, another path's own run's launches (the join
+    round's, the sessions phase's), each entry's `<label>_launches`."""
     if not all(shapes.values()):
         fail("no main-path launch shapes recorded for a kernel")
     _CLOCK["hz"] = max_sm_clock_hz()
@@ -2484,7 +2860,7 @@ def phase_time(dev, rng, counts, shapes, extra=(), join_counts=None):
                                                                     "bound_ms")}}
                           for r in per_shape if r["name"] == name],
             **({"segments_alone": alone} if name == "cios_modexp" else {}),
-            **({"join_launches": join_counts[name]} if join_counts else {}),
+            **{f"{label}_launches": c[name] for label, c in path_counts if c},
             **{f"{label}_per_shape": [{**r["fields"], **{key: r[key] for key in
                                                          ("launches", "ms", "device_ms",
                                                           "bound_ms")}}
@@ -2541,7 +2917,7 @@ def main() -> None:
         log("main: phase seconds " + json.dumps(
             {**times, "collect_each": per_collect}))
         done("main")
-    rlc_inputs, rlc_modexp = None, {}
+    rlc_inputs, rlc_keys, rlc_modexp = None, None, {}
     if "joint" in phases:
         if pre is None:
             fail("the joint phase takes the main phase's keys")
@@ -2555,7 +2931,7 @@ def main() -> None:
     if "rlc" in phases:
         if rlc_inputs is None:
             fail("the rlc phase takes the joint phase's messages")
-        rcounts, rshapes, rtimes = phase_rlc(dev, rlc_inputs)
+        rcounts, rshapes, rtimes, rlc_keys = phase_rlc(dev, rlc_inputs)
         log("rlc: phase seconds " + json.dumps(rtimes))
         # the joint kernels' launches: the joint path's run and the RLC
         # path's, each counted from 0; their shapes, both runs'
@@ -2568,11 +2944,11 @@ def main() -> None:
         rlc_modexp = {shape: c for shape, c in rshapes["cios_modexp"].items()
                       if shape not in shapes.get("cios_modexp", {})}
         done("rlc")
-    join_counts, join_shapes = None, {}
+    join_counts, join_shapes, join_inputs = None, {}, None
     if "join" in phases:
         if pre is None:
             fail("the join phase takes the main phase's keys")
-        join_counts, jshapes, jtimes = phase_join(dev, pre)
+        join_counts, jshapes, jtimes, join_inputs = phase_join(dev, pre)
         log("join: phase seconds " + json.dumps(jtimes))
         # the join round's own launch shapes, checked and timed beside the
         # other paths'
@@ -2581,14 +2957,29 @@ def main() -> None:
                               if shape not in seen.get(name, {})}
                        for name, by_shape in jshapes.items()}
         done("join")
+    sessions_counts, sessions_shapes = None, {}
+    if "sessions" in phases:
+        if rlc_keys is None or join_inputs is None:
+            fail("the sessions phase takes the rlc phase's keys and the join phase's round")
+        sessions_counts, sshapes, stimes = phase_sessions(dev, rlc_inputs, rlc_keys, join_inputs)
+        log("sessions: phase seconds " + json.dumps(stimes))
+        # the phase's own launch shapes, checked and timed beside the others
+        seen = {name: {**shapes.get(name, {}), **join_shapes.get(name, {})}
+                for name in sshapes}
+        seen["cios_modexp"].update(rlc_modexp)
+        sessions_shapes = {name: {shape: c for shape, c in by_shape.items()
+                                  if shape not in seen[name]}
+                           for name, by_shape in sshapes.items()}
+        done("sessions")
     if "time" in phases:
         if counts is None or any(name not in shapes for name in JOINT):
             fail("the time phase needs the main and joint phases' launch counts")
         if "rlc" not in phases:
             log("time: no rlc phase: the Straus kernel at the joint path's shapes only")
         kernels = phase_time(dev, rng, counts, shapes,
-                             (("rlc", {"cios_modexp": rlc_modexp}), ("join", join_shapes)),
-                             join_counts)
+                             (("rlc", {"cios_modexp": rlc_modexp}), ("join", join_shapes),
+                              ("sessions", sessions_shapes)),
+                             (("join", join_counts), ("sessions", sessions_counts)))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi_line())

@@ -37,10 +37,13 @@ class BatchVerifier:
     ) -> List[bool]:
         raise NotImplementedError
 
-    def verify_pairs(self, pdl_items, range_items):
+    def verify_pairs(self, pdl_items, range_items, session_spans=None):
         """Both families of the O(n^2) pair loop
         (`src/refresh_message.rs:330-350`). Default: two family calls;
-        the device backend overrides to share one fused launch set."""
+        the device backend overrides to share one fused launch set.
+        `session_spans` (session -> [lo, hi) row span of a fused
+        multi-session batch) is advisory: these verdicts are per-row exact
+        already, so it is ignored here."""
         return self.verify_pdl(pdl_items), self.verify_range(range_items)
 
     def verify_ring_pedersen(

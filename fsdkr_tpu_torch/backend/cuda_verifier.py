@@ -76,8 +76,8 @@ from ..proofs.pdl_slack import PDLwSlackProof
 from ..proofs.ring_pedersen import RingPedersenProof
 from ..ops.limbs import limbs_for_bits
 from .batch_verifier import BatchVerifier, HostBatchVerifier
-from ..utils.pipeline import run_jobs
-from . import rlc
+from ..utils.pipeline import prefetch_tiles, run_jobs
+from . import memplan, rlc
 from .powm import (
     _cached_ctx,
     batch_base_inv,
@@ -191,8 +191,10 @@ class CudaBatchVerifier(BatchVerifier):
         )
         return nt_cols + (multi,), (e_vec, nn_mod, nt_mod, row_ok, inv_fail)
 
-    def _pdl_finish(self, items, state, results):
-        """Combine the modexp column results into per-row verdicts."""
+    def _pdl_finish(self, items, state, results, session_of=None):
+        """Combine the modexp column results into per-row verdicts.
+        `session_of` is taken for parity with _pdl_rlc_finish and ignored:
+        column verdicts are exact per row."""
         e_vec, nn_mod, nt_mod, row_ok, inv_fail = state
         gs1 = [(1 + (p.s1 % st.ek.n) * st.ek.n) % st.ek.nn for p, st in items]
         if inv_fail is None:  # column path
@@ -278,43 +280,51 @@ class CudaBatchVerifier(BatchVerifier):
             else 0
             for (p, st), ok in zip(items, row_ok)
         ]
+        col, nt_fold, nn_fold = self._pdl_fold_span(items, e_vec, row_ok, range(len(items)))
+        groups = len(nt_fold) + len(nn_fold)
+        rlc.count("rlc_groups", groups)
+        # eq3's merged h1/h2 ladder and eq2's phase-2 power: one full-width
+        # chain a group
+        rlc.count("fullwidth_ladders", groups)
+        return (col,), (e_vec, row_ok, nt_fold, nn_fold)
+
+    def _pdl_fold_span(self, items, e_vec, row_ok, span):
+        """Fold the live rows of `span` (indices into items) into one
+        mod-N~ and one mod-n^2 RLC group a receiver, each with fresh rhos.
+        Returns ((mb, me, mm), nt_fold, nn_fold): the joint column of the
+        groups' aggregated short chains; nt_fold holds (key (h1, h2, N~),
+        rows, merged (h1, h2) exponents, position of the chain) a group,
+        nn_fold (key (n, n^2), rows, merged (1+n) exponent mod n, position
+        of the s2-aggregate, the u2/c aggregate after it) a group."""
         nt_groups: Dict[tuple, List[int]] = {}
         nn_groups: Dict[tuple, List[int]] = {}
-        for i, ((_, st), ok) in enumerate(zip(items, row_ok)):
-            if ok:
+        for i in span:
+            if row_ok[i]:
+                st = items[i][1]
                 nt_groups.setdefault((st.h1, st.h2, st.N_tilde), []).append(i)
                 nn_groups.setdefault((st.ek.n, st.ek.nn), []).append(i)
-
         mb, me, mm = [], [], []
-        nt_plan = []  # (row indices, slot in nt_lhs, position of the rhs row)
-        nt_lhs = []  # the merged 2-term (h1, h2) rows, for fold_ladder2
+        nt_fold = []
         for (h1, h2, nt), idxs in nt_groups.items():
-            rho = rlc.sample_rhos(len(idxs))
             lhs, rhs = PDLwSlackProof.rlc_fold_nt(
-                h1, h2, nt, self._pdl_nt_rows(items, e_vec, idxs), rho)
-            nt_plan.append((idxs, len(nt_lhs), len(mm)))
-            nt_lhs.append(lhs)
+                h1, h2, nt, self._pdl_nt_rows(items, e_vec, idxs), rlc.sample_rhos(len(idxs)))
+            nt_fold.append(((h1, h2, nt), idxs, lhs[1], len(mm)))
             mb.append(rhs[0])
             me.append(rhs[1])
             mm.append(rhs[2])
-        nn_plan = []  # (row indices, n, nn, gs1, s2 position, commit position)
+        nn_fold = []
         for (n, nn), idxs in nn_groups.items():
-            rho = rlc.sample_rhos(len(idxs))
             s2_row, commit_row, gs1 = PDLwSlackProof.rlc_fold_nn(
-                n, nn, self._pdl_nn_rows(items, e_vec, idxs), rho)
-            nn_plan.append((idxs, n, nn, gs1, len(mm), len(mm) + 1))
+                n, nn, self._pdl_nn_rows(items, e_vec, idxs), rlc.sample_rhos(len(idxs)))
+            # gs1 = 1 + (sum rho s1 mod n) n: keep the exponent
+            nn_fold.append(((n, nn), idxs, (gs1 - 1) // n, len(mm)))
             for b, e, m in (s2_row, commit_row):
                 mb.append(b)
                 me.append(e)
                 mm.append(m)
-        groups = len(nt_plan) + len(nn_plan)
-        rlc.count("rlc_groups", groups)
-        rlc.count("rows_folded", sum(len(g[0]) for g in nt_plan)
-                  + sum(len(g[0]) for g in nn_plan))
-        # eq3's merged h1/h2 ladder and eq2's phase-2 power: one full-width
-        # chain a group
-        rlc.count("fullwidth_ladders", groups)
-        return ((mb, me, mm),), (e_vec, row_ok, nt_plan, nn_plan, nt_lhs)
+        rlc.count("rows_folded", sum(map(len, nt_groups.values()))
+                  + sum(map(len, nn_groups.values())))
+        return (mb, me, mm), nt_fold, nn_fold
 
     @staticmethod
     def _pdl_nt_rows(items, e_vec, idxs):
@@ -368,52 +378,84 @@ class CudaBatchVerifier(BatchVerifier):
                             device=None)
         return cv == gs1 * intops.mod_pow(av, n, nn) % nn
 
-    def _pdl_rlc_finish(self, items, state, results):
-        """Compare each group's folded equation, bisect the failing groups
-        down to exact per-row verdicts, and give the same (u1, u2, u3)
-        triples as _pdl_finish. On the device: every mod-N~ group's merged
-        h1/h2 row in one fold_ladder2 call, every s2-aggregate to the n in
-        one generic launch."""
-        e_vec, row_ok, nt_plan, nn_plan, nt_lhs = state
-        (multi_res,) = results
-        ok2_vec = [False] * len(items)
-        ok3_vec = [False] * len(items)
-        lhs_vals = fold_ladder2(nt_lhs, self.device)
-        for idxs, lhs_slot, rhs_pos in nt_plan:
-            if lhs_vals[lhs_slot] == multi_res[rhs_pos]:
-                verdicts = dict.fromkeys(idxs, True)
-            else:
-                rlc.count("bisect_fallbacks")
-                st0 = items[idxs[0]][1]
-                verdicts = rlc.bisect_rows(
-                    idxs,
-                    lambda sub, st0=st0: self._pdl_nt_subset_check(
-                        items, e_vec, st0.h1, st0.h2, st0.N_tilde, sub),
-                    lambda i: self._pdl_eq3_exact(items, e_vec, i))
-            for i, v in verdicts.items():
-                ok3_vec[i] = v
-        # phase 2: each group's s2-aggregate to the n-th power, the group's
-        # one remaining full-width chain
-        a_pow = self._modexp([multi_res[g[4]] for g in nn_plan], [g[1] for g in nn_plan],
-                             [g[2] for g in nn_plan])
-        for (idxs, n, nn, gs1, _, commit_pos), ap in zip(nn_plan, a_pow):
-            if multi_res[commit_pos] == gs1 * ap % nn:
-                verdicts = dict.fromkeys(idxs, True)
-            else:
-                rlc.count("bisect_fallbacks")
-                verdicts = rlc.bisect_rows(
-                    idxs,
-                    lambda sub, n=n, nn=nn: self._pdl_nn_subset_check(items, e_vec, n, nn, sub),
-                    lambda i: self._pdl_eq2_exact(items, e_vec, i))
-            for i, v in verdicts.items():
-                ok2_vec[i] = v
-        ok1_vec = self._pdl_u1_batch(items, e_vec)
+    def _pdl_nt_bisect(self, items, e_vec, h1, h2, nt, idxs, ok3_vec, session_of=None):
+        """Per-row mod-N~ verdicts of a failing group into ok3_vec: its
+        rows bisected (session-first where `session_of` is given: rows
+        merged across fused sessions) down to the exact per-row check."""
+        rlc.count("bisect_fallbacks")
+        combined = partial(self._pdl_nt_subset_check, items, e_vec, h1, h2, nt)
+        exact = partial(self._pdl_eq3_exact, items, e_vec)
+        verdicts = (rlc.bisect_sessions(idxs, session_of, combined, exact)
+                    if session_of is not None else rlc.bisect_rows(idxs, combined, exact))
+        for i, v in verdicts.items():
+            ok3_vec[i] = v
+
+    def _pdl_nn_bisect(self, items, e_vec, n, nn, idxs, ok2_vec, session_of=None):
+        """The mod-n^2 counterpart of _pdl_nt_bisect, into ok2_vec."""
+        rlc.count("bisect_fallbacks")
+        combined = partial(self._pdl_nn_subset_check, items, e_vec, n, nn)
+        exact = partial(self._pdl_eq2_exact, items, e_vec)
+        verdicts = (rlc.bisect_sessions(idxs, session_of, combined, exact)
+                    if session_of is not None else rlc.bisect_rows(idxs, combined, exact))
+        for i, v in verdicts.items():
+            ok2_vec[i] = v
+
+    def _pdl_verdicts(self, items, e_vec, row_ok, ok2_vec, ok3_vec, ok1_vec=None):
+        """The (u1, u2, u3) triples of _pdl_finish from the per-equation
+        vectors; the EC u1 column as one device MSM unless given."""
+        if ok1_vec is None:
+            ok1_vec = self._pdl_u1_batch(items, e_vec)
         out = []
         for idx in range(len(items)):
             ok1 = ok1_vec[idx] and row_ok[idx]
             ok2, ok3 = ok2_vec[idx], ok3_vec[idx]
             out.append(None if (ok1 and ok2 and ok3) else (ok1, ok2, ok3))
         return out
+
+    def _pdl_rlc_finish(self, items, state, results, session_of=None):
+        """Compare each group's folded equation, bisect the failing groups
+        down to exact per-row verdicts (session-first where `session_of`
+        maps a row to its session in a fused multi-session batch), and
+        give the same (u1, u2, u3) triples as _pdl_finish."""
+        e_vec, row_ok, nt_fold, nn_fold = state
+        (multi_res,) = results
+        ok2_vec, ok3_vec = self._pdl_rlc_compare(
+            items, e_vec,
+            [(key, idxs, exps, multi_res[pos]) for key, idxs, exps, pos in nt_fold],
+            [(key, idxs, s1_sum, multi_res[pos], multi_res[pos + 1])
+             for key, idxs, s1_sum, pos in nn_fold],
+            session_of)
+        return self._pdl_verdicts(items, e_vec, row_ok, ok2_vec, ok3_vec)
+
+    def _pdl_rlc_compare(self, items, e_vec, nt_groups, nn_groups, session_of):
+        """(ok2_vec, ok3_vec) of folded groups, for the monolithic and the
+        streamed fold alike. nt_groups: (key (h1, h2, N~), rows, merged
+        (h1, h2) exponents, the aggregated chain's value) a group;
+        nn_groups: (key (n, n^2), rows, merged (1+n) exponent, the
+        s2-aggregate, the u2/c aggregate) a group. On the device: every
+        mod-N~ group's merged h1/h2 row in one fold_ladder2 call, every
+        s2-aggregate to the n in one generic launch (phase 2, the group's
+        one remaining full-width chain). A failing group bisects down to
+        exact per-row checks."""
+        ok2_vec = [False] * len(items)
+        ok3_vec = [False] * len(items)
+        lhs_vals = fold_ladder2([((h1, h2), tuple(exps), nt)
+                                 for (h1, h2, nt), _, exps, _ in nt_groups], self.device)
+        for ((h1, h2, nt), idxs, _, rhs), lhs in zip(nt_groups, lhs_vals):
+            if lhs == rhs:
+                for i in idxs:
+                    ok3_vec[i] = True
+            else:
+                self._pdl_nt_bisect(items, e_vec, h1, h2, nt, idxs, ok3_vec, session_of)
+        a_pow = self._modexp([g[3] for g in nn_groups], [g[0][0] for g in nn_groups],
+                             [g[0][1] for g in nn_groups])
+        for ((n, nn), idxs, s1_sum, _, commit), ap in zip(nn_groups, a_pow):
+            if commit == (1 + (s1_sum % n) * n) % nn * ap % nn:
+                for i in idxs:
+                    ok2_vec[i] = True
+            else:
+                self._pdl_nn_bisect(items, e_vec, n, nn, idxs, ok2_vec, session_of)
+        return ok2_vec, ok3_vec
 
     def _pdl_layout(self, items):
         """(cols, state, finish) of the PDL family under the knobs: the RLC
@@ -653,7 +695,183 @@ class CudaBatchVerifier(BatchVerifier):
         return self._range_finish(items, mods, powm_columns(self._modexp, *cols))
 
     # ------------------------------------------------------------------
-    def verify_pairs(self, pdl_items, range_items):
+    def verify_pairs(self, pdl_items, range_items, session_spans=None):
+        """Both pair-loop families of a collect (the JAX package's
+        TpuBatchVerifier.verify_pairs dispatch):
+
+        - a fused multi-session batch (`session_spans`: session -> [lo, hi)
+          row span, from `RefreshMessage.collect_sessions`) first runs the
+          cross-session value dedup: one representative of each distinct
+          row verified, its verdict fanned out; distinct rows keep their
+          sessions, and a failing RLC group merged across sessions bisects
+          session-first;
+        - a batch whose estimated staged bytes exceed the memory plan's
+          budget (`memplan.mem_budget_bytes`) runs tile by tile
+          (`_verify_pairs_streamed`);
+        - the rest take one fused launch set (`_verify_pairs_monolithic`).
+
+        Verdicts and blame are the same on every path."""
+        if not pdl_items or not range_items:
+            return self.verify_pdl(pdl_items), self.verify_range(range_items)
+        same_rows = len(pdl_items) == len(range_items)
+        if session_spans is not None and len(session_spans) > 1 and same_rows:
+            ded = self._xsession_dedup(pdl_items, range_items)
+            if ded is not None:
+                return ded
+        session_of = self._session_of(session_spans, len(pdl_items))
+        if same_rows:
+            # the streamed path cuts both families on one row axis
+            plan = self._pair_plan(pdl_items, self.device)
+            if plan is not None and plan.multi_tile:
+                return self._verify_pairs_streamed(pdl_items, range_items, plan, session_of)
+        return self._verify_pairs_monolithic(pdl_items, range_items, session_of)
+
+    @staticmethod
+    def _session_of(session_spans, n_rows):
+        """Row index -> owning session, or None when the batch holds one
+        session at most."""
+        if not session_spans or len(session_spans) <= 1:
+            return None
+        owner = [0] * n_rows
+        for s, (lo, hi) in session_spans.items():
+            owner[lo:hi] = [s] * (hi - lo)
+        return owner.__getitem__
+
+    def _xsession_dedup(self, pdl_items, range_items):
+        """Verify one representative of each distinct (PDL row, range
+        row) value and fan its verdicts out to the rows equal to it. Every
+        component of a row (the proofs, PDLwSlackStatement, EncryptionKey,
+        DLogStatement, Point) is a frozen value type, so the row pair is
+        its own key and covers every input its verdict depends on; a row
+        is marked invalid only through its exact check, so the fan-out is
+        exact. None when no two rows are equal (distinct committees): the
+        caller then verifies the fused batch with session-first blame."""
+        first: Dict[tuple, int] = {}
+        rep_idx: List[int] = []
+        owners: List[List[int]] = []
+        for i, row in enumerate(zip(pdl_items, range_items)):
+            j = first.get(row)
+            if j is None:
+                first[row] = len(rep_idx)
+                rep_idx.append(i)
+                owners.append([i])
+            else:
+                owners[j].append(i)
+        if len(rep_idx) == len(pdl_items):
+            return None
+        rlc.count("xsession_rows_deduped", len(pdl_items) - len(rep_idx))
+        p_u, r_u = self.verify_pairs([pdl_items[i] for i in rep_idx],
+                                     [range_items[i] for i in rep_idx])
+        pdl_out = [None] * len(pdl_items)
+        range_out = [False] * len(range_items)
+        for j, rows in enumerate(owners):
+            for i in rows:
+                pdl_out[i] = p_u[j]
+                range_out[i] = r_u[j]
+        return pdl_out, range_out
+
+    @staticmethod
+    def _pair_plan(pdl_items, device):
+        """The tile plan of a pair batch. Its widths are the receiver's own
+        key vectors' (ek.nn, N~): public and verifier-local, so wire fields
+        cannot shape the cut."""
+        nn_bits = max(st.ek.nn.bit_length() for _, st in pdl_items)
+        nt_bits = max(st.N_tilde.bit_length() for _, st in pdl_items)
+        return memplan.plan_rows(len(pdl_items), memplan.pair_row_bytes(nn_bits, nt_bits),
+                                 label="pairs", device=device)
+
+    def _verify_pairs_streamed(self, pdl_items, range_items, plan, session_of=None):
+        """The pair batch tile by tile under the memory plan: each tile is
+        staged, verified and released before the next is admitted, and the
+        next tile's host staging (domain gates, Fiat-Shamir challenges)
+        runs behind the current tile's launches (prefetch_tiles).
+
+        Row-local work (the range family, the EC u1 column, the whole
+        FSDKRC_RLC=0 path) completes inside its tile. The PDL RLC folds
+        accumulate a running partial product a group (rlc.StreamFold): a
+        tile adds its short aggregated chains (one multi_powm) and its
+        merged-exponent sums, and each group's full-width ladders run once
+        at finish, so `fullwidth_ladders` is the monolithic plan's. A
+        failing group bisects through the monolithic path's helpers."""
+        rows = len(pdl_items)
+        range_out = [False] * rows
+
+        if not rlc.rlc_enabled():
+            pdl_out = [None] * rows
+
+            def consume_cols(span):
+                lo, hi = span
+                nbytes = plan.tile_bytes(hi - lo)
+                memplan.stage(nbytes)
+                try:
+                    memplan.count_tile("pairs")
+                    rlc.count("stream_tiles")
+                    pdl_out[lo:hi], range_out[lo:hi] = self._verify_pairs_monolithic(
+                        pdl_items[lo:hi], range_items[lo:hi])
+                finally:
+                    memplan.release(nbytes)
+
+            prefetch_tiles(plan.tiles, lambda lo, hi: (lo, hi), consume_cols)
+            return pdl_out, range_out
+
+        e_vec = [0] * rows
+        row_ok = [False] * rows
+        ok1_vec = [False] * rows
+        nt_folds: Dict[tuple, rlc.StreamFold] = {}
+        nn_folds: Dict[tuple, rlc.StreamFold] = {}
+
+        def prepare(lo, hi):
+            # host-only staging of the next tile, read-only over shared state
+            tile = pdl_items[lo:hi]
+            p_ok = [PDLwSlackProof.domain_gate(p, st) for p, st in tile]
+            e_tile = [
+                PDLwSlackProof._challenge(st, p.z, p.u1, p.u2, p.u3, self.config.hash_alg)
+                if ok else 0
+                for (p, st), ok in zip(tile, p_ok)
+            ]
+            return lo, hi, p_ok, e_tile
+
+        def consume(prep):
+            lo, hi, p_ok, e_tile = prep
+            row_ok[lo:hi] = p_ok
+            e_vec[lo:hi] = e_tile
+            nbytes = plan.tile_bytes(hi - lo)
+            memplan.stage(nbytes)
+            try:
+                memplan.count_tile("pairs")
+                rlc.count("stream_tiles")
+                (mb, me, mm), nt_fold, nn_fold = self._pdl_fold_span(
+                    pdl_items, e_vec, row_ok, range(lo, hi))
+                res = multi_powm(mb, me, mm, self.device) if mm else []
+                for key, idxs, exps, pos in nt_fold:
+                    fold = nt_folds.get(key)
+                    if fold is None:
+                        fold = nt_folds[key] = rlc.StreamFold(key[2], n_prods=1, n_exps=2)
+                    fold.absorb([res[pos]], exps, idxs)
+                for key, idxs, s1_sum, pos in nn_fold:
+                    fold = nn_folds.get(key)
+                    if fold is None:
+                        fold = nn_folds[key] = rlc.StreamFold(key[1], n_prods=2, n_exps=1)
+                    fold.absorb([res[pos], res[pos + 1]], (s1_sum,), idxs)
+                range_out[lo:hi] = self.verify_range(range_items[lo:hi])
+                ok1_vec[lo:hi] = self._pdl_u1_batch(pdl_items[lo:hi], e_tile)
+            finally:
+                memplan.release(nbytes)
+
+        prefetch_tiles(plan.tiles, prepare, consume)
+
+        # finish: each group's full-width ladders, once
+        groups = len(nt_folds) + len(nn_folds)
+        rlc.count("rlc_groups", groups)
+        rlc.count("fullwidth_ladders", groups)
+        ok2_vec, ok3_vec = self._pdl_rlc_compare(
+            pdl_items, e_vec,
+            [(key, f.rows, f.exp_sums, f.prods[0]) for key, f in nt_folds.items()],
+            [(key, f.rows, f.exp_sums[0], f.prods[0], f.prods[1]) for key, f in nn_folds.items()],
+            session_of)
+        return self._pdl_verdicts(pdl_items, e_vec, row_ok, ok2_vec, ok3_vec, ok1_vec), range_out
+
+    def _verify_pairs_monolithic(self, pdl_items, range_items, session_of=None):
         """Both pair-loop families through ONE fused launch set: every
         modexp column submitted together, so same-width columns across
         families share launches, and under FSDKRC_MULTIEXP both families'
@@ -662,8 +880,6 @@ class CudaBatchVerifier(BatchVerifier):
         family never folds). Under FSDKRC_RANGEOPT the range family's
         engines run as thunks after the PDL columns; without it, the PDL
         columns pool with the range columns in one powm_columns call."""
-        if not pdl_items or not range_items:
-            return self.verify_pdl(pdl_items), self.verify_range(range_items)
         pcols, state, pdl_finish = self._pdl_layout(pdl_items)
         if rangeopt_enabled():
             rstate = self._range_opt_prepare(range_items)
@@ -674,13 +890,13 @@ class CudaBatchVerifier(BatchVerifier):
 
             run_jobs([pdl_job] + self._range_opt_jobs(range_items, rstate))
             return (
-                pdl_finish(pdl_items, state, presults[0]),
+                pdl_finish(pdl_items, state, presults[0], session_of=session_of),
                 self._range_opt_finish(range_items, rstate),
             )
         rcols, rmods = self._range_prepare(range_items, joint=multiexp_enabled())
         results = powm_columns(self._modexp, *pcols, *rcols)
         return (
-            pdl_finish(pdl_items, state, results[: len(pcols)]),
+            pdl_finish(pdl_items, state, results[: len(pcols)], session_of=session_of),
             self._range_finish(range_items, rmods, results[len(pcols) :]),
         )
 

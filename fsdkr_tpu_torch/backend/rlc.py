@@ -30,12 +30,14 @@ subsets pass with probability 1 (products of true equations), so false
 blame cannot happen; a passing subset is taken as all-valid with the
 group's soundness error.
 
+Fused sessions: a failing group whose rows come from more than one
+session of a fused `collect_sessions` call bisects session-first
+(`bisect_sessions`), so an honest session beside a tampered one is
+cleared by one combined sub-check. Memory plan: a group whose rows span
+several tiles folds as a running partial product (`StreamFold`).
+
 `FSDKRC_RLC` gates the whole mechanism (default on); 0, off, false or
 no turn every caller back to the per-row column and joint layouts.
-
-Left out with their callers, which the port does not have yet: the
-streamed fold (`StreamFold`), the session-first bisection and the
-cross-session dedup knob.
 """
 
 from __future__ import annotations
@@ -49,6 +51,8 @@ __all__ = [
     "rlc_enabled",
     "sample_rhos",
     "bisect_rows",
+    "bisect_sessions",
+    "StreamFold",
     "stats",
     "stats_reset",
     "count",
@@ -79,8 +83,9 @@ def sample_rhos(count: int) -> List[int]:
 # absorbed, how many full-width ladders the folded plan still launches
 # (one a group), and how many groups fell back to bisection. The JAX
 # package keeps them in its telemetry registry, which the port does not
-# have: a module-level dict over the same event names. Events that no
-# ported path raises stay 0.
+# have: a module-level dict over the same event names. The ladder-cache
+# events (the JAX package's host comb-table cache, which the port does not
+# need) stay 0.
 _EVENTS = (
     "rlc_groups", "rows_folded", "fullwidth_ladders", "bisect_fallbacks",
     "stream_tiles", "session_bisects", "ladder_cache_hits",
@@ -131,3 +136,62 @@ def bisect_rows(
             else:
                 stack.append(half)
     return out
+
+
+def bisect_sessions(
+    indices: Sequence[int],
+    session_of: Callable[[int], int],
+    combined_check: Callable[[List[int]], bool],
+    row_check: Callable[[int], bool],
+    leaf: int = 2,
+) -> Dict[int, bool]:
+    """`bisect_rows` with a session-first split, for a failing group whose
+    rows were merged across fused sessions: the rows are partitioned by
+    owning session (absorption order kept within each), each session's
+    subset is combined-checked once, and only the failing sessions bisect
+    further. An honest session fused with a tampered one is cleared by one
+    combined sub-check, never row-checked, and every row is decided by the
+    same `bisect_rows` / `row_check` an unfused collect uses. With rows of
+    one session only, this is `bisect_rows`."""
+    by_session: Dict[int, List[int]] = {}
+    for i in indices:
+        by_session.setdefault(session_of(i), []).append(i)
+    if len(by_session) <= 1:
+        return bisect_rows(indices, combined_check, row_check, leaf)
+    out: Dict[int, bool] = {}
+    for rows in by_session.values():
+        count("session_bisects")
+        if combined_check(rows):
+            out.update(dict.fromkeys(rows, True))
+        else:
+            out.update(bisect_rows(rows, combined_check, row_check, leaf))
+    return out
+
+
+class StreamFold:
+    """The running state of one RLC group folded across the tiles of the
+    memory plan (backend.memplan). The combined check factorises over any
+    partition of the group's rows, so a tile contributes its partial
+    products over the per-row bases (its short aggregated chains, `prods`:
+    one slot for the PDL mod-N~ fold, two for mod n^2) and the integer
+    sums of its merged shared-base exponents (`exp_sums`); the full-width
+    ladders of the shared bases run once a group at finish, as in the
+    monolithic fold. `rows` are the absorbed global row indices, in
+    absorption order, for the bisection. No rho is kept: each tile draws
+    its own, fresh, and folds it in."""
+
+    __slots__ = ("modulus", "prods", "exp_sums", "rows")
+
+    def __init__(self, modulus: int, n_prods: int = 1, n_exps: int = 0):
+        self.modulus = modulus
+        self.prods = [1] * n_prods
+        self.exp_sums = [0] * n_exps
+        self.rows: List[int] = []
+
+    def absorb(self, prod_vals, exp_vals=(), rows=()) -> None:
+        m = self.modulus
+        for i, v in enumerate(prod_vals):
+            self.prods[i] = self.prods[i] * v % m
+        for i, e in enumerate(exp_vals):
+            self.exp_sums[i] += e
+        self.rows.extend(rows)

@@ -16,6 +16,8 @@ Deliberate deviations from the reference (each a conscious fix):
    batched verify per proof family runs (host or device backend), and
    failures are then attributed to parties in the reference's original
    loop order — same first-error semantics, batch execution.
+   `collect` is one session of `collect_sessions`, which fuses the
+   families of many independent sessions into one launch set each.
 """
 
 from __future__ import annotations
@@ -406,80 +408,235 @@ class RefreshMessage:
     ) -> None:
         """Receiver path — the O(n^2) verification loop, executed as
         per-family batches (reference :321-467), for one session: the
-        new committee is the senders plus `join_messages`. Raises the
-        first error in the reference's check order; on success rotates
-        local_key."""
+        new committee is the senders plus `join_messages`. One session of
+        `collect_sessions`; raises the first error in the reference's
+        check order; on success rotates local_key."""
+        err = RefreshMessage.collect_sessions(
+            [(refresh_messages, local_key, new_dk, tuple(join_messages))], config
+        )[0]
+        if err is not None:
+            raise err
+
+    @staticmethod
+    def collect_sessions(
+        sessions: Sequence[
+            Tuple[
+                Sequence["RefreshMessage"],
+                LocalKey,
+                DecryptionKey,
+                Sequence["JoinMessage"],
+            ]
+        ],
+        config: ProtocolConfig = DEFAULT_CONFIG,
+    ) -> List[Optional[Exception]]:
+        """collect() for many INDEPENDENT sessions (messages, key, new dk,
+        joins), each verification family fused across sessions into one
+        launch set: BASELINE.json config 5's 64 n=16 sessions feed the row
+        axis one n=256 session would. Per session the semantics are
+        `collect`'s: the same check order, error types and LocalKey
+        mutation points. Returns one entry per session: None on success,
+        else the exception `collect` would have raised. A failing session
+        never blocks the others: a fused call that raises is retried one
+        session at a time (`fused_isolated`)."""
         backend = get_backend(config)
-        msgs = refresh_messages
-        joins = tuple(join_messages)
-        new_n = len(msgs) + len(joins)
+        count = len(sessions)
+        errors: List[Optional[Exception]] = [None] * count
+        new_ns: List[int] = [len(msgs) + len(joins) for msgs, _, _, joins in sessions]
 
-        # ---- structure checks + Feldman validation (reference :147-191)
-        check_structure(msgs, local_key, new_n)
-        feld_items = [
-            (msg.coefficients_committed_vec, msg.points_committed_vec[i], i + 1)
-            for msg in msgs
-            for i in range(new_n)
-        ]
-        if not all(backend.validate_feldman(feld_items)):
-            raise PublicShareValidationError()
+        def alive():
+            return [s for s in range(count) if errors[s] is None]
 
-        # ---- the O(n^2) PDL + range instances, one fused launch set ----
+        def fused(call, items, spans):
+            return fused_isolated(lambda lst: (call(lst),), (items,), spans, errors)[0]
+
+        # ---- structure checks + fused Feldman validation (reference
+        # :147-191)
+        feld_items: list = []
+        feld_spans: Dict[int, Tuple[int, int]] = {}
+        for s, (msgs, key, _dk, _joins) in enumerate(sessions):
+            try:
+                check_structure(msgs, key, new_ns[s])
+            except Exception as e:
+                errors[s] = e
+                continue
+            lo = len(feld_items)
+            feld_items.extend(
+                (msg.coefficients_committed_vec, msg.points_committed_vec[i], i + 1)
+                for msg in msgs
+                for i in range(new_ns[s])
+            )
+            feld_spans[s] = (lo, len(feld_items))
+        if feld_items:
+            # Feldman verdicts are row-local, so the memory plan's tiles
+            # cannot change one
+            feld_verdicts = fused(
+                lambda items: _feldman_streamed(backend, items), feld_items, feld_spans
+            )
+            for s, (lo, hi) in feld_spans.items():
+                if errors[s] is None and not all(feld_verdicts[lo:hi]):
+                    errors[s] = PublicShareValidationError()
+
+        # ---- the O(n^2) PDL + range instances of every session, one
+        # fused launch set
         pdl_items: list = []
         range_items: list = []
-        for msg in msgs:
-            for i in range(new_n):
-                st = PDLwSlackStatement(
-                    ciphertext=msg.points_encrypted_vec[i],
-                    ek=local_key.paillier_key_vec[i],
-                    Q=msg.points_committed_vec[i],
-                    G=GENERATOR,
-                    h1=local_key.h1_h2_n_tilde_vec[i].g,
-                    h2=local_key.h1_h2_n_tilde_vec[i].ni,
-                    N_tilde=local_key.h1_h2_n_tilde_vec[i].N,
-                )
-                pdl_items.append((msg.pdl_proof_vec[i], st))
-                range_items.append(
-                    (
-                        msg.range_proofs[i],
-                        msg.points_encrypted_vec[i],
-                        local_key.paillier_key_vec[i],
-                        local_key.h1_h2_n_tilde_vec[i],
+        pair_spans: Dict[int, Tuple[int, int]] = {}
+        for s in alive():
+            msgs, key, _dk, _joins = sessions[s]
+            lo = len(pdl_items)
+            for msg in msgs:
+                for i in range(new_ns[s]):
+                    st = PDLwSlackStatement(
+                        ciphertext=msg.points_encrypted_vec[i],
+                        ek=key.paillier_key_vec[i],
+                        Q=msg.points_committed_vec[i],
+                        G=GENERATOR,
+                        h1=key.h1_h2_n_tilde_vec[i].g,
+                        h2=key.h1_h2_n_tilde_vec[i].ni,
+                        N_tilde=key.h1_h2_n_tilde_vec[i].N,
                     )
-                )
-        pdl_verdicts, range_verdicts = backend.verify_pairs(pdl_items, range_items)
-        pair_blame(msgs, new_n, pdl_verdicts, range_verdicts)
+                    pdl_items.append((msg.pdl_proof_vec[i], st))
+                    range_items.append(
+                        (
+                            msg.range_proofs[i],
+                            msg.points_encrypted_vec[i],
+                            key.paillier_key_vec[i],
+                            key.h1_h2_n_tilde_vec[i],
+                        )
+                    )
+            pair_spans[s] = (lo, len(pdl_items))
+        if pdl_items:
+            # the session spans (cross-session dedup, session-first blame)
+            # go ONLY with the full fused call: fused_isolated's retries
+            # are single-session slices
+            def pairs_call(p_slice, r_slice):
+                if len(p_slice) == len(pdl_items):
+                    return backend.verify_pairs(p_slice, r_slice, session_spans=pair_spans)
+                return backend.verify_pairs(p_slice, r_slice)
 
-        # ---- ring-Pedersen batch (reference :352-365) -----------------
-        rp_items = [
-            (m.ring_pedersen_proof, m.ring_pedersen_statement) for m in msgs
-        ] + [(j.ring_pedersen_proof, j.ring_pedersen_statement) for j in joins]
-        if not all(backend.verify_ring_pedersen(rp_items, config.m_security)):
-            raise RingPedersenProofError()
+            pdl_verdicts, range_verdicts = fused_isolated(
+                pairs_call, (pdl_items, range_items), pair_spans, errors
+            )
+            for s, (start, _hi) in pair_spans.items():
+                if errors[s] is not None:
+                    continue
+                try:
+                    pair_blame(sessions[s][0], new_ns[s], pdl_verdicts, range_verdicts, start)
+                except Exception as e:
+                    errors[s] = e
+
+        # ---- ring-Pedersen (reference :352-365) -----------------------
+        rp_items: list = []
+        rp_spans: Dict[int, Tuple[int, int]] = {}
+        for s in alive():
+            msgs, _key, _dk, joins = sessions[s]
+            lo = len(rp_items)
+            rp_items += [(m.ring_pedersen_proof, m.ring_pedersen_statement) for m in msgs]
+            rp_items += [(j.ring_pedersen_proof, j.ring_pedersen_statement) for j in joins]
+            rp_spans[s] = (lo, len(rp_items))
+        if rp_items:
+            rp_verdicts = fused(
+                lambda items: backend.verify_ring_pedersen(items, config.m_security),
+                rp_items,
+                rp_spans,
+            )
+            for s, (lo, hi) in rp_spans.items():
+                if errors[s] is None and not all(rp_verdicts[lo:hi]):
+                    errors[s] = RingPedersenProofError()
 
         # ---- share recovery inputs (reference :367-373) ---------------
-        recovered = share_recovery_check(msgs, local_key)
+        recovered: Dict[int, tuple] = {}
+        for s in alive():
+            msgs, key, _dk, _joins = sessions[s]
+            try:
+                recovered[s] = share_recovery_check(msgs, key)
+            except Exception as e:
+                errors[s] = e
 
-        # ---- Paillier correct-key + composite dlog, then adoption -----
-        ck_verdicts = backend.verify_correct_key(
-            [(m.dk_correctness_proof, m.ek) for m in msgs]
-            + [(j.dk_correctness_proof, j.ek) for j in joins],
-            config.correct_key_rounds,
-        )
-        # each join's statement in both base directions (reference
-        # :415-425): (N, h1, h2) and its inverse (N, h2, h1)
-        dlog_items = []
-        for join in joins:
-            st = join.dlog_statement
-            dlog_items.append((join.composite_dlog_proof_base_h1, st))
-            dlog_items.append(
-                (join.composite_dlog_proof_base_h2, DLogStatement(N=st.N, g=st.ni, ni=st.g))
+        # ---- Paillier correct-key + composite dlog, fused -------------
+        ck_items: list = []
+        ck_spans: Dict[int, Tuple[int, int]] = {}
+        dlog_items: list = []
+        dlog_spans: Dict[int, Tuple[int, int]] = {}
+        for s in alive():
+            msgs, _key, _dk, joins = sessions[s]
+            lo = len(ck_items)
+            ck_items += [(m.dk_correctness_proof, m.ek) for m in msgs]
+            ck_items += [(j.dk_correctness_proof, j.ek) for j in joins]
+            ck_spans[s] = (lo, len(ck_items))
+            lo = len(dlog_items)
+            # each join's statement in both base directions (reference
+            # :415-425): (N, h1, h2) and its inverse (N, h2, h1)
+            for join in joins:
+                st = join.dlog_statement
+                dlog_items.append((join.composite_dlog_proof_base_h1, st))
+                dlog_items.append(
+                    (join.composite_dlog_proof_base_h2, DLogStatement(N=st.N, g=st.ni, ni=st.g))
+                )
+            dlog_spans[s] = (lo, len(dlog_items))
+        ck_verdicts = (
+            fused(
+                lambda items: backend.verify_correct_key(items, config.correct_key_rounds),
+                ck_items,
+                ck_spans,
             )
-        dlog_verdicts = backend.verify_composite_dlog(dlog_items)
-        adopt_session(
-            msgs, local_key, new_dk, joins, ck_verdicts, dlog_verdicts,
-            recovered, new_n, config,
+            if ck_items
+            else []
         )
+        dlog_verdicts = (
+            fused(backend.verify_composite_dlog, dlog_items, dlog_spans) if dlog_items else []
+        )
+
+        # ---- adoption, session by session, in session order: the
+        # mutation points of collect (a failure part-way leaves the
+        # reference's partial paillier_key_vec)
+        for s in alive():
+            msgs, local_key, new_dk, joins = sessions[s]
+            ck0, ck1 = ck_spans[s]
+            d0, d1 = dlog_spans[s]
+            try:
+                adopt_session(
+                    msgs, local_key, new_dk, joins, ck_verdicts[ck0:ck1],
+                    dlog_verdicts[d0:d1], recovered[s], new_ns[s], config,
+                )
+            except Exception as e:
+                errors[s] = e
+        return errors
+
+
+def _feldman_streamed(backend, items):
+    """validate_feldman under the memory plan (backend.memplan.streamed_rows):
+    the EC row axis verified tile by tile, so the Feldman columns never
+    stage the whole n^2 point set at once. A one-tile plan calls
+    through."""
+    from ..backend import memplan
+
+    return memplan.streamed_rows(backend.validate_feldman, items, memplan.ec_row_bytes(),
+                                 "feldman", getattr(backend, "device", None))
+
+
+def fused_isolated(call, lists, spans, errors):
+    """One fused backend call over parallel item lists sharing the session
+    spans; if the fused call raises (a malformed session: a proof field
+    the batch cannot stage), each live session is retried alone, on the
+    same backend, so the bad session gets the error and the others still
+    verify. `errors` is the per-session error slate: a session whose retry
+    raises gets that exception there, and its rows stay None. Returns one
+    verdict list per input list."""
+    try:
+        return call(*lists)
+    except Exception:
+        outs = tuple([None] * len(lst) for lst in lists)
+        for s, (lo, hi) in spans.items():
+            if errors[s] is not None:
+                continue
+            try:
+                res = call(*(lst[lo:hi] for lst in lists))
+                for out, part in zip(outs, res):
+                    out[lo:hi] = part
+            except Exception as e:
+                errors[s] = e
+        return outs
 
 
 # ---------------------------------------------------------------------------
