@@ -163,6 +163,28 @@ Phases:
            tiles, beside the plan's estimate, and a gate that the default
            budget cuts none of 256, 16,384 and 65,536 rows and holds
            their projected peaks.
+  stream   the streaming collect and the JSON wire under the defaults, on
+           the rlc phase's messages, keys and dks before any collect,
+           beside the keys its collects adopted: (a) a receiver's
+           `collect_stream` with every message through
+           `refresh_message_from_json`, offered in a seeded shuffle with a
+           duplicate, an unexpected sender and a late message: the
+           statuses, `local_key_to_json` of the adopted key byte for byte
+           the barrier collect's, each accepted offer's launches
+           STREAM_OFFER and the finalize's STREAM_FINALIZE; five such
+           streams timed: each offer's wall, the post-quorum latency (the
+           last offer's return to finalize's return) beside barrier
+           collects' in the same call (five back to back, then one after
+           each stream), once with a gc.collect() before each timed call
+           and once with the collector left to run as it falls; a
+           tampered ring-Pedersen proof and a tampered PDL row raise what
+           barrier collect raises, with the same blame. (b)
+           `finalize_streams` over four receivers' sessions against
+           `collect_sessions` of the same four: the keys, `rlc.stats()`
+           (offers and finalize) equal to the fused call's, the
+           finalize's launches STREAM_FUSED. Device busy time of one
+           stream's offers, of its finalize and of one barrier collect
+           (torch.profiler).
   time     each kernel against its plain version at every shape its path
            (the routed path for the CIOS kernels, the RNS path for the
            RNS kernels, the joint and RLC paths for the Straus and
@@ -195,6 +217,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import gc
 import json
 import os
 import random
@@ -202,7 +225,8 @@ import subprocess
 import sys
 import time
 
-PHASES = ("env", "kernels", "routes", "main", "joint", "rlc", "join", "sessions", "time")
+PHASES = ("env", "kernels", "routes", "main", "joint", "rlc", "join", "sessions", "stream",
+          "time")
 
 # H100 SXM published peaks (dense): device memory rate and int8 tensor-core
 # rate. A 16x16-bit multiply-add counts as four 8-bit multiply-adds of two
@@ -1175,14 +1199,13 @@ def column_path():
     return knobs(FSDKRC_RLC="0", FSDKRC_MULTIEXP="0", FSDKRC_RANGEOPT="0")
 
 
-def _tampered_collect(msgs, spare, config, field):
-    """A collect of `msgs` with one proof broken on the spare (key, dk),
-    which stays pre-collect: the PDL proof of sender n/3 to receiver n/5
-    (`pdl`: s1 + 1; `pdl_s2`: s2 + 1), the range proof of sender n/2 to
-    receiver n/4 (`range`: s + 1), or sender n/3's ring-Pedersen proof
-    (`ring_pedersen`: Z[0] + 1) or correct-key proof (`correct_key`:
-    sigma[0] + 1). Returns (the error, the tampered sender, the row) and
-    fails if none is raised."""
+def _tamper(msgs, field):
+    """A copy of `msgs` with one proof broken: the PDL proof of sender n/3
+    to receiver n/5 (`pdl`: s1 + 1; `pdl_s2`: s2 + 1), the range proof of
+    sender n/2 to receiver n/4 (`range`: s + 1), or sender n/3's
+    ring-Pedersen proof (`ring_pedersen`: Z[0] + 1) or correct-key proof
+    (`correct_key`: sigma[0] + 1). Returns (the copy, the tampered
+    sender's position, the row)."""
     import dataclasses
 
     bad = copy.deepcopy(msgs)
@@ -1203,7 +1226,16 @@ def _tampered_collect(msgs, spare, config, field):
         p = bad[sender].dk_correctness_proof
         bad[sender].dk_correctness_proof = dataclasses.replace(
             p, sigma_vec=[p.sigma_vec[0] + 1] + list(p.sigma_vec[1:]))
+    return bad, sender, row
+
+
+def _tampered_collect(msgs, spare, config, field):
+    """A collect of `msgs` tampered by `_tamper(msgs, field)` on the spare
+    (key, dk), which stays pre-collect. Returns (the error, the tampered
+    sender, the row) and fails if none is raised."""
     from fsdkr_tpu_torch.protocol import RefreshMessage
+
+    bad, sender, row = _tamper(msgs, field)
 
     try:
         RefreshMessage.collect(bad, copy.deepcopy(spare[0]), copy.deepcopy(spare[1]),
@@ -2026,6 +2058,317 @@ def phase_sessions(dev, inputs, own_keys, join_inputs, n=16, t=8, bits=2048, m_s
     return counts, shapes, times
 
 
+# Launches of the streaming collect under the defaults (FSDKRC_RLC,
+# FSDKRC_MULTIEXP and FSDKRC_RANGEOPT on) at n=16, t=8, 2048-bit, M=256,
+# 11 correct-key rounds (PERF.md section 2), worked out from the code and
+# a CPU drive (scripts/stream_launch_drive.py: the wrappers counted on the
+# CPU) before the first run on the card. STREAM_OFFER, each accepted
+# offer: the message's Feldman MSM (one `ec_scalar_mul`, one
+# `ec_tree_sum`), its ring-Pedersen fold (one proof: the T-ladder's
+# one-row `cios_modexp`, the 257-term joint row split at 16 terms into
+# two Straus launches) and its correct-key fold (the 11-term joint row,
+# one Straus launch, then the sigma-aggregate's one-row `cios_modexp`).
+# A duplicate, unexpected or late offer launches nothing.
+STREAM_OFFER = {"cios_modexp": 2, "cios_multi_modexp": 3, "cios_shared_exp": 0,
+                "cios_comb": 0, "cios_comb_ladder": 0, "cios_mont_mul": 0, "cios_modmul": 0,
+                "ec_scalar_mul": 1, "ec_tree_sum": 1}
+# STREAM_FINALIZE: finalize at quorum: the pair families' launch set, one
+# collect's (their PDL u1 MSM among them), and the pk_vec MSM.
+STREAM_FINALIZE = {"cios_modexp": 3, "cios_multi_modexp": 5, "cios_shared_exp": 1,
+                   "cios_comb": 2, "cios_comb_ladder": 2, "cios_mont_mul": 8, "cios_modmul": 4,
+                   "ec_scalar_mul": 2, "ec_tree_sum": 2}
+# STREAM_FUSED: finalize_streams of 4 receivers' sessions of one round: their
+# 1,024 pair rows dedup to one session's 256, so one pair launch set, and
+# each session's pk_vec MSM.
+STREAM_FUSED = {"cios_modexp": 3, "cios_multi_modexp": 5, "cios_shared_exp": 1,
+                "cios_comb": 2, "cios_comb_ladder": 2, "cios_mont_mul": 8, "cios_modmul": 4,
+                "ec_scalar_mul": 5, "ec_tree_sum": 5}
+
+
+def stream_session(msgs_json, key, dk, config, order, extra=(), late=()):
+    """One streamed collect through the port's JSON wire: `key`'s session
+    (its committee's indices expected), each message decoded from
+    `msgs_json` and offered in `order` (indices), with `extra` offered
+    after the first (decoded messages: a duplicate, an unexpected sender),
+    then finalize, then `late` offered. Returns (statuses, the finalize
+    error or None, each accepted offer's (wall s, launches), the finalize's
+    (wall s, launches), decode s), the finalize's wall taken from the last
+    offer's return to its own return."""
+    from fsdkr_tpu_torch.protocol import RefreshMessage, refresh_message_from_json
+
+    st = RefreshMessage.collect_stream(key, dk, None, (), config)
+    statuses, offers, decode = [], [], 0.0
+    for pos, idx in enumerate(order):
+        t0 = time.perf_counter()
+        msg = refresh_message_from_json(msgs_json[idx])
+        decode += time.perf_counter() - t0
+        before = _launches()
+        t0 = time.perf_counter()
+        statuses.append(st.offer(msg))
+        wall = time.perf_counter() - t0
+        offers.append((wall, _sub(_launches(), before)))
+        if pos == 0:
+            for m in extra:
+                before = _launches()
+                statuses.append(st.offer(m))
+                if any(_sub(_launches(), before).values()):
+                    fail(f"stream: a {statuses[-1]} offer launched a kernel")
+    before = _launches()
+    t0 = time.perf_counter()
+    try:
+        st.finalize()
+        err = None
+    except Exception as e:  # noqa: BLE001 - compared by the caller
+        err = e
+    fin = (time.perf_counter() - t0, _sub(_launches(), before))
+    for m in late:
+        before = _launches()
+        statuses.append(st.offer(m))
+        if any(_sub(_launches(), before).values()):
+            fail("stream: a late offer launched a kernel")
+    return statuses, err, offers, fin, decode
+
+
+def phase_stream(dev, inputs, own_keys, n=16, t=8, bits=2048, m_security=256, rounds=11,
+                 reps=5, seed=20261018):
+    """The streaming collect and the JSON wire under the defaults, on the
+    rlc phase's messages, keys and dks before any collect, beside the keys
+    its own collects adopted (`own_keys`). Every counter is zeroed just
+    before the phase's gated calls and read just after them.
+
+    (a) Receiver 1's streamed collect: every message through the port's
+    JSON wire, offered in a seeded shuffle, the first message again
+    (duplicate) and a copy from an unexpected sender after it, one message
+    again after finalize (late): the statuses; `local_key_to_json` of the
+    adopted key byte for byte the barrier collect's; each accepted offer's
+    launches STREAM_OFFER, the finalize's STREAM_FINALIZE. `reps` such
+    sessions (receivers 1, 2, ...): each offer's wall, the post-quorum
+    latency (the last offer's return to finalize's return) beside `reps`
+    barrier collects' in the same call, run back to back before the
+    streams and one after each stream; all of it twice, first with a
+    gc.collect() before each timed call, then with the collector left to
+    run when the garbage calls for it. A tampered ring-Pedersen proof and
+    a tampered PDL row raise what barrier collect raises, with the same
+    blame. (b) finalize_streams over receivers 1-4's sessions against
+    collect_sessions of the same 4: the keys, rlc.stats() of the offers
+    and the finalize together equal to the fused call's, the finalize's
+    launches STREAM_FUSED. On the card, the device busy time of one
+    stream's offers and of its finalize (torch.profiler).
+    Returns (the phase's launches by kernel, its launch shapes, times)."""
+    from fsdkr_tpu_torch import ProtocolConfig
+    from fsdkr_tpu_torch.backend import rlc
+    from fsdkr_tpu_torch.ops import ec_kernels, montgomery_kernels, rns_kernels
+    from fsdkr_tpu_torch.protocol import (
+        RefreshMessage,
+        finalize_streams,
+        local_key_to_json,
+        refresh_message_from_json,
+        refresh_message_to_json,
+    )
+
+    msgs, pre_keys, dks = inputs
+    config = ProtocolConfig(
+        paillier_bits=bits, m_security=m_security, correct_key_rounds=rounds,
+        backend="cuda", device=dev.type,
+    )
+    if not rlc.rlc_enabled():
+        fail("stream: FSDKRC_RLC must be on, as by default")
+    times = {}
+    rng = random.Random(seed)
+    wire = [refresh_message_to_json(m) for m in msgs]
+
+    def spare(r):
+        return copy.deepcopy(pre_keys[r]), copy.deepcopy(dks[r])
+
+    def same_key(got, want, what):
+        if local_key_to_json(got) != local_key_to_json(want):
+            fail(f"stream: {what} adopted another key (local_key_to_json differs)")
+
+    for mod in (rns_kernels, montgomery_kernels, ec_kernels):
+        mod.reset_launch_counts()
+
+    # ---- (a) one streamed collect, then `reps` for the timings ---------
+    order = list(range(n))
+    rng.shuffle(order)
+    dup = refresh_message_from_json(wire[order[0]])
+    stranger = refresh_message_from_json(wire[order[1]])
+    stranger.party_index = n + 7
+    late = [refresh_message_from_json(wire[order[-1]])]
+    key, dk = spare(0)
+    statuses, err, offers, fin, decode = stream_session(wire, key, dk, config, order,
+                                                        (dup, stranger), late)
+    want = ["accepted", "duplicate", "unexpected"] + ["accepted"] * (n - 1) + ["late"]
+    if err is not None or statuses != want:
+        fail(f"stream: (a) statuses {statuses}, error {err!r}")
+    same_key(key, own_keys[0], "(a) the streamed collect")
+    for _, got in offers:
+        _gate_launches("an accepted offer", got, STREAM_OFFER, "stream")
+    _gate_launches("the finalize", fin[1], STREAM_FINALIZE, "stream")
+    log(f"stream: (a) receiver 1: statuses {statuses}; local_key_to_json byte for byte the "
+        f"barrier collect's; each offer's launches {json.dumps(STREAM_OFFER)}, the finalize's "
+        f"{json.dumps(fin[1])}; JSON decode {decode:.3f} s for {n + 1} messages")
+
+    def barrier_collect(r, forced_gc):
+        key, dk = spare(r)
+        if forced_gc:
+            gc.collect()
+        t0 = time.perf_counter()
+        RefreshMessage.collect(msgs, key, dk, config=config)
+        return time.perf_counter() - t0
+
+    def median(walls):
+        return sorted(walls)[len(walls) // 2]
+
+    # barrier collects alone first, then streams each followed by a
+    # barrier collect: once with a gc.collect() before every timed call,
+    # once with the collector left to run when the stream's garbage calls
+    # for it, as on a receiver that serves streams
+    for tag, forced_gc in (("", True), ("_gc_in", False)):
+        block = [barrier_collect(rep % n, forced_gc) for rep in range(reps)]
+        offer_walls, post_quorum, barrier = [], [], []
+        for rep in range(reps):
+            r = rep % n
+            key, dk = spare(r)
+            order = list(range(n))
+            rng.shuffle(order)
+            if forced_gc:
+                gc.collect()
+            _, err, offers, fin, _ = stream_session(wire, key, dk, config, order)
+            if err is not None:
+                fail(f"stream: timed session {rep} raised {err!r}")
+            same_key(key, own_keys[r], f"timed session {rep}")
+            offer_walls += [wall for wall, _ in offers]
+            post_quorum.append(fin[0])
+            barrier.append(barrier_collect(r, forced_gc))
+        times["offer_median" + tag] = median(offer_walls)
+        times["post_quorum_median" + tag] = median(post_quorum)
+        times["barrier_collect_median" + tag] = median(barrier)
+        times["barrier_block_median" + tag] = median(block)
+        how = "a gc.collect() before each timed call" if forced_gc else \
+            "the collector left to run as the garbage calls for it"
+        log(f"stream: with {how}: each offer's wall: median "
+            f"{times['offer_median' + tag] * 1e3:.1f} ms over {len(offer_walls)} offers "
+            f"({min(offer_walls) * 1e3:.1f}..{max(offer_walls) * 1e3:.1f})")
+        log(f"stream: with {how}: post-quorum latency (the last offer's return to finalize's "
+            f"return): median {times['post_quorum_median' + tag]:.4f} s over {reps} sessions "
+            f"({min(post_quorum):.4f}..{max(post_quorum):.4f}); in the same call, barrier "
+            f"collect median {times['barrier_collect_median' + tag]:.4f} s over {reps}, each "
+            f"after a stream ({min(barrier):.4f}..{max(barrier):.4f}), and "
+            f"{times['barrier_block_median' + tag]:.4f} s over {reps} run back to back before "
+            f"the streams ({min(block):.4f}..{max(block):.4f})")
+
+    for field in ("ring_pedersen", "pdl"):
+        bad, sender, _ = _tamper(msgs, field)
+        barrier_err, _, _ = _tampered_collect(msgs, spare(1), config, field)
+        bad_wire = [refresh_message_to_json(m) for m in bad]
+        key, dk = spare(1)
+        order = list(range(n))
+        rng.shuffle(order)
+        t0 = time.perf_counter()
+        _, err, _, _, _ = stream_session(bad_wire, key, dk, config, order)
+        wall = time.perf_counter() - t0
+        if err is None or _verdict(err) != _verdict(barrier_err) or \
+                type(err).__name__ != type(barrier_err).__name__:
+            fail(f"stream: tampered {field}: the stream raised {_verdict(err)}, barrier "
+                 f"collect {_verdict(barrier_err)}")
+        if local_key_to_json(key) != local_key_to_json(pre_keys[1]):
+            fail(f"stream: tampered {field}: the key was changed")
+        log(f"stream: tampered {field} (sender {bad[sender].party_index}): the stream raises "
+            f"{err!r} as barrier collect does ({wall:.3f} s)")
+
+    # ---- (b) finalize_streams over 4 sessions --------------------------
+    fused_n = 4
+    ref = [(msgs,) + spare(r) + ((),) for r in range(fused_n)]
+    rlc.stats_reset()
+    t0 = time.perf_counter()
+    errs = RefreshMessage.collect_sessions(ref, config)
+    times["collect_sessions_4"] = time.perf_counter() - t0
+    want_stats = rlc.stats()
+    if errs != [None] * fused_n:
+        fail(f"stream: (b) collect_sessions returned {errs}")
+    rlc.stats_reset()
+    streams, keys_b = [], []
+    before = _launches()
+    t0 = time.perf_counter()
+    for r in range(fused_n):
+        key, dk = spare(r)
+        st = RefreshMessage.collect_stream(key, dk, None, (), config)
+        order = list(range(n))
+        rng.shuffle(order)
+        for idx in order:
+            if st.offer(refresh_message_from_json(wire[idx])) != "accepted":
+                fail("stream: (b) an offer was not accepted")
+        streams.append(st)
+        keys_b.append(key)
+    times["offers_4_sessions"] = time.perf_counter() - t0
+    offers_b = _sub(_launches(), before)
+    before = _launches()
+    t0 = time.perf_counter()
+    errs = finalize_streams(streams, config)
+    times["finalize_streams_4"] = time.perf_counter() - t0
+    fused = _sub(_launches(), before)
+    stats = rlc.stats()
+    if errs != [None] * fused_n:
+        fail(f"stream: (b) finalize_streams returned {errs}")
+    for r in range(fused_n):
+        same_key(keys_b[r], ref[r][1], f"(b) session {r}")
+        same_key(keys_b[r], own_keys[r], f"(b) session {r} (its own collect)")
+    if stats != want_stats:
+        fail(f"stream: (b) fold counters {stats}, collect_sessions' {want_stats}")
+    _gate_launches("(b) the 4 sessions' offers", offers_b,
+                   {k: v * fused_n * n for k, v in STREAM_OFFER.items()}, "stream")
+    _gate_launches("(b) finalize_streams", fused, STREAM_FUSED, "stream")
+    log(f"stream: (b) {fused_n} sessions: offers {times['offers_4_sessions']:.3f} s, "
+        f"finalize_streams {times['finalize_streams_4']:.3f} s (collect_sessions of the same "
+        f"{fused_n}: {times['collect_sessions_4']:.3f} s); each adopts collect_sessions' key; "
+        f"fold counters == collect_sessions' {json.dumps(stats)}; finalize launches "
+        f"{json.dumps(fused)}")
+
+    counts = _launches()
+    shapes = {
+        "cios_mont_mul": dict(montgomery_kernels.mont_mul.shapes),
+        "cios_modmul": dict(montgomery_kernels.modmul.shapes),
+        "cios_modexp": dict(montgomery_kernels.modexp_segments.shapes),
+        "cios_comb": dict(montgomery_kernels.comb.shapes),
+        "cios_comb_ladder": dict(montgomery_kernels.comb_ladder.shapes),
+        "cios_multi_modexp": dict(montgomery_kernels.multi_modexp.shapes),
+        "cios_shared_exp": dict(montgomery_kernels.shared_exp_segments.shapes),
+        "ec_scalar_mul": dict(ec_kernels.scalar_mul.shapes),
+        "ec_tree_sum": dict(ec_kernels.tree_sum.shapes),
+    }
+    log(f"stream: the phase's launches: {json.dumps(counts)}")
+    for name, by_shape in shapes.items():
+        log(f"stream: {name} launches by shape: "
+            + ", ".join(f"{shape}: {c}" for shape, c in sorted(by_shape.items(), key=str)))
+    if any(counts[k] for k in ("rns_mont_mul", "rns_modexp")):
+        fail(f"stream: the RNS kernels launched {counts}")
+
+    if dev.type == "cuda":
+        # device busy of one stream's offers and of its finalize
+        key, dk = spare(2)
+        st = RefreshMessage.collect_stream(key, dk, None, (), config)
+        decoded = [refresh_message_from_json(w) for w in wire]
+        offers_busy = device_busy(lambda: [st.offer(m) for m in decoded])
+        fin_busy = device_busy(st.finalize)
+        same_key(key, own_keys[2], "the profiled stream")
+        collect_busy = device_busy(lambda: RefreshMessage.collect(msgs, *spare(2),
+                                                                  config=config))
+        for label, (wall_ms, busy_ms, by_name) in (("offers", offers_busy),
+                                                   ("finalize", fin_busy),
+                                                   ("collect", collect_busy)):
+            times[f"{label}_busy_ms"] = busy_ms
+            times[f"{label}_profiled_wall_ms"] = wall_ms
+            top = ", ".join(f"{name} {sum(v for key, v in by_name.items() if sym in key):.2f}"
+                            for name, sym in _SYMBOL.items()
+                            if any(sym in key for key in by_name))
+            log(f"stream: profile {label}: wall {wall_ms:.1f} ms under the profiler, device "
+                f"busy {busy_ms:.1f} ms ({100 * busy_ms / max(wall_ms, 1e-9):.1f}%); by kernel "
+                f"(ms): {top}")
+        log(f"stream: device busy: {n} offers {offers_busy[1]:.1f} ms, finalize "
+            f"{fin_busy[1]:.1f} ms, one barrier collect {collect_busy[1]:.1f} ms")
+    return counts, shapes, times
+
+
 def pair_staging(dev, fn):
     """The most device memory that CudaBatchVerifier.verify_pairs
     allocates above what was live at its call (torch.cuda.max_memory_allocated
@@ -2814,7 +3157,8 @@ def phase_time(dev, rng, counts, shapes, extra=(), path_counts=()):
     shapes, the join round's), checked and timed as well, and listed in
     each kernel's entry as `<label>_per_shape`. `path_counts`: (label,
     launches by kernel) pairs, another path's own run's launches (the join
-    round's, the sessions phase's), each entry's `<label>_launches`."""
+    round's, the sessions and stream phases'), each entry's
+    `<label>_launches`."""
     if not all(shapes.values()):
         fail("no main-path launch shapes recorded for a kernel")
     _CLOCK["hz"] = max_sm_clock_hz()
@@ -2971,6 +3315,20 @@ def main() -> None:
                                   if shape not in seen[name]}
                            for name, by_shape in sshapes.items()}
         done("sessions")
+    stream_counts, stream_shapes = None, {}
+    if "stream" in phases:
+        if rlc_keys is None:
+            fail("the stream phase takes the rlc phase's messages and keys")
+        stream_counts, xshapes, xtimes = phase_stream(dev, rlc_inputs, rlc_keys)
+        log("stream: phase seconds " + json.dumps(xtimes))
+        # the phase's own launch shapes, checked and timed beside the others
+        seen = {name: {**shapes.get(name, {}), **join_shapes.get(name, {}),
+                       **sessions_shapes.get(name, {})} for name in xshapes}
+        seen["cios_modexp"].update(rlc_modexp)
+        stream_shapes = {name: {shape: c for shape, c in by_shape.items()
+                                if shape not in seen[name]}
+                         for name, by_shape in xshapes.items()}
+        done("stream")
     if "time" in phases:
         if counts is None or any(name not in shapes for name in JOINT):
             fail("the time phase needs the main and joint phases' launch counts")
@@ -2978,8 +3336,9 @@ def main() -> None:
             log("time: no rlc phase: the Straus kernel at the joint path's shapes only")
         kernels = phase_time(dev, rng, counts, shapes,
                              (("rlc", {"cios_modexp": rlc_modexp}), ("join", join_shapes),
-                              ("sessions", sessions_shapes)),
-                             (("join", join_counts), ("sessions", sessions_counts)))
+                              ("sessions", sessions_shapes), ("stream", stream_shapes)),
+                             (("join", join_counts), ("sessions", sessions_counts),
+                              ("stream", stream_counts)))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi_line())

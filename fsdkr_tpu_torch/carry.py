@@ -66,8 +66,9 @@ def to_fields(obj: Any) -> Any:
 def from_fields(fields: Any, classes: Dict[str, type]) -> Any:
     """Rebuild objects from `to_fields` output with the class table
     `classes` (class name -> class). A field the target class lacks is
-    dropped when its value is None (an unset optional, e.g. the JAX
-    package's delegate certificate) and refused otherwise."""
+    dropped when its value is None (an unset optional) and refused
+    otherwise. A VSS scheme's delegation certificate (`delegate_cert`)
+    is a field of both packages' VerifiableSS, so it carries both ways."""
     if isinstance(fields, list):
         return [from_fields(v, classes) for v in fields]
     if not isinstance(fields, dict):

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import secrets
 from dataclasses import dataclass, field
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 from .secp256k1 import GENERATOR, N, Point, Scalar
 
@@ -34,10 +34,18 @@ class ShamirSecretSharing:
 @dataclass
 class VerifiableSS:
     """A Feldman VSS instance: parameters + commitments A_k = a_k * G to the
-    t+1 polynomial coefficients."""
+    t+1 polynomial coefficients.
+
+    `delegate_cert` is the optional MSM-delegation certificate that the
+    JAX package's dealers attach under FSDKR_DELEGATE: one broadcast-public
+    point R = (sum_u rho_u f(u)) * G. The port carries it on the wire and
+    emits and checks none: its verifiers validate every share by the
+    Feldman MSM, which gives the same verdicts. None (the default) omits
+    the key from the wire encoding."""
 
     parameters: ShamirSecretSharing
     commitments: List[Point] = field(default_factory=list)
+    delegate_cert: Optional[Point] = None
 
     def validate_share_public(self, public_share: Point, index: int) -> bool:
         """Check sum_k A_k * index^k == public_share

@@ -35,6 +35,7 @@ rebuilt when the source changes.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -54,14 +55,22 @@ _K = 16  # 16-bit limbs of a field element
 WINDOW_BITS = 4
 
 _LIB: Optional[ctypes.CDLL] = None
+_LIB_LOCK = threading.Lock()  # threads making the first launch build and load once
 build_info: dict = {}  # so path, build seconds, nvcc's -Xptxas -v report
 
 
 def load_library() -> ctypes.CDLL:
     """Build (if the source hash has no library yet) and load the kernels."""
-    global _LIB
     if _LIB is not None:
         return _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            _load()
+    return _LIB
+
+
+def _load() -> None:
+    global _LIB
     build_info.update(build_library(_SRC))
     lib = ctypes.CDLL(build_info["so"])
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -70,7 +79,6 @@ def load_library() -> ctypes.CDLL:
     lib.fsdkr_ec_tree_sum.argtypes = [p, i, i, p, p, p]
     lib.fsdkr_ec_tree_sum.restype = i
     _LIB = lib
-    return lib
 
 
 def _check(name, t, shape):

@@ -54,6 +54,7 @@ nvcc (`ops.nvcc_build`) and rebuilt when the source changes.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import List, Optional
 
 import torch
@@ -96,14 +97,22 @@ MAX_SMEM_BYTES = 227 * 1024  # a block's opt-in shared memory on the H100 (csrc:
 WINDOW_BITS = 4
 
 _LIB: Optional[ctypes.CDLL] = None
+_LIB_LOCK = threading.Lock()  # threads making the first launch build and load once
 build_info: dict = {}  # so path, build seconds, nvcc's -Xptxas -v report
 
 
 def load_library() -> ctypes.CDLL:
     """Build (if the source hash has no library yet) and load the kernels."""
-    global _LIB
     if _LIB is not None:
         return _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            _load()
+    return _LIB
+
+
+def _load() -> None:
+    global _LIB
     build_info.update(build_library(_SRC))
     lib = ctypes.CDLL(build_info["so"])
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -143,7 +152,6 @@ def load_library() -> ctypes.CDLL:
     lib.fsdkr_cios_joint_rule.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
     lib.fsdkr_cios_joint_rule.restype = i
     _LIB = lib
-    return lib
 
 
 def _check(tensors, rows, width):

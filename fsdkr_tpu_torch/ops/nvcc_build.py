@@ -5,7 +5,9 @@ sm_90a into `build/` beside the package at first use and loaded with
 ctypes by the module that binds it. The library's name carries a hash of
 the source and the flags, so an edited source is rebuilt. Nothing is
 built at import. Builds of different sources may run at the same time
-(each compiles into its own temporary file).
+(each compiles into its own temporary file, named by process and
+thread); threads that ask for the same library wait on one lock, so it
+is compiled once.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import hashlib
 import os
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -25,6 +28,10 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+
+_LOCKS: dict = {}  # library path -> the lock its build is taken under
+_LOCKS_GUARD = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -42,20 +49,23 @@ def build_library(src: Path) -> dict:
     so = _BUILD / f"lib{src.stem}-{tag}.so"
     info = {}
     t0 = time.perf_counter()
-    if not so.exists():
-        _BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {src.name} ({proc.returncode}):\n"
-                f"{proc.stdout}\n{proc.stderr}"
+    with _LOCKS_GUARD:
+        lock = _LOCKS.setdefault(so, threading.Lock())
+    with lock:
+        if not so.exists():
+            _BUILD.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                capture_output=True, text=True,
             )
-        os.replace(tmp, so)
-        info["ptxas"] = proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {src.name} ({proc.returncode}):\n"
+                    f"{proc.stdout}\n{proc.stderr}"
+                )
+            os.replace(tmp, so)
+            info["ptxas"] = proc.stderr
     info["seconds"] = time.perf_counter() - t0
     info["so"] = str(so)
     return info

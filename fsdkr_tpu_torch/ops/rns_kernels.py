@@ -44,6 +44,7 @@ when the source changes. Nothing is built or imported at module import.
 from __future__ import annotations
 
 import ctypes
+import threading
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
@@ -278,14 +279,22 @@ def modexp_plain(base_res, exp, a2n_res, c1, nbmr, K: RNSConsts,
 # build / load
 
 _LIB: Optional[ctypes.CDLL] = None
+_LIB_LOCK = threading.Lock()  # threads making the first launch build and load once
 build_info: dict = {}  # so path, build seconds, nvcc's -Xptxas -v report
 
 
 def load_library() -> ctypes.CDLL:
     """Build (if the source hash has no library yet) and load the kernels."""
-    global _LIB
     if _LIB is not None:
         return _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            _load()
+    return _LIB
+
+
+def _load() -> None:
+    global _LIB
     build_info.update(build_library(_SRC))
     lib = ctypes.CDLL(build_info["so"])
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
@@ -299,7 +308,6 @@ def load_library() -> ctypes.CDLL:
     ]
     lib.fsdkr_rns_modexp.restype = i
     _LIB = lib
-    return lib
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Protocol layer: the refresh protocol itself (refresh, replace, join)
-plus the GG20-compatible host application surface the reference borrows
+"""Protocol layer: the refresh protocol itself (refresh, replace, join,
+streaming collect, the JSON wire format) plus the GG20-compatible host application surface the reference borrows
 from `multi-party-ecdsa` (LocalKey, simulated keygen, threshold signing).
 """
 
@@ -9,6 +9,15 @@ from .join import JoinMessage
 from .keygen import simulate_keygen, generate_h1_h2_n_tilde, generate_dlog_statement_proofs
 from .signing import simulate_offline_stage, simulate_signing, ecdsa_verify
 from .simulation import BroadcastChannel, simulate_dkr, simulate_dkr_removal
+from .streaming import StreamingCollect, finalize_streams, stream_rows
+from .serialization import (
+    refresh_message_to_json,
+    refresh_message_from_json,
+    join_message_to_json,
+    join_message_from_json,
+    local_key_to_json,
+    local_key_from_json,
+)
 
 __all__ = [
     "LocalKey",
@@ -25,4 +34,13 @@ __all__ = [
     "BroadcastChannel",
     "simulate_dkr",
     "simulate_dkr_removal",
+    "StreamingCollect",
+    "finalize_streams",
+    "stream_rows",
+    "refresh_message_to_json",
+    "refresh_message_from_json",
+    "join_message_to_json",
+    "join_message_from_json",
+    "local_key_to_json",
+    "local_key_from_json",
 ]

@@ -53,6 +53,7 @@ from .local_key import LocalKey
 
 if TYPE_CHECKING:
     from .join import JoinMessage
+    from .streaming import StreamingCollect
 
 
 @dataclass
@@ -416,6 +417,26 @@ class RefreshMessage:
         )[0]
         if err is not None:
             raise err
+
+    @staticmethod
+    def collect_stream(
+        local_key: LocalKey,
+        new_dk: DecryptionKey,
+        expected_senders: Optional[Sequence[int]] = None,
+        join_messages: Sequence["JoinMessage"] = (),
+        config: ProtocolConfig = DEFAULT_CONFIG,
+    ) -> "StreamingCollect":
+        """Streaming counterpart of `collect`: a StreamingCollect session
+        that verifies broadcast messages as they are `offer`ed (the
+        structural gates and the per-message families, Feldman,
+        ring-Pedersen and correct-key, eagerly; the pair families' RLC
+        fold at quorum, in `finalize()`). Verdicts, blame and LocalKey
+        mutation are those of barrier `collect` on the same messages in
+        `expected_senders` order (default: the committee's indices
+        1..n). See protocol.streaming."""
+        from .streaming import StreamingCollect
+
+        return StreamingCollect(local_key, new_dk, expected_senders, join_messages, config)
 
     @staticmethod
     def collect_sessions(
