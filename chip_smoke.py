@@ -96,7 +96,7 @@ Phases:
            kernels' counters zeroed just before it and read just after,
            distribute_batch by the same 16 senders (from their keys as
            they stood before the routed distribute) and one collect of
-           its messages, timed layer by layer (kernel 2 must launch 15
+           its messages, timed layer by layer (kernel 2 must launch 13
            times, kernel 1 14); that party's collect of the same messages
            through the CIOS engine must adopt the same key.
   joint    the joint path (FSDKRC_MULTIEXP and FSDKRC_RANGEOPT on, at
@@ -185,6 +185,22 @@ Phases:
            finalize's launches STREAM_FUSED. Device busy time of one
            stream's offers, of its finalize and of one barrier collect
            (torch.profiler).
+  prover   the prover path under the defaults (FSDKRC_PRECOMPUTE on,
+           FSDKRC_PRECOMPUTE_BG off), on a committee of its own
+           (simulate_keygen at n=16, its primes through the native host
+           core): (a) the inline distribute (no pool filled) timed by
+           `span_distribute` under the JAX package's phase names, with
+           FSDKRC_CRT at 1 and at 0: the native core loaded and ran
+           Miller-Rabin batches, CRT rows counted at 1 and none at 0; (b)
+           `precompute.prefill` for the committee under its owner scope,
+           then a distribute: its online wall and the takes by kind, no
+           pool dry; (c) the pooled messages collected by all 16: the
+           group key unchanged, a tampered pooled PDL proof blamed on its
+           sender; (d) FSDKRC_PRECOMPUTE_BG=1 around one distribute and one
+           collect: the collect adopts, the pools reach their targets, the
+           producer stops (launches not gated in this step only).
+           `scripts/distribute_spans.py --tree DIR` times a distribute the
+           same way for another tree (a parent commit).
   time     each kernel against its plain version at every shape its path
            (the routed path for the CIOS kernels, the RNS path for the
            RNS kernels, the joint and RLC paths for the Straus and
@@ -226,7 +242,7 @@ import sys
 import time
 
 PHASES = ("env", "kernels", "routes", "main", "joint", "rlc", "join", "sessions", "stream",
-          "time")
+          "prover", "time")
 
 # H100 SXM published peaks (dense): device memory rate and int8 tensor-core
 # rate. A 16x16-bit multiply-add counts as four 8-bit multiply-adds of two
@@ -1157,20 +1173,22 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
 
 
 # Launches of the joint path (FSDKRC_MULTIEXP and FSDKRC_RANGEOPT on, as
-# by default) at n=16, 2048-bit, M=256 (PERF.md section 2). Distribute:
-# `cios_modexp` for the Paillier r^n and beta^n columns, the r^e
-# responses and correct-key's prover; the comb, its ladder and its table's
-# four products for ring-Pedersen's prover (16 groups of 256 rows); the
-# Straus kernel once a width shape of the joint commitment rows, (256,
-# 2560) and (768, 3072) bits. A collect: `cios_modexp` for the PDL
+# by default) at n=16, 2048-bit, M=256 (PERF.md section 2). Distribute,
+# with FSDKRC_CRT and FSDKRC_PRECOMPUTE on and no pool filled (every take
+# dry, so the provers take the pooled layout, whose z = h1^x h2^rho is two
+# plain columns): `cios_modexp` for the Paillier r^n and beta^n columns,
+# the commitments' plain columns (h1^x over every row, h2^rho) and the r^e
+# responses; the Straus kernel for the u3 and w rows, one width shape
+# (768, 3072) bits; correct-key's and ring-Pedersen's provers on the
+# host's CRT legs, so no comb (scripts/prover_launch_drive.py). A collect: `cios_modexp` for the PDL
 # columns, the u-power's c^{-e} terms, the range z^{-e} column and
 # correct-key's column; the Straus kernel for the PDL joint rows; the
 # shared-exponent kernel for the 16 receiver groups' u-powers; the comb,
 # its ladder and table three times (ring-Pedersen, then h1^s1 and h2^s2 of
 # joint_comb2); `cios_modmul` for PDL's three products, the u-power's and
 # joint_comb2's recombinations, the range's u and w, and ring-Pedersen's.
-JOINT_DISTRIBUTE = {"cios_modexp": 3, "cios_multi_modexp": 2, "cios_shared_exp": 0,
-                    "cios_comb": 1, "cios_comb_ladder": 1, "cios_mont_mul": 4, "cios_modmul": 0,
+JOINT_DISTRIBUTE = {"cios_modexp": 3, "cios_multi_modexp": 1, "cios_shared_exp": 0,
+                    "cios_comb": 0, "cios_comb_ladder": 0, "cios_mont_mul": 0, "cios_modmul": 0,
                     "ec_scalar_mul": 3, "ec_tree_sum": 0}
 JOINT_COLLECT = {"cios_modexp": 4, "cios_multi_modexp": 1, "cios_shared_exp": 1,
                  "cios_comb": 3, "cios_comb_ladder": 3, "cios_mont_mul": 12, "cios_modmul": 8,
@@ -1554,20 +1572,19 @@ def phase_rlc(dev, inputs, n=16, t=8, bits=2048, m_security=256, rounds=11):
 # FSDKRC_RANGEOPT on) at n=16, t=8, 2048-bit, M=256, 11 correct-key rounds
 # (PERF.md section 2), worked out from the code and a CPU drive at n=16
 # (1024-bit, the wrappers counted on the CPU) before the first run on the
-# card. A JoinMessage.distribute: the ring-Pedersen prover's 256 rows share
-# (T, N), so the comb, its ladder and its table's four products;
-# correct-key's 11 rows one `cios_modexp`; the composite-dlog proofs on the
-# host. A replace: distribute_batch for one sender, as JOINT_DISTRIBUTE for
-# 16. A collect of 14 senders' messages with two joins: RLC_COLLECT's
+# card; the prover's calls again by scripts/prover_launch_drive.py. A
+# JoinMessage.distribute launches nothing: its ring-Pedersen and
+# correct-key provers run on the host's CRT legs (FSDKRC_CRT), the
+# composite-dlog proofs on the host. A replace: distribute_batch for one
+# sender, as JOINT_DISTRIBUTE for 16. A collect of 14 senders' messages with two joins: RLC_COLLECT's
 # launches, plus the joins' composite-dlog rows (g^y and ni^e, one
 # `cios_modexp` launch each, and their product, one `cios_modmul`), plus
 # one Straus launch (a receiver's 28-term PDL rows split at 16 into two
 # width shapes where 32 terms split into one). A JoinMessage.collect:
 # Feldman's and pk_vec's MSMs, ring-Pedersen's folds for 16 proofs (the
 # 257-term rows and the S row, then the T-ladders' `cios_modexp`).
-JOIN_DISTRIBUTE = {"cios_modexp": 1, "cios_comb": 1, "cios_comb_ladder": 1, "cios_mont_mul": 4}
-JOIN_REPLACE = {"cios_modexp": 3, "cios_multi_modexp": 2, "cios_comb": 1, "cios_comb_ladder": 1,
-                "cios_mont_mul": 4, "ec_scalar_mul": 3}
+JOIN_DISTRIBUTE = {}
+JOIN_REPLACE = {"cios_modexp": 3, "cios_multi_modexp": 1, "ec_scalar_mul": 3}
 JOIN_COLLECT = {"cios_modexp": 7, "cios_multi_modexp": 9, "cios_shared_exp": 1,
                 "cios_comb": 2, "cios_comb_ladder": 2, "cios_mont_mul": 8, "cios_modmul": 5,
                 "ec_scalar_mul": 3, "ec_tree_sum": 3}
@@ -2402,6 +2419,176 @@ def pair_staging(dev, fn):
     return peak[0]
 
 
+def _shapes_now():
+    from fsdkr_tpu_torch.ops import ec_kernels, montgomery_kernels
+
+    return {
+        "cios_mont_mul": dict(montgomery_kernels.mont_mul.shapes),
+        "cios_modmul": dict(montgomery_kernels.modmul.shapes),
+        "cios_modexp": dict(montgomery_kernels.modexp_segments.shapes),
+        "cios_comb": dict(montgomery_kernels.comb.shapes),
+        "cios_comb_ladder": dict(montgomery_kernels.comb_ladder.shapes),
+        "cios_multi_modexp": dict(montgomery_kernels.multi_modexp.shapes),
+        "cios_shared_exp": dict(montgomery_kernels.shared_exp_segments.shapes),
+        "ec_scalar_mul": dict(ec_kernels.scalar_mul.shapes),
+        "ec_tree_sum": dict(ec_kernels.tree_sum.shapes),
+    }
+
+
+def phase_prover(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
+    """The prover path under the defaults (FSDKRC_PRECOMPUTE on,
+    FSDKRC_PRECOMPUTE_BG off), on a committee of its own: (a) the inline
+    distribute (no pool filled) timed by span_distribute with FSDKRC_CRT
+    at 1 and at 0: the native core loaded and ran the prime batches, CRT
+    rows counted at 1 and none at 0; (b) `precompute.prefill` for the
+    committee (under its owner scope), then a distribute: its online wall
+    and the takes by kind, no pool dry; (c) the pooled messages collected
+    by every party: the group key unchanged, a tampered pooled PDL proof
+    blamed on its sender; (d) the background producer
+    (FSDKRC_PRECOMPUTE_BG=1) around one distribute and one collect: the
+    collect adopts and the pools reach their targets (launches ungated).
+    Returns (the launches of (a)'s CRT=1 distribute, the launch shapes of
+    (a)-(c), the phase's times)."""
+    from fsdkr_tpu_torch import ProtocolConfig, native, precompute
+    from fsdkr_tpu_torch.backend import crt
+    from fsdkr_tpu_torch.core import vss
+    from fsdkr_tpu_torch.core.secp256k1 import GENERATOR
+    from fsdkr_tpu_torch.errors import PDLwSlackProofError
+    from fsdkr_tpu_torch.ops import ec_kernels, montgomery_kernels, rns_kernels
+    from fsdkr_tpu_torch.protocol import RefreshMessage, simulate_keygen
+
+    config = ProtocolConfig(
+        paillier_bits=bits, m_security=m_security, correct_key_rounds=rounds,
+        backend="cuda", device=dev.type,
+    )
+    if precompute.background_enabled():
+        fail("prover: FSDKRC_PRECOMPUTE_BG is on; every phase but (d) runs with it off")
+    precompute.clear_pools()
+    precompute.clear_targets()
+    times = {}
+    native.stats_reset()
+    t0 = time.perf_counter()
+    pre = simulate_keygen(t, n, config)
+    times["keygen"] = time.perf_counter() - t0
+    st = native.stats()
+    if not native.LIB.loaded() or st["mr_batches"] == 0:
+        fail(f"prover: simulate_keygen ran no native Miller-Rabin batch: {st}")
+    log(f"prover: simulate_keygen t={t} n={n}: {times['keygen']:.3f} s; native core "
+        f"{native.LIB.so_path().name}, {native.thread_count()} threads; {st}")
+    for mod in (rns_kernels, montgomery_kernels, ec_kernels):
+        mod.reset_launch_counts()
+
+    # (a) the inline distribute, CRT on and off
+    counts = {}
+    for crt_on in ("1", "0"):
+        with knobs(FSDKRC_CRT=crt_on):
+            native.stats_reset()
+            crt.stats_reset()
+            before = _launches()
+            keys = copy.deepcopy(pre)
+            _, wall, phases, _ = span_distribute(
+                [(k.i, k) for k in keys], n, config, f"inline, FSDKRC_CRT={crt_on}")
+            got = _sub(_launches(), before)
+            nst, cst = native.stats(), crt.crt_stats()
+        times[f"inline_crt{crt_on}"] = wall
+        times[f"inline_crt{crt_on}_phases"] = phases
+        log(f"prover: inline distribute FSDKRC_CRT={crt_on}: {wall:.3f} s; launches "
+            f"{json.dumps({k: v for k, v in got.items() if v})}; native {nst}; CRT {cst}")
+        if nst["mr_batches"] == 0 or nst["mr_rows"] == 0:
+            fail(f"prover: the inline distribute ran no native Miller-Rabin batch: {nst}")
+        if crt_on == "1":
+            counts = got
+            if cst["rows"] == 0 or cst["fault_checks"] == 0 or nst["crt_batches"] == 0:
+                fail(f"prover: FSDKRC_CRT=1 counted no CRT row: {cst} {nst}")
+        elif cst["rows"] or nst["crt_batches"] or nst["comb_calls"]:
+            fail(f"prover: FSDKRC_CRT=0 counted CRT rows: {cst} {nst}")
+
+    # (b) prefill, then the pooled (online) distribute
+    keys = copy.deepcopy(pre)
+    owner = precompute.committee_owner(keys[0].h1_h2_n_tilde_vec)
+    precompute.stats_reset()
+    t0 = time.perf_counter()
+    with precompute.owner_scope(owner):
+        produced = precompute.prefill(keys[0], n, n, config)
+    times["prefill"] = time.perf_counter() - t0
+    log(f"prover: prefill {produced} entries in {times['prefill']:.3f} s "
+        f"({json.dumps(precompute.precompute_stats())})")
+    if produced != 3 * n * n + n:
+        fail(f"prover: prefill produced {produced} entries, expected {3 * n * n + n}")
+    precompute.stats_reset()
+    before = _launches()
+    out, wall, phases, _ = span_distribute([(k.i, k) for k in keys], n, config, "pooled")
+    pooled_launches = _sub(_launches(), before)
+    times["pooled"] = wall
+    times["pooled_phases"] = phases
+    st = precompute.precompute_stats(by_kind=True)
+    takes = {kind: ev.get("consumed", 0) for kind, ev in st["kinds"].items()}
+    log(f"prover: pooled distribute (online) {wall:.3f} s; takes by kind {json.dumps(takes)}; "
+        f"dry {st['dry_fallbacks']}; launches "
+        f"{json.dumps({k: v for k, v in pooled_launches.items() if v})}")
+    if st["dry_fallbacks"] or takes != {"enc": n * n, "pdl": n * n, "alice": n * n, "keys": n}:
+        fail(f"prover: a pool ran dry in the pooled distribute: {st}")
+
+    # (c) the pooled messages collected by every party; a tampered pooled
+    # PDL proof blamed on its sender
+    msgs = [m for m, _ in out]
+    spare = (copy.deepcopy(keys[0]), copy.deepcopy(out[0][1]))
+    t0 = time.perf_counter()
+    for key, (_, dk) in zip(keys, out):
+        RefreshMessage.collect(msgs, key, dk, config=config)
+    times["pooled_collects"] = time.perf_counter() - t0
+    idx = list(range(t + 1))
+    secret = vss.VerifiableSS(vss.ShamirSecretSharing(t, n)).reconstruct(
+        idx, [keys[i].keys_linear.x_i for i in idx])
+    if GENERATOR * secret != keys[0].y_sum_s or any(k.pk_vec != keys[0].pk_vec for k in keys):
+        fail("prover: the pooled round's new shares do not reconstruct the group key")
+    err, party, _row = _tampered_collect(msgs, spare, config, "pdl")
+    if not isinstance(err, PDLwSlackProofError) or err.party_index != party:
+        fail(f"prover: a tampered pooled PDL proof raised {err!r}, expected the PDL error "
+             f"naming party {party}")
+    log(f"prover: {n} collects of the pooled messages {times['pooled_collects']:.3f} s; the "
+        f"group key is unchanged; a tampered pooled PDL proof raised {err!r}")
+    shapes = _shapes_now()
+
+    # (d) the background producer around one distribute and one collect
+    # (launches not gated: the producer's share the stream)
+    try:
+        with knobs(FSDKRC_PRECOMPUTE_BG="1"):
+            precompute.stats_reset()
+            precompute.kick()
+            t0 = time.perf_counter()
+            out = RefreshMessage.distribute_batch([(k.i, k) for k in keys], n, config)
+            times["bg_distribute"] = time.perf_counter() - t0
+            taken = precompute.precompute_stats()["consumed"]
+            msgs = [m for m, _ in out]
+            key = copy.deepcopy(keys[1])
+            t0 = time.perf_counter()
+            RefreshMessage.collect(msgs, key, out[1][1], config=config)
+            times["bg_collect"] = time.perf_counter() - t0
+            if key.keys_linear.x_i == keys[1].keys_linear.x_i or key.pk_vec == keys[1].pk_vec:
+                fail("prover: the collect beside the producer adopted no new share")
+            t0 = time.perf_counter()
+            while precompute.deficit_total() and time.perf_counter() - t0 < 300:
+                time.sleep(0.05)
+            times["bg_fill_after_collect"] = time.perf_counter() - t0
+            deficit, pst = precompute.deficit_total(), precompute.producer_stats()
+            log(f"prover: with the producer on: distribute {times['bg_distribute']:.3f} s "
+                f"({taken} pooled takes), collect {times['bg_collect']:.3f} s (adopted); "
+                f"the pools reached their targets {times['bg_fill_after_collect']:.3f} s "
+                f"later; producer {json.dumps(pst)}; "
+                f"{json.dumps(precompute.precompute_stats(by_kind=True)['kinds'])}")
+            if deficit or pst["errors"] or pst["steps"] == 0:
+                fail(f"prover: the background producer left {deficit} entries unfilled "
+                     f"({pst})")
+    finally:
+        precompute.stop_background()
+        precompute.clear_pools()
+        precompute.clear_targets()
+    if precompute.producer_running():
+        fail("prover: the background producer did not stop")
+    return counts, shapes, times
+
+
 def rns_path(pre, config, n, party=2):
     """Inside forced_rns_route(), with the RNS kernels' counters zeroed
     just before and read just after: distribute_batch by all n senders
@@ -2434,9 +2621,13 @@ def rns_path(pre, config, n, party=2):
     for name, by_shape in shapes.items():
         log(f"rns path: {name} launches by shape: "
             + ", ".join(f"{shape}: {c}" for shape, c in sorted(by_shape.items())))
-    if counts != {"rns_mont_mul": 14, "rns_modexp": 15}:
+    # kernel 2 once a width batch of distribute's and the collect's column
+    # calls, two fewer than at FSDKRC_CRT=0 (correct-key's and
+    # ring-Pedersen's provers run on the host's CRT legs); kernel 1 two a
+    # modmul (scripts/prover_launch_drive.py)
+    if counts != {"rns_mont_mul": 14, "rns_modexp": 13}:
         fail(f"the RNS path launched {counts}, expected kernel 1 14 times and "
-             f"kernel 2 15 times")
+             f"kernel 2 13 times")
     honest_u1_check(totals, "rns")
     RefreshMessage.collect(msgs, routed[0], routed[1], config=config)
     if to_fields(pre[party]) != to_fields(routed[0]):
@@ -2599,6 +2790,133 @@ def span_collect(msgs, spare, config, label):
         log(f"spans ({label}):   {parent:>22} > {name:<22} calls {calls:3d}  "
             f"incl {incl:8.3f} s  self {own:8.3f} s")
     return totals
+
+
+# the calls of one distribute_batch, timed from here by wrapping them
+# where distribute_batch looks them up: (module path, attribute, class,
+# name by call order). A name tuple names a function's calls in order;
+# the JAX package's phase names (fsdkr_tpu/protocol/refresh.py:218-420)
+# sum the top-level spans. Entries whose module or attribute a tree lacks
+# are skipped, so the same spans time the parent's distribute.
+_DIST_SPANS = (
+    ("fsdkr_tpu_torch.ops.ec_batch", "generator_muls", None,
+     ("feldman", "commit_points", "pdl_u1")),
+    ("fsdkr_tpu_torch.proofs.pdl_slack", "prove_stage1", "PDLwSlackProof", "pdl_stage1"),
+    ("fsdkr_tpu_torch.proofs.alice_range", "generate_stage1", "AliceProof", "alice_stage1"),
+    ("fsdkr_tpu_torch.backend.powm", "powm_columns", None,
+     ("powm_columns stage-1 Paillier", "powm_columns stage-1 commitments",
+      "powm_columns stage 2")),
+    ("fsdkr_tpu_torch.core.paillier", "combine_with_rn", None, ("encrypt", "u2", "u")),
+    ("fsdkr_tpu_torch.proofs.pdl_slack", "prove_stage2", "PDLwSlackProof", "pdl_stage2"),
+    ("fsdkr_tpu_torch.proofs.alice_range", "generate_stage2", "AliceProof", "alice_stage2"),
+    ("fsdkr_tpu_torch.proofs.pdl_slack", "prove_finish", "PDLwSlackProof", "pdl_finish"),
+    ("fsdkr_tpu_torch.proofs.alice_range", "generate_finish", "AliceProof", "alice_finish"),
+    ("fsdkr_tpu_torch.core.paillier", "keygen_batch", None, "keygen_batch"),
+    ("fsdkr_tpu_torch.proofs.ring_pedersen", "generate_batch", "RingPedersenStatement",
+     "rp_generate_batch"),
+    ("fsdkr_tpu_torch.proofs.correct_key", "proof_batch", "NiCorrectKeyProof", "ck_proof_batch"),
+    ("fsdkr_tpu_torch.proofs.ring_pedersen", "prove_batch", "RingPedersenProof", "rp_prove_batch"),
+    # inside them: the prime generator, its Miller-Rabin batches, the CRT
+    # engine, the device batches of powm_columns and its Straus planner
+    ("fsdkr_tpu_torch.core.primes", "gen_moduli_batch", None, "gen_moduli_batch"),
+    ("fsdkr_tpu_torch.core.primes", "_mr_batch", None, "_mr_batch"),
+    ("fsdkr_tpu_torch.backend.crt", "crt_modexp_batch", None, "crt_modexp_batch"),
+    ("fsdkr_tpu_torch.backend.crt", "crt_powm_shared", None, "crt_powm_shared"),
+    ("fsdkr_tpu_torch.backend.powm", "device_powm_batches", None, "device_powm_batches"),
+    ("fsdkr_tpu_torch.backend.powm", "multi_powm", None, "multi_powm"),
+    ("fsdkr_tpu_torch.precompute", "take", None, "precompute.take"),
+)
+# the JAX package's phase of each top-level span
+_DIST_PHASES = {
+    "commit_points": "distribute.commit_points",
+    "pdl_stage1": "distribute.stage1.sample",
+    "alice_stage1": "distribute.stage1.sample",
+    "precompute.take": "distribute.stage1.sample",
+    "powm_columns stage-1 Paillier": "distribute.stage1.enc_beta_pow",
+    "powm_columns stage-1 commitments": "distribute.stage1.commit_pow",
+    "encrypt": "distribute.encrypt",
+    "pdl_stage2": "distribute.prove_stage2",
+    "alice_stage2": "distribute.prove_stage2",
+    "powm_columns stage 2": "distribute.prove_stage2",
+    "pdl_finish": "distribute.prove_stage2",
+    "alice_finish": "distribute.prove_stage2",
+    "keygen_batch": "distribute.keygen",
+    "rp_generate_batch": "distribute.ring_pedersen_gen",
+    "ck_proof_batch": "distribute.correct_key_prove",
+    "rp_prove_batch": "distribute.ring_pedersen_prove",
+}
+
+
+def span_distribute(senders, new_n, config, label):
+    """Wall time of one distribute_batch by the JAX package's phase names
+    (inclusive seconds of the top-level calls each phase holds; the
+    Feldman commitments, which the JAX package times in no phase, as
+    `feldman`, and the rest of the call as `outside the spans`), and each
+    call's inclusive and self seconds by parent. Every span that holds
+    device work ends in a host copy of its result, so it holds that work.
+    Returns (wall, {phase: s}, {(parent, name): [calls, incl s, self s]})."""
+    import importlib
+
+    from fsdkr_tpu_torch.protocol import RefreshMessage
+
+    stack, totals, patched, calls = [], {}, [], {}
+
+    def wrap(attr, names, fn):
+        def timed(*args, **kwargs):
+            k = calls[attr] = calls.get(attr, 0) + 1
+            name = names if isinstance(names, str) else (
+                names[k - 1] if k <= len(names) else f"{attr} #{k}")
+            parent = stack[-1][0] if stack else "distribute"
+            stack.append([name, 0.0])
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                dt = time.perf_counter() - t0
+                _, child = stack.pop()
+                if stack:
+                    stack[-1][1] += dt
+                tot = totals.setdefault((parent, name), [0, 0.0, 0.0])
+                tot[0] += 1
+                tot[1] += dt
+                tot[2] += dt - child
+        return timed
+
+    for mod_name, attr, cls_name, names in _DIST_SPANS:
+        try:
+            owner = importlib.import_module(mod_name)
+        except ImportError:
+            continue
+        if cls_name:
+            owner = getattr(owner, cls_name)
+        raw = owner.__dict__.get(attr)
+        if raw is None:
+            continue
+        fn = raw.__func__ if isinstance(raw, staticmethod) else raw
+        new = wrap(attr, names, fn)
+        patched.append((owner, attr, raw))
+        setattr(owner, attr, staticmethod(new) if isinstance(raw, staticmethod) else new)
+    try:
+        t0 = time.perf_counter()
+        out = RefreshMessage.distribute_batch(senders, new_n, config)
+        wall = time.perf_counter() - t0
+    finally:
+        for owner, attr, raw in reversed(patched):
+            setattr(owner, attr, raw)
+    phases = {}
+    for (parent, name), tot in totals.items():
+        if parent == "distribute":
+            key = _DIST_PHASES.get(name, name)
+            phases[key] = phases.get(key, 0.0) + tot[1]
+    phases["outside the spans"] = wall - sum(phases.values())
+    log(f"distribute spans ({label}): one distribute_batch of {len(senders)} senders "
+        f"{wall:.3f} s")
+    for key, sec in phases.items():
+        log(f"distribute spans ({label}):   {key:<34} {sec:8.3f} s")
+    for (parent, name), (n_calls, incl, own) in totals.items():
+        log(f"distribute spans ({label}):     {parent:>30} > {name:<32} calls {n_calls:4d}  "
+            f"incl {incl:8.3f} s  self {own:8.3f} s")
+    return out, wall, phases, totals
 
 
 def honest_u1_check(totals, label):
@@ -3329,6 +3647,20 @@ def main() -> None:
                                 if shape not in seen[name]}
                          for name, by_shape in xshapes.items()}
         done("stream")
+    prover_counts, prover_shapes = None, {}
+    if "prover" in phases:
+        prover_counts, pshapes, ptimes = phase_prover(dev)
+        log("prover: phase seconds " + json.dumps(ptimes))
+        # the phase's own launch shapes, checked and timed beside the others
+        if shapes is not None:
+            seen = {name: {**shapes.get(name, {}), **join_shapes.get(name, {}),
+                           **sessions_shapes.get(name, {}), **stream_shapes.get(name, {})}
+                    for name in pshapes}
+            seen["cios_modexp"].update(rlc_modexp)
+            prover_shapes = {name: {shape: c for shape, c in by_shape.items()
+                                    if shape not in seen[name]}
+                             for name, by_shape in pshapes.items()}
+        done("prover")
     if "time" in phases:
         if counts is None or any(name not in shapes for name in JOINT):
             fail("the time phase needs the main and joint phases' launch counts")
@@ -3336,9 +3668,10 @@ def main() -> None:
             log("time: no rlc phase: the Straus kernel at the joint path's shapes only")
         kernels = phase_time(dev, rng, counts, shapes,
                              (("rlc", {"cios_modexp": rlc_modexp}), ("join", join_shapes),
-                              ("sessions", sessions_shapes), ("stream", stream_shapes)),
+                              ("sessions", sessions_shapes), ("stream", stream_shapes),
+                              ("prover", prover_shapes)),
                              (("join", join_counts), ("sessions", sessions_counts),
-                              ("stream", stream_counts)))
+                              ("stream", stream_counts), ("prover", prover_counts)))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi_line())

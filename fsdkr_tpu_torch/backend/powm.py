@@ -672,6 +672,29 @@ def fold_ladder2(rows, device="cuda") -> List[int]:
     return multi_powm([r[0] for r in rows], [r[1] for r in rows], [r[2] for r in rows], device)
 
 
+def crt_powm(bases, exps, moduli, factors, powm=None) -> List[int]:
+    """Route for prover-owned moduli (FSDKRC_CRT, backend.crt): rows whose
+    factorization is supplied as factors[i] = (p, q) ride the secret-CRT
+    engine — two fault-checked half-width legs on the native host core,
+    exponents reduced mod the leg group orders, Garner-recombined — and
+    rows with factors[i] = None (or every row with the knob off) take
+    `powm` (host_powm when omitted). The values are the full-width
+    path's: the decomposition is an arithmetic identity."""
+    if powm is None:
+        powm = host_powm
+    from . import crt
+
+    if not crt.crt_enabled() or not any(f is not None for f in factors):
+        return powm(bases, exps, moduli)
+    contexts = [
+        crt.get_context(m, *f) if f is not None else None
+        for m, f in zip(moduli, factors)
+    ]
+    return crt.crt_modexp_batch(
+        bases, exps, contexts, fallback=powm, moduli=moduli
+    )
+
+
 def get_batch_powm(config: ProtocolConfig) -> BatchPowm:
     if config.backend == "host":
         return host_powm

@@ -86,6 +86,20 @@ class ProtocolConfig:
     def prime_bits(self) -> int:
         return self.paillier_bits // 2
 
+    @property
+    def key_material_pool_key(self) -> tuple:
+        """Pool key of the precompute key-material pool: everything a
+        pooled (ek, dk, correct-key proof, ring-Pedersen statement and
+        proof) bundle depends on, so sessions with other parameters never
+        take each other's key material. The device is not part of it: the
+        bundle's values are the same on any device."""
+        return (
+            self.paillier_bits,
+            self.m_security,
+            self.correct_key_rounds,
+            self.hash_alg,
+        )
+
 
 DEFAULT_CONFIG = ProtocolConfig()
 

@@ -5,7 +5,8 @@ Capability surface of `kzen-paillier` as consumed by the reference:
 `(1+n)^m * r^n mod n^2`, homomorphic add and mul, CRT decryption with
 `dk = {p, q}` (usage `src/refresh_message.rs:72-84,118,221-236,439`).
 The batched r^n columns of distribute run on the device (backend.powm);
-keygen and decryption stay on the host.
+keygen (the native prime pipeline) and decryption (fault-checked CRT
+legs on the native core, backend.crt) stay on the host.
 """
 
 from __future__ import annotations
@@ -102,14 +103,26 @@ def encrypt(ek: EncryptionKey, m: int) -> int:
 
 def decrypt(dk: DecryptionKey, ek: EncryptionKey, c: int) -> int:
     """CRT decryption: m = L(c^lambda mod n^2) * lambda^{-1} mod n, done
-    separately mod p^2 and q^2 and recombined."""
+    separately mod p^2 and q^2 and recombined. Under FSDKRC_CRT each leg
+    runs through the secret-CRT engine's fault-checked path
+    (backend.crt.fault_checked_powm): computed mod p^2*r for a fresh
+    64-bit prime r and re-verified mod r, so a faulted leg aborts
+    (CrtFaultError) instead of producing a wrong plaintext — the decrypt
+    output feeds the refreshed key share, and the Bellcore gcd attack
+    applies to a faulted CRT leg here as it does to RSA-CRT signatures."""
     p, q = dk.p, dk.q
     if p == 0 or q == 0:
         raise ValueError("decryption key has been zeroized")
     n = p * q
     pp, qq = p * p, q * q
-    cp_pow = intops.mod_pow(c % pp, p - 1, pp)
-    cq_pow = intops.mod_pow(c % qq, q - 1, qq)
+    from ..backend import crt
+
+    if crt.crt_enabled() and math.gcd(c, n) == 1:
+        cp_pow = crt.fault_checked_powm(c % pp, p - 1, pp)
+        cq_pow = crt.fault_checked_powm(c % qq, q - 1, qq)
+    else:  # knob off, or a non-unit ciphertext: the unchecked legs
+        cp_pow = intops.mod_pow(c % pp, p - 1, pp)
+        cq_pow = intops.mod_pow(c % qq, q - 1, qq)
     # With g = 1+n: L_p(g^{p-1} mod p^2) = (p-1)*q mod p, so the CRT
     # correction factor is h_p = ((p-1)*q)^{-1} mod p (and symmetrically q).
     hp = pow((p - 1) * q % p, -1, p)

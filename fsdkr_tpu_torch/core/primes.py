@@ -3,8 +3,9 @@
 The reference delegates to GMP through `kzen-paillier`'s
 `keypair_with_modulus_size` (`src/refresh_message.rs:118`). Here it is a
 small-prime sieve (one `math.gcd` against a primorial) plus Miller-Rabin
-over CPython `pow`. Generation cost is amortized — keygen happens once
-per refresh per party, while verification is O(n^2).
+in the native host core (fsdkr_tpu_torch/native), one batch a window of
+candidates split over the host's cores; CPython `pow` tests only what
+the core cannot take (`_mr_rounds`, also the tests' oracle).
 """
 
 from __future__ import annotations
@@ -75,31 +76,60 @@ def _mr_rounds(n: int, rounds: int) -> bool:
 
 
 def is_probable_prime(n: int, rounds: int = 30) -> bool:
-    """Miller-Rabin with `rounds` random bases (error <= 4^-rounds)."""
+    """Miller-Rabin with `rounds` random bases (error <= 4^-rounds), in
+    the native core."""
     if n < 2:
         return False
     for small in (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37):
         if n % small == 0:
             return n == small
+    from .. import native
+
+    verdict = native.is_probable_prime(n, rounds)
+    if verdict is not None:
+        return verdict
     return _mr_rounds(n, rounds)
+
+
+def _mr_batch(cands: list, rounds: int) -> list:
+    """Miller-Rabin verdicts of a window of candidates: one native batch
+    (candidates split over the cores), or per candidate where the core
+    cannot take the window."""
+    from .. import native
+
+    verdicts = native.is_probable_prime_batch(cands, rounds)
+    if verdicts is None:
+        verdicts = [is_probable_prime(c, rounds) for c in cands]
+    return verdicts
 
 
 def gen_primes_batch(bits: int, count: int) -> list:
     """`count` independent random primes with exactly `bits` bits and the
-    top two bits set (see gen_prime for why): CSPRNG candidates, one gcd
-    against the generation sieve, one cheap Miller-Rabin round, then a
-    29-round confirmation of the survivors."""
+    top two bits set (see gen_prime for why). The pipeline is windowed:
+    draw a window of independent CSPRNG candidates, reject by one gcd
+    against the generation sieve, run ONE native MR(1) batch over the
+    window, then one 29-round confirmation batch over the survivors. The
+    candidate distribution is the serial loop's: every candidate is an
+    independent uniform draw, windows only change call granularity."""
     if bits < 8:
         raise ValueError("prime too small")
     sieve = _sieve_for_bits(bits)
     found: list = []
     while len(found) < count:
-        c = secrets.randbits(bits) | (1 << (bits - 1)) | (1 << (bits - 2)) | 1
-        if math.gcd(c, sieve) != 1:
-            continue
-        if _mr_rounds(c, 1) and _mr_rounds(c, 29):
-            found.append(c)
-    return found
+        need = count - len(found)
+        # ~bits/28 sieved survivors per prime expected; mild over-draw,
+        # the loop refills on shortfall
+        target = need * max(4, bits // 28 + 2)
+        cands = []
+        while len(cands) < target:
+            c = secrets.randbits(bits) | (1 << (bits - 1)) | (1 << (bits - 2)) | 1
+            if math.gcd(c, sieve) == 1:
+                cands.append(c)
+        # one cheap round first: almost every sieved composite dies here
+        survivors = [c for c, v in zip(cands, _mr_batch(cands, 1)) if v]
+        if survivors:
+            found += [c for c, v in zip(survivors, _mr_batch(survivors, 29)) if v]
+    return found[:count]
 
 
 def gen_prime(bits: int) -> int:
@@ -113,7 +143,8 @@ def gen_prime(bits: int) -> int:
 
 
 def gen_moduli_batch(modulus_bits: int, count: int) -> list:
-    """`count` moduli (n, p, q) with n = p*q of `modulus_bits` bits, p != q."""
+    """`count` moduli (n, p, q) with n = p*q of `modulus_bits` bits,
+    p != q — all 2*count primes through one windowed pipeline."""
     if modulus_bits % 2:
         raise ValueError("modulus_bits must be even")
     half = modulus_bits // 2

@@ -134,3 +134,27 @@ class RingPedersenProofValidation(FsDkrError):
         self.party_index = party_index
         super().__init__(f"Ring Pedersen proof failed for party {party_index}")
 
+
+
+class PrecomputeReuseError(FsDkrError):
+    """A precompute pool entry was consumed twice (precompute/pools.py).
+    Entries are strictly single-use: a Paillier randomizer or sigma
+    first-message nonce that enters two transcripts collapses the
+    zero-knowledge property (two challenges over one commitment reveal
+    the witness), so the second take aborts hard instead of returning
+    the wiped value."""
+
+    def __init__(self):
+        super().__init__("precompute pool entry consumed twice (single-use)")
+
+
+class CrtFaultError(FsDkrError):
+    """A secret-CRT modexp leg failed its Bellcore fault check
+    (backend/crt.py): the recombined value is withheld entirely — a
+    faulted CRT output would let gcd(output - truth, N) recover a prime
+    factor of the prover's key, so the engine aborts hard instead of
+    ever emitting it. No detail beyond the failure itself is exposed
+    (the faulty residues stay inside the engine)."""
+
+    def __init__(self):
+        super().__init__("secret-CRT modexp failed its fault check")

@@ -79,7 +79,9 @@ class AliceProof:
 
     @staticmethod
     def sample_stage1(ntv, nv, q: int = CURVE_ORDER):
-        """Stage-1 nonce sampling. Returns (alpha, beta, gamma, rho)
+        """Input-independent stage-1 nonce sampling — the one sampler of
+        the inline prover and the offline precompute producer (see
+        PDLwSlackProof.sample_stage1). Returns (alpha, beta, gamma, rho)
         columns (this prover's sampling order: beta before gamma/rho)."""
         q3 = q**3
         alpha = [secrets.randbelow(q3) for _ in ntv]
@@ -89,16 +91,47 @@ class AliceProof:
         return alpha, beta, gamma, rho
 
     @staticmethod
+    def produce_stage1(h1, h2, nt, n, count, powm=None, q: int = CURVE_ORDER):
+        """Offline producer constructor: `count` stage-1 bundles for ONE
+        receiver environment — (alpha, beta, rho, gamma, beta^n mod n^2,
+        h2^rho mod N~, h1^alpha*h2^gamma mod N~), the 7-tuple shape of
+        PDLwSlackProof.produce_stage1 (the two differ only in their beta
+        distribution, kept by the samplers)."""
+        if powm is None:
+            from ..backend.powm import host_powm as powm
+        from ..backend.powm import powm_columns
+
+        nn = n * n
+        alpha, beta, gamma, rho = AliceProof.sample_stage1(
+            [nt] * count, [n] * count, q
+        )
+        h2rho, ca, cg, bn = powm_columns(
+            powm,
+            ([h2] * count, rho, [nt] * count),
+            ([h1] * count, alpha, [nt] * count),
+            ([h2] * count, gamma, [nt] * count),
+            (beta, [n] * count, [nn] * count),
+        )
+        w = intops.mod_mul_col(ca, cg, [nt] * count)
+        return [
+            (alpha[i], beta[i], rho[i], gamma[i], bn[i], h2rho[i], w[i])
+            for i in range(count)
+        ]
+
+    @staticmethod
     def generate_stage1(
         avals, rvals, h1v, h2v, ntv, nv, nnv, q: int = CURVE_ORDER,
-        hash_alg: str | None = None,
+        hash_alg: str | None = None, pooled=None,
     ):
         """Sample nonces, return (state, columns). Under FSDKRC_MULTIEXP
         z = h1^a h2^rho and w = h1^alpha h2^gamma are joint rows (see
         PDLwSlackProof.prove_stage1); off, the per-term column layout.
-        CONTRACT: the beta^n mod n^2 column is LAST in either layout —
+        CONTRACT: the beta^n mod n^2 column is LAST in every layout —
         distribute_batch splits it into the fused Paillier launch by
-        position."""
+        position. `pooled` (FSDKRC_PRECOMPUTE): per-row Optional
+        produce_stage1 bundles, as PDLwSlackProof.prove_stage1 takes
+        them; only the witness factor h1^a stays online for pooled
+        rows."""
         if q.bit_length() > 256:
             raise ValueError(
                 "SHA-256 transcripts support group orders up to 256 bits"
@@ -106,6 +139,16 @@ class AliceProof:
         from ..backend.powm import multiexp_enabled
 
         joint = multiexp_enabled()
+        if pooled is not None:
+            from .pdl_slack import _pooled_cols, _pooled_state
+
+            state, fb = _pooled_state(
+                lambda nts, ns: AliceProof.sample_stage1(nts, ns, q),
+                ("alpha", "beta", "gamma", "rho"), pooled, ntv, nv,
+            )
+            state.update(avals=avals, rvals=rvals, ntv=ntv, nv=nv, nnv=nnv,
+                         hash_alg=hash_alg, joint=joint)
+            return state, _pooled_cols(state, fb, h1v, h2v, ntv, nv, nnv, avals, joint)
         alpha, beta, gamma, rho = AliceProof.sample_stage1(ntv, nv, q)
         state = dict(
             avals=avals, rvals=rvals, alpha=alpha, beta=beta,
@@ -134,7 +177,11 @@ class AliceProof:
         alpha = state["alpha"]
         from ..core import paillier
 
-        if state["joint"]:
+        if state.get("pooled_mode"):
+            from .pdl_slack import _pooled_results
+
+            z, w, bn = _pooled_results(state, results)
+        elif state["joint"]:
             z, w, bn = results
         else:
             c1, c2, c3, c4, bn = results

@@ -91,14 +91,17 @@ class NiCorrectKeyProof:
         powm=None,
         hash_alg: str | None = None,
     ) -> List["NiCorrectKeyProof"]:
-        """All provers' N-th-root columns in ONE modexp launch (the
-        cross-sender batch axis of a refresh). The exponent
-        d = N^{-1} mod phi is secret: the column rides the device's
-        constant-time window loop (backend.powm)."""
-        if powm is None:
-            from ..backend.powm import host_powm as powm
+        """All provers' N-th-root columns in ONE modexp call (the
+        cross-sender batch axis of a refresh). The prover owns every
+        row's factorization (d = N^{-1} mod phi exists only because it
+        does), so the column rides the secret-CRT route
+        (backend.powm.crt_powm, FSDKRC_CRT): d reduced mod p-1 / q-1
+        halves both the exponent and the width of each fault-checked leg
+        on the native host core; off, the full-width column through
+        `powm`, with the same values."""
+        from ..backend.powm import crt_powm
 
-        bases, exps, mods = [], [], []
+        bases, exps, mods, factors = [], [], [], []
         for dk in dks:
             n = dk.p * dk.q
             phi = (dk.p - 1) * (dk.q - 1)
@@ -106,7 +109,8 @@ class NiCorrectKeyProof:
             bases += NiCorrectKeyProof.derive_targets(n, salt, rounds, hash_alg)
             exps += [d] * rounds
             mods += [n] * rounds
-        sigma = powm(bases, exps, mods)
+            factors += [(dk.p, dk.q)] * rounds
+        sigma = crt_powm(bases, exps, mods, factors, powm)
         return [
             NiCorrectKeyProof(sigma_vec=sigma[k * rounds : (k + 1) * rounds])
             for k in range(len(dks))

@@ -110,8 +110,11 @@ class PDLwSlackProof:
 
     @staticmethod
     def sample_stage1(ntv, nv):
-        """Stage-1 nonce sampling for len(ntv) rows. Returns (alpha,
-        beta, rho, gamma) columns."""
+        """Input-independent stage-1 nonce sampling for len(ntv) rows —
+        the one sampler of the inline prover and the offline precompute
+        producer, so pooled and inline runs draw from identical
+        distributions in identical per-row order. Returns (alpha, beta,
+        rho, gamma) columns."""
         q = CURVE_ORDER
         q3 = q**3
         alpha = [secrets.randbelow(q3) for _ in ntv]
@@ -121,38 +124,90 @@ class PDLwSlackProof:
         return alpha, beta, rho, gamma
 
     @staticmethod
-    def prove_stage1(witnesses, h1v, h2v, ntv, nv, nnv, hash_alg=None):
+    def produce_stage1(h1, h2, nt, n, count, powm=None):
+        """Offline producer constructor (precompute): sample `count` rows
+        of stage-1 nonces for ONE receiver environment and evaluate every
+        input-independent power through `powm` (host pow when omitted).
+        Returns pool bundles (alpha, beta, rho, gamma, beta^n mod n^2,
+        h2^rho mod N~, h1^alpha*h2^gamma mod N~) — the values
+        prove_stage1 samples and computes inline (same sampler, same
+        arithmetic). The witness-dependent factor h1^x and everything
+        after the Fiat-Shamir challenge stay online."""
+        if powm is None:
+            from ..backend.powm import host_powm as powm
+        from ..backend.powm import powm_columns
+
+        nn = n * n
+        alpha, beta, rho, gamma = PDLwSlackProof.sample_stage1(
+            [nt] * count, [n] * count
+        )
+        h2rho, ca, cg, bn = powm_columns(
+            powm,
+            ([h2] * count, rho, [nt] * count),
+            ([h1] * count, alpha, [nt] * count),
+            ([h2] * count, gamma, [nt] * count),
+            (beta, [n] * count, [nn] * count),
+        )
+        u3 = intops.mod_mul_col(ca, cg, [nt] * count)
+        return [
+            (alpha[i], beta[i], rho[i], gamma[i], bn[i], h2rho[i], u3[i])
+            for i in range(count)
+        ]
+
+    @staticmethod
+    def prove_stage1(witnesses, h1v, h2v, ntv, nv, nnv, hash_alg=None,
+                     pooled=None):
         """Sample nonces, return (state, columns). Under FSDKRC_MULTIEXP
         (backend.powm.multiexp_enabled) the two mod-N~ commitments are
         joint rows, z = h1^x h2^rho and u3 = h1^alpha h2^gamma, which the
         planner (backend.powm.multi_powm) computes and multiplies back
         itself; off, the per-term column layout. CONTRACT: the beta^n mod
-        n^2 column is LAST in either layout — distribute_batch splits it
-        into the fused Paillier launch by position."""
+        n^2 column is LAST in every layout — distribute_batch splits it
+        into the fused Paillier launch by position.
+
+        `pooled` (FSDKRC_PRECOMPUTE): a per-row list of Optional
+        produce_stage1 bundles. Pooled rows contribute NO offline
+        columns — only the witness factor h1^x remains (one column over
+        all rows, which powm_columns shares with the Alice prover's
+        identical share column); rows with a dry pool (None) ride
+        fallback columns with the inline values."""
         from ..backend.powm import multiexp_enabled
 
         joint = multiexp_enabled()
-        alpha, beta, rho, gamma = PDLwSlackProof.sample_stage1(ntv, nv)
-        state = dict(
-            witnesses=witnesses, alpha=alpha, beta=beta, rho=rho,
-            gamma=gamma, ntv=ntv, nv=nv, nnv=nnv, hash_alg=hash_alg,
-            joint=joint,
+        if pooled is None:
+            alpha, beta, rho, gamma = PDLwSlackProof.sample_stage1(ntv, nv)
+            state = dict(
+                witnesses=witnesses, alpha=alpha, beta=beta, rho=rho,
+                gamma=gamma, ntv=ntv, nv=nv, nnv=nnv, hash_alg=hash_alg,
+                joint=joint,
+            )
+            if joint:
+                cols = [
+                    (list(zip(h1v, h2v)),
+                     [(w.x.to_int(), r) for w, r in zip(witnesses, rho)], ntv),
+                    (list(zip(h1v, h2v)), list(zip(alpha, gamma)), ntv),
+                    (beta, nv, nnv),
+                ]
+            else:
+                cols = [
+                    (h1v, [w.x.to_int() for w in witnesses], ntv),
+                    (h2v, rho, ntv),
+                    (h1v, alpha, ntv),
+                    (h2v, gamma, ntv),
+                    (beta, nv, nnv),
+                ]
+            return state, cols
+
+        state, fb = _pooled_state(
+            PDLwSlackProof.sample_stage1, ("alpha", "beta", "rho", "gamma"),
+            pooled, ntv, nv,
         )
-        if joint:
-            cols = [
-                (list(zip(h1v, h2v)),
-                 [(w.x.to_int(), r) for w, r in zip(witnesses, rho)], ntv),
-                (list(zip(h1v, h2v)), list(zip(alpha, gamma)), ntv),
-                (beta, nv, nnv),
-            ]
-        else:
-            cols = [
-                (h1v, [w.x.to_int() for w in witnesses], ntv),
-                (h2v, rho, ntv),
-                (h1v, alpha, ntv),
-                (h2v, gamma, ntv),
-                (beta, nv, nnv),
-            ]
+        state.update(witnesses=witnesses, ntv=ntv, nv=nv, nnv=nnv,
+                     hash_alg=hash_alg, joint=joint)
+        cols = _pooled_cols(
+            state, fb, h1v, h2v, ntv, nv, nnv,
+            [w.x.to_int() for w in witnesses], joint,
+        )
         return state, cols
 
     @staticmethod
@@ -166,7 +221,9 @@ class PDLwSlackProof:
         alpha = state["alpha"]
         from ..core import paillier
 
-        if state["joint"]:
+        if state.get("pooled_mode"):
+            z, u3, bn = _pooled_results(state, results)
+        elif state["joint"]:
             z, u3, bn = results
         else:
             c1, c2, c3, c4, bn = results
@@ -364,3 +421,78 @@ class PDLwSlackProof:
         ok1, ok2, ok3 = self.u1 == u1_test, self.u2 == u2_test, self.u3 == u3_test
         if not (ok1 and ok2 and ok3):
             raise PDLwSlackProofError(ok1, ok2, ok3)
+
+
+# ---------------------------------------------------------------------------
+# The pooled stage-1 layout, shared with proofs.alice_range: both provers'
+# pool bundles are (alpha, beta, rho, gamma, beta^n, h2^rho,
+# h1^alpha h2^gamma), and both commit h1^w h2^rho and h1^alpha h2^gamma.
+
+
+def _pooled_state(sampler, names, pooled, ntv, nv):
+    """Nonce columns of a pooled stage 1: pooled rows from their bundles,
+    dry rows (None) from `sampler` over those rows alone (its columns
+    named by `names`, in its order). Returns (state, fb): the state with
+    the nonce columns and the bundles' powers, and the dry rows."""
+    rows = len(ntv)
+    fb = [i for i in range(rows) if pooled[i] is None]
+    sampled = dict(zip(names, sampler([ntv[i] for i in fb], [nv[i] for i in fb])))
+    cols = {k: [0] * rows for k in ("alpha", "beta", "rho", "gamma")}
+    pool_bn, pool_h2rho, pool_u3 = {}, {}, {}
+    for i, p in enumerate(pooled):
+        if p is not None:
+            (cols["alpha"][i], cols["beta"][i], cols["rho"][i], cols["gamma"][i],
+             pool_bn[i], pool_h2rho[i], pool_u3[i]) = p
+    for j, i in enumerate(fb):
+        for k in cols:
+            cols[k][i] = sampled[k][j]
+    state = dict(cols, pooled_mode=True, fb=fb, pool_bn=pool_bn,
+                 pool_h2rho=pool_h2rho, pool_u3=pool_u3)
+    return state, fb
+
+
+def _pooled_cols(state, fb, h1v, h2v, ntv, nv, nnv, wit, joint):
+    """Stage-1 columns of a pooled stage 1: h1^wit over every row, then
+    the dry rows' h2^rho, h1^alpha h2^gamma (one joint column, or two)
+    and, LAST, beta^n mod n^2."""
+    alpha, gamma, rho, beta = (state[k] for k in ("alpha", "gamma", "rho", "beta"))
+    nt_fb = [ntv[i] for i in fb]
+    if joint:
+        u3_cols = [(
+            [(h1v[i], h2v[i]) for i in fb],
+            [(alpha[i], gamma[i]) for i in fb],
+            nt_fb,
+        )]
+    else:
+        u3_cols = [
+            ([h1v[i] for i in fb], [alpha[i] for i in fb], nt_fb),
+            ([h2v[i] for i in fb], [gamma[i] for i in fb], nt_fb),
+        ]
+    return [
+        (h1v, wit, ntv),
+        ([h2v[i] for i in fb], [rho[i] for i in fb], nt_fb),
+        *u3_cols,
+        ([beta[i] for i in fb], [nv[i] for i in fb], [nnv[i] for i in fb]),
+    ]
+
+
+def _pooled_results(state, results):
+    """(z, u3, beta^n) columns of a pooled stage 1 from its launches'
+    results and the bundles' powers."""
+    ntv = state["ntv"]
+    fb = state["fb"]
+    rows = len(ntv)
+    h2rho = [state["pool_h2rho"].get(i) for i in range(rows)]
+    u3 = [state["pool_u3"].get(i) for i in range(rows)]
+    bn = [state["pool_bn"].get(i) for i in range(rows)]
+    for j, i in enumerate(fb):
+        h2rho[i] = results[1][j]
+        bn[i] = results[-1][j]
+    if state["joint"]:
+        u3_fb = results[2]
+    else:
+        u3_fb = intops.mod_mul_col(results[2], results[3], [ntv[i] for i in fb])
+    for j, i in enumerate(fb):
+        u3[i] = u3_fb[j]
+    z = intops.mod_mul_col(results[0], h2rho, ntv)
+    return z, u3, bn

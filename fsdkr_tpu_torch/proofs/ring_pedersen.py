@@ -48,24 +48,38 @@ class RingPedersenStatement:
     def generate_batch(
         count: int, config: ProtocolConfig = DEFAULT_CONFIG
     ) -> list:
-        """`count` fresh statements: T = r^2 mod N, S = T^lambda mod N."""
+        """`count` fresh statements: moduli through the windowed prime
+        pipeline (core.primes, native Miller-Rabin batches), and
+        S = T^lambda through the secret-CRT engine (FSDKRC_CRT,
+        backend.crt) — the prover owns this factorization, so the
+        full-width ladder decomposes into two fault-checked half-width
+        legs with lambda reduced mod p-1 / q-1, every statement's legs in
+        one native batch. Same sampling order and values as the
+        full-width path."""
+        from ..backend import crt
+
         moduli = primes.gen_moduli_batch(config.paillier_bits, count)
-        out = []
+        rows = []
         for n, p, q in moduli:
             phi = (p - 1) * (q - 1)
             r = secrets.randbelow(n)
             lam = secrets.randbelow(phi)
-            t = pow(r, 2, n)
-            s = pow(t, lam, n)
-            out.append(
-                (
-                    RingPedersenStatement(
-                        S=s, T=t, N=n, ek=EncryptionKey.from_n(n)
-                    ),
-                    RingPedersenWitness(p=p, q=q, lam=lam, phi=phi),
-                )
+            rows.append((n, p, q, phi, lam, pow(r, 2, n)))
+        if crt.crt_enabled():
+            # every statement's legs in one native batch
+            s_vals = crt.crt_modexp_batch(
+                [t for *_, t in rows], [lam for *_, lam, _ in rows],
+                [crt.get_context(n, p, q) for n, p, q, *_ in rows],
             )
-        return out
+        else:
+            s_vals = [pow(t, lam, n) for n, *_, lam, t in rows]
+        return [
+            (
+                RingPedersenStatement(S=s, T=t, N=n, ek=EncryptionKey.from_n(n)),
+                RingPedersenWitness(p=p, q=q, lam=lam, phi=phi),
+            )
+            for (n, p, q, phi, lam, t), s in zip(rows, s_vals)
+        ]
 
 
 @dataclass(frozen=True)
@@ -105,7 +119,9 @@ class RingPedersenProof:
         witnesses: List[RingPedersenWitness],
         m_security: int = DEFAULT_CONFIG.m_security,
     ) -> List[List[int]]:
-        """M-round commitment nonces a_i < phi per witness."""
+        """M-round commitment nonces a_i < phi per witness — the one
+        sampler of the inline prover and the key-material producer
+        (precompute), so pooled and inline runs draw alike."""
         return [
             [secrets.randbelow(w.phi) for _ in range(m_security)]
             for w in witnesses
@@ -119,9 +135,18 @@ class RingPedersenProof:
         powm=None,
         hash_alg: str | None = None,
     ) -> List["RingPedersenProof"]:
-        """All provers' M-round commitment columns in ONE modexp launch.
-        The proof depends on (witness, statement) alone — the challenge
-        binds only the prover's own commitments."""
+        """All provers' M-round commitment columns. The proof depends on
+        (witness, statement) alone — the challenge binds only the
+        prover's own commitments — so whole proofs are input-independent
+        and ride the precompute key-material pool with their statements.
+
+        Under FSDKRC_CRT the prover owns each statement's factorization:
+        the M rows T^{a_i} mod N decompose into two fault-checked
+        half-width fixed-base comb legs a prover on the native host core
+        (exponents reduced mod p-1 / q-1, one squaring ladder a leg over
+        all M rows, tables built, used and wiped). Off, ONE modexp launch
+        through `powm`, each prover's rows sharing (T, N) for the comb.
+        The A values are the same either way."""
         if powm is None:
             from ..backend.powm import host_powm as powm
         if len(witnesses) != len(statements):
@@ -130,11 +155,20 @@ class RingPedersenProof:
                 f"{len(statements)} statements"
             )
         a_all = RingPedersenProof.sample_commit(witnesses, m_security)
-        A_all = powm(
-            [st.T for st in statements for _ in range(m_security)],
-            [a for grp in a_all for a in grp],
-            [st.N for st in statements for _ in range(m_security)],
-        )
+        from ..backend import crt
+
+        if crt.crt_enabled():
+            A_all = []
+            for w, st, a_vec in zip(witnesses, statements, a_all):
+                A_all += crt.crt_powm_shared(
+                    st.T, a_vec, crt.get_context(st.N, w.p, w.q)
+                )
+        else:
+            A_all = powm(
+                [st.T for st in statements for _ in range(m_security)],
+                [a for grp in a_all for a in grp],
+                [st.N for st in statements for _ in range(m_security)],
+            )
         out = []
         for k, (witness, a_vec) in enumerate(zip(witnesses, a_all)):
             A_vec = A_all[k * m_security : (k + 1) * m_security]

@@ -101,8 +101,15 @@ class RefreshMessage:
     ) -> List[Tuple["RefreshMessage", DecryptionKey]]:
         """All senders' paths as fused cross-party batches: the
         per-receiver columns of every sender concatenate into ONE launch
-        per proof family and width. Mutates each local_key.vss_scheme."""
+        per proof family and width. Mutates each local_key.vss_scheme.
+
+        Under FSDKRC_PRECOMPUTE (precompute/) every phase boundary
+        consumes or computes: pooled rows take their offline-produced
+        values (the values inline sampling and computing would give),
+        dry rows fall back to that phase's inline columns. At the end the
+        committee's pool targets move to the next epoch's keys."""
         from ..backend.powm import get_batch_powm, powm_columns
+        from .. import precompute
 
         powm = get_batch_powm(config)
         ec_device = _ec_device(config)
@@ -117,12 +124,34 @@ class RefreshMessage:
             if new_n <= t:
                 raise NewPartyUnassignedIndexError()
 
+        pre_on = precompute.enabled()
+        if pre_on:
+            # this epoch is about to drain its pools: suspend the
+            # committee's targets so a producer kick mid-epoch cannot
+            # refill pools whose keys rotate at the end of this call
+            # (the next epoch's are registered below)
+            owner = precompute.current_registration_owner()
+            if owner is None:
+                owner = precompute.committee_owner(
+                    senders[0][1].h1_h2_n_tilde_vec[:new_n]
+                )
+            precompute.suspend_targets(owner)
+
         per = []  # per-sender working state, in input order
         for old_party_index, local_key in senders:
             coeffs, secret_shares = vss.sample_poly(
                 local_key.t, new_n, local_key.keys_linear.x_i
             )
             receiver_eks = [local_key.paillier_key_vec[i] for i in range(new_n)]
+            rand, rn = [], []  # pooled r^n mod n^2 per receiver (None: inline)
+            for ek_i in receiver_eks:
+                ent = precompute.take("enc", ek_i.n) if pre_on else None
+                if ent is None:
+                    rand.append(paillier.sample_randomness(ek_i))
+                    rn.append(None)
+                else:
+                    rand.append(ent[0])
+                    rn.append(ent[1])
             per.append(
                 dict(
                     old_i=old_party_index,
@@ -130,7 +159,8 @@ class RefreshMessage:
                     coeffs=coeffs,
                     shares=secret_shares,
                     eks=receiver_eks,
-                    rand=[paillier.sample_randomness(ek) for ek in receiver_eks],
+                    rand=rand,
+                    rn=rn,
                 )
             )
 
@@ -165,6 +195,7 @@ class RefreshMessage:
         # columns share launches by width, then both families' r^e
         # response columns share the stage-2 launch
         flat_rand = [r for p in per for r in p["rand"]]
+        flat_rn = [x for p in per for x in p["rn"]]
         flat_nv = [ek.n for p in per for ek in p["eks"]]
         flat_nnv = [ek.nn for p in per for ek in p["eks"]]
         flat_h1 = [p["key"].h1_h2_n_tilde_vec[i].g for p in per for i in range(new_n)]
@@ -178,27 +209,43 @@ class RefreshMessage:
 
         # both provers return their Paillier beta^n column LAST, so the
         # full-width public-exponent columns (enc r^n + both beta^n) stay
-        # in one launch set and the mod-N~ columns in the other
+        # in one launch set and the mod-N~ columns in the other. Pooled
+        # rows drop out of both (their powers were produced offline);
+        # only the witness factor h1^x, shared by both families, and any
+        # dry rows stay online
+        pooled_pdl = pooled_alice = None
+        if pre_on:
+            envs = list(zip(flat_h1, flat_h2, flat_nt, flat_nv))
+            pooled_pdl = [precompute.take("pdl", e) for e in envs]
+            pooled_alice = [precompute.take("alice", e) for e in envs]
         pdl_state, pdl_cols = PDLwSlackProof.prove_stage1(
             flat_witnesses, flat_h1, flat_h2, flat_nt, flat_nv, flat_nnv,
-            hash_alg=config.hash_alg,
+            hash_alg=config.hash_alg, pooled=pooled_pdl,
         )
         alice_state, alice_cols = AliceProof.generate_stage1(
             flat_share_ints, flat_rand, flat_h1, flat_h2, flat_nt,
-            flat_nv, flat_nnv, hash_alg=config.hash_alg,
+            flat_nv, flat_nnv, hash_alg=config.hash_alg, pooled=pooled_alice,
         )
-        res_pail = powm_columns(
-            powm, (flat_rand, flat_nv, flat_nnv), pdl_cols[-1], alice_cols[-1]
+        # the encryption column r^n mod n^2: rows without a pooled power
+        enc_fb = [i for i, x in enumerate(flat_rn) if x is None]
+        enc_col = (
+            [flat_rand[i] for i in enc_fb],
+            [flat_nv[i] for i in enc_fb],
+            [flat_nnv[i] for i in enc_fb],
         )
+        res_pail = powm_columns(powm, enc_col, pdl_cols[-1], alice_cols[-1])
         res_commit = powm_columns(powm, *pdl_cols[:-1], *alice_cols[:-1])
         n_pdl = len(pdl_cols)
         pdl_res1 = res_commit[: n_pdl - 1] + [res_pail[1]]
         alice_res1 = res_commit[n_pdl - 1 :] + [res_pail[2]]
+        rn_full = list(flat_rn)
+        for j, i in enumerate(enc_fb):
+            rn_full[i] = res_pail[0][j]
 
         # ciphertexts from the fused encryption column (randomness is
-        # unit-sampled above)
+        # unit-sampled, inline or by the producer)
         flat_enc = paillier.combine_with_rn(
-            flat_share_ints, res_pail[0], flat_nv, flat_nnv
+            flat_share_ints, rn_full, flat_nv, flat_nnv
         )
         # (the share ints also live on as alice_state["avals"] until the
         # proofs are assembled — same round-state lifetime as the nonces)
@@ -232,21 +279,40 @@ class RefreshMessage:
             alice_state, res2[len(pdl_cols2) :]
         )
 
-        # ---- per-sender key material: fresh Paillier pairs, ring-Pedersen
-        # statements, and the fused correct-key / ring-Pedersen prover
-        # columns
-        count = len(per)
-        ek_dk = paillier.keygen_batch(config.paillier_bits, count)
-        rp = RingPedersenStatement.generate_batch(count, config)
-        ck_proofs = NiCorrectKeyProof.proof_batch(
-            [dk for _, dk in ek_dk],
-            rounds=config.correct_key_rounds,
-            powm=powm, hash_alg=config.hash_alg,
-        )
-        rp_proofs = RingPedersenProof.prove_batch(
-            [w for _, w in rp], [st for st, _ in rp],
-            config.m_security, powm, config.hash_alg,
-        )
+        # ---- per-sender key material: pooled bundles first (complete
+        # offline ek/dk, correct-key proof, ring-Pedersen statement and
+        # proof — every part a function of the fresh key alone), then the
+        # rest inline: the native prime pipeline and both provers'
+        # columns (the secret-CRT engine under FSDKRC_CRT)
+        key_bundles: list = []
+        if pre_on:
+            kp = config.key_material_pool_key
+            for _ in per:
+                b = precompute.take("keys", kp)
+                if b is None:
+                    break  # dry: the remaining senders compute inline
+                key_bundles.append(b)
+        miss = len(per) - len(key_bundles)
+        ek_dk_inline, rp_inline, ck_inline, rp_proofs_inline = [], [], [], []
+        if miss:
+            ek_dk_inline = paillier.keygen_batch(config.paillier_bits, miss)
+            rp_inline = RingPedersenStatement.generate_batch(miss, config)
+            ck_inline = NiCorrectKeyProof.proof_batch(
+                [dk for _, dk in ek_dk_inline],
+                rounds=config.correct_key_rounds,
+                powm=powm, hash_alg=config.hash_alg,
+            )
+            rp_proofs_inline = RingPedersenProof.prove_batch(
+                [w for _, w in rp_inline], [st for st, _ in rp_inline],
+                config.m_security, powm, config.hash_alg,
+            )
+        # pooled bundles fill the first senders (take order), inline
+        # results the rest — deterministic, so seeded runs assign the
+        # same material to each sender
+        ek_dk = [(b[0], b[1]) for b in key_bundles] + ek_dk_inline
+        ck_proofs = [b[2] for b in key_bundles] + ck_inline
+        rp_statements = [b[3] for b in key_bundles] + [st for st, _ in rp_inline]
+        rp_proofs = [b[4] for b in key_bundles] + rp_proofs_inline
 
         out = []
         for k, p in enumerate(per):
@@ -264,10 +330,13 @@ class RefreshMessage:
                 ek=ek_dk[k][0],
                 remove_party_indices=[],
                 public_key=local_key.y_sum_s,
-                ring_pedersen_statement=rp[k][0],
+                ring_pedersen_statement=rp_statements[k],
                 ring_pedersen_proof=rp_proofs[k],
             )
             out.append((msg, ek_dk[k][1]))
+
+        if pre_on:
+            _retarget(senders, per, ek_dk, new_n, owner, config)
         return out
 
     # ------------------------------------------------------------------
@@ -363,10 +432,17 @@ class RefreshMessage:
         config: ProtocolConfig = DEFAULT_CONFIG,
     ) -> Tuple["RefreshMessage", DecryptionKey]:
         """State surgery for index remapping + joins, then an ordinary
-        distribute (reference :239-319). The port has no precompute pools,
-        so there are no pooled secrets of the old committee layout to
-        invalidate here; the precompute cache (utils/lru.py) holds public
-        contexts keyed by moduli, whose stale entries age out."""
+        distribute (reference :239-319)."""
+        # the pools registered at the end of the last epoch's distribute
+        # are keyed by the pre-churn committee layout (receiver moduli and
+        # mod-N~ environments); the surgery below changes that layout, so
+        # those single-use entries can never be taken: wipe them now
+        from .. import precompute
+
+        if precompute.enabled():
+            precompute.invalidate_owner(
+                precompute.committee_owner(key.h1_h2_n_tilde_vec)
+            )
         size = max(new_n, len(key.paillier_key_vec))
         new_ek_vec: List[Optional[EncryptionKey]] = [None] * size
         new_dlog_vec: List[Optional[DLogStatement]] = [None] * size
@@ -460,6 +536,11 @@ class RefreshMessage:
         never blocks the others: a fused call that raises is retried one
         session at a time (`fused_isolated`)."""
         backend = get_backend(config)
+        # idle-time pool refill (FSDKRC_PRECOMPUTE_BG): wakes the
+        # background producer, a no-op while the knob is off
+        from .. import precompute
+
+        precompute.kick()
         count = len(sessions)
         errors: List[Optional[Exception]] = [None] * count
         new_ns: List[int] = [len(msgs) + len(joins) for msgs, _, _, joins in sessions]
@@ -791,6 +872,38 @@ def adopt_session(
     local_key.keys_linear.x_i = new_share_fe
     local_key.keys_linear.y = GENERATOR * new_share_fe
     local_key.pk_vec = pk_vec
+
+
+def _retarget(senders, per, ek_dk, new_n, owner, config) -> None:
+    """The next epoch's pool targets: this call's demand, keyed by the
+    NEXT epoch's receiver moduli — collect installs each sender's fresh
+    ek into paillier_key_vec, so the Paillier-width pools are produced
+    against the keys just generated (the mod-N~ environments stay). The
+    per-receiver targets belong to `owner` (replace semantics wipe what
+    the drained epoch left); the config-keyed key-material pool is shared
+    by every committee and registered under KEYS_POOL_OWNER."""
+    from .. import precompute
+
+    next_eks = list(senders[0][1].paillier_key_vec[:new_n])
+    for k, p in enumerate(per):
+        idx = p["key"].i
+        if 1 <= idx <= new_n:
+            next_eks[idx - 1] = ek_dk[k][0]
+    targets = []
+    for i in range(new_n):
+        d = senders[0][1].h1_h2_n_tilde_vec[i]
+        env = (d.g, d.ni, d.N, next_eks[i].n)
+        targets += [
+            ("enc", next_eks[i].n, len(per)),
+            ("pdl", env, len(per)),
+            ("alice", env, len(per)),
+        ]
+    precompute.replace_targets(targets, config, owner=owner)
+    precompute.register_targets(
+        [("keys", config.key_material_pool_key, len(per))], config,
+        owner=precompute.KEYS_POOL_OWNER,
+    )
+    precompute.kick()
 
 
 def _ec_device(config: ProtocolConfig):

@@ -284,8 +284,11 @@ def finalize_streams(
 
 def _finalize_impl(streams, errors, config):
     backend = get_backend(config)
-    # (the JAX package refills its precompute pools here; the port has no
-    # pools, so there is nothing to kick)
+    # idle-time pool refill, as on barrier collect's entry (a no-op while
+    # FSDKRC_PRECOMPUTE_BG is off)
+    from .. import precompute
+
+    precompute.kick()
     S = len(streams)
     msgs_l: List[Optional[list]] = [None] * S
     replayed = set()

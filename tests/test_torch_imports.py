@@ -42,7 +42,8 @@ def test_import_loads_no_jax_and_no_reference_package():
 
 
 def _sources():
-    files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu"))
+    files = (sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu"))
+             + sorted(PORT.rglob("*.cpp")))
     return files + [REPO / "chip_smoke.py"]
 
 
@@ -66,5 +67,11 @@ def test_source_names_no_reference_module(path):
 
 def test_scan_sees_the_whole_package():
     mods = {m.name for m in pkgutil.walk_packages([str(PORT)])}
-    assert {"ops", "backend", "protocol", "carry"} <= mods
-    assert (PORT / "csrc" / "rns_kernels.cu") in _sources()
+    assert {"ops", "backend", "protocol", "carry", "native", "precompute"} <= mods
+    sources = _sources()
+    assert (PORT / "csrc" / "rns_kernels.cu") in sources
+    assert (PORT / "csrc" / "fsdkr_native.cpp") in sources
+    for part in ("native/__init__.py", "native/_loader.py", "backend/crt.py",
+                 "precompute/__init__.py", "precompute/pools.py",
+                 "precompute/producer.py"):
+        assert PORT / part in sources
