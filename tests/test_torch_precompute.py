@@ -6,7 +6,8 @@ FSDKRC_PRECOMPUTE) against the JAX package's, n=3, TEST_CONFIG widths.
   package and carried over with fsdkr_tpu_torch.carry), the port's
   `distribute_batch` gives the JAX package's wire bytes
   (protocol/serialization.py), inline (FSDKRC_PRECOMPUTE=0), pooled
-  (prefilled) and dry (pools empty), and the same decryption keys. The
+  (prefilled) and dry (pools empty), with FSDKRC_CRT on and off, and the
+  same decryption keys. The
   host backend runs every arm; the pooled arm runs once more on the cuda
   backend's plain versions (device="cpu"), its producer on the device
   route.
@@ -46,6 +47,7 @@ import fsdkr_tpu_torch.core.paillier as p_paillier
 import fsdkr_tpu_torch.core.secp256k1 as p_secp
 import fsdkr_tpu_torch.core.vss as p_vss
 from fsdkr_tpu_torch import TEST_CONFIG, precompute
+from fsdkr_tpu_torch.backend import crt as port_crt
 from fsdkr_tpu_torch.carry import from_reference
 from fsdkr_tpu_torch.errors import FsDkrError, PrecomputeReuseError
 from fsdkr_tpu_torch.proofs.alice_range import AliceProof
@@ -253,16 +255,22 @@ def samplers(monkeypatch, canned):
     _clear_both()
 
 
-@pytest.mark.parametrize("multiexp", ["1", "0"])
-def test_wire_bytes_match_jax_inline_pooled_dry(monkeypatch, samplers, jax_keys, multiexp):
+@pytest.mark.parametrize("multiexp,crt", [("1", "1"), ("0", "1"), ("1", "0")])
+def test_wire_bytes_match_jax_inline_pooled_dry(monkeypatch, samplers, jax_keys, multiexp,
+                                                crt):
+    """The port's wire bytes at FSDKRC_CRT=`crt` against the JAX package's
+    at its default FSDKR_CRT=1: the CRT legs give the full-width values."""
     monkeypatch.setenv("FSDKR_MULTIEXP", multiexp)
     monkeypatch.setenv("FSDKRC_MULTIEXP", multiexp)
+    monkeypatch.setenv("FSDKRC_CRT", crt)
     jreset, preset = samplers
     jax_off = _jax_arm(monkeypatch, jreset, jax_keys, "off")
+    port_crt.stats_reset()
     for mode in ("off", "pooled", "dry"):
         assert _jax_arm(monkeypatch, jreset, jax_keys, mode) == jax_off
         got = _port_arm(monkeypatch, preset, jax_keys, mode, HOST)
         assert got == jax_off, f"{mode}: the port's wire bytes differ from the JAX package's"
+    assert (port_crt.crt_stats()["rows"] > 0) == (crt == "1")
 
 
 def test_pooled_on_the_device_route_matches_jax(monkeypatch, samplers, jax_keys):
