@@ -96,7 +96,7 @@ Phases:
            kernels' counters zeroed just before it and read just after,
            distribute_batch by the same 16 senders (from their keys as
            they stood before the routed distribute) and one collect of
-           its messages, timed layer by layer (kernel 2 must launch 13
+           its messages, timed layer by layer (kernel 2 must launch 15
            times, kernel 1 14); that party's collect of the same messages
            through the CIOS engine must adopt the same key.
   joint    the joint path (FSDKRC_MULTIEXP and FSDKRC_RANGEOPT on, at
@@ -185,20 +185,17 @@ Phases:
            finalize's launches STREAM_FUSED. Device busy time of one
            stream's offers, of its finalize and of one barrier collect
            (torch.profiler).
-  prover   the prover path under the defaults (FSDKRC_PRECOMPUTE on,
-           FSDKRC_PRECOMPUTE_BG off), on a committee of its own
+  prover   the prover path under the defaults, on a committee of its own
            (simulate_keygen at n=16, its primes through the native host
-           core): (a) the inline distribute (no pool filled) timed by
-           `span_distribute` under the JAX package's phase names, with
-           FSDKRC_CRT at 1 and at 0: the native core loaded and ran
-           Miller-Rabin batches, CRT rows counted at 1 and none at 0; (b)
-           `precompute.prefill` for the committee under its owner scope,
-           then a distribute: its online wall and the takes by kind, no
-           pool dry; (c) the pooled messages collected by all 16: the
-           group key unchanged, a tampered pooled PDL proof blamed on its
-           sender; (d) FSDKRC_PRECOMPUTE_BG=1 around one distribute and one
-           collect: the collect adopts, the pools reach their targets, the
-           producer stops (launches not gated in this step only).
+           core): (a) the inline distribute (no committee prefilled)
+           timed by `span_distribute` under the JAX package's phase
+           names: the native core loaded and ran Miller-Rabin batches,
+           S = T^lambda on the fault-checked CRT legs (n rows), no pool
+           touched, the launches JOINT_DISTRIBUTE; (b)
+           `precompute.prefill` for the committee, then a distribute: its
+           online wall and the takes by kind, no pool dry; (c) the pooled
+           messages collected by all 16: the group key unchanged, a
+           tampered pooled PDL proof blamed on its sender.
            `scripts/distribute_spans.py --tree DIR` times a distribute the
            same way for another tree (a parent commit).
   time     each kernel against its plain version at every shape its path
@@ -1173,22 +1170,20 @@ def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
 
 
 # Launches of the joint path (FSDKRC_MULTIEXP and FSDKRC_RANGEOPT on, as
-# by default) at n=16, 2048-bit, M=256 (PERF.md section 2). Distribute,
-# with FSDKRC_CRT and FSDKRC_PRECOMPUTE on and no pool filled (every take
-# dry, so the provers take the pooled layout, whose z = h1^x h2^rho is two
-# plain columns): `cios_modexp` for the Paillier r^n and beta^n columns,
-# the commitments' plain columns (h1^x over every row, h2^rho) and the r^e
-# responses; the Straus kernel for the u3 and w rows, one width shape
-# (768, 3072) bits; correct-key's and ring-Pedersen's provers on the
-# host's CRT legs, so no comb (scripts/prover_launch_drive.py). A collect: `cios_modexp` for the PDL
+# by default) at n=16, 2048-bit, M=256 (PERF.md section 2). Distribute:
+# `cios_modexp` for the Paillier r^n and beta^n columns, the r^e
+# responses and correct-key's prover; the comb, its ladder and its table's
+# four products for ring-Pedersen's prover (16 groups of 256 rows); the
+# Straus kernel once a width shape of the joint commitment rows, (256,
+# 2560) and (768, 3072) bits. A collect: `cios_modexp` for the PDL
 # columns, the u-power's c^{-e} terms, the range z^{-e} column and
 # correct-key's column; the Straus kernel for the PDL joint rows; the
 # shared-exponent kernel for the 16 receiver groups' u-powers; the comb,
 # its ladder and table three times (ring-Pedersen, then h1^s1 and h2^s2 of
 # joint_comb2); `cios_modmul` for PDL's three products, the u-power's and
 # joint_comb2's recombinations, the range's u and w, and ring-Pedersen's.
-JOINT_DISTRIBUTE = {"cios_modexp": 3, "cios_multi_modexp": 1, "cios_shared_exp": 0,
-                    "cios_comb": 0, "cios_comb_ladder": 0, "cios_mont_mul": 0, "cios_modmul": 0,
+JOINT_DISTRIBUTE = {"cios_modexp": 3, "cios_multi_modexp": 2, "cios_shared_exp": 0,
+                    "cios_comb": 1, "cios_comb_ladder": 1, "cios_mont_mul": 4, "cios_modmul": 0,
                     "ec_scalar_mul": 3, "ec_tree_sum": 0}
 JOINT_COLLECT = {"cios_modexp": 4, "cios_multi_modexp": 1, "cios_shared_exp": 1,
                  "cios_comb": 3, "cios_comb_ladder": 3, "cios_mont_mul": 12, "cios_modmul": 8,
@@ -1572,19 +1567,20 @@ def phase_rlc(dev, inputs, n=16, t=8, bits=2048, m_security=256, rounds=11):
 # FSDKRC_RANGEOPT on) at n=16, t=8, 2048-bit, M=256, 11 correct-key rounds
 # (PERF.md section 2), worked out from the code and a CPU drive at n=16
 # (1024-bit, the wrappers counted on the CPU) before the first run on the
-# card; the prover's calls again by scripts/prover_launch_drive.py. A
-# JoinMessage.distribute launches nothing: its ring-Pedersen and
-# correct-key provers run on the host's CRT legs (FSDKRC_CRT), the
-# composite-dlog proofs on the host. A replace: distribute_batch for one
-# sender, as JOINT_DISTRIBUTE for 16. A collect of 14 senders' messages with two joins: RLC_COLLECT's
+# card. A JoinMessage.distribute: the ring-Pedersen prover's 256 rows share
+# (T, N), so the comb, its ladder and its table's four products;
+# correct-key's 11 rows one `cios_modexp`; the composite-dlog proofs on the
+# host. A replace: distribute_batch for one sender, as JOINT_DISTRIBUTE for
+# 16. A collect of 14 senders' messages with two joins: RLC_COLLECT's
 # launches, plus the joins' composite-dlog rows (g^y and ni^e, one
 # `cios_modexp` launch each, and their product, one `cios_modmul`), plus
 # one Straus launch (a receiver's 28-term PDL rows split at 16 into two
 # width shapes where 32 terms split into one). A JoinMessage.collect:
 # Feldman's and pk_vec's MSMs, ring-Pedersen's folds for 16 proofs (the
 # 257-term rows and the S row, then the T-ladders' `cios_modexp`).
-JOIN_DISTRIBUTE = {}
-JOIN_REPLACE = {"cios_modexp": 3, "cios_multi_modexp": 1, "ec_scalar_mul": 3}
+JOIN_DISTRIBUTE = {"cios_modexp": 1, "cios_comb": 1, "cios_comb_ladder": 1, "cios_mont_mul": 4}
+JOIN_REPLACE = {"cios_modexp": 3, "cios_multi_modexp": 2, "cios_comb": 1, "cios_comb_ladder": 1,
+                "cios_mont_mul": 4, "ec_scalar_mul": 3}
 JOIN_COLLECT = {"cios_modexp": 7, "cios_multi_modexp": 9, "cios_shared_exp": 1,
                 "cios_comb": 2, "cios_comb_ladder": 2, "cios_mont_mul": 8, "cios_modmul": 5,
                 "ec_scalar_mul": 3, "ec_tree_sum": 3}
@@ -2436,19 +2432,16 @@ def _shapes_now():
 
 
 def phase_prover(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
-    """The prover path under the defaults (FSDKRC_PRECOMPUTE on,
-    FSDKRC_PRECOMPUTE_BG off), on a committee of its own: (a) the inline
-    distribute (no pool filled) timed by span_distribute with FSDKRC_CRT
-    at 1 and at 0: the native core loaded and ran the prime batches, CRT
-    rows counted at 1 and none at 0; (b) `precompute.prefill` for the
-    committee (under its owner scope), then a distribute: its online wall
-    and the takes by kind, no pool dry; (c) the pooled messages collected
-    by every party: the group key unchanged, a tampered pooled PDL proof
-    blamed on its sender; (d) the background producer
-    (FSDKRC_PRECOMPUTE_BG=1) around one distribute and one collect: the
-    collect adopts and the pools reach their targets (launches ungated).
-    Returns (the launches of (a)'s CRT=1 distribute, the launch shapes of
-    (a)-(c), the phase's times)."""
+    """The prover path under the defaults, on a committee of its own: (a)
+    the inline distribute (no committee prefilled) timed by
+    span_distribute: the native core loaded and ran the prime batches,
+    S = T^lambda on the CRT legs, no pool touched, the launches
+    JOINT_DISTRIBUTE; (b) `precompute.prefill` for the committee, then a
+    distribute: its online wall and the takes by kind, no pool dry; (c)
+    the pooled messages collected by every party: the group key
+    unchanged, a tampered pooled PDL proof blamed on its sender. Returns
+    (the launches of (a), the launch shapes of (a)-(c), the phase's
+    times)."""
     from fsdkr_tpu_torch import ProtocolConfig, native, precompute
     from fsdkr_tpu_torch.backend import crt
     from fsdkr_tpu_torch.core import vss
@@ -2461,10 +2454,8 @@ def phase_prover(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
         paillier_bits=bits, m_security=m_security, correct_key_rounds=rounds,
         backend="cuda", device=dev.type,
     )
-    if precompute.background_enabled():
-        fail("prover: FSDKRC_PRECOMPUTE_BG is on; every phase but (d) runs with it off")
     precompute.clear_pools()
-    precompute.clear_targets()
+    precompute.clear_committees()
     times = {}
     native.stats_reset()
     t0 = time.perf_counter()
@@ -2478,38 +2469,34 @@ def phase_prover(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     for mod in (rns_kernels, montgomery_kernels, ec_kernels):
         mod.reset_launch_counts()
 
-    # (a) the inline distribute, CRT on and off
-    counts = {}
-    for crt_on in ("1", "0"):
-        with knobs(FSDKRC_CRT=crt_on):
-            native.stats_reset()
-            crt.stats_reset()
-            before = _launches()
-            keys = copy.deepcopy(pre)
-            _, wall, phases, _ = span_distribute(
-                [(k.i, k) for k in keys], n, config, f"inline, FSDKRC_CRT={crt_on}")
-            got = _sub(_launches(), before)
-            nst, cst = native.stats(), crt.crt_stats()
-        times[f"inline_crt{crt_on}"] = wall
-        times[f"inline_crt{crt_on}_phases"] = phases
-        log(f"prover: inline distribute FSDKRC_CRT={crt_on}: {wall:.3f} s; launches "
-            f"{json.dumps({k: v for k, v in got.items() if v})}; native {nst}; CRT {cst}")
-        if nst["mr_batches"] == 0 or nst["mr_rows"] == 0:
-            fail(f"prover: the inline distribute ran no native Miller-Rabin batch: {nst}")
-        if crt_on == "1":
-            counts = got
-            if cst["rows"] == 0 or cst["fault_checks"] == 0 or nst["crt_batches"] == 0:
-                fail(f"prover: FSDKRC_CRT=1 counted no CRT row: {cst} {nst}")
-        elif cst["rows"] or nst["crt_batches"] or nst["comb_calls"]:
-            fail(f"prover: FSDKRC_CRT=0 counted CRT rows: {cst} {nst}")
+    # (a) the inline distribute
+    native.stats_reset()
+    crt.stats_reset()
+    precompute.stats_reset()
+    before = _launches()
+    keys = copy.deepcopy(pre)
+    _, wall, phases, _ = span_distribute([(k.i, k) for k in keys], n, config, "inline")
+    counts = _sub(_launches(), before)
+    nst, cst, pst = native.stats(), crt.crt_stats(), precompute.precompute_stats()
+    times["inline"] = wall
+    times["inline_phases"] = phases
+    log(f"prover: inline distribute {wall:.3f} s; launches "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}; native {nst}; CRT {cst}")
+    if nst["mr_batches"] == 0 or nst["mr_rows"] == 0:
+        fail(f"prover: the inline distribute ran no native Miller-Rabin batch: {nst}")
+    # S = T^lambda, one fault-checked row a sender; the provers' columns
+    # run on the card
+    if cst["rows"] != n or cst["fault_checks"] != 2 * n or nst["crt_rows"] != 2 * n:
+        fail(f"prover: S = T^lambda took {cst['rows']} CRT rows, expected {n}: {cst} {nst}")
+    if pst["consumed"] or pst["dry_fallbacks"]:
+        fail(f"prover: a distribute of a committee never prefilled touched a pool: {pst}")
+    _gate_launches("the inline distribute", counts, JOINT_DISTRIBUTE, "prover")
 
     # (b) prefill, then the pooled (online) distribute
     keys = copy.deepcopy(pre)
-    owner = precompute.committee_owner(keys[0].h1_h2_n_tilde_vec)
     precompute.stats_reset()
     t0 = time.perf_counter()
-    with precompute.owner_scope(owner):
-        produced = precompute.prefill(keys[0], n, n, config)
+    produced = precompute.prefill(keys[0], n, n, config)
     times["prefill"] = time.perf_counter() - t0
     log(f"prover: prefill {produced} entries in {times['prefill']:.3f} s "
         f"({json.dumps(precompute.precompute_stats())})")
@@ -2548,45 +2535,9 @@ def phase_prover(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
              f"naming party {party}")
     log(f"prover: {n} collects of the pooled messages {times['pooled_collects']:.3f} s; the "
         f"group key is unchanged; a tampered pooled PDL proof raised {err!r}")
-    shapes = _shapes_now()
-
-    # (d) the background producer around one distribute and one collect
-    # (launches not gated: the producer's share the stream)
-    try:
-        with knobs(FSDKRC_PRECOMPUTE_BG="1"):
-            precompute.stats_reset()
-            precompute.kick()
-            t0 = time.perf_counter()
-            out = RefreshMessage.distribute_batch([(k.i, k) for k in keys], n, config)
-            times["bg_distribute"] = time.perf_counter() - t0
-            taken = precompute.precompute_stats()["consumed"]
-            msgs = [m for m, _ in out]
-            key = copy.deepcopy(keys[1])
-            t0 = time.perf_counter()
-            RefreshMessage.collect(msgs, key, out[1][1], config=config)
-            times["bg_collect"] = time.perf_counter() - t0
-            if key.keys_linear.x_i == keys[1].keys_linear.x_i or key.pk_vec == keys[1].pk_vec:
-                fail("prover: the collect beside the producer adopted no new share")
-            t0 = time.perf_counter()
-            while precompute.deficit_total() and time.perf_counter() - t0 < 300:
-                time.sleep(0.05)
-            times["bg_fill_after_collect"] = time.perf_counter() - t0
-            deficit, pst = precompute.deficit_total(), precompute.producer_stats()
-            log(f"prover: with the producer on: distribute {times['bg_distribute']:.3f} s "
-                f"({taken} pooled takes), collect {times['bg_collect']:.3f} s (adopted); "
-                f"the pools reached their targets {times['bg_fill_after_collect']:.3f} s "
-                f"later; producer {json.dumps(pst)}; "
-                f"{json.dumps(precompute.precompute_stats(by_kind=True)['kinds'])}")
-            if deficit or pst["errors"] or pst["steps"] == 0:
-                fail(f"prover: the background producer left {deficit} entries unfilled "
-                     f"({pst})")
-    finally:
-        precompute.stop_background()
-        precompute.clear_pools()
-        precompute.clear_targets()
-    if precompute.producer_running():
-        fail("prover: the background producer did not stop")
-    return counts, shapes, times
+    precompute.clear_pools()
+    precompute.clear_committees()
+    return counts, _shapes_now(), times
 
 
 def rns_path(pre, config, n, party=2):
@@ -2621,13 +2572,9 @@ def rns_path(pre, config, n, party=2):
     for name, by_shape in shapes.items():
         log(f"rns path: {name} launches by shape: "
             + ", ".join(f"{shape}: {c}" for shape, c in sorted(by_shape.items())))
-    # kernel 2 once a width batch of distribute's and the collect's column
-    # calls, two fewer than at FSDKRC_CRT=0 (correct-key's and
-    # ring-Pedersen's provers run on the host's CRT legs); kernel 1 two a
-    # modmul (scripts/prover_launch_drive.py)
-    if counts != {"rns_mont_mul": 14, "rns_modexp": 13}:
+    if counts != {"rns_mont_mul": 14, "rns_modexp": 15}:
         fail(f"the RNS path launched {counts}, expected kernel 1 14 times and "
-             f"kernel 2 13 times")
+             f"kernel 2 15 times")
     honest_u1_check(totals, "rns")
     RefreshMessage.collect(msgs, routed[0], routed[1], config=config)
     if to_fields(pre[party]) != to_fields(routed[0]):

@@ -1,4 +1,4 @@
-"""Secret-CRT modexp engine for prover-owned moduli (FSDKRC_CRT).
+"""Secret-CRT modexp engine for prover-owned moduli.
 
 Everywhere the prover owns the factorization of its modulus — the
 ring-Pedersen setup S = T^lambda and its M-round commitment column
@@ -44,14 +44,22 @@ clearing — the Python-int leg of the zeroize discipline.
 `tests/test_torch_crt.py` pins that no factorization-derived integer
 reaches the public cache.
 
-FSDKRC_CRT=0 reverts every caller to the full-width path; results are
-the same either way (the decomposition is an arithmetic identity).
+## Callers
+
+Ring-Pedersen's S = T^lambda (one row a statement) and Paillier decrypt's
+fault-checked legs always take the legs: on the card a single row is a
+launch of one, and the host's full-width pow is slower than two half
+legs. The correct-key rows and ring-Pedersen's M-row commitment column
+take the legs only on the host engine (`backend.powm.crt_powm`,
+`RingPedersenProof.prove_batch`): on the cuda backend their full-width columns run on the
+card's kernels, which beat the host's legs there (PERF.md section 5) and
+need no fault check, since no CRT is used. The values are the same
+either way (the decomposition is an arithmetic identity).
 """
 
 from __future__ import annotations
 
 import math
-import os
 import secrets
 import threading
 from typing import Dict, List, Optional, Sequence
@@ -59,7 +67,6 @@ from typing import Dict, List, Optional, Sequence
 from ..errors import CrtFaultError
 
 __all__ = [
-    "crt_enabled",
     "CrtContext",
     "get_context",
     "clear_store",
@@ -70,16 +77,6 @@ __all__ = [
     "crt_stats",
     "stats_reset",
 ]
-
-
-def crt_enabled() -> bool:
-    """FSDKRC_CRT (default on; 0, off, false or no turn it off), read at
-    call time: the secret-CRT prover engine. Off, every caller
-    (ring-Pedersen gen/prove, correct-key, Paillier decrypt) takes the
-    full-width path."""
-    return os.environ.get("FSDKRC_CRT", "1").lower() not in (
-        "0", "off", "false", "no",
-    )
 
 
 class CrtContext:

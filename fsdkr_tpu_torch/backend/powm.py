@@ -673,18 +673,20 @@ def fold_ladder2(rows, device="cuda") -> List[int]:
 
 
 def crt_powm(bases, exps, moduli, factors, powm=None) -> List[int]:
-    """Route for prover-owned moduli (FSDKRC_CRT, backend.crt): rows whose
-    factorization is supplied as factors[i] = (p, q) ride the secret-CRT
-    engine — two fault-checked half-width legs on the native host core,
-    exponents reduced mod the leg group orders, Garner-recombined — and
-    rows with factors[i] = None (or every row with the knob off) take
-    `powm` (host_powm when omitted). The values are the full-width
-    path's: the decomposition is an arithmetic identity."""
+    """Route for prover-owned moduli (backend.crt). On the host engine
+    (`powm` omitted or host_powm), rows whose factorization is supplied
+    as factors[i] = (p, q) ride the secret-CRT engine — two fault-checked
+    half-width legs on the native host core, exponents reduced mod the
+    leg group orders, Garner-recombined — and rows with factors[i] = None
+    take host_powm. Any other engine (the card's, on the cuda backend)
+    takes the whole column at full width: its kernels beat the host's
+    legs there, and with no CRT no leg can fault. The values are the
+    same either way: the decomposition is an arithmetic identity."""
     if powm is None:
         powm = host_powm
     from . import crt
 
-    if not crt.crt_enabled() or not any(f is not None for f in factors):
+    if powm is not host_powm or not any(f is not None for f in factors):
         return powm(bases, exps, moduli)
     contexts = [
         crt.get_context(m, *f) if f is not None else None

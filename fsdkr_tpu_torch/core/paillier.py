@@ -103,8 +103,8 @@ def encrypt(ek: EncryptionKey, m: int) -> int:
 
 def decrypt(dk: DecryptionKey, ek: EncryptionKey, c: int) -> int:
     """CRT decryption: m = L(c^lambda mod n^2) * lambda^{-1} mod n, done
-    separately mod p^2 and q^2 and recombined. Under FSDKRC_CRT each leg
-    runs through the secret-CRT engine's fault-checked path
+    separately mod p^2 and q^2 and recombined. Each leg of a unit
+    ciphertext runs through the secret-CRT engine's fault-checked path
     (backend.crt.fault_checked_powm): computed mod p^2*r for a fresh
     64-bit prime r and re-verified mod r, so a faulted leg aborts
     (CrtFaultError) instead of producing a wrong plaintext — the decrypt
@@ -117,10 +117,10 @@ def decrypt(dk: DecryptionKey, ek: EncryptionKey, c: int) -> int:
     pp, qq = p * p, q * q
     from ..backend import crt
 
-    if crt.crt_enabled() and math.gcd(c, n) == 1:
+    if math.gcd(c, n) == 1:
         cp_pow = crt.fault_checked_powm(c % pp, p - 1, pp)
         cq_pow = crt.fault_checked_powm(c % qq, q - 1, qq)
-    else:  # knob off, or a non-unit ciphertext: the unchecked legs
+    else:  # a non-unit ciphertext: the unchecked legs
         cp_pow = intops.mod_pow(c % pp, p - 1, pp)
         cq_pow = intops.mod_pow(c % qq, q - 1, qq)
     # With g = 1+n: L_p(g^{p-1} mod p^2) = (p-1)*q mod p, so the CRT

@@ -4,8 +4,8 @@ The reference delegates to GMP through `kzen-paillier`'s
 `keypair_with_modulus_size` (`src/refresh_message.rs:118`). Here it is a
 small-prime sieve (one `math.gcd` against a primorial) plus Miller-Rabin
 in the native host core (fsdkr_tpu_torch/native), one batch a window of
-candidates split over the host's cores; CPython `pow` tests only what
-the core cannot take (`_mr_rounds`, also the tests' oracle).
+candidates split over the host's cores. There is no CPython path: a
+candidate the core cannot take raises.
 """
 
 from __future__ import annotations
@@ -56,25 +56,6 @@ def _sieve_for_bits(bits: int) -> int:
     return _SIEVE_CACHE[bound]
 
 
-def _mr_rounds(n: int, rounds: int) -> bool:
-    """Miller-Rabin rounds with CSPRNG witnesses over CPython pow."""
-    d = n - 1
-    r = (d & -d).bit_length() - 1
-    d >>= r
-    for _ in range(rounds):
-        a = 2 + secrets.randbelow(n - 3)
-        x = pow(a, d, n)
-        if x == 1 or x == n - 1:
-            continue
-        for _ in range(r - 1):
-            x = (x * x) % n
-            if x == n - 1:
-                break
-        else:
-            return False
-    return True
-
-
 def is_probable_prime(n: int, rounds: int = 30) -> bool:
     """Miller-Rabin with `rounds` random bases (error <= 4^-rounds), in
     the native core."""
@@ -85,22 +66,15 @@ def is_probable_prime(n: int, rounds: int = 30) -> bool:
             return n == small
     from .. import native
 
-    verdict = native.is_probable_prime(n, rounds)
-    if verdict is not None:
-        return verdict
-    return _mr_rounds(n, rounds)
+    return native.is_probable_prime(n, rounds)
 
 
 def _mr_batch(cands: list, rounds: int) -> list:
-    """Miller-Rabin verdicts of a window of candidates: one native batch
-    (candidates split over the cores), or per candidate where the core
-    cannot take the window."""
+    """Miller-Rabin verdicts of a window of candidates: one native batch,
+    the candidates split over the cores."""
     from .. import native
 
-    verdicts = native.is_probable_prime_batch(cands, rounds)
-    if verdicts is None:
-        verdicts = [is_probable_prime(c, rounds) for c in cands]
-    return verdicts
+    return native.is_probable_prime_batch(cands, rounds)
 
 
 def gen_primes_batch(bits: int, count: int) -> list:

@@ -12,7 +12,7 @@
 // mpn inner loop of the JAX package's copy is not carried over.
 //
 // All numbers are little-endian uint64 limb arrays of a caller-chosen
-// width; moduli must be odd. Maximum width 64 limbs = 4096 bits.
+// width; moduli must be odd. Maximum width MAXL limbs.
 
 #include <atomic>
 #include <cstdint>
@@ -24,7 +24,8 @@
 typedef uint64_t u64;
 typedef unsigned __int128 u128;
 
-static const int MAXL = 64; // 4096 bits
+// 8320 bits: the widest CRT leg, p^2 r for an 8192-bit Paillier modulus
+static const int MAXL = 130;
 
 // ---------------------------------------------------------------------------
 // Row parallelism. Every batch entry point below iterates over rows that
@@ -637,7 +638,7 @@ int fsdkr_miller_rabin_batch(const u64 *ns, const u64 *witnesses,
 // integers, and the comb table is (64 EL / wbits)*2^wbits*L words — an
 // unbounded EL would let one malicious proof force a huge (or throwing)
 // allocation where the generic kernel merely computes slowly. 2*MAXL
-// limbs = 8192 bits covers every protocol exponent incl. range slack.
+// limbs covers every protocol exponent incl. range slack.
 static int comb_windows(int L, int EL, int wbits, const u64 *n) {
   if (L <= 0 || L > MAXL || EL <= 0 || EL > 2 * MAXL || wbits < 1 ||
       wbits > 8 || !(n[0] & 1))
@@ -647,7 +648,7 @@ static int comb_windows(int L, int EL, int wbits, const u64 *n) {
 
 // Words needed for a comb window table of this geometry (Python sizes
 // the cacheable buffer with this; -1 on bad geometry). Fits int: the
-// EL/wbits caps bound the table at (8192/8)*2^8*64 < 2^25 words.
+// EL/wbits caps bound the table at (16640/8)*2^8*130 < 2^27 words.
 int fsdkr_comb_table_words(int L, int EL, int wbits) {
   u64 odd = 1;
   int W = comb_windows(L, EL, wbits, &odd);

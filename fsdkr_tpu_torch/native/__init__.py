@@ -4,7 +4,9 @@ The host paths of the prover that the card does not run: Miller-Rabin
 for prime generation (core/primes.py) and the secret-CRT legs
 (backend/crt.py). A trimmed copy of the JAX package's fsdkr_tpu/native/
 bridge; the library is built with g++ at first use (native/_loader.py),
-and a failed build raises instead of falling back to CPython. Batches
+and a failed build raises instead of falling back to CPython, as does an
+input outside the core's range (an even modulus, a negative exponent, a
+width over `_MAX_LIMBS`): no call here takes a CPython path. Batches
 split their rows over every core of the host (`set_threads` changes
 that, for tests).
 
@@ -17,7 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import secrets
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Sequence
 
 from ._loader import NativeBuildError, NativeLib, _PKG
 
@@ -35,7 +37,7 @@ __all__ = [
 ]
 
 _LIMB_BYTES = 8
-_MAX_LIMBS = 64  # 4096 bits, keep in sync with MAXL in csrc
+_MAX_LIMBS = 130  # 8320 bits, keep in sync with MAXL in csrc
 
 _U64P = ctypes.POINTER(ctypes.c_uint64)
 _INT = ctypes.c_int
@@ -130,6 +132,17 @@ def _from_buf(buf, rows: int, limbs: int) -> List[int]:
     ]
 
 
+def _check_range(L: int, mods: Sequence[int], exps: Sequence[int], least: int = 3) -> None:
+    """Raises ValueError unless every modulus is odd, at least `least`
+    and at most `_MAX_LIMBS` limbs wide, and every exponent >= 0."""
+    if L > _MAX_LIMBS:
+        raise ValueError(f"modulus wider than the native core's {64 * _MAX_LIMBS} bits")
+    if any(m % 2 == 0 or m < least for m in mods):
+        raise ValueError(f"the native core takes odd moduli >= {least} only")
+    if any(e < 0 for e in exps):
+        raise ValueError("the native core takes exponents >= 0 only")
+
+
 def _gen_window_bits(total_exp_bits: int) -> int:
     """Window width of the windowed ladder: lookups cost
     total_exp_bits/w, the table 2^w - 2 multiplies."""
@@ -159,20 +172,15 @@ def crt_modexp_batch(
     (backend/crt.py): every operand is secret-derived (a leg modulus
     holds a factor of the prover's key), so all four buffers are wiped.
     Montgomery constants are computed once per run of equal consecutive
-    moduli. A leg outside the core's range (an even or wider than 4096-bit
-    modulus, a negative exponent) takes CPython pow, as in the JAX
-    package's bridge: the same values."""
+    moduli. A leg outside the core's range (an even or wider than 8320-bit
+    modulus, a negative exponent) raises ValueError: the JAX package's
+    bridge takes CPython pow there, which would hide the cost."""
     if not bases:
         return []
     if not (len(bases) == len(exps) == len(mods)):
         raise ValueError("batch length mismatch")
     L = max(_limbs_for(m) for m in mods)
-    if (
-        L > _MAX_LIMBS
-        or any(m % 2 == 0 or m <= 1 for m in mods)
-        or any(e < 0 for e in exps)
-    ):
-        return [pow(b, e, m) for b, e, m in zip(bases, exps, mods)]
+    _check_range(L, mods, exps)
     lib = _get()
     EL = max(1, max(_limbs_for(e) for e in exps))
     rows = len(bases)
@@ -198,17 +206,15 @@ def modexp_shared(base: int, exps: Sequence[int], mod: int) -> List[int]:
     ladder over the whole column, rows split over the cores. The table
     is built, used and wiped in one call, as a secret base needs (the
     CRT legs of ring-Pedersen's prover; the JAX package's
-    `modexp_shared(..., cache=False)`). A modulus outside the core's
-    range takes CPython pow."""
+    `modexp_shared(..., cache=False)`). An input outside the core's
+    range raises ValueError."""
     if not exps:
         return []
     L = _limbs_for(mod)
     EL = max(1, max(_limbs_for(e) for e in exps))
-    if (
-        L > _MAX_LIMBS or mod % 2 == 0 or mod <= 1 or EL > 2 * _MAX_LIMBS
-        or any(e < 0 for e in exps)
-    ):
-        return [pow(base, e, mod) for e in exps]
+    _check_range(L, [mod], exps)
+    if EL > 2 * _MAX_LIMBS:
+        raise ValueError(f"exponent wider than the native core's {128 * _MAX_LIMBS} bits")
     lib = _get()
     m_rows = len(exps)
     wbits = _comb_window_bits(EL * 64, m_rows)
@@ -230,16 +236,15 @@ def modexp_shared(base: int, exps: Sequence[int], mod: int) -> List[int]:
 
 def is_probable_prime_batch(
     ns: Sequence[int], rounds: int = 30
-) -> Optional[List[bool]]:
+) -> List[bool]:
     """Miller-Rabin over a batch of candidates with CSPRNG witnesses,
     candidates split over the cores: the prime pipeline's shape, one
-    native call a sieve window. None when a candidate is outside the
-    core's range (the caller tests those in Python)."""
+    native call a sieve window. A candidate outside the core's range (even,
+    below 5, wider than 8320 bits) raises ValueError."""
     if not ns:
         return []
     L = max(_limbs_for(n) for n in ns)
-    if L > _MAX_LIMBS or any(n < 5 or n % 2 == 0 for n in ns):
-        return None
+    _check_range(L, ns, (), least=5)
     lib = _get()
     rows = len(ns)
     witnesses = [
@@ -251,17 +256,16 @@ def is_probable_prime_batch(
     rc = lib.fsdkr_miller_rabin_batch(n_buf, wit_buf, verdicts, rows, L, rounds)
     _wipe_buf(n_buf, wit_buf)
     if rc != 0:
-        return None
+        raise ValueError(f"fsdkr_miller_rabin_batch rejected its input ({rc})")
     _count(mr_batches=1, mr_rows=rows)
     return [bool(v) for v in verdicts]
 
 
-def is_probable_prime(n: int, rounds: int = 30) -> Optional[bool]:
+def is_probable_prime(n: int, rounds: int = 30) -> bool:
     """Miller-Rabin with CSPRNG witnesses, the rounds split over the
-    cores. None when n is outside the core's range."""
+    cores. ValueError when n is outside the core's range."""
     L = _limbs_for(n)
-    if L > _MAX_LIMBS or n < 5 or n % 2 == 0:
-        return None
+    _check_range(L, [n], (), least=5)
     lib = _get()
     witnesses = [2 + secrets.randbelow(n - 3) for _ in range(rounds)]
     n_buf = _to_buf([n], L)  # prime candidate: secret key material
@@ -269,5 +273,5 @@ def is_probable_prime(n: int, rounds: int = 30) -> Optional[bool]:
     rc = lib.fsdkr_miller_rabin(n_buf, L, wit_buf, rounds)
     _wipe_buf(n_buf, wit_buf)
     if rc < 0:
-        return None
+        raise ValueError(f"fsdkr_miller_rabin rejected its input ({rc})")
     return bool(rc)

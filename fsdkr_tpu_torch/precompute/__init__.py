@@ -1,17 +1,17 @@
 """Offline/online split for distribute(): input-independent precompute
-pools and their producer (FSDKRC_PRECOMPUTE, default on; the background
-thread, FSDKRC_PRECOMPUTE_BG, default off).
+pools, filled by `prefill` for one committee and taken by that
+committee's next distribute.
 
 `pools` holds the bounded single-use secret store and its hygiene rules;
-`producer` the per-kind constructors, the committee target registry and
-the background fill thread. An own copy of fsdkr_tpu/precompute/.
+`producer` the per-kind constructors, `prefill` and the bookkeeping of
+prefilled committees. An own copy of fsdkr_tpu/precompute/, without its
+background producer.
 """
 
 from .pools import (  # noqa: F401
     PoolEntry,
     PrecomputeStore,
     clear_pools,
-    enabled,
     get_store,
     precompute_stats,
     put,
@@ -21,25 +21,14 @@ from .pools import (  # noqa: F401
 )
 from . import producer  # noqa: F401
 from .producer import (  # noqa: F401
-    KEYS_POOL_OWNER,
-    background_enabled,
-    clear_targets,
+    claim,
+    clear_committees,
     committee_owner,
     committee_targets,
-    current_registration_owner,
-    deficit_total,
     invalidate_owner,
-    kick,
-    owner_scope,
     prefill,
     produce_enc,
     produce_for,
     produce_keys,
-    producer_running,
-    producer_stats,
-    register_targets,
-    replace_targets,
-    stop_background,
-    suspend_targets,
-    target_keys,
+    release,
 )

@@ -1,15 +1,16 @@
-"""Bounded, secret-hygienic precompute pools (FSDKRC_PRECOMPUTE).
+"""Bounded, secret-hygienic precompute pools.
 
 Most of a `distribute()` does not depend on the epoch's inputs: the
 Paillier randomizer powers r^n mod n^2 and the sigma-protocol beta^n
 columns, the mod-N~ first-message commitments, and fresh key material
 with its proofs. This module is the offline half of the MPC
 offline/online split: pools of single-use entries produced ahead of the
-refresh round (by `producer.py`, through the same batch engines) and
-consumed by `distribute()` at each phase boundary, with per-row inline
-fallback when a pool runs dry. The consumed values are the ones the
-inline path would have sampled and computed, so transcripts do not
-depend on the knob (tests/test_torch_precompute.py). An own copy of
+refresh round (by `producer.prefill`, through the same batch engines)
+and consumed by a prefilled committee's `distribute()` at each phase
+boundary, with per-row inline fallback when a pool runs dry. The
+consumed values are the ones the inline path would have sampled and
+computed, so transcripts do not depend on the pools
+(tests/test_torch_precompute.py). An own copy of
 fsdkr_tpu/precompute/pools.py without its telemetry gauges and the
 serving layer's injected dry storms.
 
@@ -42,14 +43,12 @@ witness. `clear_pools()` wipes every unconsumed entry.
 Pool KEYS are broadcast-public values (receiver moduli, ring-Pedersen
 bases, config parameters); only entry VALUES are secret.
 
-FSDKRC_PRECOMPUTE=0 reverts every consumer to the inline path. A pool
-holds at most POOL_DEPTH entries under a POOL_BUDGET_BYTES total cap
+A pool holds at most POOL_DEPTH entries under a POOL_BUDGET_BYTES total cap
 (the JAX package's defaults).
 """
 
 from __future__ import annotations
 
-import os
 import threading
 from collections import OrderedDict, deque
 from typing import Dict, List, Optional, Tuple
@@ -57,7 +56,6 @@ from typing import Dict, List, Optional, Tuple
 from ..errors import PrecomputeReuseError
 
 __all__ = [
-    "enabled",
     "PoolEntry",
     "PrecomputeStore",
     "get_store",
@@ -72,15 +70,6 @@ __all__ = [
 POOL_DEPTH = 64  # entries per (kind, key): four n=16 epochs ahead
 POOL_BUDGET_BYTES = 64 << 20
 _EVENTS = ("produced", "consumed", "dry_fallbacks", "wiped")
-
-
-def enabled() -> bool:
-    """FSDKRC_PRECOMPUTE (default on; 0, off, false or no turn it off),
-    read at call time: the whole offline/online split. Off, every
-    consumer is inline and every producer a no-op."""
-    return os.environ.get("FSDKRC_PRECOMPUTE", "1").lower() not in (
-        "0", "off", "false", "no",
-    )
 
 
 def _nbytes(v) -> int:

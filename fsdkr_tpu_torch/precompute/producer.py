@@ -1,77 +1,50 @@
-"""Producers for the precompute pools: offline constructors, the owned
-target registry and the background fill thread (an own copy of
-fsdkr_tpu/precompute/producer.py; the pool store lives in `pools.py`).
+"""Producers for the precompute pools: the offline constructors and
+`prefill`, the one way to fill the pools (an own copy of the constructors
+and the committee bookkeeping of fsdkr_tpu/precompute/producer.py; the
+pool store lives in `pools.py`).
 
 Production rides the same batch engines as the inline path: the
-Paillier and mod-N~ columns take the registering config's modexp
+Paillier and mod-N~ columns take the config's modexp
 (`backend.powm.get_batch_powm`: the device's, on the cuda backend), the
-key material the native prime pipeline and the secret-CRT engine. The
+key material the native prime pipeline and the provers' engines. The
 JAX package sends its producer's columns to the host engines, since its
 TPU is busy verifying; the values are the same on either engine.
 
-Targets are metadata only: pool kind, PUBLIC key, desired depth, owner,
-and the config whose device produces them — the device travels with the
-registration, never in a pool key. The secret entries go straight into
-the pool store. Registration happens at the end of `distribute_batch`
-(it knows the committee), or through `prefill` (the synchronous
-one-shot fill).
+The pools are opt-in. `prefill(local_key, new_n, senders, config)` fills
+one committee's pools and records the committee under its owner
+(`committee_owner`: its mod-N~ moduli, public and stable across
+refreshes). `distribute_batch` takes the pooled branch only for a
+recorded committee (`claim`), and wipes what that committee's
+per-receiver pools have left once it has taken from them (`release`):
+their keys rotate with the epoch. A committee never prefilled
+distributes inline and touches no pool. `replace` wipes the pools of the
+layout it changes (`invalidate_owner`). The key-material pool is keyed
+by config parameters alone and shared by every committee of that config.
 
-The background thread (FSDKRC_PRECOMPUTE_BG) is OFF by default in the
-port: on one card its launches share the stream with collect's, and the
-serving layer is the caller that will start it. `kick()` wakes it when
-the knob is on; `stop_background()` stops it.
+The JAX package's background producer thread, its target registry with
+its lifetimes, and the kicks that wake the thread are not ported: their
+caller is the serving layer, which the port does not have yet.
 """
 
 from __future__ import annotations
 
-import contextlib
-import contextvars
-import os
 import threading
-import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from . import pools
 
 __all__ = [
-    "background_enabled",
     "produce_enc",
     "produce_keys",
     "produce_for",
-    "register_targets",
-    "replace_targets",
-    "suspend_targets",
-    "invalidate_owner",
     "committee_owner",
     "committee_targets",
-    "KEYS_POOL_OWNER",
-    "owner_scope",
-    "current_registration_owner",
-    "target_keys",
-    "clear_targets",
-    "deficit_total",
     "prefill",
-    "kick",
-    "stop_background",
-    "producer_running",
-    "producer_stats",
+    "claim",
+    "release",
+    "invalidate_owner",
+    "clear_committees",
 ]
-
-# production step caps: one background step stays bounded (and stop()
-# responsive) while still amortizing the batch engines' launch overhead
-_PAIR_BATCH = 16
-_KEY_BATCH = 2
-TARGET_TTL_GENS = 16  # owner-less targets retire after this many registrations
-TARGET_TTL_S = 900.0  # any target retires after this long without a refresh
-
-
-def background_enabled() -> bool:
-    """FSDKRC_PRECOMPUTE_BG (default OFF; 1, on, true or yes turn it on),
-    read at call time: the background producer thread. Off, the pools
-    fill only through `prefill`."""
-    return pools.enabled() and os.environ.get(
-        "FSDKRC_PRECOMPUTE_BG", "0"
-    ).lower() in ("1", "on", "true", "yes")
 
 
 # ---------------------------------------------------------------------------
@@ -158,142 +131,25 @@ def produce_for(kind: str, key, count: int, config) -> int:
 
 
 # ---------------------------------------------------------------------------
-# target registry + background thread
+# prefilled committees
 
-# (kind, key) -> (want, generation, owner, monotonic stamp, config). One
-# register_targets call = one generation. Owner-less targets retire after
-# TARGET_TTL_GENS registrations without a refresh; OWNED targets have an
-# explicit lifecycle instead (suspend_targets at epoch start,
-# replace_targets at epoch handover, invalidate_owner on churn), and the
-# wall-clock TARGET_TTL_S backstops abandoned owners. A retired target's
-# pool is wiped: its key rotated away, so its entries can never be taken.
-_TARGETS: Dict[Tuple[str, object], tuple] = {}
-_TARGETS_LOCK = threading.Lock()
-_TARGET_GEN = 0
-_PRODUCER = None  # lazily built BackgroundProducer
-
-# ambient owner for registrations made inside protocol code (a serving
-# layer wraps distribute in owner_scope(committee_id) so the
-# auto-registration at the end of distribute_batch lands under its
-# committee identity)
-_REG_OWNER: contextvars.ContextVar = contextvars.ContextVar(
-    "fsdkrc_precompute_owner", default=None
-)
-
-# owner of every ("keys", ...) target: the key-material pool is keyed by
-# config parameters alone, so it is SHARED by every committee with that
-# config — it is never claimed by (or invalidated with) one committee
-KEYS_POOL_OWNER = ("keys-pool",)
+# owner -> the (kind, key) of the committee's per-receiver pools, as
+# `prefill` filled them
+_COMMITTEES: Dict[tuple, List[Tuple[str, object]]] = {}
+_LOCK = threading.Lock()
 
 
 def committee_owner(dlog_statements) -> tuple:
-    """Stable committee fingerprint for target ownership: the tuple of
-    the committee's mod-N~ moduli in slot order (public, stable across
-    refreshes, changed only by churn)."""
+    """Stable committee fingerprint: the tuple of the committee's mod-N~
+    moduli in slot order (public, stable across refreshes, changed only
+    by churn)."""
     return ("committee-ntilde",) + tuple(d.N for d in dlog_statements)
 
 
-@contextlib.contextmanager
-def owner_scope(owner):
-    """Ambient registration owner for the block: every register_targets
-    call without an explicit owner is tagged with `owner`. Thread-local
-    (contextvar)."""
-    tok = _REG_OWNER.set(owner)
-    try:
-        yield
-    finally:
-        _REG_OWNER.reset(tok)
-
-
-def current_registration_owner():
-    return _REG_OWNER.get()
-
-
-def register_targets(targets, config, owner=None) -> None:
-    """Record desired pool depths: targets = [(kind, key, want)], produced
-    with `config`'s engines — re-registering refreshes a key's
-    generation, want, owner and config. Sweeps retired targets (see
-    _TARGETS) and wipes their pools."""
-    global _TARGET_GEN
-    if owner is None:
-        owner = _REG_OWNER.get()
-    now = time.monotonic()
-    stale = []
-    with _TARGETS_LOCK:
-        _TARGET_GEN += 1
-        for kind, key, want in targets:
-            _TARGETS[(kind, key)] = (int(want), _TARGET_GEN, owner, now, config)
-        for k, (_want, gen, o, stamp, _cfg) in list(_TARGETS.items()):
-            gen_stale = o is None and gen <= _TARGET_GEN - TARGET_TTL_GENS
-            if gen_stale or now - stamp > TARGET_TTL_S:
-                del _TARGETS[k]
-                stale.append(k)
-    store = pools.get_store()
-    for kind, key in stale:
-        store.drop(kind, key)
-
-
-def target_keys(owner=None) -> List[Tuple[str, object]]:
-    """Registered (kind, key) targets, optionally of one owner."""
-    with _TARGETS_LOCK:
-        return [k for k, t in _TARGETS.items() if owner is None or t[2] == owner]
-
-
-def _pop_owner(owner) -> List[Tuple[str, object]]:
-    with _TARGETS_LOCK:
-        keys = [k for k, t in _TARGETS.items() if t[2] == owner]
-        for k in keys:
-            del _TARGETS[k]
-    return keys
-
-
-def invalidate_owner(owner) -> int:
-    """Drop every target registered under `owner` and wipe its pools —
-    the churn entry point (replace re-keys the committee, so the old
-    owner's pooled secrets can never be consumed). Returns the number of
-    targets dropped."""
-    if owner is None:
-        return 0
-    keys = _pop_owner(owner)
-    store = pools.get_store()
-    for kind, key in keys:
-        store.drop(kind, key)
-    return len(keys)
-
-
-def suspend_targets(owner) -> int:
-    """Unregister `owner`'s targets WITHOUT wiping their pools — called at
-    the start of an epoch's distribute, which is about to consume them, so
-    a mid-epoch kick cannot refill pools whose keys rotate at the end of
-    the epoch (distribute re-registers the next epoch's targets). Returns
-    the number of targets removed."""
-    if owner is None:
-        return 0
-    return len(_pop_owner(owner))
-
-
-def replace_targets(targets, config, owner) -> None:
-    """register_targets PLUS wipe-on-invalidate for `owner`: any target
-    registered under `owner` but absent from `targets` is dropped and its
-    pool wiped — how an epoch hands over to the next epoch's keys."""
-    fresh_keys = {(kind, key) for kind, key, _want in targets}
-    with _TARGETS_LOCK:
-        stale = [
-            k for k, t in _TARGETS.items() if t[2] == owner and k not in fresh_keys
-        ]
-        for k in stale:
-            del _TARGETS[k]
-    store = pools.get_store()
-    for kind, key in stale:
-        store.drop(kind, key)
-    register_targets(targets, config, owner=owner)
-
-
 def committee_targets(local_key, new_n: int, senders: int, config) -> list:
-    """Target list for one committee: `senders` entries per receiver pool
-    (every sender consumes one entry per receiver per epoch) and
-    `senders` key bundles — one epoch ahead of demand. The ("keys", ...)
-    target is LAST."""
+    """[(kind, key, want)] of one committee: `senders` entries per
+    receiver pool (every sender consumes one entry per receiver per
+    epoch) and `senders` key bundles. The ("keys", ...) target is LAST."""
     out = []
     for i in range(new_n):
         ek = local_key.paillier_key_vec[i]
@@ -306,90 +162,15 @@ def committee_targets(local_key, new_n: int, senders: int, config) -> list:
     return out
 
 
-def clear_targets() -> None:
-    with _TARGETS_LOCK:
-        _TARGETS.clear()
-
-
-def _deficits() -> List[tuple]:
-    store = pools.get_store()
-    with _TARGETS_LOCK:
-        items = list(_TARGETS.items())
-    out = []
-    for (kind, key), (want, _gen, _owner, _stamp, config) in items:
-        room = store.room(kind, key, want)
-        if room > 0:
-            out.append((kind, key, room, config))
-    return out
-
-
-def deficit_total() -> int:
-    """Entries still missing across every registered target (0 = every
-    pool at its target depth)."""
-    return sum(room for _kind, _key, room, _cfg in _deficits())
-
-
-def _step() -> bool:
-    """One bounded background production step: fill the first deficit
-    that absorbs entries, a small batch at a time. False when every
-    target is at depth or nothing can be stored (the byte budget binds),
-    and the producer then parks until the next kick."""
-    if not background_enabled():
-        return False
-    for kind, key, room, config in _deficits():
-        cap = _KEY_BATCH if kind == "keys" else _PAIR_BATCH
-        if produce_for(kind, key, min(room, cap), config) > 0:
-            return True
-    return False
-
-
-def _producer():
-    global _PRODUCER
-    if _PRODUCER is None:
-        from ..utils.pipeline import BackgroundProducer
-
-        _PRODUCER = BackgroundProducer(_step)
-    return _PRODUCER
-
-
-def kick() -> None:
-    """Wake (starting if needed) the background producer — called at the
-    end of distribute_batch and on entry to collect_sessions and
-    finalize_streams. No-op when FSDKRC_PRECOMPUTE_BG is off or no target
-    is registered."""
-    if not background_enabled():
-        return
-    with _TARGETS_LOCK:
-        if not _TARGETS:
-            return
-    _producer().kick()
-
-
-def stop_background(timeout: float = 5.0) -> None:
-    if _PRODUCER is not None:
-        _PRODUCER.stop(timeout=timeout)
-
-
-def producer_running() -> bool:
-    return _PRODUCER is not None and _PRODUCER.running()
-
-
-def producer_stats() -> Dict[str, float]:
-    """The background thread's productive steps, seconds and errors."""
-    p = _PRODUCER
-    if p is None:
-        return {"steps": 0, "busy_seconds": 0.0, "errors": 0}
-    return {"steps": p.steps, "busy_seconds": p.busy_seconds, "errors": p.errors}
-
-
 def prefill(local_key, new_n: int, senders: int, config) -> int:
     """Synchronous offline fill: bring every pool of this committee up to
-    one epoch of depth with `config`'s engines; returns the number of
-    entries produced."""
-    if not pools.enabled():
-        return 0
+    one epoch of depth with `config`'s engines and record the committee,
+    so its next distribute takes the pooled branch. Returns the number
+    of entries produced."""
     targets = committee_targets(local_key, new_n, senders, config)
-    register_targets(targets, config)
+    owner = committee_owner(local_key.h1_h2_n_tilde_vec[:new_n])
+    with _LOCK:
+        _COMMITTEES[owner] = [(kind, key) for kind, key, _ in targets[:-1]]
     store = pools.get_store()
     produced = 0
     for kind, key, want in targets:
@@ -397,3 +178,36 @@ def prefill(local_key, new_n: int, senders: int, config) -> int:
         if room > 0:
             produced += produce_for(kind, key, room, config)
     return produced
+
+
+def claim(owner) -> Optional[List[Tuple[str, object]]]:
+    """The per-receiver pool keys `prefill` recorded for `owner`, taken
+    off the record; None when the committee was not prefilled (its
+    distribute is inline)."""
+    with _LOCK:
+        return _COMMITTEES.pop(owner, None)
+
+
+def release(keys) -> None:
+    """Wipe what the pools of `keys` have left: a distribute has taken
+    its epoch's entries, and the receivers' keys rotate at its end."""
+    store = pools.get_store()
+    for kind, key in keys:
+        store.drop(kind, key)
+
+
+def invalidate_owner(owner) -> int:
+    """Forget `owner`'s committee and wipe its per-receiver pools — the
+    churn entry point (replace re-keys the committee, so the old layout's
+    pooled secrets can never be consumed). Returns the number of pools
+    wiped."""
+    keys = claim(owner)
+    if keys is None:
+        return 0
+    release(keys)
+    return len(keys)
+
+
+def clear_committees() -> None:
+    with _LOCK:
+        _COMMITTEES.clear()

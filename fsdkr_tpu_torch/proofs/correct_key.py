@@ -92,13 +92,13 @@ class NiCorrectKeyProof:
         hash_alg: str | None = None,
     ) -> List["NiCorrectKeyProof"]:
         """All provers' N-th-root columns in ONE modexp call (the
-        cross-sender batch axis of a refresh). The prover owns every
-        row's factorization (d = N^{-1} mod phi exists only because it
-        does), so the column rides the secret-CRT route
-        (backend.powm.crt_powm, FSDKRC_CRT): d reduced mod p-1 / q-1
-        halves both the exponent and the width of each fault-checked leg
-        on the native host core; off, the full-width column through
-        `powm`, with the same values."""
+        cross-sender batch axis of a refresh). The exponent
+        d = N^{-1} mod phi is secret. On the cuda backend the column
+        rides the device's constant-time window loop; on the host engine
+        the prover's own factorization sends it to the secret-CRT legs
+        (backend.powm.crt_powm): d reduced mod p-1 / q-1 halves both the
+        exponent and the width of each fault-checked leg on the native
+        host core. The values are the same either way."""
         from ..backend.powm import crt_powm
 
         bases, exps, mods, factors = [], [], [], []

@@ -50,12 +50,12 @@ class RingPedersenStatement:
     ) -> list:
         """`count` fresh statements: moduli through the windowed prime
         pipeline (core.primes, native Miller-Rabin batches), and
-        S = T^lambda through the secret-CRT engine (FSDKRC_CRT,
-        backend.crt) — the prover owns this factorization, so the
-        full-width ladder decomposes into two fault-checked half-width
-        legs with lambda reduced mod p-1 / q-1, every statement's legs in
-        one native batch. Same sampling order and values as the
-        full-width path."""
+        S = T^lambda through the secret-CRT engine (backend.crt) — the
+        prover owns this factorization, so the full-width ladder
+        decomposes into two fault-checked half-width legs with lambda
+        reduced mod p-1 / q-1, every statement's legs in one native
+        batch (one row a statement, too few to fill a launch on the card).
+        Same sampling order and values as the full-width path."""
         from ..backend import crt
 
         moduli = primes.gen_moduli_batch(config.paillier_bits, count)
@@ -65,14 +65,10 @@ class RingPedersenStatement:
             r = secrets.randbelow(n)
             lam = secrets.randbelow(phi)
             rows.append((n, p, q, phi, lam, pow(r, 2, n)))
-        if crt.crt_enabled():
-            # every statement's legs in one native batch
-            s_vals = crt.crt_modexp_batch(
-                [t for *_, t in rows], [lam for *_, lam, _ in rows],
-                [crt.get_context(n, p, q) for n, p, q, *_ in rows],
-            )
-        else:
-            s_vals = [pow(t, lam, n) for n, *_, lam, t in rows]
+        s_vals = crt.crt_modexp_batch(
+            [t for *_, t in rows], [lam for *_, lam, _ in rows],
+            [crt.get_context(n, p, q) for n, p, q, *_ in rows],
+        )
         return [
             (
                 RingPedersenStatement(S=s, T=t, N=n, ek=EncryptionKey.from_n(n)),
@@ -140,15 +136,18 @@ class RingPedersenProof:
         prover's own commitments — so whole proofs are input-independent
         and ride the precompute key-material pool with their statements.
 
-        Under FSDKRC_CRT the prover owns each statement's factorization:
-        the M rows T^{a_i} mod N decompose into two fault-checked
-        half-width fixed-base comb legs a prover on the native host core
-        (exponents reduced mod p-1 / q-1, one squaring ladder a leg over
-        all M rows, tables built, used and wiped). Off, ONE modexp launch
-        through `powm`, each prover's rows sharing (T, N) for the comb.
-        The A values are the same either way."""
+        On the cuda backend, ONE modexp launch through `powm`, each
+        prover's rows sharing (T, N) for the card's comb. On the host
+        engine the prover's own factorization splits the M rows
+        T^{a_i} mod N into two fault-checked half-width fixed-base comb
+        legs a prover on the native host core (exponents reduced mod
+        p-1 / q-1, one squaring ladder a leg over all M rows, tables
+        built, used and wiped), which beat CPython's full-width pow. The
+        A values are the same either way."""
+        from ..backend.powm import host_powm
+
         if powm is None:
-            from ..backend.powm import host_powm as powm
+            powm = host_powm
         if len(witnesses) != len(statements):
             raise ValueError(
                 f"batch length mismatch: {len(witnesses)} witnesses, "
@@ -157,7 +156,7 @@ class RingPedersenProof:
         a_all = RingPedersenProof.sample_commit(witnesses, m_security)
         from ..backend import crt
 
-        if crt.crt_enabled():
+        if powm is host_powm:
             A_all = []
             for w, st, a_vec in zip(witnesses, statements, a_all):
                 A_all += crt.crt_powm_shared(

@@ -103,11 +103,11 @@ class RefreshMessage:
         per-receiver columns of every sender concatenate into ONE launch
         per proof family and width. Mutates each local_key.vss_scheme.
 
-        Under FSDKRC_PRECOMPUTE (precompute/) every phase boundary
-        consumes or computes: pooled rows take their offline-produced
-        values (the values inline sampling and computing would give),
-        dry rows fall back to that phase's inline columns. At the end the
-        committee's pool targets move to the next epoch's keys."""
+        A committee that `precompute.prefill` filled takes the pooled
+        branch: every phase boundary consumes or computes, pooled rows
+        taking their offline-produced values (the values inline sampling
+        and computing would give), dry rows that phase's inline columns.
+        Any other committee distributes inline and touches no pool."""
         from ..backend.powm import get_batch_powm, powm_columns
         from .. import precompute
 
@@ -124,18 +124,10 @@ class RefreshMessage:
             if new_n <= t:
                 raise NewPartyUnassignedIndexError()
 
-        pre_on = precompute.enabled()
-        if pre_on:
-            # this epoch is about to drain its pools: suspend the
-            # committee's targets so a producer kick mid-epoch cannot
-            # refill pools whose keys rotate at the end of this call
-            # (the next epoch's are registered below)
-            owner = precompute.current_registration_owner()
-            if owner is None:
-                owner = precompute.committee_owner(
-                    senders[0][1].h1_h2_n_tilde_vec[:new_n]
-                )
-            precompute.suspend_targets(owner)
+        pooled_keys = precompute.claim(
+            precompute.committee_owner(senders[0][1].h1_h2_n_tilde_vec[:new_n])
+        )
+        pre_on = pooled_keys is not None
 
         per = []  # per-sender working state, in input order
         for old_party_index, local_key in senders:
@@ -218,6 +210,9 @@ class RefreshMessage:
             envs = list(zip(flat_h1, flat_h2, flat_nt, flat_nv))
             pooled_pdl = [precompute.take("pdl", e) for e in envs]
             pooled_alice = [precompute.take("alice", e) for e in envs]
+            # the receivers' keys rotate with this epoch: what their
+            # pools have left can never be taken
+            precompute.release(pooled_keys)
         pdl_state, pdl_cols = PDLwSlackProof.prove_stage1(
             flat_witnesses, flat_h1, flat_h2, flat_nt, flat_nv, flat_nnv,
             hash_alg=config.hash_alg, pooled=pooled_pdl,
@@ -283,7 +278,7 @@ class RefreshMessage:
         # offline ek/dk, correct-key proof, ring-Pedersen statement and
         # proof — every part a function of the fresh key alone), then the
         # rest inline: the native prime pipeline and both provers'
-        # columns (the secret-CRT engine under FSDKRC_CRT)
+        # columns
         key_bundles: list = []
         if pre_on:
             kp = config.key_material_pool_key
@@ -334,9 +329,6 @@ class RefreshMessage:
                 ring_pedersen_proof=rp_proofs[k],
             )
             out.append((msg, ek_dk[k][1]))
-
-        if pre_on:
-            _retarget(senders, per, ek_dk, new_n, owner, config)
         return out
 
     # ------------------------------------------------------------------
@@ -433,16 +425,13 @@ class RefreshMessage:
     ) -> Tuple["RefreshMessage", DecryptionKey]:
         """State surgery for index remapping + joins, then an ordinary
         distribute (reference :239-319)."""
-        # the pools registered at the end of the last epoch's distribute
-        # are keyed by the pre-churn committee layout (receiver moduli and
+        # pools that `precompute.prefill` filled for this committee are
+        # keyed by the pre-churn committee layout (receiver moduli and
         # mod-N~ environments); the surgery below changes that layout, so
         # those single-use entries can never be taken: wipe them now
         from .. import precompute
 
-        if precompute.enabled():
-            precompute.invalidate_owner(
-                precompute.committee_owner(key.h1_h2_n_tilde_vec)
-            )
+        precompute.invalidate_owner(precompute.committee_owner(key.h1_h2_n_tilde_vec))
         size = max(new_n, len(key.paillier_key_vec))
         new_ek_vec: List[Optional[EncryptionKey]] = [None] * size
         new_dlog_vec: List[Optional[DLogStatement]] = [None] * size
@@ -536,11 +525,6 @@ class RefreshMessage:
         never blocks the others: a fused call that raises is retried one
         session at a time (`fused_isolated`)."""
         backend = get_backend(config)
-        # idle-time pool refill (FSDKRC_PRECOMPUTE_BG): wakes the
-        # background producer, a no-op while the knob is off
-        from .. import precompute
-
-        precompute.kick()
         count = len(sessions)
         errors: List[Optional[Exception]] = [None] * count
         new_ns: List[int] = [len(msgs) + len(joins) for msgs, _, _, joins in sessions]
@@ -872,38 +856,6 @@ def adopt_session(
     local_key.keys_linear.x_i = new_share_fe
     local_key.keys_linear.y = GENERATOR * new_share_fe
     local_key.pk_vec = pk_vec
-
-
-def _retarget(senders, per, ek_dk, new_n, owner, config) -> None:
-    """The next epoch's pool targets: this call's demand, keyed by the
-    NEXT epoch's receiver moduli — collect installs each sender's fresh
-    ek into paillier_key_vec, so the Paillier-width pools are produced
-    against the keys just generated (the mod-N~ environments stay). The
-    per-receiver targets belong to `owner` (replace semantics wipe what
-    the drained epoch left); the config-keyed key-material pool is shared
-    by every committee and registered under KEYS_POOL_OWNER."""
-    from .. import precompute
-
-    next_eks = list(senders[0][1].paillier_key_vec[:new_n])
-    for k, p in enumerate(per):
-        idx = p["key"].i
-        if 1 <= idx <= new_n:
-            next_eks[idx - 1] = ek_dk[k][0]
-    targets = []
-    for i in range(new_n):
-        d = senders[0][1].h1_h2_n_tilde_vec[i]
-        env = (d.g, d.ni, d.N, next_eks[i].n)
-        targets += [
-            ("enc", next_eks[i].n, len(per)),
-            ("pdl", env, len(per)),
-            ("alice", env, len(per)),
-        ]
-    precompute.replace_targets(targets, config, owner=owner)
-    precompute.register_targets(
-        [("keys", config.key_material_pool_key, len(per))], config,
-        owner=precompute.KEYS_POOL_OWNER,
-    )
-    precompute.kick()
 
 
 def _ec_device(config: ProtocolConfig):

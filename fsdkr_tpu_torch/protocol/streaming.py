@@ -284,11 +284,9 @@ def finalize_streams(
 
 def _finalize_impl(streams, errors, config):
     backend = get_backend(config)
-    # idle-time pool refill, as on barrier collect's entry (a no-op while
-    # FSDKRC_PRECOMPUTE_BG is off)
-    from .. import precompute
-
-    precompute.kick()
+    # (the JAX package wakes its background pool producer here; the port's
+    # pools fill through precompute.prefill only, so there is nothing to
+    # wake)
     S = len(streams)
     msgs_l: List[Optional[list]] = [None] * S
     replayed = set()

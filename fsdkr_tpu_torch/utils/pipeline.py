@@ -1,6 +1,5 @@
-"""The verifier's schedulers and the precompute producer's thread (the JAX
-package's utils/pipeline.py, cut to `run_jobs`, `prefetch_tiles` and
-`BackgroundProducer`).
+"""The verifier's schedulers (the JAX package's utils/pipeline.py, cut to
+`run_jobs` and `prefetch_tiles`).
 
 The JAX package runs independent launch sets (the RANGEOPT range
 engines beside the PDL columns) as thunks on a small thread pool; at one
@@ -16,11 +15,9 @@ while tile k's launches run on the calling thread.
 
 from __future__ import annotations
 
-import threading
-import time
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Sequence
 
-__all__ = ["run_jobs", "prefetch_tiles", "BackgroundProducer"]
+__all__ = ["run_jobs", "prefetch_tiles"]
 
 
 def run_jobs(jobs: Sequence[Callable]) -> List:
@@ -52,77 +49,3 @@ def prefetch_tiles(spans, prepare: Callable, consume: Callable) -> None:
             if i + 1 < len(spans):
                 fut = ex.submit(prepare, *spans[i + 1])
             consume(prep)
-
-
-class BackgroundProducer:
-    """One daemon thread pulling work off a `step` callable — the
-    producer half of the precompute offline/online split
-    (precompute.producer builds `step` from the pool targets).
-
-    `step()` performs one bounded unit of production and returns True if
-    it did work; the thread loops while steps report work, then parks on
-    an event until `kick()`. Exceptions in `step` park the producer
-    instead of killing the interpreter: production is an optimization,
-    never a correctness dependency (consumers fall back inline on a dry
-    pool); `errors` counts them.
-    """
-
-    def __init__(self, step: Callable[[], bool], name: str = "fsdkrc-precompute"):
-        self._step = step
-        self._name = name
-        self._wake = threading.Event()
-        self._lock = threading.Lock()
-        self._thread: Optional[threading.Thread] = None
-        self._thread_stop: Optional[threading.Event] = None
-        self.errors = 0
-        self.last_error: Optional[BaseException] = None
-        self.busy_seconds = 0.0
-        self.steps = 0
-
-    def _loop(self, stop: threading.Event) -> None:
-        while not stop.is_set():
-            t0 = time.monotonic()
-            try:
-                worked = self._step()
-            except Exception as e:  # noqa: BLE001 - parked, counted
-                self.errors += 1
-                self.last_error = e
-                worked = False
-            if worked:
-                self.busy_seconds += time.monotonic() - t0
-                self.steps += 1
-            else:
-                self._wake.wait(timeout=60.0)
-                self._wake.clear()
-
-    def kick(self) -> None:
-        """Start the thread if needed and wake it (idempotent, cheap)."""
-        with self._lock:
-            if self._thread is None or not self._thread.is_alive():
-                # each thread gets its OWN stop event: a stop() racing
-                # this kick() signals the old thread's event, so two
-                # producer loops can never run side by side
-                self._thread_stop = threading.Event()
-                self._thread = threading.Thread(
-                    target=self._loop, args=(self._thread_stop,),
-                    name=self._name, daemon=True,
-                )
-                self._thread.start()
-        self._wake.set()
-
-    def stop(self, timeout: float = 5.0) -> None:
-        with self._lock:
-            t = self._thread
-            stop = self._thread_stop
-            self._thread = None
-            self._thread_stop = None
-            if stop is not None:
-                stop.set()
-        if t is None:
-            return
-        self._wake.set()
-        t.join(timeout=timeout)
-
-    def running(self) -> bool:
-        t = self._thread
-        return t is not None and t.is_alive()

@@ -3,7 +3,7 @@ names (chip_smoke.span_distribute), for the port in this checkout or in
 another tree: a parent commit unpacked beside it, so that two trees are
 compared in one call on the same card.
 
-    python3 scripts/distribute_spans.py [--tree DIR] [--crt 1|0] [--n 16] [--bits 2048]
+    python3 scripts/distribute_spans.py [--tree DIR] [--n 16] [--bits 2048] [--label TEXT]
 
 Builds a committee with simulate_keygen (timed: its prime generation is
 the distribute's keygen work twice over), then runs one distribute by
@@ -26,13 +26,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=ROOT, help="directory holding fsdkr_tpu_torch/")
-    ap.add_argument("--crt", choices=("1", "0"), default="1", help="FSDKRC_CRT")
     ap.add_argument("--n", type=int, default=16)
     ap.add_argument("--bits", type=int, default=2048)
     ap.add_argument("--label", default=None)
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
-    os.environ["FSDKRC_CRT"] = args.crt
     sys.path.insert(0, tree)
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
     chip_smoke = importlib.util.module_from_spec(spec)
@@ -49,7 +47,7 @@ def main():
     if os.path.dirname(os.path.dirname(os.path.abspath(fsdkr_tpu_torch.__file__))) != tree:
         chip_smoke.fail(f"fsdkr_tpu_torch came from {fsdkr_tpu_torch.__file__}, not {tree}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    label = args.label or f"{os.path.basename(tree)}, FSDKRC_CRT={args.crt}"
+    label = args.label or os.path.basename(tree)
     n = args.n
     config = ProtocolConfig(paillier_bits=args.bits, m_security=256, correct_key_rounds=11,
                             backend="cuda", device="cuda")

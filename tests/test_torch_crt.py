@@ -1,10 +1,13 @@
-"""The port's secret-CRT engine (fsdkr_tpu_torch/backend/crt.py,
-FSDKRC_CRT) against the JAX package's (FSDKR_CRT), at 512-1024 bits.
+"""The port's secret-CRT engine (fsdkr_tpu_torch/backend/crt.py) against
+the JAX package's (FSDKR_CRT), at 512-1024 bits.
 
 - The same numpy-seeded inputs give the same values in both packages,
   with CRT on and off: `crt_modexp_batch`, `crt_powm_shared`,
   `fault_checked_powm`, the correct-key prover, ring-Pedersen's prover
-  and generator, and Paillier `decrypt`.
+  and generator, and Paillier `decrypt`. "On" is the JAX package's
+  FSDKR_CRT=1 and the port's host engine, whose prover columns take the
+  CRT legs; "off" is FSDKR_CRT=0 and the port's device engine on the CPU
+  (the cuda backend's plain versions), which takes them at full width.
 - A corrupted leg raises CrtFaultError before any output (the port's leg
   engines monkeypatched to fault).
 - No factorization-derived integer reaches the public precompute cache
@@ -12,6 +15,7 @@ FSDKRC_CRT) against the JAX package's (FSDKR_CRT), at 512-1024 bits.
 """
 
 import random
+from functools import partial
 
 import numpy as np
 import pytest
@@ -57,13 +61,19 @@ def moduli():
     return out
 
 
+# the cuda backend's engine on the CPU: the plain versions, full width
+DEVICE_CPU = partial(device_powm_grouped, device="cpu")
+
+
 @pytest.fixture
 def both_gates(monkeypatch):
-    """Sets the CRT knob of both packages."""
+    """Sets the JAX package's CRT knob and returns the port's engine of
+    the same route: None (the host engine, CRT legs) when on, the device
+    engine on the CPU when off."""
 
     def set_gate(on):
-        monkeypatch.setenv("FSDKRC_CRT", "1" if on else "0")
         monkeypatch.setenv("FSDKR_CRT", "1" if on else "0")
+        return None if on else DEVICE_CPU
 
     return set_gate
 
@@ -113,16 +123,19 @@ def test_crt_modexp_batch_matches_jax(moduli, both_gates, square):
 
 @pytest.mark.parametrize("on", [True, False])
 def test_crt_powm_route_and_shared_match_jax(moduli, both_gates, on):
-    both_gates(on)
+    powm = both_gates(on)
     from fsdkr_tpu.backend.powm import crt_powm as jcrt_powm
 
     n, p, q = moduli[1]
     bases = [_rand_int(700) for _ in range(4)]
     exps = [_rand_int(768) for _ in range(4)]
     factors = [(p, q), (p, q), None, (p, q)]
-    got = crt_powm(bases, exps, [n] * 4, factors)
+    crt.stats_reset()
+    got = crt_powm(bases, exps, [n] * 4, factors, powm)
     assert got == [pow(b, e, n) for b, e in zip(bases, exps)]
     assert got == jcrt_powm(bases, exps, [n] * 4, factors)
+    # the host engine takes the legs, a device engine the full width
+    assert crt.crt_stats()["rows"] == (3 if on else 0)
 
     base = pow(_rand_int(700), 2, n)
     col = [0, 1, (p - 1) * (q - 1) - 1] + [_rand_int(768) for _ in range(9)]
@@ -142,10 +155,10 @@ def test_fault_checked_powm_matches_jax(moduli):
 
 @pytest.mark.parametrize("on", [True, False])
 def test_correct_key_matches_jax(moduli, both_gates, on):
-    both_gates(on)
+    powm = both_gates(on)
     dks = [paillier.DecryptionKey(p=p, q=q) for _, p, q in moduli[:2]]
     jdks = [jpaillier.DecryptionKey(p=p, q=q) for _, p, q in moduli[:2]]
-    got = NiCorrectKeyProof.proof_batch(dks, rounds=3)
+    got = NiCorrectKeyProof.proof_batch(dks, rounds=3, powm=powm)
     want = jck.NiCorrectKeyProof.proof_batch(jdks, rounds=3)
     assert [pf.sigma_vec for pf in got] == [pf.sigma_vec for pf in want]
     for pf, (n, _, _) in zip(got, moduli):
@@ -154,7 +167,7 @@ def test_correct_key_matches_jax(moduli, both_gates, on):
 
 @pytest.mark.parametrize("on", [True, False])
 def test_ring_pedersen_prove_matches_jax(moduli, both_gates, monkeypatch, on):
-    both_gates(on)
+    powm = both_gates(on)
     stmts, wits, jstmts, jwits = [], [], [], []
     for n, p, q in moduli[:2]:
         phi = (p - 1) * (q - 1)
@@ -167,7 +180,9 @@ def test_ring_pedersen_prove_matches_jax(moduli, both_gates, monkeypatch, on):
         jwits.append(jrp.RingPedersenWitness(p=p, q=q, lam=lam, phi=phi))
     monkeypatch.setattr(rp, "secrets", _SeededSecrets(0xABCD))
     monkeypatch.setattr(jrp, "secrets", _SeededSecrets(0xABCD))
-    got = rp.RingPedersenProof.prove_batch(wits, stmts, 16)
+    crt.stats_reset()
+    got = rp.RingPedersenProof.prove_batch(wits, stmts, 16, powm)
+    assert (crt.crt_stats()["rows"] > 0) == on
     want = jrp.RingPedersenProof.prove_batch(jwits, jstmts, 16)
     assert [(pf.A, pf.Z) for pf in got] == [(pf.A, pf.Z) for pf in want]
     for pf, st in zip(got, stmts):
@@ -176,17 +191,18 @@ def test_ring_pedersen_prove_matches_jax(moduli, both_gates, monkeypatch, on):
 
 @pytest.mark.parametrize("on", [True, False])
 def test_ring_pedersen_generate_is_exact(both_gates, on):
-    both_gates(on)
+    powm = both_gates(on)
     crt.stats_reset()
     for st, w in rp.RingPedersenStatement.generate_batch(2, TEST_CONFIG):
         assert st.S == pow(st.T, w.lam, st.N)
-        proof = rp.RingPedersenProof.prove(w, st, 16)
+        proof = rp.RingPedersenProof.prove(w, st, 16, powm)
         proof.verify(st, 16)
         # the statement carries across to the JAX package and verifies there
         jst = jrp.RingPedersenStatement(
             S=st.S, T=st.T, N=st.N, ek=jpaillier.EncryptionKey.from_n(st.N))
         jrp.RingPedersenProof(A=proof.A, Z=proof.Z).verify(jst, 16)
-    assert (crt.crt_stats()["rows"] > 0) == on
+    # S = T^lambda takes the legs on either engine: one row a statement
+    assert crt.crt_stats()["rows"] >= 2
 
 
 @pytest.mark.parametrize("on", [True, False])

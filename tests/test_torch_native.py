@@ -3,17 +3,20 @@ fsdkr_tpu_torch/csrc/fsdkr_native.cpp with g++) against CPython and the
 JAX package's bridge, at 512-1024 bits.
 
 - The Miller-Rabin batch agrees with a CPython Miller-Rabin oracle
-  (core.primes._mr_rounds) and with the JAX package's
+  (`_mr_rounds` below) and with the JAX package's
   `is_probable_prime_batch` on primes, composites, prime products and
   Carmichael numbers.
 - The CRT leg batch and the one-shot comb agree with pow, at any thread
   count.
 - The windowed prime pipeline yields primes of the asked width with the
   top two bits set, through native batches.
-- A failed build raises (no silent CPython path).
+- A failed build raises, and so does an input outside the core's range
+  (no silent CPython path); the widest CRT leg the protocol makes (p^2 r
+  at 8192-bit Paillier) is inside it.
 """
 
 import random
+import secrets
 
 import numpy as np
 import pytest
@@ -35,9 +38,28 @@ def _rand_int(bits):
     return (x >> (len(words) * 32 - bits)) | (1 << (bits - 1))
 
 
+def _mr_rounds(n, rounds):
+    """Miller-Rabin rounds with CSPRNG witnesses over CPython pow."""
+    d = n - 1
+    r = (d & -d).bit_length() - 1
+    d >>= r
+    for _ in range(rounds):
+        a = 2 + secrets.randbelow(n - 3)
+        x = pow(a, d, n)
+        if x == 1 or x == n - 1:
+            continue
+        for _ in range(r - 1):
+            x = (x * x) % n
+            if x == n - 1:
+                break
+        else:
+            return False
+    return True
+
+
 def _next_prime(x):
     c = x | 1
-    while not primes._mr_rounds(c, 20) or any(c % s == 0 for s in (3, 5, 7)):
+    while not _mr_rounds(c, 20) or any(c % s == 0 for s in (3, 5, 7)):
         c += 2
     return c
 
@@ -67,7 +89,7 @@ def test_native_core_builds_and_loads():
 def test_mr_batch_agrees_with_oracle_and_jax(prime_pool):
     cands = _candidates(prime_pool)
     got = native.is_probable_prime_batch(cands, 30)
-    oracle = [primes._mr_rounds(c, 30) for c in cands]
+    oracle = [_mr_rounds(c, 30) for c in cands]
     assert got == oracle
     jax_got = jnative.is_probable_prime_batch(cands, 30)
     if jax_got is None:  # the JAX package's core did not build here
@@ -80,10 +102,15 @@ def test_mr_single_and_out_of_range(prime_pool):
     p = prime_pool[2]
     assert native.is_probable_prime(p) is True
     assert native.is_probable_prime(p * prime_pool[3]) is False
-    assert native.is_probable_prime(4) is None  # even: the caller's case
-    assert native.is_probable_prime_batch([p, 10]) is None
-    wide = (1 << 4200) + 1
-    assert native.is_probable_prime(wide) is None  # wider than the core
+    with pytest.raises(ValueError):
+        native.is_probable_prime(4)  # even: the caller's case
+    with pytest.raises(ValueError):
+        native.is_probable_prime_batch([p, 10])
+    wide = (1 << 8400) + 1
+    with pytest.raises(ValueError):
+        native.is_probable_prime(wide)  # wider than the core
+    with pytest.raises(ValueError):
+        primes.is_probable_prime(wide)  # no CPython path behind it
     assert primes.is_probable_prime(p) and not primes.is_probable_prime(p * 3)
 
 
@@ -101,8 +128,17 @@ def test_crt_leg_batch_matches_pow(prime_pool, threads):
         rows.append((0, 7, prime_pool[1]))  # base 0
         b, e, m = zip(*rows)
         assert native.crt_modexp_batch(b, e, m) == [pow(*r) for r in rows]
-        # outside the core: even modulus, negative exponent -> pow
-        assert native.crt_modexp_batch([3], [5], [1 << 100]) == [pow(3, 5, 1 << 100)]
+        # the widest leg: p^2 r at 8192-bit Paillier, 8256 bits
+        m = _rand_int(8256) | 1
+        row = (_rand_int(8000), _rand_int(4096), m)
+        assert native.crt_modexp_batch(*([x] for x in row)) == [pow(*row)]
+        assert native.modexp_shared(row[0], [row[1], 5], m) == [pow(*row), pow(row[0], 5, m)]
+        # outside the core: an even or too wide modulus, a negative exponent
+        for b, e, m in ((3, 5, 1 << 100), (3, -5, 7), (3, 5, (1 << 8400) + 1)):
+            with pytest.raises(ValueError):
+                native.crt_modexp_batch([b], [e], [m])
+            with pytest.raises(ValueError):
+                native.modexp_shared(b, [e], m)
     finally:
         native.set_threads(0)
 
@@ -121,7 +157,7 @@ def test_windowed_pipeline_widths_and_native_batches():
     assert len(ps) == 3
     for p in ps:
         assert p.bit_length() == 512 and p >> 510 == 3
-        assert primes._mr_rounds(p, 20)
+        assert _mr_rounds(p, 20)
     st = native.stats()
     assert st["mr_batches"] >= 2 and st["mr_rows"] >= 3
     for n, p, q in primes.gen_moduli_batch(1024, 2):
@@ -150,4 +186,4 @@ def test_python_oracle_agrees_on_small_primes():
     rng = random.Random(7)
     small = [rng.randrange(5, 1 << 40) | 1 for _ in range(64)]
     got = native.is_probable_prime_batch(small, 20)
-    assert got == [primes._mr_rounds(c, 20) for c in small]
+    assert got == [_mr_rounds(c, 20) for c in small]

@@ -1,21 +1,23 @@
-"""The port's precompute pools and producer (fsdkr_tpu_torch/precompute,
-FSDKRC_PRECOMPUTE) against the JAX package's, n=3, TEST_CONFIG widths.
+"""The port's precompute pools and producer (fsdkr_tpu_torch/precompute)
+against the JAX package's, n=3, TEST_CONFIG widths.
 
 - PARITY: with the same deterministic samplers installed in both
   packages, and the same canned key material (made once by the JAX
   package and carried over with fsdkr_tpu_torch.carry), the port's
   `distribute_batch` gives the JAX package's wire bytes
-  (protocol/serialization.py), inline (FSDKRC_PRECOMPUTE=0), pooled
-  (prefilled) and dry (pools empty), with FSDKRC_CRT on and off, and the
-  same decryption keys. The
-  host backend runs every arm; the pooled arm runs once more on the cuda
+  (protocol/serialization.py), inline (no prefill), pooled (prefilled)
+  and dry (the committee prefilled at no depth), against the JAX package with
+  its FSDKR_CRT on and off, and the same decryption keys. The host
+  backend runs every arm; the pooled arm runs once more on the cuda
   backend's plain versions (device="cpu"), its producer on the device
   route.
-- SINGLE USE, DEPTH/BUDGET/WIPE, the target registry's owner lifecycle.
+- SINGLE USE, DEPTH/BUDGET/WIPE, the prefilled committees' lifecycle
+  (prefill, claim, release, invalidate), and a committee never prefilled
+  taking no pool branch.
 - DRY FALLBACK: a tampered round raises the same error in every mode,
   the JAX package's class.
-- CONCURRENCY: the background producer (FSDKRC_PRECOMPUTE_BG=1) fills
-  pools while the protocol consumes them; the rounds verify.
+- CONCURRENCY: a producer thread fills pools while the protocol runs and
+  consumes them; the rounds verify.
 - ISOLATION: pooled secrets never reach the public precompute cache.
 """
 
@@ -23,7 +25,7 @@ import copy
 import dataclasses
 import hashlib
 import math
-import time
+import threading
 from types import SimpleNamespace
 
 import pytest
@@ -212,7 +214,8 @@ def _install(monkeypatch, pkg, canned_pair, bits):
 def _clear_both():
     for pc in (precompute, j_precompute):
         pc.clear_pools()
-        pc.clear_targets()
+    precompute.clear_committees()
+    j_precompute.clear_targets()
 
 
 def _jax_arm(monkeypatch, reset, jkeys, mode):
@@ -229,14 +232,15 @@ def _jax_arm(monkeypatch, reset, jkeys, mode):
 def _port_arm(monkeypatch, reset, jkeys, mode, config):
     reset()
     _clear_both()
-    monkeypatch.setenv("FSDKRC_PRECOMPUTE", "0" if mode == "off" else "1")
     keys = from_reference(jkeys)
+    if mode != "off":  # dry: the committee recorded, nothing produced
+        precompute.prefill(keys[0], N, len(keys) if mode == "pooled" else 0, config)
     precompute.stats_reset()
-    if mode == "pooled":
-        precompute.prefill(keys[0], N, len(keys), config)
     res = RefreshMessage.distribute_batch([(k.i, k) for k in keys], N, config)
     st = precompute.precompute_stats()
-    if mode == "pooled":
+    if mode == "off":
+        assert st["consumed"] == 0 and st["dry_fallbacks"] == 0
+    elif mode == "pooled":
         # n^2 entries of each pair kind, the enc entries and the key bundles
         assert st["consumed"] == 3 * N * len(keys) + len(keys)
         assert st["dry_fallbacks"] == 0
@@ -248,7 +252,6 @@ def _port_arm(monkeypatch, reset, jkeys, mode, config):
 @pytest.fixture
 def samplers(monkeypatch, canned):
     monkeypatch.setenv("FSDKR_PRECOMPUTE_BG", "0")
-    monkeypatch.setenv("FSDKRC_PRECOMPUTE_BG", "0")
     jreset = _install(monkeypatch, JAX, canned["jax"], JAX_CONFIG.paillier_bits)
     preset = _install(monkeypatch, PORT, canned["port"], TEST_CONFIG.paillier_bits)
     yield jreset, preset
@@ -258,11 +261,12 @@ def samplers(monkeypatch, canned):
 @pytest.mark.parametrize("multiexp,crt", [("1", "1"), ("0", "1"), ("1", "0")])
 def test_wire_bytes_match_jax_inline_pooled_dry(monkeypatch, samplers, jax_keys, multiexp,
                                                 crt):
-    """The port's wire bytes at FSDKRC_CRT=`crt` against the JAX package's
-    at its default FSDKR_CRT=1: the CRT legs give the full-width values."""
+    """The port's wire bytes against the JAX package's at FSDKR_CRT=`crt`:
+    the port's CRT legs (S = T^lambda, and the provers' columns on the
+    host engine) give the JAX package's full-width values."""
     monkeypatch.setenv("FSDKR_MULTIEXP", multiexp)
     monkeypatch.setenv("FSDKRC_MULTIEXP", multiexp)
-    monkeypatch.setenv("FSDKRC_CRT", crt)
+    monkeypatch.setenv("FSDKR_CRT", crt)
     jreset, preset = samplers
     jax_off = _jax_arm(monkeypatch, jreset, jax_keys, "off")
     port_crt.stats_reset()
@@ -270,13 +274,15 @@ def test_wire_bytes_match_jax_inline_pooled_dry(monkeypatch, samplers, jax_keys,
         assert _jax_arm(monkeypatch, jreset, jax_keys, mode) == jax_off
         got = _port_arm(monkeypatch, preset, jax_keys, mode, HOST)
         assert got == jax_off, f"{mode}: the port's wire bytes differ from the JAX package's"
-    assert (port_crt.crt_stats()["rows"] > 0) == (crt == "1")
+    assert port_crt.crt_stats()["rows"] > 0
 
 
 def test_pooled_on_the_device_route_matches_jax(monkeypatch, samplers, jax_keys):
     """The pooled arm with the producer's columns on the cuda backend's
     plain versions, and the pooled secrets kept out of the public cache
-    that the device route fills."""
+    that the device route fills. The key bundles' public parts (the
+    moduli, the statements and the proofs, all broadcast) may key a
+    device context there; nothing else of the pools may appear."""
     from fsdkr_tpu_torch.utils import lru
 
     jreset, preset = samplers
@@ -284,10 +290,13 @@ def test_pooled_on_the_device_route_matches_jax(monkeypatch, samplers, jax_keys)
     lru.clear_caches()
     preset()
     _clear_both()
-    monkeypatch.setenv("FSDKRC_PRECOMPUTE", "1")
     keys = from_reference(jax_keys)
     assert precompute.prefill(keys[0], N, len(keys), DEVICE_CPU) == 3 * N * N + N
-    pooled = set(precompute.secret_values())
+    public = set()
+    for ent in precompute.get_store()._pools[("keys", DEVICE_CPU.key_material_pool_key)]:
+        ek, _dk, ck, st, rp_proof = ent._values
+        public |= {ek.n, ek.nn, st.N, st.T, st.S, *ck.sigma_vec, *rp_proof.A, *rp_proof.Z}
+    pooled = set(precompute.secret_values()) - public
     assert pooled
     assert lru.global_cache().stats()["entries"] > 0  # the device route cached
     for key, value in list(lru.global_cache()._d.items()):
@@ -360,51 +369,66 @@ def test_pool_depth_budget_and_wipe(monkeypatch):
     precompute.clear_pools()
 
 
-def test_owner_lifecycle_suspend_replace_invalidate():
-    _clear_both()
-    owner = ("committee-ntilde", 11, 13)
-    precompute.register_targets([("enc", 11, 2), ("enc", 13, 2)], HOST, owner=owner)
-    precompute.register_targets([("keys", HOST.key_material_pool_key, 1)], HOST,
-                                owner=precompute.KEYS_POOL_OWNER)
-    for k in (11, 13):
-        assert precompute.put("enc", k, (1, 1))
-    assert precompute.deficit_total() == 2 + 1
-    # suspend: targets gone, pools kept
-    assert precompute.suspend_targets(owner) == 2
-    assert precompute.get_store().depth("enc", 11) == 1
-    # replace: 11 stays, 13 is wiped with its target, 17 is new
-    precompute.register_targets([("enc", 11, 2), ("enc", 13, 2)], HOST, owner=owner)
-    precompute.replace_targets([("enc", 11, 2), ("enc", 17, 2)], HOST, owner)
-    assert sorted(k for _, k in precompute.target_keys(owner)) == [11, 17]
-    assert precompute.get_store().depth("enc", 13) == 0
-    assert precompute.get_store().depth("enc", 11) == 1
-    # invalidate: every target of the owner and its pools; keys untouched
-    assert precompute.invalidate_owner(owner) == 2
-    assert precompute.get_store().depth("enc", 11) == 0
-    assert precompute.target_keys(precompute.KEYS_POOL_OWNER)
-    with precompute.owner_scope(("serving", 1)):
-        assert precompute.current_registration_owner() == ("serving", 1)
-        precompute.register_targets([("enc", 19, 1)], HOST)
-    assert precompute.target_keys(("serving", 1)) == [("enc", 19)]
-    assert precompute.current_registration_owner() is None
-    _clear_both()
-
-
-def test_replace_invalidates_the_committee_pools(jax_keys, monkeypatch):
-    """RefreshMessage.replace re-keys the committee: the owner's pooled
-    secrets are wiped before its distribute."""
-    monkeypatch.setenv("FSDKRC_PRECOMPUTE", "1")
-    monkeypatch.setenv("FSDKRC_PRECOMPUTE_BG", "0")
+def test_owner_lifecycle_prefill_claim_invalidate(jax_keys):
     _clear_both()
     keys = from_reference(jax_keys)
     owner = precompute.committee_owner(keys[0].h1_h2_n_tilde_vec)
-    env = (1, 2, 3, 4)
-    precompute.register_targets([("pdl", env, 1)], HOST, owner=owner)
+    assert precompute.claim(owner) is None  # never prefilled
+    # prefill records the committee's per-receiver pools (at no depth here)
+    assert precompute.prefill(keys[0], N, 0, HOST) == 0
+    recorded = precompute.claim(owner)
+    assert sorted(kind for kind, _ in recorded) == sorted(["enc", "pdl", "alice"] * N)
+    assert precompute.claim(owner) is None  # a claim takes it off the record
+    # release wipes what the claimed pools have left, not the key material
+    kp = HOST.key_material_pool_key
+    for kind, key in recorded:
+        assert precompute.put(kind, key, (1, 1))
+    assert precompute.put("keys", kp, (1,))
+    precompute.release(recorded)
+    store = precompute.get_store()
+    assert all(store.depth(kind, key) == 0 for kind, key in recorded)
+    assert store.depth("keys", kp) == 1
+    # invalidate: forgets the committee and wipes its pools
+    precompute.prefill(keys[0], N, 0, HOST)
+    for kind, key in recorded:
+        assert precompute.put(kind, key, (2, 2))
+    assert precompute.invalidate_owner(owner) == 3 * N
+    assert all(store.depth(kind, key) == 0 for kind, key in recorded)
+    assert precompute.invalidate_owner(owner) == 0 and precompute.claim(owner) is None
+    _clear_both()
+
+
+def test_replace_invalidates_the_committee_pools(jax_keys):
+    """RefreshMessage.replace re-keys the committee: the pooled secrets
+    of the layout it changes are wiped before its distribute."""
+    _clear_both()
+    keys = from_reference(jax_keys)
+    owner = precompute.committee_owner(keys[0].h1_h2_n_tilde_vec)
+    precompute.prefill(keys[0], N, 0, HOST)
+    d, ek = keys[0].h1_h2_n_tilde_vec[1], keys[0].paillier_key_vec[1]
+    env = (d.g, d.ni, d.N, ek.n)
     assert precompute.put("pdl", env, (5,))
     key = copy.deepcopy(keys[0])
     RefreshMessage.replace([], key, {1: 1, 2: 2, 3: 3}, N, HOST)
     assert precompute.get_store().depth("pdl", env) == 0
-    assert ("pdl", env) not in precompute.target_keys()
+    assert precompute.claim(owner) is None
+    _clear_both()
+
+
+def test_default_distribute_takes_no_pool_branch(jax_keys):
+    """A committee never prefilled distributes inline: entries pooled
+    under its keys by any other means stay untouched."""
+    _clear_both()
+    keys = from_reference(jax_keys)
+    ek = keys[0].paillier_key_vec[0]
+    assert precompute.produce_for("enc", ek.n, 2, HOST) == 2
+    precompute.stats_reset()
+    res = RefreshMessage.distribute_batch([(k.i, k) for k in keys], N, HOST)
+    st = precompute.precompute_stats()
+    assert st["consumed"] == 0 and st["dry_fallbacks"] == 0
+    assert precompute.get_store().depth("enc", ek.n) == 2
+    msgs = [m for m, _ in res]
+    RefreshMessage.collect(msgs, keys[0], res[0][1], (), HOST)
     _clear_both()
 
 
@@ -413,7 +437,6 @@ def test_replace_invalidates_the_committee_pools(jax_keys, monkeypatch):
 
 
 def test_tamper_verdict_in_every_mode_is_the_jax_packages(monkeypatch, jax_keys):
-    monkeypatch.setenv("FSDKRC_PRECOMPUTE_BG", "0")
     monkeypatch.setenv("FSDKR_PRECOMPUTE_BG", "0")
     monkeypatch.setenv("FSDKR_PRECOMPUTE", "0")
     _clear_both()
@@ -426,10 +449,9 @@ def test_tamper_verdict_in_every_mode_is_the_jax_packages(monkeypatch, jax_keys)
     want = type(ei.value).__name__
     for mode in ("off", "dry", "pooled"):
         _clear_both()
-        monkeypatch.setenv("FSDKRC_PRECOMPUTE", "0" if mode == "off" else "1")
         keys = from_reference(jax_keys)
-        if mode == "pooled":
-            precompute.prefill(keys[0], N, N, HOST)
+        if mode != "off":  # dry: the committee recorded, nothing produced
+            precompute.prefill(keys[0], N, N if mode == "pooled" else 0, HOST)
         out = RefreshMessage.distribute_batch([(k.i, k) for k in keys], N, HOST)
         pmsgs = [m for m, _ in out]
         pmsgs[1].points_encrypted_vec[0] += 1
@@ -440,49 +462,41 @@ def test_tamper_verdict_in_every_mode_is_the_jax_packages(monkeypatch, jax_keys)
     _clear_both()
 
 
-def test_concurrent_producer_and_consumer(monkeypatch, jax_keys):
-    from fsdkr_tpu_torch.precompute import producer
-
-    monkeypatch.setenv("FSDKRC_PRECOMPUTE", "1")
-    monkeypatch.setenv("FSDKRC_PRECOMPUTE_BG", "1")
+def test_concurrent_producer_and_consumer(jax_keys):
+    """A producer thread prefills the committee while two epochs run
+    beside it (a distribute may claim pools the thread is still filling:
+    what it finds it takes once, the rest it computes inline); then a
+    prefill for the new keys and a round that takes it. Every round
+    verifies and the thread raises nothing."""
     _clear_both()
     keys = from_reference(jax_keys)
-    try:
-        for _epoch in range(2):
-            res = RefreshMessage.distribute_batch([(k.i, k) for k in keys], N, HOST)
-            # distribute registered next-epoch targets and kicked the
-            # producer: it fills pools while these collects verify
-            msgs = [m for m, _ in res]
-            for k, (_m, dk) in zip(keys, res):
-                RefreshMessage.collect(msgs, k, dk, (), HOST)
-        deadline = time.time() + 60
-        while precompute.precompute_stats()["produced"] == 0 and time.time() < deadline:
-            time.sleep(0.05)
-        assert precompute.precompute_stats()["produced"] > 0
-        assert precompute.producer_running()
-        assert producer._PRODUCER.errors == 0, producer._PRODUCER.last_error
-        # a third epoch takes entries produced beside the protocol
-        deadline = time.time() + 60
-        while precompute.deficit_total() and time.time() < deadline:
-            time.sleep(0.05)
+    errors = []
+
+    def produce():
+        try:
+            for _ in range(2):
+                precompute.prefill(keys[0], N, N, HOST)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    def epoch():
         res = RefreshMessage.distribute_batch([(k.i, k) for k in keys], N, HOST)
         msgs = [m for m, _ in res]
         for k, (_m, dk) in zip(keys, res):
             RefreshMessage.collect(msgs, k, dk, (), HOST)
-        assert precompute.precompute_stats()["consumed"] > 0
-        assert producer._PRODUCER.errors == 0, producer._PRODUCER.last_error
+
+    try:
+        producer = threading.Thread(target=produce)
+        producer.start()
+        for _epoch in range(2):
+            epoch()
+        producer.join(timeout=120)
+        assert not producer.is_alive() and not errors, errors
+        precompute.clear_pools()  # what the thread left for rotated keys
+        precompute.stats_reset()
+        assert precompute.prefill(keys[0], N, N, HOST) == 3 * N * N + N
+        epoch()
+        st = precompute.precompute_stats()
+        assert st["consumed"] == 3 * N * N + N and st["dry_fallbacks"] == 0
     finally:
-        precompute.stop_background()
-        assert not precompute.producer_running()
         _clear_both()
-
-
-def test_background_is_off_by_default(monkeypatch):
-    monkeypatch.delenv("FSDKRC_PRECOMPUTE_BG", raising=False)
-    monkeypatch.delenv("FSDKRC_PRECOMPUTE", raising=False)
-    assert precompute.enabled() and not precompute.background_enabled()
-    monkeypatch.setenv("FSDKRC_PRECOMPUTE_BG", "1")
-    assert precompute.background_enabled()
-    monkeypatch.setenv("FSDKRC_PRECOMPUTE", "0")
-    assert not precompute.background_enabled()
-    assert precompute.prefill(None, 0, 0, HOST) == 0  # off: a no-op
