@@ -198,6 +198,27 @@ Phases:
            tampered pooled PDL proof blamed on its sender.
            `scripts/distribute_spans.py --tree DIR` times a distribute the
            same way for another tree (a parent commit).
+  serve    the serving layer's in-process core at full width: two
+           committees (main's keys and the prover phase's, or fresh
+           ones), a journaled RefreshService(workers=2, deadline_s=300)
+           on the card, both admitted with the default SLO; `start()`
+           and the producer's fill of the planner's targets (timed; its
+           launches counted apart, none in the gated counters); (d) one
+           session alone, its launches by stage gated exactly
+           (SERVE_DISTRIBUTE: a pooled distribute, worked out on the
+           CPU by `scripts/serve_launch_drive.py`; n^2 STREAM_OFFER;
+           SERVE_FINALIZE: one pair launch set and n pk_vec MSMs) and
+           its device busy (torch.profiler); (a) three more sessions,
+           two epochs a committee in all, drained: every session done,
+           each committee two epochs on, its group key unchanged and
+           t+1 new shares reconstructing it, the pools taken from,
+           `fsdkr_producer_errors` 0; (b) an epoch under
+           `faults.configure("seed=7,msg_tamper=1.0,msg_tamper_max=1")`
+           aborted with blame on the tampered sender; (c) a fresh
+           service on the same journal and keystore: `recover()` replays
+           every session as a terminal with its verdict. Prints each
+           session's latency (submit to done), sessions/s, the fill
+           time and the session's device busy.
   time     each kernel against its plain version at every shape its path
            (the routed path for the CIOS kernels, the RNS path for the
            RNS kernels, the joint and RLC paths for the Straus and
@@ -239,7 +260,7 @@ import sys
 import time
 
 PHASES = ("env", "kernels", "routes", "main", "joint", "rlc", "join", "sessions", "stream",
-          "prover", "time")
+          "prover", "serve", "time")
 
 # H100 SXM published peaks (dense): device memory rate and int8 tensor-core
 # rate. A 16x16-bit multiply-add counts as four 8-bit multiply-adds of two
@@ -2441,7 +2462,7 @@ def phase_prover(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     the pooled messages collected by every party: the group key
     unchanged, a tampered pooled PDL proof blamed on its sender. Returns
     (the launches of (a), the launch shapes of (a)-(c), the phase's
-    times)."""
+    times, the committee's keys before (a))."""
     from fsdkr_tpu_torch import ProtocolConfig, native, precompute
     from fsdkr_tpu_torch.backend import crt
     from fsdkr_tpu_torch.core import vss
@@ -2455,7 +2476,7 @@ def phase_prover(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
         backend="cuda", device=dev.type,
     )
     precompute.clear_pools()
-    precompute.clear_committees()
+    precompute.clear_targets()
     times = {}
     native.stats_reset()
     t0 = time.perf_counter()
@@ -2536,8 +2557,264 @@ def phase_prover(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     log(f"prover: {n} collects of the pooled messages {times['pooled_collects']:.3f} s; the "
         f"group key is unchanged; a tampered pooled PDL proof raised {err!r}")
     precompute.clear_pools()
-    precompute.clear_committees()
-    return counts, _shapes_now(), times
+    precompute.clear_targets()
+    return counts, _shapes_now(), times, pre
+
+
+# The serve phase's session: a pooled distribute (SERVE_DISTRIBUTE, from
+# scripts/serve_launch_drive.py at 2048 bits), n^2 offers (each message
+# into each receiver's stream: STREAM_OFFER apiece) and one finalize of
+# the n streams, whose pair rows dedup to one round's: one pair launch
+# set (STREAM_FINALIZE's, the PDL u1 MSM among it) and one pk_vec MSM a
+# stream, as STREAM_FUSED is for 4.
+# SERVE_DISTRIBUTE: every stage-1 power pooled, the distribute launches the
+# shared witness column h1^x (16 groups of 16 rows: below the comb's 256,
+# so generic rows) and stage 2's response columns, two `cios_modexp`
+# launches, and its three generator fan-outs on the card.
+SERVE_DISTRIBUTE = {"cios_modexp": 2, "cios_multi_modexp": 0, "cios_shared_exp": 0,
+                    "cios_comb": 0, "cios_comb_ladder": 0, "cios_mont_mul": 0, "cios_modmul": 0,
+                    "ec_scalar_mul": 3, "ec_tree_sum": 0}
+
+
+def serve_tables(n):
+    """(distribute, offers, finalize) launch tables of one serve session."""
+    offers = {k: n * n * v for k, v in STREAM_OFFER.items()}
+    finalize = dict(STREAM_FINALIZE)
+    finalize["ec_scalar_mul"] += n - 1
+    finalize["ec_tree_sum"] += n - 1
+    return SERVE_DISTRIBUTE, offers, finalize
+
+
+SERVE_TAMPER = "seed=7,msg_tamper=1.0,msg_tamper_max=1"
+
+
+@contextlib.contextmanager
+def stage_launches(stages, results):
+    """Inside the block, the launches of each call of the service's three
+    stages (`RefreshMessage.distribute_batch`, `StreamingCollect.offer`,
+    `finalize_streams`) add into stages[name], and finalize's returned
+    verdicts into `results`. Exact while one session runs: the producer's
+    launches count apart."""
+    from fsdkr_tpu_torch.protocol import RefreshMessage, StreamingCollect
+    from fsdkr_tpu_torch.serving import service
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            before = _launches()
+            out = fn(*args, **kwargs)
+            got = _sub(_launches(), before)
+            stages[name] = {k: stages.get(name, {}).get(k, 0) + v for k, v in got.items()}
+            if name == "finalize":
+                results.extend(out)
+            return out
+        return call
+
+    dist, offer, fin = RefreshMessage.distribute_batch, StreamingCollect.offer, \
+        service.finalize_streams
+    RefreshMessage.distribute_batch = staticmethod(counted("distribute", dist))
+    StreamingCollect.offer = counted("offers", offer)
+    service.finalize_streams = counted("finalize", fin)
+    try:
+        yield
+    finally:
+        RefreshMessage.distribute_batch = staticmethod(dist)
+        StreamingCollect.offer = offer
+        service.finalize_streams = fin
+
+
+def _apart_shapes():
+    from fsdkr_tpu_torch.ops import ec_kernels, montgomery_kernels, tally
+
+    fns = {"cios_mont_mul": montgomery_kernels.mont_mul, "cios_modmul": montgomery_kernels.modmul,
+           "cios_modexp": montgomery_kernels.modexp_segments, "cios_comb": montgomery_kernels.comb,
+           "cios_comb_ladder": montgomery_kernels.comb_ladder,
+           "cios_multi_modexp": montgomery_kernels.multi_modexp,
+           "cios_shared_exp": montgomery_kernels.shared_exp_segments,
+           "ec_scalar_mul": ec_kernels.scalar_mul, "ec_tree_sum": ec_kernels.tree_sum}
+    return {name: tally.shapes(fn, "producer") for name, fn in fns.items()}
+
+
+def _apart_launches():
+    from fsdkr_tpu_torch.ops import ec_kernels, montgomery_kernels, rns_kernels
+
+    return {**montgomery_kernels.launch_counts("producer"), **ec_kernels.launch_counts("producer"),
+            **rns_kernels.launch_counts("producer")}
+
+
+def _reconstructs(keys, t):
+    from fsdkr_tpu_torch.core import vss
+    from fsdkr_tpu_torch.core.secp256k1 import GENERATOR
+
+    idx = list(range(t + 1))
+    secret = vss.VerifiableSS(vss.ShamirSecretSharing(t, len(keys))).reconstruct(
+        idx, [keys[i].keys_linear.x_i for i in idx])
+    return GENERATOR * secret == keys[0].y_sum_s and all(k.pk_vec == keys[0].pk_vec
+                                                        for k in keys)
+
+
+def phase_serve(dev, committees=(), n=16, t=8, bits=2048, m_security=256, rounds=11):
+    """The serving layer's in-process core on the card (the module
+    docstring's `serve`). `committees`: up to two lists of n LocalKeys
+    made earlier in the run; the phase makes the rest. Returns (the
+    session's launches, the phase's launch shapes, the producer's
+    shapes apart, the phase's times)."""
+    import shutil
+    import tempfile
+
+    from fsdkr_tpu_torch import ProtocolConfig, precompute
+    from fsdkr_tpu_torch.errors import PDLwSlackProofError
+    from fsdkr_tpu_torch.ops import ec_kernels, montgomery_kernels, rns_kernels
+    from fsdkr_tpu_torch.protocol import simulate_keygen
+    from fsdkr_tpu_torch.serving import SLO, RefreshService, faults, recover
+    from fsdkr_tpu_torch.telemetry import registry
+
+    config = ProtocolConfig(paillier_bits=bits, m_security=m_security, correct_key_rounds=rounds,
+                            backend="cuda", device=dev.type)
+    times = {}
+    committees = [copy.deepcopy(c) for c in committees][:2]
+    t0 = time.perf_counter()
+    while len(committees) < 2:
+        committees.append(simulate_keygen(t, n, config))
+    times["keygen"] = time.perf_counter() - t0
+    cids = ("A", "B")
+    group_keys = {cid: keys[0].y_sum_s for cid, keys in zip(cids, committees)}
+    precompute.clear_pools()
+    precompute.clear_targets()
+    precompute.stats_reset()
+    for mod in (rns_kernels, montgomery_kernels, ec_kernels):
+        mod.reset_launch_counts()
+    jdir = tempfile.mkdtemp(prefix="fsdkr_serve_journal_")
+    errors_gauge = registry.get_registry().get("fsdkr_producer_errors")
+    try:
+        svc = RefreshService(workers=2, journal=jdir, deadline_s=300, device=dev.type)
+        for cid, keys in zip(cids, committees):
+            svc.admit(cid, keys, config, SLO())
+        t0 = time.perf_counter()
+        svc.start()
+        while precompute.deficit_total():
+            if time.perf_counter() - t0 > 120:
+                fail(f"serve: the producer left {precompute.deficit_total()} entries after 120 s")
+            time.sleep(0.01)
+        times["fill"] = time.perf_counter() - t0
+        fill_apart = _apart_launches()
+        if any(_launches().values()) or not any(fill_apart.values()):
+            fail(f"serve: the fill's launches {_launches()} entered the counters, or the "
+                 f"producer launched nothing apart ({fill_apart})")
+        st = precompute.precompute_stats()
+        log(f"serve: start() and the producer's fill of both committees' targets "
+            f"{times['fill']:.3f} s: {st['entries']} entries in {st['pools']} pools; its "
+            f"launches, counted apart: {json.dumps({k: v for k, v in fill_apart.items() if v})}")
+
+        # (d) one session alone: its launches by stage, its device busy
+        stages, verdicts, sessions = {}, [], {}
+        before, before_apart = _launches(), _apart_launches()
+        def alone():
+            sessions[("A", 1)] = svc.wait(svc.submit("A", epoch=1), 300)
+
+        with stage_launches(stages, verdicts):
+            t0 = time.perf_counter()
+            if dev.type == "cuda":
+                wall_ms, busy_ms, by_name = device_busy(alone)
+            else:  # a CPU drive of the phase: no device to profile
+                alone()
+                wall_ms, busy_ms, by_name = (time.perf_counter() - t0) * 1e3, 0.0, {}
+            times["session_alone"] = time.perf_counter() - t0
+        session = _sub(_launches(), before)
+        beside = {k: v for k, v in _sub(_apart_launches(), before_apart).items() if v}
+        if verdicts != [None] * n:
+            fail(f"serve: the session alone did not verify: {verdicts}")
+        want = serve_tables(n)
+        for label, got, table in zip(("distribute", "offers", "finalize"),
+                                     (stages.get(k, {}) for k in ("distribute", "offers",
+                                                                  "finalize")), want):
+            _gate_launches(f"the session's {label}", got, table, "serve")
+        total = {k: sum(tab[k] for tab in want) for k in want[0]}
+        _gate_launches("one session", session, total, "serve")
+        times["session_busy_ms"] = busy_ms
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        log(f"serve: one session alone {times['session_alone']:.3f} s, {wall_ms:.1f} ms under "
+            f"the profiler, device busy {busy_ms:.1f} ms (the producer's refill of the key "
+            f"bundles it took ran beside it, its launches apart {json.dumps(beside)}); "
+            f"launches by stage {json.dumps(stages)}; top device time "
+            f"{json.dumps({k[:40]: round(v, 3) for k, v in top})}")
+
+        # (a) three more sessions: two epochs a committee in all
+        t0 = time.perf_counter()
+        sids = {(cid, epoch): svc.submit(cid, epoch=epoch)
+                for cid, epoch in (("A", 2), ("B", 1), ("B", 2))}
+        if not svc.drain(timeout=300):
+            fail("serve: the sessions did not drain in 300 s")
+        times["three_sessions"] = time.perf_counter() - t0
+        sessions.update({key: svc.wait(sid, 1) for key, sid in sids.items()})
+        latency = {f"{cid}{epoch}": s.finalized_at - s.submitted_at
+                   for (cid, epoch), s in sessions.items()}
+        times["latency"] = latency
+        times["sessions_per_s"] = 3 / times["three_sessions"]
+        times["sessions_per_s_all"] = 4 / (times["three_sessions"] + times["session_alone"])
+        bad = {k: (s.state, s.error) for k, s in sessions.items() if s.state != "done"}
+        if bad:
+            fail(f"serve: sessions not done: {bad}")
+        for cid, keys in zip(cids, committees):
+            if svc._committees[cid].epochs != 2:
+                fail(f"serve: committee {cid} advanced {svc._committees[cid].epochs} epochs")
+            if keys[0].y_sum_s != group_keys[cid] or not _reconstructs(keys, t):
+                fail(f"serve: committee {cid}'s new shares do not reconstruct its group key")
+        st = precompute.precompute_stats(by_kind=True)
+        stats = svc.stats()  # raises a producer step's exception
+        if not st["consumed"] or errors_gauge.snapshot_values()[0]["value"]:
+            fail(f"serve: no pool taken ({st}), or the producer raised")
+        log(f"serve: A2, B1, B2 drained in {times['three_sessions']:.3f} s "
+            f"({times['sessions_per_s']:.4f} sessions/s; {times['sessions_per_s_all']:.4f} "
+            f"over all four); latency submit to done {json.dumps(latency)}; every session done, "
+            f"both committees two epochs on, group keys unchanged, t+1 new shares reconstruct "
+            f"them; pools {json.dumps({k: v for k, v in st.items() if k != 'kinds'})}; "
+            f"service {json.dumps(stats)}")
+
+        # (b) a tampered broadcast: aborted, blamed on its sender
+        stages, verdicts = {}, []
+        with stage_launches(stages, verdicts):
+            plan = faults.configure(SERVE_TAMPER)
+            t0 = time.perf_counter()
+            try:
+                bad = svc.wait(svc.submit("A", epoch=3), 300)
+            finally:
+                faults.reset()
+            times["tampered"] = time.perf_counter() - t0
+        tampered = [int(f.split(":")[1]) for f in bad.faults if f.startswith("msg_tamper:")]
+        errs = [e for e in verdicts if e is not None]
+        if (bad.state, bad.blame) != ("aborted", True) or len(tampered) != 1 or not errs or any(
+                not isinstance(e, PDLwSlackProofError) or e.party_index != tampered[0]
+                for e in errs):
+            fail(f"serve: the tampered epoch ended {bad.state} (blame {bad.blame}, faults "
+                 f"{bad.faults}): {errs[:2]}")
+        log(f"serve: an epoch under {plan.spec()!r}: {times['tampered']:.3f} s, aborted, "
+            f"{len(errs)} of {n} receivers blamed sender {tampered[0]} ({bad.error})")
+        sessions[("A", 3)] = bad
+        svc.stop()
+
+        # (c) a fresh service recovers every session from the journal
+        svc2 = RefreshService(workers=2, journal=jdir, keystore=svc.keystore, device=dev.type)
+        t0 = time.perf_counter()
+        rep = recover(svc2, jdir)
+        times["recover"] = time.perf_counter() - t0
+        svc2.stop()
+        want_states = {s.session_id: s.state for s in sessions.values()}
+        got_states = {sid: (e["disposition"], e.get("state"))
+                      for sid, e in rep["sessions"].items()}
+        if got_states != {sid: ("replayed_terminal", st) for sid, st in want_states.items()}:
+            fail(f"serve: recover() gave {got_states}, expected every session's terminal "
+                 f"{want_states}")
+        log(f"serve: recover() on a fresh service {times['recover']:.3f} s: "
+            f"{rep['replayed_terminal']} sessions replayed as terminals with their verdicts")
+    finally:
+        faults.reset()
+        precompute.clear_pools()
+        precompute.clear_targets()
+        shutil.rmtree(jdir, ignore_errors=True)
+    shapes = _shapes_now()
+    apart = _apart_shapes()
+    log(f"serve: {smi_line()}")
+    return session, shapes, apart, times
 
 
 def rns_path(pre, config, n, party=2):
@@ -3594,9 +3871,9 @@ def main() -> None:
                                 if shape not in seen[name]}
                          for name, by_shape in xshapes.items()}
         done("stream")
-    prover_counts, prover_shapes = None, {}
+    prover_counts, prover_shapes, prover_pre = None, {}, None
     if "prover" in phases:
-        prover_counts, pshapes, ptimes = phase_prover(dev)
+        prover_counts, pshapes, ptimes, prover_pre = phase_prover(dev)
         log("prover: phase seconds " + json.dumps(ptimes))
         # the phase's own launch shapes, checked and timed beside the others
         if shapes is not None:
@@ -3608,6 +3885,31 @@ def main() -> None:
                                     if shape not in seen[name]}
                              for name, by_shape in pshapes.items()}
         done("prover")
+    serve_counts, serve_shapes = None, {}
+    if "serve" in phases:
+        t_phase = time.perf_counter()
+        serve_counts, vshapes, vapart, vtimes = phase_serve(
+            dev, [c for c in (pre, prover_pre) if c is not None])
+        log("serve: phase seconds " + json.dumps(vtimes))
+        # the committees' keygen, where no earlier phase made them, is
+        # set-up, not serving: it stays out of the phase's 150 s
+        served_s = time.perf_counter() - t_phase - vtimes["keygen"]
+        # the phase's own launch shapes and the producer's, checked and
+        # timed beside the others
+        seen = {name: {**shapes.get(name, {}), **join_shapes.get(name, {}),
+                       **sessions_shapes.get(name, {}), **stream_shapes.get(name, {}),
+                       **prover_shapes.get(name, {})} for name in vshapes} \
+            if shapes is not None else {name: {} for name in vshapes}
+        seen.setdefault("cios_modexp", {}).update(rlc_modexp)
+        serve_shapes = {name: {shape: c for shape, c in {**by_shape, **vapart[name]}.items()
+                               if shape not in seen[name]}
+                        for name, by_shape in vshapes.items()}
+        if served_s > 150:
+            fail(f"serve: the phase took {served_s:.1f} s past its committees' keygen, "
+                 f"over 150 s")
+        log(f"serve: the phase took {served_s:.1f} s past its committees' keygen "
+            f"({vtimes['keygen']:.1f} s)")
+        done("serve")
     if "time" in phases:
         if counts is None or any(name not in shapes for name in JOINT):
             fail("the time phase needs the main and joint phases' launch counts")
@@ -3616,9 +3918,10 @@ def main() -> None:
         kernels = phase_time(dev, rng, counts, shapes,
                              (("rlc", {"cios_modexp": rlc_modexp}), ("join", join_shapes),
                               ("sessions", sessions_shapes), ("stream", stream_shapes),
-                              ("prover", prover_shapes)),
+                              ("prover", prover_shapes), ("serve", serve_shapes)),
                              (("join", join_counts), ("sessions", sessions_counts),
-                              ("stream", stream_counts), ("prover", prover_counts)))
+                              ("stream", stream_counts), ("prover", prover_counts),
+                              ("serve", serve_counts)))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi_line())

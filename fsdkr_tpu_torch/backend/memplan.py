@@ -32,6 +32,7 @@ the serving fault plan's budget squeeze (it comes with serving).
 from __future__ import annotations
 
 import os
+import sys
 import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -69,7 +70,14 @@ def mem_budget_bytes(device=None) -> int:
     (MiB, a float) where it is set; else, on a CUDA device, half of the
     device memory free at the call (`torch.cuda.mem_get_info`); else
     256 MiB, the JAX package's default. A budget below one row's estimate
-    gives 1-row tiles: the plan never refuses to run."""
+    gives 1-row tiles: the plan never refuses to run. Under a serving
+    fault plan the `mem_squeeze` site may shrink one decision's budget
+    by the plan's squeeze factor (verdicts do not depend on the budget,
+    only the tiles do)."""
+    return _fault_squeeze(_budget(device))
+
+
+def _budget(device) -> int:
     raw = os.environ.get("FSDKRC_MEM_BUDGET_MB")
     if raw is not None:
         try:
@@ -84,6 +92,19 @@ def mem_budget_bytes(device=None) -> int:
             free, _total = torch.cuda.mem_get_info(device)
             return max(1, free // 2)
     return _DEFAULT_BUDGET
+
+
+# the serving fault plan, looked up and never imported: zero cost unless
+# a chaos run configured one
+_FAULTS_MODULE = __name__.rsplit(".", 2)[0] + ".serving.faults"
+
+
+def _fault_squeeze(budget: int) -> int:
+    m = sys.modules.get(_FAULTS_MODULE)
+    if m is None:
+        return budget
+    plan = m.active()
+    return budget if plan is None else plan.squeeze_budget(budget)
 
 
 def pair_row_bytes(nn_bits: int, nt_bits: int) -> int:

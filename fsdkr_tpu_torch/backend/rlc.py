@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import os
 import secrets
+import threading
 from typing import Callable, Dict, List, Sequence
 
 __all__ = [
@@ -92,19 +93,24 @@ _EVENTS = (
     "ladder_cache_misses", "xsession_rows_deduped",
 )
 _COUNTS: Dict[str, int] = dict.fromkeys(_EVENTS, 0)
+# the serving layer's worker and launcher threads verify side by side
+_COUNTS_LOCK = threading.Lock()
 
 
 def count(name: str, n: int = 1) -> None:
-    _COUNTS[name] += n
+    with _COUNTS_LOCK:
+        _COUNTS[name] += n
 
 
 def stats() -> Dict[str, int]:
-    return dict(_COUNTS)
+    with _COUNTS_LOCK:
+        return dict(_COUNTS)
 
 
 def stats_reset() -> None:
-    for name in _EVENTS:
-        _COUNTS[name] = 0
+    with _COUNTS_LOCK:
+        for name in _EVENTS:
+            _COUNTS[name] = 0
 
 
 def bisect_rows(

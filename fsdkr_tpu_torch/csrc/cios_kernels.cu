@@ -692,6 +692,17 @@ cios_modexp_kernel(const __grid_constant__ ModexpTable tab) {
 constexpr int kMaxTerms = 16;                 // backend.powm._DEVICE_MAX_TERMS
 constexpr size_t kMaxSmemBytes = 227 * 1024;  // a block's opt-in shared memory
 
+// A kernel's dynamic shared memory ceiling is an attribute of the
+// function, shared by every host thread that launches it. Set to each
+// launch's own size, another thread could lower it between this thread's
+// set and its launch (cudaErrorInvalidValue at the launch): every launch
+// sets the same ceiling, the opt-in maximum.
+template <typename F>
+cudaError_t allow_opt_in_smem(F kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)kMaxSmemBytes);
+}
+
 // the window tables of one warp's row: T tables of 16 entries, 32P words each
 __host__ __device__ __forceinline__ size_t multi_warp_smem_bytes(int terms, int P) {
   return (size_t)terms * 16 * P * 32 * sizeof(uint32_t);
@@ -1716,8 +1727,7 @@ template <int PMAX>
 int launch_modexp(const ModexpTable& tab, int blocks, cudaStream_t stream) {
   const size_t smem = modexp_smem(PMAX);
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        cios_modexp_kernel<PMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err = allow_opt_in_smem(cios_modexp_kernel<PMAX>);
     if (err != cudaSuccess) return (int)err;
   }
   cios_modexp_kernel<PMAX><<<blocks, kWarps * 32, smem, stream>>>(tab);
@@ -1731,8 +1741,7 @@ int launch_multi_modexp_warp(MultiArgs a, cudaStream_t stream) {
   a.warps = (int)(kMaxSmemBytes / per_warp < (size_t)kWarps ? kMaxSmemBytes / per_warp : kWarps);
   const size_t smem = per_warp * a.warps;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        cios_multi_modexp_kernel_warp<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err = allow_opt_in_smem(cios_multi_modexp_kernel_warp<P>);
     if (err != cudaSuccess) return (int)err;
   }
   cios_multi_modexp_kernel_warp<P><<<(a.rows + a.warps - 1) / a.warps, a.warps * 32, smem,
@@ -1745,8 +1754,7 @@ int launch_multi_modexp(const MultiArgs& a, cudaStream_t stream) {
   const size_t smem = joint_smem_words(a.K / 2, NT, a.terms) * sizeof(uint32_t);
   if (smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        cios_multi_modexp_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err = allow_opt_in_smem(cios_multi_modexp_kernel<NT>);
     if (err != cudaSuccess) return (int)err;
   }
   cios_multi_modexp_kernel<NT><<<a.rows, NT, smem, stream>>>(a);
@@ -1757,8 +1765,7 @@ template <int PMAX>
 int launch_shared_exp_warp(const SharedExpTable& tab, int blocks, cudaStream_t stream) {
   const size_t smem = modexp_smem(PMAX);
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        cios_shared_exp_kernel_warp<PMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err = allow_opt_in_smem(cios_shared_exp_kernel_warp<PMAX>);
     if (err != cudaSuccess) return (int)err;
   }
   cios_shared_exp_kernel_warp<PMAX><<<blocks, kWarps * 32, smem, stream>>>(tab);
@@ -1769,8 +1776,7 @@ template <int NT>
 int launch_shared_exp(const SharedExpTable& tab, int blocks, int kmax, cudaStream_t stream) {
   const size_t smem = joint_smem_words(kmax / 2, NT, 1) * sizeof(uint32_t);
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        cios_shared_exp_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err = allow_opt_in_smem(cios_shared_exp_kernel<NT>);
     if (err != cudaSuccess) return (int)err;
   }
   cios_shared_exp_kernel<NT><<<blocks, NT, smem, stream>>>(tab);
@@ -1786,8 +1792,7 @@ int launch_comb(const void* table, const void* exp, int exp_limbs, int windows,
   if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)comb_smem_words(K, L, P) * sizeof(uint32_t);
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        cios_comb_kernel<L, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err = allow_opt_in_smem(cios_comb_kernel<L, P>);
     if (err != cudaSuccess) return (int)err;
   }
   cios_comb_kernel<L, P><<<(int)blocks, kRowsWarps * 32, smem, stream>>>(
@@ -1822,8 +1827,7 @@ int launch_comb_ladder(const void* base, const void* n, const void* n_inv, const
                        int groups, int K, int windows, void* powers, cudaStream_t stream) {
   const size_t smem = (size_t)ladder_smem_words(K / 2, NT) * sizeof(uint32_t);
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        cios_comb_ladder_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err = allow_opt_in_smem(cios_comb_ladder_kernel<NT>);
     if (err != cudaSuccess) return (int)err;
   }
   cios_comb_ladder_kernel<NT><<<groups, NT, smem, stream>>>(

@@ -78,6 +78,17 @@ namespace {
 
 constexpr int kN = 8;                // the MMA's n: plane rows (>= R_T)
 constexpr size_t kSmemLimit = 232448;
+
+// A kernel's dynamic shared memory ceiling is an attribute of the
+// function, shared by every host thread that launches it. Set to each
+// launch's own size, another thread could lower it between this thread's
+// set and its launch (cudaErrorInvalidValue at the launch): every launch
+// sets the same ceiling, the opt-in maximum.
+template <typename F>
+cudaError_t allow_opt_in_smem(F kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)kSmemLimit);
+}
 constexpr int kModexpWarps = 16;
 constexpr int kModexpArrays = 17;    // the window table and the accumulator
 constexpr int kMontMulArrays = 2;    // x (then the result) and y
@@ -458,8 +469,7 @@ int launch_mont_mul(const void* x, const void* y, const void* c1, const void* nb
   const size_t smem = Layout(K.k, kN, kMontMulArrays).bytes();
   if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        rns_mont_mul_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err = allow_opt_in_smem(rns_mont_mul_kernel<W>);
     if (err != cudaSuccess) return (int)err;
   }
   rns_mont_mul_kernel<W><<<(rows + kN - 1) / kN, W * 32, smem, stream>>>(
@@ -547,8 +557,7 @@ int launch_modexp(const void* base_res, const void* exp, int exp_limbs,
                   cudaStream_t stream) {
   const size_t smem = Layout(K.k, RT, kModexpArrays).bytes();
   if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(
-      rns_modexp_kernel<RT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err = allow_opt_in_smem(rns_modexp_kernel<RT>);
   if (err != cudaSuccess) return (int)err;
   rns_modexp_kernel<RT><<<(rows + RT - 1) / RT, kModexpWarps * 32, smem, stream>>>(
       (const int32_t*)base_res, (const int32_t*)exp, exp_limbs, exp_bits,

@@ -54,7 +54,10 @@ class SizeMismatchError(FsDkrError):
 class PDLwSlackProofError(FsDkrError):
     """PDL-with-slack verification failure, with per-equation booleans
     (reference: src/error.rs:28-32). party_index is an identifiable-abort
-    extension: the sender whose proof failed (None where unknown)."""
+    extension: the sender whose proof failed (None where unknown). It is
+    not part of the message, which is the JAX package's text: the serving
+    journal records the message of a session's verdict, and the two
+    packages' journals are equal byte for byte."""
 
     def __init__(
         self,
@@ -67,10 +70,9 @@ class PDLwSlackProofError(FsDkrError):
         self.is_u2_eq = is_u2_eq
         self.is_u3_eq = is_u3_eq
         self.party_index = party_index
-        who = "" if party_index is None else f" (party {party_index})"
         super().__init__(
             f"PDLwSlack proof verification failed: u1=={is_u1_eq}, "
-            f"u2=={is_u2_eq}, u3=={is_u3_eq}{who}"
+            f"u2=={is_u2_eq}, u3=={is_u3_eq}"
         )
 
 

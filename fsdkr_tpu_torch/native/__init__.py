@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import secrets
+import threading
 from typing import Dict, List, Sequence
 
 from ._loader import NativeBuildError, NativeLib, _PKG
@@ -56,20 +57,25 @@ LIB = NativeLib(
 # calls that ran in the native core, by kind (chip_smoke gates on them)
 _STATS: Dict[str, int] = {}
 _STAT_KEYS = ("mr_batches", "mr_rows", "crt_batches", "crt_rows", "comb_calls", "comb_rows")
+# the serving layer's workers and producer call the core side by side
+_STATS_LOCK = threading.Lock()
 _threads_set = False
 
 
 def _count(**kw) -> None:
-    for k, v in kw.items():
-        _STATS[k] = _STATS.get(k, 0) + v
+    with _STATS_LOCK:
+        for k, v in kw.items():
+            _STATS[k] = _STATS.get(k, 0) + v
 
 
 def stats() -> Dict[str, int]:
-    return {k: _STATS.get(k, 0) for k in _STAT_KEYS}
+    with _STATS_LOCK:
+        return {k: _STATS.get(k, 0) for k in _STAT_KEYS}
 
 
 def stats_reset() -> None:
-    _STATS.clear()
+    with _STATS_LOCK:
+        _STATS.clear()
 
 
 def _get() -> ctypes.CDLL:

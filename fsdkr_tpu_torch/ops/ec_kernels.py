@@ -40,6 +40,7 @@ from typing import Optional
 
 import torch
 
+from . import tally
 from .nvcc_build import CSRC, build_library
 
 __all__ = [
@@ -99,8 +100,7 @@ def _stream(device):
 
 
 def _count(fn, shape):
-    fn.launches += 1
-    fn.shapes[shape] = fn.shapes.get(shape, 0) + 1
+    tally.count(fn, shape)
 
 
 def scalar_mul(points, scalars, scalar_bits: int) -> torch.Tensor:
@@ -168,11 +168,12 @@ tree_sum.launches = 0
 tree_sum.shapes = {}  # (groups, rows per group) -> launches
 
 
-def launch_counts() -> dict:
-    return {"ec_scalar_mul": scalar_mul.launches, "ec_tree_sum": tree_sum.launches}
+def launch_counts(apart=None) -> dict:
+    """Launches by kernel; with `apart`, those counted under that label
+    (`tally.apart`)."""
+    return {"ec_scalar_mul": tally.read(scalar_mul, apart),
+            "ec_tree_sum": tally.read(tree_sum, apart)}
 
 
 def reset_launch_counts() -> None:
-    for fn in (scalar_mul, tree_sum):
-        fn.launches = 0
-        fn.shapes = {}
+    tally.reset((scalar_mul, tree_sum))

@@ -59,6 +59,7 @@ from typing import List, Optional
 
 import torch
 
+from . import tally
 from .nvcc_build import CSRC, build_library
 
 __all__ = [
@@ -197,8 +198,7 @@ def _stream(device):
 
 
 def _count(fn, shape):
-    fn.launches += 1
-    fn.shapes[shape] = fn.shapes.get(shape, 0) + 1
+    tally.count(fn, shape)
 
 
 def rows_rule(k: int):
@@ -609,16 +609,16 @@ shared_exp_segments.launches = 0
 shared_exp_segments.shapes = {}
 
 
-def launch_counts() -> dict:
-    return {"cios_mont_mul": mont_mul.launches, "cios_modmul": modmul.launches,
-            "cios_modexp": modexp_segments.launches, "cios_comb": comb.launches,
-            "cios_comb_ladder": comb_ladder.launches,
-            "cios_multi_modexp": multi_modexp.launches,
-            "cios_shared_exp": shared_exp_segments.launches}
+def launch_counts(apart=None) -> dict:
+    """Launches by kernel; with `apart`, those counted under that label
+    (`tally.apart`)."""
+    return {name: tally.read(fn, apart) for name, fn in (
+        ("cios_mont_mul", mont_mul), ("cios_modmul", modmul),
+        ("cios_modexp", modexp_segments), ("cios_comb", comb),
+        ("cios_comb_ladder", comb_ladder), ("cios_multi_modexp", multi_modexp),
+        ("cios_shared_exp", shared_exp_segments))}
 
 
 def reset_launch_counts() -> None:
-    for fn in (mont_mul, modmul, modexp_segments, comb, comb_ladder, multi_modexp,
-               shared_exp_segments):
-        fn.launches = 0
-        fn.shapes = {}
+    tally.reset((mont_mul, modmul, modexp_segments, comb, comb_ladder, multi_modexp,
+                 shared_exp_segments))

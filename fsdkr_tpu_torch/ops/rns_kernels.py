@@ -51,6 +51,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from . import tally
 from .nvcc_build import CSRC, build_library
 
 __all__ = [
@@ -376,8 +377,7 @@ def mont_mul(x, y, c1, nbmr, K: RNSConsts) -> torch.Tensor:
     )
     if err:
         raise RuntimeError(f"fsdkr_rns_mont_mul launch failed: CUDA error {err}")
-    mont_mul.launches += 1
-    mont_mul.shapes[(k, rows)] = mont_mul.shapes.get((k, rows), 0) + 1
+    tally.count(mont_mul, (k, rows))
     return out
 
 
@@ -408,8 +408,7 @@ def modexp(base_res, exp, a2n_res, c1, nbmr, K: RNSConsts,
     )
     if err:
         raise RuntimeError(f"fsdkr_rns_modexp launch failed: CUDA error {err}")
-    modexp.launches += 1
-    modexp.shapes[(k, rows, exp_bits)] = modexp.shapes.get((k, rows, exp_bits), 0) + 1
+    tally.count(modexp, (k, rows, exp_bits))
     return out
 
 
@@ -421,12 +420,12 @@ modexp.launches = 0
 modexp.shapes = {}  # (k, rows, exp_bits) -> launches
 
 
-def launch_counts() -> dict:
-    return {"rns_mont_mul": mont_mul.launches, "rns_modexp": modexp.launches}
+def launch_counts(apart=None) -> dict:
+    """Launches by kernel; with `apart`, those counted under that label
+    (`tally.apart`)."""
+    return {"rns_mont_mul": tally.read(mont_mul, apart),
+            "rns_modexp": tally.read(modexp, apart)}
 
 
 def reset_launch_counts() -> None:
-    mont_mul.launches = 0
-    mont_mul.shapes = {}
-    modexp.launches = 0
-    modexp.shapes = {}
+    tally.reset((mont_mul, modexp))

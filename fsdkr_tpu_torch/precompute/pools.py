@@ -11,8 +11,9 @@ boundary, with per-row inline fallback when a pool runs dry. The
 consumed values are the ones the inline path would have sampled and
 computed, so transcripts do not depend on the pools
 (tests/test_torch_precompute.py). An own copy of
-fsdkr_tpu/precompute/pools.py without its telemetry gauges and the
-serving layer's injected dry storms.
+fsdkr_tpu/precompute/pools.py: the event counts stay this module's own
+(`precompute_stats`); the dry fallbacks by cause and the occupancy
+gauges are in the telemetry registry.
 
 ## Pool kinds
 
@@ -45,10 +46,18 @@ bases, config parameters); only entry VALUES are secret.
 
 A pool holds at most POOL_DEPTH entries under a POOL_BUDGET_BYTES total cap
 (the JAX package's defaults).
+
+## Injected dry storms
+
+Under a serving fault plan (`serving.faults.configure`) the `pool_dry`
+site forces a take dry on a full pool: the entry stays pooled, only that
+take computes inline, and the dry fallback is counted with
+cause=injected (`fsdkr_pool_dry`), apart from the real ones.
 """
 
 from __future__ import annotations
 
+import sys
 import threading
 from collections import OrderedDict, deque
 from typing import Dict, List, Optional, Tuple
@@ -70,6 +79,30 @@ __all__ = [
 POOL_DEPTH = 64  # entries per (kind, key): four n=16 epochs ahead
 POOL_BUDGET_BYTES = 64 << 20
 _EVENTS = ("produced", "consumed", "dry_fallbacks", "wiped")
+# the serving fault plan, looked up and never imported: a process that
+# never configured chaos pays one dict lookup a take
+_FAULTS_MODULE = __name__.rsplit(".", 2)[0] + ".serving.faults"
+
+
+def _dry_events():
+    """Dry fallbacks by kind and cause (real | injected): an injected
+    pool-dry storm must be distinguishable from a producer that cannot
+    keep up."""
+    from ..telemetry import registry
+
+    return registry.counter(
+        "fsdkr_pool_dry",
+        "pool dry fallbacks by kind and cause (real | injected)",
+        labelnames=("kind", "cause"),
+    )
+
+
+def _injected_dry() -> bool:
+    m = sys.modules.get(_FAULTS_MODULE)
+    if m is None:
+        return False
+    plan = m.active()
+    return plan is not None and plan.fire_seq("pool_dry")
 
 
 def _nbytes(v) -> int:
@@ -131,11 +164,18 @@ class PrecomputeStore:
     def take(self, kind: str, key) -> Optional[tuple]:
         """Pop and consume the oldest entry of pool (kind, key); None
         (counted as a dry fallback) when the pool is dry — the caller
-        then computes inline, with the same values."""
+        then computes inline, with the same values. An injected pool-dry
+        fault starves this take alone: the entry stays pooled."""
+        if _injected_dry():
+            with self._lock:
+                self._event("dry_fallbacks", kind)
+            _dry_events().inc(kind=kind, cause="injected")
+            return None
         with self._lock:
             pool = self._pools.get((kind, key))
             if not pool:
                 self._event("dry_fallbacks", kind)
+                _dry_events().inc(kind=kind, cause="real")
                 return None
             ent = pool.popleft()
             if not pool:
@@ -164,6 +204,18 @@ class PrecomputeStore:
             self._bytes += ent.nbytes
             self._event("produced", kind)
             return True
+
+    def depths_by_kind(self) -> Dict[str, int]:
+        """Entries currently pooled, summed per kind."""
+        out: Dict[str, int] = {}
+        with self._lock:
+            for (kind, _key), pool in self._pools.items():
+                out[kind] = out.get(kind, 0) + len(pool)
+        return out
+
+    def pool_count(self) -> int:
+        with self._lock:
+            return len(self._pools)
 
     def depth(self, kind: str, key) -> int:
         with self._lock:
@@ -259,6 +311,25 @@ class PrecomputeStore:
 
 
 _STORE = PrecomputeStore()
+
+
+def _register_gauges() -> None:
+    from ..telemetry import registry
+
+    registry.gauge(
+        "fsdkr_pool_depth",
+        "entries currently pooled, per kind (pool-occupancy gauge)",
+        labelnames=("kind",),
+    ).set_labeled_function(
+        lambda: {(k,): v for k, v in _STORE.depths_by_kind().items()}
+    )
+    registry.gauge(
+        "fsdkr_pool_count",
+        "distinct (kind, key) pools currently held",
+    ).set_function(_STORE.pool_count)
+
+
+_register_gauges()
 
 
 def get_store() -> PrecomputeStore:

@@ -91,31 +91,29 @@ class AliceProof:
         return alpha, beta, gamma, rho
 
     @staticmethod
-    def produce_stage1(h1, h2, nt, n, count, powm=None, q: int = CURVE_ORDER):
-        """Offline producer constructor: `count` stage-1 bundles for ONE
-        receiver environment — (alpha, beta, rho, gamma, beta^n mod n^2,
-        h2^rho mod N~, h1^alpha*h2^gamma mod N~), the 7-tuple shape of
-        PDLwSlackProof.produce_stage1 (the two differ only in their beta
-        distribution, kept by the samplers)."""
+    def produce_stage1(h1v, h2v, ntv, nv, powm=None, q: int = CURVE_ORDER):
+        """Offline producer constructor: one stage-1 bundle per receiver
+        environment (h1v[i], h2v[i], ntv[i], nv[i]) — (alpha, beta, rho,
+        gamma, beta^n mod n^2, h2^rho mod N~, h1^alpha*h2^gamma mod N~),
+        the 7-tuple shape of PDLwSlackProof.produce_stage1 (the two
+        differ only in their beta distribution, kept by the samplers)."""
         if powm is None:
             from ..backend.powm import host_powm as powm
         from ..backend.powm import powm_columns
 
-        nn = n * n
-        alpha, beta, gamma, rho = AliceProof.sample_stage1(
-            [nt] * count, [n] * count, q
-        )
+        nnv = [n * n for n in nv]
+        alpha, beta, gamma, rho = AliceProof.sample_stage1(ntv, nv, q)
         h2rho, ca, cg, bn = powm_columns(
             powm,
-            ([h2] * count, rho, [nt] * count),
-            ([h1] * count, alpha, [nt] * count),
-            ([h2] * count, gamma, [nt] * count),
-            (beta, [n] * count, [nn] * count),
+            (h2v, rho, ntv),
+            (h1v, alpha, ntv),
+            (h2v, gamma, ntv),
+            (beta, nv, nnv),
         )
-        w = intops.mod_mul_col(ca, cg, [nt] * count)
+        w = intops.mod_mul_col(ca, cg, ntv)
         return [
             (alpha[i], beta[i], rho[i], gamma[i], bn[i], h2rho[i], w[i])
-            for i in range(count)
+            for i in range(len(nv))
         ]
 
     @staticmethod

@@ -124,34 +124,34 @@ class PDLwSlackProof:
         return alpha, beta, rho, gamma
 
     @staticmethod
-    def produce_stage1(h1, h2, nt, n, count, powm=None):
-        """Offline producer constructor (precompute): sample `count` rows
-        of stage-1 nonces for ONE receiver environment and evaluate every
-        input-independent power through `powm` (host pow when omitted).
-        Returns pool bundles (alpha, beta, rho, gamma, beta^n mod n^2,
-        h2^rho mod N~, h1^alpha*h2^gamma mod N~) — the values
-        prove_stage1 samples and computes inline (same sampler, same
-        arithmetic). The witness-dependent factor h1^x and everything
-        after the Fiat-Shamir challenge stay online."""
+    def produce_stage1(h1v, h2v, ntv, nv, powm=None):
+        """Offline producer constructor (precompute): sample one row of
+        stage-1 nonces per receiver environment (h1v[i], h2v[i], ntv[i],
+        nv[i]) and evaluate every input-independent power through `powm`
+        (host pow when omitted). The JAX package takes one environment
+        and a count; the port's producer batches many environments into
+        one set of columns. Returns pool bundles (alpha, beta, rho,
+        gamma, beta^n mod n^2, h2^rho mod N~, h1^alpha*h2^gamma mod N~)
+        — the values prove_stage1 samples and computes inline (same
+        sampler, same arithmetic). The witness-dependent factor h1^x and
+        everything after the Fiat-Shamir challenge stay online."""
         if powm is None:
             from ..backend.powm import host_powm as powm
         from ..backend.powm import powm_columns
 
-        nn = n * n
-        alpha, beta, rho, gamma = PDLwSlackProof.sample_stage1(
-            [nt] * count, [n] * count
-        )
+        nnv = [n * n for n in nv]
+        alpha, beta, rho, gamma = PDLwSlackProof.sample_stage1(ntv, nv)
         h2rho, ca, cg, bn = powm_columns(
             powm,
-            ([h2] * count, rho, [nt] * count),
-            ([h1] * count, alpha, [nt] * count),
-            ([h2] * count, gamma, [nt] * count),
-            (beta, [n] * count, [nn] * count),
+            (h2v, rho, ntv),
+            (h1v, alpha, ntv),
+            (h2v, gamma, ntv),
+            (beta, nv, nnv),
         )
-        u3 = intops.mod_mul_col(ca, cg, [nt] * count)
+        u3 = intops.mod_mul_col(ca, cg, ntv)
         return [
             (alpha[i], beta[i], rho[i], gamma[i], bn[i], h2rho[i], u3[i])
-            for i in range(count)
+            for i in range(len(nv))
         ]
 
     @staticmethod

@@ -103,7 +103,8 @@ class RefreshMessage:
         per-receiver columns of every sender concatenate into ONE launch
         per proof family and width. Mutates each local_key.vss_scheme.
 
-        A committee that `precompute.prefill` filled takes the pooled
+        A committee with pool targets (`precompute.prefill`, or the
+        serving planner's under `precompute.owner_scope`) takes the pooled
         branch: every phase boundary consumes or computes, pooled rows
         taking their offline-produced values (the values inline sampling
         and computing would give), dry rows that phase's inline columns.
@@ -124,9 +125,12 @@ class RefreshMessage:
             if new_n <= t:
                 raise NewPartyUnassignedIndexError()
 
-        pooled_keys = precompute.claim(
-            precompute.committee_owner(senders[0][1].h1_h2_n_tilde_vec[:new_n])
-        )
+        # the committee's owner: the serving layer's explicit scope, or
+        # the stable mod-N~ fingerprint `prefill` registers under
+        owner = precompute.current_registration_owner()
+        if owner is None:
+            owner = precompute.committee_owner(senders[0][1].h1_h2_n_tilde_vec[:new_n])
+        pooled_keys = precompute.claim(owner)
         pre_on = pooled_keys is not None
 
         per = []  # per-sender working state, in input order

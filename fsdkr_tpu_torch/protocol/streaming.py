@@ -284,9 +284,8 @@ def finalize_streams(
 
 def _finalize_impl(streams, errors, config):
     backend = get_backend(config)
-    # (the JAX package wakes its background pool producer here; the port's
-    # pools fill through precompute.prefill only, so there is nothing to
-    # wake)
+    # (the JAX package wakes its background pool producer here; in the
+    # port the serving layer, which starts the producer, kicks it)
     S = len(streams)
     msgs_l: List[Optional[list]] = [None] * S
     replayed = set()

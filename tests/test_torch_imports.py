@@ -67,11 +67,13 @@ def test_source_names_no_reference_module(path):
 
 def test_scan_sees_the_whole_package():
     mods = {m.name for m in pkgutil.walk_packages([str(PORT)])}
-    assert {"ops", "backend", "protocol", "carry", "native", "precompute"} <= mods
+    assert {"ops", "backend", "protocol", "carry", "native", "precompute", "serving",
+            "telemetry"} <= mods
     sources = _sources()
     assert (PORT / "csrc" / "rns_kernels.cu") in sources
     assert (PORT / "csrc" / "fsdkr_native.cpp") in sources
     for part in ("native/__init__.py", "native/_loader.py", "backend/crt.py",
                  "precompute/__init__.py", "precompute/pools.py",
-                 "precompute/producer.py"):
+                 "precompute/producer.py", "serving/service.py", "serving/recovery.py",
+                 "serving/journal.py", "telemetry/registry.py", "telemetry/flight.py"):
         assert PORT / part in sources

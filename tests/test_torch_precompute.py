@@ -2,109 +2,50 @@
 against the JAX package's, n=3, TEST_CONFIG widths.
 
 - PARITY: with the same deterministic samplers installed in both
-  packages, and the same canned key material (made once by the JAX
-  package and carried over with fsdkr_tpu_torch.carry), the port's
-  `distribute_batch` gives the JAX package's wire bytes
-  (protocol/serialization.py), inline (no prefill), pooled (prefilled)
-  and dry (the committee prefilled at no depth), against the JAX package with
-  its FSDKR_CRT on and off, and the same decryption keys. The host
-  backend runs every arm; the pooled arm runs once more on the cuda
-  backend's plain versions (device="cpu"), its producer on the device
-  route.
-- SINGLE USE, DEPTH/BUDGET/WIPE, the prefilled committees' lifecycle
-  (prefill, claim, release, invalidate), and a committee never prefilled
-  taking no pool branch.
+  packages (tests/_torch_samplers.py), and the same canned key material
+  (made once by the JAX package and carried over with
+  fsdkr_tpu_torch.carry), the port's `distribute_batch` gives the JAX
+  package's wire bytes (protocol/serialization.py), inline (no
+  prefill), pooled (prefilled) and dry (the committee prefilled at no
+  depth), against the JAX package with its FSDKR_CRT on and off, and the
+  same decryption keys. The host backend runs every arm; the pooled arm
+  runs once more on the cuda backend's plain versions (device="cpu"),
+  its producer on the device route.
+- SINGLE USE, DEPTH/BUDGET/WIPE, the target registry's lifecycle
+  (prefill, claim, release, invalidate, the TTL, retargeting under an
+  owner scope), and a committee with no targets taking no pool branch.
 - DRY FALLBACK: a tampered round raises the same error in every mode,
   the JAX package's class.
 - CONCURRENCY: a producer thread fills pools while the protocol runs and
-  consumes them; the rounds verify.
+  consumes them; the rounds verify. The background producer fills the
+  registered targets, wakes on `kick`, stops, and re-raises what a step
+  raised.
 - ISOLATION: pooled secrets never reach the public precompute cache.
 """
 
 import copy
 import dataclasses
-import hashlib
-import math
 import threading
-from types import SimpleNamespace
 
 import pytest
 
-import fsdkr_tpu.core.intops as j_intops
-import fsdkr_tpu.core.paillier as j_paillier
-import fsdkr_tpu.core.secp256k1 as j_secp
-import fsdkr_tpu.core.vss as j_vss
+from _torch_samplers import JAX, PORT, canned_material, install_samplers
 from fsdkr_tpu import precompute as j_precompute
 from fsdkr_tpu.config import TEST_CONFIG as JAX_CONFIG
-from fsdkr_tpu.proofs.alice_range import AliceProof as JAlice
-from fsdkr_tpu.proofs.pdl_slack import PDLwSlackProof as JPDL
-from fsdkr_tpu.proofs.ring_pedersen import RingPedersenProof as JRPProof
-from fsdkr_tpu.proofs.ring_pedersen import RingPedersenStatement as JRPStatement
 from fsdkr_tpu.protocol import RefreshMessage as JRefresh
 from fsdkr_tpu.protocol import simulate_keygen as jax_keygen
 from fsdkr_tpu.protocol.serialization import refresh_message_to_json as jax_to_json
 
-import fsdkr_tpu_torch.core.intops as p_intops
-import fsdkr_tpu_torch.core.paillier as p_paillier
-import fsdkr_tpu_torch.core.secp256k1 as p_secp
-import fsdkr_tpu_torch.core.vss as p_vss
 from fsdkr_tpu_torch import TEST_CONFIG, precompute
 from fsdkr_tpu_torch.backend import crt as port_crt
 from fsdkr_tpu_torch.carry import from_reference
 from fsdkr_tpu_torch.errors import FsDkrError, PrecomputeReuseError
-from fsdkr_tpu_torch.proofs.alice_range import AliceProof
-from fsdkr_tpu_torch.proofs.pdl_slack import PDLwSlackProof
-from fsdkr_tpu_torch.proofs.ring_pedersen import (
-    RingPedersenProof,
-    RingPedersenStatement,
-    RingPedersenWitness,
-)
 from fsdkr_tpu_torch.protocol import RefreshMessage
 from fsdkr_tpu_torch.protocol.serialization import refresh_message_to_json
 
 T, N = 1, 3
 HOST = dataclasses.replace(TEST_CONFIG, backend="host")
 DEVICE_CPU = TEST_CONFIG  # backend "cuda" on device "cpu": the plain versions
-Q = p_secp.N
-Q3 = Q**3
-
-JAX = SimpleNamespace(
-    vss=j_vss, intops=j_intops, paillier=j_paillier, Scalar=j_secp.Scalar,
-    PDL=JPDL, Alice=JAlice, RPProof=JRPProof, RPStatement=JRPStatement,
-)
-PORT = SimpleNamespace(
-    vss=p_vss, intops=p_intops, paillier=p_paillier, Scalar=p_secp.Scalar,
-    PDL=PDLwSlackProof, Alice=AliceProof, RPProof=RingPedersenProof,
-    RPStatement=RingPedersenStatement,
-)
-
-
-# ---------------------------------------------------------------------------
-# deterministic sampling harness (tests/test_precompute.py's, for both
-# packages)
-
-
-def _det_below(tag, key, idx, bound):
-    """A pure function of (tag, key, idx) in [0, bound): any consumption
-    ORDER of per-key streams gives the same values, which a global seed
-    cannot (pooled and inline runs interleave their draws)."""
-    nbytes = (bound.bit_length() + 7) // 8 + 16
-    seed = repr((tag, key, idx)).encode()
-    out = b""
-    c = 0
-    while len(out) < nbytes:
-        out += hashlib.sha256(seed + c.to_bytes(4, "big")).digest()
-        c += 1
-    return int.from_bytes(out[:nbytes], "big") % bound
-
-
-def _det_unit(tag, key, idx, modulus):
-    j = 0
-    while True:
-        r = _det_below(tag, (key, j), idx, modulus)
-        if r and math.gcd(r, modulus) == 1:
-            return r
-        j += 1
 
 
 @pytest.fixture(scope="module")
@@ -114,107 +55,13 @@ def jax_keys():
 
 @pytest.fixture(scope="module")
 def canned():
-    """Key material made once by the JAX package: (ek, dk) pairs and
-    ring-Pedersen (statement, witness) pairs, and the port's carried
-    copies."""
-    kb = j_paillier.keygen_batch(JAX_CONFIG.paillier_bits, N)
-    rp = JRPStatement.generate_batch(N, JAX_CONFIG)
-    port_kb = [(from_reference(ek), from_reference(dk)) for ek, dk in kb]
-    port_rp = [
-        (from_reference(st), RingPedersenWitness(p=w.p, q=w.q, lam=w.lam, phi=w.phi))
-        for st, w in rp
-    ]
-    return {"jax": (kb, rp), "port": (port_kb, port_rp)}
-
-
-def _install(monkeypatch, pkg, canned_pair, bits):
-    """Patch every sampling surface of `pkg`'s distribute to the
-    deterministic streams; returns a reset() for the next arm."""
-    counters = {}
-    kb, rp = canned_pair
-    cursors = {"k": 0, "r": 0}
-
-    def nxt(key):
-        v = counters.get(key, 0)
-        counters[key] = v + 1
-        return v
-
-    def det_sample_poly(t, n, secret):
-        k = nxt(("poly", t, n, secret.v))
-        coeffs = [secret] + [
-            pkg.Scalar(_det_below("poly", (t, n, secret.v, k), j, Q)) for j in range(t)
-        ]
-        shares = []
-        for i in range(1, n + 1):
-            acc = 0
-            for c in reversed(coeffs):
-                acc = (acc * i + c.v) % Q
-            shares.append(pkg.Scalar(acc))
-        return coeffs, shares
-
-    def det_unit(modulus):
-        return _det_unit("unit", modulus, nxt(("unit", modulus)), modulus)
-
-    def det_pdl_sample(ntv, nv):
-        alpha, beta, rho, gamma = [], [], [], []
-        for nt, n_ in zip(ntv, nv):
-            i = nxt(("pdl", nt, n_))
-            alpha.append(_det_below("pdl.alpha", (nt, n_), i, Q3))
-            beta.append(1 + _det_below("pdl.beta", (nt, n_), i, n_ - 1))
-            rho.append(_det_below("pdl.rho", (nt, n_), i, Q * nt))
-            gamma.append(_det_below("pdl.gamma", (nt, n_), i, Q3 * nt))
-        return alpha, beta, rho, gamma
-
-    def det_alice_sample(ntv, nv, q_=Q):
-        alpha, beta, gamma, rho = [], [], [], []
-        for nt, n_ in zip(ntv, nv):
-            i = nxt(("alice", nt, n_))
-            alpha.append(_det_below("alice.alpha", (nt, n_), i, Q3))
-            beta.append(_det_unit("alice.beta", (nt, n_), i, n_))
-            gamma.append(_det_below("alice.gamma", (nt, n_), i, Q3 * nt))
-            rho.append(_det_below("alice.rho", (nt, n_), i, Q * nt))
-        return alpha, beta, gamma, rho
-
-    def det_rp_sample(witnesses, m_security=32):
-        out = []
-        for w in witnesses:
-            i = nxt(("rp", w.phi))
-            out.append([_det_below("rp.a", (w.phi, i), j, w.phi) for j in range(m_security)])
-        return out
-
-    def canned_keygen_batch(b, count):
-        assert b == bits
-        got = kb[cursors["k"] : cursors["k"] + count]
-        cursors["k"] += count
-        assert len(got) == count, "canned key material exhausted"
-        # fresh dk objects: collect zeroizes them
-        return [(ek, type(dk)(dk.p, dk.q)) for ek, dk in got]
-
-    def canned_generate_batch(count, config=None):
-        got = rp[cursors["r"] : cursors["r"] + count]
-        cursors["r"] += count
-        assert len(got) == count, "canned ring-Pedersen material exhausted"
-        return list(got)
-
-    monkeypatch.setattr(pkg.vss, "sample_poly", det_sample_poly)
-    monkeypatch.setattr(pkg.intops, "sample_unit", det_unit)
-    monkeypatch.setattr(pkg.PDL, "sample_stage1", staticmethod(det_pdl_sample))
-    monkeypatch.setattr(pkg.Alice, "sample_stage1", staticmethod(det_alice_sample))
-    monkeypatch.setattr(pkg.RPProof, "sample_commit", staticmethod(det_rp_sample))
-    monkeypatch.setattr(pkg.paillier, "keygen_batch", canned_keygen_batch)
-    monkeypatch.setattr(pkg.RPStatement, "generate_batch", staticmethod(canned_generate_batch))
-
-    def reset():
-        counters.clear()
-        cursors["k"] = cursors["r"] = 0
-
-    return reset
+    return canned_material(JAX_CONFIG, N)
 
 
 def _clear_both():
     for pc in (precompute, j_precompute):
         pc.clear_pools()
-    precompute.clear_committees()
+    precompute.clear_targets()
     j_precompute.clear_targets()
 
 
@@ -252,8 +99,8 @@ def _port_arm(monkeypatch, reset, jkeys, mode, config):
 @pytest.fixture
 def samplers(monkeypatch, canned):
     monkeypatch.setenv("FSDKR_PRECOMPUTE_BG", "0")
-    jreset = _install(monkeypatch, JAX, canned["jax"], JAX_CONFIG.paillier_bits)
-    preset = _install(monkeypatch, PORT, canned["port"], TEST_CONFIG.paillier_bits)
+    jreset = install_samplers(monkeypatch, JAX, canned["jax"], JAX_CONFIG.paillier_bits)
+    preset = install_samplers(monkeypatch, PORT, canned["port"], TEST_CONFIG.paillier_bits)
     yield jreset, preset
     _clear_both()
 
@@ -277,7 +124,21 @@ def test_wire_bytes_match_jax_inline_pooled_dry(monkeypatch, samplers, jax_keys,
     assert port_crt.crt_stats()["rows"] > 0
 
 
-def test_pooled_on_the_device_route_matches_jax(monkeypatch, samplers, jax_keys):
+@pytest.fixture
+def one_torch_thread():
+    """The plain versions' small tensor ops on one torch thread: several
+    threads a process gain nothing on them, and beside the suite's other
+    workers they oversubscribe the cores."""
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def test_pooled_on_the_device_route_matches_jax(monkeypatch, samplers, jax_keys,
+                                                one_torch_thread):
     """The pooled arm with the producer's columns on the cuda backend's
     plain versions, and the pooled secrets kept out of the public cache
     that the device route fills. The key bundles' public parts (the
@@ -500,3 +361,147 @@ def test_concurrent_producer_and_consumer(jax_keys):
         assert st["consumed"] == 3 * N * N + N and st["dry_fallbacks"] == 0
     finally:
         _clear_both()
+
+
+# ---------------------------------------------------------------------------
+# the target registry and the background producer
+
+
+def _wait(cond, timeout=120.0):
+    import time
+
+    end = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < end, "timed out"
+        time.sleep(0.01)
+
+
+def test_background_producer_fills_the_planners_targets(jax_keys):
+    """The serving planner's targets under `serve_owner`: `kick` starts
+    the producer, which fills them; a distribute under that owner's scope
+    claims and takes them all; `stop_background` stops the thread."""
+    from fsdkr_tpu_torch.serving import SLO, CapacityPlanner, serve_owner
+
+    _clear_both()
+    keys = from_reference(jax_keys)
+    planner = CapacityPlanner()
+    planner.register("c1", keys[0], N, HOST, SLO(arrival_rate_hz=0.01))
+    owner = serve_owner("c1")
+    assert sorted(k for k, _ in precompute.target_keys(owner)) == sorted(
+        ["enc", "pdl", "alice"] * N)
+    assert precompute.target_keys(precompute.KEYS_POOL_OWNER) == [
+        ("keys", HOST.key_material_pool_key)]
+    try:
+        precompute.kick()
+        _wait(lambda: precompute.deficit_total() == 0)
+        assert precompute.producer_running()
+        precompute.stats_reset()
+        with precompute.owner_scope(owner):
+            assert precompute.current_registration_owner() == owner
+            res = RefreshMessage.distribute_batch([(k.i, k) for k in keys], N, HOST)
+        st = precompute.precompute_stats()
+        assert st["consumed"] == 3 * N * N + N and st["dry_fallbacks"] == 0
+        assert precompute.target_keys(owner) == []  # claimed for the epoch
+        msgs = [m for m, _ in res]
+        RefreshMessage.collect(msgs, keys[0], res[0][1], (), HOST)
+        # the epoch handed over: retarget to the rotated keys, refill
+        planner.retarget("c1")
+        precompute.kick()
+        _wait(lambda: precompute.deficit_total() == 0)
+        store = precompute.get_store()
+        assert all(store.depth(kind, key) == N for kind, key in precompute.target_keys(owner))
+    finally:
+        precompute.stop_background()
+        _clear_both()
+    assert not precompute.producer_running()
+
+
+def test_retarget_ttl_and_invalidate_on_eviction(monkeypatch, jax_keys):
+    from fsdkr_tpu_torch.precompute import producer
+    from fsdkr_tpu_torch.serving import RefreshService, serve_owner
+
+    _clear_both()
+    keys = from_reference(jax_keys)
+    owner = ("serve", "x")
+    precompute.retarget_committee(keys[0], N, N, HOST, owner=owner)
+    old = precompute.target_keys(owner)
+    for kind, key in old:
+        assert precompute.put(kind, key, (1, 1))
+    # a retarget to another layout wipes what the old one registered and
+    # the new one does not want: the receivers' moduli move to other
+    # mod-N~ environments, so every pdl/alice key changes, no enc key
+    moved = copy.deepcopy(keys[0])
+    moved.paillier_key_vec = moved.paillier_key_vec[1:] + moved.paillier_key_vec[:1]
+    precompute.retarget_committee(moved, N, N, HOST, owner=owner)
+    store = precompute.get_store()
+    new = set(precompute.target_keys(owner))
+    for kind, key in old:
+        kept = kind == "enc"
+        assert ((kind, key) in new) == kept
+        assert store.depth(kind, key) == (1 if kept else 0)
+    # owner-less targets age out after 16 registrations; every target
+    # past the wall-clock TTL goes at the next registration
+    precompute.register_targets([("enc", 7, 1)], HOST)
+    assert precompute.put("enc", 7, (1, 1))
+    for i in range(16):
+        precompute.register_targets([("enc", 1000 + i, 1)], HOST)
+    assert ("enc", 7) not in precompute.target_keys() and store.depth("enc", 7) == 0
+    assert precompute.target_keys(owner)  # owned: exempt from the count
+    monkeypatch.setattr(producer, "TARGET_TTL_S", -1.0)
+    precompute.register_targets([], HOST)
+    assert precompute.target_keys() == []
+    monkeypatch.undo()
+    # register_committee: every target under one owner, the key material's
+    # too; invalidate_targets drops the named ones and wipes their pools
+    precompute.register_committee(keys[0], N, N, HOST, owner=owner)
+    mine = precompute.target_keys(owner)
+    assert len(mine) == 3 * N + 1 and ("keys", HOST.key_material_pool_key) in mine
+    assert precompute.put(*mine[0], (3, 3))
+    assert precompute.invalidate_targets(mine[:2] + [("enc", 99)]) == 2
+    assert store.depth(*mine[0]) == 0 and len(precompute.target_keys(owner)) == 3 * N - 1
+    precompute.clear_targets()
+    # eviction invalidates the committee's serving owner and wipes its pools
+    svc = RefreshService(device="cpu")
+    svc.admit("c2", keys, HOST)
+    mine = precompute.target_keys(serve_owner("c2"))
+    assert len(mine) == 3 * N
+    for kind, key in mine:
+        assert precompute.put(kind, key, (2, 2))
+    svc.evict("c2")
+    assert precompute.target_keys(serve_owner("c2")) == []
+    assert all(store.depth(kind, key) == 0 for kind, key in mine)
+    svc.stop()
+    _clear_both()
+
+
+def test_a_step_exception_is_reraised_from_stop(monkeypatch, jax_keys):
+    """A producer step that raises (on the card: a kernel that does not
+    build or launch) parks the thread, is counted, and is raised by
+    `stop_background` and by the service's `stats()`, not forgotten."""
+    from fsdkr_tpu_torch.precompute import producer
+    from fsdkr_tpu_torch.serving import RefreshService
+    from fsdkr_tpu_torch.telemetry import registry
+
+    _clear_both()
+    keys = from_reference(jax_keys)
+
+    def broken(kind, wants, config):
+        raise RuntimeError("kernel launch failed")
+
+    monkeypatch.setattr(producer, "produce_batch", broken)
+    errors = registry.get_registry().get("fsdkr_producer_errors")
+    e0 = errors.snapshot_values()[0]["value"]
+    svc = RefreshService(device="cpu")
+    svc.admit("c3", keys, HOST)
+    try:
+        svc.start()
+        _wait(lambda: precompute.producer_error() is not None)
+        assert errors.snapshot_values()[0]["value"] == e0 + 1
+        with pytest.raises(RuntimeError, match="kernel launch failed"):
+            svc.stats()
+    finally:
+        with pytest.raises(RuntimeError, match="kernel launch failed"):
+            svc.stop()
+        _clear_both()
+    assert precompute.producer_error() is None  # raised once, then cleared
+    precompute.stop_background()  # nothing more to raise
