@@ -3,8 +3,12 @@
 retries, the deadline reaper), SLO-driven capacity planning for the
 precompute pools, the batching, shedding and bisection policies, the
 write-ahead journal with crash recovery, the fault plan, and the
-`fsdkr_serving_*` telemetry. An own copy of fsdkr_tpu/serving/; its TCP
-ingress, per-peer rate limiter and shard supervisor are not ported yet.
+`fsdkr_serving_*` and `fsdkr_ingress_*` telemetry, and its network and
+fleet half: the asyncio TCP ingress (`ingress`: CRC-framed JSON,
+backpressure, slow-loris sweeps, graceful drain, the per-peer rate
+limiter, the network fault sites) and the shard supervisor
+(`supervisor`: shard processes on the card, heartbeat, failover by
+journal replay). An own copy of fsdkr_tpu/serving/.
 
 The package orchestrates through `protocol`, `precompute`, `telemetry`
 and `utils`; the cryptography stays behind the protocol surface.
@@ -12,7 +16,12 @@ and `utils`; the cryptography stays behind the protocol surface.
 
 from .journal import Journal, JournalCorruption  # noqa: F401
 from .planner import SLO, CapacityPlanner, serve_owner  # noqa: F401
-from .policy import BatchPolicy, BisectGuard, OverloadPolicy  # noqa: F401
+from .policy import (  # noqa: F401
+    BatchPolicy,
+    BisectGuard,
+    OverloadPolicy,
+    PeerRateLimiter,
+)
 from .recovery import (  # noqa: F401
     MemoryKeystore,
     RecoverySecretsUnavailable,
@@ -24,7 +33,9 @@ from .service import (  # noqa: F401
     ServeSession,
     SessionTimeout,
 )
-from . import faults, journal, metrics, recovery  # noqa: F401
+from .ingress import IngressClient, IngressServer  # noqa: F401
+from .supervisor import ShardSupervisor, shard_for  # noqa: F401
+from . import faults, ingress, journal, metrics, recovery, supervisor  # noqa: F401
 
 __all__ = [
     "SLO",
@@ -33,6 +44,7 @@ __all__ = [
     "BatchPolicy",
     "OverloadPolicy",
     "BisectGuard",
+    "PeerRateLimiter",
     "RefreshService",
     "ServeSession",
     "ServeRejected",
@@ -42,8 +54,14 @@ __all__ = [
     "MemoryKeystore",
     "RecoverySecretsUnavailable",
     "recover",
+    "IngressServer",
+    "IngressClient",
+    "ShardSupervisor",
+    "shard_for",
     "faults",
+    "ingress",
     "journal",
     "metrics",
     "recovery",
+    "supervisor",
 ]

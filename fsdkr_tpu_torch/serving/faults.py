@@ -46,9 +46,16 @@ for every site whose key is schedule-independent):
   mid-record (keyed by a call counter): the torn-tail replay path is
   exercised end to end.
 
-``shard_kill``, ``conn_drop``, ``frame_truncate``, ``net_delay`` and
-``net_dup`` parse, but no hook consults them yet: their sites are the
-shard supervisor and the TCP ingress, which the port does not have yet.
+- ``shard_kill``     — SIGKILL a live RefreshService shard mid-window
+  (`ShardSupervisor.chaos_kill`, keyed by the caller's tick; acted out
+  by `kill_shard`). The supervisor's failover re-homes its committees.
+- ``conn_drop``      — the ingress closes a connection as a request
+  frame arrives (keyed by connection + frame sequence).
+- ``frame_truncate`` — the ingress writes a third of a response frame,
+  then resets the connection (same key).
+- ``net_delay``      — a response is written ``delay_s`` late.
+- ``net_dup``        — a response is written twice (the client drops
+  the copy by its rid).
 
 ## Zero cost when disabled
 

@@ -1,6 +1,5 @@
-"""Serving telemetry: the `fsdkr_serving_*` metric family (an own copy
-of fsdkr_tpu/serving/metrics.py; its `fsdkr_ingress_*` family comes
-with the ingress).
+"""Serving telemetry: the `fsdkr_serving_*` and `fsdkr_ingress_*`
+metric families (an own copy of fsdkr_tpu/serving/metrics.py).
 
 All metrics live in the process-global telemetry registry
 (`telemetry.registry`), so they ride the same snapshot and Prometheus
@@ -24,6 +23,14 @@ __all__ = [
     "record_outcome",
     "rlc_bisect_count",
     "retries_counter",
+    "ingress_connections",
+    "ingress_open_gauge",
+    "ingress_frames",
+    "ingress_bytes",
+    "ingress_rejected",
+    "ingress_paused",
+    "ingress_peer_shed",
+    "ingress_snapshot",
 ]
 
 # end-to-end latencies span ~10 ms smoke sessions to minutes under
@@ -100,6 +107,99 @@ def record_outcome(outcome: str, total_seconds: float) -> None:
     # a rejected submission never became a session: no latency sample
     if outcome != "rejected":
         phase_histogram().observe(total_seconds, phase="total")
+
+
+# -- network ingress ---------------------------------------------------
+# the fsdkr_ingress_* family: every byte/frame/shed decision the TCP
+# ingress makes is countable from the registry, so a report or a
+# Prometheus scrape can see a hostile peer or a backpressure stall
+# without reading the server's logs. Labels are tiny cause/direction
+# enums — never peer addresses (unbounded cardinality, and a peer list
+# is operational data the metrics stream should not leak).
+
+
+def ingress_connections():
+    return registry.counter(
+        "fsdkr_ingress_connections",
+        "ingress TCP connections accepted, by how they ended "
+        "(closed/error/shed/drained/faulted)",
+        labelnames=("outcome",),
+    )
+
+
+def ingress_open_gauge():
+    return registry.gauge(
+        "fsdkr_ingress_open_connections",
+        "ingress TCP connections currently open",
+    )
+
+
+def ingress_frames():
+    return registry.counter(
+        "fsdkr_ingress_frames",
+        "wire frames processed, by direction (in/out)",
+        labelnames=("direction",),
+    )
+
+
+def ingress_bytes():
+    return registry.counter(
+        "fsdkr_ingress_bytes",
+        "wire bytes processed (frame headers included), by direction",
+        labelnames=("direction",),
+    )
+
+
+def ingress_rejected():
+    return registry.counter(
+        "fsdkr_ingress_frames_rejected",
+        "wire frames rejected, by cause (oversize/crc/malformed/"
+        "bad_op/slow_read/slow_write/peer_rate/draining)",
+        labelnames=("cause",),
+    )
+
+
+def ingress_paused():
+    return registry.counter(
+        "fsdkr_ingress_paused_reads",
+        "TCP read pauses forced by the inflight byte budgets "
+        "(connection-level or server-global backpressure)",
+        labelnames=("scope",),
+    )
+
+
+def ingress_peer_shed():
+    return registry.counter(
+        "fsdkr_ingress_peer_rate_shed",
+        "requests shed by the per-peer rate limiter",
+    )
+
+
+def ingress_snapshot() -> dict:
+    """The ingress counter family as one plain dict (reports, the shard
+    heartbeat). Reads through the registry so several servers in one
+    process aggregate naturally."""
+    out = {"connections": {}, "frames": {}, "bytes": {},
+           "frames_rejected": {}, "paused_reads": {}}
+    reg = registry.get_registry()
+    for name, key, label in (
+        ("fsdkr_ingress_connections", "connections", "outcome"),
+        ("fsdkr_ingress_frames", "frames", "direction"),
+        ("fsdkr_ingress_bytes", "bytes", "direction"),
+        ("fsdkr_ingress_frames_rejected", "frames_rejected", "cause"),
+        ("fsdkr_ingress_paused_reads", "paused_reads", "scope"),
+    ):
+        m = reg.get(name)
+        if m is None:
+            continue
+        for rec in m.snapshot_values():
+            out[key][rec["labels"].get(label, "?")] = int(rec["value"])
+    m = reg.get("fsdkr_ingress_peer_rate_shed")
+    out["peer_rate_shed"] = int(m.value()) if m is not None else 0
+    m = reg.get("fsdkr_ingress_open_connections")
+    vals = m.snapshot_values() if m is not None else []
+    out["open_connections"] = int(vals[0]["value"]) if vals else 0
+    return out
 
 
 def rlc_bisect_count() -> int:

@@ -1,8 +1,8 @@
 """Serving policies: finalize batching, admission overload shedding,
-and the bisection-storm guard (an own copy of
-fsdkr_tpu/serving/policy.py; its `PeerRateLimiter` comes with the
-ingress, its only caller). Every threshold is a constructor argument at
-the JAX package's default; the port reads no environment.
+the bisection-storm guard and the ingress's per-peer rate limiter (an
+own copy of fsdkr_tpu/serving/policy.py). Every threshold is a
+constructor argument at the JAX package's default; the port reads no
+environment.
 
 `BatchPolicy` — quorum-ready streaming sessions are fused into one
 `finalize_streams` launch; the policy decides WHEN to launch and HOW
@@ -26,6 +26,13 @@ attributable cost of tampered traffic; a committee whose sessions
 forced more than `budget` (FSDKR_SERVE_BISECT_BUDGET) bisection
 fallbacks inside `window_s` (FSDKR_SERVE_BISECT_WINDOW_S, 60 s) is shed
 at admission until the window rolls. Default off (budget 0).
+
+`PeerRateLimiter` — per-peer token bucket for the network ingress,
+charged like the BisectGuard: a peer sending faster than `rps`
+requests/second (FSDKR_INGRESS_PEER_RPS; burst = 2x) gets its request
+shed with a retry-after hint, and a peer that keeps hammering past the
+shed threshold pays with its own connection — the other peers'
+connections are untouched. Default off (rps 0).
 """
 
 from __future__ import annotations
@@ -33,9 +40,9 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
-__all__ = ["BatchPolicy", "OverloadPolicy", "BisectGuard"]
+__all__ = ["BatchPolicy", "OverloadPolicy", "BisectGuard", "PeerRateLimiter"]
 
 
 def _align_session_batch(count: int, rows_per_session: int, n_dev: int) -> int:
@@ -172,3 +179,94 @@ class BisectGuard:
                 return None
             # retry once the oldest charge ages out of the window
             return max(0.1, self.window_s - (now - q[0][0]))
+
+
+class PeerRateLimiter:
+    """Token-bucket per peer (keyed by host address, never by anything
+    the peer sends inside a frame). `charge(peer)` returns:
+
+    - ``None`` — admit the request (a token was spent).
+    - a float — shed this request; retry after that many seconds.
+    - ``-1.0`` — the peer kept hammering past a whole burst of sheds:
+      close its connection (it pays with its own connection, like an
+      over-budget committee pays with its own throughput under the
+      BisectGuard).
+
+    rps 0 disables the limiter. The bucket holds at most ``burst``
+    (default 2x rps) tokens, so a quiet peer can absorb a small spike;
+    debt beyond another burst of rejected requests is the
+    close-the-connection threshold. State stays O(recently active
+    peers): `forget()` (a peer's last connection closed) drops only a
+    bucket already refilled to a full burst — a spent or indebted
+    bucket is RETAINED, so a hostile peer cannot reset the limiter
+    with a tight connect/hammer/reconnect loop — and `charge()`
+    lazily prunes retained buckets once they refill (at which point a
+    fresh bucket would be no more permissive anyway).
+
+    `clock` (default `time.monotonic`) is read wherever a call passes
+    no `now`; tests drive the bucket through it."""
+
+    def __init__(
+        self,
+        rps: float = 0.0,
+        burst: Optional[float] = None,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        self.rps = rps
+        self.burst = burst if burst is not None else max(1.0, 2.0 * self.rps)
+        self.clock = clock
+        self._lock = threading.Lock()
+        # peer -> [tokens, last_refill_monotonic, consecutive_sheds]
+        self._buckets: Dict[object, list] = {}
+        self._ops = 0
+
+    def enabled(self) -> bool:
+        return self.rps > 0
+
+    def charge(self, peer, now: Optional[float] = None) -> Optional[float]:
+        if not self.enabled():
+            return None
+        now = self.clock() if now is None else now
+        with self._lock:
+            self._ops += 1
+            if self._ops % 512 == 0:
+                self._prune_locked(now)
+            b = self._buckets.get(peer)
+            if b is None:
+                b = self._buckets[peer] = [self.burst, now, 0]
+            tokens = min(self.burst, b[0] + (now - b[1]) * self.rps)
+            b[1] = now
+            if tokens >= 1.0:
+                b[0] = tokens - 1.0
+                b[2] = 0
+                return None
+            b[0] = tokens
+            b[2] += 1
+            if b[2] > self.burst:
+                return -1.0
+            return max(0.05, (1.0 - tokens) / self.rps)
+
+    def _refilled(self, b: list, now: float) -> bool:
+        # THE droppability invariant: refilled to a full burst, the
+        # bucket is behaviorally identical to a fresh one (the next
+        # admit resets any shed debt anyway)
+        return b[0] + (now - b[1]) * self.rps >= self.burst
+
+    def _prune_locked(self, now: float) -> None:
+        dead = [p for p, b in self._buckets.items() if self._refilled(b, now)]
+        for p in dead:
+            del self._buckets[p]
+
+    def forget(self, peer, now: Optional[float] = None) -> None:
+        """A peer's last connection closed. Drop its bucket ONLY if it
+        has refilled to a full burst — behaviorally identical to a
+        fresh one. A spent or indebted bucket is retained (an instant
+        reconnect must not buy a fresh burst); `charge()`'s lazy prune
+        reclaims it once burst/rps quiet seconds have passed."""
+        if not self.enabled():
+            return
+        now = self.clock() if now is None else now
+        with self._lock:
+            b = self._buckets.get(peer)
+            if b is not None and self._refilled(b, now):
+                del self._buckets[peer]

@@ -603,8 +603,7 @@ class RefreshService:
             )
         return sess
 
-    # -- network-fed sessions (the TCP ingress's surface; the ingress is
-    # not ported yet) ---------------------------------------------------
+    # -- network-fed sessions (the TCP ingress's surface, serving.ingress)
     def wait_broadcasts(
         self, session_id: int, timeout: Optional[float] = None
     ) -> Tuple[str, List[Tuple[int, str]]]:
@@ -1651,3 +1650,8 @@ class RefreshService:
                 "workers_respawned": self.workers_respawned,
                 "states": states,
             }
+
+    def journal_stats(self) -> Optional[dict]:
+        """The journal's counters (the shard heartbeat's), or None when
+        journaling is off."""
+        return self.journal.stats() if self.journal is not None else None

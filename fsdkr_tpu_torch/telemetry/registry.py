@@ -1,8 +1,8 @@
 """One process-global metrics registry: labeled counters, gauges, and
 fixed-bucket histograms, and their Prometheus text exposition (an own
 copy of fsdkr_tpu/telemetry/registry.py, with `prometheus_text` from
-its `export.py`; the JSON export, the peak-RSS gauge and the metrics
-dump file are not ported).
+its `export.py`, which `telemetry.export` re-exports beside the JSON
+snapshot and the dump to a file; the peak-RSS gauge is not ported).
 
 Design points:
 

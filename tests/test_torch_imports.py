@@ -1,7 +1,9 @@
 """The PyTorch port imports torch and numpy, never jax, and nothing of
 the JAX package (not even its JAX-free modules: the port keeps its own
 copies). Checked in a subprocess — tests/conftest.py imports jax into
-this one — and by a static scan of the sources and chip_smoke.py.
+this one — and by a static scan of the sources and chip_smoke.py. The
+serving, telemetry and precompute layers read no environment variable:
+their knobs are arguments (the JAX package's FSDKR_* variables).
 """
 
 import pkgutil
@@ -75,5 +77,40 @@ def test_scan_sees_the_whole_package():
     for part in ("native/__init__.py", "native/_loader.py", "backend/crt.py",
                  "precompute/__init__.py", "precompute/pools.py",
                  "precompute/producer.py", "serving/service.py", "serving/recovery.py",
-                 "serving/journal.py", "telemetry/registry.py", "telemetry/flight.py"):
+                 "serving/journal.py", "telemetry/registry.py", "telemetry/flight.py",
+                 "serving/ingress.py", "serving/supervisor.py", "serving/policy.py",
+                 "telemetry/export.py"):
         assert PORT / part in sources
+
+
+_ENV_READ = re.compile(r"\bos\.environ\b|\bgetenv\s*\(|\benviron\s*[\[.]|\bputenv\s*\(")
+_ENV_FREE = ("serving", "telemetry", "precompute")
+
+
+@pytest.mark.parametrize("layer", _ENV_FREE)
+def test_layer_reads_no_environment(layer):
+    files = sorted((PORT / layer).rglob("*.py"))
+    assert len(files) >= 3
+    hits = [f"{p.relative_to(REPO)}:{i}" for p in files
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if _ENV_READ.search(line)]
+    assert not hits, hits
+
+
+def test_new_serving_modules_have_the_jax_packages_public_names():
+    import importlib
+
+    for mod, names in (
+        ("serving.ingress", ("FRAME_HEADER", "FrameError", "encode_frame", "IngressServer",
+                             "IngressClient")),
+        ("serving.supervisor", ("ShardSupervisor", "ShardHandle", "shard_for")),
+        ("telemetry.export", ("SCHEMA_VERSION", "snapshot", "prometheus_text",
+                              "dump_metrics")),
+        ("telemetry.flight", ("FlightRecorder", "get_flight", "record", "dump", "install",
+                              "FLIGHT_SCHEMA")),
+        ("serving.policy", ("PeerRateLimiter",)),
+    ):
+        m = importlib.import_module(f"fsdkr_tpu_torch.{mod}")
+        assert set(names) <= set(m.__all__), mod
+        for name in names:
+            assert hasattr(m, name), (mod, name)

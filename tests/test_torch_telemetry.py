@@ -4,8 +4,14 @@ registry's snapshot and Prometheus exposition text, byte for byte
 (histograms observe fixed values here, so their sums and buckets are
 compared too; the serving layer's histograms time phases and stay out
 of the cross-package checks); labels refuse operand-wide values in both;
-the flight recorder keeps the same ring.
+the flight recorder keeps the same ring. The JSON export's snapshot and
+its Prometheus file hold the JAX package's samples for the same
+recorded metrics; the flight dump writes the JAX recorder's fields and
+scrubs exception text as it does; `install` hooks an uncaught exception
+and SIGTERM.
 """
+
+import json
 
 import pytest
 
@@ -91,3 +97,154 @@ def test_flight_ring_is_the_jax_recorders():
     assert ours[-1] == {"kind": "recovery", "name": "replay_done", "dur_s": 0.123457,
                         "fields": {"terminal": 3}}
     assert "wide" not in ours[0]["fields"]  # a wide int never lands in the ring
+
+
+# ---------------------------------------------------------------------------
+# the JSON export and the flight recorder's dump
+
+_EXPORTED = [0]
+
+
+def _drive_global(reg_mod, tag):
+    """Record one fixed set of metrics in `reg_mod`'s process registry,
+    under names of their own; returns the names."""
+    p = f"fsdkr_t_export{tag}_"
+    reg_mod.counter(p + "frames", "frames by direction", labelnames=("direction",)).inc(
+        3, direction="in")
+    reg_mod.counter(p + "frames", labelnames=("direction",)).inc(direction="out")
+    reg_mod.gauge(p + "open", "open connections").set(2)
+    h = reg_mod.histogram(p + "seconds", "latency", labelnames=("phase",),
+                          buckets=(0.1, 1.0, 10.0))
+    for v in (0.05, 0.5, 5.0, 50.0):
+        h.observe(v, phase="total")
+    return [p + s for s in ("frames", "open", "seconds")]
+
+
+def test_export_snapshot_and_dump_match_jax(tmp_path):
+    from fsdkr_tpu_torch.telemetry import export
+
+    _EXPORTED[0] += 1
+    names = _drive_global(registry, _EXPORTED[0])
+    assert names == _drive_global(j_registry, _EXPORTED[0])
+    ours, theirs = export.snapshot(), j_export.snapshot()
+    assert ours["schema"] == theirs["schema"] == registry.SCHEMA_VERSION
+    assert set(ours) == set(theirs) == {"schema", "metrics"}
+    assert {n: ours["metrics"][n] for n in names} == {n: theirs["metrics"][n] for n in names}
+    assert export.prometheus_text is registry.prometheus_text
+    assert export.dump_metrics(tmp_path / "ours.prom") == str(tmp_path / "ours.prom")
+    j_export.dump_metrics(str(tmp_path / "theirs.prom"))
+
+    def lines(path):
+        return [ln for ln in (tmp_path / path).read_text().splitlines()
+                if any(n in ln for n in names)]
+
+    assert lines("ours.prom") == lines("theirs.prom")
+    assert len(lines("ours.prom")) == 3 * 2 + 2 + 5 + 2
+    assert not list(tmp_path.glob("*.tmp.*"))
+
+
+def _ring(rec):
+    for i in range(70):
+        rec.record("fault", "conn_drop", key=repr((i, 1)), wide=1 << 80)
+    rec.record("supervisor", "shard_death", shard=1, gen=1)
+    rec.record("recovery", "replay_done", dur=0.25, terminal=3)
+
+
+def test_flight_dump_writes_the_jax_recorders_fields(tmp_path, monkeypatch):
+    ours, theirs = flight.FlightRecorder(cap=64), j_flight.FlightRecorder(cap=64)
+    _ring(ours)
+    _ring(theirs)
+    a = json.loads(open(ours.dump(str(tmp_path / "a.json"), reason="heartbeat")).read())
+    b = json.loads(open(theirs.dump(str(tmp_path / "b.json"), reason="heartbeat")).read())
+    assert set(a) == set(b) == {"schema", "pid", "reason", "started_at", "dumped_at",
+                                "events_recorded", "events", "metrics"}
+
+    def strip(doc):
+        return [{k: v for k, v in e.items() if k not in ("ts", "thread")} for e in doc["events"]]
+
+    assert strip(a) == strip(b)
+    assert (a["schema"], a["reason"], a["events_recorded"]) == (
+        b["schema"], b["reason"], b["events_recorded"]) == ("fsdkr-flight/1", "heartbeat", 72)
+    assert len(a["events"]) == 64 and all("wide" not in e.get("fields", {}) for e in a["events"])
+    assert a["metrics"]["schema"] == registry.SCHEMA_VERSION
+    events_only = json.loads(open(ours.dump(str(tmp_path / "c.json"),
+                                            include_metrics=False)).read())
+    assert events_only["metrics"] is None and events_only["reason"] == "manual"
+    monkeypatch.setitem(flight._DEST, "path", None)
+    assert flight.dump() is None  # no destination named: no file
+    monkeypatch.setitem(flight._DEST, "path", str(tmp_path / "d.json"))
+    assert flight.dump(reason="x") == str(tmp_path / "d.json")
+
+
+@pytest.mark.parametrize("msg", [
+    "modulus 123456789012345678901234567890 is not prime",
+    "bad ciphertext 0x" + "ab" * 40,
+    "short 1234567 and " + "f" * 31,
+    "x" * 300,
+    "mixed " + "9" * 16 + " and " + "e" * 32,
+])
+def test_exception_text_is_scrubbed_like_jax(msg):
+    assert flight._scrub_detail(msg) == j_flight._scrub_detail(msg)
+    assert len(flight._scrub_detail(msg)) <= 120
+
+
+_CRASH = """
+import sys
+from {pkg}.telemetry import flight
+{install}
+flight.record("shard", "ready", shard=0)
+raise ValueError("modulus " + "7" * 40 + " rejected")
+"""
+
+
+def test_install_hooks_an_uncaught_exception_like_jax(tmp_path):
+    """A process that dies of an uncaught exception leaves the dump at
+    install()'s path (the JAX package's at FSDKR_FLIGHT), the scrubbed
+    exception its last event, and still dies with its traceback."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    runs = {}
+    for pkg, install, env in (
+        ("fsdkr_tpu_torch", f"flight.install({str(tmp_path / 'ours.json')!r})", {}),
+        ("fsdkr_tpu", "flight.install(force=True)",
+         {"FSDKR_FLIGHT": str(tmp_path / "theirs.json"), "JAX_PLATFORMS": "cpu"}),
+    ):
+        proc = subprocess.run(
+            [sys.executable, "-c", _CRASH.format(pkg=pkg, install=install)], cwd=repo,
+            capture_output=True, text=True, timeout=120, env={**os.environ, **env})
+        assert proc.returncode == 1 and "ValueError" in proc.stderr, proc.stderr
+        runs[pkg] = proc
+    a = json.loads((tmp_path / "ours.json").read_text())
+    b = json.loads((tmp_path / "theirs.json").read_text())
+    assert a["reason"] == b["reason"] == "unhandled:ValueError"
+    last = [{k: v for k, v in e.items() if k not in ("ts", "thread")} for e in a["events"]]
+    assert last[-1] == {"kind": "crash", "name": "ValueError",
+                        "fields": {"detail": "modulus <wide-int> rejected"}}
+    assert last[-1] == {k: v for k, v in b["events"][-1].items() if k not in ("ts", "thread")}
+    assert last[-2] == {"kind": "shard", "name": "ready", "fields": {"shard": 0}}
+
+
+def test_install_dumps_on_sigterm(tmp_path):
+    import os
+    import signal
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (f"import time\nfrom fsdkr_tpu_torch.telemetry import flight\n"
+            f"flight.install({str(tmp_path / 'term.json')!r})\n"
+            f"print('up', flush=True)\ntime.sleep(60)\n")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=repo, stdout=subprocess.PIPE,
+                            text=True)
+    try:
+        assert proc.stdout.readline().strip() == "up"
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == -signal.SIGTERM
+    finally:
+        proc.kill()
+        proc.wait()
+    doc = json.loads((tmp_path / "term.json").read_text())
+    assert doc["reason"] == "SIGTERM" and doc["events"][-1]["name"] == "SIGTERM"
