@@ -126,6 +126,21 @@ Phases:
            gives FSDKRC_RLC=0's whole verdict vector, (True, False, True)
            at that row, through a bisection on the host. Profiles one
            collect and times another layer by layer.
+  trace    the span tracer (telemetry.spans) on the rlc phase's inputs:
+           one default collect at n=16 with the tracer enabled, its
+           Chrome trace written to chiprun_out/collect_trace.json; gates:
+           the protocol and family spans with their items are
+           `collect_spans(n, M, rounds)` (the list tests/test_torch_trace.py
+           holds against the JAX package's at n=3), each span inside its
+           parent's interval, every phase that launched a kernel
+           (`ops.tally.by_phase`) carrying MACs, and the adopted key the
+           rlc phase's untraced collect's; a second traced collect at
+           FSDKRC_MEM_BUDGET_MB=2 (memory-plan tiles): the tiles' staging
+           spans on the prefetch worker parent to `pairs.stream_tiles`,
+           and the same key. Prints each phase's seconds and MFU on
+           `utils.roofline.H100_PEAK_MACS`, and the collect's median wall
+           over 5 runs with the tracer off and 5 with it on, each after
+           a `gc.collect()` (not gated).
   join     join, replace and removal under the defaults, from main's keys
            before its distribute, as the reference's add-party scenario:
            parties 2 and 16 leave, the 14 survivors are remapped onto
@@ -208,7 +223,10 @@ Phases:
            (SERVE_DISTRIBUTE: a pooled distribute, worked out on the
            CPU by `scripts/serve_launch_drive.py`; n^2 STREAM_OFFER;
            SERVE_FINALIZE: one pair launch set and n pk_vec MSMs) and
-           its device busy (torch.profiler); (a) the session done, A
+           its device busy (torch.profiler), the session under the span
+           tracer: its wall by stage from the spans (distribute, the
+           offers, the finalize, the share recovery and adoption, the
+           producer thread's precompute spans); (a) the session done, A
            one epoch on and B none, each group key unchanged and t+1
            new shares reconstructing it, the pools taken from,
            `fsdkr_producer_errors` unchanged (the extra sessions side by
@@ -241,18 +259,33 @@ Phases:
            on the card (each its own CUDA context, the kernels built by
            the parent), one committee each (main's and prover's keys,
            or fresh ones); both must report the card; epoch 0 on both;
-           then epochs 1 and 2 queued on the victim's committee and
-           epoch 1 on the bystander's (the control); once the victim's
+           then epoch 1 queued on the victim's committee (the storm
+           phase's bystanders are the control); once the victim's
            session is collecting, the `shard_kill` site
            (`faults.configure("seed=11,shard_kill=1.0,shard_kill_max=1")`,
            `chaos_kill`) SIGKILLs it: the peer replays the dead journal,
-           every pending epoch ends done with no blame as the control
-           and epoch 0 did, flight.json sits beside the dead journal,
+           the pending epoch ends done with no blame as epoch 0 did,
+           flight.json sits beside the dead journal,
            the journal accounts for every session, the failover's cause
            is the process's exit (SIGKILL) and no shard reported a fault
            or a failed command. Prints each
            shard's start-up split, the detection time, MTTR and the
            fleet's sessions/s.
+  storm    the load generator's network storm composed with SIGKILLs
+           (`serving.loadgen.run_net_storm`, kills=3) on 4 shards on the
+           card: 2048-bit Paillier, M=256, 11 correct-key rounds, n=3,
+           t=1, 3 base committees cloned to 12, a 60 s window at 0.3
+           session/s (`STORM_RATE`) from 2 client processes over TCP,
+           the JAX package's default network fault spec with --seed in
+           every shard, the deadline 4 times the seed epoch's p99.
+           Gates: the report's own
+           (zero lost accepted broadcasts across every journal, zero
+           wrong verdicts, zero wedged, the fleet quiesced, the
+           bystander p99 within its bound, at least 3 kills), every
+           shard on the card, and every failover caused by its shard's
+           exit. Prints MTTR per failover, recover_s, the bystander p99,
+           sessions/s and the ingress counters; the report goes to
+           chiprun_out/chip_storm.json.
   time     each kernel against its plain version at every shape its path
            (the routed path for the CIOS kernels, the RNS path for the
            RNS kernels, the joint and RLC paths for the Straus and
@@ -293,14 +326,23 @@ import subprocess
 import sys
 import time
 
-PHASES = ("env", "kernels", "routes", "main", "joint", "rlc", "join", "sessions", "stream",
-          "prover", "serve", "ingress", "fleet", "time")
+PHASES = ("env", "kernels", "routes", "main", "joint", "rlc", "trace", "join", "sessions",
+          "stream", "prover", "serve", "ingress", "fleet", "storm", "time")
 
-# H100 SXM published peaks (dense): device memory rate and int8 tensor-core
-# rate. A 16x16-bit multiply-add counts as four 8-bit multiply-adds of two
+# H100 SXM published peaks (dense) and the 16x16-bit MAC model: one model
+# for bound_ms here and the tracer's MFU (fsdkr_tpu_torch/utils/roofline.py).
+# A 16x16-bit multiply-add counts as four 8-bit multiply-adds of two
 # operations each: the least work an exact tensor-core route could do.
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
+try:
+    from fsdkr_tpu_torch.utils.roofline import (  # noqa: E402
+        HBM_BYTES_PER_S,
+        H100_PEAK_MACS,
+        INT8_OPS_PER_S,
+        ec_scalar_mul_macs,
+        ec_tree_sum_macs,
+    )
+except ImportError:  # this script without the package beside it: main() refuses
+    pass
 
 
 def fail(msg: str) -> None:
@@ -1618,6 +1660,128 @@ def phase_rlc(dev, inputs, n=16, t=8, bits=2048, m_security=256, rounds=11):
     return counts, shapes, times, keys
 
 
+def collect_spans(n, m_security, rounds):
+    """The protocol and family spans, with their items, of one default
+    collect (FSDKRC_RLC, FSDKRC_MULTIEXP and FSDKRC_RANGEOPT on) of n
+    honest senders' messages without joins, one call each: the list
+    tests/test_torch_trace.py holds against the JAX package's at n=3."""
+    rows = n * n
+    return {
+        "collect": 1, "collect.validate_feldman": rows, "collect.verify_pairs": 2 * rows,
+        "collect.verify_ring_pedersen": n, "collect.verify_correct_key": n,
+        "collect.share_recovery": 1, "collect.adopt": 1,
+        "pdl.challenge": rows, "pdl.modexp_columns": rows, "pdl.rlc_eq3": rows,
+        "pdl.rlc_eq2": rows, "pdl.ec_u1": rows, "pairs.modexp_columns": 2 * rows,
+        "range.base_inv": 2 * rows, "range.u_pow": rows, "range.comb2": rows,
+        "range.z_e": rows, "range.combine": rows, "range.challenge": rows,
+        "ringped.challenge": n, "ringped.modexp": n * (m_security + 2),
+        "correct_key.rho_derive": n, "correct_key.modexp": n * (rounds + 1),
+    }
+
+
+def _nesting_faults(spans):
+    """Spans that end outside their parent's interval."""
+    by_id = {sp.span_id: sp for sp in spans}
+    return [(sp.name, by_id[sp.parent_id].name) for sp in spans
+            if sp.parent_id in by_id and not (by_id[sp.parent_id].t0 <= sp.t0
+                                              and sp.t1 <= by_id[sp.parent_id].t1)]
+
+
+def phase_trace(dev, inputs, ref_keys, n=16, t=8, bits=2048, m_security=256, rounds=11,
+                party=4, tile_budget_mb="2", overhead_runs=5):
+    """The span tracer on the rlc phase's inputs (the module docstring's
+    `trace`). `ref_keys`: the keys the rlc phase's untraced collects
+    adopted. Returns the phase's times."""
+    import threading
+
+    from fsdkr_tpu_torch import ProtocolConfig
+    from fsdkr_tpu_torch.carry import to_fields
+    from fsdkr_tpu_torch.ops import tally
+    from fsdkr_tpu_torch.protocol import RefreshMessage
+    from fsdkr_tpu_torch.telemetry.spans import get_tracer
+
+    msgs, pre_keys, dks = inputs
+    config = ProtocolConfig(paillier_bits=bits, m_security=m_security, correct_key_rounds=rounds,
+                            backend="cuda", device=dev.type)
+    tr = get_tracer()
+    times = {}
+
+    def collect(traced, **env):
+        key, dk = copy.deepcopy(pre_keys[party]), copy.deepcopy(dks[party])
+        gc.collect()
+        if traced:
+            tr.reset()
+            tally.reset_phases()
+            tr.enable()
+        try:
+            with knobs(**env):
+                t0 = time.perf_counter()
+                RefreshMessage.collect(msgs, key, dk, config=config)
+                wall = time.perf_counter() - t0
+        finally:
+            tr.disable()
+        if to_fields(key) != to_fields(ref_keys[party]):
+            fail(f"trace: party {party + 1}'s {'traced ' if traced else ''}collect adopted "
+                 f"another key than the rlc phase's untraced collect")
+        return wall
+
+    times["traced_collect"] = collect(True)
+    stats, spans, launches = tr.stats(), tr.spans(), tally.by_phase()
+    os.makedirs("chiprun_out", exist_ok=True)
+    tr.write_chrome_trace(os.path.join("chiprun_out", "collect_trace.json"))
+    got = {k: (v.calls, v.items) for k, v in stats.items() if k != "(unphased)"}
+    want = {k: (1, items) for k, items in collect_spans(n, m_security, rounds).items()}
+    if got != want:
+        diff = {k: (got.get(k), want.get(k)) for k in set(got) | set(want)
+                if got.get(k) != want.get(k)}
+        fail(f"trace: spans (calls, items) differ from collect_spans (got, expected): {diff}")
+    bad = _nesting_faults(spans)
+    if bad or tr.spans_dropped():
+        fail(f"trace: spans outside their parents {bad[:4]}, {tr.spans_dropped()} dropped")
+    bare = {k: c for k, c in launches.items() if c and (k not in stats or stats[k].macs <= 0)}
+    if bare or dev.type == "cuda" and not launches:  # the plain versions count none
+        fail(f"trace: phases that launched kernels without MACs: {bare} (launches by phase "
+             f"{launches})")
+    mfu = {k: (round(v.seconds, 6), round(100 * v.mfu(H100_PEAK_MACS), 4))
+           for k, v in sorted(stats.items(), key=lambda kv: -kv[1].seconds)}
+    log(f"trace: one traced collect {times['traced_collect']:.4f} s, {len(spans)} spans "
+        f"(calls and items as collect_spans({n}, {m_security}, {rounds})), every span inside "
+        f"its parent, chiprun_out/collect_trace.json written; launches by phase "
+        f"{json.dumps(launches)}, each with MACs; the same key as the untraced collect")
+    log("trace: phase (seconds, MFU % of the H100's 247.4e12 16-bit MAC/s): " + json.dumps(mfu))
+
+    # the memory plan's tiles: the staging of each tile runs on the
+    # prefetch worker, its spans parented to the submitting phase
+    times["traced_tiled_collect"] = collect(True, FSDKRC_MEM_BUDGET_MB=tile_budget_mb)
+    spans = tr.spans()
+    main_tid = threading.main_thread().ident
+    by_id = {sp.span_id: sp for sp in spans}
+    worker = [sp for sp in spans if sp.tid != main_tid]
+    parents = {by_id[sp.parent_id].name if sp.parent_id in by_id else None for sp in worker}
+    if not worker or parents != {"pairs.stream_tiles"} or _nesting_faults(spans):
+        fail(f"trace: the tiled collect's worker spans {[sp.name for sp in worker][:6]} parent "
+             f"to {parents}, not pairs.stream_tiles alone, or a span outside its parent")
+    log(f"trace: a tiled collect (FSDKRC_MEM_BUDGET_MB={tile_budget_mb}) "
+        f"{times['traced_tiled_collect']:.4f} s: "
+        f"{len(worker)} spans on the prefetch worker ({sorted({sp.name for sp in worker})}), "
+        f"each parented to pairs.stream_tiles; the same key")
+
+    # the tracer's cost: 5 collects each way, interleaved, after gc
+    walls = {False: [], True: []}
+    for _ in range(overhead_runs):
+        for traced in (False, True):
+            walls[traced].append(collect(traced))
+    off, on = (sorted(walls[k])[overhead_runs // 2] for k in (False, True))
+    times.update(collect_off_median=off, collect_on_median=on, overhead=on / off - 1,
+                 walls_off=walls[False], walls_on=walls[True])
+    log(f"trace: collect median over {overhead_runs}, tracer off {off:.4f} s, on {on:.4f} s: "
+        f"overhead "
+        f"{100 * (on / off - 1):.2f}% (the JAX package's budget: 2%; not gated); off "
+        f"{[round(w, 4) for w in walls[False]]}, on {[round(w, 4) for w in walls[True]]}")
+    tr.reset()
+    return times
+
+
 # Launches of the join path (the defaults: FSDKRC_RLC, FSDKRC_MULTIEXP and
 # FSDKRC_RANGEOPT on) at n=16, t=8, 2048-bit, M=256, 11 correct-key rounds
 # (PERF.md section 2), worked out from the code and a CPU drive at n=16
@@ -2686,6 +2850,23 @@ def _reconstructs(keys, t):
                                                         for k in keys)
 
 
+def session_stages(spans):
+    """A served session's wall by stage from its spans, in seconds:
+    distribute, the offers (summed over their spans), the finalize with
+    the share recovery and adoption inside it, and the producer thread's
+    precompute spans (its steps, and the kinds they produced)."""
+    out = {}
+    for sp in spans:
+        if sp.thread_name == "fsdkr-precompute":
+            if sp.name.startswith("precompute."):
+                key = "producer thread: " + sp.name
+                out[key] = out.get(key, 0.0) + sp.duration
+        elif sp.name in ("distribute", "collect.stream.offer", "collect.stream.finalize",
+                         "collect.share_recovery", "collect.adopt"):
+            out[sp.name] = out.get(sp.name, 0.0) + sp.duration
+    return {k: round(v, 6) for k, v in sorted(out.items())}
+
+
 def phase_serve(dev, committees=(), n=16, t=8, bits=2048, m_security=256, rounds=11):
     """The serving layer's in-process core on the card (the module
     docstring's `serve`). `committees`: up to two lists of n LocalKeys
@@ -2701,6 +2882,7 @@ def phase_serve(dev, committees=(), n=16, t=8, bits=2048, m_security=256, rounds
     from fsdkr_tpu_torch.protocol import simulate_keygen
     from fsdkr_tpu_torch.serving import SLO, RefreshService, faults, recover
     from fsdkr_tpu_torch.telemetry import registry
+    from fsdkr_tpu_torch.telemetry.spans import get_tracer
 
     config = ProtocolConfig(paillier_bits=bits, m_security=m_security, correct_key_rounds=rounds,
                             backend="cuda", device=dev.type)
@@ -2740,20 +2922,29 @@ def phase_serve(dev, committees=(), n=16, t=8, bits=2048, m_security=256, rounds
             f"{times['fill']:.3f} s: {st['entries']} entries in {st['pools']} pools; its "
             f"launches, counted apart: {json.dumps({k: v for k, v in fill_apart.items() if v})}")
 
-        # (d) one session alone: its launches by stage, its device busy
+        # (d) one session alone: its launches by stage, its device busy,
+        # its wall by stage from the span tracer
         stages, verdicts, sessions = {}, [], {}
         before, before_apart = _launches(), _apart_launches()
         def alone():
             sessions[("A", 1)] = svc.wait(svc.submit("A", epoch=1), 300)
 
+        tracer = get_tracer()
+        tracer.reset()
         with stage_launches(stages, verdicts):
+            tracer.enable()
             t0 = time.perf_counter()
-            if dev.type == "cuda":
-                wall_ms, busy_ms, by_name = device_busy(alone)
-            else:  # a CPU drive of the phase: no device to profile
-                alone()
-                wall_ms, busy_ms, by_name = (time.perf_counter() - t0) * 1e3, 0.0, {}
+            try:
+                if dev.type == "cuda":
+                    wall_ms, busy_ms, by_name = device_busy(alone)
+                else:  # a CPU drive of the phase: no device to profile
+                    alone()
+                    wall_ms, busy_ms, by_name = (time.perf_counter() - t0) * 1e3, 0.0, {}
+            finally:
+                tracer.disable()
             times["session_alone"] = time.perf_counter() - t0
+        times["stage_s"] = session_stages(tracer.spans())
+        tracer.reset()
         session = _sub(_launches(), before)
         beside = {k: v for k, v in _sub(_apart_launches(), before_apart).items() if v}
         if verdicts != [None] * n:
@@ -2772,6 +2963,11 @@ def phase_serve(dev, committees=(), n=16, t=8, bits=2048, m_security=256, rounds
             f"bundles it took ran beside it, its launches apart {json.dumps(beside)}); "
             f"launches by stage {json.dumps(stages)}; top device time "
             f"{json.dumps({k[:40]: round(v, 3) for k, v in top})}")
+        n_apart = sum(beside.values())
+        log(f"serve: the session's wall by stage from the spans (seconds; offers summed over "
+            f"their {n * n} spans, the producer's over its thread's spans): "
+            f"{json.dumps(times['stage_s'])}; the producer's share of the launches in the "
+            f"session's window {n_apart} of {n_apart + sum(session.values())}")
 
         # (a) the pools and the committees after it (the extra sessions
         # side by side that measured throughput here were cut to keep the
@@ -3063,7 +3259,7 @@ def phase_ingress(dev, committees=(), n=16, t=8, bits=2048, m_security=256, roun
     return session, shapes, times
 
 
-FLEET_VICTIM_EPOCHS = (1, 2)  # queued on the victim's committee after epoch 0
+FLEET_VICTIM_EPOCHS = (1,)  # queued on the victim's committee after epoch 0
 
 
 def _one_per_shard(n_shards):
@@ -3123,7 +3319,7 @@ def phase_fleet(dev, committees=(), n=16, t=8, bits=2048, m_security=256, rounds
         cids = _one_per_shard(2)
         for cid, keys in zip(cids, committees):
             sup.admit(cid, keys, config)
-        victim_cid, bystander_cid = cids
+        victim_cid = cids[0]
         victim = sup.assignment[victim_cid]
 
         # epoch 0 on both: the baseline, and the terminals the replay restores
@@ -3137,12 +3333,11 @@ def phase_fleet(dev, committees=(), n=16, t=8, bits=2048, m_security=256, rounds
         if base != [("done", False, None)] * 2:
             fail(f"fleet: epoch 0 ended {sup.outcomes}")
 
-        # more epochs queued on the victim, one on the bystander (the
-        # control); the victim is killed once its session is collecting
+        # more epochs queued on the victim, killed once its session is
+        # collecting (the storm phase's bystanders are the control)
         t0 = time.perf_counter()
         for e in FLEET_VICTIM_EPOCHS:
             sup.submit(victim_cid, e)
-        sup.submit(bystander_cid, 1)
         end = time.monotonic() + 300
         while time.monotonic() < end:
             sup.pump(0.2)
@@ -3163,12 +3358,10 @@ def phase_fleet(dev, committees=(), n=16, t=8, bits=2048, m_security=256, rounds
             fail(f"fleet: the epochs did not drain after the kill: {sup.pending}")
         times["epochs_s"] = time.perf_counter() - t0
         by_epoch = {(o["cid"], o["epoch"]): o for o in sup.outcomes}
-        control = by_epoch[(bystander_cid, 1)]
         got = {e: by_epoch[(victim_cid, e)] for e in FLEET_VICTIM_EPOCHS}
-        verdict = (control["state"], control["blame"], control["error"])
-        if verdict != base[0] or any((o["state"], o["blame"], o["error"]) != verdict
-                                     for o in got.values()):
-            fail(f"fleet: control {control}, the victim's epochs {got}")
+        verdict = base[0]
+        if any((o["state"], o["blame"], o["error"]) != verdict for o in got.values()):
+            fail(f"fleet: the victim's epochs {got}, not epoch 0's verdict {verdict}")
         vias = {o["via"] for o in got.values()}
         if not vias & {"failover", "resubmit"}:
             fail(f"fleet: no epoch crossed the failover: {vias}")
@@ -3202,7 +3395,7 @@ def phase_fleet(dev, committees=(), n=16, t=8, bits=2048, m_security=256, rounds
             f"{detect_s:.3f} s after the kill, the peer adopted the journal {fo.get('recover_s')} "
             f"s after detection (replay {json.dumps(rec)}), MTTR {fo['mttr_s']} s; the victim's "
             f"epochs {json.dumps({e: (o['state'], o['via'], o['total_s']) for e, o in got.items()})}"
-            f", the control {verdict} as epoch 0; flight.json beside the dead journal "
+            f", {verdict} as epoch 0; flight.json beside the dead journal "
             f"({len(flight['events'])} events, {flight['reason']}); {settled} of "
             f"{len(sessions)} journaled sessions settled")
         log(f"fleet: epoch 0 on both {times['epoch0_s']:.3f} s; after it {done - 2} sessions in "
@@ -3214,6 +3407,51 @@ def phase_fleet(dev, committees=(), n=16, t=8, bits=2048, m_security=256, rounds
         shutil.rmtree(root, ignore_errors=True)
     log(f"fleet: {smi_line()}")
     return times
+
+
+# sessions/s offered across the storm's clients: half of what the storm
+# sustained at 1.0 offered on the H100 (0.628 over TCP, PERF.md section 5)
+STORM_RATE = 0.3
+
+
+def phase_storm(dev, seed, bits=2048, m_security=256, rounds=11, window=60, backend="cuda"):
+    """The load generator's network storm with 3 SIGKILLs on 4 shards on
+    the card (the module docstring's `storm`). Returns its report's
+    numbers."""
+    from fsdkr_tpu_torch.serving import loadgen
+
+    out = os.path.join("chiprun_out", "chip_storm.json")
+    args = loadgen.parse_args([
+        "--net", "--kills", "3", "--shards", "4", "--clients", "2",
+        "--committees", "12", "--bases", "3", "--n", "3", "--t", "1", "--bits", str(bits),
+        "--m-security", str(m_security), "--ck-rounds", str(rounds), "--window", str(window),
+        "--rate", repr(STORM_RATE), "--baseline-window", "10", "--deadline", "600",
+        "--deadline-factor", "4", "--seed", str(seed), "--device", dev.type,
+        "--backend", backend, "--out", out,
+    ])
+    t0 = time.perf_counter()
+    rep = loadgen.run_net_storm(args)
+    wall = time.perf_counter() - t0
+    want_device = "cpu" if dev.type == "cpu" else __import__("torch").cuda.get_device_name(0)
+    bad_gates = [k for k, v in rep["gates"].items() if not v]
+    causes = [(fo["cause"], fo["exit_code"]) for fo in rep["failovers"]]
+    if bad_gates or rep["shard_devices"] != [want_device] or \
+            any(c != ("exit", -9) for c in causes) or len(causes) != rep["kills_injected"]:
+        fail(f"storm: gates failed {bad_gates}, shard devices {rep['shard_devices']}, "
+             f"failovers' causes {causes} (report {out})")
+    log(f"storm: {rep['kills_injected']} SIGKILLs under {rep['net_fault_spec']!r}, "
+        f"{rep['epochs_submitted']} epochs: {json.dumps(rep['outcomes'])}; gates "
+        f"{json.dumps(rep['gates'])}; every shard on {want_device}; the failovers' causes "
+        f"{causes}")
+    log(f"storm: MTTR per failover {rep['mttr_s']['per_failover']} s, recover_s "
+        f"{rep['recover_s']['per_failover']} s, bystander p99 {rep['bystander_p99_s']} s "
+        f"({rep['bystander_done']} done, bound {rep['p99_bound_s']} s), deadline "
+        f"{rep['deadline_s']} s (4 x seed p99 {rep['seed_p99_s']} s), {rep['net_sessions_per_s']}"
+        f" sessions/s over TCP against {rep['in_process_baseline']['sessions_per_s']} in "
+        f"process; ingress {json.dumps(rep['aggregate']['ingress'])}; client "
+        f"{json.dumps(rep['client_counters'])}; {wall:.1f} s")
+    return {k: rep[k] for k in ("mttr_s", "recover_s", "bystander_p99_s", "net_sessions_per_s",
+                                "deadline_s", "seed_p99_s", "outcomes", "kills_injected")}
 
 
 def rns_path(pre, config, n, party=2):
@@ -3415,131 +3653,38 @@ def span_collect(msgs, spare, config, label):
     return totals
 
 
-# the calls of one distribute_batch, timed from here by wrapping them
-# where distribute_batch looks them up: (module path, attribute, class,
-# name by call order). A name tuple names a function's calls in order;
-# the JAX package's phase names (fsdkr_tpu/protocol/refresh.py:218-420)
-# sum the top-level spans. Entries whose module or attribute a tree lacks
-# are skipped, so the same spans time the parent's distribute.
-_DIST_SPANS = (
-    ("fsdkr_tpu_torch.ops.ec_batch", "generator_muls", None,
-     ("feldman", "commit_points", "pdl_u1")),
-    ("fsdkr_tpu_torch.proofs.pdl_slack", "prove_stage1", "PDLwSlackProof", "pdl_stage1"),
-    ("fsdkr_tpu_torch.proofs.alice_range", "generate_stage1", "AliceProof", "alice_stage1"),
-    ("fsdkr_tpu_torch.backend.powm", "powm_columns", None,
-     ("powm_columns stage-1 Paillier", "powm_columns stage-1 commitments",
-      "powm_columns stage 2")),
-    ("fsdkr_tpu_torch.core.paillier", "combine_with_rn", None, ("encrypt", "u2", "u")),
-    ("fsdkr_tpu_torch.proofs.pdl_slack", "prove_stage2", "PDLwSlackProof", "pdl_stage2"),
-    ("fsdkr_tpu_torch.proofs.alice_range", "generate_stage2", "AliceProof", "alice_stage2"),
-    ("fsdkr_tpu_torch.proofs.pdl_slack", "prove_finish", "PDLwSlackProof", "pdl_finish"),
-    ("fsdkr_tpu_torch.proofs.alice_range", "generate_finish", "AliceProof", "alice_finish"),
-    ("fsdkr_tpu_torch.core.paillier", "keygen_batch", None, "keygen_batch"),
-    ("fsdkr_tpu_torch.proofs.ring_pedersen", "generate_batch", "RingPedersenStatement",
-     "rp_generate_batch"),
-    ("fsdkr_tpu_torch.proofs.correct_key", "proof_batch", "NiCorrectKeyProof", "ck_proof_batch"),
-    ("fsdkr_tpu_torch.proofs.ring_pedersen", "prove_batch", "RingPedersenProof", "rp_prove_batch"),
-    # inside them: the prime generator, its Miller-Rabin batches, the CRT
-    # engine, the device batches of powm_columns and its Straus planner
-    ("fsdkr_tpu_torch.core.primes", "gen_moduli_batch", None, "gen_moduli_batch"),
-    ("fsdkr_tpu_torch.core.primes", "_mr_batch", None, "_mr_batch"),
-    ("fsdkr_tpu_torch.backend.crt", "crt_modexp_batch", None, "crt_modexp_batch"),
-    ("fsdkr_tpu_torch.backend.crt", "crt_powm_shared", None, "crt_powm_shared"),
-    ("fsdkr_tpu_torch.backend.powm", "device_powm_batches", None, "device_powm_batches"),
-    ("fsdkr_tpu_torch.backend.powm", "multi_powm", None, "multi_powm"),
-    ("fsdkr_tpu_torch.precompute", "take", None, "precompute.take"),
-)
-# the JAX package's phase of each top-level span
-_DIST_PHASES = {
-    "commit_points": "distribute.commit_points",
-    "pdl_stage1": "distribute.stage1.sample",
-    "alice_stage1": "distribute.stage1.sample",
-    "precompute.take": "distribute.stage1.sample",
-    "powm_columns stage-1 Paillier": "distribute.stage1.enc_beta_pow",
-    "powm_columns stage-1 commitments": "distribute.stage1.commit_pow",
-    "encrypt": "distribute.encrypt",
-    "pdl_stage2": "distribute.prove_stage2",
-    "alice_stage2": "distribute.prove_stage2",
-    "powm_columns stage 2": "distribute.prove_stage2",
-    "pdl_finish": "distribute.prove_stage2",
-    "alice_finish": "distribute.prove_stage2",
-    "keygen_batch": "distribute.keygen",
-    "rp_generate_batch": "distribute.ring_pedersen_gen",
-    "ck_proof_batch": "distribute.correct_key_prove",
-    "rp_prove_batch": "distribute.ring_pedersen_prove",
-}
-
-
 def span_distribute(senders, new_n, config, label):
-    """Wall time of one distribute_batch by the JAX package's phase names
-    (inclusive seconds of the top-level calls each phase holds; the
-    Feldman commitments, which the JAX package times in no phase, as
-    `feldman`, and the rest of the call as `outside the spans`), and each
-    call's inclusive and self seconds by parent. Every span that holds
-    device work ends in a host copy of its result, so it holds that work.
-    Returns (wall, {phase: s}, {(parent, name): [calls, incl s, self s]})."""
-    import importlib
-
+    """Wall time of one distribute_batch by its phases, the JAX package's
+    names, from the span tracer (telemetry.spans): each phase's seconds,
+    and the rest of the call, outside the top-level phases (the Feldman
+    commitments, which no phase holds), as `outside the spans`. Every
+    phase that holds device work ends in a host copy of its result, so
+    it holds that work. Returns (messages, wall, {phase: s}, the
+    tracer's stats)."""
     from fsdkr_tpu_torch.protocol import RefreshMessage
+    from fsdkr_tpu_torch.telemetry.spans import get_tracer
 
-    stack, totals, patched, calls = [], {}, [], {}
-
-    def wrap(attr, names, fn):
-        def timed(*args, **kwargs):
-            k = calls[attr] = calls.get(attr, 0) + 1
-            name = names if isinstance(names, str) else (
-                names[k - 1] if k <= len(names) else f"{attr} #{k}")
-            parent = stack[-1][0] if stack else "distribute"
-            stack.append([name, 0.0])
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                dt = time.perf_counter() - t0
-                _, child = stack.pop()
-                if stack:
-                    stack[-1][1] += dt
-                tot = totals.setdefault((parent, name), [0, 0.0, 0.0])
-                tot[0] += 1
-                tot[1] += dt
-                tot[2] += dt - child
-        return timed
-
-    for mod_name, attr, cls_name, names in _DIST_SPANS:
-        try:
-            owner = importlib.import_module(mod_name)
-        except ImportError:
-            continue
-        if cls_name:
-            owner = getattr(owner, cls_name)
-        raw = owner.__dict__.get(attr)
-        if raw is None:
-            continue
-        fn = raw.__func__ if isinstance(raw, staticmethod) else raw
-        new = wrap(attr, names, fn)
-        patched.append((owner, attr, raw))
-        setattr(owner, attr, staticmethod(new) if isinstance(raw, staticmethod) else new)
+    tr = get_tracer()
+    tr.reset()
+    tr.enable()
     try:
         t0 = time.perf_counter()
         out = RefreshMessage.distribute_batch(senders, new_n, config)
         wall = time.perf_counter() - t0
     finally:
-        for owner, attr, raw in reversed(patched):
-            setattr(owner, attr, raw)
-    phases = {}
-    for (parent, name), tot in totals.items():
-        if parent == "distribute":
-            key = _DIST_PHASES.get(name, name)
-            phases[key] = phases.get(key, 0.0) + tot[1]
-    phases["outside the spans"] = wall - sum(phases.values())
+        tr.disable()
+    spans = tr.spans()
+    root = [sp for sp in spans if sp.name == "distribute" and sp.parent_id is None]
+    top = sum(sp.duration for sp in spans if root and sp.parent_id == root[-1].span_id)
+    stats = tr.stats()
+    tr.reset()
+    phases = {k: st.seconds for k, st in stats.items() if k.startswith("distribute.")}
+    phases["outside the spans"] = wall - top
     log(f"distribute spans ({label}): one distribute_batch of {len(senders)} senders "
         f"{wall:.3f} s")
     for key, sec in phases.items():
         log(f"distribute spans ({label}):   {key:<34} {sec:8.3f} s")
-    for (parent, name), (n_calls, incl, own) in totals.items():
-        log(f"distribute spans ({label}):     {parent:>30} > {name:<32} calls {n_calls:4d}  "
-            f"incl {incl:8.3f} s  self {own:8.3f} s")
-    return out, wall, phases, totals
+    return out, wall, phases, stats
 
 
 def honest_u1_check(totals, label):
@@ -3657,11 +3802,10 @@ def _device_ms(fn, reps, name):
     wherever that is slower than the kernel; this does not.
 
     A window in which the profiler recorded no launch of the kernel is
-    taken again: twice with a warm-up step under the profiler's
-    schedule, then twice as one plain profiled window after an
-    unprofiled warm-up call (late in a long run the scheduled form has
-    come back empty three times in a row). Should all four come back
-    empty, the CUDA-events time per call stands in, and the log says
+    taken again once, as one plain profiled window after an unprofiled
+    warm-up call. Should both come back empty (late in a long run most
+    windows taken again stay empty too, and each costs the window's
+    launches), the CUDA-events time per call stands in, and the log says
     so."""
     import torch
     from torch.autograd import DeviceType
@@ -3675,8 +3819,8 @@ def _device_ms(fn, reps, name):
                 launches += ev.count
         return us, launches
 
-    for attempt in range(4):
-        if attempt < 2:
+    for attempt in range(2):
+        if attempt < 1:
             schedule = torch.profiler.schedule(wait=0, warmup=1, active=1)
             recorded = []
             with profile(activities=[ProfilerActivity.CUDA], schedule=schedule,
@@ -3703,7 +3847,7 @@ def _device_ms(fn, reps, name):
             f"(attempt {attempt + 1}); recording again")
     if not launches:
         ms = _events_ms(fn, reps)
-        log(f"time: the profiler recorded no launch of {_SYMBOL[name]} in four windows: "
+        log(f"time: the profiler recorded no launch of {_SYMBOL[name]} in two windows: "
             f"its device time stands as the CUDA-events time, {ms:.4f} ms a call")
         return ms
     if launches > reps or us <= 0:
@@ -3801,19 +3945,6 @@ def _timed_ms(fn):
     return out, start.elapsed_time(end)
 
 
-# 16x16-bit multiply-adds that device EC's field arithmetic needs (a
-# 32x32-bit word product is four of them, its low half three, a product by
-# a constant under 2^16 two): x * y of 8 x 8 words 256; a squaring 144 (36
-# word products); the reduction on p's special form 40 (a word's m = T_i
-# p^{-1} mod 2^32, 3, and m * 977, 2); a product by 3 or b3 = 21 17 (a
-# word's 2, and 2^256 folded back as 2^32 + 977, 1).
-MUL_MACS, SQR_MACS, REDUCE_MACS, SMALL_MACS = 256, 144, 40, 17
-# a complete addition: 12 products, each reduced, and 3 by small
-# constants; its doubling instance takes six of the 12 as squarings
-EC_ADD_MACS = 12 * (MUL_MACS + REDUCE_MACS) + 3 * SMALL_MACS
-EC_DOUBLE_MACS = 6 * (SQR_MACS + MUL_MACS) + 12 * REDUCE_MACS + 3 * SMALL_MACS
-
-
 def ec_chain(scalar_bits):
     """Complete additions along a scalar-mul row's chain: the table's 14,
     then 4 doublings and one add a window."""
@@ -3825,9 +3956,8 @@ def ec_macs(name, rows, scalar_bits, groups=None):
     table's 14 additions, then per window 4 doublings and one addition;
     M - 1 additions a tree group of M rows."""
     if name == "ec_scalar_mul":
-        windows = scalar_bits // 4
-        return rows * ((14 + windows) * EC_ADD_MACS + 4 * windows * EC_DOUBLE_MACS)
-    return (rows - groups) * EC_ADD_MACS
+        return ec_scalar_mul_macs(rows, scalar_bits)
+    return ec_tree_sum_macs(rows, groups)
 
 
 def bound_ms(name, k, rows, exp_bits, groups=None):
@@ -4229,6 +4359,12 @@ def main() -> None:
         rlc_modexp = {shape: c for shape, c in rshapes["cios_modexp"].items()
                       if shape not in shapes.get("cios_modexp", {})}
         done("rlc")
+    if "trace" in phases:
+        if rlc_keys is None:
+            fail("the trace phase takes the rlc phase's messages and keys")
+        ttimes = phase_trace(dev, rlc_inputs, rlc_keys)
+        log("trace: phase seconds " + json.dumps(ttimes))
+        done("trace")
     join_counts, join_shapes, join_inputs = None, {}, None
     if "join" in phases:
         if pre is None:
@@ -4328,6 +4464,9 @@ def main() -> None:
         ftimes = phase_fleet(dev, [c for c in (pre, prover_pre) if c is not None])
         log("fleet: phase seconds " + json.dumps(ftimes))
         done("fleet")
+    if "storm" in phases:
+        log("storm: " + json.dumps(phase_storm(dev, args.seed)))
+        done("storm")
     if "time" in phases:
         if counts is None or any(name not in shapes for name in JOINT):
             fail("the time phase needs the main and joint phases' launch counts")

@@ -14,6 +14,6 @@ Both return *per-instance verdicts* (never early-exit), so identifiable
 abort attribution is preserved exactly (`src/error.rs` semantics).
 """
 
-from .batch_verifier import BatchVerifier, HostBatchVerifier, get_backend
+from .batch_verifier import BatchVerifier, HostBatchVerifier, TracedVerifier, get_backend
 
-__all__ = ["BatchVerifier", "HostBatchVerifier", "get_backend"]
+__all__ = ["BatchVerifier", "HostBatchVerifier", "TracedVerifier", "get_backend"]

@@ -117,13 +117,39 @@ class HostBatchVerifier(BatchVerifier):
         ]
 
 
-def get_backend(config: ProtocolConfig) -> BatchVerifier:
-    """The configured verifier, with the session's hash_alg bound into it
-    (never installed process-wide)."""
+class TracedVerifier:
+    """Wraps a backend with per-family phase timers and counters
+    (`collect.{family}` phases, telemetry.spans). Not a BatchVerifier
+    subclass: inherited methods would shadow the __getattr__ delegation."""
+
+    def __init__(self, inner: BatchVerifier):
+        self._inner = inner
+
+    def __getattr__(self, name):
+        attr = getattr(self._inner, name)
+        if name.startswith(("verify_", "validate_")) and callable(attr):
+            from ..telemetry.spans import phase
+
+            def traced(items, *args, _attr=attr, _name=name, **kwargs):
+                # multi-list calls (verify_pairs) count every list's rows
+                rows = len(items) + sum(
+                    len(a) for a in args if isinstance(a, (list, tuple))
+                )
+                with phase(f"collect.{_name}", items=rows):
+                    return _attr(items, *args, **kwargs)
+
+            return traced
+        return attr
+
+
+def get_backend(config: ProtocolConfig) -> TracedVerifier:
+    """The configured verifier wrapped in a TracedVerifier (which quacks
+    like a BatchVerifier by delegation), with the session's hash_alg bound
+    into it (never installed process-wide)."""
     if config.backend == "host":
-        return HostBatchVerifier(config.hash_alg)
+        return TracedVerifier(HostBatchVerifier(config.hash_alg))
     if config.backend == "cuda":
         from .cuda_verifier import CudaBatchVerifier
 
-        return CudaBatchVerifier(config)
+        return TracedVerifier(CudaBatchVerifier(config))
     raise ValueError(f"unknown backend {config.backend!r}")

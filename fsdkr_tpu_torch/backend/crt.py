@@ -177,29 +177,59 @@ def store_stats() -> Dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
-# Engine statistics: counts only, never values. exp_bits_saved is priced
-# from structural modulus widths (public-modulus bits minus leg bits per
-# leg), never from exponent bit-lengths, which are secret-derived.
+# Engine statistics: counts only, never values, on the process-global
+# telemetry registry (one labeled counter for the engine events, function
+# gauges for the secret store's occupancy). exp_bits_saved is priced from
+# structural modulus widths (public-modulus bits minus leg bits per leg),
+# never from exponent bit-lengths, which are secret-derived.
 
 _EVENTS = ("rows", "legs", "fault_checks", "fallback_rows", "exp_bits_saved")
-_STATS: Dict[str, int] = {}
-_STATS_LOCK = threading.Lock()
+
+
+def _metric():
+    from ..telemetry import registry
+
+    return registry.counter(
+        "fsdkr_crt_events",
+        "secret-CRT prover engine statistics (backend.crt)",
+        labelnames=("event",),
+    )
 
 
 def _count(**kw) -> None:
-    with _STATS_LOCK:
-        for k, v in kw.items():
-            _STATS[k] = _STATS.get(k, 0) + v
+    m = _metric()
+    for k, v in kw.items():
+        m.inc(v, event=k)
 
 
 def crt_stats() -> Dict[str, int]:
-    with _STATS_LOCK:
-        return {e: _STATS.get(e, 0) for e in _EVENTS}
+    """The engine's event counts since the last stats_reset()."""
+    m = _metric()
+    return {e: int(m.value(event=e)) for e in _EVENTS}
 
 
 def stats_reset() -> None:
-    with _STATS_LOCK:
-        _STATS.clear()
+    _metric().reset()
+
+
+def _register_store_gauges() -> None:
+    from ..telemetry import registry
+
+    registry.gauge(
+        "fsdkr_crt_store_entries",
+        "CRT secret-store occupancy (contexts held; values never exported)",
+    ).set_function(lambda: _STORE.stats()["entries"])
+    registry.gauge(
+        "fsdkr_crt_store_hits",
+        "CRT secret-store lifetime hits",
+    ).set_function(lambda: _STORE.stats()["hits"])
+    registry.gauge(
+        "fsdkr_crt_store_misses",
+        "CRT secret-store lifetime misses",
+    ).set_function(lambda: _STORE.stats()["misses"])
+
+
+_register_store_gauges()
 
 
 # ---------------------------------------------------------------------------
@@ -252,9 +282,16 @@ def _fresh_check_prime(bases: Sequence[int]) -> int:
 
 def _leg_powm(bases: List[int], exps: List[int], mods: List[int]) -> List[int]:
     """One batch of CRT legs on the native core (run-grouped Montgomery
-    constants, every buffer wiped)."""
+    constants, every buffer wiped). Its roofline stamp prices the legs at
+    the leg-modulus width: the leg exponents are factorization-derived
+    secrets, and their bit-lengths must not reach an exported MAC count."""
     from .. import native
+    from ..telemetry.spans import get_tracer
+    from ..utils.roofline import stamp_generic_host
 
+    if bases and get_tracer().enabled:
+        mod_bits = max(m.bit_length() for m in mods)
+        stamp_generic_host(len(bases), mod_bits, mod_bits)
     return native.crt_modexp_batch(bases, exps, mods)
 
 

@@ -76,6 +76,8 @@ from ..proofs.pdl_slack import PDLwSlackProof
 from ..proofs.ring_pedersen import RingPedersenProof
 from ..ops.limbs import limbs_for_bits
 from .batch_verifier import BatchVerifier, HostBatchVerifier
+from ..telemetry.spans import get_tracer, phase
+from ..utils.roofline import modmul_macs
 from ..utils.pipeline import prefetch_tiles, run_jobs
 from . import memplan, rlc
 from .powm import (
@@ -110,6 +112,8 @@ def batch_inv(values, moduli, device="cuda") -> List:
         groups.setdefault(m, []).append(i)
     glist = [(m, [values[i] for i in idxs]) for m, idxs in groups.items()]
     k = limbs_for_bits(max(m.bit_length() for m in moduli))
+    # a product tree: about three Montgomery products a row
+    get_tracer().add_macs(modmul_macs(len(values), k))
     ctx = _cached_ctx([m for m, _ in glist], k, device)
     res = batch_mod_inv_grouped(glist, k, device, ctx)
     out: List = [None] * len(values)
@@ -149,14 +153,15 @@ class CudaBatchVerifier(BatchVerifier):
         (bases (1, 1), exponents (0, 0)) and checked in _pdl_finish by
         the column form's equality alone."""
         row_ok = [PDLwSlackProof.domain_gate(p, st) for p, st in items]
-        e_vec = [
-            PDLwSlackProof._challenge(
-                st, p.z, p.u1, p.u2, p.u3, self.config.hash_alg
-            )
-            if ok
-            else 0
-            for (p, st), ok in zip(items, row_ok)
-        ]
+        with phase("pdl.challenge", items=len(items)):
+            e_vec = [
+                PDLwSlackProof._challenge(
+                    st, p.z, p.u1, p.u2, p.u3, self.config.hash_alg
+                )
+                if ok
+                else 0
+                for (p, st), ok in zip(items, row_ok)
+            ]
         s1_col = [p.s1 if ok else 0 for (p, _), ok in zip(items, row_ok)]
         s3_col = [p.s3 if ok else 0 for (p, _), ok in zip(items, row_ok)]
         nn_mod = [st.ek.nn for _, st in items]
@@ -173,7 +178,9 @@ class CudaBatchVerifier(BatchVerifier):
             ) + nt_cols
             return cols, (e_vec, nn_mod, nt_mod, row_ok, None)
         need = [i for i in range(len(items)) if row_ok[i] and e_vec[i] != 0]
-        invs = batch_base_inv([items[i][1].ciphertext for i in need], [nn_mod[i] for i in need])
+        with phase("pdl.base_inv", items=len(need)):
+            invs = batch_base_inv([items[i][1].ciphertext for i in need],
+                                  [nn_mod[i] for i in need])
         c_inv = [1] * len(items)
         inv_fail = [False] * len(items)
         for i, v in zip(need, invs):
@@ -196,31 +203,26 @@ class CudaBatchVerifier(BatchVerifier):
         `session_of` is taken for parity with _pdl_rlc_finish and ignored:
         column verdicts are exact per row."""
         e_vec, nn_mod, nt_mod, row_ok, inv_fail = state
-        gs1 = [(1 + (p.s1 % st.ek.n) * st.ek.n) % st.ek.nn for p, st in items]
-        if inv_fail is None:  # column path
-            c_e, s2_n, z_e, h1_s1, h2_s3 = results
-            lhs2 = self._modmul([p.u2 for p, _ in items], c_e, nn_mod)
-            rhs2 = self._modmul(gs1, s2_n, nn_mod)
-            ok2_vec = [lhs2[i] == rhs2[i] and row_ok[i] for i in range(len(items))]
-        else:  # joint path: u2 ?= gs1 * s2^n * c^{-e}
-            z_e, h1_s1, h2_s3, v2 = results
-            rhs2 = self._modmul(gs1, v2, nn_mod)
-            ok2_vec = [
-                # gcd(c, n^2) > 1 (adversarial): this row's column form
-                (self._pdl_eq2_exact(items, e_vec, i) if inv_fail[i]
-                 else p.u2 % st.ek.nn == rhs2[i]) and row_ok[i]
-                for i, (p, st) in enumerate(items)
-            ]
-        lhs3 = self._modmul([p.u3 for p, _ in items], z_e, nt_mod)
-        rhs3 = self._modmul(h1_s1, h2_s3, nt_mod)
-        ok1_vec = self._pdl_u1_batch(items, e_vec)
-        out = []
-        for idx in range(len(items)):
-            ok1 = ok1_vec[idx] and row_ok[idx]
-            ok2 = ok2_vec[idx]
-            ok3 = lhs3[idx] == rhs3[idx] and row_ok[idx]
-            out.append(None if (ok1 and ok2 and ok3) else (ok1, ok2, ok3))
-        return out
+        with phase("pdl.combine", items=len(items)):
+            gs1 = [(1 + (p.s1 % st.ek.n) * st.ek.n) % st.ek.nn for p, st in items]
+            if inv_fail is None:  # column path
+                c_e, s2_n, z_e, h1_s1, h2_s3 = results
+                lhs2 = self._modmul([p.u2 for p, _ in items], c_e, nn_mod)
+                rhs2 = self._modmul(gs1, s2_n, nn_mod)
+                ok2_vec = [lhs2[i] == rhs2[i] and row_ok[i] for i in range(len(items))]
+            else:  # joint path: u2 ?= gs1 * s2^n * c^{-e}
+                z_e, h1_s1, h2_s3, v2 = results
+                rhs2 = self._modmul(gs1, v2, nn_mod)
+                ok2_vec = [
+                    # gcd(c, n^2) > 1 (adversarial): this row's column form
+                    (self._pdl_eq2_exact(items, e_vec, i) if inv_fail[i]
+                     else p.u2 % st.ek.nn == rhs2[i]) and row_ok[i]
+                    for i, (p, st) in enumerate(items)
+                ]
+            lhs3 = self._modmul([p.u3 for p, _ in items], z_e, nt_mod)
+            rhs3 = self._modmul(h1_s1, h2_s3, nt_mod)
+        ok3_vec = [lhs3[i] == rhs3[i] and row_ok[i] for i in range(len(items))]
+        return self._pdl_verdicts(items, e_vec, row_ok, ok2_vec, ok3_vec)
 
     def _pdl_u1_batch(self, items, e_vec) -> List[bool]:
         """u1 == s1*G - e*Q per row (`src/zk_pdl_with_slack.rs:124-127`),
@@ -274,12 +276,13 @@ class CudaBatchVerifier(BatchVerifier):
         does phase 2, each s2-aggregate raised to n. An out-of-domain row
         enters no fold and is force-failed in finish."""
         row_ok = [PDLwSlackProof.domain_gate(p, st) for p, st in items]
-        e_vec = [
-            PDLwSlackProof._challenge(st, p.z, p.u1, p.u2, p.u3, self.config.hash_alg)
-            if ok
-            else 0
-            for (p, st), ok in zip(items, row_ok)
-        ]
+        with phase("pdl.challenge", items=len(items)):
+            e_vec = [
+                PDLwSlackProof._challenge(st, p.z, p.u1, p.u2, p.u3, self.config.hash_alg)
+                if ok
+                else 0
+                for (p, st), ok in zip(items, row_ok)
+            ]
         col, nt_fold, nn_fold = self._pdl_fold_span(items, e_vec, row_ok, range(len(items)))
         groups = len(nt_fold) + len(nn_fold)
         rlc.count("rlc_groups", groups)
@@ -402,9 +405,11 @@ class CudaBatchVerifier(BatchVerifier):
 
     def _pdl_verdicts(self, items, e_vec, row_ok, ok2_vec, ok3_vec, ok1_vec=None):
         """The (u1, u2, u3) triples of _pdl_finish from the per-equation
-        vectors; the EC u1 column as one device MSM unless given."""
+        vectors; the EC u1 column as one device MSM unless given (the
+        streamed path's tiles computed it)."""
         if ok1_vec is None:
-            ok1_vec = self._pdl_u1_batch(items, e_vec)
+            with phase("pdl.ec_u1", items=len(items)):
+                ok1_vec = self._pdl_u1_batch(items, e_vec)
         out = []
         for idx in range(len(items)):
             ok1 = ok1_vec[idx] and row_ok[idx]
@@ -439,22 +444,24 @@ class CudaBatchVerifier(BatchVerifier):
         exact per-row checks."""
         ok2_vec = [False] * len(items)
         ok3_vec = [False] * len(items)
-        lhs_vals = fold_ladder2([((h1, h2), tuple(exps), nt)
-                                 for (h1, h2, nt), _, exps, _ in nt_groups], self.device)
-        for ((h1, h2, nt), idxs, _, rhs), lhs in zip(nt_groups, lhs_vals):
-            if lhs == rhs:
-                for i in idxs:
-                    ok3_vec[i] = True
-            else:
-                self._pdl_nt_bisect(items, e_vec, h1, h2, nt, idxs, ok3_vec, session_of)
-        a_pow = self._modexp([g[3] for g in nn_groups], [g[0][0] for g in nn_groups],
-                             [g[0][1] for g in nn_groups])
-        for ((n, nn), idxs, s1_sum, _, commit), ap in zip(nn_groups, a_pow):
-            if commit == (1 + (s1_sum % n) * n) % nn * ap % nn:
-                for i in idxs:
-                    ok2_vec[i] = True
-            else:
-                self._pdl_nn_bisect(items, e_vec, n, nn, idxs, ok2_vec, session_of)
+        with phase("pdl.rlc_eq3", items=sum(len(g[1]) for g in nt_groups)):
+            lhs_vals = fold_ladder2([((h1, h2), tuple(exps), nt)
+                                     for (h1, h2, nt), _, exps, _ in nt_groups], self.device)
+            for ((h1, h2, nt), idxs, _, rhs), lhs in zip(nt_groups, lhs_vals):
+                if lhs == rhs:
+                    for i in idxs:
+                        ok3_vec[i] = True
+                else:
+                    self._pdl_nt_bisect(items, e_vec, h1, h2, nt, idxs, ok3_vec, session_of)
+        with phase("pdl.rlc_eq2", items=sum(len(g[1]) for g in nn_groups)):
+            a_pow = self._modexp([g[3] for g in nn_groups], [g[0][0] for g in nn_groups],
+                                 [g[0][1] for g in nn_groups])
+            for ((n, nn), idxs, s1_sum, _, commit), ap in zip(nn_groups, a_pow):
+                if commit == (1 + (s1_sum % n) * n) % nn * ap % nn:
+                    for i in idxs:
+                        ok2_vec[i] = True
+                else:
+                    self._pdl_nn_bisect(items, e_vec, n, nn, idxs, ok2_vec, session_of)
         return ok2_vec, ok3_vec
 
     def _pdl_layout(self, items):
@@ -470,7 +477,9 @@ class CudaBatchVerifier(BatchVerifier):
         if not items:
             return []
         cols, state, finish = self._pdl_layout(items)
-        return finish(items, state, powm_columns(self._modexp, *cols))
+        with phase("pdl.modexp_columns", items=len(cols) * len(items)):
+            results = powm_columns(self._modexp, *cols)
+        return finish(items, state, results)
 
     # ------------------------------------------------------------------
     def _range_gate(self, items):
@@ -497,8 +506,9 @@ class CudaBatchVerifier(BatchVerifier):
         layouts."""
         rows = len(items)
         need = [i for i in range(rows) if row_ok[i] and e_vec[i] != 0]
-        z_invs = batch_base_inv([items[i][0].z for i in need], [nt_mod[i] for i in need])
-        c_invs = batch_base_inv([items[i][1] for i in need], [nn_mod[i] for i in need])
+        with phase("range.base_inv", items=2 * len(need)):
+            z_invs = batch_base_inv([items[i][0].z for i in need], [nt_mod[i] for i in need])
+            c_invs = batch_base_inv([items[i][1] for i in need], [nn_mod[i] for i in need])
         z_inv = [1] * rows
         c_inv = [1] * rows
         inv_fail = [False] * rows
@@ -554,46 +564,50 @@ class CudaBatchVerifier(BatchVerifier):
 
     def _range_finish(self, items, mods, results):
         nn_mod, nt_mod, row_ok, inv_fail = mods
-        w_part = self._modmul(results[1], results[2], nt_mod)  # h1^s1 * h2^s2
-        # domain-gated rows are force-failed below and skipped here: an
-        # adversarial s1 on a gated row can be arbitrarily wide
-        gs1 = [
-            (1 + p.s1 * ek.n) % ek.nn if ok else 1
-            for (p, _, ek, _), ok in zip(items, row_ok)
-        ]
-        if inv_fail is None:  # column path
-            z_e, _, _, c_e, s_n = results
-            u_part = self._modmul(gs1, s_n, nn_mod)
-            z_e_inv_vec = batch_inv(z_e, nt_mod, self.device)
-            c_e_inv_vec = batch_inv(c_e, nn_mod, self.device)
-        else:
-            z_inv_e, _, _, v_u = results
-            w_vec = self._modmul(w_part, z_inv_e, nt_mod)
-            u_vec = self._modmul(gs1, v_u, nn_mod)
-        out = []
-        for idx, (proof, cipher, ek, dlog) in enumerate(items):
-            if not row_ok[idx]:
-                out.append(False)
-                continue
-            if inv_fail is None:
-                z_e_inv = z_e_inv_vec[idx]
-                c_e_inv = c_e_inv_vec[idx]
-                if z_e_inv is None or c_e_inv is None:
-                    out.append(False)
-                    continue
-                w = w_part[idx] * z_e_inv % dlog.N
-                u = u_part[idx] * c_e_inv % ek.nn
+        with phase("range.combine", items=len(items)):
+            w_part = self._modmul(results[1], results[2], nt_mod)  # h1^s1 * h2^s2
+            # domain-gated rows are force-failed below and skipped here: an
+            # adversarial s1 on a gated row can be arbitrarily wide
+            gs1 = [
+                (1 + p.s1 * ek.n) % ek.nn if ok else 1
+                for (p, _, ek, _), ok in zip(items, row_ok)
+            ]
+            if inv_fail is None:  # column path
+                z_e, _, _, c_e, s_n = results
+                u_part = self._modmul(gs1, s_n, nn_mod)
             else:
-                if inv_fail[idx]:
+                z_inv_e, _, _, v_u = results
+                w_vec = self._modmul(w_part, z_inv_e, nt_mod)
+                u_vec = self._modmul(gs1, v_u, nn_mod)
+        if inv_fail is None:
+            with phase("range.batch_inv", items=2 * len(items)):
+                z_e_inv_vec = batch_inv(z_e, nt_mod, self.device)
+                c_e_inv_vec = batch_inv(c_e, nn_mod, self.device)
+        out = []
+        with phase("range.challenge", items=len(items)):
+            for idx, (proof, cipher, ek, dlog) in enumerate(items):
+                if not row_ok[idx]:
                     out.append(False)
                     continue
-                w, u = w_vec[idx], u_vec[idx]
-            out.append(
-                alice_range._challenge(
-                    ek.n, cipher, proof.z, u, w, self.config.hash_alg
+                if inv_fail is None:
+                    z_e_inv = z_e_inv_vec[idx]
+                    c_e_inv = c_e_inv_vec[idx]
+                    if z_e_inv is None or c_e_inv is None:
+                        out.append(False)
+                        continue
+                    w = w_part[idx] * z_e_inv % dlog.N
+                    u = u_part[idx] * c_e_inv % ek.nn
+                else:
+                    if inv_fail[idx]:
+                        out.append(False)
+                        continue
+                    w, u = w_vec[idx], u_vec[idx]
+                out.append(
+                    alice_range._challenge(
+                        ek.n, cipher, proof.z, u, w, self.config.hash_alg
+                    )
+                    == proof.e
                 )
-                == proof.e
-            )
         return out
 
     # -- FSDKRC_RANGEOPT: the range family's own engines ---------------
@@ -635,10 +649,11 @@ class CudaBatchVerifier(BatchVerifier):
         nt_groups = list(state["nt_groups"].items())
         if nn_groups:
             def u_job():
-                res = device_powm_shared_exp_groups(
-                    [([items[i][0].s for i in idxs], n, nn, [c_inv[i] for i in idxs],
-                      [e_vec[i] for i in idxs]) for (n, nn), idxs in nn_groups],
-                    self.device)
+                with phase("range.u_pow", items=sum(len(idxs) for _, idxs in nn_groups)):
+                    res = device_powm_shared_exp_groups(
+                        [([items[i][0].s for i in idxs], n, nn, [c_inv[i] for i in idxs],
+                          [e_vec[i] for i in idxs]) for (n, nn), idxs in nn_groups],
+                        self.device)
                 for (_, idxs), vals in zip(nn_groups, res):
                     for i, v in zip(idxs, vals):
                         state["u_pow"][i] = v
@@ -646,10 +661,12 @@ class CudaBatchVerifier(BatchVerifier):
             jobs.append(u_job)
         if nt_groups:
             def w_job():
-                res = joint_comb2_groups(
-                    [(h1, [items[i][0].s1 for i in idxs], h2, [items[i][0].s2 for i in idxs], nt)
-                     for (h1, h2, nt), idxs in nt_groups],
-                    self.device)
+                with phase("range.comb2", items=sum(len(idxs) for _, idxs in nt_groups)):
+                    res = joint_comb2_groups(
+                        [(h1, [items[i][0].s1 for i in idxs], h2,
+                          [items[i][0].s2 for i in idxs], nt)
+                         for (h1, h2, nt), idxs in nt_groups],
+                        self.device)
                 for (_, idxs), vals in zip(nt_groups, res):
                     for i, v in zip(idxs, vals):
                         state["hs"][i] = v
@@ -658,8 +675,9 @@ class CudaBatchVerifier(BatchVerifier):
         z_rows = [i for i in range(len(items)) if state["live"][i] and e_vec[i]]
         if z_rows:
             def z_job():
-                res = self._modexp([z_inv[i] for i in z_rows], [e_vec[i] for i in z_rows],
-                                   [state["nt_mod"][i] for i in z_rows])
+                with phase("range.z_e", items=len(z_rows)):
+                    res = self._modexp([z_inv[i] for i in z_rows], [e_vec[i] for i in z_rows],
+                                       [state["nt_mod"][i] for i in z_rows])
                 for i, v in zip(z_rows, res):
                     state["z_pow"][i] = v
 
@@ -670,18 +688,21 @@ class CudaBatchVerifier(BatchVerifier):
         """u = gs1 * u_pow mod n^2, w = hs * z_pow mod N~, then the
         challenge of every live row."""
         idxs = [i for i in range(len(items)) if state["live"][i]]
-        # gs1 only for live rows: s1 <= q^3 by the domain gate
-        gs1 = [(1 + items[i][0].s1 * items[i][2].n) % items[i][2].nn for i in idxs]
-        u_col = self._modmul(gs1, [state["u_pow"][i] for i in idxs],
-                             [state["nn_mod"][i] for i in idxs])
-        w_col = self._modmul([state["hs"][i] for i in idxs], [state["z_pow"][i] for i in idxs],
-                             [state["nt_mod"][i] for i in idxs])
+        with phase("range.combine", items=len(idxs)):
+            # gs1 only for live rows: s1 <= q^3 by the domain gate
+            gs1 = [(1 + items[i][0].s1 * items[i][2].n) % items[i][2].nn for i in idxs]
+            u_col = self._modmul(gs1, [state["u_pow"][i] for i in idxs],
+                                 [state["nn_mod"][i] for i in idxs])
+            w_col = self._modmul([state["hs"][i] for i in idxs],
+                                 [state["z_pow"][i] for i in idxs],
+                                 [state["nt_mod"][i] for i in idxs])
         out = [False] * len(items)
-        for i, u, w in zip(idxs, u_col, w_col):
-            proof, cipher, ek, _ = items[i]
-            out[i] = alice_range._challenge(
-                ek.n, cipher, proof.z, u, w, self.config.hash_alg
-            ) == proof.e
+        with phase("range.challenge", items=len(idxs)):
+            for i, u, w in zip(idxs, u_col, w_col):
+                proof, cipher, ek, _ = items[i]
+                out[i] = alice_range._challenge(
+                    ek.n, cipher, proof.z, u, w, self.config.hash_alg
+                ) == proof.e
         return out
 
     def verify_range(self, items):
@@ -692,7 +713,9 @@ class CudaBatchVerifier(BatchVerifier):
             run_jobs(self._range_opt_jobs(items, state))
             return self._range_opt_finish(items, state)
         cols, mods = self._range_prepare(items, joint=multiexp_enabled())
-        return self._range_finish(items, mods, powm_columns(self._modexp, *cols))
+        with phase("range.modexp_columns", items=len(cols) * len(items)):
+            results = powm_columns(self._modexp, *cols)
+        return self._range_finish(items, mods, results)
 
     # ------------------------------------------------------------------
     def verify_pairs(self, pdl_items, range_items, session_spans=None):
@@ -760,8 +783,9 @@ class CudaBatchVerifier(BatchVerifier):
         if len(rep_idx) == len(pdl_items):
             return None
         rlc.count("xsession_rows_deduped", len(pdl_items) - len(rep_idx))
-        p_u, r_u = self.verify_pairs([pdl_items[i] for i in rep_idx],
-                                     [range_items[i] for i in rep_idx])
+        with phase("pairs.xsession_dedup", items=len(pdl_items), unique=len(rep_idx)):
+            p_u, r_u = self.verify_pairs([pdl_items[i] for i in rep_idx],
+                                         [range_items[i] for i in rep_idx])
         pdl_out = [None] * len(pdl_items)
         range_out = [False] * len(range_items)
         for j, rows in enumerate(owners):
@@ -811,7 +835,8 @@ class CudaBatchVerifier(BatchVerifier):
                 finally:
                     memplan.release(nbytes)
 
-            prefetch_tiles(plan.tiles, lambda lo, hi: (lo, hi), consume_cols)
+            with phase("pairs.stream_tiles", items=rows, tiles=len(plan.tiles)):
+                prefetch_tiles(plan.tiles, lambda lo, hi: (lo, hi), consume_cols)
             return pdl_out, range_out
 
         e_vec = [0] * rows
@@ -824,11 +849,12 @@ class CudaBatchVerifier(BatchVerifier):
             # host-only staging of the next tile, read-only over shared state
             tile = pdl_items[lo:hi]
             p_ok = [PDLwSlackProof.domain_gate(p, st) for p, st in tile]
-            e_tile = [
-                PDLwSlackProof._challenge(st, p.z, p.u1, p.u2, p.u3, self.config.hash_alg)
-                if ok else 0
-                for (p, st), ok in zip(tile, p_ok)
-            ]
+            with phase("pdl.challenge", items=len(tile)):
+                e_tile = [
+                    PDLwSlackProof._challenge(st, p.z, p.u1, p.u2, p.u3, self.config.hash_alg)
+                    if ok else 0
+                    for (p, st), ok in zip(tile, p_ok)
+                ]
             return lo, hi, p_ok, e_tile
 
         def consume(prep):
@@ -842,7 +868,8 @@ class CudaBatchVerifier(BatchVerifier):
                 rlc.count("stream_tiles")
                 (mb, me, mm), nt_fold, nn_fold = self._pdl_fold_span(
                     pdl_items, e_vec, row_ok, range(lo, hi))
-                res = multi_powm(mb, me, mm, self.device) if mm else []
+                with phase("pdl.rlc_fold", items=len(mm)):
+                    res = multi_powm(mb, me, mm, self.device) if mm else []
                 for key, idxs, exps, pos in nt_fold:
                     fold = nt_folds.get(key)
                     if fold is None:
@@ -854,11 +881,13 @@ class CudaBatchVerifier(BatchVerifier):
                         fold = nn_folds[key] = rlc.StreamFold(key[1], n_prods=2, n_exps=1)
                     fold.absorb([res[pos], res[pos + 1]], (s1_sum,), idxs)
                 range_out[lo:hi] = self.verify_range(range_items[lo:hi])
-                ok1_vec[lo:hi] = self._pdl_u1_batch(pdl_items[lo:hi], e_tile)
+                with phase("pdl.ec_u1", items=hi - lo):
+                    ok1_vec[lo:hi] = self._pdl_u1_batch(pdl_items[lo:hi], e_tile)
             finally:
                 memplan.release(nbytes)
 
-        prefetch_tiles(plan.tiles, prepare, consume)
+        with phase("pairs.stream_tiles", items=rows, tiles=len(plan.tiles)):
+            prefetch_tiles(plan.tiles, prepare, consume)
 
         # finish: each group's full-width ladders, once
         groups = len(nt_folds) + len(nn_folds)
@@ -886,15 +915,21 @@ class CudaBatchVerifier(BatchVerifier):
             presults = [None]
 
             def pdl_job():
-                presults[0] = powm_columns(self._modexp, *pcols)
+                with phase("pdl.modexp_columns", items=len(pcols) * len(pdl_items)):
+                    presults[0] = powm_columns(self._modexp, *pcols)
 
-            run_jobs([pdl_job] + self._range_opt_jobs(range_items, rstate))
+            jobs = [pdl_job] + self._range_opt_jobs(range_items, rstate)
+            with phase("pairs.modexp_columns",
+                       items=len(pcols) * len(pdl_items) + len(range_items)):
+                run_jobs(jobs)
             return (
                 pdl_finish(pdl_items, state, presults[0], session_of=session_of),
                 self._range_opt_finish(range_items, rstate),
             )
         rcols, rmods = self._range_prepare(range_items, joint=multiexp_enabled())
-        results = powm_columns(self._modexp, *pcols, *rcols)
+        with phase("pairs.modexp_columns",
+                   items=len(pcols) * len(pdl_items) + len(rcols) * len(range_items)):
+            results = powm_columns(self._modexp, *pcols, *rcols)
         return (
             pdl_finish(pdl_items, state, results[: len(pcols)], session_of=session_of),
             self._range_finish(range_items, rmods, results[len(pcols) :]),
@@ -924,22 +959,24 @@ class CudaBatchVerifier(BatchVerifier):
             return self._ring_pedersen_rlc(items, m_security)
         bases, exps, moduli, rhs_a, rhs_s = [], [], [], [], []
         shapes_ok = []
-        for proof, st in items:
-            ok = self._ring_pedersen_gate(proof, st, m_security)
-            shapes_ok.append(ok)
-            if not ok:
-                continue
-            e = RingPedersenProof._challenge(proof.A, self.config.hash_alg)
-            bits = challenge_bits(e, m_security, self.config.hash_alg)
-            for a_i, z_i, b in zip(proof.A, proof.Z, bits):
-                bases.append(st.T)
-                exps.append(z_i)
-                moduli.append(st.N)
-                rhs_a.append(a_i)
-                rhs_s.append(st.S if b else 1)
+        with phase("ringped.challenge", items=len(items)):
+            for proof, st in items:
+                ok = self._ring_pedersen_gate(proof, st, m_security)
+                shapes_ok.append(ok)
+                if not ok:
+                    continue
+                e = RingPedersenProof._challenge(proof.A, self.config.hash_alg)
+                bits = challenge_bits(e, m_security, self.config.hash_alg)
+                for a_i, z_i, b in zip(proof.A, proof.Z, bits):
+                    bases.append(st.T)
+                    exps.append(z_i)
+                    moduli.append(st.N)
+                    rhs_a.append(a_i)
+                    rhs_s.append(st.S if b else 1)
 
-        lhs = self._modexp(bases, exps, moduli)
-        rhs = self._modmul(rhs_a, rhs_s, moduli)
+        with phase("ringped.modexp", items=len(bases)):
+            lhs = self._modexp(bases, exps, moduli)
+            rhs = self._modmul(rhs_a, rhs_s, moduli)
 
         out = []
         row = 0
@@ -965,27 +1002,30 @@ class CudaBatchVerifier(BatchVerifier):
         plan = []  # (proof, st, bits)
         lhs_b, lhs_e, lhs_m = [], [], []
         mb, me, mm = [], [], []
-        for proof, st in items:
-            ok = self._ring_pedersen_gate(proof, st, m_security)
-            shapes_ok.append(ok)
-            if not ok:
-                continue
-            e = RingPedersenProof._challenge(proof.A, self.config.hash_alg)
-            bits = challenge_bits(e, m_security, self.config.hash_alg)
-            lhs, rhs = RingPedersenProof.rlc_fold(st, proof, bits, rlc.sample_rhos(m_security))
-            plan.append((proof, st, bits))
-            lhs_b.append(lhs[0][0])
-            lhs_e.append(lhs[1][0])
-            lhs_m.append(lhs[2])
-            mb.append(rhs[0])
-            me.append(rhs[1])
-            mm.append(rhs[2])
+        with phase("ringped.challenge", items=len(items)):
+            for proof, st in items:
+                ok = self._ring_pedersen_gate(proof, st, m_security)
+                shapes_ok.append(ok)
+                if not ok:
+                    continue
+                e = RingPedersenProof._challenge(proof.A, self.config.hash_alg)
+                bits = challenge_bits(e, m_security, self.config.hash_alg)
+                lhs, rhs = RingPedersenProof.rlc_fold(st, proof, bits,
+                                                      rlc.sample_rhos(m_security))
+                plan.append((proof, st, bits))
+                lhs_b.append(lhs[0][0])
+                lhs_e.append(lhs[1][0])
+                lhs_m.append(lhs[2])
+                mb.append(rhs[0])
+                me.append(rhs[1])
+                mm.append(rhs[2])
         if not plan:
             return [False] * len(items)
         rlc.count("rlc_groups", len(plan))
         rlc.count("rows_folded", len(plan) * m_security)
         rlc.count("fullwidth_ladders", len(plan))
-        lhs_vals, rhs_vals = powm_columns(self._modexp, (lhs_b, lhs_e, lhs_m), (mb, me, mm))
+        with phase("ringped.modexp", items=len(plan) * (m_security + 2)):
+            lhs_vals, rhs_vals = powm_columns(self._modexp, (lhs_b, lhs_e, lhs_m), (mb, me, mm))
 
         verdicts = iter(zip(plan, lhs_vals, rhs_vals))
         out = []
@@ -1036,23 +1076,25 @@ class CudaBatchVerifier(BatchVerifier):
             return self._correct_key_rlc(items, rounds)
         bases, exps, moduli, want = [], [], [], []
         gates = []
-        for proof, ek in items:
-            gate = self._correct_key_gate(proof, ek, rounds)
-            gates.append(gate)
-            if not gate:
-                continue
-            n = ek.n
-            for i, sigma in enumerate(proof.sigma_vec):
-                bases.append(sigma)
-                exps.append(n)
-                moduli.append(n)
-                want.append(
-                    correct_key._derive_rho(
-                        n, correct_key.SALT_STRING, i, self.config.hash_alg
+        with phase("correct_key.rho_derive", items=len(items)):
+            for proof, ek in items:
+                gate = self._correct_key_gate(proof, ek, rounds)
+                gates.append(gate)
+                if not gate:
+                    continue
+                n = ek.n
+                for i, sigma in enumerate(proof.sigma_vec):
+                    bases.append(sigma)
+                    exps.append(n)
+                    moduli.append(n)
+                    want.append(
+                        correct_key._derive_rho(
+                            n, correct_key.SALT_STRING, i, self.config.hash_alg
+                        )
                     )
-                )
 
-        got = self._modexp(bases, exps, moduli)
+        with phase("correct_key.modexp", items=len(bases)):
+            got = self._modexp(bases, exps, moduli)
         out = []
         row = 0
         for gate in gates:
@@ -1074,29 +1116,33 @@ class CudaBatchVerifier(BatchVerifier):
         gates = []
         plan = []  # (sigma_vec, want, n, sigma position, target position)
         mb, me, mm = [], [], []
-        for proof, ek in items:
-            gate = self._correct_key_gate(proof, ek, rounds)
-            gates.append(gate)
-            if not gate:
-                continue
-            n = ek.n
-            want = [correct_key._derive_rho(n, correct_key.SALT_STRING, i, self.config.hash_alg)
-                    for i in range(rounds)]
-            sig_row, tgt_row = correct_key.NiCorrectKeyProof.rlc_fold(
-                proof.sigma_vec, want, n, rlc.sample_rhos(rounds))
-            plan.append((proof.sigma_vec, want, n, len(mm), len(mm) + 1))
-            for b, e, m in (sig_row, tgt_row):
-                mb.append(b)
-                me.append(e)
-                mm.append(m)
+        with phase("correct_key.rho_derive", items=len(items)):
+            for proof, ek in items:
+                gate = self._correct_key_gate(proof, ek, rounds)
+                gates.append(gate)
+                if not gate:
+                    continue
+                n = ek.n
+                want = [correct_key._derive_rho(n, correct_key.SALT_STRING, i,
+                                                self.config.hash_alg)
+                        for i in range(rounds)]
+                sig_row, tgt_row = correct_key.NiCorrectKeyProof.rlc_fold(
+                    proof.sigma_vec, want, n, rlc.sample_rhos(rounds))
+                plan.append((proof.sigma_vec, want, n, len(mm), len(mm) + 1))
+                for b, e, m in (sig_row, tgt_row):
+                    mb.append(b)
+                    me.append(e)
+                    mm.append(m)
         if not plan:
             return [False] * len(items)
         rlc.count("rlc_groups", len(plan))
         rlc.count("rows_folded", len(plan) * rounds)
         rlc.count("fullwidth_ladders", len(plan))
-        (multi_res,) = powm_columns(self._modexp, (mb, me, mm))
-        a_pow = self._modexp([multi_res[g[3]] for g in plan], [g[2] for g in plan],
-                             [g[2] for g in plan])
+        with phase("correct_key.modexp", items=len(plan) * (rounds + 1)):
+            (multi_res,) = powm_columns(self._modexp, (mb, me, mm))
+            # phase 2: every aggregate to the N-th power, one generic launch
+            a_pow = self._modexp([multi_res[g[3]] for g in plan], [g[2] for g in plan],
+                                 [g[2] for g in plan])
 
         verdicts = iter(zip(plan, a_pow))
         out = []
@@ -1143,17 +1189,19 @@ class CudaBatchVerifier(BatchVerifier):
             and p.y.bit_length() <= st.N.bit_length() + STAT_BITS + 320
             for p, st in items
         ]
-        e_vec = [
-            CompositeDLogProof._challenge(p.x_commit, st, self.config.hash_alg)
-            if ok
-            else 0
-            for (p, st), ok in zip(items, row_ok)
-        ]
+        with phase("composite_dlog.challenge", items=len(items)):
+            e_vec = [
+                CompositeDLogProof._challenge(p.x_commit, st, self.config.hash_alg)
+                if ok
+                else 0
+                for (p, st), ok in zip(items, row_ok)
+            ]
         moduli = [st.N if ok else 3 for (_, st), ok in zip(items, row_ok)]
         y_col = [p.y if ok else 0 for (p, _), ok in zip(items, row_ok)]
-        g_y = self._modexp([st.g for _, st in items], y_col, moduli)
-        ni_e = self._modexp([st.ni for _, st in items], e_vec, moduli)
-        lhs = self._modmul(g_y, ni_e, moduli)
+        with phase("composite_dlog.modexp", items=2 * len(items)):
+            g_y = self._modexp([st.g for _, st in items], y_col, moduli)
+            ni_e = self._modexp([st.ni for _, st in items], e_vec, moduli)
+            lhs = self._modmul(g_y, ni_e, moduli)
         return [
             row_ok[idx] and lhs[idx] == p.x_commit
             for idx, (p, st) in enumerate(items)

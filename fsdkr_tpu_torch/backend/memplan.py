@@ -159,65 +159,116 @@ def plan_rows(rows: int, row_bytes: int, label: str = "pairs",
 
 
 # ---------------------------------------------------------------------------
-# The plan's gauges (the latest plan, by family) and counters (since the
-# last stats_reset), and the staged bytes' high-water mark.
+# Telemetry: the fsdkr_mem_* family of the registry, under the JAX
+# package's names. Gauges describe the latest plan; counters accumulate
+# since the last stats_reset. The live staged bytes and their high-water
+# mark are the plan's estimate, kept beside them.
+
+
+def _metrics():
+    from ..telemetry import registry
+
+    return (
+        registry.gauge(
+            "fsdkr_mem_budget_bytes",
+            "staged-bytes budget of the streaming verification plan "
+            "(FSDKR_MEM_BUDGET_MB)",
+        ),
+        registry.gauge(
+            "fsdkr_mem_tile_rows",
+            "rows per tile of the latest memory plan",
+            labelnames=("family",),
+        ),
+        registry.gauge(
+            "fsdkr_mem_plan_rows",
+            "total rows of the latest memory plan",
+            labelnames=("family",),
+        ),
+        registry.counter(
+            "fsdkr_mem_tiles",
+            "tiles executed by the streaming verification plan",
+            labelnames=("family",),
+        ),
+        registry.counter(
+            "fsdkr_mem_plans",
+            "memory plans computed (multi=1 rows that needed >1 tile)",
+            labelnames=("family", "multi"),
+        ),
+        registry.counter(
+            "fsdkr_mem_bytes_staged",
+            "cumulative bytes staged through the limb encoder",
+        ),
+    )
+
 
 _LOCK = threading.Lock()
-_STATS: Dict[str, object] = {}
-
-
-def _fresh() -> Dict[str, object]:
-    return {"budget_bytes": 0, "tile_rows": {}, "plan_rows": {}, "tiles": {},
-            "plans": 0, "multi_tile_plans": 0, "staged_bytes_est": 0,
-            "peak_staged_bytes_est": 0}
-
-
-_STATS.update(_fresh())
+_STAGED = {"live": 0, "peak": 0}
 
 
 def _record_plan(label, rows, budget, tile, n_tiles) -> None:
-    with _LOCK:
-        _STATS["budget_bytes"] = budget
-        _STATS["tile_rows"][label] = tile
-        _STATS["plan_rows"][label] = rows
-        _STATS["plans"] += 1
-        _STATS["multi_tile_plans"] += n_tiles > 1
+    budget_g, tile_g, rows_g, _tiles, plans_c, _staged = _metrics()
+    budget_g.set(budget)
+    tile_g.set(tile, family=label)
+    rows_g.set(rows, family=label)
+    plans_c.inc(1, family=label, multi=(n_tiles > 1))
 
 
 def count_tile(label: str) -> None:
-    with _LOCK:
-        _STATS["tiles"][label] = _STATS["tiles"].get(label, 0) + 1
+    _metrics()[3].inc(1, family=label)
 
 
 def stage(nbytes: int) -> None:
     """Account a tile's estimated staged bytes as live (before its
     verify)."""
+    _metrics()[5].inc(nbytes)
     with _LOCK:
-        _STATS["staged_bytes_est"] += nbytes
-        _STATS["peak_staged_bytes_est"] = max(_STATS["peak_staged_bytes_est"],
-                                              _STATS["staged_bytes_est"])
+        _STAGED["live"] += nbytes
+        _STAGED["peak"] = max(_STAGED["peak"], _STAGED["live"])
 
 
 def release(nbytes: int) -> None:
     """Release a tile's accounted bytes (after its verify)."""
     with _LOCK:
-        _STATS["staged_bytes_est"] = max(0, _STATS["staged_bytes_est"] - nbytes)
+        _STAGED["live"] = max(0, _STAGED["live"] - nbytes)
+
+
+def _by_family(metric) -> Dict[str, int]:
+    return {rec["labels"]["family"]: int(rec["value"]) for rec in metric.snapshot_values()}
 
 
 def mem_stats() -> dict:
-    """The plan's state: the latest plan's budget, its tile and total
-    rows by family, tiles run by family, plans made (and how many cut more
-    than one tile), and the live staged bytes and their high-water mark,
-    both as `pair_row_bytes` / `ec_row_bytes` estimate them (not a
-    measurement of device memory)."""
+    """The plan's state, read from the registry: the latest plan's
+    budget, its tile and total rows by family, tiles run by family, plans
+    made (and how many cut more than one tile), the bytes staged, and the
+    live staged bytes and their high-water mark, all as `pair_row_bytes`
+    / `ec_row_bytes` estimate them (not a measurement of device
+    memory)."""
+    budget_g, tile_g, rows_g, tiles_c, plans_c, staged_c = _metrics()
+    budget = budget_g.snapshot_values()
+    plans = plans_c.snapshot_values()
     with _LOCK:
-        return {key: dict(v) if isinstance(v, dict) else v for key, v in _STATS.items()}
+        live, peak = _STAGED["live"], _STAGED["peak"]
+    return {
+        "budget_bytes": int(budget[0]["value"]) if budget else 0,
+        "tile_rows": _by_family(tile_g),
+        "plan_rows": _by_family(rows_g),
+        "tiles": _by_family(tiles_c),
+        "plans": int(sum(rec["value"] for rec in plans)),
+        "multi_tile_plans": int(sum(rec["value"] for rec in plans
+                                    if rec["labels"]["multi"] == "true")),
+        "bytes_staged": int(staged_c.value()),
+        "staged_bytes_est": live,
+        "peak_staged_bytes_est": peak,
+    }
 
 
 def stats_reset() -> None:
-    """Zero the counters and the high-water mark for a fresh window."""
+    """Zero the plan's metrics and the high-water mark for a fresh
+    window."""
+    for metric in _metrics():
+        metric.reset()
     with _LOCK:
-        _STATS.update(_fresh())
+        _STAGED["peak"] = _STAGED["live"]
 
 
 # ---------------------------------------------------------------------------

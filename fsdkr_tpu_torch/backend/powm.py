@@ -36,6 +36,14 @@ from typing import Callable, List, Optional, Sequence
 
 from ..config import ProtocolConfig
 from ..ops.limbs import WINDOW_BITS, bucket_exp_bits, limbs_for_bits
+from ..telemetry.spans import get_tracer
+from ..utils.roofline import (
+    generic_modexp_macs,
+    modmul_macs,
+    montmul_macs,
+    shared_modexp_macs,
+    stamp_generic_host,
+)
 
 BatchPowm = Callable[[Sequence[int], Sequence[int], Sequence[int]], List[int]]
 
@@ -147,7 +155,13 @@ def powm_cache_stats():
 
 
 def host_powm(bases, exps, moduli) -> List[int]:
-    """Host batched modexp: CPython pow per row."""
+    """Host batched modexp: CPython pow per row. Its roofline stamp
+    prices the exponents at the modulus width: exponent widths are
+    secret-derived on the prover paths and must not shape an exported
+    MAC count."""
+    if bases and get_tracer().enabled:
+        mod_bits = max(m.bit_length() for m in moduli)
+        stamp_generic_host(len(bases), mod_bits, mod_bits)
     return [pow(b, e, m) for b, e, m in zip(bases, exps, moduli)]
 
 
@@ -169,11 +183,17 @@ def device_powm(bases, exps, moduli, device="cuda") -> List[int]:
     bases, exps, moduli = _padded(bases, exps, moduli)
     width = max(m.bit_length() for m in moduli)
     cls = _width_class(width)
-    if b >= _RNS_MIN_ROWS and cls is not None:
+    rns = b >= _RNS_MIN_ROWS and cls is not None
+    k = limbs_for_bits(width)
+    tracer = get_tracer()
+    if tracer.enabled:
+        tracer.add_macs(generic_modexp_macs(len(bases), bucket_exp_bits(exps),
+                                            cls // 16 if rns else k))
+    if rns:
         from ..ops.rns import rns_modexp
 
         return rns_modexp(bases, exps, moduli, cls, device)[:b]
-    return _cached_ctx(moduli, limbs_for_bits(width), device).modexp(bases, exps)[:b]
+    return _cached_ctx(moduli, k, device).modexp(bases, exps)[:b]
 
 
 def device_powm_shared(bases, exps_per_group, moduli, device="cuda") -> List[List[int]]:
@@ -217,6 +237,7 @@ def device_powm_shared(bases, exps_per_group, moduli, device="cuda") -> List[Lis
     exps = [list(e) + [0] * (m_pad - len(e)) for e in exps_per_group]
     exps += [[0] * m_pad] * (g_pad - g)
     k = limbs_for_bits(max(m.bit_length() for m in moduli))
+    get_tracer().add_macs(shared_modexp_macs(g_pad, m_pad, w_cnt, k))
     out = shared_base_modexp(bases, exps, moduli, k, ctx=_cached_ctx(moduli, k, device))
     return [out[i][: len(exps_per_group[i])] for i in range(g)]
 
@@ -281,6 +302,10 @@ def device_powm_batches(batches, device="cuda") -> List[List[int]]:
             jobs.append((ctx, b, e, out, idx))
 
     def launch(group):
+        tracer = get_tracer()
+        if tracer.enabled:
+            tracer.add_macs(sum(generic_modexp_macs(len(b), bucket_exp_bits(e), ctx.ctx.num_limbs)
+                                for ctx, b, e, *_ in group))
         for (*_, out, idx), res in zip(group, modexp_batches([j[:3] for j in group])):
             for i, v in zip(idx, res):
                 out[i] = v
@@ -314,8 +339,11 @@ def device_modmul(a, b, moduli, device="cuda") -> List[int]:
     if rows >= _RNS_MIN_ROWS and cls is not None:
         from ..ops.rns import rns_modmul
 
+        get_tracer().add_macs(modmul_macs(len(a), cls // 16))
         return rns_modmul(a, b, moduli, cls, device)[:rows]
-    return _cached_ctx(moduli, limbs_for_bits(width), device).modmul(a, b)[:rows]
+    k = limbs_for_bits(width)
+    get_tracer().add_macs(modmul_macs(len(a), k))
+    return _cached_ctx(moduli, k, device).modmul(a, b)[:rows]
 
 
 def _knob_on(name: str) -> bool:
@@ -398,7 +426,11 @@ def _prod_mod(factors, m) -> int:
 
 
 def _host_joint(bases_rows, exps_rows, moduli) -> List[int]:
-    """The host's joint rows: CPython pow per term, multiplied back."""
+    """The host's joint rows: CPython pow per term, multiplied back;
+    stamped as one shared squaring chain a row at the modulus width."""
+    if moduli and get_tracer().enabled:
+        mod_bits = max(m.bit_length() for m in moduli)
+        stamp_generic_host(len(moduli), mod_bits, mod_bits)
     return [_prod_mod([pow(b, e, m) for b, e in zip(bs, es)], m)
             for bs, es, m in zip(bases_rows, exps_rows, moduli)]
 
@@ -466,6 +498,13 @@ def _device_joint_launch(bases_rows, exps_rows, moduli, t_cnt, device) -> List[i
     moduli = list(moduli) + [3] * pad
     exp_bits = tuple(bucket_exp_bits([e[t] for e in exps_rows]) for t in range(t_cnt))
     k = limbs_for_bits(max(m.bit_length() for m in moduli))
+    # the shared chain is as deep as the widest term; every further term
+    # adds only its own window lookups and table on top
+    extra = sorted(exp_bits, reverse=True)[1:]
+    get_tracer().add_macs(
+        generic_modexp_macs(len(moduli), max(exp_bits), k)
+        + sum(eb // 4 + 15 for eb in extra) * len(moduli) * montmul_macs(k)
+    )
     return multi_modexp(bases_rows, exps_rows, moduli, k, exp_bits,
                         ctx=_cached_ctx(moduli, k, device))[:rows]
 
@@ -604,6 +643,9 @@ def device_powm_shared_exp_groups(groups, device="cuda") -> List[List[int]]:
     for job in jobs + [None]:
         if group and (job is None or rows + len(job[1]) > _MAX_ROWS
                       or len(group) == MAX_SEGMENTS):
+            get_tracer().add_macs(sum(
+                generic_modexp_macs(len(bases), bucket_exp_bits([exp]), ctx.ctx.num_limbs)
+                for ctx, bases, exp, *_ in group))
             for (_, bases, _, gi, lo), res in zip(group, shared_exp_batches(
                     [j[:3] for j in group])):
                 n_real = min(len(bases), len(outs[gi]) - lo)

@@ -44,7 +44,6 @@ from __future__ import annotations
 
 import os
 import secrets
-import threading
 from typing import Callable, Dict, List, Sequence
 
 __all__ = [
@@ -82,35 +81,41 @@ def sample_rhos(count: int) -> List[int]:
 
 # Fold statistics: how many groups folded, how many per-row equations they
 # absorbed, how many full-width ladders the folded plan still launches
-# (one a group), and how many groups fell back to bisection. The JAX
-# package keeps them in its telemetry registry, which the port does not
-# have: a module-level dict over the same event names. The ladder-cache
-# events (the JAX package's host comb-table cache, which the port does not
-# need) stay 0.
+# (one a group), and how many groups fell back to bisection: the
+# `fsdkr_rlc_events{event}` counter of the telemetry registry, under the
+# JAX package's names, which the serving layer reads without importing
+# the backend. The ladder-cache events (the JAX package's host comb-table
+# cache, which the port does not need) stay 0.
 _EVENTS = (
     "rlc_groups", "rows_folded", "fullwidth_ladders", "bisect_fallbacks",
     "stream_tiles", "session_bisects", "ladder_cache_hits",
     "ladder_cache_misses", "xsession_rows_deduped",
 )
-_COUNTS: Dict[str, int] = dict.fromkeys(_EVENTS, 0)
-# the serving layer's worker and launcher threads verify side by side
-_COUNTS_LOCK = threading.Lock()
+
+
+def _metric():
+    from ..telemetry import registry
+
+    return registry.counter(
+        "fsdkr_rlc_events",
+        "randomized-batch-verification fold statistics (backend.rlc)",
+        labelnames=("event",),
+    )
 
 
 def count(name: str, n: int = 1) -> None:
-    with _COUNTS_LOCK:
-        _COUNTS[name] += n
+    _metric().inc(n, event=name)
 
 
 def stats() -> Dict[str, int]:
-    with _COUNTS_LOCK:
-        return dict(_COUNTS)
+    """The fold events since the last stats_reset() (a window view over
+    the registry's `fsdkr_rlc_events`)."""
+    m = _metric()
+    return {e: int(m.value(event=e)) for e in _EVENTS}
 
 
 def stats_reset() -> None:
-    with _COUNTS_LOCK:
-        for name in _EVENTS:
-            _COUNTS[name] = 0
+    _metric().reset()
 
 
 def bisect_rows(

@@ -19,6 +19,8 @@ __all__ = [
     "gen_primes_batch",
     "gen_modulus",
     "gen_moduli_batch",
+    "gen_stats",
+    "gen_stats_reset",
 ]
 
 
@@ -69,6 +71,31 @@ def is_probable_prime(n: int, rounds: int = 30) -> bool:
     return native.is_probable_prime(n, rounds)
 
 
+def _gen_metric():
+    from ..telemetry import registry
+
+    return registry.counter(
+        "fsdkr_primegen_events",
+        "prime-search work drawn (candidates sieved / MR rounds requested)",
+        labelnames=("event",),
+    )
+
+
+def gen_stats() -> dict:
+    """Prime-search work drawn since the last gen_stats_reset(): the
+    sieved candidates and the Miller-Rabin rounds requested (a keygen's
+    time varies with the work drawn, so it is read per candidate)."""
+    m = _gen_metric()
+    return {
+        "candidates": int(m.value(event="candidates")),
+        "mr_rounds": int(m.value(event="mr_rounds")),
+    }
+
+
+def gen_stats_reset() -> None:
+    _gen_metric().reset()
+
+
 def _mr_batch(cands: list, rounds: int) -> list:
     """Miller-Rabin verdicts of a window of candidates: one native batch,
     the candidates split over the cores."""
@@ -99,9 +126,13 @@ def gen_primes_batch(bits: int, count: int) -> list:
             c = secrets.randbits(bits) | (1 << (bits - 1)) | (1 << (bits - 2)) | 1
             if math.gcd(c, sieve) == 1:
                 cands.append(c)
+        gen = _gen_metric()
+        gen.inc(len(cands), event="candidates")
         # one cheap round first: almost every sieved composite dies here
+        gen.inc(len(cands), event="mr_rounds")
         survivors = [c for c, v in zip(cands, _mr_batch(cands, 1)) if v]
         if survivors:
+            gen.inc(29 * len(survivors), event="mr_rounds")
             found += [c for c, v in zip(survivors, _mr_batch(survivors, 29)) if v]
     return found[:count]
 

@@ -22,6 +22,8 @@ import secrets
 import threading
 from typing import Dict, List, Sequence
 
+from ..telemetry.spans import get_tracer
+from ..utils.roofline import stamp_generic_host, stamp_shared_host
 from ._loader import NativeBuildError, NativeLib, _PKG
 
 __all__ = [
@@ -216,6 +218,10 @@ def modexp_shared(base: int, exps: Sequence[int], mod: int) -> List[int]:
     range raises ValueError."""
     if not exps:
         return []
+    # the comb's roofline stamp, its exponents priced at the (public)
+    # modulus width: their own widths are secret-derived
+    if get_tracer().enabled:
+        stamp_shared_host(1, len(exps), mod.bit_length(), mod.bit_length())
     L = _limbs_for(mod)
     EL = max(1, max(_limbs_for(e) for e in exps))
     _check_range(L, [mod], exps)
@@ -251,6 +257,11 @@ def is_probable_prime_batch(
         return []
     L = max(_limbs_for(n) for n in ns)
     _check_range(L, ns, (), least=5)
+    # each round one modexp at the candidate width (the public bit size
+    # the caller asked for)
+    if get_tracer().enabled:
+        bits = max(n.bit_length() for n in ns)
+        stamp_generic_host(len(ns) * rounds, bits, bits)
     lib = _get()
     rows = len(ns)
     witnesses = [

@@ -46,6 +46,8 @@ import torch
 from ..core.secp256k1 import N as CURVE_ORDER
 from ..core.secp256k1 import P as FIELD_P
 from ..core.secp256k1 import GENERATOR, Point
+from ..telemetry.spans import get_tracer
+from ..utils.roofline import ec_scalar_mul_macs, ec_tree_sum_macs
 from . import ec_kernels
 from .limbs import LIMB_BITS, LIMB_MASK, ints_to_limbs, limbs_to_ints, to_device, wipe_array
 from .montgomery import _Reducer, _cond_subtract, _normalize_carries
@@ -301,6 +303,7 @@ def batch_scalar_mul(
     pad = _pad_pow2(rows) - rows
     pts = list(points) + [Point.identity()] * pad
     scs = [s % CURVE_ORDER for s in scalars] + [0] * pad
+    get_tracer().add_macs(ec_scalar_mul_macs(len(pts), scalar_bits))
     with _staged_scalars(scs, scalar_bits, device) as sc:
         out = ec_kernels.scalar_mul(points_to_device(pts, device), sc, scalar_bits)
         return device_to_points(out)[:rows]  # waits for the kernel
@@ -352,6 +355,8 @@ def batch_msm(
         pts.extend(list(gp) + [Point.identity()] * (m_pad - len(gp)))
         scs.extend([s % CURVE_ORDER for s in gs] + [0] * (m_pad - len(gs)))
 
+    get_tracer().add_macs(ec_scalar_mul_macs(len(pts), scalar_bits)
+                          + ec_tree_sum_macs(len(pts), g))
     with _staged_scalars(scs, scalar_bits, device) as sc:
         prods = ec_kernels.scalar_mul(points_to_device(pts, device), sc, scalar_bits)
         sums = ec_kernels.tree_sum(prods.view(g, m_pad, 3, _K))

@@ -7,6 +7,11 @@ lock. A thread inside `apart(label)` counts its launches under that
 label instead of the wrapper's own counters: the background producer
 runs inside `apart("producer")`, so a session's launch table is the
 counters' difference around it, whatever the producer does meanwhile.
+
+While the span tracer is enabled (telemetry.spans), each launch is also
+counted under the innermost phase of the launching thread (`by_phase`):
+which phases launched kernels, for the roofline's check that each of
+them carries MACs.
 """
 
 from __future__ import annotations
@@ -15,18 +20,30 @@ import contextlib
 import threading
 from typing import Dict, Optional
 
-__all__ = ["count", "apart", "read", "shapes", "reset"]
+__all__ = ["count", "apart", "read", "shapes", "reset", "by_phase", "reset_phases"]
 
 _LOCK = threading.Lock()
 _LOCAL = threading.local()
 # label -> {wrapper: [launches, {shape: launches}]}
 _APART: Dict[str, Dict[object, list]] = {}
+# phase name -> launches, while the tracer is enabled
+_BY_PHASE: Dict[str, int] = {}
+
+
+def _traced_phase() -> Optional[str]:
+    from ..telemetry.spans import get_tracer
+
+    tracer = get_tracer()
+    return tracer.current_phase() if tracer.enabled else None
 
 
 def count(fn, shape) -> None:
     """One launch of wrapper `fn` at `shape`."""
     label = getattr(_LOCAL, "label", None)
+    phase = _traced_phase()
     with _LOCK:
+        if phase is not None:
+            _BY_PHASE[phase] = _BY_PHASE.get(phase, 0) + 1
         if label is None:
             fn.launches += 1
             fn.shapes[shape] = fn.shapes.get(shape, 0) + 1
@@ -61,6 +78,17 @@ def shapes(fn, label: Optional[str] = None) -> Dict:
         if label is None:
             return dict(fn.shapes)
         return dict(_APART.get(label, {}).get(fn, [0, {}])[1])
+
+
+def by_phase() -> Dict[str, int]:
+    """Launches by the innermost traced phase that made them."""
+    with _LOCK:
+        return dict(_BY_PHASE)
+
+
+def reset_phases() -> None:
+    with _LOCK:
+        _BY_PHASE.clear()
 
 
 def reset(fns) -> None:

@@ -11,9 +11,9 @@ boundary, with per-row inline fallback when a pool runs dry. The
 consumed values are the ones the inline path would have sampled and
 computed, so transcripts do not depend on the pools
 (tests/test_torch_precompute.py). An own copy of
-fsdkr_tpu/precompute/pools.py: the event counts stay this module's own
-(`precompute_stats`); the dry fallbacks by cause and the occupancy
-gauges are in the telemetry registry.
+fsdkr_tpu/precompute/pools.py: the event counts (`fsdkr_pool_events`,
+read back by `precompute_stats`), the pooled bytes, the dry fallbacks
+by cause and the occupancy gauges are in the telemetry registry.
 
 ## Pool kinds
 
@@ -82,6 +82,27 @@ _EVENTS = ("produced", "consumed", "dry_fallbacks", "wiped")
 # the serving fault plan, looked up and never imported: a process that
 # never configured chaos pays one dict lookup a take
 _FAULTS_MODULE = __name__.rsplit(".", 2)[0] + ".serving.faults"
+
+
+def _events():
+    """Pool events by event and kind (produced, consumed, dry_fallbacks,
+    wiped): counts only, never values."""
+    from ..telemetry import registry
+
+    return registry.counter(
+        "fsdkr_pool_events",
+        "precompute pool events (produced/consumed/dry_fallbacks/wiped)",
+        labelnames=("event", "kind"),
+    )
+
+
+def _bytes_gauge():
+    from ..telemetry import registry
+
+    return registry.gauge(
+        "fsdkr_pool_bytes",
+        "total bytes currently pooled (budget: FSDKR_POOL_BUDGET_MB)",
+    )
 
 
 def _dry_events():
@@ -155,10 +176,13 @@ class PrecomputeStore:
         self._pools: Dict[Tuple, deque] = OrderedDict()
         self._lock = threading.RLock()
         self._bytes = 0
-        self._events: Dict[Tuple[str, str], int] = {}
 
     def _event(self, event: str, kind: str, k: int = 1) -> None:
-        self._events[event, kind] = self._events.get((event, kind), 0) + k
+        _events().inc(k, event=event, kind=kind)
+
+    def _set_bytes(self, nbytes: int) -> None:
+        self._bytes = nbytes
+        _bytes_gauge().set(nbytes)
 
     # -- consumption ----------------------------------------------------
     def take(self, kind: str, key) -> Optional[tuple]:
@@ -183,7 +207,7 @@ class PrecomputeStore:
                 # epoch, so drained pools are never refilled under the
                 # same key
                 del self._pools[(kind, key)]
-            self._bytes -= ent.nbytes
+            self._set_bytes(self._bytes - ent.nbytes)
             self._event("consumed", kind)
         return ent.take()
 
@@ -201,7 +225,7 @@ class PrecomputeStore:
                 self._event("wiped", kind)
                 return False
             pool.append(ent)
-            self._bytes += ent.nbytes
+            self._set_bytes(self._bytes + ent.nbytes)
             self._event("produced", kind)
             return True
 
@@ -238,7 +262,7 @@ class PrecomputeStore:
             if not pool:
                 return
             for ent in pool:
-                self._bytes -= ent.nbytes
+                self._set_bytes(self._bytes - ent.nbytes)
                 ent.wipe()
             self._event("wiped", kind, len(pool))
             pool.clear()
@@ -252,14 +276,16 @@ class PrecomputeStore:
                 self._event("wiped", kind, len(pool))
                 pool.clear()
             self._pools.clear()
-            self._bytes = 0
+            self._set_bytes(0)
 
     def snapshot(self, by_kind: bool = False) -> Dict:
         """Event totals, bytes and entries pooled; with `by_kind`, also
         each event's counts by kind under "kinds"."""
+        events = {(rec["labels"]["event"], rec["labels"]["kind"]): int(rec["value"])
+                  for rec in _events().snapshot_values()}
         with self._lock:
             out: Dict = {
-                e: sum(v for (ev, _k), v in self._events.items() if ev == e)
+                e: sum(v for (ev, _k), v in events.items() if ev == e)
                 for e in _EVENTS
             }
             out.update(
@@ -269,14 +295,15 @@ class PrecomputeStore:
             )
             if by_kind:
                 kinds: Dict[str, Dict[str, int]] = {}
-                for (ev, kind), v in self._events.items():
+                for (ev, kind), v in events.items():
                     kinds.setdefault(kind, {})[ev] = v
                 out["kinds"] = kinds
             return out
 
     def stats_reset(self) -> None:
+        _events().reset()
         with self._lock:
-            self._events.clear()
+            _bytes_gauge().set(self._bytes)
 
     def secret_values(self) -> List[int]:
         """Every int currently pooled, recursing into proof/statement/key

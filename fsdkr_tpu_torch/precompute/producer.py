@@ -44,6 +44,7 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
+from ..telemetry.spans import phase
 from . import pools
 
 __all__ = [
@@ -144,10 +145,17 @@ def produce_batch(kind: str, wants, config) -> int:
     [(key, count)]. The keys' rows share one set of columns (one launch
     set where the JAX package makes one a key); each key's rows are
     sampled in order, so every pool receives what `produce_for` would
-    have put there. Returns how many entries the pools absorbed."""
+    have put there. Returns how many entries the pools absorbed. The
+    batch is a span (`precompute.produce.<kind>`): on the background
+    thread these are the producer's own track in the trace."""
     wants = [(key, c) for key, c in wants if c > 0]
     if not wants:
         return 0
+    with phase(f"precompute.produce.{kind}", items=sum(c for _, c in wants)):
+        return _produce_batch(kind, wants, config)
+
+
+def _produce_batch(kind: str, wants, config) -> int:
     from ..backend.powm import get_batch_powm
 
     if kind == "keys":
@@ -454,7 +462,9 @@ def _step() -> bool:
              if k == kind and c == config]
     from ..ops import tally
 
-    with tally.apart("producer"):
+    # the step span is the producer thread's unit of work in the trace;
+    # produce_batch opens the per-kind child span under it
+    with tally.apart("producer"), phase("precompute.producer.step"):
         return produce_batch(kind, wants, config) > 0
 
 

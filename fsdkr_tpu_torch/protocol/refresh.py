@@ -49,6 +49,7 @@ from ..proofs.composite_dlog import DLogStatement
 from ..proofs.correct_key import NiCorrectKeyProof
 from ..proofs.pdl_slack import PDLwSlackProof, PDLwSlackStatement, PDLwSlackWitness
 from ..proofs.ring_pedersen import RingPedersenProof, RingPedersenStatement
+from ..telemetry.spans import phase
 from .local_key import LocalKey
 
 if TYPE_CHECKING:
@@ -109,6 +110,18 @@ class RefreshMessage:
         taking their offline-produced values (the values inline sampling
         and computing would give), dry rows that phase's inline columns.
         Any other committee distributes inline and touches no pool."""
+        # the root prover span: every distribute.* phase (and the engine
+        # spans they fan out) nests under it in the trace
+        with phase("distribute", items=len(senders) * new_n,
+                   senders=len(senders), new_n=new_n):
+            return RefreshMessage._distribute_batch_impl(senders, new_n, config)
+
+    @staticmethod
+    def _distribute_batch_impl(
+        senders: Sequence[Tuple[int, LocalKey]],
+        new_n: int,
+        config: ProtocolConfig = DEFAULT_CONFIG,
+    ) -> List[Tuple["RefreshMessage", DecryptionKey]]:
         from ..backend.powm import get_batch_powm, powm_columns
         from .. import precompute
 
@@ -182,7 +195,8 @@ class RefreshMessage:
 
         # commit points S_i = sigma_i * G (reference :67-69): one device
         # launch across all (sender, receiver) pairs on the cuda backend
-        flat_points = ec_batch.generator_muls(flat_share_ints, ec_device)
+        with phase("distribute.commit_points", items=len(flat_share_ints)):
+            flat_points = ec_batch.generator_muls(flat_share_ints, ec_device)
         for k, p in enumerate(per):
             p["points"] = flat_points[k * new_n : (k + 1) * new_n]
 
@@ -209,43 +223,50 @@ class RefreshMessage:
         # rows drop out of both (their powers were produced offline);
         # only the witness factor h1^x, shared by both families, and any
         # dry rows stay online
-        pooled_pdl = pooled_alice = None
-        if pre_on:
-            envs = list(zip(flat_h1, flat_h2, flat_nt, flat_nv))
-            pooled_pdl = [precompute.take("pdl", e) for e in envs]
-            pooled_alice = [precompute.take("alice", e) for e in envs]
-            # the receivers' keys rotate with this epoch: what their
-            # pools have left can never be taken
-            precompute.release(pooled_keys)
-        pdl_state, pdl_cols = PDLwSlackProof.prove_stage1(
-            flat_witnesses, flat_h1, flat_h2, flat_nt, flat_nv, flat_nnv,
-            hash_alg=config.hash_alg, pooled=pooled_pdl,
-        )
-        alice_state, alice_cols = AliceProof.generate_stage1(
-            flat_share_ints, flat_rand, flat_h1, flat_h2, flat_nt,
-            flat_nv, flat_nnv, hash_alg=config.hash_alg, pooled=pooled_alice,
-        )
-        # the encryption column r^n mod n^2: rows without a pooled power
-        enc_fb = [i for i, x in enumerate(flat_rn) if x is None]
-        enc_col = (
-            [flat_rand[i] for i in enc_fb],
-            [flat_nv[i] for i in enc_fb],
-            [flat_nnv[i] for i in enc_fb],
-        )
-        res_pail = powm_columns(powm, enc_col, pdl_cols[-1], alice_cols[-1])
-        res_commit = powm_columns(powm, *pdl_cols[:-1], *alice_cols[:-1])
-        n_pdl = len(pdl_cols)
-        pdl_res1 = res_commit[: n_pdl - 1] + [res_pail[1]]
-        alice_res1 = res_commit[n_pdl - 1 :] + [res_pail[2]]
-        rn_full = list(flat_rn)
-        for j, i in enumerate(enc_fb):
-            rn_full[i] = res_pail[0][j]
+        with phase("distribute.prove_stage1", items=len(flat_rand)):
+            pooled_pdl = pooled_alice = None
+            with phase("distribute.stage1.sample", items=len(flat_rand)):
+                if pre_on:
+                    envs = list(zip(flat_h1, flat_h2, flat_nt, flat_nv))
+                    pooled_pdl = [precompute.take("pdl", e) for e in envs]
+                    pooled_alice = [precompute.take("alice", e) for e in envs]
+                    # the receivers' keys rotate with this epoch: what their
+                    # pools have left can never be taken
+                    precompute.release(pooled_keys)
+                pdl_state, pdl_cols = PDLwSlackProof.prove_stage1(
+                    flat_witnesses, flat_h1, flat_h2, flat_nt, flat_nv, flat_nnv,
+                    hash_alg=config.hash_alg, pooled=pooled_pdl,
+                )
+                alice_state, alice_cols = AliceProof.generate_stage1(
+                    flat_share_ints, flat_rand, flat_h1, flat_h2, flat_nt,
+                    flat_nv, flat_nnv, hash_alg=config.hash_alg, pooled=pooled_alice,
+                )
+            # the encryption column r^n mod n^2: rows without a pooled power
+            enc_fb = [i for i, x in enumerate(flat_rn) if x is None]
+            enc_col = (
+                [flat_rand[i] for i in enc_fb],
+                [flat_nv[i] for i in enc_fb],
+                [flat_nnv[i] for i in enc_fb],
+            )
+            with phase("distribute.stage1.enc_beta_pow",
+                       items=len(enc_col[0]) + len(pdl_cols[-1][0]) + len(alice_cols[-1][0])):
+                res_pail = powm_columns(powm, enc_col, pdl_cols[-1], alice_cols[-1])
+            with phase("distribute.stage1.commit_pow",
+                       items=sum(len(c[0]) for c in pdl_cols[:-1] + alice_cols[:-1])):
+                res_commit = powm_columns(powm, *pdl_cols[:-1], *alice_cols[:-1])
+            n_pdl = len(pdl_cols)
+            pdl_res1 = res_commit[: n_pdl - 1] + [res_pail[1]]
+            alice_res1 = res_commit[n_pdl - 1 :] + [res_pail[2]]
+            rn_full = list(flat_rn)
+            for j, i in enumerate(enc_fb):
+                rn_full[i] = res_pail[0][j]
 
         # ciphertexts from the fused encryption column (randomness is
         # unit-sampled, inline or by the producer)
-        flat_enc = paillier.combine_with_rn(
-            flat_share_ints, rn_full, flat_nv, flat_nnv
-        )
+        with phase("distribute.encrypt", items=len(flat_share_ints)):
+            flat_enc = paillier.combine_with_rn(
+                flat_share_ints, rn_full, flat_nv, flat_nnv
+            )
         # (the share ints also live on as alice_state["avals"] until the
         # proofs are assembled — same round-state lifetime as the nonces)
         del flat_share_ints
@@ -266,17 +287,18 @@ class RefreshMessage:
             for i in range(new_n)
         ]
 
-        pdl_state, pdl_cols2 = PDLwSlackProof.prove_stage2(
-            pdl_state, pdl_res1, flat_statements, ec_device
-        )
-        alice_state, alice_cols2 = AliceProof.generate_stage2(
-            alice_state, alice_res1, flat_enc
-        )
-        res2 = powm_columns(powm, *pdl_cols2, *alice_cols2)
-        flat_pdl = PDLwSlackProof.prove_finish(pdl_state, res2[: len(pdl_cols2)])
-        flat_range = AliceProof.generate_finish(
-            alice_state, res2[len(pdl_cols2) :]
-        )
+        with phase("distribute.prove_stage2", items=len(flat_rand)):
+            pdl_state, pdl_cols2 = PDLwSlackProof.prove_stage2(
+                pdl_state, pdl_res1, flat_statements, ec_device
+            )
+            alice_state, alice_cols2 = AliceProof.generate_stage2(
+                alice_state, alice_res1, flat_enc
+            )
+            res2 = powm_columns(powm, *pdl_cols2, *alice_cols2)
+            flat_pdl = PDLwSlackProof.prove_finish(pdl_state, res2[: len(pdl_cols2)])
+            flat_range = AliceProof.generate_finish(
+                alice_state, res2[len(pdl_cols2) :]
+            )
 
         # ---- per-sender key material: pooled bundles first (complete
         # offline ek/dk, correct-key proof, ring-Pedersen statement and
@@ -291,20 +313,29 @@ class RefreshMessage:
                 if b is None:
                     break  # dry: the remaining senders compute inline
                 key_bundles.append(b)
+        # the phases' items are the inline rows alone (a pooled bundle
+        # costs a pop, not a keygen)
         miss = len(per) - len(key_bundles)
         ek_dk_inline, rp_inline, ck_inline, rp_proofs_inline = [], [], [], []
-        if miss:
-            ek_dk_inline = paillier.keygen_batch(config.paillier_bits, miss)
-            rp_inline = RingPedersenStatement.generate_batch(miss, config)
-            ck_inline = NiCorrectKeyProof.proof_batch(
-                [dk for _, dk in ek_dk_inline],
-                rounds=config.correct_key_rounds,
-                powm=powm, hash_alg=config.hash_alg,
-            )
-            rp_proofs_inline = RingPedersenProof.prove_batch(
-                [w for _, w in rp_inline], [st for st, _ in rp_inline],
-                config.m_security, powm, config.hash_alg,
-            )
+        with phase("distribute.keygen", items=miss):
+            if miss:
+                ek_dk_inline = paillier.keygen_batch(config.paillier_bits, miss)
+        with phase("distribute.ring_pedersen_gen", items=miss):
+            if miss:
+                rp_inline = RingPedersenStatement.generate_batch(miss, config)
+        with phase("distribute.correct_key_prove", items=miss):
+            if miss:
+                ck_inline = NiCorrectKeyProof.proof_batch(
+                    [dk for _, dk in ek_dk_inline],
+                    rounds=config.correct_key_rounds,
+                    powm=powm, hash_alg=config.hash_alg,
+                )
+        with phase("distribute.ring_pedersen_prove", items=miss):
+            if miss:
+                rp_proofs_inline = RingPedersenProof.prove_batch(
+                    [w for _, w in rp_inline], [st for st, _ in rp_inline],
+                    config.m_security, powm, config.hash_alg,
+                )
         # pooled bundles fill the first senders (take order), inline
         # results the rest — deterministic, so seeded runs assign the
         # same material to each sender
@@ -528,6 +559,13 @@ class RefreshMessage:
         else the exception `collect` would have raised. A failing session
         never blocks the others: a fused call that raises is retried one
         session at a time (`fused_isolated`)."""
+        # the root verifier span; the collect.* family phases
+        # (TracedVerifier) and their engine spans nest under it
+        with phase("collect", items=len(sessions), sessions=len(sessions)):
+            return RefreshMessage._collect_sessions_impl(sessions, config)
+
+    @staticmethod
+    def _collect_sessions_impl(sessions, config: ProtocolConfig) -> List[Optional[Exception]]:
         backend = get_backend(config)
         count = len(sessions)
         errors: List[Optional[Exception]] = [None] * count
@@ -636,12 +674,13 @@ class RefreshMessage:
 
         # ---- share recovery inputs (reference :367-373) ---------------
         recovered: Dict[int, tuple] = {}
-        for s in alive():
-            msgs, key, _dk, _joins = sessions[s]
-            try:
-                recovered[s] = share_recovery_check(msgs, key)
-            except Exception as e:
-                errors[s] = e
+        with phase("collect.share_recovery", items=len(alive())):
+            for s in alive():
+                msgs, key, _dk, _joins = sessions[s]
+                try:
+                    recovered[s] = share_recovery_check(msgs, key)
+                except Exception as e:
+                    errors[s] = e
 
         # ---- Paillier correct-key + composite dlog, fused -------------
         ck_items: list = []
@@ -680,17 +719,18 @@ class RefreshMessage:
         # ---- adoption, session by session, in session order: the
         # mutation points of collect (a failure part-way leaves the
         # reference's partial paillier_key_vec)
-        for s in alive():
-            msgs, local_key, new_dk, joins = sessions[s]
-            ck0, ck1 = ck_spans[s]
-            d0, d1 = dlog_spans[s]
-            try:
-                adopt_session(
-                    msgs, local_key, new_dk, joins, ck_verdicts[ck0:ck1],
-                    dlog_verdicts[d0:d1], recovered[s], new_ns[s], config,
-                )
-            except Exception as e:
-                errors[s] = e
+        with phase("collect.adopt", items=len(alive())):
+            for s in alive():
+                msgs, local_key, new_dk, joins = sessions[s]
+                ck0, ck1 = ck_spans[s]
+                d0, d1 = dlog_spans[s]
+                try:
+                    adopt_session(
+                        msgs, local_key, new_dk, joins, ck_verdicts[ck0:ck1],
+                        dlog_verdicts[d0:d1], recovered[s], new_ns[s], config,
+                    )
+                except Exception as e:
+                    errors[s] = e
         return errors
 
 

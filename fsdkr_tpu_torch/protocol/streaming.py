@@ -57,6 +57,7 @@ from ..core.secp256k1 import GENERATOR
 from ..errors import PublicShareValidationError, RingPedersenProofError
 from ..proofs.pdl_slack import PDLwSlackStatement
 from ..proofs.composite_dlog import DLogStatement
+from ..telemetry.spans import phase
 from .local_key import LocalKey
 from .refresh import (
     RefreshMessage,
@@ -136,6 +137,10 @@ class StreamingCollect:
         are recorded, not raised — finalize surfaces them with barrier
         ordering. Every verdict here is order-independent (a function of
         this message + the receiver's pre-adopt key vectors alone)."""
+        with phase("collect.stream.offer", items=self.new_n):
+            self._eager_checks(pid, msg)
+
+    def _eager_checks(self, pid: int, msg: RefreshMessage) -> None:
         key = self.local_key
         lens = (
             len(msg.pdl_proof_vec),
@@ -279,7 +284,8 @@ def finalize_streams(
     ValueError entry and stay open."""
     S = len(streams)
     errors: List[Optional[Exception]] = [None] * S
-    return _finalize_impl(streams, errors, config)
+    with phase("collect.stream.finalize", items=S, sessions=S):
+        return _finalize_impl(streams, errors, config)
 
 
 def _finalize_impl(streams, errors, config):
@@ -408,11 +414,12 @@ def _finalize_impl(streams, errors, config):
 
     # ---- 5. share recovery (host) -------------------------------------
     sums: Dict[int, tuple] = {}
-    for s in alive():
-        try:
-            sums[s] = share_recovery_check(msgs_l[s], streams[s].local_key)
-        except Exception as e:
-            errors[s] = e
+    with phase("collect.share_recovery", items=len(alive())):
+        for s in alive():
+            try:
+                sums[s] = share_recovery_check(msgs_l[s], streams[s].local_key)
+            except Exception as e:
+                errors[s] = e
 
     # ---- 6. correct-key: eager verdicts + the joins' rows + dlog ------
     jck_items: list = []
@@ -477,17 +484,18 @@ def _finalize_impl(streams, errors, config):
         ck_lists[s] = verdicts + list(jck_verdicts[lo:hi])
 
     # ---- 7. adoption (shared helper; mutating phase) ------------------
-    for s in alive():
-        st = streams[s]
-        dlo, dhi = dlog_spans[s]
-        try:
-            adopt_session(
-                msgs_l[s], st.local_key, st.new_dk, st.joins,
-                ck_lists[s], dlog_verdicts[dlo:dhi], sums[s],
-                st.new_n, config,
-            )
-        except Exception as e:
-            errors[s] = e
+    with phase("collect.adopt", items=len(alive())):
+        for s in alive():
+            st = streams[s]
+            dlo, dhi = dlog_spans[s]
+            try:
+                adopt_session(
+                    msgs_l[s], st.local_key, st.new_dk, st.joins,
+                    ck_lists[s], dlog_verdicts[dlo:dhi], sums[s],
+                    st.new_n, config,
+                )
+            except Exception as e:
+                errors[s] = e
 
     for s, st in enumerate(streams):
         if s in replayed:

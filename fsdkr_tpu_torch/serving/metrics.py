@@ -203,9 +203,15 @@ def ingress_snapshot() -> dict:
 
 
 def rlc_bisect_count() -> int:
-    """Lifetime RLC bisection fallbacks: the verifier's
-    `backend.rlc.stats()` counter (the JAX package reads the same event
-    from its registry; the port's verifier keeps a module-level dict)."""
-    from ..backend import rlc
-
-    return int(rlc.stats()["bisect_fallbacks"])
+    """Lifetime RLC bisection fallbacks, read through the registry. The
+    serving layer does not import `backend.rlc`, but the counter is shared
+    process state: look it up by name, 0 when the verifier has not created
+    it yet (no re-declaration here: a name or label drift in backend.rlc
+    must not fork a parallel always-zero counter)."""
+    m = registry.get_registry().get("fsdkr_rlc_events")
+    if m is None:
+        return 0
+    try:
+        return int(m.value(event="bisect_fallbacks"))
+    except Exception:
+        return 0

@@ -45,6 +45,11 @@ fsdkr_tpu/serving/supervisor.py).
   epoch of that shard resolving.
 - **Chaos**: the ``shard_kill`` fault site (`serving.faults`) is
   consulted by `chaos_kill` and acted out by `kill_shard` (SIGKILL).
+  ``faults`` arms a fault plan inside every shard (the load generator's
+  network storm: the ingress sites act there).
+- **Tracing**: with ``trace=True`` every shard enables its span tracer
+  and writes its Chrome trace to ``<journal_dir>/trace.json`` when it
+  stops cleanly (a SIGKILLed shard leaves none).
 
 Aggregate `fsdkr_serving_*` / `fsdkr_journal_*` / `fsdkr_ingress_*`
 readings across shards come from the heartbeats
@@ -143,6 +148,14 @@ def _shard_main(args) -> int:
         import_s = t_imported - args.spawned_at if args.spawned_at else 0.0
         name, cuda_s, load_s = _start_device(args.device)
         flight.install(args.flight)
+        if args.faults:
+            from . import faults
+
+            faults.configure(args.faults)
+        if args.trace:
+            from ..telemetry.spans import get_tracer
+
+            get_tracer().enable()
         svc = RefreshService(
             journal=args.journal_dir,
             deadline_s=args.deadline,
@@ -286,6 +299,9 @@ def _shard_main(args) -> int:
                 report = recovery.recover(svc, cmd["dir"], svc.keystore)
                 _emit(out, out_lock, {"ev": "recovered", "shard": args.shard_id,
                                       "report": report})
+            elif op == "deadline":
+                svc.deadline_s = float(cmd["s"])
+                _emit(out, out_lock, {"ev": "deadline_set", "shard": args.shard_id})
             elif op == "sync":
                 if svc.journal is not None:
                     svc.journal.sync()
@@ -313,6 +329,10 @@ def _shard_main(args) -> int:
         flight.dump(args.flight, reason="shard-exit")
     except Exception:
         pass
+    if args.trace:
+        from ..telemetry.spans import get_tracer
+
+        get_tracer().write_chrome_trace(args.trace)
     _emit(out, out_lock, {"ev": "stopped", "shard": args.shard_id})
     return 0
 
@@ -370,6 +390,8 @@ class ShardSupervisor:
         ingress: bool = False,
         ingress_host: str = "127.0.0.1",
         device: str = "cuda",
+        faults: Optional[str] = None,
+        trace: bool = False,
     ):
         if device not in ("cuda", "cpu"):
             raise ValueError(f"unknown device {device!r}")
@@ -384,6 +406,8 @@ class ShardSupervisor:
         self.spawn_timeout = spawn_timeout
         self.max_resubmits = max_resubmits
         self.device = device
+        self.faults = faults or None
+        self.trace = bool(trace)
         # each shard listens on a TCP ingress port (kernel-assigned,
         # reported in its ready event); after start() the parent
         # broadcasts the port map so shards can redirect clients for
@@ -477,7 +501,8 @@ class ShardSupervisor:
                 "--ingress-port", "0" if self.ingress else "-1",
                 "--ingress-host", self.ingress_host,
                 "--spawned-at", repr(time.time()),
-            ],
+            ] + (["--faults", self.faults] if self.faults else [])
+              + (["--trace", str(jdir / "trace.json")] if self.trace else []),
             stdin=subprocess.PIPE,
             stdout=subprocess.PIPE,
             stderr=stderr,
@@ -514,6 +539,13 @@ class ShardSupervisor:
             except Exception:
                 h.proc.kill()
                 h.proc.wait(timeout=10)
+
+    def set_deadline(self, deadline_s: float) -> None:
+        """A new session deadline on every live shard, for the sessions
+        submitted from now on (and on a failover peer's resubmits)."""
+        self.deadline_s = deadline_s
+        for h in self._alive():
+            self._send(h, {"cmd": "deadline", "s": deadline_s})
 
     # -- plumbing -------------------------------------------------------
     def _send(self, handle: ShardHandle, obj: dict) -> bool:
@@ -898,6 +930,11 @@ def main(argv=None) -> int:
     p.add_argument("--ingress-host", default="127.0.0.1")
     p.add_argument("--spawned-at", type=float, default=0.0,
                    help="the parent's time.time() at spawn (start-up split)")
+    p.add_argument("--faults", default=None,
+                   help="a fault plan spec armed in the shard (serving.faults)")
+    p.add_argument("--trace", default=None,
+                   help="enable the span tracer; its Chrome trace goes to "
+                        "this path at a clean stop")
     args = p.parse_args(argv)
     if not args.shard:
         p.error("supervisor is a library; only --shard mode runs directly "

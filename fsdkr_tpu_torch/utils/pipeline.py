@@ -12,6 +12,13 @@ into one launch per kernel.
 `prefetch_tiles` double-buffers the memory plan's tiles
 (backend.memplan): tile k+1's host staging runs on one background thread
 while tile k's launches run on the calling thread.
+
+Tracing (telemetry.spans): `prefetch_tiles` captures the submitting
+thread's span and its worker enters `inherit_phase(span)`, so the
+staging spans and MACs of the worker parent to the submitting phase.
+`run_jobs` runs its thunks on the calling thread, where their spans nest
+without a hop. The `BackgroundProducer` thread is not primed: it starts
+its own span roots, so its track in a trace shows what it did.
 """
 
 from __future__ import annotations
@@ -45,12 +52,23 @@ def prefetch_tiles(spans, prepare: Callable, consume: Callable) -> None:
         return
     from concurrent.futures import ThreadPoolExecutor
 
+    from ..telemetry.spans import get_tracer
+
+    tracer = get_tracer()
+    # the submitting thread's SPAN, not just its name: the worker's child
+    # spans then parent to it across the thread hop
+    parent = tracer.current_span() or tracer.current_phase()
+
+    def worker(*args):
+        with tracer.inherit_phase(parent):
+            return prepare(*args)
+
     with ThreadPoolExecutor(max_workers=1) as ex:
-        fut = ex.submit(prepare, *spans[0])
+        fut = ex.submit(worker, *spans[0])
         for i in range(len(spans)):
             prep = fut.result()
             if i + 1 < len(spans):
-                fut = ex.submit(prepare, *spans[i + 1])
+                fut = ex.submit(worker, *spans[i + 1])
             consume(prep)
 
 

@@ -1,7 +1,8 @@
 """Time one `distribute_batch` on the card by the JAX package's phase
-names (chip_smoke.span_distribute), for the port in this checkout or in
-another tree: a parent commit unpacked beside it, so that two trees are
-compared in one call on the same card.
+names (chip_smoke.span_distribute, from the port's span tracer), for the
+port in this checkout or in another tree: a parent commit unpacked
+beside it, so that two trees are compared in one call on the same card.
+The other tree needs the tracer (`fsdkr_tpu_torch/telemetry/spans.py`).
 
     python3 scripts/distribute_spans.py [--tree DIR] [--n 16] [--bits 2048] [--label TEXT]
 
@@ -9,8 +10,7 @@ Builds a committee with simulate_keygen (timed: its prime generation is
 the distribute's keygen work twice over), then runs one distribute by
 all n senders under the spans, and prints the card's name and power
 limit and, last, one JSON line of the keygen, the wall and each phase's
-seconds. A tree whose port lacks a spanned function (a parent without
-the native core or the CRT engine) is timed without that span.
+seconds.
 """
 
 import argparse

@@ -2,8 +2,10 @@
 the JAX package (not even its JAX-free modules: the port keeps its own
 copies). Checked in a subprocess — tests/conftest.py imports jax into
 this one — and by a static scan of the sources and chip_smoke.py. The
-serving, telemetry and precompute layers read no environment variable:
-their knobs are arguments (the JAX package's FSDKR_* variables).
+serving, telemetry and precompute layers, the roofline and the load
+generator read no environment variable: their knobs are arguments (the
+JAX package's FSDKR_* variables). The serving layer imports nothing of
+the backend: it reads the verifier's counters from the registry.
 """
 
 import pkgutil
@@ -79,7 +81,8 @@ def test_scan_sees_the_whole_package():
                  "precompute/producer.py", "serving/service.py", "serving/recovery.py",
                  "serving/journal.py", "telemetry/registry.py", "telemetry/flight.py",
                  "serving/ingress.py", "serving/supervisor.py", "serving/policy.py",
-                 "telemetry/export.py"):
+                 "telemetry/export.py", "telemetry/spans.py", "utils/roofline.py",
+                 "serving/loadgen.py"):
         assert PORT / part in sources
 
 
@@ -97,6 +100,30 @@ def test_layer_reads_no_environment(layer):
     assert not hits, hits
 
 
+@pytest.mark.parametrize("part", ["telemetry/spans.py", "utils/roofline.py",
+                                  "serving/loadgen.py"])
+def test_tracer_roofline_and_loadgen_read_no_environment(part):
+    text = (PORT / part).read_text()
+    hits = [i for i, line in enumerate(text.splitlines(), 1) if _ENV_READ.search(line)]
+    assert not hits, (part, hits)
+
+
+_BACKEND_IMPORT = re.compile(
+    r"^\s*(from\s+(\.\.|fsdkr_tpu_torch\.)backend\b|import\s+fsdkr_tpu_torch\.backend\b"
+    r"|from\s+(\.\.|fsdkr_tpu_torch)\s+import\s+(.*,\s*)?backend\b)", re.M)
+
+
+def test_serving_imports_nothing_of_the_backend():
+    files = sorted((PORT / "serving").rglob("*.py"))
+    assert PORT / "serving" / "metrics.py" in files
+    hits = [str(p.relative_to(REPO)) for p in files if _BACKEND_IMPORT.search(p.read_text())]
+    assert not hits, hits
+    # the pattern sees the forms it refuses
+    for form in ("from ..backend import rlc", "    from ..backend.rlc import stats",
+                 "import fsdkr_tpu_torch.backend.rlc", "from .. import precompute, backend"):
+        assert _BACKEND_IMPORT.search(form), form
+
+
 def test_new_serving_modules_have_the_jax_packages_public_names():
     import importlib
 
@@ -109,6 +136,12 @@ def test_new_serving_modules_have_the_jax_packages_public_names():
         ("telemetry.flight", ("FlightRecorder", "get_flight", "record", "dump", "install",
                               "FLIGHT_SCHEMA")),
         ("serving.policy", ("PeerRateLimiter",)),
+        ("telemetry.spans", ("PhaseStats", "Span", "Tracer", "get_tracer", "phase")),
+        ("utils.roofline", ("montmul_macs", "generic_modexp_macs", "shared_modexp_macs",
+                            "modmul_macs", "k16", "stamp_generic_host", "stamp_shared_host")),
+        ("serving.loadgen", ("run_window", "collect_sessions", "classify_chaos",
+                             "run_tamper_curve", "run_crash_storm", "run_net_storm",
+                             "run_net_client", "main")),
     ):
         m = importlib.import_module(f"fsdkr_tpu_torch.{mod}")
         assert set(names) <= set(m.__all__), mod

@@ -214,7 +214,7 @@ def test_host_backend_collect_matches_reference_collect(reference_round):
     from fsdkr_tpu_torch.backend import get_backend
 
     config = dataclasses.replace(PORT_CONFIG, backend="host")
-    assert type(get_backend(config)) is PortHost
+    assert type(get_backend(config)._inner) is PortHost
     _collect_like_reference(reference_round, config)
 
 

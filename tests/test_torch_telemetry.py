@@ -248,3 +248,65 @@ def test_install_dumps_on_sigterm(tmp_path):
         proc.wait()
     doc = json.loads((tmp_path / "term.json").read_text())
     assert doc["reason"] == "SIGTERM" and doc["events"][-1]["name"] == "SIGTERM"
+
+
+# -- the engines' counters on the registry -------------------------------
+
+ENGINE_METRICS = ("fsdkr_rlc_events", "fsdkr_crt_events", "fsdkr_crt_store_entries",
+                  "fsdkr_crt_store_hits", "fsdkr_crt_store_misses", "fsdkr_mem_tiles",
+                  "fsdkr_mem_bytes_staged", "fsdkr_mem_plans", "fsdkr_mem_plan_rows",
+                  "fsdkr_mem_tile_rows", "fsdkr_mem_budget_bytes", "fsdkr_pool_events",
+                  "fsdkr_pool_bytes", "fsdkr_primegen_events")
+
+
+def _touch_engines(rlc, crt, memplan, pools, primes, plan_device):
+    """One event of each engine counter; a pool put and take."""
+    rlc.count("bisect_fallbacks")
+    crt._count(rows=2, legs=4)
+    memplan.plan_rows(10, 1000, "pairs", **plan_device)
+    memplan.count_tile("pairs")
+    memplan.stage(1000)
+    memplan.release(1000)
+    pools.put("enc", 7, (3, 5))
+    pools.take("enc", 7)
+    primes.gen_stats_reset()
+
+
+def test_engine_counters_are_registry_metrics_under_the_jax_names(monkeypatch):
+    """Every engine counter of the port lives on its registry with the
+    JAX package's name, kind, labels and help; the window views read them
+    (stats(), crt_stats(), mem_stats(), precompute_stats()), the serving
+    layer's bisection count among them."""
+    from fsdkr_tpu.backend import crt as jcrt
+    from fsdkr_tpu.backend import memplan as jmemplan
+    from fsdkr_tpu.backend import rlc as jrlc
+    from fsdkr_tpu.core import primes as jprimes
+    from fsdkr_tpu.precompute import pools as jpools
+
+    from fsdkr_tpu_torch.backend import crt, memplan, rlc
+    from fsdkr_tpu_torch.core import primes
+    from fsdkr_tpu_torch.precompute import pools
+    from fsdkr_tpu_torch.serving import metrics
+
+    monkeypatch.setenv("FSDKR_PRECOMPUTE", "1")
+    for mod in (rlc, crt, memplan, pools):
+        mod.stats_reset()
+    bisects = metrics.rlc_bisect_count()
+    _touch_engines(rlc, crt, memplan, pools, primes, {"device": "cpu"})
+    _touch_engines(jrlc, jcrt, jmemplan, jpools, jprimes, {})
+    jmemplan._plan_gauges()
+    jmemplan.mem_stats()
+    for name in ENGINE_METRICS:
+        mine = registry.get_registry().get(name)
+        ref = j_registry.get_registry().get(name)
+        assert mine is not None and ref is not None, name
+        assert (mine.kind, mine.labelnames, mine.help) == (ref.kind, ref.labelnames, ref.help), \
+            name
+    assert metrics.rlc_bisect_count() == bisects + 1
+    assert rlc.stats()["bisect_fallbacks"] == 1
+    assert crt.crt_stats()["legs"] == 4
+    mem = memplan.mem_stats()
+    assert mem["tiles"] == {"pairs": 1} and mem["bytes_staged"] == 1000
+    assert mem["tile_rows"] == {"pairs": 10} and mem["plans"] == 1
+    st = pools.precompute_stats()
+    assert (st["produced"], st["consumed"]) == (1, 1)
