@@ -12,7 +12,9 @@ Phases:
            nvcc's register report; `ec_scalar_mul_kernel`'s registers and
            spill bytes on a line of their own, and each instantiation's of
            the joint kernels, `cios_multi_modexp_kernel` and
-           `cios_shared_exp_kernel`).
+           `cios_shared_exp_kernel`); the host cores' g++ builds beside
+           them; libgmp's path and `__gmp_version`, and the native core's
+           Montgomery engine, which must read "mpn".
   kernels  each hand-written kernel against its plain PyTorch version on
            the card. The RNS kernels at k=131 (2048-bit class), k=260
            (4096-bit class), the 6144-bit class (k=389) and the 7168-bit
@@ -68,6 +70,22 @@ Phases:
            at 2048- and 4096-bit moduli; both entry points at 8192-bit
            moduli (past the RNS classes); device_powm_grouped (comb
            groups and loners) at 2048, 4096 and 8192 bits.
+  host     the host bignum layer, bit for bit: `gmp.powm_batch`, plain
+           and secret, against CPython pow on 64 rows at (2048-bit
+           exponent, 4096-bit n^2), (1088-bit legs: a 1024-bit prime
+           times the 64-bit check prime) and (256-bit exponent, 4096-bit),
+           with an exponent 0, a base 0 and a base above the modulus;
+           `gmp.gcd` against math.gcd on the generation sieve's primorial
+           (its cached operand and the plain integer); the native core on
+           libgmp's mpn functions against its portable loop
+           (`native.set_mpn(0)`) on Miller-Rabin verdicts (Mersenne and
+           generated primes, Carmichael numbers, products),
+           `crt_modexp_batch` at the first two shapes and `modexp_shared`;
+           native EC against the Python points: Horner at t=8 and t=128
+           over 16 indices, `lincomb2` with identity, negation and a+b=0
+           rows. Prints ms per op of CPython, GMP, the portable loop and
+           mpn at the first shape (one thread, and GMP and mpn at
+           `native.thread_count()`), with the host's CPU model.
   main     on the column path (FSDKRC_RLC=0, FSDKRC_MULTIEXP=0,
            FSDKRC_RANGEOPT=0, so that its gates and PERF.md's history stay
            comparable; the RNS path below too):
@@ -134,7 +152,9 @@ Phases:
            holds against the JAX package's at n=3), each span inside its
            parent's interval, every phase that launched a kernel
            (`ops.tally.by_phase`) carrying MACs, and the adopted key the
-           rlc phase's untraced collect's; a second traced collect at
+           rlc phase's untraced collect's, and `collect.share_recovery`'s
+           Paillier rows (encrypt(0) and t+1 homomorphic muls) in GMP
+           (its seconds printed); a second traced collect at
            FSDKRC_MEM_BUDGET_MB=2 (memory-plan tiles): the tiles' staging
            spans on the prefetch worker parent to `pairs.stream_tiles`,
            and the same key. Prints each phase's seconds and MFU on
@@ -201,12 +221,13 @@ Phases:
            stream's offers, of its finalize and of one barrier collect
            (torch.profiler).
   prover   the prover path under the defaults, on a committee of its own
-           (simulate_keygen at n=16, its primes through the native host
-           core): (a) the inline distribute (no committee prefilled)
-           timed by `span_distribute` under the JAX package's phase
-           names: the native core loaded and ran Miller-Rabin batches,
-           S = T^lambda on the fault-checked CRT legs (n rows), no pool
-           touched, the launches JOINT_DISTRIBUTE; (b)
+           (simulate_keygen at n=16, its primes through GMP: every sieved
+           candidate a `gmp.gcd`, every Miller-Rabin round a `gmp.powm`):
+           (a) the inline distribute (no committee prefilled) timed by
+           `span_distribute` under the JAX package's phase names: its
+           primes through GMP as keygen's, S = T^lambda on the
+           fault-checked CRT legs (n rows, 2n `mpz_powm_sec` rows), no
+           pool touched, the launches JOINT_DISTRIBUTE; (b)
            `precompute.prefill` for the committee, then a distribute: its
            online wall and the takes by kind, no pool dry; (c) the pooled
            messages collected by all 16: the group key unchanged, a
@@ -326,8 +347,8 @@ import subprocess
 import sys
 import time
 
-PHASES = ("env", "kernels", "routes", "main", "joint", "rlc", "trace", "join", "sessions",
-          "stream", "prover", "serve", "ingress", "fleet", "storm", "time")
+PHASES = ("env", "kernels", "routes", "host", "main", "joint", "rlc", "trace", "join",
+          "sessions", "stream", "prover", "serve", "ingress", "fleet", "storm", "time")
 
 # H100 SXM published peaks (dense) and the 16x16-bit MAC model: one model
 # for bound_ms here and the tracer's MFU (fsdkr_tpu_torch/utils/roofline.py).
@@ -733,6 +754,9 @@ def phase_env(dev):
     import torch
     from concurrent.futures import ThreadPoolExecutor
 
+    from fsdkr_tpu_torch import native
+    from fsdkr_tpu_torch.native import ec as native_ec
+    from fsdkr_tpu_torch.native import gmp
     from fsdkr_tpu_torch.ops import ec_kernels, montgomery_kernels, rns_kernels
 
     log(smi_line())
@@ -740,11 +764,22 @@ def phase_env(dev):
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     mods = (rns_kernels, montgomery_kernels, ec_kernels)
-    # one nvcc per source, all started together
-    with ThreadPoolExecutor(len(mods)) as pool:
-        for fut in [pool.submit(m.load_library) for m in mods]:
+    # one nvcc per source and one g++ per host core, all started together
+    with ThreadPoolExecutor(len(mods) + 2) as pool:
+        futs = [pool.submit(m.load_library) for m in mods]
+        futs += [pool.submit(native.available), pool.submit(native_ec.available)]
+        for fut in futs:
             fut.result()
-    log(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    log(f"kernels and host cores built and loaded in {time.perf_counter() - t0:.2f} s")
+    try:
+        gmp_line = f"libgmp {gmp.library_path()} version {gmp.version()}"
+    except (OSError, native.NativeBuildError) as e:
+        fail(f"env: libgmp: {e}")
+    kind = native.engine_kind()
+    log(f"{gmp_line}; native core {native.LIB.so_path().name}, engine {kind}, "
+        f"{native.thread_count()} threads; native EC {native_ec.LIB.so_path().name}")
+    if kind != "mpn":
+        fail(f"env: the native core's engine is {kind!r}, not 'mpn'")
     for m in mods:
         log(f"  {m.build_info.get('so')}: {m.build_info.get('seconds', 0):.2f} s")
         for line in m.build_info.get("ptxas", "").splitlines():
@@ -1120,6 +1155,206 @@ def grouped_routes(dev, rng):
         log(f"device_powm_grouped == pow: {groups} groups x {per_group} rows and "
             f"{2 * (min_rows - 1)} loners of {bits}-bit moduli, {exp_bits}-bit "
             f"exponents")
+
+
+def cpu_model() -> str:
+    """The host's CPU model from /proc/cpuinfo: its model name, or where
+    the machine reports none, its vendor, family, model and stepping."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break  # the first processor's block
+                key, _, value = line.partition(":")
+                fields[key.strip()] = value.strip()
+    except OSError:
+        pass
+    name = fields.get("model name", "")
+    if name and name != "unknown":
+        return name
+    return (f"{fields.get('vendor_id', 'unknown vendor')} family {fields.get('cpu family', '?')} "
+            f"model {fields.get('model', '?')} stepping {fields.get('stepping', '?')}")
+
+
+# Carmichael numbers: Fermat liars to every coprime base, caught only by
+# Miller-Rabin's square-root step
+CARMICHAEL = (561, 41041, 825265, 321197185, 5394826801, 232250619601, 9746347772161)
+
+
+def phase_host(rng, rows=64):
+    """The host bignum layer (the module docstring's `host`). Returns the
+    phase's times."""
+    import math
+
+    from fsdkr_tpu_torch import native
+    from fsdkr_tpu_torch.core import primes
+    from fsdkr_tpu_torch.core.secp256k1 import GENERATOR, N, Point, Scalar
+    from fsdkr_tpu_torch.native import ec as native_ec
+    from fsdkr_tpu_torch.native import gmp
+
+    times = {}
+    nt = native.thread_count()
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    def portable(fn):
+        native.set_mpn(0)
+        try:
+            return timed(fn)
+        finally:
+            native.set_mpn(1)
+
+    def serial(fn):
+        native.set_threads(1)
+        try:
+            return timed(fn)
+        finally:
+            native.set_threads(0)
+
+    # gmp.powm_batch, plain and secret, against pow; the native core's
+    # CRT leg batch, mpn against portable, at the first two shapes
+    shapes = (("2048-bit exponent, 4096-bit modulus", 4096, 2048),
+              ("1088-bit legs", 1088, 1088),
+              ("256-bit exponent, 4096-bit modulus", 4096, 256))
+    for label, mbits, ebits in shapes:
+        mods = [rng.getrandbits(mbits) | (1 << (mbits - 1)) | 1 for _ in range(rows)]
+        bases = [rng.getrandbits(mbits + 8) for _ in range(rows)]
+        exps = [rng.getrandbits(ebits) | (1 << (ebits - 1)) for _ in range(rows)]
+        exps[0], bases[1], bases[2] = 0, 0, mods[2] + rng.getrandbits(mbits)
+        want, t_pow = timed(lambda: [pow(b, e, m) for b, e, m in zip(bases, exps, mods)])
+        # untimed calls of each engine first: on an 8-core Xeon host a
+        # process's first two threaded GMP batches ran 2-6x slower than
+        # the third (likely the allocator's per-thread arenas filling)
+        for _ in range(2):
+            gmp.powm_batch(bases, exps, mods)
+        if mbits <= 64 * native._MAX_LIMBS:
+            native.crt_modexp_batch(bases, exps, mods)
+        gmp.stats_reset()
+        got, t_gmp = timed(lambda: gmp.powm_batch(bases, exps, mods))
+        sec, t_sec = timed(lambda: gmp.powm_batch(bases, exps, mods, secret=True))
+        st = gmp.stats()
+        if got != want or sec != want:
+            fail(f"host: gmp.powm_batch at {label} disagrees with pow (plain "
+                 f"{sum(a != b for a, b in zip(got, want))} rows, secret "
+                 f"{sum(a != b for a, b in zip(sec, want))} rows)")
+        if st["powm_rows"] != 2 * rows or st["powm_sec_rows"] != rows - 1:
+            fail(f"host: gmp.powm_batch at {label} ran {st}, expected {2 * rows} rows, "
+                 f"{rows - 1} on mpz_powm_sec")
+        _, g1 = serial(lambda: gmp.powm_batch(bases, exps, mods))
+        line = {"pow": t_pow, "gmp": t_gmp, "gmp_secret": t_sec, "gmp_one_thread": g1}
+        if mbits <= 64 * native._MAX_LIMBS and ebits > 256:
+            mpn, t_mpn = timed(lambda: native.crt_modexp_batch(bases, exps, mods))
+            port, t_port = portable(lambda: native.crt_modexp_batch(bases, exps, mods))
+            if mpn != want or port != want:
+                fail(f"host: crt_modexp_batch at {label}: mpn "
+                     f"{'==' if mpn == want else '!='} pow, portable "
+                     f"{'==' if port == want else '!='} pow")
+            line.update(mpn=t_mpn, portable=t_port)
+        if label == shapes[0][0]:
+            m1, mp1 = serial(lambda: native.crt_modexp_batch(bases, exps, mods))
+            p1, pp1 = serial(lambda: portable(
+                lambda: native.crt_modexp_batch(bases, exps, mods))[0])
+            if m1 != want or p1 != want:
+                fail("host: a one-thread crt_modexp_batch disagrees with pow")
+            per = {"CPython pow": t_pow, "GMP powm": g1, "portable": pp1, "mpn": mp1}
+            times["ms_per_op"] = {k: v * 1e3 / rows for k, v in per.items()}
+            times["ms_per_op_threads"] = {"GMP powm": t_gmp * 1e3 / rows,
+                                          "mpn": line["mpn"] * 1e3 / rows}
+            log(f"host: ms per op at {label}, one thread: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in times["ms_per_op"].items())
+                + f"; at {nt} threads: GMP powm {t_gmp * 1e3 / rows:.3f}, mpn "
+                  f"{line['mpn'] * 1e3 / rows:.3f}; {cpu_model()}, native.thread_count() {nt}")
+        times[label] = line
+        log(f"host: gmp.powm_batch (plain and secret) == pow at {label}, {rows} rows "
+            f"(an exponent 0, a base 0, a base above the modulus); seconds "
+            f"{json.dumps({k: round(v, 4) for k, v in line.items()})}")
+
+    # the sieve's gcd against its primorial: the cached operand and the
+    # plain integer, against math.gcd
+    prim, op = primes._sieve_for_bits(1024)
+    cands = [rng.getrandbits(1024) | (3 << 1022) | 1 for _ in range(2000)]
+    want, t_math = timed(lambda: [math.gcd(c, prim) for c in cands])
+    got, t_op = timed(lambda: [gmp.gcd(c, op) for c in cands])
+    plain, t_plain = timed(lambda: [gmp.gcd(c, prim) for c in cands])
+    if got != want or plain != want:
+        fail("host: gmp.gcd against the sieve's primorial disagrees with math.gcd")
+    times["gcd_us"] = {"math.gcd": t_math / len(cands) * 1e6,
+                       "gmp.gcd, cached operand": t_op / len(cands) * 1e6,
+                       "gmp.gcd": t_plain / len(cands) * 1e6}
+    log(f"host: gmp.gcd == math.gcd on {len(cands)} 1024-bit candidates against the "
+        f"{prim.bit_length()}-bit primorial; us per gcd "
+        f"{json.dumps({k: round(v, 2) for k, v in times['gcd_us'].items()})}")
+
+    # Miller-Rabin, mpn against portable: primes, Carmichael numbers, products
+    known = [(1 << 521) - 1, (1 << 607) - 1, (1 << 1279) - 1, (1 << 2203) - 1]
+    gen = primes.gen_primes_batch(1024, 4)
+    cands = known + gen + list(CARMICHAEL) + [gen[0] * gen[1], gen[2] * gen[2],
+                                              known[0] * gen[3], (1 << 1024) + 1]
+    truth = [True] * 8 + [False] * (len(cands) - 8)
+    mpn = native.is_probable_prime_batch(cands, 30)
+    port, _ = portable(lambda: native.is_probable_prime_batch(cands, 30))
+    py = primes._mr_batch(cands, 30)
+    if not (mpn == port == py == truth):
+        fail(f"host: Miller-Rabin verdicts: mpn {mpn}, portable {port}, "
+             f"gmp rounds {py}, expected {truth}")
+    log(f"host: Miller-Rabin verdicts of {len(cands)} candidates (4 Mersenne and 4 "
+        f"generated 1024-bit primes, {len(CARMICHAEL)} Carmichael numbers, 4 products): mpn "
+        f"== portable == GMP rounds == the truth")
+
+    # the comb, mpn against portable, at the leg width
+    mod = rng.getrandbits(1088) | (1 << 1087) | 1
+    base = rng.getrandbits(1080)
+    exps = [rng.getrandbits(1088) for _ in range(rows)] + [0]
+    want = [pow(base, e, mod) for e in exps]
+    mpn, t_mpn = timed(lambda: native.modexp_shared(base, exps, mod))
+    port, t_port = portable(lambda: native.modexp_shared(base, exps, mod))
+    if mpn != want or port != want:
+        fail("host: modexp_shared (mpn or portable) disagrees with pow")
+    times["comb"] = {"mpn": t_mpn, "portable": t_port}
+    log(f"host: modexp_shared == pow, mpn and portable, {len(exps)} rows at 1088 bits: "
+        f"{t_mpn:.4f} s and {t_port:.4f} s")
+
+    # native EC against the Python points
+    def xy(p):
+        return None if p.infinity else (p.x, p.y)
+
+    def point():
+        return GENERATOR * Scalar.from_int(rng.randrange(1, N))
+
+    idxs = list(range(1, 17))
+    for t in (8, 128):
+        commits = [point() for _ in range(t + 1)]
+        got, t_nat = timed(lambda: native_ec.horner_batch([xy(c) for c in commits], idxs))
+        want = []
+        t0 = time.perf_counter()
+        for u in idxs:
+            acc = Point.identity()
+            for a in reversed(commits):
+                acc = acc * u + a
+            want.append(xy(acc))
+        t_py = time.perf_counter() - t0
+        if got != want:
+            fail(f"host: native Horner at t={t} disagrees with the Python points")
+        times[f"horner_t{t}"] = {"native": t_nat, "python": t_py}
+        log(f"host: native Horner == the Python points at t={t}, {len(idxs)} indices: "
+            f"{t_nat * 1e3:.3f} ms against {t_py * 1e3:.3f} ms")
+    P, R = point(), point()
+    lrows = [(P, rng.randrange(N), Point.identity(), rng.randrange(N)),
+             (Point.identity(), rng.randrange(N), R, rng.randrange(N)),
+             (P, 11, -P, 11), (P, 29, P, N - 29), (P, 0, R, 0)]
+    lrows += [(point(), rng.randrange(N), point(), rng.randrange(N)) for _ in range(27)]
+    got = native_ec.lincomb2_batch([xy(r[0]) for r in lrows], [r[1] for r in lrows],
+                                   [xy(r[2]) for r in lrows], [r[3] for r in lrows])
+    want = [xy(p * Scalar.from_int(a) + r * Scalar.from_int(b)) for p, a, r, b in lrows]
+    if got != want or got[2:5] != [None] * 3:
+        fail("host: native lincomb2 disagrees with the Python points")
+    log(f"host: native lincomb2 == the Python points on {len(lrows)} rows (identity P and "
+        f"Q, a negation, a+b=0, zero scalars)")
+    return times
 
 
 def phase_main(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
@@ -1696,6 +1931,7 @@ def phase_trace(dev, inputs, ref_keys, n=16, t=8, bits=2048, m_security=256, rou
 
     from fsdkr_tpu_torch import ProtocolConfig
     from fsdkr_tpu_torch.carry import to_fields
+    from fsdkr_tpu_torch.native import gmp
     from fsdkr_tpu_torch.ops import tally
     from fsdkr_tpu_torch.protocol import RefreshMessage
     from fsdkr_tpu_torch.telemetry.spans import get_tracer
@@ -1725,8 +1961,18 @@ def phase_trace(dev, inputs, ref_keys, n=16, t=8, bits=2048, m_security=256, rou
                  f"another key than the rlc phase's untraced collect")
         return wall
 
+    gmp.stats_reset()
     times["traced_collect"] = collect(True)
     stats, spans, launches = tr.stats(), tr.spans(), tally.by_phase()
+    # the share recovery's encrypt(0) and t+1 homomorphic muls mod n^2
+    # (the collect's other GMP rows: decrypt's two mpz_powm_sec legs)
+    gst = gmp.stats()
+    recovery = stats.get("collect.share_recovery")
+    if recovery is None or gst["powm_rows"] - gst["powm_sec_rows"] < t + 2:
+        fail(f"trace: collect.share_recovery's Paillier rows did not run on GMP: {gst}")
+    times["share_recovery"] = recovery.seconds
+    log(f"trace: collect.share_recovery {recovery.seconds:.4f} s of the traced collect, its "
+        f"{t + 2} Paillier rows on GMP (the collect's GMP rows {json.dumps(gst)})")
     os.makedirs("chiprun_out", exist_ok=True)
     tr.write_chrome_trace(os.path.join("chiprun_out", "collect_trace.json"))
     got = {k: (v.calls, v.items) for k, v in stats.items() if k != "(unphased)"}
@@ -2663,7 +2909,8 @@ def phase_prover(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     times, the committee's keys before (a))."""
     from fsdkr_tpu_torch import ProtocolConfig, native, precompute
     from fsdkr_tpu_torch.backend import crt
-    from fsdkr_tpu_torch.core import vss
+    from fsdkr_tpu_torch.core import primes, vss
+    from fsdkr_tpu_torch.native import gmp
     from fsdkr_tpu_torch.core.secp256k1 import GENERATOR
     from fsdkr_tpu_torch.errors import PDLwSlackProofError
     from fsdkr_tpu_torch.ops import ec_kernels, montgomery_kernels, rns_kernels
@@ -2676,37 +2923,49 @@ def phase_prover(dev, n=16, t=8, bits=2048, m_security=256, rounds=11):
     precompute.clear_pools()
     precompute.clear_targets()
     times = {}
-    native.stats_reset()
+
+    def primes_on_gmp(label):
+        """Every sieved candidate a GMP gcd, every Miller-Rabin round a
+        GMP powm, since the last resets."""
+        st, gen = gmp.stats(), primes.gen_stats()
+        if not gen["candidates"] or st["gcd_calls"] < gen["candidates"] or \
+                st["powm_rows"] < gen["mr_rounds"]:
+            fail(f"prover: {label}'s primes did not go through GMP: {st}, drawn {gen}")
+        return st, gen
+
+    gmp.stats_reset()
+    primes.gen_stats_reset()
     t0 = time.perf_counter()
     pre = simulate_keygen(t, n, config)
     times["keygen"] = time.perf_counter() - t0
-    st = native.stats()
-    if not native.LIB.loaded() or st["mr_batches"] == 0:
-        fail(f"prover: simulate_keygen ran no native Miller-Rabin batch: {st}")
-    log(f"prover: simulate_keygen t={t} n={n}: {times['keygen']:.3f} s; native core "
-        f"{native.LIB.so_path().name}, {native.thread_count()} threads; {st}")
+    st, gen = primes_on_gmp("simulate_keygen")
+    log(f"prover: simulate_keygen t={t} n={n}: {times['keygen']:.3f} s; GMP {st}, prime "
+        f"search {gen}; native core {native.LIB.so_path().name}, engine "
+        f"{native.engine_kind()}, {native.thread_count()} threads")
     for mod in (rns_kernels, montgomery_kernels, ec_kernels):
         mod.reset_launch_counts()
 
     # (a) the inline distribute
-    native.stats_reset()
+    gmp.stats_reset()
+    primes.gen_stats_reset()
     crt.stats_reset()
     precompute.stats_reset()
     before = _launches()
     keys = copy.deepcopy(pre)
     _, wall, phases, _ = span_distribute([(k.i, k) for k in keys], n, config, "inline")
     counts = _sub(_launches(), before)
-    nst, cst, pst = native.stats(), crt.crt_stats(), precompute.precompute_stats()
+    gst, gen = primes_on_gmp("the inline distribute")
+    cst, pst = crt.crt_stats(), precompute.precompute_stats()
     times["inline"] = wall
     times["inline_phases"] = phases
     log(f"prover: inline distribute {wall:.3f} s; launches "
-        f"{json.dumps({k: v for k, v in counts.items() if v})}; native {nst}; CRT {cst}")
-    if nst["mr_batches"] == 0 or nst["mr_rows"] == 0:
-        fail(f"prover: the inline distribute ran no native Miller-Rabin batch: {nst}")
-    # S = T^lambda, one fault-checked row a sender; the provers' columns
-    # run on the card
-    if cst["rows"] != n or cst["fault_checks"] != 2 * n or nst["crt_rows"] != 2 * n:
-        fail(f"prover: S = T^lambda took {cst['rows']} CRT rows, expected {n}: {cst} {nst}")
+        f"{json.dumps({k: v for k, v in counts.items() if v})}; GMP {gst}; prime search "
+        f"{gen}; CRT {cst}")
+    # S = T^lambda, one fault-checked row a sender, its two legs on
+    # mpz_powm_sec; the provers' columns run on the card
+    if cst["rows"] != n or cst["fault_checks"] != 2 * n or gst["powm_sec_rows"] != 2 * n:
+        fail(f"prover: S = T^lambda took {cst['rows']} CRT rows and {gst['powm_sec_rows']} "
+             f"mpz_powm_sec rows, expected {n} and {2 * n}: {cst} {gst}")
     if pst["consumed"] or pst["dry_fallbacks"]:
         fail(f"prover: a distribute of a committee never prefilled touched a pool: {pst}")
     _gate_launches("the inline distribute", counts, JOINT_DISTRIBUTE, "prover")
@@ -2963,6 +3222,9 @@ def phase_serve(dev, committees=(), n=16, t=8, bits=2048, m_security=256, rounds
             f"bundles it took ran beside it, its launches apart {json.dumps(beside)}); "
             f"launches by stage {json.dumps(stages)}; top device time "
             f"{json.dumps({k[:40]: round(v, 3) for k, v in top})}")
+        log(f"serve: the session's finalize {times['stage_s'].get('collect.stream.finalize')} s, "
+            f"its {n} share recoveries {times['stage_s'].get('collect.share_recovery')} s "
+            f"(their Paillier rows on GMP)")
         n_apart = sum(beside.values())
         log(f"serve: the session's wall by stage from the spans (seconds; offers summed over "
             f"their {n * n} spans, the producer's over its thread's spans): "
@@ -4325,6 +4587,9 @@ def main() -> None:
     if "routes" in phases:
         phase_routes(dev, rng)
         done("routes")
+    if "host" in phases:
+        log("host: phase seconds " + json.dumps(phase_host(rng)))
+        done("host")
     pre = None
     if "main" in phases:
         with column_path():

@@ -110,11 +110,33 @@ class HostBatchVerifier(BatchVerifier):
         return [proof.verify(st, hash_alg=self._hash_alg) for proof, st in items]
 
     def validate_feldman(self, items):
-        """Feldman share validation by per-row Horner evaluation."""
-        return [
-            scheme.validate_share_public(point, idx)
-            for scheme, point, idx in items
-        ]
+        """Feldman share validation: one native Horner launch a commitment
+        vector (native/ec.py), the rows sharing a scheme (every receiver
+        slot of one message) staging its t+1 commitments once. A scheme
+        whose indices the core cannot take is checked row by row with the
+        Python points, as in the JAX package."""
+        from ..native import ec as native_ec
+
+        groups: dict = {}
+        for row, (scheme, _, _) in enumerate(items):
+            groups.setdefault(id(scheme), []).append(row)
+        out = [False] * len(items)
+        for rows in groups.values():
+            scheme = items[rows[0]][0]
+            commits = [None if c.infinity else (c.x, c.y) for c in scheme.commitments]
+            evals = native_ec.horner_batch(commits, [items[row][2] for row in rows])
+            if evals is None:  # outside the core's domain: the Python check
+                for row in rows:
+                    scheme, point, idx = items[row]
+                    out[row] = scheme.validate_share_public(point, idx)
+                continue
+            for row, ev in zip(rows, evals):
+                point = items[row][1]
+                if ev is None:
+                    out[row] = point.infinity
+                else:
+                    out[row] = (not point.infinity) and point.x == ev[0] and point.y == ev[1]
+        return out
 
 
 class TracedVerifier:

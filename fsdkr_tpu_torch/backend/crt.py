@@ -11,11 +11,11 @@ two half-width legs with exponents reduced modulo the leg group orders:
 
 (lambda-reduced mod p^2/q^2 on the N^2 shapes). Each leg costs ~1/8 of
 the full ladder (half the squarings at a quarter the per-multiply
-price). The legs run on the native host core (fsdkr_tpu_torch/native),
-as the JAX package's legs do where GMP is absent: their exponents come
-from the factorization, and the fault checks below are host code. An
-own copy of fsdkr_tpu/backend/crt.py, with plain counters in place of
-the telemetry registry.
+price). The legs run on GMP's constant-time `mpz_powm_sec`
+(native/gmp.py, `secret=True`): their exponents come from the
+factorization. The fixed-base column's legs run on the native core's
+one-shot comb (fsdkr_tpu_torch/native). An own copy of
+fsdkr_tpu/backend/crt.py.
 
 ## Fault check (Bellcore), mandatory
 
@@ -281,18 +281,18 @@ def _fresh_check_prime(bases: Sequence[int]) -> int:
 
 
 def _leg_powm(bases: List[int], exps: List[int], mods: List[int]) -> List[int]:
-    """One batch of CRT legs on the native core (run-grouped Montgomery
-    constants, every buffer wiped). Its roofline stamp prices the legs at
-    the leg-modulus width: the leg exponents are factorization-derived
-    secrets, and their bit-lengths must not reach an exported MAC count."""
-    from .. import native
+    """One batch of CRT legs on mpz_powm_sec (GMP's constant-time ladder:
+    the leg exponents are factorization-derived; every operand buffer
+    wiped). Its roofline stamp prices the legs at the leg-modulus width:
+    the exponents' bit-lengths must not reach an exported MAC count."""
+    from ..native import gmp
     from ..telemetry.spans import get_tracer
     from ..utils.roofline import stamp_generic_host
 
     if bases and get_tracer().enabled:
         mod_bits = max(m.bit_length() for m in mods)
         stamp_generic_host(len(bases), mod_bits, mod_bits)
-    return native.crt_modexp_batch(bases, exps, mods)
+    return gmp.powm_batch(bases, exps, mods, secret=True)
 
 
 def _check_leg(base: int, exp: int, r: int, leg_value: int) -> None:
@@ -428,7 +428,9 @@ def crt_powm_shared(
         return []
     if math.gcd(base, ctx.modulus) != 1 or any(e < 0 for e in exps):
         _count(fallback_rows=m)
-        return [pow(base, e, ctx.modulus) for e in exps]
+        from ..native import gmp
+
+        return gmp.powm_batch([base] * m, list(exps), [ctx.modulus] * m, secret=True)
 
     r = _fresh_check_prime([base])
     r1 = r - 1

@@ -68,7 +68,6 @@ from typing import Dict, List
 from ..config import ProtocolConfig, DEFAULT_CONFIG
 from ..core import intops
 from ..core.secp256k1 import N as CURVE_ORDER
-from ..core.secp256k1 import Scalar
 from ..core.transcript import challenge_bits
 from ..ops import ec_batch
 from ..proofs import alice_range, correct_key
@@ -255,13 +254,21 @@ class CudaBatchVerifier(BatchVerifier):
 
     @staticmethod
     def _pdl_u1_host(items, e_vec) -> List[bool]:
-        """u1 == s1*G - e*Q per row (`src/zk_pdl_with_slack.rs:124-127`)."""
-        out = []
-        for idx, (proof, st) in enumerate(items):
-            g_s1 = st.G * Scalar.from_int(proof.s1)
-            e_neg = Scalar.from_int(CURVE_ORDER - e_vec[idx] % CURVE_ORDER)
-            out.append(proof.u1 == g_s1 + st.Q * e_neg)
-        return out
+        """u1 == s1*G - e*Q per row (`src/zk_pdl_with_slack.rs:124-127`),
+        as one native launch of u1 ?= s1*G + (q - e)*Q (native/ec.py)."""
+        from ..native import ec as native_ec
+
+        evals = native_ec.lincomb2_batch(
+            [None if st.G.infinity else (st.G.x, st.G.y) for _, st in items],
+            [p.s1 % CURVE_ORDER for p, _ in items],
+            [None if st.Q.infinity else (st.Q.x, st.Q.y) for _, st in items],
+            [(CURVE_ORDER - e % CURVE_ORDER) % CURVE_ORDER for e in e_vec],
+        )
+        return [
+            p.u1.infinity if ev is None
+            else (not p.u1.infinity) and p.u1.x == ev[0] and p.u1.y == ev[1]
+            for (p, _), ev in zip(items, evals)
+        ]
 
     # -- FSDKRC_RLC: the PDL rows folded a receiver at a time -----------
     def _pdl_rlc_prepare(self, items):

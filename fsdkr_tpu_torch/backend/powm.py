@@ -155,14 +155,16 @@ def powm_cache_stats():
 
 
 def host_powm(bases, exps, moduli) -> List[int]:
-    """Host batched modexp: CPython pow per row. Its roofline stamp
-    prices the exponents at the modulus width: exponent widths are
-    secret-derived on the prover paths and must not shape an exported
-    MAC count."""
+    """Host batched modexp: the system GMP (`native.gmp.powm_batch`,
+    rows over the host's cores). Its roofline stamp prices the exponents
+    at the modulus width: exponent widths are secret-derived on the
+    prover paths and must not shape an exported MAC count."""
+    from ..native import gmp
+
     if bases and get_tracer().enabled:
         mod_bits = max(m.bit_length() for m in moduli)
         stamp_generic_host(len(bases), mod_bits, mod_bits)
-    return [pow(b, e, m) for b, e, m in zip(bases, exps, moduli)]
+    return gmp.powm_batch(list(bases), list(exps), list(moduli))
 
 
 def _tiled(fn, cols, device) -> List[int]:
@@ -426,12 +428,19 @@ def _prod_mod(factors, m) -> int:
 
 
 def _host_joint(bases_rows, exps_rows, moduli) -> List[int]:
-    """The host's joint rows: CPython pow per term, multiplied back;
-    stamped as one shared squaring chain a row at the modulus width."""
+    """The host's joint rows: every term one row of a GMP batch
+    (`native.gmp.powm_batch`), multiplied back; stamped as one shared
+    squaring chain a row at the modulus width."""
+    from ..native import gmp
+
     if moduli and get_tracer().enabled:
         mod_bits = max(m.bit_length() for m in moduli)
         stamp_generic_host(len(moduli), mod_bits, mod_bits)
-    return [_prod_mod([pow(b, e, m) for b, e in zip(bs, es)], m)
+    flat = [(b, e, m) for bs, es, m in zip(bases_rows, exps_rows, moduli)
+            for b, e in zip(bs, es)]
+    vals = iter(gmp.powm_batch([f[0] for f in flat], [f[1] for f in flat],
+                               [f[2] for f in flat]))
+    return [_prod_mod([next(vals) for _ in zip(bs, es)], m)
             for bs, es, m in zip(bases_rows, exps_rows, moduli)]
 
 
@@ -557,8 +566,11 @@ def multi_powm(bases_rows, exps_rows, moduli, device="cuda") -> List[int]:
         g_bases = [key[0] for key, _ in comb_groups]
         g_exps = [[exps_rows[i][t] for i, t in inst] for _, inst in comb_groups]
         g_mods = [key[1] for key, _ in comb_groups]
-        if device is None:
-            res = [[pow(b, e, m) for e in es] for b, es, m in zip(g_bases, g_exps, g_mods)]
+        if device is None:  # the host: each group's rows in one GMP batch
+            from ..native import gmp
+
+            res = [gmp.powm_batch([b] * len(es), es, [m] * len(es))
+                   for b, es, m in zip(g_bases, g_exps, g_mods)]
         else:
             res = device_powm_shared(g_bases, g_exps, g_mods, device)
         for (_, inst), vals in zip(comb_groups, res):

@@ -3,7 +3,8 @@
 The `curv::BigInt` operation surface the reference consumes: mod_pow /
 mod_inv / mod_mul / sampling / byte conversion (usage sites e.g.
 `src/range_proofs.rs:54-63`, `src/zk_pdl_with_slack.rs:177-187`).
-CPython `pow` is the only host engine; batched columns go to the device
+Wide odd-modulus exponentiation runs in the system GMP (native/gmp.py,
+the reference's own bigint backend); batched columns go to the device
 (backend.powm).
 """
 
@@ -29,8 +30,21 @@ __all__ = [
 ]
 
 
+# below this, the bridge's staging costs more than GMP wins over pow
+_NATIVE_POW_MIN_BITS = 1024
+_gmp = None
+
+
 def mod_pow(base: int, exp: int, modulus: int) -> int:
-    """base^exp mod modulus for exp >= 0 (CPython pow)."""
+    """base^exp mod modulus for exp >= 0: `gmp.powm` for odd moduli of
+    `_NATIVE_POW_MIN_BITS` and up, CPython pow below them."""
+    global _gmp
+    if exp >= 0 and modulus & 1 and modulus.bit_length() >= _NATIVE_POW_MIN_BITS:
+        if _gmp is None:
+            from ..native import gmp
+
+            _gmp = gmp
+        return _gmp.powm(base, exp, modulus)
     return pow(base, exp, modulus)
 
 

@@ -1,16 +1,16 @@
 """Prime generation for Paillier / ring-Pedersen moduli.
 
 The reference delegates to GMP through `kzen-paillier`'s
-`keypair_with_modulus_size` (`src/refresh_message.rs:118`). Here it is a
-small-prime sieve (one `math.gcd` against a primorial) plus Miller-Rabin
-in the native host core (fsdkr_tpu_torch/native), one batch a window of
-candidates split over the host's cores. There is no CPython path: a
-candidate the core cannot take raises.
+`keypair_with_modulus_size` (`src/refresh_message.rs:118`). Here it is
+GMP too (native/gmp.py): a small-prime sieve (one `gmp.gcd` against a
+cached primorial) plus Miller-Rabin rounds on `gmp.powm`, a window of
+candidates split over the host's cores. A single candidate
+(`is_probable_prime`) takes the native core's Miller-Rabin. There is no
+CPython path: a candidate the engines cannot take raises.
 """
 
 from __future__ import annotations
 
-import math
 import secrets
 
 __all__ = [
@@ -48,14 +48,41 @@ _WIDE_LIMIT = 1 << 14
 _SIEVE_CACHE: dict = {}
 
 
-def _sieve_for_bits(bits: int) -> int:
-    """Generation-sieve primorial for this candidate width. The bound
-    lies strictly below the smallest candidate 3*2^(bits-2), or every
-    prime in the range would be rejected as 'divides the primorial'."""
+def _sieve_for_bits(bits: int):
+    """(primorial, its cached GMP operand) of the generation sieve for
+    this candidate width. The bound lies strictly below the smallest
+    candidate 3*2^(bits-2), or every prime in the range would be
+    rejected as 'divides the primorial'. The primorial is public: its
+    operand is never wiped (gmp.PublicOperand)."""
     bound = min(_WIDE_LIMIT, 3 << (bits - 2))
-    if bound not in _SIEVE_CACHE:
-        _SIEVE_CACHE[bound] = _primorial(bound)
-    return _SIEVE_CACHE[bound]
+    ent = _SIEVE_CACHE.get(bound)
+    if ent is None:
+        from ..native import gmp
+
+        prim = _primorial(bound)
+        ent = _SIEVE_CACHE.setdefault(bound, (prim, gmp.PublicOperand(prim)))
+    return ent
+
+
+def _mr_rounds(n: int, rounds: int, powm=pow) -> bool:
+    """Miller-Rabin rounds with CSPRNG witnesses over a powm engine
+    (`gmp.powm` in the generation pipeline): the one copy of the
+    witness, decomposition and squaring logic."""
+    d = n - 1
+    r = (d & -d).bit_length() - 1
+    d >>= r
+    for _ in range(rounds):
+        a = 2 + secrets.randbelow(n - 3)
+        x = powm(a, d, n)
+        if x == 1 or x == n - 1:
+            continue
+        for _ in range(r - 1):
+            x = (x * x) % n
+            if x == n - 1:
+                break
+        else:
+            return False
+    return True
 
 
 def is_probable_prime(n: int, rounds: int = 30) -> bool:
@@ -97,24 +124,27 @@ def gen_stats_reset() -> None:
 
 
 def _mr_batch(cands: list, rounds: int) -> list:
-    """Miller-Rabin verdicts of a window of candidates: one native batch,
-    the candidates split over the cores."""
-    from .. import native
+    """Miller-Rabin verdicts of a window of candidates: `_mr_rounds` on
+    `gmp.powm`, the candidates split over the host's cores
+    (`gmp.map_rows`; ctypes releases the GIL around each mpz_powm)."""
+    from ..native import gmp
 
-    return native.is_probable_prime_batch(cands, rounds)
+    return gmp.map_rows(lambda c: _mr_rounds(c, rounds, gmp.powm), cands)
 
 
 def gen_primes_batch(bits: int, count: int) -> list:
     """`count` independent random primes with exactly `bits` bits and the
     top two bits set (see gen_prime for why). The pipeline is windowed:
     draw a window of independent CSPRNG candidates, reject by one gcd
-    against the generation sieve, run ONE native MR(1) batch over the
-    window, then one 29-round confirmation batch over the survivors. The
+    against the generation sieve, run ONE MR(1) batch over the window,
+    then one 29-round confirmation batch over the survivors. The
     candidate distribution is the serial loop's: every candidate is an
     independent uniform draw, windows only change call granularity."""
+    from ..native import gmp
+
     if bits < 8:
         raise ValueError("prime too small")
-    sieve = _sieve_for_bits(bits)
+    sieve = _sieve_for_bits(bits)[1]
     found: list = []
     while len(found) < count:
         need = count - len(found)
@@ -124,7 +154,7 @@ def gen_primes_batch(bits: int, count: int) -> list:
         cands = []
         while len(cands) < target:
             c = secrets.randbits(bits) | (1 << (bits - 1)) | (1 << (bits - 2)) | 1
-            if math.gcd(c, sieve) == 1:
+            if gmp.gcd(c, sieve) == 1:
                 cands.append(c)
         gen = _gen_metric()
         gen.inc(len(cands), event="candidates")

@@ -1,14 +1,20 @@
 """ctypes bridge to the native host bignum core (csrc/fsdkr_native.cpp).
 
-The host paths of the prover that the card does not run: Miller-Rabin
-for prime generation (core/primes.py) and the secret-CRT legs
-(backend/crt.py). A trimmed copy of the JAX package's fsdkr_tpu/native/
-bridge; the library is built with g++ at first use (native/_loader.py),
-and a failed build raises instead of falling back to CPython, as does an
-input outside the core's range (an even modulus, a negative exponent, a
-width over `_MAX_LIMBS`): no call here takes a CPython path. Batches
-split their rows over every core of the host (`set_threads` changes
-that, for tests).
+The host ladders GMP has no amortized entry for: the single-candidate
+Miller-Rabin (core/primes.py), the fixed-base comb of the secret-CRT
+engine (backend/crt.py), and the CRT leg and Miller-Rabin batches. A
+trimmed copy of the JAX package's fsdkr_tpu/native/ bridge; the library
+is built with g++ at first use (native/_loader.py), and a failed build
+raises instead of falling back to CPython, as does an input outside the
+core's range (an even modulus, a negative exponent, a width over
+`_MAX_LIMBS`): no call here takes a CPython path. Batches split their
+rows over every core of the host (`set_threads` changes that, for tests,
+and so the threads of the GMP bridge, native/gmp.py).
+
+The Montgomery product runs on libgmp's mpn functions, resolved when the
+library loads; a libgmp without them raises NativeBuildError.
+`set_mpn(0)` puts the portable u128 loop back, a test hook with the same
+results.
 
 Limb staging follows the JAX package's wipe discipline: every buffer
 that held a secret operand (a prime candidate, a leg modulus, an
@@ -31,6 +37,8 @@ __all__ = [
     "available",
     "set_threads",
     "thread_count",
+    "set_mpn",
+    "engine_kind",
     "stats",
     "stats_reset",
     "crt_modexp_batch",
@@ -44,16 +52,29 @@ _MAX_LIMBS = 130  # 8320 bits, keep in sync with MAXL in csrc
 
 _U64P = ctypes.POINTER(ctypes.c_uint64)
 _INT = ctypes.c_int
+
+
+def _configure(lib: ctypes.CDLL) -> None:
+    """Every core, and the mpn engine, which must resolve."""
+    lib.fsdkr_set_threads(0)
+    if lib.fsdkr_set_mpn(1) != 1:
+        raise NativeBuildError(
+            "libgmp.so.10's mpn functions did not resolve: the native core needs them")
+
+
 LIB = NativeLib(
     _PKG / "csrc" / "fsdkr_native.cpp",
     {
         "fsdkr_set_threads": (_INT,),
         "fsdkr_get_threads": (),
+        "fsdkr_set_mpn": (_INT,),
+        "fsdkr_engine_kind": (),
         "fsdkr_miller_rabin": (_U64P, _INT, _U64P, _INT),
         "fsdkr_miller_rabin_batch": (_U64P, _U64P, ctypes.POINTER(_INT), _INT, _INT, _INT),
         "fsdkr_crt_modexp_batch": (_U64P, _U64P, _U64P, _U64P, _INT, _INT, _INT, _INT),
         "fsdkr_modexp_shared_w": (_U64P, _U64P, _U64P, _U64P, _INT, _INT, _INT, _INT),
     },
+    on_load=_configure,
 )
 
 # calls that ran in the native core, by kind (chip_smoke gates on them)
@@ -61,7 +82,6 @@ _STATS: Dict[str, int] = {}
 _STAT_KEYS = ("mr_batches", "mr_rows", "crt_batches", "crt_rows", "comb_calls", "comb_rows")
 # the serving layer's workers and producer call the core side by side
 _STATS_LOCK = threading.Lock()
-_threads_set = False
 
 
 def _count(**kw) -> None:
@@ -81,12 +101,7 @@ def stats_reset() -> None:
 
 
 def _get() -> ctypes.CDLL:
-    global _threads_set
-    lib = LIB.get()
-    if not _threads_set:
-        lib.fsdkr_set_threads(0)  # every core
-        _threads_set = True
-    return lib
+    return LIB.get()
 
 
 def available() -> bool:
@@ -97,16 +112,30 @@ def available() -> bool:
 
 
 def set_threads(n: int) -> int:
-    """Row-parallel threads of the batch calls (0: every core, 1:
-    serial); results are the same at any count. Returns the count."""
-    global _threads_set
-    lib = LIB.get()
-    _threads_set = True
-    return int(lib.fsdkr_set_threads(int(n)))
+    """Row-parallel threads of the batch calls, here and in the GMP
+    bridge (0: every core, 1: serial); results are the same at any
+    count. Returns the count."""
+    return int(_get().fsdkr_set_threads(int(n)))
 
 
 def thread_count() -> int:
     return int(_get().fsdkr_get_threads())
+
+
+def set_mpn(on: int) -> str:
+    """The Montgomery product's engine: libgmp's mpn functions (on, the
+    default) or the portable u128 loop (0), a test hook; results are
+    bit-identical. Returns `engine_kind()`."""
+    lib = _get()
+    if lib.fsdkr_set_mpn(int(on)) != (1 if on else 0):
+        raise NativeBuildError("libgmp.so.10's mpn functions did not resolve")
+    return engine_kind()
+
+
+def engine_kind() -> str:
+    """The active engine: "mpn" (libgmp's asm basecase and REDC) or
+    "portable" (the u128 CIOS/SOS loop, after `set_mpn(0)`)."""
+    return "mpn" if _get().fsdkr_engine_kind() else "portable"
 
 
 def _limbs_for(x: int) -> int:

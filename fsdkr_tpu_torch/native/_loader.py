@@ -1,4 +1,5 @@
-"""Build and load the native host core (csrc/fsdkr_native.cpp) with g++.
+"""Build and load the native host cores (csrc/fsdkr_native.cpp, the
+bignum core, and csrc/fsdkr_ec.cpp, the secp256k1 core) with g++.
 
 The library is compiled at first use into `build/` beside the package
 (the directory the CUDA kernels build into), named by the source's hash
@@ -22,13 +23,16 @@ import platform
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 __all__ = ["NativeBuildError", "NativeLib"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _BUILD = _PKG / "build"
 CXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-pthread"]
+# after the source: the bignum core resolves libgmp's mpn functions with
+# dlopen, which glibc before 2.34 keeps in libdl
+LD_LIBS = ["-ldl"]
 
 
 class NativeBuildError(RuntimeError):
@@ -52,17 +56,22 @@ def _cpu_feature_tag() -> str:
 class NativeLib:
     """Lazy, thread-safe loader of one C++ source: `get()` builds (once)
     and returns the ctypes library, each of `symbols` (name -> argtypes)
-    given its argtypes and restype c_int, or raises NativeBuildError."""
+    given its argtypes and restype c_int, or raises NativeBuildError.
+    `on_load(lib)`, if given, runs once on the loaded library before any
+    caller sees it (and may raise NativeBuildError)."""
 
-    def __init__(self, src: Path, symbols: Dict[str, Sequence]):
+    def __init__(self, src: Path, symbols: Dict[str, Sequence],
+                 on_load: Optional[Callable[[ctypes.CDLL], None]] = None):
         self._src = Path(src)
         self._symbols = dict(symbols)
+        self._on_load = on_load
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
 
     def so_path(self) -> Path:
         text = self._src.read_bytes()
-        tag = hashlib.sha256(text + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
+        flags = " ".join(CXX_FLAGS + LD_LIBS)
+        tag = hashlib.sha256(text + flags.encode()).hexdigest()[:16]
         return _BUILD / (
             f"lib{self._src.stem}-{tag}-{platform.machine()}-{_cpu_feature_tag()}.so"
         )
@@ -72,7 +81,8 @@ class NativeLib:
         if not so.exists():
             _BUILD.mkdir(parents=True, exist_ok=True)
             tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-            cmd = [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", str(tmp), str(self._src)]
+            cmd = [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", str(tmp), str(self._src),
+                   *LD_LIBS]
             try:
                 proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
             except (OSError, subprocess.SubprocessError) as e:
@@ -95,6 +105,8 @@ class NativeLib:
                 fn.restype = ctypes.c_int
         except (OSError, AttributeError) as e:
             raise NativeBuildError(f"cannot load {so.name}: {e}") from e
+        if self._on_load is not None:
+            self._on_load(lib)
         return lib
 
     def get(self) -> ctypes.CDLL:

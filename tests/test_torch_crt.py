@@ -12,6 +12,9 @@ the JAX package's (FSDKR_CRT), at 512-1024 bits.
   engines monkeypatched to fault).
 - No factorization-derived integer reaches the public precompute cache
   (utils/lru.py), while a device-route column on the CPU does fill it.
+- The legs, and the fixed-base column's rows that cannot take them, run
+  on GMP's constant-time mpz_powm_sec (native/gmp.py, `secret=True`);
+  the values and the fault checks are the JAX package's.
 """
 
 import random
@@ -30,6 +33,7 @@ from fsdkr_tpu_torch.backend.powm import crt_powm, device_powm_grouped
 from fsdkr_tpu_torch.carry import from_reference
 from fsdkr_tpu_torch.core import paillier, primes
 from fsdkr_tpu_torch.errors import CrtFaultError
+from fsdkr_tpu_torch.native import gmp
 from fsdkr_tpu_torch.proofs import ring_pedersen as rp
 from fsdkr_tpu_torch.proofs.correct_key import NiCorrectKeyProof
 
@@ -142,6 +146,46 @@ def test_crt_powm_route_and_shared_match_jax(moduli, both_gates, on):
     got = crt.crt_powm_shared(base, col, crt.get_context(n, p, q))
     assert got == [pow(base, e, n) for e in col]
     assert got == jcrt.crt_powm_shared(base, col, jcrt.get_context(n, p, q))
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+def test_legs_run_on_gmp_secret_rows(moduli, both_gates, threads):
+    """crt_modexp_batch's legs and fault_checked_powm's leg are secret
+    rows of one GMP batch; crt_powm_shared's column with a non-unit base
+    or a negative exponent is too (at full width), equal to the JAX
+    package's at 1 and 4 threads."""
+    both_gates(True)
+    n, p, q = moduli[1]
+    ctx, jctx = crt.get_context(n, p, q), jcrt.get_context(n, p, q)
+    bases = [_rand_int(700) for _ in range(5)]
+    exps = [_rand_int(768) for _ in range(5)]
+    native.set_threads(threads)
+    try:
+        gmp.stats_reset()
+        got = crt.crt_modexp_batch(bases, exps, [ctx] * 5)
+        st = gmp.stats()
+        assert (st["powm_batches"], st["powm_rows"], st["powm_sec_rows"]) == (1, 10, 10)
+        assert got == [pow(b, e, n) for b, e in zip(bases, exps)]
+        assert got == jcrt.crt_modexp_batch(bases, exps, [jctx] * 5)
+
+        gmp.stats_reset()
+        leg = crt.fault_checked_powm(bases[0], p - 1, p * p)
+        assert leg == jcrt.fault_checked_powm(bases[0], p - 1, p * p)
+        assert gmp.stats()["powm_sec_rows"] == 1
+
+        base = pow(_rand_int(700), 2, n)
+        for b, col in ((p * 3, exps), (base, [5, -3, 0, _rand_int(768)])):
+            crt.stats_reset()
+            gmp.stats_reset()
+            got = crt.crt_powm_shared(b, col, ctx)
+            assert got == jcrt.crt_powm_shared(b, col, jctx)
+            assert got == [pow(b, e, n) for e in col]
+            assert crt.crt_stats()["fallback_rows"] == len(col)
+            # exponent 0 and the negative exponent are not mpz_powm_sec rows
+            nonpos = sum(e <= 0 for e in col)
+            assert gmp.stats()["powm_sec_rows"] == len(col) - nonpos
+    finally:
+        native.set_threads(0)
 
 
 def test_fault_checked_powm_matches_jax(moduli):

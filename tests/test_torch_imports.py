@@ -4,8 +4,11 @@ copies). Checked in a subprocess — tests/conftest.py imports jax into
 this one — and by a static scan of the sources and chip_smoke.py. The
 serving, telemetry and precompute layers, the roofline and the load
 generator read no environment variable: their knobs are arguments (the
-JAX package's FSDKR_* variables). The serving layer imports nothing of
-the backend: it reads the verifier's counters from the registry.
+JAX package's FSDKR_* variables), and so does the host bignum layer
+(the GMP bridge, native EC, intops, the prime pipeline: no FSDKR_GMP,
+FSDKR_THREADS, FSDKR_NATIVE_EC or FSDKR_NATIVE_POW). The serving layer
+imports nothing of the backend: it reads the verifier's counters from
+the registry.
 """
 
 import pkgutil
@@ -76,7 +79,9 @@ def test_scan_sees_the_whole_package():
     sources = _sources()
     assert (PORT / "csrc" / "rns_kernels.cu") in sources
     assert (PORT / "csrc" / "fsdkr_native.cpp") in sources
-    for part in ("native/__init__.py", "native/_loader.py", "backend/crt.py",
+    assert (PORT / "csrc" / "fsdkr_ec.cpp") in sources
+    for part in ("native/__init__.py", "native/_loader.py", "native/gmp.py", "native/ec.py",
+                 "backend/crt.py",
                  "precompute/__init__.py", "precompute/pools.py",
                  "precompute/producer.py", "serving/service.py", "serving/recovery.py",
                  "serving/journal.py", "telemetry/registry.py", "telemetry/flight.py",
@@ -103,6 +108,14 @@ def test_layer_reads_no_environment(layer):
 @pytest.mark.parametrize("part", ["telemetry/spans.py", "utils/roofline.py",
                                   "serving/loadgen.py"])
 def test_tracer_roofline_and_loadgen_read_no_environment(part):
+    text = (PORT / part).read_text()
+    hits = [i for i, line in enumerate(text.splitlines(), 1) if _ENV_READ.search(line)]
+    assert not hits, (part, hits)
+
+
+@pytest.mark.parametrize("part", ["native/gmp.py", "native/ec.py", "native/__init__.py",
+                                  "core/intops.py", "core/primes.py"])
+def test_host_bignum_layer_reads_no_environment(part):
     text = (PORT / part).read_text()
     hits = [i for i, line in enumerate(text.splitlines(), 1) if _ENV_READ.search(line)]
     assert not hits, (part, hits)
@@ -142,6 +155,9 @@ def test_new_serving_modules_have_the_jax_packages_public_names():
         ("serving.loadgen", ("run_window", "collect_sessions", "classify_chaos",
                              "run_tamper_curve", "run_crash_storm", "run_net_storm",
                              "run_net_client", "main")),
+        ("native.gmp", ("powm", "powm_batch", "gcd", "PublicOperand")),
+        ("native.ec", ("horner_batch", "lincomb2_batch")),
+        ("native", ("engine_kind", "thread_count")),
     ):
         m = importlib.import_module(f"fsdkr_tpu_torch.{mod}")
         assert set(names) <= set(m.__all__), mod

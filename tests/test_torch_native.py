@@ -9,7 +9,10 @@ JAX package's bridge, at 512-1024 bits.
 - The CRT leg batch and the one-shot comb agree with pow, at any thread
   count.
 - The windowed prime pipeline yields primes of the asked width with the
-  top two bits set, through native batches.
+  top two bits set, its sieve and Miller-Rabin rounds through GMP
+  (native/gmp.py).
+- The Montgomery product runs on libgmp's mpn functions ("mpn"), and
+  gives the portable loop's bits (`set_mpn(0)`) and the JAX core's.
 - A failed build raises, and so does an input outside the core's range
   (no silent CPython path); the widest CRT leg the protocol makes (p^2 r
   at 8192-bit Paillier) is inside it.
@@ -24,6 +27,7 @@ import pytest
 from fsdkr_tpu import native as jnative
 from fsdkr_tpu_torch import native
 from fsdkr_tpu_torch.core import primes
+from fsdkr_tpu_torch.native import gmp
 from fsdkr_tpu_torch.native._loader import NativeBuildError, NativeLib
 
 RNG = np.random.default_rng(0x5EED)
@@ -152,14 +156,17 @@ def test_comb_matches_pow(prime_pool):
 
 
 def test_windowed_pipeline_widths_and_native_batches():
-    native.stats_reset()
+    gmp.stats_reset()
+    primes.gen_stats_reset()
     ps = primes.gen_primes_batch(512, 3)
     assert len(ps) == 3
     for p in ps:
         assert p.bit_length() == 512 and p >> 510 == 3
         assert _mr_rounds(p, 20)
-    st = native.stats()
-    assert st["mr_batches"] >= 2 and st["mr_rows"] >= 3
+    st, gen = gmp.stats(), primes.gen_stats()
+    # every sieved candidate a GMP gcd, every Miller-Rabin round a GMP powm
+    assert st["gcd_calls"] >= gen["candidates"] >= 3
+    assert st["powm_rows"] == gen["mr_rounds"] >= 3 + 29 * 3
     for n, p, q in primes.gen_moduli_batch(1024, 2):
         assert n == p * q and p != q and n.bit_length() == 1024
 
@@ -187,3 +194,46 @@ def test_python_oracle_agrees_on_small_primes():
     small = [rng.randrange(5, 1 << 40) | 1 for _ in range(64)]
     got = native.is_probable_prime_batch(small, 20)
     assert got == [_mr_rounds(c, 20) for c in small]
+
+
+def test_engine_is_mpn_and_portable_is_a_hook():
+    assert native.engine_kind() == "mpn"
+    try:
+        assert native.set_mpn(0) == "portable" == native.engine_kind()
+    finally:
+        assert native.set_mpn(1) == "mpn"
+
+
+@pytest.mark.parametrize("threads", [1, 3])
+def test_mpn_core_matches_portable_and_jax(prime_pool, threads):
+    """The CRT leg batch, the comb and Miller-Rabin on the mpn engine
+    against the portable loop (set_mpn(0)), the JAX core and pow, at
+    1 to 64 limbs (the JAX core's widest) and at 8256 bits (the port's
+    widest leg)."""
+    rows = []
+    for bits in (64, 520, 1088, 2048, 4096):
+        m = _rand_int(bits) | 1
+        for _ in range(3):
+            rows.append((_rand_int(bits + 64) % m, _rand_int(bits), m))
+        rows.append((m - 1, (1 << bits) - 1, m))  # every exponent bit set
+    b, e, m = (list(c) for c in zip(*rows))
+    wide = (_rand_int(8000), _rand_int(4096), _rand_int(8256) | 1)
+    cands = _candidates(prime_pool)
+    native.set_threads(threads)
+    try:
+        got = native.crt_modexp_batch(b, e, m)
+        comb = native.modexp_shared(b[5], e[4:8], m[5])
+        got_wide = native.crt_modexp_batch(*([x] for x in wide))
+        mr = native.is_probable_prime_batch(cands, 30)
+        native.set_mpn(0)
+        assert native.crt_modexp_batch(b, e, m) == got
+        assert native.modexp_shared(b[5], e[4:8], m[5]) == comb
+        assert native.crt_modexp_batch(*([x] for x in wide)) == got_wide
+        assert native.is_probable_prime_batch(cands, 30) == mr
+    finally:
+        native.set_mpn(1)
+        native.set_threads(0)
+    assert got == [pow(*r) for r in rows] == jnative.crt_modexp_batch(b, e, m)
+    assert comb == [pow(b[5], x, m[5]) for x in e[4:8]]
+    assert got_wide == [pow(*wide)]
+    assert mr == [_mr_rounds(c, 30) for c in cands]
